@@ -1,0 +1,112 @@
+"""The port's CUDA kernel against its plain PyTorch version, on the card.
+
+Each test skips where no CUDA device is present. On a GPU machine without
+JAX, run this file without the suite's conftest (which sets up JAX):
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+The plain version runs on the CPU copy of the inputs, where
+``index_add_`` sums a row's duplicate gradients in list order, as the
+kernel does; on the card it adds with atomics in no fixed order, which
+rows repeated thousands of times turn into 1e-3 relative differences.
+Tolerance ``rtol = atol = 1e-5``: both sides then round the same f32
+operations in the same order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import hybridbackend_tpu_torch as hbt
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture
+def dev():
+  if not torch.cuda.is_available():
+    pytest.skip('needs a CUDA device')
+  torch.backends.cuda.matmul.allow_tf32 = False
+  return torch.device('cuda', 0)
+
+
+def _case(dev, v, d, n, distinct, seed):
+  rng = np.random.RandomState(seed)
+  hot = rng.choice(v, min(distinct, v), replace=False)
+  rows = hot[rng.randint(0, len(hot), n)].astype(np.int32)
+  if n:
+    rows[rng.rand(n) < 0.05] = -1
+    rows[rng.rand(n) < 0.05] = v + 3
+  rows = torch.from_numpy(np.sort(rows)).to(dev)
+  g = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to(dev)
+  table = torch.from_numpy(rng.uniform(-1, 1, (v, d)).astype(np.float32))
+  return table.to(dev), torch.full((v, d), 0.1, device=dev), rows, g
+
+
+@pytest.mark.parametrize('v,d,n,distinct', [
+    (1000, 16, 5000, 300), (1000, 1, 5000, 300), (997, 33, 4000, 50),
+    (4096, 128, 20000, 4000), (64, 16, 20000, 2),   # long runs
+    (100, 16, 0, 1), (100, 16, 1, 1)])
+def test_kernel_matches_plain_version(dev, v, d, n, distinct):
+  table, acc, rows, g = _case(dev, v, d, n, distinct, seed=v + d + n)
+  tk, ak = table.clone(), acc.clone()
+  before = hbt.adagrad_update_sorted.launches
+  hbt.adagrad_update_sorted(tk, ak, rows, g, 0.05)
+  assert hbt.adagrad_update_sorted.launches == before + 1
+  tr, ar = table.cpu(), acc.cpu()
+  hbt.adagrad_update_sorted_reference(tr, ar, rows.cpu(), g.cpu(), 0.05)
+  torch.testing.assert_close(ak.cpu(), ar, **TOL)
+  torch.testing.assert_close(tk.cpu(), tr, **TOL)
+  touched = torch.zeros(v, dtype=torch.bool, device=dev)
+  touched[rows[(rows >= 0) & (rows < v)].long()] = True
+  assert torch.equal(tk[~touched], table[~touched])
+  assert torch.equal(ak[~touched], acc[~touched])
+
+
+def test_lr_is_read_on_the_device(dev):
+  table, acc, rows, g = _case(dev, 500, 16, 2000, 100, seed=1)
+  lr = torch.full((), 0.05, device=dev)
+  want_t, want_a = table.clone(), acc.clone()
+  hbt.adagrad_update_sorted_reference(want_t, want_a, rows, g, 0.2)
+  lr.fill_(0.2)                      # a schedule changes the tensor only
+  hbt.adagrad_update_sorted(table, acc, rows, g, lr)
+  torch.testing.assert_close(table, want_t, **TOL)
+  torch.testing.assert_close(acc, want_a, **TOL)
+
+
+def test_sparse_step_runs_the_kernel_on_the_card(dev):
+  ctx = hbt.Context(dev)
+  specs = [hbt.EmbeddingSpec(hbt.TableConfig(f'c{i}', 500, 16))
+           for i in range(3)]
+  fx = hbt.StackedFeatureExtractor(specs, dense_columns=['i0'], ctx=ctx)
+  gen = torch.Generator().manual_seed(0)
+  tower = hbt.StackedDCNv2([16] * 3 + [1], [32, 1], generator=gen,
+                           device=dev)
+  state = hbt.SparseTrainState.create(
+      tower, fx.init(gen), lambda p: torch.optim.Adam(p, lr=1e-3))
+
+  def loss_fn(tower, emb_f, dense_f, batch):
+    p = torch.clamp(tower(emb_f + dense_f), 1e-6, 1 - 1e-6)
+    y = batch['label']
+    return -torch.mean(y * torch.log(p) + (1 - y) * torch.log(1 - p)), {}
+
+  step = hbt.make_sparse_train_step(fx, loss_fn)
+  rng = np.random.RandomState(0)
+  batch = {f'c{i}': torch.from_numpy(
+      rng.randint(-5, 520, 64).astype(np.int32)).to(dev) for i in range(3)}
+  batch['i0'] = torch.rand(64, device=dev)
+  batch['label'] = torch.randint(0, 2, (64,), device=dev).float()
+  before = hbt.adagrad_update_sorted.launches
+  for _ in range(3):
+    state, m = step(state, batch)
+  assert hbt.adagrad_update_sorted.launches == before + 3
+  assert torch.isfinite(m['loss'])
+
+
+def test_kernel_rejects_non_contiguous_tables(dev):
+  table = torch.zeros((16, 8), device=dev).t()
+  acc = torch.zeros((8, 16), device=dev)
+  with pytest.raises(ValueError, match='contiguous'):
+    hbt.adagrad_update_sorted(table, acc,
+                              torch.zeros(2, dtype=torch.int32, device=dev),
+                              torch.zeros((2, 16), device=dev), 0.1)

@@ -1,0 +1,35 @@
+"""The PyTorch port imports no JAX and builds no kernel at import."""
+
+import subprocess
+import sys
+import textwrap
+
+import torch
+
+import hybridbackend_tpu_torch as hbt
+
+
+def test_import_leaves_jax_out():
+  code = textwrap.dedent("""
+      import sys
+      import hybridbackend_tpu_torch
+      bad = sorted(m for m in sys.modules
+                   if m == 'jax' or m.startswith('jax.')
+                   or m == 'hybridbackend_tpu'
+                   or m.startswith('hybridbackend_tpu.'))
+      print(repr(bad))
+  """)
+  out = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                       text=True, check=True, timeout=120)
+  assert out.stdout.strip() == '[]', out.stdout
+
+
+def test_cpu_wrapper_does_not_count_a_launch():
+  table = torch.zeros((8, 4))
+  acc = torch.full((8, 4), 0.1)
+  rows = torch.tensor([1, 1, 3], dtype=torch.int32)
+  before = hbt.adagrad_update_sorted.launches
+  hbt.adagrad_update_sorted(table, acc, rows, torch.ones((3, 4)), 0.05)
+  assert hbt.adagrad_update_sorted.launches == before
+  assert bool((acc[1] > 0.1).all())               # updated by the plain path
+  assert torch.equal(acc[0], torch.full((4,), 0.1))  # untouched row

@@ -1,0 +1,142 @@
+"""Sparse Adagrad of the PyTorch port against the JAX package.
+
+The plain PyTorch version of the update kernel is held against the JAX
+Pallas kernel (in interpret mode) and against the JAX XLA path
+(``_dedup_grads`` + ``_adagrad_rows``), on one update list with
+duplicates, ``-1`` rows and rows ``>= V``.
+
+Tolerance ``rtol = atol = 1e-5``: the paths sum a row's duplicate
+gradients in different f32 orders. Against a float64 reference the
+Pallas kernel strays by at most 2e-5 absolute on accumulators near 100
+and 6e-8 on the table, which the relative part covers.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hybridbackend_tpu.embedding import sparse_update as jsu
+from hybridbackend_tpu.embedding import table as jtable
+from hybridbackend_tpu.framework.context import (
+    Context as JContext, build_mesh, context_scope)
+from hybridbackend_tpu.ops.pallas.scatter import (
+    adagrad_update_sorted as jax_adagrad_update_sorted)
+
+import hybridbackend_tpu_torch as hbt
+
+V, D, N = 4096, 16, 3000
+LR, EPS = 0.05, 1e-7
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _inputs(seed=0):
+  rng = np.random.RandomState(seed)
+  hot = rng.choice(V, 400, replace=False)
+  rows = hot[rng.randint(0, 400, N)].astype(np.int32)
+  rows[rng.choice(N, 60, replace=False)] = -1
+  rows[rng.choice(N, 60, replace=False)] = V + rng.randint(0, 100, 60)
+  grads = (rng.randn(N, D) * 3).astype(np.float32)
+  table = rng.uniform(-0.25, 0.25, (V, D)).astype(np.float32)
+  acc = np.full((V, D), 0.1, np.float32)
+  order = np.argsort(rows, kind='stable')
+  return table, acc, rows[order], grads[order]
+
+
+def _port(table, acc, rows, grads):
+  t, a = torch.from_numpy(table.copy()), torch.from_numpy(acc.copy())
+  hbt.adagrad_update_sorted_reference(t, a, torch.from_numpy(rows),
+                                      torch.from_numpy(grads), LR, EPS)
+  return t.numpy(), a.numpy()
+
+
+def test_reference_matches_pallas_kernel():
+  table, acc, rows, grads = _inputs()
+  want_t, want_a = jax_adagrad_update_sorted(
+      jnp.asarray(table), jnp.asarray(acc), jnp.asarray(rows),
+      jnp.asarray(grads), lr=LR, eps=EPS, interpret=True)
+  got_t, got_a = _port(table, acc, rows, grads)
+  np.testing.assert_allclose(got_a, np.asarray(want_a), **TOL)
+  np.testing.assert_allclose(got_t, np.asarray(want_t), **TOL)
+
+
+def test_reference_matches_xla_path():
+  table, acc, rows, grads = _inputs(1)
+  urows, gsum = jsu._dedup_grads(jnp.asarray(rows), jnp.asarray(grads),
+                                 oob_row=V)
+  want_t, want_a = jsu._adagrad_rows(jnp.asarray(table), jnp.asarray(acc),
+                                     urows, gsum, LR, EPS)
+  got_t, got_a = _port(table, acc, rows, grads)
+  np.testing.assert_allclose(got_a, np.asarray(want_a), **TOL)
+  np.testing.assert_allclose(got_t, np.asarray(want_t), **TOL)
+  touched = np.unique(rows[(rows >= 0) & (rows < V)])
+  untouched = np.setdiff1d(np.arange(V), touched)
+  np.testing.assert_array_equal(got_t[untouched], table[untouched])
+  np.testing.assert_array_equal(got_a[untouched], acc[untouched])
+
+
+def test_reference_takes_unsorted_rows_and_tensor_lr():
+  table, acc, rows, grads = _inputs(2)
+  perm = np.random.RandomState(3).permutation(N)
+  want_t, want_a = _port(table, acc, rows, grads)
+  t, a = torch.from_numpy(table.copy()), torch.from_numpy(acc.copy())
+  hbt.adagrad_update_sorted(t, a, torch.from_numpy(rows[perm]),
+                            torch.from_numpy(grads[perm]),
+                            torch.tensor(LR), EPS)
+  np.testing.assert_allclose(a.numpy(), want_a, **TOL)
+  np.testing.assert_allclose(t.numpy(), want_t, **TOL)
+
+
+@pytest.mark.parametrize('shuffle', [False, True])
+def test_sparse_adagrad_apply_matches_jax(shuffle):
+  """The port's full update (validity, row mixing, stable sort, kernel)
+  against the JAX replicated update, on [B, K] ids that are not sorted."""
+  vocab = 3000
+  rng = np.random.RandomState(4)
+  ids = rng.randint(0, 300, (64, 5)).astype(np.int32)
+  ids[::9, 0] = -1
+  ids[1::7, 2] = vocab + 3
+  demb = rng.randn(64, 5, D).astype(np.float32)
+  jcfg = jtable.TableConfig('t', vocab, D, shuffle_ids=shuffle)
+  tcfg = hbt.TableConfig('t', vocab, D, shuffle_ids=shuffle)
+  ctx = JContext(build_mesh(devices=jax.devices()[:1]))
+  with context_scope(ctx):
+    jt = jtable.create_table(jcfg, jax.random.PRNGKey(0), ctx)
+    state = jsu.init_adagrad_state(jt)
+    want_t, want_s = jsu.sparse_adagrad_apply(
+        jt, state, jnp.asarray(ids), jnp.asarray(demb), jcfg, LR, ctx=ctx)
+  t = torch.from_numpy(np.asarray(jt).reshape(-1, D).copy())
+  st = hbt.init_adagrad_state(t)
+  got_t, got_s = hbt.sparse_adagrad_apply(
+      t, st, torch.from_numpy(ids), torch.from_numpy(demb), tcfg, LR)
+  assert got_t is t and got_s is st            # updated in place
+  np.testing.assert_allclose(st.acc[0].numpy(),
+                             np.asarray(want_s.acc[0]).reshape(-1, D), **TOL)
+  np.testing.assert_allclose(t.numpy(), np.asarray(want_t).reshape(-1, D),
+                             **TOL)
+
+
+def test_nodedup_is_not_ported():
+  cfg = hbt.TableConfig('t', 8, 4)
+  t = torch.zeros((8, 4))
+  with pytest.raises(NotImplementedError, match='ROADMAP'):
+    hbt.sparse_adagrad_apply(t, hbt.init_adagrad_state(t),
+                             torch.zeros(3, dtype=torch.int32),
+                             torch.zeros(3, 4), cfg, LR, dedup=False)
+
+
+@pytest.mark.parametrize('bad', ['bf16', 'int64_rows', 'shape', 'acc'])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+  t, a = torch.zeros((8, 4)), torch.zeros((8, 4))
+  rows, g = torch.zeros(3, dtype=torch.int32), torch.zeros((3, 4))
+  if bad == 'bf16':
+    t, a = t.bfloat16(), a.bfloat16()
+  elif bad == 'int64_rows':
+    rows = rows.long()
+  elif bad == 'shape':
+    g = torch.zeros((3, 5))
+  else:
+    a = torch.zeros((8, 5))
+  with pytest.raises((TypeError, ValueError)):
+    hbt.adagrad_update_sorted(t, a, rows, g, LR)
