@@ -2,19 +2,20 @@
 
 The port lives beside the JAX package, which stays the reference it is
 tested against. It imports ``torch`` and never ``jax``, and nothing from
-``hybridbackend_tpu``. This slice covers the flagship sparse train step:
-stacked embedding tables, the stacked DCNv2 tower, Adam on the tower and
-row-sparse Adagrad on the tables, the last through a CUDA kernel written
-for Hopper (``ops/csrc/adagrad_update.cu``). Kernels are built at first
-use, never at import.
+``hybridbackend_tpu``. It covers the sparse train step: stacked embedding
+tables, the stacked DCNv2 and DLRM towers, a torch optimizer on the tower,
+and row-sparse Adagrad (with or without duplicate combining), SGD or
+LazyAdam on the tables, each through a CUDA kernel written for Hopper
+(``ops/csrc/``). Kernels are built at first use, never at import.
 """
 
 __version__ = '0.1.0'
 
-from hybridbackend_tpu_torch.convert import from_jax, load_dcn_v2
+from hybridbackend_tpu_torch.convert import from_jax, load_dcn_v2, load_dlrm
 from hybridbackend_tpu_torch.embedding.lookup import lookup
 from hybridbackend_tpu_torch.embedding.sparse_update import (
-    SparseOptState, init_adagrad_state, sparse_adagrad_apply)
+    SparseOptState, init_adagrad_state, init_adam_state,
+    sparse_adagrad_apply, sparse_adam_apply, sparse_sgd_apply)
 from hybridbackend_tpu_torch.embedding.stack import (
     TableStack, build_stacks, create_stacked_tables, member_tables,
     pack_ids, unpack_embeddings)
@@ -24,8 +25,10 @@ from hybridbackend_tpu_torch.framework.context import Context
 from hybridbackend_tpu_torch.models.feature import (
     EmbeddingSpec, StackedFeatureExtractor)
 from hybridbackend_tpu_torch.models.layers import MLP, Dense
-from hybridbackend_tpu_torch.models.ranking import StackedDCNv2
+from hybridbackend_tpu_torch.models.ranking import DLRM, StackedDCNv2
 from hybridbackend_tpu_torch.ops.scatter import (
-    adagrad_update_sorted, adagrad_update_sorted_reference)
+    adagrad_update_sorted, adagrad_update_sorted_reference,
+    adam_update_sorted, adam_update_sorted_reference, scatter_add_sorted,
+    scatter_add_sorted_reference)
 from hybridbackend_tpu_torch.training.sparse_step import (
     SparseTrainState, make_sparse_train_step)

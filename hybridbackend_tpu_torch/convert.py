@@ -11,16 +11,20 @@ logical layout, and does nothing to an unpacked ``[V, dim]`` table.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from hybridbackend_tpu_torch.embedding.sparse_update import SparseOptState
 from hybridbackend_tpu_torch.models.feature import StackedFeatureExtractor
-from hybridbackend_tpu_torch.models.ranking import StackedDCNv2
+from hybridbackend_tpu_torch.models.layers import Dense
+from hybridbackend_tpu_torch.models.ranking import DLRM, StackedDCNv2
 from hybridbackend_tpu_torch.training.sparse_step import (
     OptimizerFactory, SparseTrainState)
+
+Tower = Union[StackedDCNv2, DLRM]
 
 
 def _logical(fx: StackedFeatureExtractor, arrays: Mapping[str, np.ndarray]
@@ -40,16 +44,13 @@ def _logical(fx: StackedFeatureExtractor, arrays: Mapping[str, np.ndarray]
   return out
 
 
-def load_dcn_v2(model: StackedDCNv2, params: Mapping[str, Any]) -> None:
-  """Copy JAX ``stacked_dcn_v2`` params ``{'cross': {w, b}, 'mlp':
-  [{w, b}, ...]}`` into ``model`` (same ``w: [in, out]`` layout)."""
-  dense = [model.cross, *model.mlp.layers]
-  src = [params['cross'], *params['mlp']]
-  if len(dense) != len(src):
-    raise ValueError(f'model has {len(dense)} dense layers, params '
-                     f'{len(src)}')
+def _load_dense(layers: Sequence[Dense], params: Sequence[Mapping]):
+  """Copy JAX ``{w, b}`` dicts into ``Dense`` layers (same layout)."""
+  if len(layers) != len(params):
+    raise ValueError(f'model has {len(layers)} dense layers, params '
+                     f'{len(params)}')
   with torch.no_grad():
-    for layer, p in zip(dense, src):
+    for layer, p in zip(layers, params):
       for key in ('w', 'b'):
         target = getattr(layer, key)
         value = torch.tensor(np.asarray(p[key]), dtype=torch.float32)
@@ -59,28 +60,64 @@ def load_dcn_v2(model: StackedDCNv2, params: Mapping[str, Any]) -> None:
         target.copy_(value)
 
 
+def load_dcn_v2(model: StackedDCNv2, params: Mapping[str, Any]) -> None:
+  """Copy JAX ``stacked_dcn_v2`` params ``{'cross': {w, b}, 'mlp':
+  [{w, b}, ...]}`` into ``model`` (same ``w: [in, out]`` layout)."""
+  _load_dense([model.cross, *model.mlp.layers],
+              [params['cross'], *params['mlp']])
+
+
+def load_dlrm(model: DLRM, params: Mapping[str, Any]) -> None:
+  """Copy JAX ``dlrm`` params ``{'bottom_mlp': [{w, b}, ...],
+  'bottom_out': {w, b}, 'top_mlp': [{w, b}, ...]}`` into ``model``."""
+  _load_dense([*model.bottom_mlp.layers, model.bottom_out,
+               *model.top_mlp.layers],
+              [*params['bottom_mlp'], params['bottom_out'],
+               *params['top_mlp']])
+
+
+def _load_tower(model: nn.Module, params: Mapping[str, Any]) -> None:
+  if isinstance(model, StackedDCNv2):
+    load_dcn_v2(model, params)
+  elif isinstance(model, DLRM):
+    load_dlrm(model, params)
+  else:
+    raise TypeError(f'no JAX params layout for {type(model).__name__}')
+
+
 def from_jax(fx: StackedFeatureExtractor, tables: Mapping[str, np.ndarray],
-             accs: Mapping[str, np.ndarray], model: StackedDCNv2,
+             slots: Mapping[str, Any], model: Tower,
              dense_params: Mapping[str, Any],
              dense_optimizer: OptimizerFactory) -> SparseTrainState:
   """The port's state from a JAX ``SparseTrainState`` given as numpy.
 
   Args:
     tables: ``state.tables``, one array per stack name.
-    accs: each stack's Adagrad accumulator, ``state.table_opt[name].acc[0]``.
-    model: the port's tower, loaded in place from ``dense_params``, the
-      JAX ``stacked_dcn_v2`` params.
+    slots: each stack's table-optimizer slots, ``state.table_opt[name]
+      .acc``: the Adagrad accumulator (an array, or a 1-tuple), or
+      LazyAdam's ``(m, v)``.
+    model: the port's tower (``StackedDCNv2`` or ``DLRM``), loaded in
+      place from ``dense_params``, the JAX ``stacked_dcn_v2`` or ``dlrm``
+      params.
     dense_optimizer: builds the tower's optimizer. Its slots start empty,
       as the JAX ones are at step 0; moments of a later step are not
       carried over.
   """
-  load_dcn_v2(model, dense_params)
+  _load_tower(model, dense_params)
   model.to(fx.ctx.device)
+  per_stack = {name: s if isinstance(s, (tuple, list)) else (s,)
+               for name, s in slots.items()}
+  widths = {len(s) for s in per_stack.values()}
+  if len(widths) > 1 or not widths <= {1, 2}:
+    raise ValueError('slots must be one accumulator or one (m, v) pair '
+                     f'per stack; got {sorted(widths)} arrays')
+  by_slot = [_logical(fx, {n: s[i] for n, s in per_stack.items()})
+             for i in range(max(widths, default=0))]
   return SparseTrainState(
       step=0, dense=model, tables=_logical(fx, tables),
-      table_opt={name: SparseOptState(acc=(acc,))
-                 for name, acc in _logical(fx, accs).items()},
+      table_opt={name: SparseOptState(acc=tuple(b[name] for b in by_slot))
+                 for name in per_stack},
       dense_opt=dense_optimizer(model.parameters()))
 
 
-__all__ = ['from_jax', 'load_dcn_v2']
+__all__ = ['from_jax', 'load_dcn_v2', 'load_dlrm']

@@ -5,6 +5,7 @@ Each ``ops/csrc/<name>.cu`` has a plain C interface. It is compiled with
 The library's file name carries a hash of the source and the flags, so
 an edited source is rebuilt and an unchanged one is reused. Libraries go
 to ``hybridbackend_tpu_torch/_build/``, which git ignores.
+:func:`load_all` starts one ``nvcc`` per missing library, all at once.
 """
 
 from __future__ import annotations
@@ -17,12 +18,13 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 _CSRC = Path(__file__).resolve().parent / 'csrc'
 _BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 _FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
           '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+KERNELS = ('adagrad_update', 'scatter_add', 'adam_update')
 
 
 @dataclasses.dataclass
@@ -45,35 +47,58 @@ def nvcc_path() -> str:
   return os.path.join(CUDA_HOME, 'bin', 'nvcc')
 
 
-def load(name: str) -> Library:
-  """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
-  if name in _LOADED:
-    return _LOADED[name]
+def _target(name: str) -> Path:
   src = _CSRC / f'{name}.cu'
   digest = hashlib.sha256(src.read_bytes() + ' '.join(_FLAGS).encode())
-  out = _BUILD_DIR / f'lib{name}_{digest.hexdigest()[:16]}.so'
-  seconds, log = 0.0, ''
-  if not out.exists():
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build under a temporary name, then rename: a concurrent loader
-    # never sees a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=_BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-      proc = subprocess.run([nvcc_path(), *_FLAGS, '-o', tmp, str(src)],
-                            capture_output=True, text=True)
+  return _BUILD_DIR / f'lib{name}_{digest.hexdigest()[:16]}.so'
+
+
+def load_all(names: Sequence[str] = KERNELS) -> Dict[str, Library]:
+  """Build (if needed) and load ``csrc/<name>.cu`` for each name; cached
+  per process. Missing libraries are compiled concurrently."""
+  builds = {}
+  try:
+    for name in names:
+      out = _target(name)
+      if name in _LOADED or out.exists():
+        continue
+      _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+      # Build under a temporary name, then rename: a concurrent loader
+      # never sees a half-written library.
+      fd, tmp = tempfile.mkstemp(suffix='.so', dir=_BUILD_DIR)
+      os.close(fd)
+      proc = subprocess.Popen(
+          [nvcc_path(), *_FLAGS, '-o', tmp, str(_CSRC / f'{name}.cu')],
+          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+      builds[name] = (proc, tmp, out, time.perf_counter())
+    logs, failed = {}, []
+    for name, (proc, tmp, out, t0) in builds.items():
+      log = proc.communicate()[0]
+      logs[name] = (time.perf_counter() - t0, log)
       if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed on {src}:\n{proc.stdout}'
-                           f'{proc.stderr}')
-      os.replace(tmp, out)
-    finally:
+        failed.append(f'nvcc failed on {name}.cu:\n{log}')
+      else:
+        os.replace(tmp, out)
+    if failed:
+      raise RuntimeError('\n'.join(failed))
+  finally:
+    for proc, tmp, _, _ in builds.values():
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
       if os.path.exists(tmp):
         os.unlink(tmp)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-  _LOADED[name] = Library(ctypes.CDLL(str(out)), out, seconds, log)
-  return _LOADED[name]
+  for name in names:
+    if name not in _LOADED:
+      out = _target(name)
+      seconds, log = logs.get(name, (0.0, ''))
+      _LOADED[name] = Library(ctypes.CDLL(str(out)), out, seconds, log)
+  return {name: _LOADED[name] for name in names}
 
 
-__all__ = ['Library', 'load', 'nvcc_path']
+def load(name: str) -> Library:
+  """Build (if needed) and load one ``csrc/<name>.cu``."""
+  return load_all((name,))[name]
+
+
+__all__ = ['KERNELS', 'Library', 'load', 'load_all', 'nvcc_path']

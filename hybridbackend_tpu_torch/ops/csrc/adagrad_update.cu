@@ -14,8 +14,13 @@
 //   acc      f32 [vocab, d], updated in place;
 //   lr       f32 scalar in device memory (a schedule or a captured graph
 //            can change it without a host round trip).
-// For every distinct valid row r with per-row gradient total s:
-//   acc[r] += s * s;   table[r] -= lr * s / (sqrt(acc[r]) + eps).
+// For every distinct valid row r with per-row gradient total s = sum(g)
+// and, per occurrence, q = sum(g * g):
+//   dedup:     acc[r] += s * s;  table[r] -= lr * s / (sqrt(acc[r]) + eps)
+//   per-occurrence (TF SparseApplyAdagrad, the JAX package's XLA path
+//   _adagrad_rows_nodedup; its TPU kernel has no such mode):
+//              acc[r] += q;      table[r] -= lr * s / (sqrt(acc[r]) + eps)
+// In both, the denominator is read after all of the run's squares land.
 //
 // Design. Each run of equal rows is owned by exactly one warp: warp i
 // looks at entry i and does the work only if entry i starts its run
@@ -40,6 +45,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarpsPerBlock = kThreads / 32;
 
+template <bool kDedup>
 __global__ void __launch_bounds__(kThreads)
 adagrad_update_sorted_kernel(float* __restrict__ table,
                              float* __restrict__ acc,
@@ -60,11 +66,16 @@ adagrad_update_sorted_kernel(float* __restrict__ table,
   float* trow = table + static_cast<int64_t>(r) * d;
   float* arow = acc + static_cast<int64_t>(r) * d;
   for (int c = lane; c < d; c += 32) {
-    float s = 0.f;
-    for (int64_t j = i; j < end; ++j) s += grads[j * d + c];
     // Explicitly rounded operations keep nvcc from contracting them into
     // FMAs, so each step rounds as in the plain PyTorch version.
-    const float a = __fadd_rn(arow[c], __fmul_rn(s, s));
+    float s = 0.f, q = 0.f;
+    for (int64_t j = i; j < end; ++j) {
+      const float g = grads[j * d + c];
+      s = __fadd_rn(s, g);
+      if (!kDedup) q = __fadd_rn(q, __fmul_rn(g, g));
+    }
+    if (kDedup) q = __fmul_rn(s, s);
+    const float a = __fadd_rn(arow[c], q);
     arow[c] = a;
     trow[c] = __fsub_rn(trow[c], __fdiv_rn(__fmul_rn(lr, s),
                                            __fadd_rn(sqrtf(a), eps)));
@@ -74,17 +85,19 @@ adagrad_update_sorted_kernel(float* __restrict__ table,
 }  // namespace
 
 // Launches on `stream` (a cudaStream_t) and returns cudaGetLastError().
+// `dedup` != 0 squares per-row totals; 0 sums per-occurrence squares.
 extern "C" int hb_adagrad_update_sorted_f32(void* table, void* acc,
                                             const void* rows,
                                             const void* grads,
                                             const void* lr, float eps,
                                             int64_t n, int64_t vocab, int d,
-                                            void* stream) {
+                                            int dedup, void* stream) {
   if (n > 0) {
     const int64_t blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    adagrad_update_sorted_kernel<<<static_cast<unsigned int>(blocks),
-                                   kThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
+    const auto kernel = dedup ? adagrad_update_sorted_kernel<true>
+                              : adagrad_update_sorted_kernel<false>;
+    kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
+             static_cast<cudaStream_t>(stream)>>>(
         static_cast<float*>(table), static_cast<float*>(acc),
         static_cast<const int32_t*>(rows), static_cast<const float*>(grads),
         static_cast<const float*>(lr), eps, n, vocab, d);

@@ -1,56 +1,117 @@
-"""Fused row-sparse Adagrad over a row-sorted update list.
+"""Row-sparse updates over a row-sorted update list.
 
-Counterpart of ``hybridbackend_tpu/ops/pallas/scatter.py:
-adagrad_update_sorted``. On a CUDA tensor :func:`adagrad_update_sorted`
-launches the hand-written kernel in ``csrc/adagrad_update.cu`` or
-raises; on a CPU tensor it runs :func:`adagrad_update_sorted_reference`,
-the plain PyTorch version that the tests hold against the JAX package.
+Counterparts of ``hybridbackend_tpu/ops/pallas/scatter.py``:
+``adagrad_update_sorted``, ``scatter_add_sorted`` and
+``adam_update_sorted``. On a CUDA tensor each wrapper launches its
+hand-written kernel (``csrc/adagrad_update.cu``, ``csrc/scatter_add.cu``,
+``csrc/adam_update.cu``) or raises; on a CPU tensor it runs the plain
+PyTorch version beside it (``*_reference``), which the tests hold against
+the JAX package. Every entry updates its tensors in place and returns
+them; rows ``< 0`` or ``>= V`` are skipped, and rows not in the list are
+neither read nor written.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple, Union
+from typing import Sequence, Tuple, Union
 
 import torch
 
 Lr = Union[float, torch.Tensor]
+Step = Union[int, float, torch.Tensor]
 
 
-def _check(table, acc, rows, updates):
-  if table.dtype != torch.float32 or acc.dtype != torch.float32:
-    raise TypeError('adagrad_update_sorted takes float32 table and acc; '
-                    f'got {table.dtype}, {acc.dtype}')
-  if table.dim() != 2 or acc.shape != table.shape:
-    raise ValueError(f'table {tuple(table.shape)} and acc '
-                     f'{tuple(acc.shape)} must be one [V, d] shape')
+def _check(name: str, table: torch.Tensor, slots: Sequence[torch.Tensor],
+           rows: torch.Tensor, updates: torch.Tensor):
+  for t in (table, *slots):
+    if t.dtype != torch.float32:
+      raise TypeError(f'{name} takes float32 table and slots; got '
+                      f'{t.dtype}')
+    if t.shape != table.shape or table.dim() != 2:
+      raise ValueError(f'{name}: table {tuple(table.shape)} and slots '
+                       f'{[tuple(s.shape) for s in slots]} must be one '
+                       '[V, d] shape')
   if rows.dtype != torch.int32 or rows.dim() != 1:
     raise TypeError(f'rows must be int32 [N]; got {rows.dtype} '
                     f'{tuple(rows.shape)}')
   if updates.shape != (rows.shape[0], table.shape[1]):
     raise ValueError(f'updates {tuple(updates.shape)} must be '
                      f'[{rows.shape[0]}, {table.shape[1]}]')
-  devices = {t.device for t in (table, acc, rows, updates)}
+  devices = {t.device for t in (table, *slots, rows, updates)}
   if len(devices) != 1:
     raise ValueError(f'operands lie on several devices: {devices}')
+
+
+def _run_totals(table: torch.Tensor, rows: torch.Tensor,
+                updates: torch.Tensor, square: bool = False):
+  """Distinct valid rows and their f32 totals, summed by ``index_add_``
+  in list order (on the CPU; atomics on a card). ``square`` adds the
+  per-occurrence sums of squares."""
+  valid = (rows >= 0) & (rows < table.shape[0])
+  urows, inverse = torch.unique(rows[valid].to(torch.int64),
+                                return_inverse=True)
+  g = updates[valid].to(torch.float32)
+  shape = (urows.shape[0], table.shape[1])
+  gsum = torch.zeros(shape, dtype=torch.float32, device=table.device)
+  gsum.index_add_(0, inverse, g)
+  if not square:
+    return urows, gsum, None
+  qsum = torch.zeros(shape, dtype=torch.float32, device=table.device)
+  qsum.index_add_(0, inverse, g * g)
+  return urows, gsum, qsum
+
+
+def _device_scalar(x, device: torch.device) -> torch.Tensor:
+  """A 0-d float32 tensor on ``device``; a Python number is written there
+  without a host sync."""
+  if isinstance(x, torch.Tensor):
+    return x.to(device=device, dtype=torch.float32).reshape(())
+  return torch.full((), float(x), dtype=torch.float32, device=device)
+
+
+def _launch_target(name: str, *tensors: torch.Tensor) -> torch.device:
+  device = tensors[0].device
+  if device.type != 'cuda':
+    raise ValueError(f'{name}: no kernel for device {device}')
+  if not all(t.is_contiguous() for t in tensors):
+    raise ValueError(f'{name}: table and slots must be contiguous: the '
+                     'kernel updates them in place')
+  return device
+
+
+def _launch(wrapper, library: str, argtypes, device: torch.device, *args):
+  """Calls ``hb_<wrapper>_f32`` of ``csrc/<library>.cu`` on the current
+  stream of ``device``, raises on a nonzero ``cudaGetLastError()``, and
+  counts the launch on ``wrapper``."""
+  fn = _kernel(library, f'hb_{wrapper.__name__}_f32',
+               tuple(argtypes) + (ctypes.c_void_p,))
+  with torch.cuda.device(device):
+    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f'{wrapper.__name__} kernel launch failed: CUDA '
+                       f'error {err}')
+  wrapper.launches += 1
+
+
+# --------------------------------------------------------------------------
+# Kernel 1: Adagrad
+# --------------------------------------------------------------------------
 
 
 def adagrad_update_sorted_reference(table: torch.Tensor, acc: torch.Tensor,
                                     rows: torch.Tensor,
                                     updates: torch.Tensor, lr: Lr,
-                                    eps: float = 1e-7
+                                    eps: float = 1e-7, dedup: bool = True
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Plain PyTorch version: per-row f32 totals by ``index_add_`` in list
-  order, then the Adagrad apply on the distinct rows. Updates ``table``
-  and ``acc`` in place and returns them. Rows need not be sorted."""
-  valid = (rows >= 0) & (rows < table.shape[0])
-  urows, inverse = torch.unique(rows[valid].to(torch.int64),
-                                return_inverse=True)
-  gsum = torch.zeros((urows.shape[0], table.shape[1]), dtype=torch.float32,
-                     device=table.device)
-  gsum.index_add_(0, inverse, updates[valid].to(torch.float32))
-  a = acc[urows] + gsum * gsum
+  order, then the Adagrad apply on the distinct rows. ``dedup=False``
+  accumulates the per-occurrence squares instead of the total's square.
+  Updates ``table`` and ``acc`` in place and returns them. Rows need not
+  be sorted."""
+  urows, gsum, qsum = _run_totals(table, rows, updates, square=not dedup)
+  a = acc[urows] + (gsum * gsum if dedup else qsum)
   acc[urows] = a
   table[urows] = table[urows] - lr * gsum / (torch.sqrt(a) + eps)
   return table, acc
@@ -58,10 +119,11 @@ def adagrad_update_sorted_reference(table: torch.Tensor, acc: torch.Tensor,
 
 def adagrad_update_sorted(table: torch.Tensor, acc: torch.Tensor,
                           rows: torch.Tensor, updates: torch.Tensor,
-                          lr: Lr, eps: float = 1e-7
+                          lr: Lr, eps: float = 1e-7, dedup: bool = True
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Fused sparse Adagrad, in place: for each distinct valid row ``r``
-  with gradient total ``s``, ``acc[r] += s²`` and
+  with gradient total ``s``, ``acc[r] += s²`` (``dedup=False``: the sum
+  of each occurrence's square, TF ``SparseApplyAdagrad``) and then
   ``table[r] -= lr·s/(sqrt(acc[r])+eps)``. Returns ``(table, acc)``.
 
   Args:
@@ -72,47 +134,149 @@ def adagrad_update_sorted(table: torch.Tensor, acc: torch.Tensor,
     lr: a float or a 0-d float32 tensor (read on the device, so a
       schedule needs no host round trip).
   """
-  _check(table, acc, rows, updates)
+  _check('adagrad_update_sorted', table, (acc,), rows, updates)
   if table.device.type == 'cpu':
     return adagrad_update_sorted_reference(table, acc, rows, updates, lr,
-                                           eps)
-  if table.device.type != 'cuda':
-    raise ValueError(f'no kernel for device {table.device}')
-  if not (table.is_contiguous() and acc.is_contiguous()):
-    raise ValueError('table and acc must be contiguous: the kernel '
-                     'updates them in place')
+                                           eps, dedup)
+  device = _launch_target('adagrad_update_sorted', table, acc)
   rows = rows.contiguous()
   updates = updates.to(torch.float32).contiguous()
-  if isinstance(lr, torch.Tensor):
-    lr_t = lr.to(device=table.device, dtype=torch.float32).reshape(())
-  else:
-    lr_t = torch.full((), float(lr), dtype=torch.float32,
-                      device=table.device)
-  fn = _kernel()
-  with torch.cuda.device(table.device):
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    err = fn(table.data_ptr(), acc.data_ptr(), rows.data_ptr(),
-             updates.data_ptr(), lr_t.data_ptr(), float(eps),
-             rows.shape[0], table.shape[0], table.shape[1], stream)
-  if err != 0:
-    raise RuntimeError(f'adagrad_update_sorted kernel launch failed: '
-                       f'CUDA error {err}')
-  adagrad_update_sorted.launches += 1
+  lr_t = _device_scalar(lr, device)
+  _launch(adagrad_update_sorted, 'adagrad_update',
+          (ctypes.c_void_p,) * 5 + (ctypes.c_float, ctypes.c_int64,
+                                    ctypes.c_int64, ctypes.c_int,
+                                    ctypes.c_int),
+          device, table.data_ptr(), acc.data_ptr(), rows.data_ptr(),
+          updates.data_ptr(), lr_t.data_ptr(), float(eps), rows.shape[0],
+          table.shape[0], table.shape[1], int(dedup))
   return table, acc
 
 
 adagrad_update_sorted.launches = 0
 
 
+# --------------------------------------------------------------------------
+# Kernel 2: add
+# --------------------------------------------------------------------------
+
+
+def scatter_add_sorted_reference(table: torch.Tensor, rows: torch.Tensor,
+                                 updates: torch.Tensor) -> torch.Tensor:
+  """Plain PyTorch version: per-row f32 totals by ``index_add_`` in list
+  order, each added to its row once. Updates ``table`` in place and
+  returns it. Rows need not be sorted."""
+  urows, gsum, _ = _run_totals(table, rows, updates)
+  table[urows] = table[urows] + gsum
+  return table
+
+
+def scatter_add_sorted(table: torch.Tensor, rows: torch.Tensor,
+                       updates: torch.Tensor) -> torch.Tensor:
+  """``table[r] += Σ updates[i]`` over each run of equal rows, in place;
+  returns ``table``. ``table`` float32 ``[V, d]`` contiguous; ``rows``
+  int32 ``[N]`` ascending (the CUDA kernel relies on it), entries ``< 0``
+  or ``>= V`` skipped; ``updates`` ``[N, d]``."""
+  _check('scatter_add_sorted', table, (), rows, updates)
+  if table.device.type == 'cpu':
+    return scatter_add_sorted_reference(table, rows, updates)
+  device = _launch_target('scatter_add_sorted', table)
+  rows = rows.contiguous()
+  updates = updates.to(torch.float32).contiguous()
+  _launch(scatter_add_sorted, 'scatter_add',
+          (ctypes.c_void_p,) * 3 + (ctypes.c_int64, ctypes.c_int64,
+                                    ctypes.c_int),
+          device, table.data_ptr(), rows.data_ptr(), updates.data_ptr(),
+          rows.shape[0], table.shape[0], table.shape[1])
+  return table
+
+
+scatter_add_sorted.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Kernel 3: LazyAdam
+# --------------------------------------------------------------------------
+
+
+def adam_update_sorted_reference(table: torch.Tensor, m: torch.Tensor,
+                                 v: torch.Tensor, rows: torch.Tensor,
+                                 updates: torch.Tensor, lr: Lr, step: Step,
+                                 b1: float = 0.9, b2: float = 0.999,
+                                 eps: float = 1e-8
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+  """Plain PyTorch version of :func:`adam_update_sorted`: per-row f32
+  totals by ``index_add_`` in list order, then LazyAdam on the distinct
+  rows present, in the kernel's order of operations. Rows need not be
+  sorted."""
+  urows, s, _ = _run_totals(table, rows, updates)
+  t = _device_scalar(step, table.device)
+  bc1 = 1 - torch.full_like(t, b1) ** t
+  bc2 = 1 - torch.full_like(t, b2) ** t
+  mn = b1 * m[urows] + (1 - b1) * s
+  vn = b2 * v[urows] + (1 - b2) * s * s
+  m[urows] = mn
+  v[urows] = vn
+  table[urows] = table[urows] - lr * (mn / bc1) / (torch.sqrt(vn / bc2)
+                                                   + eps)
+  return table, m, v
+
+
+def adam_update_sorted(table: torch.Tensor, m: torch.Tensor,
+                       v: torch.Tensor, rows: torch.Tensor,
+                       updates: torch.Tensor, lr: Lr, step: Step,
+                       b1: float = 0.9, b2: float = 0.999,
+                       eps: float = 1e-8
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """Fused sparse LazyAdam, in place: for each distinct valid row ``r``
+  in the list with gradient total ``s`` (``s == 0`` included: TF
+  LazyAdam updates every indexed row), ``m[r] = b1·m[r] + (1-b1)·s``,
+  ``v[r] = b2·v[r] + (1-b2)·s²`` and ``table[r] -= lr·(m[r]/bc1) /
+  (sqrt(v[r]/bc2) + eps)`` with ``bc = 1 - b**step``. Moments of rows not
+  in the list do not decay. Returns ``(table, m, v)``.
+
+  Args:
+    table, m, v: float32 ``[V, d]``, contiguous.
+    rows: int32 ``[N]`` ascending; entries ``< 0`` or ``>= V`` skipped.
+    updates: ``[N, d]`` gradients.
+    lr: a float or a 0-d float32 tensor, read on the device.
+    step: the 1-based step count for bias correction, a number or a 0-d
+      tensor, read on the device.
+  """
+  _check('adam_update_sorted', table, (m, v), rows, updates)
+  if table.device.type == 'cpu':
+    return adam_update_sorted_reference(table, m, v, rows, updates, lr,
+                                        step, b1, b2, eps)
+  device = _launch_target('adam_update_sorted', table, m, v)
+  rows = rows.contiguous()
+  updates = updates.to(torch.float32).contiguous()
+  lr_t = _device_scalar(lr, device)
+  step_t = _device_scalar(step, device)
+  # 1 - b1 and 1 - b2 rounded from Python floats, as the plain version
+  # and the JAX package's XLA path (``_adam_rows``) round them.
+  _launch(adam_update_sorted, 'adam_update',
+          (ctypes.c_void_p,) * 7 + (ctypes.c_float,) * 5 + (
+              ctypes.c_int64, ctypes.c_int64, ctypes.c_int),
+          device, table.data_ptr(), m.data_ptr(), v.data_ptr(),
+          rows.data_ptr(), updates.data_ptr(), lr_t.data_ptr(),
+          step_t.data_ptr(), float(b1), float(b2), 1 - float(b1),
+          1 - float(b2), float(eps), rows.shape[0], table.shape[0],
+          table.shape[1])
+  return table, m, v
+
+
+adam_update_sorted.launches = 0
+
+
 @functools.cache
-def _kernel():
+def _kernel(library: str, symbol: str, argtypes):
   from hybridbackend_tpu_torch.ops.build import load
-  fn = load('adagrad_update').lib.hb_adagrad_update_sorted_f32
-  fn.argtypes = [ctypes.c_void_p] * 5 + [
-      ctypes.c_float, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-      ctypes.c_void_p]
+  fn = getattr(load(library).lib, symbol)
+  fn.argtypes = list(argtypes)
   fn.restype = ctypes.c_int
   return fn
 
 
-__all__ = ['adagrad_update_sorted', 'adagrad_update_sorted_reference']
+__all__ = ['adagrad_update_sorted', 'adagrad_update_sorted_reference',
+           'adam_update_sorted', 'adam_update_sorted_reference',
+           'scatter_add_sorted', 'scatter_add_sorted_reference']

@@ -2,13 +2,15 @@
 
 Counterpart of ``hybridbackend_tpu/training/sparse_step.py:35-206`` at a
 world of one: the tower is updated by a torch optimizer, each stacked
-table by row-sparse Adagrad on the rows the batch touched. The step
+table by row-sparse Adagrad or LazyAdam on the rows the batch touched. The step
 differentiates with respect to the looked-up embeddings, not the tables,
 so no dense ``[V, D]`` gradient is ever built.
 
 The JAX step donates its state and returns a new one. Here the state is
 updated in place: the tables and accumulators by the sparse update, the
 tower by its optimizer. The step returns the same state object.
+``state.step`` counts steps on the host; LazyAdam's 1-based bias-correction
+step is written to the device with the update, never read back.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import torch
 from torch import nn
 
 from hybridbackend_tpu_torch.embedding.sparse_update import (
-    SparseOptState, init_adagrad_state, sparse_adagrad_apply)
+    SparseOptState, init_adagrad_state, init_adam_state,
+    sparse_adagrad_apply, sparse_adam_apply)
 from hybridbackend_tpu_torch.models.feature import (
     Batch, StackedFeatureExtractor)
 
@@ -40,19 +43,27 @@ class SparseTrainState:
   @classmethod
   def create(cls, dense: nn.Module, tables: Dict[str, torch.Tensor],
              dense_optimizer: OptimizerFactory,
-             adagrad_init: float = 0.1) -> 'SparseTrainState':
+             adagrad_init: float = 0.1, *,
+             adam: bool = False) -> 'SparseTrainState':
     """``dense_optimizer`` builds the tower's optimizer from its
     parameters, e.g. ``functools.partial(torch.optim.Adam, lr=1e-3)``
-    for the JAX package's ``optax.adam(1e-3)``."""
-    return cls(step=0, dense=dense, tables=tables,
-               table_opt={name: init_adagrad_state(t, adagrad_init)
-                          for name, t in tables.items()},
+    for the JAX package's ``optax.adam(1e-3)``. ``adam`` gives each
+    table LazyAdam slots ``(m, v)`` instead of an Adagrad accumulator
+    (for ``table_optimizer='adam'``)."""
+    if adam:
+      table_opt = {name: init_adam_state(t) for name, t in tables.items()}
+    else:
+      table_opt = {name: init_adagrad_state(t, adagrad_init)
+                   for name, t in tables.items()}
+    return cls(step=0, dense=dense, tables=tables, table_opt=table_opt,
                dense_opt=dense_optimizer(dense.parameters()))
 
 
 def make_sparse_train_step(fx: StackedFeatureExtractor,
                            model_loss: ModelLoss,
-                           table_lr: float = 0.05
+                           table_lr: float = 0.05, *,
+                           table_dedup: bool = True,
+                           table_optimizer: str = 'adagrad'
                            ) -> Callable[[SparseTrainState, Batch],
                                          Tuple[SparseTrainState, Dict]]:
   """Build ``step(state, batch) -> (state, metrics)``.
@@ -62,12 +73,20 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
     model_loss: ``(tower, emb_features, dense_features, batch) ->
       (scalar_loss, aux)``, the model from combined features onward.
     table_lr: learning rate for all tables.
+    table_dedup: exact duplicate-id combining before squaring; ``False``
+      accumulates per-occurrence squares (TF ``SparseApplyAdagrad``).
+      Adagrad only, as in the JAX package.
+    table_optimizer: ``'adagrad'`` (accumulator slot) or ``'adam'``
+      (LazyAdam, ``(m, v)`` slots: create the state with ``adam=True``).
 
   The tower's optimizer is part of the state (a torch optimizer owns its
   slots), so unlike the JAX function this one takes no dense optimizer.
   ``metrics['loss']`` stays a device tensor: reading it is the caller's
   choice, and the step itself never waits for the device.
   """
+  if table_optimizer not in ('adagrad', 'adam'):
+    raise ValueError(f'Unknown table_optimizer {table_optimizer!r}; '
+                     "expected 'adagrad' or 'adam'")
   stacks_by_name = {s.stacked.name: s for s in fx.stacks}
 
   def step(state: SparseTrainState, batch: Batch):
@@ -84,11 +103,14 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
     # 3. Tower update.
     state.dense_opt.step()
 
-    # 4. Row-sparse Adagrad per stacked table, in place.
+    # 4. Row-sparse optimizer per stacked table, in place.
     for name, emb in raw.items():
-      sparse_adagrad_apply(state.tables[name], state.table_opt[name],
-                           ids_by_stack[name], emb.grad,
-                           stacks_by_name[name].stacked, table_lr)
+      args = (state.tables[name], state.table_opt[name], ids_by_stack[name],
+              emb.grad, stacks_by_name[name].stacked, table_lr)
+      if table_optimizer == 'adam':
+        sparse_adam_apply(*args, step=state.step + 1)
+      else:
+        sparse_adagrad_apply(*args, dedup=table_dedup)
 
     state.step += 1
     metrics = dict(aux)

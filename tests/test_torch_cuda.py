@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Each test skips where no CUDA device is present. On a GPU machine without
 JAX, run this file without the suite's conftest (which sets up JAX):
@@ -10,7 +10,8 @@ The plain version runs on the CPU copy of the inputs, where
 kernel does; on the card it adds with atomics in no fixed order, which
 rows repeated thousands of times turn into 1e-3 relative differences.
 Tolerance ``rtol = atol = 1e-5``: both sides then round the same f32
-operations in the same order.
+operations in the same order (LazyAdam's ``b ** step`` comes from CUDA's
+``powf`` on one side and the CPU's ``pow`` on the other, a few ulp).
 """
 
 import numpy as np
@@ -110,3 +111,139 @@ def test_kernel_rejects_non_contiguous_tables(dev):
     hbt.adagrad_update_sorted(table, acc,
                               torch.zeros(2, dtype=torch.int32, device=dev),
                               torch.zeros((2, 16), device=dev), 0.1)
+
+
+CASES = [(1000, 16, 5000, 300), (1000, 1, 5000, 300), (997, 33, 4000, 50),
+         (4096, 128, 20000, 4000), (64, 16, 20000, 2),   # runs of 10000
+         (100, 16, 0, 1), (100, 16, 1, 1)]
+
+
+def _all_invalid(dev, v, d, n=500):
+  rows = torch.tensor([-1] * (n // 2) + [v, v + 7] * (n // 4),
+                      dtype=torch.int32, device=dev).sort().values
+  g = torch.randn(rows.shape[0], d, device=dev)
+  table = torch.rand(v, d, device=dev)
+  return table, rows, g
+
+
+def _assert_untouched(rows, v, pairs):
+  touched = torch.zeros(v, dtype=torch.bool, device=rows.device)
+  touched[rows[(rows >= 0) & (rows < v)].long()] = True
+  for got, before in pairs:
+    assert torch.equal(got[~touched], before[~touched])
+
+
+@pytest.mark.parametrize('v,d,n,distinct', CASES)
+def test_nodedup_kernel_matches_plain_version(dev, v, d, n, distinct):
+  table, acc, rows, g = _case(dev, v, d, n, distinct, seed=v + d + n + 1)
+  tk, ak = table.clone(), acc.clone()
+  before = hbt.adagrad_update_sorted.launches
+  hbt.adagrad_update_sorted(tk, ak, rows, g, 0.05, dedup=False)
+  assert hbt.adagrad_update_sorted.launches == before + 1
+  tr, ar = table.cpu(), acc.cpu()
+  hbt.adagrad_update_sorted_reference(tr, ar, rows.cpu(), g.cpu(), 0.05,
+                                      dedup=False)
+  torch.testing.assert_close(ak.cpu(), ar, **TOL)
+  torch.testing.assert_close(tk.cpu(), tr, **TOL)
+  _assert_untouched(rows, v, [(tk, table), (ak, acc)])
+
+
+@pytest.mark.parametrize('v,d,n,distinct', CASES)
+def test_add_kernel_matches_plain_version(dev, v, d, n, distinct):
+  table, _, rows, g = _case(dev, v, d, n, distinct, seed=v + d + n + 2)
+  tk = table.clone()
+  before = hbt.scatter_add_sorted.launches
+  hbt.scatter_add_sorted(tk, rows, g)
+  assert hbt.scatter_add_sorted.launches == before + 1
+  tr = hbt.scatter_add_sorted_reference(table.cpu(), rows.cpu(), g.cpu())
+  torch.testing.assert_close(tk.cpu(), tr, **TOL)
+  _assert_untouched(rows, v, [(tk, table)])
+
+
+@pytest.mark.parametrize('v,d,n,distinct', CASES)
+def test_adam_kernel_matches_plain_version(dev, v, d, n, distinct):
+  table, _, rows, g = _case(dev, v, d, n, distinct, seed=v + d + n + 3)
+  gen = torch.Generator().manual_seed(v + n)
+  m = (torch.randn(v, d, generator=gen) * 0.1).to(dev)
+  vv = (torch.rand(v, d, generator=gen) * 0.5).to(dev)
+  tk, mk, vk = table.clone(), m.clone(), vv.clone()
+  before = hbt.adam_update_sorted.launches
+  hbt.adam_update_sorted(tk, mk, vk, rows, g, 0.05, 3)
+  assert hbt.adam_update_sorted.launches == before + 1
+  tr, mr, vr = hbt.adam_update_sorted_reference(
+      table.cpu(), m.cpu(), vv.cpu(), rows.cpu(), g.cpu(), 0.05, 3)
+  for got, want in ((tk, tr), (mk, mr), (vk, vr)):
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+  _assert_untouched(rows, v, [(tk, table), (mk, m), (vk, vv)])
+
+
+@pytest.mark.parametrize('kernel', ['adagrad', 'nodedup', 'add', 'adam'])
+def test_kernels_skip_an_all_invalid_list(dev, kernel):
+  table, rows, g = _all_invalid(dev, 300, 16)
+  slots = [torch.rand_like(table), torch.rand_like(table)]
+  before = [table.clone(), *(s.clone() for s in slots)]
+  if kernel == 'add':
+    hbt.scatter_add_sorted(table, rows, g)
+  elif kernel == 'adam':
+    hbt.adam_update_sorted(table, *slots, rows, g, 0.05, 1)
+  else:
+    hbt.adagrad_update_sorted(table, slots[0], rows, g, 0.05,
+                              dedup=kernel == 'adagrad')
+  torch.cuda.synchronize()
+  for got, want in zip([table, *slots], before):
+    assert torch.equal(got, want)
+
+
+def test_adam_reads_lr_and_step_on_the_device(dev):
+  table, _, rows, g = _case(dev, 500, 16, 2000, 100, seed=2)
+  m, v = torch.zeros_like(table), torch.zeros_like(table)
+  want = [table.clone(), m.clone(), v.clone()]
+  hbt.adam_update_sorted_reference(*want, rows, g, 0.2, 7)
+  lr = torch.full((), 0.05, device=dev)
+  step = torch.ones((), device=dev)
+  lr.fill_(0.2)                      # a schedule changes the tensors only
+  step.fill_(7)
+  hbt.adam_update_sorted(table, m, v, rows, g, lr, step)
+  for got, w in zip((table, m, v), want):
+    torch.testing.assert_close(got, w, **TOL)
+
+
+@pytest.mark.parametrize('model,optimizer,dedup', [
+    ('dcnv2', 'adagrad', False), ('dlrm', 'adam', True)])
+def test_sparse_step_variants_run_their_kernels_on_the_card(
+    dev, model, optimizer, dedup):
+  ctx = hbt.Context(dev)
+  specs = [hbt.EmbeddingSpec(hbt.TableConfig(f'c{i}', 500, 16))
+           for i in range(3)]
+  fx = hbt.StackedFeatureExtractor(specs, dense_columns=['i0'], ctx=ctx)
+  gen = torch.Generator().manual_seed(0)
+  if model == 'dcnv2':
+    tower = hbt.StackedDCNv2([16] * 3 + [1], [32, 1], generator=gen,
+                             device=dev)
+    preds = lambda t, emb_f, dense_f: t(emb_f + dense_f)
+  else:
+    tower = hbt.DLRM(1, 3, [16, 8], 16, [32, 1], generator=gen, device=dev)
+    preds = lambda t, emb_f, dense_f: t(dense_f, emb_f)
+  state = hbt.SparseTrainState.create(
+      tower, fx.init(gen), lambda p: torch.optim.Adam(p, lr=1e-3),
+      adam=optimizer == 'adam')
+
+  def loss_fn(tower, emb_f, dense_f, batch):
+    p = torch.clamp(preds(tower, emb_f, dense_f), 1e-6, 1 - 1e-6)
+    y = batch['label']
+    return -torch.mean(y * torch.log(p) + (1 - y) * torch.log(1 - p)), {}
+
+  step = hbt.make_sparse_train_step(fx, loss_fn, table_dedup=dedup,
+                                    table_optimizer=optimizer)
+  rng = np.random.RandomState(0)
+  batch = {f'c{i}': torch.from_numpy(
+      rng.randint(-5, 520, 64).astype(np.int32)).to(dev) for i in range(3)}
+  batch['i0'] = torch.rand(64, device=dev)
+  batch['label'] = torch.randint(0, 2, (64,), device=dev).float()
+  counter = (hbt.adam_update_sorted if optimizer == 'adam'
+             else hbt.adagrad_update_sorted)
+  before = counter.launches
+  for _ in range(3):
+    state, m = step(state, batch)
+  assert counter.launches == before + 3
+  assert torch.isfinite(m['loss'])

@@ -1,5 +1,8 @@
 """Sparse Adagrad of the PyTorch port against the JAX package.
 
+(The per-occurrence mode, ``dedup=False``, and the other table
+optimizers are held against JAX in ``test_torch_sparse_optimizers.py``.)
+
 The plain PyTorch version of the update kernel is held against the JAX
 Pallas kernel (in interpret mode) and against the JAX XLA path
 (``_dedup_grads`` + ``_adagrad_rows``), on one update list with
@@ -118,12 +121,23 @@ def test_sparse_adagrad_apply_matches_jax(shuffle):
 
 
 def test_nodedup_is_not_ported():
+  """``dedup=False`` is not the dedup update carried over: duplicates
+  accumulate each occurrence's square (TF ``SparseApplyAdagrad``), and
+  the denominator is read after all of them land."""
   cfg = hbt.TableConfig('t', 8, 4)
-  t = torch.zeros((8, 4))
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    hbt.sparse_adagrad_apply(t, hbt.init_adagrad_state(t),
-                             torch.zeros(3, dtype=torch.int32),
-                             torch.zeros(3, 4), cfg, LR, dedup=False)
+  accs = []
+  for dedup in (True, False):
+    t = torch.zeros((8, 4))
+    st = hbt.init_adagrad_state(t)
+    hbt.sparse_adagrad_apply(t, st, torch.tensor([1, 9, 1, -1, 3]),
+                             torch.ones(5, 4), cfg, LR, dedup=dedup)
+    accs.append(st.acc[0])
+    a1 = 0.1 + (4.0 if dedup else 2.0)
+    torch.testing.assert_close(t[1], torch.full((4,), -LR * 2 / (a1 ** 0.5
+                                                               + 1e-7)))
+  torch.testing.assert_close(accs[0][1], torch.full((4,), 4.1))
+  torch.testing.assert_close(accs[1][1], torch.full((4,), 2.1))
+  assert torch.equal(accs[0][[0, 2, 4, 5, 6, 7]], accs[1][[0, 2, 4, 5, 6, 7]])
 
 
 @pytest.mark.parametrize('bad', ['bf16', 'int64_rows', 'shape', 'acc'])
