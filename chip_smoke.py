@@ -10,29 +10,43 @@ It builds the port's CUDA kernels from ``hybridbackend_tpu_torch/ops/csrc``
 step, ``benchmarks/train_benchmark.py --sparse`` with its defaults: 26
 tables of [100000, 16] stacked into one [2600000, 16] table, batch 8192
 with 13 dense features, BCE loss, Adam 1e-3 on the tower, ids shifted by
-one per step; in two variants:
+one per step; in three variants:
   * DCNv2 (429x429 cross layer, MLP 1024-512-256-1) with row-sparse
     Adagrad 0.05 on the table, with and without duplicate combining;
   * DLRM (``--model dlrm``: bottom MLP 512-256, dot interaction of 27
-    features of 16, top MLP 1024-512-1) with LazyAdam 0.05 on the table.
+    features of 16, top MLP 1024-512-1) with LazyAdam 0.05 on the table;
+  * DCNv2 with the dense-split Adagrad update (``table_split_dense=True``,
+    the JAX option ``emb_update_split_dense='on'``).
 Weights are random, drawn from a fixed seed.
 
 Phases; any failure raises and the script exits nonzero:
   0. the card (nvidia-smi), torch/CUDA/nvcc versions, the kernel builds;
   1. each kernel against its plain PyTorch version on the card, at the
-     flagship update list, with both times: Adagrad (both modes), the add
-     kernel through ``sparse_sgd_apply``, LazyAdam;
+     flagship update list, with both times and, where one PyTorch call
+     computes the same function, that call's time: Adagrad (both modes),
+     the add kernel through ``sparse_sgd_apply``, LazyAdam, the dense row
+     totals, the split-dense update against the fused one, the row gather
+     (at the flagship lookup and at [100000, 128] x 16384) and the
+     stochastic bf16 round of the flagship gradients; then the gather and
+     the round once more through their entry points, with the launch
+     counts read around them;
   2. one full-width DCNv2 + Adagrad step on the GPU against the CPU;
   3. that step timed on the card; the Adagrad kernel must have been
      launched once per step;
   4. one full-width DCNv2 step with ``table_dedup=False``, GPU vs CPU;
   5. one full-width DLRM + LazyAdam step, GPU vs CPU;
   6. that step timed on the card; the LazyAdam kernel must have been
-     launched once per step.
+     launched once per step;
+  7. one full-width DCNv2 step with the dense-split Adagrad update, GPU
+     vs CPU; the dense row-totals kernel launched once, the fused
+     Adagrad kernel never;
+  8. that step timed on the card, with the same launch counts per step.
 With ``--profile`` it then traces 10 steps of each timed variant with
 ``torch.profiler`` and prints device time per step by kernel class.
-The second-to-last line is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+The second-to-last line is a JSON object describing each kernel (its
+times, launches on its path, and its bound: the larger of its bytes over
+3.35 TB/s and its operations over the card's peak rate); the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the rest of the repository beside it, it fails before printing
 either.
 """
@@ -55,15 +69,33 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = 'hybridbackend_tpu_torch/ops/csrc'
-PALLAS = 'hybridbackend_tpu/ops/pallas/scatter.py'
+PALLAS = 'hybridbackend_tpu/ops/pallas'
 # name -> (source, TPU kernel it replaces)
 KERNELS = {
-    'adagrad_update_sorted': (f'{CSRC}/adagrad_update.cu', f'{PALLAS}:534'),
+    'adagrad_update_sorted': (f'{CSRC}/adagrad_update.cu',
+                              f'{PALLAS}/scatter.py:534'),
     'adagrad_update_sorted[dedup=False]': (f'{CSRC}/adagrad_update.cu',
-                                           f'{PALLAS}:534'),
-    'scatter_add_sorted': (f'{CSRC}/scatter_add.cu', f'{PALLAS}:429'),
-    'adam_update_sorted': (f'{CSRC}/adam_update.cu', f'{PALLAS}:749'),
+                                           f'{PALLAS}/scatter.py:534'),
+    'scatter_add_sorted': (f'{CSRC}/scatter_add.cu',
+                           f'{PALLAS}/scatter.py:429'),
+    'adam_update_sorted': (f'{CSRC}/adam_update.cu',
+                           f'{PALLAS}/scatter.py:749'),
+    'gsum_dense_sorted': (f'{CSRC}/gsum_dense.cu',
+                          f'{PALLAS}/scatter.py:677'),
+    'gather_rows': (f'{CSRC}/gather_rows.cu', f'{PALLAS}/gather.py:51'),
+    'stochastic_round_bf16': (f'{CSRC}/stochastic_round.cu',
+                              f'{PALLAS}/cast.py:27'),
 }
+# The wrappers that count their launches.
+COUNTED = ('adagrad_update_sorted', 'scatter_add_sorted', 'adam_update_sorted',
+           'gsum_dense_sorted', 'gather_rows', 'stochastic_round_bf16')
+# NVIDIA H100 SXM peaks (data sheet): HBM3 bytes/s and f32 FLOP/s outside
+# the tensor cores. Integer work (the Philox rounds) is counted at half
+# the f32 rate, the SM's 64 INT32 lanes against 128 FP32 lanes.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = F32_OPS_PER_S / 2
+L2_FLUSH_BYTES = 256 * 2**20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,30 +115,96 @@ class Flagship:
   seed: int = 0
 
 
-def _counters():
+def _counts():
   import hybridbackend_tpu_torch as hbt
-  return (hbt.adagrad_update_sorted, hbt.scatter_add_sorted,
-          hbt.adam_update_sorted)
+  return {name: getattr(hbt, name).launches for name in COUNTED}
 
 
 def _reset_counts():
-  for fn in _counters():
-    fn.launches = 0
+  import hybridbackend_tpu_torch as hbt
+  for name in COUNTED:
+    getattr(hbt, name).launches = 0
 
 
-def _median_ms(fn, iters=20, warmup=3):
-  """Median device time of ``fn`` over ``iters`` calls, by CUDA events."""
+def _expect(label, counts, **want):
+  """Fails unless ``counts`` are ``want`` and every other count is 0."""
+  want = {name: want.get(name, 0) for name in COUNTED}
+  if counts != want:
+    raise AssertionError(f'{label}: kernel launches {counts}, expected '
+                         f'{want}')
+
+
+def _bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
+  """The least time the card could take: the larger of the bytes over the
+  memory rate and the operations over the peak rate."""
+  by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+  by_ops = ops / ops_per_s * 1e3
+  return dict(bytes=nbytes, ops=ops, bound_ms=max(by_bytes, by_ops),
+              bound_by='bytes' if by_bytes >= by_ops else 'operations')
+
+
+@functools.cache
+def _l2_flush_buffer():
+  return torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                     device=torch.device('cuda', torch.cuda.current_device()))
+
+
+def _flush_l2():
+  """Reads ``L2_FLUSH_BYTES`` (more than five times the 50 MB L2), so the
+  next call finds none of its inputs in L2 and its last outputs have
+  been written back, as a caller whose data is not the last one touched
+  would. A read leaves clean lines, which cost the next call nothing to
+  evict."""
+  _l2_flush_buffer().sum()
+
+
+def _median_ms(fn, iters=20, warmup=3, per=10, queued=True):
+  """Device time of one call of ``fn``, by CUDA events: the median over
+  ``iters`` runs of ``per`` calls, each call after an L2 flush
+  (:func:`_flush_l2`) and between its own pair of events, so the flush
+  is not timed.
+
+  ``queued``: each run first holds the device with a spin kernel long
+  enough for the host to enqueue all ``per`` calls behind it, so the
+  events time the device's work and not the host's enqueue (a wrapper
+  spends tens of microseconds in Python, as long as a small kernel
+  runs). The spin is doubled until the first event is still pending when
+  the last call has been enqueued; the ``per`` calls must launch fewer
+  kernels than the device's queue holds (about a thousand). A function
+  that waits for the device (the plain versions: boolean masks and
+  ``unique`` read a count back) takes ``queued=False``: events around
+  each call, host waits included."""
   for _ in range(warmup):
     fn()
-  times = []
-  for _ in range(iters):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    end.synchronize()
-    times.append(start.elapsed_time(end))
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  _flush_l2()
+  fn()
+  hold_ms = 2 * per * (time.perf_counter() - t0) * 1e3 + 0.5
+  calls = per if queued else 1
+  times, runs = [], 0
+  while runs < iters:
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(calls)]
+    if queued:
+      # At most 2 GHz, so 2e6 cycles last at least a millisecond.
+      torch.cuda._sleep(int(2e6 * hold_ms))
+    for start, end in events:
+      _flush_l2()
+      start.record()
+      fn()
+      end.record()
+    held = not queued or not events[0][0].query()
+    events[-1][1].synchronize()
+    if held:
+      times += [start.elapsed_time(end) for start, end in events]
+      runs += 1
+    elif hold_ms > 10_000:
+      raise RuntimeError(f'the host did not enqueue {per} calls while the '
+                         'device was held: a call waits for the device, or '
+                         'they launch more kernels than its queue holds')
+    else:
+      hold_ms *= 2
   return statistics.median(times)
 
 
@@ -197,6 +295,12 @@ def phase1_kernels(cfg: Flagship, dev: torch.device):
   stacked = hbt.TableConfig('stack', v, cfg.dim)
   raw_ids = torch.from_numpy(ids).to(dev)
   raw_g = torch.from_numpy(grads).to(dev)
+  # Bytes each kernel must move at this list: the list (rows and
+  # gradients, n*(d+1)*4) read once, and each distinct row of the table
+  # and of each slot read and written once.
+  n, d, u = ids.shape[0], cfg.dim, n_touched
+  list_bytes = n * (d + 1) * 4
+  valid = (rows >= 0) & (rows < v)
 
   for name, dedup in (('adagrad_update_sorted', True),
                       ('adagrad_update_sorted[dedup=False]', False)):
@@ -207,11 +311,17 @@ def phase1_kernels(cfg: Flagship, dev: torch.device):
     err, (tk, ak) = _hold(name, (table0, acc0), rows, k, p)
     tr, ar = table0.clone(), acc0.clone()
     ms = _median_ms(lambda: k(tk, ak))
-    plain_ms = _median_ms(lambda: p(tr, ar))
+    plain_ms = _median_ms(lambda: p(tr, ar), queued=False)
     st = hbt.init_adagrad_state(tk)
     path_ms = _median_ms(lambda: hbt.sparse_adagrad_apply(
         tk, st, raw_ids, raw_g, stacked, lr, dedup=dedup))
-    out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # Sums of the list, then per distinct element a square, an add, a
+    # root, an add, a product, a quotient and a difference (dedup=False
+    # squares each occurrence instead).
+    ops = n * d * (1 if dedup else 3) + 7 * u * d
+    out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     library_ms=None, path_ms=path_ms,
+                     **_bound(list_bytes + 4 * u * d * 4, ops))
     print(f'  {name}: max abs err {err:.3e}; kernel {ms:.4f} ms, plain '
           f'{plain_ms:.4f} ms; sort+gather+kernel {path_ms:.4f} ms')
 
@@ -224,26 +334,33 @@ def phase1_kernels(cfg: Flagship, dev: torch.device):
   tr = table0.clone()
   ms = _median_ms(lambda: hbt.scatter_add_sorted(tk, rows, scaled))
   plain_ms = _median_ms(
-      lambda: hbt.scatter_add_sorted_reference(tr, rows, scaled))
-  # The entry point, checked against the plain version of its list, then
-  # timed with the launch counts read around it.
+      lambda: hbt.scatter_add_sorted_reference(tr, rows, scaled),
+      queued=False)
+  # One PyTorch call computes the same function: index_add_ of the valid
+  # entries (atomics, in no fixed order).
+  valid_rows, valid_scaled = rows[valid].long(), scaled[valid]
+  library_ms = _median_ms(
+      lambda: tr.index_add_(0, valid_rows, valid_scaled))
+  # The entry point, checked against the plain version of its list with
+  # the launch counts read around it, then timed.
   ts = table0.clone()
+  _reset_counts()
   hbt.sparse_sgd_apply(ts, raw_ids, raw_g, stacked, cfg.table_lr)
+  torch.cuda.synchronize()
+  _expect('sparse_sgd_apply', _counts(), scatter_add_sorted=1)
+  launches = 1
   want = hbt.scatter_add_sorted_reference(table0.clone(), rows, scaled)
   if not torch.allclose(ts, want, rtol=1e-5, atol=1e-5):
     raise AssertionError('sparse_sgd_apply differs from the plain version')
-  _reset_counts()
   path_ms = _median_ms(lambda: hbt.sparse_sgd_apply(
       ts, raw_ids, raw_g, stacked, cfg.table_lr), iters=10)
-  launches = hbt.scatter_add_sorted.launches
-  if launches != 13 or hbt.adagrad_update_sorted.launches:
-    raise AssertionError(f'sparse_sgd_apply launched the add kernel '
-                         f'{launches} times in 13 calls')
-  out['scatter_add_sorted'] = dict(max_abs_err=err, ms=ms,
-                                   plain_ms=plain_ms, launches=launches)
+  out['scatter_add_sorted'] = dict(
+      max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+      launches=launches, path_ms=path_ms,
+      **_bound(list_bytes + 2 * u * d * 4, n * d + u * d))
   print(f'  scatter_add_sorted: max abs err {err:.3e}; kernel {ms:.4f} ms, '
-        f'plain {plain_ms:.4f} ms; sparse_sgd_apply {path_ms:.4f} ms, '
-        f'{launches} launches in 13 calls')
+        f'plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms; '
+        f'sparse_sgd_apply {path_ms:.4f} ms, {launches} launch a call')
 
   k = functools.partial(hbt.adam_update_sorted, rows=rows, updates=g,
                         lr=lr, step=step)
@@ -253,14 +370,182 @@ def phase1_kernels(cfg: Flagship, dev: torch.device):
                             k, p)
   tr, mr, vr = table0.clone(), m0.clone(), v0.clone()
   ms = _median_ms(lambda: k(tk, mk, vk))
-  plain_ms = _median_ms(lambda: p(tr, mr, vr))
+  plain_ms = _median_ms(lambda: p(tr, mr, vr), queued=False)
   st = hbt.SparseOptState(acc=(mk, vk))
   path_ms = _median_ms(lambda: hbt.sparse_adam_apply(
       tk, st, raw_ids, raw_g, stacked, lr, step))
-  out['adam_update_sorted'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+  # Per distinct element about 15 operations (two moments, two bias
+  # corrections, a root, the step).
+  out['adam_update_sorted'] = dict(
+      max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+      path_ms=path_ms, **_bound(list_bytes + 6 * u * d * 4,
+                                n * d + 15 * u * d))
   print(f'  adam_update_sorted: max abs err {err:.3e}; kernel {ms:.4f} ms, '
         f'plain {plain_ms:.4f} ms; sort+gather+kernel {path_ms:.4f} ms')
+
+  inputs = dict(rows=rows, g=g, valid=valid, table0=table0, acc0=acc0,
+                raw_ids=raw_ids, raw_g=raw_g, stacked=stacked, lr=lr)
+  out.update(phase1_gsum(cfg, dev, inputs, out['adagrad_update_sorted']))
+  out.update(phase1_gather(cfg, dev, inputs))
+  out.update(phase1_round(cfg, dev, inputs))
   return out
+
+
+def phase1_gsum(cfg: Flagship, dev: torch.device, inp, fused):
+  """Kernel 4 against its plain version, and the split-dense update
+  against the fused one, at the flagship update list."""
+  import hybridbackend_tpu_torch as hbt
+  rows, g, valid = inp['rows'], inp['g'], inp['valid']
+  v, d, n = inp['table0'].shape[0], cfg.dim, rows.shape[0]
+  got = hbt.gsum_dense_sorted(rows, g, v)
+  want = hbt.gsum_dense_sorted_reference(rows, g, v)
+  torch.cuda.synchronize()
+  err = float((got - want).abs().max())
+  if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+    raise AssertionError(f'gsum_dense_sorted differs from the plain '
+                         f'version (max abs err {err})')
+  touched = torch.zeros(v, dtype=torch.bool, device=dev)
+  touched[rows[valid].long()] = True
+  if bool(got[~touched].any()):
+    raise AssertionError('gsum_dense_sorted: an untouched row is not 0')
+  ms = _median_ms(lambda: hbt.gsum_dense_sorted(rows, g, v))
+  plain_ms = _median_ms(
+      lambda: hbt.gsum_dense_sorted_reference(rows, g, v), queued=False)
+  # One PyTorch call: zeros, then index_add_ of the valid entries.
+  valid_rows, valid_g = rows[valid].long(), g[valid]
+  library_ms = _median_ms(lambda: torch.zeros(v, d, device=dev).index_add_(
+      0, valid_rows, valid_g))
+  # The list read once, the dense output written once; one add per entry.
+  bound = _bound(n * (d + 1) * 4 + v * d * 4, n * d)
+  print(f'  gsum_dense_sorted: max abs err {err:.3e} (rtol = atol = 1e-5), '
+        f'untouched rows exactly 0; kernel {ms:.4f} ms, plain '
+        f'{plain_ms:.4f} ms, zeros + index_add_ {library_ms:.4f} ms; '
+        f'bound {bound["bound_ms"]:.4f} ms ({bound["bytes"] / 1e6:.2f} MB)')
+
+  # The split-dense update against the fused one, through the entry
+  # point, on the same list. Both round every operation the same way
+  # (explicit rounding in the kernel, one op per pass in torch), so they
+  # should agree bit for bit; held to 1e-6.
+  args = (inp['raw_ids'], inp['raw_g'], inp['stacked'], inp['lr'])
+  fused_t, split_t = inp['table0'].clone(), inp['table0'].clone()
+  fused_s = hbt.SparseOptState(acc=(inp['acc0'].clone(),))
+  split_s = hbt.SparseOptState(acc=(inp['acc0'].clone(),))
+  hbt.sparse_adagrad_apply(fused_t, fused_s, *args)
+  hbt.sparse_adagrad_apply(split_t, split_s, *args, split_dense=True)
+  torch.cuda.synchronize()
+  split_err = max(float((split_t - fused_t).abs().max()),
+                  float((split_s.acc[0] - fused_s.acc[0]).abs().max()))
+  bitwise = (torch.equal(split_t, fused_t)
+             and torch.equal(split_s.acc[0], fused_s.acc[0]))
+  if split_err > 1e-6:
+    raise AssertionError(f'split-dense update differs from the fused one '
+                         f'by {split_err}')
+  why = '' if bitwise else (
+      f'; {int((split_t != fused_t).sum())} table and '
+      f'{int((split_s.acc[0] != fused_s.acc[0]).sum())} acc elements differ '
+      'in the last bits')
+  torch.cuda.reset_peak_memory_stats(dev)
+  base = torch.cuda.memory_allocated(dev)
+  split_ms = _median_ms(lambda: hbt.sparse_adagrad_apply(
+      split_t, split_s, *args, split_dense=True), iters=10)
+  extra = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+  # The least a fused split apply could move: read table, acc and gsum,
+  # write table and acc, plus kernel 4's own bytes.
+  split_bound = _bound(5 * v * d * 4 + bound['bytes'], n * d + 7 * v * d)
+  print(f'  split-dense update vs fused: max abs diff {split_err:.3e}, '
+        f'bitwise equal: {bitwise}{why}; update path split '
+        f'{split_ms:.4f} ms (bound {split_bound["bound_ms"]:.4f} ms), '
+        f'fused {fused["path_ms"]:.4f} ms; split peak {extra:.1f} MiB '
+        'above its inputs')
+  return {'gsum_dense_sorted': dict(
+      max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+      split_path_ms=split_ms, split_bitwise=bitwise, split_max_diff=split_err,
+      **bound)}
+
+
+def phase1_gather(cfg: Flagship, dev: torch.device, inp):
+  """Kernel 5 bitwise against its plain version at the flagship lookup
+  (the update list's ids, -1 and >= V among them, into the stacked
+  table) and at the TPU kernel's measured shape, [100000, 128] f32 with
+  16384 random ids; then once more with the counts read around it."""
+  import hybridbackend_tpu_torch as hbt
+  gen = torch.Generator().manual_seed(cfg.seed + 5)
+  wide = torch.rand(100_000, 128, generator=gen).to(dev)
+  wide_ids = torch.randint(0, 100_000, (16384,), generator=gen,
+                           dtype=torch.int32).to(dev)
+  res = {}
+  for label, table, ids in (('flagship lookup', inp['table0'],
+                             inp['raw_ids']),
+                            ('[100000, 128] x 16384', wide, wide_ids)):
+    got = hbt.gather_rows(table, ids)
+    if not torch.equal(got, hbt.gather_rows_reference(table, ids)):
+      raise AssertionError(f'gather_rows differs from the plain version at '
+                           f'the {label}')
+    clipped = ids.long().clamp(0, table.shape[0] - 1)
+    ms = _median_ms(lambda: hbt.gather_rows(table, ids))
+    plain_ms = _median_ms(lambda: hbt.gather_rows_reference(table, ids))
+    library_ms = _median_ms(lambda: table.index_select(0, clipped))
+    n, d = ids.shape[0], table.shape[1]
+    # Ids read once, n rows read and n rows written; no arithmetic.
+    bound = _bound(n * 4 + 2 * n * d * table.element_size(), 0)
+    print(f'  gather_rows at the {label}: bitwise equal; kernel '
+          f'{ms:.4f} ms, plain {plain_ms:.4f} ms, index_select '
+          f'{library_ms:.4f} ms; bound {bound["bound_ms"]:.4f} ms '
+          f'({bound["bytes"] / 1e6:.2f} MB)')
+    res.setdefault('gather_rows', dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        **bound))
+  _reset_counts()
+  hbt.gather_rows(inp['table0'], inp['raw_ids'])
+  torch.cuda.synchronize()
+  counts = _counts()
+  _expect('gather_rows', counts, gather_rows=1)
+  res['gather_rows']['launches'] = counts['gather_rows']
+  return res
+
+
+def phase1_round(cfg: Flagship, dev: torch.device, inp):
+  """Kernel 6 on the flagship gradients, bitwise against its plain
+  version for one seed; every output is its input truncated to bf16 or
+  one bf16 ulp above that in magnitude. Then once through
+  ``stochastic_round_bf16`` with the counts read around it."""
+  import hybridbackend_tpu_torch as hbt
+  x = inp['raw_g']
+  gen = torch.Generator().manual_seed(cfg.seed + 6)
+  seed = hbt.draw_seed(torch.Generator().set_state(gen.get_state()))
+  got = hbt.stochastic_round_bf16(x, gen)
+  want = hbt.stochastic_round_bf16_reference(x, seed)
+  nan = torch.isnan(got)
+  if not (torch.equal(nan, torch.isnan(want)) and torch.equal(
+      got.view(torch.int16)[~nan], want.view(torch.int16)[~nan])):
+    raise AssertionError('stochastic_round_bf16 differs from the plain '
+                         'version')
+  trunc = (x.view(torch.int32) >> 16).to(torch.int16).to(torch.int32)
+  up = got.view(torch.int16).to(torch.int32) - trunc
+  if not bool(((up == 0) | (up == 1)).all()):
+    raise AssertionError('stochastic_round_bf16: an output is neither the '
+                         'truncation nor one ulp above it')
+  ms = _median_ms(lambda: hbt.stochastic_round_bf16(x, gen))
+  # The plain version launches about 250 kernels: one call at a time.
+  plain_ms = _median_ms(
+      lambda: hbt.stochastic_round_bf16_reference(x, seed), iters=5, per=1)
+  n = x.numel()
+  # 4 bytes read and 2 written per element; per 8 elements a Philox call
+  # of ten rounds (2 products, 2 high products, 4 xors, 2 key adds), and
+  # per element an add, a shift and a select of the noise.
+  bound = _bound(n * 6, n // 8 * 100 + 3 * n, INT32_OPS_PER_S)
+  print(f'  stochastic_round_bf16 on [{", ".join(map(str, x.shape))}]: '
+        f'bitwise equal for one seed, {float(up.float().mean()):.4f} of the '
+        f'outputs rounded up; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; '
+        f'bound {bound["bound_ms"]:.4f} ms ({bound["bytes"] / 1e6:.2f} MB)')
+  _reset_counts()
+  hbt.stochastic_round_bf16(x, gen)
+  torch.cuda.synchronize()
+  counts = _counts()
+  _expect('stochastic_round_bf16', counts, stochastic_round_bf16=1)
+  return {'stochastic_round_bf16': dict(
+      max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+      launches=counts['stochastic_round_bf16'], **bound)}
 
 
 def _bce(p, batch):
@@ -270,7 +555,7 @@ def _bce(p, batch):
 
 
 def _setup(cfg: Flagship, dev: torch.device, model: str, optimizer: str,
-           dedup: bool = True):
+           dedup: bool = True, split: bool = False):
   """Feature extractor, state and step on ``dev``; the weights are drawn
   on the CPU from ``cfg.seed``, so every device starts from one state."""
   import hybridbackend_tpu_torch as hbt
@@ -294,7 +579,8 @@ def _setup(cfg: Flagship, dev: torch.device, model: str, optimizer: str,
       adagrad_init=cfg.adagrad_init, adam=optimizer == 'adam')
   step = hbt.make_sparse_train_step(fx, loss, table_lr=cfg.table_lr,
                                     table_dedup=dedup,
-                                    table_optimizer=optimizer)
+                                    table_optimizer=optimizer,
+                                    table_split_dense=split)
   return state, step
 
 
@@ -323,16 +609,17 @@ def _close(got, want, rtol, atol_of_max):
 
 
 def gpu_vs_cpu(cfg: Flagship, dev: torch.device, label: str, model: str,
-               optimizer: str, dedup: bool = True):
+               optimizer: str, dedup: bool = True, split: bool = False):
   """One full-width step on the GPU against the same step on the CPU.
-  Returns the GPU state and step, to go on from."""
+  Returns the GPU state and step, to go on from, and the kernel launches
+  of the GPU step."""
   cpu = torch.device('cpu')
-  gstate, gstep = _setup(cfg, dev, model, optimizer, dedup)
-  cstate, cstep = _setup(cfg, cpu, model, optimizer, dedup)
+  gstate, gstep = _setup(cfg, dev, model, optimizer, dedup, split)
+  cstate, cstep = _setup(cfg, cpu, model, optimizer, dedup, split)
   _reset_counts()
   gstate, gm = gstep(gstate, _base_batch(cfg, dev))
   torch.cuda.synchronize()
-  launches = [fn.launches for fn in _counters()]
+  launches = _counts()
   cstate, cm = cstep(cstate, _base_batch(cfg, cpu))
   gloss, closs = float(gm['loss']), float(cm['loss'])
   # The loss comes from one forward pass of the same state: f32 matmul
@@ -383,14 +670,16 @@ def gpu_vs_cpu(cfg: Flagship, dev: torch.device, label: str, model: str,
 
 
 def timed(cfg: Flagship, dev: torch.device, label: str, state, step, smi,
-          counter, warmup=3, steps=30):
+          kernel: str, warmup=3, steps=30):
   """The step timed on the card: ``steps`` steps enqueued back to back
-  after ``warmup``; CUDA events between consecutive steps."""
+  after ``warmup``; CUDA events between consecutive steps. ``kernel``
+  must have been launched once per step, and no other counted kernel."""
   base = _base_batch(cfg, dev)
   for i in range(warmup):
     state, _ = step(state, _shifted(cfg, base, i + 1))
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats(dev)
+  held = torch.cuda.memory_allocated(dev)
 
   _reset_counts()
   events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
@@ -403,11 +692,8 @@ def timed(cfg: Flagship, dev: torch.device, label: str, state, step, smi,
     losses.append(m['loss'])
   torch.cuda.synchronize()
   wall = time.perf_counter() - t0
-  launches = counter.launches
-
-  if launches != steps:
-    raise AssertionError(f'{label}: {counter.__name__} launched {launches} '
-                         f'times in {steps} steps')
+  counts = _counts()
+  _expect(f'{label}, {steps} steps', counts, **{kernel: steps})
   losses = torch.stack(losses)
   if not bool(torch.isfinite(losses).all()):
     raise AssertionError(f'{label}: non-finite loss: {losses.tolist()}')
@@ -417,9 +703,11 @@ def timed(cfg: Flagship, dev: torch.device, label: str, state, step, smi,
         f'{steps} steps; min {min(step_ms):.4f}, max {max(step_ms):.4f}), '
         f'{cfg.batch / med * 1e3:.1f} examples/s; host clock '
         f'{wall / steps * 1e3:.4f} ms/step; peak memory '
-        f'{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; loss '
+        f'{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, of which '
+        f'{held / 2**30:.3f} GiB held before the steps (the states of all '
+        f'variants so far); loss '
         f'{float(losses[0]):.5f} -> {float(losses[-1]):.5f}')
-  return state, launches
+  return state, counts[kernel]
 
 
 def profile(cfg: Flagship, dev: torch.device, label: str, state, step,
@@ -446,7 +734,8 @@ def profile(cfg: Flagship, dev: torch.device, label: str, state, step,
       continue
     key = e.key
     for pattern, cls in (('gemm', 'GEMM'), ('sgemm', 'GEMM'),
-                         ('xmma', 'GEMM'), ('sorted_kernel', 'update'),
+                         ('xmma', 'GEMM'), ('gsum_dense', 'update'),
+                         ('sorted_kernel', 'update'),
                          ('gather', 'gather'), ('sort', 'sort'),
                          ('multi_tensor', 'optimizer'),
                          ('reduce', 'reduction'), ('Memcpy', 'copy'),
@@ -489,26 +778,35 @@ def main() -> int:
 
   smi = phase0_environment()
   k = phase1_kernels(cfg, dev)
-  state, dcn_step, _ = gpu_vs_cpu(cfg, dev, 'phase 2 (DCNv2 + Adagrad)',
-                                 'dcnv2', 'adagrad')
+  state, dcn_step, counts = gpu_vs_cpu(cfg, dev, 'phase 2 (DCNv2 + Adagrad)',
+                                       'dcnv2', 'adagrad')
+  _expect('DCNv2 + Adagrad step', counts, adagrad_update_sorted=1)
   dcn_state, launches = timed(cfg, dev, 'phase 3 (DCNv2 + Adagrad flagship)',
-                              state, dcn_step, smi, hbt.adagrad_update_sorted)
+                              state, dcn_step, smi, 'adagrad_update_sorted')
   k['adagrad_update_sorted']['launches'] = launches
   _, _, counts = gpu_vs_cpu(cfg, dev, 'phase 4 (DCNv2 + no-dedup Adagrad)',
                             'dcnv2', 'adagrad', dedup=False)
-  if counts != [1, 0, 0]:
-    raise AssertionError(f'no-dedup step launched {counts} kernels')
-  k['adagrad_update_sorted[dedup=False]']['launches'] = counts[0]
+  _expect('no-dedup step', counts, adagrad_update_sorted=1)
+  k['adagrad_update_sorted[dedup=False]']['launches'] = counts[
+      'adagrad_update_sorted']
   state, dlrm_step, counts = gpu_vs_cpu(cfg, dev, 'phase 5 (DLRM + LazyAdam)',
                                         'dlrm', 'adam')
-  if counts != [0, 0, 1]:
-    raise AssertionError(f'LazyAdam step launched {counts} kernels')
+  _expect('LazyAdam step', counts, adam_update_sorted=1)
   dlrm_state, launches = timed(cfg, dev, 'phase 6 (DLRM + LazyAdam flagship)',
-                               state, dlrm_step, smi, hbt.adam_update_sorted)
+                               state, dlrm_step, smi, 'adam_update_sorted')
   k['adam_update_sorted']['launches'] = launches
+  state, split_step, counts = gpu_vs_cpu(
+      cfg, dev, 'phase 7 (DCNv2 + split-dense Adagrad)', 'dcnv2', 'adagrad',
+      split=True)
+  _expect('split-dense step', counts, gsum_dense_sorted=1)
+  split_state, launches = timed(
+      cfg, dev, 'phase 8 (DCNv2 + split-dense Adagrad flagship)', state,
+      split_step, smi, 'gsum_dense_sorted')
+  k['gsum_dense_sorted']['launches'] = launches
   if args.profile:
     profile(cfg, dev, 'DCNv2 + Adagrad', dcn_state, dcn_step)
     profile(cfg, dev, 'DLRM + LazyAdam', dlrm_state, dlrm_step)
+    profile(cfg, dev, 'DCNv2 + split-dense Adagrad', split_state, split_step)
 
   rows = []
   for name, (source, replaces) in KERNELS.items():
@@ -516,7 +814,9 @@ def main() -> int:
     rows.append({'name': name, 'route': 'cuda', 'source': source,
                  'replaces': replaces, 'launches': m['launches'],
                  'max_abs_err': m['max_abs_err'], 'ms': m['ms'],
-                 'plain_ms': m['plain_ms']})
+                 'plain_ms': m['plain_ms'], 'bound_ms': m['bound_ms'],
+                 'bound_by': m['bound_by'], 'bytes': m['bytes'],
+                 'library_ms': m['library_ms']})
   print(json.dumps({'kernels': rows}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

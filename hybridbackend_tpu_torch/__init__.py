@@ -6,7 +6,10 @@ tested against. It imports ``torch`` and never ``jax``, and nothing from
 tables, the stacked DCNv2 and DLRM towers, a torch optimizer on the tower,
 and row-sparse Adagrad (with or without duplicate combining), SGD or
 LazyAdam on the tables, each through a CUDA kernel written for Hopper
-(``ops/csrc/``). Kernels are built at first use, never at import.
+(``ops/csrc/``); Adagrad also in its dense-split form, through the dense
+row-totals kernel. Beside the step: a row gather with clipped ids and a
+stochastically rounded bf16 cast, each with its kernel. Kernels are built
+at first use, never at import.
 """
 
 __version__ = '0.1.0'
@@ -26,9 +29,15 @@ from hybridbackend_tpu_torch.models.feature import (
     EmbeddingSpec, StackedFeatureExtractor)
 from hybridbackend_tpu_torch.models.layers import MLP, Dense
 from hybridbackend_tpu_torch.models.ranking import DLRM, StackedDCNv2
+from hybridbackend_tpu_torch.ops.cast import (
+    draw_seed, round_with_noise, stochastic_round_bf16,
+    stochastic_round_bf16_reference)
+from hybridbackend_tpu_torch.ops.gather import (
+    gather_rows, gather_rows_reference)
 from hybridbackend_tpu_torch.ops.scatter import (
     adagrad_update_sorted, adagrad_update_sorted_reference,
-    adam_update_sorted, adam_update_sorted_reference, scatter_add_sorted,
+    adam_update_sorted, adam_update_sorted_reference, gsum_dense_sorted,
+    gsum_dense_sorted_reference, scatter_add_sorted,
     scatter_add_sorted_reference)
 from hybridbackend_tpu_torch.training.sparse_step import (
     SparseTrainState, make_sparse_train_step)

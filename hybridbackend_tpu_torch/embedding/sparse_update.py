@@ -12,7 +12,10 @@ update the table and its slots in place.
 Every entry maps ids to rows, drops ids outside ``[0, vocab)``, sorts the
 list stably (equal rows stay in list order, so each row's total is summed
 in the same order on every run) and hands it to one kernel of
-``ops/scatter.py``.
+``ops/scatter.py``. The dense-split form of Adagrad (``split_dense``)
+hands it to the dense row-totals kernel and applies the update with
+elementwise torch ops over the whole table, as the JAX package leaves
+that apply to XLA.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import torch
 
 from hybridbackend_tpu_torch.embedding.table import TableConfig
 from hybridbackend_tpu_torch.ops.scatter import (
-    Lr, Step, adagrad_update_sorted, adam_update_sorted, scatter_add_sorted)
+    Lr, Step, _device_scalar, adagrad_update_sorted, adam_update_sorted,
+    gsum_dense_sorted, scatter_add_sorted)
 
 
 @dataclasses.dataclass
@@ -64,10 +68,32 @@ def _sorted_list(table: torch.Tensor, ids: torch.Tensor, demb: torch.Tensor,
   return rows, g.index_select(0, order)
 
 
+def _split_dense_adagrad(table: torch.Tensor, acc: torch.Tensor,
+                         rows: torch.Tensor, g: torch.Tensor, lr: Lr,
+                         eps: float):
+  """The dense-split Adagrad update (``_stream_adagrad``'s split branch,
+  ``:273-284``): dense ``[V, d]`` row totals from
+  :func:`gsum_dense_sorted`, then a whole-table elementwise apply in
+  place, in the fused kernel's order of operations: ``a = acc + s·s``,
+  then ``table -= (lr·s) / (sqrt(a) + eps)``, each op rounded on its own
+  (no ``addcdiv_``, no FMA across them). Rows with ``s == 0`` keep their
+  bits: ``acc + 0`` and ``table - 0``."""
+  if (table.dtype, acc.dtype) != (torch.float32, torch.float32) or (
+      acc.shape != table.shape):
+    raise TypeError('the dense-split update takes float32 table and acc '
+                    f'of one shape; got {table.dtype} {tuple(table.shape)} '
+                    f'and {acc.dtype} {tuple(acc.shape)}')
+  gsum = gsum_dense_sorted(rows, g, table.shape[0])
+  tmp = gsum * gsum
+  acc.add_(tmp)
+  denom = torch.sqrt(acc, out=tmp).add_(eps)
+  table.sub_(gsum.mul_(_device_scalar(lr, table.device)).div_(denom))
+
+
 def sparse_adagrad_apply(table: torch.Tensor, state: SparseOptState,
                          ids: torch.Tensor, demb: torch.Tensor,
                          config: TableConfig, lr: Lr, eps: float = 1e-7,
-                         dedup: bool = True
+                         dedup: bool = True, split_dense: bool = False
                          ) -> Tuple[torch.Tensor, SparseOptState]:
   """Adagrad on touched rows only, in place.
 
@@ -81,11 +107,23 @@ def sparse_adagrad_apply(table: torch.Tensor, state: SparseOptState,
       ``_adagrad_rows_nodedup``), with the denominator read after all of
       a row's squares land. The JAX stream kernel ignores ``False``; the
       port honours it on every device.
+    split_dense: the dense-split form (the JAX option
+      ``emb_update_split_dense='on'``): the dense per-row totals kernel,
+      then an elementwise apply over the whole table and accumulator.
+      The same result as the fused update, bit for bit; it moves the
+      whole table. Needs ``dedup``: dense totals carry no per-occurrence
+      squares.
 
   Returns ``(table, state)``, the same objects, updated.
   """
+  if split_dense and not dedup:
+    raise ValueError('split_dense=True needs dedup=True: the dense row '
+                     'totals carry no per-occurrence squares')
   rows, g = _sorted_list(table, ids, demb, config)
-  adagrad_update_sorted(table, state.acc[0], rows, g, lr, eps, dedup)
+  if split_dense:
+    _split_dense_adagrad(table, state.acc[0], rows, g, lr, eps)
+  else:
+    adagrad_update_sorted(table, state.acc[0], rows, g, lr, eps, dedup)
   return table, state
 
 

@@ -6,12 +6,14 @@ The library's file name carries a hash of the source and the flags, so
 an edited source is rebuilt and an unchanged one is reused. Libraries go
 to ``hybridbackend_tpu_torch/_build/``, which git ignores.
 :func:`load_all` starts one ``nvcc`` per missing library, all at once.
+:func:`launch` calls a kernel's C function on PyTorch's current stream.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import subprocess
@@ -20,11 +22,14 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent / 'csrc'
 _BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 _FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
           '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
-KERNELS = ('adagrad_update', 'scatter_add', 'adam_update')
+KERNELS = ('adagrad_update', 'scatter_add', 'adam_update', 'gsum_dense',
+           'gather_rows', 'stochastic_round')
 
 
 @dataclasses.dataclass
@@ -101,4 +106,27 @@ def load(name: str) -> Library:
   return load_all((name,))[name]
 
 
-__all__ = ['KERNELS', 'Library', 'load', 'load_all', 'nvcc_path']
+@functools.cache
+def _function(library: str, symbol: str, argtypes):
+  fn = getattr(load(library).lib, symbol)
+  fn.argtypes = list(argtypes)
+  fn.restype = ctypes.c_int
+  return fn
+
+
+def launch(wrapper, library: str, symbol: str, argtypes,
+           device: torch.device, *args):
+  """Calls ``symbol`` of ``csrc/<library>.cu`` with ``args`` and then the
+  current stream of ``device``, raises on a nonzero return (the C
+  function returns ``cudaGetLastError()``), and counts the launch on
+  ``wrapper.launches``."""
+  fn = _function(library, symbol, tuple(argtypes) + (ctypes.c_void_p,))
+  with torch.cuda.device(device):
+    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f'{wrapper.__name__} kernel launch failed: CUDA '
+                       f'error {err}')
+  wrapper.launches += 1
+
+
+__all__ = ['KERNELS', 'Library', 'launch', 'load', 'load_all', 'nvcc_path']

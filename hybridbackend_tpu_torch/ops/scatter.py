@@ -1,23 +1,25 @@
 """Row-sparse updates over a row-sorted update list.
 
 Counterparts of ``hybridbackend_tpu/ops/pallas/scatter.py``:
-``adagrad_update_sorted``, ``scatter_add_sorted`` and
-``adam_update_sorted``. On a CUDA tensor each wrapper launches its
+``adagrad_update_sorted``, ``scatter_add_sorted``, ``adam_update_sorted``
+and ``gsum_dense_sorted``. On a CUDA tensor each wrapper launches its
 hand-written kernel (``csrc/adagrad_update.cu``, ``csrc/scatter_add.cu``,
-``csrc/adam_update.cu``) or raises; on a CPU tensor it runs the plain
-PyTorch version beside it (``*_reference``), which the tests hold against
-the JAX package. Every entry updates its tensors in place and returns
-them; rows ``< 0`` or ``>= V`` are skipped, and rows not in the list are
-neither read nor written.
+``csrc/adam_update.cu``, ``csrc/gsum_dense.cu``) or raises; on a CPU
+tensor it runs the plain PyTorch version beside it (``*_reference``),
+which the tests hold against the JAX package. The three updates work in
+place and return their tensors; rows ``< 0`` or ``>= V`` are skipped,
+and rows not in the list are neither read nor written.
+``gsum_dense_sorted`` returns a new dense tensor of per-row totals.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Sequence, Tuple, Union
 
 import torch
+
+from hybridbackend_tpu_torch.ops import build
 
 Lr = Union[float, torch.Tensor]
 Step = Union[int, float, torch.Tensor]
@@ -83,16 +85,9 @@ def _launch_target(name: str, *tensors: torch.Tensor) -> torch.device:
 
 def _launch(wrapper, library: str, argtypes, device: torch.device, *args):
   """Calls ``hb_<wrapper>_f32`` of ``csrc/<library>.cu`` on the current
-  stream of ``device``, raises on a nonzero ``cudaGetLastError()``, and
-  counts the launch on ``wrapper``."""
-  fn = _kernel(library, f'hb_{wrapper.__name__}_f32',
-               tuple(argtypes) + (ctypes.c_void_p,))
-  with torch.cuda.device(device):
-    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-  if err != 0:
-    raise RuntimeError(f'{wrapper.__name__} kernel launch failed: CUDA '
-                       f'error {err}')
-  wrapper.launches += 1
+  stream of ``device`` (:func:`build.launch`)."""
+  build.launch(wrapper, library, f'hb_{wrapper.__name__}_f32', argtypes,
+               device, *args)
 
 
 # --------------------------------------------------------------------------
@@ -268,15 +263,69 @@ def adam_update_sorted(table: torch.Tensor, m: torch.Tensor,
 adam_update_sorted.launches = 0
 
 
-@functools.cache
-def _kernel(library: str, symbol: str, argtypes):
-  from hybridbackend_tpu_torch.ops.build import load
-  fn = getattr(load(library).lib, symbol)
-  fn.argtypes = list(argtypes)
-  fn.restype = ctypes.c_int
-  return fn
+# --------------------------------------------------------------------------
+# Kernel 4: dense per-row totals
+# --------------------------------------------------------------------------
+
+
+def gsum_dense_sorted_reference(rows: torch.Tensor, updates: torch.Tensor,
+                                vocab: int) -> torch.Tensor:
+  """Plain PyTorch version of :func:`gsum_dense_sorted`: ``zeros`` and
+  then ``index_add_`` of the valid entries in list order (on the CPU;
+  atomics on a card). The contract is the kernel's, rows ascending; this
+  version also sums rows in any order, which the kernel does not."""
+  valid = (rows >= 0) & (rows < vocab)
+  out = torch.zeros((vocab, updates.shape[1]), dtype=torch.float32,
+                    device=updates.device)
+  return out.index_add_(0, rows[valid].to(torch.int64),
+                        updates[valid].to(torch.float32))
+
+
+def gsum_dense_sorted(rows: torch.Tensor, updates: torch.Tensor,
+                      vocab: int) -> torch.Tensor:
+  """Dense per-row totals of a row-sorted update list: a new float32
+  ``[vocab, d]`` tensor whose row ``r`` is the f32 sum of
+  ``updates[i]`` over the run of ``rows[i] == r``, in list order, and
+  whose other rows are exactly 0.0. Any ``d``.
+
+  Args:
+    rows: int32 ``[N]`` in ascending order; entries ``< 0`` or
+      ``>= vocab`` are skipped. The CUDA kernel gives each run of equal
+      rows one owner, so rows out of order there give wrong totals; it
+      does not check, since that would wait for the device. On a CPU
+      tensor the order is checked and a ValueError raised.
+    updates: ``[N, d]``, ``updates[i]`` for ``rows[i]``.
+    vocab: rows of the output.
+  """
+  if rows.dtype != torch.int32 or rows.dim() != 1:
+    raise TypeError(f'rows must be int32 [N]; got {rows.dtype} '
+                    f'{tuple(rows.shape)}')
+  if updates.dim() != 2 or updates.shape[0] != rows.shape[0]:
+    raise ValueError(f'updates {tuple(updates.shape)} must be '
+                     f'[{rows.shape[0]}, d]')
+  if rows.device != updates.device:
+    raise ValueError(f'rows on {rows.device}, updates on {updates.device}')
+  if updates.device.type == 'cpu':
+    if bool((rows[1:] < rows[:-1]).any()):
+      raise ValueError('gsum_dense_sorted: rows must be in ascending order')
+    return gsum_dense_sorted_reference(rows, updates, vocab)
+  rows = rows.contiguous()
+  updates = updates.to(torch.float32).contiguous()
+  device = _launch_target('gsum_dense_sorted', updates)
+  out = torch.empty((vocab, updates.shape[1]), dtype=torch.float32,
+                    device=device)
+  _launch(gsum_dense_sorted, 'gsum_dense',
+          (ctypes.c_void_p,) * 3 + (ctypes.c_int64, ctypes.c_int64,
+                                    ctypes.c_int),
+          device, out.data_ptr(), rows.data_ptr(), updates.data_ptr(),
+          rows.shape[0], vocab, updates.shape[1])
+  return out
+
+
+gsum_dense_sorted.launches = 0
 
 
 __all__ = ['adagrad_update_sorted', 'adagrad_update_sorted_reference',
            'adam_update_sorted', 'adam_update_sorted_reference',
+           'gsum_dense_sorted', 'gsum_dense_sorted_reference',
            'scatter_add_sorted', 'scatter_add_sorted_reference']

@@ -63,7 +63,8 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
                            model_loss: ModelLoss,
                            table_lr: float = 0.05, *,
                            table_dedup: bool = True,
-                           table_optimizer: str = 'adagrad'
+                           table_optimizer: str = 'adagrad',
+                           table_split_dense: bool = False
                            ) -> Callable[[SparseTrainState, Batch],
                                          Tuple[SparseTrainState, Dict]]:
   """Build ``step(state, batch) -> (state, metrics)``.
@@ -78,6 +79,10 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
       Adagrad only, as in the JAX package.
     table_optimizer: ``'adagrad'`` (accumulator slot) or ``'adam'``
       (LazyAdam, ``(m, v)`` slots: create the state with ``adam=True``).
+    table_split_dense: the dense-split Adagrad update (the JAX option
+      ``emb_update_split_dense='on'``; ``sparse_adagrad_apply(
+      split_dense=True)``). Adagrad with ``table_dedup`` only: the JAX
+      option applies to nothing else.
 
   The tower's optimizer is part of the state (a torch optimizer owns its
   slots), so unlike the JAX function this one takes no dense optimizer.
@@ -87,6 +92,9 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
   if table_optimizer not in ('adagrad', 'adam'):
     raise ValueError(f'Unknown table_optimizer {table_optimizer!r}; '
                      "expected 'adagrad' or 'adam'")
+  if table_split_dense and (table_optimizer != 'adagrad' or not table_dedup):
+    raise ValueError('table_split_dense=True needs table_optimizer='
+                     "'adagrad' and table_dedup=True")
   stacks_by_name = {s.stacked.name: s for s in fx.stacks}
 
   def step(state: SparseTrainState, batch: Batch):
@@ -110,7 +118,8 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
       if table_optimizer == 'adam':
         sparse_adam_apply(*args, step=state.step + 1)
       else:
-        sparse_adagrad_apply(*args, dedup=table_dedup)
+        sparse_adagrad_apply(*args, dedup=table_dedup,
+                             split_dense=table_split_dense)
 
     state.step += 1
     metrics = dict(aux)

@@ -11,7 +11,9 @@ kernel does; on the card it adds with atomics in no fixed order, which
 rows repeated thousands of times turn into 1e-3 relative differences.
 Tolerance ``rtol = atol = 1e-5``: both sides then round the same f32
 operations in the same order (LazyAdam's ``b ** step`` comes from CUDA's
-``powf`` on one side and the CPU's ``pow`` on the other, a few ulp).
+``powf`` on one side and the CPU's ``pow`` on the other, a few ulp). The
+dense row totals (the same adds in the same order), the row gather (a
+copy) and the stochastic round (the same Philox bits) are held bitwise.
 """
 
 import numpy as np
@@ -246,4 +248,131 @@ def test_sparse_step_variants_run_their_kernels_on_the_card(
   for _ in range(3):
     state, m = step(state, batch)
   assert counter.launches == before + 3
+  assert torch.isfinite(m['loss'])
+
+
+# Kernel 4 and the dense-split update. Bitwise: the kernel sums each run
+# in list order from 0, as ``index_add_`` does on the CPU.
+@pytest.mark.parametrize('v,d,n,distinct', CASES + [(700, 128, 3000, 200),
+                                                    (500, 17, 3000, 100)])
+def test_gsum_kernel_matches_plain_version(dev, v, d, n, distinct):
+  _, _, rows, g = _case(dev, v, d, n, distinct, seed=v + d + n + 4)
+  before = hbt.gsum_dense_sorted.launches
+  got = hbt.gsum_dense_sorted(rows, g, v)
+  assert hbt.gsum_dense_sorted.launches == before + 1
+  want = hbt.gsum_dense_sorted_reference(rows.cpu(), g.cpu(), v)
+  assert got.dtype == torch.float32 and torch.equal(got.cpu(), want)
+
+
+def test_gsum_kernel_of_an_all_invalid_list_is_zero(dev):
+  _, rows, g = _all_invalid(dev, 300, 16)
+  got = hbt.gsum_dense_sorted(rows, g, 300)
+  assert torch.equal(got, torch.zeros((300, 16), device=dev))
+
+
+@pytest.mark.parametrize('d', [16, 33])
+def test_split_dense_update_equals_fused_on_the_card(dev, d):
+  vocab = 4000
+  rng = np.random.RandomState(d)
+  ids = torch.from_numpy(rng.randint(-3, vocab + 5, (512, 8))).to(dev)
+  demb = torch.from_numpy(rng.randn(512, 8, d).astype(np.float32)).to(dev)
+  cfg = hbt.TableConfig('t', vocab, d)
+  table = torch.rand(vocab, d, device=dev)
+  out = []
+  for split in (False, True):
+    t = table.clone()
+    st = hbt.init_adagrad_state(t)
+    hbt.sparse_adagrad_apply(t, st, ids, demb, cfg, 0.05, split_dense=split)
+    out.append((t, st.acc[0]))
+  assert torch.equal(out[0][0], out[1][0])
+  assert torch.equal(out[0][1], out[1][1])
+
+
+# Kernel 5: a copy, so bitwise.
+@pytest.mark.parametrize('v,d,n,dtype,offset', [
+    (1000, 16, 5000, torch.float32, 0), (100000, 128, 16384, torch.float32, 0),
+    (1000, 17, 333, torch.float32, 0), (1000, 16, 777, torch.float32, 1),
+    (300, 5, 1000, torch.bfloat16, 0), (300, 3, 999, torch.uint8, 1),
+    (50, 8, 0, torch.float32, 0)])
+def test_gather_kernel_matches_plain_version(dev, v, d, n, dtype, offset):
+  """``offset`` starts the table one element into its storage, so the
+  kernel cannot take 16-byte chunks."""
+  gen = torch.Generator().manual_seed(v + d + n)
+  flat = (torch.rand(v * d + offset, generator=gen) * 200).to(dtype).to(dev)
+  table = flat[offset:].view(v, d)
+  ids = torch.randint(-5, v + 11, (n,), generator=gen, dtype=torch.int32)
+  before = hbt.gather_rows.launches
+  for i in (ids, ids.long()):
+    got = hbt.gather_rows(table, i.to(dev))
+    assert got.shape == (n, d) and got.dtype == dtype
+    assert torch.equal(got.cpu(), hbt.gather_rows_reference(table.cpu(), i))
+  assert hbt.gather_rows.launches == before + 2
+
+
+def test_gather_kernel_rejects_a_non_contiguous_table(dev):
+  table = torch.zeros((16, 8), device=dev).t()
+  with pytest.raises(ValueError, match='contiguous'):
+    hbt.gather_rows(table, torch.zeros(2, dtype=torch.int32, device=dev))
+
+
+# Kernel 6: the same Philox bits on both sides, so bitwise.
+@pytest.mark.parametrize('shape,offset', [((212992, 16), 0), ((1001,), 0),
+                                          ((37, 3), 1), ((5,), 0)])
+def test_stochastic_round_kernel_matches_plain_version(dev, shape, offset):
+  gen = torch.Generator().manual_seed(sum(shape))
+  n = int(np.prod(shape))
+  x = torch.randn(n + offset, generator=gen)
+  x[offset:offset + 4] = torch.tensor([float('nan'), float('inf'), -0.0,
+                                       3.4028235e38])[:min(4, n)]
+  x = x.to(dev)[offset:].view(shape)
+  state = gen.get_state()
+  before = hbt.stochastic_round_bf16.launches
+  got = hbt.stochastic_round_bf16(x, gen)
+  assert hbt.stochastic_round_bf16.launches == before + 1
+  seed = hbt.draw_seed(torch.Generator().set_state(state))
+  want = hbt.stochastic_round_bf16_reference(x.cpu(), seed)
+  assert got.shape == x.shape and got.dtype == torch.bfloat16
+  assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+def test_stochastic_round_kernel_differs_between_seeds(dev):
+  x = torch.rand(4096, device=dev)
+  a = hbt.stochastic_round_bf16(x, torch.Generator().manual_seed(1))
+  b = hbt.stochastic_round_bf16(x, torch.Generator().manual_seed(2))
+  assert not torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def test_stochastic_round_kernel_rejects_non_contiguous_input(dev):
+  x = torch.rand((16, 8), device=dev).t()
+  with pytest.raises(ValueError, match='contiguous'):
+    hbt.stochastic_round_bf16(x, torch.Generator().manual_seed(0))
+
+
+def test_split_dense_step_runs_the_gsum_kernel_on_the_card(dev):
+  ctx = hbt.Context(dev)
+  specs = [hbt.EmbeddingSpec(hbt.TableConfig(f'c{i}', 500, 16))
+           for i in range(3)]
+  fx = hbt.StackedFeatureExtractor(specs, dense_columns=['i0'], ctx=ctx)
+  gen = torch.Generator().manual_seed(0)
+  tower = hbt.StackedDCNv2([16] * 3 + [1], [32, 1], generator=gen,
+                           device=dev)
+  state = hbt.SparseTrainState.create(
+      tower, fx.init(gen), lambda p: torch.optim.Adam(p, lr=1e-3))
+
+  def loss_fn(tower, emb_f, dense_f, batch):
+    p = torch.clamp(tower(emb_f + dense_f), 1e-6, 1 - 1e-6)
+    y = batch['label']
+    return -torch.mean(y * torch.log(p) + (1 - y) * torch.log(1 - p)), {}
+
+  step = hbt.make_sparse_train_step(fx, loss_fn, table_split_dense=True)
+  rng = np.random.RandomState(0)
+  batch = {f'c{i}': torch.from_numpy(
+      rng.randint(-5, 520, 64).astype(np.int32)).to(dev) for i in range(3)}
+  batch['i0'] = torch.rand(64, device=dev)
+  batch['label'] = torch.randint(0, 2, (64,), device=dev).float()
+  before = (hbt.gsum_dense_sorted.launches, hbt.adagrad_update_sorted.launches)
+  for _ in range(3):
+    state, m = step(state, batch)
+  assert (hbt.gsum_dense_sorted.launches,
+          hbt.adagrad_update_sorted.launches) == (before[0] + 3, before[1])
   assert torch.isfinite(m['loss'])

@@ -5,7 +5,10 @@ DCNv2 tower with MLP [64, 32, 1], batch 64 with invalid ids, BCE loss,
 Adam 1e-3 on the tower and row-sparse Adagrad 0.05 on the table. The JAX
 step runs in a one-device context, under both update implementations:
 ``'auto'`` (the XLA dedup path on the CPU) and ``'stream'`` (the Pallas
-kernel in interpret mode). The port starts from the JAX state through
+kernel in interpret mode), and in the dense-split form (``'split'``:
+``emb_update_split_dense='on'`` on the stream path, the Pallas
+``gsum_dense_sorted`` in interpret mode, against the port's
+``table_split_dense=True``). The port starts from the JAX state through
 ``convert.from_jax`` and runs on the CPU.
 
 Tolerances: the per-step loss to ``rtol = 1e-5``; tables, accumulators
@@ -33,6 +36,7 @@ from hybridbackend_tpu.models.feature import (
     StackedFeatureExtractor as JStackedFeatureExtractor)
 from hybridbackend_tpu.models.ranking import (
     stacked_dcn_v2_apply, stacked_dcn_v2_init)
+from hybridbackend_tpu.ops.pallas import scatter as jscatter
 from hybridbackend_tpu.training.sparse_step import (
     SparseTrainState as JSparseTrainState,
     make_sparse_train_step as jax_make_sparse_train_step)
@@ -64,7 +68,11 @@ def _batches(seed=0):
 def _jax_run(impl, batches):
   """Initial state and per-step (loss, state) of the JAX step."""
   ctx = JContext(build_mesh(devices=jax.devices()[:1]))
-  with context_scope(ctx), OPTIONS.override(emb_update_impl=impl):
+  overrides = dict(emb_update_impl=impl)
+  if impl == 'split':
+    overrides = dict(emb_update_impl='stream', emb_update_split_dense='on',
+                     emb_update_touched_blocks=-1)
+  with context_scope(ctx), OPTIONS.override(**overrides):
     specs = [JEmbeddingSpec(JTableConfig(f'c{t}', VOCAB, DIM))
              for t in range(TABLES)]
     fx = JStackedFeatureExtractor(
@@ -98,7 +106,7 @@ def _port_model_loss(tower, emb_f, dense_f, batch):
   return -torch.mean(y * torch.log(p) + (1 - y) * torch.log(1 - p)), {}
 
 
-def _port(init):
+def _port(init, split=False):
   ctx = hbt.Context(torch.device('cpu'))
   specs = [hbt.EmbeddingSpec(hbt.TableConfig(f'c{t}', VOCAB, DIM))
            for t in range(TABLES)]
@@ -108,7 +116,8 @@ def _port(init):
   state = hbt.from_jax(
       fx, init.tables, {k: v.acc[0] for k, v in init.table_opt.items()},
       model, init.dense, functools.partial(torch.optim.Adam, lr=1e-3))
-  step = hbt.make_sparse_train_step(fx, _port_model_loss, table_lr=0.05)
+  step = hbt.make_sparse_train_step(fx, _port_model_loss, table_lr=0.05,
+                                    table_split_dense=split)
   return fx, state, step
 
 
@@ -128,11 +137,33 @@ def _assert_state_close(state, want):
                                **STATE_TOL)
 
 
-@pytest.mark.parametrize('impl', ['auto', 'stream'])
-def test_sparse_step_matches_jax(impl):
+@pytest.fixture(autouse=True)
+def one_thread():
+  """The port's CPU math on one thread: the dense-split update's
+  whole-table square root, split across torch worker threads, once came
+  out 6.6e-5 relative off in one worker's block under a loaded test run
+  (``test_torch_gsum.py``)."""
+  threads = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize('impl', ['auto', 'stream', 'split'])
+def test_sparse_step_matches_jax(monkeypatch, impl):
+  gsum_calls = []
+  real_gsum = jscatter.gsum_dense_sorted
+
+  def spy(*args, **kwargs):
+    gsum_calls.append(args)
+    return real_gsum(*args, **kwargs)
+
+  monkeypatch.setattr(jscatter, 'gsum_dense_sorted', spy)
   batches = _batches()
   init, trace = _jax_run(impl, batches)
-  fx, state, step = _port(init)
+  # The JAX step traces its update once; only the split form reaches it.
+  assert len(gsum_calls) == (impl == 'split')
+  fx, state, step = _port(init, split=impl == 'split')
   (name,) = [s.stacked.name for s in fx.stacks]
   assert name == 'stack/c0/c1/c2' and name in init.tables
   before = state.tables[name].clone()
@@ -151,3 +182,15 @@ def test_sparse_step_matches_jax(impl):
       touched[ids[(ids >= 0) & (ids < VOCAB)] + t * VOCAB] = True
   assert torch.equal(state.tables[name][~touched], before[~touched])
   assert not torch.equal(state.tables[name][touched], before[touched])
+
+
+@pytest.mark.parametrize('optimizer,dedup', [('adam', True),
+                                             ('adagrad', False)])
+def test_split_dense_step_takes_only_dedup_adagrad(optimizer, dedup):
+  ctx = hbt.Context(torch.device('cpu'))
+  fx = hbt.StackedFeatureExtractor(
+      [hbt.EmbeddingSpec(hbt.TableConfig('c0', 10, 4))], ctx=ctx)
+  with pytest.raises(ValueError, match='table_split_dense'):
+    hbt.make_sparse_train_step(fx, _port_model_loss, table_dedup=dedup,
+                               table_optimizer=optimizer,
+                               table_split_dense=True)
