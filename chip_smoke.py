@@ -3,7 +3,7 @@
 
 Run from the root of the repository, with no arguments:
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--tune]
 
 It builds the port's CUDA kernels from ``hybridbackend_tpu_torch/ops/csrc``
 (one nvcc per source, all at once) and drives the flagship sparse train
@@ -42,7 +42,9 @@ Phases; any failure raises and the script exits nonzero:
      Adagrad kernel never;
   8. that step timed on the card, with the same launch counts per step.
 With ``--profile`` it then traces 10 steps of each timed variant with
-``torch.profiler`` and prints device time per step by kernel class.
+``torch.profiler`` and prints device time per step by kernel class. With
+``--tune`` phase 1 also times the add kernel over tile sizes and the
+dense-totals kernel over block and chunk sizes.
 The second-to-last line is a JSON object describing each kernel (its
 times, launches on its path, and its bound: the larger of its bytes over
 3.35 TB/s and its operations over the card's peak rate); the last line is
@@ -224,7 +226,8 @@ def phase0_environment():
   t0 = time.perf_counter()
   libs = build.load_all()
   print(f'kernel builds: {time.perf_counter() - t0:.3f} s wall for '
-        f'{len(libs)} libraries, built concurrently')
+        f'{len(libs)} libraries, built concurrently; each is built from and '
+        f'hashed with {", ".join(h.name for h in build.headers())}')
   for name, lib in libs.items():
     print(f'  {name}: {lib.build_seconds:.3f} s nvcc ({lib.path.name})')
     for line in lib.compiler_log.splitlines():
@@ -271,7 +274,7 @@ def _hold(name, state0, rows, kernel, plain, tol=1e-5):
   return err, got
 
 
-def phase1_kernels(cfg: Flagship, dev: torch.device):
+def phase1_kernels(cfg: Flagship, dev: torch.device, tune: bool = False):
   import hybridbackend_tpu_torch as hbt
   v = cfg.tables * cfg.vocab
   rng = np.random.RandomState(cfg.seed)
@@ -388,7 +391,95 @@ def phase1_kernels(cfg: Flagship, dev: torch.device):
   out.update(phase1_gsum(cfg, dev, inputs, out['adagrad_update_sorted']))
   out.update(phase1_gather(cfg, dev, inputs))
   out.update(phase1_round(cfg, dev, inputs))
+  phase1_edges(cfg, dev, table0)
+  if tune:
+    phase1_tune(cfg, dev, inputs)
   return out
+
+
+def phase1_edges(cfg: Flagship, dev: torch.device, table0):
+  """Kernels 2 and 4 at full width on a list built to hit the edges of
+  their tiles, against the plain versions on the CPU copy (which add a
+  run in list order, as the kernels do; atomics on the card do not)."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.ops import scatter
+  v, d = table0.shape
+  tile = scatter.tile_entries(d)
+  n = 40 * tile + 1                           # one more than whole tiles
+  rng = np.random.RandomState(cfg.seed + 7)
+  rows = np.sort(rng.randint(0, v, n))
+  rows[tile - 3:tile + 3] = rows[tile - 3]    # a run across a boundary
+  start = 5 * tile + tile // 2                # a run longer than a tile
+  rows[start:start + 3 * tile + 5] = rows[start]
+  # 5 tiles of entries on 300 neighbouring rows: one block's slice of
+  # kernel 4 spans several chunks.
+  start = 20 * tile
+  rows[start:start + 5 * tile] = rows[start] + np.sort(
+      rng.randint(0, 300, 5 * tile))
+  rows[:7], rows[-9:] = -1, v + 2
+  assert (np.diff(rows) >= 0).all()
+  rows = torch.from_numpy(rows.astype(np.int32))
+  g = torch.from_numpy(rng.randn(n, d).astype(np.float32))
+  table_cpu = table0.cpu()
+  want_add = hbt.scatter_add_sorted_reference(table_cpu.clone(), rows, g)
+  want_sum = hbt.gsum_dense_sorted_reference(rows, g, v)
+  untouched = torch.ones(v, dtype=torch.bool)
+  untouched[rows[(rows >= 0) & (rows < v)].long()] = False
+  errs = []
+  for label, shift in (('aligned', 0), ('one float into the storage', 1)):
+    flat = torch.cat([g.new_zeros(shift), g.reshape(-1)]).to(dev)
+    g_dev = flat[shift:].view(n, d)
+    got = hbt.scatter_add_sorted(table0.clone(), rows.to(dev), g_dev).cpu()
+    if not torch.allclose(got, want_add, rtol=1e-5, atol=1e-5):
+      raise AssertionError(f'scatter_add_sorted on the edge list ({label}) '
+                           'differs from the plain version')
+    if not torch.equal(got[untouched], table_cpu[untouched]):
+      raise AssertionError(f'scatter_add_sorted on the edge list ({label}) '
+                           'changed rows the list does not hold')
+    errs.append(float((got - want_add).abs().max()))
+    if not torch.equal(hbt.gsum_dense_sorted(rows.to(dev), g_dev, v).cpu(),
+                       want_sum):
+      raise AssertionError(f'gsum_dense_sorted on the edge list ({label}) '
+                           'is not bitwise the plain version')
+  print(f'  edge list of {n} rows (40 tiles of {tile} and one entry; a run '
+        f'across a tile boundary, a run of {3 * tile + 5}, {5 * tile} entries '
+        'on 300 neighbouring rows; updates aligned and one float into their '
+        f'storage) on [{v}, {d}]: scatter_add_sorted max abs err '
+        f'{max(errs):.3e} (rtol = atol = 1e-5 against the plain version on '
+        'the CPU), untouched rows '
+        'bitwise; gsum_dense_sorted bitwise equal')
+
+
+def phase1_tune(cfg: Flagship, dev: torch.device, inp):
+  """Kernel 2 over tile sizes and kernel 4 over block and chunk sizes, at
+  the flagship list; each sweep forth and back."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.ops import scatter
+  rows, g = inp['rows'], inp['g']
+  v, d = inp['table0'].shape
+  table = inp['table0'].clone()
+  sms = torch.cuda.get_device_properties(dev).multi_processor_count
+  saved = (scatter.TILE_ENTRIES, scatter.TILE_BYTES,
+           scatter.GSUM_BLOCK_BYTES, scatter.GSUM_CHUNK_ENTRIES)
+  tiles = (64, 128, 256, 512, 1024)
+  for tile in tiles + tiles[::-1]:
+    scatter.TILE_ENTRIES, scatter.TILE_BYTES = tile, tile * 4 * d
+    ms = _median_ms(lambda: hbt.scatter_add_sorted(table, rows, g))
+    print(f'  tune scatter_add_sorted: tile {scatter.tile_entries(d)} '
+          f'entries: {ms:.4f} ms')
+  scatter.TILE_BYTES = saved[1]
+  blocks = (512, 1024, 2048, 4096, 8192)
+  for chunk in (512, 256, 256, 512):
+    for block in blocks if chunk == 512 else blocks[::-1]:
+      scatter.GSUM_BLOCK_BYTES, scatter.GSUM_CHUNK_ENTRIES = (block * 4 * d,
+                                                              chunk)
+      block_rows, chunk_entries = scatter.gsum_blocking(v, d, sms)
+      ms = _median_ms(lambda: hbt.gsum_dense_sorted(rows, g, v))
+      print(f'  tune gsum_dense_sorted: about {block} rows a block: '
+            f'{-(-v // block_rows)} blocks of {block_rows} rows on {sms} '
+            f'SMs, chunks of {chunk_entries} entries: {ms:.4f} ms')
+  (scatter.TILE_ENTRIES, scatter.TILE_BYTES, scatter.GSUM_BLOCK_BYTES,
+   scatter.GSUM_CHUNK_ENTRIES) = saved
 
 
 def phase1_gsum(cfg: Flagship, dev: torch.device, inp, fused):
@@ -760,6 +851,8 @@ def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--profile', action='store_true',
                       help='trace 10 steps of each timed variant')
+  parser.add_argument('--tune', action='store_true',
+                      help='time kernels 2 and 4 over tile and block sizes')
   args = parser.parse_args()
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; this smoke run needs one',
@@ -777,7 +870,7 @@ def main() -> int:
   cfg = Flagship()
 
   smi = phase0_environment()
-  k = phase1_kernels(cfg, dev)
+  k = phase1_kernels(cfg, dev, tune=args.tune)
   state, dcn_step, counts = gpu_vs_cpu(cfg, dev, 'phase 2 (DCNv2 + Adagrad)',
                                        'dcnv2', 'adagrad')
   _expect('DCNv2 + Adagrad step', counts, adagrad_update_sorted=1)

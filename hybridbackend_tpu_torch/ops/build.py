@@ -2,8 +2,9 @@
 
 Each ``ops/csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` into a shared library at first use and loaded with ``ctypes``.
-The library's file name carries a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is reused. Libraries go
+The library's file name carries a hash of the source, of every header
+beside it (``csrc/*.cuh``) and of the flags, so an edited source or header
+is rebuilt and an unchanged one is reused. Libraries go
 to ``hybridbackend_tpu_torch/_build/``, which git ignores.
 :func:`load_all` starts one ``nvcc`` per missing library, all at once.
 :func:`launch` calls a kernel's C function on PyTorch's current stream.
@@ -20,7 +21,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -52,9 +53,15 @@ def nvcc_path() -> str:
   return os.path.join(CUDA_HOME, 'bin', 'nvcc')
 
 
+def headers() -> Tuple[Path, ...]:
+  """The headers every library is built from and hashed with."""
+  return tuple(sorted(_CSRC.glob('*.cuh')))
+
+
 def _target(name: str) -> Path:
-  src = _CSRC / f'{name}.cu'
-  digest = hashlib.sha256(src.read_bytes() + ' '.join(_FLAGS).encode())
+  digest = hashlib.sha256(' '.join(_FLAGS).encode())
+  for path in (_CSRC / f'{name}.cu', *headers()):
+    digest.update(path.name.encode() + path.read_bytes())
   return _BUILD_DIR / f'lib{name}_{digest.hexdigest()[:16]}.so'
 
 
@@ -73,7 +80,8 @@ def load_all(names: Sequence[str] = KERNELS) -> Dict[str, Library]:
       fd, tmp = tempfile.mkstemp(suffix='.so', dir=_BUILD_DIR)
       os.close(fd)
       proc = subprocess.Popen(
-          [nvcc_path(), *_FLAGS, '-o', tmp, str(_CSRC / f'{name}.cu')],
+          [nvcc_path(), *_FLAGS, '-I', str(_CSRC), '-o', tmp,
+           str(_CSRC / f'{name}.cu')],
           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
       builds[name] = (proc, tmp, out, time.perf_counter())
     logs, failed = {}, []
@@ -129,4 +137,5 @@ def launch(wrapper, library: str, symbol: str, argtypes,
   wrapper.launches += 1
 
 
-__all__ = ['KERNELS', 'Library', 'launch', 'load', 'load_all', 'nvcc_path']
+__all__ = ['KERNELS', 'Library', 'headers', 'launch', 'load', 'load_all',
+           'nvcc_path']

@@ -1,0 +1,199 @@
+// Device code shared by the kernels that walk a row-sorted update list on
+// Hopper (sm_90a): scatter_add.cu and gsum_dense.cu today; adam_update.cu
+// and adagrad_update.cu are to move onto it.
+//
+// The list is `rows` int32 [n], ascending, with `updates` f32 [n, d]. A
+// *run* is a maximal stretch of equal rows; its *head* is its first entry.
+// Every kernel here gives each run one owner, which forms the run's total
+// from 0.f by adding the run's entries in list order with __fadd_rn: no
+// float atomics, no tree or shuffle reduction, so every kernel forms the
+// same bits for the same list.
+//
+// What the pieces are for, on this card:
+//   * A block takes a *tile* of consecutive list entries. The tile's rows
+//     (and the entry before it, to tell whether the first entry starts a
+//     run) go to shared memory with one coalesced load (stage_rows); the
+//     tile's updates are one contiguous span of cnt*d*4 bytes, which one
+//     thread copies with a single cp.async.bulk that reports to an
+//     mbarrier (bulk_load). Tens of KB are in flight per block for one
+//     instruction and no registers. A contiguous span needs no tensor map.
+//   * Run heads are found in shared memory (is_head), and a run is summed
+//     from shared memory (run_total); an owner whose run leaves the tile
+//     finishes it from global memory, and a tile that starts inside a run
+//     leaves those entries to the earlier tile's owner.
+//   * An entry is served by a *group* of min(32, width) threads (Groups),
+//     not by a warp: at d = 16 a row is 4 lanes of 16 bytes, so one warp
+//     instruction serves 8 entries. Lane<float4> is the 16-byte lane,
+//     Lane<float> the scalar one for a d or an address that 16 bytes do
+//     not divide; a group never cooperates across lanes, so it may
+//     straddle warps.
+//   * lower_bound_warp finds where a row starts in the sorted list with a
+//     33-way search (4 or 5 dependent reads for 2e5 entries, not 18).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sorted_runs {
+
+constexpr int kThreads = 256;
+// The most a block stages of a tile's updates; a larger tile is read from
+// global memory.
+constexpr size_t kMaxStageBytes = 160 * 1024;
+
+// One thread's share of a row: a float, or 16 bytes of it.
+template <typename V>
+struct Lane;
+
+template <>
+struct Lane<float> {
+  static constexpr int kFloats = 1;
+  static __device__ __forceinline__ float zero() { return 0.f; }
+  static __device__ __forceinline__ float add(float a, float b) {
+    return __fadd_rn(a, b);
+  }
+};
+
+template <>
+struct Lane<float4> {
+  static constexpr int kFloats = 4;
+  static __device__ __forceinline__ float4 zero() {
+    return make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  static __device__ __forceinline__ float4 add(float4 a, float4 b) {
+    return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                       __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+  }
+};
+
+__host__ __device__ inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The threads of a block cut into groups of `lanes` = min(32, width)
+// threads; group g serves one list entry at a time, lane l the elements
+// l, l + lanes, ... of its row. Threads beyond the last whole group idle.
+struct Groups {
+  int lanes, count, group, lane;
+  __device__ explicit Groups(int width) {
+    lanes = width < 32 ? (width > 0 ? width : 1) : 32;
+    count = kThreads / lanes;
+    group = threadIdx.x / lanes;
+    lane = threadIdx.x % lanes;
+  }
+  __device__ bool active() const { return group < count; }
+};
+
+__device__ __forceinline__ uint32_t shared_address(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One thread: makes `bar` ready for one arrival and for the async proxy.
+__device__ __forceinline__ void mbarrier_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                   shared_address(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// One thread: copies `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared memory; `bar` completes when they land.
+__device__ __forceinline__ void bulk_load(void* dst_shared,
+                                          const void* src_global,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   shared_address(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(shared_address(dst_shared)),
+      "l"(__cvta_generic_to_global(src_global)), "r"(bytes),
+      "r"(shared_address(bar))
+      : "memory");
+}
+
+// Every thread that reads what bulk_load brought waits here first.
+__device__ __forceinline__ void mbarrier_wait(uint64_t* bar,
+                                              uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t"
+        ".reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t"
+        "}"
+        : "=r"(done)
+        : "r"(shared_address(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// All threads: rows_s[1 + k] = rows[t0 + k] for k in [0, cnt), and
+// rows_s[0] = rows[t0 - 1], or -1 (no valid row) at the head of the list.
+// The block syncs before it reads rows_s.
+__device__ __forceinline__ void stage_rows(int32_t* rows_s,
+                                           const int32_t* __restrict__ rows,
+                                           int64_t t0, int cnt) {
+  for (int i = threadIdx.x; i <= cnt; i += kThreads) {
+    const int64_t at = t0 - 1 + i;
+    rows_s[i] = at >= 0 ? rows[at] : -1;
+  }
+}
+
+// Whether tile entry j starts a run of a valid row.
+__device__ __forceinline__ bool is_head(const int32_t* rows_s, int j,
+                                        int64_t vocab) {
+  const int32_t r = rows_s[j + 1];
+  return r >= 0 && r < vocab && r != rows_s[j];
+}
+
+// Element c of the total of the run of row r that tile entry j heads,
+// summed from 0.f in list order. Entries [j, cnt) of the tile are read
+// from `tile_src` (shared or global memory; entry k, element c at
+// tile_src[k * stride + c]). A run that reaches the tile's end goes on in
+// global memory from list entry `tile_end` (element c of entry i at
+// updates[i * stride + c]) while rows[i] == r and i < limit.
+template <typename V>
+__device__ __forceinline__ V run_total(
+    const int32_t* rows_s, int j, int cnt, int32_t r, const V* tile_src,
+    int64_t stride, int c, const int32_t* __restrict__ rows,
+    const V* __restrict__ updates, int64_t tile_end, int64_t limit) {
+  V s = Lane<V>::zero();
+  int k = j;
+  do {
+    s = Lane<V>::add(s, tile_src[k * stride + c]);
+    ++k;
+  } while (k < cnt && rows_s[k + 1] == r);
+  if (k == cnt) {
+    for (int64_t i = tile_end; i < limit && rows[i] == r; ++i)
+      s = Lane<V>::add(s, updates[i * stride + c]);
+  }
+  return s;
+}
+
+// One whole warp: the first index i in [0, n) with rows[i] >= key (n if
+// none), for ascending rows. Each step reads 32 probes that cut the span
+// into 33 parts.
+__device__ __forceinline__ int64_t lower_bound_warp(
+    const int32_t* __restrict__ rows, int64_t n, int64_t key) {
+  const int lane = threadIdx.x & 31;
+  int64_t lo = 0, hi = n;
+  while (lo < hi) {
+    const int64_t p = lo + (hi - lo) * (lane + 1) / 33;
+    const unsigned below = __ballot_sync(0xffffffffu, rows[p] < key);
+    const int k = __popc(below);  // probes 0..k-1 are below the key
+    const long long last_below =
+        __shfl_sync(0xffffffffu, static_cast<long long>(p), k > 0 ? k - 1 : 0);
+    const long long first_at =
+        __shfl_sync(0xffffffffu, static_cast<long long>(p), k < 32 ? k : 31);
+    if (k > 0) lo = last_below + 1;
+    if (k < 32) hi = first_at;
+  }
+  return lo;
+}
+
+}  // namespace sorted_runs

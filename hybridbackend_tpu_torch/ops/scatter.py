@@ -4,7 +4,8 @@ Counterparts of ``hybridbackend_tpu/ops/pallas/scatter.py``:
 ``adagrad_update_sorted``, ``scatter_add_sorted``, ``adam_update_sorted``
 and ``gsum_dense_sorted``. On a CUDA tensor each wrapper launches its
 hand-written kernel (``csrc/adagrad_update.cu``, ``csrc/scatter_add.cu``,
-``csrc/adam_update.cu``, ``csrc/gsum_dense.cu``) or raises; on a CPU
+``csrc/adam_update.cu``, ``csrc/gsum_dense.cu``; the second and the last
+are built on ``csrc/sorted_runs.cuh``) or raises; on a CPU
 tensor it runs the plain PyTorch version beside it (``*_reference``),
 which the tests hold against the JAX package. The three updates work in
 place and return their tensors; rows ``< 0`` or ``>= V`` are skipped,
@@ -23,6 +24,41 @@ from hybridbackend_tpu_torch.ops import build
 
 Lr = Union[float, torch.Tensor]
 Step = Union[int, float, torch.Tensor]
+
+# How the kernels on ``csrc/sorted_runs.cuh`` cut their work, chosen by
+# measurement at the flagship list (``chip_smoke.py --tune``).
+# ``scatter_add_sorted``: a block takes a tile of this many list entries,
+# fewer for a wide row, so that a tile's updates are at most TILE_BYTES.
+TILE_ENTRIES = 128
+TILE_BYTES = 32 * 1024
+# ``gsum_dense_sorted``: a block owns about this many bytes of output rows
+# and walks its slice of the list in chunks of at most this many entries
+# (fewer for a wide row: a chunk's updates are at most TILE_BYTES too).
+GSUM_BLOCK_BYTES = 256 * 1024
+GSUM_CHUNK_ENTRIES = 256
+_GSUM_MAX_BLOCK_ROWS = 8192      # one flag byte a row in shared memory
+
+
+def tile_entries(d: int) -> int:
+  """List entries in a tile of ``scatter_add_sorted`` at row width ``d``."""
+  return max(16, min(TILE_ENTRIES, TILE_BYTES // (4 * max(d, 1))))
+
+
+def gsum_blocking(vocab: int, d: int, sms: int) -> Tuple[int, int]:
+  """``(block_rows, chunk)`` of ``gsum_dense_sorted`` for a ``[vocab, d]``
+  output on a card of ``sms`` SMs. A block owns ``block_rows`` whole rows,
+  about GSUM_BLOCK_BYTES of them, a multiple of 4 (so every block's range
+  starts on a 16-byte boundary), and fewer where that brings the number of
+  blocks to whole rounds of the SMs: all blocks are resident at once, so
+  the kernel takes as long as the SM with the most blocks."""
+  d = max(d, 1)
+  rows = max(4, min(_GSUM_MAX_BLOCK_ROWS, GSUM_BLOCK_BYTES // (4 * d)))
+  blocks = -(-vocab // rows)
+  if blocks > sms:
+    blocks = -(-blocks // sms) * sms
+    rows = -(-vocab // blocks)
+  chunk = max(16, min(GSUM_CHUNK_ENTRIES, TILE_BYTES // (4 * d)))
+  return max(4, -(-rows // 4) * 4), chunk
 
 
 def _check(name: str, table: torch.Tensor, slots: Sequence[torch.Tensor],
@@ -179,9 +215,10 @@ def scatter_add_sorted(table: torch.Tensor, rows: torch.Tensor,
   updates = updates.to(torch.float32).contiguous()
   _launch(scatter_add_sorted, 'scatter_add',
           (ctypes.c_void_p,) * 3 + (ctypes.c_int64, ctypes.c_int64,
-                                    ctypes.c_int),
+                                    ctypes.c_int, ctypes.c_int),
           device, table.data_ptr(), rows.data_ptr(), updates.data_ptr(),
-          rows.shape[0], table.shape[0], table.shape[1])
+          rows.shape[0], table.shape[0], table.shape[1],
+          tile_entries(table.shape[1]))
   return table
 
 
@@ -314,11 +351,14 @@ def gsum_dense_sorted(rows: torch.Tensor, updates: torch.Tensor,
   device = _launch_target('gsum_dense_sorted', updates)
   out = torch.empty((vocab, updates.shape[1]), dtype=torch.float32,
                     device=device)
+  block_rows, chunk = gsum_blocking(
+      vocab, updates.shape[1],
+      torch.cuda.get_device_properties(device).multi_processor_count)
   _launch(gsum_dense_sorted, 'gsum_dense',
-          (ctypes.c_void_p,) * 3 + (ctypes.c_int64, ctypes.c_int64,
-                                    ctypes.c_int),
+          (ctypes.c_void_p,) * 3 + (ctypes.c_int64, ctypes.c_int64)
+          + (ctypes.c_int,) * 3,
           device, out.data_ptr(), rows.data_ptr(), updates.data_ptr(),
-          rows.shape[0], vocab, updates.shape[1])
+          rows.shape[0], vocab, updates.shape[1], block_rows, chunk)
   return out
 
 

@@ -21,8 +21,76 @@ import pytest
 import torch
 
 import hybridbackend_tpu_torch as hbt
+from hybridbackend_tpu_torch.ops import scatter
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _hard_list_specs():
+  """``(name, v, d, n, kind, view)`` of the update lists built to hit the
+  edges of the kernels on ``csrc/sorted_runs.cuh``: the add kernel's tile
+  of ``T`` list entries, and the dense-totals kernel's block of output
+  rows and chunk of staged entries (both a few tiles long at most; the
+  card's tests also run them with small blocks and chunks)."""
+  T = scatter.tile_entries
+  specs = []
+  for d in (1, 3, 4, 16, 20, 33, 128):       # every lane layout
+    specs.append((f'random-d{d}', 523, d, 2 * T(d) + 1, 'random', None))
+  specs.append(('random-v1537', 1537, 16, 5 * T(16), 'random', None))
+  for d in (3, 16, 33):                      # a run across a tile boundary
+    specs.append((f'boundary-d{d}', 2000, d, 3 * T(d), 'boundary', None))
+  for d in (3, 16):                          # a run longer than a tile
+    specs.append((f'long-d{d}', 2000, d, 4 * T(d) + 3, 'long', None))
+  t = T(16)
+  for name, n in (('0', 0), ('1', 1), ('T-1', t - 1), ('T', t),
+                  ('T+1', t + 1)):
+    specs.append((f'n={name}', 1000, 16, n, 'random', None))
+  specs.append(('dense-slice', 300, 16, 1000, 'random', None))
+  specs.append(('invalid', 300, 16, t + 9, 'invalid', None))
+  # Views: one entry into the list (12 bytes at d = 3, 64 at d = 16), and
+  # one float into the updates' storage (no 16-byte lanes, no bulk copy).
+  specs += [('entry-view-d3', 700, 3, 2 * T(3) + 1, 'random', 'entry'),
+            ('entry-view-d16', 700, 16, 2 * t + 1, 'random', 'entry'),
+            ('float-view-d4', 700, 4, 2 * T(4) + 1, 'random', 'float'),
+            ('float-view-d16', 700, 16, 2 * t + 1, 'random', 'float')]
+  return specs
+
+
+HARD_LISTS = _hard_list_specs()
+HARD_LIST_IDS = [spec[0] for spec in HARD_LISTS]
+
+
+def hard_list(spec, device='cpu'):
+  """``(v, d, n, rows, updates, table)`` of one spec, as tensors on
+  ``device``; ``rows`` ascending. The same numbers on every device."""
+  name, v, d, n, kind, view = spec
+  rng = np.random.RandomState(sum(map(ord, name)))
+  tile = scatter.tile_entries(d)
+  if kind == 'invalid':
+    rows = np.sort(np.where(np.arange(n) < n // 2, -1, v + np.arange(n) % 9))
+  else:
+    hot = rng.choice(v, max(1, min(v, n // 3)), replace=False)
+    rows = hot[rng.randint(0, len(hot), n)]
+    rows[rng.rand(n) < 0.05] = -1
+    rows[rng.rand(n) < 0.05] = v + 3
+    rows = np.sort(rows)
+    if kind == 'boundary':                   # entries T-3 .. T+2 are one run
+      rows[tile - 3:tile + 3] = rows[tile - 3]
+      rows[2 * tile - 1:2 * tile + 1] = rows[2 * tile - 1]
+    elif kind == 'long':                     # 2T + 7 entries from mid-tile
+      rows[tile // 2:tile // 2 + 2 * tile + 7] = rows[tile // 2]
+  rows = rows.astype(np.int32)
+  assert (np.diff(rows) >= 0).all()
+  g = rng.randn(n, d).astype(np.float32)
+  table = torch.from_numpy(rng.uniform(-1, 1, (v, d)).astype(np.float32))
+  rows_t, g_t = torch.from_numpy(rows), torch.from_numpy(g)
+  if view == 'entry':
+    rows_t = torch.cat([rows_t[:1], rows_t]).to(device)[1:]
+    g_t = torch.cat([g_t[:1], g_t]).to(device)[1:]
+  elif view == 'float':
+    g_t = torch.cat([g_t.new_zeros(1), g_t.reshape(-1)]).to(device)[1:].view(
+        n, d)
+  return v, d, n, rows_t.to(device), g_t.to(device), table.to(device)
 
 
 @pytest.fixture
@@ -251,6 +319,31 @@ def test_sparse_step_variants_run_their_kernels_on_the_card(
   assert torch.isfinite(m['loss'])
 
 
+@pytest.mark.parametrize('spec', HARD_LISTS, ids=HARD_LIST_IDS)
+def test_add_kernel_on_the_hard_lists(dev, spec):
+  v, d, n, rows, g, table = hard_list(spec, dev)
+  tk = table.clone()
+  before = hbt.scatter_add_sorted.launches
+  hbt.scatter_add_sorted(tk, rows, g)
+  assert hbt.scatter_add_sorted.launches == before + 1
+  tr = hbt.scatter_add_sorted_reference(table.cpu(), rows.cpu(), g.cpu())
+  torch.testing.assert_close(tk.cpu(), tr, **TOL)
+  _assert_untouched(rows, v, [(tk, table)])
+
+
+def test_add_kernel_takes_a_row_too_wide_to_stage(dev):
+  """A tile of 16 entries of 60000 floats exceeds shared memory: the
+  kernel reads the updates from global memory."""
+  v, d, n = 7, 60000, 40
+  gen = torch.Generator().manual_seed(d)
+  rows = torch.randint(-1, v + 2, (n,), generator=gen,
+                       dtype=torch.int32).sort().values
+  g, table = torch.randn(n, d, generator=gen), torch.rand(v, d, generator=gen)
+  got = hbt.scatter_add_sorted(table.to(dev), rows.to(dev), g.to(dev))
+  want = hbt.scatter_add_sorted_reference(table.clone(), rows, g)
+  torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
 # Kernel 4 and the dense-split update. Bitwise: the kernel sums each run
 # in list order from 0, as ``index_add_`` does on the CPU.
 @pytest.mark.parametrize('v,d,n,distinct', CASES + [(700, 128, 3000, 200),
@@ -264,10 +357,57 @@ def test_gsum_kernel_matches_plain_version(dev, v, d, n, distinct):
   assert got.dtype == torch.float32 and torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize('small_blocks', [False, True])
+@pytest.mark.parametrize('spec', HARD_LISTS, ids=HARD_LIST_IDS)
+def test_gsum_kernel_on_the_hard_lists(dev, spec, small_blocks, monkeypatch):
+  """``small_blocks``: blocks of 512 bytes of output and chunks of 48
+  entries, so that these small lists span many blocks (more than the card
+  has SMs, a ragged last one) and slices span several chunks."""
+  if small_blocks:
+    monkeypatch.setattr(scatter, 'GSUM_BLOCK_BYTES', 512)
+    monkeypatch.setattr(scatter, 'GSUM_CHUNK_ENTRIES', 48)
+  v, d, n, rows, g, _ = hard_list(spec, dev)
+  before = hbt.gsum_dense_sorted.launches
+  got = hbt.gsum_dense_sorted(rows, g, v)
+  assert hbt.gsum_dense_sorted.launches == before + 1
+  want = hbt.gsum_dense_sorted_reference(rows.cpu(), g.cpu(), v)
+  assert torch.equal(got.cpu(), want)        # untouched rows exactly 0 too
+
+
+def test_gsum_kernel_takes_a_row_too_wide_to_stage(dev):
+  """60000 floats a row: blocks of 4 rows, and a chunk of 16 entries
+  exceeds shared memory, so the kernel reads the updates from global
+  memory."""
+  v, d, n = 7, 60000, 40
+  gen = torch.Generator().manual_seed(d)
+  rows = torch.randint(-1, v + 2, (n,), generator=gen,
+                       dtype=torch.int32).sort().values
+  g = torch.randn(n, d, generator=gen)
+  got = hbt.gsum_dense_sorted(rows.to(dev), g.to(dev), v)
+  assert torch.equal(got.cpu(), hbt.gsum_dense_sorted_reference(rows, g, v))
+
+
 def test_gsum_kernel_of_an_all_invalid_list_is_zero(dev):
   _, rows, g = _all_invalid(dev, 300, 16)
   got = hbt.gsum_dense_sorted(rows, g, 300)
   assert torch.equal(got, torch.zeros((300, 16), device=dev))
+
+
+def test_split_dense_update_equals_fused_on_a_hard_list(dev):
+  """The run longer than a tile, through both update paths: the dense
+  totals carry the fused kernel's bits."""
+  v, d, n, rows, g, table = hard_list(HARD_LISTS[HARD_LIST_IDS.index(
+      'long-d16')], dev)
+  cfg = hbt.TableConfig('t', v, d)
+  out = []
+  for split in (False, True):
+    t = table.clone()
+    st = hbt.init_adagrad_state(t)
+    hbt.sparse_adagrad_apply(t, st, rows, g, cfg, 0.05, split_dense=split)
+    out.append((t, st.acc[0]))
+  assert torch.equal(out[0][0], out[1][0])
+  assert torch.equal(out[0][1], out[1][1])
+  assert not torch.equal(out[0][0], table)
 
 
 @pytest.mark.parametrize('d', [16, 33])

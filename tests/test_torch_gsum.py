@@ -18,6 +18,13 @@ bitwise. The split update against JAX: ``rtol = atol = 1e-5``, the
 tolerance of ``test_torch_scatter.py`` (the same totals, then the JAX
 apply rounds through XLA's fused elementwise code). Split against fused
 in the port: bitwise.
+
+The plain version is also held on the hard lists of
+``test_torch_cuda.py`` (the lists the card's kernel is checked on against
+this plain version): bit for bit against ``np.add.at``, and on some
+against the JAX package at ``rtol = atol = 1e-6`` (another f32 summation
+order): ``sorted_segment_totals``, which sums a run by an associative
+scan, and the Pallas kernel at D 128.
 """
 
 import jax
@@ -34,6 +41,7 @@ from hybridbackend_tpu.framework.context import (
 from hybridbackend_tpu.ops.pallas import scatter as jscatter
 
 import hybridbackend_tpu_torch as hbt
+from test_torch_cuda import HARD_LISTS, HARD_LIST_IDS, hard_list
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SPLIT_SCOPE = dict(emb_update_impl='stream', emb_update_split_dense='on',
@@ -96,6 +104,29 @@ def test_reference_matches_numpy_at_any_width(d):
   rows, g = _list(v, d, 2000, 150, seed=d)
   got = hbt.gsum_dense_sorted(torch.from_numpy(rows), torch.from_numpy(g), v)
   np.testing.assert_array_equal(got.numpy(), _np_totals(v, rows, g))
+
+
+SCAN_ORACLE = ('n=T+1',)
+
+
+@pytest.mark.parametrize('spec', HARD_LISTS, ids=HARD_LIST_IDS)
+def test_reference_on_the_hard_lists(spec):
+  v, d, n, rows, g, _ = hard_list(spec)
+  got = hbt.gsum_dense_sorted(rows, g, v).numpy()
+  np.testing.assert_array_equal(got, _np_totals(v, rows.numpy(), g.numpy()))
+  if spec[0] in SCAN_ORACLE:
+    _, ends, totals = jscatter.sorted_segment_totals(jnp.asarray(rows.numpy()),
+                                                     jnp.asarray(g.numpy()))
+    ends, totals = np.asarray(ends), np.asarray(totals)
+    ok = (ends >= 0) & (ends < v)              # a run's total, at its end
+    want = np.zeros((v, d), np.float32)
+    want[ends[ok]] = totals[ok]
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+  if d % 128 == 0:
+    want = jscatter.gsum_dense_sorted(
+        jnp.asarray(rows.numpy()), jnp.asarray(g.numpy()), v, block_rows=1024,
+        chunk=128, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6, atol=1e-6)
 
 
 def test_wrapper_on_the_cpu_runs_the_plain_version():

@@ -12,6 +12,14 @@ Tolerance ``rtol = atol = 1e-5``: the paths sum a row's duplicate
 gradients in different f32 orders. Against a float64 reference the
 Pallas kernel strays by at most 2e-5 absolute on accumulators near 100
 and 6e-8 on the table, which the relative part covers.
+
+The plain version of the add kernel is also held on the hard lists of
+``test_torch_cuda.py`` (the lists the card's kernel is checked on against
+this plain version): against the JAX Pallas kernel in interpret mode on
+some, and on all against float32 adds in list order in numpy, at
+``rtol = atol = 1e-6`` (f32 summation order; the Pallas kernel's one-hot
+matmuls stray further on runs of hundreds of entries, so those lists take
+numpy only).
 """
 
 import jax
@@ -25,9 +33,11 @@ from hybridbackend_tpu.embedding import table as jtable
 from hybridbackend_tpu.framework.context import (
     Context as JContext, build_mesh, context_scope)
 from hybridbackend_tpu.ops.pallas.scatter import (
-    adagrad_update_sorted as jax_adagrad_update_sorted)
+    adagrad_update_sorted as jax_adagrad_update_sorted,
+    scatter_add_sorted as jax_scatter_add_sorted)
 
 import hybridbackend_tpu_torch as hbt
+from test_torch_cuda import HARD_LISTS, HARD_LIST_IDS, hard_list
 
 V, D, N = 4096, 16, 3000
 LR, EPS = 0.05, 1e-7
@@ -118,6 +128,27 @@ def test_sparse_adagrad_apply_matches_jax(shuffle):
                              np.asarray(want_s.acc[0]).reshape(-1, D), **TOL)
   np.testing.assert_allclose(t.numpy(), np.asarray(want_t).reshape(-1, D),
                              **TOL)
+
+
+PALLAS_ORACLE = ('random-d16', 'boundary-d16', 'n=T+1')
+
+
+@pytest.mark.parametrize('spec', HARD_LISTS, ids=HARD_LIST_IDS)
+def test_add_reference_on_the_hard_lists(spec):
+  v, d, n, rows, g, table = hard_list(spec)
+  got = hbt.scatter_add_sorted(table.clone(), rows, g).numpy()
+  totals = np.zeros((v, d), np.float32)
+  ok = ((rows >= 0) & (rows < v)).numpy()
+  np.add.at(totals, rows.numpy()[ok], g.numpy()[ok])    # in list order
+  np.testing.assert_allclose(got, table.numpy() + totals, rtol=1e-6,
+                             atol=1e-6)
+  untouched = np.setdiff1d(np.arange(v), rows.numpy())
+  np.testing.assert_array_equal(got[untouched], table.numpy()[untouched])
+  if spec[0] in PALLAS_ORACLE:
+    want = jax_scatter_add_sorted(
+        jnp.asarray(table.numpy()), jnp.asarray(rows.numpy()),
+        jnp.asarray(g.numpy()), block_rows=2048, chunk=256, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6, atol=1e-6)
 
 
 def test_nodedup_is_not_ported():
