@@ -20,7 +20,9 @@ one per step; in three variants:
 Weights are random, drawn from a fixed seed.
 
 Phases; any failure raises and the script exits nonzero:
-  0. the card (nvidia-smi), torch/CUDA/nvcc versions, the kernel builds;
+  0. the card (nvidia-smi), torch/CUDA/nvcc versions, the kernel builds
+     with ptxas's registers and spills, and the resident blocks per SM of
+     the Adagrad and LazyAdam kernels at the flagship row width;
   1. each kernel against its plain PyTorch version on the card, at the
      flagship update list, with both times and, where one PyTorch call
      computes the same function, that call's time: Adagrad (both modes),
@@ -29,7 +31,11 @@ Phases; any failure raises and the script exits nonzero:
      (at the flagship lookup and at [100000, 128] x 16384) and the
      stochastic bf16 round of the flagship gradients; then the gather and
      the round once more through their entry points, with the launch
-     counts read around them;
+     counts read around them; then the Adagrad (both modes), add,
+     LazyAdam and dense-totals kernels at full width on an edge list
+     (runs across and longer than a tile), with the gradients and then
+     the table and slots one float into their storage, against the plain
+     versions on the CPU copy;
   2. one full-width DCNv2 + Adagrad step on the GPU against the CPU;
   3. that step timed on the card; the Adagrad kernel must have been
      launched once per step;
@@ -43,8 +49,11 @@ Phases; any failure raises and the script exits nonzero:
   8. that step timed on the card, with the same launch counts per step.
 With ``--profile`` it then traces 10 steps of each timed variant with
 ``torch.profiler`` and prints device time per step by kernel class. With
-``--tune`` phase 1 also times the add kernel over tile sizes and the
-dense-totals kernel over block and chunk sizes.
+``--tune`` phase 1 also times the add kernel over tile sizes, the
+dense-totals kernel over block and chunk sizes, and the Adagrad (both
+modes) and LazyAdam kernels over tile sizes and state batches (the rows
+of how many run heads a thread loads before it waits for its tile's
+gradients); each sweep forth and back.
 The second-to-last line is a JSON object describing each kernel (its
 times, launches on its path, and its bound: the larger of its bytes over
 3.35 TB/s and its operations over the card's peak rate); the last line is
@@ -57,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import ctypes
 import dataclasses
 import functools
 import json
@@ -88,6 +98,9 @@ KERNELS = {
     'stochastic_round_bf16': (f'{CSRC}/stochastic_round.cu',
                               f'{PALLAS}/cast.py:27'),
 }
+# The rows of the kernels that hold state rows in registers.
+STATE_KERNELS = ('adagrad_update_sorted',
+                 'adagrad_update_sorted[dedup=False]', 'adam_update_sorted')
 # The wrappers that count their launches.
 COUNTED = ('adagrad_update_sorted', 'scatter_add_sorted', 'adam_update_sorted',
            'gsum_dense_sorted', 'gather_rows', 'stochastic_round_bf16')
@@ -233,7 +246,34 @@ def phase0_environment():
     for line in lib.compiler_log.splitlines():
       if 'registers' in line or 'spill' in line:
         print(f'    ptxas: {line.strip()}')
+  from hybridbackend_tpu_torch.ops import scatter
+  d = Flagship.dim
+  tile, batch = scatter.tile_entries(d), scatter.STATE_BATCH
+  print(f'resident blocks per SM (256 threads each) at d = {d}, tiles of '
+        f'{tile} entries, state batch {batch}: ' + ', '.join(
+            f'{name} {_blocks_per_sm(name, d, tile, batch)}'
+            for name in STATE_KERNELS))
   return smi
+
+
+def _blocks_per_sm(name, d, tile, batch):
+  """Blocks of ``name``'s 16-byte-lane kernel that one SM holds at once
+  (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+  from hybridbackend_tpu_torch.ops import build
+  blocks = ctypes.c_int()
+  if name.startswith('adagrad'):
+    lib = build.load('adagrad_update').lib
+    fn = lib.hb_adagrad_update_sorted_blocks_per_sm
+    args = (d, tile, batch, int('dedup=False' not in name))
+  else:
+    fn = build.load('adam_update').lib.hb_adam_update_sorted_blocks_per_sm
+    args = (d, tile, batch)
+  fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+  fn.restype = ctypes.c_int
+  err = fn(*args, ctypes.byref(blocks))
+  if err:
+    raise RuntimeError(f'{name}: occupancy query failed: CUDA error {err}')
+  return blocks.value
 
 
 def _update_list(cfg: Flagship, step: int, rng: np.random.RandomState):
@@ -272,6 +312,11 @@ def _hold(name, state0, rows, kernel, plain, tol=1e-5):
       raise AssertionError(f'{name} changed rows the update list does '
                            'not hold')
   return err, got
+
+
+def _against_bound(m):
+  return (f'bound {m["bound_ms"]:.4f} ms ({m["bytes"] / 1e6:.2f} MB), '
+          f'{m["ms"] / m["bound_ms"]:.2f}x it')
 
 
 def phase1_kernels(cfg: Flagship, dev: torch.device, tune: bool = False):
@@ -326,7 +371,8 @@ def phase1_kernels(cfg: Flagship, dev: torch.device, tune: bool = False):
                      library_ms=None, path_ms=path_ms,
                      **_bound(list_bytes + 4 * u * d * 4, ops))
     print(f'  {name}: max abs err {err:.3e}; kernel {ms:.4f} ms, plain '
-          f'{plain_ms:.4f} ms; sort+gather+kernel {path_ms:.4f} ms')
+          f'{plain_ms:.4f} ms; sort+gather+kernel {path_ms:.4f} ms; '
+          + _against_bound(out[name]))
 
   # The add kernel, as sparse_sgd_apply drives it: -lr·g summed per row.
   scaled = g * -cfg.table_lr
@@ -384,26 +430,39 @@ def phase1_kernels(cfg: Flagship, dev: torch.device, tune: bool = False):
       path_ms=path_ms, **_bound(list_bytes + 6 * u * d * 4,
                                 n * d + 15 * u * d))
   print(f'  adam_update_sorted: max abs err {err:.3e}; kernel {ms:.4f} ms, '
-        f'plain {plain_ms:.4f} ms; sort+gather+kernel {path_ms:.4f} ms')
+        f'plain {plain_ms:.4f} ms; sort+gather+kernel {path_ms:.4f} ms; '
+        + _against_bound(out['adam_update_sorted']))
 
   inputs = dict(rows=rows, g=g, valid=valid, table0=table0, acc0=acc0,
-                raw_ids=raw_ids, raw_g=raw_g, stacked=stacked, lr=lr)
+                m0=m0, v0=v0, raw_ids=raw_ids, raw_g=raw_g, stacked=stacked,
+                lr=lr, step=step)
   out.update(phase1_gsum(cfg, dev, inputs, out['adagrad_update_sorted']))
   out.update(phase1_gather(cfg, dev, inputs))
   out.update(phase1_round(cfg, dev, inputs))
-  phase1_edges(cfg, dev, table0)
+  phase1_edges(cfg, dev, inputs)
   if tune:
     phase1_tune(cfg, dev, inputs)
   return out
 
 
-def phase1_edges(cfg: Flagship, dev: torch.device, table0):
-  """Kernels 2 and 4 at full width on a list built to hit the edges of
-  their tiles, against the plain versions on the CPU copy (which add a
-  run in list order, as the kernels do; atomics on the card do not)."""
+def _at_offset(t, k, dev):
+  """A copy of ``t`` on ``dev`` that starts ``k`` floats into its
+  storage."""
+  flat = torch.empty(t.numel() + k, dtype=t.dtype, device=dev)
+  flat[k:].copy_(t.reshape(-1))
+  return flat[k:].view(t.shape)
+
+
+def phase1_edges(cfg: Flagship, dev: torch.device, inp):
+  """Kernels 1 (both modes), 2, 3 and 4 at full width on a list built to
+  hit the edges of their tiles (all four cut the list by
+  ``scatter.tile_entries``), against the plain versions on the CPU copy
+  (which add a run in list order, as the kernels do; atomics on the card
+  do not); aligned, with the gradients one float into their storage, and
+  with the table and slots one float into theirs."""
   import hybridbackend_tpu_torch as hbt
   from hybridbackend_tpu_torch.ops import scatter
-  v, d = table0.shape
+  v, d = inp['table0'].shape
   tile = scatter.tile_entries(d)
   n = 40 * tile + 1                           # one more than whole tiles
   rng = np.random.RandomState(cfg.seed + 7)
@@ -420,39 +479,70 @@ def phase1_edges(cfg: Flagship, dev: torch.device, table0):
   assert (np.diff(rows) >= 0).all()
   rows = torch.from_numpy(rows.astype(np.int32))
   g = torch.from_numpy(rng.randn(n, d).astype(np.float32))
-  table_cpu = table0.cpu()
-  want_add = hbt.scatter_add_sorted_reference(table_cpu.clone(), rows, g)
+  lr, step = cfg.table_lr, 3
+  state = {k: inp[k].cpu() for k in ('table0', 'acc0', 'm0', 'v0')}
+  # name -> (kernel, plain version, state it updates)
+  kernels = {
+      'adagrad_update_sorted': (
+          lambda t, a, r, u: hbt.adagrad_update_sorted(t, a, r, u, lr),
+          lambda t, a, r, u: hbt.adagrad_update_sorted_reference(
+              t, a, r, u, lr), ('table0', 'acc0')),
+      'adagrad_update_sorted[dedup=False]': (
+          lambda t, a, r, u: hbt.adagrad_update_sorted(t, a, r, u, lr,
+                                                       dedup=False),
+          lambda t, a, r, u: hbt.adagrad_update_sorted_reference(
+              t, a, r, u, lr, dedup=False), ('table0', 'acc0')),
+      'scatter_add_sorted': (hbt.scatter_add_sorted,
+                             hbt.scatter_add_sorted_reference, ('table0',)),
+      'adam_update_sorted': (
+          lambda t, m, vv, r, u: hbt.adam_update_sorted(t, m, vv, r, u, lr,
+                                                        step),
+          lambda t, m, vv, r, u: hbt.adam_update_sorted_reference(
+              t, m, vv, r, u, lr, step), ('table0', 'm0', 'v0')),
+  }
+  wants = {}
+  for name, (_, plain, keys) in kernels.items():
+    wants[name] = [state[k].clone() for k in keys]
+    plain(*wants[name], rows, g)
   want_sum = hbt.gsum_dense_sorted_reference(rows, g, v)
   untouched = torch.ones(v, dtype=torch.bool)
   untouched[rows[(rows >= 0) & (rows < v)].long()] = False
-  errs = []
-  for label, shift in (('aligned', 0), ('one float into the storage', 1)):
-    flat = torch.cat([g.new_zeros(shift), g.reshape(-1)]).to(dev)
-    g_dev = flat[shift:].view(n, d)
-    got = hbt.scatter_add_sorted(table0.clone(), rows.to(dev), g_dev).cpu()
-    if not torch.allclose(got, want_add, rtol=1e-5, atol=1e-5):
-      raise AssertionError(f'scatter_add_sorted on the edge list ({label}) '
-                           'differs from the plain version')
-    if not torch.equal(got[untouched], table_cpu[untouched]):
-      raise AssertionError(f'scatter_add_sorted on the edge list ({label}) '
-                           'changed rows the list does not hold')
-    errs.append(float((got - want_add).abs().max()))
-    if not torch.equal(hbt.gsum_dense_sorted(rows.to(dev), g_dev, v).cpu(),
+  errs = collections.defaultdict(float)
+  for label, g_shift, state_shift in (
+      ('aligned', 0, 0), ('gradients one float into their storage', 1, 0),
+      ('table and slots one float into theirs', 0, 1)):
+    g_dev, rows_dev = _at_offset(g, g_shift, dev), rows.to(dev)
+    for name, (kernel, _, keys) in kernels.items():
+      got = [_at_offset(state[k], state_shift, dev) for k in keys]
+      kernel(*got, rows_dev, g_dev)
+      for key, x, want in zip(keys, got, wants[name]):
+        x = x.cpu()
+        if not torch.allclose(x, want, rtol=1e-5, atol=1e-5):
+          raise AssertionError(f'{name} on the edge list ({label}): {key} '
+                               'differs from the plain version')
+        if not torch.equal(x[untouched], state[key][untouched]):
+          raise AssertionError(f'{name} on the edge list ({label}) changed '
+                               f'rows of {key} the list does not hold')
+        errs[name] = max(errs[name], float((x - want).abs().max()))
+      del got
+    if not torch.equal(hbt.gsum_dense_sorted(rows_dev, g_dev, v).cpu(),
                        want_sum):
       raise AssertionError(f'gsum_dense_sorted on the edge list ({label}) '
                            'is not bitwise the plain version')
   print(f'  edge list of {n} rows (40 tiles of {tile} and one entry; a run '
         f'across a tile boundary, a run of {3 * tile + 5}, {5 * tile} entries '
-        'on 300 neighbouring rows; updates aligned and one float into their '
-        f'storage) on [{v}, {d}]: scatter_add_sorted max abs err '
-        f'{max(errs):.3e} (rtol = atol = 1e-5 against the plain version on '
-        'the CPU), untouched rows '
-        'bitwise; gsum_dense_sorted bitwise equal')
+        'on 300 neighbouring rows; aligned, gradients one float into their '
+        f'storage, table and slots one float into theirs) on [{v}, {d}], '
+        'max abs err against the plain version on the CPU (rtol = atol = '
+        '1e-5), untouched rows of every array bitwise: '
+        + ', '.join(f'{name} {e:.3e}' for name, e in errs.items())
+        + '; gsum_dense_sorted bitwise equal')
 
 
 def phase1_tune(cfg: Flagship, dev: torch.device, inp):
-  """Kernel 2 over tile sizes and kernel 4 over block and chunk sizes, at
-  the flagship list; each sweep forth and back."""
+  """Kernel 2 over tile sizes, kernel 4 over block and chunk sizes, and
+  kernels 1 (both modes) and 3 over tile sizes and state batches, at the
+  flagship list; each sweep forth and back."""
   import hybridbackend_tpu_torch as hbt
   from hybridbackend_tpu_torch.ops import scatter
   rows, g = inp['rows'], inp['g']
@@ -480,6 +570,27 @@ def phase1_tune(cfg: Flagship, dev: torch.device, inp):
             f'SMs, chunks of {chunk_entries} entries: {ms:.4f} ms')
   (scatter.TILE_ENTRIES, scatter.TILE_BYTES, scatter.GSUM_BLOCK_BYTES,
    scatter.GSUM_CHUNK_ENTRIES) = saved
+  lr, step = inp['lr'], inp['step']
+  acc, m, vv = inp['acc0'].clone(), inp['m0'].clone(), inp['v0'].clone()
+  calls = {
+      'adagrad_update_sorted': lambda: hbt.adagrad_update_sorted(
+          table, acc, rows, g, lr),
+      'adagrad_update_sorted[dedup=False]': lambda: hbt.adagrad_update_sorted(
+          table, acc, rows, g, lr, dedup=False),
+      'adam_update_sorted': lambda: hbt.adam_update_sorted(
+          table, m, vv, rows, g, lr, step)}
+  saved = (scatter.TILE_ENTRIES, scatter.TILE_BYTES, scatter.STATE_BATCH)
+  sweep = [(tile, batch) for tile in (64, 128, 256, 512)
+           for batch in (1, 2, 4, 8)]
+  for name, call in calls.items():
+    for tile, batch in sweep + sweep[::-1]:
+      scatter.TILE_ENTRIES, scatter.TILE_BYTES = tile, tile * 4 * d
+      scatter.STATE_BATCH = batch
+      ms = _median_ms(call)
+      print(f'  tune {name}: tile {tile} entries, state batch {batch} '
+            f'({_blocks_per_sm(name, d, tile, batch)} blocks per SM): '
+            f'{ms:.4f} ms')
+  scatter.TILE_ENTRIES, scatter.TILE_BYTES, scatter.STATE_BATCH = saved
 
 
 def phase1_gsum(cfg: Flagship, dev: torch.device, inp, fused):
@@ -852,7 +963,9 @@ def main() -> int:
   parser.add_argument('--profile', action='store_true',
                       help='trace 10 steps of each timed variant')
   parser.add_argument('--tune', action='store_true',
-                      help='time kernels 2 and 4 over tile and block sizes')
+                      help='time kernels 2 and 4 over tile and block '
+                      'sizes, and kernels 1 and 3 over tile sizes and state '
+                      'batches')
   args = parser.parse_args()
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; this smoke run needs one',

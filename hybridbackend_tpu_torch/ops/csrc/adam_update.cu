@@ -1,7 +1,7 @@
 // Fused row-sparse LazyAdam over a row-sorted update list, for Hopper
 // (sm_90a).
 //
-// Replaces the TPU kernel hybridbackend_tpu/ops/pallas/scatter.py:
+// Replaces the TPU kernel hybridbackend_tpu/ops/pallas/scatter.py:749
 // adam_update_sorted (mode 'adam' of _scatter_kernel). The TPU version
 // streams the whole table, m and v through VMEM, sums duplicates with a
 // one-hot matmul, and carries row presence in an extra lane of the updates
@@ -22,83 +22,222 @@
 //   v[r] = b2 * v[r] + (1 - b2) * s * s
 //   table[r] -= lr * (m[r] / bc1) / (sqrt(v[r] / bc2) + eps)
 // Moments of rows not in the list do not decay. `omb1` and `omb2` are
-// 1 - b1 and 1 - b2 as the caller rounds them.
+// 1 - b1 and 1 - b2 as the caller rounds them. s is summed from 0.f in
+// list order with explicitly rounded adds (sorted_runs.cuh: run_total).
 //
-// Design: one warp owns each run of equal rows (as in adagrad_update.cu),
-// sums it in list order in f32 without atomics, then applies the update;
-// lanes stride over d.
+// What bounds it: bytes. It reads n*(d+1)*4 bytes of list and reads and
+// writes 6*u*d*4 bytes of the u distinct rows of table, m and v, with a
+// dozen operations per element. A warp per entry that read rows[i],
+// rows[i-1], rows[end], the gradients and the three state rows one after
+// the other, and computed powf twice in every thread, kept 64 bytes per
+// warp in flight and reached a quarter of the bound: latency. This design
+// reaches 56% of it (0.0495 ms against 0.0276 at the flagship list,
+// 212992 entries on [2600000, 16], NVIDIA H100 80GB HBM3 at 700 W,
+// chip_smoke.py --tune) and is bound now by the card's rate for scattered
+// 64-byte rows: with the list streamed at the peak rate, the state rows
+// move at about 1.75 TB/s, as scatter_add.cu's table rows do, and tiles of
+// 64 to 512 entries with batches of 1 to 4 (2 to 6 resident blocks per SM)
+// all take 0.0486-0.0566 ms.
 //
-// What bounds it: bytes. It reads n*(d+1)*4 bytes of gradients and row
-// ids and reads and writes 6*u*d*4 bytes of table, m and v for the u
-// distinct rows; a dozen flops per element.
+// Design: adagrad_update.cu's, on sorted_runs.cuh, with three state
+// arrays. A block takes a tile of `tile` consecutive entries; one thread
+// starts a single bulk copy of the tile's gradients into shared memory and
+// computes lr, bc1 and bc2 once for the block (powf of the same inputs
+// gives the same bits in every block), while all threads load the tile's
+// rows; heads are found in shared memory. Each entry is served by a group
+// of min(32, d/4) lanes of 16 bytes. A group first issues the loads of the
+// table, m and v rows of up to `batch` heads it owns (held in registers:
+// 3 * batch * 4 floats a thread), only then waits for the copy, sums each
+// run from shared memory, applies and stores. These batched register loads
+// were taken over asynchronous copies of the state rows into shared memory
+// because they are the simpler of the two and reach the goal of twice the
+// bound: at tiles of 128 entries of d = 16 a thread serves two entries, so
+// a batch of 2 holds both heads' rows, 96 bytes, some 24 KB a block with 4
+// blocks resident per SM (a batch of 8 leaves one block and is slower). A
+// d that 4 does not divide, or a grads, table, m or v address that 16 does
+// not divide, takes the scalar lanes (and, for grads, plain loads from
+// global memory) in the same kernel, as does a tile too large to stage.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sorted_runs.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarpsPerBlock = kThreads / 32;
+using namespace sorted_runs;
 
+struct AdamScalars {
+  float lr, bc1, bc2;
+};
+
+struct AdamParams {
+  float b1, b2, omb1, omb2, eps;
+};
+
+// Explicitly rounded operations keep nvcc from contracting them into FMAs,
+// so each step rounds as in the plain PyTorch version.
+__device__ __forceinline__ void adam_apply(float& t, float& m, float& v,
+                                           float s, const AdamScalars& k,
+                                           const AdamParams& p) {
+  m = __fadd_rn(__fmul_rn(p.b1, m), __fmul_rn(p.omb1, s));
+  v = __fadd_rn(__fmul_rn(p.b2, v), __fmul_rn(__fmul_rn(p.omb2, s), s));
+  const float upd =
+      __fdiv_rn(__fmul_rn(k.lr, __fdiv_rn(m, k.bc1)),
+                __fadd_rn(__fsqrt_rn(__fdiv_rn(v, k.bc2)), p.eps));
+  t = __fsub_rn(t, upd);
+}
+
+// Shared memory: the mbarrier and the block's scalars (32 bytes), the
+// staged gradients (tile * d * 4 bytes, when `staged`), then tile + 1 rows.
+template <typename V, int kBatch>
 __global__ void __launch_bounds__(kThreads)
 adam_update_sorted_kernel(float* __restrict__ table, float* __restrict__ m,
                           float* __restrict__ v,
                           const int32_t* __restrict__ rows,
                           const float* __restrict__ grads,
                           const float* __restrict__ lr_ptr,
-                          const float* __restrict__ step_ptr, float b1,
-                          float b2, float omb1, float omb2, float eps,
-                          int64_t n, int64_t vocab, int d) {
-  const int64_t i =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (i >= n) return;
-  const int32_t r = rows[i];
-  if (r < 0 || r >= vocab) return;
-  if (i > 0 && rows[i - 1] == r) return;  // another warp owns this run
-  int64_t end = i + 1;
-  while (end < n && rows[end] == r) ++end;
-  const float lr = *lr_ptr;
-  const float t = *step_ptr;
-  const float bc1 = __fsub_rn(1.f, powf(b1, t));
-  const float bc2 = __fsub_rn(1.f, powf(b2, t));
-  const int64_t base = static_cast<int64_t>(r) * d;
-  for (int c = lane; c < d; c += 32) {
-    float s = 0.f;
-    for (int64_t j = i; j < end; ++j) s = __fadd_rn(s, grads[j * d + c]);
-    // Explicitly rounded operations keep nvcc from contracting them into
-    // FMAs, so each step rounds as in the plain PyTorch version.
-    const float mn = __fadd_rn(__fmul_rn(b1, m[base + c]),
-                               __fmul_rn(omb1, s));
-    const float vn = __fadd_rn(__fmul_rn(b2, v[base + c]),
-                               __fmul_rn(__fmul_rn(omb2, s), s));
-    m[base + c] = mn;
-    v[base + c] = vn;
-    const float upd =
-        __fdiv_rn(__fmul_rn(lr, __fdiv_rn(mn, bc1)),
-                  __fadd_rn(__fsqrt_rn(__fdiv_rn(vn, bc2)), eps));
-    table[base + c] = __fsub_rn(table[base + c], upd);
+                          const float* __restrict__ step_ptr, AdamParams p,
+                          int64_t n, int64_t vocab, int d, int tile,
+                          int staged) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  AdamScalars* scalars_s = reinterpret_cast<AdamScalars*>(smem + 16);
+  V* grad_s = reinterpret_cast<V*>(smem + 32);
+  int32_t* rows_s = reinterpret_cast<int32_t*>(
+      smem + 32 + (staged ? static_cast<size_t>(tile) * d * 4 : 0));
+
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * tile;
+  const int cnt = static_cast<int>(n - t0 < tile ? n - t0 : tile);
+  const int width = d / Lane<V>::kFloats;
+  const V* gsrc = reinterpret_cast<const V*>(grads);
+  V* trows = reinterpret_cast<V*>(table);
+  V* mrows = reinterpret_cast<V*>(m);
+  V* vrows = reinterpret_cast<V*>(v);
+
+  if (threadIdx.x == 0) {
+    if (staged) {
+      mbarrier_init(bar);
+      bulk_load(grad_s, grads + t0 * d, static_cast<uint32_t>(cnt) * d * 4,
+                bar);
+    }
+    const float step = *step_ptr;
+    *scalars_s = AdamScalars{*lr_ptr, __fsub_rn(1.f, powf(p.b1, step)),
+                             __fsub_rn(1.f, powf(p.b2, step))};
   }
+  stage_rows(rows_s, rows, t0, cnt);
+  __syncthreads();
+
+  const AdamScalars k = *scalars_s;
+  const V* tile_src = staged ? grad_s : gsrc + t0 * width;
+  const Groups g(width);
+  bool landed = !staged;
+  if (g.active()) {
+    for (int c = g.lane; c < width; c += g.lanes) {
+      for (int j0 = g.group; j0 < cnt; j0 += g.count * kBatch) {
+        int32_t r[kBatch];
+        V ht[kBatch], hm[kBatch], hv[kBatch];
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          const int j = j0 + b * g.count;
+          r[b] = j < cnt && is_head(rows_s, j, vocab) ? rows_s[j + 1] : -1;
+          ht[b] = hm[b] = hv[b] = Lane<V>::zero();
+          if (r[b] >= 0) {
+            const int64_t at = static_cast<int64_t>(r[b]) * width + c;
+            ht[b] = trows[at];
+            hm[b] = mrows[at];
+            hv[b] = vrows[at];
+          }
+        }
+        if (!landed) {
+          mbarrier_wait(bar, 0);
+          landed = true;
+        }
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          if (r[b] < 0) continue;
+          V s = run_total<V>(rows_s, j0 + b * g.count, cnt, r[b], tile_src,
+                             width, c, rows, gsrc, t0 + cnt, n);
+#pragma unroll
+          for (int e = 0; e < Lane<V>::kFloats; ++e) {
+            adam_apply(Lane<V>::at(ht[b], e), Lane<V>::at(hm[b], e),
+                       Lane<V>::at(hv[b], e), Lane<V>::at(s, e), k, p);
+          }
+          const int64_t at = static_cast<int64_t>(r[b]) * width + c;
+          mrows[at] = hm[b];
+          vrows[at] = hv[b];
+          trows[at] = ht[b];
+        }
+      }
+    }
+  }
+  // No block leaves while its copy is in flight.
+  if (!landed) mbarrier_wait(bar, 0);
+}
+
+using Kernel = void (*)(float*, float*, float*, const int32_t*, const float*,
+                        const float*, const float*, AdamParams, int64_t,
+                        int64_t, int, int, int);
+
+// The kernel for `batch` (1, 2, 4 or 8), or nullptr.
+template <typename V>
+Kernel kernel_for(int batch) {
+  switch (batch) {
+    case 1: return adam_update_sorted_kernel<V, 1>;
+    case 2: return adam_update_sorted_kernel<V, 2>;
+    case 4: return adam_update_sorted_kernel<V, 4>;
+    case 8: return adam_update_sorted_kernel<V, 8>;
+  }
+  return nullptr;
 }
 
 }  // namespace
 
-// Launches on `stream` (a cudaStream_t) and returns cudaGetLastError().
+// Launches on `stream` (a cudaStream_t) with tiles of `tile` list entries,
+// each thread loading the state rows of up to `batch` (1, 2, 4 or 8) heads
+// before it waits for the tile's gradients. Returns the first CUDA error,
+// else cudaGetLastError().
 extern "C" int hb_adam_update_sorted_f32(void* table, void* m, void* v,
                                          const void* rows, const void* grads,
                                          const void* lr, const void* step,
                                          float b1, float b2, float omb1,
                                          float omb2, float eps, int64_t n,
-                                         int64_t vocab, int d, void* stream) {
-  if (n > 0) {
-    const int64_t blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    adam_update_sorted_kernel<<<static_cast<unsigned int>(blocks), kThreads,
-                                0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<float*>(table), static_cast<float*>(m),
-        static_cast<float*>(v), static_cast<const int32_t*>(rows),
-        static_cast<const float*>(grads), static_cast<const float*>(lr),
-        static_cast<const float*>(step), b1, b2, omb1, omb2, eps, n, vocab,
-        d);
-  }
+                                         int64_t vocab, int d, int tile,
+                                         int batch, void* stream) {
+  if (tile < 1 || tile > 32768 || !kernel_for<float>(batch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || vocab <= 0 || d <= 0)
+    return static_cast<int>(cudaGetLastError());
+  const bool quads = d % 4 == 0 && aligned16(grads);
+  const bool staged =
+      quads && static_cast<size_t>(tile) * d * 4 <= kMaxStageBytes;
+  const Kernel kernel =
+      quads && aligned16(table) && aligned16(m) && aligned16(v)
+          ? kernel_for<float4>(batch)
+          : kernel_for<float>(batch);
+  size_t smem;
+  const cudaError_t err = tile_shared_memory(kernel, d, tile, staged, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t blocks = (n + tile - 1) / tile;
+  kernel<<<static_cast<unsigned int>(blocks), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(table), static_cast<float*>(m),
+      static_cast<float*>(v), static_cast<const int32_t*>(rows),
+      static_cast<const float*>(grads), static_cast<const float*>(lr),
+      static_cast<const float*>(step), AdamParams{b1, b2, omb1, omb2, eps}, n,
+      vocab, d, tile, staged ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the 16-byte-lane kernel resident on one SM at row width `d`
+// (a multiple of 4), tiles of `tile` entries and `batch`, into *blocks.
+extern "C" int hb_adam_update_sorted_blocks_per_sm(int d, int tile,
+                                                   int batch, int* blocks) {
+  const Kernel kernel = kernel_for<float4>(batch);
+  if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem;
+  const cudaError_t err = tile_shared_memory(kernel, d, tile, true, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, reinterpret_cast<const void*>(kernel), kThreads, smem));
 }

@@ -1,6 +1,6 @@
 // Device code shared by the kernels that walk a row-sorted update list on
-// Hopper (sm_90a): scatter_add.cu and gsum_dense.cu today; adam_update.cu
-// and adagrad_update.cu are to move onto it.
+// Hopper (sm_90a): scatter_add.cu, gsum_dense.cu, adagrad_update.cu and
+// adam_update.cu.
 //
 // The list is `rows` int32 [n], ascending, with `updates` f32 [n, d]. A
 // *run* is a maximal stretch of equal rows; its *head* is its first entry.
@@ -18,7 +18,8 @@
 //     mbarrier (bulk_load). Tens of KB are in flight per block for one
 //     instruction and no registers. A contiguous span needs no tensor map.
 //   * Run heads are found in shared memory (is_head), and a run is summed
-//     from shared memory (run_total); an owner whose run leaves the tile
+//     from shared memory (run_total; run_sums also sums the squares of its
+//     entries, in the same walk); an owner whose run leaves the tile
 //     finishes it from global memory, and a tile that starts inside a run
 //     leaves those entries to the earlier tile's owner.
 //   * An entry is served by a *group* of min(32, width) threads (Groups),
@@ -53,6 +54,12 @@ struct Lane<float> {
   static __device__ __forceinline__ float add(float a, float b) {
     return __fadd_rn(a, b);
   }
+  // q + g*g, each operation rounded.
+  static __device__ __forceinline__ float add_square(float q, float g) {
+    return __fadd_rn(q, __fmul_rn(g, g));
+  }
+  // Element k (0 only) of the lane.
+  static __device__ __forceinline__ float& at(float& a, int) { return a; }
 };
 
 template <>
@@ -64,6 +71,17 @@ struct Lane<float4> {
   static __device__ __forceinline__ float4 add(float4 a, float4 b) {
     return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
                        __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+  }
+  static __device__ __forceinline__ float4 add_square(float4 q, float4 g) {
+    return make_float4(Lane<float>::add_square(q.x, g.x),
+                       Lane<float>::add_square(q.y, g.y),
+                       Lane<float>::add_square(q.z, g.z),
+                       Lane<float>::add_square(q.w, g.w));
+  }
+  // Element k of the lane; with k known at compile time (an unrolled
+  // loop) it stays in a register.
+  static __device__ __forceinline__ float& at(float4& a, int k) {
+    return k == 0 ? a.x : k == 1 ? a.y : k == 2 ? a.z : a.w;
   }
 };
 
@@ -87,6 +105,21 @@ struct Groups {
 
 __device__ __forceinline__ uint32_t shared_address(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The dynamic shared memory of a launch of a tile kernel whose block
+// holds 32 bytes of mbarrier and scalars, then the tile's staged updates
+// (when `staged`), then its tile + 1 rows (adagrad_update.cu,
+// adam_update.cu); raises `kernel`'s limit where that is above 48 KB.
+template <typename Kernel>
+cudaError_t tile_shared_memory(Kernel kernel, int d, int tile, bool staged,
+                               size_t* bytes) {
+  *bytes = 32 + (staged ? static_cast<size_t>(tile) * d * 4 : 0) +
+           (static_cast<size_t>(tile) + 1) * 4;
+  if (*bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*bytes));
 }
 
 // One thread: makes `bar` ready for one arrival and for the async proxy.
@@ -173,6 +206,33 @@ __device__ __forceinline__ V run_total(
       s = Lane<V>::add(s, updates[i * stride + c]);
   }
   return s;
+}
+
+// The run's total `s`, as run_total forms it, and the sum `q` of its
+// entries' squares, each square rounded and added from 0.f in list order:
+// one walk over the run for both (the per-occurrence Adagrad mode).
+template <typename V>
+__device__ __forceinline__ void run_sums(
+    const int32_t* rows_s, int j, int cnt, int32_t r, const V* tile_src,
+    int64_t stride, int c, const int32_t* __restrict__ rows,
+    const V* __restrict__ updates, int64_t tile_end, int64_t limit, V& s,
+    V& q) {
+  s = Lane<V>::zero();
+  q = Lane<V>::zero();
+  int k = j;
+  do {
+    const V g = tile_src[k * stride + c];
+    s = Lane<V>::add(s, g);
+    q = Lane<V>::add_square(q, g);
+    ++k;
+  } while (k < cnt && rows_s[k + 1] == r);
+  if (k == cnt) {
+    for (int64_t i = tile_end; i < limit && rows[i] == r; ++i) {
+      const V g = updates[i * stride + c];
+      s = Lane<V>::add(s, g);
+      q = Lane<V>::add_square(q, g);
+    }
+  }
 }
 
 // One whole warp: the first index i in [0, n) with rows[i] >= key (n if

@@ -4,8 +4,8 @@ Counterparts of ``hybridbackend_tpu/ops/pallas/scatter.py``:
 ``adagrad_update_sorted``, ``scatter_add_sorted``, ``adam_update_sorted``
 and ``gsum_dense_sorted``. On a CUDA tensor each wrapper launches its
 hand-written kernel (``csrc/adagrad_update.cu``, ``csrc/scatter_add.cu``,
-``csrc/adam_update.cu``, ``csrc/gsum_dense.cu``; the second and the last
-are built on ``csrc/sorted_runs.cuh``) or raises; on a CPU
+``csrc/adam_update.cu``, ``csrc/gsum_dense.cu``, all four built on
+``csrc/sorted_runs.cuh``) or raises; on a CPU
 tensor it runs the plain PyTorch version beside it (``*_reference``),
 which the tests hold against the JAX package. The three updates work in
 place and return their tensors; rows ``< 0`` or ``>= V`` are skipped,
@@ -27,10 +27,16 @@ Step = Union[int, float, torch.Tensor]
 
 # How the kernels on ``csrc/sorted_runs.cuh`` cut their work, chosen by
 # measurement at the flagship list (``chip_smoke.py --tune``).
-# ``scatter_add_sorted``: a block takes a tile of this many list entries,
+# ``scatter_add_sorted``, ``adagrad_update_sorted`` and
+# ``adam_update_sorted``: a block takes a tile of this many list entries,
 # fewer for a wide row, so that a tile's updates are at most TILE_BYTES.
 TILE_ENTRIES = 128
 TILE_BYTES = 32 * 1024
+# ``adagrad_update_sorted`` and ``adam_update_sorted``: a thread loads the
+# state rows of up to this many run heads (1, 2, 4 or 8) before it waits
+# for its tile's gradients. At tiles of 128 entries of d = 16 a thread
+# serves 2 entries, so 2 holds them all with the fewest registers.
+STATE_BATCH = 2
 # ``gsum_dense_sorted``: a block owns about this many bytes of output rows
 # and walks its slice of the list in chunks of at most this many entries
 # (fewer for a wide row: a chunk's updates are at most TILE_BYTES too).
@@ -40,7 +46,9 @@ _GSUM_MAX_BLOCK_ROWS = 8192      # one flag byte a row in shared memory
 
 
 def tile_entries(d: int) -> int:
-  """List entries in a tile of ``scatter_add_sorted`` at row width ``d``."""
+  """List entries in a tile of ``scatter_add_sorted``,
+  ``adagrad_update_sorted`` and ``adam_update_sorted`` at row width
+  ``d``."""
   return max(16, min(TILE_ENTRIES, TILE_BYTES // (4 * max(d, 1))))
 
 
@@ -175,11 +183,11 @@ def adagrad_update_sorted(table: torch.Tensor, acc: torch.Tensor,
   lr_t = _device_scalar(lr, device)
   _launch(adagrad_update_sorted, 'adagrad_update',
           (ctypes.c_void_p,) * 5 + (ctypes.c_float, ctypes.c_int64,
-                                    ctypes.c_int64, ctypes.c_int,
-                                    ctypes.c_int),
+                                    ctypes.c_int64) + (ctypes.c_int,) * 4,
           device, table.data_ptr(), acc.data_ptr(), rows.data_ptr(),
           updates.data_ptr(), lr_t.data_ptr(), float(eps), rows.shape[0],
-          table.shape[0], table.shape[1], int(dedup))
+          table.shape[0], table.shape[1], int(dedup),
+          tile_entries(table.shape[1]), STATE_BATCH)
   return table, acc
 
 
@@ -288,12 +296,12 @@ def adam_update_sorted(table: torch.Tensor, m: torch.Tensor,
   # and the JAX package's XLA path (``_adam_rows``) round them.
   _launch(adam_update_sorted, 'adam_update',
           (ctypes.c_void_p,) * 7 + (ctypes.c_float,) * 5 + (
-              ctypes.c_int64, ctypes.c_int64, ctypes.c_int),
+              ctypes.c_int64, ctypes.c_int64) + (ctypes.c_int,) * 3,
           device, table.data_ptr(), m.data_ptr(), v.data_ptr(),
           rows.data_ptr(), updates.data_ptr(), lr_t.data_ptr(),
           step_t.data_ptr(), float(b1), float(b2), 1 - float(b1),
           1 - float(b2), float(eps), rows.shape[0], table.shape[0],
-          table.shape[1])
+          table.shape[1], tile_entries(table.shape[1]), STATE_BATCH)
   return table, m, v
 
 

@@ -12,6 +12,8 @@ rows repeated thousands of times turn into 1e-3 relative differences.
 Tolerance ``rtol = atol = 1e-5``: both sides then round the same f32
 operations in the same order (LazyAdam's ``b ** step`` comes from CUDA's
 ``powf`` on one side and the CPU's ``pow`` on the other, a few ulp). The
+update kernels run on the hard update lists (``HARD_LISTS``) that the CPU
+tests also hold the plain versions on. The
 dense row totals (the same adds in the same order), the row gather (a
 copy) and the stochastic round (the same Philox bits) are held bitwise.
 """
@@ -28,10 +30,11 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 
 def _hard_list_specs():
   """``(name, v, d, n, kind, view)`` of the update lists built to hit the
-  edges of the kernels on ``csrc/sorted_runs.cuh``: the add kernel's tile
-  of ``T`` list entries, and the dense-totals kernel's block of output
-  rows and chunk of staged entries (both a few tiles long at most; the
-  card's tests also run them with small blocks and chunks)."""
+  edges of the kernels on ``csrc/sorted_runs.cuh``: the tile of ``T`` list
+  entries of the add, Adagrad and LazyAdam kernels, and the dense-totals
+  kernel's block of output rows and chunk of staged entries (both a few
+  tiles long at most; the card's tests also run them with small blocks
+  and chunks)."""
   T = scatter.tile_entries
   specs = []
   for d in (1, 3, 4, 16, 20, 33, 128):       # every lane layout
@@ -47,6 +50,9 @@ def _hard_list_specs():
     specs.append((f'n={name}', 1000, 16, n, 'random', None))
   specs.append(('dense-slice', 300, 16, 1000, 'random', None))
   specs.append(('invalid', 300, 16, t + 9, 'invalid', None))
+  # A run across a tile boundary whose gradients cancel exactly: LazyAdam
+  # still moves the row (presence is run membership).
+  specs.append(('cancel', 1000, 16, 2 * t + 1, 'cancel', None))
   # Views: one entry into the list (12 bytes at d = 3, 64 at d = 16), and
   # one float into the updates' storage (no 16-byte lanes, no bulk copy).
   specs += [('entry-view-d3', 700, 3, 2 * T(3) + 1, 'random', 'entry'),
@@ -79,9 +85,17 @@ def hard_list(spec, device='cpu'):
       rows[2 * tile - 1:2 * tile + 1] = rows[2 * tile - 1]
     elif kind == 'long':                     # 2T + 7 entries from mid-tile
       rows[tile // 2:tile // 2 + 2 * tile + 7] = rows[tile // 2]
+    elif kind == 'cancel':                   # entries T-2 .. T+1 and more
+      rows[tile - 2:tile + 2] = rows[tile - 2]
   rows = rows.astype(np.int32)
   assert (np.diff(rows) >= 0).all()
   g = rng.randn(n, d).astype(np.float32)
+  if kind == 'cancel':
+    r = rows[tile - 2]
+    lo, hi = np.searchsorted(rows, r), np.searchsorted(rows, r, 'right')
+    g[lo + 1:hi:2] = -g[lo:hi - 1:2]         # pairs that sum to 0.0 exactly
+    if (hi - lo) % 2:
+      g[hi - 1] = 0.0
   table = torch.from_numpy(rng.uniform(-1, 1, (v, d)).astype(np.float32))
   rows_t, g_t = torch.from_numpy(rows), torch.from_numpy(g)
   if view == 'entry':
@@ -91,6 +105,22 @@ def hard_list(spec, device='cpu'):
     g_t = torch.cat([g_t.new_zeros(1), g_t.reshape(-1)]).to(device)[1:].view(
         n, d)
   return v, d, n, rows_t.to(device), g_t.to(device), table.to(device)
+
+
+def cancel_row(spec):
+  """The row of the ``cancel`` spec's run, whose total is exactly 0."""
+  tile = scatter.tile_entries(spec[2])
+  return int(hard_list(spec)[3][tile - 2])
+
+
+def hard_slots(spec, table):
+  """LazyAdam moments for a spec's ``table``, from the spec's seed: ``m``
+  N(0, 0.1), ``v`` U(0, 0.5), on ``table``'s device."""
+  rng = np.random.RandomState(sum(map(ord, spec[0])) + 1)
+  m = (rng.randn(*table.shape) * 0.1).astype(np.float32)
+  v = (rng.rand(*table.shape) * 0.5).astype(np.float32)
+  return (torch.from_numpy(m).to(table.device),
+          torch.from_numpy(v).to(table.device))
 
 
 @pytest.fixture
@@ -331,6 +361,91 @@ def test_add_kernel_on_the_hard_lists(dev, spec):
   _assert_untouched(rows, v, [(tk, table)])
 
 
+@pytest.mark.parametrize('dedup', [True, False])
+@pytest.mark.parametrize('spec', HARD_LISTS, ids=HARD_LIST_IDS)
+def test_adagrad_kernel_on_the_hard_lists(dev, spec, dedup):
+  v, d, n, rows, g, table = hard_list(spec, dev)
+  acc = torch.full_like(table, 0.1)
+  tk, ak = table.clone(), acc.clone()
+  before = hbt.adagrad_update_sorted.launches
+  hbt.adagrad_update_sorted(tk, ak, rows, g, 0.05, dedup=dedup)
+  assert hbt.adagrad_update_sorted.launches == before + 1
+  tr, ar = hbt.adagrad_update_sorted_reference(
+      table.cpu(), acc.cpu(), rows.cpu(), g.cpu(), 0.05, dedup=dedup)
+  torch.testing.assert_close(ak.cpu(), ar, **TOL)
+  torch.testing.assert_close(tk.cpu(), tr, **TOL)
+  _assert_untouched(rows, v, [(tk, table), (ak, acc)])
+
+
+@pytest.mark.parametrize('spec', HARD_LISTS, ids=HARD_LIST_IDS)
+def test_adam_kernel_on_the_hard_lists(dev, spec):
+  v, d, n, rows, g, table = hard_list(spec, dev)
+  m, vv = hard_slots(spec, table)
+  tk, mk, vk = table.clone(), m.clone(), vv.clone()
+  before = hbt.adam_update_sorted.launches
+  hbt.adam_update_sorted(tk, mk, vk, rows, g, 0.05, 3)
+  assert hbt.adam_update_sorted.launches == before + 1
+  tr, mr, vr = hbt.adam_update_sorted_reference(
+      table.cpu(), m.cpu(), vv.cpu(), rows.cpu(), g.cpu(), 0.05, 3)
+  for got, want in ((tk, tr), (mk, mr), (vk, vr)):
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+  _assert_untouched(rows, v, [(tk, table), (mk, m), (vk, vv)])
+  if spec[0] == 'cancel':                    # a zero total, still present
+    r = cancel_row(spec)
+    assert not torch.equal(tk[r], table[r]) and not torch.equal(mk[r], m[r])
+
+
+@pytest.mark.parametrize('kernel', ['adagrad', 'nodedup', 'adam'])
+@pytest.mark.parametrize('name', ['random-d4', 'boundary-d16', 'long-d16'])
+def test_update_kernels_take_state_one_float_into_its_storage(
+    dev, name, kernel):
+  """Table and slots start one float into their storage: no 16-byte
+  lanes for them, while the gradients are still staged."""
+  spec = HARD_LISTS[HARD_LIST_IDS.index(name)]
+  v, d, n, rows, g, table = hard_list(spec, dev)
+  state = [table] + (list(hard_slots(spec, table)) if kernel == 'adam'
+                     else [torch.full_like(table, 0.1)])
+  shifted = [torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(v, d)
+             for t in state]
+  want = [t.cpu() for t in state]
+  if kernel == 'adam':
+    hbt.adam_update_sorted(*shifted, rows, g, 0.05, 3)
+    hbt.adam_update_sorted_reference(*want, rows.cpu(), g.cpu(), 0.05, 3)
+  else:
+    hbt.adagrad_update_sorted(*shifted, rows, g, 0.05,
+                              dedup=kernel == 'adagrad')
+    hbt.adagrad_update_sorted_reference(*want, rows.cpu(), g.cpu(), 0.05,
+                                        dedup=kernel == 'adagrad')
+  for got, w in zip(shifted, want):
+    torch.testing.assert_close(got.cpu(), w, **TOL)
+  _assert_untouched(rows, v, list(zip(shifted, state)))
+
+
+@pytest.mark.parametrize('kernel', ['adagrad', 'nodedup', 'adam'])
+def test_update_kernels_take_a_row_too_wide_to_stage(dev, kernel):
+  """60000 floats a row: a tile of 16 entries exceeds shared memory, so
+  the kernel reads the gradients from global memory."""
+  v, d, n = 7, 60000, 40
+  gen = torch.Generator().manual_seed(d)
+  rows = torch.randint(-1, v + 2, (n,), generator=gen,
+                       dtype=torch.int32).sort().values
+  g = torch.randn(n, d, generator=gen)
+  state = [torch.rand(v, d, generator=gen) for _ in range(3)]
+  if kernel != 'adam':
+    state = state[:2]
+  got = [t.to(dev) for t in state]
+  if kernel == 'adam':
+    hbt.adam_update_sorted(*got, rows.to(dev), g.to(dev), 0.05, 3)
+    hbt.adam_update_sorted_reference(*state, rows, g, 0.05, 3)
+  else:
+    hbt.adagrad_update_sorted(*got, rows.to(dev), g.to(dev), 0.05,
+                              dedup=kernel == 'adagrad')
+    hbt.adagrad_update_sorted_reference(*state, rows, g, 0.05,
+                                        dedup=kernel == 'adagrad')
+  for a, b in zip(got, state):
+    torch.testing.assert_close(a.cpu(), b, **TOL)
+
+
 def test_add_kernel_takes_a_row_too_wide_to_stage(dev):
   """A tile of 16 entries of 60000 floats exceeds shared memory: the
   kernel reads the updates from global memory."""
@@ -393,11 +508,14 @@ def test_gsum_kernel_of_an_all_invalid_list_is_zero(dev):
   assert torch.equal(got, torch.zeros((300, 16), device=dev))
 
 
-def test_split_dense_update_equals_fused_on_a_hard_list(dev):
-  """The run longer than a tile, through both update paths: the dense
-  totals carry the fused kernel's bits."""
-  v, d, n, rows, g, table = hard_list(HARD_LISTS[HARD_LIST_IDS.index(
-      'long-d16')], dev)
+SPLIT_LISTS = [spec for spec in HARD_LISTS if spec[2] in (3, 16, 33)]
+
+
+@pytest.mark.parametrize('spec', SPLIT_LISTS, ids=[s[0] for s in SPLIT_LISTS])
+def test_split_dense_update_equals_fused_on_a_hard_list(dev, spec):
+  """Each hard list of d = 3, 16 or 33 through both update paths: the
+  dense totals carry the fused kernel's bits."""
+  v, d, n, rows, g, table = hard_list(spec, dev)
   cfg = hbt.TableConfig('t', v, d)
   out = []
   for split in (False, True):
@@ -407,7 +525,8 @@ def test_split_dense_update_equals_fused_on_a_hard_list(dev):
     out.append((t, st.acc[0]))
   assert torch.equal(out[0][0], out[1][0])
   assert torch.equal(out[0][1], out[1][1])
-  assert not torch.equal(out[0][0], table)
+  valid = bool(((rows >= 0) & (rows < v)).any())
+  assert torch.equal(out[0][0], table) != valid
 
 
 @pytest.mark.parametrize('d', [16, 33])

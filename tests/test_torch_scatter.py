@@ -13,13 +13,14 @@ gradients in different f32 orders. Against a float64 reference the
 Pallas kernel strays by at most 2e-5 absolute on accumulators near 100
 and 6e-8 on the table, which the relative part covers.
 
-The plain version of the add kernel is also held on the hard lists of
-``test_torch_cuda.py`` (the lists the card's kernel is checked on against
-this plain version): against the JAX Pallas kernel in interpret mode on
-some, and on all against float32 adds in list order in numpy, at
-``rtol = atol = 1e-6`` (f32 summation order; the Pallas kernel's one-hot
-matmuls stray further on runs of hundreds of entries, so those lists take
-numpy only).
+The plain versions of the add and Adagrad kernels are also held on the
+hard lists of ``test_torch_cuda.py`` (the lists the card's kernels are
+checked on against these plain versions): against the JAX Pallas kernels
+in interpret mode on some, and on all against numpy, float32 totals added
+in list order and then, for Adagrad, the apply in float32. The add kernel
+at ``rtol = atol = 1e-6`` (f32 summation order; the Pallas kernel's
+one-hot matmuls stray further on runs of hundreds of entries, so those
+lists take numpy only), Adagrad at the file's ``1e-5``.
 """
 
 import jax
@@ -151,7 +152,40 @@ def test_add_reference_on_the_hard_lists(spec):
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6, atol=1e-6)
 
 
-def test_nodedup_is_not_ported():
+def list_totals(v, d, rows, g):
+  """Valid entries of a list, its distinct valid rows, and float32 totals
+  added in list order, as numpy arrays."""
+  ok = (rows >= 0) & (rows < v)
+  s = np.zeros((v, d), np.float32)
+  np.add.at(s, rows[ok], g[ok])
+  return ok, np.unique(rows[ok]), s
+
+
+@pytest.mark.parametrize('spec', HARD_LISTS, ids=HARD_LIST_IDS)
+def test_adagrad_reference_on_the_hard_lists(spec):
+  v, d, n, rows, g, table = hard_list(spec)
+  acc = torch.full_like(table, 0.1)
+  t, a = hbt.adagrad_update_sorted(table.clone(), acc.clone(), rows, g, LR,
+                                   EPS)
+  r, gg = rows.numpy(), g.numpy()
+  _, u, s = list_totals(v, d, r, gg)
+  want_t, want_a = table.numpy().copy(), acc.numpy().copy()
+  want_a[u] += s[u] * s[u]
+  want_t[u] -= np.float32(LR) * s[u] / (np.sqrt(want_a[u]) + np.float32(EPS))
+  np.testing.assert_allclose(a.numpy(), want_a, **TOL)
+  np.testing.assert_allclose(t.numpy(), want_t, **TOL)
+  untouched = np.setdiff1d(np.arange(v), u)
+  np.testing.assert_array_equal(t.numpy()[untouched], table.numpy()[untouched])
+  np.testing.assert_array_equal(a.numpy()[untouched], acc.numpy()[untouched])
+  if spec[0] in PALLAS_ORACLE:
+    pt, pa = jax_adagrad_update_sorted(
+        jnp.asarray(table.numpy()), jnp.asarray(acc.numpy()), jnp.asarray(r),
+        jnp.asarray(gg), lr=LR, eps=EPS, interpret=True)
+    np.testing.assert_allclose(a.numpy(), np.asarray(pa), **TOL)
+    np.testing.assert_allclose(t.numpy(), np.asarray(pt), **TOL)
+
+
+def test_nodedup_accumulates_each_occurrence_square():
   """``dedup=False`` is not the dedup update carried over: duplicates
   accumulate each occurrence's square (TF ``SparseApplyAdagrad``), and
   the denominator is read after all of them land."""

@@ -7,7 +7,12 @@ interpret mode and against the JAX XLA paths, on one update list with
 duplicates, ``-1`` rows and rows ``>= V``. The entries
 ``sparse_sgd_apply``, ``sparse_adam_apply`` and
 ``sparse_adagrad_apply(dedup=False)`` are held against their JAX
-functions in a one-device context.
+functions in a one-device context. On the hard update lists of
+``test_torch_cuda.py`` (the lists the card's kernels are checked on) the
+plain versions of the per-occurrence Adagrad and LazyAdam updates are
+held against numpy (float32 totals added in list order, the apply in
+float32, per-occurrence squares in float64), and on some of them against
+``_adagrad_rows_nodedup`` and the LazyAdam Pallas kernel.
 
 Tolerances, all from f32 rounding:
   * add and Adagrad: ``rtol = atol = 1e-5``; the paths sum a row's
@@ -38,6 +43,9 @@ from hybridbackend_tpu.ops.pallas.scatter import (
     scatter_add_sorted as jax_scatter_add_sorted)
 
 import hybridbackend_tpu_torch as hbt
+from test_torch_cuda import (HARD_LISTS, HARD_LIST_IDS, cancel_row,
+                             hard_list, hard_slots)
+from test_torch_scatter import PALLAS_ORACLE, list_totals
 
 V, D, N = 4096, 16, 3000
 LR, STEP = 0.05, 3
@@ -178,6 +186,70 @@ def test_nodedup_reference_matches_pallas_kernel_on_unique_rows():
   hbt.adagrad_update_sorted(t, a, *_t(rows, grads), LR, dedup=False)
   np.testing.assert_allclose(a.numpy(), np.asarray(want_a), **TOL)
   np.testing.assert_allclose(t.numpy(), np.asarray(want_t), **TOL)
+
+
+@pytest.mark.parametrize('spec', HARD_LISTS, ids=HARD_LIST_IDS)
+def test_nodedup_reference_on_the_hard_lists(spec):
+  v, d, n, rows, g, table = hard_list(spec)
+  acc = torch.full_like(table, 0.1)
+  t, a = hbt.adagrad_update_sorted(table.clone(), acc.clone(), rows, g, LR,
+                                   dedup=False)
+  r, gg = rows.numpy(), g.numpy()
+  ok, u, s = list_totals(v, d, r, gg)
+  q = np.zeros((v, d))
+  np.add.at(q, r[ok], gg[ok].astype(np.float64) ** 2)
+  want_a = acc.numpy() + q
+  np.testing.assert_allclose(a.numpy(), want_a, rtol=1e-6)
+  want_t = table.numpy().copy()
+  want_t[u] -= np.float32(LR) * s[u] / (
+      np.sqrt(want_a[u].astype(np.float32)) + np.float32(1e-7))
+  np.testing.assert_allclose(t.numpy(), want_t, **TOL)
+  untouched = np.setdiff1d(np.arange(v), u)
+  np.testing.assert_array_equal(t.numpy()[untouched], table.numpy()[untouched])
+  np.testing.assert_array_equal(a.numpy()[untouched], acc.numpy()[untouched])
+  if spec[0] in PALLAS_ORACLE:
+    xt, xa = jsu._adagrad_rows_nodedup(
+        jnp.asarray(table.numpy()), jnp.asarray(acc.numpy()), jnp.asarray(r),
+        jnp.asarray(gg), LR, 1e-7, oob_row=v)
+    np.testing.assert_allclose(a.numpy(), np.asarray(xa), **TOL)
+    np.testing.assert_allclose(t.numpy(), np.asarray(xt), **TOL)
+
+
+@pytest.mark.parametrize('spec', HARD_LISTS, ids=HARD_LIST_IDS)
+def test_adam_reference_on_the_hard_lists(spec):
+  v, d, n, rows, g, table = hard_list(spec)
+  m, vv = hard_slots(spec, table)
+  got = [table.clone(), m.clone(), vv.clone()]
+  hbt.adam_update_sorted(*got, rows, g, LR, STEP)
+  r, gg = rows.numpy(), g.numpy()
+  ok, u, s = list_totals(v, d, r, gg)
+  f32 = np.float32
+  bc1 = f32(1) - f32(0.9) ** f32(STEP)
+  bc2 = f32(1) - f32(0.999) ** f32(STEP)
+  want = [x.numpy().copy() for x in (table, m, vv)]
+  mn = f32(0.9) * want[1][u] + f32(1 - 0.9) * s[u]
+  vn = f32(0.999) * want[2][u] + f32(1 - 0.999) * s[u] * s[u]
+  want[1][u], want[2][u] = mn, vn
+  want[0][u] -= f32(LR) * (mn / bc1) / (np.sqrt(vn / bc2) + f32(1e-8))
+  for x, w in zip(got, want):
+    np.testing.assert_allclose(x.numpy(), w, **ADAM_TOL)
+  untouched = np.setdiff1d(np.arange(v), u)
+  for x, before in zip(got, (table, m, vv)):
+    np.testing.assert_array_equal(x.numpy()[untouched],
+                                  before.numpy()[untouched])
+  if spec[0] == 'cancel':                     # a zero total, still present
+    c = cancel_row(spec)
+    assert s[c].tolist() == [0.0] * d
+    np.testing.assert_allclose(got[1].numpy()[c], 0.9 * m.numpy()[c],
+                               rtol=1e-6)
+    assert (got[0].numpy()[c] != table.numpy()[c]).all()
+  if spec[0] in PALLAS_ORACLE:
+    want = jax_adam_update_sorted(
+        *(jnp.asarray(x.numpy()) for x in (table, m, vv)), jnp.asarray(r),
+        jnp.asarray(gg), lr=LR, step=STEP, interpret=True)
+    v_tol = dict(ADAM_TOL, rtol=3e-5)
+    for x, w, tol in zip(got, want, (ADAM_TOL, ADAM_TOL, v_tol)):
+      np.testing.assert_allclose(x.numpy(), np.asarray(w), **tol)
 
 
 def _ids_and_grads(seed, vocab):
