@@ -107,9 +107,11 @@ def pack_ids(stack: TableStack, ids_by_name: Dict[str, torch.Tensor]
     names.append(cfg.name)
     shapes.append(tuple(ids.shape))
     batch_dims.add(ids.shape[0])
-    col = ids.reshape(ids.shape[0], -1).to(torch.int32)
+    # Validity is tested in the ids' own dtype, before the cast: an int64
+    # id of 2**32 + 5 must not wrap to row 5.
+    col = ids.reshape(ids.shape[0], -1)
     valid = (col >= 0) & (col < cfg.vocab_size)
-    cols.append(torch.where(valid, col + off, -1))
+    cols.append(torch.where(valid, col + off, -1).to(torch.int32))
     widths.append(col.shape[1])
   if len(batch_dims) != 1:
     raise ValueError(

@@ -21,8 +21,14 @@ class Dense(nn.Module):
   (``model.py:58-80``): normal(0, sqrt(2/(in+out))) weights and
   normal(0, sqrt(1/out)) bias, unless the stddevs are given.
 
-  ``compute_dtype`` (for example ``torch.bfloat16``) casts the matmul's
-  operands; parameters and the output stay float32."""
+  ``compute_dtype`` (for example ``torch.bfloat16``) rounds the matmul's
+  operands to it and multiplies them with a float32 result, as the JAX
+  package's ``preferred_element_type=float32`` does: the operands are
+  cast back to float32 before the product, so with TF32 off it is the
+  exact product of the rounded operands with f32 accumulation, on every
+  device. The backward of the casts rounds the input and weight
+  gradients to ``compute_dtype``, as JAX's transpose does. Parameters and
+  the output stay float32."""
 
   def __init__(self, in_dim: int, out_dim: int,
                activation: Activation = None,
@@ -48,10 +54,11 @@ class Dense(nn.Module):
     self.compute_dtype = compute_dtype
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    w = self.w
+    x, w = x.to(torch.float32), self.w
     if self.compute_dtype is not None:
-      x, w = x.to(self.compute_dtype), w.to(self.compute_dtype)
-    y = torch.matmul(x, w).to(torch.float32) + self.b
+      x = x.to(self.compute_dtype).to(torch.float32)
+      w = w.to(self.compute_dtype).to(torch.float32)
+    y = torch.matmul(x, w) + self.b
     return y if self.activation is None else self.activation(y)
 
 

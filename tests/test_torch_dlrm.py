@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from hybridbackend_tpu.framework.options import OPTIONS
 from hybridbackend_tpu.models.ranking import dlrm_apply, dlrm_init
 
 import hybridbackend_tpu_torch as hbt
@@ -78,6 +79,49 @@ def test_dlrm_param_grads_match_jax():
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(layer.b.grad.numpy(), np.asarray(g['b']),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('deep_dtype', ['float32', 'bfloat16'])
+def test_dlrm_bf16_compute_matches_jax(deep_dtype):
+  """``compute_dtype=bfloat16`` against JAX's DLRM under
+  ``OPTIONS['compute_dtype'] = 'bfloat16'``, with embedding features of
+  f32 or (as a bf16 table gives them) bf16, which the interaction's
+  stack promotes to f32 and whose gradients come back rounded to bf16.
+  Values and gradients to ``rtol = 1e-5`` plus 1e-4 of each array's
+  largest value: every layer rounds its inputs to bf16, so an f32
+  difference of order 1e-7 can move an input by a bf16 ulp."""
+  params, model = _models(4)
+  for layer in [*model.bottom_mlp.layers, model.bottom_out,
+                *model.top_mlp.layers]:
+    layer.compute_dtype = torch.bfloat16
+  wide, deep = _features(14)
+  jw = [jnp.asarray(f) for f in wide]
+  jd = [jnp.asarray(f, dtype=deep_dtype) for f in deep]
+  with OPTIONS.override(compute_dtype='bfloat16'):
+    want = np.asarray(dlrm_apply(params, jw, jd))
+    want_p, want_w, want_d = jax.grad(
+        lambda p, w, d: jnp.sum(dlrm_apply(p, w, d)),
+        argnums=(0, 1, 2))(params, jw, jd)
+  tw = [torch.from_numpy(f).requires_grad_() for f in wide]
+  td = [torch.from_numpy(np.array(f, np.float32)).to(
+      getattr(torch, deep_dtype)).requires_grad_() for f in jd]
+  got = model(tw, td)
+  got.sum().backward()
+  _assert_near(got.detach(), want)
+  for t, g in zip(tw + td, list(want_w) + list(want_d)):
+    assert t.grad.dtype == t.dtype
+    _assert_near(t.grad.float(), np.asarray(g.astype(np.float32)))
+  layers = [*model.bottom_mlp.layers, model.bottom_out, *model.top_mlp.layers]
+  grads = [*want_p['bottom_mlp'], want_p['bottom_out'], *want_p['top_mlp']]
+  for layer, g in zip(layers, grads):
+    _assert_near(layer.w.grad, g['w'])
+    _assert_near(layer.b.grad, g['b'])
+
+
+def _assert_near(got, want):
+  want = np.asarray(want)
+  np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                             atol=1e-4 * float(np.abs(want).max()))
 
 
 def test_dlrm_shapes_follow_the_flagship_config():

@@ -142,3 +142,35 @@ def test_create_stacked_tables_shape_and_range():
                                     torch.device('cpu'))
   for name in tabs:
     assert torch.equal(tabs[name], again[name])
+
+
+def test_pack_ids_tests_int64_ids_before_the_cast():
+  """An int64 id past int32 (2**32 + 5 would wrap to 5, 2**31 to -2**31)
+  is invalid in every member: it packs to -1, looks up zeros, and a
+  train step moves no row because of it."""
+  configs = [hbt.TableConfig(f'c{i}', 100, 4) for i in range(3)]
+  fx = hbt.StackedFeatureExtractor([hbt.EmbeddingSpec(c) for c in configs],
+                                   ctx=hbt.Context('cpu'))
+  (stack,) = fx.stacks
+  big = [2**32 + 5, 2**31, 2**32 + 99, -2**32 + 7]
+  batch = {f'c{i}': torch.tensor([big[i], big[3], 7 + i, big[i + 1]],
+                                 dtype=torch.int64) for i in range(3)}
+  packed, _ = hbt.pack_ids(stack, batch)
+  assert packed.dtype == torch.int32
+  assert packed.tolist() == [[-1, -1, -1]] * 2 + [[7, 108, 209]] + [
+      [-1, -1, -1]]
+  tables = fx.init(torch.Generator().manual_seed(0))
+  (name,) = tables
+  emb, _ = fx(tables, batch)
+  for e in emb:
+    assert not e[[0, 1, 3]].any() and e[2].all()
+  tower = hbt.StackedDCNv2([4] * 3, [8, 1],
+                           generator=torch.Generator().manual_seed(1))
+  state = hbt.SparseTrainState.create(
+      tower, tables, lambda p: torch.optim.Adam(p, lr=1e-3))
+  before = state.tables[name].clone()
+  step = hbt.make_sparse_train_step(
+      fx, lambda t, emb_f, dense_f, b: (t(emb_f).sum(), {}))
+  step(state, batch)
+  moved = (state.tables[name] != before).any(dim=1).nonzero().flatten()
+  assert moved.tolist() == [7, 108, 209]

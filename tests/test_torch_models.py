@@ -13,10 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from hybridbackend_tpu.framework.options import OPTIONS
+from hybridbackend_tpu.models.layers import dense_apply, dense_init
 from hybridbackend_tpu.models.ranking import (
     stacked_dcn_v2_apply, stacked_dcn_v2_init)
 
 import hybridbackend_tpu_torch as hbt
+from hybridbackend_tpu_torch.convert import _load_dense
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 DIMS = [16, 16, 16, 1, 1]
@@ -84,14 +87,70 @@ def test_dcn_v2_init_layout_and_scales():
 
 
 def test_dense_compute_dtype_keeps_f32_params_and_output():
-  dense = hbt.Dense(8, 4, compute_dtype=torch.bfloat16,
-                    generator=torch.Generator().manual_seed(0))
-  x = torch.randn(3, 8, generator=torch.Generator().manual_seed(1))
-  y = dense(x)
+  """``compute_dtype=bfloat16`` against JAX ``dense_apply(compute_dtype=
+  jnp.bfloat16)``: the exact product of the bf16 operands with an f32
+  result, and bf16-rounded input and weight gradients. Forward and bias
+  gradient to ``TOL`` (f32 sums in another order); the input and weight
+  gradients bitwise (each is one f32 sum rounded once to bf16; a sum
+  within 1e-7 of a rounding boundary could flip a bf16 ulp, which these
+  inputs do not hold)."""
+  params = dense_init(jax.random.PRNGKey(0), 40, 24)
+  x = np.random.RandomState(0).randn(64, 40).astype(np.float32)
+  dense = hbt.Dense(40, 24, torch.relu, compute_dtype=torch.bfloat16)
+  _load_dense([dense], [jax.tree.map(np.asarray, params)])
+
+  def total(p, xs):
+    return jnp.sum(jnp.sin(dense_apply(p, xs, jax.nn.relu,
+                                       compute_dtype=jnp.bfloat16)))
+
+  want = dense_apply(params, jnp.asarray(x), jax.nn.relu,
+                     compute_dtype=jnp.bfloat16)
+  want_p, want_x = jax.grad(total, argnums=(0, 1))(params, jnp.asarray(x))
+  tx = torch.from_numpy(x).requires_grad_()
+  y = dense(tx)
+  torch.sin(y).sum().backward()
   assert y.dtype == torch.float32 and dense.w.dtype == torch.float32
-  np.testing.assert_allclose(y.detach().numpy(),
-                             (x @ dense.w + dense.b).detach().numpy(),
-                             rtol=2e-2, atol=2e-2)      # bf16 operands
+  np.testing.assert_allclose(y.detach().numpy(), np.asarray(want), **TOL)
+  np.testing.assert_array_equal(tx.grad.numpy(), np.asarray(want_x))
+  np.testing.assert_array_equal(dense.w.grad.numpy(), np.asarray(want_p['w']))
+  np.testing.assert_allclose(dense.b.grad.numpy(), np.asarray(want_p['b']),
+                             **TOL)
+
+
+def test_dcn_v2_bf16_compute_matches_jax():
+  """The stacked DCNv2 with ``compute_dtype=bfloat16`` against JAX's
+  under ``OPTIONS['compute_dtype'] = 'bfloat16'``, forward and every
+  gradient. Each layer rounds its inputs to bf16, so an f32 difference
+  of order 1e-7 in the cross layer's output can move one MLP input by a
+  bf16 ulp (2**-8 relative) and its effects on; values and gradients are
+  held to ``rtol = 1e-5`` plus 1e-4 of each array's largest value."""
+  params = stacked_dcn_v2_init(jax.random.PRNGKey(4), DIMS, MLP)
+  model = hbt.StackedDCNv2(DIMS, MLP, compute_dtype=torch.bfloat16)
+  hbt.load_dcn_v2(model, jax.tree.map(np.asarray, params))
+  feats = _features(14)
+  jfeats = [jnp.asarray(f) for f in feats]
+  with OPTIONS.override(compute_dtype='bfloat16'):
+    want = np.asarray(stacked_dcn_v2_apply(params, jfeats))
+    want_p, want_f = jax.grad(
+        lambda p, fs: jnp.sum(stacked_dcn_v2_apply(p, fs)),
+        argnums=(0, 1))(params, jfeats)
+  tfeats = [torch.from_numpy(f).requires_grad_() for f in feats]
+  got = model(tfeats)
+  got.sum().backward()
+  _assert_near(got.detach(), want)
+  for t, g in zip(tfeats, want_f):
+    _assert_near(t.grad, g)
+  pairs = [(model.cross, want_p['cross'])] + list(zip(model.mlp.layers,
+                                                      want_p['mlp']))
+  for layer, g in pairs:
+    _assert_near(layer.w.grad, g['w'])
+    _assert_near(layer.b.grad, g['b'])
+
+
+def _assert_near(got, want):
+  want = np.asarray(want)
+  np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                             atol=1e-4 * float(np.abs(want).max()))
 
 
 def test_load_dcn_v2_rejects_a_mismatched_tower():
