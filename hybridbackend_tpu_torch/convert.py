@@ -7,6 +7,9 @@ member offsets are laid out as in the port. There a narrow table is
 lane-packed ``[V/p, 128]`` (``hybridbackend_tpu/embedding/table.py:
 143-145, 244-246``); a row-major reshape to ``[-1, dim]`` restores the
 logical layout, and does nothing to an unpacked ``[V, dim]`` table.
+A bfloat16 table or slot (an ``ml_dtypes`` array, which ``torch.tensor``
+does not take) is carried across bit for bit through its 16-bit view,
+without importing ``ml_dtypes``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,16 @@ from hybridbackend_tpu_torch.training.sparse_step import (
 Tower = Union[StackedDCNv2, DLRM]
 
 
+def _tensor(arr: np.ndarray, dtype: torch.dtype,
+            device: torch.device) -> torch.Tensor:
+  """A copy of ``arr`` as ``dtype`` on ``device``; a numpy bfloat16 array
+  goes through its bits."""
+  if arr.dtype.name == 'bfloat16':
+    bits = torch.tensor(arr.view(np.int16))
+    return bits.view(torch.bfloat16).to(device=device, dtype=dtype)
+  return torch.tensor(arr, dtype=dtype, device=device)
+
+
 def _logical(fx: StackedFeatureExtractor, arrays: Mapping[str, np.ndarray]
              ) -> Dict[str, torch.Tensor]:
   out = {}
@@ -39,8 +52,7 @@ def _logical(fx: StackedFeatureExtractor, arrays: Mapping[str, np.ndarray]
     # Rows past padded_vocab are the JAX layout's alignment padding; no
     # valid id reaches them. torch.tensor copies: the port updates its
     # tables in place, and the source may be a read-only JAX buffer.
-    out[name] = torch.tensor(flat[:cfg.padded_vocab()], dtype=cfg.dtype,
-                             device=fx.ctx.device)
+    out[name] = _tensor(flat[:cfg.padded_vocab()], cfg.dtype, fx.ctx.device)
   return out
 
 

@@ -17,7 +17,8 @@ from hybridbackend_tpu_torch.embedding.table import TableConfig
 def lookup(table: torch.Tensor, ids: torch.Tensor,
            config: TableConfig) -> torch.Tensor:
   """Look up ``ids`` (any shape) in ``table``; returns
-  ``ids.shape + (dim,)``. Invalid ids give zero rows."""
+  ``ids.shape + (dim,)`` in the table's dtype. Invalid ids give zero
+  rows."""
   valid = (ids >= 0) & (ids < config.vocab_size)
   rows = torch.where(valid, config.row_index(ids), 0)
   out = table.index_select(0, rows.reshape(-1).to(torch.int64))

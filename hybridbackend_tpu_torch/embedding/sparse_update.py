@@ -16,6 +16,11 @@ in the same order on every run) and hands it to one kernel of
 hands it to the dense row-totals kernel and applies the update with
 elementwise torch ops over the whole table, as the JAX package leaves
 that apply to XLA.
+
+Tables may be float32 or bfloat16; the slots (``*_like(table)``, as in
+JAX) and the gradient list take the table's dtype, and every update does
+its math in float32 and rounds each stored result once
+(``ops/scatter.py``).
 """
 
 from __future__ import annotations
@@ -72,22 +77,30 @@ def _split_dense_adagrad(table: torch.Tensor, acc: torch.Tensor,
                          rows: torch.Tensor, g: torch.Tensor, lr: Lr,
                          eps: float):
   """The dense-split Adagrad update (``_stream_adagrad``'s split branch,
-  ``:273-284``): dense ``[V, d]`` row totals from
+  ``:273-284``): dense f32 ``[V, d]`` row totals from
   :func:`gsum_dense_sorted`, then a whole-table elementwise apply in
-  place, in the fused kernel's order of operations: ``a = acc + s·s``,
-  then ``table -= (lr·s) / (sqrt(a) + eps)``, each op rounded on its own
-  (no ``addcdiv_``, no FMA across them). Rows with ``s == 0`` keep their
-  bits: ``acc + 0`` and ``table - 0``."""
-  if (table.dtype, acc.dtype) != (torch.float32, torch.float32) or (
-      acc.shape != table.shape):
-    raise TypeError('the dense-split update takes float32 table and acc '
-                    f'of one shape; got {table.dtype} {tuple(table.shape)} '
-                    f'and {acc.dtype} {tuple(acc.shape)}')
+  place, in the fused kernel's order of operations: ``a = f32(acc) +
+  s·s``, then ``table = f32(table) - (lr·s) / (sqrt(a) + eps)``, each op
+  rounded on its own (no ``addcdiv_``, no FMA across them) and each
+  stored result rounded once to the storage dtype, the denominator taken
+  from the unrounded ``a``. Rows with ``s == 0`` keep their bits: ``acc +
+  0`` and ``table - 0``. A float32 table and acc are updated without a
+  copy."""
+  if table.dtype not in (torch.float32, torch.bfloat16) or (
+      acc.dtype != table.dtype or acc.shape != table.shape):
+    raise TypeError('the dense-split update takes a float32 or bfloat16 '
+                    'table and an acc of its dtype and shape; got '
+                    f'{table.dtype} {tuple(table.shape)} and {acc.dtype} '
+                    f'{tuple(acc.shape)}')
   gsum = gsum_dense_sorted(rows, g, table.shape[0])
   tmp = gsum * gsum
-  acc.add_(tmp)
-  denom = torch.sqrt(acc, out=tmp).add_(eps)
-  table.sub_(gsum.mul_(_device_scalar(lr, table.device)).div_(denom))
+  a = acc.float().add_(tmp)              # acc itself when it is float32
+  t = table.float()
+  denom = torch.sqrt(a, out=tmp).add_(eps)
+  t.sub_(gsum.mul_(_device_scalar(lr, table.device)).div_(denom))
+  for store, value in ((acc, a), (table, t)):
+    if value is not store:
+      store.copy_(value)
 
 
 def sparse_adagrad_apply(table: torch.Tensor, state: SparseOptState,

@@ -30,7 +30,7 @@ class TableConfig:
   initializer: Optional[Callable[[torch.Generator, Tuple[int, int],
                                   torch.dtype], torch.Tensor]] = None
   combiner: str = 'sum'            # for multivalent lookups
-  dtype: torch.dtype = torch.float32
+  dtype: torch.dtype = torch.float32   # or torch.bfloat16
   shuffle_ids: bool = False        # spread hot ids with an invertible mix
 
   def padded_vocab(self) -> int:

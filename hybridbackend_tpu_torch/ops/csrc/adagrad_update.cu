@@ -9,9 +9,9 @@
 //
 // Contract (the same as the TPU kernel's):
 //   rows     int32 [n], ascending; entries < 0 or >= vocab are skipped;
-//   grads    f32 [n, d], grads[i] belongs to rows[i];
-//   table    f32 [vocab, d], updated in place;
-//   acc      f32 [vocab, d], updated in place;
+//   grads    [n, d] of the table's type, grads[i] belongs to rows[i];
+//   table    f32 or bf16 [vocab, d], updated in place;
+//   acc      [vocab, d] of the table's type, updated in place;
 //   lr       f32 scalar in device memory (a schedule or a captured graph
 //            can change it without a host round trip).
 // For every distinct valid row r with per-row gradient total s = sum(g)
@@ -21,9 +21,14 @@
 //   _adagrad_rows_nodedup; its TPU kernel has no such mode):
 //              acc[r] += q;      table[r] -= lr * s / (sqrt(acc[r]) + eps)
 // In both, the denominator is read after all of the run's squares land.
-// s (and q) are summed from 0.f in list order with explicitly rounded
-// operations (sorted_runs.cuh: run_total, run_sums), so the totals carry
-// the bits of gsum_dense.cu's and need no float atomics.
+// s (and q) are summed in f32 from 0.f in list order with explicitly
+// rounded operations (sorted_runs.cuh: run_total, run_sums), so the totals
+// carry the bits of gsum_dense.cu's and need no float atomics. The bf16
+// mode (hb_adagrad_update_sorted_bf16, the TPU kernel's bf16 table and
+// slot) reads table and acc as f32, does the same f32 math and stores
+// each result rounded to nearest once: acc[r] = bf16(a) and table[r] =
+// bf16(f32(table[r]) - lr * s / (sqrt(a) + eps)), with the denominator
+// from the unrounded a = f32(acc[r]) + s * s (per occurrence: + q).
 //
 // What bounds it: bytes. It reads n*(d+1)*4 bytes of list and reads and
 // writes 4*u*d*4 bytes of the u distinct rows of table and acc, with a few
@@ -55,7 +60,11 @@
 // bytes, some 16 KB a block with 4 to 5 blocks resident per SM. A d that 4
 // does not divide, or a grads, table or acc address that 16 does not
 // divide, takes the scalar lanes (and, for grads, plain loads from global
-// memory) in the same kernel, as does a tile too large to stage.
+// memory) in the same kernel, as does a tile too large to stage. The bf16
+// mode is the same kernel on Store<bf16, V> lanes (8 bytes for 4
+// elements of table, acc and staged gradients); its gradients are staged
+// only where a row is a whole number of 16 bytes (d a multiple of 8) at a
+// 16-byte-aligned address, and are plain loads otherwise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,35 +84,36 @@ __device__ __forceinline__ void adagrad_apply(float& t, float& a, float s,
 }
 
 // Shared memory: the mbarrier and lr (32 bytes), the staged gradients
-// (tile * d * 4 bytes, when `staged`), then tile + 1 rows.
-template <typename V, bool kDedup, int kBatch>
+// (tile * d * sizeof(S) bytes, when `staged`), then tile + 1 rows.
+template <typename S, typename V, bool kDedup, int kBatch>
 __global__ void __launch_bounds__(kThreads)
-adagrad_update_sorted_kernel(float* __restrict__ table,
-                             float* __restrict__ acc,
+adagrad_update_sorted_kernel(S* __restrict__ table, S* __restrict__ acc,
                              const int32_t* __restrict__ rows,
-                             const float* __restrict__ grads,
+                             const S* __restrict__ grads,
                              const float* __restrict__ lr_ptr, float eps,
                              int64_t n, int64_t vocab, int d, int tile,
                              int staged) {
+  using St = Store<S, V>;
+  using Raw = typename St::Raw;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   float* lr_s = reinterpret_cast<float*>(smem + 16);
-  V* grad_s = reinterpret_cast<V*>(smem + 32);
+  Raw* grad_s = reinterpret_cast<Raw*>(smem + 32);
   int32_t* rows_s = reinterpret_cast<int32_t*>(
-      smem + 32 + (staged ? static_cast<size_t>(tile) * d * 4 : 0));
+      smem + 32 + (staged ? static_cast<size_t>(tile) * d * sizeof(S) : 0));
 
   const int64_t t0 = static_cast<int64_t>(blockIdx.x) * tile;
   const int cnt = static_cast<int>(n - t0 < tile ? n - t0 : tile);
   const int width = d / Lane<V>::kFloats;
-  const V* gsrc = reinterpret_cast<const V*>(grads);
-  V* trows = reinterpret_cast<V*>(table);
-  V* arows = reinterpret_cast<V*>(acc);
+  const Raw* gsrc = reinterpret_cast<const Raw*>(grads);
+  Raw* trows = reinterpret_cast<Raw*>(table);
+  Raw* arows = reinterpret_cast<Raw*>(acc);
 
   if (threadIdx.x == 0) {
     if (staged) {
       mbarrier_init(bar);
-      bulk_load(grad_s, grads + t0 * d, static_cast<uint32_t>(cnt) * d * 4,
-                bar);
+      bulk_load(grad_s, grads + t0 * d,
+                static_cast<uint32_t>(cnt) * d * sizeof(S), bar);
     }
     *lr_s = *lr_ptr;
   }
@@ -111,7 +121,7 @@ adagrad_update_sorted_kernel(float* __restrict__ table,
   __syncthreads();
 
   const float lr = *lr_s;
-  const V* tile_src = staged ? grad_s : gsrc + t0 * width;
+  const Raw* tile_src = staged ? grad_s : gsrc + t0 * width;
   const Groups g(width);
   bool landed = !staged;
   if (g.active()) {
@@ -126,8 +136,8 @@ adagrad_update_sorted_kernel(float* __restrict__ table,
           t[b] = a[b] = Lane<V>::zero();
           if (r[b] >= 0) {
             const int64_t at = static_cast<int64_t>(r[b]) * width + c;
-            t[b] = trows[at];
-            a[b] = arows[at];
+            t[b] = St::load(trows[at]);
+            a[b] = St::load(arows[at]);
           }
         }
         if (!landed) {
@@ -139,11 +149,11 @@ adagrad_update_sorted_kernel(float* __restrict__ table,
           if (r[b] < 0) continue;
           V s = Lane<V>::zero(), q = Lane<V>::zero();
           if constexpr (kDedup) {
-            s = run_total<V>(rows_s, j0 + b * g.count, cnt, r[b], tile_src,
-                             width, c, rows, gsrc, t0 + cnt, n);
+            s = run_total<V, S>(rows_s, j0 + b * g.count, cnt, r[b],
+                                tile_src, width, c, rows, gsrc, t0 + cnt, n);
           } else {
-            run_sums<V>(rows_s, j0 + b * g.count, cnt, r[b], tile_src, width,
-                        c, rows, gsrc, t0 + cnt, n, s, q);
+            run_sums<V, S>(rows_s, j0 + b * g.count, cnt, r[b], tile_src,
+                           width, c, rows, gsrc, t0 + cnt, n, s, q);
           }
 #pragma unroll
           for (int k = 0; k < Lane<V>::kFloats; ++k) {
@@ -153,8 +163,8 @@ adagrad_update_sorted_kernel(float* __restrict__ table,
                           eps);
           }
           const int64_t at = static_cast<int64_t>(r[b]) * width + c;
-          arows[at] = a[b];
-          trows[at] = t[b];
+          arows[at] = St::store(a[b]);
+          trows[at] = St::store(t[b]);
         }
       }
     }
@@ -163,33 +173,74 @@ adagrad_update_sorted_kernel(float* __restrict__ table,
   if (!landed) mbarrier_wait(bar, 0);
 }
 
-using Kernel = void (*)(float*, float*, const int32_t*, const float*,
-                        const float*, float, int64_t, int64_t, int, int, int);
+template <typename S>
+using Kernel = void (*)(S*, S*, const int32_t*, const S*, const float*, float,
+                        int64_t, int64_t, int, int, int);
 
-template <typename V, bool kDedup>
-Kernel batched(int batch) {
+template <typename S, typename V, bool kDedup>
+Kernel<S> batched(int batch) {
   switch (batch) {
-    case 1: return adagrad_update_sorted_kernel<V, kDedup, 1>;
-    case 2: return adagrad_update_sorted_kernel<V, kDedup, 2>;
-    case 4: return adagrad_update_sorted_kernel<V, kDedup, 4>;
-    case 8: return adagrad_update_sorted_kernel<V, kDedup, 8>;
+    case 1: return adagrad_update_sorted_kernel<S, V, kDedup, 1>;
+    case 2: return adagrad_update_sorted_kernel<S, V, kDedup, 2>;
+    case 4: return adagrad_update_sorted_kernel<S, V, kDedup, 4>;
+    case 8: return adagrad_update_sorted_kernel<S, V, kDedup, 8>;
   }
   return nullptr;
 }
 
 // The kernel for `batch` (1, 2, 4 or 8), or nullptr.
-template <typename V>
-Kernel kernel_for(int batch, bool dedup) {
-  return dedup ? batched<V, true>(batch) : batched<V, false>(batch);
+template <typename S, typename V>
+Kernel<S> kernel_for(int batch, bool dedup) {
+  return dedup ? batched<S, V, true>(batch) : batched<S, V, false>(batch);
+}
+
+template <typename S>
+int launch_for(void* table, void* acc, const void* rows, const void* grads,
+               const void* lr, float eps, int64_t n, int64_t vocab, int d,
+               int dedup, int tile, int batch, void* stream) {
+  if (tile < 1 || tile > 32768 || !kernel_for<S, float>(batch, dedup))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || vocab <= 0 || d <= 0)
+    return static_cast<int>(cudaGetLastError());
+  const bool staged = stageable<S>(grads, d, tile);
+  const Kernel<S> kernel = d % 4 == 0 && lane_aligned<S>(grads) &&
+                                   lane_aligned<S>(table) &&
+                                   lane_aligned<S>(acc)
+                               ? kernel_for<S, float4>(batch, dedup)
+                               : kernel_for<S, float>(batch, dedup);
+  size_t smem;
+  const cudaError_t err =
+      tile_shared_memory(kernel, d, tile, staged, sizeof(S), &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t blocks = (n + tile - 1) / tile;
+  kernel<<<static_cast<unsigned int>(blocks), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<S*>(table), static_cast<S*>(acc),
+      static_cast<const int32_t*>(rows), static_cast<const S*>(grads),
+      static_cast<const float*>(lr), eps, n, vocab, d, tile, staged ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S>
+int blocks_per_sm(int d, int tile, int batch, int dedup, int* blocks) {
+  const Kernel<S> kernel = kernel_for<S, float4>(batch, dedup);
+  if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem;
+  const cudaError_t err =
+      tile_shared_memory(kernel, d, tile, true, sizeof(S), &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, reinterpret_cast<const void*>(kernel), kThreads, smem));
 }
 
 }  // namespace
 
-// Launches on `stream` (a cudaStream_t) with tiles of `tile` list entries,
+// Launch on `stream` (a cudaStream_t) with tiles of `tile` list entries,
 // each thread loading the state rows of up to `batch` (1, 2, 4 or 8) heads
-// before it waits for the tile's gradients. `dedup` != 0 squares per-row
-// totals; 0 sums per-occurrence squares. Returns the first CUDA error,
-// else cudaGetLastError().
+// before it waits for the tile's gradients, for an f32 table, acc and
+// gradients (_f32) or bf16 ones (_bf16). `dedup` != 0 squares per-row
+// totals; 0 sums per-occurrence squares. Each returns the first CUDA
+// error, else cudaGetLastError().
 extern "C" int hb_adagrad_update_sorted_f32(void* table, void* acc,
                                             const void* rows,
                                             const void* grads,
@@ -197,38 +248,28 @@ extern "C" int hb_adagrad_update_sorted_f32(void* table, void* acc,
                                             int64_t n, int64_t vocab, int d,
                                             int dedup, int tile, int batch,
                                             void* stream) {
-  if (tile < 1 || tile > 32768 || !kernel_for<float>(batch, dedup))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 0 || vocab <= 0 || d <= 0)
-    return static_cast<int>(cudaGetLastError());
-  const bool quads = d % 4 == 0 && aligned16(grads);
-  const bool staged =
-      quads && static_cast<size_t>(tile) * d * 4 <= kMaxStageBytes;
-  const Kernel kernel = quads && aligned16(table) && aligned16(acc)
-                            ? kernel_for<float4>(batch, dedup)
-                            : kernel_for<float>(batch, dedup);
-  size_t smem;
-  const cudaError_t err = tile_shared_memory(kernel, d, tile, staged, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t blocks = (n + tile - 1) / tile;
-  kernel<<<static_cast<unsigned int>(blocks), kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(table), static_cast<float*>(acc),
-      static_cast<const int32_t*>(rows), static_cast<const float*>(grads),
-      static_cast<const float*>(lr), eps, n, vocab, d, tile, staged ? 1 : 0);
-  return static_cast<int>(cudaGetLastError());
+  return launch_for<float>(table, acc, rows, grads, lr, eps, n, vocab, d,
+                           dedup, tile, batch, stream);
 }
 
-// Blocks of the 16-byte-lane kernel resident on one SM at row width `d`
-// (a multiple of 4), tiles of `tile` entries and `batch`, into *blocks.
+extern "C" int hb_adagrad_update_sorted_bf16(void* table, void* acc,
+                                             const void* rows,
+                                             const void* grads,
+                                             const void* lr, float eps,
+                                             int64_t n, int64_t vocab, int d,
+                                             int dedup, int tile, int batch,
+                                             void* stream) {
+  return launch_for<__nv_bfloat16>(table, acc, rows, grads, lr, eps, n,
+                                   vocab, d, dedup, tile, batch, stream);
+}
+
+// Blocks of the 4-element-lane kernel resident on one SM at row width `d`
+// (a multiple of 4), tiles of `tile` entries and `batch`, into *blocks;
+// `bf16` != 0 for the bf16 kernel.
 extern "C" int hb_adagrad_update_sorted_blocks_per_sm(int d, int tile,
                                                       int batch, int dedup,
+                                                      int bf16,
                                                       int* blocks) {
-  const Kernel kernel = kernel_for<float4>(batch, dedup);
-  if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
-  size_t smem;
-  const cudaError_t err = tile_shared_memory(kernel, d, tile, true, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, reinterpret_cast<const void*>(kernel), kThreads, smem));
+  return bf16 ? blocks_per_sm<__nv_bfloat16>(d, tile, batch, dedup, blocks)
+              : blocks_per_sm<float>(d, tile, batch, dedup, blocks);
 }

@@ -11,8 +11,8 @@
 //
 // Contract (the same as the TPU kernel's):
 //   rows     int32 [n], ascending; entries < 0 or >= vocab are skipped;
-//   grads    f32 [n, d], grads[i] belongs to rows[i];
-//   table, m, v  f32 [vocab, d], updated in place;
+//   grads    [n, d] of the table's type, grads[i] belongs to rows[i];
+//   table, m, v  f32 or bf16 (one type) [vocab, d], updated in place;
 //   lr, step f32 scalars in device memory (step is 1-based), so neither a
 //            schedule nor the step count waits on the host.
 // For every distinct valid row r in the list, with gradient total s (even
@@ -22,8 +22,12 @@
 //   v[r] = b2 * v[r] + (1 - b2) * s * s
 //   table[r] -= lr * (m[r] / bc1) / (sqrt(v[r] / bc2) + eps)
 // Moments of rows not in the list do not decay. `omb1` and `omb2` are
-// 1 - b1 and 1 - b2 as the caller rounds them. s is summed from 0.f in
-// list order with explicitly rounded adds (sorted_runs.cuh: run_total).
+// 1 - b1 and 1 - b2 as the caller rounds them. s is summed in f32 from
+// 0.f in list order with explicitly rounded adds (sorted_runs.cuh:
+// run_total). The bf16 mode (hb_adam_update_sorted_bf16, the TPU kernel's
+// bf16 table and moments) reads table, m and v as f32, does the same f32
+// math and stores each of the three rounded to nearest once; the table's
+// step uses the unrounded m[r] and v[r].
 //
 // What bounds it: bytes. It reads n*(d+1)*4 bytes of list and reads and
 // writes 6*u*d*4 bytes of the u distinct rows of table, m and v, with a
@@ -57,6 +61,11 @@
 // d that 4 does not divide, or a grads, table, m or v address that 16 does
 // not divide, takes the scalar lanes (and, for grads, plain loads from
 // global memory) in the same kernel, as does a tile too large to stage.
+// The bf16 mode is the same kernel on Store<bf16, V> lanes (8 bytes for 4
+// elements of each state row and of the staged gradients); its gradients
+// are staged only where a row is a whole number of 16 bytes (d a
+// multiple of 8) at a 16-byte-aligned address, and are plain loads
+// otherwise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,37 +98,40 @@ __device__ __forceinline__ void adam_apply(float& t, float& m, float& v,
 }
 
 // Shared memory: the mbarrier and the block's scalars (32 bytes), the
-// staged gradients (tile * d * 4 bytes, when `staged`), then tile + 1 rows.
-template <typename V, int kBatch>
+// staged gradients (tile * d * sizeof(S) bytes, when `staged`), then
+// tile + 1 rows.
+template <typename S, typename V, int kBatch>
 __global__ void __launch_bounds__(kThreads)
-adam_update_sorted_kernel(float* __restrict__ table, float* __restrict__ m,
-                          float* __restrict__ v,
+adam_update_sorted_kernel(S* __restrict__ table, S* __restrict__ m,
+                          S* __restrict__ v,
                           const int32_t* __restrict__ rows,
-                          const float* __restrict__ grads,
+                          const S* __restrict__ grads,
                           const float* __restrict__ lr_ptr,
                           const float* __restrict__ step_ptr, AdamParams p,
                           int64_t n, int64_t vocab, int d, int tile,
                           int staged) {
+  using St = Store<S, V>;
+  using Raw = typename St::Raw;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   AdamScalars* scalars_s = reinterpret_cast<AdamScalars*>(smem + 16);
-  V* grad_s = reinterpret_cast<V*>(smem + 32);
+  Raw* grad_s = reinterpret_cast<Raw*>(smem + 32);
   int32_t* rows_s = reinterpret_cast<int32_t*>(
-      smem + 32 + (staged ? static_cast<size_t>(tile) * d * 4 : 0));
+      smem + 32 + (staged ? static_cast<size_t>(tile) * d * sizeof(S) : 0));
 
   const int64_t t0 = static_cast<int64_t>(blockIdx.x) * tile;
   const int cnt = static_cast<int>(n - t0 < tile ? n - t0 : tile);
   const int width = d / Lane<V>::kFloats;
-  const V* gsrc = reinterpret_cast<const V*>(grads);
-  V* trows = reinterpret_cast<V*>(table);
-  V* mrows = reinterpret_cast<V*>(m);
-  V* vrows = reinterpret_cast<V*>(v);
+  const Raw* gsrc = reinterpret_cast<const Raw*>(grads);
+  Raw* trows = reinterpret_cast<Raw*>(table);
+  Raw* mrows = reinterpret_cast<Raw*>(m);
+  Raw* vrows = reinterpret_cast<Raw*>(v);
 
   if (threadIdx.x == 0) {
     if (staged) {
       mbarrier_init(bar);
-      bulk_load(grad_s, grads + t0 * d, static_cast<uint32_t>(cnt) * d * 4,
-                bar);
+      bulk_load(grad_s, grads + t0 * d,
+                static_cast<uint32_t>(cnt) * d * sizeof(S), bar);
     }
     const float step = *step_ptr;
     *scalars_s = AdamScalars{*lr_ptr, __fsub_rn(1.f, powf(p.b1, step)),
@@ -129,7 +141,7 @@ adam_update_sorted_kernel(float* __restrict__ table, float* __restrict__ m,
   __syncthreads();
 
   const AdamScalars k = *scalars_s;
-  const V* tile_src = staged ? grad_s : gsrc + t0 * width;
+  const Raw* tile_src = staged ? grad_s : gsrc + t0 * width;
   const Groups g(width);
   bool landed = !staged;
   if (g.active()) {
@@ -144,9 +156,9 @@ adam_update_sorted_kernel(float* __restrict__ table, float* __restrict__ m,
           ht[b] = hm[b] = hv[b] = Lane<V>::zero();
           if (r[b] >= 0) {
             const int64_t at = static_cast<int64_t>(r[b]) * width + c;
-            ht[b] = trows[at];
-            hm[b] = mrows[at];
-            hv[b] = vrows[at];
+            ht[b] = St::load(trows[at]);
+            hm[b] = St::load(mrows[at]);
+            hv[b] = St::load(vrows[at]);
           }
         }
         if (!landed) {
@@ -156,17 +168,17 @@ adam_update_sorted_kernel(float* __restrict__ table, float* __restrict__ m,
 #pragma unroll
         for (int b = 0; b < kBatch; ++b) {
           if (r[b] < 0) continue;
-          V s = run_total<V>(rows_s, j0 + b * g.count, cnt, r[b], tile_src,
-                             width, c, rows, gsrc, t0 + cnt, n);
+          V s = run_total<V, S>(rows_s, j0 + b * g.count, cnt, r[b],
+                                tile_src, width, c, rows, gsrc, t0 + cnt, n);
 #pragma unroll
           for (int e = 0; e < Lane<V>::kFloats; ++e) {
             adam_apply(Lane<V>::at(ht[b], e), Lane<V>::at(hm[b], e),
                        Lane<V>::at(hv[b], e), Lane<V>::at(s, e), k, p);
           }
           const int64_t at = static_cast<int64_t>(r[b]) * width + c;
-          mrows[at] = hm[b];
-          vrows[at] = hv[b];
-          trows[at] = ht[b];
+          mrows[at] = St::store(hm[b]);
+          vrows[at] = St::store(hv[b]);
+          trows[at] = St::store(ht[b]);
         }
       }
     }
@@ -175,28 +187,71 @@ adam_update_sorted_kernel(float* __restrict__ table, float* __restrict__ m,
   if (!landed) mbarrier_wait(bar, 0);
 }
 
-using Kernel = void (*)(float*, float*, float*, const int32_t*, const float*,
-                        const float*, const float*, AdamParams, int64_t,
-                        int64_t, int, int, int);
+template <typename S>
+using Kernel = void (*)(S*, S*, S*, const int32_t*, const S*, const float*,
+                        const float*, AdamParams, int64_t, int64_t, int, int,
+                        int);
 
 // The kernel for `batch` (1, 2, 4 or 8), or nullptr.
-template <typename V>
-Kernel kernel_for(int batch) {
+template <typename S, typename V>
+Kernel<S> kernel_for(int batch) {
   switch (batch) {
-    case 1: return adam_update_sorted_kernel<V, 1>;
-    case 2: return adam_update_sorted_kernel<V, 2>;
-    case 4: return adam_update_sorted_kernel<V, 4>;
-    case 8: return adam_update_sorted_kernel<V, 8>;
+    case 1: return adam_update_sorted_kernel<S, V, 1>;
+    case 2: return adam_update_sorted_kernel<S, V, 2>;
+    case 4: return adam_update_sorted_kernel<S, V, 4>;
+    case 8: return adam_update_sorted_kernel<S, V, 8>;
   }
   return nullptr;
 }
 
+template <typename S>
+int launch_for(void* table, void* m, void* v, const void* rows,
+               const void* grads, const void* lr, const void* step,
+               AdamParams p, int64_t n, int64_t vocab, int d, int tile,
+               int batch, void* stream) {
+  if (tile < 1 || tile > 32768 || !kernel_for<S, float>(batch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || vocab <= 0 || d <= 0)
+    return static_cast<int>(cudaGetLastError());
+  const bool staged = stageable<S>(grads, d, tile);
+  const Kernel<S> kernel =
+      d % 4 == 0 && lane_aligned<S>(grads) && lane_aligned<S>(table) &&
+              lane_aligned<S>(m) && lane_aligned<S>(v)
+          ? kernel_for<S, float4>(batch)
+          : kernel_for<S, float>(batch);
+  size_t smem;
+  const cudaError_t err =
+      tile_shared_memory(kernel, d, tile, staged, sizeof(S), &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t blocks = (n + tile - 1) / tile;
+  kernel<<<static_cast<unsigned int>(blocks), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<S*>(table), static_cast<S*>(m), static_cast<S*>(v),
+      static_cast<const int32_t*>(rows), static_cast<const S*>(grads),
+      static_cast<const float*>(lr), static_cast<const float*>(step), p, n,
+      vocab, d, tile, staged ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S>
+int blocks_per_sm(int d, int tile, int batch, int* blocks) {
+  const Kernel<S> kernel = kernel_for<S, float4>(batch);
+  if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem;
+  const cudaError_t err =
+      tile_shared_memory(kernel, d, tile, true, sizeof(S), &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, reinterpret_cast<const void*>(kernel), kThreads, smem));
+}
+
 }  // namespace
 
-// Launches on `stream` (a cudaStream_t) with tiles of `tile` list entries,
+// Launch on `stream` (a cudaStream_t) with tiles of `tile` list entries,
 // each thread loading the state rows of up to `batch` (1, 2, 4 or 8) heads
-// before it waits for the tile's gradients. Returns the first CUDA error,
-// else cudaGetLastError().
+// before it waits for the tile's gradients, for f32 table, moments and
+// gradients (_f32) or bf16 ones (_bf16). Each returns the first CUDA
+// error, else cudaGetLastError().
 extern "C" int hb_adam_update_sorted_f32(void* table, void* m, void* v,
                                          const void* rows, const void* grads,
                                          const void* lr, const void* step,
@@ -204,40 +259,29 @@ extern "C" int hb_adam_update_sorted_f32(void* table, void* m, void* v,
                                          float omb2, float eps, int64_t n,
                                          int64_t vocab, int d, int tile,
                                          int batch, void* stream) {
-  if (tile < 1 || tile > 32768 || !kernel_for<float>(batch))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 0 || vocab <= 0 || d <= 0)
-    return static_cast<int>(cudaGetLastError());
-  const bool quads = d % 4 == 0 && aligned16(grads);
-  const bool staged =
-      quads && static_cast<size_t>(tile) * d * 4 <= kMaxStageBytes;
-  const Kernel kernel =
-      quads && aligned16(table) && aligned16(m) && aligned16(v)
-          ? kernel_for<float4>(batch)
-          : kernel_for<float>(batch);
-  size_t smem;
-  const cudaError_t err = tile_shared_memory(kernel, d, tile, staged, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t blocks = (n + tile - 1) / tile;
-  kernel<<<static_cast<unsigned int>(blocks), kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(table), static_cast<float*>(m),
-      static_cast<float*>(v), static_cast<const int32_t*>(rows),
-      static_cast<const float*>(grads), static_cast<const float*>(lr),
-      static_cast<const float*>(step), AdamParams{b1, b2, omb1, omb2, eps}, n,
-      vocab, d, tile, staged ? 1 : 0);
-  return static_cast<int>(cudaGetLastError());
+  return launch_for<float>(table, m, v, rows, grads, lr, step,
+                           AdamParams{b1, b2, omb1, omb2, eps}, n, vocab, d,
+                           tile, batch, stream);
 }
 
-// Blocks of the 16-byte-lane kernel resident on one SM at row width `d`
-// (a multiple of 4), tiles of `tile` entries and `batch`, into *blocks.
+extern "C" int hb_adam_update_sorted_bf16(void* table, void* m, void* v,
+                                          const void* rows, const void* grads,
+                                          const void* lr, const void* step,
+                                          float b1, float b2, float omb1,
+                                          float omb2, float eps, int64_t n,
+                                          int64_t vocab, int d, int tile,
+                                          int batch, void* stream) {
+  return launch_for<__nv_bfloat16>(table, m, v, rows, grads, lr, step,
+                                   AdamParams{b1, b2, omb1, omb2, eps}, n,
+                                   vocab, d, tile, batch, stream);
+}
+
+// Blocks of the 4-element-lane kernel resident on one SM at row width `d`
+// (a multiple of 4), tiles of `tile` entries and `batch`, into *blocks;
+// `bf16` != 0 for the bf16 kernel.
 extern "C" int hb_adam_update_sorted_blocks_per_sm(int d, int tile,
-                                                   int batch, int* blocks) {
-  const Kernel kernel = kernel_for<float4>(batch);
-  if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
-  size_t smem;
-  const cudaError_t err = tile_shared_memory(kernel, d, tile, true, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, reinterpret_cast<const void*>(kernel), kThreads, smem));
+                                                   int batch, int bf16,
+                                                   int* blocks) {
+  return bf16 ? blocks_per_sm<__nv_bfloat16>(d, tile, batch, blocks)
+              : blocks_per_sm<float>(d, tile, batch, blocks);
 }

@@ -2,20 +2,21 @@
 // Hopper (sm_90a): scatter_add.cu, gsum_dense.cu, adagrad_update.cu and
 // adam_update.cu.
 //
-// The list is `rows` int32 [n], ascending, with `updates` f32 [n, d]. A
-// *run* is a maximal stretch of equal rows; its *head* is its first entry.
+// The list is `rows` int32 [n], ascending, with `updates` [n, d] stored as
+// S: float, or __nv_bfloat16 where the table it updates is bf16. A *run*
+// is a maximal stretch of equal rows; its *head* is its first entry.
 // Every kernel here gives each run one owner, which forms the run's total
-// from 0.f by adding the run's entries in list order with __fadd_rn: no
-// float atomics, no tree or shuffle reduction, so every kernel forms the
-// same bits for the same list.
+// in f32 from 0.f by adding the run's entries in list order with
+// __fadd_rn: no float atomics, no tree or shuffle reduction, so every
+// kernel forms the same bits for the same list, in either storage type.
 //
 // What the pieces are for, on this card:
 //   * A block takes a *tile* of consecutive list entries. The tile's rows
 //     (and the entry before it, to tell whether the first entry starts a
 //     run) go to shared memory with one coalesced load (stage_rows); the
-//     tile's updates are one contiguous span of cnt*d*4 bytes, which one
-//     thread copies with a single cp.async.bulk that reports to an
-//     mbarrier (bulk_load). Tens of KB are in flight per block for one
+//     tile's updates are one contiguous span of cnt*d*sizeof(S) bytes,
+//     which one thread copies with a single cp.async.bulk that reports to
+//     an mbarrier (bulk_load). Tens of KB are in flight per block for one
 //     instruction and no registers. A contiguous span needs no tensor map.
 //   * Run heads are found in shared memory (is_head), and a run is summed
 //     from shared memory (run_total; run_sums also sums the squares of its
@@ -23,16 +24,20 @@
 //     finishes it from global memory, and a tile that starts inside a run
 //     leaves those entries to the earlier tile's owner.
 //   * An entry is served by a *group* of min(32, width) threads (Groups),
-//     not by a warp: at d = 16 a row is 4 lanes of 16 bytes, so one warp
-//     instruction serves 8 entries. Lane<float4> is the 16-byte lane,
-//     Lane<float> the scalar one for a d or an address that 16 bytes do
-//     not divide; a group never cooperates across lanes, so it may
-//     straddle warps.
+//     not by a warp: at d = 16 a row is 4 lanes of 4 elements, so one warp
+//     instruction serves 8 entries. Lane<float4> is the 4-element math
+//     lane, Lane<float> the scalar one for a d or an address that a lane's
+//     storage does not divide; a group never cooperates across lanes, so
+//     it may straddle warps.
+//   * Store<S, V> is how a math lane V lies in memory: the math is f32
+//     whatever the storage; a bf16 lane (8 bytes for 4 elements) widens
+//     exactly to f32 on load and is rounded to nearest once on store.
 //   * lower_bound_warp finds where a row starts in the sorted list with a
 //     33-way search (4 or 5 dependent reads for 2e5 entries, not 18).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,7 +48,7 @@ constexpr int kThreads = 256;
 // global memory.
 constexpr size_t kMaxStageBytes = 160 * 1024;
 
-// One thread's share of a row: a float, or 16 bytes of it.
+// One thread's share of a row in f32: an element, or 4 of them.
 template <typename V>
 struct Lane;
 
@@ -85,8 +90,68 @@ struct Lane<float4> {
   }
 };
 
+// The storage `Raw` of a math lane V in storage type S, and the exact
+// load and the round-to-nearest store between them.
+template <typename S, typename V>
+struct Store;
+
+template <typename V>
+struct Store<float, V> {
+  using Raw = V;
+  static __device__ __forceinline__ V load(Raw r) { return r; }
+  static __device__ __forceinline__ Raw store(V v) { return v; }
+};
+
+template <>
+struct Store<__nv_bfloat16, float> {
+  using Raw = __nv_bfloat16;
+  static __device__ __forceinline__ float load(Raw r) {
+    return __bfloat162float(r);
+  }
+  static __device__ __forceinline__ Raw store(float v) {
+    return __float2bfloat16_rn(v);
+  }
+};
+
+// Four bf16, element k in bits 16k..16k+15 of the little-endian pair.
+template <>
+struct Store<__nv_bfloat16, float4> {
+  using Raw = uint2;
+  static __device__ __forceinline__ float4 load(Raw r) {
+    return make_float4(__uint_as_float(r.x << 16),
+                       __uint_as_float(r.x & 0xffff0000u),
+                       __uint_as_float(r.y << 16),
+                       __uint_as_float(r.y & 0xffff0000u));
+  }
+  static __device__ __forceinline__ uint32_t pair(float lo, float hi) {
+    return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo)))
+           | (static_cast<uint32_t>(
+                  __bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+  }
+  static __device__ __forceinline__ Raw store(float4 v) {
+    return make_uint2(pair(v.x, v.y), pair(v.z, v.w));
+  }
+};
+
 __host__ __device__ inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Whether `p` may be read and written in 4-element lanes of S.
+template <typename S>
+__host__ inline bool lane_aligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(S)) == 0;
+}
+
+// Whether the `tile`-entry tiles of a list of `d`-wide rows of S at
+// `updates` go to shared memory with one bulk copy each: a row is a whole
+// number of 16 bytes (so every tile's span starts and ends on one),
+// `updates` is 16-byte aligned, and a tile fits in kMaxStageBytes.
+template <typename S>
+__host__ inline bool stageable(const void* updates, int d, int tile) {
+  const size_t row = static_cast<size_t>(d) * sizeof(S);
+  return row % 16 == 0 && aligned16(updates) &&
+         static_cast<size_t>(tile) * row <= kMaxStageBytes;
 }
 
 // The threads of a block cut into groups of `lanes` = min(32, width)
@@ -109,12 +174,13 @@ __device__ __forceinline__ uint32_t shared_address(const void* p) {
 
 // The dynamic shared memory of a launch of a tile kernel whose block
 // holds 32 bytes of mbarrier and scalars, then the tile's staged updates
-// (when `staged`), then its tile + 1 rows (adagrad_update.cu,
-// adam_update.cu); raises `kernel`'s limit where that is above 48 KB.
+// of `elem` bytes an element (when `staged`), then its tile + 1 rows
+// (adagrad_update.cu, adam_update.cu); raises `kernel`'s limit where that
+// is above 48 KB.
 template <typename Kernel>
 cudaError_t tile_shared_memory(Kernel kernel, int d, int tile, bool staged,
-                               size_t* bytes) {
-  *bytes = 32 + (staged ? static_cast<size_t>(tile) * d * 4 : 0) +
+                               size_t elem, size_t* bytes) {
+  *bytes = 32 + (staged ? static_cast<size_t>(tile) * d * elem : 0) +
            (static_cast<size_t>(tile) + 1) * 4;
   if (*bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
@@ -185,25 +251,28 @@ __device__ __forceinline__ bool is_head(const int32_t* rows_s, int j,
 }
 
 // Element c of the total of the run of row r that tile entry j heads,
-// summed from 0.f in list order. Entries [j, cnt) of the tile are read
-// from `tile_src` (shared or global memory; entry k, element c at
+// summed in f32 from 0.f in list order. Entries [j, cnt) of the tile are
+// read from `tile_src` (shared or global memory; entry k, lane c at
 // tile_src[k * stride + c]). A run that reaches the tile's end goes on in
-// global memory from list entry `tile_end` (element c of entry i at
+// global memory from list entry `tile_end` (lane c of entry i at
 // updates[i * stride + c]) while rows[i] == r and i < limit.
-template <typename V>
+template <typename V, typename S = float>
 __device__ __forceinline__ V run_total(
-    const int32_t* rows_s, int j, int cnt, int32_t r, const V* tile_src,
-    int64_t stride, int c, const int32_t* __restrict__ rows,
-    const V* __restrict__ updates, int64_t tile_end, int64_t limit) {
+    const int32_t* rows_s, int j, int cnt, int32_t r,
+    const typename Store<S, V>::Raw* tile_src, int64_t stride, int c,
+    const int32_t* __restrict__ rows,
+    const typename Store<S, V>::Raw* __restrict__ updates, int64_t tile_end,
+    int64_t limit) {
+  using St = Store<S, V>;
   V s = Lane<V>::zero();
   int k = j;
   do {
-    s = Lane<V>::add(s, tile_src[k * stride + c]);
+    s = Lane<V>::add(s, St::load(tile_src[k * stride + c]));
     ++k;
   } while (k < cnt && rows_s[k + 1] == r);
   if (k == cnt) {
     for (int64_t i = tile_end; i < limit && rows[i] == r; ++i)
-      s = Lane<V>::add(s, updates[i * stride + c]);
+      s = Lane<V>::add(s, St::load(updates[i * stride + c]));
   }
   return s;
 }
@@ -211,24 +280,26 @@ __device__ __forceinline__ V run_total(
 // The run's total `s`, as run_total forms it, and the sum `q` of its
 // entries' squares, each square rounded and added from 0.f in list order:
 // one walk over the run for both (the per-occurrence Adagrad mode).
-template <typename V>
+template <typename V, typename S = float>
 __device__ __forceinline__ void run_sums(
-    const int32_t* rows_s, int j, int cnt, int32_t r, const V* tile_src,
-    int64_t stride, int c, const int32_t* __restrict__ rows,
-    const V* __restrict__ updates, int64_t tile_end, int64_t limit, V& s,
-    V& q) {
+    const int32_t* rows_s, int j, int cnt, int32_t r,
+    const typename Store<S, V>::Raw* tile_src, int64_t stride, int c,
+    const int32_t* __restrict__ rows,
+    const typename Store<S, V>::Raw* __restrict__ updates, int64_t tile_end,
+    int64_t limit, V& s, V& q) {
+  using St = Store<S, V>;
   s = Lane<V>::zero();
   q = Lane<V>::zero();
   int k = j;
   do {
-    const V g = tile_src[k * stride + c];
+    const V g = St::load(tile_src[k * stride + c]);
     s = Lane<V>::add(s, g);
     q = Lane<V>::add_square(q, g);
     ++k;
   } while (k < cnt && rows_s[k + 1] == r);
   if (k == cnt) {
     for (int64_t i = tile_end; i < limit && rows[i] == r; ++i) {
-      const V g = updates[i * stride + c];
+      const V g = St::load(updates[i * stride + c]);
       s = Lane<V>::add(s, g);
       q = Lane<V>::add_square(q, g);
     }

@@ -11,6 +11,12 @@ which the tests hold against the JAX package. The three updates work in
 place and return their tensors; rows ``< 0`` or ``>= V`` are skipped,
 and rows not in the list are neither read nor written.
 ``gsum_dense_sorted`` returns a new dense tensor of per-row totals.
+
+The three updates take float32 or bfloat16 tables, with slots of the
+table's dtype, as the JAX kernels do. The gradients are rounded to that
+dtype, the math is float32 (per-row totals summed in list order), and
+each stored result is rounded to the storage dtype once, to nearest. A
+bfloat16 table on a CUDA tensor launches the kernel's ``_bf16`` symbol.
 """
 
 from __future__ import annotations
@@ -69,12 +75,16 @@ def gsum_blocking(vocab: int, d: int, sms: int) -> Tuple[int, int]:
   return max(4, -(-rows // 4) * 4), chunk
 
 
+_STORAGE = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
+
+
 def _check(name: str, table: torch.Tensor, slots: Sequence[torch.Tensor],
            rows: torch.Tensor, updates: torch.Tensor):
   for t in (table, *slots):
-    if t.dtype != torch.float32:
-      raise TypeError(f'{name} takes float32 table and slots; got '
-                      f'{t.dtype}')
+    if t.dtype not in _STORAGE or t.dtype != table.dtype:
+      raise TypeError(f'{name} takes a float32 or bfloat16 table and slots '
+                      f'of its dtype; got {table.dtype} and '
+                      f'{[s.dtype for s in slots]}')
     if t.shape != table.shape or table.dim() != 2:
       raise ValueError(f'{name}: table {tuple(table.shape)} and slots '
                        f'{[tuple(s.shape) for s in slots]} must be one '
@@ -92,13 +102,14 @@ def _check(name: str, table: torch.Tensor, slots: Sequence[torch.Tensor],
 
 def _run_totals(table: torch.Tensor, rows: torch.Tensor,
                 updates: torch.Tensor, square: bool = False):
-  """Distinct valid rows and their f32 totals, summed by ``index_add_``
-  in list order (on the CPU; atomics on a card). ``square`` adds the
-  per-occurrence sums of squares."""
+  """Distinct valid rows and the f32 totals of their updates, rounded to
+  the table's dtype first, summed by ``index_add_`` in list order (on the
+  CPU; atomics on a card). ``square`` adds the per-occurrence sums of
+  squares."""
   valid = (rows >= 0) & (rows < table.shape[0])
   urows, inverse = torch.unique(rows[valid].to(torch.int64),
                                 return_inverse=True)
-  g = updates[valid].to(torch.float32)
+  g = updates[valid].to(table.dtype).to(torch.float32)
   shape = (urows.shape[0], table.shape[1])
   gsum = torch.zeros(shape, dtype=torch.float32, device=table.device)
   gsum.index_add_(0, inverse, g)
@@ -127,11 +138,13 @@ def _launch_target(name: str, *tensors: torch.Tensor) -> torch.device:
   return device
 
 
-def _launch(wrapper, library: str, argtypes, device: torch.device, *args):
-  """Calls ``hb_<wrapper>_f32`` of ``csrc/<library>.cu`` on the current
-  stream of ``device`` (:func:`build.launch`)."""
-  build.launch(wrapper, library, f'hb_{wrapper.__name__}_f32', argtypes,
-               device, *args)
+def _launch(wrapper, library: str, dtype: torch.dtype, argtypes,
+            device: torch.device, *args):
+  """Calls ``hb_<wrapper>_f32`` or ``_bf16`` (by the storage ``dtype``) of
+  ``csrc/<library>.cu`` on the current stream of ``device``
+  (:func:`build.launch`)."""
+  build.launch(wrapper, library, f'hb_{wrapper.__name__}_{_STORAGE[dtype]}',
+               argtypes, device, *args)
 
 
 # --------------------------------------------------------------------------
@@ -145,14 +158,17 @@ def adagrad_update_sorted_reference(table: torch.Tensor, acc: torch.Tensor,
                                     eps: float = 1e-7, dedup: bool = True
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Plain PyTorch version: per-row f32 totals by ``index_add_`` in list
-  order, then the Adagrad apply on the distinct rows. ``dedup=False``
+  order, then the Adagrad apply on the distinct rows: table and acc read
+  as f32, f32 math, each result rounded once to the storage dtype (the
+  denominator from the unrounded accumulator). ``dedup=False``
   accumulates the per-occurrence squares instead of the total's square.
   Updates ``table`` and ``acc`` in place and returns them. Rows need not
   be sorted."""
   urows, gsum, qsum = _run_totals(table, rows, updates, square=not dedup)
-  a = acc[urows] + (gsum * gsum if dedup else qsum)
-  acc[urows] = a
-  table[urows] = table[urows] - lr * gsum / (torch.sqrt(a) + eps)
+  a = acc[urows].float() + (gsum * gsum if dedup else qsum)
+  acc[urows] = a.to(acc.dtype)
+  table[urows] = (table[urows].float() - lr * gsum / (torch.sqrt(a) + eps)
+                  ).to(table.dtype)
   return table, acc
 
 
@@ -166,10 +182,11 @@ def adagrad_update_sorted(table: torch.Tensor, acc: torch.Tensor,
   ``table[r] -= lr·s/(sqrt(acc[r])+eps)``. Returns ``(table, acc)``.
 
   Args:
-    table, acc: float32 ``[V, d]``, contiguous.
+    table, acc: float32 or bfloat16 (one dtype) ``[V, d]``, contiguous.
     rows: int32 ``[N]`` in ascending order (the CUDA kernel relies on
       it); entries ``< 0`` or ``>= V`` are skipped.
-    updates: ``[N, d]`` gradients, ``updates[i]`` for ``rows[i]``.
+    updates: ``[N, d]`` gradients, ``updates[i]`` for ``rows[i]``,
+      rounded to the table's dtype.
     lr: a float or a 0-d float32 tensor (read on the device, so a
       schedule needs no host round trip).
   """
@@ -179,9 +196,9 @@ def adagrad_update_sorted(table: torch.Tensor, acc: torch.Tensor,
                                            eps, dedup)
   device = _launch_target('adagrad_update_sorted', table, acc)
   rows = rows.contiguous()
-  updates = updates.to(torch.float32).contiguous()
+  updates = updates.to(table.dtype).contiguous()
   lr_t = _device_scalar(lr, device)
-  _launch(adagrad_update_sorted, 'adagrad_update',
+  _launch(adagrad_update_sorted, 'adagrad_update', table.dtype,
           (ctypes.c_void_p,) * 5 + (ctypes.c_float, ctypes.c_int64,
                                     ctypes.c_int64) + (ctypes.c_int,) * 4,
           device, table.data_ptr(), acc.data_ptr(), rows.data_ptr(),
@@ -202,26 +219,28 @@ adagrad_update_sorted.launches = 0
 def scatter_add_sorted_reference(table: torch.Tensor, rows: torch.Tensor,
                                  updates: torch.Tensor) -> torch.Tensor:
   """Plain PyTorch version: per-row f32 totals by ``index_add_`` in list
-  order, each added to its row once. Updates ``table`` in place and
-  returns it. Rows need not be sorted."""
+  order, each added to its row (read as f32) once and rounded once to the
+  table's dtype. Updates ``table`` in place and returns it. Rows need not
+  be sorted."""
   urows, gsum, _ = _run_totals(table, rows, updates)
-  table[urows] = table[urows] + gsum
+  table[urows] = (table[urows].float() + gsum).to(table.dtype)
   return table
 
 
 def scatter_add_sorted(table: torch.Tensor, rows: torch.Tensor,
                        updates: torch.Tensor) -> torch.Tensor:
   """``table[r] += Σ updates[i]`` over each run of equal rows, in place;
-  returns ``table``. ``table`` float32 ``[V, d]`` contiguous; ``rows``
-  int32 ``[N]`` ascending (the CUDA kernel relies on it), entries ``< 0``
-  or ``>= V`` skipped; ``updates`` ``[N, d]``."""
+  returns ``table``. ``table`` float32 or bfloat16 ``[V, d]`` contiguous;
+  ``rows`` int32 ``[N]`` ascending (the CUDA kernel relies on it), entries
+  ``< 0`` or ``>= V`` skipped; ``updates`` ``[N, d]``, rounded to the
+  table's dtype."""
   _check('scatter_add_sorted', table, (), rows, updates)
   if table.device.type == 'cpu':
     return scatter_add_sorted_reference(table, rows, updates)
   device = _launch_target('scatter_add_sorted', table)
   rows = rows.contiguous()
-  updates = updates.to(torch.float32).contiguous()
-  _launch(scatter_add_sorted, 'scatter_add',
+  updates = updates.to(table.dtype).contiguous()
+  _launch(scatter_add_sorted, 'scatter_add', table.dtype,
           (ctypes.c_void_p,) * 3 + (ctypes.c_int64, ctypes.c_int64,
                                     ctypes.c_int, ctypes.c_int),
           device, table.data_ptr(), rows.data_ptr(), updates.data_ptr(),
@@ -247,18 +266,19 @@ def adam_update_sorted_reference(table: torch.Tensor, m: torch.Tensor,
                                             torch.Tensor]:
   """Plain PyTorch version of :func:`adam_update_sorted`: per-row f32
   totals by ``index_add_`` in list order, then LazyAdam on the distinct
-  rows present, in the kernel's order of operations. Rows need not be
-  sorted."""
+  rows present, in the kernel's order of operations: table, m and v read
+  as f32, f32 math, each result rounded once to the storage dtype (the
+  table's step from the unrounded moments). Rows need not be sorted."""
   urows, s, _ = _run_totals(table, rows, updates)
   t = _device_scalar(step, table.device)
   bc1 = 1 - torch.full_like(t, b1) ** t
   bc2 = 1 - torch.full_like(t, b2) ** t
-  mn = b1 * m[urows] + (1 - b1) * s
-  vn = b2 * v[urows] + (1 - b2) * s * s
-  m[urows] = mn
-  v[urows] = vn
-  table[urows] = table[urows] - lr * (mn / bc1) / (torch.sqrt(vn / bc2)
-                                                   + eps)
+  mn = b1 * m[urows].float() + (1 - b1) * s
+  vn = b2 * v[urows].float() + (1 - b2) * s * s
+  m[urows] = mn.to(m.dtype)
+  v[urows] = vn.to(v.dtype)
+  table[urows] = (table[urows].float() - lr * (mn / bc1) / (
+      torch.sqrt(vn / bc2) + eps)).to(table.dtype)
   return table, m, v
 
 
@@ -276,9 +296,9 @@ def adam_update_sorted(table: torch.Tensor, m: torch.Tensor,
   in the list do not decay. Returns ``(table, m, v)``.
 
   Args:
-    table, m, v: float32 ``[V, d]``, contiguous.
+    table, m, v: float32 or bfloat16 (one dtype) ``[V, d]``, contiguous.
     rows: int32 ``[N]`` ascending; entries ``< 0`` or ``>= V`` skipped.
-    updates: ``[N, d]`` gradients.
+    updates: ``[N, d]`` gradients, rounded to the table's dtype.
     lr: a float or a 0-d float32 tensor, read on the device.
     step: the 1-based step count for bias correction, a number or a 0-d
       tensor, read on the device.
@@ -289,12 +309,12 @@ def adam_update_sorted(table: torch.Tensor, m: torch.Tensor,
                                         step, b1, b2, eps)
   device = _launch_target('adam_update_sorted', table, m, v)
   rows = rows.contiguous()
-  updates = updates.to(torch.float32).contiguous()
+  updates = updates.to(table.dtype).contiguous()
   lr_t = _device_scalar(lr, device)
   step_t = _device_scalar(step, device)
   # 1 - b1 and 1 - b2 rounded from Python floats, as the plain version
   # and the JAX package's XLA path (``_adam_rows``) round them.
-  _launch(adam_update_sorted, 'adam_update',
+  _launch(adam_update_sorted, 'adam_update', table.dtype,
           (ctypes.c_void_p,) * 7 + (ctypes.c_float,) * 5 + (
               ctypes.c_int64, ctypes.c_int64) + (ctypes.c_int,) * 3,
           device, table.data_ptr(), m.data_ptr(), v.data_ptr(),
@@ -362,7 +382,7 @@ def gsum_dense_sorted(rows: torch.Tensor, updates: torch.Tensor,
   block_rows, chunk = gsum_blocking(
       vocab, updates.shape[1],
       torch.cuda.get_device_properties(device).multi_processor_count)
-  _launch(gsum_dense_sorted, 'gsum_dense',
+  _launch(gsum_dense_sorted, 'gsum_dense', torch.float32,
           (ctypes.c_void_p,) * 3 + (ctypes.c_int64, ctypes.c_int64)
           + (ctypes.c_int,) * 3,
           device, out.data_ptr(), rows.data_ptr(), updates.data_ptr(),

@@ -11,6 +11,11 @@ updated in place: the tables and accumulators by the sparse update, the
 tower by its optimizer. The step returns the same state object.
 ``state.step`` counts steps on the host; LazyAdam's 1-based bias-correction
 step is written to the device with the update, never read back.
+
+The step follows the tables' dtype (``TableConfig.dtype``, float32 or
+bfloat16): a bfloat16 table is looked up as bfloat16, the f32 tower
+promotes its embeddings, their gradients come back as bfloat16, and the
+table's slots, made ``*_like(table)``, are bfloat16 too.
 """
 
 from __future__ import annotations
