@@ -10,13 +10,15 @@ It builds the port's CUDA kernels from ``hybridbackend_tpu_torch/ops/csrc``
 step, ``benchmarks/train_benchmark.py --sparse`` with its defaults: 26
 tables of [100000, 16] stacked into one [2600000, 16] table, batch 8192
 with 13 dense features, BCE loss, Adam 1e-3 on the tower, ids shifted by
-one per step; in three variants:
+one per step; with f32 tables, and then bf16 tables and slots (the JAX
+harness's ``--table-dtype bfloat16``); in these variants:
   * DCNv2 (429x429 cross layer, MLP 1024-512-256-1) with row-sparse
     Adagrad 0.05 on the table, with and without duplicate combining;
   * DLRM (``--model dlrm``: bottom MLP 512-256, dot interaction of 27
     features of 16, top MLP 1024-512-1) with LazyAdam 0.05 on the table;
   * DCNv2 with the dense-split Adagrad update (``table_split_dense=True``,
-    the JAX option ``emb_update_split_dense='on'``).
+    the JAX option ``emb_update_split_dense='on'``);
+  * DCNv2 with bf16 matmul operands (the JAX harness's ``--bf16``).
 Weights are random, drawn from a fixed seed.
 
 Phases; any failure raises and the script exits nonzero:
@@ -35,7 +37,13 @@ Phases; any failure raises and the script exits nonzero:
      LazyAdam and dense-totals kernels at full width on an edge list
      (runs across and longer than a tile), with the gradients and then
      the table and slots one float into their storage, against the plain
-     versions on the CPU copy;
+     versions on the CPU copy; then the bf16 storage mode of the Adagrad
+     (both modes), LazyAdam and add kernels at the flagship list against
+     their plain versions on the CPU copy (at most 1 bf16 ulp an element,
+     the count that differ printed), with their times and bounds, the
+     bf16 split-dense update bitwise against the fused one, and the bf16
+     modes on edge lists (d = 16 aligned, gradients and then table and
+     slots one bf16 into their storage; d = 5; rows too wide to stage);
   2. one full-width DCNv2 + Adagrad step on the GPU against the CPU;
   3. that step timed on the card; the Adagrad kernel must have been
      launched once per step;
@@ -46,7 +54,19 @@ Phases; any failure raises and the script exits nonzero:
   7. one full-width DCNv2 step with the dense-split Adagrad update, GPU
      vs CPU; the dense row-totals kernel launched once, the fused
      Adagrad kernel never;
-  8. that step timed on the card, with the same launch counts per step.
+  8. that step timed on the card, with the same launch counts per step;
+  9. one full-width DCNv2 + Adagrad step with bf16 tables, GPU vs CPU;
+ 10. that step timed; the Adagrad kernel launched once per step;
+ 11. one full-width DCNv2 + no-dedup Adagrad step with bf16 tables, GPU
+     vs CPU;
+ 12. one full-width DLRM + LazyAdam step with bf16 tables, GPU vs CPU;
+ 13. that step timed; the LazyAdam kernel launched once per step;
+ 14. one full-width DCNv2 + split-dense Adagrad step with bf16 tables,
+     GPU vs CPU;
+ 15. one full-width DCNv2 step with bf16 matmul operands, GPU vs CPU;
+ 16. one run of the port's harness, ``python -m
+     hybridbackend_tpu_torch.benchmarks.train_benchmark --sparse
+     --table-dtype bfloat16 --json``, whose JSON line is printed.
 With ``--profile`` it then traces 10 steps of each timed variant with
 ``torch.profiler`` and prints device time per step by kernel class. With
 ``--tune`` phase 1 also times the add kernel over tile sizes, the
@@ -97,10 +117,22 @@ KERNELS = {
     'gather_rows': (f'{CSRC}/gather_rows.cu', f'{PALLAS}/gather.py:51'),
     'stochastic_round_bf16': (f'{CSRC}/stochastic_round.cu',
                               f'{PALLAS}/cast.py:27'),
+    # The bf16 storage mode of kernels 1-3: bf16 table, slots, gradients.
+    'adagrad_update_sorted[bf16]': (f'{CSRC}/adagrad_update.cu',
+                                    f'{PALLAS}/scatter.py:534'),
+    'adagrad_update_sorted[bf16,dedup=False]': (f'{CSRC}/adagrad_update.cu',
+                                                f'{PALLAS}/scatter.py:534'),
+    'adam_update_sorted[bf16]': (f'{CSRC}/adam_update.cu',
+                                 f'{PALLAS}/scatter.py:749'),
+    'scatter_add_sorted[bf16]': (f'{CSRC}/scatter_add.cu',
+                                 f'{PALLAS}/scatter.py:429'),
 }
 # The rows of the kernels that hold state rows in registers.
 STATE_KERNELS = ('adagrad_update_sorted',
-                 'adagrad_update_sorted[dedup=False]', 'adam_update_sorted')
+                 'adagrad_update_sorted[dedup=False]', 'adam_update_sorted',
+                 'adagrad_update_sorted[bf16]',
+                 'adagrad_update_sorted[bf16,dedup=False]',
+                 'adam_update_sorted[bf16]')
 # The wrappers that count their launches.
 COUNTED = ('adagrad_update_sorted', 'scatter_add_sorted', 'adam_update_sorted',
            'gsum_dense_sorted', 'gather_rows', 'stochastic_round_bf16')
@@ -257,17 +289,18 @@ def phase0_environment():
 
 
 def _blocks_per_sm(name, d, tile, batch):
-  """Blocks of ``name``'s 16-byte-lane kernel that one SM holds at once
+  """Blocks of ``name``'s 4-element-lane kernel that one SM holds at once
   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
   from hybridbackend_tpu_torch.ops import build
   blocks = ctypes.c_int()
+  bf16 = int('bf16' in name)
   if name.startswith('adagrad'):
     lib = build.load('adagrad_update').lib
     fn = lib.hb_adagrad_update_sorted_blocks_per_sm
-    args = (d, tile, batch, int('dedup=False' not in name))
+    args = (d, tile, batch, int('dedup=False' not in name), bf16)
   else:
     fn = build.load('adam_update').lib.hb_adam_update_sorted_blocks_per_sm
-    args = (d, tile, batch)
+    args = (d, tile, batch, bf16)
   fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
   fn.restype = ctypes.c_int
   err = fn(*args, ctypes.byref(blocks))
@@ -440,6 +473,8 @@ def phase1_kernels(cfg: Flagship, dev: torch.device, tune: bool = False):
   out.update(phase1_gather(cfg, dev, inputs))
   out.update(phase1_round(cfg, dev, inputs))
   phase1_edges(cfg, dev, inputs)
+  out.update(phase1_bf16(cfg, dev, inputs))
+  phase1_edges_bf16(cfg, dev, inputs)
   if tune:
     phase1_tune(cfg, dev, inputs)
   return out
@@ -537,6 +572,254 @@ def phase1_edges(cfg: Flagship, dev: torch.device, inp):
         '1e-5), untouched rows of every array bitwise: '
         + ', '.join(f'{name} {e:.3e}' for name, e in errs.items())
         + '; gsum_dense_sorted bitwise equal')
+
+
+def _ulps_apart(got, want):
+  """Per element, how many bf16 values lie between two bf16 tensors: the
+  sign-magnitude bits mapped onto one integer line."""
+  def line(x):
+    bits = x.contiguous().view(torch.int16).to(torch.int32)
+    return torch.where(bits < 0, -(bits & 0x7fff), bits)
+  return (line(got) - line(want)).abs()
+
+
+def _within_an_ulp(label, got, want, atol=1e-6, share=0.01):
+  """Fails unless every element of the bf16 ``got`` is at most 1 bf16 ulp
+  from ``want`` or within ``atol`` of it (a result that cancels to near 0
+  keeps the f32 order error of its terms, where a bf16 ulp is far
+  smaller), and at most ``share`` of them differ at all. Returns
+  ``(elements that differ, max abs difference)``."""
+  got, want = got.cpu(), want.cpu()
+  ulps = _ulps_apart(got, want)
+  diff = (got.float() - want.float()).abs()
+  far = (ulps > 1) & (diff > atol)
+  differ = int((ulps > 0).sum())
+  if bool(far.any()) or differ > share * ulps.numel():
+    raise AssertionError(
+        f'{label}: {int(far.sum())} elements more than 1 bf16 ulp and '
+        f'{atol} apart, {differ} of {ulps.numel()} differ (max abs '
+        f'{float(diff.max())})')
+  return differ, float(diff.max())
+
+
+def phase1_bf16(cfg: Flagship, dev: torch.device, inp):
+  """The bf16 storage mode of kernels 1 (both modes), 3 and 2 at the
+  flagship update list: table, slots and gradients rounded to bf16; each
+  kernel against its plain version on the CPU copy (the same f32 math in
+  the same order, rounded once: at most 1 bf16 ulp, ``_within_an_ulp``),
+  untouched rows bitwise; then timed with its plain version on the card;
+  then the split-dense update against the fused one on bf16 state,
+  through the entry point, bitwise."""
+  import hybridbackend_tpu_torch as hbt
+  rows, g, valid = inp['rows'], inp['g'].bfloat16(), inp['valid']
+  v, d = inp['table0'].shape
+  n, u = rows.shape[0], int(torch.unique(rows[valid]).numel())
+  lr, step = inp['lr'], inp['step']
+  bf = {k: inp[k].bfloat16() for k in ('table0', 'acc0', 'm0', 'v0')}
+  cpu = {k: t.cpu() for k, t in bf.items()}
+  rows_c, g_c = rows.cpu(), g.cpu()
+  untouched = torch.ones(v, dtype=torch.bool)
+  untouched[rows_c[valid.cpu()].long()] = False
+  # Bytes: the list (rows, then 2-byte gradients) read once; each distinct
+  # row of the table and of each slot (2 bytes an element) read and
+  # written once.
+  list_bytes = n * 4 + n * d * 2
+  raw_g = inp['raw_g'].bfloat16()
+  print(f'phase 1, bf16 storage: the flagship list ({n} rows, {u} distinct, '
+        f'gradients rounded to bf16) on [{v}, {d}] bf16 table and slots; '
+        'each kernel against its plain version on the CPU copy: at most 1 '
+        'bf16 ulp an element (or 1e-6 where a result cancels to near 0), '
+        'at most 1% of the elements apart, untouched rows bitwise')
+  # name -> (wrapper call, plain version, state keys, operations, path)
+  def adagrad(dedup):
+    return (lambda t, a, r, x: hbt.adagrad_update_sorted(t, a, r, x, lr,
+                                                         dedup=dedup),
+            lambda t, a, r, x: hbt.adagrad_update_sorted_reference(
+                t, a, r, x, lr, dedup=dedup), ('table0', 'acc0'),
+            n * d * (1 if dedup else 3) + 7 * u * d,
+            lambda t, a: hbt.sparse_adagrad_apply(
+                t, hbt.SparseOptState(acc=(a,)), inp['raw_ids'], raw_g,
+                inp['stacked'], lr, dedup=dedup))
+  kernels = {
+      'adagrad_update_sorted[bf16]': adagrad(True),
+      'adagrad_update_sorted[bf16,dedup=False]': adagrad(False),
+      'adam_update_sorted[bf16]': (
+          lambda t, m, w, r, x: hbt.adam_update_sorted(t, m, w, r, x, lr,
+                                                       step),
+          lambda t, m, w, r, x: hbt.adam_update_sorted_reference(
+              t, m, w, r, x, lr, step), ('table0', 'm0', 'v0'),
+          n * d + 15 * u * d,
+          lambda t, m, w: hbt.sparse_adam_apply(
+              t, hbt.SparseOptState(acc=(m, w)), inp['raw_ids'], raw_g,
+              inp['stacked'], lr, step)),
+      'scatter_add_sorted[bf16]': (
+          hbt.scatter_add_sorted, hbt.scatter_add_sorted_reference,
+          ('table0',), n * d + u * d, None),
+  }
+  out = {}
+  for name, (kernel, plain, keys, ops, path) in kernels.items():
+    x = g * -cfg.table_lr if name.startswith('scatter') else g
+    got = [bf[k].clone() for k in keys]
+    kernel(*got, rows, x)
+    want = [cpu[k].clone() for k in keys]
+    plain(*want, rows_c, x.cpu())
+    torch.cuda.synchronize()
+    differ, err = 0, 0.0
+    for key, a, w in zip(keys, got, want):
+      atol = 1e-6
+      k_differ, k_err = _within_an_ulp(f'{name} {key}', a, w, atol=atol)
+      differ, err = differ + k_differ, max(err, k_err)
+      if not torch.equal(a.cpu()[untouched], cpu[key][untouched]):
+        raise AssertionError(f'{name} changed rows of {key} the list does '
+                             'not hold')
+    ms = _median_ms(lambda: kernel(*got, rows, x))
+    ref = [bf[k].clone() for k in keys]
+    plain_ms = _median_ms(lambda: plain(*ref, rows, x), queued=False)
+    row = dict(max_abs_err=err, elements_differ=differ, ms=ms,
+               plain_ms=plain_ms, library_ms=None,
+               **_bound(list_bytes + 2 * len(keys) * u * d * 2, ops))
+    extra = ''
+    if path is not None:
+      row['path_ms'] = _median_ms(lambda: path(*got))
+      extra = f'; sort+gather+kernel {row["path_ms"]:.4f} ms'
+    else:
+      # The entry point, with the launch counts read around it.
+      ts = bf['table0'].clone()
+      _reset_counts()
+      hbt.sparse_sgd_apply(ts, inp['raw_ids'], raw_g, inp['stacked'],
+                           cfg.table_lr)
+      torch.cuda.synchronize()
+      _expect('sparse_sgd_apply on a bf16 table', _counts(),
+              scatter_add_sorted=1)
+      row['launches'] = 1
+      _within_an_ulp('sparse_sgd_apply on a bf16 table', ts,
+                     hbt.scatter_add_sorted_reference(
+                         cpu['table0'].clone(), rows_c, x.cpu()))
+      extra = '; sparse_sgd_apply 1 launch a call'
+    out[name] = row
+    print(f'  {name}: {differ} elements differ from the plain version (max '
+          f'abs {err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms'
+          f'{extra}; ' + _against_bound(row))
+
+  # The split-dense update against the fused one on bf16 state: the same
+  # f32 totals and apply, rounded once; bitwise.
+  args = (inp['raw_ids'], raw_g, inp['stacked'], lr)
+  fused_t, split_t = bf['table0'].clone(), bf['table0'].clone()
+  fused_s = hbt.SparseOptState(acc=(bf['acc0'].clone(),))
+  split_s = hbt.SparseOptState(acc=(bf['acc0'].clone(),))
+  hbt.sparse_adagrad_apply(fused_t, fused_s, *args)
+  hbt.sparse_adagrad_apply(split_t, split_s, *args, split_dense=True)
+  torch.cuda.synchronize()
+  bitwise = (torch.equal(split_t, fused_t)
+             and torch.equal(split_s.acc[0], fused_s.acc[0]))
+  if not bitwise:
+    raise AssertionError('the bf16 split-dense update differs from the fused '
+                         f'one in {int((split_t != fused_t).sum())} table and '
+                         f'{int((split_s.acc[0] != fused_s.acc[0]).sum())} '
+                         'acc elements')
+  split_ms = _median_ms(lambda: hbt.sparse_adagrad_apply(
+      split_t, split_s, *args, split_dense=True), iters=10)
+  out['adagrad_update_sorted[bf16]']['split_bitwise'] = bitwise
+  print(f'  split-dense update vs fused on bf16 state: bitwise equal: '
+        f'{bitwise}; update path split {split_ms:.4f} ms, fused '
+        f'{out["adagrad_update_sorted[bf16]"]["path_ms"]:.4f} ms')
+  return out
+
+
+def _edge_list(v, d, n_tiles, seed):
+  """A sorted list of ``n_tiles`` tiles of ``scatter.tile_entries(d)``
+  and one entry on ``[v, d]``: a run across a tile boundary, a run longer
+  than a tile, 5 tiles of entries on 300 neighbouring rows, 7 ``-1`` and
+  9 ``>= v`` entries; rows and N(0, 1) f32 gradients on the CPU."""
+  from hybridbackend_tpu_torch.ops import scatter
+  tile = scatter.tile_entries(d)
+  n = n_tiles * tile + 1
+  rng = np.random.RandomState(seed)
+  rows = np.sort(rng.randint(0, v, n))
+  rows[tile - 3:tile + 3] = rows[tile - 3]    # a run across a boundary
+  start = 5 * tile + tile // 2                # a run longer than a tile
+  rows[start:start + 3 * tile + 5] = rows[start]
+  start = 20 * tile
+  rows[start:start + 5 * tile] = rows[start] + np.sort(
+      rng.randint(0, 300, 5 * tile))
+  rows[:7], rows[-9:] = -1, v + 2
+  assert (np.diff(rows) >= 0).all()
+  return (torch.from_numpy(rows.astype(np.int32)),
+          torch.from_numpy(rng.randn(n, d).astype(np.float32)), tile)
+
+
+def phase1_edges_bf16(cfg: Flagship, dev: torch.device, inp):
+  """The bf16 modes of kernels 1 (both modes), 2 and 3 on edge lists
+  against the plain versions on the CPU copy: the full-width edge list at
+  d = 16 (16-byte rows of 8-byte lanes, gradients staged) aligned, with
+  the gradients one bf16 into their storage (8-byte lanes, plain loads)
+  and with the table and slots one bf16 into theirs (scalar lanes); an
+  edge list at d = 5 (scalar lanes, plain loads); and rows of 8192 bf16,
+  whose 16-entry tile is too wide to stage."""
+  import hybridbackend_tpu_torch as hbt
+  lr, step = cfg.table_lr, 3
+  kernels = {
+      'adagrad_update_sorted[bf16]': (
+          lambda t, a, r, x: hbt.adagrad_update_sorted(t, a, r, x, lr), 2),
+      'adagrad_update_sorted[bf16,dedup=False]': (
+          lambda t, a, r, x: hbt.adagrad_update_sorted(t, a, r, x, lr,
+                                                       dedup=False), 2),
+      'scatter_add_sorted[bf16]': (hbt.scatter_add_sorted, 1),
+      'adam_update_sorted[bf16]': (
+          lambda t, m, w, r, x: hbt.adam_update_sorted(t, m, w, r, x, lr,
+                                                       step), 3),
+  }
+  gen = torch.Generator().manual_seed(cfg.seed + 8)
+  v, d = inp['table0'].shape
+  flagship = {k: inp[k].cpu().bfloat16() for k in ('table0', 'acc0', 'm0',
+                                                    'v0')}
+  rows, g, tile = _edge_list(v, d, 40, cfg.seed + 7)
+  cases = [(f'd = {d} aligned', rows, g.bfloat16(), flagship, 0, 0),
+           (f'd = {d}, gradients one bf16 into their storage', rows,
+            g.bfloat16(), flagship, 1, 0),
+           (f'd = {d}, table and slots one bf16 into theirs', rows,
+            g.bfloat16(), flagship, 0, 1)]
+  for label, vv, dd in (('d = 5', 100_000, 5),
+                        ('rows of 8192, too wide to stage', 64, 8192)):
+    if dd == 5:
+      r, x, _ = _edge_list(vv, dd, 40, cfg.seed + dd)
+    else:
+      r = torch.randint(-1, vv + 2, (40,), generator=gen,
+                        dtype=torch.int32).sort().values
+      x = torch.randn(40, dd, generator=gen)
+    state = {'table0': torch.rand(vv, dd, generator=gen) - 0.5,
+             'acc0': torch.full((vv, dd), 0.1),
+             'm0': torch.randn(vv, dd, generator=gen) * 1e-3,
+             'v0': torch.rand(vv, dd, generator=gen) * 1e-4}
+    cases.append((label, r, x.bfloat16(), {k: t.bfloat16()
+                                           for k, t in state.items()}, 0, 0))
+  keys = ('table0', 'acc0', 'm0', 'v0')
+  counts = collections.defaultdict(int)
+  for label, r, x, state, g_shift, state_shift in cases:
+    vv = state['table0'].shape[0]
+    untouched = torch.ones(vv, dtype=torch.bool)
+    untouched[r[(r >= 0) & (r < vv)].long()] = False
+    x_dev, r_dev = _at_offset(x, g_shift, dev), r.to(dev)
+    for name, (kernel, arrays) in kernels.items():
+      use = (keys[0],) + (keys[1:2] if arrays == 2 else keys[2:4]
+                          if arrays == 3 else ())
+      got = [_at_offset(state[k], state_shift, dev) for k in use]
+      want = [state[k].clone() for k in use]
+      kernel(*got, r_dev, x_dev)
+      kernel(*want, r, x)
+      for key, a, w in zip(use, got, want):
+        differ, _ = _within_an_ulp(f'{name} on the edge list ({label}) {key}',
+                                   a, w)
+        counts[name] += differ
+        if not torch.equal(a.cpu()[untouched], state[key][untouched]):
+          raise AssertionError(f'{name} on the edge list ({label}) changed '
+                               f'rows of {key} the list does not hold')
+      del got
+  print(f'  bf16 edge lists ({"; ".join(c[0] for c in cases)}; the first '
+        f'three of {rows.shape[0]} rows, 40 tiles of {tile} and one entry), '
+        'against the plain versions on the CPU, at most 1 bf16 ulp, '
+        'untouched rows bitwise; elements that differ over all of them: '
+        + ', '.join(f'{name} {c}' for name, c in counts.items()))
 
 
 def phase1_tune(cfg: Flagship, dev: torch.device, inp):
@@ -757,12 +1040,17 @@ def _bce(p, batch):
 
 
 def _setup(cfg: Flagship, dev: torch.device, model: str, optimizer: str,
-           dedup: bool = True, split: bool = False):
+           dedup: bool = True, split: bool = False,
+           table_dtype: torch.dtype = torch.float32,
+           compute_dtype: torch.dtype = None):
   """Feature extractor, state and step on ``dev``; the weights are drawn
-  on the CPU from ``cfg.seed``, so every device starts from one state."""
+  on the CPU from ``cfg.seed``, so every device starts from one state.
+  ``table_dtype`` is the tables' and slots' storage; ``compute_dtype``
+  the tower's matmul operands (``Dense``)."""
   import hybridbackend_tpu_torch as hbt
   ctx = hbt.Context(dev)
-  specs = [hbt.EmbeddingSpec(hbt.TableConfig(f'c{i}', cfg.vocab, cfg.dim))
+  specs = [hbt.EmbeddingSpec(hbt.TableConfig(f'c{i}', cfg.vocab, cfg.dim,
+                                             dtype=table_dtype))
            for i in range(cfg.tables)]
   fx = hbt.StackedFeatureExtractor(
       specs, dense_columns=[f'i{d}' for d in range(cfg.dense)], ctx=ctx)
@@ -770,11 +1058,13 @@ def _setup(cfg: Flagship, dev: torch.device, model: str, optimizer: str,
   tables = fx.init(gen)
   if model == 'dcnv2':
     tower = hbt.StackedDCNv2([cfg.dim] * cfg.tables + [1] * cfg.dense,
-                             list(cfg.mlp), generator=gen, device=dev)
+                             list(cfg.mlp), compute_dtype=compute_dtype,
+                             generator=gen, device=dev)
     loss = lambda t, emb_f, dense_f, b: _bce(t(emb_f + dense_f), b)
   else:
     tower = hbt.DLRM(cfg.dense, cfg.tables, list(cfg.bottom_mlp), cfg.dim,
-                     list(cfg.top_mlp), generator=gen, device=dev)
+                     list(cfg.top_mlp), compute_dtype=compute_dtype,
+                     generator=gen, device=dev)
     loss = lambda t, emb_f, dense_f, b: _bce(t(dense_f, emb_f), b)
   state = hbt.SparseTrainState.create(
       tower, tables, functools.partial(torch.optim.Adam, lr=cfg.dense_lr),
@@ -811,13 +1101,16 @@ def _close(got, want, rtol, atol_of_max):
 
 
 def gpu_vs_cpu(cfg: Flagship, dev: torch.device, label: str, model: str,
-               optimizer: str, dedup: bool = True, split: bool = False):
+               optimizer: str, dedup: bool = True, split: bool = False,
+               table_dtype: torch.dtype = torch.float32,
+               compute_dtype: torch.dtype = None):
   """One full-width step on the GPU against the same step on the CPU.
   Returns the GPU state and step, to go on from, and the kernel launches
   of the GPU step."""
   cpu = torch.device('cpu')
-  gstate, gstep = _setup(cfg, dev, model, optimizer, dedup, split)
-  cstate, cstep = _setup(cfg, cpu, model, optimizer, dedup, split)
+  variant = (model, optimizer, dedup, split, table_dtype, compute_dtype)
+  gstate, gstep = _setup(cfg, dev, *variant)
+  cstate, cstep = _setup(cfg, cpu, *variant)
   _reset_counts()
   gstate, gm = gstep(gstate, _base_batch(cfg, dev))
   torch.cuda.synchronize()
@@ -825,8 +1118,12 @@ def gpu_vs_cpu(cfg: Flagship, dev: torch.device, label: str, model: str,
   cstate, cm = cstep(cstate, _base_batch(cfg, cpu))
   gloss, closs = float(gm['loss']), float(cm['loss'])
   # The loss comes from one forward pass of the same state: f32 matmul
-  # sums in another order on the card, about 1e-6 relative.
-  if not abs(gloss - closs) <= 1e-4 * abs(closs):
+  # sums in another order on the card, about 1e-6 relative. With bf16
+  # matmul operands a layer's f32 output within that order error of a bf16
+  # rounding boundary feeds the next layer a value one bf16 ulp (2**-8
+  # relative) away; 1e-3 covers a few such values in the mean.
+  loss_rtol = 1e-4 if compute_dtype is None else 1e-3
+  if not abs(gloss - closs) <= loss_rtol * abs(closs):
     raise AssertionError(f'{label}: loss {gloss} on the GPU, {closs} on '
                          'the CPU')
   report = {'loss_rel_err': abs(gloss - closs) / abs(closs)}
@@ -837,7 +1134,18 @@ def gpu_vs_cpu(cfg: Flagship, dev: torch.device, label: str, model: str,
            **{k: (g, c) for k, g, c in slots}}
   for key, (g, c) in pairs.items():
     g = g.cpu()
-    report[f'{key}_max_abs_err'] = float((g - c).abs().max())
+    report[f'{key}_max_abs_err'] = float((g.float() - c.float()).abs().max())
+    if table_dtype == torch.bfloat16:
+      # bf16 tables, slots and gradients: the tower's f32 order moves an
+      # embedding gradient across a bf16 rounding boundary now and then,
+      # which moves a stored value by one bf16 ulp. At most 1 ulp, or
+      # where a value cancels to near 0 1e-6 (an f32 order error); a
+      # LazyAdam table 1e-4: its first step lr*s/(|s|+eps) moves by up to
+      # lr*2**-8/4 = 4.9e-5 when s moves by one bf16 ulp.
+      atol = 1e-4 if (optimizer, key) == ('adam', 'table') else 1e-6
+      report[f'{key}_elems_differ'], _ = _within_an_ulp(
+          f'{label}: {key}', g, c, atol=atol)
+      continue
     if optimizer == 'adagrad':
       # Table and acc move by 0.05*g/sqrt(0.1+g^2) and g^2 with g ~ 1e-4,
       # so the gradients' order error stays far below 1e-5.
@@ -860,6 +1168,9 @@ def gpu_vs_cpu(cfg: Flagship, dev: torch.device, label: str, model: str,
   # lr*1e-10/1e-8 = 1e-5 in its weight. 1e-4 leaves a tenfold margin.
   gp = {n: p.detach().cpu() for n, p in gstate.dense.named_parameters()}
   cp = {n: p.detach() for n, p in cstate.dense.named_parameters()}
+  # With bf16 matmul operands the weight gradients are rounded to bf16,
+  # so one may sit a bf16 ulp away; Adam's first step lr*g/(|g|+eps)
+  # then moves by at most lr*2**-8/4 = 1e-6, and the 1e-4 stands.
   report['tower_max_abs_err'] = max(float((gp[n] - cp[n]).abs().max())
                                     for n in gp)
   for n in gp:
@@ -958,6 +1269,28 @@ def profile(cfg: Flagship, dev: torch.device, label: str, state, step,
           f'{counts[key]:.1f} ops/step: {key}')
 
 
+def harness(smi):
+  """Phase 16: the port's train-step harness at its defaults with bf16
+  tables, as a user runs it, in a process of its own; its JSON line is
+  printed. Its Adagrad kernel must have been launched once per timed
+  step, and no other counted kernel."""
+  cmd = [sys.executable, '-m', 'hybridbackend_tpu_torch.benchmarks.'
+         'train_benchmark', '--sparse', '--table-dtype', 'bfloat16', '--json']
+  out = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                       timeout=600)
+  if out.returncode != 0:
+    raise RuntimeError(f'{" ".join(cmd[1:])} failed:\n{out.stderr}')
+  line = out.stdout.strip().splitlines()[-1]
+  report = json.loads(line)
+  want = {name: 0 for name in COUNTED}
+  want['adagrad_update_sorted'] = report['timed_steps']
+  if report['kernel_launches'] != want or report['card'] != smi:
+    raise AssertionError(f'the harness launched {report["kernel_launches"]} '
+                         f'on {report["card"]}; expected {want} on {smi}')
+  print(f'phase 16 (python -m {cmd[2]} --sparse --table-dtype bfloat16 '
+        f'--json): {line}')
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--profile', action='store_true',
@@ -1009,10 +1342,49 @@ def main() -> int:
       cfg, dev, 'phase 8 (DCNv2 + split-dense Adagrad flagship)', state,
       split_step, smi, 'gsum_dense_sorted')
   k['gsum_dense_sorted']['launches'] = launches
+  bf16 = dict(table_dtype=torch.bfloat16)
+  state, step, counts = gpu_vs_cpu(
+      cfg, dev, 'phase 9 (DCNv2 + Adagrad, bf16 tables)', 'dcnv2', 'adagrad',
+      **bf16)
+  _expect('DCNv2 + Adagrad step, bf16 tables', counts,
+          adagrad_update_sorted=1)
+  dcn16_state, launches = timed(
+      cfg, dev, 'phase 10 (DCNv2 + Adagrad flagship, bf16 tables)', state,
+      step, smi, 'adagrad_update_sorted')
+  k['adagrad_update_sorted[bf16]']['launches'] = launches
+  dcn16_step = step
+  _, _, counts = gpu_vs_cpu(
+      cfg, dev, 'phase 11 (DCNv2 + no-dedup Adagrad, bf16 tables)', 'dcnv2',
+      'adagrad', dedup=False, **bf16)
+  _expect('no-dedup step, bf16 tables', counts, adagrad_update_sorted=1)
+  k['adagrad_update_sorted[bf16,dedup=False]']['launches'] = counts[
+      'adagrad_update_sorted']
+  state, dlrm16_step, counts = gpu_vs_cpu(
+      cfg, dev, 'phase 12 (DLRM + LazyAdam, bf16 tables)', 'dlrm', 'adam',
+      **bf16)
+  _expect('LazyAdam step, bf16 tables', counts, adam_update_sorted=1)
+  dlrm16_state, launches = timed(
+      cfg, dev, 'phase 13 (DLRM + LazyAdam flagship, bf16 tables)', state,
+      dlrm16_step, smi, 'adam_update_sorted')
+  k['adam_update_sorted[bf16]']['launches'] = launches
+  _, _, counts = gpu_vs_cpu(
+      cfg, dev, 'phase 14 (DCNv2 + split-dense Adagrad, bf16 tables)',
+      'dcnv2', 'adagrad', split=True, **bf16)
+  _expect('split-dense step, bf16 tables', counts, gsum_dense_sorted=1)
+  _, _, counts = gpu_vs_cpu(
+      cfg, dev, 'phase 15 (DCNv2 + Adagrad, bf16 matmul operands)', 'dcnv2',
+      'adagrad', compute_dtype=torch.bfloat16)
+  _expect('DCNv2 step with bf16 matmul operands', counts,
+          adagrad_update_sorted=1)
+  harness(smi)
   if args.profile:
     profile(cfg, dev, 'DCNv2 + Adagrad', dcn_state, dcn_step)
     profile(cfg, dev, 'DLRM + LazyAdam', dlrm_state, dlrm_step)
     profile(cfg, dev, 'DCNv2 + split-dense Adagrad', split_state, split_step)
+    profile(cfg, dev, 'DCNv2 + Adagrad, bf16 tables', dcn16_state,
+            dcn16_step)
+    profile(cfg, dev, 'DLRM + LazyAdam, bf16 tables', dlrm16_state,
+            dlrm16_step)
 
   rows = []
   for name, (source, replaces) in KERNELS.items():

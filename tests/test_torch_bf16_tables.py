@@ -25,7 +25,7 @@ operands (``ops/pallas/scatter.py``, ``_scatter_kernel``).
 Tolerances. The two sides sum a row's gradients in different f32 orders
 (list order here, a one-hot matmul in Pallas), so a stored value may sit
 on the other side of a bf16 rounding boundary: tables and slots are held
-to at most 1 bf16 ulp per element (``_ulps``) or, where a result cancels
+to at most 1 bf16 ulp per element (``ulps_apart``) or, where a result cancels
 to near zero, 1e-6 absolute (the f32 order error of its terms), and the
 share of elements that differ at all is bounded in each test (1% for
 the kernels, 0.5% in the steps). In the steps the tower's f32 matmuls
@@ -67,36 +67,13 @@ from hybridbackend_tpu.training.sparse_step import (
     make_sparse_train_step as jax_make_sparse_train_step)
 
 import hybridbackend_tpu_torch as hbt
-from test_torch_cuda import HARD_LISTS, HARD_LIST_IDS, hard_list, hard_slots
+from test_torch_cuda import (HARD_LISTS, HARD_LIST_IDS, assert_within_an_ulp,
+                             hard_list, hard_slots, ulps_apart)
 
 LR, EPS, STEP = 0.05, 1e-7, 3
 PALLAS = dict(block_rows=2048, chunk=256, interpret=True)
 PALLAS_LISTS = ('random-d16', 'boundary-d16', 'long-d16', 'cancel')
 BF16 = torch.bfloat16
-
-
-def _ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
-  """Per element, how many bf16 values lie between ``got`` and ``want``
-  (both bf16): the sign-magnitude bits mapped onto one integer line."""
-  def line(x):
-    bits = x.contiguous().view(torch.int16).to(torch.int32)
-    return torch.where(bits < 0, -(bits & 0x7fff), bits)
-  return (line(got) - line(want)).abs()
-
-
-def _assert_within_an_ulp(got, want, share, atol=1e-6):
-  """Each element at most 1 bf16 ulp from ``want``, or within ``atol`` of
-  it (a result that cancels to near 0, as ``b1·m + (1-b1)·s`` can, keeps
-  the f32 order error of its terms at a magnitude where a bf16 ulp is
-  far smaller); and at most ``share`` of the elements apart at all."""
-  ulps = _ulps(got, want)
-  near = (got.float() - want.float()).abs() <= atol
-  far = (ulps > 1) & ~near
-  assert not bool(far.any()), (
-      f'{int(far.sum())} elements more than 1 ulp and {atol} apart, up to '
-      f'{float((got.float() - want.float()).abs().max())}')
-  differ = float((ulps > 0).float().mean())
-  assert differ <= share, f'{differ:.2%} of the elements differ'
 
 
 def _bf16_state(spec, slots):
@@ -145,7 +122,7 @@ def test_bf16_plain_versions_match_pallas(name, kernel):
                                   **PALLAS)
   for x, w, before in zip(got, want, state):
     assert x.dtype == BF16 and np.asarray(w).dtype.name == 'bfloat16'
-    _assert_within_an_ulp(x, _torch(w), share=0.01)
+    assert_within_an_ulp(x, _torch(w), share=0.01)
     assert _moved(before, x, rows, v) >= 0.5
     untouched = np.setdiff1d(np.arange(v), rows.numpy())
     assert torch.equal(x[untouched], before[untouched])
@@ -202,7 +179,7 @@ def test_bf16_nodedup_diverges_from_the_xla_path():
                            dedup=False)
   touched = np.unique(ids)
   for got, want in ((t, want_t), (st.acc[0], want_s.acc[0])):
-    ulps = _ulps(got, _torch(want).reshape(-1, d))[touched]
+    ulps = ulps_apart(got, _torch(want).reshape(-1, d))[touched]
     assert float((ulps > 0).float().mean()) >= 0.25
   assert int(ulps.max()) <= 4
 
@@ -374,7 +351,7 @@ def test_bf16_sparse_step_matches_jax_stream(case):
         state.table_opt[name].acc, want.table_opt[name].acc))
     for k, (got, w) in enumerate(pairs):
       assert got.dtype == BF16
-      _assert_within_an_ulp(got, _torch(w).reshape(-1, DIM), share=0.005,
+      assert_within_an_ulp(got, _torch(w).reshape(-1, DIM), share=0.005,
                             atol=table_atol if k == 0 else 1e-6)
     for layer, p in zip(_tower_layers(state.dense), _jax_layers(want.dense)):
       np.testing.assert_allclose(layer.w.detach().numpy(), p['w'],

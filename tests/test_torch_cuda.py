@@ -16,6 +16,14 @@ update kernels run on the hard update lists (``HARD_LISTS``) that the CPU
 tests also hold the plain versions on. The
 dense row totals (the same adds in the same order), the row gather (a
 copy) and the stochastic round (the same Philox bits) are held bitwise.
+
+The bf16 modes of the add, Adagrad (both modes) and LazyAdam kernels
+(bf16 table, slots and gradients) are held to the CPU plain versions on
+the same hard lists, laid out in bf16, and at the flagship update list:
+each element at most 1 bf16 ulp apart, or 1e-6 apart where a result
+cancels to near zero, and at most 1% of the elements apart at all
+(``assert_within_an_ulp``): the same f32 math in the same order rounds to
+the same bf16 except where ``powf`` and ``pow`` differ in an f32 ulp.
 """
 
 import numpy as np
@@ -66,9 +74,12 @@ HARD_LISTS = _hard_list_specs()
 HARD_LIST_IDS = [spec[0] for spec in HARD_LISTS]
 
 
-def hard_list(spec, device='cpu'):
+def hard_list(spec, device='cpu', dtype=torch.float32):
   """``(v, d, n, rows, updates, table)`` of one spec, as tensors on
-  ``device``; ``rows`` ascending. The same numbers on every device."""
+  ``device``; ``rows`` ascending. The same numbers on every device.
+  ``dtype`` rounds the updates and the table to it before the spec's
+  view is taken (a float view is then one element of ``dtype`` into the
+  updates' storage)."""
   name, v, d, n, kind, view = spec
   rng = np.random.RandomState(sum(map(ord, name)))
   tile = scatter.tile_entries(d)
@@ -97,7 +108,8 @@ def hard_list(spec, device='cpu'):
     if (hi - lo) % 2:
       g[hi - 1] = 0.0
   table = torch.from_numpy(rng.uniform(-1, 1, (v, d)).astype(np.float32))
-  rows_t, g_t = torch.from_numpy(rows), torch.from_numpy(g)
+  table = table.to(dtype)
+  rows_t, g_t = torch.from_numpy(rows), torch.from_numpy(g).to(dtype)
   if view == 'entry':
     rows_t = torch.cat([rows_t[:1], rows_t]).to(device)[1:]
     g_t = torch.cat([g_t[:1], g_t]).to(device)[1:]
@@ -121,6 +133,60 @@ def hard_slots(spec, table):
   v = (rng.rand(*table.shape) * 0.5).astype(np.float32)
   return (torch.from_numpy(m).to(table.device),
           torch.from_numpy(v).to(table.device))
+
+
+def ulps_apart(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+  """Per element, how many bf16 values lie between ``got`` and ``want``
+  (both bf16, one device): the sign-magnitude bits mapped onto one
+  integer line."""
+  def line(x):
+    bits = x.contiguous().view(torch.int16).to(torch.int32)
+    return torch.where(bits < 0, -(bits & 0x7fff), bits)
+  return (line(got) - line(want)).abs()
+
+
+def assert_within_an_ulp(got, want, share, atol=1e-6):
+  """Each element at most 1 bf16 ulp from ``want``, or within ``atol`` of
+  it (a result that cancels to near 0, as ``b1·m + (1-b1)·s`` can, keeps
+  the f32 order error of its terms at a magnitude where a bf16 ulp is far
+  smaller); at most ``share`` of the elements apart at all. Returns the
+  number of elements apart."""
+  ulps = ulps_apart(got, want)
+  near = (got.float() - want.float()).abs() <= atol
+  far = (ulps > 1) & ~near
+  assert not bool(far.any()), (
+      f'{int(far.sum())} elements more than 1 ulp and {atol} apart, up to '
+      f'{float((got.float() - want.float()).abs().max())}')
+  differ = int((ulps > 0).sum())
+  assert differ <= share * max(ulps.numel(), 1), (
+      f'{differ} of {ulps.numel()} elements differ')
+  return differ
+
+
+def update_state(kernel, spec, table):
+  """``[table, *slots]`` of an update kernel (``'add'``, ``'adagrad'``,
+  ``'nodedup'`` or ``'adam'``) for a hard list, in the table's dtype and
+  on its device: Adagrad's accumulator 0.1, LazyAdam's ``hard_slots``."""
+  if kernel == 'add':
+    return [table]
+  if kernel == 'adam':
+    return [table] + [s.to(table.dtype) for s in hard_slots(
+        spec, table.float())]
+  return [table, torch.full_like(table, 0.1)]
+
+
+def run_update(kernel, state, rows, g, lr=0.05, step=3):
+  """Runs one update kernel's wrapper on ``state`` in place (the kernel on
+  a CUDA tensor, the plain version on a CPU one)."""
+  if kernel == 'add':
+    hbt.scatter_add_sorted(*state, rows, g)
+  elif kernel == 'adam':
+    hbt.adam_update_sorted(*state, rows, g, lr, step)
+  else:
+    hbt.adagrad_update_sorted(*state, rows, g, lr, dedup=kernel == 'adagrad')
+
+
+UPDATE_KERNELS = ['add', 'adagrad', 'nodedup', 'adam']
 
 
 @pytest.fixture
@@ -635,3 +701,101 @@ def test_split_dense_step_runs_the_gsum_kernel_on_the_card(dev):
   assert (hbt.gsum_dense_sorted.launches,
           hbt.adagrad_update_sorted.launches) == (before[0] + 3, before[1])
   assert torch.isfinite(m['loss'])
+
+
+# The bf16 modes of kernels 1-3: bf16 table, slots and gradients.
+@pytest.mark.parametrize('kernel', UPDATE_KERNELS)
+@pytest.mark.parametrize('spec', HARD_LISTS, ids=HARD_LIST_IDS)
+def test_bf16_update_kernels_on_the_hard_lists(dev, spec, kernel):
+  v, d, n, rows, g, table = hard_list(spec, dev, torch.bfloat16)
+  state = update_state(kernel, spec, table)
+  got = [t.clone() for t in state]
+  counter = {'add': hbt.scatter_add_sorted,
+             'adam': hbt.adam_update_sorted}.get(kernel,
+                                                 hbt.adagrad_update_sorted)
+  before = counter.launches
+  run_update(kernel, got, rows, g)
+  assert counter.launches == before + 1
+  want = [t.cpu() for t in state]
+  run_update(kernel, want, rows.cpu(), g.cpu())
+  for x, w in zip(got, want):
+    assert x.dtype == torch.bfloat16
+    assert_within_an_ulp(x.cpu(), w, share=0.01)
+  _assert_untouched(rows, v, list(zip(got, state)))
+
+
+@pytest.mark.parametrize('kernel', ['adagrad', 'nodedup', 'adam'])
+@pytest.mark.parametrize('name', ['random-d4', 'boundary-d16', 'long-d16'])
+def test_bf16_update_kernels_take_state_one_element_into_its_storage(
+    dev, name, kernel):
+  """bf16 table and slots start 2 bytes into their storage: scalar
+  lanes, while the gradients are still staged (d = 16) or read in 8-byte
+  lanes (d = 4)."""
+  spec = HARD_LISTS[HARD_LIST_IDS.index(name)]
+  v, d, n, rows, g, table = hard_list(spec, dev, torch.bfloat16)
+  state = update_state(kernel, spec, table)
+  shifted = [torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(v, d)
+             for t in state]
+  want = [t.cpu() for t in state]
+  run_update(kernel, shifted, rows, g)
+  run_update(kernel, want, rows.cpu(), g.cpu())
+  for x, w in zip(shifted, want):
+    assert_within_an_ulp(x.cpu(), w, share=0.01)
+  _assert_untouched(rows, v, list(zip(shifted, state)))
+
+
+@pytest.mark.parametrize('kernel', UPDATE_KERNELS)
+def test_bf16_update_kernels_take_a_row_too_wide_to_stage(dev, kernel):
+  """120000 bf16 a row: a tile of 16 entries exceeds shared memory, so
+  the kernel reads the gradients from global memory."""
+  v, d, n = 7, 120000, 40
+  gen = torch.Generator().manual_seed(d)
+  rows = torch.randint(-1, v + 2, (n,), generator=gen,
+                       dtype=torch.int32).sort().values
+  g = torch.randn(n, d, generator=gen).bfloat16()
+  state = [torch.rand(v, d, generator=gen).bfloat16() for _ in range(3)]
+  state = state[:{'add': 1, 'adam': 3}.get(kernel, 2)]
+  got = [t.to(dev, copy=True) for t in state]
+  run_update(kernel, got, rows.to(dev), g.to(dev))
+  run_update(kernel, state, rows, g)
+  for x, w in zip(got, state):
+    assert_within_an_ulp(x.cpu(), w, share=0.01)
+
+
+def flagship_list(seed=0):
+  """The update list of one flagship step (``chip_smoke.py``): 26 tables
+  of 100000 rows stacked, batch 8192, plus 1000 ``-1`` and 1000 ``>= V``
+  ids, sorted, with N(0, 0.01) gradients; ``(v, rows, grads)`` on the
+  CPU."""
+  rng = np.random.RandomState(seed)
+  tables, vocab, batch, d = 26, 100_000, 8192, 16
+  ids = np.stack([rng.randint(0, vocab, batch) + t * vocab
+                  for t in range(tables)], axis=1).reshape(-1)
+  v, n = tables * vocab, ids.shape[0]
+  ids[rng.choice(n, 1000, replace=False)] = -1
+  ids[rng.choice(n, 1000, replace=False)] = v + rng.randint(0, 5000, 1000)
+  rows, order = torch.sort(torch.from_numpy(ids.astype(np.int32)),
+                           stable=True)
+  g = torch.from_numpy((rng.randn(n, d) * 0.01).astype(np.float32))
+  return v, rows, g.index_select(0, order)
+
+
+@pytest.mark.parametrize('kernel', UPDATE_KERNELS)
+def test_bf16_update_kernels_at_the_flagship_list(dev, kernel):
+  v, rows, g = flagship_list()
+  gen = torch.Generator().manual_seed(1)
+  table = (torch.rand(v, 16, generator=gen) * 0.5 - 0.25).bfloat16()
+  state = [table]
+  if kernel == 'adam':
+    state += [(torch.randn(v, 16, generator=gen) * 1e-3).bfloat16(),
+              (torch.rand(v, 16, generator=gen) * 1e-4).bfloat16()]
+  elif kernel != 'add':
+    state.append(torch.full_like(table, 0.1))
+  g = g.bfloat16()
+  got = [t.to(dev, copy=True) for t in state]
+  run_update(kernel, got, rows.to(dev), g.to(dev))
+  want = [t.clone() for t in state]
+  run_update(kernel, want, rows, g)
+  for x, w in zip(got, want):
+    assert_within_an_ulp(x.cpu(), w, share=0.01)
+  _assert_untouched(rows, v, [(x.cpu(), t) for x, t in zip(got, state)])

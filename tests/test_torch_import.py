@@ -13,6 +13,7 @@ def test_import_leaves_jax_out():
   code = textwrap.dedent("""
       import sys
       import hybridbackend_tpu_torch
+      import hybridbackend_tpu_torch.benchmarks.train_benchmark
       bad = sorted(m for m in sys.modules
                    if m == 'jax' or m.startswith('jax.')
                    or m == 'hybridbackend_tpu'
