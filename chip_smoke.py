@@ -19,7 +19,10 @@ harness's ``--table-dtype bfloat16``); in these variants:
   * DCNv2 with the dense-split Adagrad update (``table_split_dense=True``,
     the JAX option ``emb_update_split_dense='on'``);
   * DCNv2 with bf16 matmul operands (the JAX harness's ``--bf16``).
-Weights are random, drawn from a fixed seed.
+Weights are random, drawn from a fixed seed. The config, its state and
+step, the batch and the timing of a window of steps are the port's
+harness's (``hybridbackend_tpu_torch/benchmarks/train_benchmark.py``), so
+the timed phases and the harness time the same thing.
 
 Phases; any failure raises and the script exits nonzero:
   0. the card (nvidia-smi), torch/CUDA/nvcc versions, the kernel builds
@@ -87,7 +90,6 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
-import dataclasses
 import functools
 import json
 import os
@@ -98,6 +100,8 @@ import time
 
 import numpy as np
 import torch
+
+from hybridbackend_tpu_torch.benchmarks import train_benchmark as tb
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = 'hybridbackend_tpu_torch/ops/csrc'
@@ -133,9 +137,6 @@ STATE_KERNELS = ('adagrad_update_sorted',
                  'adagrad_update_sorted[bf16]',
                  'adagrad_update_sorted[bf16,dedup=False]',
                  'adam_update_sorted[bf16]')
-# The wrappers that count their launches.
-COUNTED = ('adagrad_update_sorted', 'scatter_add_sorted', 'adam_update_sorted',
-           'gsum_dense_sorted', 'gather_rows', 'stochastic_round_bf16')
 # NVIDIA H100 SXM peaks (data sheet): HBM3 bytes/s and f32 FLOP/s outside
 # the tensor cores. Integer work (the Philox rounds) is counted at half
 # the f32 rate, the SM's 64 INT32 lanes against 128 FP32 lanes.
@@ -145,37 +146,26 @@ INT32_OPS_PER_S = F32_OPS_PER_S / 2
 L2_FLUSH_BYTES = 256 * 2**20
 
 
-@dataclasses.dataclass(frozen=True)
-class Flagship:
-  """``benchmarks/train_benchmark.py --sparse`` with its defaults."""
-  tables: int = 26
-  vocab: int = 100_000
-  dim: int = 16
-  dense: int = 13
-  batch: int = 8192
-  mlp: tuple = (1024, 512, 256, 1)          # DCNv2
-  bottom_mlp: tuple = (512, 256)            # DLRM
-  top_mlp: tuple = (1024, 512, 1)           # DLRM
-  table_lr: float = 0.05
-  adagrad_init: float = 0.1
-  dense_lr: float = 1e-3
-  seed: int = 0
+def flagship(*flags: str) -> argparse.Namespace:
+  """The port's harness's flags for ``--sparse`` with its defaults (the
+  JAX harness's) and ``flags``: the flagship config and its variants."""
+  return tb.parse_args(['--sparse', *flags])
 
 
 def _counts():
   import hybridbackend_tpu_torch as hbt
-  return {name: getattr(hbt, name).launches for name in COUNTED}
+  return {name: getattr(hbt, name).launches for name in tb.COUNTED}
 
 
 def _reset_counts():
   import hybridbackend_tpu_torch as hbt
-  for name in COUNTED:
+  for name in tb.COUNTED:
     getattr(hbt, name).launches = 0
 
 
 def _expect(label, counts, **want):
   """Fails unless ``counts`` are ``want`` and every other count is 0."""
-  want = {name: want.get(name, 0) for name in COUNTED}
+  want = {name: want.get(name, 0) for name in tb.COUNTED}
   if counts != want:
     raise AssertionError(f'{label}: kernel launches {counts}, expected '
                          f'{want}')
@@ -279,7 +269,7 @@ def phase0_environment():
       if 'registers' in line or 'spill' in line:
         print(f'    ptxas: {line.strip()}')
   from hybridbackend_tpu_torch.ops import scatter
-  d = Flagship.dim
+  d = flagship().dim
   tile, batch = scatter.tile_entries(d), scatter.STATE_BATCH
   print(f'resident blocks per SM (256 threads each) at d = {d}, tiles of '
         f'{tile} entries, state batch {batch}: ' + ', '.join(
@@ -309,7 +299,8 @@ def _blocks_per_sm(name, d, tile, batch):
   return blocks.value
 
 
-def _update_list(cfg: Flagship, step: int, rng: np.random.RandomState):
+def _update_list(cfg: argparse.Namespace, step: int,
+                 rng: np.random.RandomState):
   """The stacked update list of one flagship step (ids drawn as in
   ``train_benchmark.py:147-167``), plus 1000 ``-1`` and 1000 ``>= V``
   rows, and N(0, 0.01) gradients."""
@@ -352,20 +343,21 @@ def _against_bound(m):
           f'{m["ms"] / m["bound_ms"]:.2f}x it')
 
 
-def phase1_kernels(cfg: Flagship, dev: torch.device, tune: bool = False):
+def phase1_kernels(cfg: argparse.Namespace, dev: torch.device,
+                   tune: bool = False):
   import hybridbackend_tpu_torch as hbt
   v = cfg.tables * cfg.vocab
-  rng = np.random.RandomState(cfg.seed)
+  rng = np.random.RandomState(tb.SEED)
   ids, grads = _update_list(cfg, 3, rng)
   rows, order = torch.sort(torch.from_numpy(ids).to(dev), stable=True)
   g = torch.from_numpy(grads).to(dev).index_select(0, order)
-  gen = torch.Generator().manual_seed(cfg.seed)
+  gen = torch.Generator().manual_seed(tb.SEED)
   table0 = hbt.default_initializer(gen, (v, cfg.dim)).to(dev)
-  acc0 = torch.full_like(table0, cfg.adagrad_init)
+  acc0 = torch.full_like(table0, tb.ADAGRAD_INIT)
   # Moments as after some steps with N(0, 0.01) gradients.
   m0 = (torch.randn(v, cfg.dim, generator=gen) * 1e-3).to(dev)
   v0 = (torch.rand(v, cfg.dim, generator=gen) * 1e-4).to(dev)
-  lr = torch.full((), cfg.table_lr, device=dev)
+  lr = torch.full((), tb.TABLE_LR, device=dev)
   step = torch.full((), 3.0, device=dev)
   n_touched = int(torch.unique(rows[(rows >= 0) & (rows < v)]).numel())
   print(f'phase 1: update list of {ids.shape[0]} rows, {n_touched} '
@@ -408,7 +400,7 @@ def phase1_kernels(cfg: Flagship, dev: torch.device, tune: bool = False):
           + _against_bound(out[name]))
 
   # The add kernel, as sparse_sgd_apply drives it: -lr·g summed per row.
-  scaled = g * -cfg.table_lr
+  scaled = g * -tb.TABLE_LR
   err, (tk,) = _hold('scatter_add_sorted', (table0,), rows,
                      lambda t: hbt.scatter_add_sorted(t, rows, scaled),
                      lambda t: hbt.scatter_add_sorted_reference(
@@ -427,7 +419,7 @@ def phase1_kernels(cfg: Flagship, dev: torch.device, tune: bool = False):
   # the launch counts read around it, then timed.
   ts = table0.clone()
   _reset_counts()
-  hbt.sparse_sgd_apply(ts, raw_ids, raw_g, stacked, cfg.table_lr)
+  hbt.sparse_sgd_apply(ts, raw_ids, raw_g, stacked, tb.TABLE_LR)
   torch.cuda.synchronize()
   _expect('sparse_sgd_apply', _counts(), scatter_add_sorted=1)
   launches = 1
@@ -435,7 +427,7 @@ def phase1_kernels(cfg: Flagship, dev: torch.device, tune: bool = False):
   if not torch.allclose(ts, want, rtol=1e-5, atol=1e-5):
     raise AssertionError('sparse_sgd_apply differs from the plain version')
   path_ms = _median_ms(lambda: hbt.sparse_sgd_apply(
-      ts, raw_ids, raw_g, stacked, cfg.table_lr), iters=10)
+      ts, raw_ids, raw_g, stacked, tb.TABLE_LR), iters=10)
   out['scatter_add_sorted'] = dict(
       max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
       launches=launches, path_ms=path_ms,
@@ -488,7 +480,7 @@ def _at_offset(t, k, dev):
   return flat[k:].view(t.shape)
 
 
-def phase1_edges(cfg: Flagship, dev: torch.device, inp):
+def phase1_edges(cfg: argparse.Namespace, dev: torch.device, inp):
   """Kernels 1 (both modes), 2, 3 and 4 at full width on a list built to
   hit the edges of their tiles (all four cut the list by
   ``scatter.tile_entries``), against the plain versions on the CPU copy
@@ -500,7 +492,7 @@ def phase1_edges(cfg: Flagship, dev: torch.device, inp):
   v, d = inp['table0'].shape
   tile = scatter.tile_entries(d)
   n = 40 * tile + 1                           # one more than whole tiles
-  rng = np.random.RandomState(cfg.seed + 7)
+  rng = np.random.RandomState(tb.SEED + 7)
   rows = np.sort(rng.randint(0, v, n))
   rows[tile - 3:tile + 3] = rows[tile - 3]    # a run across a boundary
   start = 5 * tile + tile // 2                # a run longer than a tile
@@ -514,7 +506,7 @@ def phase1_edges(cfg: Flagship, dev: torch.device, inp):
   assert (np.diff(rows) >= 0).all()
   rows = torch.from_numpy(rows.astype(np.int32))
   g = torch.from_numpy(rng.randn(n, d).astype(np.float32))
-  lr, step = cfg.table_lr, 3
+  lr, step = tb.TABLE_LR, 3
   state = {k: inp[k].cpu() for k in ('table0', 'acc0', 'm0', 'v0')}
   # name -> (kernel, plain version, state it updates)
   kernels = {
@@ -607,7 +599,7 @@ def _within_an_ulp(label, got, want, atol=1e-6, share=0.01, moved=None,
   return differ, float(diff.max())
 
 
-def phase1_bf16(cfg: Flagship, dev: torch.device, inp):
+def phase1_bf16(cfg: argparse.Namespace, dev: torch.device, inp):
   """The bf16 storage mode of kernels 1 (both modes), 3 and 2 at the
   flagship update list: table, slots and gradients rounded to bf16; each
   kernel against its plain version on the CPU copy (the same f32 math in
@@ -667,7 +659,7 @@ def phase1_bf16(cfg: Flagship, dev: torch.device, inp):
   }
   out = {}
   for name, (kernel, plain, keys, ops, path) in kernels.items():
-    x = g * -cfg.table_lr if name.startswith('scatter') else g
+    x = g * -tb.TABLE_LR if name.startswith('scatter') else g
     got = [bf[k].clone() for k in keys]
     kernel(*got, rows, x)
     want = [cpu[k].clone() for k in keys]
@@ -695,7 +687,7 @@ def phase1_bf16(cfg: Flagship, dev: torch.device, inp):
       ts = bf['table0'].clone()
       _reset_counts()
       hbt.sparse_sgd_apply(ts, inp['raw_ids'], raw_g, inp['stacked'],
-                           cfg.table_lr)
+                           tb.TABLE_LR)
       torch.cuda.synchronize()
       _expect('sparse_sgd_apply on a bf16 table', _counts(),
               scatter_add_sorted=1)
@@ -756,7 +748,7 @@ def _edge_list(v, d, n_tiles, seed):
           torch.from_numpy(rng.randn(n, d).astype(np.float32)), tile)
 
 
-def phase1_edges_bf16(cfg: Flagship, dev: torch.device, inp):
+def phase1_edges_bf16(cfg: argparse.Namespace, dev: torch.device, inp):
   """The bf16 modes of kernels 1 (both modes), 2 and 3 on edge lists
   against the plain versions on the CPU copy: the full-width edge list at
   d = 16 (16-byte rows of 8-byte lanes, gradients staged) aligned, with
@@ -765,7 +757,7 @@ def phase1_edges_bf16(cfg: Flagship, dev: torch.device, inp):
   edge list at d = 5 (scalar lanes, plain loads); and rows of 8192 bf16,
   whose 16-entry tile is too wide to stage."""
   import hybridbackend_tpu_torch as hbt
-  lr, step = cfg.table_lr, 3
+  lr, step = tb.TABLE_LR, 3
   kernels = {
       'adagrad_update_sorted[bf16]': (
           lambda t, a, r, x: hbt.adagrad_update_sorted(t, a, r, x, lr), 2),
@@ -777,11 +769,11 @@ def phase1_edges_bf16(cfg: Flagship, dev: torch.device, inp):
           lambda t, m, w, r, x: hbt.adam_update_sorted(t, m, w, r, x, lr,
                                                        step), 3),
   }
-  gen = torch.Generator().manual_seed(cfg.seed + 8)
+  gen = torch.Generator().manual_seed(tb.SEED + 8)
   v, d = inp['table0'].shape
   flagship = {k: inp[k].cpu().bfloat16() for k in ('table0', 'acc0', 'm0',
                                                     'v0')}
-  rows, g, tile = _edge_list(v, d, 40, cfg.seed + 7)
+  rows, g, tile = _edge_list(v, d, 40, tb.SEED + 7)
   cases = [(f'd = {d} aligned', rows, g.bfloat16(), flagship, 0, 0),
            (f'd = {d}, gradients one bf16 into their storage', rows,
             g.bfloat16(), flagship, 1, 0),
@@ -790,7 +782,7 @@ def phase1_edges_bf16(cfg: Flagship, dev: torch.device, inp):
   for label, vv, dd in (('d = 5', 100_000, 5),
                         ('rows of 8192, too wide to stage', 64, 8192)):
     if dd == 5:
-      r, x, _ = _edge_list(vv, dd, 40, cfg.seed + dd)
+      r, x, _ = _edge_list(vv, dd, 40, tb.SEED + dd)
     else:
       r = torch.randint(-1, vv + 2, (40,), generator=gen,
                         dtype=torch.int32).sort().values
@@ -830,7 +822,7 @@ def phase1_edges_bf16(cfg: Flagship, dev: torch.device, inp):
         + ', '.join(f'{name} {c}' for name, c in counts.items()))
 
 
-def phase1_tune(cfg: Flagship, dev: torch.device, inp):
+def phase1_tune(cfg: argparse.Namespace, dev: torch.device, inp):
   """Kernel 2 over tile sizes, kernel 4 over block and chunk sizes, and
   kernels 1 (both modes) and 3 over tile sizes and state batches, at the
   flagship list; each sweep forth and back."""
@@ -884,7 +876,7 @@ def phase1_tune(cfg: Flagship, dev: torch.device, inp):
   scatter.TILE_ENTRIES, scatter.TILE_BYTES, scatter.STATE_BATCH = saved
 
 
-def phase1_gsum(cfg: Flagship, dev: torch.device, inp, fused):
+def phase1_gsum(cfg: argparse.Namespace, dev: torch.device, inp, fused):
   """Kernel 4 against its plain version, and the split-dense update
   against the fused one, at the flagship update list."""
   import hybridbackend_tpu_torch as hbt
@@ -956,13 +948,13 @@ def phase1_gsum(cfg: Flagship, dev: torch.device, inp, fused):
       **bound)}
 
 
-def phase1_gather(cfg: Flagship, dev: torch.device, inp):
+def phase1_gather(cfg: argparse.Namespace, dev: torch.device, inp):
   """Kernel 5 bitwise against its plain version at the flagship lookup
   (the update list's ids, -1 and >= V among them, into the stacked
   table) and at the TPU kernel's measured shape, [100000, 128] f32 with
   16384 random ids; then once more with the counts read around it."""
   import hybridbackend_tpu_torch as hbt
-  gen = torch.Generator().manual_seed(cfg.seed + 5)
+  gen = torch.Generator().manual_seed(tb.SEED + 5)
   wide = torch.rand(100_000, 128, generator=gen).to(dev)
   wide_ids = torch.randint(0, 100_000, (16384,), generator=gen,
                            dtype=torch.int32).to(dev)
@@ -997,14 +989,14 @@ def phase1_gather(cfg: Flagship, dev: torch.device, inp):
   return res
 
 
-def phase1_round(cfg: Flagship, dev: torch.device, inp):
+def phase1_round(cfg: argparse.Namespace, dev: torch.device, inp):
   """Kernel 6 on the flagship gradients, bitwise against its plain
   version for one seed; every output is its input truncated to bf16 or
   one bf16 ulp above that in magnitude. Then once through
   ``stochastic_round_bf16`` with the counts read around it."""
   import hybridbackend_tpu_torch as hbt
   x = inp['raw_g']
-  gen = torch.Generator().manual_seed(cfg.seed + 6)
+  gen = torch.Generator().manual_seed(tb.SEED + 6)
   seed = hbt.draw_seed(torch.Generator().set_state(gen.get_state()))
   got = hbt.stochastic_round_bf16(x, gen)
   want = hbt.stochastic_round_bf16_reference(x, seed)
@@ -1041,96 +1033,37 @@ def phase1_round(cfg: Flagship, dev: torch.device, inp):
       launches=counts['stochastic_round_bf16'], **bound)}
 
 
-def _bce(p, batch):
-  p = torch.clamp(p, 1e-6, 1 - 1e-6)
-  y = batch['label']
-  return -torch.mean(y * torch.log(p) + (1 - y) * torch.log(1 - p)), {}
-
-
-def _setup(cfg: Flagship, dev: torch.device, model: str, optimizer: str,
-           dedup: bool = True, split: bool = False,
-           table_dtype: torch.dtype = torch.float32,
-           compute_dtype: torch.dtype = None):
-  """Feature extractor, state and step on ``dev``; the weights are drawn
-  on the CPU from ``cfg.seed``, so every device starts from one state.
-  ``table_dtype`` is the tables' and slots' storage; ``compute_dtype``
-  the tower's matmul operands (``Dense``)."""
-  import hybridbackend_tpu_torch as hbt
-  ctx = hbt.Context(dev)
-  specs = [hbt.EmbeddingSpec(hbt.TableConfig(f'c{i}', cfg.vocab, cfg.dim,
-                                             dtype=table_dtype))
-           for i in range(cfg.tables)]
-  fx = hbt.StackedFeatureExtractor(
-      specs, dense_columns=[f'i{d}' for d in range(cfg.dense)], ctx=ctx)
-  gen = torch.Generator().manual_seed(cfg.seed)
-  tables = fx.init(gen)
-  if model == 'dcnv2':
-    tower = hbt.StackedDCNv2([cfg.dim] * cfg.tables + [1] * cfg.dense,
-                             list(cfg.mlp), compute_dtype=compute_dtype,
-                             generator=gen, device=dev)
-    loss = lambda t, emb_f, dense_f, b: _bce(t(emb_f + dense_f), b)
-  else:
-    tower = hbt.DLRM(cfg.dense, cfg.tables, list(cfg.bottom_mlp), cfg.dim,
-                     list(cfg.top_mlp), compute_dtype=compute_dtype,
-                     generator=gen, device=dev)
-    loss = lambda t, emb_f, dense_f, b: _bce(t(dense_f, emb_f), b)
-  state = hbt.SparseTrainState.create(
-      tower, tables, functools.partial(torch.optim.Adam, lr=cfg.dense_lr),
-      adagrad_init=cfg.adagrad_init, adam=optimizer == 'adam')
-  step = hbt.make_sparse_train_step(fx, loss, table_lr=cfg.table_lr,
-                                    table_dedup=dedup,
-                                    table_optimizer=optimizer,
-                                    table_split_dense=split)
-  return state, step
-
-
-def _base_batch(cfg: Flagship, dev: torch.device):
-  rng = np.random.RandomState(cfg.seed + 1)
-  batch = {f'c{i}': rng.randint(0, cfg.vocab, cfg.batch).astype(np.int32)
-           for i in range(cfg.tables)}
-  batch.update({f'i{d}': rng.rand(cfg.batch).astype(np.float32)
-                for d in range(cfg.dense)})
-  batch['label'] = rng.randint(0, 2, cfg.batch).astype(np.float32)
-  return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-
-
-def _shifted(cfg: Flagship, base, step: int):
-  """``train_benchmark.py:167``: every step shifts the ids by one."""
-  batch = dict(base)
-  for i in range(cfg.tables):
-    batch[f'c{i}'] = (base[f'c{i}'] + step) % cfg.vocab
-  return batch
-
-
 def _close(got, want, rtol, atol_of_max):
   """``allclose`` with ``atol`` a share of the reference's largest value."""
   return torch.allclose(got, want, rtol=rtol,
                         atol=atol_of_max * float(want.abs().max()))
 
 
-def gpu_vs_cpu(cfg: Flagship, dev: torch.device, label: str, model: str,
-               optimizer: str, dedup: bool = True, split: bool = False,
-               table_dtype: torch.dtype = torch.float32,
-               compute_dtype: torch.dtype = None):
-  """One full-width step on the GPU against the same step on the CPU.
-  Returns the GPU state and step, to go on from, and the kernel launches
-  of the GPU step."""
+def gpu_vs_cpu(dev: torch.device, label: str, flags=(),
+               optimizer: str = 'adagrad', split: bool = False):
+  """One full-width step of the flagship config with the harness's
+  ``flags`` on the GPU against the same step on the CPU, on the batch
+  drawn from seed 1. Returns the GPU state and step, to go on from, and
+  the kernel launches of the GPU step."""
   cpu = torch.device('cpu')
-  variant = (model, optimizer, dedup, split, table_dtype, compute_dtype)
-  gstate, gstep = _setup(cfg, dev, *variant)
-  cstate, cstep = _setup(cfg, cpu, *variant)
+  args = flagship(*flags)
+  bf16_tables = args.table_dtype == 'bfloat16'
+  gstate, gstep = tb.build(args, dev, optimizer, split)
+  cstate, cstep = tb.build(args, cpu, optimizer, split)
+  batch = {d: tb.shifted(*tb.make_batch(args, d, tb.SEED + 1), args.vocab, 0)
+           for d in (dev, cpu)}
   _reset_counts()
-  gstate, gm = gstep(gstate, _base_batch(cfg, dev))
+  gstate, gm = gstep(gstate, batch[dev])
   torch.cuda.synchronize()
   launches = _counts()
-  cstate, cm = cstep(cstate, _base_batch(cfg, cpu))
+  cstate, cm = cstep(cstate, batch[cpu])
   gloss, closs = float(gm['loss']), float(cm['loss'])
   # The loss comes from one forward pass of the same state: f32 matmul
   # sums in another order on the card, about 1e-6 relative. With bf16
   # matmul operands a layer's f32 output within that order error of a bf16
   # rounding boundary feeds the next layer a value one bf16 ulp (2**-8
   # relative) away; 1e-3 covers a few such values in the mean.
-  loss_rtol = 1e-4 if compute_dtype is None else 1e-3
+  loss_rtol = 1e-3 if args.bf16 else 1e-4
   if not abs(gloss - closs) <= loss_rtol * abs(closs):
     raise AssertionError(f'{label}: loss {gloss} on the GPU, {closs} on '
                          'the CPU')
@@ -1143,7 +1076,7 @@ def gpu_vs_cpu(cfg: Flagship, dev: torch.device, label: str, model: str,
   for key, (g, c) in pairs.items():
     g = g.cpu()
     report[f'{key}_max_abs_err'] = float((g.float() - c.float()).abs().max())
-    if table_dtype == torch.bfloat16:
+    if bf16_tables:
       # bf16 tables, slots and gradients: the tower's f32 order moves an
       # embedding gradient across a bf16 rounding boundary now and then,
       # which moves a stored value by one bf16 ulp. At most 1 ulp, or
@@ -1167,7 +1100,7 @@ def gpu_vs_cpu(cfg: Flagship, dev: torch.device, label: str, model: str,
         atol = 2**-5 * float(c.float().abs().max())
       report[f'{key}_elems_differ'], _ = _within_an_ulp(
           f'{label}: {key}', g, c, atol=atol, moved=moved,
-          moved_atol=2.2 * cfg.table_lr)
+          moved_atol=2.2 * tb.TABLE_LR)
       continue
     if optimizer == 'adagrad':
       # Table and acc move by 0.05*g/sqrt(0.1+g^2) and g^2 with g ~ 1e-4,
@@ -1197,13 +1130,16 @@ def gpu_vs_cpu(cfg: Flagship, dev: torch.device, label: str, model: str,
   # gradient.
   # Adam's first step moves a weight by lr*g/(|g|+1e-8): a 1e-10
   # difference in g moves it by at most 1e-5, so weights are held to
-  # 1e-4, except where g is so near zero (within 10 times the gradient's
-  # allowance) that the two devices may give it either sign: those may
-  # move up to 2*lr apart (2.2*lr with rounding), and are counted.
+  # rtol = atol = 1e-4. With f32 tables and matmul operands the gradients
+  # agree to about 1e-5 of their largest and that holds every weight.
+  # With bf16 tables or operands they agree less well, and where the
+  # gradient allowance exceeds |g| the two devices may give g either
+  # sign: those weights may move up to 2*lr apart (2.2*lr with rounding),
+  # and are counted.
   gparams = dict(gstate.dense.named_parameters())
   cp = dict(cstate.dense.named_parameters())
   group = cstate.dense_opt.param_groups[0]
-  g_atol_of_max = 1e-3 if compute_dtype is None else 2**-5
+  g_atol_of_max = 2**-5 if args.bf16 else 1e-3
 
   def grad(state, p):
     return (state.dense_opt.state[p]['exp_avg'] / (1 - group['betas'][0])
@@ -1212,22 +1148,25 @@ def gpu_vs_cpu(cfg: Flagship, dev: torch.device, label: str, model: str,
   report['tower_max_abs_err'] = max(
       float((gparams[n].detach().cpu() - cp[n].detach()).abs().max())
       for n in cp)
-  grad_err, near_zero_far = 0.0, 0
+  grad_err, grad_err_param, either_sign_far = -1.0, None, 0
   for n in cp:
     gg, cg = grad(gstate, gparams[n]), grad(cstate, cp[n])
-    g_atol = g_atol_of_max * float(cg.abs().max())
+    allowance = 1e-3 * cg.abs() + g_atol_of_max * float(cg.abs().max())
     g_diff = (gg - cg).abs()
-    grad_err = max(grad_err, float(g_diff.max()) / float(cg.abs().max()))
-    if bool((g_diff > 1e-3 * cg.abs() + g_atol).any()):
+    if float(g_diff.max()) / float(cg.abs().max()) > grad_err:
+      grad_err = float(g_diff.max()) / float(cg.abs().max())
+      grad_err_param = n
+    if bool((g_diff > allowance).any()):
       raise AssertionError(f'{label}: tower gradient of {n} differs by up to '
                            f'{float(g_diff.max())}, largest '
                            f'{float(cg.abs().max())}: {report}')
     want = cp[n].detach()
     diff = (gparams[n].detach().cpu() - want).abs()
-    far = diff > 1e-4 + 1e-4 * want.abs()
-    near_zero = cg.abs() <= 10 * g_atol
-    near_zero_far += int((far & near_zero).sum())
-    bad = far & ~(near_zero & (diff <= 2.2 * group['lr']))
+    bad = diff > 1e-4 + 1e-4 * want.abs()
+    if bf16_tables or args.bf16:
+      either_sign = cg.abs() <= allowance
+      either_sign_far += int((bad & either_sign).sum())
+      bad &= ~(either_sign & (diff <= 2.2 * group['lr']))
     if bool(bad.any()):
       i = int(torch.argmax(torch.where(bad, diff, 0).flatten()))
       raise AssertionError(
@@ -1236,43 +1175,36 @@ def gpu_vs_cpu(cfg: Flagship, dev: torch.device, label: str, model: str,
           f'{float(gg.flatten()[i])} on the card and '
           f'{float(cg.flatten()[i])} on the CPU: {report}')
   report['tower_grad_err_of_max'] = grad_err
-  if near_zero_far:
-    report['tower_far_where_grad_near_0'] = near_zero_far
+  report['tower_grad_err_in'] = grad_err_param
+  if either_sign_far:
+    report['tower_far_where_grad_either_sign'] = either_sign_far
   print(f'{label}: one full-width step, GPU vs CPU: '
         + ', '.join(f'{k} {v:.3e}' if isinstance(v, float) else f'{k} {v}'
                     for k, v in report.items()))
   return gstate, gstep, launches
 
 
-def timed(cfg: Flagship, dev: torch.device, label: str, state, step, smi,
-          kernel: str, warmup=3, steps=30):
-  """The step timed on the card: ``steps`` steps enqueued back to back
-  after ``warmup``; CUDA events between consecutive steps. ``kernel``
+def timed(cfg: argparse.Namespace, dev: torch.device, label: str, state,
+          step, smi, kernel: str, steps=30):
+  """The step timed on the card as the harness times one window: its
+  batch, warmup and ids shifted by one a step, ``steps`` steps enqueued
+  back to back with CUDA events between consecutive steps. ``kernel``
   must have been launched once per step, and no other counted kernel."""
-  base = _base_batch(cfg, dev)
-  for i in range(warmup):
-    state, _ = step(state, _shifted(cfg, base, i + 1))
-  torch.cuda.synchronize()
+  base, ids = tb.make_batch(cfg, dev)
+  state, *_ = tb.time_steps(state, step, base, ids, cfg.vocab, 0, tb.WARMUP)
   torch.cuda.reset_peak_memory_stats(dev)
   held = torch.cuda.memory_allocated(dev)
 
   _reset_counts()
-  events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
-  losses = []
   t0 = time.perf_counter()
-  events[0].record()
-  for i in range(steps):
-    state, m = step(state, _shifted(cfg, base, warmup + 1 + i))
-    events[i + 1].record()
-    losses.append(m['loss'])
-  torch.cuda.synchronize()
+  state, losses, step_ms, _ = tb.time_steps(state, step, base, ids,
+                                            cfg.vocab, tb.WARMUP, steps)
   wall = time.perf_counter() - t0
   counts = _counts()
   _expect(f'{label}, {steps} steps', counts, **{kernel: steps})
   losses = torch.stack(losses)
   if not bool(torch.isfinite(losses).all()):
     raise AssertionError(f'{label}: non-finite loss: {losses.tolist()}')
-  step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
   med = statistics.median(step_ms)
   print(f'{label}: on {smi}: median {med:.4f} ms/step (device events, '
         f'{steps} steps; min {min(step_ms):.4f}, max {max(step_ms):.4f}), '
@@ -1285,18 +1217,18 @@ def timed(cfg: Flagship, dev: torch.device, label: str, state, step, smi,
   return state, counts[kernel]
 
 
-def profile(cfg: Flagship, dev: torch.device, label: str, state, step,
+def profile(cfg: argparse.Namespace, dev: torch.device, label: str, state, step,
             steps=10):
   """Device time per step by kernel class over ``steps`` traced steps,
   and the device's busy share of the traced span."""
   from torch.profiler import ProfilerActivity, profile as tprofile
-  base = _base_batch(cfg, dev)
+  base, ids = tb.make_batch(cfg, dev)
   torch.cuda.synchronize()
   with tprofile(activities=[ProfilerActivity.CPU,
                             ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
     for i in range(steps):
-      state, _ = step(state, _shifted(cfg, base, 100 + i))
+      state, _ = step(state, tb.shifted(base, ids, cfg.vocab, 100 + i))
     torch.cuda.synchronize()
     span_ms = (time.perf_counter() - t0) * 1e3
   classes = collections.Counter()
@@ -1344,7 +1276,7 @@ def harness(smi):
     raise RuntimeError(f'{" ".join(cmd[1:])} failed:\n{out.stderr}')
   line = out.stdout.strip().splitlines()[-1]
   report = json.loads(line)
-  want = {name: 0 for name in COUNTED}
+  want = {name: 0 for name in tb.COUNTED}
   want['adagrad_update_sorted'] = report['timed_steps']
   if report['kernel_launches'] != want or report['card'] != smi:
     raise AssertionError(f'the harness launched {report["kernel_launches"]} '
@@ -1375,67 +1307,62 @@ def main() -> int:
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   dev = torch.device('cuda', 0)
-  cfg = Flagship()
+  cfg = flagship()
 
   smi = phase0_environment()
   k = phase1_kernels(cfg, dev, tune=args.tune)
-  state, dcn_step, counts = gpu_vs_cpu(cfg, dev, 'phase 2 (DCNv2 + Adagrad)',
-                                       'dcnv2', 'adagrad')
+  state, dcn_step, counts = gpu_vs_cpu(dev, 'phase 2 (DCNv2 + Adagrad)')
   _expect('DCNv2 + Adagrad step', counts, adagrad_update_sorted=1)
   dcn_state, launches = timed(cfg, dev, 'phase 3 (DCNv2 + Adagrad flagship)',
                               state, dcn_step, smi, 'adagrad_update_sorted')
   k['adagrad_update_sorted']['launches'] = launches
-  _, _, counts = gpu_vs_cpu(cfg, dev, 'phase 4 (DCNv2 + no-dedup Adagrad)',
-                            'dcnv2', 'adagrad', dedup=False)
+  _, _, counts = gpu_vs_cpu(dev, 'phase 4 (DCNv2 + no-dedup Adagrad)',
+                            ['--no-dedup'])
   _expect('no-dedup step', counts, adagrad_update_sorted=1)
   k['adagrad_update_sorted[dedup=False]']['launches'] = counts[
       'adagrad_update_sorted']
-  state, dlrm_step, counts = gpu_vs_cpu(cfg, dev, 'phase 5 (DLRM + LazyAdam)',
-                                        'dlrm', 'adam')
+  state, dlrm_step, counts = gpu_vs_cpu(dev, 'phase 5 (DLRM + LazyAdam)',
+                                        ['--model', 'dlrm'], 'adam')
   _expect('LazyAdam step', counts, adam_update_sorted=1)
   dlrm_state, launches = timed(cfg, dev, 'phase 6 (DLRM + LazyAdam flagship)',
                                state, dlrm_step, smi, 'adam_update_sorted')
   k['adam_update_sorted']['launches'] = launches
   state, split_step, counts = gpu_vs_cpu(
-      cfg, dev, 'phase 7 (DCNv2 + split-dense Adagrad)', 'dcnv2', 'adagrad',
-      split=True)
+      dev, 'phase 7 (DCNv2 + split-dense Adagrad)', split=True)
   _expect('split-dense step', counts, gsum_dense_sorted=1)
   split_state, launches = timed(
       cfg, dev, 'phase 8 (DCNv2 + split-dense Adagrad flagship)', state,
       split_step, smi, 'gsum_dense_sorted')
   k['gsum_dense_sorted']['launches'] = launches
-  bf16 = dict(table_dtype=torch.bfloat16)
-  state, step, counts = gpu_vs_cpu(
-      cfg, dev, 'phase 9 (DCNv2 + Adagrad, bf16 tables)', 'dcnv2', 'adagrad',
-      **bf16)
+  bf16 = ['--table-dtype', 'bfloat16']
+  dcn16_state, dcn16_step, counts = gpu_vs_cpu(
+      dev, 'phase 9 (DCNv2 + Adagrad, bf16 tables)', bf16)
   _expect('DCNv2 + Adagrad step, bf16 tables', counts,
           adagrad_update_sorted=1)
   dcn16_state, launches = timed(
-      cfg, dev, 'phase 10 (DCNv2 + Adagrad flagship, bf16 tables)', state,
-      step, smi, 'adagrad_update_sorted')
+      cfg, dev, 'phase 10 (DCNv2 + Adagrad flagship, bf16 tables)',
+      dcn16_state, dcn16_step, smi, 'adagrad_update_sorted')
   k['adagrad_update_sorted[bf16]']['launches'] = launches
-  dcn16_step = step
   _, _, counts = gpu_vs_cpu(
-      cfg, dev, 'phase 11 (DCNv2 + no-dedup Adagrad, bf16 tables)', 'dcnv2',
-      'adagrad', dedup=False, **bf16)
+      dev, 'phase 11 (DCNv2 + no-dedup Adagrad, bf16 tables)',
+      bf16 + ['--no-dedup'])
   _expect('no-dedup step, bf16 tables', counts, adagrad_update_sorted=1)
   k['adagrad_update_sorted[bf16,dedup=False]']['launches'] = counts[
       'adagrad_update_sorted']
   state, dlrm16_step, counts = gpu_vs_cpu(
-      cfg, dev, 'phase 12 (DLRM + LazyAdam, bf16 tables)', 'dlrm', 'adam',
-      **bf16)
+      dev, 'phase 12 (DLRM + LazyAdam, bf16 tables)',
+      bf16 + ['--model', 'dlrm'], 'adam')
   _expect('LazyAdam step, bf16 tables', counts, adam_update_sorted=1)
   dlrm16_state, launches = timed(
       cfg, dev, 'phase 13 (DLRM + LazyAdam flagship, bf16 tables)', state,
       dlrm16_step, smi, 'adam_update_sorted')
   k['adam_update_sorted[bf16]']['launches'] = launches
   _, _, counts = gpu_vs_cpu(
-      cfg, dev, 'phase 14 (DCNv2 + split-dense Adagrad, bf16 tables)',
-      'dcnv2', 'adagrad', split=True, **bf16)
+      dev, 'phase 14 (DCNv2 + split-dense Adagrad, bf16 tables)', bf16,
+      split=True)
   _expect('split-dense step, bf16 tables', counts, gsum_dense_sorted=1)
   _, _, counts = gpu_vs_cpu(
-      cfg, dev, 'phase 15 (DCNv2 + Adagrad, bf16 matmul operands)', 'dcnv2',
-      'adagrad', compute_dtype=torch.bfloat16)
+      dev, 'phase 15 (DCNv2 + Adagrad, bf16 matmul operands)', ['--bf16'])
   _expect('DCNv2 step with bf16 matmul operands', counts,
           adagrad_update_sorted=1)
   harness(smi)

@@ -4,23 +4,24 @@ Counterpart of ``benchmarks/train_benchmark.py``, the JAX package's
 harness, for its sparse path: stacked embedding tables updated by
 row-sparse Adagrad (0.05, accumulator 0.1) through the port's kernels, a
 DCNv2 or DLRM tower under Adam (1e-3), BCE loss, batch ids shifted by one
-every step. The flags and their defaults are the JAX harness's. Run on
-one CUDA device:
+every step. The flags and their defaults are the JAX harness's; weights
+and batch are drawn from seed 0, as there. Run on one CUDA device:
 
   python -m hybridbackend_tpu_torch.benchmarks.train_benchmark --sparse \\
       [--table-dtype bfloat16] [--model dlrm] [--bf16] [--no-dedup] [--json]
 
-Timing: ``--steps`` steps (30 by default) enqueued back to back after
-``--warmup`` steps, with a CUDA event between consecutive steps; a run's
-step time is the median of its steps. ``--repeats`` runs; the report
-gives the median over all their steps (``torch_train_step_ms``, and the
-examples/s it gives) and the best run's median (``ms_per_step_best``, as
-the JAX harness reports the best of its repeats). On ``--device cpu``
-(for tests at small shapes) a host clock times each step, which there
-runs synchronously. The JSON line carries the flags, the device and, on
-a card, its name and power limit as ``nvidia-smi`` prints them, and the
-kernel launches of the timed steps. TF32 stays off (PyTorch's default
-for matmuls): the tower's f32 matmuls are exact f32.
+Timing: 3 untimed steps, then ``--repeats`` windows of ``--steps`` steps
+(30 by default) enqueued back to back, with a CUDA event before each step
+and after the last. As the JAX harness reports them, ``ms_per_step_best``
+is the best window over its steps and ``torch_train_examples_per_sec``
+the batch times the steps over that window; ``torch_train_step_ms`` is
+the median of the gaps between consecutive events over all windows, and
+``ms_per_step_repeats`` each window over its steps. On ``--device cpu``
+(for tests at small shapes) a host clock takes the events' place; a step
+there runs synchronously. The JSON line carries the flags, the device
+and, on a card, its name and power limit as ``nvidia-smi`` prints them,
+and the kernel launches of the timed steps. TF32 stays off (PyTorch's
+default for matmuls): the tower's f32 matmuls are exact f32.
 
 Not ported, each exits nonzero with its reason: the dense path (no
 ``--sparse``), PICASSO interleaving (``--interleave K`` with K > 0),
@@ -41,8 +42,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+# The wrappers that count their kernel launches.
 COUNTED = ('adagrad_update_sorted', 'scatter_add_sorted', 'adam_update_sorted',
            'gsum_dense_sorted', 'gather_rows', 'stochastic_round_bf16')
+SEED = 0
+WARMUP = 3
+TABLE_LR = 0.05
+ADAGRAD_INIT = 0.1
+TOWER_LR = 1e-3
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -54,7 +61,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
   p.add_argument('--vocab', type=int, default=100_000)
   p.add_argument('--steps', type=int, default=30,
                  help='timed steps per repeat')
-  p.add_argument('--warmup', type=int, default=3)
   p.add_argument('--repeats', type=int, default=3)
   p.add_argument('--model', default='dcnv2', choices=['dcnv2', 'dlrm'])
   p.add_argument('--sparse', action='store_true',
@@ -76,7 +82,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                  help='devices of a host mesh (not ported)')
   p.add_argument('--device', default='cuda',
                  help="'cuda' (default) or 'cpu'")
-  p.add_argument('--seed', type=int, default=0)
   p.add_argument('--json', action='store_true')
   return p.parse_args(argv)
 
@@ -105,18 +110,22 @@ def card() -> Optional[str]:
   return out.strip().splitlines()[0]
 
 
-def build(args: argparse.Namespace, device: torch.device):
-  """The state, the step and the base batch of the flagship config."""
+def build(args: argparse.Namespace, device: torch.device,
+          table_optimizer: str = 'adagrad', split_dense: bool = False):
+  """The state and the step of the config ``args`` on ``device``. The
+  weights are drawn on the CPU from ``SEED``, so every device starts from
+  one state. ``table_optimizer`` (``'adam'`` for LazyAdam) and
+  ``split_dense`` are step options beyond the JAX harness's Adagrad."""
   import hybridbackend_tpu_torch as hbt
   tdt = torch.bfloat16 if args.table_dtype == 'bfloat16' else torch.float32
   cdt = torch.bfloat16 if args.bf16 else None
   specs = [hbt.EmbeddingSpec(hbt.TableConfig(f'c{i}', args.vocab, args.dim,
                                              dtype=tdt))
            for i in range(args.tables)]
-  dense_names = [f'i{d}' for d in range(args.dense_features)]
-  fx = hbt.StackedFeatureExtractor(specs, dense_columns=dense_names,
-                                   ctx=hbt.Context(device))
-  gen = torch.Generator().manual_seed(args.seed)
+  fx = hbt.StackedFeatureExtractor(
+      specs, dense_columns=[f'i{d}' for d in range(args.dense_features)],
+      ctx=hbt.Context(device))
+  gen = torch.Generator().manual_seed(SEED)
   tables = fx.init(gen)
   if args.model == 'dcnv2':
     tower = hbt.StackedDCNv2(
@@ -135,20 +144,29 @@ def build(args: argparse.Namespace, device: torch.device):
     return -torch.mean(y * torch.log(p) + (1 - y) * torch.log(1 - p)), {}
 
   state = hbt.SparseTrainState.create(
-      tower, tables, functools.partial(torch.optim.Adam, lr=1e-3),
-      adagrad_init=0.1)
-  step = hbt.make_sparse_train_step(fx, model_loss, table_lr=0.05,
-                                    table_dedup=not args.no_dedup)
-  # The JAX harness's draws, in its order: ids per table, dense features,
-  # labels. The ids are one [B, tables] tensor; the batch views columns.
-  rng = np.random.RandomState(args.seed)
+      tower, tables, functools.partial(torch.optim.Adam, lr=TOWER_LR),
+      adagrad_init=ADAGRAD_INIT, adam=table_optimizer == 'adam')
+  step = hbt.make_sparse_train_step(fx, model_loss, table_lr=TABLE_LR,
+                                    table_dedup=not args.no_dedup,
+                                    table_optimizer=table_optimizer,
+                                    table_split_dense=split_dense)
+  return state, step
+
+
+def make_batch(args: argparse.Namespace, device: torch.device,
+               seed: int = SEED):
+  """The JAX harness's draws from ``RandomState(seed)``, in its order: ids
+  per table, dense features, labels. Returns the dense features and
+  labels, and the ids as one [B, tables] tensor whose columns the batch
+  views (``shifted``)."""
+  rng = np.random.RandomState(seed)
   ids = np.stack([rng.randint(0, args.vocab, args.batch)
                   for _ in range(args.tables)], axis=1).astype(np.int32)
-  base = {d: torch.from_numpy(rng.rand(args.batch).astype(np.float32)).to(
-      device) for d in dense_names}
+  base = {f'i{d}': torch.from_numpy(rng.rand(args.batch).astype(
+      np.float32)).to(device) for d in range(args.dense_features)}
   base['label'] = torch.from_numpy(
       rng.randint(0, 2, args.batch).astype(np.float32)).to(device)
-  return state, step, base, torch.from_numpy(ids).to(device)
+  return base, torch.from_numpy(ids).to(device)
 
 
 def shifted(base: Dict[str, torch.Tensor], ids: torch.Tensor, vocab: int,
@@ -161,58 +179,68 @@ def shifted(base: Dict[str, torch.Tensor], ids: torch.Tensor, vocab: int,
   return batch
 
 
+def time_steps(state, step, base: Dict[str, torch.Tensor], ids: torch.Tensor,
+               vocab: int, first: int, steps: int):
+  """Steps ``first`` to ``first + steps - 1`` enqueued back to back, with
+  a mark before each step and after the last: CUDA events on a card, the
+  host clock on the CPU. Returns the state, the losses, the ms between
+  consecutive marks and the ms from the first mark to the last."""
+  if ids.device.type == 'cuda':
+    def mark():
+      event = torch.cuda.Event(enable_timing=True)
+      event.record()
+      return event
+    elapsed = lambda a, b: a.elapsed_time(b)
+    torch.cuda.synchronize(ids.device)
+  else:
+    mark = time.perf_counter
+    elapsed = lambda a, b: (b - a) * 1e3
+  losses, marks = [], [mark()]
+  for i in range(first, first + steps):
+    state, m = step(state, shifted(base, ids, vocab, i))
+    marks.append(mark())
+    losses.append(m['loss'])
+  if ids.device.type == 'cuda':
+    torch.cuda.synchronize(ids.device)
+  gaps = [elapsed(a, b) for a, b in zip(marks, marks[1:])]
+  return state, losses, gaps, elapsed(marks[0], marks[-1])
+
+
 def run(args: argparse.Namespace) -> dict:
   """Builds the config, times it and returns the report."""
   import hybridbackend_tpu_torch as hbt
   device = torch.device(args.device)
   on_card = device.type == 'cuda'
-  state, step, base, ids = build(args, device)
-  i = 0
-  for _ in range(args.warmup):
-    state, _ = step(state, shifted(base, ids, args.vocab, i))
-    i += 1
+  state, step = build(args, device)
+  base, ids = make_batch(args, device)
+  state, *_ = time_steps(state, step, base, ids, args.vocab, 0, WARMUP)
   for name in COUNTED:
     getattr(hbt, name).launches = 0
-  runs, losses = [], []
-  for _ in range(args.repeats):
-    if on_card:
-      torch.cuda.synchronize(device)
-      events = [torch.cuda.Event(enable_timing=True)
-                for _ in range(args.steps + 1)]
-      events[0].record()
-      for k in range(args.steps):
-        state, m = step(state, shifted(base, ids, args.vocab, i))
-        events[k + 1].record()
-        losses.append(m['loss'])
-        i += 1
-      torch.cuda.synchronize(device)
-      runs.append([events[k].elapsed_time(events[k + 1])
-                   for k in range(args.steps)])
-    else:
-      times = []
-      for _ in range(args.steps):
-        t0 = time.perf_counter()
-        state, m = step(state, shifted(base, ids, args.vocab, i))
-        times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(m['loss'])
-        i += 1
-      runs.append(times)
+  gaps, windows, losses = [], [], []
+  for r in range(args.repeats):
+    state, window_losses, window_gaps, window = time_steps(
+        state, step, base, ids, args.vocab, WARMUP + r * args.steps,
+        args.steps)
+    losses += window_losses
+    gaps += window_gaps
+    windows.append(window)
   losses = torch.stack(losses).float().cpu()
   if not bool(torch.isfinite(losses).all()):
     raise RuntimeError(f'non-finite loss: {losses.tolist()}')
-  step_ms = statistics.median([t for r in runs for t in r])
+  best = min(windows)
   return {
       'metric': 'torch_train_examples_per_sec',
-      'torch_train_step_ms': step_ms,
-      'torch_train_examples_per_sec': args.batch / step_ms * 1e3,
-      'ms_per_step_best': min(statistics.median(r) for r in runs),
+      'torch_train_examples_per_sec': args.batch * args.steps / best * 1e3,
+      'ms_per_step_best': best / args.steps,
+      'torch_train_step_ms': statistics.median(gaps),
+      'ms_per_step_repeats': [w / args.steps for w in windows],
       'timed_steps': args.steps * args.repeats,
       'final_loss': float(losses[-1]),
       'model': args.model, 'sparse': args.sparse, 'bf16': args.bf16,
       'no_dedup': args.no_dedup, 'table_dtype': args.table_dtype,
       'batch': args.batch, 'tables': args.tables, 'dim': args.dim,
       'vocab': args.vocab, 'dense_features': args.dense_features,
-      'steps': args.steps, 'repeats': args.repeats, 'warmup': args.warmup,
+      'steps': args.steps, 'repeats': args.repeats,
       'device': str(device),
       'device_name': torch.cuda.get_device_name(device) if on_card else 'cpu',
       'card': card() if on_card else None,
