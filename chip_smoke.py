@@ -25,7 +25,8 @@ harness's (``hybridbackend_tpu_torch/benchmarks/train_benchmark.py``), so
 the timed phases and the harness time the same thing.
 
 Phases; any failure raises and the script exits nonzero:
-  0. the card (nvidia-smi), torch/CUDA/nvcc versions, the kernel builds
+  0. the card (nvidia-smi), torch/CUDA/nvcc versions, pyarrow's version
+     (or that it is absent), the kernel builds
      with ptxas's registers and spills, and the resident blocks per SM of
      the Adagrad and LazyAdam kernels at the flagship row width;
   1. each kernel against its plain PyTorch version on the card, at the
@@ -69,7 +70,30 @@ Phases; any failure raises and the script exits nonzero:
  15. one full-width DCNv2 step with bf16 matmul operands, GPU vs CPU;
  16. one run of the port's harness, ``python -m
      hybridbackend_tpu_torch.benchmarks.train_benchmark --sparse
-     --table-dtype bfloat16 --json``, whose JSON line is printed.
+     --table-dtype bfloat16 --json``, whose JSON line is printed;
+ 17. the flagship DCNv2 + Adagrad through ``SparseTrainer``, as a user
+     trains it: 64 steps of seeded Criteo-like host batches
+     (``benchmarks/synthetic.py``) through ``DeviceIterator``, with a
+     ``StepStatHook`` and a checkpoint every 32 steps; the Adagrad kernel
+     launched once per step; then ``evaluate`` (4 batches of 8192 and one
+     of 1000) on the card against the CPU's on the same parameters (AUC
+     within a limit set by the predictions near a threshold), ``predict``,
+     a fresh trainer's restore of step 64 and a resume from step 32, both
+     bitwise equal to the live state; its synced ms/step beside the
+     harness's bare step, the stall fraction and the AUC are printed;
+     then 8 steps with LazyAdam tables (``table_optimizer='adam'``), the
+     LazyAdam kernel launched once per step; then the loop timed in
+     alternating rounds: the step alone on placed batches, ``train``
+     with and without ``DeviceIterator`` from an in-memory source and
+     from one that waits 4 ms a batch, and the two input paths alone;
+ 18. the dense-gradient ``Trainer`` at the flagship width (26 unstacked
+     tables, ``multi_optimizer(Adagrad 0.05, Adam 1e-3)``): 3 steps on
+     the card against the same 3 on the CPU (tables, accumulators, tower
+     gradients and second moments across the devices; each device's
+     tower weights against Adam's step from its own moments), then 33
+     timed steps and one evaluation; no counted kernel runs;
+ 19. the harness in its dense mode (no ``--sparse``), its JSON line
+     printed.
 With ``--profile`` it then traces 10 steps of each timed variant with
 ``torch.profiler`` and prints device time per step by kernel class. With
 ``--tune`` phase 1 also times the add kernel over tile sizes, the
@@ -78,8 +102,9 @@ modes) and LazyAdam kernels over tile sizes and state batches (the rows
 of how many run heads a thread loads before it waits for its tile's
 gradients); each sweep forth and back.
 The second-to-last line is a JSON object describing each kernel (its
-times, launches on its path, and its bound: the larger of its bytes over
-3.35 TB/s and its operations over the card's peak rate); the last line is
+times, launches on its path and in the trainers' runs, and its bound: the
+larger of its bytes over 3.35 TB/s and its operations over the card's
+peak rate); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the rest of the repository beside it, it fails before printing
 either.
@@ -92,15 +117,19 @@ import collections
 import ctypes
 import functools
 import json
+import math
 import os
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from hybridbackend_tpu_torch.benchmarks import synthetic
 from hybridbackend_tpu_torch.benchmarks import train_benchmark as tb
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -258,6 +287,11 @@ def phase0_environment():
   nvcc = _run([build.nvcc_path(), '--version']).splitlines()[-1]
   print(f'python {sys.version.split()[0]} torch {torch.__version__} '
         f'cuda {torch.version.cuda} nvcc: {nvcc}')
+  try:
+    import pyarrow
+    print(f'pyarrow {pyarrow.__version__}')
+  except ImportError:
+    print('pyarrow: absent')
   t0 = time.perf_counter()
   libs = build.load_all()
   print(f'kernel builds: {time.perf_counter() - t0:.3f} s wall for '
@@ -1285,6 +1319,481 @@ def harness(smi):
         f'--json): {line}')
 
 
+TRAIN_STEPS = 64           # phase 17's training run
+SAVE_EVERY = 32            # and its checkpoints
+EVAL_SHORT = 1000          # rows of its last, short eval batch
+STAT_WINDOW = 16           # steps between StepStatHook's syncs
+ADAM_STEPS = 8             # the LazyAdam SparseTrainer's run
+LOOP_ROUNDS, LOOP_STEPS = 4, 16   # the loop's timing rounds
+SLOW_SOURCE_MS = 4.0       # a source's wait per batch, as a reader's I/O
+DENSE_STEPS = 3            # phase 18's GPU-vs-CPU steps
+DENSE_TIMED = 33           # and its timed steps (2 windows of 16)
+
+
+def _flat_state(trainer):
+  """``{path: value}`` of a trainer's checkpoint state."""
+  out = {}
+
+  def walk(prefix, v):
+    if isinstance(v, dict):
+      for k, x in v.items():
+        walk(f'{prefix}/{k}', x)
+    elif isinstance(v, (list, tuple)):
+      for i, x in enumerate(v):
+        walk(f'{prefix}/{i}', x)
+    else:
+      out[prefix] = v
+  walk('', trainer._checkpoint_state())
+  return out
+
+
+def _bitwise_equal(label, a, b):
+  """Fails unless two trainers' states hold the same bits everywhere."""
+  fa, fb = _flat_state(a), _flat_state(b)
+  if fa.keys() != fb.keys():
+    raise AssertionError(f'{label}: state keys differ')
+  for key, x in fa.items():
+    y = fb[key]
+    same = (torch.equal(x.cpu(), y.cpu()) if isinstance(x, torch.Tensor)
+            else x == y)
+    if not same:
+      diff = (float((x.float() - y.float()).abs().max())
+              if isinstance(x, torch.Tensor) else f'{x} vs {y}')
+      raise AssertionError(f'{label}: {key} differs (max abs diff {diff})')
+  return len(fa)
+
+
+def _sparse_trainer(cfg, dev, model_dir, table_optimizer='adagrad'):
+  """The flagship DCNv2 config as a ``SparseTrainer`` on ``dev`` (the
+  harness's weights from its seed, table lr, accumulator and tower Adam)
+  with row-sparse ``table_optimizer``, checkpointing into ``model_dir``."""
+  import hybridbackend_tpu_torch as hbt
+  fx, tables, tower, model_loss = tb.sparse_parts(cfg, dev)
+  return hbt.SparseTrainer(
+      fx, model_loss, tower, tables=tables,
+      dense_optimizer=functools.partial(torch.optim.Adam, lr=tb.TOWER_LR),
+      table_lr=tb.TABLE_LR, adagrad_init=tb.ADAGRAD_INIT,
+      table_optimizer=table_optimizer, model_dir=model_dir)
+
+
+def _step_alone_ms(trainer, batches, dev):
+  """The trainer's own step enqueued back to back with CUDA events
+  between steps, on batches placed on the card beforehand: the step
+  without the trainer's loop, input path and hooks. The median gap."""
+  import hybridbackend_tpu_torch as hbt
+  placed = [hbt.put_batch(b, dev) for b in batches]
+  torch.cuda.synchronize(dev)
+  marks = [torch.cuda.Event(enable_timing=True)]
+  marks[0].record()
+  for b in placed:
+    trainer.state, _ = trainer._step_fn(trainer.state, b)
+    marks.append(torch.cuda.Event(enable_timing=True))
+    marks[-1].record()
+  torch.cuda.synchronize(dev)
+  return statistics.median(a.elapsed_time(b) for a, b in zip(marks,
+                                                             marks[1:]))
+
+
+def _slow_source(batches, ms):
+  """``batches``, each after a wait of ``ms`` that holds no interpreter
+  lock, as a reader's file reads and decoding do."""
+  for b in batches:
+    time.sleep(ms / 1e3)
+    yield b
+
+
+def _train_ms(trainer, batches, dev, prefetch, wait_ms=0.0):
+  """ms/step of ``trainer.train`` over ``batches`` on the host clock,
+  from an idle card to the end of its last step, with or without the
+  ``DeviceIterator``; the source waits ``wait_ms`` before each batch."""
+  source = _slow_source(batches, wait_ms) if wait_ms else iter(batches)
+  torch.cuda.synchronize(dev)
+  t0 = time.perf_counter()
+  trainer.train(source, prefetch=prefetch)
+  torch.cuda.synchronize(dev)
+  return (time.perf_counter() - t0) * 1e3 / len(batches)
+
+
+def _input_ms(batches, dev, prefetch):
+  """ms/batch of the input path alone, no step: the ``DeviceIterator``
+  or ``put_batch`` of each batch, from an idle card to the last copy."""
+  import hybridbackend_tpu_torch as hbt
+  torch.cuda.synchronize(dev)
+  t0 = time.perf_counter()
+  if prefetch:
+    it = hbt.DeviceIterator(iter(batches), dev)
+    for _ in it:
+      pass
+    it.close()
+  else:
+    for b in batches:
+      hbt.put_batch(b, dev)
+  torch.cuda.synchronize(dev)
+  return (time.perf_counter() - t0) * 1e3 / len(batches)
+
+
+def phase17_sparse_trainer(cfg, dev, smi, bare_state, bare_step):
+  """Phase 17: the flagship DCNv2 + Adagrad as a user trains it, through
+  ``SparseTrainer``: 64 steps fed from seeded Criteo-like host batches
+  (``benchmarks/synthetic.py``) through ``DeviceIterator``, a
+  ``StepStatHook``, checkpoints every 32 steps; then an evaluation of 4
+  full batches and one of 1000 rows, held against the CPU's evaluation
+  of the same parameters (restored from the step-64 checkpoint); a
+  fresh trainer's restore, and a resume from step 32 over the same 32
+  batches, both held bit for bit against the live state; a short run of
+  ``table_optimizer='adam'``, which must launch the LazyAdam kernel once
+  a step; and the loop timed with and without ``DeviceIterator``, from a
+  source that waits for nothing and from one that waits. Returns the
+  kernel launches of the two trainers' runs, and the batches."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch import metrics as hbm
+  cpu = torch.device('cpu')
+  kw = dict(vocab=cfg.vocab, tables=cfg.tables,
+            dense_features=cfg.dense_features)
+  batches = synthetic.criteo_batches(cfg.batch, TRAIN_STEPS, seed=tb.SEED,
+                                     **kw)
+  evals = (synthetic.criteo_batches(cfg.batch, 4, seed=tb.SEED + 1, **kw)
+           + synthetic.criteo_batches(EVAL_SHORT, 1, seed=tb.SEED + 2, **kw))
+  labels = np.concatenate([b['label'] for b in evals])
+  # The harness's bare step, in this process, just before the trainer.
+  base, ids = tb.make_batch(cfg, dev)
+  *_, bare_gaps, _ = tb.time_steps(bare_state, bare_step, base, ids,
+                                   cfg.vocab, 1000, 30)
+  bare_ms = statistics.median(bare_gaps)
+  with tempfile.TemporaryDirectory() as tmp:
+    dir_a, dir_b = os.path.join(tmp, 'a'), os.path.join(tmp, 'b')
+    live = _sparse_trainer(cfg, dev, dir_a)
+    reports = []
+    hook = hbt.StepStatHook(batch_size=cfg.batch, every_n_steps=0,
+                            sync_every_n=STAT_WINDOW, log=reports.append)
+    torch.cuda.synchronize(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    metrics = live.train(iter(batches), hooks=[hook], prefetch=True,
+                         save_checkpoint_steps=SAVE_EVERY)
+    torch.cuda.synchronize(dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    counts = _counts()
+    _expect(f'phase 17, SparseTrainer.train of {TRAIN_STEPS} steps', counts,
+            adagrad_update_sorted=TRAIN_STEPS)
+    if live.global_step != TRAIN_STEPS or live._ckpt.all_steps() != [
+        SAVE_EVERY, TRAIN_STEPS]:
+      raise AssertionError(f'phase 17: step {live.global_step}, '
+                           f'checkpoints {live._ckpt.all_steps()}')
+    if not np.isfinite(metrics['loss']):
+      raise AssertionError(f'phase 17: train loss {metrics["loss"]}')
+    stalls = hook.input_stall_stats
+    synced = [s * 1e3 for s in hook.synced_secs_per_step]
+
+    # Evaluation and prediction on the card, against the CPU.
+    # Through the DeviceIterator: its pinned staging on the card is what
+    # the CPU's evaluation checks.
+    res_gpu = live.evaluate(iter(evals), prefetch=True)
+    preds_gpu = torch.cat(list(live.predict(iter(evals),
+                                            prefetch=True))).cpu()
+    on_cpu = _sparse_trainer(cfg, cpu, dir_a)
+    if on_cpu.global_step != TRAIN_STEPS:
+      raise AssertionError(f'phase 17: the CPU trainer restored step '
+                           f'{on_cpu.global_step}')
+    res_cpu = on_cpu.evaluate(iter(evals))
+    preds_cpu = torch.cat(list(on_cpu.predict(iter(evals))))
+    del on_cpu
+    limit, near, gap = hbm.auc_limit(preds_gpu, preds_cpu, labels)
+    # The loss: per-example BCE of predictions about 1e-6 relative apart
+    # (the tower's f32 sums in another order), averaged: 1e-4, as the
+    # GPU-vs-CPU step phases hold the loss.
+    if not (res_gpu['batches'] == res_cpu['batches'] == len(evals)
+            and abs(res_gpu['auc'] - res_cpu['auc']) <= limit
+            and abs(res_gpu['loss'] - res_cpu['loss'])
+            <= 1e-4 * abs(res_cpu['loss'])
+            and np.isfinite(res_gpu['auc'])):
+      raise AssertionError(f'phase 17: evaluate on the GPU {res_gpu}, on '
+                           f'the CPU {res_cpu}; AUC limit {limit} '
+                           f'({near} predictions within {gap:.3e} of a '
+                           'threshold)')
+
+    # A fresh trainer restores the live state; a resume from step 32
+    # over the same batches reaches it.
+    restored = _sparse_trainer(cfg, dev, dir_a)
+    n_tensors = _bitwise_equal('phase 17, restored at step 64', restored,
+                               live)
+    del restored
+    os.makedirs(dir_b)
+    shutil.copy(os.path.join(dir_a, f'checkpoint-{SAVE_EVERY}.pt'), dir_b)
+    resumed = _sparse_trainer(cfg, dev, dir_b)
+    if resumed.global_step != SAVE_EVERY:
+      raise AssertionError(f'phase 17: resumed at {resumed.global_step}')
+    resumed.train(iter(batches[SAVE_EVERY:]))
+    _bitwise_equal('phase 17, resumed from step 32', resumed, live)
+    del resumed, live
+
+  # The LazyAdam tables: kernel 3 once a train step.
+  adam = _sparse_trainer(cfg, dev, None, table_optimizer='adam')
+  torch.cuda.synchronize(dev)
+  _reset_counts()
+  adam_loss = adam.train(iter(batches[:ADAM_STEPS]))['loss']
+  torch.cuda.synchronize(dev)
+  adam_counts = _counts()
+  _expect(f"phase 17, SparseTrainer(table_optimizer='adam').train of "
+          f'{ADAM_STEPS} steps', adam_counts, adam_update_sorted=ADAM_STEPS)
+  if adam.global_step != ADAM_STEPS or not np.isfinite(adam_loss):
+    raise AssertionError(f'phase 17, LazyAdam: step {adam.global_step}, '
+                         f'loss {adam_loss}')
+  del adam
+
+  # The loop, timed: the step alone on placed batches, and train() with
+  # and without the DeviceIterator from a source that waits for nothing
+  # and from one that waits SLOW_SOURCE_MS a batch; and the input paths
+  # alone. In rounds, each in the other order than the one before: the
+  # host's pace drifts by tens of percent within a process, so one window
+  # of each would compare two paces.
+  timer = _sparse_trainer(cfg, dev, None)
+  ways = {
+      'placed': lambda part: _step_alone_ms(timer, part, dev),
+      'train(prefetch=False)': lambda part: _train_ms(timer, part, dev,
+                                                       False),
+      'train(prefetch=True)': lambda part: _train_ms(timer, part, dev, True),
+      'slow source, train(prefetch=False)': lambda part: _train_ms(
+          timer, part, dev, False, SLOW_SOURCE_MS),
+      'slow source, train(prefetch=True)': lambda part: _train_ms(
+          timer, part, dev, True, SLOW_SOURCE_MS),
+      'put_batch alone': lambda part: _input_ms(part, dev, False),
+      'DeviceIterator alone': lambda part: _input_ms(part, dev, True),
+  }
+  loop = {name: [] for name in ways}
+  for r in range(LOOP_ROUNDS):
+    part = batches[r * LOOP_STEPS:(r + 1) * LOOP_STEPS]
+    for name in (list(ways) if r % 2 == 0 else list(reversed(ways))):
+      loop[name].append(ways[name](part))
+  del timer
+  print(f'phase 17 (SparseTrainer, DCNv2 + Adagrad flagship, '
+        f'{TRAIN_STEPS} steps of seeded Criteo-like batches through '
+        f'DeviceIterator, checkpoints every {SAVE_EVERY}): on {smi}: '
+        f'trainer {statistics.median(synced):.4f} ms/step synced '
+        f'(StepStatHook windows of {STAT_WINDOW} steps: '
+        f'{", ".join(f"{x:.4f}" for x in synced)}; the one with step '
+        f'{SAVE_EVERY} holds its checkpoint), {wall_ms:.4f} ms/step wall '
+        f'over the run; the harness bare step (time_steps, phase 3 '
+        f'state) {bare_ms:.4f} ms/step; kernel 1 launches '
+        f'{counts["adagrad_update_sorted"] / TRAIN_STEPS:.0f} per '
+        f'step; input stalls {stalls["stalls"]}/{stalls["gets"]} '
+        f'(fraction {stalls["stall_fraction"]:.4f}, {stalls["stall_s"]:.4f} '
+        f's waited); last train loss {metrics["loss"]:.5f}')
+  print(f'  the loop, {LOOP_ROUNDS} rounds of {LOOP_STEPS} steps each way '
+        f'(medians; rounds in order; a slow source waits '
+        f'{SLOW_SOURCE_MS} ms a batch):')
+  for name, v in loop.items():
+    unit = 'ms/batch' if 'alone' in name else 'ms/step'
+    print(f'    {name}: {statistics.median(v):.4f} {unit} '
+          f'({", ".join(f"{x:.4f}" for x in v)})')
+  print(f'  evaluate ({len(evals)} batches: 4 of {cfg.batch} and one of '
+        f'{EVAL_SHORT} rows): GPU auc {res_gpu["auc"]:.6f} loss '
+        f'{res_gpu["loss"]:.6f} batches {res_gpu["batches"]:.0f}; CPU auc '
+        f'{res_cpu["auc"]:.6f} loss {res_cpu["loss"]:.6f}; predictions '
+        f'{gap:.3e} apart at most, {near} within that of a threshold, so '
+        f'AUC limit {limit:.3e}, AUC apart {abs(res_gpu["auc"] - res_cpu["auc"]):.3e}')
+  print(f'  restore at step {TRAIN_STEPS} and resume from step '
+        f'{SAVE_EVERY}: {n_tensors} state entries bitwise equal to the live '
+        f'state')
+  print(f"  SparseTrainer(table_optimizer='adam'), {ADAM_STEPS} steps: "
+        f'kernel 3 launches {adam_counts["adam_update_sorted"]} '
+        f'({adam_counts["adam_update_sorted"] / ADAM_STEPS:.0f} per step), '
+        f'last train loss {adam_loss:.5f}')
+  for line in reports:
+    print(f'  StepStatHook: {line}')
+  launches = collections.Counter(counts)
+  launches.update(adam_counts)
+  return launches, batches, evals
+
+
+def phase18_dense_trainer(cfg, dev, smi, batches, evals):
+  """Phase 18: the dense-gradient ``Trainer`` at the flagship width (26
+  tables of [100000, 16], one per column; ``multi_optimizer`` with the
+  optax-equivalent Adagrad 0.05 on the tables and Adam 1e-3 on the
+  tower, as the JAX harness sets it up): 3 steps on the card, each held
+  against the same step on the CPU from the same state (the CPU trainer
+  takes the card's state before each), then 33 timed steps and one
+  evaluation. No counted kernel runs on this path. Returns the kernel
+  launches of its runs."""
+  import hybridbackend_tpu_torch as hbt
+  cpu = torch.device('cpu')
+  args = argparse.Namespace(**{**vars(cfg), 'sparse': False})
+  g_trainer, c_trainer = (
+      hbt.Trainer(*tb.dense_parts(args, d), ctx=hbt.Context(d))
+      for d in (dev, cpu))
+  # Each step from one state: before it the CPU trainer takes the card's
+  # state, so that every comparison is of one step, as in phase 2.
+  report = {'loss_rel_err': 0.0, 'table_max_abs_err': 0.0,
+            'acc_max_abs_err': 0.0, 'tower_grad_err_of_max': 0.0,
+            'tower_v_err_of_allowance': 0.0,
+            'tower_adam_err_of_tol_card': 0.0,
+            'tower_adam_err_of_tol_cpu': 0.0, 'tower_max_abs_err': 0.0,
+            'tower_weights_over_1e-4_apart': 0,
+            'their_largest_grad_of_max_card': 0.0,
+            'their_largest_grad_of_max_cpu': 0.0}
+  apart_in = set()
+  group = c_trainer.state.optimizer.dense_opt.param_groups[0]
+  lr, (b1, b2), eps = group['lr'], group['betas'], group['eps']
+  launches = collections.Counter()
+  _reset_counts()
+  for i in range(DENSE_STEPS):
+    c_trainer._load_checkpoint_state(g_trainer._checkpoint_state())
+    g_state, c_state = g_trainer.state, c_trainer.state
+    g_net, c_net = g_state.params['net'], c_state.params['net']
+    before = [(p.detach().clone(),
+               c_state.optimizer.state[p]['exp_avg'].clone())
+              for p in c_net.parameters()]
+    v_before = [c_state.optimizer.state[p]['exp_avg_sq'].clone()
+                for p in c_net.parameters()]
+    gl = g_trainer.train(iter(batches[i:i + 1]))['loss']
+    cl = c_trainer.train(iter(batches[i:i + 1]))['loss']
+    report['loss_rel_err'] = max(report['loss_rel_err'],
+                                 abs(gl - cl) / abs(cl))
+    if not abs(gl - cl) <= 1e-4 * abs(cl):
+      raise AssertionError(f'phase 18, step {i + 1}: loss {gl} on the GPU, '
+                           f'{cl} on the CPU')
+    # Tables and accumulators: a table row's gradient is a sum over the
+    # batch's occurrences of its id, in atomic order on the card
+    # (index_add_) and in list order on the CPU: at most n * 2**-24 of the
+    # sum of the terms' sizes apart, about 1e-7 of it for the hottest ids.
+    # Adagrad moves an element by 0.05 * g / sqrt(acc) with acc >= 0.1, so
+    # a gradient's rounding moves it by at most 0.16 times that, and acc
+    # by 2 * |g| times it: far below 1e-5.
+    g_tables, c_tables = g_state.params['tables'], c_state.params['tables']
+    for name, c in c_tables.items():
+      ga = g_state.optimizer.state[g_tables[name]]['sum_of_squares'].cpu()
+      ca = c_state.optimizer.state[c]['sum_of_squares']
+      for key, x, y in (('table', g_tables[name].detach().cpu(), c.detach()),
+                        ('acc', ga, ca)):
+        err = float((x - y).abs().max())
+        report[f'{key}_max_abs_err'] = max(report[f'{key}_max_abs_err'], err)
+        if not torch.allclose(x, y, rtol=1e-5, atol=1e-5):
+          raise AssertionError(f'phase 18, step {i + 1}: {key} of {name} '
+                               f'differs by up to {err}')
+    # The tower, in two parts. (a) Across the devices: each weight's
+    # gradient, read from Adam's first moment (g = (m - b1 * m_before) /
+    # (1 - b1), m_before the same on both), is a sum over the batch whose
+    # order error reaches about n * 2**-24 = 5e-4 of the sum of its terms'
+    # sizes: 1e-3 of itself plus 1e-3 of the tensor's largest gradient, as
+    # phase 2 holds it; the second moment then within (1 - b2) times what
+    # twice that allowance does to g**2 (a gradient read from m carries
+    # m's rounding over 1 - b1 besides), plus 4 of its own ulps. (b) On each
+    # device: every weight is Adam's step from the state before it, by
+    # that device's own moments, to 2**-22 of the weight and 2**-18 of the
+    # step (a few f32 roundings of each). Together they hold every weight:
+    # where the devices' gradients differ within (a), the weights differ
+    # by what Adam makes of it, which near a zero gradient is up to 2 * lr
+    # (lr * g / (|g| + eps) takes either sign); those weights are counted
+    # below with their gradients' share of the tensor's largest.
+    for (n, gp), cp, (w0, m0), v0 in zip(g_net.named_parameters(),
+                                         c_net.parameters(), before,
+                                         v_before):
+      gs, cs = g_state.optimizer.state[gp], c_state.optimizer.state[cp]
+      gm, gv = gs['exp_avg'].cpu(), gs['exp_avg_sq'].cpu()
+      cm, cv = cs['exp_avg'], cs['exp_avg_sq']
+      gg, cg = ((m - b1 * m0) / (1 - b1) for m in (gm, cm))
+      largest = float(cg.abs().max())
+      allowance = 1e-3 * cg.abs() + 1e-3 * largest
+      g_diff = (gg - cg).abs()
+      report['tower_grad_err_of_max'] = max(
+          report['tower_grad_err_of_max'], float(g_diff.max()) / largest)
+      if bool((g_diff > allowance).any()):
+        raise AssertionError(f'phase 18, step {i + 1}: the gradient of '
+                             f'net.{n} differs by up to '
+                             f'{float(g_diff.max())}, largest {largest}')
+      v_allow = ((1 - b2) * 2 * allowance * (2 * cg.abs() + 2 * allowance)
+                 + 2**-21 * cv)
+      v_ratio = float(((gv - cv).abs() / v_allow.clamp(min=1e-38)).max())
+      report['tower_v_err_of_allowance'] = max(
+          report['tower_v_err_of_allowance'], v_ratio)
+      if v_ratio > 1:
+        raise AssertionError(f'phase 18, step {i + 1}: the second moment of '
+                             f'net.{n} differs by {v_ratio:.3g} times its '
+                             'allowance')
+      t = float(cs['step'])
+      if float(gs['step']) != t:
+        raise AssertionError(f'phase 18, step {i + 1}: Adam steps '
+                             f'{float(gs["step"])} and {t}')
+      for where, w, m, v in (('card', gp.detach().cpu(), gm, gv),
+                             ('cpu', cp.detach(), cm, cv)):
+        step = (lr / (1 - b1**t) * m.double()
+                / (v.double().sqrt() / math.sqrt(1 - b2**t) + eps))
+        want = w0.double() - step
+        tol = 2**-22 * want.abs() + 2**-18 * step.abs()
+        ratio = float(((w.double() - want).abs()
+                       / tol.clamp(min=1e-300)).max())
+        report[f'tower_adam_err_of_tol_{where}'] = max(
+            report[f'tower_adam_err_of_tol_{where}'], ratio)
+        if ratio > 1:
+          raise AssertionError(f'phase 18, step {i + 1}: net.{n} on the '
+                               f'{where} is {ratio:.3g} times its tolerance '
+                               "from Adam's step of its own moments")
+      diff = (gp.detach().cpu() - cp.detach()).abs()
+      report['tower_max_abs_err'] = max(report['tower_max_abs_err'],
+                                        float(diff.max()))
+      apart = diff > 1e-4 + 1e-4 * cp.detach().abs()
+      if bool(apart.any()):
+        apart_in.add(f'net.{n} at step {i + 1}')
+        report['tower_weights_over_1e-4_apart'] += int(apart.sum())
+        for where, g in (('card', gg), ('cpu', cg)):
+          key = f'their_largest_grad_of_max_{where}'
+          report[key] = max(report[key],
+                            float(g[apart].abs().max()) / largest)
+  torch.cuda.synchronize(dev)
+  counts = _counts()
+  _expect(f'phase 18, Trainer.train of {DENSE_STEPS} steps', counts)
+  launches.update(counts)
+  del c_trainer, c_state, c_tables, c_net
+  # Timed steps, then one evaluation.
+  reports = []
+  hook = hbt.StepStatHook(batch_size=cfg.batch, every_n_steps=0,
+                          sync_every_n=STAT_WINDOW, log=reports.append)
+  _reset_counts()
+  g_trainer.train(iter(batches[DENSE_STEPS:DENSE_STEPS + DENSE_TIMED]),
+                  hooks=[hook], prefetch=True)
+  torch.cuda.synchronize(dev)
+  counts = _counts()
+  _expect(f'phase 18, {DENSE_TIMED} timed steps', counts)
+  launches.update(counts)
+  synced = [s * 1e3 for s in hook.synced_secs_per_step]
+  res = g_trainer.evaluate(iter(evals))
+  if not (np.isfinite(res['auc']) and np.isfinite(res['loss'])
+          and res['batches'] == len(evals)):
+    raise AssertionError(f'phase 18: evaluate gave {res}')
+  stalls = hook.input_stall_stats
+  print(f'phase 18 (Trainer, dense-gradient DCNv2 flagship, {cfg.tables} '
+        f'tables of [{cfg.vocab}, {cfg.dim}] under multi_optimizer(Adagrad 0.05, '
+        f'Adam 1e-3)): {DENSE_STEPS} steps GPU vs CPU: '
+        + ', '.join(f'{k} {v:.3e}' if isinstance(v, float) else f'{k} {v}'
+                    for k, v in report.items())
+        + f' (in {", ".join(sorted(apart_in)) or "none"})')
+  print(f'  on {smi}: {statistics.median(synced):.4f} ms/step synced '
+        f'(windows of {STAT_WINDOW}: {", ".join(f"{x:.4f}" for x in synced)}), '
+        f'{cfg.batch / statistics.median(synced) * 1e3:.1f} examples/s; '
+        f'input stalls {stalls["stalls"]}/{stalls["gets"]}; evaluate: auc '
+        f'{res["auc"]:.6f} loss {res["loss"]:.6f} batches '
+        f'{res["batches"]:.0f}')
+  return launches
+
+
+def harness_dense(smi):
+  """Phase 19: the port's harness in its dense mode (no ``--sparse``) at
+  its defaults, in a process of its own; its JSON line is printed. It
+  launches no counted kernel."""
+  cmd = [sys.executable, '-m', 'hybridbackend_tpu_torch.benchmarks.'
+         'train_benchmark', '--json']
+  out = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                       timeout=600)
+  if out.returncode != 0:
+    raise RuntimeError(f'{" ".join(cmd[1:])} failed:\n{out.stderr}')
+  line = out.stdout.strip().splitlines()[-1]
+  report = json.loads(line)
+  if (any(report['kernel_launches'].values()) or report['sparse']
+      or report['card'] != smi):
+    raise AssertionError(f'the dense harness reported {report}')
+  print(f'phase 19 (python -m {cmd[2]} --json, the dense mode): {line}')
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--profile', action='store_true',
@@ -1366,6 +1875,11 @@ def main() -> int:
   _expect('DCNv2 step with bf16 matmul operands', counts,
           adagrad_update_sorted=1)
   harness(smi)
+  trainer_launches, batches, evals = phase17_sparse_trainer(
+      cfg, dev, smi, dcn_state, dcn_step)
+  trainer_launches.update(phase18_dense_trainer(cfg, dev, smi, batches,
+                                                evals))
+  harness_dense(smi)
   if args.profile:
     profile(cfg, dev, 'DCNv2 + Adagrad', dcn_state, dcn_step)
     profile(cfg, dev, 'DLRM + LazyAdam', dlrm_state, dlrm_step)
@@ -1383,7 +1897,12 @@ def main() -> int:
                  'max_abs_err': m['max_abs_err'], 'ms': m['ms'],
                  'plain_ms': m['plain_ms'], 'bound_ms': m['bound_ms'],
                  'bound_by': m['bound_by'], 'bytes': m['bytes'],
-                 'library_ms': m['library_ms']})
+                 'library_ms': m['library_ms'],
+                 # Launches in the trainers' runs (phases 17 and 18), by
+                 # the kernel's own counter; null for a storage or dedup
+                 # mode, whose counter it shares with its kernel's row.
+                 'trainer_launches': (trainer_launches[name]
+                                      if name in tb.COUNTED else None)})
   print(json.dumps({'kernels': rows}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

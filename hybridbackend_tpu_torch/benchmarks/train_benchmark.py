@@ -1,13 +1,17 @@
 """End-to-end train-step benchmark of the port (flagship ranking model).
 
 Counterpart of ``benchmarks/train_benchmark.py``, the JAX package's
-harness, for its sparse path: stacked embedding tables updated by
-row-sparse Adagrad (0.05, accumulator 0.1) through the port's kernels, a
-DCNv2 or DLRM tower under Adam (1e-3), BCE loss, batch ids shifted by one
+harness, in both its modes. With ``--sparse``: stacked embedding tables
+updated by row-sparse Adagrad (0.05, accumulator 0.1) through the port's
+kernels and a DCNv2 or DLRM tower under Adam (1e-3). Without it, the
+dense-gradient path (``:133-145`` there): one table per column, every
+table's dense gradient, ``multi_optimizer`` with the optax-equivalent
+Adagrad (0.05, accumulator 0.1) on the tables and Adam (1e-3) on the
+tower, through ``make_train_step``. BCE loss, batch ids shifted by one
 every step. The flags and their defaults are the JAX harness's; weights
 and batch are drawn from seed 0, as there. Run on one CUDA device:
 
-  python -m hybridbackend_tpu_torch.benchmarks.train_benchmark --sparse \\
+  python -m hybridbackend_tpu_torch.benchmarks.train_benchmark [--sparse] \\
       [--table-dtype bfloat16] [--model dlrm] [--bf16] [--no-dedup] [--json]
 
 Timing: 3 untimed steps, then ``--repeats`` windows of ``--steps`` steps
@@ -23,9 +27,10 @@ and, on a card, its name and power limit as ``nvidia-smi`` prints them,
 and the kernel launches of the timed steps. TF32 stays off (PyTorch's
 default for matmuls): the tower's f32 matmuls are exact f32.
 
-Not ported, each exits nonzero with its reason: the dense path (no
-``--sparse``), PICASSO interleaving (``--interleave K`` with K > 0),
-multi-device runs (``--cpu N``).
+Not ported, each exits nonzero with its reason: PICASSO interleaving
+(``--interleave K`` with K > 0) and multi-device runs (``--cpu N``);
+``--no-dedup`` without ``--sparse`` is refused, as it applies to the
+sparse update only.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 # The wrappers that count their kernel launches.
 COUNTED = ('adagrad_update_sorted', 'scatter_add_sorted', 'adam_update_sorted',
@@ -64,8 +70,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
   p.add_argument('--repeats', type=int, default=3)
   p.add_argument('--model', default='dcnv2', choices=['dcnv2', 'dlrm'])
   p.add_argument('--sparse', action='store_true',
-                 help='stacked tables + row-sparse Adagrad (the only path '
-                      'ported)')
+                 help='stacked tables + row-sparse Adagrad (no dense '
+                      '[V, D] gradients)')
   p.add_argument('--bf16', action='store_true',
                  help='bfloat16 matmul operands with f32 results (params '
                       'stay f32)')
@@ -88,9 +94,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def unsupported(args: argparse.Namespace) -> Optional[str]:
   """Why these flags cannot run, or None."""
-  if not args.sparse:
-    return ('the dense train step (no --sparse) is not ported; pass '
-            '--sparse')
+  if args.no_dedup and not args.sparse:
+    return '--no-dedup applies to the sparse update only; pass --sparse'
   if args.interleave > 0:
     return '--interleave (PICASSO micro-batch interleaving) is not ported'
   if args.cpu:
@@ -110,39 +115,94 @@ def card() -> Optional[str]:
   return out.strip().splitlines()[0]
 
 
-def build(args: argparse.Namespace, device: torch.device,
-          table_optimizer: str = 'adagrad', split_dense: bool = False):
-  """The state and the step of the config ``args`` on ``device``. The
-  weights are drawn on the CPU from ``SEED``, so every device starts from
-  one state. ``table_optimizer`` (``'adam'`` for LazyAdam) and
-  ``split_dense`` are step options beyond the JAX harness's Adagrad."""
+def _specs(args: argparse.Namespace):
   import hybridbackend_tpu_torch as hbt
   tdt = torch.bfloat16 if args.table_dtype == 'bfloat16' else torch.float32
+  return [hbt.EmbeddingSpec(hbt.TableConfig(f'c{i}', args.vocab, args.dim,
+                                            dtype=tdt))
+          for i in range(args.tables)]
+
+
+def _tower(args: argparse.Namespace, device: torch.device,
+           gen: torch.Generator):
+  """The tower of ``--model`` and ``preds(tower, emb_f, dense_f)``."""
+  import hybridbackend_tpu_torch as hbt
   cdt = torch.bfloat16 if args.bf16 else None
-  specs = [hbt.EmbeddingSpec(hbt.TableConfig(f'c{i}', args.vocab, args.dim,
-                                             dtype=tdt))
-           for i in range(args.tables)]
-  fx = hbt.StackedFeatureExtractor(
-      specs, dense_columns=[f'i{d}' for d in range(args.dense_features)],
-      ctx=hbt.Context(device))
-  gen = torch.Generator().manual_seed(SEED)
-  tables = fx.init(gen)
   if args.model == 'dcnv2':
     tower = hbt.StackedDCNv2(
         [args.dim] * args.tables + [1] * args.dense_features,
         [1024, 512, 256, 1], compute_dtype=cdt, generator=gen, device=device)
-    preds = lambda t, emb_f, dense_f: t(emb_f + dense_f)
-  else:
-    tower = hbt.DLRM(args.dense_features, args.tables, [512, 256], args.dim,
-                     [1024, 512, 1], compute_dtype=cdt, generator=gen,
-                     device=device)
-    preds = lambda t, emb_f, dense_f: t(dense_f, emb_f)
+    return tower, lambda t, emb_f, dense_f: t(emb_f + dense_f)
+  tower = hbt.DLRM(args.dense_features, args.tables, [512, 256], args.dim,
+                   [1024, 512, 1], compute_dtype=cdt, generator=gen,
+                   device=device)
+  return tower, lambda t, emb_f, dense_f: t(dense_f, emb_f)
+
+
+def bce(preds: torch.Tensor, y: torch.Tensor):
+  """The mean binary cross-entropy of clipped predictions, with the
+  predictions and per-example losses that the trainers' metrics read."""
+  p = torch.clamp(preds, 1e-6, 1 - 1e-6)
+  pel = -(y * torch.log(p) + (1 - y) * torch.log(1 - p))
+  return torch.mean(pel), {'preds': p, 'per_example_loss': pel}
+
+
+def sparse_parts(args: argparse.Namespace, device: torch.device):
+  """``(fx, tables, tower, model_loss)`` of the sparse config ``args`` on
+  ``device``, drawn on the CPU from ``SEED`` (so every device starts from
+  one state)."""
+  import hybridbackend_tpu_torch as hbt
+  fx = hbt.StackedFeatureExtractor(
+      _specs(args),
+      dense_columns=[f'i{d}' for d in range(args.dense_features)],
+      ctx=hbt.Context(device))
+  gen = torch.Generator().manual_seed(SEED)
+  tables = fx.init(gen)
+  tower, preds = _tower(args, device, gen)
 
   def model_loss(t, emb_f, dense_f, batch):
-    p = torch.clamp(preds(t, emb_f, dense_f), 1e-6, 1 - 1e-6)
-    y = batch['label']
-    return -torch.mean(y * torch.log(p) + (1 - y) * torch.log(1 - p)), {}
+    return bce(preds(t, emb_f, dense_f), batch['label'])
 
+  return fx, tables, tower, model_loss
+
+
+def dense_parts(args: argparse.Namespace, device: torch.device):
+  """``(loss_fn, module, optimizer)`` of the dense-gradient config
+  ``args`` on ``device``, in the order ``Trainer`` takes them: the
+  ``init_tables`` tables under ``tables``, the tower under ``net``, and
+  ``multi_optimizer(Adagrad, Adam)``; drawn on the CPU from ``SEED``."""
+  import hybridbackend_tpu_torch as hbt
+  specs = _specs(args)
+  dense_names = [f'i{d}' for d in range(args.dense_features)]
+  gen = torch.Generator().manual_seed(SEED)
+  tables = hbt.init_tables(specs, gen, device)
+  tower, preds = _tower(args, device, gen)
+  module = nn.ModuleDict({'tables': tables, 'net': tower})
+
+  def loss_fn(m, batch):
+    emb_f, dense_f = hbt.extract_features(m['tables'], batch, specs,
+                                          dense_names)
+    return bce(preds(m['net'], emb_f, dense_f), batch['label'])
+
+  optimizer = hbt.multi_optimizer(
+      functools.partial(hbt.Adagrad, lr=TABLE_LR,
+                        initial_accumulator_value=ADAGRAD_INIT),
+      functools.partial(torch.optim.Adam, lr=TOWER_LR))(module)
+  return loss_fn, module, optimizer
+
+
+def build(args: argparse.Namespace, device: torch.device,
+          table_optimizer: str = 'adagrad', split_dense: bool = False):
+  """The state and the step of the config ``args`` on ``device``: the
+  sparse step with ``--sparse``, the dense-gradient step without.
+  ``table_optimizer`` (``'adam'`` for LazyAdam) and ``split_dense`` are
+  sparse-step options beyond the JAX harness's Adagrad."""
+  import hybridbackend_tpu_torch as hbt
+  if not args.sparse:
+    loss_fn, module, optimizer = dense_parts(args, device)
+    return (hbt.TrainState.create(module, optimizer),
+            hbt.make_train_step(loss_fn))
+  fx, tables, tower, model_loss = sparse_parts(args, device)
   state = hbt.SparseTrainState.create(
       tower, tables, functools.partial(torch.optim.Adam, lr=TOWER_LR),
       adagrad_init=ADAGRAD_INIT, adam=table_optimizer == 'adam')

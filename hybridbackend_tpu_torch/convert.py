@@ -10,24 +10,39 @@ logical layout, and does nothing to an unpacked ``[V, dim]`` table.
 A bfloat16 table or slot (an ``ml_dtypes`` array, which ``torch.tensor``
 does not take) is carried across bit for bit through its 16-bit view,
 without importing ``ml_dtypes``.
+
+Two states are carried: the sparse path's ``SparseTrainState``
+(:func:`from_jax`) and the dense path's ``TrainState``
+(:func:`from_jax_dense`: unstacked tables and the tower in one module).
+Either may be taken at a later step: the step count, optax Adam's
+``(mu, nu, count)`` of the tower (into torch Adam's ``exp_avg``,
+``exp_avg_sq`` and ``step``) and optax Adagrad's ``sum_of_squares`` of
+the tables (into the port's ``Adagrad``) come across with it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Sequence, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from hybridbackend_tpu_torch.embedding.sparse_update import SparseOptState
-from hybridbackend_tpu_torch.models.feature import StackedFeatureExtractor
+from hybridbackend_tpu_torch.embedding.table import TableConfig
+from hybridbackend_tpu_torch.models.feature import (
+    EmbeddingSpec, StackedFeatureExtractor)
 from hybridbackend_tpu_torch.models.layers import Dense
 from hybridbackend_tpu_torch.models.ranking import DLRM, StackedDCNv2
+from hybridbackend_tpu_torch.training.optimizer import init_state
 from hybridbackend_tpu_torch.training.sparse_step import (
     OptimizerFactory, SparseTrainState)
+from hybridbackend_tpu_torch.training.train import TrainState
 
 Tower = Union[StackedDCNv2, DLRM]
+# optax ``ScaleByAdamState`` of the tower: (mu, nu, count), mu and nu
+# shaped as the tower's JAX params.
+AdamState = Tuple[Any, Any, int]
 
 
 def _tensor(arr: np.ndarray, dtype: torch.dtype,
@@ -40,67 +55,110 @@ def _tensor(arr: np.ndarray, dtype: torch.dtype,
   return torch.tensor(arr, dtype=dtype, device=device)
 
 
+def _logical_table(arr: np.ndarray, cfg: TableConfig, device: torch.device,
+                   name: str) -> torch.Tensor:
+  flat = np.asarray(arr).reshape(-1, cfg.dim)
+  if flat.shape[0] < cfg.padded_vocab():
+    raise ValueError(f'{name}: {flat.shape[0]} rows, the port needs '
+                     f'{cfg.padded_vocab()}')
+  # Rows past padded_vocab are the JAX layout's alignment padding; no
+  # valid id reaches them. torch.tensor copies: the port updates its
+  # tables in place, and the source may be a read-only JAX buffer.
+  return _tensor(flat[:cfg.padded_vocab()], cfg.dtype, device)
+
+
 def _logical(fx: StackedFeatureExtractor, arrays: Mapping[str, np.ndarray]
              ) -> Dict[str, torch.Tensor]:
-  out = {}
-  for stack in fx.stacks:
-    name, cfg = stack.stacked.name, stack.stacked
-    flat = np.asarray(arrays[name]).reshape(-1, cfg.dim)
-    if flat.shape[0] < cfg.padded_vocab():
-      raise ValueError(f'{name}: {flat.shape[0]} rows, the port needs '
-                       f'{cfg.padded_vocab()}')
-    # Rows past padded_vocab are the JAX layout's alignment padding; no
-    # valid id reaches them. torch.tensor copies: the port updates its
-    # tables in place, and the source may be a read-only JAX buffer.
-    out[name] = _tensor(flat[:cfg.padded_vocab()], cfg.dtype, fx.ctx.device)
+  return {s.stacked.name: _logical_table(arrays[s.stacked.name], s.stacked,
+                                         fx.ctx.device, s.stacked.name)
+          for s in fx.stacks}
+
+
+def _layers(model: nn.Module, params: Mapping[str, Any]
+            ) -> Tuple[List[Dense], List[Mapping]]:
+  """The tower's ``Dense`` layers and the JAX ``{w, b}`` dicts of a
+  params-shaped tree (the params, or Adam's ``mu`` or ``nu``), in one
+  order."""
+  if isinstance(model, StackedDCNv2):
+    return ([model.cross, *model.mlp.layers],
+            [params['cross'], *params['mlp']])
+  if isinstance(model, DLRM):
+    return ([*model.bottom_mlp.layers, model.bottom_out,
+             *model.top_mlp.layers],
+            [*params['bottom_mlp'], params['bottom_out'],
+             *params['top_mlp']])
+  raise TypeError(f'no JAX params layout for {type(model).__name__}')
+
+
+def _dense_pairs(layers: Sequence[Dense], params: Sequence[Mapping]
+                 ) -> List[Tuple[nn.Parameter, torch.Tensor]]:
+  """``(parameter, value)`` for every ``w`` and ``b`` of ``layers``, the
+  value from the JAX ``{w, b}`` dicts as float32 (same layout)."""
+  if len(layers) != len(params):
+    raise ValueError(f'model has {len(layers)} dense layers, params '
+                     f'{len(params)}')
+  out = []
+  for layer, p in zip(layers, params):
+    for key in ('w', 'b'):
+      target = getattr(layer, key)
+      value = torch.tensor(np.asarray(p[key]), dtype=torch.float32)
+      if value.shape != target.shape:
+        raise ValueError(f'{key}: {tuple(value.shape)} does not fit '
+                         f'{tuple(target.shape)}')
+      out.append((target, value))
   return out
 
 
 def _load_dense(layers: Sequence[Dense], params: Sequence[Mapping]):
   """Copy JAX ``{w, b}`` dicts into ``Dense`` layers (same layout)."""
-  if len(layers) != len(params):
-    raise ValueError(f'model has {len(layers)} dense layers, params '
-                     f'{len(params)}')
   with torch.no_grad():
-    for layer, p in zip(layers, params):
-      for key in ('w', 'b'):
-        target = getattr(layer, key)
-        value = torch.tensor(np.asarray(p[key]), dtype=torch.float32)
-        if value.shape != target.shape:
-          raise ValueError(f'{key}: {tuple(value.shape)} does not fit '
-                           f'{tuple(target.shape)}')
-        target.copy_(value)
+    for target, value in _dense_pairs(layers, params):
+      target.copy_(value)
+
+
+def _pairs(model: nn.Module, tree: Mapping[str, Any]
+           ) -> List[Tuple[nn.Parameter, torch.Tensor]]:
+  """``(parameter, value)`` for every weight of the tower, from a JAX
+  params-shaped tree (the params, or Adam's ``mu`` or ``nu``)."""
+  return _dense_pairs(*_layers(model, tree))
+
+
+def _load_tower(model: nn.Module, params: Mapping[str, Any]) -> None:
+  _load_dense(*_layers(model, params))
 
 
 def load_dcn_v2(model: StackedDCNv2, params: Mapping[str, Any]) -> None:
   """Copy JAX ``stacked_dcn_v2`` params ``{'cross': {w, b}, 'mlp':
   [{w, b}, ...]}`` into ``model`` (same ``w: [in, out]`` layout)."""
-  _load_dense([model.cross, *model.mlp.layers],
-              [params['cross'], *params['mlp']])
+  _load_tower(model, params)
 
 
 def load_dlrm(model: DLRM, params: Mapping[str, Any]) -> None:
   """Copy JAX ``dlrm`` params ``{'bottom_mlp': [{w, b}, ...],
   'bottom_out': {w, b}, 'top_mlp': [{w, b}, ...]}`` into ``model``."""
-  _load_dense([*model.bottom_mlp.layers, model.bottom_out,
-               *model.top_mlp.layers],
-              [*params['bottom_mlp'], params['bottom_out'],
-               *params['top_mlp']])
+  _load_tower(model, params)
 
 
-def _load_tower(model: nn.Module, params: Mapping[str, Any]) -> None:
-  if isinstance(model, StackedDCNv2):
-    load_dcn_v2(model, params)
-  elif isinstance(model, DLRM):
-    load_dlrm(model, params)
-  else:
-    raise TypeError(f'no JAX params layout for {type(model).__name__}')
+def load_adam_state(optimizer, model: nn.Module, adam: AdamState) -> None:
+  """Copy optax Adam's ``(mu, nu, count)`` of the tower ``model`` into
+  torch Adam's ``exp_avg``, ``exp_avg_sq`` and ``step`` (``optimizer``
+  is that Adam, or a ``MultiOptimizer`` that holds it)."""
+  mu, nu, count = adam
+  init_state(optimizer)
+  state = optimizer.state
+  with torch.no_grad():
+    for (p, m), (_, v) in zip(_pairs(model, mu), _pairs(model, nu)):
+      slots = state[p]
+      slots['exp_avg'].copy_(m)
+      slots['exp_avg_sq'].copy_(v)
+      slots['step'].fill_(float(count))
 
 
 def from_jax(fx: StackedFeatureExtractor, tables: Mapping[str, np.ndarray],
              slots: Mapping[str, Any], model: Tower,
              dense_params: Mapping[str, Any],
-             dense_optimizer: OptimizerFactory) -> SparseTrainState:
+             dense_optimizer: OptimizerFactory, *, step: int = 0,
+             adam: Optional[AdamState] = None) -> SparseTrainState:
   """The port's state from a JAX ``SparseTrainState`` given as numpy.
 
   Args:
@@ -111,9 +169,11 @@ def from_jax(fx: StackedFeatureExtractor, tables: Mapping[str, np.ndarray],
     model: the port's tower (``StackedDCNv2`` or ``DLRM``), loaded in
       place from ``dense_params``, the JAX ``stacked_dcn_v2`` or ``dlrm``
       params.
-    dense_optimizer: builds the tower's optimizer. Its slots start empty,
-      as the JAX ones are at step 0; moments of a later step are not
-      carried over.
+    dense_optimizer: builds the tower's optimizer (torch Adam for optax
+      Adam).
+    step: ``int(state.step)``.
+    adam: the tower's ``state.dense_opt[0]`` as ``(mu, nu, count)``; None
+      leaves the optimizer's state empty, as it is at step 0.
   """
   _load_tower(model, dense_params)
   model.to(fx.ctx.device)
@@ -125,11 +185,55 @@ def from_jax(fx: StackedFeatureExtractor, tables: Mapping[str, np.ndarray],
                      f'per stack; got {sorted(widths)} arrays')
   by_slot = [_logical(fx, {n: s[i] for n, s in per_stack.items()})
              for i in range(max(widths, default=0))]
-  return SparseTrainState(
-      step=0, dense=model, tables=_logical(fx, tables),
+  state = SparseTrainState(
+      step=step, dense=model, tables=_logical(fx, tables),
       table_opt={name: SparseOptState(acc=tuple(b[name] for b in by_slot))
                  for name in per_stack},
       dense_opt=dense_optimizer(model.parameters()))
+  if adam is not None:
+    load_adam_state(state.dense_opt, model, adam)
+  return state
 
 
-__all__ = ['from_jax', 'load_dcn_v2', 'load_dlrm']
+def from_jax_dense(module: nn.Module, specs: Sequence[EmbeddingSpec],
+                   params: Mapping[str, Any], optimizer, *, step: int = 0,
+                   sum_of_squares: Optional[Mapping[str, np.ndarray]] = None,
+                   adam: Optional[AdamState] = None) -> TrainState:
+  """The port's dense-path state from a JAX ``TrainState`` given as
+  numpy.
+
+  Args:
+    module: the port's parameters, with the ``init_tables`` tables under
+      ``tables`` and the tower under ``net``, on their device; loaded in
+      place.
+    specs: the tables' specs, in any order.
+    params: ``state.params``, ``{'tables': {name: array}, 'net': tower
+      params}``; a lane-packed table comes across in its logical layout.
+    optimizer: built on ``module`` (for example ``multi_optimizer(
+      partial(Adagrad, lr), partial(torch.optim.Adam, lr))(module)``).
+    step: ``int(state.step)``.
+    sum_of_squares: optax Adagrad's accumulators of the tables, ``{name:
+      array}``, into the port's ``Adagrad``.
+    adam: optax Adam's ``(mu, nu, count)`` of the tower, ``mu`` and
+      ``nu`` shaped as ``params['net']``.
+  """
+  tables = module.tables
+  configs = {s.name: s.config for s in specs}
+  with torch.no_grad():
+    for name, arr in params['tables'].items():
+      tables[name].copy_(_logical_table(arr, configs[name],
+                                        tables[name].device, name))
+  _load_tower(module.net, params['net'])
+  state = TrainState.create(module, optimizer)
+  with torch.no_grad():
+    for name, arr in (sum_of_squares or {}).items():
+      acc = state.optimizer.state[tables[name]]['sum_of_squares']
+      acc.copy_(_logical_table(arr, configs[name], acc.device, name))
+  if adam is not None:
+    load_adam_state(state.optimizer, module.net, adam)
+  state.step = step
+  return state
+
+
+__all__ = ['from_jax', 'from_jax_dense', 'load_adam_state', 'load_dcn_v2',
+           'load_dlrm']

@@ -1,21 +1,24 @@
-"""Feature extraction over stacked tables.
+"""Feature extraction: batch columns to embedding and dense features.
 
-Counterpart of ``hybridbackend_tpu/models/feature.py:24-204``
-(``EmbeddingSpec`` and ``StackedFeatureExtractor``): all same-dim tables
-share one physical table and one gather per step.
+Counterpart of ``hybridbackend_tpu/models/feature.py:24-204``:
+``init_tables`` and ``extract_features``, one table per column (the
+dense-gradient path), and ``EmbeddingSpec`` and
+``StackedFeatureExtractor``, where all same-dim tables share one physical
+table and one gather per step (the sparse path).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+from torch import nn
 
-from hybridbackend_tpu_torch.embedding.lookup import lookup
+from hybridbackend_tpu_torch.embedding.lookup import lookup, lookup_sparse
 from hybridbackend_tpu_torch.embedding.stack import (
     build_stacks, create_stacked_tables, pack_ids, unpack_embeddings)
-from hybridbackend_tpu_torch.embedding.table import TableConfig
+from hybridbackend_tpu_torch.embedding.table import TableConfig, create_table
 from hybridbackend_tpu_torch.framework.context import Context
 
 Batch = Dict[str, torch.Tensor]
@@ -38,6 +41,45 @@ class EmbeddingSpec:
   @property
   def key(self) -> str:
     return self.column or self.config.name
+
+
+def init_tables(specs: Sequence[EmbeddingSpec], generator: torch.Generator,
+                device: torch.device) -> nn.ParameterDict:
+  """One ``[padded_vocab, dim]`` table per spec, drawn in spec order from
+  ``generator``, as the parameters of a module keyed by table name (the
+  JAX function's params subtree)."""
+  return nn.ParameterDict({
+      spec.name: nn.Parameter(create_table(spec.config, generator, device))
+      for spec in specs})
+
+
+def extract_features(tables: Mapping[str, torch.Tensor], batch: Batch,
+                     specs: Sequence[EmbeddingSpec],
+                     dense_columns: Sequence[str] = ()
+                     ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+  """``(embedding features, each [B, dim]; dense features, each [B, 1]
+  float32)``. A ragged column (padded ids with ``<key>_mask`` in the
+  batch) goes through ``lookup_sparse`` and its table's combiner; a
+  fixed-width multivalent column without a mask is combined by mean."""
+  emb_features = []
+  for spec in specs:
+    ids = batch[spec.key]
+    table = tables[spec.name]
+    mask_key = spec.key + '_mask'
+    if ids.dim() >= 2 and mask_key in batch:
+      emb = lookup_sparse(table, ids, batch[mask_key], spec.config)
+    else:
+      emb = lookup(table, ids, spec.config)
+      if emb.dim() > 2:
+        emb = torch.mean(emb, dim=-2)
+    emb_features.append(emb)
+  dense_features = []
+  for col in dense_columns:
+    v = batch[col]
+    if v.dim() == 1:
+      v = v[:, None]
+    dense_features.append(v.to(torch.float32))
+  return emb_features, dense_features
 
 
 class StackedFeatureExtractor:
@@ -129,4 +171,5 @@ class StackedFeatureExtractor:
     return self.combine_from_raw(raw, layouts, batch)
 
 
-__all__ = ['EmbeddingSpec', 'StackedFeatureExtractor']
+__all__ = ['EmbeddingSpec', 'StackedFeatureExtractor', 'extract_features',
+           'init_tables']

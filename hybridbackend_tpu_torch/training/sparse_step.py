@@ -127,7 +127,8 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
                              split_dense=table_split_dense)
 
     state.step += 1
-    metrics = dict(aux)
+    metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+               for k, v in aux.items()}
     metrics['loss'] = loss.detach()
     return state, metrics
 

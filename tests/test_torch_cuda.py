@@ -24,6 +24,10 @@ each element at most 1 bf16 ulp apart, or 1e-6 apart where a result
 cancels to near zero, and at most 1% of the elements apart at all
 (``assert_within_an_ulp``): the same f32 math in the same order rounds to
 the same bf16 except where ``powf`` and ``pow`` differ in an f32 ulp.
+
+``DeviceIterator``'s staging on the card (pinned buffers, copies on its
+own stream, the consumer's stream waiting on them) is held bit for bit
+against the source batches while the consumer's stream is kept busy.
 """
 
 import numpy as np
@@ -799,3 +803,25 @@ def test_bf16_update_kernels_at_the_flagship_list(dev, kernel):
   for x, w in zip(got, want):
     assert_within_an_ulp(x.cpu(), w, share=0.01)
   _assert_untouched(rows, v, [(x.cpu(), t) for x, t in zip(got, state)])
+
+
+def test_device_iterator_stages_exact_batches(dev):
+  """Each batch equals its source bit for bit. Before each batch is read
+  the consumer's stream is held about a millisecond by a spin kernel,
+  and the batch before is dropped: a read that did not wait for its copy,
+  or a buffer handed to the next copy while the held stream had still to
+  read it, would show."""
+  rng = np.random.RandomState(0)
+  batches = [{'ids': rng.randint(0, 1 << 40, (4096, 26)),
+              'x': rng.rand(4096).astype(np.float32),
+              'label': rng.randint(0, 2, 4096).astype(np.float32),
+              'mask': rng.rand(4096, 3) < 0.5} for _ in range(40)]
+  got = []
+  for batch in hbt.DeviceIterator(iter(batches), dev, capacity=2):
+    torch.cuda._sleep(2_000_000)
+    got.append({k: v.clone() for k, v in batch.items()})
+  assert len(got) == len(batches)
+  for g, b in zip(got, batches):
+    for k, v in b.items():
+      assert g[k].device == dev and g[k].shape == v.shape
+      np.testing.assert_array_equal(g[k].cpu().numpy(), v)

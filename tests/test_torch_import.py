@@ -13,7 +13,16 @@ def test_import_leaves_jax_out():
   code = textwrap.dedent("""
       import sys
       import hybridbackend_tpu_torch
+      import hybridbackend_tpu_torch.benchmarks.synthetic
       import hybridbackend_tpu_torch.benchmarks.train_benchmark
+      import hybridbackend_tpu_torch.data.prefetch
+      import hybridbackend_tpu_torch.data.sync
+      import hybridbackend_tpu_torch.estimator
+      import hybridbackend_tpu_torch.metrics
+      import hybridbackend_tpu_torch.training.checkpoint
+      import hybridbackend_tpu_torch.training.hooks
+      import hybridbackend_tpu_torch.training.optimizer
+      import hybridbackend_tpu_torch.training.train
       bad = sorted(m for m in sys.modules
                    if m == 'jax' or m.startswith('jax.')
                    or m == 'hybridbackend_tpu'

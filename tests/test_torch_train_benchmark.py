@@ -1,34 +1,40 @@
 """The port's train-step harness (``hybridbackend_tpu_torch.benchmarks.
 train_benchmark``) on the CPU at a tiny shape: 2 tables of [1000, 16],
 batch 64, 2 windows of 3 timed steps. It runs every model and table
-dtype through the sparse step and reports one JSON line; the flags it
-does not port exit nonzero with their reason. Its times here are host-clock CPU times, which
-the tests do not read."""
+dtype through the sparse step, and through the dense-gradient step
+without ``--sparse``, and reports one JSON line; the flags it does not
+port exit nonzero with their reason. Its times here are host-clock CPU
+times, which the tests do not read."""
 
 import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
+from hybridbackend_tpu_torch.benchmarks import synthetic
 from hybridbackend_tpu_torch.benchmarks import train_benchmark as tb
 
-TINY = ['--sparse', '--device', 'cpu', '--tables', '2', '--vocab', '1000',
-        '--batch', '64', '--dense-features', '3', '--steps', '3',
-        '--repeats', '2', '--json']
+SHAPE = ['--device', 'cpu', '--tables', '2', '--vocab', '1000', '--batch',
+         '64', '--dense-features', '3', '--steps', '3', '--repeats', '2',
+         '--json']
+TINY = ['--sparse'] + SHAPE
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.mark.parametrize('sparse', [True, False])
 @pytest.mark.parametrize('table_dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('model', ['dcnv2', 'dlrm'])
-def test_harness_reports_one_json_line(capsys, model, table_dtype):
-  assert tb.main(TINY + ['--model', model, '--table-dtype', table_dtype]) == 0
+def test_harness_reports_one_json_line(capsys, model, table_dtype, sparse):
+  flags = ['--sparse'] * sparse + SHAPE
+  assert tb.main(flags + ['--model', model, '--table-dtype', table_dtype]) == 0
   (line,) = capsys.readouterr().out.strip().splitlines()
   got = json.loads(line)
-  assert (got['model'], got['table_dtype'], got['device']) == (
-      model, table_dtype, 'cpu')
+  assert (got['model'], got['table_dtype'], got['device'], got['sparse']) == (
+      model, table_dtype, 'cpu', sparse)
   assert got['timed_steps'] == 6 and got['card'] is None
   assert got['torch_train_step_ms'] > 0
   # The JAX harness's report: the best window over its steps, and the
@@ -38,6 +44,9 @@ def test_harness_reports_one_json_line(capsys, model, table_dtype):
       64 / got['ms_per_step_best'] * 1e3)
   assert got['final_loss'] == got['final_loss']          # not NaN
   assert set(got['kernel_launches']) == set(tb.COUNTED)
+  if not sparse:
+    # The dense path runs no kernel of the port.
+    assert not any(got['kernel_launches'].values())
 
 
 def test_harness_steps_follow_the_table_dtype():
@@ -55,14 +64,34 @@ def test_harness_steps_follow_the_table_dtype():
   assert torch.equal(batch['c1'], (ids[:, 1] + 999) % 1000)
 
 
-@pytest.mark.parametrize('flags', [
-    ['--device', 'cpu'],                                 # no --sparse
-    ['--sparse', '--device', 'cpu', '--interleave', '2'],
-    ['--sparse', '--device', 'cpu', '--cpu', '4'],
+@pytest.mark.parametrize('flags,why', [
+    (['--device', 'cpu', '--no-dedup'], 'sparse update only'),
+    (['--sparse', '--device', 'cpu', '--interleave', '2'], 'not ported'),
+    (['--sparse', '--device', 'cpu', '--cpu', '4'], 'not ported'),
 ])
-def test_harness_refuses_what_is_not_ported(capsys, flags):
+def test_harness_refuses_what_is_not_ported(capsys, flags, why):
   assert tb.main(flags) != 0
-  assert 'not ported' in capsys.readouterr().err
+  assert why in capsys.readouterr().err
+
+
+def test_dense_mode_steps_every_table():
+  """Without --sparse: one table per column under multi_optimizer, each
+  table moved where the batch's ids touched it, its accumulator grown."""
+  args = tb.parse_args(SHAPE)
+  state, step = tb.build(args, torch.device('cpu'))
+  base, ids = tb.make_batch(args, torch.device('cpu'))
+  tables = state.params['tables']
+  before = {k: t.detach().clone() for k, t in tables.items()}
+  state, metrics = step(state, tb.shifted(base, ids, args.vocab, 0))
+  assert state.step == 1 and bool(torch.isfinite(metrics['loss']))
+  for name in tables:
+    touched = torch.zeros(args.vocab, dtype=torch.bool)
+    touched[ids[:, int(name[1:])].long()] = True
+    after = tables[name].detach()
+    assert torch.equal(after[~touched], before[name][~touched])
+    assert not torch.equal(after[touched], before[name][touched])
+    acc = state.optimizer.state[tables[name]]['sum_of_squares']
+    assert bool((acc[touched] > 0.1).any())
 
 
 def test_harness_needs_a_card_unless_asked_for_the_cpu(capsys, monkeypatch):
@@ -81,6 +110,25 @@ def test_harness_runs_as_a_module():
       'table_dtype'] == 'bfloat16'
   refused = subprocess.run(
       [sys.executable, '-m', 'hybridbackend_tpu_torch.benchmarks.'
-       'train_benchmark', '--device', 'cpu'], capture_output=True,
-      text=True, timeout=300, cwd=ROOT)
+       'train_benchmark', '--device', 'cpu', '--sparse', '--interleave', '2'],
+      capture_output=True, text=True, timeout=300, cwd=ROOT)
   assert refused.returncode != 0 and 'not ported' in refused.stderr
+
+
+def test_synthetic_criteo_batches_carry_the_planted_signal():
+  batches = synthetic.criteo_batches(4096, 2, vocab=1000, tables=5,
+                                     dense_features=3, seed=7)
+  again = synthetic.criteo_batches(4096, 2, vocab=1000, tables=5,
+                                   dense_features=3, seed=7)
+  assert len(batches) == 2
+  b = batches[0]
+  assert sorted(b) == sorted([f'c{i}' for i in range(5)]
+                             + ['i0', 'i1', 'i2', 'label'])
+  assert b['c0'].dtype == np.int64 and b['i0'].dtype == np.float32
+  assert b['c4'].min() >= 0 and b['c4'].max() < 1000
+  assert np.array_equal(b['c3'], again[0]['c3'])
+  # zipf(1.5): id 1 is the most common id.
+  assert np.bincount(b['c0']).argmax() == 1
+  # Ids that 5 divides in c0 raise the label rate; those in c4 do not.
+  hit = b['c0'] % 5 == 0
+  assert b['label'][hit].mean() > b['label'][~hit].mean() + 0.1
