@@ -6,7 +6,9 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py [--profile] [--tune]
 
 It builds the port's CUDA kernels from ``hybridbackend_tpu_torch/ops/csrc``
-(one nvcc per source, all at once) and drives the flagship sparse train
+(one nvcc per source, all at once) and its native Parquet reader from
+``hybridbackend_tpu_torch/native/hbtpu_data.cc`` (``g++`` beside them), and
+drives the flagship sparse train
 step, ``benchmarks/train_benchmark.py --sparse`` with its defaults: 26
 tables of [100000, 16] stacked into one [2600000, 16] table, batch 8192
 with 13 dense features, BCE loss, Adam 1e-3 on the tower, ids shifted by
@@ -25,8 +27,10 @@ harness's (``hybridbackend_tpu_torch/benchmarks/train_benchmark.py``), so
 the timed phases and the harness time the same thing.
 
 Phases; any failure raises and the script exits nonzero:
-  0. the card (nvidia-smi), torch/CUDA/nvcc versions, pyarrow's version
-     (or that it is absent), the kernel builds
+  0. the card (nvidia-smi), torch/CUDA/nvcc versions, whether pyarrow's
+     headers, ``libarrow`` and ``libparquet`` are present (with its
+     version), the native reader's build (``g++``, beside the kernel
+     builds) and its time, the kernel builds
      with ptxas's registers and spills, and the resident blocks per SM of
      the Adagrad and LazyAdam kernels at the flagship row width;
   1. each kernel against its plain PyTorch version on the card, at the
@@ -93,7 +97,31 @@ Phases; any failure raises and the script exits nonzero:
      tower weights against Adam's step from its own moments), then 33
      timed steps and one evaluation; no counted kernel runs;
  19. the harness in its dense mode (no ``--sparse``), its JSON line
-     printed.
+     printed;
+ 20. the port's e2e harness (``python -m
+     hybridbackend_tpu_torch.benchmarks.e2e_benchmark --json``) in its own
+     process, once with the native reader and once with
+     ``--python-reader``: a Parquet file of 64 batches of 8192 through
+     ``ParquetDataset`` and ``DeviceIterator`` into the flagship sparse
+     step, 128 timed steps; each JSON line printed (e2e examples/s, stall
+     fraction, the steps alone on placed batches, the reader and its
+     rows/s alone); the Adagrad kernel launched once a step, at least 64
+     fetches, and the native reader serving where phase 0 found Arrow;
+ 21. the port's Criteo entry point (``examples/criteo/train.py --sparse
+     --synthesize``) trains 64 steps from the file it writes, evaluates
+     and prints the AUC (the Adagrad kernel once a step); the native and
+     the Python reader give the file's batches bit for bit in file order
+     and permutations of its rows shuffled; the entry point trains and
+     evaluates again through the Python reader, and the planted signal's
+     own AUC is printed beside both; the file's first
+     2 batches train its trainer on the card against the CPU, each step
+     from one state (loss, tables, accumulators, tower gradients and
+     weights at phase 2's tolerances, and phase 18's rule); then
+     the flagship ``SparseTrainer`` trains from phase 20's file in 4
+     alternating rounds of 32 steps (the step alone on placed batches,
+     ``train`` with and without ``DeviceIterator`` from each reader, as
+     the trainers' ``prefetch`` default is decided), and 8 steps with
+     LazyAdam tables (the LazyAdam kernel once a step).
 With ``--profile`` it then traces 10 steps of each timed variant with
 ``torch.profiler`` and prints device time per step by kernel class. With
 ``--tune`` phase 1 also times the add kernel over tile sizes, the
@@ -102,7 +130,8 @@ modes) and LazyAdam kernels over tile sizes and state batches (the rows
 of how many run heads a thread loads before it waits for its tile's
 gradients); each sweep forth and back.
 The second-to-last line is a JSON object describing each kernel (its
-times, launches on its path and in the trainers' runs, and its bound: the
+times, launches on its path, in the trainers' runs and in the runs from
+Parquet files, and its bound: the
 larger of its bytes over 3.35 TB/s and its operations over the card's
 peak rate); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -116,6 +145,7 @@ import argparse
 import collections
 import ctypes
 import functools
+import inspect
 import json
 import math
 import os
@@ -124,6 +154,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -287,16 +318,35 @@ def phase0_environment():
   nvcc = _run([build.nvcc_path(), '--version']).splitlines()[-1]
   print(f'python {sys.version.split()[0]} torch {torch.__version__} '
         f'cuda {torch.version.cuda} nvcc: {nvcc}')
-  try:
-    import pyarrow
-    print(f'pyarrow {pyarrow.__version__}')
-  except ImportError:
-    print('pyarrow: absent')
+  from hybridbackend_tpu_torch.native import tabular
+  flags, arrow = tabular.arrow_toolchain()
+  print(f'Arrow for the native reader: {arrow}' if flags else
+        f'Arrow for the native reader: absent ({arrow}); the file phases '
+        'read through the Python reader')
+  # The native reader's g++ runs beside the nvcc builds.
+  native = {}
+
+  def build_native():
+    try:
+      native['lib'] = tabular.load()
+    except tabular.NativeUnavailable as e:
+      native['error'] = e
+  native_build = threading.Thread(target=build_native)
   t0 = time.perf_counter()
+  if flags:
+    native_build.start()
   libs = build.load_all()
   print(f'kernel builds: {time.perf_counter() - t0:.3f} s wall for '
         f'{len(libs)} libraries, built concurrently; each is built from and '
         f'hashed with {", ".join(h.name for h in build.headers())}')
+  if flags:
+    native_build.join()
+    if 'error' in native:
+      raise RuntimeError(f'the native reader did not build: {native["error"]}')
+    lib = native['lib']
+    print(f'native reader build: {lib.build_seconds:.3f} s g++ '
+          f'({lib.path.name}), {time.perf_counter() - t0:.3f} s wall with the '
+          'kernel builds')
   for name, lib in libs.items():
     print(f'  {name}: {lib.build_seconds:.3f} s nvcc ({lib.path.name})')
     for line in lib.compiler_log.splitlines():
@@ -309,7 +359,7 @@ def phase0_environment():
         f'{tile} entries, state batch {batch}: ' + ', '.join(
             f'{name} {_blocks_per_sm(name, d, tile, batch)}'
             for name in STATE_KERNELS))
-  return smi
+  return smi, bool(flags)
 
 
 def _blocks_per_sm(name, d, tile, batch):
@@ -1224,15 +1274,15 @@ def timed(cfg: argparse.Namespace, dev: torch.device, label: str, state,
   batch, warmup and ids shifted by one a step, ``steps`` steps enqueued
   back to back with CUDA events between consecutive steps. ``kernel``
   must have been launched once per step, and no other counted kernel."""
-  base, ids = tb.make_batch(cfg, dev)
-  state, *_ = tb.time_steps(state, step, base, ids, cfg.vocab, 0, tb.WARMUP)
+  batch = functools.partial(tb.shifted, *tb.make_batch(cfg, dev), cfg.vocab)
+  state = tb.time_steps(state, step, batch, 0, tb.WARMUP, dev).state
   torch.cuda.reset_peak_memory_stats(dev)
   held = torch.cuda.memory_allocated(dev)
 
   _reset_counts()
   t0 = time.perf_counter()
-  state, losses, step_ms, _ = tb.time_steps(state, step, base, ids,
-                                            cfg.vocab, tb.WARMUP, steps)
+  state, losses, step_ms, *_ = tb.time_steps(state, step, batch, tb.WARMUP,
+                                             steps, dev)
   wall = time.perf_counter() - t0
   counts = _counts()
   _expect(f'{label}, {steps} steps', counts, **{kernel: steps})
@@ -1456,10 +1506,9 @@ def phase17_sparse_trainer(cfg, dev, smi, bare_state, bare_step):
            + synthetic.criteo_batches(EVAL_SHORT, 1, seed=tb.SEED + 2, **kw))
   labels = np.concatenate([b['label'] for b in evals])
   # The harness's bare step, in this process, just before the trainer.
-  base, ids = tb.make_batch(cfg, dev)
-  *_, bare_gaps, _ = tb.time_steps(bare_state, bare_step, base, ids,
-                                   cfg.vocab, 1000, 30)
-  bare_ms = statistics.median(bare_gaps)
+  batch = functools.partial(tb.shifted, *tb.make_batch(cfg, dev), cfg.vocab)
+  bare_ms = statistics.median(
+      tb.time_steps(bare_state, bare_step, batch, 1000, 30, dev).gaps)
   with tempfile.TemporaryDirectory() as tmp:
     dir_a, dir_b = os.path.join(tmp, 'a'), os.path.join(tmp, 'b')
     live = _sparse_trainer(cfg, dev, dir_a)
@@ -1606,6 +1655,87 @@ def phase17_sparse_trainer(cfg, dev, smi, bare_state, bare_step):
   return launches, batches, evals
 
 
+def _hold_tower(label, g_net, c_net, g_opt, c_opt, before, v_before, adam,
+                report, apart_in):
+  """One Adam step of the tower on the card (``g_net``, its optimizer
+  state ``g_opt``) against the same step on the CPU (``c_net``,
+  ``c_opt``), both from the CPU's copies of the weights and first
+  moments before it (``before``) and of the second moments
+  (``v_before``); ``adam`` is ``(lr, b1, b2, eps)``. Raises where a
+  difference exceeds the allowances below; adds to ``report`` and
+  ``apart_in``."""
+  lr, b1, b2, eps = adam
+  # The tower, in two parts. (a) Across the devices: each weight's
+  # gradient, read from Adam's first moment (g = (m - b1 * m_before) /
+  # (1 - b1), m_before the same on both), is a sum over the batch whose
+  # order error reaches about n * 2**-24 = 5e-4 of the sum of its terms'
+  # sizes: 1e-3 of itself plus 1e-3 of the tensor's largest gradient, as
+  # phase 2 holds it; the second moment then within (1 - b2) times what
+  # twice that allowance does to g**2 (a gradient read from m carries
+  # m's rounding over 1 - b1 besides), plus 4 of its own ulps. (b) On each
+  # device: every weight is Adam's step from the state before it, by
+  # that device's own moments, to 2**-22 of the weight and 2**-18 of the
+  # step (a few f32 roundings of each). Together they hold every weight:
+  # where the devices' gradients differ within (a), the weights differ
+  # by what Adam makes of it, which near a zero gradient is up to 2 * lr
+  # (lr * g / (|g| + eps) takes either sign); those weights are counted
+  # below with their gradients' share of the tensor's largest.
+  for (n, gp), cp, (w0, m0), v0 in zip(g_net.named_parameters(),
+                                       c_net.parameters(), before,
+                                       v_before):
+    gs, cs = g_opt[gp], c_opt[cp]
+    gm, gv = gs['exp_avg'].cpu(), gs['exp_avg_sq'].cpu()
+    cm, cv = cs['exp_avg'], cs['exp_avg_sq']
+    gg, cg = ((m - b1 * m0) / (1 - b1) for m in (gm, cm))
+    largest = float(cg.abs().max())
+    allowance = 1e-3 * cg.abs() + 1e-3 * largest
+    g_diff = (gg - cg).abs()
+    report['tower_grad_err_of_max'] = max(
+        report['tower_grad_err_of_max'], float(g_diff.max()) / largest)
+    if bool((g_diff > allowance).any()):
+      raise AssertionError(f'{label}: the gradient of '
+                           f'net.{n} differs by up to '
+                           f'{float(g_diff.max())}, largest {largest}')
+    v_allow = ((1 - b2) * 2 * allowance * (2 * cg.abs() + 2 * allowance)
+               + 2**-21 * cv)
+    v_ratio = float(((gv - cv).abs() / v_allow.clamp(min=1e-38)).max())
+    report['tower_v_err_of_allowance'] = max(
+        report['tower_v_err_of_allowance'], v_ratio)
+    if v_ratio > 1:
+      raise AssertionError(f'{label}: the second moment of '
+                           f'net.{n} differs by {v_ratio:.3g} times its '
+                           'allowance')
+    t = float(cs['step'])
+    if float(gs['step']) != t:
+      raise AssertionError(f'{label}: Adam steps '
+                           f'{float(gs["step"])} and {t}')
+    for where, w, m, v in (('card', gp.detach().cpu(), gm, gv),
+                           ('cpu', cp.detach(), cm, cv)):
+      step = (lr / (1 - b1**t) * m.double()
+              / (v.double().sqrt() / math.sqrt(1 - b2**t) + eps))
+      want = w0.double() - step
+      tol = 2**-22 * want.abs() + 2**-18 * step.abs()
+      ratio = float(((w.double() - want).abs()
+                     / tol.clamp(min=1e-300)).max())
+      report[f'tower_adam_err_of_tol_{where}'] = max(
+          report[f'tower_adam_err_of_tol_{where}'], ratio)
+      if ratio > 1:
+        raise AssertionError(f'{label}: net.{n} on the '
+                             f'{where} is {ratio:.3g} times its tolerance '
+                             "from Adam's step of its own moments")
+    diff = (gp.detach().cpu() - cp.detach()).abs()
+    report['tower_max_abs_err'] = max(report['tower_max_abs_err'],
+                                      float(diff.max()))
+    apart = diff > 1e-4 + 1e-4 * cp.detach().abs()
+    if bool(apart.any()):
+      apart_in.add(f'net.{n} at {label}')
+      report['tower_weights_over_1e-4_apart'] += int(apart.sum())
+      for where, g in (('card', gg), ('cpu', cg)):
+        key = f'their_largest_grad_of_max_{where}'
+        report[key] = max(report[key],
+                          float(g[apart].abs().max()) / largest)
+
+
 def phase18_dense_trainer(cfg, dev, smi, batches, evals):
   """Phase 18: the dense-gradient ``Trainer`` at the flagship width (26
   tables of [100000, 16], one per column; ``multi_optimizer`` with the
@@ -1624,13 +1754,7 @@ def phase18_dense_trainer(cfg, dev, smi, batches, evals):
   # Each step from one state: before it the CPU trainer takes the card's
   # state, so that every comparison is of one step, as in phase 2.
   report = {'loss_rel_err': 0.0, 'table_max_abs_err': 0.0,
-            'acc_max_abs_err': 0.0, 'tower_grad_err_of_max': 0.0,
-            'tower_v_err_of_allowance': 0.0,
-            'tower_adam_err_of_tol_card': 0.0,
-            'tower_adam_err_of_tol_cpu': 0.0, 'tower_max_abs_err': 0.0,
-            'tower_weights_over_1e-4_apart': 0,
-            'their_largest_grad_of_max_card': 0.0,
-            'their_largest_grad_of_max_cpu': 0.0}
+            'acc_max_abs_err': 0.0, **_tower_report()}
   apart_in = set()
   group = c_trainer.state.optimizer.dense_opt.param_groups[0]
   lr, (b1, b2), eps = group['lr'], group['betas'], group['eps']
@@ -1670,75 +1794,9 @@ def phase18_dense_trainer(cfg, dev, smi, batches, evals):
         if not torch.allclose(x, y, rtol=1e-5, atol=1e-5):
           raise AssertionError(f'phase 18, step {i + 1}: {key} of {name} '
                                f'differs by up to {err}')
-    # The tower, in two parts. (a) Across the devices: each weight's
-    # gradient, read from Adam's first moment (g = (m - b1 * m_before) /
-    # (1 - b1), m_before the same on both), is a sum over the batch whose
-    # order error reaches about n * 2**-24 = 5e-4 of the sum of its terms'
-    # sizes: 1e-3 of itself plus 1e-3 of the tensor's largest gradient, as
-    # phase 2 holds it; the second moment then within (1 - b2) times what
-    # twice that allowance does to g**2 (a gradient read from m carries
-    # m's rounding over 1 - b1 besides), plus 4 of its own ulps. (b) On each
-    # device: every weight is Adam's step from the state before it, by
-    # that device's own moments, to 2**-22 of the weight and 2**-18 of the
-    # step (a few f32 roundings of each). Together they hold every weight:
-    # where the devices' gradients differ within (a), the weights differ
-    # by what Adam makes of it, which near a zero gradient is up to 2 * lr
-    # (lr * g / (|g| + eps) takes either sign); those weights are counted
-    # below with their gradients' share of the tensor's largest.
-    for (n, gp), cp, (w0, m0), v0 in zip(g_net.named_parameters(),
-                                         c_net.parameters(), before,
-                                         v_before):
-      gs, cs = g_state.optimizer.state[gp], c_state.optimizer.state[cp]
-      gm, gv = gs['exp_avg'].cpu(), gs['exp_avg_sq'].cpu()
-      cm, cv = cs['exp_avg'], cs['exp_avg_sq']
-      gg, cg = ((m - b1 * m0) / (1 - b1) for m in (gm, cm))
-      largest = float(cg.abs().max())
-      allowance = 1e-3 * cg.abs() + 1e-3 * largest
-      g_diff = (gg - cg).abs()
-      report['tower_grad_err_of_max'] = max(
-          report['tower_grad_err_of_max'], float(g_diff.max()) / largest)
-      if bool((g_diff > allowance).any()):
-        raise AssertionError(f'phase 18, step {i + 1}: the gradient of '
-                             f'net.{n} differs by up to '
-                             f'{float(g_diff.max())}, largest {largest}')
-      v_allow = ((1 - b2) * 2 * allowance * (2 * cg.abs() + 2 * allowance)
-                 + 2**-21 * cv)
-      v_ratio = float(((gv - cv).abs() / v_allow.clamp(min=1e-38)).max())
-      report['tower_v_err_of_allowance'] = max(
-          report['tower_v_err_of_allowance'], v_ratio)
-      if v_ratio > 1:
-        raise AssertionError(f'phase 18, step {i + 1}: the second moment of '
-                             f'net.{n} differs by {v_ratio:.3g} times its '
-                             'allowance')
-      t = float(cs['step'])
-      if float(gs['step']) != t:
-        raise AssertionError(f'phase 18, step {i + 1}: Adam steps '
-                             f'{float(gs["step"])} and {t}')
-      for where, w, m, v in (('card', gp.detach().cpu(), gm, gv),
-                             ('cpu', cp.detach(), cm, cv)):
-        step = (lr / (1 - b1**t) * m.double()
-                / (v.double().sqrt() / math.sqrt(1 - b2**t) + eps))
-        want = w0.double() - step
-        tol = 2**-22 * want.abs() + 2**-18 * step.abs()
-        ratio = float(((w.double() - want).abs()
-                       / tol.clamp(min=1e-300)).max())
-        report[f'tower_adam_err_of_tol_{where}'] = max(
-            report[f'tower_adam_err_of_tol_{where}'], ratio)
-        if ratio > 1:
-          raise AssertionError(f'phase 18, step {i + 1}: net.{n} on the '
-                               f'{where} is {ratio:.3g} times its tolerance '
-                               "from Adam's step of its own moments")
-      diff = (gp.detach().cpu() - cp.detach()).abs()
-      report['tower_max_abs_err'] = max(report['tower_max_abs_err'],
-                                        float(diff.max()))
-      apart = diff > 1e-4 + 1e-4 * cp.detach().abs()
-      if bool(apart.any()):
-        apart_in.add(f'net.{n} at step {i + 1}')
-        report['tower_weights_over_1e-4_apart'] += int(apart.sum())
-        for where, g in (('card', gg), ('cpu', cg)):
-          key = f'their_largest_grad_of_max_{where}'
-          report[key] = max(report[key],
-                            float(g[apart].abs().max()) / largest)
+    _hold_tower(f'phase 18, step {i + 1}', g_net, c_net,
+                g_state.optimizer.state, c_state.optimizer.state, before,
+                v_before, (lr, b1, b2, eps), report, apart_in)
   torch.cuda.synchronize(dev)
   counts = _counts()
   _expect(f'phase 18, Trainer.train of {DENSE_STEPS} steps', counts)
@@ -1773,6 +1831,346 @@ def phase18_dense_trainer(cfg, dev, smi, batches, evals):
         f'input stalls {stalls["stalls"]}/{stalls["gets"]}; evaluate: auc '
         f'{res["auc"]:.6f} loss {res["loss"]:.6f} batches '
         f'{res["batches"]:.0f}')
+  return launches
+
+
+CRITEO_STEPS = 64          # phase 21's run of the Criteo entry point
+CRITEO_CHECKED = 2         # its file's steps held GPU against CPU
+FILE_ROUNDS, FILE_STEPS = 4, 32   # the trainer's rounds from the file
+FILE_ADAM_STEPS = 8        # the LazyAdam trainer's steps from the file
+
+
+def _tower_report():
+  """The tower entries of a GPU-vs-CPU report (``_hold_tower``)."""
+  return {'tower_grad_err_of_max': 0.0, 'tower_v_err_of_allowance': 0.0,
+          'tower_adam_err_of_tol_card': 0.0,
+          'tower_adam_err_of_tol_cpu': 0.0, 'tower_max_abs_err': 0.0,
+          'tower_weights_over_1e-4_apart': 0,
+          'their_largest_grad_of_max_card': 0.0,
+          'their_largest_grad_of_max_cpu': 0.0}
+
+
+def phase20_e2e(smi, arrow):
+  """Phase 20: the port's e2e harness at its defaults (a Parquet file of
+  64 batches of 8192 through ``ParquetDataset``, ``DeviceIterator`` and
+  the flagship sparse step, 128 timed steps), in a process of its own,
+  once with the native reader and once with ``--python-reader``; each
+  JSON line is printed. The Adagrad kernel must have been launched once
+  a timed step and no other counted kernel, the window must hold at least
+  64 fetches, and where phase 0 found Arrow the native reader must have
+  served the first run. Returns the kernel launches of both runs."""
+  from hybridbackend_tpu_torch.benchmarks import e2e_benchmark as e2e
+  launches = collections.Counter()
+  for flags in ([], ['--python-reader']):
+    cmd = [sys.executable, '-m', 'hybridbackend_tpu_torch.benchmarks.'
+           'e2e_benchmark', '--json', *flags]
+    out = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+      raise RuntimeError(f'{" ".join(cmd[1:])} failed:\n{out.stderr}')
+    line = out.stdout.strip().splitlines()[-1]
+    report = json.loads(line)
+    want = {name: 0 for name in tb.COUNTED}
+    want['adagrad_update_sorted'] = report['steps']
+    reader = 'native' if arrow and not flags else 'python'
+    if (report['kernel_launches'] != want
+        or report['fetches'] < e2e.MIN_FETCHES
+        or report['reader'] != reader
+        or report['card'] != smi or not np.isfinite(report['final_loss'])):
+      raise AssertionError(f'phase 20: the e2e harness reported {report}; '
+                           f'expected launches {want}, at least '
+                           f'{e2e.MIN_FETCHES} fetches, the {reader} reader, '
+                           f'on {smi}')
+    launches.update(report['kernel_launches'])
+    print(f'phase 20 (python -m {cmd[2]} --json{" " if flags else ""}'
+          f'{" ".join(flags)}): {line}')
+  return launches
+
+
+def _rows(batches):
+  """The batches' columns, by name, as one [rows, columns] float64 matrix
+  (the file's ids and f32 values are exact in f64)."""
+  names = sorted(batches[0])
+  return np.stack([np.concatenate([np.asarray(b[n], np.float64)
+                                   for b in batches]) for n in names], 1)
+
+
+def _readers_agree(data, batch):
+  """The native reader against the Python reader on ``data``, on this
+  machine's Arrow: every batch in file order bit for bit (names, dtypes,
+  values), and a shuffled epoch of each reader a permutation of the
+  file's rows (no row mislabelled, no columns mixed). Returns the batch
+  count."""
+  import hybridbackend_tpu_torch as hbt
+
+  def read(native, shuffle):
+    it = iter(hbt.ParquetDataset(data, batch_size=batch, drop_remainder=True,
+                                 shuffle=shuffle, native=native))
+    want = 'native' if native else 'python'
+    if it.reader != want:
+      raise AssertionError(f'phase 21: the {it.reader} reader served '
+                           f'{data}, not the {want} one '
+                           f'({it.fallback_reason})')
+    return list(it)
+  native, python = read(True, False), read(False, False)
+  if len(native) != len(python):
+    raise AssertionError(f'phase 21: {len(native)} native batches, '
+                         f'{len(python)} Python batches')
+  for i, (a, b) in enumerate(zip(native, python)):
+    if sorted(a) != sorted(b) or any(
+        a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])
+        for k in b):
+      raise AssertionError(f'phase 21: batch {i} of {data} differs between '
+                           'the native and the Python reader')
+  rows = _rows(python)
+  want = rows[np.lexsort(rows.T[::-1])]
+  for flag in (True, False):
+    got = _rows(read(flag, True))
+    if not np.array_equal(got[np.lexsort(got.T[::-1])], want):
+      raise AssertionError(f'phase 21: a shuffled epoch of the '
+                           f'{"native" if flag else "Python"} reader is not '
+                           f'a permutation of the rows of {data}')
+  return len(native)
+
+
+def _signal_auc(data):
+  """The AUC of the signal ``examples/criteo/train.py``'s synthesis
+  planted in ``data``, over the file: exact (by ranks, ties averaged) on
+  the signal, and by the trainers' 200-threshold metric on the label's
+  probability. No model can beat the first on average."""
+  import pyarrow.parquet as pq
+  from scipy.stats import rankdata
+  import hybridbackend_tpu_torch as hbt
+  t = pq.read_table(data)
+  signal = np.zeros(t.num_rows)
+  for c in range(4):
+    signal = signal + (t[f'c{c}'].to_numpy() % 5 == 0) * 0.8
+  for d in range(2):
+    signal = signal + 0.3 * np.log1p(t[f'i{d}'].to_numpy())
+  label = t['label'].to_numpy()
+  pos = int((label == 1).sum())
+  exact = ((rankdata(signal)[label == 1].sum() - pos * (pos + 1) / 2)
+           / (pos * (len(label) - pos)))
+  p = 1.0 / (1.0 + np.exp(-(signal - signal.mean())))
+  state = hbt.metrics.auc_update(
+      hbt.metrics.auc_init(device=torch.device('cpu')),
+      torch.from_numpy(label.astype(np.float32)),
+      torch.from_numpy(p.astype(np.float32)))
+  return float(exact), float(hbt.metrics.auc_result(state))
+
+
+def _file_train_ms(trainer, dataset, dev, prefetch):
+  """ms/step of ``trainer.train`` over ``FILE_STEPS`` batches of
+  ``dataset`` on the host clock, from an idle card to the end of the last
+  step: the reader's start, its fetches and the input path included."""
+  torch.cuda.synchronize(dev)
+  t0 = time.perf_counter()
+  trainer.train(iter(dataset), max_steps=FILE_STEPS, prefetch=prefetch)
+  torch.cuda.synchronize(dev)
+  return (time.perf_counter() - t0) * 1e3 / FILE_STEPS
+
+
+def phase21_criteo(cfg, dev, smi, arrow, tmp):
+  """Phase 21: the port's Criteo entry point as a user runs it,
+  ``examples/criteo/train.py --sparse --synthesize`` at its defaults (26
+  tables of up to [100000, 16], DCNv2 with an MLP of 1024-256-32-1,
+  batch 4096), trains 64 steps from the file it writes (the Adagrad
+  kernel once a step), evaluates and prints the AUC. Then the file's
+  first 2 batches train the entry point's trainer on the card and on the
+  CPU, each step from one state (the CPU trainer takes the card's state
+  before it): loss, tables, accumulators, tower gradients and weights at
+  phase 2's tolerances, and the tower's moments and weights by phase 18's
+  rule besides. Then the flagship
+  ``SparseTrainer`` trains from phase 20's file through
+  ``ParquetDataset`` (shuffled, as the example trains) in alternating
+  rounds: its step alone on placed batches, and ``train`` with and
+  without ``DeviceIterator`` from each reader; and 8 steps with LazyAdam
+  tables (kernel 3 once a step). Returns the kernel launches of its
+  runs."""
+  import contextlib
+  import io
+  import re
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.benchmarks import e2e_benchmark as e2e
+  from hybridbackend_tpu_torch.examples.criteo import train as criteo
+  cpu = torch.device('cpu')
+  reader = 'native' if arrow else 'python'
+  data = os.path.join(tmp, 'criteo.parquet')
+  batch = criteo.parse_args([]).batch_size
+  argv = ['--sparse', '--synthesize', '--data', data, '--rows',
+          str(CRITEO_STEPS * batch), '--steps', str(CRITEO_STEPS)]
+  printed = io.StringIO()
+  torch.cuda.synchronize(dev)
+  _reset_counts()
+  t0 = time.perf_counter()
+  with contextlib.redirect_stdout(printed):
+    rc = criteo.main(argv)
+  torch.cuda.synchronize(dev)
+  wall = time.perf_counter() - t0
+  counts = _counts()
+  printed = printed.getvalue()
+  _expect('phase 21, the Criteo entry point', counts,
+          adagrad_update_sorted=CRITEO_STEPS)
+  launches = collections.Counter(counts)
+  m = re.search(r'epoch 0: loss=(\S+), auc=(\S+), (\S+)s, step (\d+)',
+                printed)
+  if (rc != 0 or m is None or int(m[4]) != CRITEO_STEPS
+      or not 0 < float(m[2]) <= 1 or not np.isfinite(float(m[1]))
+      or f'through the {reader} reader' not in printed):
+    raise AssertionError(f'phase 21: the Criteo entry point returned {rc} '
+                         f'and printed:\n{printed}')
+  print(f'phase 21 (python -m hybridbackend_tpu_torch.examples.criteo.train '
+        f'{" ".join(argv)}), on {smi}: {wall:.3f} s with the file\'s '
+        f'synthesis and the evaluation; kernel 1 launches '
+        f'{counts["adagrad_update_sorted"]}; it printed:')
+  for line in printed.strip().splitlines():
+    print(f'  {line}')
+
+  # Whether the AUC is the model's or the reader's: both readers on this
+  # machine's Arrow, the same run through the Python reader, and the
+  # ceiling the planted signal sets.
+  if arrow:
+    agree = (f'{_readers_agree(data, batch)} batches bit for bit in file '
+             'order, each shuffled epoch a permutation of the rows')
+  else:
+    agree = 'not compared: phase 0 found no Arrow C++ for the native reader'
+  printed = io.StringIO()
+  _reset_counts()
+  with contextlib.redirect_stdout(printed):
+    rc = criteo.main(['--sparse', '--data', data, '--steps',
+                      str(CRITEO_STEPS), '--python-reader'])
+  torch.cuda.synchronize(dev)
+  counts = _counts()
+  printed = printed.getvalue()
+  _expect('phase 21, the Criteo entry point through the Python reader',
+          counts, adagrad_update_sorted=CRITEO_STEPS)
+  launches.update(counts)
+  m_py = re.search(r'epoch 0: loss=(\S+), auc=(\S+), (\S+)s, step (\d+)',
+                   printed)
+  if (rc != 0 or m_py is None or int(m_py[4]) != CRITEO_STEPS
+      or 'through the python reader' not in printed):
+    raise AssertionError(f'phase 21: the Criteo entry point with '
+                         f'--python-reader returned {rc} and printed:\n'
+                         f'{printed}')
+  exact, bucketed = _signal_auc(data)
+  print(f'  the native and the Python reader on {data}: {agree}; the entry '
+        f'point through the Python reader: AUC {m_py[2]} (native '
+        f'{m[2]}); the planted signal\'s own AUC over the file: exact '
+        f'{exact:.4f}, 200 thresholds on its probability {bucketed:.4f}')
+
+  # The file's first batches, on the card against the CPU.
+  args = criteo.parse_args(['--sparse', '--data', data])
+  g_tr, c_tr = (criteo.sparse_trainer(args, d) for d in (dev, cpu))
+  first = list(hbt.ParquetDataset(data, batch_size=batch,
+                                  drop_remainder=True).take(CRITEO_CHECKED))
+  report = {'loss_rel_err': 0.0, 'table_max_abs_err': 0.0,
+            'acc_max_abs_err': 0.0, **_tower_report()}
+  apart_in = set()
+  group = c_tr.state.dense_opt.param_groups[0]
+  adam = (group['lr'], *group['betas'], group['eps'])
+  _reset_counts()
+  for i, b in enumerate(first):
+    label = f'phase 21, file step {i + 1}'
+    c_tr._load_checkpoint_state(g_tr._checkpoint_state())
+    c_opt = c_tr.state.dense_opt.state
+    before = [(p.detach().clone(), c_opt[p]['exp_avg'].clone())
+              for p in c_tr.state.dense.parameters()]
+    v_before = [c_opt[p]['exp_avg_sq'].clone()
+                for p in c_tr.state.dense.parameters()]
+    g_tr.state, gm = g_tr._step_fn(g_tr.state, hbt.put_batch(b, dev))
+    c_tr.state, cm = c_tr._step_fn(c_tr.state, hbt.put_batch(b, cpu))
+    gl, cl = float(gm['loss']), float(cm['loss'])
+    report['loss_rel_err'] = max(report['loss_rel_err'],
+                                 abs(gl - cl) / abs(cl))
+    if not abs(gl - cl) <= 1e-4 * abs(cl):
+      raise AssertionError(f'{label}: loss {gl} on the GPU, {cl} on the CPU')
+    # Tables and accumulators as phase 2 holds them: Adagrad moves an
+    # element by 0.05 * g / sqrt(0.1 + g**2), so the gradients' order
+    # error stays far below 1e-5.
+    for name, table in c_tr.state.tables.items():
+      pairs = (('table', g_tr.state.tables[name], table),
+               ('acc', g_tr.state.table_opt[name].acc[0],
+                c_tr.state.table_opt[name].acc[0]))
+      for key, x, y in pairs:
+        x = x.cpu()
+        err = float((x - y).abs().max())
+        report[f'{key}_max_abs_err'] = max(report[f'{key}_max_abs_err'], err)
+        if not torch.allclose(x, y, rtol=1e-5, atol=1e-5):
+          raise AssertionError(f'{label}: {key} of {name} differs by up to '
+                               f'{err}')
+    _hold_tower(label, g_tr.state.dense, c_tr.state.dense,
+                g_tr.state.dense_opt.state, c_opt, before, v_before, adam,
+                report, apart_in)
+    # And every weight within phase 2's 1e-4 (+ 1e-4 of itself).
+    if report['tower_weights_over_1e-4_apart']:
+      raise AssertionError(f'{label}: tower weights over 1e-4 apart: '
+                           f'{report} in {sorted(apart_in)}')
+  torch.cuda.synchronize(dev)
+  counts = _counts()
+  _expect(f'phase 21, {CRITEO_CHECKED} file steps', counts,
+          adagrad_update_sorted=CRITEO_CHECKED)
+  launches.update(counts)
+  del g_tr, c_tr, c_opt, before, v_before
+  print(f'  the entry point\'s trainer, the file\'s first {CRITEO_CHECKED} '
+        'batches, GPU vs CPU: '
+        + ', '.join(f'{k} {v:.3e}' if isinstance(v, float) else f'{k} {v}'
+                    for k, v in report.items())
+        + f' (in {", ".join(sorted(apart_in)) or "none"})')
+
+  # The flagship trainer from phase 20's file, in alternating rounds.
+  path = e2e.ensure_file(e2e.FILE_BATCHES * cfg.batch)
+
+  def dataset(native):
+    return hbt.ParquetDataset(path, batch_size=cfg.batch,
+                              drop_remainder=True, shuffle=True,
+                              native=native)
+  timer = _sparse_trainer(cfg, dev, None)
+  host = list(dataset(None).take(FILE_STEPS))
+  ways = {'placed': lambda: _step_alone_ms(timer, host, dev)}
+  for name, native in ((f'{reader} reader', None), ('Python reader', False)):
+    for prefetch in (False, True):
+      ways[f'{name}, train(prefetch={prefetch})'] = functools.partial(
+          _file_train_ms, timer, dataset(native), dev, prefetch)
+  rounds = {name: [] for name in ways}
+  _reset_counts()
+  for r in range(FILE_ROUNDS):
+    for name in (list(ways) if r % 2 == 0 else list(reversed(ways))):
+      rounds[name].append(ways[name]())
+  torch.cuda.synchronize(dev)
+  counts = _counts()
+  _expect(f'phase 21, {FILE_ROUNDS} rounds of {FILE_STEPS} steps each way',
+          counts, adagrad_update_sorted=FILE_ROUNDS * FILE_STEPS * len(ways))
+  launches.update(counts)
+  del timer, host
+  adam_tr = _sparse_trainer(cfg, dev, None, table_optimizer='adam')
+  _reset_counts()
+  adam_loss = adam_tr.train(iter(dataset(None)),
+                            max_steps=FILE_ADAM_STEPS)['loss']
+  torch.cuda.synchronize(dev)
+  counts = _counts()
+  _expect(f"phase 21, SparseTrainer(table_optimizer='adam') from the file, "
+          f'{FILE_ADAM_STEPS} steps', counts,
+          adam_update_sorted=FILE_ADAM_STEPS)
+  if adam_tr.global_step != FILE_ADAM_STEPS or not np.isfinite(adam_loss):
+    raise AssertionError(f'phase 21, LazyAdam: step {adam_tr.global_step}, '
+                         f'loss {adam_loss}')
+  launches.update(counts)
+  del adam_tr
+  print(f'  the flagship SparseTrainer from {os.path.basename(path)} '
+        f'(shuffled), {FILE_ROUNDS} rounds of {FILE_STEPS} steps each way, '
+        'ms/step (medians; rounds in order):')
+  for name, v in rounds.items():
+    print(f'    {name}: {statistics.median(v):.4f} '
+          f'({", ".join(f"{x:.4f}" for x in v)})')
+  key = f'{reader} reader, train(prefetch='
+  wins = sum(t < f for f, t in zip(rounds[key + 'False)'],
+                                   rounds[key + 'True)']))
+  print(f'  {key}True) won {wins} of {FILE_ROUNDS} rounds against '
+        f'{key}False); the trainers default to prefetch='
+        f'{inspect.signature(hbt.Trainer.train).parameters["prefetch"].default}')
+  print(f"  SparseTrainer(table_optimizer='adam') from the file: kernel 3 "
+        f'launches {counts["adam_update_sorted"]} in {FILE_ADAM_STEPS} steps, '
+        f'last train loss {adam_loss:.5f}')
   return launches
 
 
@@ -1818,7 +2216,7 @@ def main() -> int:
   dev = torch.device('cuda', 0)
   cfg = flagship()
 
-  smi = phase0_environment()
+  smi, arrow = phase0_environment()
   k = phase1_kernels(cfg, dev, tune=args.tune)
   state, dcn_step, counts = gpu_vs_cpu(dev, 'phase 2 (DCNv2 + Adagrad)')
   _expect('DCNv2 + Adagrad step', counts, adagrad_update_sorted=1)
@@ -1880,6 +2278,11 @@ def main() -> int:
   trainer_launches.update(phase18_dense_trainer(cfg, dev, smi, batches,
                                                 evals))
   harness_dense(smi)
+  with tempfile.TemporaryDirectory() as tmp:
+    # The file phases' data, cached for the e2e harness's processes too.
+    os.environ['HB_BENCH_CACHE'] = tmp
+    e2e_launches = phase20_e2e(smi, arrow)
+    e2e_launches.update(phase21_criteo(cfg, dev, smi, arrow, tmp))
   if args.profile:
     profile(cfg, dev, 'DCNv2 + Adagrad', dcn_state, dcn_step)
     profile(cfg, dev, 'DLRM + LazyAdam', dlrm_state, dlrm_step)
@@ -1902,7 +2305,10 @@ def main() -> int:
                  # the kernel's own counter; null for a storage or dedup
                  # mode, whose counter it shares with its kernel's row.
                  'trainer_launches': (trainer_launches[name]
-                                      if name in tb.COUNTED else None)})
+                                      if name in tb.COUNTED else None),
+                 # Launches in the runs from Parquet files (phases 20-21).
+                 'e2e_launches': (e2e_launches[name]
+                                  if name in tb.COUNTED else None)})
   print(json.dumps({'kernels': rows}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

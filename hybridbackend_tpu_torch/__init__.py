@@ -17,17 +17,26 @@ tested against. It imports ``torch`` and never ``jax``, and nothing from
   with AUC and GAUC, predict, checkpoint and resume), fed through
   ``SyncReplicasIterator`` (one replica) and ``DeviceIterator``, with
   step-stat and logging hooks, and the metrics;
+* the host data plane: ``ParquetDataset`` over Parquet or ORC files (a
+  native C++ reader built with ``g++`` against pyarrow's Arrow, or pyarrow
+  in Python), rebatching, shuffling, deduplication and the ragged
+  ``DataFrame`` values, feeding the trainers from a file
+  (``benchmarks/e2e_benchmark.py``, ``examples/criteo/train.py``);
 * a row gather with clipped ids and a stochastically rounded bf16 cast,
   each with its kernel.
 
-Kernels are built at first use, never at import.
+Kernels and the native reader are built at first use, never at import.
 """
 
 __version__ = '0.1.0'
 
-from hybridbackend_tpu_torch import metrics
+from hybridbackend_tpu_torch import data, metrics
 from hybridbackend_tpu_torch.convert import (
     from_jax, from_jax_dense, load_adam_state, load_dcn_v2, load_dlrm)
+from hybridbackend_tpu_torch.data import (
+    DataFrame, Dataset, Field, ParquetDataset, RebatchBuffer, Value,
+    deduplicate, infer_fields, parse, populate_defaults, rebatch,
+    restore_deduplicated)
 from hybridbackend_tpu_torch.data.prefetch import DeviceIterator, put_batch
 from hybridbackend_tpu_torch.data.sync import (
     SYNC_VALID_KEY, SyncReplicasIterator)

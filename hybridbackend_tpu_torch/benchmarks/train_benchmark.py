@@ -42,7 +42,7 @@ import statistics
 import subprocess
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -239,31 +239,48 @@ def shifted(base: Dict[str, torch.Tensor], ids: torch.Tensor, vocab: int,
   return batch
 
 
-def time_steps(state, step, base: Dict[str, torch.Tensor], ids: torch.Tensor,
-               vocab: int, first: int, steps: int):
-  """Steps ``first`` to ``first + steps - 1`` enqueued back to back, with
-  a mark before each step and after the last: CUDA events on a card, the
-  host clock on the CPU. Returns the state, the losses, the ms between
-  consecutive marks and the ms from the first mark to the last."""
-  if ids.device.type == 'cuda':
+class Window(NamedTuple):
+  """One window of steps timed by :func:`time_steps`."""
+  state: Any
+  losses: List[torch.Tensor]
+  gaps: List[float]       # ms between the marks after consecutive steps
+  ms: float               # ms from the first mark to the last
+  wall_ms: float          # host clock, from an idle device to the last step
+  fetch_ms: float         # host ms spent in ``batch``
+
+
+def time_steps(state, step, batch: Callable[[int], Dict[str, torch.Tensor]],
+               first: int, steps: int, device: torch.device) -> Window:
+  """Steps ``first`` to ``first + steps - 1``, step ``i`` on ``batch(i)``,
+  enqueued back to back, with a mark before each step and after the
+  last: CUDA events on a card, the host clock on the CPU. The device is
+  idle before the first mark and after the last step."""
+  on_card = device.type == 'cuda'
+  if on_card:
     def mark():
       event = torch.cuda.Event(enable_timing=True)
       event.record()
       return event
     elapsed = lambda a, b: a.elapsed_time(b)
-    torch.cuda.synchronize(ids.device)
+    torch.cuda.synchronize(device)
   else:
     mark = time.perf_counter
     elapsed = lambda a, b: (b - a) * 1e3
-  losses, marks = [], [mark()]
+  t0 = time.perf_counter()
+  losses, marks, fetch_s = [], [mark()], 0.0
   for i in range(first, first + steps):
-    state, m = step(state, shifted(base, ids, vocab, i))
+    f0 = time.perf_counter()
+    b = batch(i)
+    fetch_s += time.perf_counter() - f0
+    state, m = step(state, b)
     marks.append(mark())
     losses.append(m['loss'])
-  if ids.device.type == 'cuda':
-    torch.cuda.synchronize(ids.device)
+  if on_card:
+    torch.cuda.synchronize(device)
+  wall_ms = (time.perf_counter() - t0) * 1e3
   gaps = [elapsed(a, b) for a, b in zip(marks, marks[1:])]
-  return state, losses, gaps, elapsed(marks[0], marks[-1])
+  return Window(state, losses, gaps, elapsed(marks[0], marks[-1]), wall_ms,
+                fetch_s * 1e3)
 
 
 def run(args: argparse.Namespace) -> dict:
@@ -273,17 +290,18 @@ def run(args: argparse.Namespace) -> dict:
   on_card = device.type == 'cuda'
   state, step = build(args, device)
   base, ids = make_batch(args, device)
-  state, *_ = time_steps(state, step, base, ids, args.vocab, 0, WARMUP)
+  batch = functools.partial(shifted, base, ids, args.vocab)
+  state = time_steps(state, step, batch, 0, WARMUP, device).state
   for name in COUNTED:
     getattr(hbt, name).launches = 0
   gaps, windows, losses = [], [], []
   for r in range(args.repeats):
-    state, window_losses, window_gaps, window = time_steps(
-        state, step, base, ids, args.vocab, WARMUP + r * args.steps,
-        args.steps)
-    losses += window_losses
-    gaps += window_gaps
-    windows.append(window)
+    w = time_steps(state, step, batch, WARMUP + r * args.steps, args.steps,
+                   device)
+    state = w.state
+    losses += w.losses
+    gaps += w.gaps
+    windows.append(w.ms)
   losses = torch.stack(losses).float().cpu()
   if not bool(torch.isfinite(losses).all()):
     raise RuntimeError(f'non-finite loss: {losses.tolist()}')

@@ -26,6 +26,15 @@ stream, so the allocator does not hand its memory to the next copy while
 a step still reads it. The pinned buffers stay referenced until their
 copy's event has completed. On a CPU device the buffers are plain, and
 the batch is a copy of the source's arrays, never a view of them.
+
+Batches may come straight from ``ParquetDataset``: numeric columns that
+are read-only views of the reader's buffers (the native reader's are
+kept alive by a token each array refers to). Both paths only read them:
+``DeviceIterator`` copies each into its staging buffer on the host before
+any device copy is issued, and ``put_batch``'s ``.to`` of pageable memory
+returns once its copy has completed, while the batch is still referenced.
+A ragged ``Value`` or a string column has no device layout of its own;
+both paths refuse it with an error that points at ``data.parse``.
 """
 
 from __future__ import annotations
@@ -35,24 +44,55 @@ import contextlib
 import queue as _queue
 import threading
 import time as _time
+import warnings
 from typing import Any, Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
 
+from hybridbackend_tpu_torch.data.dataframe import Value
+
 Batch = Dict[str, torch.Tensor]
 
 
-def _host_tensor(value: Any) -> torch.Tensor:
+def _host_array(name: str, value: Any) -> np.ndarray:
+  """``value`` as a numeric numpy array; a ragged or string column is
+  refused with the way to convert it."""
+  if isinstance(value, Value):
+    raise TypeError(
+        f'column {name!r} is a ragged Value, which no device tensor holds: '
+        'convert the batch with hybridbackend_tpu_torch.data.parse(batch, '
+        'fields) first (padded values and a mask)')
+  a = np.asarray(value)
+  if a.dtype == object or a.dtype.kind in 'SU':
+    raise TypeError(
+        f'column {name!r} holds strings ({a.dtype}), which no device tensor '
+        'holds and data.parse passes through unchanged: drop the column or '
+        'map it to ids before the batch is placed')
+  return a
+
+
+def _host_tensor(name: str, value: Any) -> torch.Tensor:
   if isinstance(value, torch.Tensor):
     return value
-  return torch.from_numpy(np.ascontiguousarray(value))
+  a = np.ascontiguousarray(_host_array(name, value))
+  if a.flags.writeable:
+    return torch.from_numpy(a)
+  # A read-only view of a reader's buffers: the tensor made here is only
+  # read (copied to the device, or on the CPU read by the step), so
+  # torch's warning that it could be written through does not apply.
+  with warnings.catch_warnings():
+    warnings.filterwarnings('ignore', 'The given NumPy array is not writable',
+                            UserWarning)
+    return torch.from_numpy(a)
 
 
 def put_batch(batch: Mapping[str, Any], device: torch.device) -> Batch:
   """Every column of ``batch`` as a tensor on ``device`` (a plain
-  synchronous ``.to``)."""
-  return {k: _host_tensor(v).to(device) for k, v in batch.items()}
+  synchronous ``.to``: from pageable host memory it returns once the copy
+  has completed). On the CPU the tensors share memory with the batch's
+  arrays, and keep them alive."""
+  return {k: _host_tensor(k, v).to(device) for k, v in batch.items()}
 
 
 class _Staged:
@@ -154,7 +194,7 @@ class DeviceIterator:
   def _stage(self, batch: Mapping[str, Any]) -> _Staged:
     by_dtype: Dict[np.dtype, list] = {}
     for k, v in batch.items():
-      a = np.asarray(v)
+      a = _host_array(k, v)
       by_dtype.setdefault(a.dtype, []).append((k, a))
     tensors, bases, host, done = {}, [], [], None
     stream = (torch.cuda.stream(self._stream) if self._cuda

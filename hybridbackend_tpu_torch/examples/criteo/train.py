@@ -1,0 +1,255 @@
+"""Criteo wide & deep training on the port (stacked DCNv2 or DLRM).
+
+The port of ``examples/criteo/train.py``, the entry point a user runs: 13
+dense and 26 categorical Criteo columns read from Parquet by the port's
+``ParquetDataset`` (the native reader where it can serve the file, the
+Python reader with ``--python-reader``),
+shuffled for training and in file order for evaluation; one embedding
+table per categorical column, stacked into one physical table; a DCNv2 or
+DLRM tower; Adagrad on the tables and Adam on the tower; AUC after each
+epoch; checkpoints in ``--model-dir``. With ``--sparse`` the tables
+update on the rows each batch touched (``SparseTrainer``, the Hopper
+kernels); without it every table takes its dense gradient (``Trainer``).
+Runs on one CUDA device unless ``--device cpu`` is given. Weights are
+drawn on the CPU from seed 0, so every device starts from one state.
+
+With ``--synthesize`` (or when ``--data`` is not given and the default
+file is missing) it first writes a Criteo-shaped Parquet sample, so the
+script runs anywhere:
+
+  python -m hybridbackend_tpu_torch.examples.criteo.train --synthesize \\
+      --sparse --steps 200
+
+Not ported, each exits at once with its reason: ``--export``,
+``--export-poly`` and ``--export-int8`` (serving, ROADMAP queue 1 item
+13), ``--cached`` (host-backed tables, item 16), ``--lookup`` and
+``--cpu`` (multi-device lookup strategies and host meshes, item 15).
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import os
+import sys
+import tempfile
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+NUM_DENSE = 13
+NUM_CAT = 26
+SEED = 0
+ROW_GROUP = 8192
+# Flags of the JAX example the port does not take yet, and the ROADMAP
+# (queue 1) item that brings each.
+NOT_PORTED = {
+    'export': ('--export', 13), 'export_poly': ('--export-poly', 13),
+    'export_int8': ('--export-int8', 13), 'cached': ('--cached', 16),
+    'lookup': ('--lookup', 15), 'cpu': ('--cpu', 15),
+}
+
+
+def synthesize(path: str, rows: int, vocabs: List[int],
+               dense_features: int = NUM_DENSE) -> None:
+  """A Criteo-shaped Parquet sample with a planted signal, the JAX
+  example's draws from ``RandomState(0)``: for each categorical column
+  zipf(1.5) ids modulo its vocab (int64), an id that 5 divides in one of
+  the first four adding 0.8 to the signal; exponential(1) dense values
+  (float32), ``log1p`` of the first two adding 0.3 times itself; the
+  label (float32) 1 with the sigmoid of the signal less its mean over
+  the file. Row groups of 8192."""
+  import pyarrow as pa
+  import pyarrow.parquet as pq
+  rng = np.random.RandomState(0)
+  cols = {}
+  signal = np.zeros(rows)
+  for c, vocab in enumerate(vocabs):
+    ids = rng.zipf(1.5, rows) % vocab
+    cols[f'c{c}'] = ids.astype(np.int64)
+    if c < 4:
+      signal = signal + (ids % 5 == 0) * 0.8
+  for d in range(dense_features):
+    v = rng.exponential(1.0, rows).astype(np.float32)
+    cols[f'i{d}'] = v
+    if d < 2:
+      signal = signal + 0.3 * np.log1p(v)
+  p = 1.0 / (1.0 + np.exp(-(signal - signal.mean())))
+  cols['label'] = (rng.rand(rows) < p).astype(np.float32)
+  os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+  pq.write_table(pa.table(cols), path, row_group_size=ROW_GROUP)
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+  p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+  p.add_argument('--data', default='')
+  p.add_argument('--synthesize', action='store_true')
+  p.add_argument('--rows', type=int, default=100_000)
+  p.add_argument('--model', default='dcnv2', choices=['dcnv2', 'dlrm'])
+  p.add_argument('--model-dir', default='')
+  p.add_argument('--batch-size', type=int, default=4096)
+  p.add_argument('--dim', type=int, default=16)
+  p.add_argument('--vocab', type=int, default=100_000)
+  p.add_argument('--steps', type=int, default=None)
+  p.add_argument('--epochs', type=int, default=1)
+  p.add_argument('--lr-tables', type=float, default=0.05)
+  p.add_argument('--lr-dense', type=float, default=1e-3)
+  p.add_argument('--sparse', action='store_true',
+                 help='row-sparse table updates (no dense [V,D] grads)')
+  p.add_argument('--device', default='cuda',
+                 help="'cuda' (default) or 'cpu'")
+  p.add_argument('--python-reader', action='store_true',
+                 help='read through pyarrow in Python, not the native '
+                      'reader')
+  p.add_argument('--export', default=None, help='not ported (item 13)')
+  p.add_argument('--export-poly', action='store_true',
+                 help='not ported (item 13)')
+  p.add_argument('--export-int8', action='store_true',
+                 help='not ported (item 13)')
+  p.add_argument('--cached', type=int, default=0, help='not ported (item 16)')
+  p.add_argument('--lookup', default=None, help='not ported (item 15)')
+  p.add_argument('--cpu', type=int, default=0, help='not ported (item 15)')
+  return p.parse_args(argv)
+
+
+def unsupported(args: argparse.Namespace) -> Optional[str]:
+  """Why these flags cannot run, or None."""
+  for key, (flag, item) in NOT_PORTED.items():
+    if getattr(args, key):
+      return (f'{flag} is not ported yet (ROADMAP queue 1 item {item})')
+  if torch.device(args.device).type == 'cuda' and (
+      not torch.cuda.is_available()):
+    return 'no CUDA device; pass --device cpu to run on the CPU'
+  return None
+
+
+def vocabs(args: argparse.Namespace) -> List[int]:
+  """The per-column vocabularies of the JAX example."""
+  return [max(100, args.vocab >> (c % 5)) for c in range(NUM_CAT)]
+
+
+def _specs(args: argparse.Namespace):
+  import hybridbackend_tpu_torch as hbt
+  return [hbt.EmbeddingSpec(hbt.TableConfig(f'c{c}', v, args.dim))
+          for c, v in enumerate(vocabs(args))]
+
+
+def _tower(args: argparse.Namespace, device: torch.device,
+           gen: torch.Generator):
+  """The tower of ``--model`` and ``preds(tower, emb_f, dense_f)``."""
+  import hybridbackend_tpu_torch as hbt
+  if args.model == 'dcnv2':
+    tower = hbt.StackedDCNv2([args.dim] * NUM_CAT + [1] * NUM_DENSE,
+                             [1024, 256, 32, 1], generator=gen, device=device)
+    return tower, lambda t, emb_f, dense_f: t(emb_f + dense_f)
+  tower = hbt.DLRM(NUM_DENSE, NUM_CAT, [512, 256], args.dim, [1024, 256, 1],
+                   generator=gen, device=device)
+  return tower, lambda t, emb_f, dense_f: t(dense_f, emb_f)
+
+
+def sparse_trainer(args: argparse.Namespace, device: torch.device):
+  """The ``--sparse`` trainer: stacked tables under row-sparse Adagrad
+  (accumulator 0.1) at ``--lr-tables``, the tower under Adam at
+  ``--lr-dense``, checkpoints in ``--model-dir``."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.benchmarks.train_benchmark import bce
+  fx = hbt.StackedFeatureExtractor(
+      _specs(args), dense_columns=[f'i{d}' for d in range(NUM_DENSE)],
+      ctx=hbt.Context(device))
+  gen = torch.Generator().manual_seed(SEED)
+  tables = fx.init(gen)
+  tower, preds = _tower(args, device, gen)
+
+  def model_loss(t, emb_f, dense_f, batch):
+    return bce(preds(t, emb_f, dense_f), batch['label'])
+
+  return hbt.SparseTrainer(
+      fx, model_loss, tower, tables=tables,
+      dense_optimizer=functools.partial(torch.optim.Adam, lr=args.lr_dense),
+      table_lr=args.lr_tables, model_dir=args.model_dir or None)
+
+
+def dense_trainer(args: argparse.Namespace, device: torch.device):
+  """The dense-gradient trainer: one table per column under
+  ``multi_optimizer(Adagrad(--lr-tables), Adam(--lr-dense))``."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.benchmarks.train_benchmark import bce
+  specs = _specs(args)
+  dense_names = [f'i{d}' for d in range(NUM_DENSE)]
+  gen = torch.Generator().manual_seed(SEED)
+  tables = hbt.init_tables(specs, gen, device)
+  tower, preds = _tower(args, device, gen)
+  module = nn.ModuleDict({'tables': tables, 'net': tower})
+
+  def loss_fn(m, batch):
+    emb_f, dense_f = hbt.extract_features(m['tables'], batch, specs,
+                                          dense_names)
+    return bce(preds(m['net'], emb_f, dense_f), batch['label'])
+
+  optimizer = hbt.multi_optimizer(
+      functools.partial(hbt.Adagrad, lr=args.lr_tables),
+      functools.partial(torch.optim.Adam, lr=args.lr_dense))(module)
+  return hbt.Trainer(loss_fn, module, optimizer,
+                     model_dir=args.model_dir or None,
+                     ctx=hbt.Context(device))
+
+
+def batches(args: argparse.Namespace, shuffle: bool):
+  """An iterator over the file's batches of ``--batch-size`` rows: shuffled
+  for training, in file order for evaluation. Its ``reader`` says which
+  reader serves it."""
+  import hybridbackend_tpu_torch as hbt
+  return iter(hbt.data.Dataset.from_parquet(
+      args.data, batch_size=args.batch_size, drop_remainder=True,
+      shuffle=shuffle, native=False if args.python_reader else None))
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+  args = parse_args(argv)
+  why = unsupported(args)
+  if why:
+    print(f'criteo/train.py: {why}', file=sys.stderr)
+    return 1
+  import hybridbackend_tpu_torch as hbt
+  if not args.data:
+    args.data = os.path.join(tempfile.gettempdir(), 'criteo_sample.parquet')
+    args.synthesize = not os.path.exists(args.data)
+  if args.synthesize:
+    print(f'synthesizing {args.rows} rows → {args.data}')
+    synthesize(args.data, args.rows, vocabs(args))
+  device = torch.device(args.device)
+
+  if args.sparse:
+    trainer = sparse_trainer(args, device)
+    for epoch in range(args.epochs):
+      train_it = batches(args, True)
+      print(f'epoch {epoch}: reading {args.data} through the '
+            f'{train_it.reader} reader'
+            + (f' ({train_it.fallback_reason})'
+               if train_it.fallback_reason else ''))
+      t0 = time.time()
+      m = trainer.train(train_it, max_steps=args.steps or None)
+      if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+      dt = time.time() - t0
+      res = trainer.evaluate(batches(args, False))
+      print(f'epoch {epoch}: loss={m["loss"]:.4f}, auc={res["auc"]:.4f}, '
+            f'{dt:.1f}s, step {trainer.global_step}')
+    return 0
+
+  trainer = dense_trainer(args, device)
+  hooks = [hbt.StepStatHook(batch_size=args.batch_size, every_n_steps=50,
+                            log=print),
+           hbt.LoggingHook(every_n_steps=50, log=print)]
+  for epoch in range(args.epochs):
+    trainer.train(batches(args, True), max_steps=args.steps, hooks=hooks)
+    results = trainer.evaluate(batches(args, False))
+    print(f'epoch {epoch}: {results}')
+  return 0
+
+
+if __name__ == '__main__':
+  sys.exit(main())

@@ -27,7 +27,9 @@ the same bf16 except where ``powf`` and ``pow`` differ in an f32 ulp.
 
 ``DeviceIterator``'s staging on the card (pinned buffers, copies on its
 own stream, the consumer's stream waiting on them) is held bit for bit
-against the source batches while the consumer's stream is kept busy.
+against the source batches while the consumer's stream is kept busy; so
+are the native Parquet reader's zero-copy batches, through
+``DeviceIterator`` and ``put_batch``.
 """
 
 import numpy as np
@@ -825,3 +827,46 @@ def test_device_iterator_stages_exact_batches(dev):
     for k, v in b.items():
       assert g[k].device == dev and g[k].shape == v.shape
       np.testing.assert_array_equal(g[k].cpu().numpy(), v)
+
+
+def test_native_reader_batches_arrive_exactly_on_the_card(dev, tmp_path):
+  """Zero-copy batches of the native Parquet reader (read-only views that
+  a token keeps alive) through ``DeviceIterator`` and ``put_batch``: each
+  column on the card equals the file's rows bit for bit, with no warning,
+  also after the reader and its batches are dropped while the consumer's
+  stream is held by a spin kernel."""
+  import gc
+  import warnings
+
+  import pyarrow as pa
+  import pyarrow.parquet as pq
+  rng = np.random.RandomState(0)
+  n = 5000
+  cols = {'ids': rng.randint(0, 1 << 30, n).astype(np.int32),
+          'big': rng.randint(0, 1 << 40, n),
+          'x': rng.rand(n).astype(np.float32),
+          'label': rng.randint(0, 2, n)}
+  path = str(tmp_path / 'f.parquet')
+  pq.write_table(pa.table(cols), path, row_group_size=1024)
+  for prefetch in (True, False):
+    ds = hbt.ParquetDataset(path, batch_size=512, drop_remainder=True,
+                            native=True)
+    it = iter(ds)
+    assert it.reader == 'native'
+    with warnings.catch_warnings():
+      warnings.simplefilter('error')
+      if prefetch:
+        got = []
+        for batch in hbt.DeviceIterator(it, dev, capacity=2):
+          torch.cuda._sleep(2_000_000)
+          got.append({k: v.clone() for k, v in batch.items()})
+      else:
+        got = [hbt.put_batch(b, dev) for b in it]
+    del it, ds
+    gc.collect()
+    assert len(got) == n // 512
+    for i, g in enumerate(got):
+      for k, v in cols.items():
+        assert g[k].device == dev
+        np.testing.assert_array_equal(g[k].cpu().numpy(),
+                                      v[i * 512:(i + 1) * 512])

@@ -13,12 +13,20 @@ def test_import_leaves_jax_out():
   code = textwrap.dedent("""
       import sys
       import hybridbackend_tpu_torch
+      import hybridbackend_tpu_torch.benchmarks.e2e_benchmark
       import hybridbackend_tpu_torch.benchmarks.synthetic
       import hybridbackend_tpu_torch.benchmarks.train_benchmark
+      import hybridbackend_tpu_torch.data.dataframe
+      import hybridbackend_tpu_torch.data.deduplicate
+      import hybridbackend_tpu_torch.data.parquet
       import hybridbackend_tpu_torch.data.prefetch
+      import hybridbackend_tpu_torch.data.rebatch
       import hybridbackend_tpu_torch.data.sync
+      import hybridbackend_tpu_torch.data.validate
       import hybridbackend_tpu_torch.estimator
+      import hybridbackend_tpu_torch.examples.criteo.train
       import hybridbackend_tpu_torch.metrics
+      import hybridbackend_tpu_torch.native.tabular
       import hybridbackend_tpu_torch.training.checkpoint
       import hybridbackend_tpu_torch.training.hooks
       import hybridbackend_tpu_torch.training.optimizer
