@@ -121,7 +121,18 @@ Phases; any failure raises and the script exits nonzero:
      alternating rounds of 32 steps (the step alone on placed batches,
      ``train`` with and without ``DeviceIterator`` from each reader, as
      the trainers' ``prefetch`` default is decided), and 8 steps with
-     LazyAdam tables (the LazyAdam kernel once a step).
+     LazyAdam tables (the LazyAdam kernel once a step);
+ 22. serving: phase 17's trained ``SparseTrainer`` exports an f32 and an
+     int8 bundle (``export_saved_model(..., poly_batch=True)``); a fresh
+     process loads each as ``Served`` on the card and predicts batches of
+     1, 128 and 8192 rows, kernel 5 launched once per member lookup (26
+     a predict in f32, 52 in int8: rows and scales) by its own counter;
+     the f32 predictions within 1e-6 of the live trainer's and near the
+     same bundle served on the CPU, the int8 ones within 2e-2 of f32;
+     ``quantize_table`` and ``lookup_quantized`` on the card bit for bit
+     against the CPU at the flagship lookup; then the serving harness
+     (``python -m hybridbackend_tpu_torch.benchmarks.serving_benchmark
+     --json``) once, its JSON line printed.
 With ``--profile`` it then traces 10 steps of each timed variant with
 ``torch.profiler`` and prints device time per step by kernel class. With
 ``--tune`` phase 1 also times the add kernel over tile sizes, the
@@ -130,8 +141,8 @@ modes) and LazyAdam kernels over tile sizes and state batches (the rows
 of how many run heads a thread loads before it waits for its tile's
 gradients); each sweep forth and back.
 The second-to-last line is a JSON object describing each kernel (its
-times, launches on its path, in the trainers' runs and in the runs from
-Parquet files, and its bound: the
+times, launches on its path, in the trainers' runs, in the runs from
+Parquet files and in the served predicts, and its bound: the
 larger of its bytes over 3.35 TB/s and its operations over the card's
 peak rate); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -308,6 +319,20 @@ def _median_ms(fn, iters=20, warmup=3, per=10, queued=True):
 def _run(cmd):
   return subprocess.run(cmd, capture_output=True, text=True, check=True,
                         timeout=120).stdout.strip()
+
+
+def _module_json(module, *flags):
+  """Runs ``python -m hybridbackend_tpu_torch.benchmarks.<module> --json
+  flags`` in a process of its own; returns its last line, a JSON object,
+  and that object."""
+  cmd = [sys.executable, '-m', f'hybridbackend_tpu_torch.benchmarks.{module}',
+         '--json', *flags]
+  out = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                       timeout=600)
+  if out.returncode != 0:
+    raise RuntimeError(f'{" ".join(cmd[1:])} failed:\n{out.stderr}')
+  line = out.stdout.strip().splitlines()[-1]
+  return line, json.loads(line)
 
 
 def phase0_environment():
@@ -1352,21 +1377,15 @@ def harness(smi):
   tables, as a user runs it, in a process of its own; its JSON line is
   printed. Its Adagrad kernel must have been launched once per timed
   step, and no other counted kernel."""
-  cmd = [sys.executable, '-m', 'hybridbackend_tpu_torch.benchmarks.'
-         'train_benchmark', '--sparse', '--table-dtype', 'bfloat16', '--json']
-  out = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                       timeout=600)
-  if out.returncode != 0:
-    raise RuntimeError(f'{" ".join(cmd[1:])} failed:\n{out.stderr}')
-  line = out.stdout.strip().splitlines()[-1]
-  report = json.loads(line)
+  line, report = _module_json('train_benchmark', '--sparse',
+                              '--table-dtype', 'bfloat16')
   want = {name: 0 for name in tb.COUNTED}
   want['adagrad_update_sorted'] = report['timed_steps']
   if report['kernel_launches'] != want or report['card'] != smi:
     raise AssertionError(f'the harness launched {report["kernel_launches"]} '
                          f'on {report["card"]}; expected {want} on {smi}')
-  print(f'phase 16 (python -m {cmd[2]} --sparse --table-dtype bfloat16 '
-        f'--json): {line}')
+  print('phase 16 (python -m hybridbackend_tpu_torch.benchmarks.'
+        f'train_benchmark --sparse --table-dtype bfloat16 --json): {line}')
 
 
 TRAIN_STEPS = 64           # phase 17's training run
@@ -1411,19 +1430,6 @@ def _bitwise_equal(label, a, b):
               if isinstance(x, torch.Tensor) else f'{x} vs {y}')
       raise AssertionError(f'{label}: {key} differs (max abs diff {diff})')
   return len(fa)
-
-
-def _sparse_trainer(cfg, dev, model_dir, table_optimizer='adagrad'):
-  """The flagship DCNv2 config as a ``SparseTrainer`` on ``dev`` (the
-  harness's weights from its seed, table lr, accumulator and tower Adam)
-  with row-sparse ``table_optimizer``, checkpointing into ``model_dir``."""
-  import hybridbackend_tpu_torch as hbt
-  fx, tables, tower, model_loss = tb.sparse_parts(cfg, dev)
-  return hbt.SparseTrainer(
-      fx, model_loss, tower, tables=tables,
-      dense_optimizer=functools.partial(torch.optim.Adam, lr=tb.TOWER_LR),
-      table_lr=tb.TABLE_LR, adagrad_init=tb.ADAGRAD_INIT,
-      table_optimizer=table_optimizer, model_dir=model_dir)
 
 
 def _step_alone_ms(trainer, batches, dev):
@@ -1494,7 +1500,8 @@ def phase17_sparse_trainer(cfg, dev, smi, bare_state, bare_step):
   ``table_optimizer='adam'``, which must launch the LazyAdam kernel once
   a step; and the loop timed with and without ``DeviceIterator``, from a
   source that waits for nothing and from one that waits. Returns the
-  kernel launches of the two trainers' runs, and the batches."""
+  kernel launches of the two trainers' runs, the batches and the trained
+  trainer (phase 22 serves it)."""
   import hybridbackend_tpu_torch as hbt
   from hybridbackend_tpu_torch import metrics as hbm
   cpu = torch.device('cpu')
@@ -1511,7 +1518,7 @@ def phase17_sparse_trainer(cfg, dev, smi, bare_state, bare_step):
       tb.time_steps(bare_state, bare_step, batch, 1000, 30, dev).gaps)
   with tempfile.TemporaryDirectory() as tmp:
     dir_a, dir_b = os.path.join(tmp, 'a'), os.path.join(tmp, 'b')
-    live = _sparse_trainer(cfg, dev, dir_a)
+    live = tb.sparse_trainer(cfg, dev, dir_a)
     reports = []
     hook = hbt.StepStatHook(batch_size=cfg.batch, every_n_steps=0,
                             sync_every_n=STAT_WINDOW, log=reports.append)
@@ -1540,7 +1547,7 @@ def phase17_sparse_trainer(cfg, dev, smi, bare_state, bare_step):
     res_gpu = live.evaluate(iter(evals), prefetch=True)
     preds_gpu = torch.cat(list(live.predict(iter(evals),
                                             prefetch=True))).cpu()
-    on_cpu = _sparse_trainer(cfg, cpu, dir_a)
+    on_cpu = tb.sparse_trainer(cfg, cpu, dir_a)
     if on_cpu.global_step != TRAIN_STEPS:
       raise AssertionError(f'phase 17: the CPU trainer restored step '
                            f'{on_cpu.global_step}')
@@ -1563,21 +1570,21 @@ def phase17_sparse_trainer(cfg, dev, smi, bare_state, bare_step):
 
     # A fresh trainer restores the live state; a resume from step 32
     # over the same batches reaches it.
-    restored = _sparse_trainer(cfg, dev, dir_a)
+    restored = tb.sparse_trainer(cfg, dev, dir_a)
     n_tensors = _bitwise_equal('phase 17, restored at step 64', restored,
                                live)
     del restored
     os.makedirs(dir_b)
     shutil.copy(os.path.join(dir_a, f'checkpoint-{SAVE_EVERY}.pt'), dir_b)
-    resumed = _sparse_trainer(cfg, dev, dir_b)
+    resumed = tb.sparse_trainer(cfg, dev, dir_b)
     if resumed.global_step != SAVE_EVERY:
       raise AssertionError(f'phase 17: resumed at {resumed.global_step}')
     resumed.train(iter(batches[SAVE_EVERY:]))
     _bitwise_equal('phase 17, resumed from step 32', resumed, live)
-    del resumed, live
+    del resumed
 
   # The LazyAdam tables: kernel 3 once a train step.
-  adam = _sparse_trainer(cfg, dev, None, table_optimizer='adam')
+  adam = tb.sparse_trainer(cfg, dev, None, table_optimizer='adam')
   torch.cuda.synchronize(dev)
   _reset_counts()
   adam_loss = adam.train(iter(batches[:ADAM_STEPS]))['loss']
@@ -1596,7 +1603,7 @@ def phase17_sparse_trainer(cfg, dev, smi, bare_state, bare_step):
   # alone. In rounds, each in the other order than the one before: the
   # host's pace drifts by tens of percent within a process, so one window
   # of each would compare two paces.
-  timer = _sparse_trainer(cfg, dev, None)
+  timer = tb.sparse_trainer(cfg, dev, None)
   ways = {
       'placed': lambda part: _step_alone_ms(timer, part, dev),
       'train(prefetch=False)': lambda part: _train_ms(timer, part, dev,
@@ -1652,7 +1659,7 @@ def phase17_sparse_trainer(cfg, dev, smi, bare_state, bare_step):
     print(f'  StepStatHook: {line}')
   launches = collections.Counter(counts)
   launches.update(adam_counts)
-  return launches, batches, evals
+  return launches, batches, evals, live
 
 
 def _hold_tower(label, g_net, c_net, g_opt, c_opt, before, v_before, adam,
@@ -1862,14 +1869,7 @@ def phase20_e2e(smi, arrow):
   from hybridbackend_tpu_torch.benchmarks import e2e_benchmark as e2e
   launches = collections.Counter()
   for flags in ([], ['--python-reader']):
-    cmd = [sys.executable, '-m', 'hybridbackend_tpu_torch.benchmarks.'
-           'e2e_benchmark', '--json', *flags]
-    out = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                         timeout=600)
-    if out.returncode != 0:
-      raise RuntimeError(f'{" ".join(cmd[1:])} failed:\n{out.stderr}')
-    line = out.stdout.strip().splitlines()[-1]
-    report = json.loads(line)
+    line, report = _module_json('e2e_benchmark', *flags)
     want = {name: 0 for name in tb.COUNTED}
     want['adagrad_update_sorted'] = report['steps']
     reader = 'native' if arrow and not flags else 'python'
@@ -1882,8 +1882,8 @@ def phase20_e2e(smi, arrow):
                            f'{e2e.MIN_FETCHES} fetches, the {reader} reader, '
                            f'on {smi}')
     launches.update(report['kernel_launches'])
-    print(f'phase 20 (python -m {cmd[2]} --json{" " if flags else ""}'
-          f'{" ".join(flags)}): {line}')
+    print('phase 20 (python -m hybridbackend_tpu_torch.benchmarks.'
+          f'e2e_benchmark --json{"".join(" " + f for f in flags)}): {line}')
   return launches
 
 
@@ -2124,7 +2124,7 @@ def phase21_criteo(cfg, dev, smi, arrow, tmp):
     return hbt.ParquetDataset(path, batch_size=cfg.batch,
                               drop_remainder=True, shuffle=True,
                               native=native)
-  timer = _sparse_trainer(cfg, dev, None)
+  timer = tb.sparse_trainer(cfg, dev, None)
   host = list(dataset(None).take(FILE_STEPS))
   ways = {'placed': lambda: _step_alone_ms(timer, host, dev)}
   for name, native in ((f'{reader} reader', None), ('Python reader', False)):
@@ -2142,7 +2142,7 @@ def phase21_criteo(cfg, dev, smi, arrow, tmp):
           counts, adagrad_update_sorted=FILE_ROUNDS * FILE_STEPS * len(ways))
   launches.update(counts)
   del timer, host
-  adam_tr = _sparse_trainer(cfg, dev, None, table_optimizer='adam')
+  adam_tr = tb.sparse_trainer(cfg, dev, None, table_optimizer='adam')
   _reset_counts()
   adam_loss = adam_tr.train(iter(dataset(None)),
                             max_steps=FILE_ADAM_STEPS)['loss']
@@ -2178,18 +2178,202 @@ def harness_dense(smi):
   """Phase 19: the port's harness in its dense mode (no ``--sparse``) at
   its defaults, in a process of its own; its JSON line is printed. It
   launches no counted kernel."""
-  cmd = [sys.executable, '-m', 'hybridbackend_tpu_torch.benchmarks.'
-         'train_benchmark', '--json']
-  out = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                       timeout=600)
-  if out.returncode != 0:
-    raise RuntimeError(f'{" ".join(cmd[1:])} failed:\n{out.stderr}')
-  line = out.stdout.strip().splitlines()[-1]
-  report = json.loads(line)
+  line, report = _module_json('train_benchmark')
   if (any(report['kernel_launches'].values()) or report['sparse']
       or report['card'] != smi):
     raise AssertionError(f'the dense harness reported {report}')
-  print(f'phase 19 (python -m {cmd[2]} --json, the dense mode): {line}')
+  print('phase 19 (python -m hybridbackend_tpu_torch.benchmarks.'
+        f'train_benchmark --json, the dense mode): {line}')
+
+
+SERVE_SIZES = (1, 128, 8192)   # phase 22's batch sizes
+SERVE_CASES = {'f32': 'float32', 'int8': 'int8'}
+# kernel 5's launches per predict: one per member lookup, and one more
+# per member for the scales of an int8 table.
+SERVE_GATHERS = {'f32': 1, 'int8': 2}
+
+# Phase 22's cold process: it imports the port (which registers kernel
+# 5's op), loads each bundle as ``Served`` on the card and predicts each
+# batch once, each predict between a reset and a read of the kernel
+# counts. argv: the bundles' directory, the batches' directory, the
+# cases and the sizes, comma-separated.
+COLD_SERVE = '''
+import json, os, sys, time
+t0 = time.perf_counter()
+import numpy as np
+import torch
+import hybridbackend_tpu_torch as hbt
+from hybridbackend_tpu_torch.benchmarks import train_benchmark as tb
+from hybridbackend_tpu_torch.ops import build
+report = {'import_s': time.perf_counter() - t0, 'cases': {}}
+bundles, data, cases, sizes = sys.argv[1:5]
+preds = {}
+for case in cases.split(','):
+  t0 = time.perf_counter()
+  served = hbt.Served(os.path.join(bundles, case))
+  torch.cuda.synchronize()
+  r = {'load_s': time.perf_counter() - t0, 'predict_s': {}, 'launches': {}}
+  for size in sizes.split(','):
+    batch = dict(np.load(os.path.join(data, f'batch_{size}.npz')))
+    for name in tb.COUNTED:
+      getattr(hbt, name).launches = 0
+    t0 = time.perf_counter()
+    preds[f'{case}_{size}'] = served.predict(batch)
+    r['predict_s'][size] = time.perf_counter() - t0
+    r['launches'][size] = {n: getattr(hbt, n).launches for n in tb.COUNTED}
+  report['cases'][case] = r
+report['gather_build_s'] = build.load('gather_rows').build_seconds
+report['gather_library'] = build.load('gather_rows').path.name
+np.savez(os.path.join(data, 'preds.npz'), **preds)
+print(json.dumps(report))
+'''
+
+
+def _serving_harness(smi):
+  """Phase 22's run of the serving harness at its defaults, in a process
+  of its own; its JSON line is printed. Kernel 5 must have run once per
+  member lookup of each timed predict."""
+  line, report = _module_json('serving_benchmark')
+  for case, per in SERVE_GATHERS.items():
+    got = report[f'flagship_{case}']['gather_launches_per_predict']
+    if got != per * report['tables'] or report['card'] != smi:
+      raise AssertionError(f'the serving harness reported {got} kernel 5 '
+                           f'launches per {case} predict on '
+                           f'{report["card"]}; expected '
+                           f'{per * report["tables"]} on {smi}')
+  print('phase 22 (python -m hybridbackend_tpu_torch.benchmarks.'
+        f'serving_benchmark --json): {line}')
+
+
+def phase22_serving(cfg, dev, smi, trained):
+  """Phase 22: the serving path. Phase 17's trained ``SparseTrainer``
+  exports an f32 and an int8 bundle with ``poly_batch=True``; a fresh
+  process (the cold start) loads each as ``Served`` on the card and
+  predicts seeded Criteo-like batches of 1, 128 and 8192 rows, each
+  predict between a reset and a read of the kernel counts: kernel 5 once
+  per member lookup of an f32 predict and twice (rows and scales) of an
+  int8 one, no other counted kernel. The f32 predictions are held within
+  1e-6 of the live trainer's ``predict`` (the same lookups, through
+  ``index_select`` on the stacked table, and the same tower on the same
+  card) and against the same bundle served on the CPU at ``rtol = atol
+  = 1e-4`` (phase 2's tolerance of the tower's weights: the tower's f32
+  sums in another order); the int8 predictions within 2e-2 of the f32
+  ones and not all within 1e-7 (JAX ``tests/test_quant.py:124-126``).
+  ``quantize_table`` and ``lookup_quantized`` on the card are held bit
+  for bit against the CPU copy at the flagship lookup (the stacked table,
+  a batch of 8192 ids of each of the 26 members). Then the serving
+  harness runs once. Returns kernel 5's launches in the cold process."""
+  import hybridbackend_tpu_torch as hbt
+  cpu = torch.device('cpu')
+  tables = cfg.tables
+  kw = dict(vocab=cfg.vocab, tables=tables,
+            dense_features=cfg.dense_features)
+  data = {size: synthetic.criteo_batches(size, 1, seed=tb.SEED + 3 + i,
+                                         **kw)[0]
+          for i, size in enumerate(SERVE_SIZES)}
+  with tempfile.TemporaryDirectory() as tmp:
+    bundles, batch_dir = (os.path.join(tmp, d) for d in ('bundles', 'data'))
+    os.makedirs(batch_dir)
+    export_s, bundle_mb = {}, {}
+    for case, dtype in SERVE_CASES.items():
+      path = os.path.join(bundles, case)
+      t0 = time.perf_counter()
+      trained.export_saved_model(path, data[SERVE_SIZES[-1]],
+                                 table_dtype=dtype, poly_batch=True)
+      export_s[case] = time.perf_counter() - t0
+      bundle_mb[case] = sum(os.path.getsize(os.path.join(path, f))
+                            for f in os.listdir(path)) / 1e6
+    for size, batch in data.items():
+      np.savez(os.path.join(batch_dir, f'batch_{size}.npz'), **batch)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, '-c', COLD_SERVE, bundles, batch_dir,
+         ','.join(SERVE_CASES), ','.join(map(str, SERVE_SIZES))],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    cold_wall_s = time.perf_counter() - t0
+    if out.returncode != 0:
+      raise RuntimeError(f'phase 22: the cold process failed:\n{out.stderr}')
+    cold = json.loads(out.stdout.strip().splitlines()[-1])
+    preds = dict(np.load(os.path.join(batch_dir, 'preds.npz')))
+    # The same f32 bundle served on the CPU, in this process.
+    on_cpu = hbt.Served(os.path.join(bundles, 'f32'), cpu)
+    cpu_preds = {size: on_cpu.predict(batch) for size, batch in data.items()}
+    del on_cpu
+  launches = 0
+  for case, per in SERVE_GATHERS.items():
+    for size in SERVE_SIZES:
+      counts = cold['cases'][case]['launches'][str(size)]
+      _expect(f'phase 22, the cold process, {case} predict of {size} rows',
+              counts, gather_rows=per * tables)
+      launches += counts['gather_rows']
+  gaps = {}
+  for size, batch in data.items():
+    f32, int8 = preds[f'f32_{size}'], preds[f'int8_{size}']
+    live = next(trained.predict(iter([batch]))).cpu().numpy()
+    if not (f32.shape == int8.shape == (size,) and np.isfinite(f32).all()
+            and np.isfinite(int8).all()):
+      raise AssertionError(f'phase 22: batch {size} predicted f32 '
+                           f'{f32.shape}, int8 {int8.shape}, not all finite')
+    gaps[size] = (float(np.abs(f32 - live).max()),
+                  float(np.abs(f32 - cpu_preds[size]).max()),
+                  float(np.abs(int8 - f32).max()))
+    if gaps[size][0] > 1e-6:
+      raise AssertionError(f'phase 22: the f32 bundle served {size} rows '
+                           f'{gaps[size][0]:.3e} from the trainer')
+    if not np.allclose(f32, cpu_preds[size], rtol=1e-4, atol=1e-4):
+      raise AssertionError(f'phase 22: the f32 bundle on the card is '
+                           f'{gaps[size][1]:.3e} from the CPU at {size} rows')
+    if gaps[size][2] > 2e-2:
+      raise AssertionError(f'phase 22: int8 {gaps[size][2]:.3e} from f32 at '
+                           f'{size} rows')
+  if all(gaps[size][2] <= 1e-7 for size in SERVE_SIZES):
+    raise AssertionError('phase 22: the int8 predictions equal the f32 ones')
+
+  # The quantized lookup on the card against the CPU copy, at the
+  # flagship lookup: the stacked table and a batch's packed ids.
+  (stack,) = trained._fx.stacks
+  table = trained.state.tables[stack.stacked.name]
+  ids, _ = hbt.pack_ids(stack, {f'c{t}': torch.from_numpy(
+      data[SERVE_SIZES[-1]][f'c{t}']).to(dev) for t in range(tables)})
+  qt = hbt.quantize_table(table)
+  qt_cpu = hbt.quantize_table(table.cpu())
+  if not (torch.equal(qt.q.cpu(), qt_cpu.q)
+          and torch.equal(qt.scale.cpu(), qt_cpu.scale)):
+    raise AssertionError('phase 22: quantize_table differs on the card')
+  _reset_counts()
+  got = hbt.lookup_quantized(qt, ids, stack.stacked)
+  torch.cuda.synchronize(dev)
+  _expect('phase 22, lookup_quantized', _counts(), gather_rows=2)
+  if not torch.equal(got.cpu(), hbt.lookup_quantized(qt_cpu, ids.cpu(),
+                                                     stack.stacked)):
+    raise AssertionError('phase 22: lookup_quantized on the card differs '
+                         'from the CPU')
+  lookup_ms = _median_ms(lambda: hbt.lookup_quantized(qt, ids,
+                                                      stack.stacked))
+  print(f'phase 22 (serving: phase 17\'s trainer exported with '
+        f'poly_batch=True, served by a cold process on {smi}): export '
+        + ', '.join(f'{c} {export_s[c]:.3f} s ({bundle_mb[c]:.2f} MB)'
+                    for c in SERVE_CASES)
+        + f'; the cold process {cold_wall_s:.3f} s wall, import '
+        f'{cold["import_s"]:.3f} s, kernel 5 library '
+        f'{cold["gather_library"]} built in {cold["gather_build_s"]:.3f} s '
+        '(0: found in _build/)')
+  for case in SERVE_CASES:
+    r = cold['cases'][case]
+    print(f'  {case}: Served() {r["load_s"]:.4f} s; first predict '
+          + ', '.join(f'{s} rows {r["predict_s"][str(s)]:.4f} s'
+                      for s in SERVE_SIZES)
+          + f'; kernel 5 launches per predict '
+          f'{r["launches"][str(SERVE_SIZES[0])]["gather_rows"]}')
+  for size in SERVE_SIZES:
+    print(f'  {size} rows: f32 from the trainer {gaps[size][0]:.3e} (limit '
+          f'1e-6), card from CPU {gaps[size][1]:.3e} (rtol = atol = 1e-4), '
+          f'int8 from f32 {gaps[size][2]:.3e} (limit 2e-2)')
+  print(f'  quantize_table and lookup_quantized (the [{table.shape[0]}, '
+        f'{table.shape[1]}] stacked table, {ids.numel()} ids) on the card '
+        f'bitwise equal to the CPU; lookup_quantized {lookup_ms:.4f} ms')
+  _serving_harness(smi)
+  return launches
 
 
 def main() -> int:
@@ -2273,7 +2457,7 @@ def main() -> int:
   _expect('DCNv2 step with bf16 matmul operands', counts,
           adagrad_update_sorted=1)
   harness(smi)
-  trainer_launches, batches, evals = phase17_sparse_trainer(
+  trainer_launches, batches, evals, trained = phase17_sparse_trainer(
       cfg, dev, smi, dcn_state, dcn_step)
   trainer_launches.update(phase18_dense_trainer(cfg, dev, smi, batches,
                                                 evals))
@@ -2283,6 +2467,8 @@ def main() -> int:
     os.environ['HB_BENCH_CACHE'] = tmp
     e2e_launches = phase20_e2e(smi, arrow)
     e2e_launches.update(phase21_criteo(cfg, dev, smi, arrow, tmp))
+  serving_launches = phase22_serving(cfg, dev, smi, trained)
+  del trained
   if args.profile:
     profile(cfg, dev, 'DCNv2 + Adagrad', dcn_state, dcn_step)
     profile(cfg, dev, 'DLRM + LazyAdam', dlrm_state, dlrm_step)
@@ -2308,7 +2494,12 @@ def main() -> int:
                                       if name in tb.COUNTED else None),
                  # Launches in the runs from Parquet files (phases 20-21).
                  'e2e_launches': (e2e_launches[name]
-                                  if name in tb.COUNTED else None)})
+                                  if name in tb.COUNTED else None),
+                 # Launches in phase 22's cold process, the served
+                 # predicts.
+                 'serving_launches': ((serving_launches
+                                       if name == 'gather_rows' else 0)
+                                      if name in tb.COUNTED else None)})
   print(json.dumps({'kernels': rows}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -22,6 +22,11 @@ tested against. It imports ``torch`` and never ``jax``, and nothing from
   in Python), rebatching, shuffling, deduplication and the ragged
   ``DataFrame`` values, feeding the trainers from a file
   (``benchmarks/e2e_benchmark.py``, ``examples/criteo/train.py``);
+* serving: the trainers' ``export_saved_model`` writes a bundle
+  (``torch.export`` graph, parameters, signature) that ``Served`` loads
+  in a cold process and predicts from, with f32 or per-row int8 tables
+  (``QuantizedTable``), every member lookup through the row gather's
+  kernel;
 * a row gather with clipped ids and a stochastically rounded bf16 cast,
   each with its kernel.
 
@@ -32,7 +37,8 @@ __version__ = '0.1.0'
 
 from hybridbackend_tpu_torch import data, metrics
 from hybridbackend_tpu_torch.convert import (
-    from_jax, from_jax_dense, load_adam_state, load_dcn_v2, load_dlrm)
+    from_jax, from_jax_dense, load_adam_state, load_dcn_v2, load_dlrm,
+    quantized_from_jax)
 from hybridbackend_tpu_torch.data import (
     DataFrame, Dataset, Field, ParquetDataset, RebatchBuffer, Value,
     deduplicate, infer_fields, parse, populate_defaults, rebatch,
@@ -41,6 +47,8 @@ from hybridbackend_tpu_torch.data.prefetch import DeviceIterator, put_batch
 from hybridbackend_tpu_torch.data.sync import (
     SYNC_VALID_KEY, SyncReplicasIterator)
 from hybridbackend_tpu_torch.embedding.lookup import lookup, lookup_sparse
+from hybridbackend_tpu_torch.embedding.quant import (
+    QuantizedTable, dequantize_table, lookup_quantized, quantize_table)
 from hybridbackend_tpu_torch.embedding.sparse_update import (
     SparseOptState, init_adagrad_state, init_adam_state,
     sparse_adagrad_apply, sparse_adam_apply, sparse_sgd_apply)
@@ -71,6 +79,7 @@ from hybridbackend_tpu_torch.training.hooks import (
 from hybridbackend_tpu_torch.training.optimizer import (
     Adagrad, MultiOptimizer, is_embedding_path,
     lr_with_linear_warmup_and_polynomial_decay, multi_optimizer, split_trees)
+from hybridbackend_tpu_torch.training.saved_model import Served
 from hybridbackend_tpu_torch.training.sparse_step import (
     SparseTrainState, make_sparse_train_step)
 from hybridbackend_tpu_torch.training.train import (

@@ -1,0 +1,215 @@
+"""Serving benchmark of the port: export, cold load and predict of the
+flagship model.
+
+Counterpart of ``benchmarks/serving_benchmark.py``, the JAX package's
+harness, in its f32 and int8 cases. It builds the flagship
+``SparseTrainer`` from the train harness's config (``--tables`` tables
+of ``[--vocab, --dim]``, ``--dense-features`` dense features, the DCNv2
+tower with MLP 1024-512-256-1, weights from seed 0), trains
+``--train-steps`` steps on batches of 512 (``benchmarks/synthetic.py``,
+as the JAX harness trains on batches of 512), and exports an f32 and an
+int8 bundle with ``poly_batch=True``. For each bundle it reports:
+
+* ``export_s`` (``export_saved_model``) and ``bundle_mb``;
+* ``cold_load_s``: ``Served(path)`` (the graph, the parameters placed on
+  the device) in this process, and the first call at each batch size;
+* at each of ``--sizes``: ``amortized_ms``, the best of ``--repeats``
+  windows of ``--inner`` ``predict_staged`` calls on inputs staged once,
+  between CUDA events (on the CPU, the host clock around the window and
+  a last read of the result), over ``--inner``; ``roundtrip_ms``, one
+  ``predict`` from a host numpy batch to host numpy (host clock);
+* kernel 5's launches per predict, by its own counter, over the timed
+  windows;
+
+and the kernel library's build seconds (0 when ``_build/`` held it), the
+device, and on a card its name and power limit as ``nvidia-smi`` prints
+them. Run on one CUDA device:
+
+  python -m hybridbackend_tpu_torch.benchmarks.serving_benchmark [--json]
+
+``--device cpu`` runs at a small shape for the tests. ``--cases din``
+exits nonzero with its reason: the DIN bundle needs ROADMAP queue 1 item
+14.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import sys
+import tempfile
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from hybridbackend_tpu_torch.benchmarks import synthetic
+from hybridbackend_tpu_torch.benchmarks import train_benchmark as tb
+
+TRAIN_BATCH = 512
+CASES = {'f32': 'float32', 'int8': 'int8'}
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+  p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+  p.add_argument('--tables', type=int, default=26)
+  p.add_argument('--vocab', type=int, default=100_000)
+  p.add_argument('--dim', type=int, default=16)
+  p.add_argument('--dense-features', type=int, default=13)
+  p.add_argument('--train-steps', type=int, default=2)
+  p.add_argument('--inner', type=int, default=20,
+                 help='predict_staged calls per timed window')
+  p.add_argument('--repeats', type=int, default=3)
+  p.add_argument('--sizes', type=int, nargs='*', default=[128, 1024, 8192])
+  p.add_argument('--cases', nargs='*', default=['f32', 'int8'],
+                 choices=['f32', 'int8', 'din'])
+  p.add_argument('--device', default='cuda',
+                 help="'cuda' (default) or 'cpu'")
+  p.add_argument('--json', action='store_true')
+  return p.parse_args(argv)
+
+
+def unsupported(args: argparse.Namespace) -> Optional[str]:
+  """Why these flags cannot run, or None."""
+  if 'din' in args.cases:
+    return ('--cases din: the DIN bundle needs the DIN tower and '
+            'raw_model_loss, not ported yet (ROADMAP queue 1 item 14)')
+  if torch.device(args.device).type == 'cuda' and (
+      not torch.cuda.is_available()):
+    return 'no CUDA device; pass --device cpu to run on the CPU'
+  return None
+
+
+def _config(args: argparse.Namespace) -> argparse.Namespace:
+  return tb.parse_args(['--sparse', '--tables', str(args.tables), '--vocab',
+                        str(args.vocab), '--dim', str(args.dim),
+                        '--dense-features', str(args.dense_features),
+                        '--device', args.device])
+
+
+def batches(args: argparse.Namespace, rows: int, count: int,
+            seed: int) -> List[Dict[str, np.ndarray]]:
+  """Seeded Criteo-like host batches of the config's columns."""
+  return synthetic.criteo_batches(rows, count, args.vocab,
+                                  tables=args.tables,
+                                  dense_features=args.dense_features,
+                                  seed=seed)
+
+
+def _sync(device: torch.device) -> None:
+  if device.type == 'cuda':
+    torch.cuda.synchronize(device)
+
+
+def _window_ms(served, staged, inner: int, device: torch.device) -> float:
+  """ms per call of ``inner`` ``predict_staged`` calls enqueued back to
+  back, from an idle device."""
+  _sync(device)
+  if device.type == 'cuda':
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(inner):
+      served.predict_staged(staged)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / inner
+  t0 = time.perf_counter()
+  for _ in range(inner):
+    out = served.predict_staged(staged)
+  float(out[0])
+  return (time.perf_counter() - t0) * 1e3 / inner
+
+
+def bench_bundle(args: argparse.Namespace, path: str,
+                 device: torch.device) -> dict:
+  """Cold load and the per-batch times of one bundle."""
+  import hybridbackend_tpu_torch as hbt
+  t0 = time.perf_counter()
+  served = hbt.Served(path, device)
+  _sync(device)
+  report = {'cold_load_s': time.perf_counter() - t0, 'batches': {}}
+  calls = launches = 0
+  for size in args.sizes:
+    batch = batches(args, size, 1, seed=tb.SEED + size)[0]
+    staged = served.stage(batch)
+    t0 = time.perf_counter()
+    first = served.predict_staged(staged).cpu().numpy()
+    first_s = time.perf_counter() - t0
+    if first.shape != (size,) or not np.isfinite(first).all():
+      raise RuntimeError(f'{path}: batch {size} predicted {first}')
+    before = hbt.gather_rows.launches
+    windows = [_window_ms(served, staged, args.inner, device)
+               for _ in range(args.repeats)]
+    launches += hbt.gather_rows.launches - before
+    calls += args.repeats * args.inner
+    t0 = time.perf_counter()
+    served.predict(batch)
+    report['batches'][str(size)] = {
+        'amortized_ms': min(windows), 'windows_ms': windows,
+        'roundtrip_ms': (time.perf_counter() - t0) * 1e3,
+        'first_call_s': first_s}
+  report['gather_launches_per_predict'] = launches / max(calls, 1)
+  return report
+
+
+def run(args: argparse.Namespace) -> dict:
+  """Trains, exports and times; returns the report."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.ops import build
+  device = torch.device(args.device)
+  on_card = device.type == 'cuda'
+  trainer = tb.sparse_trainer(_config(args), device)
+  trainer.train(iter(batches(args, TRAIN_BATCH, args.train_steps,
+                             seed=tb.SEED)))
+  example = batches(args, TRAIN_BATCH, 1, seed=tb.SEED + 1)[0]
+  result = {
+      'metric': 'served_amortized_ms',
+      'tables': args.tables, 'vocab': args.vocab, 'dim': args.dim,
+      'dense_features': args.dense_features,
+      'train_steps': args.train_steps, 'inner': args.inner,
+      'repeats': args.repeats, 'sizes': args.sizes,
+      'device': str(device),
+      'device_name': torch.cuda.get_device_name(device) if on_card else 'cpu',
+      'card': tb.card() if on_card else None,
+      'timing': 'cuda events' if on_card else 'host clock'}
+  tmp = tempfile.mkdtemp(prefix='hbtpu_torch_serve_')
+  try:
+    for case in args.cases:
+      path = os.path.join(tmp, case)
+      t0 = time.perf_counter()
+      trainer.export_saved_model(path, example, table_dtype=CASES[case],
+                                 poly_batch=True)
+      export_s = time.perf_counter() - t0
+      report = bench_bundle(args, path, device)
+      report['export_s'] = export_s
+      report['bundle_mb'] = sum(
+          os.path.getsize(os.path.join(d, f))
+          for d, _, files in os.walk(path) for f in files) / 1e6
+      result[f'flagship_{case}'] = report
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+  result['kernel_build_s'] = (build.load('gather_rows').build_seconds
+                              if on_card else None)
+  return result
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+  args = parse_args(argv)
+  why = unsupported(args)
+  if why:
+    print(f'serving_benchmark: {why}', file=sys.stderr)
+    return 1
+  result = run(args)
+  if args.json:
+    print(json.dumps(result))
+  else:
+    for key, value in result.items():
+      print(f'{key:>20}: {value}')
+  return 0
+
+
+if __name__ == '__main__':
+  sys.exit(main())

@@ -166,6 +166,22 @@ def sparse_parts(args: argparse.Namespace, device: torch.device):
   return fx, tables, tower, model_loss
 
 
+def sparse_trainer(args: argparse.Namespace, device: torch.device,
+                   model_dir: Optional[str] = None,
+                   table_optimizer: str = 'adagrad'):
+  """The sparse config ``args`` as a ``SparseTrainer`` on ``device`` (the
+  weights of :func:`sparse_parts`, the harness's table lr, accumulator
+  and tower Adam) with row-sparse ``table_optimizer``, checkpointing
+  into ``model_dir``."""
+  import hybridbackend_tpu_torch as hbt
+  fx, tables, tower, model_loss = sparse_parts(args, device)
+  return hbt.SparseTrainer(
+      fx, model_loss, tower, tables=tables,
+      dense_optimizer=functools.partial(torch.optim.Adam, lr=TOWER_LR),
+      table_lr=TABLE_LR, adagrad_init=ADAGRAD_INIT,
+      table_optimizer=table_optimizer, model_dir=model_dir)
+
+
 def dense_parts(args: argparse.Namespace, device: torch.device):
   """``(loss_fn, module, optimizer)`` of the dense-gradient config
   ``args`` on ``device``, in the order ``Trainer`` takes them: the

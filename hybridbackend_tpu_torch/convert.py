@@ -17,7 +17,10 @@ Two states are carried: the sparse path's ``SparseTrainState``
 Either may be taken at a later step: the step count, optax Adam's
 ``(mu, nu, count)`` of the tower (into torch Adam's ``exp_avg``,
 ``exp_avg_sq`` and ``step``) and optax Adagrad's ``sum_of_squares`` of
-the tables (into the port's ``Adagrad``) come across with it.
+the tables (into the port's ``Adagrad``) come across with it. A JAX
+int8 serving table (``QuantizedTable``, ``q`` lane-packed to ``[V/p,
+p*d]``) becomes the port's ``[V, d]`` one by the same reshape
+(:func:`quantized_from_jax`).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from hybridbackend_tpu_torch.embedding.quant import QuantizedTable
 from hybridbackend_tpu_torch.embedding.sparse_update import SparseOptState
 from hybridbackend_tpu_torch.embedding.table import TableConfig
 from hybridbackend_tpu_torch.models.feature import (
@@ -235,5 +239,17 @@ def from_jax_dense(module: nn.Module, specs: Sequence[EmbeddingSpec],
   return state
 
 
+def quantized_from_jax(q: np.ndarray, scale: np.ndarray, dim: int,
+                       device: torch.device) -> QuantizedTable:
+  """The port's ``QuantizedTable`` from a JAX one's ``q`` (packed
+  ``[V/p, p*dim]`` or ``[V, dim]`` int8) and ``scale`` (``[V]``): a
+  row-major reshape of ``q`` to ``[V, dim]``, as JAX's
+  ``dequantize_table`` does (``quant.py:90-94``)."""
+  scale = np.asarray(scale, np.float32)
+  q = np.asarray(q, np.int8).reshape(scale.shape[0], dim)
+  return QuantizedTable(q=torch.tensor(q, device=device),
+                        scale=torch.tensor(scale, device=device))
+
+
 __all__ = ['from_jax', 'from_jax_dense', 'load_adam_state', 'load_dcn_v2',
-           'load_dlrm']
+           'load_dlrm', 'quantized_from_jax']

@@ -16,13 +16,18 @@ off by default.
 Nothing in the loop reads the device back per step or per batch: the
 train metrics are read once at the end of ``train`` (and by a hook at its
 own windows), and the eval metrics stay device tensors until
-``evaluate`` returns. Not in this slice: the host-cache runner
-(``caches``), ``raw_model_loss``, ``export_saved_model`` and summaries
-(ROADMAP queue 1 items 16, 14, 13 and 17).
+``evaluate`` returns.
+
+``export_saved_model`` writes a serving bundle
+(``training/saved_model.py``) that a cold process loads as ``Served``.
+Not in this slice (ROADMAP queue 1): the host-cache runner (``caches``)
+and bundled ``id_mappers`` (item 16), ``raw_model_loss`` (item 14) and
+summaries (item 17).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import logging
 from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Sequence
@@ -34,12 +39,16 @@ from hybridbackend_tpu_torch import metrics as hbm
 from hybridbackend_tpu_torch.data.prefetch import DeviceIterator, put_batch
 from hybridbackend_tpu_torch.data.sync import (
     SYNC_VALID_KEY, SyncReplicasIterator)
+from hybridbackend_tpu_torch.embedding.quant import quantize_table
+from hybridbackend_tpu_torch.embedding.stack import member_tables
 from hybridbackend_tpu_torch.framework.context import Context
-from hybridbackend_tpu_torch.models.feature import StackedFeatureExtractor
+from hybridbackend_tpu_torch.models.feature import (
+    EmbeddingSpec, StackedFeatureExtractor, extract_features)
 from hybridbackend_tpu_torch.training.checkpoint import CheckpointManager
 from hybridbackend_tpu_torch.training.hooks import Hook, StepStatHook
 from hybridbackend_tpu_torch.training.optimizer import (
     Adagrad, OptimizerFactory, init_state, load_slots_by_name, slots_by_name)
+from hybridbackend_tpu_torch.training.saved_model import export
 from hybridbackend_tpu_torch.training.sparse_step import (
     SparseTrainState, make_sparse_train_step)
 from hybridbackend_tpu_torch.training.train import (
@@ -72,6 +81,34 @@ def _metrics_step(auc_s, loss_s, gauc_s, labels, preds, pel, loss, valid,
     # Eval batches need not hold each group in one run: sort them.
     gauc_s = hbm.gauc_update(gauc_s, labels, preds, ind, sort_groups=True)
   return auc_s, loss_s, gauc_s
+
+
+class _Apply(nn.Module):
+  """``fn(module, *args)`` as a module's forward, so that
+  ``torch.func.functional_call`` can run ``fn`` on other values of
+  ``module``'s parameters and buffers."""
+
+  def __init__(self, module: nn.Module, fn: Callable):
+    super().__init__()
+    self.module = module
+    self.fn = fn
+
+  def forward(self, *args):
+    return self.fn(self.module, *args)
+
+
+def _leaves(module: nn.Module) -> Dict[str, torch.Tensor]:
+  """``module``'s parameters and buffers by name: the served copy of its
+  state, which the exported graph takes as inputs."""
+  return {**dict(module.named_parameters()), **dict(module.named_buffers())}
+
+
+def _call_with(module: nn.Module, leaves: Dict[str, torch.Tensor],
+               fn: Callable, *args):
+  """``fn(module, *args)`` with ``leaves`` in place of ``module``'s state."""
+  return torch.func.functional_call(
+      _Apply(module, fn), {f'module.{k}': v for k, v in leaves.items()},
+      args)
 
 
 def _host_mean(v) -> float:
@@ -117,6 +154,7 @@ class Trainer:
     if optimizer is None:
       optimizer = Adagrad(params.parameters(), lr=0.1)
     self.state = TrainState.create(params, optimizer)
+    self._loss_fn = loss_fn
     self._step_fn = make_train_step(loss_fn)
     self._eval_fn = make_eval_step(loss_fn)
     self._setup(ctx, label_key, group_key, prefetch_capacity, model_dir,
@@ -313,6 +351,27 @@ class Trainer:
       if isinstance(it, DeviceIterator):
         it.close()
 
+  # -- export ----------------------------------------------------------------
+
+  def export_saved_model(self, path: str, example_batch,
+                         id_mappers=None, poly_batch: bool = False) -> str:
+    """Export the serving bundle (``training/saved_model.py``): the loss
+    function's ``aux['preds']``, the module's parameters and buffers its
+    inputs. Its lookups are the loss function's own (``index_select``
+    unless it passes ``serving=True``). ``example_batch`` carries every
+    column the loss function reads, the label too; ``poly_batch=True``
+    serves any batch size from one bundle; ``id_mappers`` is not ported
+    and raises."""
+    loss_fn = self._loss_fn
+    module = self.state.params
+
+    def serving_fn(leaves, batch):
+      return _call_with(module, leaves,
+                        lambda m, b: loss_fn(m, b)[1]['preds'], batch)
+
+    return export(serving_fn, _leaves(module), example_batch, path,
+                  id_mappers=id_mappers, poly_batch=poly_batch)
+
 
 class SparseTrainer(Trainer):
   """A trainer whose tables update on the rows a batch touched, through
@@ -358,6 +417,8 @@ class SparseTrainer(Trainer):
         dense, tables, dense_optimizer, adagrad_init,
         adam=table_optimizer == 'adam')
     init_state(self.state.dense_opt)
+    self._fx = fx
+    self._model_loss = model_loss
     self._step_fn = make_sparse_train_step(
         fx, model_loss, table_lr, table_optimizer=table_optimizer)
 
@@ -393,6 +454,50 @@ class SparseTrainer(Trainer):
   @property
   def params(self):
     return (self.state.dense, self.state.tables)
+
+  def export_saved_model(self, path: str, example_batch,
+                         id_mappers=None, table_dtype: str = 'float32',
+                         poly_batch: bool = False) -> str:
+    """Export a standalone serving bundle (``training/saved_model.py``):
+    each stack is split back into its member tables, and the served
+    function runs ``extract_features`` over them, every member lookup
+    through kernel 5 (``serving=True``), then ``model_loss``'s
+    ``aux['preds']``. Its inputs are the tower's parameters and buffers
+    and the member tables.
+
+    ``table_dtype='int8'`` quantizes every member table per row
+    (``embedding/quant.py``), about a quarter of the table bytes; the
+    tower stays float. ``example_batch`` carries every column
+    ``model_loss`` reads, the label too; ``poly_batch=True`` serves any
+    batch size from one bundle; ``id_mappers`` is not ported and
+    raises."""
+    if table_dtype not in ('float32', 'int8'):
+      raise ValueError(f'table_dtype must be float32 or int8, got '
+                       f'{table_dtype!r}')
+    tables: Dict[str, Any] = {}
+    for stack in self._fx.stacks:
+      tables.update(member_tables(stack, self.state.tables[
+          stack.stacked.name]))
+    if table_dtype == 'int8':
+      tables = {name: quantize_table(t) for name, t in tables.items()}
+    # A stack addresses its members at offset + raw id (a member's
+    # shuffle_ids is not applied inside a stack), so each extracted slice
+    # serves with the identity row mapping.
+    specs = [EmbeddingSpec(dataclasses.replace(s.config, shuffle_ids=False),
+                           column=s.column) for s in self._fx.specs]
+    dense_columns = list(self._fx.dense_columns)
+    tower, model_loss = self.state.dense, self._model_loss
+
+    def serving_fn(params, batch):
+      tower_leaves, member = params
+      emb_f, dense_f = extract_features(member, batch, specs, dense_columns,
+                                        serving=True)
+      return _call_with(tower, tower_leaves,
+                        lambda t, *a: model_loss(t, *a)[1]['preds'], emb_f,
+                        dense_f, batch)
+
+    return export(serving_fn, (_leaves(tower), tables), example_batch, path,
+                  id_mappers=id_mappers, poly_batch=poly_batch)
 
 
 __all__ = ['SparseTrainer', 'Trainer']

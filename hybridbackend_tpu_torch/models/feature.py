@@ -15,7 +15,8 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from hybridbackend_tpu_torch.embedding.lookup import lookup, lookup_sparse
+from hybridbackend_tpu_torch.embedding.lookup import (
+    Table, lookup, lookup_sparse)
 from hybridbackend_tpu_torch.embedding.stack import (
     build_stacks, create_stacked_tables, pack_ids, unpack_embeddings)
 from hybridbackend_tpu_torch.embedding.table import TableConfig, create_table
@@ -53,23 +54,27 @@ def init_tables(specs: Sequence[EmbeddingSpec], generator: torch.Generator,
       for spec in specs})
 
 
-def extract_features(tables: Mapping[str, torch.Tensor], batch: Batch,
+def extract_features(tables: Mapping[str, Table], batch: Batch,
                      specs: Sequence[EmbeddingSpec],
-                     dense_columns: Sequence[str] = ()
+                     dense_columns: Sequence[str] = (),
+                     serving: bool = False
                      ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
   """``(embedding features, each [B, dim]; dense features, each [B, 1]
   float32)``. A ragged column (padded ids with ``<key>_mask`` in the
   batch) goes through ``lookup_sparse`` and its table's combiner; a
-  fixed-width multivalent column without a mask is combined by mean."""
+  fixed-width multivalent column without a mask is combined by mean.
+  ``serving=True`` (the exported serving function) gathers through
+  kernel 5, as ``lookup`` says; a table may be a ``QuantizedTable``."""
   emb_features = []
   for spec in specs:
     ids = batch[spec.key]
     table = tables[spec.name]
     mask_key = spec.key + '_mask'
     if ids.dim() >= 2 and mask_key in batch:
-      emb = lookup_sparse(table, ids, batch[mask_key], spec.config)
+      emb = lookup_sparse(table, ids, batch[mask_key], spec.config,
+                          serving=serving)
     else:
-      emb = lookup(table, ids, spec.config)
+      emb = lookup(table, ids, spec.config, serving)
       if emb.dim() > 2:
         emb = torch.mean(emb, dim=-2)
     emb_features.append(emb)

@@ -4,12 +4,17 @@ Counterpart of ``hybridbackend_tpu/ops/pallas/gather.py``. The contract
 is that module's: ``table[clip(ids, 0, V - 1)]``, so an id below 0 reads
 row 0 and an id at or above ``V`` reads row ``V - 1``. That differs from
 the embedding lookup (``embedding/lookup.py``), where invalid ids read
-zeros; the lookup keeps ``index_select``, as the JAX lookup keeps
-``jnp.take``.
+zeros: the serving lookup (``lookup(..., serving=True)`` and
+``lookup_quantized``) gathers through this kernel and then masks them.
+The training lookup keeps ``index_select``, whose backward the dense
+path needs; this kernel has none.
 
-:func:`gather_rows` launches the hand-written kernel
-``csrc/gather_rows.cu`` on a CUDA tensor, or raises; on a CPU tensor it
-runs :func:`gather_rows_reference`.
+The kernel is the torch custom op ``hbtpu::gather_rows``, so that
+``torch.export`` records it as one node of a graph (a traced program
+holds no ``data_ptr``); a program that holds it can be loaded only once
+this module is imported. :func:`gather_rows` calls the op, which
+launches the hand-written kernel ``csrc/gather_rows.cu`` on a CUDA
+tensor, or raises; on a CPU tensor it runs :func:`gather_rows_reference`.
 """
 
 from __future__ import annotations
@@ -42,11 +47,8 @@ def gather_rows_reference(table: torch.Tensor,
   return table.index_select(0, rows).reshape(*ids.shape, table.shape[1])
 
 
-def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-  """``table[clip(ids, 0, V - 1)]``: a new ``ids.shape + (d,)`` tensor of
-  the table's type. Any ``N``, any ``d``, any element type; on a CUDA
-  device the table must be contiguous. On a CPU tensor it runs
-  :func:`gather_rows_reference`."""
+@torch.library.custom_op('hbtpu::gather_rows', mutates_args=())
+def _gather_rows_op(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
   if table.device.type == 'cpu':
     return gather_rows_reference(table, ids)
   _check(table, ids)
@@ -65,6 +67,19 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                flat.shape[0], table.shape[0],
                table.shape[1] * table.element_size())
   return out.reshape(*ids.shape, table.shape[1])
+
+
+@_gather_rows_op.register_fake
+def _(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+  return table.new_empty((*ids.shape, table.shape[1]))
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+  """``table[clip(ids, 0, V - 1)]``: a new ``ids.shape + (d,)`` tensor of
+  the table's type, through the op ``hbtpu::gather_rows``. Any ``N``, any
+  ``d``, any element type; on a CUDA device the table must be contiguous.
+  On a CPU tensor it runs :func:`gather_rows_reference`."""
+  return torch.ops.hbtpu.gather_rows(table, ids)
 
 
 gather_rows.launches = 0

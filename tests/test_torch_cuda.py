@@ -870,3 +870,54 @@ def test_native_reader_batches_arrive_exactly_on_the_card(dev, tmp_path):
         assert g[k].device == dev
         np.testing.assert_array_equal(g[k].cpu().numpy(),
                                       v[i * 512:(i + 1) * 512])
+
+
+# The serving path: kernel 5 through its op. A lookup copies rows and
+# masks, and the int8 lookup multiplies each element once, so bitwise.
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, 'int8'])
+def test_serving_lookups_match_the_cpu(dev, dtype):
+  cfg = hbt.TableConfig('t', 3000, 16)
+  table = (torch.randn(3000, 16, generator=torch.Generator().manual_seed(0))
+           * 3)
+  ids = torch.randint(-4, 3010, (512, 26),
+                      generator=torch.Generator().manual_seed(1),
+                      dtype=torch.int32)
+  if dtype == 'int8':
+    # Quantized on the card, the same bits as on the CPU.
+    on_card = hbt.quantize_table(table.to(dev))
+    table, per = hbt.quantize_table(table), 2
+    assert torch.equal(on_card.q.cpu(), table.q)
+    assert torch.equal(on_card.scale.cpu(), table.scale)
+    lookup = lambda t, i: hbt.lookup(t, i, cfg)
+  else:
+    table, per = table.to(dtype), 1
+    on_card = table.to(dev)
+    lookup = lambda t, i: hbt.lookup(t, i, cfg, serving=True)
+  before = hbt.gather_rows.launches
+  got = lookup(on_card, ids.to(dev))
+  assert hbt.gather_rows.launches == before + per
+  assert torch.equal(got.cpu(), lookup(table, ids))
+
+
+def test_a_bundle_serves_on_the_card_as_on_the_cpu(dev, tmp_path):
+  """One poly-batch bundle, exported on the CPU, served on the card and on
+  the CPU: kernel 5 once per member lookup (twice in int8), and the
+  predictions at the tower's f32 order tolerance."""
+  from hybridbackend_tpu_torch.benchmarks import synthetic
+  from hybridbackend_tpu_torch.benchmarks import train_benchmark as tb
+  cfg = tb.parse_args(['--sparse', '--tables', '3', '--vocab', '500',
+                       '--dense-features', '2'])
+  trainer = tb.sparse_trainer(cfg, torch.device('cpu'))
+  example = synthetic.criteo_batches(64, 1, 500, tables=3,
+                                     dense_features=2)[0]
+  for dtype, per in (('float32', 3), ('int8', 6)):
+    path = trainer.export_saved_model(str(tmp_path / dtype), example,
+                                      table_dtype=dtype, poly_batch=True)
+    served, on_cpu = hbt.Served(path), hbt.Served(path, 'cpu')
+    for rows in (1, 100):
+      b = synthetic.criteo_batches(rows, 1, 500, tables=3, dense_features=2,
+                                   seed=rows)[0]
+      before = hbt.gather_rows.launches
+      got = served.predict(b)
+      assert hbt.gather_rows.launches == before + per
+      np.testing.assert_allclose(got, on_cpu.predict(b), **TOL)

@@ -14,6 +14,7 @@ def test_import_leaves_jax_out():
       import sys
       import hybridbackend_tpu_torch
       import hybridbackend_tpu_torch.benchmarks.e2e_benchmark
+      import hybridbackend_tpu_torch.benchmarks.serving_benchmark
       import hybridbackend_tpu_torch.benchmarks.synthetic
       import hybridbackend_tpu_torch.benchmarks.train_benchmark
       import hybridbackend_tpu_torch.data.dataframe
@@ -23,6 +24,7 @@ def test_import_leaves_jax_out():
       import hybridbackend_tpu_torch.data.rebatch
       import hybridbackend_tpu_torch.data.sync
       import hybridbackend_tpu_torch.data.validate
+      import hybridbackend_tpu_torch.embedding.quant
       import hybridbackend_tpu_torch.estimator
       import hybridbackend_tpu_torch.examples.criteo.train
       import hybridbackend_tpu_torch.metrics
@@ -30,6 +32,7 @@ def test_import_leaves_jax_out():
       import hybridbackend_tpu_torch.training.checkpoint
       import hybridbackend_tpu_torch.training.hooks
       import hybridbackend_tpu_torch.training.optimizer
+      import hybridbackend_tpu_torch.training.saved_model
       import hybridbackend_tpu_torch.training.train
       bad = sorted(m for m in sys.modules
                    if m == 'jax' or m.startswith('jax.')
