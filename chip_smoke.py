@@ -132,17 +132,42 @@ Phases; any failure raises and the script exits nonzero:
      ``quantize_table`` and ``lookup_quantized`` on the card bit for bit
      against the CPU at the flagship lookup; then the serving harness
      (``python -m hybridbackend_tpu_torch.benchmarks.serving_benchmark
-     --json``) once, its JSON line printed.
-With ``--profile`` it then traces 10 steps of each timed variant with
+     --cases f32 int8 --json``) once, its JSON line printed;
+ 23. DIN (the port's DIN harness's ``--sparse`` config: item [1000000, 32]
+     and user [100000, 32] in one [1100000, 32] stack, batch 2048, history
+     64, DNN 256-128-64, attention 80-40, 2 dense features): kernel 1 at
+     the DIN step's update list (135168 rows) against its plain version,
+     with its times and bound; then the raw-mode ``SparseTrainer`` step on
+     the card against the CPU from the same weights, plain, with 4
+     sessions (``-1`` holes) and with the attention's weight
+     normalization, 3 steps each from one state (loss, tables,
+     accumulators, the tower by phase 18's rule), kernel 1 once a step,
+     the rows behind the holes untouched and planted candidates moved by
+     their exact run totals;
+ 24. the DIN harness (``python -m hybridbackend_tpu_torch.benchmarks.
+     din_benchmark --json``) at its defaults, dense, ``--sparse`` and
+     ``--sparse --sessions 4``, each in its own process, JSON lines
+     printed (kernel 1 once a step in the sparse modes);
+ 25. the port's Taobao entry point (``examples/taobao/train_din.py
+     --synthesize --sparse``, and with ``--sessions``) for 64 steps from
+     the file it writes, its evaluation restored on the card (equal) and
+     on the CPU (AUC and GAUC within their limits), restore and resume
+     bitwise; each trainer's f32 and int8 bundles served by a cold process
+     on the card at 1, 128 and 512 rows (kernel 5 twice a f32 predict, 4
+     times an int8 one; f32 within 1e-6 of the trainer); then the serving
+     harness's DIN case (``--cases din``), its JSON line printed.
+With ``--profile`` it then traces 10 steps of each timed variant and of
+the DIN harness's ``--sparse`` step with and without sessions with
 ``torch.profiler`` and prints device time per step by kernel class. With
 ``--tune`` phase 1 also times the add kernel over tile sizes, the
 dense-totals kernel over block and chunk sizes, and the Adagrad (both
 modes) and LazyAdam kernels over tile sizes and state batches (the rows
 of how many run heads a thread loads before it waits for its tile's
 gradients); each sweep forth and back.
-The second-to-last line is a JSON object describing each kernel (its
-times, launches on its path, in the trainers' runs, in the runs from
-Parquet files and in the served predicts, and its bound: the
+The run's wall time is printed before the last two lines. The
+second-to-last line is a JSON object describing each kernel (its times,
+launches on its path, in the trainers' runs, in the runs from Parquet
+files, in the served predicts and in the DIN phases, and its bound: the
 larger of its bytes over 3.35 TB/s and its operations over the card's
 peak rate); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -171,6 +196,7 @@ import time
 import numpy as np
 import torch
 
+from hybridbackend_tpu_torch.benchmarks import din_benchmark as din
 from hybridbackend_tpu_torch.benchmarks import synthetic
 from hybridbackend_tpu_torch.benchmarks import train_benchmark as tb
 
@@ -201,6 +227,9 @@ KERNELS = {
                                  f'{PALLAS}/scatter.py:749'),
     'scatter_add_sorted[bf16]': (f'{CSRC}/scatter_add.cu',
                                  f'{PALLAS}/scatter.py:429'),
+    # Kernel 1 at the DIN step's update list (phase 23).
+    'adagrad_update_sorted[din]': (f'{CSRC}/adagrad_update.cu',
+                                   f'{PALLAS}/scatter.py:534'),
 }
 # The rows of the kernels that hold state rows in registers.
 STATE_KERNELS = ('adagrad_update_sorted',
@@ -1326,18 +1355,17 @@ def timed(cfg: argparse.Namespace, dev: torch.device, label: str, state,
   return state, counts[kernel]
 
 
-def profile(cfg: argparse.Namespace, dev: torch.device, label: str, state, step,
-            steps=10):
+def profile(label: str, state, step, batch, steps=10):
   """Device time per step by kernel class over ``steps`` traced steps,
-  and the device's busy share of the traced span."""
+  step ``i`` on ``batch(100 + i)``, and the device's busy share of the
+  traced span."""
   from torch.profiler import ProfilerActivity, profile as tprofile
-  base, ids = tb.make_batch(cfg, dev)
   torch.cuda.synchronize()
   with tprofile(activities=[ProfilerActivity.CPU,
                             ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
     for i in range(steps):
-      state, _ = step(state, tb.shifted(base, ids, cfg.vocab, 100 + i))
+      state, _ = step(state, batch(100 + i))
     torch.cuda.synchronize()
     span_ms = (time.perf_counter() - t0) * 1e3
   classes = collections.Counter()
@@ -1663,15 +1691,25 @@ def phase17_sparse_trainer(cfg, dev, smi, bare_state, bare_step):
 
 
 def _hold_tower(label, g_net, c_net, g_opt, c_opt, before, v_before, adam,
-                report, apart_in):
+                report, apart_in, zero_grad=()):
   """One Adam step of the tower on the card (``g_net``, its optimizer
   state ``g_opt``) against the same step on the CPU (``c_net``,
   ``c_opt``), both from the CPU's copies of the weights and first
   moments before it (``before``) and of the second moments
-  (``v_before``); ``adam`` is ``(lr, b1, b2, eps)``. Raises where a
+  (``v_before``); ``adam`` is ``(lr, b1, b2, eps)``. ``zero_grad`` names
+  the parameters whose true gradient is 0 (see below). Raises where a
   difference exceeds the allowances below; adds to ``report`` and
   ``apart_in``."""
   lr, b1, b2, eps = adam
+  # A parameter whose true gradient is 0 (the score's bias under the
+  # attention's weight normalization: the softmax does not see a constant
+  # added to every score) has rounding noise for a gradient on both
+  # devices, under 2**-20 of the tower's largest gradient: (a) does not
+  # apply to it, (b) does, and Adam's step of the noise may take either
+  # sign: its weights may lie up to 2.2 * lr apart.
+  tower_largest = max(
+      (float(((c_opt[cp]['exp_avg'] - b1 * m0) / (1 - b1)).abs().max())
+       for cp, (_, m0) in zip(c_net.parameters(), before)), default=0.0)
   # The tower, in two parts. (a) Across the devices: each weight's
   # gradient, read from Adam's first moment (g = (m - b1 * m_before) /
   # (1 - b1), m_before the same on both), is a sum over the batch whose
@@ -1694,24 +1732,33 @@ def _hold_tower(label, g_net, c_net, g_opt, c_opt, before, v_before, adam,
     gm, gv = gs['exp_avg'].cpu(), gs['exp_avg_sq'].cpu()
     cm, cv = cs['exp_avg'], cs['exp_avg_sq']
     gg, cg = ((m - b1 * m0) / (1 - b1) for m in (gm, cm))
+    if n in zero_grad:
+      noise = max(float(gg.abs().max()), float(cg.abs().max()))
+      report['zero_grad_noise_of_largest'] = max(
+          report.get('zero_grad_noise_of_largest', 0.0),
+          noise / tower_largest)
+      if noise > 2**-20 * tower_largest:
+        raise AssertionError(f'{label}: net.{n}, whose true gradient is 0, '
+                             f'has a gradient of {noise}')
     largest = float(cg.abs().max())
     allowance = 1e-3 * cg.abs() + 1e-3 * largest
     g_diff = (gg - cg).abs()
-    report['tower_grad_err_of_max'] = max(
-        report['tower_grad_err_of_max'], float(g_diff.max()) / largest)
-    if bool((g_diff > allowance).any()):
-      raise AssertionError(f'{label}: the gradient of '
-                           f'net.{n} differs by up to '
-                           f'{float(g_diff.max())}, largest {largest}')
-    v_allow = ((1 - b2) * 2 * allowance * (2 * cg.abs() + 2 * allowance)
-               + 2**-21 * cv)
-    v_ratio = float(((gv - cv).abs() / v_allow.clamp(min=1e-38)).max())
-    report['tower_v_err_of_allowance'] = max(
-        report['tower_v_err_of_allowance'], v_ratio)
-    if v_ratio > 1:
-      raise AssertionError(f'{label}: the second moment of '
-                           f'net.{n} differs by {v_ratio:.3g} times its '
-                           'allowance')
+    if n not in zero_grad:
+      report['tower_grad_err_of_max'] = max(
+          report['tower_grad_err_of_max'], float(g_diff.max()) / largest)
+      if bool((g_diff > allowance).any()):
+        raise AssertionError(f'{label}: the gradient of '
+                             f'net.{n} differs by up to '
+                             f'{float(g_diff.max())}, largest {largest}')
+      v_allow = ((1 - b2) * 2 * allowance * (2 * cg.abs() + 2 * allowance)
+                 + 2**-21 * cv)
+      v_ratio = float(((gv - cv).abs() / v_allow.clamp(min=1e-38)).max())
+      report['tower_v_err_of_allowance'] = max(
+          report['tower_v_err_of_allowance'], v_ratio)
+      if v_ratio > 1:
+        raise AssertionError(f'{label}: the second moment of '
+                             f'net.{n} differs by {v_ratio:.3g} times its '
+                             'allowance')
     t = float(cs['step'])
     if float(gs['step']) != t:
       raise AssertionError(f'{label}: Adam steps '
@@ -1731,6 +1778,13 @@ def _hold_tower(label, g_net, c_net, g_opt, c_opt, before, v_before, adam,
                              f'{where} is {ratio:.3g} times its tolerance '
                              "from Adam's step of its own moments")
     diff = (gp.detach().cpu() - cp.detach()).abs()
+    if n in zero_grad:
+      report['zero_grad_weight_max_abs_err'] = max(
+          report.get('zero_grad_weight_max_abs_err', 0.0), float(diff.max()))
+      if float(diff.max()) > 2.2 * lr:
+        raise AssertionError(f'{label}: net.{n}, whose true gradient is 0, '
+                             f'differs by {float(diff.max())}')
+      continue
     report['tower_max_abs_err'] = max(report['tower_max_abs_err'],
                                       float(diff.max()))
     apart = diff > 1e-4 + 1e-4 * cp.detach().abs()
@@ -2192,11 +2246,14 @@ SERVE_CASES = {'f32': 'float32', 'int8': 'int8'}
 # per member for the scales of an int8 table.
 SERVE_GATHERS = {'f32': 1, 'int8': 2}
 
-# Phase 22's cold process: it imports the port (which registers kernel
-# 5's op), loads each bundle as ``Served`` on the card and predicts each
-# batch once, each predict between a reset and a read of the kernel
-# counts. argv: the bundles' directory, the batches' directory, the
-# cases and the sizes, comma-separated.
+# The cold process of phases 22 and 25: it imports the port (which
+# registers kernel 5's op), loads each bundle as ``Served`` on the card
+# and predicts each batch once, each predict between a reset and a read
+# of the kernel counts. argv: the bundles' directory, the batches'
+# directory, the cases and the sizes, comma-separated. A case is a
+# bundle's path under the bundles' directory; its batches are
+# ``batch_<size>.npz`` under the batches' directory, in the case's own
+# parent directory (``a/f32`` reads ``a/batch_<size>.npz``).
 COLD_SERVE = '''
 import json, os, sys, time
 t0 = time.perf_counter()
@@ -2214,11 +2271,12 @@ for case in cases.split(','):
   torch.cuda.synchronize()
   r = {'load_s': time.perf_counter() - t0, 'predict_s': {}, 'launches': {}}
   for size in sizes.split(','):
-    batch = dict(np.load(os.path.join(data, f'batch_{size}.npz')))
+    batch = dict(np.load(os.path.join(data, os.path.dirname(case),
+                                      f'batch_{size}.npz')))
     for name in tb.COUNTED:
       getattr(hbt, name).launches = 0
     t0 = time.perf_counter()
-    preds[f'{case}_{size}'] = served.predict(batch)
+    preds[f'{case.replace("/", ".")}_{size}'] = served.predict(batch)
     r['predict_s'][size] = time.perf_counter() - t0
     r['launches'][size] = {n: getattr(hbt, n).launches for n in tb.COUNTED}
   report['cases'][case] = r
@@ -2233,7 +2291,7 @@ def _serving_harness(smi):
   """Phase 22's run of the serving harness at its defaults, in a process
   of its own; its JSON line is printed. Kernel 5 must have run once per
   member lookup of each timed predict."""
-  line, report = _module_json('serving_benchmark')
+  line, report = _module_json('serving_benchmark', '--cases', 'f32', 'int8')
   for case, per in SERVE_GATHERS.items():
     got = report[f'flagship_{case}']['gather_launches_per_predict']
     if got != per * report['tables'] or report['card'] != smi:
@@ -2242,7 +2300,7 @@ def _serving_harness(smi):
                            f'{report["card"]}; expected '
                            f'{per * report["tables"]} on {smi}')
   print('phase 22 (python -m hybridbackend_tpu_torch.benchmarks.'
-        f'serving_benchmark --json): {line}')
+        f'serving_benchmark --cases f32 int8 --json): {line}')
 
 
 def phase22_serving(cfg, dev, smi, trained):
@@ -2376,6 +2434,502 @@ def phase22_serving(cfg, dev, smi, trained):
   return launches
 
 
+DIN_SESSIONS = 4            # the sessions of phases 23 and 24
+DIN_STEPS = 3               # phase 23's GPU-vs-CPU steps of each variant
+DIN_PLANTED = 256           # rows whose candidate phase 23 repeats
+# Phase 23's variants: label -> (the harness's flags, the attention's
+# weight normalization).
+DIN_VARIANTS = {
+    'plain': ([], False),
+    f'sessions (S = {DIN_SESSIONS})': (['--sessions', str(DIN_SESSIONS)],
+                                       False),
+    'weight_normalization=True': ([], True),
+}
+TAOBAO_STEPS = 64           # phase 25's run of the Taobao entry point
+TAOBAO_SAVE = 32            # and the checkpoints of its resume check
+TAOBAO_SIZES = (1, 128, 512)   # phase 25's served batch sizes
+# kernel 5's launches per DIN predict: one per member (item, user), and
+# one more per member for the scales of an int8 table.
+DIN_SERVE_GATHERS = {'f32': 2, 'int8': 4}
+
+
+def phase23_din_kernel(dev: torch.device):
+  """Kernel 1 at the DIN step's update list: the DIN harness's ``--sparse``
+  batch at its defaults (``cand_hist`` [2048, 65] and ``user`` [2048])
+  packed onto the [1100000, 32] stack, 135168 occurrences, with N(0, 0.01)
+  gradients; held against its plain version on the card (phase 1's
+  ``_hold``) and timed as phase 1 times the flagship list."""
+  import hybridbackend_tpu_torch as hbt
+  args = din.parse_args(['--sparse'])
+  (stack,) = din.extractor(args, dev).stacks
+  base, ids, _ = din.make_batch(args, dev)
+  raw_ids, _ = hbt.pack_ids(stack, {'item': ids, 'user': base['user']})
+  raw_ids = raw_ids.reshape(-1)
+  rows, order = torch.sort(raw_ids, stable=True)
+  n, d, v = rows.numel(), args.dim, stack.stacked.vocab_size
+  gen = torch.Generator().manual_seed(tb.SEED)
+  raw_g = (torch.randn(n, d, generator=gen) * 0.01).to(dev)
+  g = raw_g.index_select(0, order)
+  table0 = hbt.default_initializer(gen, (v, d)).to(dev)
+  acc0 = torch.full_like(table0, tb.ADAGRAD_INIT)
+  lr = torch.full((), tb.TABLE_LR, device=dev)
+  u = int(torch.unique(rows[(rows >= 0) & (rows < v)]).numel())
+  name = 'adagrad_update_sorted[din]'
+  k = functools.partial(hbt.adagrad_update_sorted, rows=rows, updates=g,
+                        lr=lr)
+  p = functools.partial(hbt.adagrad_update_sorted_reference, rows=rows,
+                        updates=g, lr=lr)
+  err, (tk, ak) = _hold(name, (table0, acc0), rows, k, p)
+  tr, ar = table0.clone(), acc0.clone()
+  ms = _median_ms(lambda: k(tk, ak))
+  plain_ms = _median_ms(lambda: p(tr, ar), queued=False)
+  st = hbt.init_adagrad_state(tk)
+  path_ms = _median_ms(lambda: hbt.sparse_adagrad_apply(
+      tk, st, raw_ids, raw_g, stack.stacked, lr))
+  # Phase 1's count: the list read once, each distinct row of the table
+  # and the accumulator read and written once; the list's sums, then 7
+  # operations per distinct element.
+  row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+             path_ms=path_ms, launches=1,
+             **_bound(n * (d + 1) * 4 + 4 * u * d * 4, n * d + 7 * u * d))
+  print(f'phase 23: kernel 1 at the DIN update list ({n} rows, {u} '
+        f'distinct, on [{v}, {d}]): max abs err {err:.3e}; kernel '
+        f'{ms:.4f} ms, plain {plain_ms:.4f} ms; sort+gather+kernel '
+        f'{path_ms:.4f} ms; ' + _against_bound(row))
+  return row
+
+
+def _din_batch(args, seed):
+  """Phase 23's batch: the harness's draws from ``seed`` on the CPU, the
+  candidate repeated as the first history id (a valid position in both
+  layouts) of the first ``DIN_PLANTED`` rows. Returns the harness's
+  ``(base, ids, valid)`` and the ids that the sessions layout's ``-1``
+  holes replaced (the same draws without ``--sparse``)."""
+  cpu = torch.device('cpu')
+  base, ids, _ = din.make_batch(args, cpu, seed)
+  ids[:DIN_PLANTED, 1] = ids[:DIN_PLANTED, 0]
+  dense = argparse.Namespace(**{**vars(args), 'sparse': False})
+  holed = din.make_batch(dense, cpu, seed)[1][ids < 0]
+  return (base, ids, (ids >= 0).to(torch.int32)), holed
+
+
+def _run_totals(trainer, batch):
+  """The CPU trainer's per-occurrence embedding gradients of ``batch``
+  from its current state (the step's backward, without the update), and
+  the packed ids: ``(ids [n], grads [n, d])`` of its one stack."""
+  from hybridbackend_tpu_torch.training.sparse_step import loss_from_raw
+  fx = trainer._fx
+  raw, ids, layouts = fx.lookup_raw(trainer.state.tables, batch)
+  ((name, emb),) = raw.items()
+  emb = emb.detach().requires_grad_()
+  loss, _ = loss_from_raw(fx, None, trainer._raw_model_loss)(
+      trainer.state.dense, {name: emb}, layouts, batch)
+  loss.backward()
+  trainer.state.dense.zero_grad(set_to_none=True)
+  return ids[name].reshape(-1), emb.grad.reshape(-1, emb.shape[-1])
+
+
+def _check_run_totals(label, planted, ids, grads, t0, a0, t1):
+  """Each planted row moved by Adagrad's step of its exact run total: the
+  sum, in f64, of every occurrence's gradient (the candidate and its
+  repeat in the history, and any other); ``t1 - t0`` within one f32 ulp of
+  ``t1`` plus 1e-4 of the step. Returns the share of the checked elements
+  that a total without the row's last occurrence would have put outside
+  that bound (how sharp the check is)."""
+  lr = tb.TABLE_LR
+  ids64, g64 = ids.long(), grads.double()
+  far, checked = 0, 0
+  for r in planted.tolist():
+    occ = (ids64 == r).nonzero().reshape(-1)
+    if occ.numel() < 2:
+      raise AssertionError(f'{label}: row {r} occurs {occ.numel()} times')
+    total = g64[occ].sum(0)
+    a = a0[r].double()
+
+    def step(s):
+      return -lr * s / (torch.sqrt(a + s * s) + 1e-7)
+    want = step(total)
+    got = t1[r].double() - t0[r].double()
+    bound = (torch.finfo(torch.float32).eps * t1[r].double().abs()
+             + 1e-4 * want.abs())
+    if bool(((got - want).abs() > bound).any()):
+      raise AssertionError(f'{label}: row {r} moved by {got.tolist()}, '
+                           f'its run total gives {want.tolist()}')
+    dropped = step(total - g64[occ[-1]])
+    far += int(((dropped - want).abs() > bound).sum())
+    checked += want.numel()
+  return far / checked
+
+
+def phase23_din_step(dev: torch.device, smi: str):
+  """Phase 23: the DIN sparse step at full width (the DIN harness's
+  ``--sparse`` config: item [1000000, 32] and user [100000, 32] in one
+  stack, batch 2048, history 64, DNN 256-128-64, attention 80-40) through
+  ``SparseTrainer`` in raw mode, on the card against the CPU, from the
+  same weights (seed 0): plain, sessions (S = 4, ``-1`` holes) and with
+  the attention's weight normalization, 3 steps each, each step from one
+  state (the CPU trainer takes the card's state before it). Held: the loss
+  to 1e-5 relative; tables and accumulators to ``rtol = atol = 1e-5``;
+  the tower by phase 18's rule (``_hold_tower``; under weight
+  normalization the score's bias, whose true gradient is 0, by its rule
+  for such a weight) and every weight within 1e-4 (+ 1e-4 of itself)
+  except where its gradient's sign is not settled (under 2e-3 of the
+  tensor's largest on both devices); kernel 1 once a
+  step; rows that no valid id reads, among them every row a ``-1`` hole
+  replaced, bitwise unchanged; each planted candidate's row moved by its
+  exact run total (``_check_run_totals``). Returns kernel 1's row at the
+  DIN list and the kernel launches of the steps."""
+  import hybridbackend_tpu_torch as hbt
+  cpu = torch.device('cpu')
+  row = phase23_din_kernel(dev)
+  launches = collections.Counter()
+  for label, (flags, normalize) in DIN_VARIANTS.items():
+    label = f'phase 23 (DIN --sparse, {label})'
+    args = din.parse_args(['--sparse', *flags])
+    g_tr, c_tr = (din.sparse_trainer(args, d, normalize=normalize)
+                  for d in (dev, cpu))
+    (base, ids, valid), holed = _din_batch(args, tb.SEED + 1)
+    (name,) = c_tr.state.tables
+    # The score's bias: with weight normalization its true gradient is 0.
+    zero_grad = ({f'attention.mlp.layers.{len(din.ATT)}.b'} if normalize
+                 else ())
+    report = {'loss_rel_err': 0.0, 'table_max_abs_err': 0.0,
+              'acc_max_abs_err': 0.0, **_tower_report()}
+    apart_in, sharp = set(), []
+    group = c_tr.state.dense_opt.param_groups[0]
+    adam = (group['lr'], *group['betas'], group['eps'])
+    for i in range(DIN_STEPS):
+      step_label = f'{label}, step {i + 1}'
+      c_tr._load_checkpoint_state(g_tr._checkpoint_state())
+      c_opt = c_tr.state.dense_opt.state
+      before = [(p.detach().clone(), c_opt[p]['exp_avg'].clone())
+                for p in c_tr.state.dense.parameters()]
+      v_before = [c_opt[p]['exp_avg_sq'].clone()
+                  for p in c_tr.state.dense.parameters()]
+      t0 = c_tr.state.tables[name].clone()
+      a0 = c_tr.state.table_opt[name].acc[0].clone()
+      cb = din.shifted(args, base, ids, valid, i)
+      occ_ids, occ_grads = _run_totals(c_tr, cb)
+      _reset_counts()
+      g_tr.state, gm = g_tr._step_fn(g_tr.state, hbt.put_batch(cb, dev))
+      torch.cuda.synchronize(dev)
+      counts = _counts()
+      _expect(step_label, counts, adagrad_update_sorted=1)
+      launches.update(counts)
+      c_tr.state, cm = c_tr._step_fn(c_tr.state, cb)
+      gl, cl = float(gm['loss']), float(cm['loss'])
+      report['loss_rel_err'] = max(report['loss_rel_err'],
+                                   abs(gl - cl) / abs(cl))
+      if not abs(gl - cl) <= 1e-5 * abs(cl):
+        raise AssertionError(f'{step_label}: loss {gl} on the GPU, {cl} on '
+                             'the CPU')
+      t1 = g_tr.state.tables[name].cpu()
+      pairs = (('table', t1, c_tr.state.tables[name]),
+               ('acc', g_tr.state.table_opt[name].acc[0].cpu(),
+                c_tr.state.table_opt[name].acc[0]))
+      for key, x, y in pairs:
+        err = float((x - y).abs().max())
+        report[f'{key}_max_abs_err'] = max(report[f'{key}_max_abs_err'], err)
+        if not torch.allclose(x, y, rtol=1e-5, atol=1e-5):
+          raise AssertionError(f'{step_label}: {key} differs by up to {err}')
+      read = torch.zeros(t0.shape[0], dtype=torch.bool)
+      read[occ_ids[occ_ids >= 0].long()] = True
+      if not torch.equal(t1[~read], t0[~read]):
+        raise AssertionError(f'{step_label}: a row no valid id reads moved')
+      hole_rows = (holed + i) % args.vocab
+      hole_rows = hole_rows[~read[hole_rows.long()]].long()
+      if not torch.equal(t1[hole_rows], t0[hole_rows]):
+        raise AssertionError(f'{step_label}: a row behind a -1 hole moved')
+      planted = torch.unique(occ_ids.reshape(args.batch, -1)[:DIN_PLANTED, 0])
+      sharp.append(_check_run_totals(step_label, planted, occ_ids, occ_grads,
+                                     t0, a0, t1))
+      _hold_tower(step_label, g_tr.state.dense, c_tr.state.dense,
+                  g_tr.state.dense_opt.state, c_opt, before, v_before, adam,
+                  report, apart_in, zero_grad)
+      unsettled = max(report['their_largest_grad_of_max_card'],
+                      report['their_largest_grad_of_max_cpu'])
+      if report['tower_weights_over_1e-4_apart'] and unsettled > 2e-3:
+        raise AssertionError(f'{step_label}: tower weights over 1e-4 apart '
+                             f'where the gradient is settled: {report} in '
+                             f'{sorted(apart_in)}')
+    del g_tr, c_tr
+    print(f'{label}, {DIN_STEPS} full-width steps GPU vs CPU on {smi}: '
+          + ', '.join(f'{k} {v:.3e}' if isinstance(v, float) else f'{k} {v}'
+                      for k, v in report.items())
+          + f' (in {", ".join(sorted(apart_in)) or "none"}); -1 holes '
+          f'{int((ids < 0).sum())} a step, {holed.numel()} ids behind them, '
+          f'their rows unchanged; {DIN_PLANTED} planted candidates moved by '
+          'their exact run totals (a total short of one occurrence falls '
+          f'outside the bound in {min(sharp):.3f}-{max(sharp):.3f} of their '
+          'elements)')
+  return row, launches
+
+
+def phase24_din_harness(smi: str):
+  """Phase 24: the DIN harness at its defaults, as a user runs it, in a
+  process of its own each: dense, ``--sparse`` and ``--sparse --sessions
+  4``; each JSON line printed. Kernel 1 once a timed step in the sparse
+  modes, no counted kernel in the dense one. Returns their launches."""
+  launches = collections.Counter()
+  for flags in ([], ['--sparse'], ['--sparse', '--sessions',
+                                   str(DIN_SESSIONS)]):
+    line, report = _module_json('din_benchmark', *flags)
+    want = {name: 0 for name in tb.COUNTED}
+    if '--sparse' in flags:
+      want['adagrad_update_sorted'] = report['timed_steps']
+    if (report['kernel_launches'] != want or report['card'] != smi
+        or not np.isfinite(report['final_loss'])):
+      raise AssertionError(f'phase 24: the DIN harness reported {report}; '
+                           f'expected launches {want} on {smi}')
+    launches.update(report['kernel_launches'])
+    print('phase 24 (python -m hybridbackend_tpu_torch.benchmarks.'
+          f'din_benchmark --json{"".join(" " + f for f in flags)}): {line}')
+  return launches
+
+
+def _gauc_limit(predictions, reference, labels, groups, rows):
+  """How far the GAUC of ``predictions`` may lie from that of
+  ``reference`` (the same examples scored on another device), as
+  ``metrics.auc_limit`` bounds the AUC: the evaluation ranks each batch's
+  groups (``rows`` examples a batch) exactly, so only a positive and a
+  negative of one group whose reference predictions lie within twice the
+  largest gap of each other may swap; each swap moves its group's AUC by
+  ``1 / (pos * neg)``, weighted by the group's share of the examples in
+  groups of both classes; plus 1e-6 for the sums' order."""
+  p, r = (np.asarray(x, np.float64) for x in (predictions, reference))
+  y, g = np.asarray(labels), np.asarray(groups)
+  gap = float(np.abs(p - r).max())
+  num = den = 0.0
+  for lo in range(0, len(y), rows):
+    sl = slice(lo, lo + rows)
+    _, gi = np.unique(g[sl], return_inverse=True)
+    yb, rb = y[sl], r[sl]
+    close = ((gi[:, None] == gi[None, :]) & (yb[:, None] == 1)
+             & (yb[None, :] == 0)
+             & (np.abs(rb[:, None] - rb[None, :]) <= 2 * gap))
+    size = np.bincount(gi)
+    pos = np.bincount(gi, weights=yb)
+    neg = size - pos
+    swaps = np.bincount(gi[np.nonzero(close)[0]], minlength=len(size))
+    both = (pos > 0) & (neg > 0)
+    num += float((size * swaps / np.maximum(pos * neg, 1))[both].sum())
+    den += float(size[both].sum())
+  return num / den + 1e-6, gap
+
+
+def phase25_taobao(dev: torch.device, smi: str, tmp: str):
+  """Phase 25: the port's Taobao entry point as a user runs it,
+  ``examples/taobao/train_din.py --synthesize --sparse`` and ``--sparse
+  --sessions`` at their defaults (item [50000, 16] and user [20000, 16]
+  in one stack, batch 512, history 32, or 4 sessions of 32), 64 steps
+  from the file each writes (kernel 1 once a step), its evaluation
+  printed. A trainer made again on its ``--model-dir`` evaluates the
+  file's batches as the entry point did, bit for bit, and on the CPU to
+  within ``metrics.auc_limit`` (AUC), ``_gauc_limit`` (GAUC) and 1e-4 of
+  the loss. A trainer of its config trains the file's first 64 batches with
+  checkpoints at 32 and 64: a restore, and a resume from 32, bitwise
+  equal to it. Each mode's trainer exports an f32 and an int8 bundle
+  (``poly_batch=True``); a cold process serves all four on the card at
+  1, 128 and 512 rows of a batch it did not train on, kernel 5 launched 2
+  times a f32 predict and 4 times an int8 one (rows and scales, item and
+  user); f32 within 1e-6 of the trainer's ``predict`` and within
+  ``rtol = atol = 1e-4`` of the same bundle on the CPU, int8 within 2e-2
+  of f32 and not all within 1e-7. Then the serving harness's DIN case
+  (``serving_benchmark --cases din``, its lookups ``index_select``: no
+  kernel 5). Returns the kernel launches of its runs."""
+  import ast
+  import contextlib
+  import io
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch import metrics as hbm
+  from hybridbackend_tpu_torch.examples.taobao import train_din as taobao
+  cpu = torch.device('cpu')
+  launches = collections.Counter()
+  bundles, batch_dir = (os.path.join(tmp, d) for d in ('bundles', 'data'))
+  serve, live_preds, export_s = {}, {}, {}
+  for mode, flags in (('plain', ['--sparse']),
+                      ('sessions', ['--sparse', '--sessions'])):
+    label = f'phase 25 ({mode})'
+    data = os.path.join(tmp, f'taobao_{mode}.parquet')
+    model_dir = os.path.join(tmp, f'model_{mode}')
+    argv = ['--synthesize', '--data', data, '--steps', str(TAOBAO_STEPS),
+            '--model-dir', model_dir, *flags]
+    printed = io.StringIO()
+    torch.cuda.synchronize(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+      rc = taobao.main(argv)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    _expect(f'{label}, the Taobao entry point', counts,
+            adagrad_update_sorted=TAOBAO_STEPS)
+    launches.update(counts)
+    printed = printed.getvalue()
+    res_main = [ast.literal_eval(line[len('epoch 0: '):])
+                for line in printed.splitlines()
+                if line.startswith('epoch 0: ')]
+    if rc != 0 or len(res_main) != 1:
+      raise AssertionError(f'{label}: the entry point returned {rc} and '
+                           f'printed:\n{printed}')
+    print(f'{label} (python -m hybridbackend_tpu_torch.examples.taobao.'
+          f'train_din {" ".join(argv)}), on {smi}: {wall:.3f} s with the '
+          f'file\'s synthesis and the evaluation; kernel 1 launches '
+          f'{counts["adagrad_update_sorted"]}; it printed:')
+    for line in printed.strip().splitlines():
+      print(f'  {line}')
+
+    # The evaluation again, on the card and on the CPU.
+    args = taobao.parse_args(['--data', data, '--model-dir', model_dir,
+                              *flags])
+    evals = list(taobao.batches(args, False))
+    labels = np.concatenate([b['label'] for b in evals])
+    users = np.concatenate([b['user'] for b in evals])
+    res, preds = {}, {}
+    _reset_counts()
+    for where, d in (('card', dev), ('cpu', cpu)):
+      tr = taobao.sparse_trainer(args, d)
+      if tr.global_step != TAOBAO_STEPS:
+        raise AssertionError(f'{label}: restored step {tr.global_step}')
+      res[where] = tr.evaluate(iter(evals))
+      preds[where] = torch.cat(list(tr.predict(iter(evals)))).cpu()
+      del tr
+    torch.cuda.synchronize(dev)
+    _expect(f'{label}, evaluate and predict', _counts())
+    limit, near, gap = hbm.auc_limit(preds['card'], preds['cpu'], labels)
+    glimit, _ = _gauc_limit(preds['card'], preds['cpu'], labels, users,
+                            args.batch_size)
+    g, c = res['card'], res['cpu']
+    if not (g == res_main[0] and g['batches'] == c['batches'] == len(evals)
+            and abs(g['auc'] - c['auc']) <= limit
+            and abs(g['gauc'] - c['gauc']) <= glimit
+            and abs(g['loss'] - c['loss']) <= 1e-4 * abs(c['loss'])):
+      raise AssertionError(f'{label}: evaluate on the card {g} (the entry '
+                           f'point printed {res_main[0]}), on the CPU {c}; '
+                           f'AUC limit {limit}, GAUC limit {glimit}')
+    print(f'  a trainer restored from {os.path.basename(model_dir)}: '
+          f'evaluate ({len(evals)} batches) on the card equal to the entry '
+          f"point's; CPU auc {c['auc']:.6f} gauc {c['gauc']:.6f} loss "
+          f"{c['loss']:.6f}; predictions {gap:.3e} apart at most, AUC "
+          f"apart {abs(g['auc'] - c['auc']):.3e} (limit {limit:.3e}, {near} "
+          f"near a threshold), GAUC apart {abs(g['gauc'] - c['gauc']):.3e} "
+          f'(limit {glimit:.3e})')
+
+    # Restore and resume, bit for bit, over the file's first batches.
+    train = evals[:TAOBAO_STEPS]
+    dirs = [os.path.join(tmp, f'resume_{mode}', x) for x in 'ab']
+    make = lambda d: taobao.sparse_trainer(
+        argparse.Namespace(**{**vars(args), 'model_dir': d}), dev)
+    live = make(dirs[0])
+    _reset_counts()
+    live.train(iter(train), save_checkpoint_steps=TAOBAO_SAVE)
+    restored = make(dirs[0])
+    n_entries = _bitwise_equal(f'{label}, restored at step {TAOBAO_STEPS}',
+                               restored, live)
+    del restored
+    os.makedirs(dirs[1])
+    shutil.copy(os.path.join(dirs[0], f'checkpoint-{TAOBAO_SAVE}.pt'),
+                dirs[1])
+    resumed = make(dirs[1])
+    resumed.train(iter(train[TAOBAO_SAVE:]))
+    _bitwise_equal(f'{label}, resumed from step {TAOBAO_SAVE}', resumed, live)
+    del resumed
+    torch.cuda.synchronize(dev)
+    counts = _counts()
+    _expect(f'{label}, the resume check', counts,
+            adagrad_update_sorted=2 * TAOBAO_STEPS - TAOBAO_SAVE)
+    launches.update(counts)
+    print(f'  restore at step {TAOBAO_STEPS} and resume from step '
+          f'{TAOBAO_SAVE}: {n_entries} state entries bitwise equal')
+
+    # The trained model, exported: a batch it did not train on.
+    held = evals[TAOBAO_STEPS]
+    cols = ('cand_hist', 'hist_mask', 'user', 'label')
+    serve[mode] = {size: {k: held[k][:size] for k in cols}
+                   for size in TAOBAO_SIZES}
+    live_preds[mode] = {size: next(live.predict(iter([b]))).cpu().numpy()
+                        for size, b in serve[mode].items()}
+    os.makedirs(os.path.join(batch_dir, mode))
+    for size, b in serve[mode].items():
+      np.savez(os.path.join(batch_dir, mode, f'batch_{size}.npz'), **b)
+    for case, dtype in SERVE_CASES.items():
+      t0 = time.perf_counter()
+      live.export_saved_model(os.path.join(bundles, mode, case),
+                              serve[mode][TAOBAO_SIZES[-1]],
+                              table_dtype=dtype, poly_batch=True)
+      export_s[f'{mode}/{case}'] = time.perf_counter() - t0
+    del live
+
+  cases = [f'{mode}/{case}' for mode in serve for case in SERVE_CASES]
+  t0 = time.perf_counter()
+  out = subprocess.run(
+      [sys.executable, '-c', COLD_SERVE, bundles, batch_dir, ','.join(cases),
+       ','.join(map(str, TAOBAO_SIZES))],
+      cwd=HERE, capture_output=True, text=True, timeout=600)
+  cold_wall_s = time.perf_counter() - t0
+  if out.returncode != 0:
+    raise RuntimeError(f'phase 25: the cold process failed:\n{out.stderr}')
+  cold = json.loads(out.stdout.strip().splitlines()[-1])
+  preds = dict(np.load(os.path.join(batch_dir, 'preds.npz')))
+  for case in cases:
+    per = DIN_SERVE_GATHERS[case.split('/')[1]]
+    for size in TAOBAO_SIZES:
+      counts = cold['cases'][case]['launches'][str(size)]
+      _expect(f'phase 25, the cold process, {case} predict of {size} rows',
+              counts, gather_rows=per)
+      launches.update(counts)
+  gaps = {}
+  for mode in serve:
+    on_cpu = hbt.Served(os.path.join(bundles, mode, 'f32'), cpu)
+    int8_apart = []
+    for size, b in serve[mode].items():
+      f32 = preds[f'{mode}.f32_{size}']
+      int8 = preds[f'{mode}.int8_{size}']
+      if not (f32.shape == int8.shape == (size,) and np.isfinite(f32).all()
+              and np.isfinite(int8).all()):
+        raise AssertionError(f'phase 25: {mode} batch {size} predicted '
+                             f'{f32.shape}, {int8.shape}, not all finite')
+      cpu_pred = on_cpu.predict(b)
+      gaps[mode, size] = (float(np.abs(f32 - live_preds[mode][size]).max()),
+                          float(np.abs(f32 - cpu_pred).max()),
+                          float(np.abs(int8 - f32).max()))
+      int8_apart.append(gaps[mode, size][2])
+      if (gaps[mode, size][0] > 1e-6
+          or not np.allclose(f32, cpu_pred, rtol=1e-4, atol=1e-4)
+          or gaps[mode, size][2] > 2e-2):
+        raise AssertionError(f'phase 25: {mode}, {size} rows: f32 from the '
+                             'trainer, card from CPU, int8 from f32: '
+                             f'{gaps[mode, size]}')
+    if all(x <= 1e-7 for x in int8_apart):
+      raise AssertionError(f'phase 25: {mode}: the int8 predictions equal '
+                           'the f32 ones')
+    del on_cpu
+  print(f'phase 25 (serving: the Taobao trainers exported with '
+        f'poly_batch=True, served by a cold process on {smi}): export '
+        + ', '.join(f'{c} {s:.3f} s' for c, s in export_s.items())
+        + f'; the cold process {cold_wall_s:.3f} s wall, import '
+        f'{cold["import_s"]:.3f} s')
+  for case in cases:
+    r = cold['cases'][case]
+    print(f'  {case}: Served() {r["load_s"]:.4f} s; first predict '
+          + ', '.join(f'{s} rows {r["predict_s"][str(s)]:.4f} s'
+                      for s in TAOBAO_SIZES)
+          + f'; kernel 5 launches per predict '
+          f'{r["launches"][str(TAOBAO_SIZES[0])]["gather_rows"]}')
+  for (mode, size), (f, c, q) in gaps.items():
+    print(f'  {mode}, {size} rows: f32 from the trainer {f:.3e} (limit '
+          f'1e-6), card from CPU {c:.3e} (rtol = atol = 1e-4), int8 from '
+          f'f32 {q:.3e} (limit 2e-2)')
+  line, report = _module_json('serving_benchmark', '--cases', 'din')
+  if (report['din_ragged']['gather_launches_per_predict'] != 0
+      or report['card'] != smi):
+    raise AssertionError(f'phase 25: the serving harness reported {report}')
+  print('phase 25 (python -m hybridbackend_tpu_torch.benchmarks.'
+        f'serving_benchmark --cases din --json): {line}')
+  return launches
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--profile', action='store_true',
@@ -2385,6 +2939,7 @@ def main() -> int:
                       'sizes, and kernels 1 and 3 over tile sizes and state '
                       'batches')
   args = parser.parse_args()
+  t_start = time.perf_counter()
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; this smoke run needs one',
           file=sys.stderr)
@@ -2469,14 +3024,23 @@ def main() -> int:
     e2e_launches.update(phase21_criteo(cfg, dev, smi, arrow, tmp))
   serving_launches = phase22_serving(cfg, dev, smi, trained)
   del trained
+  k['adagrad_update_sorted[din]'], din_launches = phase23_din_step(dev, smi)
+  din_launches.update(phase24_din_harness(smi))
+  with tempfile.TemporaryDirectory() as tmp:
+    din_launches.update(phase25_taobao(dev, smi, tmp))
   if args.profile:
-    profile(cfg, dev, 'DCNv2 + Adagrad', dcn_state, dcn_step)
-    profile(cfg, dev, 'DLRM + LazyAdam', dlrm_state, dlrm_step)
-    profile(cfg, dev, 'DCNv2 + split-dense Adagrad', split_state, split_step)
-    profile(cfg, dev, 'DCNv2 + Adagrad, bf16 tables', dcn16_state,
-            dcn16_step)
-    profile(cfg, dev, 'DLRM + LazyAdam, bf16 tables', dlrm16_state,
-            dlrm16_step)
+    batch = functools.partial(tb.shifted, *tb.make_batch(cfg, dev),
+                              cfg.vocab)
+    profile('DCNv2 + Adagrad', dcn_state, dcn_step, batch)
+    profile('DLRM + LazyAdam', dlrm_state, dlrm_step, batch)
+    profile('DCNv2 + split-dense Adagrad', split_state, split_step, batch)
+    profile('DCNv2 + Adagrad, bf16 tables', dcn16_state, dcn16_step, batch)
+    profile('DLRM + LazyAdam, bf16 tables', dlrm16_state, dlrm16_step, batch)
+    for flags in ([], ['--sessions', str(DIN_SESSIONS)]):
+      din_args = din.parse_args(['--sparse', *flags])
+      profile(' '.join(['DIN --sparse', *flags]), *din.build(din_args, dev),
+              functools.partial(din.shifted, din_args,
+                                *din.make_batch(din_args, dev)))
 
   rows = []
   for name, (source, replaces) in KERNELS.items():
@@ -2499,7 +3063,14 @@ def main() -> int:
                  # predicts.
                  'serving_launches': ((serving_launches
                                        if name == 'gather_rows' else 0)
-                                      if name in tb.COUNTED else None)})
+                                      if name in tb.COUNTED else None),
+                 # Launches in the DIN phases (23-25): the steps, the
+                 # harness's processes, the Taobao entry point, its
+                 # checks and the cold process's served predicts.
+                 'din_launches': (din_launches[name]
+                                  if name in tb.COUNTED else None)})
+  print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s wall, every '
+        'phase')
   print(json.dumps({'kernels': rows}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

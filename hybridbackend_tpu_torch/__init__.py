@@ -4,8 +4,10 @@ The port lives beside the JAX package, which stays the reference it is
 tested against. It imports ``torch`` and never ``jax``, and nothing from
 ``hybridbackend_tpu``. It covers:
 
-* the sparse train step: stacked embedding tables, the stacked DCNv2 and
-  DLRM towers, a torch optimizer on the tower, and row-sparse Adagrad
+* the sparse train step: stacked embedding tables, the stacked DCNv2,
+  DLRM and DIN towers (DIN's attention over the uncombined sequence
+  embeddings through ``raw_model_loss``), a torch optimizer on the
+  tower, and row-sparse Adagrad
   (with or without duplicate combining, or in its dense-split form), SGD
   or LazyAdam on the tables, each through a CUDA kernel written for
   Hopper (``ops/csrc/``);
@@ -21,7 +23,8 @@ tested against. It imports ``torch`` and never ``jax``, and nothing from
   native C++ reader built with ``g++`` against pyarrow's Arrow, or pyarrow
   in Python), rebatching, shuffling, deduplication and the ragged
   ``DataFrame`` values, feeding the trainers from a file
-  (``benchmarks/e2e_benchmark.py``, ``examples/criteo/train.py``);
+  (``benchmarks/e2e_benchmark.py``, ``examples/criteo/train.py``,
+  ``examples/taobao/train_din.py``);
 * serving: the trainers' ``export_saved_model`` writes a bundle
   (``torch.export`` graph, parameters, signature) that ``Served`` loads
   in a cold process and predicts from, with f32 or per-row int8 tables
@@ -37,8 +40,8 @@ __version__ = '0.1.0'
 
 from hybridbackend_tpu_torch import data, metrics
 from hybridbackend_tpu_torch.convert import (
-    from_jax, from_jax_dense, load_adam_state, load_dcn_v2, load_dlrm,
-    quantized_from_jax)
+    from_jax, from_jax_dense, load_adam_state, load_dcn_v2, load_dice,
+    load_din, load_dlrm, quantized_from_jax)
 from hybridbackend_tpu_torch.data import (
     DataFrame, Dataset, Field, ParquetDataset, RebatchBuffer, Value,
     deduplicate, infer_fields, parse, populate_defaults, rebatch,
@@ -61,8 +64,10 @@ from hybridbackend_tpu_torch.estimator import SparseTrainer, Trainer
 from hybridbackend_tpu_torch.framework.context import Context
 from hybridbackend_tpu_torch.models.feature import (
     EmbeddingSpec, StackedFeatureExtractor, extract_features, init_tables)
-from hybridbackend_tpu_torch.models.layers import MLP, Dense
-from hybridbackend_tpu_torch.models.ranking import DLRM, StackedDCNv2
+from hybridbackend_tpu_torch.models.layers import (
+    MLP, Dense, Dice, LocalActivationUnit, attention_sequence_pooling)
+from hybridbackend_tpu_torch.models.ranking import (
+    DIN, DINSession, DLRM, StackedDCNv2)
 from hybridbackend_tpu_torch.ops.cast import (
     draw_seed, round_with_noise, stochastic_round_bf16,
     stochastic_round_bf16_reference)

@@ -1,8 +1,9 @@
 """Serving benchmark of the port: export, cold load and predict of the
-flagship model.
+flagship model and of a DIN bundle.
 
 Counterpart of ``benchmarks/serving_benchmark.py``, the JAX package's
-harness, in its f32 and int8 cases. It builds the flagship
+harness, in its three cases (``--cases f32 int8 din``). For the first two
+it builds the flagship
 ``SparseTrainer`` from the train harness's config (``--tables`` tables
 of ``[--vocab, --dim]``, ``--dense-features`` dense features, the DCNv2
 tower with MLP 1024-512-256-1, weights from seed 0), trains
@@ -23,13 +24,24 @@ int8 bundle with ``poly_batch=True``. For each bundle it reports:
 
 and the kernel library's build seconds (0 when ``_build/`` held it), the
 device, and on a card its name and power limit as ``nvidia-smi`` prints
-them. Run on one CUDA device:
+them.
+
+The ``din`` case is the JAX harness's DIN bundle (``:92-133`` there),
+reported as ``din_ragged``: an untrained dense-gradient ``Trainer`` over
+an item table of [50000, 16] and a user table of [20000, 16] (one table
+per column, weights from seed 0) and a DIN tower (DNN 256-128-64,
+attention 80-40, the user embedding as its profile feature), exported
+with ``poly_batch=True`` and served with a history of 32 ids, a bool mask
+and seeded ids, at the sizes of ``--sizes`` up to 1024 rows. Its lookups
+are its loss function's own, ``lookup`` through ``index_select``, as the
+``Trainer``'s export documents: a predict launches no kernel 5 (the
+``SparseTrainer`` bundles gather every member through it). Run on one
+CUDA device:
 
   python -m hybridbackend_tpu_torch.benchmarks.serving_benchmark [--json]
 
-``--device cpu`` runs at a small shape for the tests. ``--cases din``
-exits nonzero with its reason: the DIN bundle needs ROADMAP queue 1 item
-14.
+``--device cpu`` runs at a small shape for the tests (the ``din`` case
+keeps its widths).
 """
 
 from __future__ import annotations
@@ -45,12 +57,17 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from hybridbackend_tpu_torch.benchmarks import synthetic
 from hybridbackend_tpu_torch.benchmarks import train_benchmark as tb
 
 TRAIN_BATCH = 512
 CASES = {'f32': 'float32', 'int8': 'int8'}
+# The DIN bundle: item and user vocabularies, width, history length, and
+# the largest batch it is served at.
+DIN_ITEMS, DIN_USERS, DIN_DIM = 50_000, 20_000, 16
+DIN_HIST, DIN_MAX_ROWS = 32, 1024
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -64,7 +81,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                  help='predict_staged calls per timed window')
   p.add_argument('--repeats', type=int, default=3)
   p.add_argument('--sizes', type=int, nargs='*', default=[128, 1024, 8192])
-  p.add_argument('--cases', nargs='*', default=['f32', 'int8'],
+  p.add_argument('--cases', nargs='*', default=['f32', 'int8', 'din'],
                  choices=['f32', 'int8', 'din'])
   p.add_argument('--device', default='cuda',
                  help="'cuda' (default) or 'cpu'")
@@ -74,9 +91,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def unsupported(args: argparse.Namespace) -> Optional[str]:
   """Why these flags cannot run, or None."""
-  if 'din' in args.cases:
-    return ('--cases din: the DIN bundle needs the DIN tower and '
-            'raw_model_loss, not ported yet (ROADMAP queue 1 item 14)')
   if torch.device(args.device).type == 'cuda' and (
       not torch.cuda.is_available()):
     return 'no CUDA device; pass --device cpu to run on the CPU'
@@ -123,17 +137,50 @@ def _window_ms(served, staged, inner: int, device: torch.device) -> float:
   return (time.perf_counter() - t0) * 1e3 / inner
 
 
-def bench_bundle(args: argparse.Namespace, path: str,
-                 device: torch.device) -> dict:
-  """Cold load and the per-batch times of one bundle."""
+def din_batch(rows: int, seed: int) -> Dict[str, np.ndarray]:
+  """A seeded batch of the DIN bundle's columns (the JAX harness's)."""
+  rng = np.random.RandomState(seed)
+  return {'item': rng.randint(0, DIN_ITEMS, rows).astype(np.int32),
+          'user': rng.randint(0, DIN_USERS, rows).astype(np.int32),
+          'hist': rng.randint(0, DIN_ITEMS, (rows, DIN_HIST)).astype(np.int32),
+          'hist_mask': rng.rand(rows, DIN_HIST) < 0.6,
+          'label': rng.randint(0, 2, rows).astype(np.float32)}
+
+
+def din_trainer(device: torch.device):
+  """The DIN bundle's ``Trainer`` (untrained, as in the JAX harness)."""
+  import hybridbackend_tpu_torch as hbt
+  item = hbt.TableConfig('item', DIN_ITEMS, DIN_DIM)
+  user = hbt.TableConfig('user', DIN_USERS, DIN_DIM)
+  gen = torch.Generator().manual_seed(tb.SEED)
+  module = nn.ModuleDict({
+      'tables': hbt.init_tables([hbt.EmbeddingSpec(item),
+                                 hbt.EmbeddingSpec(user)], gen, device),
+      'net': hbt.DIN(DIN_DIM, 1, 0, generator=gen, device=device)})
+
+  def loss_fn(m, batch):
+    t = m['tables']
+    preds = m['net'](hbt.lookup(t['item'], batch['item'], item),
+                     hbt.lookup(t['item'], batch['hist'], item),
+                     batch['hist_mask'],
+                     [hbt.lookup(t['user'], batch['user'], user)])
+    return tb.bce(preds, batch['label'])
+
+  return hbt.Trainer(loss_fn, module, ctx=hbt.Context(device))
+
+
+def bench_bundle(args: argparse.Namespace, path: str, device: torch.device,
+                 make_batch, sizes: List[int]) -> dict:
+  """Cold load and the per-batch times of one bundle at ``sizes``, on
+  ``make_batch(rows, seed)``."""
   import hybridbackend_tpu_torch as hbt
   t0 = time.perf_counter()
   served = hbt.Served(path, device)
   _sync(device)
   report = {'cold_load_s': time.perf_counter() - t0, 'batches': {}}
   calls = launches = 0
-  for size in args.sizes:
-    batch = batches(args, size, 1, seed=tb.SEED + size)[0]
+  for size in sizes:
+    batch = make_batch(size, tb.SEED + size)
     staged = served.stage(batch)
     t0 = time.perf_counter()
     first = served.predict_staged(staged).cpu().numpy()
@@ -155,16 +202,16 @@ def bench_bundle(args: argparse.Namespace, path: str,
   return report
 
 
+def _bundle_mb(path: str) -> float:
+  return sum(os.path.getsize(os.path.join(d, f))
+             for d, _, files in os.walk(path) for f in files) / 1e6
+
+
 def run(args: argparse.Namespace) -> dict:
   """Trains, exports and times; returns the report."""
-  import hybridbackend_tpu_torch as hbt
   from hybridbackend_tpu_torch.ops import build
   device = torch.device(args.device)
   on_card = device.type == 'cuda'
-  trainer = tb.sparse_trainer(_config(args), device)
-  trainer.train(iter(batches(args, TRAIN_BATCH, args.train_steps,
-                             seed=tb.SEED)))
-  example = batches(args, TRAIN_BATCH, 1, seed=tb.SEED + 1)[0]
   result = {
       'metric': 'served_amortized_ms',
       'tables': args.tables, 'vocab': args.vocab, 'dim': args.dim,
@@ -177,18 +224,33 @@ def run(args: argparse.Namespace) -> dict:
       'timing': 'cuda events' if on_card else 'host clock'}
   tmp = tempfile.mkdtemp(prefix='hbtpu_torch_serve_')
   try:
-    for case in args.cases:
+    flagship = [case for case in args.cases if case in CASES]
+    if flagship:
+      trainer = tb.sparse_trainer(_config(args), device)
+      trainer.train(iter(batches(args, TRAIN_BATCH, args.train_steps,
+                                 seed=tb.SEED)))
+      example = batches(args, TRAIN_BATCH, 1, seed=tb.SEED + 1)[0]
+    for case in flagship:
       path = os.path.join(tmp, case)
       t0 = time.perf_counter()
       trainer.export_saved_model(path, example, table_dtype=CASES[case],
                                  poly_batch=True)
       export_s = time.perf_counter() - t0
-      report = bench_bundle(args, path, device)
-      report['export_s'] = export_s
-      report['bundle_mb'] = sum(
-          os.path.getsize(os.path.join(d, f))
-          for d, _, files in os.walk(path) for f in files) / 1e6
+      report = bench_bundle(
+          args, path, device,
+          lambda rows, seed: batches(args, rows, 1, seed)[0], args.sizes)
+      report.update(export_s=export_s, bundle_mb=_bundle_mb(path))
       result[f'flagship_{case}'] = report
+    if 'din' in args.cases:
+      path = os.path.join(tmp, 'din')
+      t0 = time.perf_counter()
+      din_trainer(device).export_saved_model(
+          path, din_batch(TRAIN_BATCH, tb.SEED), poly_batch=True)
+      export_s = time.perf_counter() - t0
+      report = bench_bundle(args, path, device, din_batch,
+                            [s for s in args.sizes if s <= DIN_MAX_ROWS])
+      report.update(export_s=export_s, bundle_mb=_bundle_mb(path))
+      result['din_ragged'] = report
   finally:
     shutil.rmtree(tmp, ignore_errors=True)
   result['kernel_build_s'] = (build.load('gather_rows').build_seconds

@@ -36,14 +36,14 @@ from hybridbackend_tpu_torch.embedding.sparse_update import SparseOptState
 from hybridbackend_tpu_torch.embedding.table import TableConfig
 from hybridbackend_tpu_torch.models.feature import (
     EmbeddingSpec, StackedFeatureExtractor)
-from hybridbackend_tpu_torch.models.layers import Dense
-from hybridbackend_tpu_torch.models.ranking import DLRM, StackedDCNv2
+from hybridbackend_tpu_torch.models.layers import Dense, Dice
+from hybridbackend_tpu_torch.models.ranking import DIN, DLRM, StackedDCNv2
 from hybridbackend_tpu_torch.training.optimizer import init_state
 from hybridbackend_tpu_torch.training.sparse_step import (
     OptimizerFactory, SparseTrainState)
 from hybridbackend_tpu_torch.training.train import TrainState
 
-Tower = Union[StackedDCNv2, DLRM]
+Tower = Union[StackedDCNv2, DLRM, DIN]
 # optax ``ScaleByAdamState`` of the tower: (mu, nu, count), mu and nu
 # shaped as the tower's JAX params.
 AdamState = Tuple[Any, Any, int]
@@ -91,6 +91,9 @@ def _layers(model: nn.Module, params: Mapping[str, Any]
              *model.top_mlp.layers],
             [*params['bottom_mlp'], params['bottom_out'],
              *params['top_mlp']])
+  if isinstance(model, DIN):      # DINSession too: the same parameters
+    return ([*model.attention.mlp.layers, *model.dnn.layers, model.head],
+            [*params['attention']['mlp'], *params['dnn'], params['head']])
   raise TypeError(f'no JAX params layout for {type(model).__name__}')
 
 
@@ -143,6 +146,20 @@ def load_dlrm(model: DLRM, params: Mapping[str, Any]) -> None:
   _load_tower(model, params)
 
 
+def load_din(model: DIN, params: Mapping[str, Any]) -> None:
+  """Copy JAX ``din_init`` (or ``din_session_init``) params
+  ``{'attention': {'mlp': [{w, b}, ...]}, 'dnn': [{w, b}, ...], 'head':
+  {w, b}}`` into a ``DIN`` or ``DINSession``."""
+  _load_tower(model, params)
+
+
+def load_dice(model: Dice, params: Mapping[str, Any]) -> None:
+  """Copy JAX ``dice_init`` params ``{'alpha': [dim]}`` into ``model``."""
+  with torch.no_grad():
+    model.alpha.copy_(torch.tensor(np.asarray(params['alpha']),
+                                   dtype=torch.float32))
+
+
 def load_adam_state(optimizer, model: nn.Module, adam: AdamState) -> None:
   """Copy optax Adam's ``(mu, nu, count)`` of the tower ``model`` into
   torch Adam's ``exp_avg``, ``exp_avg_sq`` and ``step`` (``optimizer``
@@ -170,9 +187,9 @@ def from_jax(fx: StackedFeatureExtractor, tables: Mapping[str, np.ndarray],
     slots: each stack's table-optimizer slots, ``state.table_opt[name]
       .acc``: the Adagrad accumulator (an array, or a 1-tuple), or
       LazyAdam's ``(m, v)``.
-    model: the port's tower (``StackedDCNv2`` or ``DLRM``), loaded in
-      place from ``dense_params``, the JAX ``stacked_dcn_v2`` or ``dlrm``
-      params.
+    model: the port's tower (``StackedDCNv2``, ``DLRM``, ``DIN`` or
+      ``DINSession``), loaded in place from ``dense_params``, the JAX
+      ``stacked_dcn_v2``, ``dlrm`` or ``din`` params.
     dense_optimizer: builds the tower's optimizer (torch Adam for optax
       Adam).
     step: ``int(state.step)``.
@@ -252,4 +269,4 @@ def quantized_from_jax(q: np.ndarray, scale: np.ndarray, dim: int,
 
 
 __all__ = ['from_jax', 'from_jax_dense', 'load_adam_state', 'load_dcn_v2',
-           'load_dlrm', 'quantized_from_jax']
+           'load_dice', 'load_din', 'load_dlrm', 'quantized_from_jax']

@@ -21,8 +21,7 @@ own windows), and the eval metrics stay device tensors until
 ``export_saved_model`` writes a serving bundle
 (``training/saved_model.py``) that a cold process loads as ``Served``.
 Not in this slice (ROADMAP queue 1): the host-cache runner (``caches``)
-and bundled ``id_mappers`` (item 16), ``raw_model_loss`` (item 14) and
-summaries (item 17).
+and bundled ``id_mappers`` (item 16) and summaries (item 17).
 """
 
 from __future__ import annotations
@@ -39,6 +38,7 @@ from hybridbackend_tpu_torch import metrics as hbm
 from hybridbackend_tpu_torch.data.prefetch import DeviceIterator, put_batch
 from hybridbackend_tpu_torch.data.sync import (
     SYNC_VALID_KEY, SyncReplicasIterator)
+from hybridbackend_tpu_torch.embedding.lookup import lookup
 from hybridbackend_tpu_torch.embedding.quant import quantize_table
 from hybridbackend_tpu_torch.embedding.stack import member_tables
 from hybridbackend_tpu_torch.framework.context import Context
@@ -50,7 +50,7 @@ from hybridbackend_tpu_torch.training.optimizer import (
     Adagrad, OptimizerFactory, init_state, load_slots_by_name, slots_by_name)
 from hybridbackend_tpu_torch.training.saved_model import export
 from hybridbackend_tpu_torch.training.sparse_step import (
-    SparseTrainState, make_sparse_train_step)
+    RawModelLoss, SparseTrainState, loss_from_raw, make_sparse_train_step)
 from hybridbackend_tpu_torch.training.train import (
     TrainState, make_eval_step, make_train_step)
 
@@ -384,6 +384,11 @@ class SparseTrainer(Trainer):
     model_loss: ``(tower, emb_features, dense_features, batch) -> (loss,
       aux)``.
     dense: the tower, moved to the context's device.
+    raw_model_loss: ``(tower, members {name: [B, ..., D]}, batch) ->
+      (loss, aux)``, on each member table's uncombined embeddings (for
+      sequence models such as DIN); when it is given, ``model_loss`` is
+      not used (pass ``None``). Training, evaluation, prediction and the
+      exported bundle all run it.
     tables: the stacked tables; by default ``fx.init(generator)``.
     dense_optimizer: builds the tower's optimizer from its parameters;
       by default Adam 1e-3 (``optax.adam(1e-3)``).
@@ -402,6 +407,7 @@ class SparseTrainer(Trainer):
                table_lr: float = 0.05, adagrad_init: float = 0.1,
                table_optimizer: str = 'adagrad',
                model_dir: Optional[str] = None, *,
+               raw_model_loss: Optional[RawModelLoss] = None,
                label_key: str = 'label', group_key: Optional[str] = None,
                generator: Optional[torch.Generator] = None,
                keep_checkpoint_max: int = 5, grow_vocab: bool = False,
@@ -419,13 +425,16 @@ class SparseTrainer(Trainer):
     init_state(self.state.dense_opt)
     self._fx = fx
     self._model_loss = model_loss
+    self._raw_model_loss = raw_model_loss
     self._step_fn = make_sparse_train_step(
-        fx, model_loss, table_lr, table_optimizer=table_optimizer)
+        fx, model_loss, table_lr, table_optimizer=table_optimizer,
+        raw_model_loss=raw_model_loss)
+    loss_of = loss_from_raw(fx, model_loss, raw_model_loss)
 
     def eval_fn(params, batch):
       tower, tables = params
-      emb_f, dense_f = fx(tables, batch)
-      return model_loss(tower, emb_f, dense_f, batch)
+      raw, _, layouts = fx.lookup_raw(tables, batch)
+      return loss_of(tower, raw, layouts, batch)
 
     self._eval_fn = make_eval_step(eval_fn)
     self._setup(ctx, label_key, group_key, prefetch_capacity, model_dir,
@@ -462,8 +471,10 @@ class SparseTrainer(Trainer):
     each stack is split back into its member tables, and the served
     function runs ``extract_features`` over them, every member lookup
     through kernel 5 (``serving=True``), then ``model_loss``'s
-    ``aux['preds']``. Its inputs are the tower's parameters and buffers
-    and the member tables.
+    ``aux['preds']``; in raw mode it looks each member table up on its
+    column (``lookup(..., serving=True)``, kernel 5) and returns
+    ``raw_model_loss``'s ``aux['preds']``. Its inputs are the tower's
+    parameters and buffers and the member tables.
 
     ``table_dtype='int8'`` quantizes every member table per row
     (``embedding/quant.py``), about a quarter of the table bytes; the
@@ -487,9 +498,16 @@ class SparseTrainer(Trainer):
                            column=s.column) for s in self._fx.specs]
     dense_columns = list(self._fx.dense_columns)
     tower, model_loss = self.state.dense, self._model_loss
+    raw_loss = self._raw_model_loss
 
     def serving_fn(params, batch):
       tower_leaves, member = params
+      if raw_loss is not None:
+        members = {s.name: lookup(member[s.name], batch[s.key], s.config,
+                                  serving=True) for s in specs}
+        return _call_with(tower, tower_leaves,
+                          lambda t, *a: raw_loss(t, *a)[1]['preds'],
+                          members, batch)
       emb_f, dense_f = extract_features(member, batch, specs, dense_columns,
                                         serving=True)
       return _call_with(tower, tower_leaves,

@@ -17,11 +17,16 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class Context:
   """The device every table, tower and batch of a run lives on; the
-  world is this one device (rank 0 of 1)."""
+  world is this one device (rank 0 of 1). ``'cuda'`` without an index is
+  the current CUDA device, ``cuda:<index>``: the device a tensor placed
+  with ``.to('cuda')`` reports."""
   device: torch.device
 
   def __post_init__(self):
-    object.__setattr__(self, 'device', torch.device(self.device))
+    device = torch.device(self.device)
+    if device.type == 'cuda' and device.index is None:
+      device = torch.device('cuda', torch.cuda.current_device())
+    object.__setattr__(self, 'device', device)
 
 
 __all__ = ['Context']

@@ -132,17 +132,26 @@ class StackedFeatureExtractor:
       layouts[name] = layout
     return raw, ids_out, layouts
 
+  def members_from_raw(self, raw_by_stack, layouts
+                       ) -> Dict[str, torch.Tensor]:
+    """The uncombined embeddings of each member table, ``{name: [B, ...,
+    D]}`` in its id column's shape (a ``[B]`` column gives ``[B, D]``):
+    views of the stacks' raw ``[B, K, D]`` embeddings, so gradients flow
+    back to them."""
+    members: Dict[str, torch.Tensor] = {}
+    for stack in self.stacks:
+      name = stack.stacked.name
+      if name in raw_by_stack:
+        members.update(unpack_embeddings(stack, raw_by_stack[name],
+                                         layouts[name]))
+    return members
+
   def combine_from_raw(self, raw_by_stack, layouts, batch: Batch
                        ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Differentiable combine: raw embeddings to per-spec features
     (multivalent columns go through their combiner), plus the dense
     columns as ``[B, 1]`` float32 features."""
-    raw: Dict[str, torch.Tensor] = {}
-    for stack in self.stacks:
-      name = stack.stacked.name
-      if name in raw_by_stack:
-        raw.update(unpack_embeddings(stack, raw_by_stack[name],
-                                     layouts[name]))
+    raw = self.members_from_raw(raw_by_stack, layouts)
     emb_features = []
     for spec in self.specs:
       emb = raw[spec.config.name]

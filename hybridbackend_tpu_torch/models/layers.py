@@ -1,8 +1,10 @@
-"""Dense layers of the ranking towers.
+"""Dense layers of the ranking towers, and DIN's attention layers.
 
-Counterpart of ``hybridbackend_tpu/models/layers.py:27-78``. Weights keep
-the JAX layout, ``w: [in, out]`` and ``y = x @ w + b``, so converted JAX
-weights map one to one.
+Counterpart of ``hybridbackend_tpu/models/layers.py:27-78`` (dense and
+MLP) and ``:85-138`` (the Dice activation, the local activation unit and
+the attention pooling of a behaviour sequence). Weights keep the JAX
+layout, ``w: [in, out]`` and ``y = x @ w + b``, so converted JAX weights
+map one to one.
 """
 
 from __future__ import annotations
@@ -87,4 +89,69 @@ class MLP(nn.Module):
     return x
 
 
-__all__ = ['Dense', 'MLP']
+class Dice(nn.Module):
+  """The Dice activation (JAX ``dice_apply``): ``x`` standardized by its
+  batch statistics over dimension 0 (the population variance, ``eps``
+  inside the root), ``p = sigmoid`` of that, and ``alpha * (1 - p) * x +
+  p * x`` with a learned ``alpha`` of ``[dim]``, zero at the start."""
+
+  def __init__(self, dim: int, eps: float = 1e-9,
+               device: Optional[torch.device] = None):
+    super().__init__()
+    self.alpha = nn.Parameter(torch.zeros(dim, device=device))
+    self.eps = eps
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    mean = torch.mean(x, dim=0, keepdim=True)
+    var = torch.var(x, dim=0, keepdim=True, correction=0)
+    p = torch.sigmoid((x - mean) * torch.rsqrt(var + self.eps))
+    return self.alpha * (1.0 - p) * x + p * x
+
+
+class LocalActivationUnit(nn.Module):
+  """DIN's attention scorer (JAX ``local_activation_unit_*``): an MLP over
+  ``[q, k, q - k, q * k]`` (``4 * emb_dim`` wide) with sigmoid hidden
+  activations and a linear last layer of one unit. ``query [B, D]``,
+  ``keys [B, L, D]`` give scores ``[B, L]``."""
+
+  def __init__(self, emb_dim: int, hidden_units: Sequence[int] = (80, 40),
+               generator: Optional[torch.Generator] = None,
+               device: Optional[torch.device] = None):
+    super().__init__()
+    self.mlp = MLP(4 * emb_dim, [*hidden_units, 1],
+                   hidden_activation=torch.sigmoid, generator=generator,
+                   device=device)
+
+  def forward(self, query: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    # A broadcast view of the query: [B, L, D] without a copy.
+    q = query.unsqueeze(1).expand_as(keys)
+    att_in = torch.cat([q, keys, q - keys, q * keys], dim=-1)
+    return self.mlp(att_in)[..., 0]
+
+
+# The score of a masked key before the softmax: finite, so that a row
+# whose keys are all masked gets uniform weights, as in the JAX package.
+MASKED_SCORE = -2.0 ** 31
+
+
+def attention_sequence_pooling(unit: LocalActivationUnit, query: torch.Tensor,
+                               keys: torch.Tensor, mask: torch.Tensor,
+                               weight_normalization: bool = False
+                               ) -> torch.Tensor:
+  """DIN's attention pooling (JAX ``attention_sequence_pooling``): the
+  keys ``[B, L, D]`` summed with the unit's scores as weights, ``[B, D]``.
+  ``mask [B, L]`` (bool, or nonzero where valid) zeroes the masked
+  scores, or with ``weight_normalization`` takes a softmax over the
+  valid keys (masked scores set to ``MASKED_SCORE``)."""
+  scores = unit(query, keys)
+  valid = mask.bool()
+  if weight_normalization:
+    weights = torch.softmax(torch.where(valid, scores, MASKED_SCORE), dim=-1)
+  else:
+    weights = torch.where(valid, scores, 0.0)
+  # bf16 keys meet the f32 weights in f32, as jnp.einsum promotes them.
+  return torch.einsum('bl,bld->bd', weights, keys.to(weights.dtype))
+
+
+__all__ = ['Dense', 'Dice', 'LocalActivationUnit', 'MLP',
+           'attention_sequence_pooling']

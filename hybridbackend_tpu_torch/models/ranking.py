@@ -1,8 +1,9 @@
-"""Ranking towers: stacked DCNv2 and DLRM.
+"""Ranking towers: stacked DCNv2, DLRM and DIN.
 
 Counterparts of ``hybridbackend_tpu/models/ranking.py:26-44``
-(``stacked_dcn_v2_init`` / ``stacked_dcn_v2_apply``) and ``:51-85``
-(``dlrm_init`` / ``dlrm_apply``).
+(``stacked_dcn_v2_init`` / ``stacked_dcn_v2_apply``), ``:51-85``
+(``dlrm_init`` / ``dlrm_apply``) and ``:92-164`` (``din_*`` and
+``din_session_*``).
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from hybridbackend_tpu_torch.models.layers import MLP, Dense
+from hybridbackend_tpu_torch.models.layers import (
+    MLP, Dense, LocalActivationUnit, attention_sequence_pooling)
 
 
 class StackedDCNv2(nn.Module):
@@ -86,4 +88,76 @@ class DLRM(nn.Module):
     return self.top_mlp(top_in)[..., 0]
 
 
-__all__ = ['DLRM', 'StackedDCNv2']
+class DIN(nn.Module):
+  """DIN over one behaviour sequence: the history's embeddings pooled by
+  attention keyed on the candidate item's (``LocalActivationUnit`` under
+  ``attention``), concatenated with the candidate, the profile
+  embeddings and the dense features into a DNN (relu throughout, under
+  ``dnn``) and a one-unit linear ``head`` (bias drawn with std 0);
+  returns ``[B]`` sigmoid predictions.
+
+  Args:
+    emb_dim: ``D``, the width of every embedding.
+    num_profile_features, num_dense: the profile embeddings ``[B, D]`` and
+      dense features ``[B, 1]`` that ``forward`` takes; the DNN is
+      ``D * (num_profile_features + 2) + num_dense`` wide.
+    dnn_hidden_units, att_hidden_size: the DNN's and the attention MLP's
+      hidden widths.
+  """
+
+  def __init__(self, emb_dim: int, num_profile_features: int,
+               num_dense: int,
+               dnn_hidden_units: Sequence[int] = (256, 128, 64),
+               att_hidden_size: Sequence[int] = (80, 40),
+               generator: Optional[torch.Generator] = None,
+               device: Optional[torch.device] = None):
+    super().__init__()
+    kw = dict(generator=generator, device=device)
+    self.attention = LocalActivationUnit(emb_dim, att_hidden_size, **kw)
+    self.dnn = MLP(emb_dim * (num_profile_features + 2) + num_dense,
+                   dnn_hidden_units, final_activation=torch.relu, **kw)
+    self.head = Dense(dnn_hidden_units[-1], 1, b_stddev=0.0, **kw)
+
+  def _predict(self, query: torch.Tensor, hist: torch.Tensor,
+               profile_embs: Sequence[torch.Tensor],
+               dense_features: Sequence[torch.Tensor]) -> torch.Tensor:
+    x = torch.cat([query, hist, *profile_embs,
+                   *(f.to(torch.float32) for f in dense_features)], dim=-1)
+    return torch.sigmoid(self.head(self.dnn(x)))[..., 0]
+
+  def forward(self, query_emb: torch.Tensor, keys_emb: torch.Tensor,
+              keys_mask: torch.Tensor,
+              profile_embs: Sequence[torch.Tensor],
+              dense_features: Sequence[torch.Tensor] = (),
+              att_weight_normalization: bool = False) -> torch.Tensor:
+    """``query_emb [B, D]`` the candidate item; ``keys_emb [B, L, D]``
+    the history, ``keys_mask [B, L]`` its valid positions."""
+    hist = attention_sequence_pooling(self.attention, query_emb, keys_emb,
+                                      keys_mask, att_weight_normalization)
+    return self._predict(query_emb, hist, profile_embs, dense_features)
+
+
+class DINSession(DIN):
+  """Session-grouped DIN (JAX ``din_session_*``), with :class:`DIN`'s
+  parameters: the history arrives as ``[B, S, L]`` sessions of events
+  (the device layout of a ``ragged_rank=2`` column). Each session pools
+  its events by a masked mean (the count floored at 1), a session is
+  valid where any of its events is, and attention keyed on the candidate
+  pools the session vectors."""
+
+  def forward(self, query_emb: torch.Tensor, sess_keys_emb: torch.Tensor,
+              sess_mask: torch.Tensor,
+              profile_embs: Sequence[torch.Tensor],
+              dense_features: Sequence[torch.Tensor] = (),
+              att_weight_normalization: bool = False) -> torch.Tensor:
+    """``sess_keys_emb [B, S, L, D]``, ``sess_mask [B, S, L]``."""
+    m = sess_mask.to(torch.float32)
+    denom = torch.clamp(m.sum(dim=-1, keepdim=True), min=1.0)
+    sess_vec = (sess_keys_emb * m.unsqueeze(-1)).sum(dim=-2) / denom
+    hist = attention_sequence_pooling(
+        self.attention, query_emb, sess_vec, sess_mask.bool().any(dim=-1),
+        att_weight_normalization)
+    return self._predict(query_emb, hist, profile_embs, dense_features)
+
+
+__all__ = ['DIN', 'DINSession', 'DLRM', 'StackedDCNv2']

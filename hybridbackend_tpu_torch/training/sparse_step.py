@@ -1,7 +1,9 @@
 """Train step with row-sparse table updates.
 
 Counterpart of ``hybridbackend_tpu/training/sparse_step.py:35-206`` at a
-world of one: the tower is updated by a torch optimizer, each stacked
+world of one, with both of its model hooks (``model_loss`` on the
+combined features, ``raw_model_loss`` on the members' uncombined
+embeddings): the tower is updated by a torch optimizer, each stacked
 table by row-sparse Adagrad or LazyAdam on the rows the batch touched. The step
 differentiates with respect to the looked-up embeddings, not the tables,
 so no dense ``[V, D]`` gradient is ever built.
@@ -21,7 +23,7 @@ table's slots, made ``*_like(table)``, are bfloat16 too.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Iterable, List, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -35,6 +37,8 @@ from hybridbackend_tpu_torch.models.feature import (
 OptimizerFactory = Callable[[Iterable[nn.Parameter]], torch.optim.Optimizer]
 ModelLoss = Callable[[nn.Module, List[torch.Tensor], List[torch.Tensor],
                       Batch], Tuple[torch.Tensor, Dict[str, Any]]]
+RawModelLoss = Callable[[nn.Module, Dict[str, torch.Tensor], Batch],
+                        Tuple[torch.Tensor, Dict[str, Any]]]
 
 
 @dataclasses.dataclass
@@ -64,12 +68,31 @@ class SparseTrainState:
                dense_opt=dense_optimizer(dense.parameters()))
 
 
+def loss_from_raw(fx: StackedFeatureExtractor,
+                  model_loss: Optional[ModelLoss],
+                  raw_model_loss: Optional[RawModelLoss] = None):
+  """``loss(tower, raw_by_stack, layouts, batch) -> (loss, aux)`` from
+  the stacks' raw embeddings (``fx.lookup_raw``): through
+  ``raw_model_loss`` on the members' uncombined embeddings when it is
+  given, else through ``model_loss`` on the combined features. The train
+  step, the trainers' evaluation and predictions all run this one."""
+  if raw_model_loss is not None:
+    def loss(tower, raw, layouts, batch):
+      return raw_model_loss(tower, fx.members_from_raw(raw, layouts), batch)
+  else:
+    def loss(tower, raw, layouts, batch):
+      emb_f, dense_f = fx.combine_from_raw(raw, layouts, batch)
+      return model_loss(tower, emb_f, dense_f, batch)
+  return loss
+
+
 def make_sparse_train_step(fx: StackedFeatureExtractor,
-                           model_loss: ModelLoss,
+                           model_loss: Optional[ModelLoss],
                            table_lr: float = 0.05, *,
                            table_dedup: bool = True,
                            table_optimizer: str = 'adagrad',
-                           table_split_dense: bool = False
+                           table_split_dense: bool = False,
+                           raw_model_loss: Optional[RawModelLoss] = None
                            ) -> Callable[[SparseTrainState, Batch],
                                          Tuple[SparseTrainState, Dict]]:
   """Build ``step(state, batch) -> (state, metrics)``.
@@ -88,6 +111,14 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
       ``emb_update_split_dense='on'``; ``sparse_adagrad_apply(
       split_dense=True)``). Adagrad with ``table_dedup`` only: the JAX
       option applies to nothing else.
+    raw_model_loss: ``(tower, members {name: [B, ..., D]}, batch) ->
+      (scalar_loss, aux)``, the model from the members' uncombined
+      embeddings (each in its id column's shape plus ``D``): for sequence
+      models, such as DIN's attention over a ``[B, L, D]`` history, that
+      take the embeddings before any combiner. When it is given,
+      ``model_loss`` is not used (pass ``None``). The gradient of each
+      member's embeddings reaches its stack's update as on the combined
+      path, with every table optimizer and dtype.
 
   The tower's optimizer is part of the state (a torch optimizer owns its
   slots), so unlike the JAX function this one takes no dense optimizer.
@@ -101,6 +132,7 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
     raise ValueError('table_split_dense=True needs table_optimizer='
                      "'adagrad' and table_dedup=True")
   stacks_by_name = {s.stacked.name: s for s in fx.stacks}
+  loss_of = loss_from_raw(fx, model_loss, raw_model_loss)
 
   def step(state: SparseTrainState, batch: Batch):
     # 1. Fused lookups; the tables are not differentiated.
@@ -108,8 +140,7 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
     raw = {name: emb.detach().requires_grad_() for name, emb in raw.items()}
 
     # 2. Gradients for the tower params and the raw embeddings.
-    emb_f, dense_f = fx.combine_from_raw(raw, layouts, batch)
-    loss, aux = model_loss(state.dense, emb_f, dense_f, batch)
+    loss, aux = loss_of(state.dense, raw, layouts, batch)
     state.dense_opt.zero_grad(set_to_none=True)
     loss.backward()
 
@@ -118,8 +149,10 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
 
     # 4. Row-sparse optimizer per stacked table, in place.
     for name, emb in raw.items():
+      # A stack the loss did not read has a zero gradient, as in JAX.
+      grad = emb.grad if emb.grad is not None else torch.zeros_like(emb)
       args = (state.tables[name], state.table_opt[name], ids_by_stack[name],
-              emb.grad, stacks_by_name[name].stacked, table_lr)
+              grad, stacks_by_name[name].stacked, table_lr)
       if table_optimizer == 'adam':
         sparse_adam_apply(*args, step=state.step + 1)
       else:
@@ -135,4 +168,4 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
   return step
 
 
-__all__ = ['SparseTrainState', 'make_sparse_train_step']
+__all__ = ['SparseTrainState', 'loss_from_raw', 'make_sparse_train_step']

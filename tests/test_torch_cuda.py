@@ -921,3 +921,42 @@ def test_a_bundle_serves_on_the_card_as_on_the_cpu(dev, tmp_path):
       got = served.predict(b)
       assert hbt.gather_rows.launches == before + per
       np.testing.assert_allclose(got, on_cpu.predict(b), **TOL)
+
+
+@pytest.mark.parametrize('sessions', [0, 4])
+def test_adagrad_kernel_at_the_din_update_list(dev, sessions):
+  """Kernel 1 at the DIN step's update list (the DIN harness at its
+  defaults: 2048 rows of ``cand_hist`` [1 + 64] and ``user`` packed onto
+  the [1100000, 32] stack, 135168 occurrences), with the candidate planted
+  in its own history in 256 rows and, with sessions, ``-1`` holes where
+  the mask is false, against the plain version on the CPU copy; rows the
+  list does not hold stay bitwise."""
+  from hybridbackend_tpu_torch.benchmarks import din_benchmark as din
+  args = din.parse_args(['--sparse', '--sessions', str(sessions)])
+  fx = din.extractor(args, dev)
+  base, ids, _ = din.make_batch(args, dev)
+  ids = ids.clone()
+  ids[:256, 2] = ids[:256, 0]
+  ids[256:512, 3:5] = ids[256:512, 1:2]      # a duplicate inside the row
+  (stack,) = fx.stacks
+  packed, _ = hbt.pack_ids(stack, {'item': ids, 'user': base['user']})
+  rows, order = torch.sort(packed.reshape(-1), stable=True)
+  assert rows.numel() == 2048 * 66
+  assert bool((rows < 0).any()) == bool(sessions)
+  v = stack.stacked.vocab_size
+  gen = torch.Generator().manual_seed(0)
+  g = (torch.randn(rows.numel(), 32, generator=gen) * 0.01).to(dev)[order]
+  table = hbt.default_initializer(gen, (v, 32)).to(dev)
+  acc = torch.full_like(table, 0.1)
+  tk, ak = table.clone(), acc.clone()
+  before = hbt.adagrad_update_sorted.launches
+  hbt.adagrad_update_sorted(tk, ak, rows, g, 0.05)
+  assert hbt.adagrad_update_sorted.launches == before + 1
+  tr, ar = table.cpu(), acc.cpu()
+  hbt.adagrad_update_sorted_reference(tr, ar, rows.cpu(), g.cpu(), 0.05)
+  torch.testing.assert_close(ak.cpu(), ar, **TOL)
+  torch.testing.assert_close(tk.cpu(), tr, **TOL)
+  touched = torch.zeros(v, dtype=torch.bool, device=dev)
+  touched[rows[rows >= 0].long()] = True
+  assert torch.equal(tk[~touched], table[~touched])
+  assert torch.equal(ak[~touched], acc[~touched])

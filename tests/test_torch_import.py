@@ -13,6 +13,7 @@ def test_import_leaves_jax_out():
   code = textwrap.dedent("""
       import sys
       import hybridbackend_tpu_torch
+      import hybridbackend_tpu_torch.benchmarks.din_benchmark
       import hybridbackend_tpu_torch.benchmarks.e2e_benchmark
       import hybridbackend_tpu_torch.benchmarks.serving_benchmark
       import hybridbackend_tpu_torch.benchmarks.synthetic
@@ -27,6 +28,7 @@ def test_import_leaves_jax_out():
       import hybridbackend_tpu_torch.embedding.quant
       import hybridbackend_tpu_torch.estimator
       import hybridbackend_tpu_torch.examples.criteo.train
+      import hybridbackend_tpu_torch.examples.taobao.train_din
       import hybridbackend_tpu_torch.metrics
       import hybridbackend_tpu_torch.native.tabular
       import hybridbackend_tpu_torch.training.checkpoint

@@ -348,5 +348,14 @@ def test_serving_harness_reports_one_json_line(capsys):
     assert r['export_s'] > 0 and r['cold_load_s'] > 0 and r['bundle_mb'] > 0
     # On the CPU the op runs the plain version and counts no launch.
     assert r['gather_launches_per_predict'] == 0
-  assert sb.main(['--cases', 'din']) == 1
-  assert 'item 14' in capsys.readouterr().err
+  din = got['din_ragged']
+  assert set(din['batches']) == {'4', '32'} and din['bundle_mb'] > 0
+  # Its lookups are the loss function's own index_select: no kernel 5.
+  assert din['gather_launches_per_predict'] == 0
+  assert sb.main(['--device', 'cpu', '--sizes', '8', '2048', '--inner', '2',
+                  '--repeats', '2', '--cases', 'din', '--json']) == 0
+  (line,) = capsys.readouterr().out.strip().splitlines()
+  got = json.loads(line)
+  assert not any(k.startswith('flagship') for k in got)
+  # Served up to 1024 rows, as the JAX harness serves it.
+  assert set(got['din_ragged']['batches']) == {'8'}
