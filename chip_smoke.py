@@ -155,7 +155,29 @@ Phases; any failure raises and the script exits nonzero:
      bitwise; each trainer's f32 and int8 bundles served by a cold process
      on the card at 1, 128 and 512 rows (kernel 5 twice a f32 predict, 4
      times an int8 one; f32 within 1e-6 of the trainer); then the serving
-     harness's DIN case (``--cases din``), its JSON line printed.
+     harness's DIN case (``--cases din``), its JSON line printed;
+ 26. host-backed tables: the flagship DCNv2 step with ``c0`` a [10000000,
+     16] f32 table and its Adagrad slot in host DRAM behind a 1000000-row
+     device cache (``EmbeddingCache``), ``c0``'s ids ``zipf(1.5) %
+     vocab``, 32 steps through ``SparseTrainer(caches=...)`` and a flush,
+     every touched host row held against an uncached run (``c0`` a
+     [10000000, 16] device table) at ``rtol 2e-4, atol 2e-6``; then a
+     1024-row cache for 32 steps (most steps evict) and LazyAdam behind
+     1024 rows for 8 steps, each held the same way; kernel 1 (or 3) once
+     a step and kernel 5 once an array at each eviction and the flush;
+     per step of the first half: cached against uncached ms, the plan,
+     eviction and upload ms, the hit rate and rows evicted; the second
+     half's ms a step with no sync between steps;
+ 27. a dynamic table: ``c0`` a ``DynamicEmbedding`` of 1000000 rows over
+     raw int64 ids (``murmur3_mix64`` of zipf draws), ``min_count`` 1 and
+     3, mapped in ``DeviceIterator``'s thread into ``SparseTrainer`` for
+     16 steps; ``map_ids`` timed per batch, the ``state_dict`` round trip
+     bitwise, and an export with its ``id_mappers``;
+ 28. the Criteo entry point with ``--sparse --cached 32768 --export DIR
+     --export-poly`` and then ``--export-int8``, at its defaults; the
+     bundles of phases 27 and 28 served by one cold process on the card
+     (kernel 5 once a member lookup, twice in int8), f32 within 1e-6 of
+     each trainer's predictions, int8 within 2e-2.
 With ``--profile`` it then traces 10 steps of each timed variant and of
 the DIN harness's ``--sparse`` step with and without sessions with
 ``torch.profiler`` and prints device time per step by kernel class. With
@@ -167,7 +189,8 @@ gradients); each sweep forth and back.
 The run's wall time is printed before the last two lines. The
 second-to-last line is a JSON object describing each kernel (its times,
 launches on its path, in the trainers' runs, in the runs from Parquet
-files, in the served predicts and in the DIN phases, and its bound: the
+files, in the served predicts, in the DIN phases and in the host-table
+phases, and its bound: the
 larger of its bytes over 3.35 TB/s and its operations over the card's
 peak rate); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -180,6 +203,7 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import dataclasses
 import functools
 import inspect
 import json
@@ -2930,6 +2954,469 @@ def phase25_taobao(dev: torch.device, smi: str, tmp: str):
   return launches
 
 
+HOST_VOCAB = 10_000_000    # phase 26's host-backed c0, with its Adagrad slot
+HOST_CAP = 1_000_000       # and its device cache (JAX docs/embedding.md:70)
+HOST_STEPS = 32            # the first half stepped by a _StepClock, the
+                           # second timed as a user runs it (no syncs)
+# zipf(1.5) % 10M draws about 580 unique c0 ids a batch of 8192 and 3600
+# over 16 batches, so a cache of 16384 rows would evict in none of 16
+# steps; at 1024 rows every step from the third evicts.
+EVICT_CAP = 1024
+HOST_ADAM_STEPS = 8
+HOST_TOL = dict(rtol=2e-4, atol=2e-6)   # JAX tests/test_service_dynamic.py
+DYN_CAP = 1_000_000        # phase 27's dynamic c0
+DYN_STEPS = 16
+HOST_SERVE_SIZES = (1, 4096)   # phases 27-28's served batch sizes
+
+
+def _sync(dev):
+  if dev.type == 'cuda':
+    torch.cuda.synchronize(dev)
+
+
+class _StepClock:
+  """A trainer hook: each step's host-clock ms from an idle device (a sync
+  before the step's cache apply and after the step), and the cache's
+  plan, eviction and upload seconds and rows of the step. The plan of
+  step k is made in the loop's fetch, between step k - 1's end and step
+  k's start."""
+
+  def __init__(self, dev, cache=None):
+    self.dev, self.cache, self.rows = dev, cache, []
+
+  def begin(self):
+    self._last = dict(self.cache.stats) if self.cache else None
+
+  def before_step(self, step):
+    _sync(self.dev)
+    self._t0 = time.perf_counter()
+    self._s0 = dict(self.cache.stats) if self.cache else None
+
+  def after_step(self, step, metrics):
+    _sync(self.dev)
+    row = {'ms': (time.perf_counter() - self._t0) * 1e3}
+    if self.cache:
+      s, s0, last = self.cache.stats, self._s0, self._last
+      row.update(
+          plan_ms=(s0['plan_s'] - last['plan_s']) * 1e3,
+          evict_ms=(s['evict_s'] - s0['evict_s']) * 1e3,
+          upload_ms=(s['upload_s'] - s0['upload_s']) * 1e3,
+          evicted=s['evicted'] - s0['evicted'],
+          uploaded=s['uploaded'] - s0['uploaded'],
+          planned=s0['planned'] - last['planned'],
+          misses=s0['misses'] - last['misses'])
+      row['step_ms'] = row['ms'] - row['evict_ms'] - row['upload_ms']
+      self._last = dict(s)
+    self.rows.append(row)
+
+  def end(self, step):
+    pass
+
+
+def _med(rows, key):
+  return statistics.median(r[key] for r in rows)
+
+
+def _host_batches(cfg, steps, seed, vocab0):
+  """The flagship's seeded Criteo-like host batches, ``c0`` drawn anew as
+  ``zipf(1.5) % vocab0`` (the JAX Criteo synthesizer's draw)."""
+  batches = synthetic.criteo_batches(cfg.batch, steps, cfg.vocab,
+                                     tables=cfg.tables,
+                                     dense_features=cfg.dense_features,
+                                     seed=seed)
+  rng = np.random.RandomState(seed + 1)
+  for b in batches:
+    b['c0'] = (rng.zipf(1.5, cfg.batch) % vocab0).astype(np.int64)
+  return batches
+
+
+def _c0_trainer(cfg, dev, c0, table_optimizer='adagrad', caches=None):
+  """The flagship sparse trainer with ``c0``'s config in place of its
+  table: columns ``c1...`` are the flagship's [vocab, dim] tables and
+  the tower its DCNv2, drawn from one CPU generator after ``c0``'s own
+  draws; where ``c0``'s initializer ignores the generator, every such
+  variant starts from the same weights."""
+  import hybridbackend_tpu_torch as hbt
+  specs = [hbt.EmbeddingSpec(c0, column='c0')] + [
+      hbt.EmbeddingSpec(hbt.TableConfig(f'c{t}', cfg.vocab, cfg.dim))
+      for t in range(1, cfg.tables)]
+  fx = hbt.StackedFeatureExtractor(
+      specs, dense_columns=[f'i{d}' for d in range(cfg.dense_features)],
+      ctx=hbt.Context(dev))
+  gen = torch.Generator().manual_seed(tb.SEED)
+  tables = fx.init(gen)
+  tower, preds = tb._tower(cfg, dev, gen)
+  return hbt.SparseTrainer(
+      fx, lambda t, e, d, b: tb.bce(preds(t, e, d), b['label']), tower,
+      tables=tables,
+      dense_optimizer=functools.partial(torch.optim.Adam, lr=tb.TOWER_LR),
+      table_lr=tb.TABLE_LR, adagrad_init=tb.ADAGRAD_INIT,
+      table_optimizer=table_optimizer, caches=caches)
+
+
+def _zeros_init(gen, shape, dtype):
+  return torch.zeros(shape, dtype=dtype)
+
+
+def _gold_rows(trainer, ids):
+  """Rows ``ids`` of ``c0`` in an uncached trainer: its table and slots,
+  as numpy."""
+  stack = trainer._fx.stack_of('c0')
+  _, off = stack.member('c0')
+  idx = torch.from_numpy(ids + off).to(trainer.state.tables[
+      stack.stacked.name].device)
+  arrays = {'value': trainer.state.tables[stack.stacked.name]}
+  arrays.update({f'slot{i}': a for i, a in enumerate(
+      trainer.state.table_opt[stack.stacked.name].acc)})
+  return {k: a[idx].cpu().numpy() for k, a in arrays.items()}
+
+
+def _hold_host(label, host, gold, ids):
+  """The flushed host tables' rows ``ids`` against the uncached run's,
+  at ``HOST_TOL``; returns the largest gap."""
+  worst = 0.0
+  for name, want in gold.items():
+    got = host[name][ids]
+    if not np.allclose(got, want, **HOST_TOL):
+      raise AssertionError(
+          f'{label}: host {name} is {np.abs(got - want).max():.3e} from the '
+          f'uncached run on its touched rows (rtol 2e-4, atol 2e-6)')
+    worst = max(worst, float(np.abs(got - want).max()))
+  return worst
+
+
+def _train_halves(trainer, batches, dev, cache=None):
+  """``trainer.train`` over ``batches``, each batch mapped and placed in
+  the loop: the first half with a ``_StepClock``, the second half timed
+  whole on the host clock from an idle device to its last step, with no
+  sync between steps. Returns the clock's rows and the second half's
+  ms a step."""
+  half = len(batches) // 2
+  clock = _StepClock(dev, cache)
+  trainer.train(iter(batches[:half]), hooks=[clock])
+  _sync(dev)
+  t0 = time.perf_counter()
+  trainer.train(iter(batches[half:]))
+  _sync(dev)
+  return clock.rows, (time.perf_counter() - t0) * 1e3 / (len(batches) - half)
+
+
+def _cached_run(cfg, dev, batches, value0, capacity, table_optimizer):
+  """A cached trainer of ``c0`` over a host copy of ``value0`` (and its
+  slots) behind ``capacity`` rows, trained on ``batches`` through
+  ``train`` (:func:`_train_halves`), then flushed. Its kernel launches
+  must be kernel 1 or 3 once a step and kernel 5 once an array for each
+  step that evicted and for the flush. Returns ``(host tables, clock
+  rows, unsynced ms a step, launches, cache)``."""
+  import hybridbackend_tpu_torch as hbt
+  nslots = 2 if table_optimizer == 'adam' else 1
+  host = {'value': value0.copy()}
+  for i in range(nslots):
+    host[f'slot{i}'] = np.full_like(
+        value0, 0.0 if table_optimizer == 'adam' else tb.ADAGRAD_INIT)
+  cache = hbt.EmbeddingCache(hbt.TableConfig('c0', value0.shape[0], cfg.dim),
+                             capacity, host_tables=host, ctx=hbt.Context(dev))
+  trainer = _c0_trainer(
+      cfg, dev, dataclasses.replace(cache.slot_config(),
+                                    initializer=_zeros_init),
+      table_optimizer, caches={'c0': cache})
+  _sync(dev)
+  _reset_counts()
+  rows, unsynced_ms = _train_halves(trainer, batches, dev, cache)
+  trainer._cache_runner.flush(trainer.state)
+  _sync(dev)
+  counts = _counts()
+  kernel = ('adam_update_sorted' if table_optimizer == 'adam'
+            else 'adagrad_update_sorted')
+  _expect(f'phase 26, {table_optimizer} behind {capacity} rows', counts,
+          **{kernel: len(batches), 'gather_rows': (nslots + 1) * (
+              cache.stats['evict_calls'] + 1)})
+  # Kernel 5 at the flush's shape (the resident rows of the stacked
+  # table) against its plain version, not counted.
+  sname = trainer._fx.stack_of('c0').stacked.name
+  table = trainer.state.tables[sname]
+  resident = torch.from_numpy(np.nonzero(cache._slot_to_id >= 0)[0]).to(dev)
+  got = hbt.gather_rows(table, resident)
+  if not torch.equal(got, hbt.gather_rows_reference(table, resident)):
+    raise AssertionError('phase 26: kernel 5 at the flush differs from its '
+                         'plain version')
+  _reset_counts()
+  del trainer
+  return host, rows, unsynced_ms, counts, cache
+
+
+def phase26_host_backed(cfg, dev, smi):
+  """Phase 26: the flagship DCNv2 sparse step with ``c0`` a host-backed
+  table of [10000000, 16] f32 with its Adagrad slot (1.28 GB of host
+  DRAM) behind a 1000000-row device cache, ``c0``'s ids ``zipf(1.5) %
+  vocab``, through ``SparseTrainer(caches=...)``: 32 steps, then a flush;
+  every touched row of the host value and slot held against an uncached
+  run of the same batches (``c0`` a [10000000, 16] device table) at
+  ``rtol 2e-4, atol 2e-6``. Then a 1024-row cache for 32 steps (most
+  steps evict), held the same way, and LazyAdam (kernel 3) behind 1024
+  rows for 8 steps against an uncached LazyAdam run. Over the first 16
+  steps, per step on the host clock from an idle card: cached against
+  uncached ms, the plan, the eviction (kernel 5 and the copy to the
+  host) and the upload, the hit rate and rows evicted; over the last 16,
+  ms a step with no sync between steps, as a user trains. Returns the
+  cached runs' kernel launches."""
+  import hybridbackend_tpu_torch as hbt
+  t_phase = time.perf_counter()
+  launches = collections.Counter()
+  value0 = np.random.default_rng(26).standard_normal(
+      (HOST_VOCAB, cfg.dim), dtype=np.float32)
+  value0 *= np.float32(0.01)
+  batches = _host_batches(cfg, HOST_STEPS, 260, HOST_VOCAB)
+  touched = np.unique(np.concatenate([b['c0'] for b in batches]))
+  adam_touched = np.unique(np.concatenate(
+      [b['c0'] for b in batches[:HOST_ADAM_STEPS]]))
+
+  full = hbt.TableConfig('c0', HOST_VOCAB, cfg.dim,
+                         initializer=lambda g, s, d: torch.from_numpy(value0))
+  gold = _c0_trainer(cfg, dev, full)
+  gold_rows, gold_ms = _train_halves(gold, batches, dev)
+  gold32 = _gold_rows(gold, touched)
+  del gold
+  gold_adam = _c0_trainer(cfg, dev, full, 'adam')
+  gold_adam.train(iter(batches[:HOST_ADAM_STEPS]))
+  gold8 = _gold_rows(gold_adam, adam_touched)
+  del gold_adam
+  torch.cuda.empty_cache()
+
+  runs = {}
+  for label, steps, cap, opt, want, ids in (
+      (f'{HOST_CAP} rows', HOST_STEPS, HOST_CAP, 'adagrad', gold32, touched),
+      (f'{EVICT_CAP} rows', HOST_STEPS, EVICT_CAP, 'adagrad', gold32,
+       touched),
+      (f'{EVICT_CAP} rows, LazyAdam', HOST_ADAM_STEPS, EVICT_CAP, 'adam',
+       gold8, adam_touched)):
+    host, rows, unsynced_ms, counts, cache = _cached_run(
+        cfg, dev, batches[:steps], value0, cap, opt)
+    launches.update(counts)
+    gap = _hold_host(f'phase 26 ({label})', host, want, ids)
+    moved = float(np.abs(host['value'][ids] - value0[ids]).max())
+    if moved <= 1e-4:
+      raise AssertionError(f'phase 26 ({label}): training moved c0 by '
+                           f'{moved:.3e} only')
+    runs[label] = (rows, unsynced_ms, counts, cache, gap, steps)
+    del host
+  print(f'phase 26 (host-backed c0 of [{HOST_VOCAB}, {cfg.dim}] f32 with its '
+        f'slots in host DRAM, the flagship DCNv2 step, batch {cfg.batch}), on '
+        f'{smi}: {time.perf_counter() - t_phase:.3f} s wall; uncached '
+        f'(c0 a device table) median {_med(gold_rows, "ms"):.4f} ms/step '
+        f'over {len(gold_rows)} steps (host clock from an idle card), '
+        f'{gold_ms:.4f} ms/step over the next {HOST_STEPS - len(gold_rows)} '
+        'unsynced')
+  for label, (rows, unsynced_ms, counts, cache, gap, steps) in runs.items():
+    s = cache.stats
+    evicting = [r for r in rows if r['evicted']]
+    print(f'  cached behind {label}: median {_med(rows, "ms"):.4f} ms/step '
+          f'over {len(rows)} steps (step alone {_med(rows, "step_ms"):.4f}, '
+          f'plan '
+          f'{_med(rows, "plan_ms"):.4f}, eviction D2H '
+          f'{_med(evicting, "evict_ms") if evicting else 0.0:.4f} over the '
+          f'{len(evicting)} steps that evict, upload H2D '
+          f'{_med(rows, "upload_ms"):.4f}), {unsynced_ms:.4f} ms/step over '
+          f'the next {steps - len(rows)} unsynced; hit rate '
+          f'{1 - s["misses"] / s["planned"]:.4f} of unique ids, '
+          f'{s["evicted"]} rows evicted, {s["uploaded"]} uploaded; kernel 1 '
+          f'{counts["adagrad_update_sorted"]}, kernel 3 '
+          f'{counts["adam_update_sorted"]}, kernel 5 '
+          f'{counts["gather_rows"]} launches; host rows '
+          f'{gap:.3e} from uncached (rtol 2e-4, atol 2e-6)')
+  return launches
+
+
+def phase27_dynamic(cfg, dev, smi, bundles, batch_dir):
+  """Phase 27: ``c0`` a dynamic table (``DynamicEmbedding``, 1000000 rows)
+  over raw int64 ids (``murmur3_mix64`` of the zipf draws, so the keys
+  span the int64 range), with ``min_count`` 1 and 3: its transform maps
+  each batch in ``DeviceIterator``'s producer thread (``prefetch=True``)
+  into the flagship ``SparseTrainer`` for 16 steps (kernel 1 once a
+  step). ``map_ids`` is timed per batch (a fresh mapper on the same
+  batches, then the read-only probe); the mapper's ``state_dict`` round
+  trip is bitwise. Each trainer exports with its ``id_mappers``; returns
+  the trainers' predictions for the cold process of phase 28, and the
+  kernel launches."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.native import idmap
+  launches = collections.Counter()
+  batches = _host_batches(cfg, DYN_STEPS + 1, 270, 1 << 62)
+  for b in batches:
+    b['c0'] = idmap.murmur3_mix64(b['c0'])
+  live = {}
+  for min_count in (1, 3):
+    label = f'phase 27 (min_count {min_count})'
+    dyn = hbt.DynamicEmbedding('c0', DYN_CAP, cfg.dim, min_count=min_count)
+    trainer = _c0_trainer(cfg, dev, dyn.config)
+    trainer._host_transform = dyn.transform('c0')
+    trainer._eval_host_transform = dyn.transform('c0', train=False)
+    _sync(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    trainer.train(iter(batches[:DYN_STEPS]), prefetch=True)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    _expect(label, counts, adagrad_update_sorted=DYN_STEPS)
+    launches.update(counts)
+    fresh = hbt.IdMapper(DYN_CAP, min_count=min_count)
+    t0 = time.perf_counter()
+    for b in batches[:DYN_STEPS]:
+      fresh.map_ids(b['c0'])
+    map_ms = (time.perf_counter() - t0) * 1e3 / DYN_STEPS
+    t0 = time.perf_counter()
+    for b in batches[:DYN_STEPS]:
+      fresh.map_ids(b['c0'], train=False)
+    probe_ms = (time.perf_counter() - t0) * 1e3 / DYN_STEPS
+    state = dyn.mapper.state_dict()
+    again = hbt.IdMapper.from_state_dict(DYN_CAP, state, min_count).state_dict()
+    if state.keys() != again.keys() or not all(
+        np.array_equal(state[k], again[k]) and state[k].dtype == again[k].dtype
+        for k in state):
+      raise AssertionError(f'{label}: the state_dict round trip differs')
+    for k, v in fresh.state_dict().items():
+      if not np.array_equal(v, state[k]):
+        raise AssertionError(f'{label}: a fresh mapper on the same batches '
+                             f'has another {k}')
+    held = batches[DYN_STEPS]
+    serve = {size: {k: v[:size] for k, v in held.items()}
+             for size in HOST_SERVE_SIZES}
+    case = f'dyn{min_count}/f32'
+    example = dict(serve[max(serve)], c0=dyn.mapper.map_ids(
+        serve[max(serve)]['c0'], train=False))
+    path = os.path.join(bundles, case)
+    t0 = time.perf_counter()
+    trainer.export_saved_model(path, example, poly_batch=True,
+                               id_mappers={'c0': dyn.mapper})
+    export_s = time.perf_counter() - t0
+    out = os.path.join(batch_dir, f'dyn{min_count}')
+    os.makedirs(out, exist_ok=True)
+    live[case] = {}
+    for size, batch in serve.items():
+      np.savez(os.path.join(out, f'batch_{size}.npz'), **batch)
+      live[case][size] = next(trainer.predict(iter([batch]))).cpu().numpy()
+    cold = int((dyn.mapper.map_ids(held['c0'], train=False) < 0).sum())
+    print(f'{label}, on {smi}: {DYN_STEPS} steps {wall / DYN_STEPS * 1e3:.4f} '
+          f'ms/step (train with prefetch, host clock); {dyn.mapper.size} '
+          f'rows assigned, {len(state["pending_ids"])} ids pending; map_ids '
+          f'{map_ms:.4f} ms a batch of {cfg.batch} (train), '
+          f'{probe_ms:.4f} ms (read-only); state_dict round trip bitwise; '
+          f'export {export_s:.3f} s; {cold} of {cfg.batch} held-out ids '
+          'cold')
+    del trainer
+  return live, launches
+
+
+def phase28_criteo_cached(dev, smi, tmp, bundles, batch_dir):
+  """Phase 28: the port's Criteo entry point with ``--sparse --cached
+  32768 --export DIR --export-poly`` at its defaults (c0 [100000, 16] in
+  host DRAM behind 32768 rows), then again with ``--export-int8``, from
+  one file it writes: kernel 1 once a step, kernel 5 once an array at
+  each eviction and at the export's flush. Returns the trainers'
+  predictions on the file's first batch (rows whose c0 is resident) for
+  the cold process, and the launches."""
+  import contextlib
+  import io
+  import re
+  from hybridbackend_tpu_torch.examples.criteo import train as criteo
+  launches = collections.Counter()
+  data = os.path.join(tmp, 'criteo_cached.parquet')
+  live = {}
+  for case, flags in (('criteo/f32', ['--synthesize']),
+                      ('criteo/int8', ['--export-int8'])):
+    argv = ['--sparse', '--cached', '32768', '--data', data, '--export',
+            os.path.join(bundles, case), '--export-poly', *flags]
+    args = criteo.parse_args(argv)
+    steps = args.rows // args.batch_size
+    printed = io.StringIO()
+    _sync(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+      trainer = criteo.run(args)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    printed = printed.getvalue()
+    (cache,) = trainer._caches.values()
+    # Kernel 5 gathers value and slot0 at each eviction and at the
+    # export's flush.
+    _expect(f'phase 28 ({case})', counts, adagrad_update_sorted=steps,
+            gather_rows=2 * (cache.stats['evict_calls'] + 1))
+    launches.update(counts)
+    m = re.search(r'epoch 0: loss=(\S+), auc=(\S+), (\S+)s, step (\d+)',
+                  printed)
+    if (m is None or int(m[4]) != steps or not 0 < float(m[2]) <= 1
+        or 'exported serving bundle' not in printed):
+      raise AssertionError(f'phase 28: the Criteo entry point printed:\n'
+                           f'{printed}')
+    batch = next(criteo.batches(args, False))
+    keep = cache.lookup_slots(batch['c0']) >= 0
+    batch = {k: v[keep] for k, v in batch.items()}
+    out = os.path.join(batch_dir, 'criteo')
+    os.makedirs(out, exist_ok=True)
+    live[case] = {}
+    for size in HOST_SERVE_SIZES:
+      part = {k: v[:size] for k, v in batch.items()}
+      np.savez(os.path.join(out, f'batch_{size}.npz'), **part)
+      live[case][size] = next(trainer.predict(iter([part]))).cpu().numpy()
+    s = cache.stats
+    print(f'phase 28 (python -m hybridbackend_tpu_torch.examples.criteo.train '
+          f'{" ".join(argv)}), on {smi}: {wall:.3f} s for {steps} steps, the '
+          f'evaluation and the export; c0 hit rate '
+          f'{1 - s["misses"] / s["planned"]:.4f}, {s["uploaded"]} rows '
+          f'uploaded, {s["evicted"]} evicted; {int(keep.sum())} of '
+          f'{len(keep)} rows of the served batch resident; kernel 1 '
+          f'{counts["adagrad_update_sorted"]}, kernel 5 '
+          f'{counts["gather_rows"]} launches; it printed:')
+    for line in printed.strip().splitlines():
+      print(f'  {line}')
+    del trainer
+  return live, launches
+
+
+def serve_host_tables(smi, bundles, batch_dir, live):
+  """Phases 27-28's bundles served by one cold process on the card
+  (``COLD_SERVE``): kernel 5 once a member lookup of an f32 predict and
+  twice of an int8 one, no other counted kernel; f32 within 1e-6 of the
+  trainer's predictions, int8 within 2e-2. Returns kernel 5's launches
+  there."""
+  tables = flagship().tables
+  out = subprocess.run(
+      [sys.executable, '-c', COLD_SERVE, bundles, batch_dir, ','.join(live),
+       ','.join(map(str, HOST_SERVE_SIZES))],
+      cwd=HERE, capture_output=True, text=True, timeout=600)
+  if out.returncode != 0:
+    raise RuntimeError(f'phases 27-28: the cold process failed:\n{out.stderr}')
+  cold = json.loads(out.stdout.strip().splitlines()[-1])
+  preds = dict(np.load(os.path.join(batch_dir, 'preds.npz')))
+  launches = 0
+  for case, want in live.items():
+    per = SERVE_GATHERS[os.path.basename(case)]
+    limit = 1e-6 if case.endswith('f32') else 2e-2
+    gaps = []
+    for size in HOST_SERVE_SIZES:
+      counts = cold['cases'][case]['launches'][str(size)]
+      _expect(f'the cold process, {case} predict of {size} rows', counts,
+              gather_rows=per * tables)
+      launches += counts['gather_rows']
+      got = preds[f'{case.replace("/", ".")}_{size}']
+      if got.shape != want[size].shape or not np.isfinite(got).all():
+        raise AssertionError(f'{case}: served {got.shape} at {size} rows')
+      gaps.append(float(np.abs(got - want[size]).max()))
+      if gaps[-1] > limit:
+        raise AssertionError(f'{case}: served {size} rows {gaps[-1]:.3e} '
+                             f'from the trainer (limit {limit})')
+    r = cold['cases'][case]
+    print(f'  {case} served by a cold process on {smi}: Served() '
+          f'{r["load_s"]:.4f} s, from the trainer '
+          + ', '.join(f'{s} rows {g:.3e}' for s, g in zip(HOST_SERVE_SIZES,
+                                                         gaps))
+          + f' (limit {limit}); kernel 5 {per * tables} launches a predict')
+  return launches
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--profile', action='store_true',
@@ -3028,6 +3515,16 @@ def main() -> int:
   din_launches.update(phase24_din_harness(smi))
   with tempfile.TemporaryDirectory() as tmp:
     din_launches.update(phase25_taobao(dev, smi, tmp))
+  cache_launches = phase26_host_backed(cfg, dev, smi)
+  with tempfile.TemporaryDirectory() as tmp:
+    bundles, batch_dir = (os.path.join(tmp, d) for d in ('bundles', 'data'))
+    live, counts = phase27_dynamic(cfg, dev, smi, bundles, batch_dir)
+    cache_launches.update(counts)
+    live28, counts = phase28_criteo_cached(dev, smi, tmp, bundles, batch_dir)
+    cache_launches.update(counts)
+    live.update(live28)
+    cache_launches['gather_rows'] += serve_host_tables(smi, bundles,
+                                                       batch_dir, live)
   if args.profile:
     batch = functools.partial(tb.shifted, *tb.make_batch(cfg, dev),
                               cfg.vocab)
@@ -3068,7 +3565,12 @@ def main() -> int:
                  # harness's processes, the Taobao entry point, its
                  # checks and the cold process's served predicts.
                  'din_launches': (din_launches[name]
-                                  if name in tb.COUNTED else None)})
+                                  if name in tb.COUNTED else None),
+                 # Launches in the host-table phases (26-28): the cached
+                 # and dynamic trainers, their flushes, the Criteo entry
+                 # point's cached runs and the cold process's predicts.
+                 'cache_launches': (cache_launches[name]
+                                    if name in tb.COUNTED else None)})
   print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s wall, every '
         'phase')
   print(json.dumps({'kernels': rows}))

@@ -30,10 +30,18 @@ tested against. It imports ``torch`` and never ``jax``, and nothing from
   in a cold process and predicts from, with f32 or per-row int8 tables
   (``QuantizedTable``), every member lookup through the row gather's
   kernel;
+* host-backed tables: ``EmbeddingCache`` (a device cache over a host-DRAM
+  table and its slots, LRU eviction, the evicted rows read through the
+  row gather's kernel) wired into ``SparseTrainer(caches=...)`` by
+  ``CacheRunner``, and ``DynamicEmbedding`` / ``IdMapper`` (raw int64 ids
+  to rows, with an admission filter), over the port's native id hash
+  (``native/idmap.py``); their bundles serve from the full host table or
+  with the bundled id mappers;
 * a row gather with clipped ids and a stochastically rounded bf16 cast,
   each with its kernel.
 
-Kernels and the native reader are built at first use, never at import.
+Kernels and the native libraries are built at first use, never at
+import.
 """
 
 __version__ = '0.1.0'
@@ -49,9 +57,13 @@ from hybridbackend_tpu_torch.data import (
 from hybridbackend_tpu_torch.data.prefetch import DeviceIterator, put_batch
 from hybridbackend_tpu_torch.data.sync import (
     SYNC_VALID_KEY, SyncReplicasIterator)
+from hybridbackend_tpu_torch.embedding.dynamic import (
+    DynamicEmbedding, IdMapper)
 from hybridbackend_tpu_torch.embedding.lookup import lookup, lookup_sparse
 from hybridbackend_tpu_torch.embedding.quant import (
     QuantizedTable, dequantize_table, lookup_quantized, quantize_table)
+from hybridbackend_tpu_torch.embedding.service import (
+    CachePlan, CacheRunner, EmbeddingCache, InMemoryStorage, Storage)
 from hybridbackend_tpu_torch.embedding.sparse_update import (
     SparseOptState, init_adagrad_state, init_adam_state,
     sparse_adagrad_apply, sparse_adam_apply, sparse_sgd_apply)

@@ -14,9 +14,9 @@ and batch are drawn from seed 0, as there. Run on one CUDA device:
   python -m hybridbackend_tpu_torch.benchmarks.train_benchmark [--sparse] \\
       [--table-dtype bfloat16] [--model dlrm] [--bf16] [--no-dedup] [--json]
 
-Timing: 3 untimed steps, then ``--repeats`` windows of ``--steps`` steps
-(30 by default) enqueued back to back, with a CUDA event before each step
-and after the last. As the JAX harness reports them, ``ms_per_step_best``
+Timing: 3 untimed steps, then ``--repeats`` windows (3) of
+``--inner-steps`` steps (20, the JAX harness's window) enqueued back to
+back, with a CUDA event before each step and after the last. As the JAX harness reports them, ``ms_per_step_best``
 is the best window over its steps and ``torch_train_examples_per_sec``
 the batch times the steps over that window; ``torch_train_step_ms`` is
 the median of the gaps between consecutive events over all windows, and
@@ -65,8 +65,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
   p.add_argument('--tables', type=int, default=26)
   p.add_argument('--dense-features', type=int, default=13)
   p.add_argument('--vocab', type=int, default=100_000)
-  p.add_argument('--steps', type=int, default=30,
-                 help='timed steps per repeat')
+  p.add_argument('--inner-steps', type=int, default=20,
+                 help='timed steps per repeat (the window of '
+                      'ms_per_step_best)')
   p.add_argument('--repeats', type=int, default=3)
   p.add_argument('--model', default='dcnv2', choices=['dcnv2', 'dlrm'])
   p.add_argument('--sparse', action='store_true',
@@ -312,8 +313,8 @@ def run(args: argparse.Namespace) -> dict:
     getattr(hbt, name).launches = 0
   gaps, windows, losses = [], [], []
   for r in range(args.repeats):
-    w = time_steps(state, step, batch, WARMUP + r * args.steps, args.steps,
-                   device)
+    w = time_steps(state, step, batch, WARMUP + r * args.inner_steps,
+                   args.inner_steps, device)
     state = w.state
     losses += w.losses
     gaps += w.gaps
@@ -324,17 +325,18 @@ def run(args: argparse.Namespace) -> dict:
   best = min(windows)
   return {
       'metric': 'torch_train_examples_per_sec',
-      'torch_train_examples_per_sec': args.batch * args.steps / best * 1e3,
-      'ms_per_step_best': best / args.steps,
+      'torch_train_examples_per_sec': (args.batch * args.inner_steps / best
+                                       * 1e3),
+      'ms_per_step_best': best / args.inner_steps,
       'torch_train_step_ms': statistics.median(gaps),
-      'ms_per_step_repeats': [w / args.steps for w in windows],
-      'timed_steps': args.steps * args.repeats,
+      'ms_per_step_repeats': [w / args.inner_steps for w in windows],
+      'timed_steps': args.inner_steps * args.repeats,
       'final_loss': float(losses[-1]),
       'model': args.model, 'sparse': args.sparse, 'bf16': args.bf16,
       'no_dedup': args.no_dedup, 'table_dtype': args.table_dtype,
       'batch': args.batch, 'tables': args.tables, 'dim': args.dim,
       'vocab': args.vocab, 'dense_features': args.dense_features,
-      'steps': args.steps, 'repeats': args.repeats,
+      'inner_steps': args.inner_steps, 'repeats': args.repeats,
       'device': str(device),
       'device_name': torch.cuda.get_device_name(device) if on_card else 'cpu',
       'card': card() if on_card else None,

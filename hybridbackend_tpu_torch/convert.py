@@ -21,6 +21,11 @@ the tables (into the port's ``Adagrad``) come across with it. A JAX
 int8 serving table (``QuantizedTable``, ``q`` lane-packed to ``[V/p,
 p*d]``) becomes the port's ``[V, d]`` one by the same reshape
 (:func:`quantized_from_jax`).
+
+Host-backed tables need nothing here beyond the tower's weights
+(:func:`load_dcn_v2` and its kin): an ``EmbeddingCache``'s host tables
+and an ``IdMapper``'s ``state_dict`` are numpy arrays in both packages,
+with the same keys, so the same arrays are handed to either one.
 """
 
 from __future__ import annotations

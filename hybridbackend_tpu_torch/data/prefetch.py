@@ -45,7 +45,7 @@ import queue as _queue
 import threading
 import time as _time
 import warnings
-from typing import Any, Dict, Iterator, Mapping, Optional
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -114,15 +114,23 @@ class DeviceIterator:
   raised by the source iterator in the producer is re-raised at
   ``__next__``. ``stall_stats`` counts the ``__next__`` calls that found
   the queue empty and the seconds they waited.
+
+  ``transform`` (a host batch to a host batch) runs on the producer's
+  thread, before the batch is queued, as the JAX iterator's does: for
+  example ``DynamicEmbedding.transform`` or ``CacheRunner.transform``,
+  which map raw ids to rows or cache slots ahead of the steps.
   """
 
   def __init__(self, host_iterator: Iterator[Mapping[str, Any]],
-               device: torch.device, capacity: int = 2):
+               device: torch.device, capacity: int = 2,
+               transform: Optional[Callable[[Mapping[str, Any]],
+                                            Mapping[str, Any]]] = None):
     self._device = torch.device(device)
     self._capacity = capacity
     self._q: _queue.Queue = _queue.Queue(maxsize=capacity)
     self._stop = threading.Event()
     self._inner = host_iterator
+    self._transform = transform
     self._cuda = self._device.type == 'cuda'
     self._stream = torch.cuda.Stream(self._device) if self._cuda else None
     self._ahead: Optional[_Staged] = None   # placed, not yet handed out
@@ -151,6 +159,8 @@ class DeviceIterator:
   def _producer(self, it):
     try:
       for batch in it:
+        if self._transform is not None:
+          batch = self._transform(batch)
         while not self._stop.is_set():
           try:
             self._q.put(batch, timeout=0.1)

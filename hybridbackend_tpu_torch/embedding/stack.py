@@ -30,6 +30,14 @@ class TableStack:
   def dim(self) -> int:
     return self.stacked.dim
 
+  def member(self, name: str) -> Tuple[TableConfig, int]:
+    """The member table ``name``'s config and its row offset in the
+    stacked table."""
+    for cfg, off in zip(self.configs, self.offsets):
+      if cfg.name == name:
+        return cfg, off
+    raise KeyError(name)
+
 
 def build_stacks(configs: Sequence[TableConfig]) -> List[TableStack]:
   """Group configs by (dim, dtype) into stacks; tables with mixed ids

@@ -18,10 +18,21 @@ train metrics are read once at the end of ``train`` (and by a hook at its
 own windows), and the eval metrics stay device tensors until
 ``evaluate`` returns.
 
+Host-backed tables (``SparseTrainer(caches=...)``) run through the
+``_host_transform``, ``_eval_host_transform`` and ``_cache_runner``
+hooks: each host batch's cached columns are mapped to cache slots
+before it is placed (``CacheRunner.transform``: in the loop by default,
+ahead in the producer thread with ``prefetch=True``; both orders give
+the same tables), the oldest plan's evictions and uploads are applied in
+place to the live state before each step, the resident rows are written
+back at every checkpoint, and evaluation and prediction map ids
+read-only (``embedding/service.py``).
+
 ``export_saved_model`` writes a serving bundle
-(``training/saved_model.py``) that a cold process loads as ``Served``.
-Not in this slice (ROADMAP queue 1): the host-cache runner (``caches``)
-and bundled ``id_mappers`` (item 16) and summaries (item 17).
+(``training/saved_model.py``) that a cold process loads as ``Served``,
+with bundled ``id_mappers`` for dynamic tables and cache-backed columns
+served from their full host tables. Not in this slice (ROADMAP queue
+1): summaries (item 17).
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import functools
 import logging
 from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -40,6 +52,8 @@ from hybridbackend_tpu_torch.data.sync import (
     SYNC_VALID_KEY, SyncReplicasIterator)
 from hybridbackend_tpu_torch.embedding.lookup import lookup
 from hybridbackend_tpu_torch.embedding.quant import quantize_table
+from hybridbackend_tpu_torch.embedding.service import (
+    CacheRunner, EmbeddingCache)
 from hybridbackend_tpu_torch.embedding.stack import member_tables
 from hybridbackend_tpu_torch.framework.context import Context
 from hybridbackend_tpu_torch.models.feature import (
@@ -120,6 +134,16 @@ def _host_mean(v) -> float:
 class Trainer:
   """Owns the training lifecycle of one model on the dense-gradient path.
 
+  Class attributes ``_host_transform`` / ``_eval_host_transform`` /
+  ``_cache_runner`` are the hooks of host-backed tables (set by
+  ``SparseTrainer(caches=...)``): training batches pass through the
+  first before placement (on ``DeviceIterator``'s producer thread with
+  ``prefetch=True``), evaluation and prediction batches through the
+  second, and the runner's pending array effects are applied to the
+  state before each step. A dynamic table's ``DynamicEmbedding.
+  transform(column)`` and ``transform(column, train=False)`` may be set
+  on an instance as the first two, as the JAX trainer's are.
+
   Args:
     loss_fn: ``(params, batch) -> (scalar_loss, aux)``; ``aux`` should
       hold ``'preds'`` for the built-in metrics, and
@@ -140,6 +164,10 @@ class Trainer:
     prefetch_capacity: batches ``DeviceIterator`` stages ahead (with
       ``prefetch=True``).
   """
+
+  _host_transform: Optional[Callable] = None
+  _eval_host_transform: Optional[Callable] = None
+  _cache_runner = None
 
   def __init__(self, loss_fn: Callable, params: nn.Module,
                optimizer=None, model_dir: Optional[str] = None, *,
@@ -202,9 +230,16 @@ class Trainer:
   def global_step(self) -> int:
     return self.state.step
 
-  def _device_batches(self, it: Iterator, prefetch: bool) -> Iterator:
+  def _device_batches(self, it: Iterator, prefetch: bool,
+                      transform: Optional[Callable] = None) -> Iterator:
+    """``it``'s host batches through ``transform`` (when given) and
+    onto the device: staged ahead by ``DeviceIterator`` (the transform on
+    its producer thread), or each in the loop."""
     if prefetch:
-      return DeviceIterator(it, self._ctx.device, capacity=self._capacity)
+      return DeviceIterator(it, self._ctx.device, capacity=self._capacity,
+                            transform=transform)
+    if transform is not None:
+      it = map(transform, it)
     return (put_batch(b, self._ctx.device) for b in it)
 
   # -- training --------------------------------------------------------------
@@ -231,7 +266,8 @@ class Trainer:
     sync_it = None
     if sync:
       it = sync_it = SyncReplicasIterator(it)
-    it = self._device_batches(it, prefetch)
+    it = self._device_batches(it, prefetch, self._host_transform)
+    runner = self._cache_runner
     hooks = list(hooks)
     if isinstance(it, DeviceIterator):
       for h in hooks:
@@ -248,6 +284,8 @@ class Trainer:
         step_no = self.global_step
         for h in hooks:
           h.before_step(step_no)
+        if runner is not None:
+          self.state = runner.apply_next(self.state)
         self.state, m = self._step_fn(self.state, batch)
         step_metrics = {k: v for k, v in m.items() if k != 'preds'}
         steps_done += 1
@@ -256,6 +294,10 @@ class Trainer:
           h.after_step(step_no, step_metrics)
         if (self._ckpt and save_checkpoint_steps
             and step_no % save_checkpoint_steps == 0):
+          if runner is not None:
+            # Mid-train the producer may keep planning: write the rows
+            # back under their owners in the arrays, consuming no plan.
+            runner.checkpoint_flush(self.state)
           self._save(step_no)
         if (eval_every_n_steps and eval_batches_fn
             and step_no % eval_every_n_steps == 0):
@@ -266,9 +308,15 @@ class Trainer:
         it.close()           # closes the sync iterator it wraps
       elif sync_it is not None:
         sync_it.close()
+      if runner is not None:
+        # Batches planned ahead but never stepped: apply their effects,
+        # so that the slot map and the arrays agree.
+        self.state = runner.drain(self.state)
       for h in hooks:
         h.end(self.global_step)
       if self._ckpt:
+        if runner is not None:
+          runner.flush(self.state)
         self._save(self.global_step)
     return {k: _host_mean(v) for k, v in step_metrics.items()}
 
@@ -286,7 +334,8 @@ class Trainer:
     the result says ``loss_exact = 0.0``.
     """
     it = self._device_batches(
-        SyncReplicasIterator(iter(batches), drop_remainder=False), prefetch)
+        SyncReplicasIterator(iter(batches), drop_remainder=False), prefetch,
+        self._eval_host_transform)
     dev = self._ctx.device
     auc_s, loss_s, gauc_s = hbm.auc_init(device=dev), hbm.mean_init(
         dev), hbm.gauc_init(dev)
@@ -342,7 +391,8 @@ class Trainer:
               prefetch: bool = False) -> Iterator[torch.Tensor]:
     """Yield each batch's predictions, a tensor on the context's device
     (reading it is the caller's choice)."""
-    it = self._device_batches(iter(batches), prefetch)
+    it = self._device_batches(iter(batches), prefetch,
+                              self._eval_host_transform)
     try:
       for batch in it:
         _, aux = self._eval_fn(self.params, batch)
@@ -360,8 +410,8 @@ class Trainer:
     inputs. Its lookups are the loss function's own (``index_select``
     unless it passes ``serving=True``). ``example_batch`` carries every
     column the loss function reads, the label too; ``poly_batch=True``
-    serves any batch size from one bundle; ``id_mappers`` is not ported
-    and raises."""
+    serves any batch size from one bundle; ``id_mappers`` (``{column:
+    IdMapper}``) bundles the maps that ``Served`` applies to raw ids."""
     loss_fn = self._loss_fn
     module = self.state.params
 
@@ -397,6 +447,17 @@ class SparseTrainer(Trainer):
       (LazyAdam), at ``table_lr``.
     generator: draws the default tables (seed 0 when None, the JAX
       ``PRNGKey(0)``).
+    caches: ``{column: EmbeddingCache}``, host-backed tables: each
+      column's fx table is declared with ``cache.slot_config()``, and the
+      cache's host tables are ``'value'`` and one ``'slot{i}'`` per table
+      optimizer slot (``slot0`` for Adagrad; ``slot0``, ``slot1`` for
+      LazyAdam). The column's ids are mapped to cache slots on the host
+      every batch, and the cache's evictions and uploads are applied in
+      place to the live stacked table and its slots in step order (the
+      reference's EmbeddingService hooks, ``service.py:253-324``). The
+      resident rows are written back to storage at every checkpoint; with
+      no ``model_dir``, call ``_cache_runner.flush(state)`` after
+      training, as with the JAX trainer.
   The other arguments are :class:`Trainer`'s.
   """
 
@@ -411,8 +472,22 @@ class SparseTrainer(Trainer):
                label_key: str = 'label', group_key: Optional[str] = None,
                generator: Optional[torch.Generator] = None,
                keep_checkpoint_max: int = 5, grow_vocab: bool = False,
-               prefetch_capacity: int = 2):
+               prefetch_capacity: int = 2,
+               caches: Optional[Dict[str, EmbeddingCache]] = None):
     ctx = fx.ctx
+    self._caches = dict(caches) if caches else {}
+    if self._caches:
+      nslots = 2 if table_optimizer == 'adam' else 1
+      want = {'value'} | {f'slot{i}' for i in range(nslots)}
+      for col, cache in self._caches.items():
+        have = set(cache.device)
+        if have != want:
+          raise ValueError(
+              f'cache for column {col!r} has tables {sorted(have)}; '
+              f'{table_optimizer} needs exactly {sorted(want)}')
+      self._cache_runner = CacheRunner(self._caches, fx)
+      self._host_transform = self._cache_runner.transform
+      self._eval_host_transform = self._cache_runner.eval_transform
     dense.to(ctx.device)
     if dense_optimizer is None:
       dense_optimizer = functools.partial(torch.optim.Adam, lr=1e-3)
@@ -479,23 +554,43 @@ class SparseTrainer(Trainer):
     ``table_dtype='int8'`` quantizes every member table per row
     (``embedding/quant.py``), about a quarter of the table bytes; the
     tower stays float. ``example_batch`` carries every column
-    ``model_loss`` reads, the label too; ``poly_batch=True`` serves any
-    batch size from one bundle; ``id_mappers`` is not ported and
-    raises."""
+    ``model_loss`` reads, the label too, with raw ids in a cached or
+    dynamic column; ``poly_batch=True`` serves any batch size from one
+    bundle. ``id_mappers`` (``{column: IdMapper}``) bundles the maps of
+    dynamic tables, which ``Served`` applies read-only to those columns.
+
+    A cache-backed column serves from its full host table, written back
+    first (``checkpoint_flush``, which consumes no pending plan), as one
+    member of the cache's ``config.vocab_size`` rows: a cold process
+    serves it with no cache and no slot map."""
     if table_dtype not in ('float32', 'int8'):
       raise ValueError(f'table_dtype must be float32 or int8, got '
                        f'{table_dtype!r}')
+    if self._cache_runner is not None:
+      self._cache_runner.checkpoint_flush(self.state)
     tables: Dict[str, Any] = {}
     for stack in self._fx.stacks:
       tables.update(member_tables(stack, self.state.tables[
           stack.stacked.name]))
-    if table_dtype == 'int8':
-      tables = {name: quantize_table(t) for name, t in tables.items()}
     # A stack addresses its members at offset + raw id (a member's
     # shuffle_ids is not applied inside a stack), so each extracted slice
     # serves with the identity row mapping.
-    specs = [EmbeddingSpec(dataclasses.replace(s.config, shuffle_ids=False),
-                           column=s.column) for s in self._fx.specs]
+    specs = []
+    for s in self._fx.specs:
+      cache = self._caches.get(s.key)
+      if cache is None:
+        specs.append(EmbeddingSpec(
+            dataclasses.replace(s.config, shuffle_ids=False),
+            column=s.column))
+        continue
+      vocab = cache.config.vocab_size
+      tables[s.name] = torch.from_numpy(np.ascontiguousarray(
+          cache.storage.pull('value', np.arange(vocab, dtype=np.int64))))
+      specs.append(EmbeddingSpec(
+          dataclasses.replace(cache.config, shuffle_ids=False),
+          column=s.key))
+    if table_dtype == 'int8':
+      tables = {name: quantize_table(t) for name, t in tables.items()}
     dense_columns = list(self._fx.dense_columns)
     tower, model_loss = self.state.dense, self._model_loss
     raw_loss = self._raw_model_loss

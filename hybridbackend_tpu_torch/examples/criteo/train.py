@@ -13,6 +13,15 @@ kernels); without it every table takes its dense gradient (``Trainer``).
 Runs on one CUDA device unless ``--device cpu`` is given. Weights are
 drawn on the CPU from seed 0, so every device starts from one state.
 
+``--cached CAP`` (which implies ``--sparse``) keeps the largest table in
+host DRAM with its Adagrad accumulator (values ``0.01 * randn`` from
+``RandomState(42)``, accumulator 0.1, as the JAX example draws them),
+behind a ``CAP``-row device cache (``EmbeddingCache``); the other tables
+stay on the device. ``--export DIR`` writes a serving bundle of the
+sparse trainer after training (``--export-poly``: any batch size;
+``--export-int8``: per-row int8 tables), from the full host table of a
+cached column, and prints its path.
+
 With ``--synthesize`` (or when ``--data`` is not given and the default
 file is missing) it first writes a Criteo-shaped Parquet sample, so the
 script runs anywhere:
@@ -20,10 +29,9 @@ script runs anywhere:
   python -m hybridbackend_tpu_torch.examples.criteo.train --synthesize \\
       --sparse --steps 200
 
-Not ported, each exits at once with its reason: ``--export``,
-``--export-poly`` and ``--export-int8`` (serving, ROADMAP queue 1 item
-13), ``--cached`` (host-backed tables, item 16), ``--lookup`` and
-``--cpu`` (multi-device lookup strategies and host meshes, item 15).
+Not ported, each exits at once with its reason: ``--lookup`` and
+``--cpu`` (multi-device lookup strategies and host meshes, ROADMAP queue
+1 item 15).
 """
 
 from __future__ import annotations
@@ -46,11 +54,8 @@ SEED = 0
 ROW_GROUP = 8192
 # Flags of the JAX example the port does not take yet, and the ROADMAP
 # (queue 1) item that brings each.
-NOT_PORTED = {
-    'export': ('--export', 13), 'export_poly': ('--export-poly', 13),
-    'export_int8': ('--export-int8', 13), 'cached': ('--cached', 16),
-    'lookup': ('--lookup', 15), 'cpu': ('--cpu', 15),
-}
+NOT_PORTED = {'lookup': ('--lookup', 15), 'cpu': ('--cpu', 15)}
+CACHE_SEED = 42
 
 
 def synthesize(path: str, rows: int, vocabs: List[int],
@@ -104,12 +109,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
   p.add_argument('--python-reader', action='store_true',
                  help='read through pyarrow in Python, not the native '
                       'reader')
-  p.add_argument('--export', default=None, help='not ported (item 13)')
+  p.add_argument('--export', default=None, metavar='DIR',
+                 help='write a serving bundle of the sparse trainer here '
+                      'after training')
   p.add_argument('--export-poly', action='store_true',
-                 help='not ported (item 13)')
+                 help='export a symbolic batch dimension (any batch size)')
   p.add_argument('--export-int8', action='store_true',
-                 help='not ported (item 13)')
-  p.add_argument('--cached', type=int, default=0, help='not ported (item 16)')
+                 help='export per-row int8 tables')
+  p.add_argument('--cached', type=int, default=0, metavar='CAP',
+                 help='keep the largest table in host DRAM behind a CAP-row '
+                      'device cache (implies --sparse)')
   p.add_argument('--lookup', default=None, help='not ported (item 15)')
   p.add_argument('--cpu', type=int, default=0, help='not ported (item 15)')
   return p.parse_args(argv)
@@ -120,6 +129,11 @@ def unsupported(args: argparse.Namespace) -> Optional[str]:
   for key, (flag, item) in NOT_PORTED.items():
     if getattr(args, key):
       return (f'{flag} is not ported yet (ROADMAP queue 1 item {item})')
+  if (args.export_poly or args.export_int8) and not args.export:
+    return '--export-poly and --export-int8 shape the bundle of --export DIR'
+  if args.export and not (args.sparse or args.cached):
+    return ('--export writes the bundle of the sparse trainer (as the JAX '
+            'example does); pass --sparse')
   if torch.device(args.device).type == 'cuda' and (
       not torch.cuda.is_available()):
     return 'no CUDA device; pass --device cpu to run on the CPU'
@@ -150,14 +164,38 @@ def _tower(args: argparse.Namespace, device: torch.device,
   return tower, lambda t, emb_f, dense_f: t(dense_f, emb_f)
 
 
+def host_cache(args: argparse.Namespace, device: torch.device):
+  """``(column, EmbeddingCache)`` of ``--cached``: the largest table in
+  host DRAM, its values and Adagrad accumulator drawn as the JAX example
+  draws them, behind ``--cached`` device rows."""
+  import hybridbackend_tpu_torch as hbt
+  vocab = vocabs(args)
+  big = int(np.argmax(vocab))
+  rng = np.random.RandomState(CACHE_SEED)
+  host = {'value': (rng.randn(vocab[big], args.dim) * 0.01
+                    ).astype(np.float32),
+          'slot0': np.full((vocab[big], args.dim), 0.1, np.float32)}
+  return f'c{big}', hbt.EmbeddingCache(
+      hbt.TableConfig(f'c{big}', vocab[big], args.dim), args.cached,
+      host_tables=host, ctx=hbt.Context(device))
+
+
 def sparse_trainer(args: argparse.Namespace, device: torch.device):
   """The ``--sparse`` trainer: stacked tables under row-sparse Adagrad
   (accumulator 0.1) at ``--lr-tables``, the tower under Adam at
-  ``--lr-dense``, checkpoints in ``--model-dir``."""
+  ``--lr-dense``, checkpoints in ``--model-dir``; with ``--cached``, the
+  largest table behind its host cache (``host_cache``)."""
   import hybridbackend_tpu_torch as hbt
   from hybridbackend_tpu_torch.benchmarks.train_benchmark import bce
+  specs = _specs(args)
+  caches = None
+  if args.cached:
+    col, cache = host_cache(args, device)
+    caches = {col: cache}
+    specs = [hbt.EmbeddingSpec(cache.slot_config(), column=col)
+             if s.key == col else s for s in specs]
   fx = hbt.StackedFeatureExtractor(
-      _specs(args), dense_columns=[f'i{d}' for d in range(NUM_DENSE)],
+      specs, dense_columns=[f'i{d}' for d in range(NUM_DENSE)],
       ctx=hbt.Context(device))
   gen = torch.Generator().manual_seed(SEED)
   tables = fx.init(gen)
@@ -169,7 +207,8 @@ def sparse_trainer(args: argparse.Namespace, device: torch.device):
   return hbt.SparseTrainer(
       fx, model_loss, tower, tables=tables,
       dense_optimizer=functools.partial(torch.optim.Adam, lr=args.lr_dense),
-      table_lr=args.lr_tables, model_dir=args.model_dir or None)
+      table_lr=args.lr_tables, model_dir=args.model_dir or None,
+      caches=caches)
 
 
 def dense_trainer(args: argparse.Namespace, device: torch.device):
@@ -213,7 +252,15 @@ def main(argv: Optional[List[str]] = None) -> int:
   if why:
     print(f'criteo/train.py: {why}', file=sys.stderr)
     return 1
+  run(args)
+  return 0
+
+
+def run(args: argparse.Namespace):
+  """Trains (and exports) as the flags say; returns the trainer."""
   import hybridbackend_tpu_torch as hbt
+  if args.cached:
+    args.sparse = True
   if not args.data:
     args.data = os.path.join(tempfile.gettempdir(), 'criteo_sample.parquet')
     args.synthesize = not os.path.exists(args.data)
@@ -238,7 +285,15 @@ def main(argv: Optional[List[str]] = None) -> int:
       res = trainer.evaluate(batches(args, False))
       print(f'epoch {epoch}: loss={m["loss"]:.4f}, auc={res["auc"]:.4f}, '
             f'{dt:.1f}s, step {trainer.global_step}')
-    return 0
+    if args.export:
+      example = next(batches(args, False))
+      path = trainer.export_saved_model(
+          args.export, example,
+          table_dtype='int8' if args.export_int8 else 'float32',
+          poly_batch=args.export_poly)
+      print(f'exported serving bundle → {path}'
+            + (' (int8 tables)' if args.export_int8 else ''))
+    return trainer
 
   trainer = dense_trainer(args, device)
   hooks = [hbt.StepStatHook(batch_size=args.batch_size, every_n_steps=50,
@@ -248,7 +303,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     trainer.train(batches(args, True), max_steps=args.steps, hooks=hooks)
     results = trainer.evaluate(batches(args, False))
     print(f'epoch {epoch}: {results}')
-  return 0
+  return trainer
 
 
 if __name__ == '__main__':

@@ -18,7 +18,8 @@ from torch import nn
 from hybridbackend_tpu_torch.embedding.lookup import (
     Table, lookup, lookup_sparse)
 from hybridbackend_tpu_torch.embedding.stack import (
-    build_stacks, create_stacked_tables, pack_ids, unpack_embeddings)
+    TableStack, build_stacks, create_stacked_tables, pack_ids,
+    unpack_embeddings)
 from hybridbackend_tpu_torch.embedding.table import TableConfig, create_table
 from hybridbackend_tpu_torch.framework.context import Context
 
@@ -97,6 +98,12 @@ class StackedFeatureExtractor:
     self.dense_columns = list(dense_columns)
     self.ctx = ctx
     self.stacks = build_stacks([s.config for s in self.specs])
+    self._stack_of = {cfg.name: stack for stack in self.stacks
+                      for cfg in stack.configs}
+
+  def stack_of(self, name: str) -> TableStack:
+    """The stack that holds the member table ``name``."""
+    return self._stack_of[name]
 
   def init(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """One physical table per stack, on the context's device."""

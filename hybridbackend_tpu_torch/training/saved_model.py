@@ -19,10 +19,12 @@ Layout of ``<path>``:
 * ``signature.json``: the JAX package's schema, ``inputs`` (each
   column's shape, ``'b'`` for the batch dimension under ``poly_batch``,
   and numpy dtype), ``poly_batch``, ``ragged`` (columns served as padded
-  ids plus ``<col>_mask``) and ``id_mapped``.
-
-Not ported: bundling ``id_mappers`` (ROADMAP queue 1 item 16, with
-``IdMapper``).
+  ids plus ``<col>_mask``) and ``id_mapped`` (the columns of the bundled
+  id mappers).
+* ``id_mappers.npz`` and ``id_mappers.json``, with ``id_mappers``: each
+  ``IdMapper``'s ``state_dict`` under ``<column>/<key>``, and its
+  ``capacity`` and ``min_count``, the JAX package's keys. ``Served`` maps
+  those columns' raw ids to rows with them, read-only, before the call.
 """
 
 from __future__ import annotations
@@ -85,11 +87,10 @@ def export(serving_fn: Callable[[Any, Batch], torch.Tensor], params: Any,
   tensors; every column the function reads must be there (a label
   too, if the function computes a loss). ``poly_batch=True`` makes
   dimension 0 of every batch input one symbolic size (``torch.export.
-  Dim``), so one bundle serves any batch size."""
-  if id_mappers:
-    raise NotImplementedError(
-        'bundling id_mappers needs IdMapper, not ported yet (ROADMAP queue '
-        '1 item 16)')
+  Dim``), so one bundle serves any batch size. ``id_mappers`` (``{column:
+  IdMapper}``) are saved beside the graph; ``example_batch`` then holds
+  those columns' rows (what the function reads), and ``Served`` maps raw
+  ids to them."""
   os.makedirs(path, exist_ok=True)
   leaves, treespec = pytree.tree_flatten(params)
   # A copy of exactly the leaf's rows: a view would save its whole base.
@@ -111,6 +112,16 @@ def export(serving_fn: Callable[[Any, Batch], torch.Tensor], params: Any,
   program.example_inputs = None
   torch.export.save(program, os.path.join(path, 'serving_fn.pt2'))
   torch.save(leaves, os.path.join(path, 'params.pt'))
+  if id_mappers:
+    blobs, meta = {}, {}
+    for col, mapper in id_mappers.items():
+      for k, v in mapper.state_dict().items():
+        blobs[f'{col}/{k}'] = np.asarray(v)
+      meta[col] = {'capacity': mapper.capacity,
+                   'min_count': mapper.min_count}
+    np.savez(os.path.join(path, 'id_mappers.npz'), **blobs)
+    with open(os.path.join(path, 'id_mappers.json'), 'w') as f:
+      json.dump(meta, f)
   keys = set(host_batch)
   signature = {
       'inputs': {k: {'shape': (['b'] + list(v.shape[1:])
@@ -120,7 +131,7 @@ def export(serving_fn: Callable[[Any, Batch], torch.Tensor], params: Any,
       'poly_batch': bool(poly_batch),
       'ragged': sorted(k for k in keys
                        if not k.endswith('_mask') and f'{k}_mask' in keys),
-      'id_mapped': [],
+      'id_mapped': sorted(id_mappers) if id_mappers else [],
   }
   with open(os.path.join(path, 'signature.json'), 'w') as f:
     json.dump(signature, f, indent=2)
@@ -136,22 +147,46 @@ def load(path: str, device='cuda'):
   return program.module(), params
 
 
+def load_id_mappers(path: str) -> Dict[str, Any]:
+  """The bundle's id mappers, ``{column: IdMapper}`` (none when it has
+  none)."""
+  from hybridbackend_tpu_torch.embedding.dynamic import IdMapper
+  meta_path = os.path.join(path, 'id_mappers.json')
+  if not os.path.exists(meta_path):
+    return {}
+  with open(meta_path) as f:
+    meta = json.load(f)
+  with np.load(os.path.join(path, 'id_mappers.npz')) as blobs:
+    return {col: IdMapper.from_state_dict(
+        m['capacity'], {k.split('/', 1)[1]: blobs[k] for k in blobs.files
+                        if k.startswith(col + '/')},
+        min_count=m['min_count'])
+            for col, m in meta.items()}
+
+
 class Served:
   """A loaded bundle, ready to serve host batches on ``device`` (the card
   unless the caller asks for the CPU). The parameters are placed once,
-  here."""
+  here. Bundled id mappers (in the native map) translate their columns'
+  raw ids to table rows in :meth:`stage`, the serving half of
+  ``DynamicEmbedding.transform``."""
 
   def __init__(self, path: str, device='cuda'):
     self.device = torch.device(device)
     self._call, self._params = load(path, self.device)
     with open(os.path.join(path, 'signature.json')) as f:
       self.signature = json.load(f)
+    self.id_mappers = load_id_mappers(path)
 
   def stage(self, batch: Dict[str, Any]) -> Batch:
-    """The signature's columns of a host batch, cast to their dtypes and
-    placed on the device: the input half of :meth:`predict`. A server
-    that keeps request buffers on the device stages once and calls
+    """The signature's columns of a host batch, raw ids mapped by the
+    bundled id mappers (read-only), cast to their dtypes and placed on
+    the device: the input half of :meth:`predict`. A server that keeps
+    request buffers on the device stages once and calls
     :meth:`predict_staged` per dispatch."""
+    batch = dict(batch)
+    for col, mapper in self.id_mappers.items():
+      batch[col] = mapper.map_ids(_host(batch[col]), train=False)
     return {k: torch.from_numpy(np.ascontiguousarray(
         _host(batch[k]).astype(spec['dtype']))).to(self.device)
             for k, spec in self.signature['inputs'].items()}
@@ -166,4 +201,4 @@ class Served:
     return self.predict_staged(self.stage(batch)).cpu().numpy()
 
 
-__all__ = ['Served', 'export', 'load']
+__all__ = ['Served', 'export', 'load', 'load_id_mappers']

@@ -30,6 +30,12 @@ own stream, the consumer's stream waiting on them) is held bit for bit
 against the source batches while the consumer's stream is kept busy; so
 are the native Parquet reader's zero-copy batches, through
 ``DeviceIterator`` and ``put_batch``.
+
+Host-backed tables: the same cache plans applied in place on the card
+(evictions through kernel 5, uploads by ``index_copy_``, at a row offset
+inside a stacked table) and on the CPU give the same host and device
+rows bit for bit; a cached ``SparseTrainer`` on the card gives the CPU
+trainer's flushed host tables to ``rtol = atol = 1e-5``.
 """
 
 import numpy as np
@@ -960,3 +966,72 @@ def test_adagrad_kernel_at_the_din_update_list(dev, sessions):
   touched[rows[rows >= 0].long()] = True
   assert torch.equal(tk[~touched], table[~touched])
   assert torch.equal(ak[~touched], acc[~touched])
+
+
+def _host_cache(device, vocab=3000, capacity=96):
+  rng = np.random.RandomState(0)
+  host = {'value': rng.rand(vocab, 16).astype(np.float32),
+          'slot0': np.full((vocab, 16), 0.1, np.float32)}
+  return hbt.EmbeddingCache(hbt.TableConfig('c0', vocab, 16), capacity,
+                            host_tables=host, ctx=hbt.Context(device)), host
+
+
+def test_cache_apply_on_the_card_matches_the_cpu(dev):
+  card, card_host = _host_cache(dev)
+  cpu, cpu_host = _host_cache(torch.device('cpu'))
+  arrays = {'value': torch.zeros(200, 16, device=dev),
+            'slot0': torch.zeros(200, 16, device=dev)}
+  mirror = {k: v.cpu() for k, v in arrays.items()}
+  rng = np.random.RandomState(1)
+  before = hbt.gather_rows.launches
+  for step in range(10):
+    ids = rng.randint(step * 50, step * 50 + 80, 256)
+    plan, plan_cpu = card.prepare_plan(ids), cpu.prepare_plan(ids)
+    np.testing.assert_array_equal(plan.slots, plan_cpu.slots)
+    card.apply_plan(arrays, plan, row_offset=100)
+    cpu.apply_plan(mirror, plan_cpu, row_offset=100)
+    for k in arrays:                  # a step's update of the rows
+      arrays[k][100:] += 0.5
+      mirror[k][100:] += 0.5
+  assert hbt.gather_rows.launches - before == 2 * card.stats['evict_calls']
+  assert card.stats['evict_calls'] > 0
+  card.flush(arrays, row_offset=100)
+  cpu.flush(mirror, row_offset=100)
+  for k in arrays:
+    assert torch.equal(arrays[k].cpu(), mirror[k])
+    np.testing.assert_array_equal(card_host[k], cpu_host[k])
+
+
+def test_cached_trainer_on_the_card_matches_the_cpu(dev):
+  from hybridbackend_tpu_torch.benchmarks import synthetic
+  batches = synthetic.criteo_batches(256, 6, 3000, tables=2,
+                                     dense_features=2, seed=4)
+  hosts = []
+  for device in (dev, torch.device('cpu')):
+    cache, host = _host_cache(device, capacity=256)
+    ctx = hbt.Context(device)
+    fx = hbt.StackedFeatureExtractor(
+        [hbt.EmbeddingSpec(cache.slot_config(), column='c0'),
+         hbt.EmbeddingSpec(hbt.TableConfig('c1', 3000, 16))],
+        dense_columns=['i0', 'i1'], ctx=ctx)
+    gen = torch.Generator().manual_seed(0)
+    tables = fx.init(gen)
+    tower = hbt.StackedDCNv2([16, 16, 1, 1], [32, 1], generator=gen,
+                             device=device)
+
+    def loss(t, e, d, b):
+      p = torch.clamp(t(e + d), 1e-6, 1 - 1e-6)
+      y = b['label']
+      return -torch.mean(y * torch.log(p) + (1 - y) * torch.log(1 - p)), {
+          'preds': p}
+
+    tr = hbt.SparseTrainer(fx, loss, tower, tables=tables,
+                           caches={'c0': cache})
+    before = hbt.adagrad_update_sorted.launches
+    tr.train(iter(batches), prefetch=device.type == 'cuda')
+    tr._cache_runner.flush(tr.state)
+    if device.type == 'cuda':
+      assert hbt.adagrad_update_sorted.launches - before == len(batches)
+    hosts.append(host)
+  for k in hosts[0]:
+    np.testing.assert_allclose(hosts[0][k], hosts[1][k], **TOL)

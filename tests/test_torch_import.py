@@ -25,11 +25,14 @@ def test_import_leaves_jax_out():
       import hybridbackend_tpu_torch.data.rebatch
       import hybridbackend_tpu_torch.data.sync
       import hybridbackend_tpu_torch.data.validate
+      import hybridbackend_tpu_torch.embedding.dynamic
       import hybridbackend_tpu_torch.embedding.quant
+      import hybridbackend_tpu_torch.embedding.service
       import hybridbackend_tpu_torch.estimator
       import hybridbackend_tpu_torch.examples.criteo.train
       import hybridbackend_tpu_torch.examples.taobao.train_din
       import hybridbackend_tpu_torch.metrics
+      import hybridbackend_tpu_torch.native.idmap
       import hybridbackend_tpu_torch.native.tabular
       import hybridbackend_tpu_torch.training.checkpoint
       import hybridbackend_tpu_torch.training.hooks
@@ -56,3 +59,14 @@ def test_cpu_wrapper_does_not_count_a_launch():
   assert hbt.adagrad_update_sorted.launches == before
   assert bool((acc[1] > 0.1).all())               # updated by the plain path
   assert torch.equal(acc[0], torch.full((4,), 0.1))  # untouched row
+
+
+def test_import_builds_no_native_library():
+  code = textwrap.dedent("""
+      import hybridbackend_tpu_torch
+      from hybridbackend_tpu_torch.native import idmap, tabular
+      print(idmap._LOADED, tabular._LOADED)
+  """)
+  out = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                       text=True, check=True, timeout=120)
+  assert out.stdout.strip() == '{} {}', out.stdout

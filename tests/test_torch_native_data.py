@@ -293,9 +293,7 @@ def test_criteo_entry_point_reads_through_the_python_reader_on_request(
 
 
 @pytest.mark.parametrize('flag,item', [
-    (['--export', 'x'], 13), (['--export-poly'], 13), (['--export-int8'], 13),
-    (['--cached', '100'], 16), (['--lookup', 'alltoall'], 15),
-    (['--cpu', '4'], 15)])
+    (['--lookup', 'alltoall'], 15), (['--cpu', '4'], 15)])
 def test_criteo_refuses_what_is_not_ported(capsys, flag, item):
   assert criteo.main(['--device', 'cpu', *flag]) == 1
   assert f'item {item}' in capsys.readouterr().err

@@ -209,9 +209,29 @@ def test_a_cold_process_serves_without_jax(sparse, tmp_path):
 
 
 def test_id_mappers_are_not_ported(sparse, tmp_path):
-  with pytest.raises(NotImplementedError, match='item 16'):
-    sparse['trainer'].export_saved_model(str(tmp_path / 'x'), _batch(8, 0),
-                                         id_mappers={'c0': object()})
+  """Named when the port refused ``id_mappers``; it now bundles them in
+  the JAX package's files: ``id_mappers.npz`` holds the JAX ``IdMapper``'s
+  ``state_dict`` on the same ids under ``<column>/<key>``, and
+  ``id_mappers.json`` its capacity and ``min_count``."""
+  from hybridbackend_tpu.embedding.dynamic import IdMapper as JIdMapper
+  ids = np.random.RandomState(3).randint(0, 10**12, 300).astype(np.int64)
+  mapper, jmapper = hbt.IdMapper(500, min_count=2), JIdMapper(500, 2)
+  mapper.map_ids(ids)
+  jmapper.map_ids(ids)
+  path = sparse['trainer'].export_saved_model(
+      str(tmp_path / 'x'), _batch(8, 0), id_mappers={'c0': mapper})
+  with np.load(os.path.join(path, 'id_mappers.npz')) as blobs:
+    want = {f'c0/{k}': v for k, v in jmapper.state_dict().items()}
+    assert set(blobs.files) == set(want)
+    for k, v in want.items():
+      np.testing.assert_array_equal(blobs[k], v)
+  with open(os.path.join(path, 'id_mappers.json')) as f:
+    assert json.load(f) == {'c0': {'capacity': 500, 'min_count': 2}}
+  served = hbt.Served(path, 'cpu')
+  assert served.signature['id_mapped'] == ['c0']
+  np.testing.assert_array_equal(
+      served.id_mappers['c0'].map_ids(ids, train=False),
+      jmapper.map_ids(ids, train=False))
 
 
 def test_served_needs_a_card_at_its_default(sparse, monkeypatch):

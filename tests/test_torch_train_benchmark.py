@@ -19,7 +19,7 @@ from hybridbackend_tpu_torch.benchmarks import synthetic
 from hybridbackend_tpu_torch.benchmarks import train_benchmark as tb
 
 SHAPE = ['--device', 'cpu', '--tables', '2', '--vocab', '1000', '--batch',
-         '64', '--dense-features', '3', '--steps', '3', '--repeats', '2',
+         '64', '--dense-features', '3', '--inner-steps', '3', '--repeats', '2',
          '--json']
 TINY = ['--sparse'] + SHAPE
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
