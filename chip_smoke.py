@@ -178,9 +178,35 @@ Phases; any failure raises and the script exits nonzero:
      bundles of phases 27 and 28 served by one cold process on the card
      (kernel 5 once a member lookup, twice in int8), f32 within 1e-6 of
      each trainer's predictions, int8 within 2e-2.
+ 29. micro-batch gradient accumulation on the dense ``Trainer``'s flagship
+     model (26 unstacked [100000, 16] tables, DCNv2, ``multi_optimizer``):
+     ``accumulate_gradients`` over 4 micro-batches against the whole
+     batch's gradients on the card (``rtol 1e-4, atol 1e-6``); 3 steps of
+     ``make_pipelined_train_step`` (4 micro-batches) on the card against
+     the CPU, each from the initial weights, at phase 18's tolerances;
+     ms/step at 1, 2 and 4 micro-batches against ``make_train_step``, in
+     turns; no counted kernel;
+ 30. the PICASSO interleaved sparse step (``make_interleaved_train_step``,
+     the lookups on a side stream) at the flagship, DCNv2 + Adagrad and
+     DLRM + LazyAdam: 3 steps of 4 micro-batches on the card against the
+     CPU, each from the initial weights (phase 2's and phase 5's
+     tolerances, the tower by phase 18's rule too), and 3 consecutive
+     steps against the plain step on the card, each from its state (the
+     JAX test's limits); kernel 1 (or 3) once a step at 1, 2
+     and 4 micro-batches; DCNv2's ms/step against the plain step in
+     turns; then the harness, ``--sparse`` and ``--sparse --interleave
+     1|2|4``, in turn in one process of its own, JSON lines printed;
+ 31. the single-device harnesses at their defaults, each in its own
+     process, JSON lines printed: ``auc_parity.py`` (exit 0,
+     ``parity_ok.fast`` true; kernel 1 once a ``fast`` step),
+     ``data_benchmark.py`` in its four modes (parquet, csv, dedup, the
+     host-to-device transfer from pageable and pinned memory) and
+     ``e2e_benchmark.py --profile`` (the stages' medians).
 With ``--profile`` it then traces 10 steps of each timed variant and of
 the DIN harness's ``--sparse`` step with and without sessions with
-``torch.profiler`` and prints device time per step by kernel class. With
+``torch.profiler`` and prints device time per step by kernel class; in
+phase 30 it traces the plain and interleaved DCNv2 steps too, with the
+kernel time on each CUDA stream and the time two streams ran at once. With
 ``--tune`` phase 1 also times the add kernel over tile sizes, the
 dense-totals kernel over block and chunk sizes, and the Adagrad (both
 modes) and LazyAdam kernels over tile sizes and state batches (the rows
@@ -189,8 +215,8 @@ gradients); each sweep forth and back.
 The run's wall time is printed before the last two lines. The
 second-to-last line is a JSON object describing each kernel (its times,
 launches on its path, in the trainers' runs, in the runs from Parquet
-files, in the served predicts, in the DIN phases and in the host-table
-phases, and its bound: the
+files, in the served predicts, in the DIN phases, in the host-table
+phases and in the pipelining phases, and its bound: the
 larger of its bytes over 3.35 TB/s and its operations over the card's
 peak rate); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -374,18 +400,37 @@ def _run(cmd):
                         timeout=120).stdout.strip()
 
 
-def _module_json(module, *flags):
+def _module_json(module, *flags, timeout=600):
   """Runs ``python -m hybridbackend_tpu_torch.benchmarks.<module> --json
   flags`` in a process of its own; returns its last line, a JSON object,
   and that object."""
   cmd = [sys.executable, '-m', f'hybridbackend_tpu_torch.benchmarks.{module}',
          '--json', *flags]
   out = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                       timeout=600)
+                       timeout=timeout)
   if out.returncode != 0:
     raise RuntimeError(f'{" ".join(cmd[1:])} failed:\n{out.stderr}')
   line = out.stdout.strip().splitlines()[-1]
   return line, json.loads(line)
+
+
+def _module_jsons(module, flag_sets, timeout=600):
+  """``hybridbackend_tpu_torch.benchmarks.<module>``'s ``main(['--json',
+  *flags])`` for each of ``flag_sets`` in turn, in one process of its own
+  (one start-up for all); returns each run's JSON line and object."""
+  code = ('import sys\n'
+          f'from hybridbackend_tpu_torch.benchmarks import {module} as m\n'
+          f'for flags in {[list(f) for f in flag_sets]!r}:\n'
+          "  if m.main(['--json', *flags]):\n"
+          '    sys.exit(1)\n')
+  out = subprocess.run([sys.executable, '-c', code], cwd=HERE,
+                       capture_output=True, text=True, timeout=timeout)
+  if out.returncode != 0:
+    raise RuntimeError(f'{module} {flag_sets} failed:\n{out.stderr}')
+  lines = [l for l in out.stdout.splitlines() if l.startswith('{')]
+  if len(lines) != len(flag_sets):
+    raise RuntimeError(f'{module} {flag_sets} printed {out.stdout}')
+  return [(line, json.loads(line)) for line in lines]
 
 
 def phase0_environment():
@@ -1379,10 +1424,43 @@ def timed(cfg: argparse.Namespace, dev: torch.device, label: str, state,
   return state, counts[kernel]
 
 
-def profile(label: str, state, step, batch, steps=10):
+def _stream_overlap(prof, steps):
+  """From the trace's kernel events: the kernel time a step on each CUDA
+  stream, and the time a step during which kernels of two or more
+  streams ran at once."""
+  with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, 'trace.json')
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+      events = json.load(f)['traceEvents']
+  spans = collections.defaultdict(list)
+  for e in events:
+    if e.get('cat') == 'kernel' and 'dur' in e:
+      spans[e.get('args', {}).get('stream')].append(
+          (e['ts'], e['ts'] + e['dur']))
+  edges, busy = [], {}
+  for stream, iv in spans.items():
+    merged = []
+    for a, b in sorted(iv):
+      if merged and a <= merged[-1][1]:
+        merged[-1][1] = max(merged[-1][1], b)
+      else:
+        merged.append([a, b])
+    busy[stream] = sum(b - a for a, b in merged) / 1e3 / steps
+    edges += [(a, 1) for a, _ in merged] + [(b, -1) for _, b in merged]
+  active, last, both = 0, 0.0, 0.0
+  for t, d in sorted(edges):
+    if active >= 2:
+      both += t - last
+    active, last = active + d, t
+  return busy, both / 1e3 / steps
+
+
+def profile(label: str, state, step, batch, steps=10, overlap=False):
   """Device time per step by kernel class over ``steps`` traced steps,
   step ``i`` on ``batch(100 + i)``, and the device's busy share of the
-  traced span."""
+  traced span; with ``overlap`` also the kernel time a step on each CUDA
+  stream and the time in which two streams ran kernels at once."""
   from torch.profiler import ProfilerActivity, profile as tprofile
   torch.cuda.synchronize()
   with tprofile(activities=[ProfilerActivity.CPU,
@@ -1422,6 +1500,11 @@ def profile(label: str, state, step, batch, steps=10):
   for key, ms in classes.most_common():
     print(f'  {ms:.4f} ms/step ({100 * ms / device_ms:.1f}%), '
           f'{counts[key]:.1f} ops/step: {key}')
+  if overlap:
+    busy, both = _stream_overlap(prof, steps)
+    print(f'  kernels by CUDA stream, ms/step: '
+          + ', '.join(f'stream {s} {ms:.4f}' for s, ms in busy.items())
+          + f'; two streams at once {both:.4f} ms/step')
 
 
 def harness(smi):
@@ -1821,31 +1904,34 @@ def _hold_tower(label, g_net, c_net, g_opt, c_opt, before, v_before, adam,
                           float(g[apart].abs().max()) / largest)
 
 
-def phase18_dense_trainer(cfg, dev, smi, batches, evals):
-  """Phase 18: the dense-gradient ``Trainer`` at the flagship width (26
-  tables of [100000, 16], one per column; ``multi_optimizer`` with the
-  optax-equivalent Adagrad 0.05 on the tables and Adam 1e-3 on the
-  tower, as the JAX harness sets it up): 3 steps on the card, each held
-  against the same step on the CPU from the same state (the CPU trainer
-  takes the card's state before each), then 33 timed steps and one
-  evaluation. No counted kernel runs on this path. Returns the kernel
-  launches of its runs."""
-  import hybridbackend_tpu_torch as hbt
-  cpu = torch.device('cpu')
-  args = argparse.Namespace(**{**vars(cfg), 'sparse': False})
-  g_trainer, c_trainer = (
-      hbt.Trainer(*tb.dense_parts(args, d), ctx=hbt.Context(d))
-      for d in (dev, cpu))
-  # Each step from one state: before it the CPU trainer takes the card's
-  # state, so that every comparison is of one step, as in phase 2.
+def _cloned(tree):
+  """``tree`` (dicts, lists, tuples) with every tensor cloned."""
+  if isinstance(tree, dict):
+    return {k: _cloned(v) for k, v in tree.items()}
+  if isinstance(tree, (list, tuple)):
+    return type(tree)(_cloned(v) for v in tree)
+  return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _hold_dense_steps(label, g_trainer, c_trainer, batches,
+                      from_start=False):
+  """One ``train`` step of the dense trainers on the card (``g_trainer``)
+  and on the CPU (``c_trainer``) for each of ``batches``, each from one
+  state: before it the CPU trainer takes the card's state, so that every
+  comparison is of one step, as in phase 2; with ``from_start`` the card
+  trainer first goes back to its state before the first step (see
+  ``PIPE_STEPS``). Holds the loss, the tables, their accumulators and
+  the tower (``_hold_tower``); returns the report and the tower weights
+  apart."""
   report = {'loss_rel_err': 0.0, 'table_max_abs_err': 0.0,
             'acc_max_abs_err': 0.0, **_tower_report()}
   apart_in = set()
   group = c_trainer.state.optimizer.dense_opt.param_groups[0]
   lr, (b1, b2), eps = group['lr'], group['betas'], group['eps']
-  launches = collections.Counter()
-  _reset_counts()
-  for i in range(DENSE_STEPS):
+  start = _cloned(g_trainer._checkpoint_state()) if from_start else None
+  for i in range(len(batches)):
+    if from_start:
+      g_trainer._load_checkpoint_state(start)
     c_trainer._load_checkpoint_state(g_trainer._checkpoint_state())
     g_state, c_state = g_trainer.state, c_trainer.state
     g_net, c_net = g_state.params['net'], c_state.params['net']
@@ -1859,7 +1945,7 @@ def phase18_dense_trainer(cfg, dev, smi, batches, evals):
     report['loss_rel_err'] = max(report['loss_rel_err'],
                                  abs(gl - cl) / abs(cl))
     if not abs(gl - cl) <= 1e-4 * abs(cl):
-      raise AssertionError(f'phase 18, step {i + 1}: loss {gl} on the GPU, '
+      raise AssertionError(f'{label}, step {i + 1}: loss {gl} on the GPU, '
                            f'{cl} on the CPU')
     # Tables and accumulators: a table row's gradient is a sum over the
     # batch's occurrences of its id, in atomic order on the card
@@ -1877,16 +1963,38 @@ def phase18_dense_trainer(cfg, dev, smi, batches, evals):
         err = float((x - y).abs().max())
         report[f'{key}_max_abs_err'] = max(report[f'{key}_max_abs_err'], err)
         if not torch.allclose(x, y, rtol=1e-5, atol=1e-5):
-          raise AssertionError(f'phase 18, step {i + 1}: {key} of {name} '
+          raise AssertionError(f'{label}, step {i + 1}: {key} of {name} '
                                f'differs by up to {err}')
-    _hold_tower(f'phase 18, step {i + 1}', g_net, c_net,
+    _hold_tower(f'{label}, step {i + 1}', g_net, c_net,
                 g_state.optimizer.state, c_state.optimizer.state, before,
                 v_before, (lr, b1, b2, eps), report, apart_in)
+  return report, apart_in
+
+
+def phase18_dense_trainer(cfg, dev, smi, batches, evals):
+  """Phase 18: the dense-gradient ``Trainer`` at the flagship width (26
+  tables of [100000, 16], one per column; ``multi_optimizer`` with the
+  optax-equivalent Adagrad 0.05 on the tables and Adam 1e-3 on the
+  tower, as the JAX harness sets it up): 3 steps on the card, each held
+  against the same step on the CPU from the same state (the CPU trainer
+  takes the card's state before each), then 33 timed steps and one
+  evaluation. No counted kernel runs on this path. Returns the kernel
+  launches of its runs."""
+  import hybridbackend_tpu_torch as hbt
+  cpu = torch.device('cpu')
+  args = argparse.Namespace(**{**vars(cfg), 'sparse': False})
+  g_trainer, c_trainer = (
+      hbt.Trainer(*tb.dense_parts(args, d), ctx=hbt.Context(d))
+      for d in (dev, cpu))
+  launches = collections.Counter()
+  _reset_counts()
+  report, apart_in = _hold_dense_steps('phase 18', g_trainer, c_trainer,
+                                       batches[:DENSE_STEPS])
   torch.cuda.synchronize(dev)
   counts = _counts()
   _expect(f'phase 18, Trainer.train of {DENSE_STEPS} steps', counts)
   launches.update(counts)
-  del c_trainer, c_state, c_tables, c_net
+  del c_trainer
   # Timed steps, then one evaluation.
   reports = []
   hook = hbt.StepStatHook(batch_size=cfg.batch, every_n_steps=0,
@@ -2048,6 +2156,88 @@ def _file_train_ms(trainer, dataset, dev, prefetch):
   return (time.perf_counter() - t0) * 1e3 / FILE_STEPS
 
 
+def _hold_sparse_steps(label, g_tr, c_tr, batches, dev,
+                       optimizer='adagrad', from_start=False):
+  """One step of the sparse trainers' ``_step_fn`` on the card (``g_tr``)
+  and on the CPU (``c_tr``) for each of the host ``batches``, each from
+  one state: before it the CPU trainer takes the card's state. Holds the
+  loss (1e-4 relative), the tables and slots at phase 2's (Adagrad) or
+  phase 5's (LazyAdam) tolerances, and the tower by phase 18's rule
+  (``_hold_tower``) with every weight within phase 2's 1e-4 (+ 1e-4 of
+  itself). With ``from_start`` the card trainer first goes back to its
+  state before the first step (see ``PIPE_STEPS``), and a weight may lie
+  further apart where its gradient is within its allowance of zero on
+  both devices, so that Adam's step may take either sign, by up to 2.2 *
+  lr: phase 2's rule for bf16, which f32 meets on other batches than
+  phase 2's (2 weights of ``net.cross.w`` 1.6e-4 apart, their gradients
+  1.3e-6 of the largest, at ids moved by one in a chip run). Returns the
+  report and the tower weights apart."""
+  import hybridbackend_tpu_torch as hbt
+  cpu = torch.device('cpu')
+  report = {'loss_rel_err': 0.0, 'table_max_abs_err': 0.0,
+            **({'acc_max_abs_err': 0.0} if optimizer == 'adagrad' else
+               {'m_max_abs_err': 0.0, 'v_max_abs_err': 0.0}),
+            **_tower_report()}
+  apart_in = set()
+  group = c_tr.state.dense_opt.param_groups[0]
+  adam = (group['lr'], *group['betas'], group['eps'])
+  slots = ('acc',) if optimizer == 'adagrad' else ('m', 'v')
+  start = _cloned(g_tr._checkpoint_state()) if from_start else None
+  for i, b in enumerate(batches):
+    step_label = f'{label} {i + 1}'
+    if from_start:
+      g_tr._load_checkpoint_state(start)
+    c_tr._load_checkpoint_state(g_tr._checkpoint_state())
+    c_opt = c_tr.state.dense_opt.state
+    before = [(p.detach().clone(), c_opt[p]['exp_avg'].clone())
+              for p in c_tr.state.dense.parameters()]
+    v_before = [c_opt[p]['exp_avg_sq'].clone()
+                for p in c_tr.state.dense.parameters()]
+    g_tr.state, gm = g_tr._step_fn(g_tr.state, hbt.put_batch(b, dev))
+    c_tr.state, cm = c_tr._step_fn(c_tr.state, hbt.put_batch(b, cpu))
+    gl, cl = float(gm['loss']), float(cm['loss'])
+    report['loss_rel_err'] = max(report['loss_rel_err'],
+                                 abs(gl - cl) / abs(cl))
+    if not abs(gl - cl) <= 1e-4 * abs(cl):
+      raise AssertionError(f'{step_label}: loss {gl} on the GPU, {cl} on '
+                           'the CPU')
+    for name, table in c_tr.state.tables.items():
+      pairs = [('table', g_tr.state.tables[name], table)] + [
+          (key, g, c) for key, g, c in zip(
+              slots, g_tr.state.table_opt[name].acc,
+              c_tr.state.table_opt[name].acc)]
+      for key, x, y in pairs:
+        x = x.cpu()
+        err = float((x - y).abs().max())
+        report[f'{key}_max_abs_err'] = max(report[f'{key}_max_abs_err'], err)
+        if optimizer == 'adagrad':
+          # Adagrad moves an element by 0.05 * g / sqrt(0.1 + g**2), so
+          # the gradients' order error stays far below 1e-5 (phase 2).
+          ok = torch.allclose(x, y, rtol=1e-5, atol=1e-5)
+        elif key == 'table':
+          # LazyAdam moves an element by lr*s/(|s|+eps): a total s near
+          # zero turns an order difference ds into up to 5e6*ds (phase 5).
+          ok = torch.allclose(x, y, rtol=0, atol=1e-3)
+        else:
+          ok = _close(x, y, rtol=1e-3, atol_of_max=1e-4)
+        if not ok:
+          raise AssertionError(f'{step_label}: {key} of {name} differs by '
+                               f'up to {err}')
+    _hold_tower(step_label, g_tr.state.dense, c_tr.state.dense,
+                g_tr.state.dense_opt.state, c_opt, before, v_before, adam,
+                report, apart_in)
+    # And every weight within phase 2's 1e-4 (+ 1e-4 of itself), or with
+    # from_start where Adam's step may take either sign.
+    either_sign = (max(report['their_largest_grad_of_max_card'],
+                       report['their_largest_grad_of_max_cpu']) <= 1e-3
+                   and report['tower_max_abs_err'] <= 2.2 * adam[0])
+    if report['tower_weights_over_1e-4_apart'] and not (
+        from_start and either_sign):
+      raise AssertionError(f'{step_label}: tower weights over 1e-4 apart: '
+                           f'{report} in {sorted(apart_in)}')
+  return report, apart_in
+
+
 def phase21_criteo(cfg, dev, smi, arrow, tmp):
   """Phase 21: the port's Criteo entry point as a user runs it,
   ``examples/criteo/train.py --sparse --synthesize`` at its defaults (26
@@ -2141,54 +2331,15 @@ def phase21_criteo(cfg, dev, smi, arrow, tmp):
   g_tr, c_tr = (criteo.sparse_trainer(args, d) for d in (dev, cpu))
   first = list(hbt.ParquetDataset(data, batch_size=batch,
                                   drop_remainder=True).take(CRITEO_CHECKED))
-  report = {'loss_rel_err': 0.0, 'table_max_abs_err': 0.0,
-            'acc_max_abs_err': 0.0, **_tower_report()}
-  apart_in = set()
-  group = c_tr.state.dense_opt.param_groups[0]
-  adam = (group['lr'], *group['betas'], group['eps'])
   _reset_counts()
-  for i, b in enumerate(first):
-    label = f'phase 21, file step {i + 1}'
-    c_tr._load_checkpoint_state(g_tr._checkpoint_state())
-    c_opt = c_tr.state.dense_opt.state
-    before = [(p.detach().clone(), c_opt[p]['exp_avg'].clone())
-              for p in c_tr.state.dense.parameters()]
-    v_before = [c_opt[p]['exp_avg_sq'].clone()
-                for p in c_tr.state.dense.parameters()]
-    g_tr.state, gm = g_tr._step_fn(g_tr.state, hbt.put_batch(b, dev))
-    c_tr.state, cm = c_tr._step_fn(c_tr.state, hbt.put_batch(b, cpu))
-    gl, cl = float(gm['loss']), float(cm['loss'])
-    report['loss_rel_err'] = max(report['loss_rel_err'],
-                                 abs(gl - cl) / abs(cl))
-    if not abs(gl - cl) <= 1e-4 * abs(cl):
-      raise AssertionError(f'{label}: loss {gl} on the GPU, {cl} on the CPU')
-    # Tables and accumulators as phase 2 holds them: Adagrad moves an
-    # element by 0.05 * g / sqrt(0.1 + g**2), so the gradients' order
-    # error stays far below 1e-5.
-    for name, table in c_tr.state.tables.items():
-      pairs = (('table', g_tr.state.tables[name], table),
-               ('acc', g_tr.state.table_opt[name].acc[0],
-                c_tr.state.table_opt[name].acc[0]))
-      for key, x, y in pairs:
-        x = x.cpu()
-        err = float((x - y).abs().max())
-        report[f'{key}_max_abs_err'] = max(report[f'{key}_max_abs_err'], err)
-        if not torch.allclose(x, y, rtol=1e-5, atol=1e-5):
-          raise AssertionError(f'{label}: {key} of {name} differs by up to '
-                               f'{err}')
-    _hold_tower(label, g_tr.state.dense, c_tr.state.dense,
-                g_tr.state.dense_opt.state, c_opt, before, v_before, adam,
-                report, apart_in)
-    # And every weight within phase 2's 1e-4 (+ 1e-4 of itself).
-    if report['tower_weights_over_1e-4_apart']:
-      raise AssertionError(f'{label}: tower weights over 1e-4 apart: '
-                           f'{report} in {sorted(apart_in)}')
+  report, apart_in = _hold_sparse_steps('phase 21, file step', g_tr, c_tr,
+                                        first, dev)
   torch.cuda.synchronize(dev)
   counts = _counts()
   _expect(f'phase 21, {CRITEO_CHECKED} file steps', counts,
           adagrad_update_sorted=CRITEO_CHECKED)
   launches.update(counts)
-  del g_tr, c_tr, c_opt, before, v_before
+  del g_tr, c_tr
   print(f'  the entry point\'s trainer, the file\'s first {CRITEO_CHECKED} '
         'batches, GPU vs CPU: '
         + ', '.join(f'{k} {v:.3e}' if isinstance(v, float) else f'{k} {v}'
@@ -3417,6 +3568,406 @@ def serve_host_tables(smi, bundles, batch_dir, live):
   return launches
 
 
+PIPE_K = 4                 # phases 29-30's micro-batches held against the CPU
+PIPE_STEPS = 3             # and their steps, each from the initial weights
+# (phase 2's situation, on 3 batches). From trained weights a ReLU whose
+# input the devices round to either side of zero lets one example's term
+# into one device's gradient only, up to 1.05e-3 of a tensor's largest
+# gradient in the pipelined dense flagship (the plain step's gap reached
+# 6.3e-4 the same way), past phase 18's 1e-3; the LazyAdam table and
+# moments of that example's rows then differ past phase 5's rule, which
+# holds one step from fresh slots.
+PIPE_KS = (1, 2, 4)        # the micro-batch counts timed
+PIPE_ROUNDS, PIPE_WINDOW = 2, 10   # timed rounds of a window of steps each
+# One such term, in the card's interleaved against its plain step (cuBLAS
+# rounds a row in a micro-batch of 2048 and in the batch of 8192
+# differently: 2.9e-6 apart at step 3 in a chip run): a share of the
+# tensor's largest gradient.
+GATE_FLIP = 1e-3
+AUC_TIMEOUT = 1200         # phase 31's AUC-parity harness, seconds at most
+DATA_MODES = ('parquet', 'csv', 'dedup', 'transfer')
+
+
+def _timed_rounds(label, variants, batch, dev, kernel=None):
+  """The ``variants`` (``{name: (state, step)}``, each warmed up here)
+  timed in turn: ``PIPE_ROUNDS`` rounds of a window of ``PIPE_WINDOW``
+  steps each, the order reversed every other round, CUDA events between
+  steps. ``kernel`` must have been launched once a step, in the warmup
+  and in every window, and no other counted kernel. Returns ``({name:
+  [gap ms]}, the kernel launches)``."""
+  states = {}
+  launches = collections.Counter()
+  for name, (state, step) in variants.items():
+    _reset_counts()
+    states[name] = tb.time_steps(state, step, batch, 0, tb.WARMUP, dev).state
+    counts = _counts()
+    _expect(f'{label}, {name}, {tb.WARMUP} warmup steps', counts,
+            **({kernel: tb.WARMUP} if kernel else {}))
+    launches.update(counts)
+  gaps = {name: [] for name in variants}
+  first = tb.WARMUP
+  for r in range(PIPE_ROUNDS):
+    for name in (list(variants) if r % 2 == 0 else list(reversed(variants))):
+      _reset_counts()
+      w = tb.time_steps(states[name], variants[name][1], batch, first,
+                        PIPE_WINDOW, dev)
+      counts = _counts()
+      _expect(f'{label}, {name}, {PIPE_WINDOW} steps', counts,
+              **({kernel: PIPE_WINDOW} if kernel else {}))
+      launches.update(counts)
+      losses = torch.stack(w.losses)
+      if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f'{label}, {name}: non-finite loss')
+      states[name] = w.state
+      gaps[name] += w.gaps
+    first += PIPE_WINDOW
+  return gaps, launches
+
+
+def phase29_pipelined(cfg, dev, smi):
+  """Phase 29: micro-batch gradient accumulation on the dense ``Trainer``'s
+  flagship model (26 unstacked tables of [100000, 16], DCNv2, batch 8192,
+  ``multi_optimizer(Adagrad 0.05, Adam 1e-3)``):
+  ``accumulate_gradients`` over 4 micro-batches against the whole batch's
+  gradients on the card (``rtol 1e-4, atol 1e-6``, the JAX test's
+  limits); 3 steps of ``make_pipelined_train_step`` (4 micro-batches) on
+  the card against the same 3 on the CPU, each from the initial weights
+  (``PIPE_STEPS``), at phase 18's tolerances; then ms/step of the
+  pipelined step at 1, 2 and 4
+  micro-batches against ``make_train_step`` in alternating rounds. No
+  counted kernel runs on this path. Returns the kernel launches."""
+  import hybridbackend_tpu_torch as hbt
+  cpu = torch.device('cpu')
+  args = argparse.Namespace(**{**vars(cfg), 'sparse': False})
+  launches = collections.Counter()
+  _reset_counts()
+  loss_fn, module, _ = tb.dense_parts(args, dev)
+  batch = tb.shifted(*tb.make_batch(args, dev, tb.SEED + 1), args.vocab, 0)
+  loss, _ = loss_fn(module, batch)
+  module.zero_grad(set_to_none=True)
+  loss.backward()
+  loss = loss.detach()
+  full = {n: p.grad.clone() for n, p in module.named_parameters()}
+  (acc_loss, aux), grads = hbt.accumulate_gradients(loss_fn, PIPE_K)(
+      module, batch)
+  if not abs(float(acc_loss) - float(loss)) < 1e-5:
+    raise AssertionError(f'phase 29: accumulated loss {float(acc_loss)}, '
+                         f'whole batch {float(loss)}')
+  if grads.keys() != full.keys() or aux['preds'].shape != (args.batch,):
+    raise AssertionError('phase 29: accumulate_gradients gave gradients of '
+                         f'{sorted(grads)} and preds {aux["preds"].shape}')
+  worst = (0.0, None)
+  for n, g in grads.items():
+    excess = float(((g - full[n]).abs()
+                    / (1e-6 + 1e-4 * full[n].abs())).max())
+    worst = max(worst, (excess, n))
+  if worst[0] > 1:
+    raise AssertionError(f'phase 29: the gradient of {worst[1]} is '
+                         f'{worst[0]:.3g} times its tolerance from the whole '
+                         'batch\'s')
+  grad_report = (f'loss {abs(float(acc_loss) - float(loss)):.3e} apart, '
+                 f'every gradient within {worst[0]:.3f} of its tolerance '
+                 f'(largest in {worst[1]})')
+  del module, full, grads, loss, acc_loss, aux
+
+  # 3 pipelined steps, card against CPU, each from one state.
+  g_trainer, c_trainer = (
+      hbt.Trainer(*tb.dense_parts(args, d), ctx=hbt.Context(d))
+      for d in (dev, cpu))
+  for tr in (g_trainer, c_trainer):
+    tr._step_fn = hbt.make_pipelined_train_step(tr._loss_fn, PIPE_K)
+  batches = synthetic.criteo_batches(
+      cfg.batch, PIPE_STEPS, vocab=cfg.vocab, tables=cfg.tables,
+      dense_features=cfg.dense_features, seed=tb.SEED + 29)
+  report, apart_in = _hold_dense_steps('phase 29', g_trainer, c_trainer,
+                                       batches, from_start=True)
+  del g_trainer, c_trainer
+  torch.cuda.synchronize(dev)
+  counts = _counts()
+  _expect('phase 29, accumulated gradients and pipelined steps', counts)
+  launches.update(counts)
+
+  # ms/step: make_train_step against the pipelined step at each k.
+  variants = {}
+  for k in (0, *PIPE_KS):
+    loss_fn, module, optimizer = tb.dense_parts(args, dev)
+    step = (hbt.make_pipelined_train_step(loss_fn, k) if k
+            else hbt.make_train_step(loss_fn))
+    variants[f'pipelined k={k}' if k else 'make_train_step'] = (
+        hbt.TrainState.create(module, optimizer), step)
+  batch = functools.partial(tb.shifted, *tb.make_batch(args, dev),
+                            args.vocab)
+  gaps, counts = _timed_rounds('phase 29', variants, batch, dev)
+  del variants
+  launches.update(counts)
+  print(f'phase 29 (dense Trainer flagship, micro-batch accumulation): '
+        f'accumulate_gradients over {PIPE_K} micro-batches against the '
+        f'whole batch on the card: {grad_report}; {PIPE_STEPS} pipelined '
+        f'steps (k = {PIPE_K}) GPU vs CPU: '
+        + ', '.join(f'{k} {v:.3e}' if isinstance(v, float) else f'{k} {v}'
+                    for k, v in report.items())
+        + f' (in {", ".join(sorted(apart_in)) or "none"})')
+  print(f'  on {smi}: ms/step, median of {PIPE_ROUNDS} rounds of '
+        f'{PIPE_WINDOW} steps taken in turn (CUDA events): '
+        + ', '.join(f'{name} {statistics.median(g):.4f}'
+                    for name, g in gaps.items()))
+  return launches
+
+
+INTERLEAVE_CASES = {         # phase 30: model flags, table optimizer, kernel
+    'DCNv2 + Adagrad': ((), 'adagrad', 'adagrad_update_sorted'),
+    'DLRM + LazyAdam': (('--model', 'dlrm'), 'adam', 'adam_update_sorted'),
+}
+
+
+def _interleaved_trainer(cfg, dev, optimizer, k):
+  """The harness's ``SparseTrainer`` of ``cfg`` on ``dev`` with the
+  interleaved step of ``k`` micro-batches in place of its plain step."""
+  import hybridbackend_tpu_torch as hbt
+  tr = tb.sparse_trainer(cfg, dev, table_optimizer=optimizer)
+  tr._step_fn = hbt.make_interleaved_train_step(
+      tr._fx, tr._model_loss, k, table_lr=tb.TABLE_LR,
+      table_optimizer=optimizer)
+  return tr
+
+
+def _interleaved_against_plain(label, cfg, dev, optimizer, batches):
+  """Each of ``batches`` one interleaved step (``PIPE_K`` micro-batches)
+  and one plain step on the card from one state: the loss to 1e-5
+  relative, tables and slots to ``rtol 1e-4, atol 1e-6`` (the JAX test's,
+  ``tests/test_trainer.py:250-257``; a LazyAdam table to phase 5's ``atol
+  1e-3`` instead: an element moves by up to 5e6 times the order
+  difference of a total near zero; and where a gate flip moved a row's
+  total, by phase 12's 2.2 * lr: 39 elements at step 3 of DLRM in a chip
+  run), and the tower's gradients, read from
+  Adam's first moment, to the same ``rtol 1e-4, atol 1e-6`` and one ReLU
+  gate flip (``GATE_FLIP`` of the tensor's largest gradient: cuBLAS
+  rounds a row's pre-activation in a micro-batch of 2048 and in the
+  batch of 8192 differently, 2.9e-6 apart at step 3 in a chip run, one
+  example's term). The JAX test
+  holds the tower's weights, under SGD; under Adam a weight moves by
+  ``lr * g / (|g| + eps)``, which turns a summation-order difference of a
+  gradient near ``eps`` into up to about 1e-5, so the weights' largest
+  gap is reported, not held. Returns the largest errors."""
+  import hybridbackend_tpu_torch as hbt
+  plain = tb.sparse_trainer(cfg, dev, table_optimizer=optimizer)
+  inter = _interleaved_trainer(cfg, dev, optimizer, PIPE_K)
+  b1 = plain.state.dense_opt.param_groups[0]['betas'][0]
+  report = {'loss_rel_err': 0.0, 'table_max_abs_err': 0.0,
+            'slots_max_abs_err': 0.0, 'tower_grad_max_abs_err': 0.0,
+            'tower_weight_max_abs_err': 0.0}
+  if optimizer == 'adam':
+    report['table_elems_far_where_m_moved'] = 0
+  for i, b in enumerate(batches):
+    inter._load_checkpoint_state(plain._checkpoint_state())
+    opt = plain.state.dense_opt.state
+    m0 = [opt[p]['exp_avg'].clone() for p in plain.state.dense.parameters()]
+    placed = hbt.put_batch(b, dev)
+    plain.state, pm = plain._step_fn(plain.state, placed)
+    inter.state, im = inter._step_fn(inter.state, placed)
+    pl, il = float(pm['loss']), float(im['loss'])
+    report['loss_rel_err'] = max(report['loss_rel_err'], abs(il - pl) / pl)
+    if not abs(il - pl) <= 1e-5 * abs(pl):
+      raise AssertionError(f'{label}, step {i + 1}: loss {il} interleaved, '
+                           f'{pl} plain')
+    pairs = []
+    for name, t in plain.state.tables.items():
+      a, c = inter.state.tables[name], t
+      if optimizer == 'adam':
+        # Phase 12's rule for a LazyAdam table: where a row's total itself
+        # moved (its first moment more than 1e-3 of itself apart: a ReLU
+        # gate flip in one example, see GATE_FLIP), an element taking its
+        # first step near a zero total may move by up to 2 * lr (2.2 * lr
+        # with rounding) on one side against the other.
+        mi, mp = inter.state.table_opt[name].acc[0], plain.state.table_opt[
+            name].acc[0]
+        moved = (mi - mp).abs() > 1e-3 * torch.maximum(mi.abs(), mp.abs())
+        far = (a - c).abs() > 1e-3
+        report['table_elems_far_where_m_moved'] += int((far & moved).sum())
+        if bool((far & ~moved).any()) or bool(
+            ((a - c).abs() > 2.2 * tb.TABLE_LR).any()):
+          raise AssertionError(
+              f'{label}, step {i + 1}: table differs by up to '
+              f'{float((a - c).abs().max())}, {int((far & ~moved).sum())} '
+              'elements over 1e-3 where the total did not move')
+        a = torch.where(moved, c, a)     # those elements held above
+      pairs.append(('table', a, c))
+      pairs += [('slots', a, c) for a, c in zip(
+          inter.state.table_opt[name].acc, plain.state.table_opt[name].acc)]
+    for (a, c), m in zip(zip(inter.state.dense.parameters(),
+                             plain.state.dense.parameters()), m0):
+      ga, gc = ((s[p]['exp_avg'] - b1 * m) / (1 - b1) for s, p in (
+          (inter.state.dense_opt.state, a), (opt, c)))
+      pairs.append(('tower_grad', ga, gc))
+      report['tower_weight_max_abs_err'] = max(
+          report['tower_weight_max_abs_err'],
+          float((a.detach() - c.detach()).abs().max()))
+    for key, a, c in pairs:
+      report[f'{key}_max_abs_err'] = max(report[f'{key}_max_abs_err'],
+                                         float((a - c).abs().max()))
+      if optimizer == 'adam' and key == 'table':
+        tol = dict(rtol=0, atol=1e-3)
+      elif key == 'tower_grad':
+        tol = dict(rtol=1e-4, atol=1e-6 + GATE_FLIP * float(c.abs().max()))
+      else:
+        tol = dict(rtol=1e-4, atol=1e-6)
+      if not torch.allclose(a, c, **tol):
+        raise AssertionError(f'{label}, step {i + 1}: {key} differs by up '
+                             f'to {float((a - c).abs().max())}: {report}')
+  return report
+
+
+def phase30_interleaved(cfg, dev, smi, profile_steps):
+  """Phase 30: the PICASSO interleaved sparse step at the flagship,
+  DCNv2 + Adagrad (kernel 1) and DLRM + LazyAdam (kernel 3): 3 steps of 4
+  micro-batches on the card against the CPU on phase 2's batch, ids moved
+  by one a step, each from the initial weights (phase 2's and phase 5's
+  tolerances, the tower by phase 18's rule too); 3 consecutive steps
+  against the plain step on the card, each from the plain step's state
+  (the JAX test's limits, the tower held by its gradients);
+  the update kernel once a step (one stack) at 1, 2 and 4 micro-batches,
+  with DCNv2's ms/step against the plain step in alternating rounds; then
+  the harness's ``main``, ``--sparse`` and ``--sparse --interleave
+  1|2|4``, in turn in one process of its own. With ``profile_steps`` also each k's device busy share
+  and the side stream's overlap with the current one. Returns the kernel
+  launches."""
+  import hybridbackend_tpu_torch as hbt
+  cpu = torch.device('cpu')
+  launches = collections.Counter()
+  # Phases 2 and 5's batch (their tolerances' ground), ids moved by one a
+  # step, as host arrays.
+  base, ids = tb.make_batch(cfg, cpu, tb.SEED + 1)
+  batches = [{k: v.numpy() for k, v in tb.shifted(base, ids, cfg.vocab,
+                                                   i).items()}
+             for i in range(PIPE_STEPS)]
+  for case, (flags, optimizer, kernel) in INTERLEAVE_CASES.items():
+    args = flagship(*flags)
+    label = f'phase 30 ({case}, interleave {PIPE_K})'
+    g_tr, c_tr = (_interleaved_trainer(args, d, optimizer, PIPE_K)
+                  for d in (dev, cpu))
+    _reset_counts()
+    report, apart_in = _hold_sparse_steps(f'{label}, step', g_tr, c_tr,
+                                          batches, dev, optimizer,
+                                          from_start=True)
+    torch.cuda.synchronize(dev)
+    counts = _counts()
+    _expect(f'{label}, {PIPE_STEPS} steps', counts, **{kernel: PIPE_STEPS})
+    launches.update(counts)
+    del g_tr, c_tr
+    print(f'{label}: {PIPE_STEPS} steps GPU vs CPU: '
+          + ', '.join(f'{k} {v:.3e}' if isinstance(v, float) else f'{k} {v}'
+                      for k, v in report.items())
+          + f' (in {", ".join(sorted(apart_in)) or "none"})')
+    _reset_counts()
+    plain = _interleaved_against_plain(label, args, dev, optimizer, batches)
+    torch.cuda.synchronize(dev)
+    counts = _counts()
+    _expect(f'{label} against the plain step', counts,
+            **{kernel: 2 * PIPE_STEPS})
+    launches.update(counts)
+    print(f'  against the plain step on the card, {PIPE_STEPS} consecutive '
+          "steps, each from the plain step's state: " + ', '.join(
+              f'{k} {v:.3e}' if isinstance(v, float) else f'{k} {v}'
+              for k, v in plain.items()))
+    # The update kernel once a step whatever k is; DCNv2's steps timed.
+    variants = {}
+    for k in (0, *PIPE_KS):
+      state, step = tb.build(flagship(*flags, '--interleave', str(k)), dev,
+                             optimizer)
+      variants[f'interleave {k}' if k else 'plain'] = (state, step)
+    batch = functools.partial(tb.shifted, *tb.make_batch(args, dev),
+                              args.vocab)
+    if case == 'DCNv2 + Adagrad':
+      gaps, counts = _timed_rounds(label, variants, batch, dev, kernel)
+      launches.update(counts)
+      print(f'  on {smi}: ms/step, median of {PIPE_ROUNDS} rounds of '
+            f'{PIPE_WINDOW} steps taken in turn (CUDA events): '
+            + ', '.join(f'{name} {statistics.median(g):.4f}'
+                        for name, g in gaps.items()))
+      if profile_steps:
+        for name, (state, step) in variants.items():
+          profile(f'{label}: {name}', state, step, batch, profile_steps,
+                  overlap=True)
+    else:
+      for name, (state, step) in variants.items():
+        _reset_counts()
+        tb.time_steps(state, step, batch, 0, 2, dev)
+        counts = _counts()
+        _expect(f'{label}, {name}, 2 steps', counts, **{kernel: 2})
+        launches.update(counts)
+      print(f'  kernel 3 once a step at interleave 0, '
+            f'{", ".join(map(str, PIPE_KS))}')
+    del variants
+
+  # The harness's main, as a user runs it, in one process for the four.
+  flag_sets = [['--sparse', *(['--interleave', str(k)] if k else [])]
+               for k in (0, *PIPE_KS)]
+  for k, flags, (line, report) in zip(
+      (0, *PIPE_KS), flag_sets, _module_jsons('train_benchmark', flag_sets)):
+    want = {name: 0 for name in tb.COUNTED}
+    want['adagrad_update_sorted'] = report['timed_steps']
+    if (report['kernel_launches'] != want or report['card'] != smi
+        or report['interleave'] != k):
+      raise AssertionError(f'phase 30: the harness {" ".join(flags)} gave '
+                           f'{line}; expected launches {want} on {smi}')
+    launches.update(report['kernel_launches'])
+    print(f'phase 30 (hybridbackend_tpu_torch.benchmarks.train_benchmark '
+          f'{" ".join(flags)} --json): {line}')
+  return launches
+
+
+def phase31_harnesses(smi):
+  """Phase 31: the single-device harnesses at their defaults, each in its
+  own process, their JSON lines printed: ``auc_parity.py`` (exit 0,
+  ``parity_ok.fast`` true, kernel 1 once a ``fast`` step and no counted
+  kernel in ``exact``), ``data_benchmark.py`` in each mode and
+  ``e2e_benchmark.py --profile`` (kernel 1 once a profiled batch). A
+  harness that exits nonzero fails the phase. Returns the kernel
+  launches."""
+  from hybridbackend_tpu_torch.benchmarks import e2e_benchmark as e2e
+  launches = collections.Counter()
+  with tempfile.TemporaryDirectory() as tmp:
+    os.environ['HB_BENCH_CACHE'] = tmp
+    t0 = time.perf_counter()
+    line, r = _module_json('auc_parity', timeout=AUC_TIMEOUT)
+    auc_s = time.perf_counter() - t0
+    fast = r['results']['fast']
+    steps = r['config']['rows'] // r['config']['batch'] * r['config'][
+        'epochs']
+    if (r['parity_ok'] != {'fast': True} or r['card'] != smi
+        or fast['kernel_launches']['adagrad_update_sorted'] != steps
+        or any(any(v['kernel_launches'].values())
+               for key, v in r['results'].items() if key != 'fast')):
+      raise AssertionError(f'phase 31: auc_parity gave {line}')
+    for v in r['results'].values():
+      launches.update(v['kernel_launches'])
+    print(f'phase 31 (python -m hybridbackend_tpu_torch.benchmarks.'
+          f'auc_parity --json, {auc_s:.1f} s): exact mean AUC '
+          f'{r["exact_mean_auc"]:.6f}, spread {r["exact_spread"]:.6f}, band '
+          f'{r["parity_band"]:.6f}, fast {fast["auc"]:.6f}, parity_ok '
+          f'{r["parity_ok"]}; seconds: '
+          + ', '.join(f'{k} {v["secs"]:.1f}' for k, v in r['results'].items())
+          + f'; synthesize {r["synthesize_s"]:.1f}')
+    print(f'  {line}')
+    for mode in DATA_MODES:
+      line, r = _module_json('data_benchmark', '--mode', mode)
+      if mode == 'transfer' and r['card'] != smi:
+        raise AssertionError(f'phase 31: the transfer ran on {r["card"]}')
+      print(f'phase 31 (python -m hybridbackend_tpu_torch.benchmarks.'
+            f'data_benchmark --mode {mode} --json): {line}')
+    line, r = _module_json('e2e_benchmark', '--profile')
+    want = {name: 0 for name in tb.COUNTED}
+    want['adagrad_update_sorted'] = e2e.PROFILE_ROUNDS
+    if r['kernel_launches'] != want or r['card'] != smi:
+      raise AssertionError(f'phase 31: e2e_benchmark --profile gave {line}')
+    launches.update(r['kernel_launches'])
+    print('phase 31 (python -m hybridbackend_tpu_torch.benchmarks.'
+          'e2e_benchmark --profile --json): stage medians, ms: '
+          + ', '.join(f'{k} {v:.4f}' for k, v in r['profile_ms'].items()))
+    print(f'  {line}')
+  return launches
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--profile', action='store_true',
@@ -3525,6 +4076,10 @@ def main() -> int:
     live.update(live28)
     cache_launches['gather_rows'] += serve_host_tables(smi, bundles,
                                                        batch_dir, live)
+  pipeline_launches = phase29_pipelined(cfg, dev, smi)
+  pipeline_launches.update(phase30_interleaved(
+      cfg, dev, smi, profile_steps=10 if args.profile else 0))
+  pipeline_launches.update(phase31_harnesses(smi))
   if args.profile:
     batch = functools.partial(tb.shifted, *tb.make_batch(cfg, dev),
                               cfg.vocab)
@@ -3570,7 +4125,12 @@ def main() -> int:
                  # and dynamic trainers, their flushes, the Criteo entry
                  # point's cached runs and the cold process's predicts.
                  'cache_launches': (cache_launches[name]
-                                    if name in tb.COUNTED else None)})
+                                    if name in tb.COUNTED else None),
+                 # Launches in the pipelining phases (29-31): the dense
+                 # pipelined and the interleaved steps, the harnesses'
+                 # processes.
+                 'pipeline_launches': (pipeline_launches[name]
+                                       if name in tb.COUNTED else None)})
   print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s wall, every '
         'phase')
   print(json.dumps({'kernels': rows}))

@@ -37,6 +37,12 @@ tested against. It imports ``torch`` and never ``jax``, and nothing from
   to rows, with an admission filter), over the port's native id hash
   (``native/idmap.py``); their bundles serve from the full host table or
   with the bundled id mappers;
+* micro-batch pipelining (``pipeline``): gradient accumulation over
+  slices of a batch (``accumulate_gradients``,
+  ``make_pipelined_train_step``) and the PICASSO interleaved sparse step
+  (``make_interleaved_train_step``), whose lookups run on a side CUDA
+  stream beside the tower and whose tables take one row-sparse update a
+  step;
 * a row gather with clipped ids and a stochastically rounded bf16 cast,
   each with its kernel.
 
@@ -46,7 +52,7 @@ import.
 
 __version__ = '0.1.0'
 
-from hybridbackend_tpu_torch import data, metrics
+from hybridbackend_tpu_torch import data, metrics, pipeline
 from hybridbackend_tpu_torch.convert import (
     from_jax, from_jax_dense, load_adam_state, load_dcn_v2, load_dice,
     load_din, load_dlrm, quantized_from_jax)
@@ -90,6 +96,9 @@ from hybridbackend_tpu_torch.ops.scatter import (
     adam_update_sorted, adam_update_sorted_reference, gsum_dense_sorted,
     gsum_dense_sorted_reference, scatter_add_sorted,
     scatter_add_sorted_reference)
+from hybridbackend_tpu_torch.pipeline import (
+    accumulate_gradients, make_interleaved_train_step,
+    make_pipelined_train_step)
 from hybridbackend_tpu_torch.training.checkpoint import CheckpointManager
 from hybridbackend_tpu_torch.training.hooks import (
     Hook, LoggingHook, Policy, StepStatHook)

@@ -16,7 +16,7 @@ exact f32 (TF32 off, PyTorch's default for matmuls). Weights from seed 0.
 
   python -m hybridbackend_tpu_torch.benchmarks.e2e_benchmark [--batch 8192]
       [--steps 128] [--threads 0] [--prefetch 2 | --no-prefetch]
-      [--python-reader] [--device cuda|cpu] [--json]
+      [--python-reader] [--device cuda|cpu] [--profile] [--json]
 
 One step per batch. The JAX harness runs G batches under one
 ``lax.scan`` per dispatch only to amortise the round trip of a remote TPU
@@ -43,6 +43,16 @@ Reported (one JSON line with ``--json``), after 3 untimed steps:
 * ``kernel_launches`` of the timed e2e steps by each kernel's own
   counter, and ``adagrad_launches_per_step``;
 * the card's name and power limit as ``nvidia-smi`` prints them.
+
+``--profile`` (the JAX harness's, ``:132-134,220-245``) times the
+stages one at a time instead, synchronously, for ``PROFILE_ROUNDS``
+batches after one untimed: decode (the reader's ``next``), pack (each
+column as the host tensor ``put_batch`` copies), put (``put_batch``),
+step enqueue (the step's call) and step complete (one ``.item()`` of the
+loss). Each batch's stages go on one stderr line, as the JAX harness
+prints them; with ``--json`` one JSON line gives each stage's median in
+ms (``profile_ms``), every round's, and the timed rounds' kernel
+launches.
 
 The file is cached under ``HB_BENCH_CACHE``, else the temporary directory
 (``TMPDIR``); its name holds its shape, the seed and ``DRAWS``, the
@@ -73,6 +83,8 @@ MIN_FETCHES = 64        # the e2e window's least number of batch fetches
 ROW_GROUP = 32768       # the JAX harness's row groups
 SLAB = 131072           # rows drawn and written at a time, as there
 DRAWS = 1               # version of ensure_file's draws: bump on a change
+PROFILE_ROUNDS = 6      # --profile's timed batches, as in the JAX harness
+STAGES = ('decode', 'pack', 'put', 'step_enqueue', 'step_complete')
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -91,6 +103,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                       'reader')
   p.add_argument('--device', default='cuda',
                  help="'cuda' (default) or 'cpu'")
+  p.add_argument('--profile', action='store_true',
+                 help='synchronous per-stage timing (decode / pack / put / '
+                      'step) instead of the pipelined benchmark')
   p.add_argument('--json', action='store_true')
   p.add_argument('--tables', type=int, default=26)
   p.add_argument('--vocab', type=int, default=100_000)
@@ -198,16 +213,83 @@ def reader_rows_per_s(path: str, args: argparse.Namespace,
   return rates
 
 
+def _config(args: argparse.Namespace) -> argparse.Namespace:
+  """The train harness's flagship sparse config at this shape."""
+  return tb.parse_args([
+      '--sparse', '--batch', str(args.batch), '--tables', str(args.tables),
+      '--vocab', str(args.vocab), '--dim', str(args.dim),
+      '--dense-features', str(args.dense_features), '--device', args.device])
+
+
+def profile(args: argparse.Namespace) -> Dict:
+  """The stages one at a time, synchronously (``--profile``): one
+  untimed batch, then ``PROFILE_ROUNDS`` timed; returns the report."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.data.prefetch import _host_tensor, put_batch
+  device = torch.device(args.device)
+  on_card = device.type == 'cuda'
+  state, step = tb.build(_config(args), device)
+  path = ensure_file(FILE_BATCHES * args.batch, args.tables,
+                     args.dense_features, args.vocab)
+  stop, readers = threading.Event(), []
+  source = host_pipeline(path, args, stop, readers)
+  rounds = {name: [] for name in STAGES}
+  try:
+    for r in range(PROFILE_ROUNDS + 1):
+      if r == 1:
+        for name in tb.COUNTED:
+          getattr(hbt, name).launches = 0
+      t0 = time.perf_counter()
+      raw = next(source)
+      t1 = time.perf_counter()
+      packed = {k: _host_tensor(k, v) for k, v in raw.items()}
+      t2 = time.perf_counter()
+      placed = put_batch(packed, device)
+      t3 = time.perf_counter()
+      state, metrics = step(state, placed)
+      t4 = time.perf_counter()
+      loss = metrics['loss'].item()
+      t5 = time.perf_counter()
+      if not np.isfinite(loss):
+        raise RuntimeError(f'non-finite loss {loss}')
+      if r == 0:
+        continue                  # the untimed batch
+      ms = [(b - a) * 1e3 for a, b in zip((t0, t1, t2, t3, t4),
+                                         (t1, t2, t3, t4, t5))]
+      for name, v in zip(STAGES, ms):
+        rounds[name].append(v)
+      print(f'batch {r - 1}: decode {ms[0]:.3f} pack {ms[1]:.3f} put '
+            f'{ms[2]:.3f} step-enqueue {ms[3]:.3f} complete {ms[4]:.3f} ms',
+            file=sys.stderr, flush=True)
+  finally:
+    stop.set()
+    source.close()
+  return {
+      'metric': 'e2e_profile_ms',
+      'kernel_launches': {name: getattr(hbt, name).launches
+                          for name in tb.COUNTED},
+      'profile_ms': {name: statistics.median(v) for name, v in rounds.items()},
+      'profile_rounds_ms': rounds,
+      'batch': args.batch,
+      'reader': readers[0].reader,
+      'reader_fallback_reason': readers[0].fallback_reason,
+      'reader_threads': args.threads,
+      'tables': args.tables, 'vocab': args.vocab, 'dim': args.dim,
+      'dense_features': args.dense_features,
+      'device': str(device),
+      'device_name': torch.cuda.get_device_name(device) if on_card else 'cpu',
+      'card': tb.card() if on_card else None,
+      'timing': 'host clock, one stage at a time',
+      'host_cpus': os.cpu_count(),
+  }
+
+
 def run(args: argparse.Namespace) -> Dict:
   """Builds the config, times it and returns the report."""
   import hybridbackend_tpu_torch as hbt
   device = torch.device(args.device)
   on_card = device.type == 'cuda'
-  cfg = tb.parse_args([
-      '--sparse', '--batch', str(args.batch), '--tables', str(args.tables),
-      '--vocab', str(args.vocab), '--dim', str(args.dim),
-      '--dense-features', str(args.dense_features), '--device', args.device])
-  state, step = tb.build(cfg, device)
+  state, step = tb.build(_config(args), device)
   path = ensure_file(FILE_BATCHES * args.batch, args.tables,
                      args.dense_features, args.vocab)
   rates = reader_rows_per_s(path, args)
@@ -293,7 +375,7 @@ def main(argv: Optional[List[str]] = None) -> int:
   if why:
     print(f'e2e_benchmark: {why}', file=sys.stderr)
     return 1
-  result = run(args)
+  result = profile(args) if args.profile else run(args)
   if args.json:
     print(json.dumps(result))
   else:

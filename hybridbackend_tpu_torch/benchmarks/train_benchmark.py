@@ -12,7 +12,13 @@ every step. The flags and their defaults are the JAX harness's; weights
 and batch are drawn from seed 0, as there. Run on one CUDA device:
 
   python -m hybridbackend_tpu_torch.benchmarks.train_benchmark [--sparse] \\
-      [--table-dtype bfloat16] [--model dlrm] [--bf16] [--no-dedup] [--json]
+      [--table-dtype bfloat16] [--model dlrm] [--bf16] [--no-dedup] \\
+      [--interleave K] [--json]
+
+With ``--sparse --interleave K`` the step is the PICASSO interleaved one
+(``pipeline.make_interleaved_train_step``, as the JAX harness builds it
+at ``:121-127``): the batch in K micro-batches whose lookups run on a
+side stream beside the tower, one table update a step.
 
 Timing: 3 untimed steps, then ``--repeats`` windows (3) of
 ``--inner-steps`` steps (20, the JAX harness's window) enqueued back to
@@ -27,10 +33,10 @@ and, on a card, its name and power limit as ``nvidia-smi`` prints them,
 and the kernel launches of the timed steps. TF32 stays off (PyTorch's
 default for matmuls): the tower's f32 matmuls are exact f32.
 
-Not ported, each exits nonzero with its reason: PICASSO interleaving
-(``--interleave K`` with K > 0) and multi-device runs (``--cpu N``);
-``--no-dedup`` without ``--sparse`` is refused, as it applies to the
-sparse update only.
+Refused, each with its reason: multi-device runs (``--cpu N``, not
+ported); ``--no-dedup`` or ``--interleave`` without ``--sparse``, as both
+apply to the sparse step only; ``--no-dedup`` with ``--interleave``, as
+the JAX harness refuses it.
 """
 
 from __future__ import annotations
@@ -80,8 +86,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                  help='accumulate each occurrence\'s square (TF '
                       'SparseApplyAdagrad)')
   p.add_argument('--interleave', type=int, default=0, metavar='K',
-                 help='PICASSO interleaving over K micro-batches (not '
-                      'ported)')
+                 help='sparse mode: PICASSO interleaving over K '
+                      'micro-batches')
   p.add_argument('--table-dtype', default='float32',
                  choices=['float32', 'bfloat16'],
                  help='embedding table and slot storage dtype')
@@ -97,8 +103,11 @@ def unsupported(args: argparse.Namespace) -> Optional[str]:
   """Why these flags cannot run, or None."""
   if args.no_dedup and not args.sparse:
     return '--no-dedup applies to the sparse update only; pass --sparse'
-  if args.interleave > 0:
-    return '--interleave (PICASSO micro-batch interleaving) is not ported'
+  if args.interleave > 0 and not args.sparse:
+    return ('--interleave applies to the sparse step only (the micro-'
+            'batches\' lookups beside the tower); pass --sparse')
+  if args.interleave > 0 and args.no_dedup:
+    return '--no-dedup is not supported with --interleave'
   if args.cpu:
     return ('--cpu N (a multi-device host mesh) is not ported; this '
             'harness drives one device')
@@ -211,7 +220,8 @@ def dense_parts(args: argparse.Namespace, device: torch.device):
 def build(args: argparse.Namespace, device: torch.device,
           table_optimizer: str = 'adagrad', split_dense: bool = False):
   """The state and the step of the config ``args`` on ``device``: the
-  sparse step with ``--sparse``, the dense-gradient step without.
+  sparse step with ``--sparse`` (the interleaved one with
+  ``--interleave K``), the dense-gradient step without.
   ``table_optimizer`` (``'adam'`` for LazyAdam) and ``split_dense`` are
   sparse-step options beyond the JAX harness's Adagrad."""
   import hybridbackend_tpu_torch as hbt
@@ -223,6 +233,12 @@ def build(args: argparse.Namespace, device: torch.device,
   state = hbt.SparseTrainState.create(
       tower, tables, functools.partial(torch.optim.Adam, lr=TOWER_LR),
       adagrad_init=ADAGRAD_INIT, adam=table_optimizer == 'adam')
+  if args.interleave > 0:
+    if split_dense:
+      raise ValueError('the interleaved step has no split-dense update')
+    return state, hbt.make_interleaved_train_step(
+        fx, model_loss, args.interleave, table_lr=TABLE_LR,
+        table_optimizer=table_optimizer)
   step = hbt.make_sparse_train_step(fx, model_loss, table_lr=TABLE_LR,
                                     table_dedup=not args.no_dedup,
                                     table_optimizer=table_optimizer,
@@ -332,7 +348,8 @@ def run(args: argparse.Namespace) -> dict:
       'ms_per_step_repeats': [w / args.inner_steps for w in windows],
       'timed_steps': args.inner_steps * args.repeats,
       'final_loss': float(losses[-1]),
-      'model': args.model, 'sparse': args.sparse, 'bf16': args.bf16,
+      'model': args.model, 'sparse': args.sparse,
+      'interleave': args.interleave, 'bf16': args.bf16,
       'no_dedup': args.no_dedup, 'table_dtype': args.table_dtype,
       'batch': args.batch, 'tables': args.tables, 'dim': args.dim,
       'vocab': args.vocab, 'dense_features': args.dense_features,

@@ -48,6 +48,7 @@ from hybridbackend_tpu.models.ranking import (
 
 import hybridbackend_tpu_torch as hbt
 from hybridbackend_tpu_torch.examples.criteo import train as criteo
+from test_torch_host_tables import ensure_jax_native  # noqa: F401  builds at import
 
 VOCAB, CAP, DIM, SMALL, BATCH, STEPS = 10_000, 160, 8, 128, 32, 12
 MLP = [16, 1]

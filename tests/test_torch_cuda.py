@@ -1035,3 +1035,138 @@ def test_cached_trainer_on_the_card_matches_the_cpu(dev):
     hosts.append(host)
   for k in hosts[0]:
     np.testing.assert_allclose(hosts[0][k], hosts[1][k], **TOL)
+
+
+# Micro-batch pipelining: the interleaved sparse step's side stream, and
+# the dense pipelined step.
+def _interleave_parts(dev, optimizer, seed=0):
+  ctx = hbt.Context(dev)
+  specs = ([hbt.EmbeddingSpec(hbt.TableConfig(f'c{i}', 5000, 16))
+            for i in range(3)]
+           + [hbt.EmbeddingSpec(hbt.TableConfig('t3', 3000, 8))])
+  fx = hbt.StackedFeatureExtractor(specs, dense_columns=['i0'], ctx=ctx)
+  gen = torch.Generator().manual_seed(seed)
+  tables = fx.init(gen)
+  tower = hbt.StackedDCNv2([16] * 3 + [8, 1], [64, 32, 1], generator=gen,
+                           device=dev)
+  state = hbt.SparseTrainState.create(
+      tower, tables, lambda p: torch.optim.Adam(p, lr=1e-3),
+      adam=optimizer == 'adam')
+
+  def loss_fn(t, emb_f, dense_f, batch):
+    p = torch.clamp(t(emb_f + dense_f), 1e-6, 1 - 1e-6)
+    y = batch['label']
+    return -torch.mean(y * torch.log(p) + (1 - y) * torch.log(1 - p)), {
+        'preds': p}
+
+  return fx, state, loss_fn
+
+
+def _interleave_batches(dev, steps=3, n=4096):
+  rng = np.random.RandomState(1)
+  out = []
+  for _ in range(steps):
+    b = {f'c{i}': torch.from_numpy(rng.randint(-5, 5020, n).astype(
+        np.int32)).to(dev) for i in range(3)}
+    b['t3'] = torch.from_numpy(rng.randint(0, 3000, n).astype(
+        np.int32)).to(dev)
+    b['i0'] = torch.from_numpy(rng.rand(n).astype(np.float32)).to(dev)
+    b['label'] = torch.from_numpy(rng.randint(0, 2, n).astype(
+        np.float32)).to(dev)
+    out.append(b)
+  return out
+
+
+@pytest.mark.parametrize('optimizer', ['adagrad', 'adam'])
+def test_interleaved_side_stream_changes_no_bit(dev, monkeypatch, optimizer):
+  """The interleaved step with its lookups on the side stream, bit for bit
+  against the same step with every lookup on the current stream (the
+  same operations in another stream order), each step queued behind a
+  busy current stream so the side stream's lookups run ahead; the update
+  kernel once a stack a step; and the card against the CPU."""
+  from hybridbackend_tpu_torch.pipeline import interleave
+  kernel = getattr(hbt, f'{optimizer}_update_sorted')
+  states = {}
+  for mode in ('side', 'current', 'cpu'):
+    device = torch.device('cpu') if mode == 'cpu' else dev
+    if mode == 'current':
+      monkeypatch.setattr(interleave, '_side_stream',
+                          lambda d: torch.cuda.current_stream(d))
+    fx, state, loss_fn = _interleave_parts(device, optimizer)
+    step = hbt.make_interleaved_train_step(fx, loss_fn, 4,
+                                           table_optimizer=optimizer)
+    before = kernel.launches
+    for b in _interleave_batches(device):
+      if device.type == 'cuda':
+        torch.cuda._sleep(2_000_000)
+      state, m = step(state, b)
+      assert torch.isfinite(m['loss'])
+    if device.type == 'cuda':
+      torch.cuda.synchronize(dev)
+      assert kernel.launches - before == 3 * len(fx.stacks) == 6
+    states[mode] = state
+  side, current, cpu = states['side'], states['current'], states['cpu']
+  for name in side.tables:
+    for i, (a, b, c) in enumerate(zip(
+        [side.tables[name], *side.table_opt[name].acc],
+        [current.tables[name], *current.table_opt[name].acc],
+        [cpu.tables[name], *cpu.table_opt[name].acc])):
+      assert torch.equal(a, b), name
+      # Card against CPU as chip_smoke.py's phases 2 and 5 hold a step: a
+      # LazyAdam table element moves by up to lr*ds/eps = 5e6*ds where a
+      # gradient total ds near 0 sums in another order; its moments to
+      # 1e-3 relative plus 1e-4 of the largest.
+      if optimizer == 'adagrad':
+        tol = dict(rtol=1e-4, atol=1e-5)
+      elif i == 0:
+        tol = dict(rtol=0, atol=1e-3)
+      else:
+        tol = dict(rtol=1e-3, atol=1e-4 * float(c.abs().max()))
+      np.testing.assert_allclose(a.cpu().numpy(), c.numpy(), err_msg=name,
+                                 **tol)
+  for (n, a), b in zip(side.dense.named_parameters(),
+                       current.dense.parameters()):
+    assert torch.equal(a, b), n
+
+
+def test_pipelined_step_on_the_card_matches_the_cpu(dev):
+  """3 steps of the dense pipelined step (4 micro-batches, Adagrad 0.1 on
+  tables and tower) on the card against the CPU from the same weights:
+  the tables' gradients sum in atomic order on the card (``index_add_``),
+  about 1e-7 relative; 1e-4 holds every value after 3 steps."""
+  specs = [hbt.EmbeddingSpec(hbt.TableConfig(f'c{i}', 2000, 16))
+           for i in range(3)]
+  names = ['i0', 'i1']
+  states = []
+  for device in (dev, torch.device('cpu')):
+    gen = torch.Generator().manual_seed(0)
+    module = torch.nn.ModuleDict({
+        'tables': hbt.init_tables(specs, gen, device),
+        'net': hbt.StackedDCNv2([16] * 3 + [1, 1], [64, 1], generator=gen,
+                                device=device)})
+
+    def loss(m, b):
+      emb, dense = hbt.extract_features(m['tables'], b, specs, names)
+      p = torch.clamp(m['net'](emb + dense), 1e-6, 1 - 1e-6)
+      y = b['label']
+      return -torch.mean(y * torch.log(p) + (1 - y) * torch.log(1 - p)), {
+          'preds': p}
+
+    state = hbt.TrainState.create(module, hbt.Adagrad(module.parameters(),
+                                                      lr=0.1))
+    step = hbt.make_pipelined_train_step(loss, 4)
+    rng = np.random.RandomState(2)
+    for _ in range(3):
+      b = {f'c{i}': torch.from_numpy(rng.randint(0, 2000, 1024).astype(
+          np.int32)).to(device) for i in range(3)}
+      b.update({n: torch.from_numpy(rng.rand(1024).astype(np.float32)).to(
+          device) for n in names})
+      b['label'] = torch.from_numpy(rng.randint(0, 2, 1024).astype(
+          np.float32)).to(device)
+      state, m = step(state, b)
+      assert m['preds'].shape == (1024,)
+    states.append(state)
+  for (n, a), b in zip(states[0].params.named_parameters(),
+                       states[1].params.parameters()):
+    np.testing.assert_allclose(a.detach().cpu().numpy(), b.detach().numpy(),
+                               rtol=1e-4, atol=1e-5, err_msg=n)

@@ -18,7 +18,17 @@
 
 Everything here is exact: ids, rows, slots and copied rows, compared
 bit for bit. Torch runs on one thread.
+
+``ensure_jax_native`` (run at import, so in every pytest worker before
+any test) builds the JAX package's native library once per cache under a
+lock; see its docstring.
 """
+
+import fcntl
+import hashlib
+import os
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -39,6 +49,44 @@ from hybridbackend_tpu_torch.native import idmap, tabular
 
 CPU = torch.device('cpu')
 DIM = 8
+
+
+def ensure_jax_native():
+  """Leave the JAX package's native library complete in its cache, and
+  this process's loader able to load it.
+
+  The JAX loader (``hybridbackend_tpu/native/__init__.py``) compiles to
+  one shared ``<so>.tmp`` name: processes that find no library at once
+  race on it, and a loser loads a missing or half-written file and falls
+  back to NumPy for the rest of its life. Here the library is compiled
+  with the loader's own flags under an ``fcntl`` lock beside the cache,
+  to a temporary name of this process, then moved into place; a process
+  whose loader already gave up is let try again. The files that hold
+  the port against the JAX library call this at import, so every pytest
+  worker runs it while it collects, before any test."""
+  with open(jnative._SRC, 'rb') as f:
+    digest = hashlib.sha256(f.read()).hexdigest()[:16]
+  cache = os.environ.get(
+      'HB_NATIVE_CACHE',
+      os.path.join(os.path.expanduser('~'), '.cache', 'hbtpu_native'))
+  os.makedirs(cache, exist_ok=True)
+  so = os.path.join(cache, f'hbtpu_native_{digest}.so')
+  with open(os.path.join(cache, '.hbtpu_native.lock'), 'w') as lock:
+    fcntl.flock(lock, fcntl.LOCK_EX)
+    probe = subprocess.run(
+        [sys.executable, '-c', 'import ctypes, sys; ctypes.CDLL(sys.argv[1])',
+         so], capture_output=True)
+    if probe.returncode:
+      tmp = f'{so}.{os.getpid()}.tmp'
+      subprocess.run(['g++', '-O3', '-shared', '-fPIC', '-std=c++17',
+                      '-pthread', '-o', tmp, jnative._SRC],
+                     check=True, capture_output=True)
+      os.replace(tmp, so)
+  if jnative._LIB is None:
+    jnative._TRIED = False
+
+
+ensure_jax_native()
 
 
 @pytest.fixture(autouse=True)

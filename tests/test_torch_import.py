@@ -13,6 +13,8 @@ def test_import_leaves_jax_out():
   code = textwrap.dedent("""
       import sys
       import hybridbackend_tpu_torch
+      import hybridbackend_tpu_torch.benchmarks.auc_parity
+      import hybridbackend_tpu_torch.benchmarks.data_benchmark
       import hybridbackend_tpu_torch.benchmarks.din_benchmark
       import hybridbackend_tpu_torch.benchmarks.e2e_benchmark
       import hybridbackend_tpu_torch.benchmarks.serving_benchmark
@@ -34,6 +36,8 @@ def test_import_leaves_jax_out():
       import hybridbackend_tpu_torch.metrics
       import hybridbackend_tpu_torch.native.idmap
       import hybridbackend_tpu_torch.native.tabular
+      import hybridbackend_tpu_torch.pipeline
+      import hybridbackend_tpu_torch.pipeline.interleave
       import hybridbackend_tpu_torch.training.checkpoint
       import hybridbackend_tpu_torch.training.hooks
       import hybridbackend_tpu_torch.training.optimizer

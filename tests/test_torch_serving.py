@@ -53,6 +53,7 @@ from hybridbackend_tpu.training.saved_model import Served as JServed
 import hybridbackend_tpu_torch as hbt
 from hybridbackend_tpu_torch.benchmarks import serving_benchmark as sb
 from hybridbackend_tpu_torch.training import saved_model
+from test_torch_host_tables import ensure_jax_native  # noqa: F401  builds at import
 
 TABLES, VOCAB, DIM, DENSE, BATCH, STEPS = 3, 200, 8, 2, 64, 3
 MLP = [32, 16, 1]

@@ -2,9 +2,10 @@
 train_benchmark``) on the CPU at a tiny shape: 2 tables of [1000, 16],
 batch 64, 2 windows of 3 timed steps. It runs every model and table
 dtype through the sparse step, and through the dense-gradient step
-without ``--sparse``, and reports one JSON line; the flags it does not
-port exit nonzero with their reason. Its times here are host-clock CPU
-times, which the tests do not read."""
+without ``--sparse``, and the interleaved sparse step with
+``--interleave``, and reports one JSON line; the flags it does not port
+or that do not apply exit nonzero with their reason. Its times here are
+host-clock CPU times, which the tests do not read."""
 
 import json
 import os
@@ -66,7 +67,9 @@ def test_harness_steps_follow_the_table_dtype():
 
 @pytest.mark.parametrize('flags,why', [
     (['--device', 'cpu', '--no-dedup'], 'sparse update only'),
-    (['--sparse', '--device', 'cpu', '--interleave', '2'], 'not ported'),
+    (['--device', 'cpu', '--interleave', '2'], 'sparse step only'),
+    (['--sparse', '--device', 'cpu', '--interleave', '2', '--no-dedup'],
+     'not supported with --interleave'),
     (['--sparse', '--device', 'cpu', '--cpu', '4'], 'not ported'),
 ])
 def test_harness_refuses_what_is_not_ported(capsys, flags, why):
@@ -108,11 +111,32 @@ def test_harness_runs_as_a_module():
   assert out.returncode == 0, out.stderr
   assert json.loads(out.stdout.strip().splitlines()[-1])[
       'table_dtype'] == 'bfloat16'
-  refused = subprocess.run(
+  interleaved = subprocess.run(
       [sys.executable, '-m', 'hybridbackend_tpu_torch.benchmarks.'
-       'train_benchmark', '--device', 'cpu', '--sparse', '--interleave', '2'],
+       'train_benchmark', *TINY, '--interleave', '2'],
       capture_output=True, text=True, timeout=300, cwd=ROOT)
-  assert refused.returncode != 0 and 'not ported' in refused.stderr
+  assert interleaved.returncode == 0, interleaved.stderr
+  got = json.loads(interleaved.stdout.strip().splitlines()[-1])
+  # Kernel 1's launches are reported; on the CPU its plain version runs.
+  assert got['interleave'] == 2 and got['sparse']
+  assert got['kernel_launches']['adagrad_update_sorted'] == 0
+
+
+@pytest.mark.parametrize('k', [1, 2, 4])
+def test_harness_interleaves_with_one_update_per_step(capsys, monkeypatch,
+                                                     k):
+  """``--sparse --interleave K``: the interleaved step, one Adagrad update
+  (the kernel's plain version on the CPU) a step whatever K is."""
+  from hybridbackend_tpu_torch.ops import scatter
+  calls = []
+  real = scatter.adagrad_update_sorted_reference
+  monkeypatch.setattr(scatter, 'adagrad_update_sorted_reference',
+                      lambda *a, **kw: calls.append(1) or real(*a, **kw))
+  assert tb.main(TINY + ['--interleave', str(k)]) == 0
+  got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+  assert got['interleave'] == k
+  assert len(calls) == tb.WARMUP + got['timed_steps']
+  assert got['final_loss'] == got['final_loss']          # not NaN
 
 
 def test_synthetic_criteo_batches_carry_the_planted_signal():
