@@ -202,6 +202,23 @@ Phases; any failure raises and the script exits nonzero:
      ``data_benchmark.py`` in its four modes (parquet, csv, dedup, the
      host-to-device transfer from pageable and pinned memory) and
      ``e2e_benchmark.py --profile`` (the stages' medians).
+ 32. a world of N ranks: the collectives of ``distribute/collective.py``
+     on NCCL at a world of one on the card, and kernel 1 on an owner list
+     that went through ``all_to_all_v`` there; then for N = 2 and 4, N
+     gloo ranks sharing the card (``python -m hybridbackend_tpu_torch.run
+     --simulate N --device cuda chip_smoke.py --rank-of DIR``, one launch
+     a world) run the flagship sparse step with its table row-sharded
+     over them, from the seed's state on their rows of a global batch of
+     8192, 3 steps each with the ``allgather`` lookup, the ``alltoall``
+     one, and ``alltoall`` with bucket ratios so low that every lookup
+     and update falls back to the exact exchange; each held against the
+     world of one on the card, each step from one tower (the loss to
+     1e-5, the tower by phase 18's rule, the gathered shards and
+     accumulators by phase 2's); kernel 1 once a step on every rank; then
+     10 timed steps of each strategy (gloo ranks sharing one card: not a
+     multi-GPU number), and the harness once under the launcher
+     (``--simulate 2 --lookup alltoall --repeats 2``), its JSON line
+     printed.
 With ``--profile`` it then traces 10 steps of each timed variant and of
 the DIN harness's ``--sparse`` step with and without sessions with
 ``torch.profiler`` and prints device time per step by kernel class; in
@@ -216,7 +233,8 @@ The run's wall time is printed before the last two lines. The
 second-to-last line is a JSON object describing each kernel (its times,
 launches on its path, in the trainers' runs, in the runs from Parquet
 files, in the served predicts, in the DIN phases, in the host-table
-phases and in the pipelining phases, and its bound: the
+phases, in the pipelining phases and in phase 32's ranks, and its
+bound: the
 larger of its bytes over 3.35 TB/s and its operations over the card's
 peak rate); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -3968,6 +3986,352 @@ def phase31_harnesses(smi):
   return launches
 
 
+SHARDED_WORLDS = (2, 4)    # phase 32's worlds of gloo ranks on the one card
+SHARDED_STEPS = 3          # their steps held against the world of one
+SHARDED_TIMED = 10         # and steps timed after them, per world and case
+SHARDED_FLAGS = ()         # the harness flags of phase 32's config
+SHARDED_DEVICE = 'cuda'    # the ranks' device
+SHARDED_LAUNCH_S = 420     # a world's launch, seconds at most
+# case -> (lookup strategy, exchange options). 'fallback' sets both bucket
+# ratios so low that every lookup and update bucket overflows, so the
+# exact exchanges run instead on every step.
+SHARDED_CASES = {
+    'allgather': ('allgather', {}),
+    'alltoall': ('alltoall', {}),
+    'fallback': ('alltoall', dict(lookup_bucket_ratio=0.01,
+                                  update_bucket_ratio=0.01)),
+}
+SHARDED_BATCH_SEED = tb.SEED + 32
+
+
+def sharded_rank(out: str, device: str, flags) -> int:
+  """One rank of phase 32, started by the port's launcher (``chip_smoke.py
+  --rank-of DIR``): joins the world, then for each of ``SHARDED_CASES``
+  builds the flagship state (the seed's, this rank's shard of the
+  table) and runs ``SHARDED_STEPS`` steps of the sparse step on its rows
+  of the global batch, writing to ``DIR/<case>.<rank>.pt`` its losses,
+  rank 0's tower and Adam moments after every step, its shard and
+  accumulator, its kernel launches and overflow fallbacks, and whether
+  its tower is rank 0's bit for bit; then times ``SHARDED_TIMED`` more
+  steps (not in the fallback case)."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.embedding import lookup as lookup_mod
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  ctx = hbt.Context.join(device)
+  try:
+    cfg = flagship(*flags)
+    dev = ctx.device
+    batch = functools.partial(
+        tb.shifted, *tb.make_batch(cfg, dev, SHARDED_BATCH_SEED,
+                                   rows=ctx.rows(cfg.batch)), cfg.vocab)
+    for case, (strategy, exchange) in SHARDED_CASES.items():
+      args = argparse.Namespace(**{**vars(cfg), 'lookup': strategy})
+      state, step = tb.build(args, dev, ctx=ctx, **exchange)
+      _reset_counts()
+      fell = (lookup_mod.lookup.overflow_fallbacks,
+              hbt.sparse_adagrad_apply.overflow_fallbacks)
+      trace = []
+      for i in range(SHARDED_STEPS):
+        state, metrics = step(state, batch(i))
+        rec = {'loss': float(metrics['loss'])}
+        if ctx.rank == 0:
+          opt = state.dense_opt.state
+          rec['tower'] = {n: (p.detach().cpu().clone(),
+                              opt[p]['exp_avg'].cpu().clone(),
+                              opt[p]['exp_avg_sq'].cpu().clone(),
+                              float(opt[p]['step']))
+                          for n, p in state.dense.named_parameters()}
+        trace.append(rec)
+      if dev.type == 'cuda':
+        torch.cuda.synchronize(dev)
+      counts = _counts()
+      flat = torch.cat([p.detach().reshape(-1)
+                        for p in state.dense.parameters()])
+      (name,) = state.tables
+      record = {
+          'trace': trace, 'counts': counts,
+          'fallbacks': (lookup_mod.lookup.overflow_fallbacks - fell[0],
+                        hbt.sparse_adagrad_apply.overflow_fallbacks - fell[1]),
+          'tower_equal': bool(torch.equal(
+              flat, hbt.distribute.broadcast(flat, 0, ctx=ctx))),
+          # Copies: the timed steps below go on updating the state.
+          'table': state.tables[name].to('cpu', copy=True),
+          'acc': state.table_opt[name].acc[0].to('cpu', copy=True),
+          'device': str(dev), 'backend': torch.distributed.get_backend()}
+      if case != 'fallback':
+        # The ranks start the timed window together.
+        hbt.distribute.allreduce(torch.zeros(1, device=dev), ctx=ctx)
+        w = tb.time_steps(state, step, batch, SHARDED_STEPS, SHARDED_TIMED,
+                          dev)
+        record['ms_per_step'] = w.ms / SHARDED_TIMED
+      torch.save(record, os.path.join(out, f'{case}.{ctx.rank}.pt'))
+      del state, step, record
+  finally:
+    ctx.leave()
+  return 0
+
+
+def _cpu_tower(cfg, values):
+  """A CPU tower of ``cfg`` holding ``values`` (``{name: (w, m, v,
+  step)}``), and its Adam state keyed by its parameters."""
+  tower, _ = tb._tower(cfg, torch.device('cpu'), torch.Generator())
+  opt = {}
+  with torch.no_grad():
+    for n, p in tower.named_parameters():
+      w, m, v, t = values[n]
+      p.copy_(w)
+      opt[p] = {'exp_avg': m, 'exp_avg_sq': v, 'step': torch.tensor(t)}
+  return tower, opt
+
+
+def _tower_values(state):
+  opt = state.dense_opt.state
+  return {n: (p.detach().cpu().clone(), opt[p]['exp_avg'].cpu().clone(),
+              opt[p]['exp_avg_sq'].cpu().clone(), float(opt[p]['step']))
+          for n, p in state.dense.named_parameters()}
+
+
+def _hold_world(label, cfg, dev, ranks):
+  """A world's records of one case against the world of one on the card
+  (``tb.build``: the same seed, the whole table), each step from one
+  tower: before step ``i`` the world of one takes the world's tower and
+  Adam moments after step ``i - 1``. The loss (the ranks' mean) to
+  ``rtol 1e-5``, the tower by ``_hold_tower`` with phase 2's rule for
+  the weights (within 1e-4 + 1e-4 of themselves, or up to 2.2 * lr
+  where the gradient is within its allowance of zero: the ranks sum the
+  tower's gradients in another order), and after the last step the
+  gathered shards and accumulators by phase 2's f32 rule."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.training.optimizer import init_state
+  state, step = tb.build(cfg, dev)
+  init_state(state.dense_opt)
+  batch = functools.partial(tb.shifted, *tb.make_batch(
+      cfg, dev, SHARDED_BATCH_SEED), cfg.vocab)
+  group = state.dense_opt.param_groups[0]
+  adam = (group['lr'], *group['betas'], group['eps'])
+  opt = state.dense_opt.state
+  report = {'loss_rel_err': 0.0, **_tower_report()}
+  apart_in = set()
+  prev = None
+  for i in range(SHARDED_STEPS):
+    step_label = f'{label}, step {i + 1}'
+    if prev is not None:
+      with torch.no_grad():
+        for n, p in state.dense.named_parameters():
+          w, m, v, t = prev[n]
+          p.copy_(w)
+          opt[p]['exp_avg'].copy_(m)
+          opt[p]['exp_avg_sq'].copy_(v)
+          opt[p]['step'].fill_(t)
+    before_values = _tower_values(state)
+    before = [before_values[n][:2] for n, _ in state.dense.named_parameters()]
+    v_before = [before_values[n][2]
+                for n, _ in state.dense.named_parameters()]
+    state, metrics = step(state, batch(i))
+    losses = {r['trace'][i]['loss'] for r in ranks}
+    one = float(metrics['loss'])
+    if len(losses) != 1:
+      raise AssertionError(f'{step_label}: the ranks report losses {losses}')
+    (world_loss,) = losses
+    report['loss_rel_err'] = max(report['loss_rel_err'],
+                                 abs(world_loss - one) / abs(one))
+    if not abs(world_loss - one) <= 1e-5 * abs(one):
+      raise AssertionError(f'{step_label}: loss {world_loss}, a world of one '
+                           f'{one}')
+    g_net, g_opt = _cpu_tower(cfg, ranks[0]['trace'][i]['tower'])
+    c_net, c_opt = _cpu_tower(cfg, _tower_values(state))
+    _hold_tower(step_label, g_net, c_net, g_opt, c_opt, before, v_before,
+                adam, report, apart_in)
+    either_sign = (max(report['their_largest_grad_of_max_card'],
+                       report['their_largest_grad_of_max_cpu']) <= 1e-3
+                   and report['tower_max_abs_err'] <= 2.2 * adam[0])
+    if report['tower_weights_over_1e-4_apart'] and not either_sign:
+      raise AssertionError(f'{step_label}: tower weights over 1e-4 apart: '
+                           f'{report} in {sorted(apart_in)}')
+    prev = ranks[0]['trace'][i]['tower']
+  (name,) = state.tables
+  for key, one in (('table', state.tables[name]),
+                   ('acc', state.table_opt[name].acc[0])):
+    got = torch.cat([r[key] for r in ranks])
+    one = one.cpu()
+    err = float((got - one).abs().max())
+    report[f'{key}_max_abs_err'] = err
+    # Adagrad moves an element by 0.05 * g / sqrt(0.1 + g**2): the
+    # gradients' order error stays far below 1e-5 (phase 2).
+    if got.shape != one.shape or not torch.allclose(got, one, rtol=1e-5,
+                                                    atol=1e-5):
+      raise AssertionError(f'{label}: the gathered {key} differs by up to '
+                           f'{err}')
+  return report, apart_in
+
+
+def _nccl_world_of_one(dev):
+  """``distribute/collective.py``'s ops on NCCL in a joined world of one
+  on the card, each against its input; and kernel 1 on an owner list that
+  went through ``all_to_all_v`` there, against its plain version on the
+  CPU copy."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.distribute import collective
+  from hybridbackend_tpu_torch.embedding import sparse_update as su
+  with tempfile.TemporaryDirectory() as tmp:
+    ctx = hbt.Context.join('cuda', 'nccl', rank=0, world_size=1,
+                           init_method=f'file://{tmp}/store', timeout_s=120)
+    try:
+      x = torch.arange(4096, dtype=torch.float32, device=ctx.device)
+      ops = {'allreduce': collective.allreduce(x, ctx=ctx),
+             'allreduce mean': collective.allreduce(x, 'mean', ctx=ctx),
+             'broadcast': collective.broadcast(x, ctx=ctx),
+             'allgather': collective.allgather(x, ctx=ctx),
+             'alltoall': collective.alltoall(x, ctx=ctx),
+             'reduce_scatter': collective.reduce_scatter(x[None], ctx=ctx)}
+      recv, sizes = collective.all_to_all_v(
+          x.reshape(1, -1, 16), torch.full((1,), 7, dtype=torch.int32,
+                                           device=ctx.device), ctx=ctx)
+      ops['all_to_all_v'] = recv.reshape(-1)
+      bad = [k for k, v in ops.items() if not torch.equal(v, x)]
+      if bad or sizes.tolist() != [7]:
+        raise AssertionError(f'phase 32: NCCL at a world of one changed '
+                             f'{bad}, sizes {sizes.tolist()}')
+      cfg = flagship(*SHARDED_FLAGS)
+      rng = np.random.RandomState(32)
+      v, n = cfg.tables * cfg.vocab, cfg.batch * cfg.tables
+      rows = torch.from_numpy(rng.randint(-1, v, n).astype(np.int32)).to(dev)
+      g = torch.from_numpy(rng.randn(n, cfg.dim).astype(np.float32)).to(dev)
+      buckets = su._bucket_by_owner(*su._local_combine(rows, g), 1, v, n)
+      local, grads = su._sort(*(t for t in su._route_grads_a2a(
+          buckets, ctx, v)))
+      local = local.to(torch.int32)
+      gen = torch.Generator().manual_seed(32)
+      table = torch.rand((v, cfg.dim), generator=gen)
+      acc = torch.full_like(table, tb.ADAGRAD_INIT)
+      want = hbt.adagrad_update_sorted_reference(
+          table.clone(), acc.clone(), local.cpu(), grads.cpu(), tb.TABLE_LR)
+      _reset_counts()
+      got = hbt.adagrad_update_sorted(table.to(dev), acc.to(dev), local,
+                                      grads, tb.TABLE_LR)
+      torch.cuda.synchronize(dev)
+      counts = _counts()
+      _expect('phase 32, kernel 1 on an all_to_all_v list', counts,
+              adagrad_update_sorted=1)
+      errs = [float((a.cpu() - b).abs().max()) for a, b in zip(got, want)]
+      if not all(torch.allclose(a.cpu(), b, rtol=1e-5, atol=1e-5)
+                 for a, b in zip(got, want)):
+        raise AssertionError(f'phase 32: kernel 1 on an all_to_all_v list '
+                             f'differs by {errs}')
+    finally:
+      ctx.leave()
+  print(f'phase 32: NCCL ({torch.cuda.nccl.version()}) at a world of one on '
+        f'the card: {", ".join(ops)} give their input back; kernel 1 on an '
+        f'owner list of {n} entries through all_to_all_v on NCCL against '
+        f'its plain version: table and acc {errs[0]:.3e}, {errs[1]:.3e} '
+        'apart')
+
+
+def phase32_sharded(dev, smi):
+  """Phase 32: the flagship sparse step on a world of N ranks, N gloo
+  ranks sharing the card (``python -m hybridbackend_tpu_torch.run
+  --simulate N --device cuda``), for N in ``SHARDED_WORLDS``: in one
+  launch a world runs each of ``SHARDED_CASES`` from the seed's state
+  (``sharded_rank``), which is then held against the world of one on the
+  card (``_hold_world``); kernel 1 once a step on every rank; the
+  forced-overflow case's fallbacks on every step, the others' never.
+  Before them the collectives on NCCL at a world of one, and after them
+  the harness once under the launcher. Returns the kernel launches of the
+  ranks' held steps, summed over the ranks."""
+  cfg = flagship(*SHARDED_FLAGS)
+  t_phase = time.perf_counter()
+  _nccl_world_of_one(dev)
+  print('phase 32: gloo takes CUDA tensors in every collective the port '
+        'calls (all_reduce, broadcast, all_gather_into_tensor, '
+        'all_to_all_single, reduce_scatter_tensor) and copies them through '
+        'the host itself; the port stages nothing')
+  sharded = collections.Counter()
+  for world in SHARDED_WORLDS:
+    with tempfile.TemporaryDirectory() as out:
+      t0 = time.perf_counter()
+      cmd = [sys.executable, '-m', 'hybridbackend_tpu_torch.run',
+             '--simulate', str(world), '--device', SHARDED_DEVICE,
+             '--timeout', str(SHARDED_LAUNCH_S),
+             os.path.join(HERE, 'chip_smoke.py'), '--rank-of', out,
+             '--rank-device', SHARDED_DEVICE,
+             '--rank-flags', json.dumps(list(SHARDED_FLAGS))]
+      res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                           timeout=SHARDED_LAUNCH_S + 60)
+      if res.returncode != 0:
+        raise RuntimeError(f'phase 32: {world} ranks exited '
+                           f'{res.returncode}:\n{res.stderr[-4000:]}')
+      launch_s = time.perf_counter() - t0
+      t0 = time.perf_counter()
+      times = []
+      for case, (strategy, exchange) in SHARDED_CASES.items():
+        label = f'phase 32, {world} ranks, {case}'
+        ranks = [torch.load(os.path.join(out, f'{case}.{r}.pt'))
+                 for r in range(world)]
+        want_fallbacks = ((SHARDED_STEPS, SHARDED_STEPS) if case == 'fallback'
+                          else (0, 0))
+        for r, rec in enumerate(ranks):
+          _expect(f'{label}, rank {r}', rec['counts'],
+                  adagrad_update_sorted=SHARDED_STEPS)
+          sharded.update(rec['counts'])
+          if tuple(rec['fallbacks']) != want_fallbacks:
+            raise AssertionError(f'{label}, rank {r}: (lookup, update) '
+                                 f'fallbacks {rec["fallbacks"]}, expected '
+                                 f'{want_fallbacks}')
+          if not rec['tower_equal']:
+            raise AssertionError(f'{label}: rank {r}\'s tower is not rank '
+                                 '0\'s')
+        report, apart_in = _hold_world(label, cfg, dev, ranks)
+        if case != 'fallback':
+          times.append(f'{case} {ranks[0]["ms_per_step"]:.4f}')
+        print(f'{label} ({strategy}, {exchange or "default buckets"}; '
+              f'{ranks[0]["backend"]} on {ranks[0]["device"]}): '
+              f'{SHARDED_STEPS} steps against a world of one on the card, '
+              f'each from one tower: '
+              + ', '.join(f'{k} {v:.3e}' if isinstance(v, float)
+                          else f'{k} {v}' for k, v in report.items())
+              + f' (in {", ".join(sorted(apart_in)) or "none"}); kernel 1 '
+              f'{SHARDED_STEPS} times on each rank; (lookup, update) '
+              f'fallbacks {tuple(ranks[0]["fallbacks"])} a rank')
+        del ranks
+    print(f'phase 32, {world} ranks on {smi}: ms/step of rank 0 over '
+          f'{SHARDED_TIMED} steps (CUDA events): {", ".join(times)} -- gloo '
+          'ranks sharing one card: not a multi-GPU number; launch '
+          f'{launch_s:.1f} s, held against the world of one in '
+          f'{time.perf_counter() - t0:.1f} s')
+  t0 = time.perf_counter()
+  line = _launched_harness(smi)
+  print('phase 32 (python -m hybridbackend_tpu_torch.run --simulate 2 '
+        '--device cuda -m hybridbackend_tpu_torch.benchmarks.train_benchmark '
+        f'--sparse --lookup alltoall --json; gloo ranks sharing one card: '
+        f'not a multi-GPU number; {time.perf_counter() - t0:.1f} s): '
+        f'{line}')
+  print(f'phase 32: {time.perf_counter() - t_phase:.1f} s')
+  return sharded
+
+
+def _launched_harness(smi):
+  """The harness under the launcher as a world of two gloo ranks on the
+  card; returns its JSON line, which rank 0 alone prints."""
+  cmd = [sys.executable, '-m', 'hybridbackend_tpu_torch.run', '--simulate',
+         '2', '--device', SHARDED_DEVICE, '--timeout', '300', '-m',
+         'hybridbackend_tpu_torch.benchmarks.train_benchmark', '--sparse',
+         '--lookup', 'alltoall', '--json', '--device', SHARDED_DEVICE,
+         '--repeats', '2', *SHARDED_FLAGS]
+  res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                       timeout=360)
+  lines = [l for l in res.stdout.splitlines() if l.startswith('{')]
+  if res.returncode != 0 or len(lines) != 1:
+    raise RuntimeError(f'phase 32: the launched harness exited '
+                       f'{res.returncode}, printed {res.stdout[-2000:]}:\n'
+                       f'{res.stderr[-3000:]}')
+  r = json.loads(lines[0])
+  if (r['world'], r['lookup'], r['backend']) != (2, 'alltoall', 'gloo') or (
+      SHARDED_DEVICE == 'cuda' and r['card'] != smi):
+    raise AssertionError(f'phase 32: the launched harness gave {lines[0]}')
+  return lines[0]
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--profile', action='store_true',
@@ -3976,7 +4340,17 @@ def main() -> int:
                       help='time kernels 2 and 4 over tile and block '
                       'sizes, and kernels 1 and 3 over tile sizes and state '
                       'batches')
+  parser.add_argument('--rank-of', metavar='DIR',
+                      help='run as one rank of phase 32 under the port\'s '
+                      'launcher, writing to DIR')
+  parser.add_argument('--rank-device', default='cuda',
+                      help='that rank\'s device')
+  parser.add_argument('--rank-flags', default='[]',
+                      help='that rank\'s harness flags, a JSON list')
   args = parser.parse_args()
+  if args.rank_of:
+    return sharded_rank(args.rank_of, args.rank_device,
+                        json.loads(args.rank_flags))
   t_start = time.perf_counter()
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; this smoke run needs one',
@@ -4080,6 +4454,7 @@ def main() -> int:
   pipeline_launches.update(phase30_interleaved(
       cfg, dev, smi, profile_steps=10 if args.profile else 0))
   pipeline_launches.update(phase31_harnesses(smi))
+  sharded_launches = phase32_sharded(dev, smi)
   if args.profile:
     batch = functools.partial(tb.shifted, *tb.make_batch(cfg, dev),
                               cfg.vocab)
@@ -4130,7 +4505,12 @@ def main() -> int:
                  # pipelined and the interleaved steps, the harnesses'
                  # processes.
                  'pipeline_launches': (pipeline_launches[name]
-                                       if name in tb.COUNTED else None)})
+                                       if name in tb.COUNTED else None),
+                 # Launches in phase 32's ranks, the held steps of every
+                 # world and case summed over the ranks (the timed steps
+                 # and the launched harness not counted).
+                 'sharded_launches': (sharded_launches[name]
+                                      if name in tb.COUNTED else None)})
   print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s wall, every '
         'phase')
   print(json.dumps({'kernels': rows}))

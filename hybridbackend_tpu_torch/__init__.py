@@ -44,7 +44,12 @@ tested against. It imports ``torch`` and never ``jax``, and nothing from
   stream beside the tower and whose tables take one row-sparse update a
   step;
 * a row gather with clipped ids and a stochastically rounded bf16 cast,
-  each with its kernel.
+  each with its kernel;
+* a world of ranks (``Context.join``, the launcher ``python -m
+  hybridbackend_tpu_torch.run``, ``distribute``): the sparse step with
+  row-sharded stacks, looked up through the allgather or alltoall
+  exchange, their Adagrad update routed to each row's owner and applied
+  there through the Adagrad kernel, and the tower data-parallel.
 
 Kernels and the native libraries are built at first use, never at
 import.
@@ -52,10 +57,10 @@ import.
 
 __version__ = '0.1.0'
 
-from hybridbackend_tpu_torch import data, metrics, pipeline
+from hybridbackend_tpu_torch import data, distribute, metrics, pipeline
 from hybridbackend_tpu_torch.convert import (
-    from_jax, from_jax_dense, load_adam_state, load_dcn_v2, load_dice,
-    load_din, load_dlrm, quantized_from_jax)
+    from_jax, from_jax_dense, gather_tables, load_adam_state, load_dcn_v2,
+    load_dice, load_din, load_dlrm, quantized_from_jax)
 from hybridbackend_tpu_torch.data import (
     DataFrame, Dataset, Field, ParquetDataset, RebatchBuffer, Value,
     deduplicate, infer_fields, parse, populate_defaults, rebatch,
@@ -65,7 +70,8 @@ from hybridbackend_tpu_torch.data.sync import (
     SYNC_VALID_KEY, SyncReplicasIterator)
 from hybridbackend_tpu_torch.embedding.dynamic import (
     DynamicEmbedding, IdMapper)
-from hybridbackend_tpu_torch.embedding.lookup import lookup, lookup_sparse
+from hybridbackend_tpu_torch.embedding.lookup import (
+    lookup, lookup_sparse, world_slice)
 from hybridbackend_tpu_torch.embedding.quant import (
     QuantizedTable, dequantize_table, lookup_quantized, quantize_table)
 from hybridbackend_tpu_torch.embedding.service import (

@@ -15,6 +15,23 @@ and batch are drawn from seed 0, as there. Run on one CUDA device:
       [--table-dtype bfloat16] [--model dlrm] [--bf16] [--no-dedup] \\
       [--interleave K] [--json]
 
+Under the port's launcher the harness runs one rank of a world of N and
+takes its world from the process group: ``--sparse`` tables row-sharded
+over the ranks and looked up through ``--lookup allgather|alltoall``,
+the tower data-parallel. ``--batch`` is the global batch: every rank
+draws the same batch from the seed and steps on its rows of it, so a
+world of one and one of N consume the same data. Rank 0 alone prints
+the report, with the world, the strategy, the backend, and examples/s
+of the global batch:
+
+  python -m hybridbackend_tpu_torch.run --simulate 2 -m \
+      hybridbackend_tpu_torch.benchmarks.train_benchmark --sparse \
+      --lookup alltoall --json
+
+Gloo ranks that share one card (``--simulate N --device cuda``) check
+correctness only: their times say nothing of NCCL or of links between
+cards.
+
 With ``--sparse --interleave K`` the step is the PICASSO interleaved one
 (``pipeline.make_interleaved_train_step``, as the JAX harness builds it
 at ``:121-127``): the batch in K micro-batches whose lookups run on a
@@ -33,10 +50,13 @@ and, on a card, its name and power limit as ``nvidia-smi`` prints them,
 and the kernel launches of the timed steps. TF32 stays off (PyTorch's
 default for matmuls): the tower's f32 matmuls are exact f32.
 
-Refused, each with its reason: multi-device runs (``--cpu N``, not
-ported); ``--no-dedup`` or ``--interleave`` without ``--sparse``, as both
-apply to the sparse step only; ``--no-dedup`` with ``--interleave``, as
-the JAX harness refuses it.
+Refused, each with its reason: a host mesh in one process (``--cpu N``:
+the port's ranks are processes, started by the launcher);
+``--no-dedup`` or ``--interleave`` without ``--sparse``, as both apply
+to the sparse step only; ``--no-dedup`` with ``--interleave``, as the
+JAX harness refuses it; in a world of more than one rank, the dense
+mode, ``--interleave``, ``--no-dedup`` and bf16 tables (ROADMAP item
+15b).
 """
 
 from __future__ import annotations
@@ -44,6 +64,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -91,8 +112,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
   p.add_argument('--table-dtype', default='float32',
                  choices=['float32', 'bfloat16'],
                  help='embedding table and slot storage dtype')
+  p.add_argument('--lookup', default='allgather',
+                 choices=['allgather', 'alltoall'],
+                 help='the sharded tables\' exchange, under the launcher')
   p.add_argument('--cpu', type=int, default=0,
-                 help='devices of a host mesh (not ported)')
+                 help='devices of a host mesh (not ported: start ranks '
+                      'with python -m hybridbackend_tpu_torch.run)')
   p.add_argument('--device', default='cuda',
                  help="'cuda' (default) or 'cpu'")
   p.add_argument('--json', action='store_true')
@@ -109,12 +134,33 @@ def unsupported(args: argparse.Namespace) -> Optional[str]:
   if args.interleave > 0 and args.no_dedup:
     return '--no-dedup is not supported with --interleave'
   if args.cpu:
-    return ('--cpu N (a multi-device host mesh) is not ported; this '
-            'harness drives one device')
+    return ('--cpu N (a mesh of N host devices in one process) is not '
+            'ported; start N ranks with python -m hybridbackend_tpu_torch.run '
+            '--simulate N -m hybridbackend_tpu_torch.benchmarks.'
+            'train_benchmark')
+  if launched() and int(os.environ['WORLD_SIZE']) > 1:
+    if not args.sparse:
+      return ('the dense mode in a world of more than one rank is ROADMAP '
+              'item 15b (5); pass --sparse')
+    if args.interleave > 0:
+      return ('--interleave in a world of more than one rank is ROADMAP '
+              'item 15b (7)')
+    if args.no_dedup:
+      return ('--no-dedup in a world of more than one rank is ROADMAP item '
+              '15b (1)')
+    if args.table_dtype != 'float32':
+      return ('bf16 tables in a world of more than one rank are ROADMAP '
+              'item 15b (9)')
   if torch.device(args.device).type == 'cuda' and (
       not torch.cuda.is_available()):
     return 'no CUDA device; pass --device cpu to run on the CPU'
   return None
+
+
+def launched() -> bool:
+  """Whether this process is a rank started by the port's launcher (or
+  another that sets ``WORLD_SIZE``)."""
+  return 'WORLD_SIZE' in os.environ
 
 
 def card() -> Optional[str]:
@@ -157,15 +203,16 @@ def bce(preds: torch.Tensor, y: torch.Tensor):
   return torch.mean(pel), {'preds': p, 'per_example_loss': pel}
 
 
-def sparse_parts(args: argparse.Namespace, device: torch.device):
+def sparse_parts(args: argparse.Namespace, device: torch.device,
+                 ctx=None):
   """``(fx, tables, tower, model_loss)`` of the sparse config ``args`` on
   ``device``, drawn on the CPU from ``SEED`` (so every device starts from
-  one state)."""
+  one state); in the world ``ctx``, with this rank's shards."""
   import hybridbackend_tpu_torch as hbt
   fx = hbt.StackedFeatureExtractor(
       _specs(args),
       dense_columns=[f'i{d}' for d in range(args.dense_features)],
-      ctx=hbt.Context(device))
+      ctx=ctx or hbt.Context(device))
   gen = torch.Generator().manual_seed(SEED)
   tables = fx.init(gen)
   tower, preds = _tower(args, device, gen)
@@ -218,21 +265,25 @@ def dense_parts(args: argparse.Namespace, device: torch.device):
 
 
 def build(args: argparse.Namespace, device: torch.device,
-          table_optimizer: str = 'adagrad', split_dense: bool = False):
+          table_optimizer: str = 'adagrad', split_dense: bool = False,
+          ctx=None, **exchange):
   """The state and the step of the config ``args`` on ``device``: the
   sparse step with ``--sparse`` (the interleaved one with
   ``--interleave K``), the dense-gradient step without.
   ``table_optimizer`` (``'adam'`` for LazyAdam) and ``split_dense`` are
-  sparse-step options beyond the JAX harness's Adagrad."""
+  sparse-step options beyond the JAX harness's Adagrad. ``ctx`` is the
+  world of a rank, and ``exchange`` the sparse step's other exchange
+  options (``lookup_bucket_ratio``, ``update_bucket_ratio``, ...); the
+  strategy is ``--lookup``."""
   import hybridbackend_tpu_torch as hbt
   if not args.sparse:
     loss_fn, module, optimizer = dense_parts(args, device)
     return (hbt.TrainState.create(module, optimizer),
             hbt.make_train_step(loss_fn))
-  fx, tables, tower, model_loss = sparse_parts(args, device)
+  fx, tables, tower, model_loss = sparse_parts(args, device, ctx)
   state = hbt.SparseTrainState.create(
       tower, tables, functools.partial(torch.optim.Adam, lr=TOWER_LR),
-      adagrad_init=ADAGRAD_INIT, adam=table_optimizer == 'adam')
+      adagrad_init=ADAGRAD_INIT, adam=table_optimizer == 'adam', ctx=ctx)
   if args.interleave > 0:
     if split_dense:
       raise ValueError('the interleaved step has no split-dense update')
@@ -242,24 +293,25 @@ def build(args: argparse.Namespace, device: torch.device,
   step = hbt.make_sparse_train_step(fx, model_loss, table_lr=TABLE_LR,
                                     table_dedup=not args.no_dedup,
                                     table_optimizer=table_optimizer,
-                                    table_split_dense=split_dense)
+                                    table_split_dense=split_dense,
+                                    lookup_strategy=args.lookup, **exchange)
   return state, step
 
 
 def make_batch(args: argparse.Namespace, device: torch.device,
-               seed: int = SEED):
+               seed: int = SEED, rows: slice = slice(None)):
   """The JAX harness's draws from ``RandomState(seed)``, in its order: ids
   per table, dense features, labels. Returns the dense features and
   labels, and the ids as one [B, tables] tensor whose columns the batch
-  views (``shifted``)."""
+  views (``shifted``); of the ``rows`` of the batch (a rank's share)."""
   rng = np.random.RandomState(seed)
   ids = np.stack([rng.randint(0, args.vocab, args.batch)
                   for _ in range(args.tables)], axis=1).astype(np.int32)
   base = {f'i{d}': torch.from_numpy(rng.rand(args.batch).astype(
-      np.float32)).to(device) for d in range(args.dense_features)}
+      np.float32)[rows]).to(device) for d in range(args.dense_features)}
   base['label'] = torch.from_numpy(
-      rng.randint(0, 2, args.batch).astype(np.float32)).to(device)
-  return base, torch.from_numpy(ids).to(device)
+      rng.randint(0, 2, args.batch).astype(np.float32)[rows]).to(device)
+  return base, torch.from_numpy(ids[rows]).to(device)
 
 
 def shifted(base: Dict[str, torch.Tensor], ids: torch.Tensor, vocab: int,
@@ -316,13 +368,15 @@ def time_steps(state, step, batch: Callable[[int], Dict[str, torch.Tensor]],
                 fetch_s * 1e3)
 
 
-def run(args: argparse.Namespace) -> dict:
-  """Builds the config, times it and returns the report."""
+def run(args: argparse.Namespace, ctx=None) -> dict:
+  """Builds the config, times it and returns the report; in the world
+  ``ctx``, this rank's report."""
   import hybridbackend_tpu_torch as hbt
-  device = torch.device(args.device)
+  device = ctx.device if ctx is not None else torch.device(args.device)
   on_card = device.type == 'cuda'
-  state, step = build(args, device)
-  base, ids = make_batch(args, device)
+  state, step = build(args, device, ctx=ctx)
+  base, ids = make_batch(args, device, rows=(
+      ctx.rows(args.batch) if ctx is not None else slice(None)))
   batch = functools.partial(shifted, base, ids, args.vocab)
   state = time_steps(state, step, batch, 0, WARMUP, device).state
   for name in COUNTED:
@@ -355,6 +409,10 @@ def run(args: argparse.Namespace) -> dict:
       'vocab': args.vocab, 'dense_features': args.dense_features,
       'inner_steps': args.inner_steps, 'repeats': args.repeats,
       'device': str(device),
+      'world': ctx.world_size if ctx is not None else 1,
+      'lookup': args.lookup,
+      'backend': (torch.distributed.get_backend(ctx.group)
+                  if ctx is not None else None),
       'device_name': torch.cuda.get_device_name(device) if on_card else 'cpu',
       'card': card() if on_card else None,
       'timing': 'cuda events' if on_card else 'host clock',
@@ -369,7 +427,17 @@ def main(argv: Optional[List[str]] = None) -> int:
   if why:
     print(f'train_benchmark: {why}', file=sys.stderr)
     return 1
-  result = run(args)
+  ctx = None
+  if launched():
+    import hybridbackend_tpu_torch as hbt
+    ctx = hbt.Context.join(args.device)
+  try:
+    result = run(args, ctx)
+  finally:
+    if ctx is not None:
+      ctx.leave()
+  if ctx is not None and ctx.rank != 0:
+    return 0
   if args.json:
     print(json.dumps(result))
   else:

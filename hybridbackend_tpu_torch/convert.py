@@ -2,11 +2,13 @@
 
 The JAX package hands its state over as numpy arrays (for example
 ``jax.tree.map(np.asarray, state)``), so this module imports no JAX. It
-expects a state made in a one-device JAX context, where stacks and their
-member offsets are laid out as in the port. There a narrow table is
-lane-packed ``[V/p, 128]`` (``hybridbackend_tpu/embedding/table.py:
-143-145, 244-246``); a row-major reshape to ``[-1, dim]`` restores the
-logical layout, and does nothing to an unpacked ``[V, dim]`` table.
+expects a state made in a JAX context of as many devices as the port's
+world has ranks (one, unless the feature extractor's context says
+otherwise), where stacks and their member offsets are laid out as in the
+port. On one device a narrow table is lane-packed ``[V/p, 128]``
+(``hybridbackend_tpu/embedding/table.py:143-145, 244-246``); a row-major
+reshape to ``[-1, dim]`` restores the logical layout, and does nothing to
+an unpacked ``[V, dim]`` table.
 A bfloat16 table or slot (an ``ml_dtypes`` array, which ``torch.tensor``
 does not take) is carried across bit for bit through its 16-bit view,
 without importing ``ml_dtypes``.
@@ -36,9 +38,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from hybridbackend_tpu_torch.distribute.collective import allgather
 from hybridbackend_tpu_torch.embedding.quant import QuantizedTable
 from hybridbackend_tpu_torch.embedding.sparse_update import SparseOptState
 from hybridbackend_tpu_torch.embedding.table import TableConfig
+from hybridbackend_tpu_torch.framework.context import Context
 from hybridbackend_tpu_torch.models.feature import (
     EmbeddingSpec, StackedFeatureExtractor)
 from hybridbackend_tpu_torch.models.layers import Dense, Dice
@@ -65,21 +69,39 @@ def _tensor(arr: np.ndarray, dtype: torch.dtype,
 
 
 def _logical_table(arr: np.ndarray, cfg: TableConfig, device: torch.device,
-                   name: str) -> torch.Tensor:
+                   name: str, ctx: Optional[Context] = None) -> torch.Tensor:
   flat = np.asarray(arr).reshape(-1, cfg.dim)
-  if flat.shape[0] < cfg.padded_vocab():
+  vocab = cfg.padded_vocab(ctx)
+  if flat.shape[0] < vocab:
     raise ValueError(f'{name}: {flat.shape[0]} rows, the port needs '
-                     f'{cfg.padded_vocab()}')
+                     f'{vocab}')
   # Rows past padded_vocab are the JAX layout's alignment padding; no
   # valid id reaches them. torch.tensor copies: the port updates its
   # tables in place, and the source may be a read-only JAX buffer.
-  return _tensor(flat[:cfg.padded_vocab()], cfg.dtype, device)
+  flat = flat[:vocab]
+  if ctx is not None:
+    flat = flat[cfg.shard_rows(ctx)]
+  return _tensor(flat, cfg.dtype, device)
 
 
-def _logical(fx: StackedFeatureExtractor, arrays: Mapping[str, np.ndarray]
-             ) -> Dict[str, torch.Tensor]:
+def _logical(fx: StackedFeatureExtractor, arrays: Mapping[str, np.ndarray],
+             ctx: Context) -> Dict[str, torch.Tensor]:
   return {s.stacked.name: _logical_table(arrays[s.stacked.name], s.stacked,
-                                         fx.ctx.device, s.stacked.name)
+                                         ctx.device, s.stacked.name, ctx)
+          for s in fx.stacks}
+
+
+def gather_tables(fx: StackedFeatureExtractor,
+                  tables: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+  """Each stack's whole logical table on every rank: the ranks' shards
+  of a sharded stack gathered in rank order (a collective: every rank
+  calls it), a replicated one as it is. For checks of a world of more
+  than one rank against one of one, and for a table (or a slot) that
+  leaves the world."""
+  return {s.stacked.name: (allgather(tables[s.stacked.name], ctx=fx.ctx)
+                           if s.stacked.should_shard(fx.ctx)
+                           else tables[s.stacked.name])
           for s in fx.stacks}
 
 
@@ -184,8 +206,13 @@ def from_jax(fx: StackedFeatureExtractor, tables: Mapping[str, np.ndarray],
              slots: Mapping[str, Any], model: Tower,
              dense_params: Mapping[str, Any],
              dense_optimizer: OptimizerFactory, *, step: int = 0,
-             adam: Optional[AdamState] = None) -> SparseTrainState:
+             adam: Optional[AdamState] = None,
+             ctx: Optional[Context] = None) -> SparseTrainState:
   """The port's state from a JAX ``SparseTrainState`` given as numpy.
+
+  In a world of more than one rank, each rank passes the JAX state's
+  global arrays (made on a mesh of as many devices) and keeps its rows
+  of each sharded stack's table and slots.
 
   Args:
     tables: ``state.tables``, one array per stack name.
@@ -200,19 +227,21 @@ def from_jax(fx: StackedFeatureExtractor, tables: Mapping[str, np.ndarray],
     step: ``int(state.step)``.
     adam: the tower's ``state.dense_opt[0]`` as ``(mu, nu, count)``; None
       leaves the optimizer's state empty, as it is at step 0.
+    ctx: the world, by default the feature extractor's.
   """
   _load_tower(model, dense_params)
-  model.to(fx.ctx.device)
+  ctx = ctx or fx.ctx
+  model.to(ctx.device)
   per_stack = {name: s if isinstance(s, (tuple, list)) else (s,)
                for name, s in slots.items()}
   widths = {len(s) for s in per_stack.values()}
   if len(widths) > 1 or not widths <= {1, 2}:
     raise ValueError('slots must be one accumulator or one (m, v) pair '
                      f'per stack; got {sorted(widths)} arrays')
-  by_slot = [_logical(fx, {n: s[i] for n, s in per_stack.items()})
+  by_slot = [_logical(fx, {n: s[i] for n, s in per_stack.items()}, ctx)
              for i in range(max(widths, default=0))]
   state = SparseTrainState(
-      step=step, dense=model, tables=_logical(fx, tables),
+      step=step, dense=model, tables=_logical(fx, tables, ctx),
       table_opt={name: SparseOptState(acc=tuple(b[name] for b in by_slot))
                  for name in per_stack},
       dense_opt=dense_optimizer(model.parameters()))
@@ -273,5 +302,6 @@ def quantized_from_jax(q: np.ndarray, scale: np.ndarray, dim: int,
                         scale=torch.tensor(scale, device=device))
 
 
-__all__ = ['from_jax', 'from_jax_dense', 'load_adam_state', 'load_dcn_v2',
-           'load_dice', 'load_din', 'load_dlrm', 'quantized_from_jax']
+__all__ = ['from_jax', 'from_jax_dense', 'gather_tables', 'load_adam_state',
+           'load_dcn_v2', 'load_dice', 'load_din', 'load_dlrm',
+           'quantized_from_jax']

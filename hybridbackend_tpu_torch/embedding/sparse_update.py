@@ -1,8 +1,7 @@
 """Row-sparse table optimizers: Adagrad, SGD and LazyAdam.
 
-Counterpart of the replicated branch of
-``hybridbackend_tpu/embedding/sparse_update.py`` at a world of one:
-``sparse_adagrad_apply`` (``:629-731``, with ``_stream_adagrad`` at
+Counterpart of ``hybridbackend_tpu/embedding/sparse_update.py``:
+``sparse_adagrad_apply`` (``:629-782``, with ``_stream_adagrad`` at
 ``:253-287``), ``sparse_sgd_apply`` (``:784-832``) and
 ``sparse_adam_apply`` (``:853-935``). Given the batch's ids and the
 gradient with respect to the looked-up embeddings, each updates only the
@@ -21,16 +20,35 @@ Tables may be float32 or bfloat16; the slots (``*_like(table)``, as in
 JAX) and the gradient list take the table's dtype, and every update does
 its math in float32 and rounds each stored result once
 (``ops/scatter.py``).
+
+In a world of more than one rank (``ctx``), Adagrad takes each rank's
+ids and gradients. A replicated table gathers every rank's list and
+applies the global update on every replica (``:709-731``). A row-sharded
+table routes each row's gradient to the rank that owns it
+(``:377-555``): each rank sums its duplicate rows, buckets the totals by
+owner and sends them with ``all_to_all_v`` (``exchange='alltoall'``, a
+bucket of ``ceil(bucket_ratio·ceil(n/W))`` rows; when one overflows on
+any rank, every rank takes the allgather route instead), or every rank
+gathers every list and keeps its own rows (``'allgather'``). The owner
+sorts the rows it received and updates its shard through kernel 1, as at
+a world of one (``apply_local``, ``:762-782``). ``dedup=False`` and
+``split_dense`` on a sharded table, and SGD and LazyAdam at more than one
+rank, are ROADMAP item 15b and raise; nothing falls back to a replicated
+update.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import math
+from typing import Callable, Optional, Tuple
 
 import torch
 
+from hybridbackend_tpu_torch.distribute import collective
+from hybridbackend_tpu_torch.distribute.partition import bucket_counts
 from hybridbackend_tpu_torch.embedding.table import TableConfig
+from hybridbackend_tpu_torch.framework.context import Context
 from hybridbackend_tpu_torch.ops.scatter import (
     Lr, Step, _device_scalar, adagrad_update_sorted, adam_update_sorted,
     gsum_dense_sorted, scatter_add_sorted)
@@ -62,15 +80,153 @@ def _valid_rows(rows, ids, config: TableConfig):
   return torch.where((ids >= 0) & (ids < config.vocab_size), rows, -1)
 
 
+def _flat_list(table: torch.Tensor, ids: torch.Tensor, demb: torch.Tensor,
+               config: TableConfig, ctx: Optional[Context] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """The update list in the ids' order: ``(rows int32 [N], grads [N,
+  d])``, invalid ids as row ``-1``."""
+  flat = ids.reshape(-1)
+  rows = _valid_rows(config.row_index(flat, ctx), flat, config).to(
+      torch.int32)
+  return rows, demb.reshape(-1, demb.shape[-1]).to(table.dtype)
+
+
+def _sort(rows: torch.Tensor, g: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """``(rows, g)`` ordered by row, stably."""
+  rows, order = torch.sort(rows, stable=True)
+  return rows, g.index_select(0, order)
+
+
 def _sorted_list(table: torch.Tensor, ids: torch.Tensor, demb: torch.Tensor,
                  config: TableConfig
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
   """The update list ``(rows int32 [N] ascending, grads [N, d])``."""
-  flat = ids.reshape(-1)
-  rows = _valid_rows(config.row_index(flat), flat, config).to(torch.int32)
-  g = demb.reshape(-1, demb.shape[-1]).to(table.dtype)
-  rows, order = torch.sort(rows, stable=True)
-  return rows, g.index_select(0, order)
+  return _sort(*_flat_list(table, ids, demb, config))
+
+
+# ---------------------------------------------------------------------------
+# The gradient's way back to the owners of a row-sharded table
+# (``sparse_update.py:377-555``): each rank sums its duplicate rows,
+# buckets the totals by owner with a fixed capacity and exchanges them;
+# the allgather route, every rank receiving every list, is the exact
+# fallback when a bucket overflows.
+# ---------------------------------------------------------------------------
+
+
+def _not_ported(what: str) -> NotImplementedError:
+  return NotImplementedError(f'{what} in a world of more than one rank is '
+                             'ROADMAP item 15b (1); it does not run '
+                             'replicated instead')
+
+
+def _local_combine(rows: torch.Tensor, g: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Each distinct row's gradient total (``:391-408``): ``(urows [n],
+  gsum [n, d])``, the distinct rows ascending in a prefix and ``-1`` in
+  the lanes after it. Rows ``< 0`` collapse into one ``-1`` lane, which
+  the owners drop."""
+  srows, sg = _sort(rows, g)
+  is_first = torch.ones_like(srows, dtype=torch.bool)
+  is_first[1:] = srows[1:] != srows[:-1]
+  slot = torch.cumsum(is_first, 0) - 1
+  gsum = torch.zeros_like(g).index_add_(0, slot, sg)
+  urows = torch.full_like(rows, -1)
+  urows[slot] = srows
+  return urows, gsum
+
+
+def _bucket_by_owner(urows: torch.Tensor, gsum: torch.Tensor, world: int,
+                     rows_per_shard: int, cap: int):
+  """``(row, gradient)`` pairs bucketed by owner with a fixed capacity,
+  each bucket in list order (``:411-444``): ``(id_buckets [W, cap],
+  g_buckets [W, cap, d], sizes [W] int32, overflow)``, padding lanes with
+  row ``-1`` and zero gradients. Rows outside ``[0, W·rows_per_shard)``
+  have no owner and are left out."""
+  n, d = gsum.shape
+  shard = torch.where((urows >= 0) & (urows < world * rows_per_shard),
+                      torch.div(urows, rows_per_shard, rounding_mode='floor'),
+                      world).to(torch.int32)
+  order = torch.argsort(shard, stable=True)
+  s_shard, s_rows, s_g = shard[order], urows[order], gsum[order]
+  counts = bucket_counts(shard, world + 1)
+  starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1]])
+  pos = torch.arange(n, device=urows.device) - starts[s_shard.long()]
+  ok = (pos < cap) & (s_shard < world)
+  flat = torch.where(ok, s_shard * cap + pos, world * cap)
+  # Lanes past the capacity land in one spare slot past the end.
+  id_buckets = torch.full((world * cap + 1,), -1, dtype=urows.dtype,
+                          device=urows.device)
+  id_buckets[flat] = s_rows
+  g_buckets = gsum.new_zeros((world * cap + 1, d))
+  g_buckets[flat] = s_g
+  overflow = torch.any(counts[:world] > cap)
+  sizes = torch.clamp(counts[:world], max=cap).to(torch.int32)
+  return (id_buckets[:-1].reshape(world, cap),
+          g_buckets[:-1].reshape(world, cap, d), sizes, overflow)
+
+
+def _update_bucket_cap(n_local: int, world: int, ratio: float) -> int:
+  """``emb_update_bucket_ratio``'s capacity (``:452-456``)."""
+  cap = int(math.ceil(ratio * math.ceil(n_local / world)))
+  return max(1, min(n_local, cap))
+
+
+def _route_grads_allgather(rows: torch.Tensor, g: torch.Tensor,
+                           ctx: Context, rows_per_shard: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Every rank receives every rank's list and keeps the rows it owns,
+  shard-relative, the others as ``-1`` lanes with zero gradients
+  (``:485-495``)."""
+  all_ids = collective.allgather(rows, ctx=ctx)
+  all_g = collective.allgather(g, ctx=ctx)
+  owner = torch.div(all_ids, rows_per_shard, rounding_mode='floor')
+  mine = (owner == ctx.rank) & (all_ids >= 0)
+  local = torch.where(mine, all_ids - ctx.rank * rows_per_shard, -1)
+  return local, torch.where(mine.unsqueeze(-1), all_g, 0)
+
+
+def _route_grads_a2a(buckets, ctx: Context, rows_per_shard: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """The buckets of :func:`_bucket_by_owner` to their owners; returns
+  the received shard-relative rows (``-1`` lanes) and their gradients
+  (``:459-482``)."""
+  id_buckets, g_buckets, sizes, _ = buckets
+  recv_ids, _ = collective.all_to_all_v(id_buckets, sizes, ctx=ctx)
+  recv_g, _ = collective.all_to_all_v(g_buckets, sizes, ctx=ctx)
+  local = torch.where(recv_ids >= 0,
+                      recv_ids - ctx.rank * rows_per_shard, -1)
+  return local.reshape(-1), recv_g.reshape(-1, g_buckets.shape[-1])
+
+
+def _rowsharded_update(rows: torch.Tensor, g: torch.Tensor,
+                       apply_local: Callable[[torch.Tensor, torch.Tensor],
+                                             None],
+                       config: TableConfig, ctx: Context, exchange: str,
+                       bucket_ratio: float, fallback: bool) -> None:
+  """The row-sharded update (``_rowsharded_update``, ``:498-555``): route
+  this rank's ``(rows, g)`` to their owners by ``exchange`` and apply
+  what this rank received with ``apply_local(local_rows, grads)``,
+  ``-1`` lanes included. An overflow on any rank sends every rank down
+  the allgather route (``fallback``); the predicate goes through an
+  all-reduce and is read on the host, so that every rank runs the same
+  collectives; ``sparse_adagrad_apply.overflow_fallbacks`` counts them."""
+  if exchange not in ('alltoall', 'allgather'):
+    raise ValueError(f'Unknown update exchange {exchange!r}; expected '
+                     "'alltoall' or 'allgather'")
+  world = ctx.world_size
+  rows_per_shard = config.padded_vocab(ctx) // world
+  if exchange == 'alltoall':
+    cap = _update_bucket_cap(rows.shape[0], world, bucket_ratio)
+    buckets = _bucket_by_owner(*_local_combine(rows, g), world,
+                               rows_per_shard, cap)
+    overflow = buckets[3]
+    if not fallback or not bool(collective.allreduce(
+        overflow.to(torch.int32).reshape(1), ctx=ctx).item()):
+      apply_local(*_route_grads_a2a(buckets, ctx, rows_per_shard))
+      return
+    sparse_adagrad_apply.overflow_fallbacks += 1
+  apply_local(*_route_grads_allgather(rows, g, ctx, rows_per_shard))
 
 
 def _split_dense_adagrad(table: torch.Tensor, acc: torch.Tensor,
@@ -106,7 +262,11 @@ def _split_dense_adagrad(table: torch.Tensor, acc: torch.Tensor,
 def sparse_adagrad_apply(table: torch.Tensor, state: SparseOptState,
                          ids: torch.Tensor, demb: torch.Tensor,
                          config: TableConfig, lr: Lr, eps: float = 1e-7,
-                         dedup: bool = True, split_dense: bool = False
+                         dedup: bool = True, split_dense: bool = False, *,
+                         ctx: Optional[Context] = None,
+                         exchange: str = 'alltoall',
+                         bucket_ratio: float = 2.0,
+                         overflow_fallback: bool = True
                          ) -> Tuple[torch.Tensor, SparseOptState]:
   """Adagrad on touched rows only, in place.
 
@@ -126,26 +286,60 @@ def sparse_adagrad_apply(table: torch.Tensor, state: SparseOptState,
       The same result as the fused update, bit for bit; it moves the
       whole table. Needs ``dedup``: dense totals carry no per-occurrence
       squares.
+    ctx: the world, when it has more than one rank: ``ids`` and ``demb``
+      are this rank's, and ``table`` and the accumulator are this rank's
+      shard when ``config`` is sharded over ``ctx``, else whole.
+    exchange, bucket_ratio, overflow_fallback: the JAX options
+      ``emb_update_exchange``, ``emb_update_bucket_ratio`` and
+      ``emb_update_overflow_fallback``, for a sharded table.
 
   Returns ``(table, state)``, the same objects, updated.
   """
   if split_dense and not dedup:
     raise ValueError('split_dense=True needs dedup=True: the dense row '
                      'totals carry no per-occurrence squares')
-  rows, g = _sorted_list(table, ids, demb, config)
+  acc = state.acc[0]
+  rows, g = _flat_list(table, ids, demb, config, ctx)
+  if config.should_shard(ctx):
+    if not dedup:
+      raise _not_ported('dedup=False on a row-sharded table')
+    if split_dense:
+      raise _not_ported('split_dense=True on a row-sharded table')
+
+    def apply_local(local, grads):
+      # The owner's update: kernel 1 on its shard, the -1 lanes first in
+      # the sorted list and skipped by it.
+      adagrad_update_sorted(table, acc, *_sort(local.to(torch.int32), grads),
+                            lr, eps)
+
+    _rowsharded_update(rows, g, apply_local, config, ctx, exchange,
+                       bucket_ratio, overflow_fallback)
+    return table, state
+  if ctx is not None and ctx.world_size > 1:
+    # A replicated table: every replica applies the global update.
+    rows = collective.allgather(rows, ctx=ctx)
+    g = collective.allgather(g, ctx=ctx)
+  rows, g = _sort(rows, g)
   if split_dense:
-    _split_dense_adagrad(table, state.acc[0], rows, g, lr, eps)
+    _split_dense_adagrad(table, acc, rows, g, lr, eps)
   else:
-    adagrad_update_sorted(table, state.acc[0], rows, g, lr, eps, dedup)
+    adagrad_update_sorted(table, acc, rows, g, lr, eps, dedup)
   return table, state
+
+
+sparse_adagrad_apply.overflow_fallbacks = 0
 
 
 def sparse_sgd_apply(table: torch.Tensor, ids: torch.Tensor,
                      demb: torch.Tensor, config: TableConfig,
-                     lr: Lr) -> torch.Tensor:
+                     lr: Lr, *, ctx: Optional[Context] = None
+                     ) -> torch.Tensor:
   """SGD on touched rows only, in place (no slot state): each row moves
   by ``-lr`` times its gradient total. The gradients are scaled before
-  they are summed, as the JAX stream path does. Returns ``table``."""
+  they are summed, as the JAX stream path does. Returns ``table``. A
+  world of more than one rank (``ctx``) is ROADMAP item 15b."""
+  if ctx is not None and ctx.world_size > 1:
+    raise _not_ported('sparse_sgd_apply')
   rows, g = _sorted_list(table, ids, demb, config)
   return scatter_add_sorted(table, rows, g * (-lr))
 
@@ -153,15 +347,19 @@ def sparse_sgd_apply(table: torch.Tensor, ids: torch.Tensor,
 def sparse_adam_apply(table: torch.Tensor, state: SparseOptState,
                       ids: torch.Tensor, demb: torch.Tensor,
                       config: TableConfig, lr: Lr, step: Step,
-                      b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
+                      b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                      *, ctx: Optional[Context] = None
                       ) -> Tuple[torch.Tensor, SparseOptState]:
   """LazyAdam on touched rows only, in place (TF ``LazyAdam``: moments of
   untouched rows do not decay; a row present with a zero gradient total
   is touched). ``state.acc = (m, v)``; ``step`` is the 1-based step count
-  for bias correction, a number or a device tensor.
+  for bias correction, a number or a device tensor. A world of more than
+  one rank (``ctx``) is ROADMAP item 15b.
 
   Returns ``(table, state)``, the same objects, updated.
   """
+  if ctx is not None and ctx.world_size > 1:
+    raise _not_ported('sparse_adam_apply')
   m, v = state.acc
   rows, g = _sorted_list(table, ids, demb, config)
   adam_update_sorted(table, m, v, rows, g, lr, step, b1, b2, eps)

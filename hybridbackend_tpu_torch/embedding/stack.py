@@ -1,20 +1,26 @@
 """Table stacking: many same-dim tables in one physical table.
 
-Counterpart of ``hybridbackend_tpu/embedding/stack.py:31-269`` at a world
-of one. Table ``i``'s rows live at ``offset[i] + local_id`` of the
-stacked table, so the lookups of all members become one gather and their
-updates one sparse update.
+Counterpart of ``hybridbackend_tpu/embedding/stack.py:31-269``. Table
+``i``'s rows live at ``offset[i] + local_id`` of the stacked table, so
+the lookups of all members become one gather (one exchange in a world of
+more than one rank) and their updates one sparse update. Sharded and
+replicated tables stack apart, and a sharded member's rows take a range
+rounded up to the world, so that they spread over the ranks as a table
+of their own would (``:86-109``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from hybridbackend_tpu_torch.embedding.table import (
     TableConfig, create_table, default_initializer)
+
+if TYPE_CHECKING:
+  from hybridbackend_tpu_torch.framework.context import Context
 
 Layout = List[Tuple[str, Tuple[int, ...], int]]
 
@@ -39,38 +45,52 @@ class TableStack:
     raise KeyError(name)
 
 
-def build_stacks(configs: Sequence[TableConfig]) -> List[TableStack]:
-  """Group configs by (dim, dtype) into stacks; tables with mixed ids
-  keep a stack of their own. Stack names and member offsets match the
-  JAX package's one-device grouping, so its checkpoints map one to one.
+def build_stacks(configs: Sequence[TableConfig],
+                 ctx: Optional['Context'] = None,
+                 min_shard_rows: int = 0) -> List[TableStack]:
+  """Group configs by (dim, dtype, sharded over ``ctx``) into stacks;
+  tables with mixed ids keep a stack of their own. Stack names and
+  member offsets match the JAX package's grouping (with one lookup
+  strategy for all tables), so its checkpoints map one to one. In a
+  world of more than one rank the stacked config states its shard
+  policy (``sharded``), decided with ``min_shard_rows``.
   """
+  world = ctx.world_size if ctx is not None else 1
   groups: Dict[Tuple, List[TableConfig]] = {}
   for cfg in configs:
-    key = ('solo', cfg.name) if cfg.shuffle_ids else (cfg.dim, cfg.dtype)
+    key = (('solo', cfg.name) if cfg.shuffle_ids else
+           (cfg.dim, cfg.dtype, cfg.should_shard(ctx, min_shard_rows)))
     groups.setdefault(key, []).append(cfg)
   stacks = []
   for members in groups.values():
+    sharded = members[0].should_shard(ctx, min_shard_rows)
+    align = world if sharded else 1
     offsets, total = [], 0
     for cfg in members:
       offsets.append(total)
-      total += cfg.vocab_size
+      total += -(-cfg.vocab_size // align) * align
     stacked_cfg = TableConfig(
         name='stack/' + '/'.join(c.name for c in members),
         vocab_size=total, dim=members[0].dim, dtype=members[0].dtype,
         combiner=members[0].combiner,
-        shuffle_ids=len(members) == 1 and members[0].shuffle_ids)
+        shuffle_ids=len(members) == 1 and members[0].shuffle_ids,
+        sharded=sharded if world > 1 else None,
+        partition=members[0].partition)
     stacks.append(TableStack(tuple(members), tuple(offsets), stacked_cfg))
   return stacks
 
 
 def create_stacked_tables(stacks: Sequence[TableStack],
                           generator: torch.Generator,
-                          device: torch.device) -> Dict[str, torch.Tensor]:
+                          device: torch.device,
+                          ctx: Optional['Context'] = None
+                          ) -> Dict[str, torch.Tensor]:
   """One physical table per stack, each member initialized with its own
-  initializer over its row range (drawn in member order)."""
+  initializer over its row range (drawn in member order); of a stack
+  sharded over ``ctx``, this rank's rows of it."""
   out = {}
   for stack in stacks:
-    vocab = stack.stacked.padded_vocab()
+    vocab = stack.stacked.padded_vocab(ctx)
     bounds = list(stack.offsets[1:]) + [vocab]
 
     def init(gen, shape, dtype, _stack=stack, _bounds=bounds):
@@ -81,7 +101,7 @@ def create_stacked_tables(stacks: Sequence[TableStack],
       return torch.cat(parts).to(dtype)
 
     cfg = dataclasses.replace(stack.stacked, initializer=init)
-    out[stack.stacked.name] = create_table(cfg, generator, device)
+    out[stack.stacked.name] = create_table(cfg, generator, device, ctx)
   return out
 
 

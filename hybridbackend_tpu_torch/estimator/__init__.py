@@ -475,6 +475,10 @@ class SparseTrainer(Trainer):
                prefetch_capacity: int = 2,
                caches: Optional[Dict[str, EmbeddingCache]] = None):
     ctx = fx.ctx
+    if ctx.world_size > 1:
+      raise NotImplementedError('SparseTrainer in a world of more than one '
+                                'rank is ROADMAP item 15b (5); the sparse '
+                                'step runs there (make_sparse_train_step)')
     self._caches = dict(caches) if caches else {}
     if self._caches:
       nslots = 2 if table_optimizer == 'adam' else 1

@@ -10,7 +10,7 @@ table and one gather per step (the sparse path).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -90,14 +90,21 @@ def extract_features(tables: Mapping[str, Table], batch: Batch,
 
 class StackedFeatureExtractor:
   """Batch columns to embedding and dense features, one fused lookup per
-  stack of same-dim tables."""
+  stack of same-dim tables.
+
+  In a world of more than one rank (``ctx``) a stack is row-sharded or
+  replicated by the tables' shard policy, with ``min_shard_rows`` (the
+  JAX option ``emb_min_shard_rows``); the tables are then each rank's
+  shards, and a batch is the rank's rows of the global batch."""
 
   def __init__(self, specs: Sequence[EmbeddingSpec],
-               dense_columns: Sequence[str] = (), *, ctx: Context):
+               dense_columns: Sequence[str] = (), *, ctx: Context,
+               min_shard_rows: int = 0):
     self.specs = list(specs)
     self.dense_columns = list(dense_columns)
     self.ctx = ctx
-    self.stacks = build_stacks([s.config for s in self.specs])
+    self.stacks = build_stacks([s.config for s in self.specs], ctx,
+                               min_shard_rows)
     self._stack_of = {cfg.name: stack for stack in self.stacks
                       for cfg in stack.configs}
 
@@ -106,8 +113,10 @@ class StackedFeatureExtractor:
     return self._stack_of[name]
 
   def init(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
-    """One physical table per stack, on the context's device."""
-    return create_stacked_tables(self.stacks, generator, self.ctx.device)
+    """One physical table per stack, on the context's device: this
+    rank's shard of a sharded stack."""
+    return create_stacked_tables(self.stacks, generator, self.ctx.device,
+                                 self.ctx)
 
   def member_ids(self, batch: Batch) -> Dict[str, Dict[str, torch.Tensor]]:
     """Per-stack ``{member_name: ids}`` present in the batch."""
@@ -121,9 +130,17 @@ class StackedFeatureExtractor:
         out[stack.stacked.name] = ids_by_name
     return out
 
-  def lookup_raw(self, tables: Dict[str, torch.Tensor], batch: Batch):
+  def lookup_raw(self, tables: Dict[str, torch.Tensor], batch: Batch,
+                 strategy: Union[str, Mapping[str, str]] = 'allgather',
+                 **exchange):
     """One lookup per stack; returns the uncombined embeddings and the
     packed ids (the sparse update needs both).
+
+    A sharded stack is looked up through the exchange ``strategy``
+    names: one for all stacks, or ``{stack name: strategy}`` (the JAX
+    per-table ``emb_lookup_strategy``; a stack it leaves out takes
+    ``'allgather'``); ``exchange`` holds ``lookup``'s other options
+    (``bucket_ratio``, ``overflow_fallback``, ``unique_ratio``).
 
     Returns ``(raw_by_stack {stack: [B, K, D]}, ids_by_stack {stack:
     [B, K]}, layouts {stack: layout})``."""
@@ -134,7 +151,10 @@ class StackedFeatureExtractor:
       if name not in member_ids:
         continue
       all_ids, layout = pack_ids(stack, member_ids[name])
-      raw[name] = lookup(tables[name], all_ids, stack.stacked)
+      strat = (strategy if isinstance(strategy, str)
+               else strategy.get(name, 'allgather'))
+      raw[name] = lookup(tables[name], all_ids, stack.stacked, ctx=self.ctx,
+                         strategy=strat, **exchange)
       ids_out[name] = all_ids
       layouts[name] = layout
     return raw, ids_out, layouts

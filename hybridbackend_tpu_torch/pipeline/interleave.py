@@ -104,6 +104,9 @@ def make_interleaved_train_step(
   if num_microbatches < 1:
     raise ValueError(
         f'num_microbatches must be at least 1, got {num_microbatches}')
+  if fx.ctx.world_size > 1:
+    raise NotImplementedError('the interleaved step in a world of more '
+                              'than one rank is ROADMAP item 15b (7)')
   k = num_microbatches
   stacks_by_name = {s.stacked.name: s for s in fx.stacks}
   loss_of = loss_from_raw(fx, model_loss, raw_model_loss)

@@ -1,7 +1,7 @@
 """Train step with row-sparse table updates.
 
-Counterpart of ``hybridbackend_tpu/training/sparse_step.py:35-206`` at a
-world of one, with both of its model hooks (``model_loss`` on the
+Counterpart of ``hybridbackend_tpu/training/sparse_step.py:35-206``, with
+both of its model hooks (``model_loss`` on the
 combined features, ``raw_model_loss`` on the members' uncombined
 embeddings): the tower is updated by a torch optimizer, each stacked
 table by row-sparse Adagrad or LazyAdam on the rows the batch touched. The step
@@ -18,6 +18,20 @@ The step follows the tables' dtype (``TableConfig.dtype``, float32 or
 bfloat16): a bfloat16 table is looked up as bfloat16, the f32 tower
 promotes its embeddings, their gradients come back as bfloat16, and the
 table's slots, made ``*_like(table)``, are bfloat16 too.
+
+In a world of more than one rank (the feature extractor's context) each
+rank runs the step on its rows ``[r·B/W, (r+1)·B/W)`` of the global
+batch, as ``shard_map`` splits ``P(axes)``, with its shards of the
+sharded stacks; this is the hybrid parallelism of the JAX step (the
+reference's ``gradient.py:119-218``). The tower is data-parallel: its
+gradients, means over the rank's rows, are summed over the ranks in one
+flat all-reduce and divided by the world. The embeddings' gradients are
+scaled by ``1/W``, so that they carry the global batch's ``1/B`` as in
+JAX (``sparse_step.py:149``), and go to the tables' owners through the
+sparse update's exchange. The reported loss is the mean over the ranks.
+The towers start equal: ``SparseTrainState.create`` broadcasts rank 0's.
+The raw-embedding hook, LazyAdam, ``table_dedup=False`` and the
+dense-split update at more than one rank are ROADMAP item 15b.
 """
 
 from __future__ import annotations
@@ -28,9 +42,11 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 import torch
 from torch import nn
 
+from hybridbackend_tpu_torch.distribute import collective
 from hybridbackend_tpu_torch.embedding.sparse_update import (
     SparseOptState, init_adagrad_state, init_adam_state,
     sparse_adagrad_apply, sparse_adam_apply)
+from hybridbackend_tpu_torch.framework.context import Context
 from hybridbackend_tpu_torch.models.feature import (
     Batch, StackedFeatureExtractor)
 
@@ -53,12 +69,16 @@ class SparseTrainState:
   def create(cls, dense: nn.Module, tables: Dict[str, torch.Tensor],
              dense_optimizer: OptimizerFactory,
              adagrad_init: float = 0.1, *,
-             adam: bool = False) -> 'SparseTrainState':
+             adam: bool = False,
+             ctx: Optional[Context] = None) -> 'SparseTrainState':
     """``dense_optimizer`` builds the tower's optimizer from its
     parameters, e.g. ``functools.partial(torch.optim.Adam, lr=1e-3)``
     for the JAX package's ``optax.adam(1e-3)``. ``adam`` gives each
     table LazyAdam slots ``(m, v)`` instead of an Adagrad accumulator
-    (for ``table_optimizer='adam'``)."""
+    (for ``table_optimizer='adam'``). In a world of more than one rank
+    (``ctx``) every rank's tower becomes rank 0's."""
+    if ctx is not None and ctx.world_size > 1:
+      broadcast_tower(dense, ctx)
     if adam:
       table_opt = {name: init_adam_state(t) for name, t in tables.items()}
     else:
@@ -66,6 +86,29 @@ class SparseTrainState:
                    for name, t in tables.items()}
     return cls(step=0, dense=dense, tables=tables, table_opt=table_opt,
                dense_opt=dense_optimizer(dense.parameters()))
+
+
+def broadcast_tower(tower: nn.Module, ctx: Context) -> None:
+  """Rank 0's parameters and buffers on every rank, in place."""
+  with torch.no_grad():
+    for t in [*tower.parameters(), *tower.buffers()]:
+      t.copy_(collective.broadcast(t, 0, ctx=ctx))
+
+
+def _mean_tower_grads(tower: nn.Module, ctx: Context) -> None:
+  """Each tower gradient, a mean over the rank's rows, replaced by the
+  mean over the ranks: one flat all-reduce, then a division by the
+  world."""
+  grads = [p.grad for p in tower.parameters() if p.grad is not None]
+  if not grads:
+    return
+  flat = collective.allreduce(torch.cat([g.reshape(-1) for g in grads]),
+                              ctx=ctx)
+  flat /= ctx.world_size
+  pos = 0
+  for g in grads:
+    g.copy_(flat[pos:pos + g.numel()].view_as(g))
+    pos += g.numel()
 
 
 def loss_from_raw(fx: StackedFeatureExtractor,
@@ -92,7 +135,13 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
                            table_dedup: bool = True,
                            table_optimizer: str = 'adagrad',
                            table_split_dense: bool = False,
-                           raw_model_loss: Optional[RawModelLoss] = None
+                           raw_model_loss: Optional[RawModelLoss] = None,
+                           lookup_strategy: str = 'allgather',
+                           lookup_bucket_ratio: float = 2.0,
+                           update_exchange: str = 'alltoall',
+                           update_bucket_ratio: float = 2.0,
+                           overflow_fallback: bool = True,
+                           unique_ratio: float = 1.0
                            ) -> Callable[[SparseTrainState, Batch],
                                          Tuple[SparseTrainState, Dict]]:
   """Build ``step(state, batch) -> (state, metrics)``.
@@ -119,6 +168,15 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
       ``model_loss`` is not used (pass ``None``). The gradient of each
       member's embeddings reaches its stack's update as on the combined
       path, with every table optimizer and dtype.
+    lookup_strategy, lookup_bucket_ratio, update_exchange,
+      update_bucket_ratio, overflow_fallback, unique_ratio: how the
+      sharded stacks exchange ids, rows and gradients in a world of more
+      than one rank, the JAX options ``emb_lookup_strategy``,
+      ``emb_lookup_bucket_ratio``, ``emb_update_exchange``,
+      ``emb_update_bucket_ratio``, ``emb_lookup_overflow_fallback`` and
+      ``emb_update_overflow_fallback`` (one switch for both), and
+      ``emb_unique_ratio``, with their defaults
+      (``embedding/lookup.py``, ``embedding/sparse_update.py``).
 
   The tower's optimizer is part of the state (a torch optimizer owns its
   slots), so unlike the JAX function this one takes no dense optimizer.
@@ -131,12 +189,30 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
   if table_split_dense and (table_optimizer != 'adagrad' or not table_dedup):
     raise ValueError('table_split_dense=True needs table_optimizer='
                      "'adagrad' and table_dedup=True")
+  ctx = fx.ctx
+  world = ctx.world_size
+  if world > 1:
+    if raw_model_loss is not None:
+      raise NotImplementedError('the raw-embedding hook in a world of more '
+                                'than one rank is ROADMAP item 15b (4)')
+    sharded = any(s.stacked.should_shard(ctx) for s in fx.stacks)
+    if table_optimizer == 'adam' or (
+        sharded and (not table_dedup or table_split_dense)):
+      raise NotImplementedError(
+          'in a world of more than one rank the sparse step updates its '
+          'tables by Adagrad with duplicate combining; LazyAdam, '
+          'table_dedup=False and the dense-split update are ROADMAP item '
+          '15b (1)')
   stacks_by_name = {s.stacked.name: s for s in fx.stacks}
   loss_of = loss_from_raw(fx, model_loss, raw_model_loss)
+  exchange = dict(bucket_ratio=lookup_bucket_ratio,
+                  overflow_fallback=overflow_fallback,
+                  unique_ratio=unique_ratio)
 
   def step(state: SparseTrainState, batch: Batch):
     # 1. Fused lookups; the tables are not differentiated.
-    raw, ids_by_stack, layouts = fx.lookup_raw(state.tables, batch)
+    raw, ids_by_stack, layouts = fx.lookup_raw(state.tables, batch,
+                                               lookup_strategy, **exchange)
     raw = {name: emb.detach().requires_grad_() for name, emb in raw.items()}
 
     # 2. Gradients for the tower params and the raw embeddings.
@@ -144,28 +220,42 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
     state.dense_opt.zero_grad(set_to_none=True)
     loss.backward()
 
-    # 3. Tower update.
+    # 3. Tower update, from the mean of the ranks' gradients.
+    if world > 1:
+      _mean_tower_grads(state.dense, ctx)
     state.dense_opt.step()
 
     # 4. Row-sparse optimizer per stacked table, in place.
     for name, emb in raw.items():
       # A stack the loss did not read has a zero gradient, as in JAX.
       grad = emb.grad if emb.grad is not None else torch.zeros_like(emb)
+      if world > 1:
+        grad = grad / world
       args = (state.tables[name], state.table_opt[name], ids_by_stack[name],
               grad, stacks_by_name[name].stacked, table_lr)
       if table_optimizer == 'adam':
         sparse_adam_apply(*args, step=state.step + 1)
       else:
         sparse_adagrad_apply(*args, dedup=table_dedup,
-                             split_dense=table_split_dense)
+                             split_dense=table_split_dense, ctx=ctx,
+                             exchange=update_exchange,
+                             bucket_ratio=update_bucket_ratio,
+                             overflow_fallback=overflow_fallback)
 
     state.step += 1
     metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
                for k, v in aux.items()}
     metrics['loss'] = loss.detach()
+    if world > 1:
+      # The scalars are means over the ranks, as JAX's ``pmean``; the
+      # per-example values stay the rank's own.
+      metrics = {k: (collective.allreduce(v, 'mean', ctx=ctx)
+                     if isinstance(v, torch.Tensor) and v.dim() == 0 else v)
+                 for k, v in metrics.items()}
     return state, metrics
 
   return step
 
 
-__all__ = ['SparseTrainState', 'loss_from_raw', 'make_sparse_train_step']
+__all__ = ['SparseTrainState', 'broadcast_tower', 'loss_from_raw',
+           'make_sparse_train_step']

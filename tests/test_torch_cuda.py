@@ -1170,3 +1170,60 @@ def test_pipelined_step_on_the_card_matches_the_cpu(dev):
                        states[1].params.parameters()):
     np.testing.assert_allclose(a.detach().cpu().numpy(), b.detach().numpy(),
                                rtol=1e-4, atol=1e-5, err_msg=n)
+
+
+@pytest.fixture
+def nccl_world(dev, tmp_path):
+  """A joined NCCL world of one rank on the card."""
+  ctx = hbt.Context.join('cuda', 'nccl', rank=0, world_size=1,
+                         init_method=f'file://{tmp_path}/store',
+                         timeout_s=60)
+  yield ctx
+  ctx.leave()
+
+
+def test_collectives_on_nccl_at_a_world_of_one(nccl_world):
+  from hybridbackend_tpu_torch.distribute import collective
+  ctx = nccl_world
+  assert ctx.distributed and ctx.device.type == 'cuda'
+  x = torch.arange(12, dtype=torch.float32, device=ctx.device)
+  for got in (collective.allreduce(x, ctx=ctx),
+              collective.allreduce(x, 'mean', ctx=ctx),
+              collective.broadcast(x, ctx=ctx),
+              collective.allgather(x, ctx=ctx),
+              collective.alltoall(x, ctx=ctx),
+              collective.reduce_scatter(x[None], ctx=ctx)):
+    assert got.device == ctx.device and torch.equal(got, x)
+  buckets = x.reshape(1, 4, 3)
+  recv, sizes = collective.all_to_all_v(
+      buckets, torch.tensor([3], dtype=torch.int32, device=ctx.device),
+      ctx=ctx)
+  assert torch.equal(recv, buckets) and sizes.tolist() == [3]
+
+
+def test_adagrad_kernel_on_an_owner_list_from_all_to_all_v(nccl_world):
+  """The owner's update of the row-sharded Adagrad: a rank's list summed
+  and bucketed by owner, through ``all_to_all_v`` on NCCL, sorted and
+  applied by kernel 1, against the plain version on the CPU copy of the
+  received list."""
+  from hybridbackend_tpu_torch.embedding import sparse_update as su
+  ctx = nccl_world
+  rng = np.random.RandomState(5)
+  v, d, n = 4096, 16, 8192
+  rows = torch.from_numpy(rng.randint(-1, v, n).astype(np.int32)).to(
+      ctx.device)
+  g = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to(ctx.device)
+  buckets = su._bucket_by_owner(*su._local_combine(rows, g), 1, v, n)
+  local, grads = su._route_grads_a2a(buckets, ctx, v)
+  local, grads = su._sort(local.to(torch.int32), grads)
+  table = torch.from_numpy(rng.randn(v, d).astype(np.float32))
+  acc = torch.full((v, d), 0.1)
+  want = hbt.adagrad_update_sorted_reference(
+      table.clone(), acc.clone(), local.cpu(), grads.cpu(), 0.05)
+  before = hbt.adagrad_update_sorted.launches
+  got = hbt.adagrad_update_sorted(table.to(ctx.device), acc.to(ctx.device),
+                                  local, grads, 0.05)
+  assert hbt.adagrad_update_sorted.launches == before + 1
+  for a, b in zip(got, want):
+    np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5,
+                               atol=1e-5)

@@ -1,5 +1,10 @@
-"""The PyTorch port imports no JAX and builds no kernel at import."""
+"""The PyTorch port imports no JAX and builds no kernel at import.
 
+The modules of the port, and the worker that the world-of-N tests start
+in each rank (``tests/torch_sharded_worker.py``), are imported in a
+fresh process, from the root of the repository."""
+
+import os
 import subprocess
 import sys
 import textwrap
@@ -27,9 +32,13 @@ def test_import_leaves_jax_out():
       import hybridbackend_tpu_torch.data.rebatch
       import hybridbackend_tpu_torch.data.sync
       import hybridbackend_tpu_torch.data.validate
+      import hybridbackend_tpu_torch.distribute
+      import hybridbackend_tpu_torch.distribute.collective
+      import hybridbackend_tpu_torch.distribute.partition
       import hybridbackend_tpu_torch.embedding.dynamic
       import hybridbackend_tpu_torch.embedding.quant
       import hybridbackend_tpu_torch.embedding.service
+      import hybridbackend_tpu_torch.embedding.unique
       import hybridbackend_tpu_torch.estimator
       import hybridbackend_tpu_torch.examples.criteo.train
       import hybridbackend_tpu_torch.examples.taobao.train_din
@@ -38,11 +47,14 @@ def test_import_leaves_jax_out():
       import hybridbackend_tpu_torch.native.tabular
       import hybridbackend_tpu_torch.pipeline
       import hybridbackend_tpu_torch.pipeline.interleave
+      import hybridbackend_tpu_torch.run
       import hybridbackend_tpu_torch.training.checkpoint
       import hybridbackend_tpu_torch.training.hooks
       import hybridbackend_tpu_torch.training.optimizer
       import hybridbackend_tpu_torch.training.saved_model
       import hybridbackend_tpu_torch.training.train
+      import runpy
+      runpy.run_path('tests/torch_sharded_worker.py', run_name='worker')
       bad = sorted(m for m in sys.modules
                    if m == 'jax' or m.startswith('jax.')
                    or m == 'hybridbackend_tpu'
@@ -50,7 +62,9 @@ def test_import_leaves_jax_out():
       print(repr(bad))
   """)
   out = subprocess.run([sys.executable, '-c', code], capture_output=True,
-                       text=True, check=True, timeout=120)
+                       text=True, check=True, timeout=120,
+                       cwd=os.path.dirname(os.path.dirname(
+                           os.path.abspath(__file__))))
   assert out.stdout.strip() == '[]', out.stdout
 
 
