@@ -99,8 +99,8 @@ Phases; any failure raises and the script exits nonzero:
  19. the harness in its dense mode (no ``--sparse``), its JSON line
      printed;
  20. the port's e2e harness (``python -m
-     hybridbackend_tpu_torch.benchmarks.e2e_benchmark --json``) in its own
-     process, once with the native reader and once with
+     hybridbackend_tpu_torch.benchmarks.e2e_benchmark --json``) in one
+     process of its own, with the native reader and then with
      ``--python-reader``: a Parquet file of 64 batches of 8192 through
      ``ParquetDataset`` and ``DeviceIterator`` into the flagship sparse
      step, 128 timed steps; each JSON line printed (e2e examples/s, stall
@@ -140,14 +140,14 @@ Phases; any failure raises and the script exits nonzero:
      with its times and bound; then the raw-mode ``SparseTrainer`` step on
      the card against the CPU from the same weights, plain, with 4
      sessions (``-1`` holes) and with the attention's weight
-     normalization, 3 steps each from one state (loss, tables,
+     normalization, 2 steps each from one state (loss, tables,
      accumulators, the tower by phase 18's rule), kernel 1 once a step,
      the rows behind the holes untouched and planted candidates moved by
      their exact run totals;
  24. the DIN harness (``python -m hybridbackend_tpu_torch.benchmarks.
      din_benchmark --json``) at its defaults, dense, ``--sparse`` and
-     ``--sparse --sessions 4``, each in its own process, JSON lines
-     printed (kernel 1 once a step in the sparse modes);
+     ``--sparse --sessions 4``, in turn in one process of its own, JSON
+     lines printed (kernel 1 once a step in the sparse modes);
  25. the port's Taobao entry point (``examples/taobao/train_din.py
      --synthesize --sparse``, and with ``--sessions``) for 64 steps from
      the file it writes, its evaluation restored on the card (equal) and
@@ -181,23 +181,23 @@ Phases; any failure raises and the script exits nonzero:
  29. micro-batch gradient accumulation on the dense ``Trainer``'s flagship
      model (26 unstacked [100000, 16] tables, DCNv2, ``multi_optimizer``):
      ``accumulate_gradients`` over 4 micro-batches against the whole
-     batch's gradients on the card (``rtol 1e-4, atol 1e-6``); 3 steps of
+     batch's gradients on the card (``rtol 1e-4, atol 1e-6``); 2 steps of
      ``make_pipelined_train_step`` (4 micro-batches) on the card against
      the CPU, each from the initial weights, at phase 18's tolerances;
      ms/step at 1, 2 and 4 micro-batches against ``make_train_step``, in
      turns; no counted kernel;
  30. the PICASSO interleaved sparse step (``make_interleaved_train_step``,
      the lookups on a side stream) at the flagship, DCNv2 + Adagrad and
-     DLRM + LazyAdam: 3 steps of 4 micro-batches on the card against the
+     DLRM + LazyAdam: 2 steps of 4 micro-batches on the card against the
      CPU, each from the initial weights (phase 2's and phase 5's
-     tolerances, the tower by phase 18's rule too), and 3 consecutive
+     tolerances, the tower by phase 18's rule too), and 2 consecutive
      steps against the plain step on the card, each from its state (the
      JAX test's limits); kernel 1 (or 3) once a step at 1, 2
      and 4 micro-batches; DCNv2's ms/step against the plain step in
      turns; then the harness, ``--sparse`` and ``--sparse --interleave
      1|2|4``, in turn in one process of its own, JSON lines printed;
- 31. the single-device harnesses at their defaults, each in its own
-     process, JSON lines printed: ``auc_parity.py`` (exit 0,
+ 31. the single-device harnesses at their defaults, in turn in one
+     process of their own, JSON lines printed: ``auc_parity.py`` (exit 0,
      ``parity_ok.fast`` true; kernel 1 once a ``fast`` step),
      ``data_benchmark.py`` in its four modes (parquet, csv, dedup, the
      host-to-device transfer from pageable and pinned memory) and
@@ -215,10 +215,34 @@ Phases; any failure raises and the script exits nonzero:
      world of one on the card, each step from one tower (the loss to
      1e-5, the tower by phase 18's rule, the gathered shards and
      accumulators by phase 2's); kernel 1 once a step on every rank; then
-     10 timed steps of each strategy (gloo ranks sharing one card: not a
+     5 timed steps of each strategy (gloo ranks sharing one card: not a
      multi-GPU number), and the harness once under the launcher
      (``--simulate 2 --lookup alltoall --repeats 2``), its JSON line
      printed.
+ 33. every sparse step at a world of N: one launch a world
+     (``chip_smoke.py --rank-of DIR --rank-phase 33``), NCCL at a world of
+     one (``--nproc 1``), then N = 2 and 4 gloo ranks sharing the card.
+     Every rank first probes ``all_reduce``, ``all_to_all_single``,
+     ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` in bf16 and
+     fp16 on its backend, and holds each of the port's cast collectives
+     that only moves data bitwise against cast, f32 collective, cast, and
+     the cast all-reduce within the wire's rounding. Then, from the seed's
+     state on the ranks' rows of a global batch of 8192, at full width,
+     3 steps each of DLRM + LazyAdam (kernel 3), no-dedup Adagrad (kernel
+     1's per-occurrence mode; and with an update bucket ratio so low that
+     every rank falls back every step), the split-dense update (kernel 4
+     on each owner's shard), bf16 tables with Adagrad and with DLRM +
+     LazyAdam, and DCNv2 + Adagrad with ``wire_dtype`` and
+     ``gradient_wire_dtype`` bfloat16 (at NCCL's world of one only this
+     case, which casts nothing there); 3 rounds of ``sparse_sgd_apply``
+     on the flagship list (kernel 2 on every owner); and 3 raw-mode DIN
+     steps at the DIN harness's defaults with 4 sessions (kernel 1 on
+     every owner). Each is held against the world of one on the card,
+     each step from one tower (the LazyAdam and bf16 cases from one whole
+     state), the wire case by the wire's bands, a few ReLU gate flips let
+     past and counted; rows that no valid id read, those behind ``-1``
+     holes among them, keep their bits; then 10 timed steps of each step
+     case (gloo ranks sharing one card: not a multi-GPU number).
 With ``--profile`` it then traces 10 steps of each timed variant and of
 the DIN harness's ``--sparse`` step with and without sessions with
 ``torch.profiler`` and prints device time per step by kernel class; in
@@ -233,8 +257,8 @@ The run's wall time is printed before the last two lines. The
 second-to-last line is a JSON object describing each kernel (its times,
 launches on its path, in the trainers' runs, in the runs from Parquet
 files, in the served predicts, in the DIN phases, in the host-table
-phases, in the pipelining phases and in phase 32's ranks, and its
-bound: the
+phases, in the pipelining phases and in phase 32's and phase 33's ranks,
+and its bound: the
 larger of its bytes over 3.35 TB/s and its operations over the card's
 peak rate); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -436,19 +460,34 @@ def _module_jsons(module, flag_sets, timeout=600):
   """``hybridbackend_tpu_torch.benchmarks.<module>``'s ``main(['--json',
   *flags])`` for each of ``flag_sets`` in turn, in one process of its own
   (one start-up for all); returns each run's JSON line and object."""
-  code = ('import sys\n'
-          f'from hybridbackend_tpu_torch.benchmarks import {module} as m\n'
-          f'for flags in {[list(f) for f in flag_sets]!r}:\n'
+  return [run[:2] for run in _modules_json(
+      [(module, flags) for flags in flag_sets], timeout)]
+
+
+def _modules_json(runs, timeout=600):
+  """``hybridbackend_tpu_torch.benchmarks.<module>.main(['--json',
+  *flags])`` for each ``(module, flags)`` of ``runs`` in turn, in one
+  process of its own (one start-up for all: a process's start on the H100
+  machine costs about 13 s); returns each run's JSON line, object and
+  wall seconds."""
+  code = ('import sys, time\n'
+          'from importlib import import_module\n'
+          f'for module, flags in {[(m, list(f)) for m, f in runs]!r}:\n'
+          "  m = import_module('hybridbackend_tpu_torch.benchmarks.' + module)\n"
+          '  t0 = time.perf_counter()\n'
           "  if m.main(['--json', *flags]):\n"
-          '    sys.exit(1)\n')
+          '    sys.exit(1)\n'
+          "  print('__secs__', time.perf_counter() - t0, flush=True)\n")
   out = subprocess.run([sys.executable, '-c', code], cwd=HERE,
                        capture_output=True, text=True, timeout=timeout)
   if out.returncode != 0:
-    raise RuntimeError(f'{module} {flag_sets} failed:\n{out.stderr}')
+    raise RuntimeError(f'{runs} failed:\n{out.stderr}')
   lines = [l for l in out.stdout.splitlines() if l.startswith('{')]
-  if len(lines) != len(flag_sets):
-    raise RuntimeError(f'{module} {flag_sets} printed {out.stdout}')
-  return [(line, json.loads(line)) for line in lines]
+  secs = [float(l.split()[1]) for l in out.stdout.splitlines()
+          if l.startswith('__secs__')]
+  if len(lines) != len(runs) or len(secs) != len(runs):
+    raise RuntimeError(f'{runs} printed {out.stdout}')
+  return [(line, json.loads(line), t) for line, t in zip(lines, secs)]
 
 
 def phase0_environment():
@@ -1816,7 +1855,7 @@ def phase17_sparse_trainer(cfg, dev, smi, bare_state, bare_step):
 
 
 def _hold_tower(label, g_net, c_net, g_opt, c_opt, before, v_before, adam,
-                report, apart_in, zero_grad=()):
+                report, apart_in, zero_grad=(), flip_share=0.0):
   """One Adam step of the tower on the card (``g_net``, its optimizer
   state ``g_opt``) against the same step on the CPU (``c_net``,
   ``c_opt``), both from the CPU's copies of the weights and first
@@ -1824,7 +1863,12 @@ def _hold_tower(label, g_net, c_net, g_opt, c_opt, before, v_before, adam,
   (``v_before``); ``adam`` is ``(lr, b1, b2, eps)``. ``zero_grad`` names
   the parameters whose true gradient is 0 (see below). Raises where a
   difference exceeds the allowances below; adds to ``report`` and
-  ``apart_in``."""
+  ``apart_in``. ``flip_share``: the share of a tensor's gradients that
+  may exceed (a)'s allowance, each by at most 2**-5 of the tensor's
+  largest (one example's term, which a ReLU gate that the two sides
+  round to either side of zero puts into one side only; phase 33's
+  batches run through other GEMM shapes on each side); counted in
+  ``report['tower_grads_past_allowance']``."""
   lr, b1, b2, eps = adam
   # A parameter whose true gradient is 0 (the score's bias under the
   # attention's weight normalization: the softmax does not see a constant
@@ -1871,6 +1915,11 @@ def _hold_tower(label, g_net, c_net, g_opt, c_opt, before, v_before, adam,
     if n not in zero_grad:
       report['tower_grad_err_of_max'] = max(
           report['tower_grad_err_of_max'], float(g_diff.max()) / largest)
+      past = g_diff > allowance
+      if flip_share and int(past.sum()) <= flip_share * past.numel():
+        report['tower_grads_past_allowance'] = report.get(
+            'tower_grads_past_allowance', 0) + int(past.sum())
+        allowance = torch.where(past, 2**-5 * largest, allowance)
       if bool((g_diff > allowance).any()):
         raise AssertionError(f'{label}: the gradient of '
                              f'net.{n} differs by up to '
@@ -2064,16 +2113,17 @@ def _tower_report():
 def phase20_e2e(smi, arrow):
   """Phase 20: the port's e2e harness at its defaults (a Parquet file of
   64 batches of 8192 through ``ParquetDataset``, ``DeviceIterator`` and
-  the flagship sparse step, 128 timed steps), in a process of its own,
-  once with the native reader and once with ``--python-reader``; each
+  the flagship sparse step, 128 timed steps), in one process of its own,
+  once with the native reader and then with ``--python-reader``; each
   JSON line is printed. The Adagrad kernel must have been launched once
   a timed step and no other counted kernel, the window must hold at least
   64 fetches, and where phase 0 found Arrow the native reader must have
   served the first run. Returns the kernel launches of both runs."""
   from hybridbackend_tpu_torch.benchmarks import e2e_benchmark as e2e
   launches = collections.Counter()
-  for flags in ([], ['--python-reader']):
-    line, report = _module_json('e2e_benchmark', *flags)
+  flag_sets = ([], ['--python-reader'])
+  for flags, (line, report) in zip(
+      flag_sets, _module_jsons('e2e_benchmark', flag_sets)):
     want = {name: 0 for name in tb.COUNTED}
     want['adagrad_update_sorted'] = report['steps']
     reader = 'native' if arrow and not flags else 'python'
@@ -2628,7 +2678,8 @@ def phase22_serving(cfg, dev, smi, trained):
 
 
 DIN_SESSIONS = 4            # the sessions of phases 23 and 24
-DIN_STEPS = 3               # phase 23's GPU-vs-CPU steps of each variant
+DIN_STEPS = 2               # phase 23's GPU-vs-CPU steps of each variant
+                            # (3 until phase 33 needed the time)
 DIN_PLANTED = 256           # rows whose candidate phase 23 repeats
 # Phase 23's variants: label -> (the harness's flags, the attention's
 # weight normalization).
@@ -2859,14 +2910,15 @@ def phase23_din_step(dev: torch.device, smi: str):
 
 
 def phase24_din_harness(smi: str):
-  """Phase 24: the DIN harness at its defaults, as a user runs it, in a
-  process of its own each: dense, ``--sparse`` and ``--sparse --sessions
-  4``; each JSON line printed. Kernel 1 once a timed step in the sparse
+  """Phase 24: the DIN harness at its defaults, as a user runs it, in one
+  process of its own: dense, ``--sparse`` and ``--sparse --sessions 4``;
+  each JSON line printed. Kernel 1 once a timed step in the sparse
   modes, no counted kernel in the dense one. Returns their launches."""
   launches = collections.Counter()
-  for flags in ([], ['--sparse'], ['--sparse', '--sessions',
-                                   str(DIN_SESSIONS)]):
-    line, report = _module_json('din_benchmark', *flags)
+  flag_sets = ([], ['--sparse'], ['--sparse', '--sessions',
+                                   str(DIN_SESSIONS)])
+  for flags, (line, report) in zip(
+      flag_sets, _module_jsons('din_benchmark', flag_sets)):
     want = {name: 0 for name in tb.COUNTED}
     if '--sparse' in flags:
       want['adagrad_update_sorted'] = report['timed_steps']
@@ -3587,8 +3639,8 @@ def serve_host_tables(smi, bundles, batch_dir, live):
 
 
 PIPE_K = 4                 # phases 29-30's micro-batches held against the CPU
-PIPE_STEPS = 3             # and their steps, each from the initial weights
-# (phase 2's situation, on 3 batches). From trained weights a ReLU whose
+PIPE_STEPS = 2             # and their steps, each from the initial weights
+# (phase 2's situation, on 2 batches; 3 until phase 33 needed the time). From trained weights a ReLU whose
 # input the devices round to either side of zero lets one example's term
 # into one device's gradient only, up to 1.05e-3 of a tensor's largest
 # gradient in the pipelined dense flagship (the plain step's gap reached
@@ -3688,7 +3740,7 @@ def phase29_pipelined(cfg, dev, smi):
                  f'(largest in {worst[1]})')
   del module, full, grads, loss, acc_loss, aux
 
-  # 3 pipelined steps, card against CPU, each from one state.
+  # PIPE_STEPS pipelined steps, card against CPU, each from one state.
   g_trainer, c_trainer = (
       hbt.Trainer(*tb.dense_parts(args, d), ctx=hbt.Context(d))
       for d in (dev, cpu))
@@ -3935,8 +3987,8 @@ def phase30_interleaved(cfg, dev, smi, profile_steps):
 
 
 def phase31_harnesses(smi):
-  """Phase 31: the single-device harnesses at their defaults, each in its
-  own process, their JSON lines printed: ``auc_parity.py`` (exit 0,
+  """Phase 31: the single-device harnesses at their defaults, in turn in
+  one process of their own, their JSON lines printed: ``auc_parity.py`` (exit 0,
   ``parity_ok.fast`` true, kernel 1 once a ``fast`` step and no counted
   kernel in ``exact``), ``data_benchmark.py`` in each mode and
   ``e2e_benchmark.py --profile`` (kernel 1 once a profiled batch). A
@@ -3946,9 +3998,11 @@ def phase31_harnesses(smi):
   launches = collections.Counter()
   with tempfile.TemporaryDirectory() as tmp:
     os.environ['HB_BENCH_CACHE'] = tmp
-    t0 = time.perf_counter()
-    line, r = _module_json('auc_parity', timeout=AUC_TIMEOUT)
-    auc_s = time.perf_counter() - t0
+    runs = _modules_json(
+        [('auc_parity', []), *(('data_benchmark', ['--mode', mode])
+                               for mode in DATA_MODES),
+         ('e2e_benchmark', ['--profile'])], timeout=AUC_TIMEOUT + 600)
+    line, r, auc_s = runs[0]
     fast = r['results']['fast']
     steps = r['config']['rows'] // r['config']['batch'] * r['config'][
         'epochs']
@@ -3967,13 +4021,12 @@ def phase31_harnesses(smi):
           + ', '.join(f'{k} {v["secs"]:.1f}' for k, v in r['results'].items())
           + f'; synthesize {r["synthesize_s"]:.1f}')
     print(f'  {line}')
-    for mode in DATA_MODES:
-      line, r = _module_json('data_benchmark', '--mode', mode)
+    for mode, (line, r, _) in zip(DATA_MODES, runs[1:]):
       if mode == 'transfer' and r['card'] != smi:
         raise AssertionError(f'phase 31: the transfer ran on {r["card"]}')
       print(f'phase 31 (python -m hybridbackend_tpu_torch.benchmarks.'
             f'data_benchmark --mode {mode} --json): {line}')
-    line, r = _module_json('e2e_benchmark', '--profile')
+    line, r, _ = runs[-1]
     want = {name: 0 for name in tb.COUNTED}
     want['adagrad_update_sorted'] = e2e.PROFILE_ROUNDS
     if r['kernel_launches'] != want or r['card'] != smi:
@@ -3988,7 +4041,8 @@ def phase31_harnesses(smi):
 
 SHARDED_WORLDS = (2, 4)    # phase 32's worlds of gloo ranks on the one card
 SHARDED_STEPS = 3          # their steps held against the world of one
-SHARDED_TIMED = 10         # and steps timed after them, per world and case
+SHARDED_TIMED = 5          # and steps timed after them, per world and case
+                           # (10 until phase 33 needed the time)
 SHARDED_FLAGS = ()         # the harness flags of phase 32's config
 SHARDED_DEVICE = 'cuda'    # the ranks' device
 SHARDED_LAUNCH_S = 420     # a world's launch, seconds at most
@@ -4332,6 +4386,684 @@ def _launched_harness(smi):
   return lines[0]
 
 
+PHASE33_WORLDS = (1, 2, 4)  # 1: one NCCL rank on the card; 2, 4: gloo ranks
+PHASE33_STEPS = 3           # each case's steps held against the world of one
+PHASE33_TIMED = 10          # and the steps timed after them
+PHASE33_LAUNCH_S = 600      # a world's launch, seconds at most
+PHASE33_BATCH_SEED = tb.SEED + 33
+PHASE33_WIRES = ('bfloat16', 'float16')
+PHASE33_PROBE = 1 << 16     # floats a rank puts into each probed collective
+# case -> (harness flags, table optimizer, split-dense, the step's
+# exchange options, the kernel its update launches, the update fallbacks
+# a step). A '--lookup allgather' case routes its update by allgather
+# too. 'nodedup_overflow': an update bucket of 1% of a fair share
+# overflows on every rank, every step.
+PHASE33_CASES = {
+    'dlrm_adam': (('--model', 'dlrm', '--lookup', 'alltoall'), 'adam',
+                  False, {}, 'adam_update_sorted', 0),
+    'nodedup': (('--no-dedup', '--lookup', 'alltoall'), 'adagrad', False,
+                {}, 'adagrad_update_sorted', 0),
+    'nodedup_overflow': (('--no-dedup', '--lookup', 'alltoall'), 'adagrad',
+                         False, dict(update_bucket_ratio=0.01),
+                         'adagrad_update_sorted', 1),
+    'split': (('--lookup', 'allgather'), 'adagrad', True,
+              dict(update_exchange='allgather'), 'gsum_dense_sorted', 0),
+    'bf16_adagrad': (('--table-dtype', 'bfloat16', '--lookup', 'alltoall'),
+                     'adagrad', False, {}, 'adagrad_update_sorted', 0),
+    'bf16_adam': (('--table-dtype', 'bfloat16', '--model', 'dlrm',
+                   '--lookup', 'allgather'), 'adam', False,
+                  dict(update_exchange='allgather'), 'adam_update_sorted',
+                  0),
+    'wire': (('--lookup', 'alltoall', '--wire-dtype', 'bfloat16',
+              '--gradient-wire-dtype', 'bfloat16'), 'adagrad', False, {},
+             'adagrad_update_sorted', 0),
+}
+PHASE33_DIN_FLAGS = ('--sparse', '--sessions', '4', '--lookup', 'alltoall')
+PHASE33_SGD_ROUNDS = 3
+# What the ranks run: the step cases, then the SGD rounds and the DIN steps.
+PHASE33_RUN = (*PHASE33_CASES, 'sgd', 'din')
+
+
+def _phase33_steps(world, run):
+  """The step cases a world runs: at NCCL's world of one only the wire
+  case, which casts nothing there."""
+  return [c for c in run if c != 'sgd' and (world > 1 or c == 'wire')]
+
+
+def _phase33_args(case, flags):
+  return flagship(*flags, *PHASE33_CASES[case][0])
+
+
+def _every_state(optimizer, args):
+  """Whether the world of one takes a case's whole state (tables and
+  slots, not only the tower) before each step: LazyAdam's and bf16
+  tables', which a step moves apart by more than its order error (a
+  LazyAdam total near zero moves its element by up to 2·lr, a bf16 value
+  by an ulp), and the next step's embeddings would carry that into the
+  loss and the tower's gradients."""
+  return optimizer == 'adam' or args.table_dtype == 'bfloat16'
+
+
+def _wire_probe(ctx):
+  """The backend's four single-tensor calls in each wire dtype, each
+  ``'ok'`` or the error it raised; and the port's cast collectives on
+  this rank's seeded payload: the ones that only move data against cast,
+  f32 collective, cast (bitwise), the all-reduce against the f64 sum of
+  every rank's cast payload in wire-dtype ulps at the magnitude of the
+  sum of their absolute values, and whether its values are ones the
+  wire dtype holds."""
+  import torch.distributed as dist
+  from hybridbackend_tpu_torch.distribute import collective
+  dev, w = ctx.device, ctx.world_size
+  gen = torch.Generator().manual_seed(330 + ctx.rank)
+  x = (torch.randn(PHASE33_PROBE, generator=gen) * 3).to(dev)
+  calls = {
+      'all_reduce': lambda v: dist.all_reduce(v.clone()),
+      'all_to_all_single': lambda v: dist.all_to_all_single(
+          torch.empty_like(v), v),
+      'all_gather_into_tensor': lambda v: dist.all_gather_into_tensor(
+          v.new_empty(w * v.shape[0]), v),
+      'reduce_scatter_tensor': lambda v: dist.reduce_scatter_tensor(
+          v.new_empty(v.shape[0] // w), v)}
+  out = {'backend': dist.get_backend(), 'calls': {}, 'bitwise': {},
+         'sum_ulps': {}, 'held': {}}
+  for wire in PHASE33_WIRES:
+    dt = getattr(torch, wire)
+    for name, call in calls.items():
+      try:
+        call(x.to(dt))
+        out['calls'][f'{name} {wire}'] = 'ok'
+      except RuntimeError as e:
+        out['calls'][f'{name} {wire}'] = f'refused: {e}'[:200]
+    cast = x.to(dt).float()
+    buckets = x[:w * 4 * 16].reshape(w, 4, 16)
+    sizes = torch.full((w,), 3, dtype=torch.int32, device=dev)
+    pairs = {
+        'allgather': (collective.allgather(x, ctx=ctx, wire_dtype=wire),
+                      collective.allgather(cast, ctx=ctx)),
+        'alltoall': (collective.alltoall(x, ctx=ctx, wire_dtype=wire),
+                     collective.alltoall(cast, ctx=ctx)),
+        'all_to_all_v': (
+            collective.all_to_all_v(buckets, sizes, ctx=ctx,
+                                    wire_dtype=wire)[0],
+            collective.all_to_all_v(buckets.to(dt).float(), sizes,
+                                    ctx=ctx)[0])}
+    for name, (got, want) in pairs.items():
+      out['bitwise'][f'{name} {wire}'] = bool(torch.equal(
+          got, want.to(dt).float()))
+    got = collective.allreduce(x, ctx=ctx, wire_dtype=wire)
+    every = collective.allgather(cast, ctx=ctx).reshape(w, -1).double()
+    exact = every.sum(0)
+    bits = 7 if wire == 'bfloat16' else 10
+    ulp = torch.exp2(torch.floor(torch.log2(
+        every.abs().sum(0).clamp(min=1e-30))) - bits)
+    out['sum_ulps'][wire] = float(((got.double() - exact).abs()
+                                   / ulp).max())
+    out['held'][wire] = bool(torch.equal(got.to(dt).float(), got))
+  return out
+
+
+def _run_record(ctx, state, step, batch, steps, apply_counter, timed,
+                every_state=False):
+  """``steps`` steps of ``step`` from ``state`` on ``batch(i)``: the
+  losses, rank 0's tower and Adam moments after each, this rank's table
+  and slots (copies) after the last, and with ``every_state`` after each
+  earlier step the rows of its shard that the step changed (global row
+  ids, then their table and slot values), its kernel launches and
+  (lookup, update) fallbacks, and whether its tower is rank 0's."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.embedding import lookup as lookup_mod
+  _reset_counts()
+  fell = (lookup_mod.lookup.overflow_fallbacks, apply_counter.overflow_fallbacks)
+  trace = []
+  (name,) = state.tables
+  shard = [state.tables[name], *state.table_opt[name].acc]
+  for i in range(steps):
+    last = i == steps - 1
+    before = [t.clone() for t in shard] if every_state and not last else None
+    state, metrics = step(state, batch(i))
+    rec = {'loss': float(metrics['loss'])}
+    if ctx.rank == 0:
+      rec['tower'] = _tower_values(state)
+    if before is not None:
+      idx = _changed_rows(shard, before)
+      rec['delta'] = (idx.cpu() + ctx.rank * shard[0].shape[0],
+                      [t[idx].cpu() for t in shard])
+    if last:
+      rec['state'] = [t.to('cpu', copy=True) for t in shard]
+    trace.append(rec)
+  if ctx.device.type == 'cuda':
+    torch.cuda.synchronize(ctx.device)
+  flat = torch.cat([p.detach().reshape(-1) for p in state.dense.parameters()])
+  record = {
+      'trace': trace, 'counts': _counts(),
+      'fallbacks': (lookup_mod.lookup.overflow_fallbacks - fell[0],
+                    apply_counter.overflow_fallbacks - fell[1]),
+      'tower_equal': bool(torch.equal(
+          flat, hbt.distribute.broadcast(flat, 0, ctx=ctx))),
+      'device': str(ctx.device), 'backend': torch.distributed.get_backend()}
+  # The ranks start the timed window together.
+  hbt.distribute.allreduce(torch.zeros(1, device=ctx.device), ctx=ctx)
+  w = tb.time_steps(state, step, batch, steps, timed, ctx.device)
+  record['ms_per_step'] = w.ms / timed
+  return record
+
+
+def _changed_rows(now, before):
+  """The rows (ascending) where any of the tensors ``now`` differs from
+  its copy in ``before``."""
+  changed = torch.zeros(now[0].shape[0], dtype=torch.bool,
+                        device=now[0].device)
+  for a, b in zip(now, before):
+    changed |= (a != b).any(1)
+  return changed.nonzero().squeeze(1)
+
+
+def _sgd_inputs(cfg, dev, fx, i, rows=slice(None)):
+  """Round ``i`` of phase 33's SGD: the stacked ids of the flagship batch
+  of step ``i`` and seeded gradients, of the ``rows`` of the batch."""
+  from hybridbackend_tpu_torch.embedding.stack import pack_ids
+  batch = tb.shifted(*tb.make_batch(cfg, dev, PHASE33_BATCH_SEED,
+                                    rows=rows), cfg.vocab, i)
+  (stack,) = fx.stacks
+  ids, _ = pack_ids(stack, fx.member_ids(batch)[stack.stacked.name])
+  gen = torch.Generator().manual_seed(3300 + i)
+  demb = torch.randn((cfg.batch, cfg.tables, cfg.dim), generator=gen)
+  return ids, (demb[rows] * 0.01).to(dev)
+
+
+def phase33_rank(out: str, device: str, spec) -> int:
+  """One rank of phase 33, started by the port's launcher
+  (``chip_smoke.py --rank-of DIR --rank-phase 33``): joins the world,
+  probes the wire, then runs each case (``PHASE33_CASES``, the SGD rounds
+  and the DIN steps; at a world of one only the wire case) from the
+  seed's state on its rows of the global batch, writing to
+  ``DIR/<case>.<rank>.pt`` what ``_run_record`` records. ``spec`` holds
+  the harness flags (``flags``), the DIN harness's (``din``) and the
+  timed steps (``timed``)."""
+  flags, timed = spec['flags'], spec['timed']
+  import hybridbackend_tpu_torch as hbt
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  ctx = hbt.Context.join(device)
+  try:
+    dev = ctx.device
+    torch.save(_wire_probe(ctx), os.path.join(out, f'probe.{ctx.rank}.pt'))
+    for case in _phase33_steps(ctx.world_size, spec['run']):
+      if case == 'din':
+        continue
+      _, optimizer, split, exchange, _, _ = PHASE33_CASES[case]
+      args = _phase33_args(case, flags)
+      state, step = tb.build(args, dev, optimizer, split, ctx=ctx,
+                             **exchange)
+      batch = functools.partial(
+          tb.shifted, *tb.make_batch(args, dev, PHASE33_BATCH_SEED,
+                                     rows=ctx.rows(args.batch)), args.vocab)
+      apply = (hbt.sparse_adam_apply if optimizer == 'adam'
+               else hbt.sparse_adagrad_apply)
+      record = _run_record(ctx, state, step, batch, PHASE33_STEPS, apply,
+                           timed, _every_state(optimizer, args))
+      torch.save(record, os.path.join(out, f'{case}.{ctx.rank}.pt'))
+      del state, step, record
+    if ctx.world_size > 1 and 'sgd' in spec['run']:
+      cfg = flagship(*flags)
+      fx, tables, _, _ = tb.sparse_parts(cfg, dev, ctx)
+      (name,) = tables
+      _reset_counts()
+      fell = hbt.sparse_sgd_apply.overflow_fallbacks
+      for i in range(PHASE33_SGD_ROUNDS):
+        ids, demb = _sgd_inputs(cfg, dev, fx, i, ctx.rows(cfg.batch))
+        hbt.sparse_sgd_apply(tables[name], ids, demb, fx.stacks[0].stacked,
+                             tb.TABLE_LR, ctx=ctx, exchange='alltoall')
+      if dev.type == 'cuda':
+        torch.cuda.synchronize(dev)
+      torch.save({'counts': _counts(), 'table': tables[name].to(
+          'cpu', copy=True), 'fallbacks': hbt.sparse_sgd_apply
+                  .overflow_fallbacks - fell},
+                 os.path.join(out, f'sgd.{ctx.rank}.pt'))
+      del fx, tables
+    if ctx.world_size > 1 and 'din' in spec['run']:
+      args = din.parse_args([*spec['din'], '--device', device])
+      state, step = din.build(args, dev, ctx)
+      batch = functools.partial(din.shifted, args, *din.make_batch(
+          args, dev, PHASE33_BATCH_SEED, rows=ctx.rows(args.batch)))
+      record = _run_record(ctx, state, step, batch, PHASE33_STEPS,
+                           hbt.sparse_adagrad_apply, timed)
+      torch.save(record, os.path.join(out, f'din.{ctx.rank}.pt'))
+  finally:
+    ctx.leave()
+  return 0
+
+
+# A LazyAdam step moves an element by about lr·sign(s) whatever the size of
+# its total s, so where a ReLU gate flip (see ``_hold_tower``) moved an
+# example's embedding gradient, its elements may lie up to 2·lr apart
+# (2.2·lr with the stored value's rounding) and their moments by that
+# gradient: at most this share of a state tensor's elements, and those
+# by at most 2.2·lr (table) or 2**-5 of the tensor's largest (m, v).
+ADAM_FLIP_SHARE = 1e-5
+
+
+def _state_close(label, key, got, want, optimizer, bf16, wire, m_moved,
+                 report, total=None, largest=None):
+  """The gathered ``key`` (table or slot) one step from one state (or,
+  without ``_every_state``, after the last) at a world of N against the
+  world of one, elementwise by the case's rule: f32 Adagrad phase 2's
+  1e-5; LazyAdam's table phase 5's 1e-3, its moments 1e-3 relative plus
+  1e-4 of the largest; bf16 at most 1 bf16 ulp, or ``gpu_vs_cpu``'s
+  atols (1e-6; a LazyAdam table 1e-4, its moments 2**-5 of the largest),
+  in at most 1% of the elements, a LazyAdam table element whose m moved
+  up to 2.2·lr (phase 12's rule); the wire's bands
+  (``tests/test_wire_grad.py``: the accumulator 2e-2; a table element
+  moves by lr·g/sqrt(acc) and g by a bf16 rounding, 2**-8 of lr). LazyAdam
+  elements past the rule: ``ADAM_FLIP_SHARE``. Adds the largest
+  difference (f32) or the elements that differ (bf16), and the elements
+  let past, to ``report``. Where ``got`` and ``want`` are some rows of
+  their tensors, ``total`` is the tensor's elements, which the shares
+  are of, and ``largest`` its largest value."""
+  d = (got.float() - want.float()).abs()
+  one = want.float().abs()
+  total = total or d.numel()
+  largest = float(one.max()) if largest is None else largest
+  adam = optimizer == 'adam'
+  if bf16:
+    ulps = _ulps_apart(got, want)
+    atol = (1e-6 if not adam else 1e-4 if key == 'table'
+            else 2**-5 * largest)
+    bad = (ulps > 1) & (d > atol)
+    if m_moved is not None:
+      bad &= ~(m_moved & (d <= 2.2 * tb.TABLE_LR))
+    differ = int((ulps > 0).sum())
+    if differ > 0.01 * total:
+      raise AssertionError(f'{label}: {key}: {differ} of {total} '
+                           'elements differ')
+  elif wire:
+    bad = d > ((2e-2 * one + 1e-6) if key != 'table' else (1e-5 * one + 2e-4))
+  elif not adam:
+    bad = d > 1e-5 * one + 1e-5
+  elif key == 'table':
+    bad = d > 1e-3
+  else:
+    bad = d > 1e-3 * one + 1e-4 * largest
+  if adam and 0 < int(bad.sum()) <= ADAM_FLIP_SHARE * total:
+    loose = 2.2 * tb.TABLE_LR if key == 'table' else 2**-5 * largest
+    report[f'{key}_past_rule'] = (report.get(f'{key}_past_rule', 0)
+                                  + int(bad.sum()))
+    bad &= d > loose
+  if bool(bad.any()):
+    raise AssertionError(f'{label}: the gathered {key} differs in '
+                         f'{int(bad.sum())} elements past its rule, by up '
+                         f'to {float(d.max())}')
+  name = f'{key}_{"elems_differ" if bf16 else "max_abs_err"}'
+  report[name] = max(report.get(name, 0),
+                     differ if bf16 else float(d.max()))
+
+
+def _hold_wire_tower(label, net, one_net, opt, one_opt, before, lr, report):
+  """The tower after a step on the bf16 wire against the world of one's
+  from the same weights and moments: each weight within the wire's band
+  (``rtol 5e-2, atol 1e-4``, ``tests/test_wire_grad.py``), or, where the
+  first moments differ by more than 1/16 of the world of one's, by up
+  to 2.2·lr (Adam's step, ``lr·m/sqrt(v)``, then moves by up to its own
+  size and may take the other sign); those are counted. The gradients
+  (read from Adam's first moment) are reported, not held: the rows come
+  back rounded to bf16 and the tables drift by the wire's rounding of
+  their updates, and a gradient that sums terms of either sign over the
+  batch keeps that error of their sizes, not of the sum (8.6% of the
+  tensor's largest in a CPU rehearsal at batch 256). The loss, the
+  accumulator and the table hold the step to its bands."""
+  b1 = 0.9
+  for (n, p), q, (_, m0) in zip(net.named_parameters(), one_net.parameters(),
+                                before):
+    m, m1 = opt[p]['exp_avg'].cpu(), one_opt[q]['exp_avg'].cpu()
+    report['tower_grad_err_of_max'] = max(
+        report['tower_grad_err_of_max'],
+        float((m - m1).abs().max()) / float((m1 - b1 * m0).abs().max()))
+    diff = (p.detach().cpu() - q.detach().cpu()).abs()
+    out = diff > 1e-4 + 5e-2 * q.detach().cpu().abs()
+    moved = (m - m1).abs() > m1.abs() / 16
+    report['tower_either_sign'] += int((out & moved).sum())
+    out &= ~(moved & (diff <= 2.2 * lr))
+    report['tower_max_abs_err'] = max(report['tower_max_abs_err'],
+                                      float(diff.max()))
+    if bool(out.any()):
+      raise AssertionError(f'{label}: net.{n} outside the wire band in '
+                           f'{int(out.sum())} elements, by up to '
+                           f'{float(diff.max())}')
+
+
+def _hold_world33(label, case, dev, ranks, flags):
+  """One case's records at a world of N against the world of one on the
+  card (the same seed, the whole table), each step from one tower: before
+  step ``i`` the world of one takes rank 0's tower and Adam moments after
+  step ``i - 1``, and where ``_every_state`` says so the world's tables
+  and slots too, which are then held after every step
+  (``_hold_delta33``, on the rows a step changed). The loss
+  (the ranks' mean) to 1e-5 (1e-4 with bf16 tables and on the wire, by
+  its band), the tower by phase 18's rule (``_hold_tower``, with 0.1% of
+  a tensor's gradients let past for ReLU gate flips: a world's ranks run
+  their rows through other GEMM shapes than the world of one; on the wire
+  by ``_hold_wire_tower``), the gathered shards and slots by
+  ``_state_close``; rows no valid id read keep their initial bits
+  (DIN)."""
+  from hybridbackend_tpu_torch.training.optimizer import init_state
+  if case == 'din':
+    args = din.parse_args([*PHASE33_DIN_FLAGS, '--device', str(dev)])
+    state, step = din.build(args, dev)
+    batch = functools.partial(din.shifted, args, *din.make_batch(
+        args, dev, PHASE33_BATCH_SEED))
+    optimizer, bf16, wire = 'adagrad', False, False
+    make_tower = lambda: din._tower(args, torch.device('cpu'),
+                                    torch.Generator())
+  else:
+    _, optimizer, split, _, _, _ = PHASE33_CASES[case]
+    args = _phase33_args(case, flags)
+    state, step = tb.build(args, dev, optimizer, split)
+    batch = functools.partial(tb.shifted, *tb.make_batch(
+        args, dev, PHASE33_BATCH_SEED), args.vocab)
+    bf16, wire = args.table_dtype == 'bfloat16', case == 'wire'
+    make_tower = lambda: tb._tower(args, torch.device('cpu'),
+                                   torch.Generator())[0]
+  (name,) = state.tables
+  live = [state.tables[name], *state.table_opt[name].acc]
+  keys = ['table'] + (['m', 'v'] if optimizer == 'adam' else ['acc'])
+  initial = live[0].to('cpu', copy=True)
+  init_state(state.dense_opt)
+  group = state.dense_opt.param_groups[0]
+  adam = (group['lr'], *group['betas'], group['eps'])
+  opt = state.dense_opt.state
+  report = {'loss_rel_err': 0.0, **_tower_report(), 'tower_either_sign': 0}
+  apart_in = set()
+  prev, touched, step_rows = None, None, []
+  for i in range(PHASE33_STEPS):
+    step_label = f'{label}, step {i + 1}'
+    if prev is not None:
+      with torch.no_grad():
+        for n, p in state.dense.named_parameters():
+          w, m, v, t = prev[n]
+          p.copy_(w)
+          opt[p]['exp_avg'].copy_(m)
+          opt[p]['exp_avg_sq'].copy_(v)
+          opt[p]['step'].fill_(t)
+    before_values = _tower_values(state)
+    names = [n for n, _ in state.dense.named_parameters()]
+    before = [before_values[n][:2] for n in names]
+    v_before = [before_values[n][2] for n in names]
+    b = batch(i)
+    if case == 'din':
+      ids = b['cand_hist']
+      rows = torch.cat([ids[(ids >= 0) & (ids < args.vocab)].reshape(-1),
+                        b['user'].reshape(-1) + args.vocab]).long().cpu()
+      touched = rows if touched is None else torch.cat([touched, rows])
+    else:
+      step_rows.append(torch.cat([b[f'c{t}'].long().cpu() + t * args.vocab
+                                  for t in range(args.tables)]))
+    pre = ([x.clone() for x in live] if 'delta' in ranks[0]['trace'][i]
+           else None)
+    state, metrics = step(state, b)
+    losses = {r['trace'][i]['loss'] for r in ranks}
+    if len(losses) != 1:
+      raise AssertionError(f'{step_label}: the ranks report losses {losses}')
+    (world_loss,) = losses
+    one = float(metrics['loss'])
+    rel = abs(world_loss - one) / abs(one)
+    report['loss_rel_err'] = max(report['loss_rel_err'], rel)
+    if rel > (1e-4 if (bf16 or wire) else 1e-5):
+      raise AssertionError(f'{step_label}: loss {world_loss}, a world of one '
+                           f'{one}')
+    g_vals = ranks[0]['trace'][i]['tower']
+    g_net, g_opt = make_tower(), {}
+    c_net, c_opt = make_tower(), {}
+    with torch.no_grad():
+      for (n, gp), cp in zip(g_net.named_parameters(), c_net.parameters()):
+        for target, opt_out, (w, m, v, t) in (
+            (gp, g_opt, g_vals[n]), (cp, c_opt, _tower_values(state)[n])):
+          target.copy_(w)
+          opt_out[target] = {'exp_avg': m, 'exp_avg_sq': v,
+                             'step': torch.tensor(t)}
+    if wire:
+      _hold_wire_tower(step_label, g_net, c_net, g_opt, c_opt, before,
+                       adam[0], report)
+    else:
+      _hold_tower(step_label, g_net, c_net, g_opt, c_opt, before, v_before,
+                  adam, report, apart_in, flip_share=1e-3)
+      either_sign = (max(report['their_largest_grad_of_max_card'],
+                         report['their_largest_grad_of_max_cpu']) <= 2**-5
+                     and report['tower_max_abs_err'] <= 2.2 * adam[0])
+      if report['tower_weights_over_1e-4_apart'] and not either_sign:
+        raise AssertionError(f'{step_label}: tower weights over 1e-4 apart: '
+                             f'{report} in {sorted(apart_in)}')
+    prev = g_vals
+    if pre is not None:
+      _hold_delta33(step_label, ranks, i, live, pre, keys, optimizer, bf16,
+                    wire, report)
+    if 'state' in ranks[0]['trace'][i]:
+      _hold_state33(step_label, ranks, i, live, keys, optimizer, bf16, wire,
+                    step_rows, report)
+  if touched is not None:
+    keep = torch.ones(initial.shape[0], dtype=torch.bool)
+    keep[touched] = False
+    world = torch.cat([r['trace'][-1]['state'][0] for r in ranks])
+    for what, t in (('the world', world), ('the world of one', live[0])):
+      if not torch.equal(t.cpu()[keep], initial[keep]):
+        raise AssertionError(f'{label}: {what} moved rows no valid id read')
+    report['rows_kept'] = int(keep.sum())
+  return report, apart_in
+
+
+def _hold_delta33(label, ranks, i, live, pre, keys, optimizer, bf16, wire,
+                  report):
+  """Step ``i`` of an ``_every_state`` case, from one state (``pre``, the
+  world of one's state before it, is the world's): on the rows that
+  either side changed, the world's table and slots (its changed rows
+  from the ranks' records, the others as they were) against the world of
+  one's (``live``) by ``_state_close``, and then the world of one takes
+  the world's values there, so that the next step starts from one state
+  again."""
+  dev = live[0].device
+  rows_w = torch.cat([r['trace'][i]['delta'][0] for r in ranks]).to(dev)
+  vals_w = [torch.cat([r['trace'][i]['delta'][1][k] for r in ranks]).to(dev)
+            for k in range(len(live))]
+  union = torch.zeros(live[0].shape[0], dtype=torch.bool, device=dev)
+  union[_changed_rows(live, pre)] = True
+  union[rows_w] = True
+  rows = union.nonzero().squeeze(1)
+  at = torch.searchsorted(rows, rows_w)
+  world = [x[rows] for x in pre]
+  for w, v in zip(world, vals_w):
+    w[at] = v
+  ones = [x[rows] for x in live]
+  m_moved = (world[1] != ones[1]) if optimizer == 'adam' else None
+  for key, w, one, x in zip(keys, world, ones, live):
+    _state_close(label, key, w, one, optimizer, bf16, wire,
+                 m_moved if key == 'table' else None, report,
+                 total=x.numel(), largest=float(x.float().abs().max()))
+  for x, w in zip(live, world):
+    x[rows] = w
+
+
+def _hold_state33(label, ranks, i, live, keys, optimizer, bf16, wire,
+                  step_rows, report):
+  """The world's gathered table and slots after step ``i`` against the
+  world of one's (``live``), on the card, by ``_state_close``; a failure
+  names its largest difference's row, every state's values there on both
+  sides, and the steps whose batch held that row."""
+  dev = live[0].device
+  gots = [torch.cat([r['trace'][i]['state'][k] for r in ranks]).to(dev)
+          for k in range(len(live))]
+  ones = live
+  m_moved = (gots[1] != ones[1]) if optimizer == 'adam' else None
+  for key, got, one in zip(keys, gots, ones):
+    if got.shape != one.shape:
+      raise AssertionError(f'{label}: the gathered {key} is '
+                           f'{tuple(got.shape)}, not {tuple(one.shape)}')
+    try:
+      _state_close(label, key, got, one, optimizer, bf16, wire,
+                   m_moved if key == 'table' else None, report)
+    except AssertionError as e:
+      d = (got.float() - one.float()).abs()
+      k = int(d.argmax())
+      row = k // d.shape[1]
+      at = {n: (float(g.float().flatten()[k]), float(o.float().flatten()[k]))
+            for n, g, o in zip(keys, gots, ones)}
+      held = [j + 1 for j, r in enumerate(step_rows)
+              if bool((r == row).any())]
+      raise AssertionError(
+          f'{e}; {int((d > 1e-3).sum())} elements over 1e-3 in '
+          f'{int(((d > 1e-3).sum(1) > 0).sum())} rows; the largest at row '
+          f'{row}, (world, one) {at}, in the batches of steps {held}') from e
+
+
+def _hold_sgd33(label, dev, ranks, flags):
+  """Phase 33's SGD rounds: the gathered shards against
+  ``sparse_sgd_apply`` of the whole list on the whole table on the card
+  (rtol 1e-5, atol 1e-6: each row's total summed in another order)."""
+  import hybridbackend_tpu_torch as hbt
+  cfg = flagship(*flags)
+  fx, tables, _, _ = tb.sparse_parts(cfg, dev)
+  (name,) = tables
+  for i in range(PHASE33_SGD_ROUNDS):
+    ids, demb = _sgd_inputs(cfg, dev, fx, i)
+    hbt.sparse_sgd_apply(tables[name], ids, demb, fx.stacks[0].stacked,
+                         tb.TABLE_LR)
+  got = torch.cat([r['table'] for r in ranks])
+  one = tables[name].cpu()
+  err = float((got - one).abs().max())
+  if got.shape != one.shape or not torch.allclose(got, one, rtol=1e-5,
+                                                  atol=1e-6):
+    raise AssertionError(f'{label}: the gathered table differs by {err}')
+  return err
+
+
+def _print_probe(world, ranks):
+  """Phase 33's wire probe: fails unless every cast collective that moves
+  data is bitwise cast, f32 collective, cast, the cast sum holds wire
+  values within its W - 1 ulps, and every call the backend refused is
+  named; prints rank 0's table."""
+  for r, rec in enumerate(ranks):
+    bad = [k for k, ok in rec['bitwise'].items() if not ok]
+    far = {k: u for k, u in rec['sum_ulps'].items() if u > world - 1}
+    unheld = [k for k, ok in rec['held'].items() if not ok and world > 1]
+    if bad or far or unheld:
+      raise AssertionError(f'phase 33, {world} ranks, rank {r}: cast '
+                           f'collectives not bitwise {bad}, sums {far} '
+                           f'ulps, not held by the wire dtype {unheld}')
+  rec = ranks[0]
+  print(f'phase 33, {world} rank(s) on {rec["backend"]}: calls '
+        + ', '.join(f'{k} {v}' for k, v in rec['calls'].items())
+        + '; cast, f32 collective, cast bitwise: '
+        + ', '.join(rec['bitwise'])
+        + '; the cast all-reduce from the f64 sum of the cast payloads: '
+        + ', '.join(f'{k} {v:.3f} ulps' for k, v in rec['sum_ulps'].items()))
+  return {k: v for k, v in rec['calls'].items() if v != 'ok'}
+
+
+def phase33_every_step(dev, smi):
+  """Phase 33: every sparse step at a world of N, one launch a world of
+  ``PHASE33_WORLDS`` (see the module docstring). Returns the kernel
+  launches of the ranks' held steps and rounds, summed over the ranks."""
+  t_phase = time.perf_counter()
+  launches = collections.Counter()
+  refused, failures = {}, []
+  for world in PHASE33_WORLDS:
+    with tempfile.TemporaryDirectory() as out:
+      t0 = time.perf_counter()
+      ranks_flag = (['--simulate', str(world)]
+                    if world > 1 or SHARDED_DEVICE == 'cpu'
+                    else ['--nproc', '1'])
+      cmd = [sys.executable, '-m', 'hybridbackend_tpu_torch.run', *ranks_flag,
+             '--device', SHARDED_DEVICE, '--timeout', str(PHASE33_LAUNCH_S),
+             os.path.join(HERE, 'chip_smoke.py'), '--rank-of', out,
+             '--rank-phase', '33', '--rank-device', SHARDED_DEVICE,
+             '--rank-flags', json.dumps(dict(
+                 flags=list(SHARDED_FLAGS), din=list(PHASE33_DIN_FLAGS),
+                 timed=PHASE33_TIMED, run=list(PHASE33_RUN)))]
+      res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                           timeout=PHASE33_LAUNCH_S + 60)
+      if res.returncode != 0:
+        raise RuntimeError(f'phase 33: {world} ranks exited '
+                           f'{res.returncode}:\n{res.stderr[-4000:]}')
+      launch_s = time.perf_counter() - t0
+      t0 = time.perf_counter()
+      load = lambda case: [torch.load(os.path.join(out, f'{case}.{r}.pt'))
+                           for r in range(world)]
+      refused.update(_print_probe(world, load('probe')))
+      times = []
+      for case in _phase33_steps(world, PHASE33_RUN):
+        label = f'phase 33, {world} ranks, {case}'
+        ranks = load(case)
+        try:
+          kernel, per_step = (('adagrad_update_sorted', 0) if case == 'din'
+                              else PHASE33_CASES[case][4:])
+          want_fallbacks = (0, PHASE33_STEPS * per_step if world > 1 else 0)
+          for r, rec in enumerate(ranks):
+            _expect(f'{label}, rank {r}', rec['counts'],
+                    **{kernel: PHASE33_STEPS})
+            launches.update(rec['counts'])
+            if tuple(rec['fallbacks']) != want_fallbacks:
+              raise AssertionError(f'{label}, rank {r}: (lookup, update) '
+                                   f'fallbacks {rec["fallbacks"]}, expected '
+                                   f'{want_fallbacks}')
+            if not rec['tower_equal']:
+              raise AssertionError(f'{label}: rank {r}\'s tower is not rank '
+                                   '0\'s')
+          report, apart_in = _hold_world33(label, case, dev, ranks,
+                                           SHARDED_FLAGS)
+          times.append(f'{case} {ranks[0]["ms_per_step"]:.4f}')
+          print(f'{label} ({ranks[0]["backend"]} on {ranks[0]["device"]}): '
+                f'{PHASE33_STEPS} steps against a world of one on the card, '
+                'each from one tower: '
+                + ', '.join(f'{k} {v:.3e}' if isinstance(v, float)
+                            else f'{k} {v}' for k, v in report.items())
+                + f' (in {", ".join(sorted(apart_in)) or "none"}); {kernel} '
+                f'{PHASE33_STEPS} times on each rank; (lookup, update) '
+                f'fallbacks {[tuple(r["fallbacks"]) for r in ranks]} by rank')
+        except AssertionError as e:
+          # Every case runs; the phase fails at its end.
+          failures.append(str(e))
+          print(f'{label}: FAILED: {e}')
+        del ranks
+      if world > 1 and 'sgd' in PHASE33_RUN:
+        ranks = load('sgd')
+        for r, rec in enumerate(ranks):
+          _expect(f'phase 33, {world} ranks, sgd, rank {r}', rec['counts'],
+                  scatter_add_sorted=PHASE33_SGD_ROUNDS)
+          launches.update(rec['counts'])
+          if rec['fallbacks']:
+            raise AssertionError(f'phase 33, sgd, rank {r}: fallbacks '
+                                 f'{rec["fallbacks"]}')
+        err = _hold_sgd33(f'phase 33, {world} ranks, sgd', dev, ranks,
+                          SHARDED_FLAGS)
+        print(f'phase 33, {world} ranks, sgd: {PHASE33_SGD_ROUNDS} rounds of '
+              'sparse_sgd_apply on the flagship list against the world of '
+              f'one: table max abs err {err:.3e}; scatter_add_sorted '
+              f'{PHASE33_SGD_ROUNDS} times on each rank')
+        del ranks
+    print(f'phase 33, {world} rank(s) on {smi}: ms/step of rank 0 over '
+          f'{PHASE33_TIMED} steps (CUDA events): {", ".join(times)} -- '
+          + ('gloo ranks sharing one card, through the host: not NCCL, not '
+             'NVLink, not a multi-GPU number' if world > 1 else
+             'one NCCL rank') + f'; launch {launch_s:.1f} s, held against '
+          f'the world of one in {time.perf_counter() - t0:.1f} s')
+  print(f'phase 33: backend refusals {refused or "none"}; '
+        f'{time.perf_counter() - t_phase:.1f} s')
+  if failures:
+    raise AssertionError(f'phase 33: {len(failures)} cases failed: '
+                         + ' | '.join(failures))
+  return launches
+
+
+_LAST_MARK = [time.perf_counter()]
+
+
+def _mark(label):
+  """Prints the wall seconds since the last mark, so that the phases'
+  shares of the run's time limit are on record."""
+  now = time.perf_counter()
+  print(f'chip_smoke: {label} in {now - _LAST_MARK[0]:.1f} s')
+  _LAST_MARK[0] = now
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--profile', action='store_true',
@@ -4346,12 +5078,16 @@ def main() -> int:
   parser.add_argument('--rank-device', default='cuda',
                       help='that rank\'s device')
   parser.add_argument('--rank-flags', default='[]',
-                      help='that rank\'s harness flags, a JSON list')
+                      help='that rank\'s harness flags, a JSON list '
+                      '(phase 33: an object, see phase33_rank)')
+  parser.add_argument('--rank-phase', type=int, default=32,
+                      choices=[32, 33], help='the phase of that rank')
   args = parser.parse_args()
   if args.rank_of:
-    return sharded_rank(args.rank_of, args.rank_device,
-                        json.loads(args.rank_flags))
+    rank = sharded_rank if args.rank_phase == 32 else phase33_rank
+    return rank(args.rank_of, args.rank_device, json.loads(args.rank_flags))
   t_start = time.perf_counter()
+  _LAST_MARK[0] = t_start
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; this smoke run needs one',
           file=sys.stderr)
@@ -4369,6 +5105,7 @@ def main() -> int:
 
   smi, arrow = phase0_environment()
   k = phase1_kernels(cfg, dev, tune=args.tune)
+  _mark('phases 0-1')
   state, dcn_step, counts = gpu_vs_cpu(dev, 'phase 2 (DCNv2 + Adagrad)')
   _expect('DCNv2 + Adagrad step', counts, adagrad_update_sorted=1)
   dcn_state, launches = timed(cfg, dev, 'phase 3 (DCNv2 + Adagrad flagship)',
@@ -4423,23 +5160,30 @@ def main() -> int:
       dev, 'phase 15 (DCNv2 + Adagrad, bf16 matmul operands)', ['--bf16'])
   _expect('DCNv2 step with bf16 matmul operands', counts,
           adagrad_update_sorted=1)
+  _mark('phases 2-15')
   harness(smi)
+  _mark('phase 16')
   trainer_launches, batches, evals, trained = phase17_sparse_trainer(
       cfg, dev, smi, dcn_state, dcn_step)
   trainer_launches.update(phase18_dense_trainer(cfg, dev, smi, batches,
                                                 evals))
+  _mark('phases 17-18')
   harness_dense(smi)
+  _mark('phase 19')
   with tempfile.TemporaryDirectory() as tmp:
     # The file phases' data, cached for the e2e harness's processes too.
     os.environ['HB_BENCH_CACHE'] = tmp
     e2e_launches = phase20_e2e(smi, arrow)
     e2e_launches.update(phase21_criteo(cfg, dev, smi, arrow, tmp))
+  _mark('phases 20-21')
   serving_launches = phase22_serving(cfg, dev, smi, trained)
+  _mark('phase 22')
   del trained
   k['adagrad_update_sorted[din]'], din_launches = phase23_din_step(dev, smi)
   din_launches.update(phase24_din_harness(smi))
   with tempfile.TemporaryDirectory() as tmp:
     din_launches.update(phase25_taobao(dev, smi, tmp))
+  _mark('phases 23-25')
   cache_launches = phase26_host_backed(cfg, dev, smi)
   with tempfile.TemporaryDirectory() as tmp:
     bundles, batch_dir = (os.path.join(tmp, d) for d in ('bundles', 'data'))
@@ -4450,11 +5194,16 @@ def main() -> int:
     live.update(live28)
     cache_launches['gather_rows'] += serve_host_tables(smi, bundles,
                                                        batch_dir, live)
+  _mark('phases 26-28')
   pipeline_launches = phase29_pipelined(cfg, dev, smi)
   pipeline_launches.update(phase30_interleaved(
       cfg, dev, smi, profile_steps=10 if args.profile else 0))
   pipeline_launches.update(phase31_harnesses(smi))
+  _mark('phases 29-31')
   sharded_launches = phase32_sharded(dev, smi)
+  _mark('phase 32')
+  every_step_launches = phase33_every_step(dev, smi)
+  _mark('phase 33')
   if args.profile:
     batch = functools.partial(tb.shifted, *tb.make_batch(cfg, dev),
                               cfg.vocab)
@@ -4510,7 +5259,12 @@ def main() -> int:
                  # world and case summed over the ranks (the timed steps
                  # and the launched harness not counted).
                  'sharded_launches': (sharded_launches[name]
-                                      if name in tb.COUNTED else None)})
+                                      if name in tb.COUNTED else None),
+                 # Launches in phase 33's ranks: the held steps and SGD
+                 # rounds of every world and case summed over the ranks
+                 # (the timed steps not counted).
+                 'every_step_launches': (every_step_launches[name]
+                                         if name in tb.COUNTED else None)})
   print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s wall, every '
         'phase')
   print(json.dumps({'kernels': rows}))

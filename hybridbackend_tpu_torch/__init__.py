@@ -48,8 +48,11 @@ tested against. It imports ``torch`` and never ``jax``, and nothing from
 * a world of ranks (``Context.join``, the launcher ``python -m
   hybridbackend_tpu_torch.run``, ``distribute``): the sparse step with
   row-sharded stacks, looked up through the allgather or alltoall
-  exchange, their Adagrad update routed to each row's owner and applied
-  there through the Adagrad kernel, and the tower data-parallel.
+  exchange, their Adagrad, LazyAdam, SGD, per-occurrence or dense-split
+  update routed to each row's owner and applied there through the
+  update's kernel, f32 or bf16 tables, both model hooks, the tower
+  data-parallel, and the lookup's rows and the gradients cast to bf16 or
+  fp16 on the wire when asked.
 
 Kernels and the native libraries are built at first use, never at
 import.
@@ -59,8 +62,8 @@ __version__ = '0.1.0'
 
 from hybridbackend_tpu_torch import data, distribute, metrics, pipeline
 from hybridbackend_tpu_torch.convert import (
-    from_jax, from_jax_dense, gather_tables, load_adam_state, load_dcn_v2,
-    load_dice, load_din, load_dlrm, quantized_from_jax)
+    from_jax, from_jax_dense, gather_slots, gather_tables, load_adam_state,
+    load_dcn_v2, load_dice, load_din, load_dlrm, quantized_from_jax)
 from hybridbackend_tpu_torch.data import (
     DataFrame, Dataset, Field, ParquetDataset, RebatchBuffer, Value,
     deduplicate, infer_fields, parse, populate_defaults, rebatch,

@@ -27,6 +27,22 @@ harness's draws, in its order). Run on one CUDA device:
   python -m hybridbackend_tpu_torch.benchmarks.din_benchmark [--sparse] \\
       [--sessions 4] [--json]
 
+``--sparse`` runs under the port's launcher too, as one rank of a world
+of N (the counterpart of the JAX harness's ``--cpu N`` world): the stack
+row-sharded over the ranks and looked up through ``--lookup
+allgather|alltoall``, the tower data-parallel, ``--wire-dtype`` and
+``--gradient-wire-dtype`` on the wire as in ``train_benchmark``.
+``--batch`` is the global batch, every rank steps on its rows of it, and
+rank 0 alone prints the report, with the world, the strategy and the
+backend:
+
+  python -m hybridbackend_tpu_torch.run --simulate 2 -m \\
+      hybridbackend_tpu_torch.benchmarks.din_benchmark --sparse \\
+      --lookup alltoall --json
+
+The dense mode in a world of more than one rank is ROADMAP item 15b (5)
+and refused.
+
 Timing is the train harness's (``train_benchmark.time_steps``): 3
 untimed steps, then ``--repeats`` windows of ``--inner-steps`` steps
 enqueued back to back with a CUDA event before each step and after the
@@ -45,6 +61,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import os
 import statistics
 import sys
 from typing import Dict, List, Optional
@@ -75,6 +92,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
   p.add_argument('--sessions', type=int, default=0, metavar='S',
                  help='session-grouped history: [B, S, hist/S] and a '
                       'two-level mask through DINSession')
+  p.add_argument('--lookup', default='allgather',
+                 choices=['allgather', 'alltoall'],
+                 help='the sharded stack\'s exchange, under the launcher')
+  p.add_argument('--wire-dtype', default='float32',
+                 choices=tb.WIRE_DTYPES,
+                 help='the alltoall lookup\'s returning rows on the wire, '
+                      'under the launcher')
+  p.add_argument('--gradient-wire-dtype', default='float32',
+                 choices=tb.WIRE_DTYPES,
+                 help='the gradients on the wire, under the launcher')
   p.add_argument('--device', default='cuda',
                  help="'cuda' (default) or 'cpu'")
   p.add_argument('--json', action='store_true')
@@ -85,6 +112,13 @@ def unsupported(args: argparse.Namespace) -> Optional[str]:
   """Why these flags cannot run, or None."""
   if args.sessions and args.hist % args.sessions:
     return '--hist must divide by --sessions'
+  if not args.sparse and (args.wire_dtype, args.gradient_wire_dtype) != (
+      'float32', 'float32'):
+    return ('a wire dtype applies to --sparse only: the dense step\'s wire '
+            'is ROADMAP item 15b (5)')
+  if tb.launched() and int(os.environ['WORLD_SIZE']) > 1 and not args.sparse:
+    return ('the dense mode in a world of more than one rank is ROADMAP '
+            'item 15b (5); pass --sparse')
   if torch.device(args.device).type == 'cuda' and (
       not torch.cuda.is_available()):
     return 'no CUDA device; pass --device cpu to run on the CPU'
@@ -118,22 +152,24 @@ def din_loss(args: argparse.Namespace, normalize: bool = False):
   return loss
 
 
-def extractor(args: argparse.Namespace, device: torch.device):
+def extractor(args: argparse.Namespace, device: torch.device, ctx=None):
   """The ``--sparse`` feature extractor: both tables in one stack,
-  ``cand_hist`` on the item table and ``user`` on the user table."""
+  ``cand_hist`` on the item table and ``user`` on the user table; in the
+  world ``ctx``, the stack row-sharded over it."""
   import hybridbackend_tpu_torch as hbt
   item, user = _configs(args)
   return hbt.StackedFeatureExtractor(
       [hbt.EmbeddingSpec(item, column='cand_hist'), hbt.EmbeddingSpec(user)],
-      ctx=hbt.Context(device))
+      ctx=ctx or hbt.Context(device))
 
 
 def sparse_parts(args: argparse.Namespace, device: torch.device,
-                 normalize: bool = False):
+                 normalize: bool = False, ctx=None):
   """``(fx, tables, tower, raw_model_loss)`` of ``--sparse`` on
   ``device``, drawn on the CPU from ``SEED``; ``normalize`` is the
-  attention's weight normalization."""
-  fx = extractor(args, device)
+  attention's weight normalization; in the world ``ctx``, with this
+  rank's shard of the stack."""
+  fx = extractor(args, device, ctx)
   gen = torch.Generator().manual_seed(tb.SEED)
   tables = fx.init(gen)
   tower = _tower(args, device, gen)
@@ -158,17 +194,21 @@ def sparse_trainer(args: argparse.Namespace, device: torch.device,
       model_dir=model_dir, raw_model_loss=raw_model_loss)
 
 
-def build(args: argparse.Namespace, device: torch.device):
+def build(args: argparse.Namespace, device: torch.device, ctx=None):
   """The state and the step of ``args`` on ``device``: the sparse step in
-  raw mode with ``--sparse``, the dense-gradient step without."""
+  raw mode with ``--sparse`` (in the world ``ctx``, with the exchange and
+  wire flags), the dense-gradient step without."""
   import hybridbackend_tpu_torch as hbt
   if args.sparse:
-    fx, tables, tower, raw_model_loss = sparse_parts(args, device)
+    fx, tables, tower, raw_model_loss = sparse_parts(args, device, ctx=ctx)
     state = hbt.SparseTrainState.create(
         tower, tables, functools.partial(torch.optim.Adam, lr=tb.TOWER_LR),
-        adagrad_init=tb.ADAGRAD_INIT)
+        adagrad_init=tb.ADAGRAD_INIT, ctx=ctx)
     return state, hbt.make_sparse_train_step(
-        fx, None, table_lr=tb.TABLE_LR, raw_model_loss=raw_model_loss)
+        fx, None, table_lr=tb.TABLE_LR, raw_model_loss=raw_model_loss,
+        lookup_strategy=args.lookup, update_exchange=args.lookup,
+        wire_dtype=args.wire_dtype,
+        gradient_wire_dtype=args.gradient_wire_dtype)
   item, user = _configs(args)
   specs = [hbt.EmbeddingSpec(item), hbt.EmbeddingSpec(user)]
   gen = torch.Generator().manual_seed(tb.SEED)
@@ -190,13 +230,14 @@ def build(args: argparse.Namespace, device: torch.device):
 
 
 def make_batch(args: argparse.Namespace, device: torch.device,
-               seed: int = tb.SEED):
+               seed: int = tb.SEED, rows: slice = slice(None)):
   """The JAX harness's draws from ``RandomState(seed)``, in its order:
   the mask's lengths, then item, history, user, the dense features and
   the labels. Returns the columns that do not move, on ``device``; the
   ids that do as one ``[B, 1 + hist]`` tensor (the candidate, then the
   history; with ``--sparse --sessions``, ``-1`` where the mask is false),
-  which ``shifted`` moves; and 1 where an id is valid, 0 at a hole."""
+  which ``shifted`` moves; and 1 where an id is valid, 0 at a hole; of
+  the ``rows`` of the batch (a rank's share)."""
   rng = np.random.RandomState(seed)
   b, h, s = args.batch, args.hist, args.sessions
   if s:
@@ -216,8 +257,8 @@ def make_batch(args: argparse.Namespace, device: torch.device,
   if s and args.sparse:
     # Mask-derived -1 holes: padding ids must not touch rows.
     hist = np.where(mask.reshape(b, -1), hist, -1)
-  ids = np.concatenate([item[:, None], hist], axis=1).astype(np.int32)
-  return ({k: torch.from_numpy(v).to(device) for k, v in base.items()},
+  ids = np.concatenate([item[:, None], hist], axis=1).astype(np.int32)[rows]
+  return ({k: torch.from_numpy(v[rows]).to(device) for k, v in base.items()},
           torch.from_numpy(ids).to(device),
           torch.from_numpy((ids >= 0).astype(np.int32)).to(device))
 
@@ -239,13 +280,16 @@ def shifted(args: argparse.Namespace, base: Dict[str, torch.Tensor],
   return batch
 
 
-def run(args: argparse.Namespace) -> dict:
-  """Builds the config, times it and returns the report."""
+def run(args: argparse.Namespace, ctx=None) -> dict:
+  """Builds the config, times it and returns the report; in the world
+  ``ctx``, this rank's report."""
   import hybridbackend_tpu_torch as hbt
-  device = torch.device(args.device)
+  device = ctx.device if ctx is not None else torch.device(args.device)
   on_card = device.type == 'cuda'
-  state, step = build(args, device)
-  batch = functools.partial(shifted, args, *make_batch(args, device))
+  state, step = build(args, device, ctx)
+  batch = functools.partial(shifted, args, *make_batch(
+      args, device, rows=(ctx.rows(args.batch) if ctx is not None
+                          else slice(None))))
   state = tb.time_steps(state, step, batch, 0, tb.WARMUP, device).state
   for name in tb.COUNTED:
     getattr(hbt, name).launches = 0
@@ -276,6 +320,11 @@ def run(args: argparse.Namespace) -> dict:
       'vocab': args.vocab, 'sparse': args.sparse, 'sessions': args.sessions,
       'inner_steps': args.inner_steps, 'repeats': args.repeats,
       'device': str(device),
+      'world': ctx.world_size if ctx is not None else 1,
+      'lookup': args.lookup, 'wire_dtype': args.wire_dtype,
+      'gradient_wire_dtype': args.gradient_wire_dtype,
+      'backend': (torch.distributed.get_backend(ctx.group)
+                  if ctx is not None else None),
       'device_name': torch.cuda.get_device_name(device) if on_card else 'cpu',
       'card': tb.card() if on_card else None,
       'timing': 'cuda events' if on_card else 'host clock',
@@ -290,7 +339,17 @@ def main(argv: Optional[List[str]] = None) -> int:
   if why:
     print(f'din_benchmark: {why}', file=sys.stderr)
     return 1
-  result = run(args)
+  ctx = None
+  if tb.launched():
+    import hybridbackend_tpu_torch as hbt
+    ctx = hbt.Context.join(args.device)
+  try:
+    result = run(args, ctx)
+  finally:
+    if ctx is not None:
+      ctx.leave()
+  if ctx is not None and ctx.rank != 0:
+    return 0
   if args.json:
     print(json.dumps(result))
   else:

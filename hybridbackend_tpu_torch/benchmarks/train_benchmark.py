@@ -28,6 +28,13 @@ of the global batch:
       hybridbackend_tpu_torch.benchmarks.train_benchmark --sparse \
       --lookup alltoall --json
 
+Every table option runs there as at a world of one (``--no-dedup``,
+``--table-dtype bfloat16``, ``--model dlrm``), and ``--wire-dtype`` and
+``--gradient-wire-dtype`` (``float32``, ``bfloat16`` or ``float16``) cast
+the alltoall lookup's returning rows and the gradients (the tower's
+all-reduce, the routed table gradients) on the wire, the counterparts of
+the JAX options ``HB_COMM_WIRE_DTYPE`` and ``HB_COMM_GRADIENT_WIRE_DTYPE``;
+at a world of one there is no wire and they change nothing, as in JAX.
 Gloo ranks that share one card (``--simulate N --device cuda``) check
 correctness only: their times say nothing of NCCL or of links between
 cards.
@@ -54,9 +61,10 @@ Refused, each with its reason: a host mesh in one process (``--cpu N``:
 the port's ranks are processes, started by the launcher);
 ``--no-dedup`` or ``--interleave`` without ``--sparse``, as both apply
 to the sparse step only; ``--no-dedup`` with ``--interleave``, as the
-JAX harness refuses it; in a world of more than one rank, the dense
-mode, ``--interleave``, ``--no-dedup`` and bf16 tables (ROADMAP item
-15b).
+JAX harness refuses it; a wire dtype without ``--sparse`` (the dense
+step's wire needs the dense step at a world of N, ROADMAP item 15b (5));
+in a world of more than one rank, the dense mode (15b (5)) and
+``--interleave`` (15b (7)).
 """
 
 from __future__ import annotations
@@ -83,6 +91,7 @@ WARMUP = 3
 TABLE_LR = 0.05
 ADAGRAD_INIT = 0.1
 TOWER_LR = 1e-3
+WIRE_DTYPES = ('float32', 'bfloat16', 'float16')
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -115,6 +124,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
   p.add_argument('--lookup', default='allgather',
                  choices=['allgather', 'alltoall'],
                  help='the sharded tables\' exchange, under the launcher')
+  p.add_argument('--wire-dtype', default='float32', choices=WIRE_DTYPES,
+                 help='the alltoall lookup\'s returning rows on the wire '
+                      '(HB_COMM_WIRE_DTYPE), under the launcher')
+  p.add_argument('--gradient-wire-dtype', default='float32',
+                 choices=WIRE_DTYPES,
+                 help='the gradients on the wire (HB_COMM_GRADIENT_WIRE_'
+                      'DTYPE), under the launcher')
   p.add_argument('--cpu', type=int, default=0,
                  help='devices of a host mesh (not ported: start ranks '
                       'with python -m hybridbackend_tpu_torch.run)')
@@ -133,6 +149,10 @@ def unsupported(args: argparse.Namespace) -> Optional[str]:
             'batches\' lookups beside the tower); pass --sparse')
   if args.interleave > 0 and args.no_dedup:
     return '--no-dedup is not supported with --interleave'
+  if not args.sparse and (args.wire_dtype, args.gradient_wire_dtype) != (
+      'float32', 'float32'):
+    return ('a wire dtype applies to the sparse step only: the dense '
+            'step\'s wire is ROADMAP item 15b (5); pass --sparse')
   if args.cpu:
     return ('--cpu N (a mesh of N host devices in one process) is not '
             'ported; start N ranks with python -m hybridbackend_tpu_torch.run '
@@ -145,12 +165,6 @@ def unsupported(args: argparse.Namespace) -> Optional[str]:
     if args.interleave > 0:
       return ('--interleave in a world of more than one rank is ROADMAP '
               'item 15b (7)')
-    if args.no_dedup:
-      return ('--no-dedup in a world of more than one rank is ROADMAP item '
-              '15b (1)')
-    if args.table_dtype != 'float32':
-      return ('bf16 tables in a world of more than one rank are ROADMAP '
-              'item 15b (9)')
   if torch.device(args.device).type == 'cuda' and (
       not torch.cuda.is_available()):
     return 'no CUDA device; pass --device cpu to run on the CPU'
@@ -290,11 +304,11 @@ def build(args: argparse.Namespace, device: torch.device,
     return state, hbt.make_interleaved_train_step(
         fx, model_loss, args.interleave, table_lr=TABLE_LR,
         table_optimizer=table_optimizer)
-  step = hbt.make_sparse_train_step(fx, model_loss, table_lr=TABLE_LR,
-                                    table_dedup=not args.no_dedup,
-                                    table_optimizer=table_optimizer,
-                                    table_split_dense=split_dense,
-                                    lookup_strategy=args.lookup, **exchange)
+  step = hbt.make_sparse_train_step(
+      fx, model_loss, table_lr=TABLE_LR, table_dedup=not args.no_dedup,
+      table_optimizer=table_optimizer, table_split_dense=split_dense,
+      lookup_strategy=args.lookup, wire_dtype=args.wire_dtype,
+      gradient_wire_dtype=args.gradient_wire_dtype, **exchange)
   return state, step
 
 
@@ -410,7 +424,8 @@ def run(args: argparse.Namespace, ctx=None) -> dict:
       'inner_steps': args.inner_steps, 'repeats': args.repeats,
       'device': str(device),
       'world': ctx.world_size if ctx is not None else 1,
-      'lookup': args.lookup,
+      'lookup': args.lookup, 'wire_dtype': args.wire_dtype,
+      'gradient_wire_dtype': args.gradient_wire_dtype,
       'backend': (torch.distributed.get_backend(ctx.group)
                   if ctx is not None else None),
       'device_name': torch.cuda.get_device_name(device) if on_card else 'cpu',

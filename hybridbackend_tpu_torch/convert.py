@@ -105,6 +105,21 @@ def gather_tables(fx: StackedFeatureExtractor,
           for s in fx.stacks}
 
 
+def gather_slots(fx: StackedFeatureExtractor,
+                 table_opt: Mapping[str, SparseOptState]
+                 ) -> Dict[str, Tuple[torch.Tensor, ...]]:
+  """Each stack's table-optimizer slots (Adagrad's ``(acc,)``, LazyAdam's
+  ``(m, v)``) whole on every rank, gathered as :func:`gather_tables`
+  gathers the tables (a collective: every rank calls it)."""
+  width = {len(s.acc) for s in table_opt.values()}
+  if len(width) > 1:
+    raise ValueError(f'the stacks hold {sorted(width)} slots each; one '
+                     'optimizer has one number')
+  per_slot = [gather_tables(fx, {n: s.acc[i] for n, s in table_opt.items()})
+              for i in range(max(width, default=0))]
+  return {name: tuple(g[name] for g in per_slot) for name in table_opt}
+
+
 def _layers(model: nn.Module, params: Mapping[str, Any]
             ) -> Tuple[List[Dense], List[Mapping]]:
   """The tower's ``Dense`` layers and the JAX ``{w, b}`` dicts of a
@@ -302,6 +317,6 @@ def quantized_from_jax(q: np.ndarray, scale: np.ndarray, dim: int,
                         scale=torch.tensor(scale, device=device))
 
 
-__all__ = ['from_jax', 'from_jax_dense', 'gather_tables', 'load_adam_state',
-           'load_dcn_v2', 'load_dice', 'load_din', 'load_dlrm',
-           'quantized_from_jax']
+__all__ = ['from_jax', 'from_jax_dense', 'gather_slots', 'gather_tables',
+           'load_adam_state', 'load_dcn_v2', 'load_dice', 'load_din',
+           'load_dlrm', 'quantized_from_jax']

@@ -13,15 +13,24 @@ backends' single-tensor calls (``all_to_all_single``,
 gloo both take for CUDA tensors; gloo copies those through the host
 itself.
 
-Only ``Topology.ALL`` (every rank) and float32 on the wire are ported:
-the intra- and inter-node topologies and the wire dtypes
-(``collective.py:79-103``) are ROADMAP item 15b.
+``allreduce``, ``allgather``, ``alltoall`` and ``all_to_all_v`` take a
+``wire_dtype`` (``_with_wire_cast`` and ``_norm_wire``, ``:85-95`` and
+``:281-285``): a float payload is cast to it before the call and back to
+its own dtype after it, so a sum runs in the wire dtype on the backend.
+``None`` and ``'float32'`` leave the payload as it is, and so does an
+integer payload. ``reduce_scatter`` stays at the payload's precision, as
+the JAX lookup keeps its ``psum_scatter``. A backend that refuses the
+wire dtype raises a ``TypeError`` that names the dtype and the backend;
+nothing is sent at a wider dtype instead.
+
+Only ``Topology.ALL`` (every rank) is ported: the intra- and inter-node
+topologies are ROADMAP item 15b (3).
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
@@ -45,21 +54,61 @@ def _dist(topology: Topology):
 
 
 _REDUCTIONS = ('sum', 'max', 'min', 'mean')
+WireDtype = Optional[Union[str, torch.dtype]]
+
+
+def wire_dtype_of(wire_dtype: WireDtype) -> Optional[torch.dtype]:
+  """The torch dtype that ``wire_dtype`` names (``'bfloat16'``,
+  ``'float16'``, ...), or None for ``None``, ``''`` and ``'float32'``:
+  no cast (JAX ``_norm_wire``)."""
+  if isinstance(wire_dtype, torch.dtype):
+    return None if wire_dtype == torch.float32 else wire_dtype
+  if wire_dtype in (None, '', 'float32'):
+    return None
+  dtype = getattr(torch, str(wire_dtype), None)
+  if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+    raise ValueError(f'wire dtype {wire_dtype!r} is not a float dtype')
+  return dtype
+
+
+def _on_wire(x: torch.Tensor, wire_dtype: WireDtype, what: str,
+             call: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+  """``call`` on ``x`` cast to the wire dtype, cast back to ``x``'s dtype
+  (``_with_wire_cast``); ``x`` as it is when there is no cast to make. A
+  backend that refuses the wire dtype raises, naming it."""
+  wire = wire_dtype_of(wire_dtype)
+  if wire is None or wire == x.dtype or not x.is_floating_point():
+    return call(x)
+  try:
+    out = call(x.to(wire))
+  except RuntimeError as e:
+    import torch.distributed as dist
+    raise TypeError(f'{what}: the {dist.get_backend()} backend refuses '
+                    f'{wire} on the wire ({e})') from e
+  return out.to(x.dtype)
 
 
 def allreduce(x: torch.Tensor, reduction: str = 'sum', *, ctx: Context,
-              topology: Topology = Topology.ALL) -> torch.Tensor:
+              topology: Topology = Topology.ALL,
+              wire_dtype: WireDtype = None) -> torch.Tensor:
   """``reduction`` (``'sum'``, ``'max'``, ``'min'`` or ``'mean'``) of
   ``x`` over the ranks, on every rank. ``'mean'`` is the sum over the
-  ranks divided by the world (float tensors)."""
+  ranks divided by the world (float tensors), in ``x``'s dtype after the
+  cast back from ``wire_dtype``."""
   if reduction not in _REDUCTIONS:
     raise ValueError(f'Unsupported reduction: {reduction}')
   dist = _dist(topology)
-  out = x.clone(memory_format=torch.contiguous_format)
-  if ctx.distributed:
-    op = {'max': dist.ReduceOp.MAX,
-          'min': dist.ReduceOp.MIN}.get(reduction, dist.ReduceOp.SUM)
-    dist.all_reduce(out, op=op, group=ctx.group)
+
+  def call(v):
+    out = v.clone(memory_format=torch.contiguous_format)
+    if ctx.distributed:
+      op = {'max': dist.ReduceOp.MAX,
+            'min': dist.ReduceOp.MIN}.get(reduction, dist.ReduceOp.SUM)
+      dist.all_reduce(out, op=op, group=ctx.group)
+    return out
+
+  out = _on_wire(x, wire_dtype if ctx.distributed else None, 'allreduce',
+                 call)
   if reduction == 'mean':
     out /= ctx.world_size
   return out
@@ -76,22 +125,28 @@ def broadcast(x: torch.Tensor, root: int = 0, *, ctx: Context,
 
 
 def allgather(x: torch.Tensor, *, ctx: Context,
-              topology: Topology = Topology.ALL) -> torch.Tensor:
+              topology: Topology = Topology.ALL,
+              wire_dtype: WireDtype = None) -> torch.Tensor:
   """The ranks' ``x`` concatenated in rank order along the leading
   dimension: ``[W·n, ...]`` from ``[n, ...]`` (JAX ``all_gather`` with
   ``tiled=True``). Every rank's ``x`` has one shape."""
   dist = _dist(topology)
   if not ctx.distributed:
     return x.clone()
-  out = x.new_empty((ctx.world_size * x.shape[0],) + tuple(x.shape[1:]))
-  gather = getattr(dist, 'all_gather_single', None) or (
-      dist.all_gather_into_tensor)
-  gather(out, x.contiguous(), group=ctx.group)
-  return out
+
+  def call(v):
+    out = v.new_empty((ctx.world_size * v.shape[0],) + tuple(v.shape[1:]))
+    gather = getattr(dist, 'all_gather_single', None) or (
+        dist.all_gather_into_tensor)
+    gather(out, v.contiguous(), group=ctx.group)
+    return out
+
+  return _on_wire(x, wire_dtype, 'allgather', call)
 
 
 def alltoall(x: torch.Tensor, *, ctx: Context,
-             topology: Topology = Topology.ALL) -> torch.Tensor:
+             topology: Topology = Topology.ALL,
+             wire_dtype: WireDtype = None) -> torch.Tensor:
   """Row block ``i`` of ``x`` (``[W·k, ...]``) to rank ``i``; returns the
   blocks received, in rank order (JAX ``all_to_all`` with
   ``tiled=True``)."""
@@ -101,9 +156,13 @@ def alltoall(x: torch.Tensor, *, ctx: Context,
                      f'world of {ctx.world_size}')
   if not ctx.distributed:
     return x.clone()
-  out = torch.empty_like(x, memory_format=torch.contiguous_format)
-  dist.all_to_all_single(out, x.contiguous(), group=ctx.group)
-  return out
+
+  def call(v):
+    out = torch.empty_like(v, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out, v.contiguous(), group=ctx.group)
+    return out
+
+  return _on_wire(x, wire_dtype, 'alltoall', call)
 
 
 def reduce_scatter(x: torch.Tensor, *, ctx: Context,
@@ -125,7 +184,8 @@ def reduce_scatter(x: torch.Tensor, *, ctx: Context,
 
 
 def all_to_all_v(buckets: torch.Tensor, sizes: torch.Tensor, *,
-                 ctx: Context, topology: Topology = Topology.ALL
+                 ctx: Context, topology: Topology = Topology.ALL,
+                 wire_dtype: WireDtype = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
   """The fixed-capacity variable all-to-all of ``all_to_all_v_t``
   (``collective.py:180-210``): the per-peer sizes first, then the
@@ -139,14 +199,16 @@ def all_to_all_v(buckets: torch.Tensor, sizes: torch.Tensor, *,
   Returns ``(recv [W, capacity, ...], recv_sizes [W])``: ``recv[j]`` is
   the bucket rank ``j`` sent here, ``recv_sizes[j]`` its valid rows. The
   padding lanes travel too, as in JAX: the capacity, not the sizes,
-  fixes the payload."""
+  fixes the payload. ``wire_dtype`` casts the buckets, never the
+  sizes."""
   if buckets.shape[0] != ctx.world_size or sizes.shape != (ctx.world_size,):
     raise ValueError(f'all_to_all_v: buckets {tuple(buckets.shape)} and '
                      f'sizes {tuple(sizes.shape)} in a world of '
                      f'{ctx.world_size}')
   recv_sizes = alltoall(sizes, ctx=ctx, topology=topology)
-  return alltoall(buckets, ctx=ctx, topology=topology), recv_sizes
+  return alltoall(buckets, ctx=ctx, topology=topology,
+                  wire_dtype=wire_dtype), recv_sizes
 
 
 __all__ = ['Topology', 'all_to_all_v', 'allgather', 'allreduce', 'alltoall',
-           'broadcast', 'reduce_scatter']
+           'broadcast', 'reduce_scatter', 'wire_dtype_of']

@@ -23,7 +23,10 @@ exchanges between the ranks, bit for bit:
   each rank the sum for its ids (``:267-279``);
 * ``'alltoall'``: the ids are bucketed by owner (``partition_by_fn``),
   sent to their owners with ``all_to_all_v``, read there, sent back and
-  unbucketed (``:286-346``). A bucket holds ``ceil(bucket_ratio·n/W)``
+  unbucketed (``:286-346``). ``wire_dtype`` (the JAX option
+  ``comm_wire_dtype``, ``:199-205``) casts the rows on their way back,
+  and nothing else: ids never travel as floats, and the allgather
+  strategy's reduce-scatter stays at the table's precision. A bucket holds ``ceil(bucket_ratio·n/W)``
   ids; when one overflows on any rank, every rank takes the exact
   exchange instead (``overflow_fallback``). The predicate goes through
   an all-reduce and is read on the host, so every rank takes the same
@@ -34,7 +37,7 @@ Every rank passes the same number of ids (a world splits the ids as
 lookup pads and splits it, ``:72-82``). The sharded lookup has no
 backward: the sparse step routes the embeddings' gradient itself
 (``sparse_update.py``). ``'hierarchical'``, ``'gspmd'`` and
-column-sharded tables are ROADMAP item 15b.
+column-sharded tables are ROADMAP item 15b (3).
 """
 
 from __future__ import annotations
@@ -62,7 +65,8 @@ def lookup(table: Table, ids: torch.Tensor, config: TableConfig,
            serving: bool = False, *, ctx: Optional[Context] = None,
            strategy: str = 'allgather', bucket_ratio: float = 2.0,
            overflow_fallback: bool = True,
-           unique_ratio: float = 1.0) -> torch.Tensor:
+           unique_ratio: float = 1.0,
+           wire_dtype: collective.WireDtype = None) -> torch.Tensor:
   """Look up ``ids`` (any shape) in ``table``; returns
   ``ids.shape + (dim,)`` in the table's dtype (float32 for a
   ``QuantizedTable``). Invalid ids give zero rows. ``serving=True``
@@ -74,8 +78,9 @@ def lookup(table: Table, ids: torch.Tensor, config: TableConfig,
   ``overflow_fallback`` and ``unique_ratio`` (``emb_unique_ratio``:
   below 1, the ids are deduplicated to that share of their number
   before the exchange, exactly, with the exact exchange when more are
-  unique) are the JAX options of the same names. Elsewhere they are
-  not used."""
+  unique) are the JAX options of the same names, and ``wire_dtype``
+  the dtype of the alltoall strategy's returning rows (``None`` or
+  ``'float32'``: the table's). Elsewhere they are not used."""
   if isinstance(table, QuantizedTable):
     if config.should_shard(ctx):
       raise NotImplementedError('sharded int8 tables are ROADMAP item '
@@ -87,7 +92,7 @@ def lookup(table: Table, ids: torch.Tensor, config: TableConfig,
                                 'sharded tables is ROADMAP item 15b (6)')
     with torch.no_grad():
       return _sharded(table, ids, config, ctx, strategy, bucket_ratio,
-                      overflow_fallback, unique_ratio)
+                      overflow_fallback, unique_ratio, wire_dtype)
   valid = (ids >= 0) & (ids < config.vocab_size)
   rows = config.row_index(ids, ctx)
   if serving:
@@ -122,7 +127,7 @@ def _global_any(flag: torch.Tensor, ctx: Context) -> bool:
 
 
 def _sharded(shard, ids, config, ctx, strategy, bucket_ratio, fallback,
-             unique_ratio):
+             unique_ratio, wire_dtype):
   if config.partition != 'row':
     raise NotImplementedError(
         f'table {config.name!r}: partition={config.partition!r} is ROADMAP '
@@ -143,7 +148,7 @@ def _sharded(shard, ids, config, ctx, strategy, bucket_ratio, fallback,
     u = unique(flat, capacity=cap, fill_value=-1)
     if not _global_any(u.overflowed, ctx):
       emb_u = _sharded(shard, u.values, config, ctx, strategy,
-                       bucket_ratio, fallback, 1.0)
+                       bucket_ratio, fallback, 1.0, wire_dtype)
       return emb_u.index_select(0, u.index.long()).reshape(
           *ids.shape, config.dim)
     lookup.overflow_fallbacks += 1
@@ -156,7 +161,7 @@ def _sharded(shard, ids, config, ctx, strategy, bucket_ratio, fallback,
     out = _lookup_allgather(shard, rows, ctx, rows_per_shard)
   else:
     out = _lookup_alltoall(shard, rows, ctx, rows_per_shard, bucket_ratio,
-                           fallback)
+                           fallback, wire_dtype)
   return out.reshape(*ids.shape, config.dim)
 
 
@@ -171,20 +176,22 @@ def _lookup_allgather(shard, rows, ctx, rows_per_shard):
   return collective.reduce_scatter(contrib, ctx=ctx)
 
 
-def _a2a_round_trip(shard, part: Partitioned, ctx, rows_per_shard):
-  """The ids to their owners, the owners' gather, the rows back,
-  unbucketed (``lookup.py:294-303``)."""
+def _a2a_round_trip(shard, part: Partitioned, ctx, rows_per_shard,
+                    wire_dtype):
+  """The ids to their owners, the owners' gather, the rows back in
+  ``wire_dtype``, unbucketed (``lookup.py:294-303``)."""
   recv, recv_sizes = collective.all_to_all_v(part.buckets, part.sizes,
                                              ctx=ctx)
   local = (recv - ctx.rank * rows_per_shard).clamp(0, rows_per_shard - 1)
   emb = shard.index_select(0, local.reshape(-1).long()).reshape(
       *local.shape, shard.shape[1])
-  back, _ = collective.all_to_all_v(emb, recv_sizes, ctx=ctx)
+  back, _ = collective.all_to_all_v(emb, recv_sizes, ctx=ctx,
+                                    wire_dtype=wire_dtype)
   return unpartition(back.reshape(-1, shard.shape[1]), part.restore)
 
 
 def _lookup_alltoall(shard, rows, ctx, rows_per_shard, bucket_ratio,
-                     fallback):
+                     fallback, wire_dtype):
   """Bucketed by owner, exchanged, read, exchanged back
   (``lookup.py:306-346``)."""
   world = ctx.world_size
@@ -204,13 +211,14 @@ def _lookup_alltoall(shard, rows, ctx, rows_per_shard, bucket_ratio,
     cap = max(1, int(math.ceil(bucket_ratio * b / world)))
     cap = cap if cap < b else None
   if cap is None:
-    out = _a2a_round_trip(shard, part(None), ctx, rows_per_shard)
+    out = _a2a_round_trip(shard, part(None), ctx, rows_per_shard,
+                          wire_dtype)
   else:
     p = part(cap)
     if fallback and _global_any(p.overflow, ctx):
       lookup.overflow_fallbacks += 1
       p = part(None)
-    out = _a2a_round_trip(shard, p, ctx, rows_per_shard)
+    out = _a2a_round_trip(shard, p, ctx, rows_per_shard, wire_dtype)
   return torch.where(valid.unsqueeze(-1), out, 0)
 
 

@@ -21,20 +21,26 @@ JAX) and the gradient list take the table's dtype, and every update does
 its math in float32 and rounds each stored result once
 (``ops/scatter.py``).
 
-In a world of more than one rank (``ctx``), Adagrad takes each rank's
-ids and gradients. A replicated table gathers every rank's list and
-applies the global update on every replica (``:709-731``). A row-sharded
-table routes each row's gradient to the rank that owns it
-(``:377-555``): each rank sums its duplicate rows, buckets the totals by
+In a world of more than one rank (``ctx``), every optimizer takes each
+rank's ids and gradients. A replicated table gathers every rank's list
+and applies the global update on every replica (``:709-731``,
+``:819-832``, ``:919-934``). A row-sharded table routes each row's
+gradient to the rank that owns it (``_rowsharded_update``,
+``:377-555``): each rank sums its duplicate rows, buckets the totals by
 owner and sends them with ``all_to_all_v`` (``exchange='alltoall'``, a
 bucket of ``ceil(bucket_ratio·ceil(n/W))`` rows; when one overflows on
 any rank, every rank takes the allgather route instead), or every rank
 gathers every list and keeps its own rows (``'allgather'``). The owner
-sorts the rows it received and updates its shard through kernel 1, as at
-a world of one (``apply_local``, ``:762-782``). ``dedup=False`` and
-``split_dense`` on a sharded table, and SGD and LazyAdam at more than one
-rank, are ROADMAP item 15b and raise; nothing falls back to a replicated
-update.
+sorts the rows it received and updates its shard through the kernel it
+uses at a world of one (``apply_local``, ``:762-782``, ``:834-845``,
+``:960-976``): kernel 1 for Adagrad (its per-occurrence mode for
+``dedup=False``, whose occurrences travel uncombined, ``combine=False``
+at ``:779-781``), kernel 4 and the elementwise apply for the dense-split
+Adagrad, kernel 2 for SGD and kernel 3 for LazyAdam, whose present rows
+are the valid rows of the received list. ``gradient_wire_dtype`` (the JAX
+option ``comm_gradient_wire_dtype``, ``:474-477``) casts the gradient
+buckets of the alltoall route; the row ids, the sizes and the allgather
+route stay as they are. Nothing falls back to a replicated update.
 """
 
 from __future__ import annotations
@@ -98,13 +104,6 @@ def _sort(rows: torch.Tensor, g: torch.Tensor
   return rows, g.index_select(0, order)
 
 
-def _sorted_list(table: torch.Tensor, ids: torch.Tensor, demb: torch.Tensor,
-                 config: TableConfig
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-  """The update list ``(rows int32 [N] ascending, grads [N, d])``."""
-  return _sort(*_flat_list(table, ids, demb, config))
-
-
 # ---------------------------------------------------------------------------
 # The gradient's way back to the owners of a row-sharded table
 # (``sparse_update.py:377-555``): each rank sums its duplicate rows,
@@ -112,12 +111,6 @@ def _sorted_list(table: torch.Tensor, ids: torch.Tensor, demb: torch.Tensor,
 # the allgather route, every rank receiving every list, is the exact
 # fallback when a bucket overflows.
 # ---------------------------------------------------------------------------
-
-
-def _not_ported(what: str) -> NotImplementedError:
-  return NotImplementedError(f'{what} in a world of more than one rank is '
-                             'ROADMAP item 15b (1); it does not run '
-                             'replicated instead')
 
 
 def _local_combine(rows: torch.Tensor, g: torch.Tensor
@@ -186,14 +179,16 @@ def _route_grads_allgather(rows: torch.Tensor, g: torch.Tensor,
   return local, torch.where(mine.unsqueeze(-1), all_g, 0)
 
 
-def _route_grads_a2a(buckets, ctx: Context, rows_per_shard: int
+def _route_grads_a2a(buckets, ctx: Context, rows_per_shard: int,
+                     wire_dtype: collective.WireDtype = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-  """The buckets of :func:`_bucket_by_owner` to their owners; returns
-  the received shard-relative rows (``-1`` lanes) and their gradients
-  (``:459-482``)."""
+  """The buckets of :func:`_bucket_by_owner` to their owners, the
+  gradients in ``wire_dtype``; returns the received shard-relative rows
+  (``-1`` lanes) and their gradients (``:459-482``)."""
   id_buckets, g_buckets, sizes, _ = buckets
   recv_ids, _ = collective.all_to_all_v(id_buckets, sizes, ctx=ctx)
-  recv_g, _ = collective.all_to_all_v(g_buckets, sizes, ctx=ctx)
+  recv_g, _ = collective.all_to_all_v(g_buckets, sizes, ctx=ctx,
+                                      wire_dtype=wire_dtype)
   local = torch.where(recv_ids >= 0,
                       recv_ids - ctx.rank * rows_per_shard, -1)
   return local.reshape(-1), recv_g.reshape(-1, g_buckets.shape[-1])
@@ -203,14 +198,19 @@ def _rowsharded_update(rows: torch.Tensor, g: torch.Tensor,
                        apply_local: Callable[[torch.Tensor, torch.Tensor],
                                              None],
                        config: TableConfig, ctx: Context, exchange: str,
-                       bucket_ratio: float, fallback: bool) -> None:
+                       bucket_ratio: float, fallback: bool,
+                       wire_dtype: collective.WireDtype,
+                       combine: bool = True) -> bool:
   """The row-sharded update (``_rowsharded_update``, ``:498-555``): route
   this rank's ``(rows, g)`` to their owners by ``exchange`` and apply
   what this rank received with ``apply_local(local_rows, grads)``,
-  ``-1`` lanes included. An overflow on any rank sends every rank down
-  the allgather route (``fallback``); the predicate goes through an
-  all-reduce and is read on the host, so that every rank runs the same
-  collectives; ``sparse_adagrad_apply.overflow_fallbacks`` counts them."""
+  ``-1`` lanes included; the alltoall route sends the gradients in
+  ``wire_dtype``. ``combine=False`` ships each occurrence uncombined
+  (per-occurrence Adagrad needs every square at the owner), so its
+  buckets fill with occurrences. An overflow on any rank sends every
+  rank down the allgather route (``fallback``); the predicate goes
+  through an all-reduce and is read on the host, so that every rank runs
+  the same collectives. Returns whether this call fell back."""
   if exchange not in ('alltoall', 'allgather'):
     raise ValueError(f'Unknown update exchange {exchange!r}; expected '
                      "'alltoall' or 'allgather'")
@@ -218,15 +218,28 @@ def _rowsharded_update(rows: torch.Tensor, g: torch.Tensor,
   rows_per_shard = config.padded_vocab(ctx) // world
   if exchange == 'alltoall':
     cap = _update_bucket_cap(rows.shape[0], world, bucket_ratio)
-    buckets = _bucket_by_owner(*_local_combine(rows, g), world,
-                               rows_per_shard, cap)
+    pairs = _local_combine(rows, g) if combine else (rows, g)
+    buckets = _bucket_by_owner(*pairs, world, rows_per_shard, cap)
     overflow = buckets[3]
     if not fallback or not bool(collective.allreduce(
         overflow.to(torch.int32).reshape(1), ctx=ctx).item()):
-      apply_local(*_route_grads_a2a(buckets, ctx, rows_per_shard))
-      return
-    sparse_adagrad_apply.overflow_fallbacks += 1
+      apply_local(*_route_grads_a2a(buckets, ctx, rows_per_shard,
+                                    wire_dtype))
+      return False
   apply_local(*_route_grads_allgather(rows, g, ctx, rows_per_shard))
+  return exchange == 'alltoall'
+
+
+def _gather_list(rows: torch.Tensor, g: torch.Tensor,
+                 ctx: Optional[Context]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Every rank's list, in rank order, for a replicated table in a world
+  of more than one rank (every replica applies the global update); the
+  rank's own list elsewhere."""
+  if ctx is None or ctx.world_size <= 1:
+    return rows, g
+  return (collective.allgather(rows, ctx=ctx),
+          collective.allgather(g, ctx=ctx))
 
 
 def _split_dense_adagrad(table: torch.Tensor, acc: torch.Tensor,
@@ -266,7 +279,8 @@ def sparse_adagrad_apply(table: torch.Tensor, state: SparseOptState,
                          ctx: Optional[Context] = None,
                          exchange: str = 'alltoall',
                          bucket_ratio: float = 2.0,
-                         overflow_fallback: bool = True
+                         overflow_fallback: bool = True,
+                         gradient_wire_dtype: collective.WireDtype = None
                          ) -> Tuple[torch.Tensor, SparseOptState]:
   """Adagrad on touched rows only, in place.
 
@@ -282,16 +296,17 @@ def sparse_adagrad_apply(table: torch.Tensor, state: SparseOptState,
       port honours it on every device.
     split_dense: the dense-split form (the JAX option
       ``emb_update_split_dense='on'``): the dense per-row totals kernel,
-      then an elementwise apply over the whole table and accumulator.
-      The same result as the fused update, bit for bit; it moves the
-      whole table. Needs ``dedup``: dense totals carry no per-occurrence
-      squares.
+      then an elementwise apply over the whole table and accumulator (a
+      rank's shard of them, for a sharded table). The same result as
+      the fused update, bit for bit; it moves the whole table. Needs
+      ``dedup``: dense totals carry no per-occurrence squares.
     ctx: the world, when it has more than one rank: ``ids`` and ``demb``
       are this rank's, and ``table`` and the accumulator are this rank's
       shard when ``config`` is sharded over ``ctx``, else whole.
-    exchange, bucket_ratio, overflow_fallback: the JAX options
-      ``emb_update_exchange``, ``emb_update_bucket_ratio`` and
-      ``emb_update_overflow_fallback``, for a sharded table.
+    exchange, bucket_ratio, overflow_fallback, gradient_wire_dtype: the
+      JAX options ``emb_update_exchange``, ``emb_update_bucket_ratio``,
+      ``emb_update_overflow_fallback`` and ``comm_gradient_wire_dtype``,
+      for a sharded table.
 
   Returns ``(table, state)``, the same objects, updated.
   """
@@ -299,31 +314,22 @@ def sparse_adagrad_apply(table: torch.Tensor, state: SparseOptState,
     raise ValueError('split_dense=True needs dedup=True: the dense row '
                      'totals carry no per-occurrence squares')
   acc = state.acc[0]
+
+  def apply(rows, g):
+    # The -1 lanes sort first and every kernel skips them.
+    rows, g = _sort(rows.to(torch.int32), g)
+    if split_dense:
+      _split_dense_adagrad(table, acc, rows, g, lr, eps)
+    else:
+      adagrad_update_sorted(table, acc, rows, g, lr, eps, dedup)
+
   rows, g = _flat_list(table, ids, demb, config, ctx)
   if config.should_shard(ctx):
-    if not dedup:
-      raise _not_ported('dedup=False on a row-sharded table')
-    if split_dense:
-      raise _not_ported('split_dense=True on a row-sharded table')
-
-    def apply_local(local, grads):
-      # The owner's update: kernel 1 on its shard, the -1 lanes first in
-      # the sorted list and skipped by it.
-      adagrad_update_sorted(table, acc, *_sort(local.to(torch.int32), grads),
-                            lr, eps)
-
-    _rowsharded_update(rows, g, apply_local, config, ctx, exchange,
-                       bucket_ratio, overflow_fallback)
-    return table, state
-  if ctx is not None and ctx.world_size > 1:
-    # A replicated table: every replica applies the global update.
-    rows = collective.allgather(rows, ctx=ctx)
-    g = collective.allgather(g, ctx=ctx)
-  rows, g = _sort(rows, g)
-  if split_dense:
-    _split_dense_adagrad(table, acc, rows, g, lr, eps)
+    sparse_adagrad_apply.overflow_fallbacks += _rowsharded_update(
+        rows, g, apply, config, ctx, exchange, bucket_ratio,
+        overflow_fallback, gradient_wire_dtype, combine=dedup)
   else:
-    adagrad_update_sorted(table, acc, rows, g, lr, eps, dedup)
+    apply(*_gather_list(rows, g, ctx))
   return table, state
 
 
@@ -332,38 +338,69 @@ sparse_adagrad_apply.overflow_fallbacks = 0
 
 def sparse_sgd_apply(table: torch.Tensor, ids: torch.Tensor,
                      demb: torch.Tensor, config: TableConfig,
-                     lr: Lr, *, ctx: Optional[Context] = None
+                     lr: Lr, *, ctx: Optional[Context] = None,
+                     exchange: str = 'alltoall', bucket_ratio: float = 2.0,
+                     overflow_fallback: bool = True,
+                     gradient_wire_dtype: collective.WireDtype = None
                      ) -> torch.Tensor:
   """SGD on touched rows only, in place (no slot state): each row moves
   by ``-lr`` times its gradient total. The gradients are scaled before
-  they are summed, as the JAX stream path does. Returns ``table``. A
-  world of more than one rank (``ctx``) is ROADMAP item 15b."""
-  if ctx is not None and ctx.world_size > 1:
-    raise _not_ported('sparse_sgd_apply')
-  rows, g = _sorted_list(table, ids, demb, config)
-  return scatter_add_sorted(table, rows, g * (-lr))
+  they are summed, as the JAX stream path does. ``ctx`` and the
+  exchange options are :func:`sparse_adagrad_apply`'s. Returns
+  ``table``."""
+  def apply(rows, g):
+    rows, g = _sort(rows.to(torch.int32), g)
+    scatter_add_sorted(table, rows, g * (-lr))
+
+  rows, g = _flat_list(table, ids, demb, config, ctx)
+  if config.should_shard(ctx):
+    sparse_sgd_apply.overflow_fallbacks += _rowsharded_update(
+        rows, g, apply, config, ctx, exchange, bucket_ratio,
+        overflow_fallback, gradient_wire_dtype)
+  else:
+    apply(*_gather_list(rows, g, ctx))
+  return table
+
+
+sparse_sgd_apply.overflow_fallbacks = 0
 
 
 def sparse_adam_apply(table: torch.Tensor, state: SparseOptState,
                       ids: torch.Tensor, demb: torch.Tensor,
                       config: TableConfig, lr: Lr, step: Step,
                       b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                      *, ctx: Optional[Context] = None
+                      *, ctx: Optional[Context] = None,
+                      exchange: str = 'alltoall', bucket_ratio: float = 2.0,
+                      overflow_fallback: bool = True,
+                      gradient_wire_dtype: collective.WireDtype = None
                       ) -> Tuple[torch.Tensor, SparseOptState]:
   """LazyAdam on touched rows only, in place (TF ``LazyAdam``: moments of
   untouched rows do not decay; a row present with a zero gradient total
   is touched). ``state.acc = (m, v)``; ``step`` is the 1-based step count
-  for bias correction, a number or a device tensor. A world of more than
-  one rank (``ctx``) is ROADMAP item 15b.
+  for bias correction, a number or a device tensor, the same on every
+  rank. ``ctx`` and the exchange options are
+  :func:`sparse_adagrad_apply`'s; on a sharded table a row is present
+  on its owner when a valid lane of the received list holds it.
 
   Returns ``(table, state)``, the same objects, updated.
   """
-  if ctx is not None and ctx.world_size > 1:
-    raise _not_ported('sparse_adam_apply')
   m, v = state.acc
-  rows, g = _sorted_list(table, ids, demb, config)
-  adam_update_sorted(table, m, v, rows, g, lr, step, b1, b2, eps)
+
+  def apply(rows, g):
+    rows, g = _sort(rows.to(torch.int32), g)
+    adam_update_sorted(table, m, v, rows, g, lr, step, b1, b2, eps)
+
+  rows, g = _flat_list(table, ids, demb, config, ctx)
+  if config.should_shard(ctx):
+    sparse_adam_apply.overflow_fallbacks += _rowsharded_update(
+        rows, g, apply, config, ctx, exchange, bucket_ratio,
+        overflow_fallback, gradient_wire_dtype)
+  else:
+    apply(*_gather_list(rows, g, ctx))
   return table, state
+
+
+sparse_adam_apply.overflow_fallbacks = 0
 
 
 __all__ = ['SparseOptState', 'init_adagrad_state', 'init_adam_state',

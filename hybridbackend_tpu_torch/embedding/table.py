@@ -12,7 +12,7 @@ than one rank and the table at least as many rows as the world and as
 ``W`` holds the contiguous rows ``[r·V/W, (r+1)·V/W)`` of the padded
 vocab ``V``, rounded up to the world (``:164-173``), as JAX's
 ``P(axes, None)`` lays a global array out. Only row partitioning is
-ported; ``partition='column'`` is ROADMAP item 15b.
+ported; ``partition='column'`` is ROADMAP item 15b (3).
 """
 
 from __future__ import annotations

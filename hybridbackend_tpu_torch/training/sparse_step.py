@@ -28,10 +28,17 @@ gradients, means over the rank's rows, are summed over the ranks in one
 flat all-reduce and divided by the world. The embeddings' gradients are
 scaled by ``1/W``, so that they carry the global batch's ``1/B`` as in
 JAX (``sparse_step.py:149``), and go to the tables' owners through the
-sparse update's exchange. The reported loss is the mean over the ranks.
+sparse update's exchange. Both scalings take the loss to be a mean over
+the rank's rows, as JAX's wire path does: a loss summed over the batch
+gets gradients ``W`` times too small. The reported loss is the mean over the ranks.
 The towers start equal: ``SparseTrainState.create`` broadcasts rank 0's.
-The raw-embedding hook, LazyAdam, ``table_dedup=False`` and the
-dense-split update at more than one rank are ROADMAP item 15b.
+Every table optimizer, both model hooks and both table dtypes run there
+as at a world of one. In raw mode each rank hands ``raw_model_loss`` its
+own rows of every member, unpacked from its own raw block; per-example
+aux outputs stay the rank's own. ``gradient_wire_dtype`` casts the
+tower's all-reduce (the sum of ``g.astype(wire)``, then divided by the
+world, JAX ``:128-149``) and the routed gradient buckets;
+``wire_dtype`` the alltoall lookup's returning rows.
 """
 
 from __future__ import annotations
@@ -95,15 +102,16 @@ def broadcast_tower(tower: nn.Module, ctx: Context) -> None:
       t.copy_(collective.broadcast(t, 0, ctx=ctx))
 
 
-def _mean_tower_grads(tower: nn.Module, ctx: Context) -> None:
+def _mean_tower_grads(tower: nn.Module, ctx: Context,
+                      wire_dtype: collective.WireDtype = None) -> None:
   """Each tower gradient, a mean over the rank's rows, replaced by the
-  mean over the ranks: one flat all-reduce, then a division by the
-  world."""
+  mean over the ranks: one flat all-reduce in ``wire_dtype``, then a
+  division by the world in the gradients' dtype."""
   grads = [p.grad for p in tower.parameters() if p.grad is not None]
   if not grads:
     return
   flat = collective.allreduce(torch.cat([g.reshape(-1) for g in grads]),
-                              ctx=ctx)
+                              ctx=ctx, wire_dtype=wire_dtype)
   flat /= ctx.world_size
   pos = 0
   for g in grads:
@@ -141,7 +149,9 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
                            update_exchange: str = 'alltoall',
                            update_bucket_ratio: float = 2.0,
                            overflow_fallback: bool = True,
-                           unique_ratio: float = 1.0
+                           unique_ratio: float = 1.0,
+                           wire_dtype: collective.WireDtype = None,
+                           gradient_wire_dtype: collective.WireDtype = None
                            ) -> Callable[[SparseTrainState, Batch],
                                          Tuple[SparseTrainState, Dict]]:
   """Build ``step(state, batch) -> (state, metrics)``.
@@ -167,7 +177,8 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
       take the embeddings before any combiner. When it is given,
       ``model_loss`` is not used (pass ``None``). The gradient of each
       member's embeddings reaches its stack's update as on the combined
-      path, with every table optimizer and dtype.
+      path, with every table optimizer and dtype. In a world of more
+      than one rank ``B`` is the rank's rows.
     lookup_strategy, lookup_bucket_ratio, update_exchange,
       update_bucket_ratio, overflow_fallback, unique_ratio: how the
       sharded stacks exchange ids, rows and gradients in a world of more
@@ -177,6 +188,12 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
       ``emb_update_overflow_fallback`` (one switch for both), and
       ``emb_unique_ratio``, with their defaults
       (``embedding/lookup.py``, ``embedding/sparse_update.py``).
+    wire_dtype, gradient_wire_dtype: the JAX options
+      ``comm_wire_dtype`` (the alltoall lookup's returning rows) and
+      ``comm_gradient_wire_dtype`` (the tower's all-reduce and the
+      routed table gradients): ``None`` or ``'float32'``, ``'bfloat16'``
+      or ``'float16'``. Used in a world of more than one rank only, as in
+      JAX.
 
   The tower's optimizer is part of the state (a torch optimizer owns its
   slots), so unlike the JAX function this one takes no dense optimizer.
@@ -191,23 +208,18 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
                      "'adagrad' and table_dedup=True")
   ctx = fx.ctx
   world = ctx.world_size
-  if world > 1:
-    if raw_model_loss is not None:
-      raise NotImplementedError('the raw-embedding hook in a world of more '
-                                'than one rank is ROADMAP item 15b (4)')
-    sharded = any(s.stacked.should_shard(ctx) for s in fx.stacks)
-    if table_optimizer == 'adam' or (
-        sharded and (not table_dedup or table_split_dense)):
-      raise NotImplementedError(
-          'in a world of more than one rank the sparse step updates its '
-          'tables by Adagrad with duplicate combining; LazyAdam, '
-          'table_dedup=False and the dense-split update are ROADMAP item '
-          '15b (1)')
+  # Checked here, so that a bad name fails at build and not mid-step.
+  collective.wire_dtype_of(wire_dtype)
+  collective.wire_dtype_of(gradient_wire_dtype)
   stacks_by_name = {s.stacked.name: s for s in fx.stacks}
   loss_of = loss_from_raw(fx, model_loss, raw_model_loss)
   exchange = dict(bucket_ratio=lookup_bucket_ratio,
                   overflow_fallback=overflow_fallback,
-                  unique_ratio=unique_ratio)
+                  unique_ratio=unique_ratio, wire_dtype=wire_dtype)
+  update = dict(ctx=ctx, exchange=update_exchange,
+                bucket_ratio=update_bucket_ratio,
+                overflow_fallback=overflow_fallback,
+                gradient_wire_dtype=gradient_wire_dtype)
 
   def step(state: SparseTrainState, batch: Batch):
     # 1. Fused lookups; the tables are not differentiated.
@@ -222,7 +234,7 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
 
     # 3. Tower update, from the mean of the ranks' gradients.
     if world > 1:
-      _mean_tower_grads(state.dense, ctx)
+      _mean_tower_grads(state.dense, ctx, gradient_wire_dtype)
     state.dense_opt.step()
 
     # 4. Row-sparse optimizer per stacked table, in place.
@@ -234,13 +246,10 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
       args = (state.tables[name], state.table_opt[name], ids_by_stack[name],
               grad, stacks_by_name[name].stacked, table_lr)
       if table_optimizer == 'adam':
-        sparse_adam_apply(*args, step=state.step + 1)
+        sparse_adam_apply(*args, step=state.step + 1, **update)
       else:
         sparse_adagrad_apply(*args, dedup=table_dedup,
-                             split_dense=table_split_dense, ctx=ctx,
-                             exchange=update_exchange,
-                             bucket_ratio=update_bucket_ratio,
-                             overflow_fallback=overflow_fallback)
+                             split_dense=table_split_dense, **update)
 
     state.step += 1
     metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v

@@ -8,8 +8,9 @@ them, so each table gets a dense ``[V, d]`` gradient (the backward of the
 lookup's ``index_select`` is an ``index_add_``), and one optimizer,
 typically ``multi_optimizer(Adagrad, Adam)``, updates everything in
 place. The JAX step returns a new state; this one updates the state it is
-given and returns it. The gradient's wire dtype is a multi-device option
-(ROADMAP queue 1 item 15).
+given and returns it. The gradient's wire dtype (JAX
+``comm_gradient_wire_dtype``, ``train.py:72-158``) needs this step in a
+world of more than one rank, ROADMAP item 15b (5), and raises until then.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 from torch import nn
 
+from hybridbackend_tpu_torch.distribute.collective import (
+    WireDtype, wire_dtype_of)
 from hybridbackend_tpu_torch.training.optimizer import init_state
 
 Batch = Dict[str, torch.Tensor]
@@ -48,7 +51,7 @@ def _detached(aux: Dict[str, Any]) -> Dict[str, Any]:
           for k, v in aux.items()}
 
 
-def make_train_step(loss_fn: LossFn
+def make_train_step(loss_fn: LossFn, gradient_wire_dtype: WireDtype = None
                     ) -> Callable[[TrainState, Batch],
                                   Tuple[TrainState, Dict[str, Any]]]:
   """Build ``step(state, batch) -> (state, metrics)``.
@@ -56,7 +59,12 @@ def make_train_step(loss_fn: LossFn
   ``loss_fn(params, batch) -> (scalar_loss, aux)``, the loss a mean over
   the batch. ``metrics`` holds ``aux`` and ``'loss'``, all left on the
   device. The optimizer is part of the state, so unlike the JAX function
-  this one takes none."""
+  this one takes none. A ``gradient_wire_dtype`` other than float32
+  raises: ROADMAP item 15b (5)."""
+  if wire_dtype_of(gradient_wire_dtype) is not None:
+    raise NotImplementedError(
+        f'the dense step\'s gradient wire ({gradient_wire_dtype}) runs in a '
+        'world of more than one rank, which is ROADMAP item 15b (5)')
 
   def step(state: TrainState, batch: Batch):
     loss, aux = loss_fn(state.params, batch)

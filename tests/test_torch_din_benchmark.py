@@ -78,6 +78,18 @@ def test_din_harness_refuses_sessions_that_do_not_divide(capsys):
   assert 'divide' in capsys.readouterr().err
 
 
+@pytest.mark.parametrize('flags,world', [
+    ([], '2'), (['--gradient-wire-dtype', 'bfloat16'], None)])
+def test_din_harness_refuses_the_dense_mode_in_a_world(capsys, monkeypatch,
+                                                        flags, world):
+  """The dense mode under the launcher, and its gradient wire anywhere,
+  are ROADMAP item 15b (5)."""
+  if world:
+    monkeypatch.setenv('WORLD_SIZE', world)
+  assert din.main(SHAPE + flags) == 1
+  assert '15b (5)' in capsys.readouterr().err
+
+
 @pytest.mark.parametrize('sessions', [0, 2])
 def test_din_harness_batch_is_the_jax_harness_draws(sessions):
   args = din.parse_args(SHAPE + ['--sparse', '--sessions', str(sessions)])

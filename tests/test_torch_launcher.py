@@ -4,7 +4,9 @@ Counterpart of ``tests/test_launcher.py``: gloo CPU ranks
 (``--simulate N --device cpu``) that all-reduce across the process
 boundary, a failing rank that takes its peers down, a world past its
 deadline, a collective whose peer never comes, and whole lines relayed
-from every rank; then the train harness as a world of two. Every launch
+from every rank; then the train harness as a world of two (also with
+per-occurrence Adagrad on bf16 tables and a bf16 gradient wire), and the
+DIN harness's raw-mode sparse step as one. Every launch
 has a ``subprocess`` deadline, so that a hang fails one test.
 """
 
@@ -130,6 +132,47 @@ def test_harness_as_a_world_of_two():
   assert out.returncode == 0, out.stderr[-2000:]
   (line,) = [l for l in out.stdout.splitlines() if l.startswith('{')]
   got = json.loads(line)
+  assert (got['world'], got['lookup'], got['backend'], got['batch']) == (
+      2, 'alltoall', 'gloo', 64)
+  assert got['final_loss'] == got['final_loss'] > 0
+
+
+def _launched(module, *flags):
+  """``module`` as a world of two gloo CPU ranks at a tiny shape; its one
+  JSON line, which rank 0 alone prints."""
+  env = dict(os.environ, OMP_NUM_THREADS='1')
+  out = subprocess.run(
+      [sys.executable, '-m', 'hybridbackend_tpu_torch.run', '--simulate',
+       '2', '--timeout', '120', '-m', module, '--sparse', '--device', 'cpu',
+       '--repeats', '1', '--inner-steps', '2', '--json', *flags], cwd=ROOT,
+      env=env, capture_output=True, text=True, timeout=140)
+  assert out.returncode == 0, out.stderr[-2000:]
+  (line,) = [l for l in out.stdout.splitlines() if l.startswith('{')]
+  return json.loads(line)
+
+
+@pytest.mark.timeout(150)
+def test_harness_with_every_table_option_as_a_world_of_two():
+  """Per-occurrence Adagrad on bf16 tables with the gradients on a bf16
+  wire, as a world of two."""
+  got = _launched('hybridbackend_tpu_torch.benchmarks.train_benchmark',
+                  '--tables', '2', '--vocab', '1000', '--batch', '64',
+                  '--dense-features', '3', '--lookup', 'alltoall',
+                  '--no-dedup', '--table-dtype', 'bfloat16',
+                  '--gradient-wire-dtype', 'bfloat16')
+  assert (got['world'], got['backend'], got['no_dedup'], got['table_dtype'],
+          got['gradient_wire_dtype']) == (2, 'gloo', True, 'bfloat16',
+                                          'bfloat16')
+  assert got['final_loss'] == got['final_loss'] > 0
+
+
+@pytest.mark.timeout(150)
+def test_din_harness_as_a_world_of_two():
+  """The DIN harness's raw-mode sparse step as a world of two, the stack
+  looked up through the alltoall exchange."""
+  got = _launched('hybridbackend_tpu_torch.benchmarks.din_benchmark',
+                  '--batch', '64', '--hist', '8', '--vocab', '1000',
+                  '--dim', '8', '--lookup', 'alltoall')
   assert (got['world'], got['lookup'], got['backend'], got['batch']) == (
       2, 'alltoall', 'gloo', 64)
   assert got['final_loss'] == got['final_loss'] > 0

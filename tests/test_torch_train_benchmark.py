@@ -71,10 +71,35 @@ def test_harness_steps_follow_the_table_dtype():
     (['--sparse', '--device', 'cpu', '--interleave', '2', '--no-dedup'],
      'not supported with --interleave'),
     (['--sparse', '--device', 'cpu', '--cpu', '4'], 'not ported'),
+    (['--device', 'cpu', '--gradient-wire-dtype', 'bfloat16'], '15b (5)'),
 ])
 def test_harness_refuses_what_is_not_ported(capsys, flags, why):
   assert tb.main(flags) != 0
   assert why in capsys.readouterr().err
+
+
+@pytest.mark.parametrize('flags,why', [
+    (['--device', 'cpu'], '15b (5)'),
+    (['--sparse', '--device', 'cpu', '--interleave', '2'], '15b (7)'),
+])
+def test_harness_refuses_in_a_world_what_is_not_ported(monkeypatch, flags,
+                                                       why):
+  """Under the launcher (``WORLD_SIZE`` set) the dense mode and the
+  interleaved step still name their parts of ROADMAP item 15b."""
+  monkeypatch.setenv('WORLD_SIZE', '2')
+  assert why in tb.unsupported(tb.parse_args(flags))
+
+
+def test_harness_takes_every_table_option_in_a_world(monkeypatch):
+  """``--no-dedup``, bf16 tables, DLRM and both wire dtypes pass the
+  harness's checks in a world of two (``test_torch_launcher.py`` runs
+  them)."""
+  monkeypatch.setenv('WORLD_SIZE', '2')
+  args = tb.parse_args(['--sparse', '--device', 'cpu', '--no-dedup',
+                        '--table-dtype', 'bfloat16', '--model', 'dlrm',
+                        '--wire-dtype', 'float16',
+                        '--gradient-wire-dtype', 'bfloat16'])
+  assert tb.unsupported(args) is None
 
 
 def test_dense_mode_steps_every_table():

@@ -25,7 +25,14 @@ from hybridbackend_tpu_torch.embedding import lookup as lookup_mod
 
 
 def _np(t):
-  return t.detach().cpu().numpy().copy()   # the state changes in place
+  """A numpy copy (the state changes in place); a bf16 tensor as the
+  float32 values it holds."""
+  t = t.detach().cpu()
+  return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def _dtype(name):
+  return getattr(torch, name or 'float32')
 
 
 def collectives(ctx, spec):
@@ -52,6 +59,34 @@ def collectives(ctx, spec):
   out['a2av'] = recv
   out['a2av_sizes'] = sizes
   return {k: _np(v) for k, v in out.items()}
+
+
+def wire(ctx, spec):
+  """Each cast collective at each wire dtype of ``spec['wires']`` on the
+  rank's row of the test's global payloads; and, for a dtype the backend
+  refuses, the message it raises."""
+  r = ctx.rank
+  x = torch.from_numpy(spec['x'][r])
+  out = {}
+  for w in spec['wires']:
+    recv, sizes = collective.all_to_all_v(
+        torch.from_numpy(spec['buckets'][r]),
+        torch.from_numpy(spec['sizes'][r]), ctx=ctx, wire_dtype=w)
+    out[w] = {k: _np(v) for k, v in {
+        'sum': collective.allreduce(x, ctx=ctx, wire_dtype=w),
+        'mean': collective.allreduce(x, 'mean', ctx=ctx, wire_dtype=w),
+        'gather': collective.allgather(x, ctx=ctx, wire_dtype=w),
+        'a2a': collective.alltoall(x, ctx=ctx, wire_dtype=w),
+        'a2av': recv, 'a2av_sizes': sizes,
+        'ints': collective.alltoall(
+            torch.arange(2 * ctx.world_size, dtype=torch.int32) + 100 * r,
+            ctx=ctx, wire_dtype=w)}.items()}
+  try:
+    collective.allreduce(x, ctx=ctx, wire_dtype=spec['refused'])
+    out['refused'] = None
+  except TypeError as e:
+    out['refused'] = str(e)
+  return out
 
 
 def lookups(ctx, spec):
@@ -93,49 +128,209 @@ def updates(ctx, spec):
   return out
 
 
-def _model_loss(tower, emb_f, dense_f, batch):
-  p = torch.clamp(tower(emb_f + dense_f), 1e-6, 1 - 1e-6)
-  y = batch['label']
-  return -torch.mean(y * torch.log(p) + (1 - y) * torch.log(1 - p)), {}
+APPLY = {'adagrad': hbt.sparse_adagrad_apply, 'sgd': hbt.sparse_sgd_apply,
+         'adam': hbt.sparse_adam_apply}
+
+
+def applies(ctx, spec):
+  """Rounds of one table optimizer's update (``spec['optimizer']``:
+  ``'adagrad'``, ``'sgd'`` or ``'adam'``) on a table from its global
+  array, the rank's rows of each round's ids and gradients, for each
+  ``(table, options)`` case; the rank's table and slots after every
+  round, the kernel launches and the overflow fallbacks."""
+  optimizer = spec['optimizer']
+  apply = APPLY[optimizer]
+  out = {}
+  for case, (table_name, opts) in spec['cases'].items():
+    t = spec['tables'][table_name]
+    cfg = hbt.TableConfig(table_name, t['vocab'], t['dim'],
+                          sharded=t['sharded'])
+    rows = cfg.shard_rows(ctx)
+    table = torch.from_numpy(t['table'][rows].copy())
+    slots = tuple(torch.from_numpy(a[rows].copy()) for a in t['slots'])
+    _reset()
+    before = apply.overflow_fallbacks
+    trace = []
+    for k, (ids, demb) in enumerate(spec['rounds']):
+      local = ctx.rows(ids.shape[0])
+      args = (torch.from_numpy(ids[local]), torch.from_numpy(demb[local]),
+              cfg, spec['lr'])
+      if optimizer == 'sgd':
+        apply(table, *args, ctx=ctx, **opts)
+      elif optimizer == 'adam':
+        apply(table, hbt.SparseOptState(acc=slots), *args, step=k + 1,
+              ctx=ctx, **opts)
+      else:
+        apply(table, hbt.SparseOptState(acc=slots), *args, ctx=ctx, **opts)
+      trace.append([_np(table), *(_np(a) for a in slots)])
+    out[case] = {'trace': trace, 'calls': _launches(),
+                 'fallbacks': apply.overflow_fallbacks - before,
+                 'sharded': cfg.should_shard(ctx)}
+  return out
+
+
+COUNTED = ('adagrad_update_sorted', 'scatter_add_sorted',
+           'adam_update_sorted', 'gsum_dense_sorted')
+_CALLS = dict.fromkeys(COUNTED, 0)
+
+
+def _count_calls():
+  """Counts the update wrappers' calls where ``sparse_update`` makes
+  them: on the CPU a wrapper runs its plain version and counts no
+  launch, so the worker counts the calls, to show which kernel each path
+  reaches."""
+  from hybridbackend_tpu_torch.embedding import sparse_update as su
+  for name in COUNTED:
+    def counted(*a, _fn=getattr(su, name), _name=name, **k):
+      _CALLS[_name] += 1
+      return _fn(*a, **k)
+    setattr(su, name, counted)
+
+
+def _reset():
+  _CALLS.update(dict.fromkeys(COUNTED, 0))
+
+
+def _launches():
+  """The counted wrappers' calls since ``_reset``."""
+  return dict(_CALLS)
+
+
+def _tower_optimizer(spec):
+  """The tower's optimizer: Adam 1e-3, or SGD at ``spec['tower_sgd']``."""
+  if spec.get('tower_sgd'):
+    return functools.partial(torch.optim.SGD, lr=spec['tower_sgd'])
+  return functools.partial(torch.optim.Adam, lr=1e-3)
+
+
+def _tower_and_loss(spec):
+  """The step's tower and its BCE loss, a mean over the rank's rows
+  times ``spec['scale']``."""
+  scale = spec.get('scale', 1.0)
+  if spec.get('model', 'dcnv2') == 'dlrm':
+    tower = hbt.DLRM(len(spec['dense']), len(spec['tables']),
+                     spec['bottom'], spec['tables'][0][2], spec['mlp'])
+    preds = lambda t, e, d: t(d, e)
+  else:
+    tower = hbt.StackedDCNv2(spec['widths'], spec['mlp'])
+    preds = lambda t, e, d: t(e + d)
+
+  def model_loss(t, emb_f, dense_f, batch):
+    p = torch.clamp(preds(t, emb_f, dense_f), 1e-6, 1 - 1e-6)
+    y = batch['label']
+    pel = -(y * torch.log(p) + (1 - y) * torch.log(1 - p))
+    return torch.mean(pel) * scale, {}
+
+  return tower, model_loss
 
 
 def steps(ctx, spec):
-  """The sparse DCNv2 + Adagrad step from the JAX initial state, on the
-  rank's rows of each global batch; the loss and the rank's state after
-  every step."""
-  specs = [hbt.EmbeddingSpec(hbt.TableConfig(*t)) for t in spec['tables']]
+  """The sparse step (DCNv2 or DLRM, ``spec['options']`` passed to
+  ``make_sparse_train_step``) from the JAX initial state, on the rank's
+  rows of each global batch; the loss and the rank's state after every
+  step, and the tables and slots gathered whole."""
+  dtype = _dtype(spec.get('dtype'))
+  specs = [hbt.EmbeddingSpec(hbt.TableConfig(*t, dtype=dtype))
+           for t in spec['tables']]
   fx = hbt.StackedFeatureExtractor(specs, dense_columns=spec['dense'],
                                    ctx=ctx,
                                    min_shard_rows=spec['min_shard_rows'])
-  tower = hbt.StackedDCNv2(spec['widths'], spec['mlp'])
+  tower, model_loss = _tower_and_loss(spec)
   init = spec['init']
   state = hbt.from_jax(fx, init['tables'], init['acc'], tower, init['dense'],
-                       functools.partial(torch.optim.Adam, lr=1e-3))
-  step = hbt.make_sparse_train_step(fx, _model_loss, table_lr=0.05,
+                       _tower_optimizer(spec))
+  step = hbt.make_sparse_train_step(fx, model_loss, table_lr=0.05,
                                     **spec['options'])
+  return _run_steps(ctx, fx, state, step, spec['batches'])
+
+
+def _run_steps(ctx, fx, state, step, batches):
+  _reset()
+  fell = (lookup_mod.lookup.overflow_fallbacks,
+          *(f.overflow_fallbacks for f in APPLY.values()))
   trace = []
-  for batch in spec['batches']:
+  for batch in batches:
     rows = ctx.rows(batch['label'].shape[0])
     local = {k: torch.from_numpy(v[rows]) for k, v in batch.items()}
     state, metrics = step(state, local)
     trace.append({
         'loss': float(metrics['loss']),
+        'aux': {k: _np(v) for k, v in metrics.items() if k != 'loss'},
         'tables': {k: _np(v) for k, v in state.tables.items()},
         'acc': {k: _np(v.acc[0]) for k, v in state.table_opt.items()},
+        'slots': {k: [_np(a) for a in v.acc]
+                  for k, v in state.table_opt.items()},
         'tower': {n: _np(p) for n, p in state.dense.named_parameters()},
         'gathered': {k: _np(v) for k, v in
-                     hbt.gather_tables(fx, state.tables).items()}})
+                     hbt.gather_tables(fx, state.tables).items()},
+        'gathered_slots': {k: [_np(a) for a in v] for k, v in
+                           hbt.gather_slots(fx, state.table_opt).items()}})
+  now = (lookup_mod.lookup.overflow_fallbacks,
+         *(f.overflow_fallbacks for f in APPLY.values()))
   return {'trace': trace, 'sharded': {s.stacked.name: s.stacked.should_shard(
-      ctx) for s in fx.stacks}, 'launches': hbt.adagrad_update_sorted.launches}
+      ctx) for s in fx.stacks}, 'calls': _launches(),
+          'fallbacks': dict(zip(('lookup', *APPLY), (b - a for a, b in zip(
+              fell, now))))}
 
 
-KINDS = {'collectives': collectives, 'lookups': lookups, 'updates': updates,
-         'steps': steps}
+def gathers(ctx, spec):
+  """``gather_slots`` of a DLRM + LazyAdam state made by ``from_jax`` from
+  JAX's global arrays, for each table dtype in ``spec['inits']``."""
+  out = {}
+  for dtype, init in spec['inits'].items():
+    specs = [hbt.EmbeddingSpec(hbt.TableConfig(*t, dtype=_dtype(dtype)))
+             for t in spec['tables']]
+    fx = hbt.StackedFeatureExtractor(specs, dense_columns=spec['dense'],
+                                     ctx=ctx,
+                                     min_shard_rows=spec['min_shard_rows'])
+    tower, _ = _tower_and_loss(dict(spec, model='dlrm'))
+    state = hbt.from_jax(fx, init['tables'], init['acc'], tower,
+                         init['dense'],
+                         functools.partial(torch.optim.Adam, lr=1e-3))
+    out[dtype] = {k: [_np(a) for a in v] for k, v in
+                  hbt.gather_slots(fx, state.table_opt).items()}
+  return out
+
+
+def din_steps(ctx, spec):
+  """The DIN sparse step in raw mode from the JAX initial state, on the
+  rank's rows of each global batch: the item table (``cand_hist``, the
+  candidate then its history) and the user table in one stack."""
+  specs = [hbt.EmbeddingSpec(hbt.TableConfig('item', spec['items'],
+                                             spec['dim']),
+                             column='cand_hist'),
+           hbt.EmbeddingSpec(hbt.TableConfig('user', spec['users'],
+                                             spec['dim']))]
+  fx = hbt.StackedFeatureExtractor(specs, ctx=ctx)
+  tower = hbt.DIN(spec['dim'], 1, 2, spec['dnn'], spec['att'])
+  init = spec['init']
+  state = hbt.from_jax(fx, init['tables'], init['acc'], tower, init['dense'],
+                       _tower_optimizer(spec))
+
+  def raw_model_loss(t, members, batch):
+    emb = members['item']
+    p = t(emb[:, 0], emb[:, 1:], batch['hist_mask'], [members['user']],
+          [batch['d0'], batch['d1']])
+    p = torch.clamp(p, 1e-6, 1 - 1e-6)
+    y = batch['label']
+    return -torch.mean(y * torch.log(p) + (1 - y) * torch.log(1 - p)), {
+        'preds': p}
+
+  step = hbt.make_sparse_train_step(fx, None, table_lr=0.05,
+                                    raw_model_loss=raw_model_loss,
+                                    **spec['options'])
+  return _run_steps(ctx, fx, state, step, spec['batches'])
+
+
+KINDS = {'collectives': collectives, 'wire': wire, 'lookups': lookups,
+         'updates': updates, 'applies': applies, 'steps': steps,
+         'gathers': gathers, 'din_steps': din_steps}
 
 
 def main(cases_path, out_dir):
   ctx = hbt.Context.join('cpu')
   torch.set_num_threads(1)
+  _count_calls()
   with open(cases_path, 'rb') as f:
     cases = pickle.load(f)
   results = {}
