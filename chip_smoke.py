@@ -140,7 +140,7 @@ Phases; any failure raises and the script exits nonzero:
      with its times and bound; then the raw-mode ``SparseTrainer`` step on
      the card against the CPU from the same weights, plain, with 4
      sessions (``-1`` holes) and with the attention's weight
-     normalization, 2 steps each from one state (loss, tables,
+     normalization, 3 steps each from one state (loss, tables,
      accumulators, the tower by phase 18's rule), kernel 1 once a step,
      the rows behind the holes untouched and planted candidates moved by
      their exact run totals;
@@ -181,16 +181,16 @@ Phases; any failure raises and the script exits nonzero:
  29. micro-batch gradient accumulation on the dense ``Trainer``'s flagship
      model (26 unstacked [100000, 16] tables, DCNv2, ``multi_optimizer``):
      ``accumulate_gradients`` over 4 micro-batches against the whole
-     batch's gradients on the card (``rtol 1e-4, atol 1e-6``); 2 steps of
+     batch's gradients on the card (``rtol 1e-4, atol 1e-6``); 3 steps of
      ``make_pipelined_train_step`` (4 micro-batches) on the card against
      the CPU, each from the initial weights, at phase 18's tolerances;
      ms/step at 1, 2 and 4 micro-batches against ``make_train_step``, in
      turns; no counted kernel;
  30. the PICASSO interleaved sparse step (``make_interleaved_train_step``,
      the lookups on a side stream) at the flagship, DCNv2 + Adagrad and
-     DLRM + LazyAdam: 2 steps of 4 micro-batches on the card against the
+     DLRM + LazyAdam: 3 steps of 4 micro-batches on the card against the
      CPU, each from the initial weights (phase 2's and phase 5's
-     tolerances, the tower by phase 18's rule too), and 2 consecutive
+     tolerances, the tower by phase 18's rule too), and 3 consecutive
      steps against the plain step on the card, each from its state (the
      JAX test's limits); kernel 1 (or 3) once a step at 1, 2
      and 4 micro-batches; DCNv2's ms/step against the plain step in
@@ -204,45 +204,42 @@ Phases; any failure raises and the script exits nonzero:
      ``e2e_benchmark.py --profile`` (the stages' medians).
  32. a world of N ranks: the collectives of ``distribute/collective.py``
      on NCCL at a world of one on the card, and kernel 1 on an owner list
-     that went through ``all_to_all_v`` there; then for N = 2 and 4, N
-     gloo ranks sharing the card (``python -m hybridbackend_tpu_torch.run
-     --simulate N --device cuda chip_smoke.py --rank-of DIR``, one launch
-     a world) run the flagship sparse step with its table row-sharded
-     over them, from the seed's state on their rows of a global batch of
-     8192, 3 steps each with the ``allgather`` lookup, the ``alltoall``
-     one, and ``alltoall`` with bucket ratios so low that every lookup
-     and update falls back to the exact exchange; each held against the
-     world of one on the card, each step from one tower (the loss to
-     1e-5, the tower by phase 18's rule, the gathered shards and
-     accumulators by phase 2's); kernel 1 once a step on every rank; then
-     5 timed steps of each strategy (gloo ranks sharing one card: not a
-     multi-GPU number), and the harness once under the launcher
-     (``--simulate 2 --lookup alltoall --repeats 2``), its JSON line
-     printed.
+     that went through ``all_to_all_v`` there; and the harness once under
+     the launcher (``--simulate 2 --lookup alltoall --repeats 2``), its
+     JSON line printed. Its world-of-N cases run in phase 33's launches.
  33. every sparse step at a world of N: one launch a world
-     (``chip_smoke.py --rank-of DIR --rank-phase 33``), NCCL at a world of
-     one (``--nproc 1``), then N = 2 and 4 gloo ranks sharing the card.
-     Every rank first probes ``all_reduce``, ``all_to_all_single``,
+     (``python -m hybridbackend_tpu_torch.run ... chip_smoke.py --rank-of
+     DIR``), NCCL at a world of one (``--nproc 1``), then N = 2 and 4 gloo
+     ranks sharing the card (``--simulate N --device cuda``). Every rank
+     first probes ``all_reduce``, ``all_to_all_single``,
      ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` in bf16 and
      fp16 on its backend, and holds each of the port's cast collectives
      that only moves data bitwise against cast, f32 collective, cast, and
      the cast all-reduce within the wire's rounding. Then, from the seed's
      state on the ranks' rows of a global batch of 8192, at full width,
-     3 steps each of DLRM + LazyAdam (kernel 3), no-dedup Adagrad (kernel
-     1's per-occurrence mode; and with an update bucket ratio so low that
-     every rank falls back every step), the split-dense update (kernel 4
-     on each owner's shard), bf16 tables with Adagrad and with DLRM +
-     LazyAdam, and DCNv2 + Adagrad with ``wire_dtype`` and
-     ``gradient_wire_dtype`` bfloat16 (at NCCL's world of one only this
-     case, which casts nothing there); 3 rounds of ``sparse_sgd_apply``
-     on the flagship list (kernel 2 on every owner); and 3 raw-mode DIN
-     steps at the DIN harness's defaults with 4 sessions (kernel 1 on
-     every owner). Each is held against the world of one on the card,
-     each step from one tower (the LazyAdam and bf16 cases from one whole
-     state), the wire case by the wire's bands, a few ReLU gate flips let
-     past and counted; rows that no valid id read, those behind ``-1``
-     holes among them, keep their bits; then 10 timed steps of each step
-     case (gloo ranks sharing one card: not a multi-GPU number).
+     3 steps each of phase 32's flagship DCNv2 + Adagrad with the table
+     row-sharded over the ranks, under the ``allgather`` lookup, the
+     ``alltoall`` one, and ``alltoall`` with bucket ratios so low that
+     every lookup and update falls back to the exact exchange; DLRM +
+     LazyAdam (kernel 3), no-dedup Adagrad (kernel 1's per-occurrence
+     mode; and with an update bucket ratio so low that every rank falls
+     back every step), the split-dense update (kernel 4 on each owner's
+     shard), bf16 tables with Adagrad and with DLRM + LazyAdam, and
+     DCNv2 + Adagrad with ``wire_dtype`` and ``gradient_wire_dtype``
+     bfloat16 (at NCCL's world of one only this case, which casts nothing
+     there); 3 rounds of ``sparse_sgd_apply`` on the flagship list
+     (kernel 2 on every owner); and 3 raw-mode DIN steps at the DIN
+     harness's defaults with 4 sessions (kernel 1 on every owner). Each
+     is held against the world of one on the card, each step from one
+     tower (the LazyAdam and bf16 cases from one whole state), the wire
+     case by the wire's bands, the LazyAdam cases with a few ReLU gate
+     flips let past and counted; rows that no valid id read, those behind
+     ``-1`` holes among them, keep their bits. On every rank the last
+     held step's update kernel (the last SGD round's) runs again on a
+     copy of the list it received, ``-1`` lanes and all, and of the shard
+     before it, against its plain version on the CPU at phase 1's
+     tolerances. Then 10 timed steps of each step case (gloo ranks
+     sharing one card: not a multi-GPU number).
 With ``--profile`` it then traces 10 steps of each timed variant and of
 the DIN harness's ``--sparse`` step with and without sessions with
 ``torch.profiler`` and prints device time per step by kernel class; in
@@ -257,7 +254,8 @@ The run's wall time is printed before the last two lines. The
 second-to-last line is a JSON object describing each kernel (its times,
 launches on its path, in the trainers' runs, in the runs from Parquet
 files, in the served predicts, in the DIN phases, in the host-table
-phases, in the pipelining phases and in phase 32's and phase 33's ranks,
+phases, in the pipelining phases and in phase 33's ranks (phase 32's
+cases, then the others),
 and its bound: the
 larger of its bytes over 3.35 TB/s and its operations over the card's
 peak rate); the last line is
@@ -440,28 +438,6 @@ def _median_ms(fn, iters=20, warmup=3, per=10, queued=True):
 def _run(cmd):
   return subprocess.run(cmd, capture_output=True, text=True, check=True,
                         timeout=120).stdout.strip()
-
-
-def _module_json(module, *flags, timeout=600):
-  """Runs ``python -m hybridbackend_tpu_torch.benchmarks.<module> --json
-  flags`` in a process of its own; returns its last line, a JSON object,
-  and that object."""
-  cmd = [sys.executable, '-m', f'hybridbackend_tpu_torch.benchmarks.{module}',
-         '--json', *flags]
-  out = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                       timeout=timeout)
-  if out.returncode != 0:
-    raise RuntimeError(f'{" ".join(cmd[1:])} failed:\n{out.stderr}')
-  line = out.stdout.strip().splitlines()[-1]
-  return line, json.loads(line)
-
-
-def _module_jsons(module, flag_sets, timeout=600):
-  """``hybridbackend_tpu_torch.benchmarks.<module>``'s ``main(['--json',
-  *flags])`` for each of ``flag_sets`` in turn, in one process of its own
-  (one start-up for all); returns each run's JSON line and object."""
-  return [run[:2] for run in _modules_json(
-      [(module, flags) for flags in flag_sets], timeout)]
 
 
 def _modules_json(runs, timeout=600):
@@ -1569,8 +1545,8 @@ def harness(smi):
   tables, as a user runs it, in a process of its own; its JSON line is
   printed. Its Adagrad kernel must have been launched once per timed
   step, and no other counted kernel."""
-  line, report = _module_json('train_benchmark', '--sparse',
-                              '--table-dtype', 'bfloat16')
+  ((line, report, _),) = _modules_json(
+      [('train_benchmark', ['--sparse', '--table-dtype', 'bfloat16'])])
   want = {name: 0 for name in tb.COUNTED}
   want['adagrad_update_sorted'] = report['timed_steps']
   if report['kernel_launches'] != want or report['card'] != smi:
@@ -2122,8 +2098,8 @@ def phase20_e2e(smi, arrow):
   from hybridbackend_tpu_torch.benchmarks import e2e_benchmark as e2e
   launches = collections.Counter()
   flag_sets = ([], ['--python-reader'])
-  for flags, (line, report) in zip(
-      flag_sets, _module_jsons('e2e_benchmark', flag_sets)):
+  for flags, (line, report, _) in zip(flag_sets, _modules_json(
+      [('e2e_benchmark', flags) for flags in flag_sets])):
     want = {name: 0 for name in tb.COUNTED}
     want['adagrad_update_sorted'] = report['steps']
     reader = 'native' if arrow and not flags else 'python'
@@ -2475,7 +2451,7 @@ def harness_dense(smi):
   """Phase 19: the port's harness in its dense mode (no ``--sparse``) at
   its defaults, in a process of its own; its JSON line is printed. It
   launches no counted kernel."""
-  line, report = _module_json('train_benchmark')
+  ((line, report, _),) = _modules_json([('train_benchmark', [])])
   if (any(report['kernel_launches'].values()) or report['sparse']
       or report['card'] != smi):
     raise AssertionError(f'the dense harness reported {report}')
@@ -2534,7 +2510,8 @@ def _serving_harness(smi):
   """Phase 22's run of the serving harness at its defaults, in a process
   of its own; its JSON line is printed. Kernel 5 must have run once per
   member lookup of each timed predict."""
-  line, report = _module_json('serving_benchmark', '--cases', 'f32', 'int8')
+  ((line, report, _),) = _modules_json(
+      [('serving_benchmark', ['--cases', 'f32', 'int8'])])
   for case, per in SERVE_GATHERS.items():
     got = report[f'flagship_{case}']['gather_launches_per_predict']
     if got != per * report['tables'] or report['card'] != smi:
@@ -2678,8 +2655,7 @@ def phase22_serving(cfg, dev, smi, trained):
 
 
 DIN_SESSIONS = 4            # the sessions of phases 23 and 24
-DIN_STEPS = 2               # phase 23's GPU-vs-CPU steps of each variant
-                            # (3 until phase 33 needed the time)
+DIN_STEPS = 3               # phase 23's GPU-vs-CPU steps of each variant
 DIN_PLANTED = 256           # rows whose candidate phase 23 repeats
 # Phase 23's variants: label -> (the harness's flags, the attention's
 # weight normalization).
@@ -2917,8 +2893,8 @@ def phase24_din_harness(smi: str):
   launches = collections.Counter()
   flag_sets = ([], ['--sparse'], ['--sparse', '--sessions',
                                    str(DIN_SESSIONS)])
-  for flags, (line, report) in zip(
-      flag_sets, _module_jsons('din_benchmark', flag_sets)):
+  for flags, (line, report, _) in zip(flag_sets, _modules_json(
+      [('din_benchmark', flags) for flags in flag_sets])):
     want = {name: 0 for name in tb.COUNTED}
     if '--sparse' in flags:
       want['adagrad_update_sorted'] = report['timed_steps']
@@ -3166,7 +3142,8 @@ def phase25_taobao(dev: torch.device, smi: str, tmp: str):
     print(f'  {mode}, {size} rows: f32 from the trainer {f:.3e} (limit '
           f'1e-6), card from CPU {c:.3e} (rtol = atol = 1e-4), int8 from '
           f'f32 {q:.3e} (limit 2e-2)')
-  line, report = _module_json('serving_benchmark', '--cases', 'din')
+  ((line, report, _),) = _modules_json(
+      [('serving_benchmark', ['--cases', 'din'])])
   if (report['din_ragged']['gather_launches_per_predict'] != 0
       or report['card'] != smi):
     raise AssertionError(f'phase 25: the serving harness reported {report}')
@@ -3639,8 +3616,8 @@ def serve_host_tables(smi, bundles, batch_dir, live):
 
 
 PIPE_K = 4                 # phases 29-30's micro-batches held against the CPU
-PIPE_STEPS = 2             # and their steps, each from the initial weights
-# (phase 2's situation, on 2 batches; 3 until phase 33 needed the time). From trained weights a ReLU whose
+PIPE_STEPS = 3             # and their steps, each from the initial weights
+# (phase 2's situation, on 3 batches). From trained weights a ReLU whose
 # input the devices round to either side of zero lets one example's term
 # into one device's gradient only, up to 1.05e-3 of a tensor's largest
 # gradient in the pipelined dense flagship (the plain step's gap reached
@@ -3972,8 +3949,8 @@ def phase30_interleaved(cfg, dev, smi, profile_steps):
   # The harness's main, as a user runs it, in one process for the four.
   flag_sets = [['--sparse', *(['--interleave', str(k)] if k else [])]
                for k in (0, *PIPE_KS)]
-  for k, flags, (line, report) in zip(
-      (0, *PIPE_KS), flag_sets, _module_jsons('train_benchmark', flag_sets)):
+  runs = _modules_json([('train_benchmark', flags) for flags in flag_sets])
+  for k, flags, (line, report, _) in zip((0, *PIPE_KS), flag_sets, runs):
     want = {name: 0 for name in tb.COUNTED}
     want['adagrad_update_sorted'] = report['timed_steps']
     if (report['kernel_launches'] != want or report['card'] != smi
@@ -4039,104 +4016,8 @@ def phase31_harnesses(smi):
   return launches
 
 
-SHARDED_WORLDS = (2, 4)    # phase 32's worlds of gloo ranks on the one card
-SHARDED_STEPS = 3          # their steps held against the world of one
-SHARDED_TIMED = 5          # and steps timed after them, per world and case
-                           # (10 until phase 33 needed the time)
-SHARDED_FLAGS = ()         # the harness flags of phase 32's config
+SHARDED_FLAGS = ()         # the harness flags of phases 32-33's config
 SHARDED_DEVICE = 'cuda'    # the ranks' device
-SHARDED_LAUNCH_S = 420     # a world's launch, seconds at most
-# case -> (lookup strategy, exchange options). 'fallback' sets both bucket
-# ratios so low that every lookup and update bucket overflows, so the
-# exact exchanges run instead on every step.
-SHARDED_CASES = {
-    'allgather': ('allgather', {}),
-    'alltoall': ('alltoall', {}),
-    'fallback': ('alltoall', dict(lookup_bucket_ratio=0.01,
-                                  update_bucket_ratio=0.01)),
-}
-SHARDED_BATCH_SEED = tb.SEED + 32
-
-
-def sharded_rank(out: str, device: str, flags) -> int:
-  """One rank of phase 32, started by the port's launcher (``chip_smoke.py
-  --rank-of DIR``): joins the world, then for each of ``SHARDED_CASES``
-  builds the flagship state (the seed's, this rank's shard of the
-  table) and runs ``SHARDED_STEPS`` steps of the sparse step on its rows
-  of the global batch, writing to ``DIR/<case>.<rank>.pt`` its losses,
-  rank 0's tower and Adam moments after every step, its shard and
-  accumulator, its kernel launches and overflow fallbacks, and whether
-  its tower is rank 0's bit for bit; then times ``SHARDED_TIMED`` more
-  steps (not in the fallback case)."""
-  import hybridbackend_tpu_torch as hbt
-  from hybridbackend_tpu_torch.embedding import lookup as lookup_mod
-  torch.backends.cuda.matmul.allow_tf32 = False
-  torch.backends.cudnn.allow_tf32 = False
-  ctx = hbt.Context.join(device)
-  try:
-    cfg = flagship(*flags)
-    dev = ctx.device
-    batch = functools.partial(
-        tb.shifted, *tb.make_batch(cfg, dev, SHARDED_BATCH_SEED,
-                                   rows=ctx.rows(cfg.batch)), cfg.vocab)
-    for case, (strategy, exchange) in SHARDED_CASES.items():
-      args = argparse.Namespace(**{**vars(cfg), 'lookup': strategy})
-      state, step = tb.build(args, dev, ctx=ctx, **exchange)
-      _reset_counts()
-      fell = (lookup_mod.lookup.overflow_fallbacks,
-              hbt.sparse_adagrad_apply.overflow_fallbacks)
-      trace = []
-      for i in range(SHARDED_STEPS):
-        state, metrics = step(state, batch(i))
-        rec = {'loss': float(metrics['loss'])}
-        if ctx.rank == 0:
-          opt = state.dense_opt.state
-          rec['tower'] = {n: (p.detach().cpu().clone(),
-                              opt[p]['exp_avg'].cpu().clone(),
-                              opt[p]['exp_avg_sq'].cpu().clone(),
-                              float(opt[p]['step']))
-                          for n, p in state.dense.named_parameters()}
-        trace.append(rec)
-      if dev.type == 'cuda':
-        torch.cuda.synchronize(dev)
-      counts = _counts()
-      flat = torch.cat([p.detach().reshape(-1)
-                        for p in state.dense.parameters()])
-      (name,) = state.tables
-      record = {
-          'trace': trace, 'counts': counts,
-          'fallbacks': (lookup_mod.lookup.overflow_fallbacks - fell[0],
-                        hbt.sparse_adagrad_apply.overflow_fallbacks - fell[1]),
-          'tower_equal': bool(torch.equal(
-              flat, hbt.distribute.broadcast(flat, 0, ctx=ctx))),
-          # Copies: the timed steps below go on updating the state.
-          'table': state.tables[name].to('cpu', copy=True),
-          'acc': state.table_opt[name].acc[0].to('cpu', copy=True),
-          'device': str(dev), 'backend': torch.distributed.get_backend()}
-      if case != 'fallback':
-        # The ranks start the timed window together.
-        hbt.distribute.allreduce(torch.zeros(1, device=dev), ctx=ctx)
-        w = tb.time_steps(state, step, batch, SHARDED_STEPS, SHARDED_TIMED,
-                          dev)
-        record['ms_per_step'] = w.ms / SHARDED_TIMED
-      torch.save(record, os.path.join(out, f'{case}.{ctx.rank}.pt'))
-      del state, step, record
-  finally:
-    ctx.leave()
-  return 0
-
-
-def _cpu_tower(cfg, values):
-  """A CPU tower of ``cfg`` holding ``values`` (``{name: (w, m, v,
-  step)}``), and its Adam state keyed by its parameters."""
-  tower, _ = tb._tower(cfg, torch.device('cpu'), torch.Generator())
-  opt = {}
-  with torch.no_grad():
-    for n, p in tower.named_parameters():
-      w, m, v, t = values[n]
-      p.copy_(w)
-      opt[p] = {'exp_avg': m, 'exp_avg_sq': v, 'step': torch.tensor(t)}
-  return tower, opt
 
 
 def _tower_values(state):
@@ -4144,80 +4025,6 @@ def _tower_values(state):
   return {n: (p.detach().cpu().clone(), opt[p]['exp_avg'].cpu().clone(),
               opt[p]['exp_avg_sq'].cpu().clone(), float(opt[p]['step']))
           for n, p in state.dense.named_parameters()}
-
-
-def _hold_world(label, cfg, dev, ranks):
-  """A world's records of one case against the world of one on the card
-  (``tb.build``: the same seed, the whole table), each step from one
-  tower: before step ``i`` the world of one takes the world's tower and
-  Adam moments after step ``i - 1``. The loss (the ranks' mean) to
-  ``rtol 1e-5``, the tower by ``_hold_tower`` with phase 2's rule for
-  the weights (within 1e-4 + 1e-4 of themselves, or up to 2.2 * lr
-  where the gradient is within its allowance of zero: the ranks sum the
-  tower's gradients in another order), and after the last step the
-  gathered shards and accumulators by phase 2's f32 rule."""
-  import hybridbackend_tpu_torch as hbt
-  from hybridbackend_tpu_torch.training.optimizer import init_state
-  state, step = tb.build(cfg, dev)
-  init_state(state.dense_opt)
-  batch = functools.partial(tb.shifted, *tb.make_batch(
-      cfg, dev, SHARDED_BATCH_SEED), cfg.vocab)
-  group = state.dense_opt.param_groups[0]
-  adam = (group['lr'], *group['betas'], group['eps'])
-  opt = state.dense_opt.state
-  report = {'loss_rel_err': 0.0, **_tower_report()}
-  apart_in = set()
-  prev = None
-  for i in range(SHARDED_STEPS):
-    step_label = f'{label}, step {i + 1}'
-    if prev is not None:
-      with torch.no_grad():
-        for n, p in state.dense.named_parameters():
-          w, m, v, t = prev[n]
-          p.copy_(w)
-          opt[p]['exp_avg'].copy_(m)
-          opt[p]['exp_avg_sq'].copy_(v)
-          opt[p]['step'].fill_(t)
-    before_values = _tower_values(state)
-    before = [before_values[n][:2] for n, _ in state.dense.named_parameters()]
-    v_before = [before_values[n][2]
-                for n, _ in state.dense.named_parameters()]
-    state, metrics = step(state, batch(i))
-    losses = {r['trace'][i]['loss'] for r in ranks}
-    one = float(metrics['loss'])
-    if len(losses) != 1:
-      raise AssertionError(f'{step_label}: the ranks report losses {losses}')
-    (world_loss,) = losses
-    report['loss_rel_err'] = max(report['loss_rel_err'],
-                                 abs(world_loss - one) / abs(one))
-    if not abs(world_loss - one) <= 1e-5 * abs(one):
-      raise AssertionError(f'{step_label}: loss {world_loss}, a world of one '
-                           f'{one}')
-    g_net, g_opt = _cpu_tower(cfg, ranks[0]['trace'][i]['tower'])
-    c_net, c_opt = _cpu_tower(cfg, _tower_values(state))
-    _hold_tower(step_label, g_net, c_net, g_opt, c_opt, before, v_before,
-                adam, report, apart_in)
-    either_sign = (max(report['their_largest_grad_of_max_card'],
-                       report['their_largest_grad_of_max_cpu']) <= 1e-3
-                   and report['tower_max_abs_err'] <= 2.2 * adam[0])
-    if report['tower_weights_over_1e-4_apart'] and not either_sign:
-      raise AssertionError(f'{step_label}: tower weights over 1e-4 apart: '
-                           f'{report} in {sorted(apart_in)}')
-    prev = ranks[0]['trace'][i]['tower']
-  (name,) = state.tables
-  for key, one in (('table', state.tables[name]),
-                   ('acc', state.table_opt[name].acc[0])):
-    got = torch.cat([r[key] for r in ranks])
-    one = one.cpu()
-    err = float((got - one).abs().max())
-    report[f'{key}_max_abs_err'] = err
-    # Adagrad moves an element by 0.05 * g / sqrt(0.1 + g**2): the
-    # gradients' order error stays far below 1e-5 (phase 2).
-    if got.shape != one.shape or not torch.allclose(got, one, rtol=1e-5,
-                                                    atol=1e-5):
-      raise AssertionError(f'{label}: the gathered {key} differs by up to '
-                           f'{err}')
-  return report, apart_in
 
 
 def _nccl_world_of_one(dev):
@@ -4283,76 +4090,16 @@ def _nccl_world_of_one(dev):
 
 
 def phase32_sharded(dev, smi):
-  """Phase 32: the flagship sparse step on a world of N ranks, N gloo
-  ranks sharing the card (``python -m hybridbackend_tpu_torch.run
-  --simulate N --device cuda``), for N in ``SHARDED_WORLDS``: in one
-  launch a world runs each of ``SHARDED_CASES`` from the seed's state
-  (``sharded_rank``), which is then held against the world of one on the
-  card (``_hold_world``); kernel 1 once a step on every rank; the
-  forced-overflow case's fallbacks on every step, the others' never.
-  Before them the collectives on NCCL at a world of one, and after them
-  the harness once under the launcher. Returns the kernel launches of the
-  ranks' held steps, summed over the ranks."""
-  cfg = flagship(*SHARDED_FLAGS)
+  """Phase 32: the collectives on NCCL at a world of one on the card, and
+  the harness once under the launcher. Its world-of-N cases, the
+  flagship step under each exchange, are rows of ``PHASE33_CASES`` and
+  run in phase 33's launches."""
   t_phase = time.perf_counter()
   _nccl_world_of_one(dev)
   print('phase 32: gloo takes CUDA tensors in every collective the port '
         'calls (all_reduce, broadcast, all_gather_into_tensor, '
         'all_to_all_single, reduce_scatter_tensor) and copies them through '
         'the host itself; the port stages nothing')
-  sharded = collections.Counter()
-  for world in SHARDED_WORLDS:
-    with tempfile.TemporaryDirectory() as out:
-      t0 = time.perf_counter()
-      cmd = [sys.executable, '-m', 'hybridbackend_tpu_torch.run',
-             '--simulate', str(world), '--device', SHARDED_DEVICE,
-             '--timeout', str(SHARDED_LAUNCH_S),
-             os.path.join(HERE, 'chip_smoke.py'), '--rank-of', out,
-             '--rank-device', SHARDED_DEVICE,
-             '--rank-flags', json.dumps(list(SHARDED_FLAGS))]
-      res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                           timeout=SHARDED_LAUNCH_S + 60)
-      if res.returncode != 0:
-        raise RuntimeError(f'phase 32: {world} ranks exited '
-                           f'{res.returncode}:\n{res.stderr[-4000:]}')
-      launch_s = time.perf_counter() - t0
-      t0 = time.perf_counter()
-      times = []
-      for case, (strategy, exchange) in SHARDED_CASES.items():
-        label = f'phase 32, {world} ranks, {case}'
-        ranks = [torch.load(os.path.join(out, f'{case}.{r}.pt'))
-                 for r in range(world)]
-        want_fallbacks = ((SHARDED_STEPS, SHARDED_STEPS) if case == 'fallback'
-                          else (0, 0))
-        for r, rec in enumerate(ranks):
-          _expect(f'{label}, rank {r}', rec['counts'],
-                  adagrad_update_sorted=SHARDED_STEPS)
-          sharded.update(rec['counts'])
-          if tuple(rec['fallbacks']) != want_fallbacks:
-            raise AssertionError(f'{label}, rank {r}: (lookup, update) '
-                                 f'fallbacks {rec["fallbacks"]}, expected '
-                                 f'{want_fallbacks}')
-          if not rec['tower_equal']:
-            raise AssertionError(f'{label}: rank {r}\'s tower is not rank '
-                                 '0\'s')
-        report, apart_in = _hold_world(label, cfg, dev, ranks)
-        if case != 'fallback':
-          times.append(f'{case} {ranks[0]["ms_per_step"]:.4f}')
-        print(f'{label} ({strategy}, {exchange or "default buckets"}; '
-              f'{ranks[0]["backend"]} on {ranks[0]["device"]}): '
-              f'{SHARDED_STEPS} steps against a world of one on the card, '
-              f'each from one tower: '
-              + ', '.join(f'{k} {v:.3e}' if isinstance(v, float)
-                          else f'{k} {v}' for k, v in report.items())
-              + f' (in {", ".join(sorted(apart_in)) or "none"}); kernel 1 '
-              f'{SHARDED_STEPS} times on each rank; (lookup, update) '
-              f'fallbacks {tuple(ranks[0]["fallbacks"])} a rank')
-        del ranks
-    print(f'phase 32, {world} ranks on {smi}: ms/step of rank 0 over '
-          f'{SHARDED_TIMED} steps (CUDA events): {", ".join(times)} -- gloo '
-          'ranks sharing one card: not a multi-GPU number; launch '
-          f'{launch_s:.1f} s, held against the world of one in '
-          f'{time.perf_counter() - t0:.1f} s')
   t0 = time.perf_counter()
   line = _launched_harness(smi)
   print('phase 32 (python -m hybridbackend_tpu_torch.run --simulate 2 '
@@ -4361,7 +4108,6 @@ def phase32_sharded(dev, smi):
         f'not a multi-GPU number; {time.perf_counter() - t0:.1f} s): '
         f'{line}')
   print(f'phase 32: {time.perf_counter() - t_phase:.1f} s')
-  return sharded
 
 
 def _launched_harness(smi):
@@ -4394,30 +4140,44 @@ PHASE33_BATCH_SEED = tb.SEED + 33
 PHASE33_WIRES = ('bfloat16', 'float16')
 PHASE33_PROBE = 1 << 16     # floats a rank puts into each probed collective
 # case -> (harness flags, table optimizer, split-dense, the step's
-# exchange options, the kernel its update launches, the update fallbacks
-# a step). A '--lookup allgather' case routes its update by allgather
-# too. 'nodedup_overflow': an update bucket of 1% of a fair share
-# overflows on every rank, every step.
+# exchange options, the kernel its update launches, the (lookup, update)
+# fallbacks a step). A '--lookup allgather' case routes its update by
+# allgather too where it says so. 'fallback': both bucket ratios so low
+# that every lookup and update bucket overflows, so the exact exchanges
+# run instead on every step; 'nodedup_overflow': an update bucket of 1%
+# of a fair share overflows on every rank, every step.
 PHASE33_CASES = {
+    # Phase 32's cases: the flagship DCNv2 + Adagrad under each exchange.
+    'allgather': (('--lookup', 'allgather'), 'adagrad', False, {},
+                  'adagrad_update_sorted', (0, 0)),
+    'alltoall': (('--lookup', 'alltoall'), 'adagrad', False, {},
+                 'adagrad_update_sorted', (0, 0)),
+    'fallback': (('--lookup', 'alltoall'), 'adagrad', False,
+                 dict(lookup_bucket_ratio=0.01, update_bucket_ratio=0.01),
+                 'adagrad_update_sorted', (1, 1)),
     'dlrm_adam': (('--model', 'dlrm', '--lookup', 'alltoall'), 'adam',
-                  False, {}, 'adam_update_sorted', 0),
+                  False, {}, 'adam_update_sorted', (0, 0)),
     'nodedup': (('--no-dedup', '--lookup', 'alltoall'), 'adagrad', False,
-                {}, 'adagrad_update_sorted', 0),
+                {}, 'adagrad_update_sorted', (0, 0)),
     'nodedup_overflow': (('--no-dedup', '--lookup', 'alltoall'), 'adagrad',
                          False, dict(update_bucket_ratio=0.01),
-                         'adagrad_update_sorted', 1),
+                         'adagrad_update_sorted', (0, 1)),
     'split': (('--lookup', 'allgather'), 'adagrad', True,
-              dict(update_exchange='allgather'), 'gsum_dense_sorted', 0),
+              dict(update_exchange='allgather'), 'gsum_dense_sorted',
+              (0, 0)),
     'bf16_adagrad': (('--table-dtype', 'bfloat16', '--lookup', 'alltoall'),
-                     'adagrad', False, {}, 'adagrad_update_sorted', 0),
+                     'adagrad', False, {}, 'adagrad_update_sorted', (0, 0)),
     'bf16_adam': (('--table-dtype', 'bfloat16', '--model', 'dlrm',
                    '--lookup', 'allgather'), 'adam', False,
                   dict(update_exchange='allgather'), 'adam_update_sorted',
-                  0),
+                  (0, 0)),
     'wire': (('--lookup', 'alltoall', '--wire-dtype', 'bfloat16',
               '--gradient-wire-dtype', 'bfloat16'), 'adagrad', False, {},
-             'adagrad_update_sorted', 0),
+             'adagrad_update_sorted', (0, 0)),
 }
+# The cases whose launches fill the kernels line's sharded_launches
+# column (phase 32's); the others fill every_step_launches.
+PHASE32_CASES = ('allgather', 'alltoall', 'fallback')
 PHASE33_DIN_FLAGS = ('--sparse', '--sessions', '4', '--lookup', 'alltoall')
 PHASE33_SGD_ROUNDS = 3
 # What the ranks run: the step cases, then the SGD rounds and the DIN steps.
@@ -4504,13 +4264,15 @@ def _wire_probe(ctx):
 
 
 def _run_record(ctx, state, step, batch, steps, apply_counter, timed,
-                every_state=False):
+                capture, every_state=False):
   """``steps`` steps of ``step`` from ``state`` on ``batch(i)``: the
   losses, rank 0's tower and Adam moments after each, this rank's table
   and slots (copies) after the last, and with ``every_state`` after each
   earlier step the rows of its shard that the step changed (global row
   ids, then their table and slot values), its kernel launches and
-  (lookup, update) fallbacks, and whether its tower is rank 0's."""
+  (lookup, update) fallbacks, and whether its tower is rank 0's. The
+  last step's update calls go into ``capture``
+  (:class:`_ListCapture`)."""
   import hybridbackend_tpu_torch as hbt
   from hybridbackend_tpu_torch.embedding import lookup as lookup_mod
   _reset_counts()
@@ -4521,7 +4283,9 @@ def _run_record(ctx, state, step, batch, steps, apply_counter, timed,
   for i in range(steps):
     last = i == steps - 1
     before = [t.clone() for t in shard] if every_state and not last else None
+    capture.armed = last
     state, metrics = step(state, batch(i))
+    capture.armed = False
     rec = {'loss': float(metrics['loss'])}
     if ctx.rank == 0:
       rec['tower'] = _tower_values(state)
@@ -4572,15 +4336,106 @@ def _sgd_inputs(cfg, dev, fx, i, rows=slice(None)):
   return ids, (demb[rows] * 0.01).to(dev)
 
 
+# The update kernels that ``embedding/sparse_update.py`` calls by name, and
+# where the row list stands among each one's arguments (the state
+# operands, updated in place, stand before it).
+UPDATE_KERNELS = {'adagrad_update_sorted': 2, 'adam_update_sorted': 3,
+                  'scatter_add_sorted': 1, 'gsum_dense_sorted': 0}
+
+
+class _ListCapture:
+  """While ``armed``, keeps a copy of the arguments of every update
+  kernel call that ``embedding/sparse_update.py`` makes: the sorted list
+  an owner received, its ``-1`` lanes included, and its shard and slots
+  before the call. Installed around a rank's cases."""
+
+  def __init__(self):
+    from hybridbackend_tpu_torch.embedding import sparse_update
+    self.module, self.armed, self.calls = sparse_update, False, []
+    self.kernels = {n: getattr(sparse_update, n) for n in UPDATE_KERNELS}
+
+  def __enter__(self):
+    for name, kernel in self.kernels.items():
+      setattr(self.module, name, self._wrap(name, kernel))
+    return self
+
+  def __exit__(self, *exc):
+    for name, kernel in self.kernels.items():
+      setattr(self.module, name, kernel)
+
+  def _wrap(self, name, kernel):
+    def call(*args):
+      if self.armed:
+        self.calls.append((name, [
+            a.clone() if isinstance(a, torch.Tensor) else a for a in args]))
+      return kernel(*args)
+    return call
+
+  def take(self):
+    calls, self.calls = self.calls, []
+    return calls
+
+
+def _hold_lists(calls):
+  """Each captured update call's kernel, run again on its copies on the
+  rank's device, against its plain version on CPU copies, at phase 1's
+  tolerances: f32 ``rtol = atol = 1e-5``, bf16 ``_within_an_ulp``; rows
+  the list does not hold keep their bits (kernel 4: their totals are 0).
+  Returns for each call its kernel, the list's entries and ``-1`` lanes,
+  the largest difference, the kernel launches read around the run, and
+  what failed (None when it held)."""
+  import hybridbackend_tpu_torch as hbt
+  out = []
+  for name, args in calls:
+    at = UPDATE_KERNELS[name]
+    rows = args[at]
+    plain_args = [a.to('cpu', copy=True) if isinstance(a, torch.Tensor)
+                  else a for a in args]
+    before = [a.to('cpu', copy=True) for a in args[:at]]
+    _reset_counts()
+    got = getattr(hbt, name)(*args)
+    if rows.device.type == 'cuda':
+      torch.cuda.synchronize(rows.device)
+    counts = _counts()
+    want = getattr(hbt, f'{name}_reference')(*plain_args)
+    got, want = ((x if isinstance(x, tuple) else (x,)) for x in (got, want))
+    v = got[0].shape[0]
+    held = rows[(rows >= 0) & (rows < v)].long().cpu()
+    touched = torch.zeros(v, dtype=torch.bool)
+    touched[held] = True
+    err, problem = 0.0, None
+    try:
+      for k, (g, w) in enumerate(zip(got, want)):
+        g = g.cpu()
+        err = max(err, float((g.float() - w.float()).abs().max()))
+        if g.dtype == torch.bfloat16:
+          _within_an_ulp(f'{name} operand {k}', g, w)
+        elif not torch.allclose(g, w, rtol=1e-5, atol=1e-5):
+          raise AssertionError(f'{name} operand {k} differs from the plain '
+                               f'version by up to {err}')
+        keep = (before[k][~touched] if before
+                else torch.zeros_like(g[~touched]))
+        if not torch.equal(g[~touched], keep):
+          raise AssertionError(f'{name} operand {k} changed rows the list '
+                               'does not hold')
+    except AssertionError as e:
+      problem = str(e)
+    out.append(dict(kernel=name, entries=rows.numel(),
+                    pad=int((rows < 0).sum()), err=err, counts=counts,
+                    problem=problem))
+  return out
+
+
 def phase33_rank(out: str, device: str, spec) -> int:
   """One rank of phase 33, started by the port's launcher
-  (``chip_smoke.py --rank-of DIR --rank-phase 33``): joins the world,
-  probes the wire, then runs each case (``PHASE33_CASES``, the SGD rounds
-  and the DIN steps; at a world of one only the wire case) from the
-  seed's state on its rows of the global batch, writing to
-  ``DIR/<case>.<rank>.pt`` what ``_run_record`` records. ``spec`` holds
-  the harness flags (``flags``), the DIN harness's (``din``) and the
-  timed steps (``timed``)."""
+  (``chip_smoke.py --rank-of DIR``): joins the world, probes the wire,
+  then runs each case (``PHASE33_CASES``, the SGD rounds and the DIN
+  steps; at a world of one only the wire case) from the seed's state on
+  its rows of the global batch, writing to ``DIR/<case>.<rank>.pt`` what
+  ``_run_record`` records, and what ``_hold_lists`` finds of the last
+  held step's update calls (the last round's, for SGD). ``spec`` holds
+  the harness flags (``flags``), the DIN harness's (``din``), the timed
+  steps (``timed``) and the cases (``run``)."""
   flags, timed = spec['flags'], spec['timed']
   import hybridbackend_tpu_torch as hbt
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -4589,47 +4444,56 @@ def phase33_rank(out: str, device: str, spec) -> int:
   try:
     dev = ctx.device
     torch.save(_wire_probe(ctx), os.path.join(out, f'probe.{ctx.rank}.pt'))
-    for case in _phase33_steps(ctx.world_size, spec['run']):
-      if case == 'din':
-        continue
-      _, optimizer, split, exchange, _, _ = PHASE33_CASES[case]
-      args = _phase33_args(case, flags)
-      state, step = tb.build(args, dev, optimizer, split, ctx=ctx,
-                             **exchange)
-      batch = functools.partial(
-          tb.shifted, *tb.make_batch(args, dev, PHASE33_BATCH_SEED,
-                                     rows=ctx.rows(args.batch)), args.vocab)
-      apply = (hbt.sparse_adam_apply if optimizer == 'adam'
-               else hbt.sparse_adagrad_apply)
-      record = _run_record(ctx, state, step, batch, PHASE33_STEPS, apply,
-                           timed, _every_state(optimizer, args))
-      torch.save(record, os.path.join(out, f'{case}.{ctx.rank}.pt'))
-      del state, step, record
-    if ctx.world_size > 1 and 'sgd' in spec['run']:
-      cfg = flagship(*flags)
-      fx, tables, _, _ = tb.sparse_parts(cfg, dev, ctx)
-      (name,) = tables
-      _reset_counts()
-      fell = hbt.sparse_sgd_apply.overflow_fallbacks
-      for i in range(PHASE33_SGD_ROUNDS):
-        ids, demb = _sgd_inputs(cfg, dev, fx, i, ctx.rows(cfg.batch))
-        hbt.sparse_sgd_apply(tables[name], ids, demb, fx.stacks[0].stacked,
-                             tb.TABLE_LR, ctx=ctx, exchange='alltoall')
-      if dev.type == 'cuda':
-        torch.cuda.synchronize(dev)
-      torch.save({'counts': _counts(), 'table': tables[name].to(
-          'cpu', copy=True), 'fallbacks': hbt.sparse_sgd_apply
-                  .overflow_fallbacks - fell},
-                 os.path.join(out, f'sgd.{ctx.rank}.pt'))
-      del fx, tables
-    if ctx.world_size > 1 and 'din' in spec['run']:
-      args = din.parse_args([*spec['din'], '--device', device])
-      state, step = din.build(args, dev, ctx)
-      batch = functools.partial(din.shifted, args, *din.make_batch(
-          args, dev, PHASE33_BATCH_SEED, rows=ctx.rows(args.batch)))
-      record = _run_record(ctx, state, step, batch, PHASE33_STEPS,
-                           hbt.sparse_adagrad_apply, timed)
-      torch.save(record, os.path.join(out, f'din.{ctx.rank}.pt'))
+    with _ListCapture() as capture:
+      for case in _phase33_steps(ctx.world_size, spec['run']):
+        if case == 'din':
+          continue
+        _, optimizer, split, exchange, _, _ = PHASE33_CASES[case]
+        args = _phase33_args(case, flags)
+        state, step = tb.build(args, dev, optimizer, split, ctx=ctx,
+                               **exchange)
+        batch = functools.partial(
+            tb.shifted, *tb.make_batch(args, dev, PHASE33_BATCH_SEED,
+                                       rows=ctx.rows(args.batch)),
+            args.vocab)
+        apply = (hbt.sparse_adam_apply if optimizer == 'adam'
+                 else hbt.sparse_adagrad_apply)
+        record = _run_record(ctx, state, step, batch, PHASE33_STEPS, apply,
+                             timed, capture, _every_state(optimizer, args))
+        record['lists'] = _hold_lists(capture.take())
+        torch.save(record, os.path.join(out, f'{case}.{ctx.rank}.pt'))
+        del state, step, record
+      if ctx.world_size > 1 and 'sgd' in spec['run']:
+        cfg = flagship(*flags)
+        fx, tables, _, _ = tb.sparse_parts(cfg, dev, ctx)
+        (name,) = tables
+        _reset_counts()
+        fell = hbt.sparse_sgd_apply.overflow_fallbacks
+        for i in range(PHASE33_SGD_ROUNDS):
+          ids, demb = _sgd_inputs(cfg, dev, fx, i, ctx.rows(cfg.batch))
+          capture.armed = i == PHASE33_SGD_ROUNDS - 1
+          hbt.sparse_sgd_apply(tables[name], ids, demb,
+                               fx.stacks[0].stacked, tb.TABLE_LR, ctx=ctx,
+                               exchange='alltoall')
+          capture.armed = False
+        if dev.type == 'cuda':
+          torch.cuda.synchronize(dev)
+        record = {'counts': _counts(),
+                  'table': tables[name].to('cpu', copy=True),
+                  'fallbacks': (hbt.sparse_sgd_apply.overflow_fallbacks
+                                - fell)}
+        record['lists'] = _hold_lists(capture.take())
+        torch.save(record, os.path.join(out, f'sgd.{ctx.rank}.pt'))
+        del fx, tables
+      if ctx.world_size > 1 and 'din' in spec['run']:
+        args = din.parse_args([*spec['din'], '--device', device])
+        state, step = din.build(args, dev, ctx)
+        batch = functools.partial(din.shifted, args, *din.make_batch(
+            args, dev, PHASE33_BATCH_SEED, rows=ctx.rows(args.batch)))
+        record = _run_record(ctx, state, step, batch, PHASE33_STEPS,
+                             hbt.sparse_adagrad_apply, timed, capture)
+        record['lists'] = _hold_lists(capture.take())
+        torch.save(record, os.path.join(out, f'din.{ctx.rank}.pt'))
   finally:
     ctx.leave()
   return 0
@@ -4740,12 +4604,18 @@ def _hold_world33(label, case, dev, ranks, flags):
   and slots too, which are then held after every step
   (``_hold_delta33``, on the rows a step changed). The loss
   (the ranks' mean) to 1e-5 (1e-4 with bf16 tables and on the wire, by
-  its band), the tower by phase 18's rule (``_hold_tower``, with 0.1% of
-  a tensor's gradients let past for ReLU gate flips: a world's ranks run
-  their rows through other GEMM shapes than the world of one; on the wire
-  by ``_hold_wire_tower``), the gathered shards and slots by
-  ``_state_close``; rows no valid id read keep their initial bits
-  (DIN)."""
+  its band), the tower by phase 18's rule (``_hold_tower``; its weights
+  over 1e-4 apart allowed Adam's either-sign step, up to 2.2·lr, where
+  their gradients are within 1e-3 of the tensor's largest, as phase 32
+  held them), on the wire by ``_hold_wire_tower``, the gathered shards
+  and slots by ``_state_close``; rows no valid id read keep their
+  initial bits (DIN). The LazyAdam cases alone let 0.1% of a tensor's
+  gradients past by up to 2**-5 of its largest, counted as
+  ``tower_grads_past_allowance``, and allow the either-sign step up to
+  2**-5: a world's ranks run their rows through other GEMM shapes than
+  the world of one, a ReLU gate that flips moves one example's term, and
+  LazyAdam's tables move a near-zero total by up to 2·lr, which the next
+  step's embeddings carry into the tower."""
   from hybridbackend_tpu_torch.training.optimizer import init_state
   if case == 'din':
     args = din.parse_args([*PHASE33_DIN_FLAGS, '--device', str(dev)])
@@ -4825,10 +4695,12 @@ def _hold_world33(label, case, dev, ranks, flags):
       _hold_wire_tower(step_label, g_net, c_net, g_opt, c_opt, before,
                        adam[0], report)
     else:
+      lazy = optimizer == 'adam'
       _hold_tower(step_label, g_net, c_net, g_opt, c_opt, before, v_before,
-                  adam, report, apart_in, flip_share=1e-3)
+                  adam, report, apart_in, flip_share=1e-3 if lazy else 0.0)
       either_sign = (max(report['their_largest_grad_of_max_card'],
-                         report['their_largest_grad_of_max_cpu']) <= 2**-5
+                         report['their_largest_grad_of_max_cpu'])
+                     <= (2**-5 if lazy else 1e-3)
                      and report['tower_max_abs_err'] <= 2.2 * adam[0])
       if report['tower_weights_over_1e-4_apart'] and not either_sign:
         raise AssertionError(f'{step_label}: tower weights over 1e-4 apart: '
@@ -4958,12 +4830,33 @@ def _print_probe(world, ranks):
   return {k: v for k, v in rec['calls'].items() if v != 'ok'}
 
 
+def _print_lists(label, ranks):
+  """Fails unless every rank's ``_hold_lists`` held and launched its
+  kernel once a check; prints them."""
+  for r, rec in enumerate(ranks):
+    if not rec['lists']:
+      raise AssertionError(f'{label}, rank {r}: no update call captured')
+    for c in rec['lists']:
+      _expect(f'{label}, rank {r}, {c["kernel"]} on its received list',
+              c['counts'], **{c['kernel']: 1})
+      if c['problem']:
+        raise AssertionError(f'{label}, rank {r}, on its received list: '
+                             f'{c["problem"]}')
+  print(f'{label}: the last step\'s update kernels on each rank\'s received '
+        'list against their plain versions on the CPU (one launch each): '
+        + '; '.join(f'rank {r} ' + ', '.join(
+            f'{c["kernel"]} {c["entries"]} entries, {c["pad"]} -1 lanes, '
+            f'max abs err {c["err"]:.3e}' for c in rec['lists'])
+                    for r, rec in enumerate(ranks)))
+
+
 def phase33_every_step(dev, smi):
   """Phase 33: every sparse step at a world of N, one launch a world of
   ``PHASE33_WORLDS`` (see the module docstring). Returns the kernel
-  launches of the ranks' held steps and rounds, summed over the ranks."""
+  launches of the ranks' held steps and rounds, summed over the ranks:
+  those of ``PHASE32_CASES``, then the others'."""
   t_phase = time.perf_counter()
-  launches = collections.Counter()
+  sharded, launches = collections.Counter(), collections.Counter()
   refused, failures = {}, []
   for world in PHASE33_WORLDS:
     with tempfile.TemporaryDirectory() as out:
@@ -4974,7 +4867,7 @@ def phase33_every_step(dev, smi):
       cmd = [sys.executable, '-m', 'hybridbackend_tpu_torch.run', *ranks_flag,
              '--device', SHARDED_DEVICE, '--timeout', str(PHASE33_LAUNCH_S),
              os.path.join(HERE, 'chip_smoke.py'), '--rank-of', out,
-             '--rank-phase', '33', '--rank-device', SHARDED_DEVICE,
+             '--rank-device', SHARDED_DEVICE,
              '--rank-flags', json.dumps(dict(
                  flags=list(SHARDED_FLAGS), din=list(PHASE33_DIN_FLAGS),
                  timed=PHASE33_TIMED, run=list(PHASE33_RUN)))]
@@ -4993,13 +4886,15 @@ def phase33_every_step(dev, smi):
         label = f'phase 33, {world} ranks, {case}'
         ranks = load(case)
         try:
-          kernel, per_step = (('adagrad_update_sorted', 0) if case == 'din'
-                              else PHASE33_CASES[case][4:])
-          want_fallbacks = (0, PHASE33_STEPS * per_step if world > 1 else 0)
+          kernel, per_step = (('adagrad_update_sorted', (0, 0))
+                              if case == 'din' else PHASE33_CASES[case][4:])
+          want_fallbacks = tuple(PHASE33_STEPS * f if world > 1 else 0
+                                 for f in per_step)
           for r, rec in enumerate(ranks):
             _expect(f'{label}, rank {r}', rec['counts'],
                     **{kernel: PHASE33_STEPS})
-            launches.update(rec['counts'])
+            (sharded if case in PHASE32_CASES else launches).update(
+                rec['counts'])
             if tuple(rec['fallbacks']) != want_fallbacks:
               raise AssertionError(f'{label}, rank {r}: (lookup, update) '
                                    f'fallbacks {rec["fallbacks"]}, expected '
@@ -5018,6 +4913,7 @@ def phase33_every_step(dev, smi):
                 + f' (in {", ".join(sorted(apart_in)) or "none"}); {kernel} '
                 f'{PHASE33_STEPS} times on each rank; (lookup, update) '
                 f'fallbacks {[tuple(r["fallbacks"]) for r in ranks]} by rank')
+          _print_lists(label, ranks)
         except AssertionError as e:
           # Every case runs; the phase fails at its end.
           failures.append(str(e))
@@ -5034,6 +4930,7 @@ def phase33_every_step(dev, smi):
                                  f'{rec["fallbacks"]}')
         err = _hold_sgd33(f'phase 33, {world} ranks, sgd', dev, ranks,
                           SHARDED_FLAGS)
+        _print_lists(f'phase 33, {world} ranks, sgd', ranks)
         print(f'phase 33, {world} ranks, sgd: {PHASE33_SGD_ROUNDS} rounds of '
               'sparse_sgd_apply on the flagship list against the world of '
               f'one: table max abs err {err:.3e}; scatter_add_sorted '
@@ -5050,7 +4947,7 @@ def phase33_every_step(dev, smi):
   if failures:
     raise AssertionError(f'phase 33: {len(failures)} cases failed: '
                          + ' | '.join(failures))
-  return launches
+  return sharded, launches
 
 
 _LAST_MARK = [time.perf_counter()]
@@ -5073,19 +4970,17 @@ def main() -> int:
                       'sizes, and kernels 1 and 3 over tile sizes and state '
                       'batches')
   parser.add_argument('--rank-of', metavar='DIR',
-                      help='run as one rank of phase 32 under the port\'s '
+                      help='run as one rank of phase 33 under the port\'s '
                       'launcher, writing to DIR')
   parser.add_argument('--rank-device', default='cuda',
                       help='that rank\'s device')
-  parser.add_argument('--rank-flags', default='[]',
-                      help='that rank\'s harness flags, a JSON list '
-                      '(phase 33: an object, see phase33_rank)')
-  parser.add_argument('--rank-phase', type=int, default=32,
-                      choices=[32, 33], help='the phase of that rank')
+  parser.add_argument('--rank-flags', default='{}',
+                      help='what that rank runs, a JSON object (see '
+                      'phase33_rank)')
   args = parser.parse_args()
   if args.rank_of:
-    rank = sharded_rank if args.rank_phase == 32 else phase33_rank
-    return rank(args.rank_of, args.rank_device, json.loads(args.rank_flags))
+    return phase33_rank(args.rank_of, args.rank_device,
+                        json.loads(args.rank_flags))
   t_start = time.perf_counter()
   _LAST_MARK[0] = t_start
   if not torch.cuda.is_available():
@@ -5200,10 +5095,9 @@ def main() -> int:
       cfg, dev, smi, profile_steps=10 if args.profile else 0))
   pipeline_launches.update(phase31_harnesses(smi))
   _mark('phases 29-31')
-  sharded_launches = phase32_sharded(dev, smi)
-  _mark('phase 32')
-  every_step_launches = phase33_every_step(dev, smi)
-  _mark('phase 33')
+  phase32_sharded(dev, smi)
+  sharded_launches, every_step_launches = phase33_every_step(dev, smi)
+  _mark('phases 32-33')
   if args.profile:
     batch = functools.partial(tb.shifted, *tb.make_batch(cfg, dev),
                               cfg.vocab)
@@ -5255,14 +5149,17 @@ def main() -> int:
                  # processes.
                  'pipeline_launches': (pipeline_launches[name]
                                        if name in tb.COUNTED else None),
-                 # Launches in phase 32's ranks, the held steps of every
-                 # world and case summed over the ranks (the timed steps
-                 # and the launched harness not counted).
+                 # Launches in phase 33's ranks in phase 32's cases
+                 # (PHASE32_CASES), the held steps of every world and case
+                 # summed over the ranks (the timed steps, the checks on
+                 # the received lists and the launched harness not
+                 # counted).
                  'sharded_launches': (sharded_launches[name]
                                       if name in tb.COUNTED else None),
-                 # Launches in phase 33's ranks: the held steps and SGD
-                 # rounds of every world and case summed over the ranks
-                 # (the timed steps not counted).
+                 # Launches in phase 33's ranks in its other cases: the
+                 # held steps and SGD rounds of every world and case
+                 # summed over the ranks (the timed steps and the checks
+                 # on the received lists not counted).
                  'every_step_launches': (every_step_launches[name]
                                          if name in tb.COUNTED else None)})
   print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s wall, every '

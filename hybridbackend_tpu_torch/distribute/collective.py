@@ -18,10 +18,13 @@ itself.
 ``:281-285``): a float payload is cast to it before the call and back to
 its own dtype after it, so a sum runs in the wire dtype on the backend.
 ``None`` and ``'float32'`` leave the payload as it is, and so does an
-integer payload. ``reduce_scatter`` stays at the payload's precision, as
-the JAX lookup keeps its ``psum_scatter``. A backend that refuses the
-wire dtype raises a ``TypeError`` that names the dtype and the backend;
-nothing is sent at a wider dtype instead.
+integer payload; ``'bfloat16'`` and ``'float16'`` are the only casts, and
+any other name raises a ``ValueError``. ``reduce_scatter`` stays at the
+payload's precision, as the JAX lookup keeps its ``psum_scatter``. A
+backend that refuses the wire dtype raises a ``TypeError`` that names
+the dtype and the backend; nothing is sent at a wider dtype instead.
+Any other failure of the call (a timeout, a lost peer) comes out as the
+backend raised it.
 
 Only ``Topology.ALL`` (every rank) is ported: the intra- and inter-node
 topologies are ROADMAP item 15b (3).
@@ -30,6 +33,7 @@ topologies are ROADMAP item 15b (3).
 from __future__ import annotations
 
 import enum
+import re
 from typing import Callable, Optional, Tuple, Union
 
 import torch
@@ -57,32 +61,47 @@ _REDUCTIONS = ('sum', 'max', 'min', 'mean')
 WireDtype = Optional[Union[str, torch.dtype]]
 
 
+_WIRES = {'bfloat16': torch.bfloat16, 'float16': torch.float16}
+
+
 def wire_dtype_of(wire_dtype: WireDtype) -> Optional[torch.dtype]:
-  """The torch dtype that ``wire_dtype`` names (``'bfloat16'``,
-  ``'float16'``, ...), or None for ``None``, ``''`` and ``'float32'``:
-  no cast (JAX ``_norm_wire``)."""
+  """The torch dtype that ``wire_dtype`` names (``'bfloat16'`` or
+  ``'float16'``, a name or a dtype), or None for ``None``, ``''`` and
+  ``'float32'``: no cast (JAX ``_norm_wire``). Any other dtype raises a
+  ``ValueError``: a wire never widens the payload, and the backends were
+  probed in these two."""
   if isinstance(wire_dtype, torch.dtype):
-    return None if wire_dtype == torch.float32 else wire_dtype
+    wire_dtype = str(wire_dtype).replace('torch.', '')
   if wire_dtype in (None, '', 'float32'):
     return None
-  dtype = getattr(torch, str(wire_dtype), None)
-  if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
-    raise ValueError(f'wire dtype {wire_dtype!r} is not a float dtype')
-  return dtype
+  if wire_dtype not in _WIRES:
+    raise ValueError(f'wire dtype {wire_dtype!r} is not one of None, '
+                     "'float32', 'bfloat16' or 'float16'")
+  return _WIRES[wire_dtype]
+
+
+# What a backend says when it refuses a tensor's dtype: gloo "Invalid
+# scalar type", NCCL "... data type is not supported ...: BFloat16".
+_REFUSES_DTYPE = re.compile(r'scalar type|data ?type|dtype|bfloat16|half|'
+                            r'float16', re.IGNORECASE)
 
 
 def _on_wire(x: torch.Tensor, wire_dtype: WireDtype, what: str,
              call: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
   """``call`` on ``x`` cast to the wire dtype, cast back to ``x``'s dtype
   (``_with_wire_cast``); ``x`` as it is when there is no cast to make. A
-  backend that refuses the wire dtype raises, naming it."""
+  backend that refuses the wire dtype raises a ``TypeError`` naming it;
+  the backend's own errors (``DistError``: timeouts, lost peers) and
+  any other error pass through unchanged."""
   wire = wire_dtype_of(wire_dtype)
   if wire is None or wire == x.dtype or not x.is_floating_point():
     return call(x)
+  import torch.distributed as dist
   try:
     out = call(x.to(wire))
   except RuntimeError as e:
-    import torch.distributed as dist
+    if isinstance(e, dist.DistError) or not _REFUSES_DTYPE.search(str(e)):
+      raise
     raise TypeError(f'{what}: the {dist.get_backend()} backend refuses '
                     f'{wire} on the wire ({e})') from e
   return out.to(x.dtype)

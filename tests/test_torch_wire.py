@@ -21,8 +21,11 @@ world) against a sub-mesh of N of the suite's 8 virtual CPU devices:
   and ``W`` against JAX (which sits half an ulp from it); and every value
   it returns is one the wire dtype holds (the sum ran there, not in
   f32). An integer payload
-  and the sizes are never cast; a dtype the backend refuses
-  (``float8_e4m3fn`` on gloo) raises and names it and the backend.
+  and the sizes are never cast. A wire dtype other than bf16 and fp16
+  (``float8_e4m3fn``, ``float64``) is refused before the call; a backend
+  that refuses the wire dtype (its call raising gloo's "Invalid scalar
+  type") raises and names the dtype and the backend, and its other
+  failures (a timeout, a lost peer) come out as it raised them.
 * the alltoall lookup at ``wire_dtype='bfloat16'`` and ``'float16'``,
   bitwise against JAX's under ``comm_wire_dtype``; the allgather
   strategy is not cast (its reduce-scatter stays at table precision),
@@ -65,6 +68,8 @@ from hybridbackend_tpu.framework.context import context_scope
 from hybridbackend_tpu.framework.options import OPTIONS
 from hybridbackend_tpu.training.sparse_step import (
     make_sparse_train_step as jax_make_sparse_train_step)
+
+from hybridbackend_tpu_torch.distribute import collective
 
 import test_torch_sharded_din as din
 import test_torch_sharded_step as flagship
@@ -219,8 +224,33 @@ def test_wire_collectives_match_jax(world, wire):
 
 def test_a_refused_wire_dtype_names_itself(world):
   for res in world['ranks']:
-    msg = res['wire']['refused']
-    assert msg is not None and REFUSED in msg and 'gloo' in msg, msg
+    got = res['wire']['refused']
+    # A dtype that is not a 16-bit float never reaches the backend.
+    for case, name in (('name', REFUSED), ('wider', 'float64')):
+      assert got[case] is not None and got[case][0] == 'ValueError', got
+      assert name in got[case][1], got[case]
+    # The backend's refusal names the wire dtype and the backend.
+    kind, msg = got['backend']
+    assert kind == 'TypeError' and 'bfloat16' in msg and 'gloo' in msg, msg
+    # A failure that is not about the dtype comes out as it was raised.
+    assert got['timeout'] == ('DistBackendError', 'Timed out waiting 1000ms '
+                              'for recv operation to complete'), got
+    assert got['peer'] == ('RuntimeError', 'Connection reset by peer'), got
+
+
+@pytest.mark.parametrize('name,want', [
+    (None, None), ('', None), ('float32', None), (torch.float32, None),
+    ('bfloat16', torch.bfloat16), (torch.bfloat16, torch.bfloat16),
+    ('float16', torch.float16), (torch.float16, torch.float16)])
+def test_wire_dtype_of_takes_the_three_wires(name, want):
+  assert collective.wire_dtype_of(name) is want
+
+
+@pytest.mark.parametrize('name', ['float64', torch.float64, REFUSED,
+                                  'int32', 'float', 'bf16'])
+def test_wire_dtype_of_refuses_every_other_dtype(name):
+  with pytest.raises(ValueError, match='is not one of'):
+    collective.wire_dtype_of(name)
 
 
 @pytest.mark.timeout(LAUNCH_S + 60)

@@ -63,8 +63,8 @@ def collectives(ctx, spec):
 
 def wire(ctx, spec):
   """Each cast collective at each wire dtype of ``spec['wires']`` on the
-  rank's row of the test's global payloads; and, for a dtype the backend
-  refuses, the message it raises."""
+  rank's row of the test's global payloads; and what each of
+  ``_refusals`` raises, its class's name and its message."""
   r = ctx.rank
   x = torch.from_numpy(spec['x'][r])
   out = {}
@@ -81,12 +81,36 @@ def wire(ctx, spec):
         'ints': collective.alltoall(
             torch.arange(2 * ctx.world_size, dtype=torch.int32) + 100 * r,
             ctx=ctx, wire_dtype=w)}.items()}
-  try:
-    collective.allreduce(x, ctx=ctx, wire_dtype=spec['refused'])
-    out['refused'] = None
-  except TypeError as e:
-    out['refused'] = str(e)
+  out['refused'] = {}
+  for case, run in _refusals(x, ctx, spec['refused']).items():
+    try:
+      run()
+      out['refused'][case] = None
+    except Exception as e:  # what each raises is the result
+      out['refused'][case] = (type(e).__name__, str(e))
   return out
+
+
+def _refusals(x, ctx, refused):
+  """The failures a cast collective meets, each a call: a wire dtype
+  that is not a 16-bit float (``refused``, and float64, which would
+  widen the wire), the backend refusing the wire dtype (its call raising
+  gloo's own words for a dtype it refuses, "Invalid scalar type"), and a
+  backend failure that is not about the dtype (a ``DistBackendError``,
+  as a timeout raises, and a plain ``RuntimeError`` from a lost peer)."""
+  def raising(error):
+    def call(v):
+      raise error
+    return lambda: collective._on_wire(x, 'bfloat16', 'allreduce',
+                                       call)
+  return {
+      'name': lambda: collective.allreduce(x, ctx=ctx, wire_dtype=refused),
+      'wider': lambda: collective.allreduce(x, ctx=ctx,
+                                            wire_dtype='float64'),
+      'backend': raising(RuntimeError('Invalid scalar type')),
+      'timeout': raising(torch.distributed.DistBackendError(
+          'Timed out waiting 1000ms for recv operation to complete')),
+      'peer': raising(RuntimeError('Connection reset by peer'))}
 
 
 def lookups(ctx, spec):
