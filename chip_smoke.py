@@ -240,6 +240,28 @@ Phases; any failure raises and the script exits nonzero:
      before it, against its plain version on the CPU at phase 1's
      tolerances. Then 10 timed steps of each step case (gloo ranks
      sharing one card: not a multi-GPU number).
+ 34. the trainers at a world of 2 gloo ranks sharing the card (one launch,
+     ``chip_smoke.py --rank-of DIR`` with ``{"phase": 34}``): the flagship
+     DCNv2 + Adagrad ``SparseTrainer`` on its row-sharded stack, 8 steps of
+     the harness's seeded batches (with a group column) through
+     ``DeviceIterator``, a checkpoint at step 4; ``evaluate`` over 3 eval
+     batches, the last 1000 rows on rank 0 alone (rank 1 has run out); an
+     export; then the dense ``Trainer`` with its 26 tables row-sharded, 3
+     steps. Against the world of one on the card, each step from rank 0's
+     tower: each loss to 1e-6 relative, the tower by phase 18's rule, the
+     gathered table and accumulators to 1e-7 at steps 4 and 8 (the dense
+     tables and accumulators after 3 steps); the world's step-4 checkpoint
+     restored at a world of one bit for bit, and steps 5-8 on from it;
+     the evaluation by ``metrics.auc_limit`` and ``_gauc_limit`` (the
+     same state, predictions apart by the GEMMs' row blocks) and its loss
+     to 1e-5; the world's bundle served cold in this process within 1e-6
+     of the world of one's predictions, through kernel 5. Every rank
+     reports the same losses and evaluation and holds rank 0's replicated
+     parameters bit for bit; kernel 1 runs once a step on every rank and
+     again on each rank's last received list against its plain version.
+     Meanwhile this process runs the ``SparseTrainer`` in a joined NCCL
+     world of one (2 steps, checkpoints, an evaluation) against the same
+     trainer in no world, bit for bit.
 With ``--profile`` it then traces 10 steps of each timed variant and of
 the DIN harness's ``--sparse`` step with and without sessions with
 ``torch.profiler`` and prints device time per step by kernel class; in
@@ -254,8 +276,8 @@ The run's wall time is printed before the last two lines. The
 second-to-last line is a JSON object describing each kernel (its times,
 launches on its path, in the trainers' runs, in the runs from Parquet
 files, in the served predicts, in the DIN phases, in the host-table
-phases, in the pipelining phases and in phase 33's ranks (phase 32's
-cases, then the others),
+phases, in the pipelining phases, in phase 33's ranks (phase 32's
+cases, then the others) and in phase 34's worlds,
 and its bound: the
 larger of its bytes over 3.35 TB/s and its operations over the card's
 peak rate); the last line is
@@ -4950,6 +4972,479 @@ def phase33_every_step(dev, smi):
   return sharded, launches
 
 
+PHASE34_WORLD = 2           # the gloo ranks sharing the card
+PHASE34_STEPS = 8           # SparseTrainer's steps, a checkpoint at
+PHASE34_SAVE = 4            # this step (and at the end)
+PHASE34_DENSE_STEPS = 3     # the dense Trainer's steps
+PHASE34_SHORT = 1000        # rows of the last eval batch, rank 0's alone
+                            # (at most half a rank's rows)
+PHASE34_NCCL_STEPS = 2      # the NCCL world of one's SparseTrainer steps
+PHASE34_SEED = tb.SEED + 34
+PHASE34_LAUNCH_S = 600
+PHASE34_GROUPS = 256        # GAUC's groups: the c1 id modulo this
+PHASE34_TOL = dict(loss=1e-6, state=1e-7, served=1e-6, eval_loss=1e-5)
+
+
+def _phase34_batch(cfg, seed, rows=slice(None), i=0):
+  """The harness's seeded batch of ``seed`` moved by ``i`` (``shifted``),
+  of ``rows``, as host tensors, with the group column ``g``."""
+  base, ids = tb.make_batch(cfg, torch.device('cpu'), seed, rows=rows)
+  b = {k: v.contiguous() for k, v in tb.shifted(base, ids, cfg.vocab,
+                                                 i).items()}
+  b['g'] = b['c1'] % PHASE34_GROUPS
+  return b
+
+
+def _phase34_train(cfg, rows=slice(None)):
+  return [_phase34_batch(cfg, PHASE34_SEED, rows, i)
+          for i in range(PHASE34_STEPS)]
+
+
+def _phase34_evals(cfg, world):
+  """Each rank's eval batches: two of the global batch's rows each, then
+  ``PHASE34_SHORT`` rows on rank 0 alone (the others have run out)."""
+  per = cfg.batch // world
+  short = min(PHASE34_SHORT, per // 2)
+  out = []
+  for r in range(world):
+    own = [_phase34_batch(cfg, PHASE34_SEED + 100 + k,
+                          slice(r * per, (r + 1) * per)) for k in range(2)]
+    if r == 0:
+      own.append(_phase34_batch(cfg, PHASE34_SEED + 102, slice(0, short)))
+    out.append(own)
+  return out
+
+
+def _phase34_global_evals(evals):
+  """The global eval batches: each step's ranks' batches in rank order."""
+  steps = max(len(e) for e in evals)
+  return [{k: torch.cat([e[s][k] for e in evals if s < len(e)])
+           for k in evals[0][0]} for s in range(steps)]
+
+
+def _net_values(net, opt):
+  """``net``'s weights and Adam's ``(exp_avg, exp_avg_sq, step)``, CPU
+  copies by name (``_tower_values`` of any tower and optimizer)."""
+  state = opt.state
+  return {n: (p.detach().cpu().clone(), state[p]['exp_avg'].cpu().clone(),
+              state[p]['exp_avg_sq'].cpu().clone(), float(state[p]['step']))
+          for n, p in net.named_parameters()}
+
+
+def _load_net(net, opt, values):
+  """``values`` (``_net_values``) into ``net`` and its Adam, in place."""
+  state = opt.state
+  with torch.no_grad():
+    for n, p in net.named_parameters():
+      w, m, v, t = values[n]
+      p.copy_(w)
+      state[p]['exp_avg'].copy_(m)
+      state[p]['exp_avg_sq'].copy_(v)
+      state[p]['step'].fill_(t)
+
+
+def _phase34_trainer(cfg, dev, ctx=None, model_dir=None):
+  """The flagship DCNv2 + Adagrad ``SparseTrainer`` of the harness's
+  weights, with GAUC over ``g``; in the world ``ctx``, its shards."""
+  import hybridbackend_tpu_torch as hbt
+  fx, tables, tower, model_loss = tb.sparse_parts(cfg, dev, ctx)
+  return fx, hbt.SparseTrainer(
+      fx, model_loss, tower, tables=tables,
+      dense_optimizer=functools.partial(torch.optim.Adam, lr=tb.TOWER_LR),
+      table_lr=tb.TABLE_LR, adagrad_init=tb.ADAGRAD_INIT,
+      model_dir=model_dir, group_key='g')
+
+
+def _sparse_state(fx, tr):
+  """The trainer's tables, accumulators (gathered whole) and tower, on
+  the CPU (a collective in a world)."""
+  import hybridbackend_tpu_torch as hbt
+  (name,) = tr.state.tables
+  return {'table': hbt.gather_tables(fx, tr.state.tables)[name].cpu(),
+          'acc': hbt.gather_slots(fx, tr.state.table_opt)[name][0].cpu(),
+          'tower': _tower_values(tr.state)}
+
+
+def _dense_state(module, optimizer, ctx):
+  """The dense Trainer's tables and Adagrad accumulators (gathered whole
+  in a world), on the CPU, and its tower with Adam's moments."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.distribute import collective
+  out = {'tables': {}, 'acc': {}}
+  for name, t in module['tables'].items():
+    acc = optimizer.state[t]['sum_of_squares']
+    if hbt.table_shard(t) is not None:
+      t, acc = (collective.allgather(x.detach(), ctx=ctx) for x in (t, acc))
+    out['tables'][name] = t.detach().cpu()
+    out['acc'][name] = acc.cpu()
+  out['tower'] = _net_values(module['net'], optimizer)
+  return out
+
+
+def phase34_rank(out, device, spec):
+  """One rank of phase 34 (``chip_smoke.py --rank-of DIR`` with
+  ``{"phase": 34}``): the flagship ``SparseTrainer`` on its shards, 8
+  steps through ``DeviceIterator`` with a checkpoint at step 4 into
+  ``DIR/ckpt``, each step's loss, rank 0's tower after each, the last
+  step's update calls held on the rank's received lists; ``evaluate``
+  and ``predict`` on its eval batches; the export into ``DIR/bundle``;
+  then the dense ``Trainer`` with row-sharded tables, 3 steps. Rank 0
+  writes the gathered states at steps 4 and 8 and after the dense steps,
+  and every rank its record, to ``DIR/34.<rank>.pt``."""
+  import hybridbackend_tpu_torch as hbt
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  ctx = hbt.Context.join(device)
+  try:
+    dev, cfg = ctx.device, flagship(*spec['flags'])
+    fx, tr = _phase34_trainer(cfg, dev, ctx, os.path.join(out, 'ckpt'))
+    rec = {'loss': [], 'tower': [], 'dense_loss': [], 'dense_tower': []}
+
+    class _Record(hbt.Hook):
+      def before_step(self, step):
+        capture.armed = step == PHASE34_STEPS - 1
+
+      def after_step(self, step, metrics):
+        capture.armed = False
+        rec['loss'].append(float(metrics['loss']))
+        if ctx.rank == 0:
+          rec['tower'].append(_tower_values(tr.state))
+        if step in (PHASE34_SAVE, PHASE34_STEPS):
+          state = _sparse_state(fx, tr)
+          if ctx.rank == 0:
+            torch.save(state, os.path.join(out, f'state{step}.pt'))
+
+    with _ListCapture() as capture:
+      _reset_counts()
+      tr.train(_phase34_train(cfg, ctx.rows(cfg.batch)), hooks=[_Record()],
+               prefetch=True, save_checkpoint_steps=PHASE34_SAVE)
+      if dev.type == 'cuda':
+        torch.cuda.synchronize(dev)
+      rec['counts'] = _counts()
+      rec['lists'] = _hold_lists(capture.take())
+    evals = _phase34_evals(cfg, ctx.world_size)[ctx.rank]
+    rec['eval'] = tr.evaluate(evals, prefetch=True)
+    rec['preds'] = [p.cpu() for p in tr.predict(evals, prefetch=True)]
+    rec['tower_equal'] = _ranks_agree(
+        ctx, [p for p in tr.state.dense.parameters()])
+    t0 = time.perf_counter()
+    tr.export_saved_model(os.path.join(out, 'bundle'), {
+        k: v[:8] for k, v in evals[0].items()}, poly_batch=True)
+    rec['export_s'] = time.perf_counter() - t0
+    del tr, fx
+    loss_fn, module, optimizer = tb.dense_parts(cfg, dev, ctx)
+    dtr = hbt.Trainer(loss_fn, module, optimizer, ctx=ctx)
+
+    class _DenseRecord(hbt.Hook):
+      def after_step(self, step, metrics):
+        rec['dense_loss'].append(float(metrics['loss']))
+        if ctx.rank == 0:
+          rec['dense_tower'].append(_net_values(module['net'], optimizer))
+
+    dtr.train(_phase34_train(cfg, ctx.rows(cfg.batch))[:PHASE34_DENSE_STEPS],
+              hooks=[_DenseRecord()])
+    rec['dense_sharded'] = sum(hbt.table_shard(t) is not None
+                               for t in module['tables'].values())
+    rec['dense_tower_equal'] = _ranks_agree(
+        ctx, [p for p in module.parameters() if hbt.table_shard(p) is None])
+    state = _dense_state(module, optimizer, ctx)
+    if ctx.rank == 0:
+      torch.save(state, os.path.join(out, 'dense_state.pt'))
+    rec['device'] = str(dev)
+    rec['backend'] = torch.distributed.get_backend()
+    torch.save(rec, os.path.join(out, f'34.{ctx.rank}.pt'))
+  finally:
+    ctx.leave()
+  return 0
+
+
+def _ranks_agree(ctx, tensors):
+  """Whether every rank holds rank 0's ``tensors``, bit for bit."""
+  import hybridbackend_tpu_torch as hbt
+  flat = torch.cat([t.detach().reshape(-1) for t in tensors])
+  return bool(torch.equal(flat, hbt.distribute.broadcast(flat, 0, ctx=ctx)))
+
+
+def _close34(label, got, want, tol, report, key):
+  err = float((got.float() - want.float()).abs().max())
+  report[key] = max(report.get(key, 0.0), err)
+  if err > tol:
+    raise AssertionError(f'{label}: {err} apart, more than {tol}')
+
+
+def _hold_step34(label, tr, batch, before, after, rank_loss, report,
+                 apart_in):
+  """One world-of-one step of ``tr`` from rank 0's tower (and Adam's
+  moments) ``before``, against the world's loss and rank 0's tower
+  ``after``: the loss to 1e-6 relative, the tower by phase 18's rule
+  (``_hold_tower``, the world's rank 0 on the card's side of it)."""
+  from hybridbackend_tpu_torch.training.optimizer import init_state
+  state = tr.state
+  init_state(state.dense_opt)
+  _load_net(state.dense, state.dense_opt, before)
+  one = tr.train(iter([batch]))['loss']
+  rel = abs(rank_loss - one) / abs(one)
+  report['loss_rel_err'] = max(report['loss_rel_err'], rel)
+  if rel > PHASE34_TOL['loss']:
+    raise AssertionError(f'{label}: loss {rank_loss}, a world of one {one}')
+  group = state.dense_opt.param_groups[0]
+  adam = (group['lr'], *group['betas'], group['eps'])
+  names = [n for n, _ in state.dense.named_parameters()]
+  nets = []
+  for values in (after, _tower_values(state)):
+    net = tb._tower(flagship(*SHARDED_FLAGS), torch.device('cpu'),
+                    torch.Generator())[0]
+    opt = {}
+    with torch.no_grad():
+      for n, p in net.named_parameters():
+        w, m, v, t = values[n]
+        p.copy_(w)
+        opt[p] = {'exp_avg': m, 'exp_avg_sq': v, 'step': torch.tensor(t)}
+    nets.append((net, opt))
+  (g_net, g_opt), (c_net, c_opt) = nets
+  _hold_tower(label, g_net, c_net, g_opt, c_opt,
+              [before[n][:2] for n in names], [before[n][2] for n in names],
+              adam, report, apart_in)
+  either_sign = (max(report['their_largest_grad_of_max_card'],
+                     report['their_largest_grad_of_max_cpu']) <= 1e-3
+                 and report['tower_max_abs_err'] <= 2.2 * adam[0])
+  if report['tower_weights_over_1e-4_apart'] and not either_sign:
+    raise AssertionError(f'{label}: tower weights over 1e-4 apart: '
+                         f'{report} in {sorted(apart_in)}')
+
+
+def _phase34_nccl(cfg, dev, tmp):
+  """The flagship ``SparseTrainer`` in a joined world of one on NCCL (on
+  the CPU rehearsal, gloo): 2 steps, a checkpoint, an evaluation; its
+  losses against the same trainer in no world, bit for bit, and kernel
+  1's launches."""
+  import hybridbackend_tpu_torch as hbt
+  backend = 'nccl' if dev.type == 'cuda' else 'gloo'
+  batches = _phase34_train(cfg)[:PHASE34_NCCL_STEPS]
+  evals = _phase34_global_evals(_phase34_evals(cfg, 1))
+  plain = _phase34_trainer(cfg, dev)[1]
+  want = [plain.train(iter([b]))['loss'] for b in batches]
+  want_eval = plain.evaluate(evals)
+  del plain
+  ctx = hbt.Context.join(str(dev), backend, rank=0, world_size=1,
+                         init_method=f'file://{tmp}/store', timeout_s=120)
+  try:
+    _, tr = _phase34_trainer(cfg, ctx.device, ctx, os.path.join(tmp, 'nccl'))
+    _reset_counts()
+    got = [tr.train(iter([b]))['loss'] for b in batches]
+    if dev.type == 'cuda':
+      torch.cuda.synchronize(dev)
+    counts = _counts()
+    got_eval = tr.evaluate(evals)
+    steps = tr._ckpt.all_steps()
+  finally:
+    ctx.leave()
+  _expect('phase 34, the NCCL world of one', counts,
+          adagrad_update_sorted=PHASE34_NCCL_STEPS)
+  if got != want or got_eval != want_eval or steps != [1, 2]:
+    raise AssertionError(f'phase 34, the {backend} world of one: losses '
+                         f'{got} against {want}, eval {got_eval} against '
+                         f'{want_eval}, checkpoints {steps}')
+  return backend, counts, got
+
+
+def phase34_trainers(dev, smi):
+  """Phase 34: the trainers at a world of N (see the module docstring).
+  Returns the kernel launches of the world's runs: the ranks' training
+  steps, the NCCL world of one's, and the served bundle's predicts."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch import metrics as hbm
+  t_phase = time.perf_counter()
+  cfg = flagship(*SHARDED_FLAGS)
+  launches = collections.Counter()
+  report = {'loss_rel_err': 0.0, **_tower_report()}
+  apart_in = set()
+  with tempfile.TemporaryDirectory() as out:
+    cmd = [sys.executable, '-m', 'hybridbackend_tpu_torch.run', '--simulate',
+           str(PHASE34_WORLD), '--device', SHARDED_DEVICE, '--timeout',
+           str(PHASE34_LAUNCH_S), os.path.join(HERE, 'chip_smoke.py'),
+           '--rank-of', out, '--rank-device', SHARDED_DEVICE,
+           '--rank-flags', json.dumps(dict(phase=34,
+                                           flags=list(SHARDED_FLAGS)))]
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    # The NCCL world of one meanwhile, in this process.
+    try:
+      backend, counts, nccl_losses = _phase34_nccl(cfg, dev, out)
+    finally:
+      stdout, stderr = proc.communicate(timeout=PHASE34_LAUNCH_S + 60)
+    launch_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+      raise RuntimeError(f'phase 34: the world of {PHASE34_WORLD} exited '
+                         f'{proc.returncode}:\n{stderr[-4000:]}')
+    launches.update(counts)
+    ranks = [torch.load(os.path.join(out, f'34.{r}.pt'))
+             for r in range(PHASE34_WORLD)]
+    t0 = time.perf_counter()
+    for r, rec in enumerate(ranks):
+      _expect(f'phase 34, rank {r}', rec['counts'],
+              adagrad_update_sorted=PHASE34_STEPS)
+      launches.update(rec['counts'])
+      for held in rec['lists']:
+        _expect(f'phase 34, rank {r}, its received list', held['counts'],
+                **{held['kernel']: 1})
+        if held['problem']:
+          raise AssertionError(f'phase 34, rank {r}: {held}')
+      if not (rec['tower_equal'] and rec['dense_tower_equal']):
+        raise AssertionError(f'phase 34: rank {r}\'s replicated parameters '
+                             'are not rank 0\'s')
+      for key in ('loss', 'dense_loss', 'eval'):
+        if rec[key] != ranks[0][key]:
+          raise AssertionError(f'phase 34: the ranks report {key} '
+                               f'{rec[key]} and {ranks[0][key]}')
+      if rec['dense_sharded'] != cfg.tables:
+        raise AssertionError(f'phase 34: {rec["dense_sharded"]} of the '
+                             'dense tables are row-sharded')
+    rec0 = ranks[0]
+    train = _phase34_train(cfg)
+    # Steps 1-4: the world of one from the seed, each step from rank 0's
+    # tower; its state at step 4 against the world's.
+    init = _phase34_trainer(cfg, dev)[1]
+    initial = _tower_values(init.state)
+    for i in range(PHASE34_SAVE):
+      before = initial if i == 0 else rec0['tower'][i - 1]
+      _hold_step34(f'phase 34, step {i + 1}', init, train[i], before,
+                   rec0['tower'][i], rec0['loss'][i], report, apart_in)
+    state4 = torch.load(os.path.join(out, f'state{PHASE34_SAVE}.pt'))
+    (name,) = init.state.tables
+    _close34('phase 34, step 4, table', init.state.tables[name].cpu(),
+             state4['table'], PHASE34_TOL['state'], report, 'table_err')
+    _close34('phase 34, step 4, accumulator',
+             init.state.table_opt[name].acc[0].cpu(), state4['acc'],
+             PHASE34_TOL['state'], report, 'acc_err')
+    del init
+    # The world's checkpoint of step 4 restored at a world of one, bit for
+    # bit; steps 5-8 from it against the world's.
+    ckpt = os.path.join(out, 'one')
+    os.makedirs(ckpt)
+    shutil.copytree(os.path.join(out, 'ckpt', f'checkpoint-{PHASE34_SAVE}'),
+                    os.path.join(ckpt, f'checkpoint-{PHASE34_SAVE}'))
+    _, tr = _phase34_trainer(cfg, dev, model_dir=ckpt)
+    restored = {'table': tr.state.tables[name].cpu(),
+                'acc': tr.state.table_opt[name].acc[0].cpu(),
+                'tower': _tower_values(tr.state)}
+    bitwise = (tr.global_step == PHASE34_SAVE
+               and torch.equal(restored['table'], state4['table'])
+               and torch.equal(restored['acc'], state4['acc'])
+               and all(all(torch.equal(a, b) if isinstance(a, torch.Tensor)
+                           else a == b for a, b in zip(v, state4['tower'][n]))
+                       for n, v in restored['tower'].items()))
+    if not bitwise:
+      raise AssertionError('phase 34: the checkpoint of step 4 restored at a '
+                           'world of one is not the world\'s state')
+    tr._ckpt = None          # the copy is the world's, not this run's
+    for i in range(PHASE34_SAVE, PHASE34_STEPS):
+      _hold_step34(f'phase 34, step {i + 1}', tr, train[i],
+                   rec0['tower'][i - 1], rec0['tower'][i], rec0['loss'][i],
+                   report, apart_in)
+    state8 = torch.load(os.path.join(out, f'state{PHASE34_STEPS}.pt'))
+    _close34('phase 34, step 8, table', tr.state.tables[name].cpu(),
+             state8['table'], PHASE34_TOL['state'], report, 'table_err')
+    _close34('phase 34, step 8, accumulator',
+             tr.state.table_opt[name].acc[0].cpu(), state8['acc'],
+             PHASE34_TOL['state'], report, 'acc_err')
+    # Evaluation: the world of one from rank 0's last tower, on the global
+    # eval batches, against every rank's result.
+    _load_net(tr.state.dense, tr.state.dense_opt, rec0['tower'][-1])
+    evals = _phase34_global_evals(_phase34_evals(cfg, PHASE34_WORLD))
+    one_eval = tr.evaluate(evals)
+    one_preds = torch.cat([p.cpu().reshape(-1) for p in tr.predict(evals)])
+    per_rank = [[p.reshape(-1) for p in rec['preds']] for rec in ranks]
+    world_preds = torch.cat([p for s in range(len(evals))
+                             for p in (r[s] for r in per_rank if s < len(r))])
+    labels = torch.cat([b['label'] for b in evals])
+    groups = torch.cat([b['g'] for b in evals])
+    auc_lim, _, gap = hbm.auc_limit(world_preds, one_preds, labels)
+    gauc_lim, _ = _gauc_limit(world_preds, one_preds, labels, groups,
+                              cfg.batch)
+    got = rec0['eval']
+    eval_err = {'auc': abs(got['auc'] - one_eval['auc']),
+                'gauc': abs(got['gauc'] - one_eval['gauc']),
+                'loss': abs(got['loss'] - one_eval['loss']) / one_eval['loss']}
+    if (eval_err['auc'] > auc_lim or eval_err['gauc'] > gauc_lim
+        or eval_err['loss'] > PHASE34_TOL['eval_loss']
+        or got['batches'] != one_eval['batches'] != len(evals)):
+      raise AssertionError(f'phase 34: the world evaluates {got}, a world of '
+                           f'one {one_eval} (AUC limit {auc_lim}, GAUC '
+                           f'limit {gauc_lim})')
+    # The world's bundle, loaded cold, against the world of one.
+    served = hbt.Served(os.path.join(out, 'bundle'), dev)
+    _reset_counts()
+    served_preds = torch.cat([torch.from_numpy(np.asarray(served.predict(
+        {k: v.numpy() for k, v in b.items()})).reshape(-1)) for b in evals])
+    if dev.type == 'cuda':
+      torch.cuda.synchronize(dev)
+    counts = _counts()
+    _expect('phase 34, the served bundle', counts,
+            gather_rows=cfg.tables * len(evals))
+    launches.update(counts)
+    _close34('phase 34, served', served_preds, one_preds,
+             PHASE34_TOL['served'], report, 'served_err')
+    del tr, served
+    # The dense Trainer: the world of one's 3 steps, each from rank 0's
+    # tower, against the world's losses and gathered tables.
+    loss_fn, module, optimizer = tb.dense_parts(cfg, dev)
+    dtr = hbt.Trainer(loss_fn, module, optimizer, ctx=hbt.Context(dev))
+    dense_report = {'loss_rel_err': 0.0}
+    initial = _net_values(module['net'], optimizer)
+    for i in range(PHASE34_DENSE_STEPS):
+      _load_net(module['net'], optimizer,
+                initial if i == 0 else rec0['dense_tower'][i - 1])
+      one = dtr.train(iter([train[i]]))['loss']
+      rel = abs(rec0['dense_loss'][i] - one) / abs(one)
+      dense_report['loss_rel_err'] = max(dense_report['loss_rel_err'], rel)
+      if rel > PHASE34_TOL['loss']:
+        raise AssertionError(f'phase 34, dense step {i + 1}: loss '
+                             f'{rec0["dense_loss"][i]}, a world of one {one}')
+    dense = torch.load(os.path.join(out, 'dense_state.pt'))
+    one_dense = _dense_state(module, optimizer, None)
+    for key in ('tables', 'acc'):
+      for n, t in one_dense[key].items():
+        _close34(f'phase 34, dense {key} {n}', t, dense[key][n],
+                 PHASE34_TOL['state'], dense_report, f'{key}_err')
+    del dtr, module, optimizer
+    check_s = time.perf_counter() - t0
+  lists = [(h['kernel'], h['entries'], h['pad'], h['err'])
+           for rec in ranks for h in rec['lists']]
+  print(f'phase 34 (the trainers at a world of {PHASE34_WORLD}, gloo ranks '
+        f'sharing the card, against the world of one on it, each step from '
+        f'rank 0\'s tower): SparseTrainer {PHASE34_STEPS} steps through '
+        'DeviceIterator, a checkpoint at step '
+        f'{PHASE34_SAVE}: ' + ', '.join(
+            f'{k} {v:.3e}' if isinstance(v, float) else f'{k} {v}'
+            for k, v in report.items())
+        + f' (in {", ".join(sorted(apart_in)) or "none"}); the step-'
+        f'{PHASE34_SAVE} checkpoint restored at a world of one bit for bit, '
+        f'steps {PHASE34_SAVE + 1}-{PHASE34_STEPS} on from it; kernel 1 '
+        f'{PHASE34_STEPS} times on each rank, on the last step\'s received '
+        f'lists (kernel, entries, -1 lanes, max abs err) {lists}')
+  print(f'phase 34: evaluate ({len(evals)} batches, the last '
+        f'{len(evals[-1]["label"])} rows on rank 0 alone): the world {got}, '
+        f'a world of one {one_eval}; '
+        f'|AUC| {eval_err["auc"]:.3e} (limit {auc_lim:.3e}, predictions '
+        f'{gap:.3e} apart), |GAUC| {eval_err["gauc"]:.3e} (limit '
+        f'{gauc_lim:.3e}), loss {eval_err["loss"]:.3e} relative; the '
+        f'world\'s bundle (export {rec0["export_s"]:.1f} s on rank 0) served '
+        f'cold: {report["served_err"]:.3e} from the world of one\'s '
+        f'predictions, kernel 5 {cfg.tables * len(evals)} times')
+  print(f'phase 34: the dense Trainer, {cfg.tables} row-sharded tables, '
+        f'{PHASE34_DENSE_STEPS} steps against the world of one: ' + ', '.join(
+            f'{k} {v:.3e}' for k, v in dense_report.items())
+        + '; every rank\'s replicated parameters rank 0\'s, bit for bit '
+        f'(both trainers); the {backend} world of one\'s SparseTrainer, '
+        f'{PHASE34_NCCL_STEPS} steps: losses {nccl_losses}, bit for bit '
+        f'those of no world; launch {launch_s:.1f} s, checks '
+        f'{check_s:.1f} s, phase {time.perf_counter() - t_phase:.1f} s '
+        f'on {smi}')
+  return launches
+
+
 _LAST_MARK = [time.perf_counter()]
 
 
@@ -4970,8 +5465,8 @@ def main() -> int:
                       'sizes, and kernels 1 and 3 over tile sizes and state '
                       'batches')
   parser.add_argument('--rank-of', metavar='DIR',
-                      help='run as one rank of phase 33 under the port\'s '
-                      'launcher, writing to DIR')
+                      help='run as one rank of phase 33 (or 34) under the '
+                      'port\'s launcher, writing to DIR')
   parser.add_argument('--rank-device', default='cuda',
                       help='that rank\'s device')
   parser.add_argument('--rank-flags', default='{}',
@@ -4979,8 +5474,9 @@ def main() -> int:
                       'phase33_rank)')
   args = parser.parse_args()
   if args.rank_of:
-    return phase33_rank(args.rank_of, args.rank_device,
-                        json.loads(args.rank_flags))
+    spec = json.loads(args.rank_flags)
+    rank = phase34_rank if spec.get('phase') == 34 else phase33_rank
+    return rank(args.rank_of, args.rank_device, spec)
   t_start = time.perf_counter()
   _LAST_MARK[0] = t_start
   if not torch.cuda.is_available():
@@ -5098,6 +5594,8 @@ def main() -> int:
   phase32_sharded(dev, smi)
   sharded_launches, every_step_launches = phase33_every_step(dev, smi)
   _mark('phases 32-33')
+  trainers_n_launches = phase34_trainers(dev, smi)
+  _mark('phase 34')
   if args.profile:
     batch = functools.partial(tb.shifted, *tb.make_batch(cfg, dev),
                               cfg.vocab)
@@ -5161,6 +5659,13 @@ def main() -> int:
                  # summed over the ranks (the timed steps and the checks
                  # on the received lists not counted).
                  'every_step_launches': (every_step_launches[name]
+                                         if name in tb.COUNTED else None),
+                 # Launches in phase 34: the world's SparseTrainer steps
+                 # summed over its ranks, the NCCL world of one's steps,
+                 # and the served predicts of the world's bundle (the
+                 # checks on the received lists and the world of one's
+                 # steps not counted).
+                 'trainers_n_launches': (trainers_n_launches[name]
                                          if name in tb.COUNTED else None)})
   print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s wall, every '
         'phase')

@@ -52,7 +52,13 @@ tested against. It imports ``torch`` and never ``jax``, and nothing from
   update routed to each row's owner and applied there through the
   update's kernel, f32 or bf16 tables, both model hooks, the tower
   data-parallel, and the lookup's rows and the gradients cast to bf16 or
-  fp16 on the wire when asked.
+  fp16 on the wire when asked; both trainers there (``SparseTrainer`` on
+  row-sharded stacks, the dense ``Trainer`` data-parallel with
+  row-sharded tables through the differentiable sharded lookup), with
+  replica-synchronized stopping and padding (``SyncReplicasIterator``),
+  exact eval metrics across the ranks, checkpoints that each rank writes
+  its rows of and any world restores, and the export of an unsharded
+  bundle.
 
 Kernels and the native libraries are built at first use, never at
 import.
@@ -86,7 +92,7 @@ from hybridbackend_tpu_torch.embedding.stack import (
     TableStack, build_stacks, create_stacked_tables, member_tables,
     pack_ids, unpack_embeddings)
 from hybridbackend_tpu_torch.embedding.table import (
-    TableConfig, create_table, default_initializer)
+    TableConfig, TableShard, create_table, default_initializer, table_shard)
 from hybridbackend_tpu_torch.estimator import SparseTrainer, Trainer
 from hybridbackend_tpu_torch.framework.context import Context
 from hybridbackend_tpu_torch.models.feature import (
@@ -108,7 +114,8 @@ from hybridbackend_tpu_torch.ops.scatter import (
 from hybridbackend_tpu_torch.pipeline import (
     accumulate_gradients, make_interleaved_train_step,
     make_pipelined_train_step)
-from hybridbackend_tpu_torch.training.checkpoint import CheckpointManager
+from hybridbackend_tpu_torch.training.checkpoint import (
+    CheckpointManager, Shard)
 from hybridbackend_tpu_torch.training.hooks import (
     Hook, LoggingHook, Policy, StepStatHook)
 from hybridbackend_tpu_torch.training.optimizer import (

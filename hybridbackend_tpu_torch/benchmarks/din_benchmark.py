@@ -40,8 +40,10 @@ backend:
       hybridbackend_tpu_torch.benchmarks.din_benchmark --sparse \\
       --lookup alltoall --json
 
-The dense mode in a world of more than one rank is ROADMAP item 15b (5)
-and refused.
+The dense mode runs there too, data-parallel: both tables row-sharded
+and looked up through the differentiable sharded lookup, each rank on its
+rows of the global batch, with ``--gradient-wire-dtype`` (which falls
+back to f32 with row-sharded tables, as JAX's does).
 
 Timing is the train harness's (``train_benchmark.time_steps``): 3
 untimed steps, then ``--repeats`` windows of ``--inner-steps`` steps
@@ -112,13 +114,9 @@ def unsupported(args: argparse.Namespace) -> Optional[str]:
   """Why these flags cannot run, or None."""
   if args.sessions and args.hist % args.sessions:
     return '--hist must divide by --sessions'
-  if not args.sparse and (args.wire_dtype, args.gradient_wire_dtype) != (
-      'float32', 'float32'):
-    return ('a wire dtype applies to --sparse only: the dense step\'s wire '
-            'is ROADMAP item 15b (5)')
-  if tb.launched() and int(os.environ['WORLD_SIZE']) > 1 and not args.sparse:
-    return ('the dense mode in a world of more than one rank is ROADMAP '
-            'item 15b (5); pass --sparse')
+  if not args.sparse and args.wire_dtype != 'float32':
+    return ('--wire-dtype applies to the --sparse step\'s alltoall lookup '
+            'only')
   if torch.device(args.device).type == 'cuda' and (
       not torch.cuda.is_available()):
     return 'no CUDA device; pass --device cpu to run on the CPU'
@@ -197,7 +195,8 @@ def sparse_trainer(args: argparse.Namespace, device: torch.device,
 def build(args: argparse.Namespace, device: torch.device, ctx=None):
   """The state and the step of ``args`` on ``device``: the sparse step in
   raw mode with ``--sparse`` (in the world ``ctx``, with the exchange and
-  wire flags), the dense-gradient step without."""
+  wire flags), the dense-gradient step without (in the world ``ctx``,
+  data-parallel with row-sharded tables)."""
   import hybridbackend_tpu_torch as hbt
   if args.sparse:
     fx, tables, tower, raw_model_loss = sparse_parts(args, device, ctx=ctx)
@@ -212,21 +211,24 @@ def build(args: argparse.Namespace, device: torch.device, ctx=None):
   item, user = _configs(args)
   specs = [hbt.EmbeddingSpec(item), hbt.EmbeddingSpec(user)]
   gen = torch.Generator().manual_seed(tb.SEED)
-  module = nn.ModuleDict({'tables': hbt.init_tables(specs, gen, device),
+  module = nn.ModuleDict({'tables': hbt.init_tables(specs, gen, device, ctx),
                           'net': _tower(args, device, gen)})
   loss = din_loss(args)
 
   def loss_fn(m, batch):
     # The candidate and its history in one lookup of the item table.
     ids = torch.cat([batch['item'][:, None], batch['hist']], dim=1)
-    return loss(m['net'], hbt.lookup(m['tables']['item'], ids, item),
-                hbt.lookup(m['tables']['user'], batch['user'], user), batch)
+    return loss(m['net'],
+                hbt.lookup(m['tables']['item'], ids, item, ctx=ctx),
+                hbt.lookup(m['tables']['user'], batch['user'], user,
+                           ctx=ctx), batch)
 
   optimizer = hbt.multi_optimizer(
       functools.partial(hbt.Adagrad, lr=tb.TABLE_LR,
                         initial_accumulator_value=tb.ADAGRAD_INIT),
       functools.partial(torch.optim.Adam, lr=tb.TOWER_LR))(module)
-  return hbt.TrainState.create(module, optimizer), hbt.make_train_step(loss_fn)
+  return (hbt.TrainState.create(module, optimizer, ctx),
+          hbt.make_train_step(loss_fn, args.gradient_wire_dtype, ctx))
 
 
 def make_batch(args: argparse.Namespace, device: torch.device,

@@ -35,6 +35,12 @@ the alltoall lookup's returning rows and the gradients (the tower's
 all-reduce, the routed table gradients) on the wire, the counterparts of
 the JAX options ``HB_COMM_WIRE_DTYPE`` and ``HB_COMM_GRADIENT_WIRE_DTYPE``;
 at a world of one there is no wire and they change nothing, as in JAX.
+The dense mode runs there too: data-parallel, its tables row-sharded and
+looked up through the differentiable sharded lookup (``allgather``), each
+rank on its rows of the global batch. With row-sharded tables its
+``--gradient-wire-dtype`` falls back to f32, as JAX's does
+(``make_train_step``); ``--wire-dtype`` applies to the sparse step's
+alltoall lookup only.
 Gloo ranks that share one card (``--simulate N --device cuda``) check
 correctness only: their times say nothing of NCCL or of links between
 cards.
@@ -61,10 +67,10 @@ Refused, each with its reason: a host mesh in one process (``--cpu N``:
 the port's ranks are processes, started by the launcher);
 ``--no-dedup`` or ``--interleave`` without ``--sparse``, as both apply
 to the sparse step only; ``--no-dedup`` with ``--interleave``, as the
-JAX harness refuses it; a wire dtype without ``--sparse`` (the dense
-step's wire needs the dense step at a world of N, ROADMAP item 15b (5));
-in a world of more than one rank, the dense mode (15b (5)) and
-``--interleave`` (15b (7)).
+JAX harness refuses it; ``--wire-dtype`` without ``--sparse`` (the
+dense mode's lookups take the allgather exchange, whose rows travel at
+the table's precision); in a world of more than one rank,
+``--interleave`` (ROADMAP item 15b (7)).
 """
 
 from __future__ import annotations
@@ -149,22 +155,18 @@ def unsupported(args: argparse.Namespace) -> Optional[str]:
             'batches\' lookups beside the tower); pass --sparse')
   if args.interleave > 0 and args.no_dedup:
     return '--no-dedup is not supported with --interleave'
-  if not args.sparse and (args.wire_dtype, args.gradient_wire_dtype) != (
-      'float32', 'float32'):
-    return ('a wire dtype applies to the sparse step only: the dense '
-            'step\'s wire is ROADMAP item 15b (5); pass --sparse')
+  if not args.sparse and args.wire_dtype != 'float32':
+    return ('--wire-dtype applies to the sparse step\'s alltoall lookup '
+            'only; pass --sparse --lookup alltoall')
   if args.cpu:
     return ('--cpu N (a mesh of N host devices in one process) is not '
             'ported; start N ranks with python -m hybridbackend_tpu_torch.run '
             '--simulate N -m hybridbackend_tpu_torch.benchmarks.'
             'train_benchmark')
-  if launched() and int(os.environ['WORLD_SIZE']) > 1:
-    if not args.sparse:
-      return ('the dense mode in a world of more than one rank is ROADMAP '
-              'item 15b (5); pass --sparse')
-    if args.interleave > 0:
-      return ('--interleave in a world of more than one rank is ROADMAP '
-              'item 15b (7)')
+  if (launched() and int(os.environ['WORLD_SIZE']) > 1
+      and args.interleave > 0):
+    return ('--interleave in a world of more than one rank is ROADMAP '
+            'item 15b (7)')
   if torch.device(args.device).type == 'cuda' and (
       not torch.cuda.is_available()):
     return 'no CUDA device; pass --device cpu to run on the CPU'
@@ -253,22 +255,24 @@ def sparse_trainer(args: argparse.Namespace, device: torch.device,
       table_optimizer=table_optimizer, model_dir=model_dir)
 
 
-def dense_parts(args: argparse.Namespace, device: torch.device):
+def dense_parts(args: argparse.Namespace, device: torch.device, ctx=None):
   """``(loss_fn, module, optimizer)`` of the dense-gradient config
   ``args`` on ``device``, in the order ``Trainer`` takes them: the
   ``init_tables`` tables under ``tables``, the tower under ``net``, and
-  ``multi_optimizer(Adagrad, Adam)``; drawn on the CPU from ``SEED``."""
+  ``multi_optimizer(Adagrad, Adam)``; drawn on the CPU from ``SEED``. In
+  the world ``ctx``, the tables are this rank's shards and the loss
+  function looks them up across the world."""
   import hybridbackend_tpu_torch as hbt
   specs = _specs(args)
   dense_names = [f'i{d}' for d in range(args.dense_features)]
   gen = torch.Generator().manual_seed(SEED)
-  tables = hbt.init_tables(specs, gen, device)
+  tables = hbt.init_tables(specs, gen, device, ctx)
   tower, preds = _tower(args, device, gen)
   module = nn.ModuleDict({'tables': tables, 'net': tower})
 
   def loss_fn(m, batch):
     emb_f, dense_f = hbt.extract_features(m['tables'], batch, specs,
-                                          dense_names)
+                                          dense_names, ctx=ctx)
     return bce(preds(m['net'], emb_f, dense_f), batch['label'])
 
   optimizer = hbt.multi_optimizer(
@@ -291,9 +295,9 @@ def build(args: argparse.Namespace, device: torch.device,
   strategy is ``--lookup``."""
   import hybridbackend_tpu_torch as hbt
   if not args.sparse:
-    loss_fn, module, optimizer = dense_parts(args, device)
-    return (hbt.TrainState.create(module, optimizer),
-            hbt.make_train_step(loss_fn))
+    loss_fn, module, optimizer = dense_parts(args, device, ctx)
+    return (hbt.TrainState.create(module, optimizer, ctx),
+            hbt.make_train_step(loss_fn, args.gradient_wire_dtype, ctx))
   fx, tables, tower, model_loss = sparse_parts(args, device, ctx)
   state = hbt.SparseTrainState.create(
       tower, tables, functools.partial(torch.optim.Adam, lr=TOWER_LR),

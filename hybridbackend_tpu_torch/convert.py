@@ -268,7 +268,8 @@ def from_jax(fx: StackedFeatureExtractor, tables: Mapping[str, np.ndarray],
 def from_jax_dense(module: nn.Module, specs: Sequence[EmbeddingSpec],
                    params: Mapping[str, Any], optimizer, *, step: int = 0,
                    sum_of_squares: Optional[Mapping[str, np.ndarray]] = None,
-                   adam: Optional[AdamState] = None) -> TrainState:
+                   adam: Optional[AdamState] = None,
+                   ctx: Optional[Context] = None) -> TrainState:
   """The port's dense-path state from a JAX ``TrainState`` given as
   numpy.
 
@@ -286,19 +287,23 @@ def from_jax_dense(module: nn.Module, specs: Sequence[EmbeddingSpec],
       array}``, into the port's ``Adagrad``.
     adam: optax Adam's ``(mu, nu, count)`` of the tower, ``mu`` and
       ``nu`` shaped as ``params['net']``.
+    ctx: the world of ``module``'s tables (``init_tables(..., ctx=ctx)``):
+      each rank passes the JAX state's global arrays, made on a mesh of as
+      many devices, and keeps its rows of each sharded table and
+      accumulator.
   """
   tables = module.tables
   configs = {s.name: s.config for s in specs}
   with torch.no_grad():
     for name, arr in params['tables'].items():
       tables[name].copy_(_logical_table(arr, configs[name],
-                                        tables[name].device, name))
+                                        tables[name].device, name, ctx))
   _load_tower(module.net, params['net'])
-  state = TrainState.create(module, optimizer)
+  state = TrainState.create(module, optimizer, ctx)
   with torch.no_grad():
     for name, arr in (sum_of_squares or {}).items():
       acc = state.optimizer.state[tables[name]]['sum_of_squares']
-      acc.copy_(_logical_table(arr, configs[name], acc.device, name))
+      acc.copy_(_logical_table(arr, configs[name], acc.device, name, ctx))
   if adam is not None:
     load_adam_state(state.optimizer, module.net, adam)
   state.step = step

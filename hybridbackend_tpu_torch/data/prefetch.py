@@ -34,7 +34,9 @@ kept alive by a token each array refers to). Both paths only read them:
 any device copy is issued, and ``put_batch``'s ``.to`` of pageable memory
 returns once its copy has completed, while the batch is still referenced.
 A ragged ``Value`` or a string column has no device layout of its own;
-both paths refuse it with an error that points at ``data.parse``.
+both paths refuse it with an error that points at ``data.parse``. In a
+world of more than one rank (``world_size``) both refuse a 0-d column,
+which has no batch axis to hold the rank's rows (``data/sync.py``).
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ import numpy as np
 import torch
 
 from hybridbackend_tpu_torch.data.dataframe import Value
+from hybridbackend_tpu_torch.data.sync import check_columns
 
 Batch = Dict[str, torch.Tensor]
 
@@ -87,11 +90,14 @@ def _host_tensor(name: str, value: Any) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def put_batch(batch: Mapping[str, Any], device: torch.device) -> Batch:
+def put_batch(batch: Mapping[str, Any], device: torch.device,
+              world_size: int = 1) -> Batch:
   """Every column of ``batch`` as a tensor on ``device`` (a plain
   synchronous ``.to``: from pageable host memory it returns once the copy
   has completed). On the CPU the tensors share memory with the batch's
-  arrays, and keep them alive."""
+  arrays, and keep them alive. In a world of ``world_size > 1`` ranks a
+  0-d column is refused."""
+  check_columns(batch, world_size)
   return {k: _host_tensor(k, v).to(device) for k, v in batch.items()}
 
 
@@ -118,14 +124,18 @@ class DeviceIterator:
   ``transform`` (a host batch to a host batch) runs on the producer's
   thread, before the batch is queued, as the JAX iterator's does: for
   example ``DynamicEmbedding.transform`` or ``CacheRunner.transform``,
-  which map raw ids to rows or cache slots ahead of the steps.
+  which map raw ids to rows or cache slots ahead of the steps. In a
+  world of ``world_size > 1`` ranks a 0-d column is refused at
+  ``__next__``.
   """
 
   def __init__(self, host_iterator: Iterator[Mapping[str, Any]],
                device: torch.device, capacity: int = 2,
                transform: Optional[Callable[[Mapping[str, Any]],
-                                            Mapping[str, Any]]] = None):
+                                            Mapping[str, Any]]] = None,
+               world_size: int = 1):
     self._device = torch.device(device)
+    self._world_size = world_size
     self._capacity = capacity
     self._q: _queue.Queue = _queue.Queue(maxsize=capacity)
     self._stop = threading.Event()
@@ -202,6 +212,7 @@ class DeviceIterator:
     return item
 
   def _stage(self, batch: Mapping[str, Any]) -> _Staged:
+    check_columns(batch, self._world_size)
     by_dtype: Dict[np.dtype, list] = {}
     for k, v in batch.items():
       a = _host_array(k, v)

@@ -34,14 +34,34 @@ exchanges between the ranks, bit for bit:
 
 Every rank passes the same number of ids (a world splits the ids as
 ``shard_map`` does; :func:`world_slice` cuts a flat id list as the JAX
-lookup pads and splits it, ``:72-82``). The sharded lookup has no
-backward: the sparse step routes the embeddings' gradient itself
-(``sparse_update.py``). ``'hierarchical'``, ``'gspmd'`` and
-column-sharded tables are ROADMAP item 15b (3).
+lookup pads and splits it, ``:72-82``). ``'hierarchical'``, ``'gspmd'``
+and column-sharded tables are ROADMAP item 15b (3).
+
+The sharded lookup is differentiable with respect to the shard, for the
+dense-gradient path (a ``torch.autograd.Function`` around each
+exchange): its backward gives the owner's shard, for each of its rows,
+the sum of every rank's gradients of the embeddings read from it, the
+transpose of the exchange. For ``'allgather'`` that is JAX's transpose
+of its all_gather, masked take and psum_scatter (``:267-279``): every
+rank's gradients gathered, masked to the owner's rows and scatter-added
+into the shard. For ``'alltoall'`` the gradients go back to the owners
+through the same buckets (cast to ``wire_dtype`` on the wire, as the
+transpose of the rows' cast) and are scatter-added there. Nothing is
+scaled: a loss that is each rank's mean over its rows gives gradients
+``W`` times the global mean's, which the dense step divides once
+(``training/train.py``). A shard that needs no gradient (the sparse
+step, which routes the embeddings' gradient itself through
+``sparse_update.py``) is looked up under ``torch.no_grad()``.
+
+A sharded table is looked up as a shard only when it holds fewer rows
+than the table has at a world of one: a whole table (a shard gathered
+back, as the exported dense bundle holds it) is looked up locally, with
+no collective.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Union
 
@@ -86,13 +106,16 @@ def lookup(table: Table, ids: torch.Tensor, config: TableConfig,
       raise NotImplementedError('sharded int8 tables are ROADMAP item '
                                 '15b (6)')
     return lookup_quantized(table, ids, config)
-  if config.should_shard(ctx):
+  if config.should_shard(ctx) and table.shape[0] < config.padded_vocab():
     if serving:
       raise NotImplementedError('a sharded table is not served; serving '
                                 'sharded tables is ROADMAP item 15b (6)')
+    args = (table, ids, config, ctx, strategy, bucket_ratio,
+            overflow_fallback, unique_ratio, wire_dtype)
+    if table.requires_grad and torch.is_grad_enabled():
+      return _sharded(*args)
     with torch.no_grad():
-      return _sharded(table, ids, config, ctx, strategy, bucket_ratio,
-                      overflow_fallback, unique_ratio, wire_dtype)
+      return _sharded(*args)
   valid = (ids >= 0) & (ids < config.vocab_size)
   rows = config.row_index(ids, ctx)
   if serving:
@@ -158,36 +181,78 @@ def _sharded(shard, ids, config, ctx, strategy, bucket_ratio, fallback,
   rows = torch.where(valid, config.row_index(flat, ctx), -1)
   rows_per_shard = config.padded_vocab(ctx) // ctx.world_size
   if strategy == 'allgather':
-    out = _lookup_allgather(shard, rows, ctx, rows_per_shard)
+    run = functools.partial(_lookup_allgather, ctx=ctx,
+                            rows_per_shard=rows_per_shard)
   else:
-    out = _lookup_alltoall(shard, rows, ctx, rows_per_shard, bucket_ratio,
-                           fallback, wire_dtype)
-  return out.reshape(*ids.shape, config.dim)
+    run = functools.partial(_lookup_alltoall, ctx=ctx,
+                            rows_per_shard=rows_per_shard,
+                            bucket_ratio=bucket_ratio, fallback=fallback,
+                            wire_dtype=wire_dtype)
+  return _Exchange.apply(shard, rows, run).reshape(*ids.shape, config.dim)
+
+
+class _Exchange(torch.autograd.Function):
+  """``run(shard, rows) -> (rows' embeddings, transpose)``, an exchange,
+  with ``transpose(gradient of the embeddings) -> gradient of the
+  shard`` as its backward."""
+
+  @staticmethod
+  def forward(fctx, shard, rows, run):
+    out, fctx.transpose = run(shard, rows)
+    return out
+
+  @staticmethod
+  def backward(fctx, grad):
+    return fctx.transpose(grad.contiguous()), None, None
 
 
 def _lookup_allgather(shard, rows, ctx, rows_per_shard):
-  """All ranks' ids, a masked local gather, a reduce-scatter."""
+  """All ranks' ids, a masked local gather, a reduce-scatter; transposed,
+  all ranks' gradients, masked to this rank's rows, scatter-added."""
   all_ids = collective.allgather(rows, ctx=ctx).reshape(ctx.world_size, -1)
   owner = torch.div(all_ids, rows_per_shard, rounding_mode='floor')
-  local = (all_ids - owner * rows_per_shard).clamp(0, shard.shape[0] - 1)
-  contrib = shard.index_select(0, local.reshape(-1).long()).reshape(
+  local = (all_ids - owner * rows_per_shard).clamp(
+      0, shard.shape[0] - 1).reshape(-1).long()
+  mine = (owner == ctx.rank).reshape(-1, 1)
+  contrib = shard.index_select(0, local).reshape(
       *all_ids.shape, shard.shape[1])
-  contrib = torch.where((owner == ctx.rank).unsqueeze(-1), contrib, 0)
-  return collective.reduce_scatter(contrib, ctx=ctx)
+  contrib = torch.where(mine.reshape(*all_ids.shape, 1), contrib, 0)
+
+  def transpose(grad):
+    every = collective.allgather(grad, ctx=ctx)
+    every = torch.where(mine, every, 0)
+    return torch.zeros_like(shard).index_add_(0, local, every)
+
+  return collective.reduce_scatter(contrib, ctx=ctx), transpose
 
 
 def _a2a_round_trip(shard, part: Partitioned, ctx, rows_per_shard,
                     wire_dtype):
   """The ids to their owners, the owners' gather, the rows back in
-  ``wire_dtype``, unbucketed (``lookup.py:294-303``)."""
+  ``wire_dtype``, unbucketed (``lookup.py:294-303``); and its transpose:
+  each id's gradient into its bucket lane, to its owner, scatter-added
+  at the row it read."""
   recv, recv_sizes = collective.all_to_all_v(part.buckets, part.sizes,
                                              ctx=ctx)
-  local = (recv - ctx.rank * rows_per_shard).clamp(0, rows_per_shard - 1)
-  emb = shard.index_select(0, local.reshape(-1).long()).reshape(
-      *local.shape, shard.shape[1])
+  local = (recv - ctx.rank * rows_per_shard).clamp(
+      0, rows_per_shard - 1).reshape(-1).long()
+  d = shard.shape[1]
+  emb = shard.index_select(0, local).reshape(*recv.shape, d)
   back, _ = collective.all_to_all_v(emb, recv_sizes, ctx=ctx,
                                     wire_dtype=wire_dtype)
-  return unpartition(back.reshape(-1, shard.shape[1]), part.restore)
+  lanes = back.shape[0] * back.shape[1]
+  out = unpartition(back.reshape(lanes, d), part.restore)
+
+  def transpose(grad):
+    # A lane past the end (an id left out) carries a zero gradient here.
+    flat = grad.new_zeros((lanes, d)).index_add_(
+        0, part.restore.clamp(max=lanes - 1).long(), grad)
+    got, _ = collective.all_to_all_v(flat.reshape(back.shape), part.sizes,
+                                     ctx=ctx, wire_dtype=wire_dtype)
+    got = torch.where((recv >= 0).reshape(-1, 1), got.reshape(lanes, d), 0)
+    return torch.zeros_like(shard).index_add_(0, local, got)
+
+  return out, transpose
 
 
 def _lookup_alltoall(shard, rows, ctx, rows_per_shard, bucket_ratio,
@@ -197,46 +262,48 @@ def _lookup_alltoall(shard, rows, ctx, rows_per_shard, bucket_ratio,
   world = ctx.world_size
   b = rows.shape[0]
   owner = torch.div(rows, rows_per_shard, rounding_mode='floor')
-  valid = (owner >= 0) & (owner < world)
+  valid = ((owner >= 0) & (owner < world)).unsqueeze(-1)
 
   def part(capacity):
     return partition_by_fn(
         rows, world,
         lambda x: torch.div(x, rows_per_shard,
                             rounding_mode='floor').clamp(0, world - 1),
-        capacity=capacity, fill_value=-1, valid=valid)
+        capacity=capacity, fill_value=-1, valid=valid.squeeze(-1))
 
   cap = None
   if bucket_ratio > 0:
     cap = max(1, int(math.ceil(bucket_ratio * b / world)))
     cap = cap if cap < b else None
   if cap is None:
-    out = _a2a_round_trip(shard, part(None), ctx, rows_per_shard,
-                          wire_dtype)
+    p = part(None)
   else:
     p = part(cap)
     if fallback and _global_any(p.overflow, ctx):
       lookup.overflow_fallbacks += 1
       p = part(None)
-    out = _a2a_round_trip(shard, p, ctx, rows_per_shard, wire_dtype)
-  return torch.where(valid.unsqueeze(-1), out, 0)
+  out, transpose = _a2a_round_trip(shard, p, ctx, rows_per_shard,
+                                   wire_dtype)
+  return torch.where(valid, out, 0), (
+      lambda grad: transpose(torch.where(valid, grad, 0)))
 
 
 def lookup_sparse(table: Table, ids: torch.Tensor, mask: torch.Tensor,
                   config: TableConfig,
                   weights: Optional[torch.Tensor] = None,
                   combiner: Optional[str] = None,
-                  serving: bool = False) -> torch.Tensor:
+                  serving: bool = False, *,
+                  ctx: Optional[Context] = None) -> torch.Tensor:
   """Combined lookup over padded ragged ids
   (``tf.nn.embedding_lookup_sparse``).
 
   ``ids``: ``[batch, max_len]``; ``mask``: its validity (bool or 0/1);
   ``weights``: optional per-id weights; ``combiner``: ``'sum'``,
   ``'mean'`` or ``'sqrtn'`` (the table's by default), the last two over
-  the masked weight total floored at 1e-9; ``serving`` as in
+  the masked weight total floored at 1e-9; ``serving`` and ``ctx`` as in
   :func:`lookup`. Returns ``[batch, dim]``."""
   combiner = combiner or config.combiner
-  emb = lookup(table, ids, config, serving)
+  emb = lookup(table, ids, config, serving, ctx=ctx)
   m = mask.to(emb.dtype)
   if weights is not None:
     m = m * weights.to(emb.dtype)

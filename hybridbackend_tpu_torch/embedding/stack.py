@@ -105,6 +105,30 @@ def create_stacked_tables(stacks: Sequence[TableStack],
   return out
 
 
+def logical_segments(stack: TableStack, ctx: 'Context'
+                     ) -> Tuple[Tuple[Tuple[int, int, int], ...], int]:
+  """Where ``ctx``'s rank's rows of the stacked table stand among the
+  stack's logical rows, its members' rows end to end as a world of one
+  lays them out: ``(segments, logical rows)``, each segment ``(first row
+  of the rank's rows, first logical row, rows)``. The rows that a world
+  pads each sharded member and the stack with are in no segment."""
+  rows = stack.stacked.shard_rows(ctx)
+  if stack.stacked.shuffle_ids:
+    # A solo mixed table: its rows are its own, mixed modulo its padded
+    # vocab.
+    total = stack.stacked.padded_vocab()
+    hi = min(rows.stop, total)
+    return (((0, rows.start, hi - rows.start),) if hi > rows.start
+            else ()), total
+  segments, total = [], 0
+  for cfg, off in zip(stack.configs, stack.offsets):
+    lo, hi = max(rows.start, off), min(rows.stop, off + cfg.vocab_size)
+    if hi > lo:
+      segments.append((lo - rows.start, total + lo - off, hi - lo))
+    total += cfg.vocab_size
+  return tuple(segments), total
+
+
 def member_tables(stack: TableStack, stacked: torch.Tensor
                   ) -> Dict[str, torch.Tensor]:
   """Split a stacked table back into ``{member_name: [rows, D]}``."""
@@ -160,4 +184,4 @@ def unpack_embeddings(stack: TableStack, emb: torch.Tensor,
 
 
 __all__ = ['TableStack', 'build_stacks', 'create_stacked_tables',
-           'member_tables', 'pack_ids', 'unpack_embeddings']
+           'logical_segments', 'member_tables', 'pack_ids', 'unpack_embeddings']

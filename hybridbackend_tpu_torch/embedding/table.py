@@ -13,6 +13,13 @@ than one rank and the table at least as many rows as the world and as
 vocab ``V``, rounded up to the world (``:164-173``), as JAX's
 ``P(axes, None)`` lays a global array out. Only row partitioning is
 ported; ``partition='column'`` is ROADMAP item 15b (3).
+
+A rank's shard made into a parameter of the dense path (``init_tables``
+with a world) is marked with its :class:`TableShard` (the attribute
+``table_shard``, read by :func:`table_shard`), so that the dense step,
+the checkpoints and the export can tell it from a replicated parameter:
+its gradient comes from the lookup's backward and is never all-reduced,
+each rank writes its own rows, and the export gathers them.
 """
 
 from __future__ import annotations
@@ -97,6 +104,37 @@ class TableConfig:
     return torch.where(ids >= 0, mixed.to(ids.dtype), ids)
 
 
+@dataclasses.dataclass(frozen=True)
+class TableShard:
+  """A rank's shard of a row-sharded table: rows ``[start, start + n)``
+  of the table's padded vocab (``n`` the shard's rows), of which the
+  first ``rows`` are the table's rows at a world of one (the rest are the
+  world's padding, ``padded_vocab``)."""
+  start: int
+  rows: int
+
+
+def shard_of(config: TableConfig,
+             ctx: Optional['Context']) -> Optional[TableShard]:
+  """The :class:`TableShard` of ``ctx``'s rank when ``config`` is
+  row-sharded over ``ctx``'s world, else None."""
+  if ctx is None or not config.should_shard(ctx):
+    return None
+  return TableShard(config.shard_rows(ctx).start, config.padded_vocab())
+
+
+def mark_shard(t: torch.Tensor, shard: Optional[TableShard]) -> torch.Tensor:
+  """``t`` marked as ``shard`` (nothing for None); returns ``t``."""
+  if shard is not None:
+    t.table_shard = shard
+  return t
+
+
+def table_shard(t: torch.Tensor) -> Optional[TableShard]:
+  """The :class:`TableShard` ``t`` was marked with, or None."""
+  return getattr(t, 'table_shard', None)
+
+
 def default_initializer(generator: torch.Generator, shape: Tuple[int, int],
                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
   """Uniform in ``[-1/sqrt(dim), 1/sqrt(dim)]``, as the JAX package's
@@ -123,4 +161,5 @@ def create_table(config: TableConfig, generator: torch.Generator,
   return out.to(device=device, dtype=config.dtype).contiguous()
 
 
-__all__ = ['TableConfig', 'create_table', 'default_initializer']
+__all__ = ['TableConfig', 'TableShard', 'create_table', 'default_initializer',
+           'mark_shard', 'shard_of', 'table_shard']

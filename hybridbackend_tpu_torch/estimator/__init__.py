@@ -1,7 +1,7 @@
 """The trainers: train, evaluate, predict, checkpoint and resume.
 
-Counterpart of ``hybridbackend_tpu/estimator/__init__.py:39-490``
-(``Trainer`` and ``SparseTrainer``) at a world of one device. A trainer
+Counterpart of ``hybridbackend_tpu/estimator/__init__.py:39-597``
+(``Trainer`` and ``SparseTrainer``), at a world of one rank or of N. A trainer
 owns the state, its step, the eval step, the checkpoints in
 ``model_dir`` (restored on construction), hooks, and the input path:
 host batches go through ``SyncReplicasIterator`` and are placed on the
@@ -33,10 +33,42 @@ read-only (``embedding/service.py``).
 with bundled ``id_mappers`` for dynamic tables and cache-backed columns
 served from their full host tables. Not in this slice (ROADMAP queue
 1): summaries (item 17).
+
+In a world of N ranks (the trainer's context: ``ctx`` of ``Trainer``,
+``fx.ctx`` of ``SparseTrainer``, joined by ``Context.join`` in each
+process that ``python -m hybridbackend_tpu_torch.run`` starts) each rank
+trains on its own batches, its rows of the global batch:
+
+* ``SparseTrainer``'s stacks are row-sharded and updated on the owners'
+  shards by the update kernels (``make_sparse_train_step``); ``Trainer``
+  is data-parallel, its row-sharded tables (``init_tables(...,
+  ctx=ctx)``) taking their dense gradients through the sharded lookup's
+  backward (``training/train.py``). The towers start equal: rank 0's
+  are broadcast.
+* ``train`` and ``evaluate`` agree on stopping through
+  ``SyncReplicasIterator``: training stops on every rank when any rank
+  runs out, evaluation goes on until all have, on padded batches whose
+  ``_sync_valid`` weights keep the metrics exact. The AUC histograms and
+  the loss sums are all-reduced once, at the end of ``evaluate``; GAUC
+  is computed on each eval batch gathered over the ranks in rank order,
+  the global batch JAX computes it on (a group may span ranks). Every
+  rank returns the same dict.
+* A checkpoint is written by every rank, each its own rows of each
+  sharded table and slot, rank 0 the replicated leaves
+  (``training/checkpoint.py``); it restores at any world.
+* ``export_saved_model`` is called by every rank: the shards are gathered
+  and rank 0 alone writes the bundle, the unsharded one ``Served``
+  loads (JAX ``:362-375,513-533``).
+* Rank 0 alone logs, and its hooks alone report (``training/hooks.py``).
+
+Host-backed tables (``caches``) keep a slot map per host, which a world
+would have to agree on: ``SparseTrainer(caches=...)`` in a world of more
+than one rank raises (ROADMAP item 15b (10)).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import logging
@@ -48,17 +80,21 @@ from torch import nn
 
 from hybridbackend_tpu_torch import metrics as hbm
 from hybridbackend_tpu_torch.data.prefetch import DeviceIterator, put_batch
+from hybridbackend_tpu_torch.distribute import collective
 from hybridbackend_tpu_torch.data.sync import (
     SYNC_VALID_KEY, SyncReplicasIterator)
 from hybridbackend_tpu_torch.embedding.lookup import lookup
 from hybridbackend_tpu_torch.embedding.quant import quantize_table
 from hybridbackend_tpu_torch.embedding.service import (
     CacheRunner, EmbeddingCache)
-from hybridbackend_tpu_torch.embedding.stack import member_tables
+from hybridbackend_tpu_torch.embedding.stack import (
+    logical_segments, member_tables)
+from hybridbackend_tpu_torch.embedding.table import shard_of, table_shard
 from hybridbackend_tpu_torch.framework.context import Context
 from hybridbackend_tpu_torch.models.feature import (
     EmbeddingSpec, StackedFeatureExtractor, extract_features)
-from hybridbackend_tpu_torch.training.checkpoint import CheckpointManager
+from hybridbackend_tpu_torch.training.checkpoint import (
+    CheckpointManager, Shard)
 from hybridbackend_tpu_torch.training.hooks import Hook, StepStatHook
 from hybridbackend_tpu_torch.training.optimizer import (
     Adagrad, OptimizerFactory, init_state, load_slots_by_name, slots_by_name)
@@ -86,15 +122,40 @@ def _metrics_step(auc_s, loss_s, gauc_s, labels, preds, pel, loss, valid,
         loss_s, loss.reshape(1),
         torch.full((1,), float(labels.shape[0]), device=labels.device))
   if ind is not None:
-    if valid is not None:
-      # Padding rows must not join a real group: give them an indicator
-      # below every real one. Their labels are 0, so their group has one
-      # class and is skipped. Signed, so the sentinel cannot wrap.
-      ind = ind.to(torch.int64)
-      ind = torch.where(valid > 0, ind, ind.min() - 1)
-    # Eval batches need not hold each group in one run: sort them.
-    gauc_s = hbm.gauc_update(gauc_s, labels, preds, ind, sort_groups=True)
+    gauc_s = _gauc_step(gauc_s, labels, preds, valid, ind)
   return auc_s, loss_s, gauc_s
+
+
+def _gauc_step(gauc_s, labels, preds, valid, ind):
+  """One batch's GAUC update; ``valid`` may be None."""
+  if valid is not None:
+    # Padding rows must not join a real group: give them an indicator
+    # below every real one. Their labels are 0, so their group has one
+    # class and is skipped. Signed, so the sentinel cannot wrap.
+    ind = ind.to(torch.int64)
+    ind = torch.where(valid > 0, ind, ind.min() - 1)
+  # Eval batches need not hold each group in one run: sort them.
+  return hbm.gauc_update(gauc_s, labels, preds, ind, sort_groups=True)
+
+
+def _gathered(ctx: Context, *tensors: torch.Tensor):
+  """Each tensor's rows of every rank, in rank order (a collective)."""
+  return [collective.allgather(t.reshape(t.shape[0], -1), ctx=ctx).reshape(
+      -1, *t.shape[1:]) for t in tensors]
+
+
+def _all_summed(ctx: Context, *states):
+  """Metric states (named tuples of tensors) summed over the ranks, in
+  one all-reduce."""
+  parts = [t for s in states for t in s]
+  flat = collective.allreduce(torch.cat([t.reshape(-1) for t in parts]),
+                              ctx=ctx)
+  out, pos = [], 0
+  for t in parts:
+    out.append(flat[pos:pos + t.numel()].view_as(t))
+    pos += t.numel()
+  it = iter(out)
+  return [type(s)(*(next(it) for _ in s)) for s in states]
 
 
 class _Apply(nn.Module):
@@ -156,13 +217,19 @@ class Trainer:
       Adam, lr=1e-3))(params)``; by default ``Adagrad(lr=0.1)`` on all.
     model_dir: checkpoint directory; its latest checkpoint is restored
       now. ``None`` keeps no checkpoints.
-    ctx: the device everything runs on.
+    ctx: the device everything runs on, and the world: in a world of
+      more than one rank (a joined context) the trainer is data-parallel,
+      each rank feeding its own rows of the global batch (see the module
+      docstring); the tables are then made with ``init_tables(...,
+      ctx=ctx)`` and looked up with ``extract_features(..., ctx=ctx)``.
     label_key, group_key: the label column, and the column of group ids
       for GAUC (no GAUC when None).
     keep_checkpoint_max, grow_vocab: the checkpoint manager's
       ``max_to_keep`` and ``grow_vocab``.
     prefetch_capacity: batches ``DeviceIterator`` stages ahead (with
       ``prefetch=True``).
+    gradient_wire_dtype: the dtype of the gradients' all-reduce in a
+      world (``make_train_step``).
   """
 
   _host_transform: Optional[Callable] = None
@@ -174,16 +241,16 @@ class Trainer:
                ctx: Context, label_key: str = 'label',
                group_key: Optional[str] = None,
                keep_checkpoint_max: int = 5, grow_vocab: bool = False,
-               prefetch_capacity: int = 2):
+               prefetch_capacity: int = 2, gradient_wire_dtype=None):
     for name, p in params.named_parameters():
       if p.device != ctx.device:
         raise ValueError(f'parameter {name} is on {p.device}, the context '
                          f'on {ctx.device}')
     if optimizer is None:
       optimizer = Adagrad(params.parameters(), lr=0.1)
-    self.state = TrainState.create(params, optimizer)
+    self.state = TrainState.create(params, optimizer, ctx)
     self._loss_fn = loss_fn
-    self._step_fn = make_train_step(loss_fn)
+    self._step_fn = make_train_step(loss_fn, gradient_wire_dtype, ctx)
     self._eval_fn = make_eval_step(loss_fn)
     self._setup(ctx, label_key, group_key, prefetch_capacity, model_dir,
                 keep_checkpoint_max, grow_vocab)
@@ -198,20 +265,42 @@ class Trainer:
     if model_dir:
       self._ckpt = CheckpointManager(model_dir, keep_checkpoint_max,
                                      device=ctx.device,
-                                     grow_vocab=grow_vocab)
+                                     grow_vocab=grow_vocab, ctx=ctx)
       template = self._checkpoint_state()
       restored = self._ckpt.restore(template)
       if restored is not template:
         self._load_checkpoint_state(restored)
-        LOG.info('restored checkpoint at step %d', self.global_step)
+        self._log('restored checkpoint at step %d', self.global_step)
+
+  @property
+  def _world(self) -> int:
+    return self._ctx.world_size
+
+  def _log(self, *args) -> None:
+    if self._ctx.is_chief:
+      LOG.info(*args)
 
   # -- state -----------------------------------------------------------------
 
   def _checkpoint_state(self) -> Dict[str, Any]:
+    """The state to save: a row-sharded table's parameter, and each of
+    its optimizer slots of its shape, as a :class:`Shard`."""
+    params = self.state.params
+    shards = {n: (p.shape, table_shard(p))
+              for n, p in params.named_parameters()}
+
+    def leaf(name, t):
+      shape, shard = shards.get(name, (None, None))
+      if shard is None or t.shape != shape:
+        return t
+      return Shard.of_rows(t, shard.start, shard.rows)
+
     return {'step': self.state.step,
-            'params': self.state.params.state_dict(),
-            'opt_state': slots_by_name(self.state.optimizer,
-                                       self.state.params)}
+            'params': {k: leaf(k, v) for k, v in params.state_dict().items()},
+            'opt_state': {
+                name: {slot: leaf(name, v) for slot, v in slots.items()}
+                for name, slots in slots_by_name(self.state.optimizer,
+                                                 params).items()}}
 
   def _load_checkpoint_state(self, restored: Dict[str, Any]) -> None:
     self.state.params.load_state_dict(restored['params'])
@@ -237,10 +326,10 @@ class Trainer:
     its producer thread), or each in the loop."""
     if prefetch:
       return DeviceIterator(it, self._ctx.device, capacity=self._capacity,
-                            transform=transform)
+                            transform=transform, world_size=self._world)
     if transform is not None:
       it = map(transform, it)
-    return (put_batch(b, self._ctx.device) for b in it)
+    return (put_batch(b, self._ctx.device, self._world) for b in it)
 
   # -- training --------------------------------------------------------------
 
@@ -261,11 +350,14 @@ class Trainer:
     in the loop. Checkpoints every ``save_checkpoint_steps`` steps (0:
     only at the end) when the trainer has a ``model_dir``. ``eval_every_n_steps``
     with ``eval_batches_fn`` runs a full :meth:`evaluate` every N steps.
+    In a world, ``batches`` are this rank's, and every rank stops when
+    any runs out (``sync=False`` leaves that, and equal row counts, to
+    the caller).
     """
     it: Iterator = iter(batches)
     sync_it = None
     if sync:
-      it = sync_it = SyncReplicasIterator(it)
+      it = sync_it = SyncReplicasIterator(it, ctx=self._ctx)
     it = self._device_batches(it, prefetch, self._host_transform)
     runner = self._cache_runner
     hooks = list(hooks)
@@ -301,8 +393,8 @@ class Trainer:
           self._save(step_no)
         if (eval_every_n_steps and eval_batches_fn
             and step_no % eval_every_n_steps == 0):
-          LOG.info('eval @ step %d: %s', step_no,
-                   self.evaluate(eval_batches_fn()))
+          self._log('eval @ step %d: %s', step_no,
+                    self.evaluate(eval_batches_fn()))
     finally:
       if isinstance(it, DeviceIterator):
         it.close()           # closes the sync iterator it wraps
@@ -331,11 +423,14 @@ class Trainer:
     and every metric takes them as example weights. The loss mean is
     exact when the loss function returns ``aux['per_example_loss']``;
     otherwise each batch's scalar loss is weighted by its valid rows, and
-    the result says ``loss_exact = 0.0``.
+    the result says ``loss_exact = 0.0``. In a world, ``batches`` are this
+    rank's; the metrics are those of every rank's rows, and every rank
+    returns them.
     """
+    ctx = self._ctx
     it = self._device_batches(
-        SyncReplicasIterator(iter(batches), drop_remainder=False), prefetch,
-        self._eval_host_transform)
+        SyncReplicasIterator(iter(batches), drop_remainder=False, ctx=ctx),
+        prefetch, self._eval_host_transform)
     dev = self._ctx.device
     auc_s, loss_s, gauc_s = hbm.auc_init(device=dev), hbm.mean_init(
         dev), hbm.gauc_init(dev)
@@ -357,13 +452,22 @@ class Trainer:
               "weights each batch's loss by its valid rows. Return "
               "aux['per_example_loss'] for an exact mean. Results include "
               "loss_exact=0.0.")
+        ind = None if self._group_key is None else batch[self._group_key]
+        if self._world > 1 and ind is not None:
+          # GAUC on the global batch, as JAX computes it: a group may
+          # span ranks.
+          gauc_s = _gauc_step(gauc_s, *_gathered(
+              ctx, labels, aux['preds'], valid, ind))
+          ind = None
         auc_s, loss_s, gauc_s = _metrics_step(
             auc_s, loss_s, gauc_s, labels, aux['preds'], pel, loss, valid,
-            None if self._group_key is None else batch[self._group_key])
+            ind)
         n += 1
     finally:
       if isinstance(it, DeviceIterator):
         it.close()
+    if self._world > 1:
+      auc_s, loss_s = _all_summed(ctx, auc_s, loss_s)
     out = {'auc': float(hbm.auc_result(auc_s)),
            'loss': float(hbm.mean_result(loss_s)),
            'batches': float(n)}
@@ -384,19 +488,40 @@ class Trainer:
       self.train(train_batches_fn(), max_steps=max_steps_per_epoch,
                  hooks=hooks)
       results = self.evaluate(eval_batches_fn())
-      LOG.info('epoch %d eval: %s', ep, results)
+      self._log('epoch %d eval: %s', ep, results)
     return results
 
   def predict(self, batches: Iterable[Dict[str, Any]],
               prefetch: bool = False) -> Iterator[torch.Tensor]:
     """Yield each batch's predictions, a tensor on the context's device
-    (reading it is the caller's choice)."""
-    it = self._device_batches(iter(batches), prefetch,
-                              self._eval_host_transform)
+    (reading it is the caller's choice).
+
+    In a world, every rank calls this with its own batches and yields the
+    predictions of its own rows, batch by batch. The lookups are
+    collectives, so the ranks step together through
+    ``SyncReplicasIterator``'s eval mode: a rank whose batches run out
+    first, or are shorter, steps on padding, which it does not yield."""
+    it: Iterator = iter(batches)
+    rows: collections.deque = collections.deque()
+    if self._world > 1:
+      def counted(synced):
+        for b in synced:
+          # Counted on the host, in batch order (the producer thread's,
+          # with prefetch), so nothing reads the device.
+          rows.append(int(np.asarray(b[SYNC_VALID_KEY]).sum()))
+          yield b
+      it = counted(SyncReplicasIterator(it, drop_remainder=False,
+                                        ctx=self._ctx))
+    it = self._device_batches(it, prefetch, self._eval_host_transform)
     try:
       for batch in it:
         _, aux = self._eval_fn(self.params, batch)
-        yield aux['preds']
+        if self._world == 1:
+          yield aux['preds']
+          continue
+        n = rows.popleft()
+        if n:
+          yield aux['preds'][:n]
     finally:
       if isinstance(it, DeviceIterator):
         it.close()
@@ -411,15 +536,26 @@ class Trainer:
     unless it passes ``serving=True``). ``example_batch`` carries every
     column the loss function reads, the label too; ``poly_batch=True``
     serves any batch size from one bundle; ``id_mappers`` (``{column:
-    IdMapper}``) bundles the maps that ``Served`` applies to raw ids."""
+    IdMapper}``) bundles the maps that ``Served`` applies to raw ids.
+
+    In a world, every rank must call this: each row-sharded table is
+    gathered whole (a collective), a whole table is looked up locally
+    (``embedding/lookup.py``), and rank 0 alone writes the bundle."""
     loss_fn = self._loss_fn
     module = self.state.params
+    leaves = _leaves(module)
+    if self._world > 1:
+      leaves = {k: (collective.allgather(v.detach(), ctx=self._ctx)
+                    if table_shard(v) is not None else v)
+                for k, v in leaves.items()}
+      if not self._ctx.is_chief:
+        return path
 
     def serving_fn(leaves, batch):
       return _call_with(module, leaves,
                         lambda m, b: loss_fn(m, b)[1]['preds'], batch)
 
-    return export(serving_fn, _leaves(module), example_batch, path,
+    return export(serving_fn, leaves, example_batch, path,
                   id_mappers=id_mappers, poly_batch=poly_batch)
 
 
@@ -430,7 +566,8 @@ class SparseTrainer(Trainer):
 
   Args:
     fx: the ``StackedFeatureExtractor`` declaring the tables; its context
-      is the trainer's.
+      is the trainer's, and its world the trainer's world (``tables``
+      are then each rank's shards, as ``fx.init`` makes them).
     model_loss: ``(tower, emb_features, dense_features, batch) -> (loss,
       aux)``.
     dense: the tower, moved to the context's device.
@@ -457,7 +594,8 @@ class SparseTrainer(Trainer):
       reference's EmbeddingService hooks, ``service.py:253-324``). The
       resident rows are written back to storage at every checkpoint; with
       no ``model_dir``, call ``_cache_runner.flush(state)`` after
-      training, as with the JAX trainer.
+      training, as with the JAX trainer. Not in a world of more than one
+      rank: ROADMAP item 15b (10).
   The other arguments are :class:`Trainer`'s.
   """
 
@@ -475,10 +613,11 @@ class SparseTrainer(Trainer):
                prefetch_capacity: int = 2,
                caches: Optional[Dict[str, EmbeddingCache]] = None):
     ctx = fx.ctx
-    if ctx.world_size > 1:
-      raise NotImplementedError('SparseTrainer in a world of more than one '
-                                'rank is ROADMAP item 15b (5); the sparse '
-                                'step runs there (make_sparse_train_step)')
+    if caches and ctx.world_size > 1:
+      raise NotImplementedError(
+          'SparseTrainer(caches=...) in a world of more than one rank is '
+          'ROADMAP item 15b (10): a cache\'s slot map is per host, and the '
+          'ranks would have to agree on it')
     self._caches = dict(caches) if caches else {}
     if self._caches:
       nslots = 2 if table_optimizer == 'adam' else 1
@@ -500,7 +639,7 @@ class SparseTrainer(Trainer):
                        else torch.Generator().manual_seed(0))
     self.state = SparseTrainState.create(
         dense, tables, dense_optimizer, adagrad_init,
-        adam=table_optimizer == 'adam')
+        adam=table_optimizer == 'adam', ctx=ctx)
     init_state(self.state.dense_opt)
     self._fx = fx
     self._model_loss = model_loss
@@ -520,11 +659,20 @@ class SparseTrainer(Trainer):
                 keep_checkpoint_max, grow_vocab)
 
   def _checkpoint_state(self) -> Dict[str, Any]:
+    """The state to save: a row-sharded stack's table and slots as
+    :class:`Shard` leaves."""
     s = self.state
+    shards = {st.stacked.name: logical_segments(st, self._ctx)
+              for st in self._fx.stacks
+              if shard_of(st.stacked, self._ctx) is not None}
+
+    def leaf(name, t):
+      return Shard(t, *shards[name]) if name in shards else t
+
     return {'step': s.step, 'dense': s.dense.state_dict(),
             'dense_opt': slots_by_name(s.dense_opt, s.dense),
-            'tables': dict(s.tables),
-            'table_opt': {name: list(opt.acc)
+            'tables': {name: leaf(name, t) for name, t in s.tables.items()},
+            'table_opt': {name: [leaf(name, a) for a in opt.acc]
                           for name, opt in s.table_opt.items()}}
 
   def _load_checkpoint_state(self, restored: Dict[str, Any]) -> None:
@@ -563,6 +711,11 @@ class SparseTrainer(Trainer):
     bundle. ``id_mappers`` (``{column: IdMapper}``) bundles the maps of
     dynamic tables, which ``Served`` applies read-only to those columns.
 
+    In a world, every rank must call this: each sharded stack is gathered
+    whole (a collective) and split into its members' rows, and rank 0
+    alone writes the bundle, the one a world of one writes (``int8``
+    quantized after the gather).
+
     A cache-backed column serves from its full host table, written back
     first (``checkpoint_flush``, which consumes no pending plan), as one
     member of the cache's ``config.vocab_size`` rows: a cold process
@@ -574,8 +727,15 @@ class SparseTrainer(Trainer):
       self._cache_runner.checkpoint_flush(self.state)
     tables: Dict[str, Any] = {}
     for stack in self._fx.stacks:
-      tables.update(member_tables(stack, self.state.tables[
-          stack.stacked.name]))
+      table = self.state.tables[stack.stacked.name]
+      if shard_of(stack.stacked, self._ctx) is not None:
+        table = collective.allgather(table, ctx=self._ctx)
+      members = member_tables(stack, table)
+      # A member's rows, without those a world pads it with.
+      tables.update({cfg.name: members[cfg.name][:cfg.vocab_size]
+                     for cfg in stack.configs})
+    if not self._ctx.is_chief:
+      return path
     # A stack addresses its members at offset + raw id (a member's
     # shuffle_ids is not applied inside a stack), so each extracted slice
     # serves with the identity row mapping.

@@ -40,12 +40,16 @@ class Context:
 
   ``group`` is the process group of a joined world (see :meth:`join`);
   a context made directly is a world of one unless ``world_size`` says
-  otherwise, and then its collectives run on the default group."""
+  otherwise, and then its collectives run on the default group.
+  ``store`` is the key-value store the ranks met through (a
+  ``torch.distributed.Store``), which ``SyncReplicasIterator`` exchanges
+  its per-step counts in, away from the group's collectives."""
   device: torch.device
   rank: int = 0
   world_size: int = 1
   local_rank: int = 0
   group: Any = dataclasses.field(default=None, compare=False, repr=False)
+  store: Any = dataclasses.field(default=None, compare=False, repr=False)
 
   def __post_init__(self):
     device = torch.device(self.device)
@@ -61,6 +65,12 @@ class Context:
     """Whether collectives go through ``torch.distributed``: a world of
     more than one, or a joined world of one."""
     return self.world_size > 1 or self.group is not None
+
+  @property
+  def is_chief(self) -> bool:
+    """Rank 0: the one rank that logs, reports and writes what the world
+    writes once (the replicated checkpoint leaves, a bundle)."""
+    return self.rank == 0
 
   def rows(self, n: int) -> slice:
     """This rank's contiguous share ``[r·n/W, (r+1)·n/W)`` of ``n`` rows
@@ -116,13 +126,18 @@ class Context:
         timeout_s if timeout_s is not None
         else env.get(TIMEOUT_ENV, DEFAULT_TIMEOUT_S)))
     import torch.distributed as dist
-    kwargs = dict(backend=backend, init_method=init_method, rank=rank,
+    # The rendezvous ``init_process_group`` would make, kept: its store
+    # also carries the data sync's exchange.
+    store, rank, world_size = next(dist.rendezvous(
+        init_method, rank, world_size, timeout=timeout))
+    store.set_timeout(timeout)
+    kwargs = dict(backend=backend, store=store, rank=rank,
                   world_size=world_size, timeout=timeout)
     if backend == 'nccl':
       kwargs['device_id'] = device
     dist.init_process_group(**kwargs)
     return cls(device, rank=rank, world_size=world_size,
-               local_rank=local_rank, group=dist.group.WORLD)
+               local_rank=local_rank, group=dist.group.WORLD, store=store)
 
   def leave(self) -> None:
     """Destroy the process group this context joined."""

@@ -20,7 +20,8 @@ from hybridbackend_tpu_torch.embedding.lookup import (
 from hybridbackend_tpu_torch.embedding.stack import (
     TableStack, build_stacks, create_stacked_tables, pack_ids,
     unpack_embeddings)
-from hybridbackend_tpu_torch.embedding.table import TableConfig, create_table
+from hybridbackend_tpu_torch.embedding.table import (
+    TableConfig, create_table, mark_shard, shard_of)
 from hybridbackend_tpu_torch.framework.context import Context
 
 Batch = Dict[str, torch.Tensor]
@@ -46,26 +47,40 @@ class EmbeddingSpec:
 
 
 def init_tables(specs: Sequence[EmbeddingSpec], generator: torch.Generator,
-                device: torch.device) -> nn.ParameterDict:
+                device: torch.device,
+                ctx: Optional[Context] = None) -> nn.ParameterDict:
   """One ``[padded_vocab, dim]`` table per spec, drawn in spec order from
   ``generator``, as the parameters of a module keyed by table name (the
-  JAX function's params subtree)."""
+  JAX function's params subtree).
+
+  In a world of more than one rank (``ctx``) a table that the shard
+  policy row-shards (``TableConfig.should_shard``; ``sharded=False``
+  keeps one replicated) is this rank's rows of it, drawn whole and cut
+  (``create_table``), and its parameter is marked with its
+  ``TableShard`` (``embedding/table.py``), as JAX's ``create_table(...,
+  ctx)`` shards it (``feature.py:44-51``)."""
   return nn.ParameterDict({
-      spec.name: nn.Parameter(create_table(spec.config, generator, device))
+      spec.name: mark_shard(
+          nn.Parameter(create_table(spec.config, generator, device, ctx)),
+          shard_of(spec.config, ctx))
       for spec in specs})
 
 
 def extract_features(tables: Mapping[str, Table], batch: Batch,
                      specs: Sequence[EmbeddingSpec],
                      dense_columns: Sequence[str] = (),
-                     serving: bool = False
+                     serving: bool = False, *,
+                     ctx: Optional[Context] = None
                      ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
   """``(embedding features, each [B, dim]; dense features, each [B, 1]
   float32)``. A ragged column (padded ids with ``<key>_mask`` in the
   batch) goes through ``lookup_sparse`` and its table's combiner; a
   fixed-width multivalent column without a mask is combined by mean.
   ``serving=True`` (the exported serving function) gathers through
-  kernel 5, as ``lookup`` says; a table may be a ``QuantizedTable``."""
+  kernel 5, as ``lookup`` says; a table may be a ``QuantizedTable``.
+  With ``ctx`` (a world of ranks, the tables from ``init_tables(...,
+  ctx=ctx)``), ``B`` is the rank's rows and a sharded table is looked up
+  through the differentiable sharded lookup (``'allgather'``)."""
   emb_features = []
   for spec in specs:
     ids = batch[spec.key]
@@ -73,9 +88,9 @@ def extract_features(tables: Mapping[str, Table], batch: Batch,
     mask_key = spec.key + '_mask'
     if ids.dim() >= 2 and mask_key in batch:
       emb = lookup_sparse(table, ids, batch[mask_key], spec.config,
-                          serving=serving)
+                          serving=serving, ctx=ctx)
     else:
-      emb = lookup(table, ids, spec.config, serving)
+      emb = lookup(table, ids, spec.config, serving, ctx=ctx)
       if emb.dim() > 2:
         emb = torch.mean(emb, dim=-2)
     emb_features.append(emb)

@@ -1,54 +1,156 @@
-"""Checkpoints of a training state, kept by step.
+"""Checkpoints of a training state, kept by step, at any world size.
 
-Counterpart of ``hybridbackend_tpu/training/checkpoint.py:40-169``
-(``CheckpointManager``). A state is a nested dict (lists and tuples
-allowed) of tensors and host values; the port's tables are in their
-logical ``[V, d]`` layout, so a checkpoint does not depend on the world
-size. Each step is one file, ``checkpoint-<step>.pt``, written with
-``torch.save`` under a name of this process's own and then moved into
-place with ``os.replace``, so a reader never sees half a file and two
-writers never share a temporary name.
+Counterpart of ``hybridbackend_tpu/training/checkpoint.py:1-169``
+(``CheckpointManager``), where orbax writes each host's shards of the
+global arrays. A state is a nested dict (lists and tuples allowed) of
+tensors, :class:`Shard` leaves and host values. A :class:`Shard` is a
+rank's rows of a row-sharded table or slot, with where they stand among
+the table's logical rows (its rows at a world of one); every other
+tensor is the same on every rank. Tables are stored by their logical
+rows, so a checkpoint does not depend on the world that wrote it: a
+world pads a table's rows up to a multiple of itself, and a stack's
+members each to one (``padded_vocab``, ``build_stacks``), and those
+rows are no logical rows.
+
+Two layouts, both read at any world:
+
+* a world of one writes ``checkpoint-<step>.pt``, one ``torch.save`` of
+  the whole state, under a name of this process's own and then moved into
+  place with ``os.replace``, so a reader never sees half a file;
+* a world of more than one rank (``ctx``) writes the directory
+  ``checkpoint-<step>/``: each rank its own rows of every shard, with the
+  rows they are, in ``rank-<r>.pt``; rank 0 the replicated leaves in
+  ``replicated.pt``; then, once every rank has written (a barrier), rank
+  0 writes ``manifest.json``. A reader sees a step only once its
+  manifest exists. Nothing is gathered on the way out. Only rank 0
+  prunes old steps. Each file, too, is written under a temporary name and
+  moved into place.
 
 ``restore(template)`` follows the JAX rules: the result has the
 template's structure; a key the checkpoint lacks keeps the template's
 value (a newly added table starts fresh); a stored key the template
 lacks is dropped; each stored tensor takes the template tensor's device
-and dtype. The file is read with ``map_location`` set to the manager's
-device. With ``grow_vocab``, a stored ``[V1, d]`` tensor restores into a
-``[V2 > V1, d]`` template as its first ``V1`` rows, the template's fresh
-rows after them (vocabulary growth between runs; only meaningful for
-tables whose rows are not mixed, ``shuffle_ids=False``, and for the last
-member of a stack). Any other shape mismatch raises.
+and dtype. A :class:`Shard` of the template restores to a tensor of its
+shape holding the logical rows it covers, read from whichever files hold
+them; its other rows (the world's padding) keep the template's own
+values. With ``grow_vocab``, a stored ``[V1, d]`` tensor restores
+into a ``[V2 > V1, d]`` template (or a shard of one) as its first ``V1``
+rows, the template's fresh rows after them (vocabulary growth between
+runs; only meaningful for tables whose rows are not mixed,
+``shuffle_ids=False``, and for the last member of a stack). Any other
+shape mismatch raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
 import re
-from typing import Any, List, Optional
+import shutil
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-_NAME = re.compile(r'^checkpoint-(\d+)\.pt$')
+from hybridbackend_tpu_torch.framework.context import Context
+
+_FILE = re.compile(r'^checkpoint-(\d+)\.pt$')
+_DIR = re.compile(r'^checkpoint-(\d+)$')
+_MANIFEST = 'manifest.json'
+_SHARD_KEY = '__hb_shard_rows__'     # a shard's place in replicated.pt
+
+
+Segments = Tuple[Tuple[int, int, int], ...]
+
+
+@dataclasses.dataclass
+class Shard:
+  """A rank's rows of a row-sharded leaf of ``rows`` logical rows:
+  ``segments`` of ``(first row of value, first logical row, rows)``; a
+  row of ``value`` that no segment names is padding."""
+  value: torch.Tensor
+  segments: Segments
+  rows: int
+
+  @classmethod
+  def of_rows(cls, value: torch.Tensor, start: int, rows: int) -> 'Shard':
+    """Rows ``[start, start + len(value))`` of a table's rows padded to a
+    world, of which the first ``rows`` are its logical ones."""
+    n = max(0, min(value.shape[0], rows - start))
+    return cls(value, ((0, start, n),) if n else (), rows)
+
+
+def _leaf(template) -> Tuple[torch.Tensor, Segments, int]:
+  """``(tensor, segments, logical rows)`` of a tensor or shard leaf."""
+  if isinstance(template, Shard):
+    return template.value, template.segments, template.rows
+  n = template.shape[0] if template.dim() else 0
+  return template, ((0, 0, n),), n
+
+
+def _write(obj: Any, path: str) -> None:
+  tmp = os.path.join(os.path.dirname(path),
+                     f'.{os.path.basename(path)}.{os.getpid()}.tmp')
+  torch.save(obj, tmp)
+  os.replace(tmp, path)
+
+
+class _Pieces:
+  """The shard rows a sharded checkpoint's rank files hold, by leaf
+  path, loaded when first asked for (memory-mapped, on the CPU)."""
+
+  def __init__(self, directory: str):
+    self._dir = directory
+    self._files: Optional[List[Dict[str, Any]]] = None
+
+  def __getitem__(self, path: str) -> List[Dict[str, Any]]:
+    if self._files is None:
+      names = sorted(n for n in os.listdir(self._dir)
+                     if re.match(r'^rank-\d+\.pt$', n))
+      self._files = [torch.load(os.path.join(self._dir, n),
+                                map_location='cpu', weights_only=True,
+                                mmap=True) for n in names]
+    return [f[path] for f in self._files if path in f]
 
 
 class CheckpointManager:
-  """Saves, lists, prunes and restores the checkpoints of one directory."""
+  """Saves, lists, prunes and restores the checkpoints of one directory.
+
+  ``ctx``: the world that saves (a world of one when None); every rank
+  of a world of more than one rank calls :meth:`save` at the same step.
+  """
 
   def __init__(self, directory: str, max_to_keep: Optional[int] = 5, *,
-               device: torch.device, grow_vocab: bool = False):
+               device: torch.device, grow_vocab: bool = False,
+               ctx: Optional[Context] = None):
     self._dir = os.path.abspath(directory)
     self._max_to_keep = max_to_keep
     self._device = torch.device(device)
     self._grow = grow_vocab
+    self._ctx = ctx
     os.makedirs(self._dir, exist_ok=True)
+
+  @property
+  def _world(self) -> int:
+    return self._ctx.world_size if self._ctx is not None else 1
 
   def _path(self, step: int) -> str:
     return os.path.join(self._dir, f'checkpoint-{step}.pt')
 
+  def _dir_of(self, step: int) -> str:
+    return os.path.join(self._dir, f'checkpoint-{step}')
+
   def all_steps(self) -> List[int]:
-    return sorted(int(m.group(1)) for m in map(_NAME.match,
-                                               os.listdir(self._dir)) if m)
+    steps = []
+    for name in os.listdir(self._dir):
+      m = _FILE.match(name)
+      if m:
+        steps.append(int(m.group(1)))
+        continue
+      m = _DIR.match(name)
+      if m and os.path.exists(os.path.join(self._dir, name, _MANIFEST)):
+        steps.append(int(m.group(1)))
+    return sorted(steps)
 
   def latest_step(self) -> Optional[int]:
     steps = self.all_steps()
@@ -60,39 +162,80 @@ class CheckpointManager:
     latest = self.latest_step()
     if latest is not None and step <= latest:
       return False
-    tmp = os.path.join(self._dir, f'.checkpoint-{step}.pt.{os.getpid()}.tmp')
-    torch.save(state, tmp)
-    os.replace(tmp, self._path(step))
-    if self._max_to_keep:
-      for old in self.all_steps()[:-self._max_to_keep]:
-        os.remove(self._path(old))
+    if self._world == 1:
+      _write(_unshard(state), self._path(step))
+      self._prune()
+      return True
+    ctx = self._ctx
+    out = self._dir_of(step)
+    os.makedirs(out, exist_ok=True)
+    pieces: Dict[str, Any] = {}
+    replicated = _split(state, '', pieces)
+    _write(pieces, os.path.join(out, f'rank-{ctx.rank}.pt'))
+    if ctx.is_chief:
+      _write(replicated, os.path.join(out, 'replicated.pt'))
+    self._barrier()
+    if ctx.is_chief:
+      tmp = os.path.join(out, f'.{_MANIFEST}.tmp')
+      with open(tmp, 'w') as f:
+        json.dump({'step': step, 'world': ctx.world_size}, f)
+      os.replace(tmp, os.path.join(out, _MANIFEST))
+      self._prune()
+    # Every rank sees the manifest before it decides its next save.
+    self._barrier()
     return True
+
+  def _barrier(self) -> None:
+    from hybridbackend_tpu_torch.distribute import collective
+    float(collective.allreduce(torch.zeros(1, device=self._ctx.device),
+                               ctx=self._ctx))
+
+  def _prune(self) -> None:
+    if not self._max_to_keep:
+      return
+    for old in self.all_steps()[:-self._max_to_keep]:
+      if os.path.exists(self._path(old)):
+        os.remove(self._path(old))
+      else:
+        shutil.rmtree(self._dir_of(old), ignore_errors=True)
 
   def restore(self, template: Any, step: Optional[int] = None) -> Any:
     """The checkpoint of ``step`` (the latest by default) in the
-    template's structure; the template itself when there is none."""
+    template's structure, every :class:`Shard` of it a tensor of its
+    rows; the template itself when there is none."""
     if step is None:
       step = self.latest_step()
     if step is None:
       return template
-    stored = torch.load(self._path(step), map_location=self._device,
-                        weights_only=True)
-    return self._merge(stored, template, '')
+    if os.path.exists(self._path(step)):
+      stored = torch.load(self._path(step), map_location=self._device,
+                          weights_only=True)
+      return self._merge(stored, template, '', None)
+    directory = self._dir_of(step)
+    stored = torch.load(os.path.join(directory, 'replicated.pt'),
+                        map_location=self._device, weights_only=True)
+    return self._merge(stored, template, '', _Pieces(directory))
 
-  def _merge(self, stored: Any, template: Any, path: str) -> Any:
+  def _merge(self, stored: Any, template: Any, path: str,
+             pieces: Optional[_Pieces]) -> Any:
     if isinstance(template, dict):
       if not isinstance(stored, dict):
         raise ValueError(f'{path or "/"}: stored {type(stored).__name__}, '
                          'the template has a dict')
-      return {k: (self._merge(stored[k], v, f'{path}/{k}') if k in stored
-                  else v) for k, v in template.items()}
+      return {k: (self._merge(stored[k], v, f'{path}/{k}', pieces)
+                  if k in stored else v) for k, v in template.items()}
     if isinstance(template, (list, tuple)):
       if not isinstance(stored, (list, tuple)) or len(stored) != len(
           template):
         raise ValueError(f'{path}: stored {stored!r:.80} does not fit a '
                          f'sequence of {len(template)}')
-      return type(template)(self._merge(s, t, f'{path}/{i}') for i, (s, t)
-                            in enumerate(zip(stored, template)))
+      return type(template)(self._merge(s, t, f'{path}/{i}', pieces)
+                            for i, (s, t) in enumerate(zip(stored, template)))
+    if isinstance(stored, dict) and _SHARD_KEY in stored:
+      return self._rows(stored[_SHARD_KEY], pieces[path], template, path)
+    if isinstance(template, Shard):
+      piece = {'segments': [(0, 0, stored.shape[0])], 'value': stored}
+      return self._rows(stored.shape[0], [piece], template, path)
     if not isinstance(template, torch.Tensor):
       return stored
     value = stored.to(device=template.device, dtype=template.dtype)
@@ -107,5 +250,54 @@ class CheckpointManager:
     raise ValueError(f'{path}: stored {tuple(value.shape)} does not fit '
                      f'{tuple(template.shape)}')
 
+  def _rows(self, stored_rows: int, pieces: List[Dict[str, Any]],
+            template: Any, path: str) -> torch.Tensor:
+    """The template leaf's rows: its logical ones from the stored
+    ``pieces`` (each ``{'segments', 'value'}``), its padding its own."""
+    value, segments, rows = _leaf(template)
+    if stored_rows != rows and not (self._grow and stored_rows < rows):
+      raise ValueError(f'{path}: stored {stored_rows} rows do not fit '
+                       f'{rows}')
+    out = value.clone()
+    for t_row, t_logical, t_count in segments:
+      lo, hi = t_logical, min(t_logical + t_count, stored_rows)
+      for piece in pieces:
+        src = piece['value']
+        if src.shape[1:] != out.shape[1:]:
+          raise ValueError(f'{path}: stored rows of {tuple(src.shape[1:])} '
+                           f'do not fit {tuple(out.shape[1:])}')
+        for p_row, p_logical, p_count in piece['segments']:
+          a, b = max(lo, p_logical), min(hi, p_logical + p_count)
+          if b > a:
+            out[t_row + a - t_logical:t_row + b - t_logical] = src[
+                p_row + a - p_logical:p_row + b - p_logical].to(
+                    device=out.device, dtype=out.dtype)
+    return out
 
-__all__ = ['CheckpointManager']
+
+def _unshard(state: Any) -> Any:
+  """``state`` with each :class:`Shard` its tensor (a world of one holds
+  every row)."""
+  if isinstance(state, dict):
+    return {k: _unshard(v) for k, v in state.items()}
+  if isinstance(state, (list, tuple)):
+    return type(state)(_unshard(v) for v in state)
+  return state.value if isinstance(state, Shard) else state
+
+
+def _split(state: Any, path: str, pieces: Dict[str, Any]) -> Any:
+  """``state`` with each :class:`Shard` replaced by its logical rows'
+  count, its rows put into ``pieces`` under its path."""
+  if isinstance(state, dict):
+    return {k: _split(v, f'{path}/{k}', pieces) for k, v in state.items()}
+  if isinstance(state, (list, tuple)):
+    return type(state)(_split(v, f'{path}/{i}', pieces)
+                       for i, v in enumerate(state))
+  if isinstance(state, Shard):
+    pieces[path] = {'segments': [list(s) for s in state.segments],
+                    'value': state.value}
+    return {_SHARD_KEY: state.rows}
+  return state
+
+
+__all__ = ['CheckpointManager', 'Shard']

@@ -8,6 +8,10 @@ with ``utils/summary.py`` (ROADMAP).
 One change from the reference: ``StepStatHook``'s input-stall part of
 each report counts the gets, stalls and waits since the previous report,
 not since the start, so a report describes its own window.
+
+In a world of more than one rank (a joined process group) every rank
+runs its hooks, and rank 0 alone writes their reports and logs, as the
+JAX package's chief does; a ``Policy``'s callback runs on every rank.
 """
 
 from __future__ import annotations
@@ -20,6 +24,14 @@ import numpy as np
 import torch
 
 LOG = logging.getLogger('hybridbackend_tpu_torch')
+
+
+def _chief() -> bool:
+  """Whether this process reports: rank 0 of a joined world, or a
+  process in no world."""
+  import torch.distributed as dist
+  return not (dist.is_available() and dist.is_initialized()) or (
+      dist.get_rank() == 0)
 
 
 class Hook:
@@ -127,7 +139,7 @@ class StepStatHook(Hook):
     return window
 
   def _report(self) -> None:
-    if not self._durations:
+    if not self._durations or not _chief():
       return
     d = np.asarray(self._durations)
     p10, p50, p90 = np.percentile(d, [10, 50, 90])
@@ -181,6 +193,8 @@ class LoggingHook(Policy):
   def __init__(self, every_n_steps: int = 100,
                log: Callable[[str], None] = LOG.info):
     def _cb(step, metrics):
+      if not _chief():
+        return
       parts = []
       for k, v in sorted(metrics.items()):
         try:

@@ -83,11 +83,14 @@ def test_din_harness_refuses_sessions_that_do_not_divide(capsys):
 def test_din_harness_refuses_the_dense_mode_in_a_world(capsys, monkeypatch,
                                                         flags, world):
   """The dense mode under the launcher, and its gradient wire anywhere,
-  are ROADMAP item 15b (5)."""
+  pass the harness's checks now (``test_torch_launcher.py`` runs the
+  dense mode as a world of two); only ``--wire-dtype``, the sparse
+  alltoall lookup's, is refused without ``--sparse``."""
   if world:
     monkeypatch.setenv('WORLD_SIZE', world)
-  assert din.main(SHAPE + flags) == 1
-  assert '15b (5)' in capsys.readouterr().err
+  assert din.unsupported(din.parse_args(SHAPE + flags)) is None
+  assert din.main(SHAPE + ['--wire-dtype', 'bfloat16']) == 1
+  assert '--wire-dtype' in capsys.readouterr().err
 
 
 @pytest.mark.parametrize('sessions', [0, 2])

@@ -11,8 +11,9 @@ functions on a sub-mesh of N of the suite's 8 virtual CPU devices
 (``Context(build_mesh(jax.devices()[:N]))``) from the same numpy inputs.
 
 The updates and steps that ROADMAP item 15b (1) and (4) ported build or
-run at a world of two (one launch); what is still out of scope raises,
-naming its part of item 15b.
+run at a world of two (one launch), and the dense step's gradient wire
+(15b (5)) runs at a world of one as a no-op; what is still out of scope
+raises, naming its part of item 15b.
 
 Held bit for bit: the collectives (``all_to_all_v`` against JAX's
 ``alltoallv``), every lookup (both strategies, a forced bucket overflow
@@ -58,20 +59,35 @@ LAUNCH_S = 150            # a launch's deadline; the tests' is longer
 VOCAB, DIM, BATCH, K = 1000, 8, 64, 3
 
 
-def launch(world, cases, tmp):
-  """Runs ``cases`` in ``world`` gloo CPU ranks; returns each rank's
-  results."""
+def launch(world, cases, tmp, worker=WORKER):
+  """Runs ``cases`` in ``world`` gloo CPU ranks, each a process of
+  ``worker``; returns each rank's results."""
+  return launched(start_launch(world, cases, tmp, worker), world, tmp)
+
+
+def start_launch(world, cases, tmp, worker=WORKER):
+  """Starts :func:`launch`'s ranks and returns the launcher's process
+  (for :func:`launched`), so that this process works meanwhile."""
   with open(tmp / 'cases.pkl', 'wb') as f:
     pickle.dump(cases, f)
   env = dict(os.environ, OMP_NUM_THREADS='1')
-  out = subprocess.run(
+  return subprocess.Popen(
       [sys.executable, '-m', 'hybridbackend_tpu_torch.run', '--simulate',
        str(world), '--device', 'cpu', '--timeout', str(LAUNCH_S - 10),
-       '--collective-timeout', '60', WORKER, str(tmp / 'cases.pkl'),
-       str(tmp)], cwd=ROOT, env=env, capture_output=True, text=True,
-      timeout=LAUNCH_S)
-  assert out.returncode == 0, (out.returncode, out.stdout[-3000:],
-                               out.stderr[-3000:])
+       '--collective-timeout', '60', worker, str(tmp / 'cases.pkl'),
+       str(tmp)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+      stderr=subprocess.PIPE, text=True)
+
+
+def launched(proc, world, tmp):
+  """The results of each rank of :func:`start_launch`'s ``proc``."""
+  try:
+    stdout, stderr = proc.communicate(timeout=LAUNCH_S)
+  except subprocess.TimeoutExpired:
+    proc.kill()
+    stdout, stderr = proc.communicate()
+  assert proc.returncode == 0, (proc.returncode, stdout[-3000:],
+                                stderr[-3000:])
   results = []
   for rank in range(world):
     with open(tmp / f'{rank}.pkl', 'rb') as f:
@@ -250,12 +266,9 @@ RAISES = {
         torch.Generator(), torch.device('cpu'), _two()),
     'topology': lambda: hbt.distribute.allreduce(
         torch.ones(2), ctx=_two(), topology=hbt.distribute.Topology.INTRA_NODE),
-    'dense_step_wire': lambda: hbt.make_train_step(
-        lambda m, b: (torch.zeros(()), {}), gradient_wire_dtype='bfloat16'),
 }
 ITEMS = {'lookup_hierarchical': '15b (3)', 'lookup_gspmd': '15b (3)',
-         'column_table': '15b (3)', 'topology': '15b (3)',
-         'dense_step_wire': '15b (5)'}
+         'column_table': '15b (3)', 'topology': '15b (3)'}
 
 
 @pytest.mark.parametrize('case', sorted(RAISES))
@@ -271,14 +284,40 @@ def _fx(world, **kw):
       specs, ctx=hbt.Context('cpu', rank=0, world_size=world), **kw)
 
 
+def test_dense_step_wire_is_a_no_op_at_a_world_of_one():
+  """``make_train_step(gradient_wire_dtype='bfloat16')`` builds and, at a
+  world of one, steps as the f32 step does, bit for bit, with no
+  ``wire_grad`` (JAX ``want_wire``); it runs at a world of N in
+  ``test_torch_sharded_trainer.py``."""
+  states = []
+  for wire in (None, 'bfloat16'):
+    module = torch.nn.Linear(4, 1)
+    with torch.no_grad():
+      module.weight.copy_(torch.arange(4.0).reshape(1, 4) / 10)
+      module.bias.zero_()
+    state = hbt.TrainState.create(
+        module, torch.optim.SGD(module.parameters(), lr=0.1))
+    step = hbt.make_train_step(
+        lambda m, b: (torch.mean((m(b['x']) - 1.0) ** 2), {}),
+        gradient_wire_dtype=wire, ctx=hbt.Context('cpu'))
+    state, metrics = step(state, {'x': torch.ones(3, 4) / 3})
+    assert 'wire_grad' not in metrics
+    states.append(module.weight.detach().clone())
+  assert torch.equal(*states) and not torch.equal(
+      states[0], torch.arange(4.0).reshape(1, 4) / 10)
+
+
 @pytest.mark.parametrize('case,item', [
-    ('trainer', '15b (5)'), ('interleave', '15b (7)')])
+    ('trainer', '15b (10)'), ('interleave', '15b (7)')])
 def test_world_steps_out_of_scope_raise(case, item):
+  """What a world of two still refuses: the interleaved step, and a
+  ``SparseTrainer`` with host-backed tables (the trainer itself runs
+  there, ``test_torch_sharded_trainer.py``)."""
   fx = _fx(2)
   loss = lambda *a: (torch.zeros(()), {})
   build = {
       'trainer': lambda: hbt.SparseTrainer(fx, loss, torch.nn.Linear(4, 1),
-                                           tables={}),
+                                           tables={}, caches={'t': None}),
       'interleave': lambda: hbt.make_interleaved_train_step(fx, loss, 2),
   }[case]
   with pytest.raises(NotImplementedError, match=item.replace(

@@ -5,8 +5,9 @@ Counterpart of ``tests/test_launcher.py``: gloo CPU ranks
 boundary, a failing rank that takes its peers down, a world past its
 deadline, a collective whose peer never comes, and whole lines relayed
 from every rank; then the train harness as a world of two (also with
-per-occurrence Adagrad on bf16 tables and a bf16 gradient wire), and the
-DIN harness's raw-mode sparse step as one. Every launch
+per-occurrence Adagrad on bf16 tables and a bf16 gradient wire), the
+DIN harness's raw-mode sparse step as one, and both harnesses' dense
+modes as worlds of two, against their world of one. Every launch
 has a ``subprocess`` deadline, so that a hang fails one test.
 """
 
@@ -137,13 +138,15 @@ def test_harness_as_a_world_of_two():
   assert got['final_loss'] == got['final_loss'] > 0
 
 
-def _launched(module, *flags):
-  """``module`` as a world of two gloo CPU ranks at a tiny shape; its one
-  JSON line, which rank 0 alone prints."""
+def _launched(module, *flags, sparse=True):
+  """``module`` as a world of two gloo CPU ranks at a tiny shape (its
+  ``--sparse`` mode unless ``sparse`` is False); its one JSON line, which
+  rank 0 alone prints."""
   env = dict(os.environ, OMP_NUM_THREADS='1')
+  mode = ['--sparse'] if sparse else []
   out = subprocess.run(
       [sys.executable, '-m', 'hybridbackend_tpu_torch.run', '--simulate',
-       '2', '--timeout', '120', '-m', module, '--sparse', '--device', 'cpu',
+       '2', '--timeout', '120', '-m', module, *mode, '--device', 'cpu',
        '--repeats', '1', '--inner-steps', '2', '--json', *flags], cwd=ROOT,
       env=env, capture_output=True, text=True, timeout=140)
   assert out.returncode == 0, out.stderr[-2000:]
@@ -176,3 +179,31 @@ def test_din_harness_as_a_world_of_two():
   assert (got['world'], got['lookup'], got['backend'], got['batch']) == (
       2, 'alltoall', 'gloo', 64)
   assert got['final_loss'] == got['final_loss'] > 0
+
+
+DENSE_HARNESSES = {
+    'train': ('hybridbackend_tpu_torch.benchmarks.train_benchmark',
+              ('--tables', '2', '--vocab', '1000', '--batch', '64',
+               '--dense-features', '3', '--gradient-wire-dtype', 'bfloat16')),
+    'din': ('hybridbackend_tpu_torch.benchmarks.din_benchmark',
+            ('--batch', '64', '--hist', '8', '--vocab', '1000', '--dim', '8')),
+}
+
+
+@pytest.mark.timeout(150)
+@pytest.mark.parametrize('harness', sorted(DENSE_HARNESSES))
+def test_dense_harness_as_a_world_of_two(harness):
+  """The dense mode as a world of two: data-parallel, the tables
+  row-sharded; the final loss is the world of one's, to the order of the
+  sums over the ranks (the train harness asks for a bf16 gradient wire,
+  which falls back to f32 with sharded tables)."""
+  import importlib
+  module, flags = DENSE_HARNESSES[harness]
+  got = _launched(module, *flags, sparse=False)
+  assert (got['world'], got['backend'], got['sparse']) == (2, 'gloo', False)
+  mod = importlib.import_module(module)
+  one = mod.run(mod.parse_args(['--device', 'cpu', '--repeats', '1',
+                                '--inner-steps', '2', *flags]))
+  assert one['world'] == 1
+  assert abs(got['final_loss'] - one['final_loss']) <= 1e-5 * one[
+      'final_loss']

@@ -71,7 +71,7 @@ def test_harness_steps_follow_the_table_dtype():
     (['--sparse', '--device', 'cpu', '--interleave', '2', '--no-dedup'],
      'not supported with --interleave'),
     (['--sparse', '--device', 'cpu', '--cpu', '4'], 'not ported'),
-    (['--device', 'cpu', '--gradient-wire-dtype', 'bfloat16'], '15b (5)'),
+    (['--device', 'cpu', '--wire-dtype', 'bfloat16'], 'alltoall lookup'),
 ])
 def test_harness_refuses_what_is_not_ported(capsys, flags, why):
   assert tb.main(flags) != 0
@@ -79,15 +79,39 @@ def test_harness_refuses_what_is_not_ported(capsys, flags, why):
 
 
 @pytest.mark.parametrize('flags,why', [
-    (['--device', 'cpu'], '15b (5)'),
+    (['--device', 'cpu'], None),
     (['--sparse', '--device', 'cpu', '--interleave', '2'], '15b (7)'),
 ])
 def test_harness_refuses_in_a_world_what_is_not_ported(monkeypatch, flags,
                                                        why):
-  """Under the launcher (``WORLD_SIZE`` set) the dense mode and the
-  interleaved step still name their parts of ROADMAP item 15b."""
+  """Under the launcher (``WORLD_SIZE`` set) the interleaved step still
+  names its part of ROADMAP item 15b; the dense mode runs there
+  (``test_torch_launcher.py``)."""
   monkeypatch.setenv('WORLD_SIZE', '2')
-  assert why in tb.unsupported(tb.parse_args(flags))
+  got = tb.unsupported(tb.parse_args(flags))
+  assert got is None if why is None else why in got
+
+
+def test_dense_step_takes_a_gradient_wire_at_a_world_of_one():
+  """``--gradient-wire-dtype`` in the dense mode: at a world of one there
+  is no wire, and the step is the f32 one, bit for bit, with no
+  ``wire_grad``."""
+  args = tb.parse_args(['--device', 'cpu', '--tables', '2', '--vocab',
+                        '1000', '--batch', '64', '--dense-features', '3'])
+  assert tb.unsupported(args) is None
+  wired = tb.parse_args(['--device', 'cpu', '--tables', '2', '--vocab',
+                         '1000', '--batch', '64', '--dense-features', '3',
+                         '--gradient-wire-dtype', 'bfloat16'])
+  assert tb.unsupported(wired) is None
+  cpu = torch.device('cpu')
+  base, ids = tb.make_batch(args, cpu)
+  metrics = []
+  for a in (args, wired):
+    state, step = tb.build(a, cpu)
+    state, m = step(state, tb.shifted(base, ids, a.vocab, 0))
+    metrics.append(m)
+  assert 'wire_grad' not in metrics[1]
+  assert torch.equal(metrics[0]['loss'], metrics[1]['loss'])
 
 
 def test_harness_takes_every_table_option_in_a_world(monkeypatch):
