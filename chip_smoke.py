@@ -262,6 +262,28 @@ Phases; any failure raises and the script exits nonzero:
      Meanwhile this process runs the ``SparseTrainer`` in a joined NCCL
      world of one (2 steps, checkpoints, an evaluation) against the same
      trainer in no world, bit for bit.
+ 35. node groups and the last three exchanges: one launch of 4 gloo ranks
+     in 2 nodes of 2 sharing the card (``--simulate 4 --nodes 2``,
+     ``chip_smoke.py --rank-of DIR`` with ``{"phase": 35}``), from the
+     seed's state on the ranks' rows of the global batch of 8192, 3 steps
+     each of the flagship DCNv2 + Adagrad under the ``hierarchical``
+     lookup (intra-node, then inter-node), the same with both bucket
+     ratios so low that every lookup and update falls back to the exact
+     exchange, and under ``gspmd``; with every table column-sharded
+     (each rank every row of a 4-wide slice of the [2600000, 16] stack,
+     kernel 1 on the whole batch's list); DLRM + LazyAdam on column
+     tables (kernel 3); then the dense ``Trainer`` through the
+     hierarchical lookup, 3 steps. Each is held against the world of one
+     on the card, each step from one tower, by phase 33's rules (the
+     loss to 1e-5, the gathered state, the tower by phase 18's rule,
+     LazyAdam by its flip rule), the dense Trainer's loss, tables and
+     accumulators to 1e-5; every rank's last update kernel runs again on
+     a copy of its list against its plain version on the CPU; then 5
+     timed steps a case (gloo ranks sharing one card: a check's cost).
+     Meanwhile this process joins a NCCL world of one (one node): each
+     topology's collectives on its subgroups, then 2 steps each of the
+     hierarchical and column cases against the same steps in no world,
+     bit for bit.
 With ``--profile`` it then traces 10 steps of each timed variant and of
 the DIN harness's ``--sparse`` step with and without sessions with
 ``torch.profiler`` and prints device time per step by kernel class; in
@@ -277,7 +299,7 @@ second-to-last line is a JSON object describing each kernel (its times,
 launches on its path, in the trainers' runs, in the runs from Parquet
 files, in the served predicts, in the DIN phases, in the host-table
 phases, in the pipelining phases, in phase 33's ranks (phase 32's
-cases, then the others) and in phase 34's worlds,
+cases, then the others), in phase 34's worlds and in phase 35's,
 and its bound: the
 larger of its bytes over 3.35 TB/s and its operations over the card's
 peak rate); the last line is
@@ -4286,7 +4308,7 @@ def _wire_probe(ctx):
 
 
 def _run_record(ctx, state, step, batch, steps, apply_counter, timed,
-                capture, every_state=False):
+                capture, every_state=False, column=False):
   """``steps`` steps of ``step`` from ``state`` on ``batch(i)``: the
   losses, rank 0's tower and Adam moments after each, this rank's table
   and slots (copies) after the last, and with ``every_state`` after each
@@ -4313,8 +4335,9 @@ def _run_record(ctx, state, step, batch, steps, apply_counter, timed,
       rec['tower'] = _tower_values(state)
     if before is not None:
       idx = _changed_rows(shard, before)
-      rec['delta'] = (idx.cpu() + ctx.rank * shard[0].shape[0],
-                      [t[idx].cpu() for t in shard])
+      # A column shard's rows are the table's own.
+      offset = 0 if column else ctx.rank * shard[0].shape[0]
+      rec['delta'] = (idx.cpu() + offset, [t[idx].cpu() for t in shard])
     if last:
       rec['state'] = [t.to('cpu', copy=True) for t in shard]
     trace.append(rec)
@@ -4618,7 +4641,7 @@ def _hold_wire_tower(label, net, one_net, opt, one_opt, before, lr, report):
                            f'{float(diff.max())}')
 
 
-def _hold_world33(label, case, dev, ranks, flags):
+def _hold_world33(label, case, dev, ranks, flags, spec=None):
   """One case's records at a world of N against the world of one on the
   card (the same seed, the whole table), each step from one tower: before
   step ``i`` the world of one takes rank 0's tower and Adam moments after
@@ -4648,8 +4671,9 @@ def _hold_world33(label, case, dev, ranks, flags):
     make_tower = lambda: din._tower(args, torch.device('cpu'),
                                     torch.Generator())
   else:
-    _, optimizer, split, _, _, _ = PHASE33_CASES[case]
-    args = _phase33_args(case, flags)
+    spec = spec or PHASE33_CASES[case]
+    optimizer, split = spec[1], spec[2]
+    args = flagship(*flags, *spec[0])
     state, step = tb.build(args, dev, optimizer, split)
     batch = functools.partial(tb.shifted, *tb.make_batch(
         args, dev, PHASE33_BATCH_SEED), args.vocab)
@@ -4659,6 +4683,7 @@ def _hold_world33(label, case, dev, ranks, flags):
   (name,) = state.tables
   live = [state.tables[name], *state.table_opt[name].acc]
   keys = ['table'] + (['m', 'v'] if optimizer == 'adam' else ['acc'])
+  column = spec is not None and spec[6:] == ('column',)
   initial = live[0].to('cpu', copy=True)
   init_state(state.dense_opt)
   group = state.dense_opt.param_groups[0]
@@ -4730,10 +4755,10 @@ def _hold_world33(label, case, dev, ranks, flags):
     prev = g_vals
     if pre is not None:
       _hold_delta33(step_label, ranks, i, live, pre, keys, optimizer, bf16,
-                    wire, report)
+                    wire, report, column)
     if 'state' in ranks[0]['trace'][i]:
       _hold_state33(step_label, ranks, i, live, keys, optimizer, bf16, wire,
-                    step_rows, report)
+                    step_rows, report, column)
   if touched is not None:
     keep = torch.ones(initial.shape[0], dtype=torch.bool)
     keep[touched] = False
@@ -4746,26 +4771,29 @@ def _hold_world33(label, case, dev, ranks, flags):
 
 
 def _hold_delta33(label, ranks, i, live, pre, keys, optimizer, bf16, wire,
-                  report):
+                  report, column=False):
   """Step ``i`` of an ``_every_state`` case, from one state (``pre``, the
   world of one's state before it, is the world's): on the rows that
   either side changed, the world's table and slots (its changed rows
-  from the ranks' records, the others as they were) against the world of
-  one's (``live``) by ``_state_close``, and then the world of one takes
-  the world's values there, so that the next step starts from one state
-  again."""
+  from the ranks' records, the others as they were; of a column-sharded
+  case each rank's columns) against the world of one's (``live``) by
+  ``_state_close``, and then the world of one takes the world's values
+  there, so that the next step starts from one state again."""
   dev = live[0].device
+  world_n, width = len(ranks), live[0].shape[1]
   rows_w = torch.cat([r['trace'][i]['delta'][0] for r in ranks]).to(dev)
-  vals_w = [torch.cat([r['trace'][i]['delta'][1][k] for r in ranks]).to(dev)
-            for k in range(len(live))]
   union = torch.zeros(live[0].shape[0], dtype=torch.bool, device=dev)
   union[_changed_rows(live, pre)] = True
   union[rows_w] = True
   rows = union.nonzero().squeeze(1)
-  at = torch.searchsorted(rows, rows_w)
   world = [x[rows] for x in pre]
-  for w, v in zip(world, vals_w):
-    w[at] = v
+  for r, rec in enumerate(ranks):
+    got_rows, got_vals = rec['trace'][i]['delta']
+    at = torch.searchsorted(rows, got_rows.to(dev))
+    cols = (slice(r * width // world_n, (r + 1) * width // world_n)
+            if column else slice(None))
+    for w, v in zip(world, got_vals):
+      w[at, cols] = v.to(dev)
   ones = [x[rows] for x in live]
   m_moved = (world[1] != ones[1]) if optimizer == 'adam' else None
   for key, w, one, x in zip(keys, world, ones, live):
@@ -4777,14 +4805,15 @@ def _hold_delta33(label, ranks, i, live, pre, keys, optimizer, bf16, wire,
 
 
 def _hold_state33(label, ranks, i, live, keys, optimizer, bf16, wire,
-                  step_rows, report):
-  """The world's gathered table and slots after step ``i`` against the
-  world of one's (``live``), on the card, by ``_state_close``; a failure
-  names its largest difference's row, every state's values there on both
-  sides, and the steps whose batch held that row."""
+                  step_rows, report, column=False):
+  """The world's gathered table and slots (a column-sharded case's joined
+  along the dim) after step ``i`` against the world of one's (``live``),
+  on the card, by ``_state_close``; a failure names its largest
+  difference's row, every state's values there on both sides, and the
+  steps whose batch held that row."""
   dev = live[0].device
-  gots = [torch.cat([r['trace'][i]['state'][k] for r in ranks]).to(dev)
-          for k in range(len(live))]
+  gots = [torch.cat([r['trace'][i]['state'][k] for r in ranks],
+                    dim=int(column)).to(dev) for k in range(len(live))]
   ones = live
   m_moved = (gots[1] != ones[1]) if optimizer == 'adam' else None
   for key, got, one in zip(keys, gots, ones):
@@ -5445,6 +5474,276 @@ def phase34_trainers(dev, smi):
   return launches
 
 
+PHASE35_WORLD, PHASE35_NODES = 4, 2   # gloo ranks sharing the card
+PHASE35_STEPS = 3           # each case's steps held against the world of one
+PHASE35_TIMED = 5           # and the steps timed after them
+PHASE35_LAUNCH_S = 400
+PHASE35_NCCL_STEPS = 2
+# case -> phase 33's fields (harness flags, table optimizer, split-dense,
+# the step's exchange options, the kernel its update launches, the
+# (lookup, update) fallbacks a step), then the tables' partition.
+# 'hierarchical_fallback': both bucket ratios so low that every lookup and
+# update overflows, so the exact exchanges run on every step.
+PHASE35_CASES = {
+    'hierarchical': (('--lookup', 'hierarchical'), 'adagrad', False, {},
+                     'adagrad_update_sorted', (0, 0), 'row'),
+    'hierarchical_fallback': (
+        ('--lookup', 'hierarchical'), 'adagrad', False,
+        dict(lookup_bucket_ratio=0.01, update_bucket_ratio=0.01),
+        'adagrad_update_sorted', (1, 1), 'row'),
+    'gspmd': (('--lookup', 'gspmd'), 'adagrad', False, {},
+              'adagrad_update_sorted', (0, 0), 'row'),
+    'column_adagrad': ((), 'adagrad', False, {}, 'adagrad_update_sorted',
+                       (0, 0), 'column'),
+    'column_adam': (('--model', 'dlrm'), 'adam', False, {},
+                    'adam_update_sorted', (0, 0), 'column'),
+}
+PHASE35_NCCL = ('hierarchical', 'column_adagrad')
+
+
+def _phase35_build(case, dev, ctx=None, flags=None):
+  """A phase 35 case's harness flags, state, step and batch (the rank's
+  rows of the global batch in the world ``ctx``), on ``SHARDED_FLAGS``
+  unless ``flags`` says otherwise."""
+  own, optimizer, split, exchange, _, _, partition = PHASE35_CASES[case]
+  args = flagship(*(SHARDED_FLAGS if flags is None else flags), *own)
+  state, step = tb.build(args, dev, optimizer, split, ctx=ctx,
+                         partition=partition, **exchange)
+  rows = ctx.rows(args.batch) if ctx is not None else slice(None)
+  batch = functools.partial(tb.shifted, *tb.make_batch(
+      args, dev, PHASE33_BATCH_SEED, rows=rows), args.vocab)
+  return args, state, step, batch
+
+
+def phase35_rank(out, device, spec):
+  """One rank of phase 35 (``chip_smoke.py --rank-of DIR`` with
+  ``{"phase": 35}``), of ``PHASE35_NODES`` nodes: each case of
+  ``PHASE35_CASES`` from the seed's state on its rows of the global
+  batch, recorded by ``_run_record`` with its last held step's update
+  calls held by ``_hold_lists``, to ``DIR/<case>.<rank>.pt``; then the
+  dense ``Trainer`` through the hierarchical lookup, 3 steps, its losses
+  and rank 0's tower after each, and the gathered tables and
+  accumulators, to ``DIR/dense.<rank>.pt``. ``spec['flags']``: the
+  harness flags (``SHARDED_FLAGS``)."""
+  import hybridbackend_tpu_torch as hbt
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  ctx = hbt.Context.join(device)
+  try:
+    dev, flags = ctx.device, spec['flags']
+    with _ListCapture() as capture:
+      for case in PHASE35_CASES:
+        args, state, step, batch = _phase35_build(case, dev, ctx, flags)
+        optimizer, column = PHASE35_CASES[case][1], (
+            PHASE35_CASES[case][6] == 'column')
+        apply = (hbt.sparse_adam_apply if optimizer == 'adam'
+                 else hbt.sparse_adagrad_apply)
+        record = _run_record(ctx, state, step, batch, PHASE35_STEPS, apply,
+                             PHASE35_TIMED, capture,
+                             _every_state(optimizer, args), column)
+        record['lists'] = _hold_lists(capture.take())
+        (name,) = state.tables
+        record['shard'] = tuple(state.tables[name].shape)
+        torch.save(record, os.path.join(out, f'{case}.{ctx.rank}.pt'))
+        del state, step, record
+    args = flagship(*flags, '--lookup', 'hierarchical')
+    loss_fn, module, optimizer = tb.dense_parts(args, dev, ctx)
+    dtr = hbt.Trainer(loss_fn, module, optimizer, ctx=ctx)
+    rec = {'loss': [], 'tower': []}
+
+    class _Record(hbt.Hook):
+      def after_step(self, step, metrics):
+        rec['loss'].append(float(metrics['loss']))
+        if ctx.rank == 0:
+          rec['tower'].append(_net_values(module['net'], optimizer))
+
+    base, ids = tb.make_batch(args, torch.device('cpu'), PHASE33_BATCH_SEED,
+                              rows=ctx.rows(args.batch))
+    dtr.train([tb.shifted(base, ids, args.vocab, i)
+               for i in range(PHASE35_STEPS)], hooks=[_Record()])
+    rec['tower_equal'] = _ranks_agree(
+        ctx, [p for p in module.parameters() if hbt.table_shard(p) is None])
+    state = _dense_state(module, optimizer, ctx)
+    if ctx.rank == 0:
+      rec['state'] = state
+    torch.save(rec, os.path.join(out, f'dense.{ctx.rank}.pt'))
+  finally:
+    ctx.leave()
+  return 0
+
+
+def _phase35_nccl(dev):
+  """A joined world of one on NCCL (on the CPU rehearsal, gloo), with
+  ``--nodes 1``'s layout: each topology's all-reduce and ``all_to_all_v``
+  on its subgroups (bitwise their input at a world of one), then
+  ``PHASE35_NCCL_STEPS`` steps of each ``PHASE35_NCCL`` case against the
+  same steps in no world, bit for bit. Returns the backend, the kernel
+  launches of the joined steps and their losses."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.distribute import collective
+  backend = 'nccl' if dev.type == 'cuda' else 'gloo'
+  want = {}
+  for case in PHASE35_NCCL:
+    _, state, step, batch = _phase35_build(case, dev)
+    want[case] = [float(step(state, batch(i))[1]['loss'])
+                  for i in range(PHASE35_NCCL_STEPS)]
+    del state, step
+  with tempfile.TemporaryDirectory() as tmp:
+    ctx = hbt.Context.join(str(dev), backend, rank=0, world_size=1,
+                           init_method=f'file://{tmp}/store', timeout_s=120)
+    try:
+      x = torch.arange(12.0, device=ctx.device)
+      for topology in collective.Topology:
+        got = collective.allreduce(x, ctx=ctx, topology=topology)
+        recv, _ = collective.all_to_all_v(
+            x.reshape(1, 12), torch.full((1,), 5, dtype=torch.int32,
+                                         device=ctx.device),
+            ctx=ctx, topology=topology)
+        if not (torch.equal(got, x) and torch.equal(recv.reshape(-1), x)):
+          raise AssertionError(f'phase 35, {backend} world of one: '
+                               f'{topology!r} changed its input')
+      _reset_counts()
+      got = {}
+      for case in PHASE35_NCCL:
+        _, state, step, batch = _phase35_build(case, ctx.device, ctx)
+        got[case] = [float(step(state, batch(i))[1]['loss'])
+                     for i in range(PHASE35_NCCL_STEPS)]
+        del state, step
+      if dev.type == 'cuda':
+        torch.cuda.synchronize(dev)
+      counts = _counts()
+    finally:
+      ctx.leave()
+  _expect(f'phase 35, the {backend} world of one', counts,
+          adagrad_update_sorted=PHASE35_NCCL_STEPS * len(PHASE35_NCCL))
+  if got != want:
+    raise AssertionError(f'phase 35, the {backend} world of one: losses '
+                         f'{got}, no world {want}')
+  return backend, counts, got
+
+
+def _hold_dense35(dev, rec0, report):
+  """The dense ``Trainer``'s world of one, 3 steps each from rank 0's
+  tower, against the world's losses (1e-5 relative) and its gathered
+  tables and accumulators (1e-5)."""
+  import hybridbackend_tpu_torch as hbt
+  args = flagship(*SHARDED_FLAGS, '--lookup', 'hierarchical')
+  loss_fn, module, optimizer = tb.dense_parts(args, dev)
+  dtr = hbt.Trainer(loss_fn, module, optimizer, ctx=hbt.Context(dev))
+  base, ids = tb.make_batch(args, torch.device('cpu'), PHASE33_BATCH_SEED)
+  initial = _net_values(module['net'], optimizer)
+  for i in range(PHASE35_STEPS):
+    _load_net(module['net'], optimizer,
+              initial if i == 0 else rec0['tower'][i - 1])
+    one = dtr.train(iter([tb.shifted(base, ids, args.vocab, i)]))['loss']
+    rel = abs(rec0['loss'][i] - one) / abs(one)
+    report['dense_loss_rel_err'] = max(report['dense_loss_rel_err'], rel)
+    if rel > 1e-5:
+      raise AssertionError(f'phase 35, dense step {i + 1}: loss '
+                           f'{rec0["loss"][i]}, a world of one {one}')
+  one_state = _dense_state(module, optimizer, None)
+  for key in ('tables', 'acc'):
+    for n, t in one_state[key].items():
+      _close34(f'phase 35, dense {key} {n}', t, rec0['state'][key][n], 1e-5,
+               report, f'dense_{key}_err')
+
+
+def phase35_exchanges(dev, smi):
+  """Phase 35: node groups and the last three exchanges at a world of
+  ``PHASE35_WORLD`` gloo ranks in ``PHASE35_NODES`` nodes sharing the card
+  (see the module docstring). Returns the kernel launches of the world's
+  held steps summed over its ranks and of the NCCL world of one's
+  steps."""
+  t_phase = time.perf_counter()
+  launches = collections.Counter()
+  failures, times, lists = [], [], []
+  with tempfile.TemporaryDirectory() as out:
+    cmd = [sys.executable, '-m', 'hybridbackend_tpu_torch.run', '--simulate',
+           str(PHASE35_WORLD), '--nodes', str(PHASE35_NODES), '--device',
+           SHARDED_DEVICE, '--timeout', str(PHASE35_LAUNCH_S),
+           os.path.join(HERE, 'chip_smoke.py'), '--rank-of', out,
+           '--rank-device', SHARDED_DEVICE,
+           '--rank-flags', json.dumps(dict(phase=35,
+                                           flags=list(SHARDED_FLAGS)))]
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    # The NCCL world of one meanwhile, in this process.
+    try:
+      backend, counts, nccl_losses = _phase35_nccl(dev)
+    finally:
+      stdout, stderr = proc.communicate(timeout=PHASE35_LAUNCH_S + 60)
+    launch_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+      raise RuntimeError(f'phase 35: the world of {PHASE35_WORLD} exited '
+                         f'{proc.returncode}:\n{stderr[-4000:]}')
+    launches.update(counts)
+    t0 = time.perf_counter()
+    load = lambda case: [torch.load(os.path.join(out, f'{case}.{r}.pt'))
+                         for r in range(PHASE35_WORLD)]
+    for case, spec in PHASE35_CASES.items():
+      label = (f'phase 35, {PHASE35_WORLD} ranks in {PHASE35_NODES} nodes, '
+               f'{case}')
+      ranks = load(case)
+      try:
+        kernel, per_step = spec[4], spec[5]
+        want_fallbacks = tuple(PHASE35_STEPS * f for f in per_step)
+        for r, rec in enumerate(ranks):
+          _expect(f'{label}, rank {r}', rec['counts'],
+                  **{kernel: PHASE35_STEPS})
+          launches.update(rec['counts'])
+          if tuple(rec['fallbacks']) != want_fallbacks:
+            raise AssertionError(f'{label}, rank {r}: (lookup, update) '
+                                 f'fallbacks {rec["fallbacks"]}, expected '
+                                 f'{want_fallbacks}')
+          if not rec['tower_equal']:
+            raise AssertionError(f'{label}: rank {r}\'s tower is not rank '
+                                 '0\'s')
+        report, apart_in = _hold_world33(label, case, dev, ranks,
+                                         SHARDED_FLAGS, spec)
+        times.append(f'{case} {ranks[0]["ms_per_step"]:.4f}')
+        print(f'{label} ({ranks[0]["backend"]} on {ranks[0]["device"]}, '
+              f'shard {ranks[0]["shard"]}): {PHASE35_STEPS} steps against a '
+              'world of one on the card, each from one tower: '
+              + ', '.join(f'{k} {v:.3e}' if isinstance(v, float)
+                          else f'{k} {v}' for k, v in report.items())
+              + f' (in {", ".join(sorted(apart_in)) or "none"}); {kernel} '
+              f'{PHASE35_STEPS} times on each rank; (lookup, update) '
+              f'fallbacks {[tuple(r["fallbacks"]) for r in ranks]} by rank')
+        _print_lists(label, ranks)
+        lists += [(case, c['kernel'], c['entries'], c['err'])
+                  for rec in ranks for c in rec['lists']]
+      except AssertionError as e:
+        # Every case runs; the phase fails at its end.
+        failures.append(str(e))
+        print(f'{label}: FAILED: {e}')
+      del ranks
+    dense = load('dense')
+    report = {'dense_loss_rel_err': 0.0}
+    if any(r['loss'] != dense[0]['loss'] for r in dense) or not all(
+        r['tower_equal'] for r in dense):
+      raise AssertionError('phase 35, dense: the ranks disagree on the '
+                           'losses or the replicated parameters')
+    _hold_dense35(dev, dense[0], report)
+    check_s = time.perf_counter() - t0
+  print(f'phase 35, the dense Trainer through the hierarchical lookup, '
+        f'{PHASE35_STEPS} steps against the world of one, each from rank '
+        '0\'s tower: ' + ', '.join(f'{k} {v:.3e}' for k, v in report.items())
+        + f'; the {backend} world of one (--nodes 1): each topology\'s '
+        'all-reduce and all_to_all_v on its subgroups bitwise, '
+        f'{PHASE35_NCCL_STEPS} steps of {", ".join(PHASE35_NCCL)}: losses '
+        f'{nccl_losses}, bit for bit those of no world')
+  print(f'phase 35 on {smi}: ms/step of rank 0 over {PHASE35_TIMED} steps '
+        f'(CUDA events): {", ".join(times)} -- gloo ranks sharing one card, '
+        'through the host: a check\'s cost, not NCCL, not NVLink, not a '
+        f'multi-GPU number; launch {launch_s:.1f} s, checks {check_s:.1f} s, '
+        f'phase {time.perf_counter() - t_phase:.1f} s')
+  if failures:
+    raise AssertionError(f'phase 35: {len(failures)} cases failed: '
+                         + ' | '.join(failures))
+  return launches
+
+
 _LAST_MARK = [time.perf_counter()]
 
 
@@ -5465,7 +5764,7 @@ def main() -> int:
                       'sizes, and kernels 1 and 3 over tile sizes and state '
                       'batches')
   parser.add_argument('--rank-of', metavar='DIR',
-                      help='run as one rank of phase 33 (or 34) under the '
+                      help='run as one rank of phase 33 (34, 35) under the '
                       'port\'s launcher, writing to DIR')
   parser.add_argument('--rank-device', default='cuda',
                       help='that rank\'s device')
@@ -5475,7 +5774,8 @@ def main() -> int:
   args = parser.parse_args()
   if args.rank_of:
     spec = json.loads(args.rank_flags)
-    rank = phase34_rank if spec.get('phase') == 34 else phase33_rank
+    rank = {34: phase34_rank, 35: phase35_rank}.get(spec.get('phase'),
+                                                    phase33_rank)
     return rank(args.rank_of, args.rank_device, spec)
   t_start = time.perf_counter()
   _LAST_MARK[0] = t_start
@@ -5596,6 +5896,8 @@ def main() -> int:
   _mark('phases 32-33')
   trainers_n_launches = phase34_trainers(dev, smi)
   _mark('phase 34')
+  exchanges_launches = phase35_exchanges(dev, smi)
+  _mark('phase 35')
   if args.profile:
     batch = functools.partial(tb.shifted, *tb.make_batch(cfg, dev),
                               cfg.vocab)
@@ -5666,7 +5968,13 @@ def main() -> int:
                  # checks on the received lists and the world of one's
                  # steps not counted).
                  'trainers_n_launches': (trainers_n_launches[name]
-                                         if name in tb.COUNTED else None)})
+                                         if name in tb.COUNTED else None),
+                 # Launches in phase 35: the held steps of every case
+                 # summed over the world's ranks, and the NCCL world of
+                 # one's steps (the timed steps and the checks on the
+                 # received lists not counted).
+                 'exchanges_launches': (exchanges_launches[name]
+                                        if name in tb.COUNTED else None)})
   print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s wall, every '
         'phase')
   print(json.dumps({'kernels': rows}))

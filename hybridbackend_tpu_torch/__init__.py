@@ -46,9 +46,10 @@ tested against. It imports ``torch`` and never ``jax``, and nothing from
 * a row gather with clipped ids and a stochastically rounded bf16 cast,
   each with its kernel;
 * a world of ranks (``Context.join``, the launcher ``python -m
-  hybridbackend_tpu_torch.run``, ``distribute``): the sparse step with
-  row-sharded stacks, looked up through the allgather or alltoall
-  exchange, their Adagrad, LazyAdam, SGD, per-occurrence or dense-split
+  hybridbackend_tpu_torch.run`` and its node groups, ``distribute`` over
+  every rank, a node's or a local rank's): the sparse step with
+  row-sharded stacks, looked up through the allgather, alltoall,
+  hierarchical or gspmd exchange, or column-sharded ones, their Adagrad, LazyAdam, SGD, per-occurrence or dense-split
   update routed to each row's owner and applied there through the
   update's kernel, f32 or bf16 tables, both model hooks, the tower
   data-parallel, and the lookup's rows and the gradients cast to bf16 or

@@ -17,8 +17,10 @@ and batch are drawn from seed 0, as there. Run on one CUDA device:
 
 Under the port's launcher the harness runs one rank of a world of N and
 takes its world from the process group: ``--sparse`` tables row-sharded
-over the ranks and looked up through ``--lookup allgather|alltoall``,
-the tower data-parallel. ``--batch`` is the global batch: every rank
+over the ranks and looked up through ``--lookup allgather|alltoall|
+hierarchical|gspmd`` (the JAX harness's ``HB_EMB_LOOKUP_STRATEGY``;
+``hierarchical`` runs over the launcher's ``--nodes``), the tower
+data-parallel. ``--batch`` is the global batch: every rank
 draws the same batch from the seed and steps on its rows of it, so a
 world of one and one of N consume the same data. Rank 0 alone prints
 the report, with the world, the strategy, the backend, and examples/s
@@ -36,7 +38,7 @@ all-reduce, the routed table gradients) on the wire, the counterparts of
 the JAX options ``HB_COMM_WIRE_DTYPE`` and ``HB_COMM_GRADIENT_WIRE_DTYPE``;
 at a world of one there is no wire and they change nothing, as in JAX.
 The dense mode runs there too: data-parallel, its tables row-sharded and
-looked up through the differentiable sharded lookup (``allgather``), each
+looked up through the differentiable sharded lookup (``--lookup``), each
 rank on its rows of the global batch. With row-sharded tables its
 ``--gradient-wire-dtype`` falls back to f32, as JAX's does
 (``make_train_step``); ``--wire-dtype`` applies to the sparse step's
@@ -128,7 +130,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                  choices=['float32', 'bfloat16'],
                  help='embedding table and slot storage dtype')
   p.add_argument('--lookup', default='allgather',
-                 choices=['allgather', 'alltoall'],
+                 choices=['allgather', 'alltoall', 'hierarchical', 'gspmd'],
                  help='the sharded tables\' exchange, under the launcher')
   p.add_argument('--wire-dtype', default='float32', choices=WIRE_DTYPES,
                  help='the alltoall lookup\'s returning rows on the wire '
@@ -187,11 +189,11 @@ def card() -> Optional[str]:
   return out.strip().splitlines()[0]
 
 
-def _specs(args: argparse.Namespace):
+def _specs(args: argparse.Namespace, partition: str = 'row'):
   import hybridbackend_tpu_torch as hbt
   tdt = torch.bfloat16 if args.table_dtype == 'bfloat16' else torch.float32
   return [hbt.EmbeddingSpec(hbt.TableConfig(f'c{i}', args.vocab, args.dim,
-                                            dtype=tdt))
+                                            dtype=tdt, partition=partition))
           for i in range(args.tables)]
 
 
@@ -220,13 +222,14 @@ def bce(preds: torch.Tensor, y: torch.Tensor):
 
 
 def sparse_parts(args: argparse.Namespace, device: torch.device,
-                 ctx=None):
+                 ctx=None, partition: str = 'row'):
   """``(fx, tables, tower, model_loss)`` of the sparse config ``args`` on
   ``device``, drawn on the CPU from ``SEED`` (so every device starts from
-  one state); in the world ``ctx``, with this rank's shards."""
+  one state); in the world ``ctx``, with this rank's shards, the tables'
+  ``partition`` rows or columns (not a flag: the JAX harness has none)."""
   import hybridbackend_tpu_torch as hbt
   fx = hbt.StackedFeatureExtractor(
-      _specs(args),
+      _specs(args, partition),
       dense_columns=[f'i{d}' for d in range(args.dense_features)],
       ctx=ctx or hbt.Context(device))
   gen = torch.Generator().manual_seed(SEED)
@@ -255,15 +258,17 @@ def sparse_trainer(args: argparse.Namespace, device: torch.device,
       table_optimizer=table_optimizer, model_dir=model_dir)
 
 
-def dense_parts(args: argparse.Namespace, device: torch.device, ctx=None):
+def dense_parts(args: argparse.Namespace, device: torch.device, ctx=None,
+                partition: str = 'row'):
   """``(loss_fn, module, optimizer)`` of the dense-gradient config
   ``args`` on ``device``, in the order ``Trainer`` takes them: the
   ``init_tables`` tables under ``tables``, the tower under ``net``, and
   ``multi_optimizer(Adagrad, Adam)``; drawn on the CPU from ``SEED``. In
-  the world ``ctx``, the tables are this rank's shards and the loss
-  function looks them up across the world."""
+  the world ``ctx``, the tables are this rank's shards (by ``partition``)
+  and the loss function looks them up across the world through
+  ``--lookup``."""
   import hybridbackend_tpu_torch as hbt
-  specs = _specs(args)
+  specs = _specs(args, partition)
   dense_names = [f'i{d}' for d in range(args.dense_features)]
   gen = torch.Generator().manual_seed(SEED)
   tables = hbt.init_tables(specs, gen, device, ctx)
@@ -272,7 +277,8 @@ def dense_parts(args: argparse.Namespace, device: torch.device, ctx=None):
 
   def loss_fn(m, batch):
     emb_f, dense_f = hbt.extract_features(m['tables'], batch, specs,
-                                          dense_names, ctx=ctx)
+                                          dense_names, ctx=ctx,
+                                          strategy=args.lookup)
     return bce(preds(m['net'], emb_f, dense_f), batch['label'])
 
   optimizer = hbt.multi_optimizer(
@@ -284,7 +290,7 @@ def dense_parts(args: argparse.Namespace, device: torch.device, ctx=None):
 
 def build(args: argparse.Namespace, device: torch.device,
           table_optimizer: str = 'adagrad', split_dense: bool = False,
-          ctx=None, **exchange):
+          ctx=None, partition: str = 'row', **exchange):
   """The state and the step of the config ``args`` on ``device``: the
   sparse step with ``--sparse`` (the interleaved one with
   ``--interleave K``), the dense-gradient step without.
@@ -292,13 +298,14 @@ def build(args: argparse.Namespace, device: torch.device,
   sparse-step options beyond the JAX harness's Adagrad. ``ctx`` is the
   world of a rank, and ``exchange`` the sparse step's other exchange
   options (``lookup_bucket_ratio``, ``update_bucket_ratio``, ...); the
-  strategy is ``--lookup``."""
+  strategy is ``--lookup``. ``partition`` (``'column'``: every table
+  column-sharded in a world) is :func:`sparse_parts`'."""
   import hybridbackend_tpu_torch as hbt
   if not args.sparse:
-    loss_fn, module, optimizer = dense_parts(args, device, ctx)
+    loss_fn, module, optimizer = dense_parts(args, device, ctx, partition)
     return (hbt.TrainState.create(module, optimizer, ctx),
             hbt.make_train_step(loss_fn, args.gradient_wire_dtype, ctx))
-  fx, tables, tower, model_loss = sparse_parts(args, device, ctx)
+  fx, tables, tower, model_loss = sparse_parts(args, device, ctx, partition)
   state = hbt.SparseTrainState.create(
       tower, tables, functools.partial(torch.optim.Adam, lr=TOWER_LR),
       adagrad_init=ADAGRAD_INIT, adam=table_optimizer == 'adam', ctx=ctx)

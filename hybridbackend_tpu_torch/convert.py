@@ -80,8 +80,8 @@ def _logical_table(arr: np.ndarray, cfg: TableConfig, device: torch.device,
   # tables in place, and the source may be a read-only JAX buffer.
   flat = flat[:vocab]
   if ctx is not None:
-    flat = flat[cfg.shard_rows(ctx)]
-  return _tensor(flat, cfg.dtype, device)
+    flat = flat[cfg.shard_rows(ctx), cfg.shard_cols(ctx)]
+  return _tensor(np.ascontiguousarray(flat), cfg.dtype, device)
 
 
 def _logical(fx: StackedFeatureExtractor, arrays: Mapping[str, np.ndarray],
@@ -96,10 +96,12 @@ def gather_tables(fx: StackedFeatureExtractor,
                   ) -> Dict[str, torch.Tensor]:
   """Each stack's whole logical table on every rank: the ranks' shards
   of a sharded stack gathered in rank order (a collective: every rank
-  calls it), a replicated one as it is. For checks of a world of more
-  than one rank against one of one, and for a table (or a slot) that
-  leaves the world."""
-  return {s.stacked.name: (allgather(tables[s.stacked.name], ctx=fx.ctx)
+  calls it), joined by rows or, column-sharded, along the dim; a
+  replicated one as it is. For checks of a world of more than one rank
+  against one of one, and for a table (or a slot) that leaves the
+  world."""
+  return {s.stacked.name: (allgather(tables[s.stacked.name], ctx=fx.ctx,
+                                     axis=int(s.stacked.by_column))
                            if s.stacked.should_shard(fx.ctx)
                            else tables[s.stacked.name])
           for s in fx.stacks}
@@ -226,8 +228,9 @@ def from_jax(fx: StackedFeatureExtractor, tables: Mapping[str, np.ndarray],
   """The port's state from a JAX ``SparseTrainState`` given as numpy.
 
   In a world of more than one rank, each rank passes the JAX state's
-  global arrays (made on a mesh of as many devices) and keeps its rows
-  of each sharded stack's table and slots.
+  global arrays (made on a mesh of as many devices, one node or a
+  ``(dcn, ici)`` mesh of several) and keeps its rows of each sharded
+  stack's table and slots, or its columns of a column-sharded one.
 
   Args:
     tables: ``state.tables``, one array per stack name.
@@ -289,8 +292,8 @@ def from_jax_dense(module: nn.Module, specs: Sequence[EmbeddingSpec],
       ``nu`` shaped as ``params['net']``.
     ctx: the world of ``module``'s tables (``init_tables(..., ctx=ctx)``):
       each rank passes the JAX state's global arrays, made on a mesh of as
-      many devices, and keeps its rows of each sharded table and
-      accumulator.
+      many devices, and keeps its rows (or, column-sharded, its columns)
+      of each sharded table and accumulator.
   """
   tables = module.tables
   configs = {s.name: s.config for s in specs}

@@ -26,15 +26,21 @@ the dtype and the backend; nothing is sent at a wider dtype instead.
 Any other failure of the call (a timeout, a lost peer) comes out as the
 backend raised it.
 
-Only ``Topology.ALL`` (every rank) is ported: the intra- and inter-node
-topologies are ROADMAP item 15b (3).
+Every op takes a ``topology`` (``topology_axes``, ``:65-76``):
+``Topology.ALL`` spans every rank; ``INTRA_NODE`` the ranks of this
+rank's node (the JAX mesh's ``ici`` axis) and ``INTER_NODE`` the ranks of
+every node with this rank's local rank (its ``dcn`` axis), each on the
+joined context's subgroup (``Context.join``), with that subgroup's size
+and this rank's index in it. A context made directly has no subgroups: a
+topology that spans the world there takes the world's group, one that
+spans this rank alone returns its input's values, and any other raises.
 """
 
 from __future__ import annotations
 
 import enum
 import re
-from typing import Callable, Optional, Tuple, Union
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -48,13 +54,34 @@ class Topology(enum.IntEnum):
   INTER_NODE = 2
 
 
-def _dist(topology: Topology):
-  if topology != Topology.ALL:
-    raise NotImplementedError(
-        f'{topology!r}: only Topology.ALL is ported; the hierarchical '
-        'topologies are ROADMAP item 15b (3)')
-  import torch.distributed as dist
-  return dist
+class Span(NamedTuple):
+  """The ranks a collective spans: their process group (None: the
+  default group), their number, this rank's index among them, and
+  whether the backend is called at all."""
+  group: Any
+  size: int
+  index: int
+  distributed: bool
+
+
+def span(ctx: Context, topology: Topology = Topology.ALL) -> Span:
+  """The :class:`Span` of ``topology`` in ``ctx``'s world."""
+  if topology == Topology.ALL:
+    return Span(ctx.group, ctx.world_size, ctx.rank, ctx.distributed)
+  if topology == Topology.INTRA_NODE:
+    group, size, index = ctx.intra_group, ctx.local_world_size, ctx.local_rank
+  elif topology == Topology.INTER_NODE:
+    group, size, index = ctx.inter_group, ctx.num_nodes, ctx.node
+  else:
+    raise ValueError(f'Unknown topology: {topology!r}')
+  if group is not None:
+    return Span(group, size, index, True)
+  if size == ctx.world_size:
+    return Span(ctx.group, size, index, ctx.distributed)
+  if size == 1:
+    return Span(None, 1, 0, False)
+  raise ValueError(f'{topology!r} spans {size} of {ctx.world_size} ranks: '
+                   'its subgroup comes from Context.join')
 
 
 _REDUCTIONS = ('sum', 'max', 'min', 'mean')
@@ -116,48 +143,57 @@ def allreduce(x: torch.Tensor, reduction: str = 'sum', *, ctx: Context,
   cast back from ``wire_dtype``."""
   if reduction not in _REDUCTIONS:
     raise ValueError(f'Unsupported reduction: {reduction}')
-  dist = _dist(topology)
+  sp = span(ctx, topology)
 
   def call(v):
     out = v.clone(memory_format=torch.contiguous_format)
-    if ctx.distributed:
+    if sp.distributed:
+      import torch.distributed as dist
       op = {'max': dist.ReduceOp.MAX,
             'min': dist.ReduceOp.MIN}.get(reduction, dist.ReduceOp.SUM)
-      dist.all_reduce(out, op=op, group=ctx.group)
+      dist.all_reduce(out, op=op, group=sp.group)
     return out
 
-  out = _on_wire(x, wire_dtype if ctx.distributed else None, 'allreduce',
+  out = _on_wire(x, wire_dtype if sp.distributed else None, 'allreduce',
                  call)
   if reduction == 'mean':
-    out /= ctx.world_size
+    out /= sp.size
   return out
 
 
 def broadcast(x: torch.Tensor, root: int = 0, *, ctx: Context,
               topology: Topology = Topology.ALL) -> torch.Tensor:
-  """Rank ``root``'s ``x`` on every rank."""
-  dist = _dist(topology)
+  """The ``x`` of the rank at index ``root`` of ``topology``'s ranks, on
+  each of them."""
+  sp = span(ctx, topology)
   out = x.clone(memory_format=torch.contiguous_format)
-  if ctx.distributed:
-    dist.broadcast(out, src=root, group=ctx.group)
+  if sp.distributed:
+    import torch.distributed as dist
+    src = root if sp.group is None else dist.get_global_rank(sp.group, root)
+    dist.broadcast(out, src=src, group=sp.group)
   return out
 
 
 def allgather(x: torch.Tensor, *, ctx: Context,
               topology: Topology = Topology.ALL,
-              wire_dtype: WireDtype = None) -> torch.Tensor:
+              wire_dtype: WireDtype = None, axis: int = 0) -> torch.Tensor:
   """The ranks' ``x`` concatenated in rank order along the leading
   dimension: ``[W·n, ...]`` from ``[n, ...]`` (JAX ``all_gather`` with
-  ``tiled=True``). Every rank's ``x`` has one shape."""
-  dist = _dist(topology)
-  if not ctx.distributed:
+  ``tiled=True``), or along ``axis``. Every rank's ``x`` has one
+  shape."""
+  sp = span(ctx, topology)
+  if not sp.distributed:
     return x.clone()
+  if axis:
+    return allgather(x.movedim(axis, 0), ctx=ctx, topology=topology,
+                     wire_dtype=wire_dtype).movedim(0, axis).contiguous()
 
   def call(v):
-    out = v.new_empty((ctx.world_size * v.shape[0],) + tuple(v.shape[1:]))
+    import torch.distributed as dist
+    out = v.new_empty((sp.size * v.shape[0],) + tuple(v.shape[1:]))
     gather = getattr(dist, 'all_gather_single', None) or (
         dist.all_gather_into_tensor)
-    gather(out, v.contiguous(), group=ctx.group)
+    gather(out, v.contiguous(), group=sp.group)
     return out
 
   return _on_wire(x, wire_dtype, 'allgather', call)
@@ -169,16 +205,17 @@ def alltoall(x: torch.Tensor, *, ctx: Context,
   """Row block ``i`` of ``x`` (``[W·k, ...]``) to rank ``i``; returns the
   blocks received, in rank order (JAX ``all_to_all`` with
   ``tiled=True``)."""
-  dist = _dist(topology)
-  if x.shape[0] % ctx.world_size:
-    raise ValueError(f'alltoall: {x.shape[0]} rows do not split over a '
-                     f'world of {ctx.world_size}')
-  if not ctx.distributed:
+  sp = span(ctx, topology)
+  if x.shape[0] % sp.size:
+    raise ValueError(f'alltoall: {x.shape[0]} rows do not split over '
+                     f'{sp.size} ranks')
+  if not sp.distributed:
     return x.clone()
 
   def call(v):
+    import torch.distributed as dist
     out = torch.empty_like(v, memory_format=torch.contiguous_format)
-    dist.all_to_all_single(out, v.contiguous(), group=ctx.group)
+    dist.all_to_all_single(out, v.contiguous(), group=sp.group)
     return out
 
   return _on_wire(x, wire_dtype, 'alltoall', call)
@@ -188,17 +225,18 @@ def reduce_scatter(x: torch.Tensor, *, ctx: Context,
                    topology: Topology = Topology.ALL) -> torch.Tensor:
   """The sum over the ranks of block ``r`` of ``x`` (``[W, ...]``), on
   rank ``r`` (JAX ``psum_scatter`` with ``tiled=False``)."""
-  dist = _dist(topology)
-  if x.shape[0] != ctx.world_size:
+  sp = span(ctx, topology)
+  if x.shape[0] != sp.size:
     raise ValueError(f'reduce_scatter: leading dimension {x.shape[0]}, '
-                     f'world {ctx.world_size}')
-  if not ctx.distributed:
+                     f'{sp.size} ranks')
+  if not sp.distributed:
     return x[0].clone()
+  import torch.distributed as dist
   out = x.new_empty(tuple(x.shape[1:]))
   scatter = getattr(dist, 'reduce_scatter_single', None) or (
       dist.reduce_scatter_tensor)
   # Flat, as gloo splits the input's leading dimension by the world.
-  scatter(out.view(-1), x.contiguous().view(-1), group=ctx.group)
+  scatter(out.view(-1), x.contiguous().view(-1), group=sp.group)
   return out
 
 
@@ -220,14 +258,14 @@ def all_to_all_v(buckets: torch.Tensor, sizes: torch.Tensor, *,
   padding lanes travel too, as in JAX: the capacity, not the sizes,
   fixes the payload. ``wire_dtype`` casts the buckets, never the
   sizes."""
-  if buckets.shape[0] != ctx.world_size or sizes.shape != (ctx.world_size,):
+  n = span(ctx, topology).size
+  if buckets.shape[0] != n or sizes.shape != (n,):
     raise ValueError(f'all_to_all_v: buckets {tuple(buckets.shape)} and '
-                     f'sizes {tuple(sizes.shape)} in a world of '
-                     f'{ctx.world_size}')
+                     f'sizes {tuple(sizes.shape)} over {n} ranks')
   recv_sizes = alltoall(sizes, ctx=ctx, topology=topology)
   return alltoall(buckets, ctx=ctx, topology=topology,
                   wire_dtype=wire_dtype), recv_sizes
 
 
-__all__ = ['Topology', 'all_to_all_v', 'allgather', 'allreduce', 'alltoall',
-           'broadcast', 'reduce_scatter', 'wire_dtype_of']
+__all__ = ['Span', 'Topology', 'all_to_all_v', 'allgather', 'allreduce',
+           'alltoall', 'broadcast', 'reduce_scatter', 'span', 'wire_dtype_of']

@@ -14,9 +14,10 @@ which clips the ids itself), with the same bits. A
 :class:`~hybridbackend_tpu_torch.embedding.quant.QuantizedTable` is
 looked up by ``lookup_quantized``, as in the JAX package (``:66-70``).
 
-A table row-sharded over a world of ranks (``TableConfig.should_shard``)
-is looked up by each rank for its own ids, with one of the JAX package's
-exchanges between the ranks, bit for bit:
+A table sharded over a world of ranks (``TableConfig.should_shard``) is
+looked up by each rank for its own ids, with one of the JAX package's
+exchanges between the ranks, bit for bit. A row-sharded table takes the
+exchange that ``strategy`` names:
 
 * ``'allgather'`` (the default): every rank gathers all ranks' ids,
   reads the rows it owns (zeros elsewhere), and a reduce-scatter hands
@@ -26,37 +27,69 @@ exchanges between the ranks, bit for bit:
   unbucketed (``:286-346``). ``wire_dtype`` (the JAX option
   ``comm_wire_dtype``, ``:199-205``) casts the rows on their way back,
   and nothing else: ids never travel as floats, and the allgather
-  strategy's reduce-scatter stays at the table's precision. A bucket holds ``ceil(bucket_ratio·n/W)``
-  ids; when one overflows on any rank, every rank takes the exact
-  exchange instead (``overflow_fallback``). The predicate goes through
-  an all-reduce and is read on the host, so every rank takes the same
-  branch and runs the same collectives.
+  strategy's reduce-scatter stays at the table's precision. A bucket
+  holds ``ceil(bucket_ratio·b/W)`` ids (``b`` the rank's ids); when one
+  overflows on any rank, every rank takes the exact exchange instead
+  (``overflow_fallback``). The predicate goes through an all-reduce and
+  is read on the host, so every rank takes the same branch and runs the
+  same collectives;
+* ``'hierarchical'``: the same in two hops over the node layout
+  (``_hier_pipeline`` and ``_lookup_hierarchical``, ``:349-420``): an id
+  crosses its node's ranks to the local rank of its owner (``owner %
+  L``, the intra-node subgroup), then the ranks of that local rank to
+  the owner's node (``owner // L``, the inter-node subgroup), so only
+  ids bound for the owner's column of the ``(node, local rank)`` grid
+  cross nodes. The owner reads its rows; they travel back through the
+  second hop and then the first, cast to ``wire_dtype`` on both. Each
+  hop has its own capacity, ``ceil(bucket_ratio·b/L)`` and
+  ``ceil(bucket_ratio·b/M)`` (``b`` the rank's own ids on both hops, as
+  JAX's ``_cap``), none where that is at least ``b``; the first hop's
+  fill lanes take no capacity of the second. An overflow of either hop
+  on any rank sends every rank through both hops at full capacity;
+* ``'gspmd'``: JAX's ``jnp.take`` on the row-sharded array, whose
+  exchange XLA's SPMD partitioner picks (``:187-193``). The port has no
+  partitioner; it runs the exchange the partitioner chose for this
+  lookup, read from the compiled HLO (jax 0.9.0, 8 CPU devices, a
+  ``[1024, 16]`` row-sharded f32 table, 512 ids): an all-gather of the
+  ids (``s32[512,1]``), a masked local gather, an all-reduce of the
+  ``f32[512,16]`` rows, and each device's slice of its own rows
+  (``f32[64,16]``). Another partitioner (another version, mesh or size)
+  may choose another exchange, the allgather strategy's reduce-scatter
+  for one; the values are the same bits either way.
+
+A column-sharded table (``partition='column'``, every rank all rows of
+its dim slice) takes one exchange whatever the strategy
+(``_lookup_column``, ``:173-185`` and ``:251-264``): every rank gathers
+all ranks' ids, reads its slice of each (``[B, d/W]``), and a tiled
+all-to-all hands each rank its rows' slices from every rank, joined
+into ``[b, d]``.
 
 Every rank passes the same number of ids (a world splits the ids as
 ``shard_map`` does; :func:`world_slice` cuts a flat id list as the JAX
-lookup pads and splits it, ``:72-82``). ``'hierarchical'``, ``'gspmd'``
-and column-sharded tables are ROADMAP item 15b (3).
+lookup pads and splits it, ``:72-82``).
 
 The sharded lookup is differentiable with respect to the shard, for the
 dense-gradient path (a ``torch.autograd.Function`` around each
 exchange): its backward gives the owner's shard, for each of its rows,
 the sum of every rank's gradients of the embeddings read from it, the
-transpose of the exchange. For ``'allgather'`` that is JAX's transpose
-of its all_gather, masked take and psum_scatter (``:267-279``): every
-rank's gradients gathered, masked to the owner's rows and scatter-added
-into the shard. For ``'alltoall'`` the gradients go back to the owners
-through the same buckets (cast to ``wire_dtype`` on the wire, as the
-transpose of the rows' cast) and are scatter-added there. Nothing is
-scaled: a loss that is each rank's mean over its rows gives gradients
-``W`` times the global mean's, which the dense step divides once
-(``training/train.py``). A shard that needs no gradient (the sparse
-step, which routes the embeddings' gradient itself through
+transpose of the exchange. For ``'allgather'`` and ``'gspmd'`` that is
+JAX's transpose of the all_gather and masked take: every rank's
+gradients gathered, masked to the owner's rows and scatter-added into
+the shard. For ``'alltoall'`` and ``'hierarchical'`` the gradients go
+back to the owners through the same buckets, hop by hop (cast to
+``wire_dtype`` on the wire, as the transpose of the rows' cast), and are
+scatter-added there. For a column table the inverse all-to-all hands
+each rank every rank's gradients of its slice, scatter-added at every
+id. Nothing is scaled: a loss that is each rank's mean over its rows
+gives gradients ``W`` times the global mean's, which the dense step
+divides once (``training/train.py``). A shard that needs no gradient
+(the sparse step, which routes the embeddings' gradient itself through
 ``sparse_update.py``) is looked up under ``torch.no_grad()``.
 
 A sharded table is looked up as a shard only when it holds fewer rows
-than the table has at a world of one: a whole table (a shard gathered
-back, as the exported dense bundle holds it) is looked up locally, with
-no collective.
+(a column table: fewer columns) than the table has at a world of one: a
+whole table (a shard gathered back, as the exported dense bundle holds
+it) is looked up locally, with no collective.
 """
 
 from __future__ import annotations
@@ -78,7 +111,7 @@ from hybridbackend_tpu_torch.framework.context import Context
 from hybridbackend_tpu_torch.ops.gather import gather_rows
 
 Table = Union[torch.Tensor, QuantizedTable]
-STRATEGIES = ('allgather', 'alltoall')
+STRATEGIES = ('allgather', 'alltoall', 'hierarchical', 'gspmd')
 
 
 def lookup(table: Table, ids: torch.Tensor, config: TableConfig,
@@ -98,15 +131,17 @@ def lookup(table: Table, ids: torch.Tensor, config: TableConfig,
   ``overflow_fallback`` and ``unique_ratio`` (``emb_unique_ratio``:
   below 1, the ids are deduplicated to that share of their number
   before the exchange, exactly, with the exact exchange when more are
-  unique) are the JAX options of the same names, and ``wire_dtype``
-  the dtype of the alltoall strategy's returning rows (``None`` or
-  ``'float32'``: the table's). Elsewhere they are not used."""
+  unique) are the JAX options of the same names (``strategy`` one of
+  :data:`STRATEGIES`; a column-sharded table has one exchange), and
+  ``wire_dtype`` the dtype of the alltoall and hierarchical strategies'
+  returning rows (``None`` or ``'float32'``: the table's). Elsewhere
+  they are not used."""
   if isinstance(table, QuantizedTable):
     if config.should_shard(ctx):
       raise NotImplementedError('sharded int8 tables are ROADMAP item '
                                 '15b (6)')
     return lookup_quantized(table, ids, config)
-  if config.should_shard(ctx) and table.shape[0] < config.padded_vocab():
+  if config.should_shard(ctx) and _is_shard(table, config):
     if serving:
       raise NotImplementedError('a sharded table is not served; serving '
                                 'sharded tables is ROADMAP item 15b (6)')
@@ -130,6 +165,14 @@ def lookup(table: Table, ids: torch.Tensor, config: TableConfig,
 lookup.overflow_fallbacks = 0     # exact exchanges taken after an overflow
 
 
+def _is_shard(table: torch.Tensor, config: TableConfig) -> bool:
+  """Whether ``table`` is a rank's part of ``config``'s table and not the
+  whole table."""
+  if config.by_column:
+    return table.shape[1] < config.dim
+  return table.shape[0] < config.padded_vocab()
+
+
 def world_slice(flat_ids: torch.Tensor, ctx: Context) -> torch.Tensor:
   """This rank's part of a flat id list that every rank holds whole: the
   list padded with ``-1`` to a multiple of the world and cut in equal
@@ -151,15 +194,7 @@ def _global_any(flag: torch.Tensor, ctx: Context) -> bool:
 
 def _sharded(shard, ids, config, ctx, strategy, bucket_ratio, fallback,
              unique_ratio, wire_dtype):
-  if config.partition != 'row':
-    raise NotImplementedError(
-        f'table {config.name!r}: partition={config.partition!r} is ROADMAP '
-        'item 15b (3); only row-sharded tables are ported')
   if strategy not in STRATEGIES:
-    if strategy in ('hierarchical', 'gspmd'):
-      raise NotImplementedError(f'lookup strategy {strategy!r} is ROADMAP '
-                                'item 15b (3); ported: ' + ', '.join(
-                                    STRATEGIES))
     raise ValueError(f'Unknown lookup strategy: {strategy!r}')
   flat = ids.reshape(-1)
   if unique_ratio < 1.0:
@@ -180,14 +215,18 @@ def _sharded(shard, ids, config, ctx, strategy, bucket_ratio, fallback,
   # mix to, or land on, a real or padding row. -1 has no owner.
   rows = torch.where(valid, config.row_index(flat, ctx), -1)
   rows_per_shard = config.padded_vocab(ctx) // ctx.world_size
-  if strategy == 'allgather':
+  if config.by_column:
+    run = functools.partial(_lookup_column, ctx=ctx,
+                            vocab=config.padded_vocab(ctx))
+  elif strategy in ('allgather', 'gspmd'):
     run = functools.partial(_lookup_allgather, ctx=ctx,
-                            rows_per_shard=rows_per_shard)
-  else:
-    run = functools.partial(_lookup_alltoall, ctx=ctx,
                             rows_per_shard=rows_per_shard,
-                            bucket_ratio=bucket_ratio, fallback=fallback,
-                            wire_dtype=wire_dtype)
+                            gspmd=strategy == 'gspmd')
+  else:
+    run = functools.partial(
+        _lookup_alltoall if strategy == 'alltoall' else _lookup_hierarchical,
+        ctx=ctx, rows_per_shard=rows_per_shard, bucket_ratio=bucket_ratio,
+        fallback=fallback, wire_dtype=wire_dtype)
   return _Exchange.apply(shard, rows, run).reshape(*ids.shape, config.dim)
 
 
@@ -206,8 +245,10 @@ class _Exchange(torch.autograd.Function):
     return fctx.transpose(grad.contiguous()), None, None
 
 
-def _lookup_allgather(shard, rows, ctx, rows_per_shard):
-  """All ranks' ids, a masked local gather, a reduce-scatter; transposed,
+def _lookup_allgather(shard, rows, ctx, rows_per_shard, gspmd=False):
+  """All ranks' ids, a masked local gather, then a reduce-scatter, or
+  with ``gspmd`` an all-reduce of which each rank keeps its rows (the
+  same bits: one rank holds each row, the others add zeros); transposed,
   all ranks' gradients, masked to this rank's rows, scatter-added."""
   all_ids = collective.allgather(rows, ctx=ctx).reshape(ctx.world_size, -1)
   owner = torch.div(all_ids, rows_per_shard, rounding_mode='floor')
@@ -223,7 +264,33 @@ def _lookup_allgather(shard, rows, ctx, rows_per_shard):
     every = torch.where(mine, every, 0)
     return torch.zeros_like(shard).index_add_(0, local, every)
 
+  if gspmd:
+    return collective.allreduce(contrib, ctx=ctx)[ctx.rank], transpose
   return collective.reduce_scatter(contrib, ctx=ctx), transpose
+
+
+def _lookup_column(shard, rows, ctx, vocab):
+  """All ranks' ids, this rank's slice of each row, and a tiled
+  all-to-all that splits the rows and joins the columns (JAX
+  ``all_to_all(split_axis=0, concat_axis=1, tiled=True)``); transposed,
+  the inverse all-to-all, every rank's gradients of this slice,
+  scatter-added at every id."""
+  world, b, c = ctx.world_size, rows.shape[0], shard.shape[1]
+  all_ids = collective.allgather(rows, ctx=ctx)
+  valid = ((all_ids >= 0) & (all_ids < vocab)).unsqueeze(-1)
+  local = all_ids.clamp(0, shard.shape[0] - 1).long()
+  emb = torch.where(valid, shard.index_select(0, local), 0)
+  got = collective.alltoall(emb, ctx=ctx)           # [W·b, c], by rank
+  out = got.reshape(world, b, c).permute(1, 0, 2).reshape(b, world * c)
+
+  def transpose(grad):
+    back = collective.alltoall(
+        grad.reshape(b, world, c).permute(1, 0, 2).reshape(world * b, c),
+        ctx=ctx)
+    return torch.zeros_like(shard).index_add_(
+        0, local, torch.where(valid, back, 0))
+
+  return out, transpose
 
 
 def _a2a_round_trip(shard, part: Partitioned, ctx, rows_per_shard,
@@ -255,6 +322,22 @@ def _a2a_round_trip(shard, part: Partitioned, ctx, rows_per_shard,
   return out, transpose
 
 
+def _cap(bucket_ratio: float, b: int, buckets: int) -> Optional[int]:
+  """A bucket's capacity for ``b`` ids over ``buckets`` peers
+  (``lookup.py:217-221``): ``ceil(bucket_ratio·b/buckets)``, None (the
+  exact exchange) when the ratio is not positive or the capacity is at
+  least ``b``."""
+  if bucket_ratio <= 0:
+    return None
+  cap = max(1, int(math.ceil(bucket_ratio * b / buckets)))
+  return cap if cap < b else None
+
+
+def _owner_of(rows_per_shard: int, world: int):
+  return lambda x: torch.div(x, rows_per_shard,
+                             rounding_mode='floor').clamp(0, world - 1)
+
+
 def _lookup_alltoall(shard, rows, ctx, rows_per_shard, bucket_ratio,
                      fallback, wire_dtype):
   """Bucketed by owner, exchanged, read, exchanged back
@@ -265,16 +348,11 @@ def _lookup_alltoall(shard, rows, ctx, rows_per_shard, bucket_ratio,
   valid = ((owner >= 0) & (owner < world)).unsqueeze(-1)
 
   def part(capacity):
-    return partition_by_fn(
-        rows, world,
-        lambda x: torch.div(x, rows_per_shard,
-                            rounding_mode='floor').clamp(0, world - 1),
-        capacity=capacity, fill_value=-1, valid=valid.squeeze(-1))
+    return partition_by_fn(rows, world, _owner_of(rows_per_shard, world),
+                           capacity=capacity, fill_value=-1,
+                           valid=valid.squeeze(-1))
 
-  cap = None
-  if bucket_ratio > 0:
-    cap = max(1, int(math.ceil(bucket_ratio * b / world)))
-    cap = cap if cap < b else None
+  cap = _cap(bucket_ratio, b, world)
   if cap is None:
     p = part(None)
   else:
@@ -288,22 +366,89 @@ def _lookup_alltoall(shard, rows, ctx, rows_per_shard, bucket_ratio,
       lambda grad: transpose(torch.where(valid, grad, 0)))
 
 
+def _lookup_hierarchical(shard, rows, ctx, rows_per_shard, bucket_ratio,
+                         fallback, wire_dtype):
+  """Two hops to the owner, over this rank's node and then over its
+  local rank's ranks of every node, and back (``_hier_pipeline`` and
+  ``_lookup_hierarchical``, ``lookup.py:349-420``). Both hops' ids are
+  bucketed before either's rows move, so an overflow on either hop (on
+  any rank) restarts both at full capacity, with the values JAX's
+  ``cond`` takes."""
+  intra, inter = collective.Topology.INTRA_NODE, collective.Topology.INTER_NODE
+  local, nodes, world = ctx.local_world_size, ctx.num_nodes, ctx.world_size
+  b, d = rows.shape[0], shard.shape[1]
+  owner_of = _owner_of(rows_per_shard, world)
+  owner = torch.div(rows, rows_per_shard, rounding_mode='floor')
+  valid = ((owner >= 0) & (owner < world)).unsqueeze(-1)
+
+  def ids_out(cap0, cap1):
+    # Hop 0: to the local rank of the owner, in this node.
+    p0 = partition_by_fn(rows, local, lambda x: owner_of(x) % local,
+                         capacity=cap0, fill_value=-1,
+                         valid=valid.squeeze(-1))
+    r0, s0 = collective.all_to_all_v(p0.buckets, p0.sizes, ctx=ctx,
+                                     topology=intra)
+    ids1 = r0.reshape(-1)
+    # Hop 1: to the owner's node; the fill lanes of hop 0 stay behind.
+    p1 = partition_by_fn(ids1, nodes, lambda x: owner_of(x) // local,
+                         capacity=cap1, fill_value=-1, valid=ids1 >= 0)
+    return p0, s0, p1, p0.overflow | p1.overflow
+
+  cap0, cap1 = _cap(bucket_ratio, b, local), _cap(bucket_ratio, b, nodes)
+  p0, s0, p1, overflow = ids_out(cap0, cap1)
+  if ((cap0 is not None or cap1 is not None) and fallback
+      and _global_any(overflow, ctx)):
+    lookup.overflow_fallbacks += 1
+    p0, s0, p1, _ = ids_out(None, None)
+  r1, s1 = collective.all_to_all_v(p1.buckets, p1.sizes, ctx=ctx,
+                                   topology=inter)
+  at = (r1 - ctx.rank * rows_per_shard).clamp(
+      0, rows_per_shard - 1).reshape(-1).long()
+  emb1 = shard.index_select(0, at).reshape(*r1.shape, d)
+  b1, _ = collective.all_to_all_v(emb1, s1, ctx=ctx, topology=inter,
+                                  wire_dtype=wire_dtype)
+  lanes1 = b1.shape[0] * b1.shape[1]
+  emb0 = unpartition(b1.reshape(lanes1, d), p1.restore).reshape(
+      *p0.buckets.shape, d)
+  b0, _ = collective.all_to_all_v(emb0, s0, ctx=ctx, topology=intra,
+                                  wire_dtype=wire_dtype)
+  lanes0 = b0.shape[0] * b0.shape[1]
+  out = unpartition(b0.reshape(lanes0, d), p0.restore)
+
+  def transpose(grad):
+    grad = torch.where(valid, grad, 0)
+    g0 = grad.new_zeros((lanes0, d)).index_add_(
+        0, p0.restore.clamp(max=lanes0 - 1).long(), grad)
+    g0, _ = collective.all_to_all_v(g0.reshape(b0.shape), p0.sizes, ctx=ctx,
+                                    topology=intra, wire_dtype=wire_dtype)
+    g1 = grad.new_zeros((lanes1, d)).index_add_(
+        0, p1.restore.clamp(max=lanes1 - 1).long(), g0.reshape(-1, d))
+    g1, _ = collective.all_to_all_v(g1.reshape(b1.shape), p1.sizes, ctx=ctx,
+                                    topology=inter, wire_dtype=wire_dtype)
+    g1 = torch.where((r1 >= 0).reshape(-1, 1), g1.reshape(lanes1, d), 0)
+    return torch.zeros_like(shard).index_add_(0, at, g1)
+
+  return torch.where(valid, out, 0), transpose
+
+
 def lookup_sparse(table: Table, ids: torch.Tensor, mask: torch.Tensor,
                   config: TableConfig,
                   weights: Optional[torch.Tensor] = None,
                   combiner: Optional[str] = None,
                   serving: bool = False, *,
-                  ctx: Optional[Context] = None) -> torch.Tensor:
+                  ctx: Optional[Context] = None,
+                  **exchange) -> torch.Tensor:
   """Combined lookup over padded ragged ids
   (``tf.nn.embedding_lookup_sparse``).
 
   ``ids``: ``[batch, max_len]``; ``mask``: its validity (bool or 0/1);
   ``weights``: optional per-id weights; ``combiner``: ``'sum'``,
   ``'mean'`` or ``'sqrtn'`` (the table's by default), the last two over
-  the masked weight total floored at 1e-9; ``serving`` and ``ctx`` as in
+  the masked weight total floored at 1e-9; ``serving``, ``ctx`` and
+  ``exchange`` (``strategy`` and the other exchange options) as in
   :func:`lookup`. Returns ``[batch, dim]``."""
   combiner = combiner or config.combiner
-  emb = lookup(table, ids, config, serving, ctx=ctx)
+  emb = lookup(table, ids, config, serving, ctx=ctx, **exchange)
   m = mask.to(emb.dtype)
   if weights is not None:
     m = m * weights.to(emb.dtype)

@@ -41,6 +41,21 @@ are the valid rows of the received list. ``gradient_wire_dtype`` (the JAX
 option ``comm_gradient_wire_dtype``, ``:474-477``) casts the gradient
 buckets of the alltoall route; the row ids, the sizes and the allgather
 route stay as they are. Nothing falls back to a replicated update.
+
+A column-sharded table (every rank all rows of its dim slice) takes one
+route whatever ``exchange`` says (JAX ``:733-757`` and ``:937-956``):
+every rank gathers every rank's rows, and an all-to-all that splits the
+gradients' columns and joins their rows (the inverse of the lookup's)
+hands each rank every row's gradient of its slice, ``[B, d/W]``; each
+rank then sorts the whole batch's list and updates its slice through the
+kernel of a world of one, every rank with the same list. JAX's SGD has
+no column branch (``:801-846``): its ``shard_map`` reshards a column
+table by rows and routes the gradients to the rows' owners. The port
+updates the slices through kernel 2 instead, the same update with each
+row's total summed in another order. The dense-split Adagrad runs on
+the slice through kernel 4 and the elementwise apply: JAX never splits
+a slice narrower than 128 lanes (``_split_dense``) and runs its fused
+kernel there, whose values the split form gives bit for bit.
 """
 
 from __future__ import annotations
@@ -230,6 +245,34 @@ def _rowsharded_update(rows: torch.Tensor, g: torch.Tensor,
   return exchange == 'alltoall'
 
 
+def _column_list(rows: torch.Tensor, g: torch.Tensor, ctx: Context
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Every rank's rows in rank order, and their gradients of this rank's
+  columns: JAX's ``all_to_all(split_axis=1, concat_axis=0, tiled=True)``
+  of the ``[n, d]`` gradients, ``[W·n, d/W]``."""
+  world, (n, d) = ctx.world_size, g.shape
+  c = d // world
+  cols = collective.alltoall(
+      g.reshape(n, world, c).permute(1, 0, 2).reshape(world * n, c),
+      ctx=ctx)
+  return collective.allgather(rows, ctx=ctx), cols
+
+
+def _update(rows, g, apply, config, ctx, counter, exchange, bucket_ratio,
+            fallback, wire_dtype, combine=True) -> None:
+  """Route the list ``(rows, g)`` by the table's layout and apply it: a
+  column shard's, a row shard's (counting ``counter``'s fallbacks) or
+  a replica's."""
+  if not config.should_shard(ctx):
+    apply(*_gather_list(rows, g, ctx))
+  elif config.by_column:
+    apply(*_column_list(rows, g, ctx))
+  else:
+    counter.overflow_fallbacks += _rowsharded_update(
+        rows, g, apply, config, ctx, exchange, bucket_ratio, fallback,
+        wire_dtype, combine=combine)
+
+
 def _gather_list(rows: torch.Tensor, g: torch.Tensor,
                  ctx: Optional[Context]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -302,11 +345,12 @@ def sparse_adagrad_apply(table: torch.Tensor, state: SparseOptState,
       ``dedup``: dense totals carry no per-occurrence squares.
     ctx: the world, when it has more than one rank: ``ids`` and ``demb``
       are this rank's, and ``table`` and the accumulator are this rank's
-      shard when ``config`` is sharded over ``ctx``, else whole.
+      shard (its rows, or of a column-sharded table its columns) when
+      ``config`` is sharded over ``ctx``, else whole.
     exchange, bucket_ratio, overflow_fallback, gradient_wire_dtype: the
       JAX options ``emb_update_exchange``, ``emb_update_bucket_ratio``,
       ``emb_update_overflow_fallback`` and ``comm_gradient_wire_dtype``,
-      for a sharded table.
+      for a row-sharded table.
 
   Returns ``(table, state)``, the same objects, updated.
   """
@@ -323,13 +367,9 @@ def sparse_adagrad_apply(table: torch.Tensor, state: SparseOptState,
     else:
       adagrad_update_sorted(table, acc, rows, g, lr, eps, dedup)
 
-  rows, g = _flat_list(table, ids, demb, config, ctx)
-  if config.should_shard(ctx):
-    sparse_adagrad_apply.overflow_fallbacks += _rowsharded_update(
-        rows, g, apply, config, ctx, exchange, bucket_ratio,
-        overflow_fallback, gradient_wire_dtype, combine=dedup)
-  else:
-    apply(*_gather_list(rows, g, ctx))
+  _update(*_flat_list(table, ids, demb, config, ctx), apply, config, ctx,
+          sparse_adagrad_apply, exchange, bucket_ratio, overflow_fallback,
+          gradient_wire_dtype, combine=dedup)
   return table, state
 
 
@@ -352,13 +392,9 @@ def sparse_sgd_apply(table: torch.Tensor, ids: torch.Tensor,
     rows, g = _sort(rows.to(torch.int32), g)
     scatter_add_sorted(table, rows, g * (-lr))
 
-  rows, g = _flat_list(table, ids, demb, config, ctx)
-  if config.should_shard(ctx):
-    sparse_sgd_apply.overflow_fallbacks += _rowsharded_update(
-        rows, g, apply, config, ctx, exchange, bucket_ratio,
-        overflow_fallback, gradient_wire_dtype)
-  else:
-    apply(*_gather_list(rows, g, ctx))
+  _update(*_flat_list(table, ids, demb, config, ctx), apply, config, ctx,
+          sparse_sgd_apply, exchange, bucket_ratio, overflow_fallback,
+          gradient_wire_dtype)
   return table
 
 
@@ -390,13 +426,9 @@ def sparse_adam_apply(table: torch.Tensor, state: SparseOptState,
     rows, g = _sort(rows.to(torch.int32), g)
     adam_update_sorted(table, m, v, rows, g, lr, step, b1, b2, eps)
 
-  rows, g = _flat_list(table, ids, demb, config, ctx)
-  if config.should_shard(ctx):
-    sparse_adam_apply.overflow_fallbacks += _rowsharded_update(
-        rows, g, apply, config, ctx, exchange, bucket_ratio,
-        overflow_fallback, gradient_wire_dtype)
-  else:
-    apply(*_gather_list(rows, g, ctx))
+  _update(*_flat_list(table, ids, demb, config, ctx), apply, config, ctx,
+          sparse_adam_apply, exchange, bucket_ratio, overflow_fallback,
+          gradient_wire_dtype)
   return table, state
 
 

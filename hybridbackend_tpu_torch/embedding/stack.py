@@ -4,9 +4,10 @@ Counterpart of ``hybridbackend_tpu/embedding/stack.py:31-269``. Table
 ``i``'s rows live at ``offset[i] + local_id`` of the stacked table, so
 the lookups of all members become one gather (one exchange in a world of
 more than one rank) and their updates one sparse update. Sharded and
-replicated tables stack apart, and a sharded member's rows take a range
-rounded up to the world, so that they spread over the ranks as a table
-of their own would (``:86-109``).
+replicated tables stack apart, and so do row- and column-partitioned
+ones (``:83``); a sharded member's rows take a range rounded up to the
+world, so that they spread over the ranks as a table of their own would
+(``:86-109``).
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ class TableStack:
 def build_stacks(configs: Sequence[TableConfig],
                  ctx: Optional['Context'] = None,
                  min_shard_rows: int = 0) -> List[TableStack]:
-  """Group configs by (dim, dtype, sharded over ``ctx``) into stacks;
+  """Group configs by (dim, dtype, sharded over ``ctx``, partition) into
+  stacks;
   tables with mixed ids keep a stack of their own. Stack names and
   member offsets match the JAX package's grouping (with one lookup
   strategy for all tables), so its checkpoints map one to one. In a
@@ -59,7 +61,8 @@ def build_stacks(configs: Sequence[TableConfig],
   groups: Dict[Tuple, List[TableConfig]] = {}
   for cfg in configs:
     key = (('solo', cfg.name) if cfg.shuffle_ids else
-           (cfg.dim, cfg.dtype, cfg.should_shard(ctx, min_shard_rows)))
+           (cfg.dim, cfg.dtype, cfg.should_shard(ctx, min_shard_rows),
+            cfg.partition))
     groups.setdefault(key, []).append(cfg)
   stacks = []
   for members in groups.values():
@@ -111,7 +114,8 @@ def logical_segments(stack: TableStack, ctx: 'Context'
   stack's logical rows, its members' rows end to end as a world of one
   lays them out: ``(segments, logical rows)``, each segment ``(first row
   of the rank's rows, first logical row, rows)``. The rows that a world
-  pads each sharded member and the stack with are in no segment."""
+  pads each sharded member and the stack with are in no segment. A
+  column-sharded stack's rank holds every row."""
   rows = stack.stacked.shard_rows(ctx)
   if stack.stacked.shuffle_ids:
     # A solo mixed table: its rows are its own, mixed modulo its padded

@@ -5,21 +5,27 @@ are stored in their logical ``[vocab, dim]`` layout: the JAX package's
 lane packing (``[V/p, 128]`` physical arrays) exists for the TPU's
 128-lane tiles and has no counterpart here.
 
-In a world of more than one rank a table is row-sharded or replicated by
+In a world of more than one rank a table is sharded or replicated by
 the JAX package's policy (``:111-124``): sharded when the world has more
 than one rank and the table at least as many rows as the world and as
-``min_shard_rows``, unless ``sharded`` says otherwise. Rank ``r`` of
-``W`` holds the contiguous rows ``[r·V/W, (r+1)·V/W)`` of the padded
-vocab ``V``, rounded up to the world (``:164-173``), as JAX's
-``P(axes, None)`` lays a global array out. Only row partitioning is
-ported; ``partition='column'`` is ROADMAP item 15b (3).
+``min_shard_rows``, unless ``sharded`` says otherwise. A sharded table
+is split by its ``partition``:
+
+* ``'row'``: rank ``r`` of ``W`` holds the contiguous rows ``[r·V/W,
+  (r+1)·V/W)`` of the padded vocab ``V``, rounded up to the world
+  (``:164-173``), as JAX's ``P(axes, None)`` lays a global array out;
+* ``'column'`` (large-dim tables): rank ``r`` holds every row of the dim
+  slice ``[r·d/W, (r+1)·d/W)``, JAX's ``P(None, axes)``. The vocab is
+  not rounded to the world, and a dim that the world does not divide
+  raises (``:207-216``).
 
 A rank's shard made into a parameter of the dense path (``init_tables``
 with a world) is marked with its :class:`TableShard` (the attribute
 ``table_shard``, read by :func:`table_shard`), so that the dense step,
 the checkpoints and the export can tell it from a replicated parameter:
 its gradient comes from the lookup's backward and is never all-reduced,
-each rank writes its own rows, and the export gathers them.
+each rank writes its own rows (or columns), and the export gathers
+them.
 """
 
 from __future__ import annotations
@@ -56,11 +62,20 @@ class TableConfig:
   dtype: torch.dtype = torch.float32   # or torch.bfloat16
   shuffle_ids: bool = False        # spread hot ids with an invertible mix
   sharded: Optional[bool] = None   # None: the policy of ``should_shard``
-  partition: str = 'row'           # 'column' is not ported
+  partition: str = 'row'           # or 'column': dim-axis shards
+
+  def __post_init__(self):
+    if self.partition not in ('row', 'column'):
+      raise ValueError(f'table {self.name!r}: partition must be row or '
+                       f'column, not {self.partition!r}')
+
+  @property
+  def by_column(self) -> bool:
+    return self.partition == 'column'
 
   def should_shard(self, ctx: Optional['Context'] = None,
                    min_shard_rows: int = 0) -> bool:
-    """Whether the table is row-sharded over ``ctx``'s world: never in a
+    """Whether the table is sharded over ``ctx``'s world: never in a
     world of one; else as ``sharded`` says, or by default when it has at
     least as many rows as the world and as ``min_shard_rows``."""
     world = ctx.world_size if ctx is not None else 1
@@ -72,22 +87,32 @@ class TableConfig:
   def padded_vocab(self, ctx: Optional['Context'] = None) -> int:
     """Rows of the table: the vocab, or its next power of two when the
     ids are mixed (the mix is invertible modulo a power of two), rounded
-    up to the world when the table is sharded over ``ctx``."""
+    up to the world when the table is row-sharded over ``ctx``."""
     v = self.vocab_size
     if self.shuffle_ids:
       v = 1 << (v - 1).bit_length()
-    return _round_up(v, ctx.world_size if self.should_shard(ctx) else 1)
+    by_rows = self.should_shard(ctx) and not self.by_column
+    return _round_up(v, ctx.world_size if by_rows else 1)
 
   def shard_rows(self, ctx: 'Context') -> slice:
     """The rows of the padded vocab that ``ctx``'s rank holds: all of
-    them unless the table is sharded."""
-    if not self.should_shard(ctx):
+    them unless the table is row-sharded."""
+    if not self.should_shard(ctx) or self.by_column:
       return slice(0, self.padded_vocab(ctx))
-    if self.partition != 'row':
-      raise NotImplementedError(
-          f'table {self.name!r}: partition={self.partition!r} is not '
-          "ported; only 'row' is (column sharding is ROADMAP item 15b (3))")
     return ctx.rows(self.padded_vocab(ctx))
+
+  def shard_cols(self, ctx: Optional['Context']) -> slice:
+    """The columns that ``ctx``'s rank holds: all of them unless the
+    table is column-sharded. A dim the world does not divide raises."""
+    if not (self.should_shard(ctx) and self.by_column):
+      return slice(0, self.dim)
+    if self.dim % ctx.world_size:
+      raise ValueError(
+          f'Column-sharded table {self.name!r}: dim={self.dim} must divide '
+          f'evenly by world_size={ctx.world_size} (pad dim or use '
+          'partition="row")')
+    per = self.dim // ctx.world_size
+    return slice(ctx.rank * per, (ctx.rank + 1) * per)
 
   def row_index(self, ids: torch.Tensor,
                 ctx: Optional['Context'] = None) -> torch.Tensor:
@@ -106,20 +131,30 @@ class TableConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TableShard:
-  """A rank's shard of a row-sharded table: rows ``[start, start + n)``
-  of the table's padded vocab (``n`` the shard's rows), of which the
-  first ``rows`` are the table's rows at a world of one (the rest are the
-  world's padding, ``padded_vocab``)."""
+  """A rank's shard of a sharded table: rows ``[start, start + n)`` of
+  the table's padded vocab (``n`` the shard's rows), of which the first
+  ``rows`` are the table's rows at a world of one (the rest are the
+  world's padding, ``padded_vocab``); of a column shard (``dim`` set,
+  the table's width), every row of the columns ``[col, col + m)``."""
   start: int
   rows: int
+  col: int = 0
+  dim: Optional[int] = None
+
+  @property
+  def by_column(self) -> bool:
+    return self.dim is not None
 
 
 def shard_of(config: TableConfig,
              ctx: Optional['Context']) -> Optional[TableShard]:
   """The :class:`TableShard` of ``ctx``'s rank when ``config`` is
-  row-sharded over ``ctx``'s world, else None."""
+  sharded over ``ctx``'s world, else None."""
   if ctx is None or not config.should_shard(ctx):
     return None
+  if config.by_column:
+    return TableShard(0, config.padded_vocab(), config.shard_cols(ctx).start,
+                      config.dim)
   return TableShard(config.shard_rows(ctx).start, config.padded_vocab())
 
 
@@ -148,16 +183,17 @@ def create_table(config: TableConfig, generator: torch.Generator,
                  device: torch.device,
                  ctx: Optional['Context'] = None) -> torch.Tensor:
   """Materialize a ``[padded_vocab, dim]`` table on ``device``, or, when
-  it is sharded over ``ctx``, this rank's rows of it.
+  it is sharded over ``ctx``, this rank's rows (or columns) of it.
 
   The values are drawn on the generator's device and then moved, so one
   seeded CPU generator gives the same table on every device; a shard is
   cut from the whole table drawn the same way, so every world holds the
   same logical table."""
   init = config.initializer or default_initializer
+  cols = config.shard_cols(ctx)
   out = init(generator, (config.padded_vocab(ctx), config.dim), config.dtype)
   if ctx is not None:
-    out = out[config.shard_rows(ctx)]
+    out = out[config.shard_rows(ctx), cols]
   return out.to(device=device, dtype=config.dtype).contiguous()
 
 

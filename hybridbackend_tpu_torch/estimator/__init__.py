@@ -39,12 +39,14 @@ In a world of N ranks (the trainer's context: ``ctx`` of ``Trainer``,
 process that ``python -m hybridbackend_tpu_torch.run`` starts) each rank
 trains on its own batches, its rows of the global batch:
 
-* ``SparseTrainer``'s stacks are row-sharded and updated on the owners'
-  shards by the update kernels (``make_sparse_train_step``); ``Trainer``
-  is data-parallel, its row-sharded tables (``init_tables(...,
-  ctx=ctx)``) taking their dense gradients through the sharded lookup's
-  backward (``training/train.py``). The towers start equal: rank 0's
-  are broadcast.
+* ``SparseTrainer``'s stacks are sharded (by rows, or by columns with
+  ``partition='column'``) and updated on the owners' shards by the
+  update kernels (``make_sparse_train_step``), looked up through its
+  ``lookup_strategy``; ``Trainer`` is data-parallel, its sharded tables
+  (``init_tables(..., ctx=ctx)``) taking their dense gradients through
+  the sharded lookup's backward (``training/train.py``), by the strategy
+  its loss function passes ``extract_features``. The towers start
+  equal: rank 0's are broadcast.
 * ``train`` and ``evaluate`` agree on stopping through
   ``SyncReplicasIterator``: training stops on every rank when any rank
   runs out, evaluation goes on until all have, on padded batches whose
@@ -53,12 +55,13 @@ trains on its own batches, its rows of the global batch:
   is computed on each eval batch gathered over the ranks in rank order,
   the global batch JAX computes it on (a group may span ranks). Every
   rank returns the same dict.
-* A checkpoint is written by every rank, each its own rows of each
-  sharded table and slot, rank 0 the replicated leaves
-  (``training/checkpoint.py``); it restores at any world.
+* A checkpoint is written by every rank, each its own rows (or columns)
+  of each sharded table and slot, rank 0 the replicated leaves
+  (``training/checkpoint.py``); it restores at any world (of a column
+  shard, any world that divides its dim).
 * ``export_saved_model`` is called by every rank: the shards are gathered
-  and rank 0 alone writes the bundle, the unsharded one ``Served``
-  loads (JAX ``:362-375,513-533``).
+  (a column shard's along the dim) and rank 0 alone writes the bundle,
+  the unsharded one ``Served`` loads (JAX ``:362-375,513-533``).
 * Rank 0 alone logs, and its hooks alone report (``training/hooks.py``).
 
 Host-backed tables (``caches``) keep a slot map per host, which a world
@@ -136,6 +139,12 @@ def _gauc_step(gauc_s, labels, preds, valid, ind):
     ind = torch.where(valid > 0, ind, ind.min() - 1)
   # Eval batches need not hold each group in one run: sort them.
   return hbm.gauc_update(gauc_s, labels, preds, ind, sort_groups=True)
+
+
+def _whole(t: torch.Tensor, shard, ctx: Context) -> torch.Tensor:
+  """The whole table of a shard (a collective): the ranks' rows joined,
+  or a column shard's columns."""
+  return collective.allgather(t, ctx=ctx, axis=1 if shard.by_column else 0)
 
 
 def _gathered(ctx: Context, *tensors: torch.Tensor):
@@ -283,8 +292,8 @@ class Trainer:
   # -- state -----------------------------------------------------------------
 
   def _checkpoint_state(self) -> Dict[str, Any]:
-    """The state to save: a row-sharded table's parameter, and each of
-    its optimizer slots of its shape, as a :class:`Shard`."""
+    """The state to save: a sharded table's parameter, and each of its
+    optimizer slots of its shape, as a :class:`Shard`."""
     params = self.state.params
     shards = {n: (p.shape, table_shard(p))
               for n, p in params.named_parameters()}
@@ -293,7 +302,7 @@ class Trainer:
       shape, shard = shards.get(name, (None, None))
       if shard is None or t.shape != shape:
         return t
-      return Shard.of_rows(t, shard.start, shard.rows)
+      return Shard.of_rows(t, shard.start, shard.rows, shard.col, shard.dim)
 
     return {'step': self.state.step,
             'params': {k: leaf(k, v) for k, v in params.state_dict().items()},
@@ -538,14 +547,14 @@ class Trainer:
     serves any batch size from one bundle; ``id_mappers`` (``{column:
     IdMapper}``) bundles the maps that ``Served`` applies to raw ids.
 
-    In a world, every rank must call this: each row-sharded table is
+    In a world, every rank must call this: each sharded table is
     gathered whole (a collective), a whole table is looked up locally
     (``embedding/lookup.py``), and rank 0 alone writes the bundle."""
     loss_fn = self._loss_fn
     module = self.state.params
     leaves = _leaves(module)
     if self._world > 1:
-      leaves = {k: (collective.allgather(v.detach(), ctx=self._ctx)
+      leaves = {k: (_whole(v.detach(), table_shard(v), self._ctx)
                     if table_shard(v) is not None else v)
                 for k, v in leaves.items()}
       if not self._ctx.is_chief:
@@ -582,6 +591,9 @@ class SparseTrainer(Trainer):
     table_lr, adagrad_init, table_optimizer: the table update, row-sparse
       ``'adagrad'`` (accumulators from ``adagrad_init``) or ``'adam'``
       (LazyAdam), at ``table_lr``.
+    lookup_strategy: the row-sharded stacks' exchange in a world, for
+      the train steps, evaluation and prediction (``lookup.STRATEGIES``;
+      the JAX option ``emb_lookup_strategy``).
     generator: draws the default tables (seed 0 when None, the JAX
       ``PRNGKey(0)``).
     caches: ``{column: EmbeddingCache}``, host-backed tables: each
@@ -611,7 +623,8 @@ class SparseTrainer(Trainer):
                generator: Optional[torch.Generator] = None,
                keep_checkpoint_max: int = 5, grow_vocab: bool = False,
                prefetch_capacity: int = 2,
-               caches: Optional[Dict[str, EmbeddingCache]] = None):
+               caches: Optional[Dict[str, EmbeddingCache]] = None,
+               lookup_strategy: str = 'allgather'):
     ctx = fx.ctx
     if caches and ctx.world_size > 1:
       raise NotImplementedError(
@@ -646,12 +659,12 @@ class SparseTrainer(Trainer):
     self._raw_model_loss = raw_model_loss
     self._step_fn = make_sparse_train_step(
         fx, model_loss, table_lr, table_optimizer=table_optimizer,
-        raw_model_loss=raw_model_loss)
+        raw_model_loss=raw_model_loss, lookup_strategy=lookup_strategy)
     loss_of = loss_from_raw(fx, model_loss, raw_model_loss)
 
     def eval_fn(params, batch):
       tower, tables = params
-      raw, _, layouts = fx.lookup_raw(tables, batch)
+      raw, _, layouts = fx.lookup_raw(tables, batch, lookup_strategy)
       return loss_of(tower, raw, layouts, batch)
 
     self._eval_fn = make_eval_step(eval_fn)
@@ -659,12 +672,16 @@ class SparseTrainer(Trainer):
                 keep_checkpoint_max, grow_vocab)
 
   def _checkpoint_state(self) -> Dict[str, Any]:
-    """The state to save: a row-sharded stack's table and slots as
-    :class:`Shard` leaves."""
+    """The state to save: a sharded stack's table and slots as
+    :class:`Shard` leaves (of a column-sharded stack, with its
+    columns)."""
     s = self.state
-    shards = {st.stacked.name: logical_segments(st, self._ctx)
-              for st in self._fx.stacks
-              if shard_of(st.stacked, self._ctx) is not None}
+    shards = {}
+    for st in self._fx.stacks:
+      shard = shard_of(st.stacked, self._ctx)
+      if shard is not None:
+        shards[st.stacked.name] = (*logical_segments(st, self._ctx),
+                                   shard.col, shard.dim)
 
     def leaf(name, t):
       return Shard(t, *shards[name]) if name in shards else t
@@ -712,7 +729,8 @@ class SparseTrainer(Trainer):
     dynamic tables, which ``Served`` applies read-only to those columns.
 
     In a world, every rank must call this: each sharded stack is gathered
-    whole (a collective) and split into its members' rows, and rank 0
+    whole (a collective; a column-sharded one along the dim) and split
+    into its members' rows, and rank 0
     alone writes the bundle, the one a world of one writes (``int8``
     quantized after the gather).
 
@@ -728,8 +746,9 @@ class SparseTrainer(Trainer):
     tables: Dict[str, Any] = {}
     for stack in self._fx.stacks:
       table = self.state.tables[stack.stacked.name]
-      if shard_of(stack.stacked, self._ctx) is not None:
-        table = collective.allgather(table, ctx=self._ctx)
+      shard = shard_of(stack.stacked, self._ctx)
+      if shard is not None:
+        table = _whole(table, shard, self._ctx)
       members = member_tables(stack, table)
       # A member's rows, without those a world pads it with.
       tables.update({cfg.name: members[cfg.name][:cfg.vocab_size]

@@ -54,11 +54,12 @@ def init_tables(specs: Sequence[EmbeddingSpec], generator: torch.Generator,
   JAX function's params subtree).
 
   In a world of more than one rank (``ctx``) a table that the shard
-  policy row-shards (``TableConfig.should_shard``; ``sharded=False``
-  keeps one replicated) is this rank's rows of it, drawn whole and cut
-  (``create_table``), and its parameter is marked with its
-  ``TableShard`` (``embedding/table.py``), as JAX's ``create_table(...,
-  ctx)`` shards it (``feature.py:44-51``)."""
+  policy shards (``TableConfig.should_shard``; ``sharded=False`` keeps
+  one replicated) is this rank's rows of it, or its columns with
+  ``partition='column'``, drawn whole and cut (``create_table``), and
+  its parameter is marked with its ``TableShard``
+  (``embedding/table.py``), as JAX's ``create_table(..., ctx)`` shards it
+  (``feature.py:44-51``)."""
   return nn.ParameterDict({
       spec.name: mark_shard(
           nn.Parameter(create_table(spec.config, generator, device, ctx)),
@@ -70,7 +71,7 @@ def extract_features(tables: Mapping[str, Table], batch: Batch,
                      specs: Sequence[EmbeddingSpec],
                      dense_columns: Sequence[str] = (),
                      serving: bool = False, *,
-                     ctx: Optional[Context] = None
+                     ctx: Optional[Context] = None, **exchange
                      ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
   """``(embedding features, each [B, dim]; dense features, each [B, 1]
   float32)``. A ragged column (padded ids with ``<key>_mask`` in the
@@ -80,7 +81,11 @@ def extract_features(tables: Mapping[str, Table], batch: Batch,
   kernel 5, as ``lookup`` says; a table may be a ``QuantizedTable``.
   With ``ctx`` (a world of ranks, the tables from ``init_tables(...,
   ctx=ctx)``), ``B`` is the rank's rows and a sharded table is looked up
-  through the differentiable sharded lookup (``'allgather'``)."""
+  through the differentiable sharded lookup, by the exchange that
+  ``exchange`` names (``strategy``, ``'allgather'`` by default, and
+  ``lookup``'s other exchange options): the dense ``Trainer``'s loss
+  function chooses its strategy here, as the JAX one does through the
+  ``emb_lookup_strategy`` option."""
   emb_features = []
   for spec in specs:
     ids = batch[spec.key]
@@ -88,9 +93,9 @@ def extract_features(tables: Mapping[str, Table], batch: Batch,
     mask_key = spec.key + '_mask'
     if ids.dim() >= 2 and mask_key in batch:
       emb = lookup_sparse(table, ids, batch[mask_key], spec.config,
-                          serving=serving, ctx=ctx)
+                          serving=serving, ctx=ctx, **exchange)
     else:
-      emb = lookup(table, ids, spec.config, serving, ctx=ctx)
+      emb = lookup(table, ids, spec.config, serving, ctx=ctx, **exchange)
       if emb.dim() > 2:
         emb = torch.mean(emb, dim=-2)
     emb_features.append(emb)
@@ -107,10 +112,11 @@ class StackedFeatureExtractor:
   """Batch columns to embedding and dense features, one fused lookup per
   stack of same-dim tables.
 
-  In a world of more than one rank (``ctx``) a stack is row-sharded or
-  replicated by the tables' shard policy, with ``min_shard_rows`` (the
-  JAX option ``emb_min_shard_rows``); the tables are then each rank's
-  shards, and a batch is the rank's rows of the global batch."""
+  In a world of more than one rank (``ctx``) a stack is sharded (by its
+  members' ``partition``: rows or columns) or replicated by the tables'
+  shard policy, with ``min_shard_rows`` (the JAX option
+  ``emb_min_shard_rows``); the tables are then each rank's shards, and a
+  batch is the rank's rows of the global batch."""
 
   def __init__(self, specs: Sequence[EmbeddingSpec],
                dense_columns: Sequence[str] = (), *, ctx: Context,
@@ -152,10 +158,13 @@ class StackedFeatureExtractor:
     packed ids (the sparse update needs both).
 
     A sharded stack is looked up through the exchange ``strategy``
-    names: one for all stacks, or ``{stack name: strategy}`` (the JAX
-    per-table ``emb_lookup_strategy``; a stack it leaves out takes
-    ``'allgather'``); ``exchange`` holds ``lookup``'s other options
-    (``bucket_ratio``, ``overflow_fallback``, ``unique_ratio``).
+    names (``lookup.STRATEGIES``: ``'allgather'``, ``'alltoall'``,
+    ``'hierarchical'`` or ``'gspmd'``): one for all stacks, or ``{stack
+    name: strategy}`` (the JAX per-table ``emb_lookup_strategy``; a
+    stack it leaves out takes ``'allgather'``); a column-sharded stack
+    has one exchange whatever it names. ``exchange`` holds ``lookup``'s
+    other options (``bucket_ratio``, ``overflow_fallback``,
+    ``unique_ratio``, ``wire_dtype``).
 
     Returns ``(raw_by_stack {stack: [B, K, D]}, ids_by_stack {stack:
     [B, K]}, layouts {stack: layout})``."""

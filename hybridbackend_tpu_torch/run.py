@@ -1,6 +1,6 @@
 """Launcher: ``python -m hybridbackend_tpu_torch.run [--nproc N |
---simulate N] [--device cuda|cpu] [--timeout S] script.py | -m module
-[args]``.
+--simulate N] [--nodes M] [--device cuda|cpu] [--timeout S] script.py |
+-m module [args]``.
 
 Counterpart of ``hybridbackend_tpu/run.py`` (after the reference's
 ``run.py:65-228``), which spawns one process per visible GPU. It starts
@@ -8,18 +8,28 @@ the ranks of one world on this machine, each a process of its own that
 runs the script (or module) with its arguments:
 
 * by default one NCCL rank per visible GPU (``--nproc N`` for fewer),
-  each on ``cuda:<LOCAL_RANK>``;
+  rank ``r`` on ``cuda:<r>``;
 * ``--simulate N``: N gloo ranks. With ``--device cpu`` they are CPU
   processes; with ``--device cuda`` (the default) all N share the one
   card, ``cuda:0``, which NCCL refuses. That mode checks correctness
   only: its times say nothing of NCCL or of a link between cards.
 
-Each child finds ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and
-``LOCAL_WORLD_SIZE`` in its environment, with the rendezvous (a file
-store in a temporary directory that the launcher owns and removes: it
-cannot race for a TCP port), the backend, the shared card and the
-collectives' deadline, which
+``--nodes M`` (M divides N; one by default) lays the N ranks out as M
+nodes of N/M consecutive ranks, torchrun's layout, all on this machine:
+the counterpart of the JAX launcher's ``--devices-per-process``, whose
+processes are the mesh's ``dcn`` axis and their devices its ``ici``
+axis. Each child finds ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` (``r %
+(N/M)``), ``LOCAL_WORLD_SIZE`` (N/M) and ``GROUP_RANK`` (its node, ``r //
+(N/M)``) in its environment, with the rendezvous (a file store in a
+temporary directory that the launcher owns and removes: it cannot race
+for a TCP port), the backend, the shared card, the rank's own card and
+the collectives' deadline, which
 :meth:`~hybridbackend_tpu_torch.framework.context.Context.join` reads.
+Two ranks of two simulated nodes share a local rank, so a rank's card is
+not its ``LOCAL_RANK`` but its index among the launcher's processes,
+``HB_TORCH_RUN_CARD`` (the rank itself): ``--nproc N --nodes M`` still
+gives each rank a card of its own, and ``--simulate`` puts them all on
+one (``framework/context.py``'s ``card_of``).
 ``OMP_NUM_THREADS`` is 1 unless the environment sets it, as torchrun
 does.
 
@@ -42,10 +52,10 @@ import sys
 import tempfile
 import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from hybridbackend_tpu_torch.framework.context import (
-    BACKEND_ENV, SHARED_DEVICE_ENV, STORE_ENV, TIMEOUT_ENV)
+    BACKEND_ENV, CARD_ENV, SHARED_DEVICE_ENV, STORE_ENV, TIMEOUT_ENV)
 
 TIMED_OUT = 124
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -87,7 +97,7 @@ def _relay_lines(src, dst_fd: int) -> None:
     src.close()
 
 
-_VALUED = ('--nproc', '--simulate', '--device', '--timeout',
+_VALUED = ('--nproc', '--simulate', '--nodes', '--device', '--timeout',
            '--collective-timeout')
 
 
@@ -108,8 +118,8 @@ def _split(argv: List[str]):
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
   p = argparse.ArgumentParser(
       prog='python -m hybridbackend_tpu_torch.run',
-      usage='%(prog)s [--nproc N | --simulate N] [--device cuda|cpu] '
-            '[--timeout S] script.py | -m module [args]',
+      usage='%(prog)s [--nproc N | --simulate N] [--nodes M] '
+            '[--device cuda|cpu] [--timeout S] script.py | -m module [args]',
       description='Start the ranks of one world of the PyTorch port.')
   ranks = p.add_mutually_exclusive_group()
   ranks.add_argument('--nproc', type=int, default=0, metavar='N',
@@ -120,6 +130,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                           'cuda all on the one card cuda:0; this checks '
                           'correctness only, and its times say nothing '
                           'of NCCL or of links between cards')
+  p.add_argument('--nodes', type=int, default=1, metavar='M',
+                 help='lay the ranks out as M nodes of N/M consecutive '
+                      'ranks, all on this machine (default 1; M must '
+                      'divide N)')
   p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'],
                  help="the ranks' device type (default cuda)")
   p.add_argument('--timeout', type=float, default=0.0, metavar='S',
@@ -155,9 +169,25 @@ def _world(opts: argparse.Namespace):
   return n, 'nccl', None
 
 
+def child_env(rank: int, nranks: int, nodes: int, backend: str,
+              shared: Optional[str], store: str,
+              collective_timeout: float) -> Dict[str, str]:
+  """The variables the launcher gives rank ``rank`` of ``nranks`` in
+  ``nodes`` nodes (see the module docstring)."""
+  local = nranks // nodes
+  return {'RANK': str(rank), 'WORLD_SIZE': str(nranks),
+          'LOCAL_RANK': str(rank % local), 'LOCAL_WORLD_SIZE': str(local),
+          'GROUP_RANK': str(rank // local), CARD_ENV: str(rank),
+          STORE_ENV: store, BACKEND_ENV: backend,
+          SHARED_DEVICE_ENV: shared or '',
+          TIMEOUT_ENV: str(collective_timeout), 'PYTHONUNBUFFERED': '1'}
+
+
 def main(argv: Optional[List[str]] = None) -> int:
   opts = parse_args(argv)
   nranks, backend, shared = _world(opts)
+  if opts.nodes < 1 or nranks % opts.nodes:
+    raise SystemExit(f'--nodes {opts.nodes} does not divide {nranks} ranks')
   target = opts.target
   rundir = tempfile.mkdtemp(prefix='hbtpu_torch_run_')
   procs = []
@@ -166,13 +196,9 @@ def main(argv: Optional[List[str]] = None) -> int:
   try:
     for rank in range(nranks):
       env = dict(os.environ)
-      env.update({
-          'RANK': str(rank), 'WORLD_SIZE': str(nranks),
-          'LOCAL_RANK': str(rank), 'LOCAL_WORLD_SIZE': str(nranks),
-          STORE_ENV: os.path.join(rundir, 'store'),
-          BACKEND_ENV: backend, SHARED_DEVICE_ENV: shared or '',
-          TIMEOUT_ENV: str(opts.collective_timeout),
-          'PYTHONUNBUFFERED': '1'})
+      env.update(child_env(rank, nranks, opts.nodes, backend, shared,
+                           os.path.join(rundir, 'store'),
+                           opts.collective_timeout))
       env.setdefault('OMP_NUM_THREADS', '1')
       # The ranks import the port the launcher came from.
       env['PYTHONPATH'] = os.pathsep.join(

@@ -5,8 +5,10 @@ Counterpart of ``hybridbackend_tpu/training/checkpoint.py:1-169``
 global arrays. A state is a nested dict (lists and tuples allowed) of
 tensors, :class:`Shard` leaves and host values. A :class:`Shard` is a
 rank's rows of a row-sharded table or slot, with where they stand among
-the table's logical rows (its rows at a world of one); every other
-tensor is the same on every rank. Tables are stored by their logical
+the table's logical rows (its rows at a world of one), or a rank's
+columns of a column-sharded one (every row, some columns), with where
+they stand among its columns; every other tensor is the same on every
+rank. Tables are stored by their logical
 rows, so a checkpoint does not depend on the world that wrote it: a
 world pads a table's rows up to a multiple of itself, and a stack's
 members each to one (``padded_vocab``, ``build_stacks``), and those
@@ -18,8 +20,8 @@ Two layouts, both read at any world:
   the whole state, under a name of this process's own and then moved into
   place with ``os.replace``, so a reader never sees half a file;
 * a world of more than one rank (``ctx``) writes the directory
-  ``checkpoint-<step>/``: each rank its own rows of every shard, with the
-  rows they are, in ``rank-<r>.pt``; rank 0 the replicated leaves in
+  ``checkpoint-<step>/``: each rank its own rows (or columns) of every
+  shard, with the rows and columns they are, in ``rank-<r>.pt``; rank 0 the replicated leaves in
   ``replicated.pt``; then, once every rank has written (a barrier), rank
   0 writes ``manifest.json``. A reader sees a step only once its
   manifest exists. Nothing is gathered on the way out. Only rank 0
@@ -58,6 +60,7 @@ _FILE = re.compile(r'^checkpoint-(\d+)\.pt$')
 _DIR = re.compile(r'^checkpoint-(\d+)$')
 _MANIFEST = 'manifest.json'
 _SHARD_KEY = '__hb_shard_rows__'     # a shard's place in replicated.pt
+_WIDTH_KEY = '__hb_shard_width__'    # and a column shard's whole width
 
 
 Segments = Tuple[Tuple[int, int, int], ...]
@@ -65,27 +68,39 @@ Segments = Tuple[Tuple[int, int, int], ...]
 
 @dataclasses.dataclass
 class Shard:
-  """A rank's rows of a row-sharded leaf of ``rows`` logical rows:
+  """A rank's rows of a sharded leaf of ``rows`` logical rows:
   ``segments`` of ``(first row of value, first logical row, rows)``; a
-  row of ``value`` that no segment names is padding."""
+  row of ``value`` that no segment names is padding. A column shard's
+  ``value`` holds the leaf's columns ``[col, col + value.shape[1])`` of
+  its ``width``."""
   value: torch.Tensor
   segments: Segments
   rows: int
+  col: int = 0
+  width: Optional[int] = None
 
   @classmethod
-  def of_rows(cls, value: torch.Tensor, start: int, rows: int) -> 'Shard':
+  def of_rows(cls, value: torch.Tensor, start: int, rows: int,
+              col: int = 0, width: Optional[int] = None) -> 'Shard':
     """Rows ``[start, start + len(value))`` of a table's rows padded to a
-    world, of which the first ``rows`` are its logical ones."""
+    world, of which the first ``rows`` are its logical ones (and of a
+    column shard, its columns from ``col`` of ``width``)."""
     n = max(0, min(value.shape[0], rows - start))
-    return cls(value, ((0, start, n),) if n else (), rows)
+    return cls(value, ((0, start, n),) if n else (), rows, col, width)
 
 
-def _leaf(template) -> Tuple[torch.Tensor, Segments, int]:
-  """``(tensor, segments, logical rows)`` of a tensor or shard leaf."""
+def _width(t: torch.Tensor) -> int:
+  return t.shape[1] if t.dim() > 1 else 1
+
+
+def _leaf(template) -> Tuple[torch.Tensor, Segments, int, int, int]:
+  """``(tensor, segments, logical rows, first column, width)`` of a
+  tensor or shard leaf."""
   if isinstance(template, Shard):
-    return template.value, template.segments, template.rows
+    return (template.value, template.segments, template.rows, template.col,
+            template.width or _width(template.value))
   n = template.shape[0] if template.dim() else 0
-  return template, ((0, 0, n),), n
+  return template, ((0, 0, n),), n, 0, _width(template)
 
 
 def _write(obj: Any, path: str) -> None:
@@ -232,10 +247,11 @@ class CheckpointManager:
       return type(template)(self._merge(s, t, f'{path}/{i}', pieces)
                             for i, (s, t) in enumerate(zip(stored, template)))
     if isinstance(stored, dict) and _SHARD_KEY in stored:
-      return self._rows(stored[_SHARD_KEY], pieces[path], template, path)
+      return self._rows(stored[_SHARD_KEY], stored.get(_WIDTH_KEY),
+                        pieces[path], template, path)
     if isinstance(template, Shard):
       piece = {'segments': [(0, 0, stored.shape[0])], 'value': stored}
-      return self._rows(stored.shape[0], [piece], template, path)
+      return self._rows(stored.shape[0], None, [piece], template, path)
     if not isinstance(template, torch.Tensor):
       return stored
     value = stored.to(device=template.device, dtype=template.dtype)
@@ -250,28 +266,42 @@ class CheckpointManager:
     raise ValueError(f'{path}: stored {tuple(value.shape)} does not fit '
                      f'{tuple(template.shape)}')
 
-  def _rows(self, stored_rows: int, pieces: List[Dict[str, Any]],
-            template: Any, path: str) -> torch.Tensor:
-    """The template leaf's rows: its logical ones from the stored
-    ``pieces`` (each ``{'segments', 'value'}``), its padding its own."""
-    value, segments, rows = _leaf(template)
+  def _rows(self, stored_rows: int, stored_width: Optional[int],
+            pieces: List[Dict[str, Any]], template: Any,
+            path: str) -> torch.Tensor:
+    """The template leaf's rows: its logical ones, in its columns, from
+    the stored ``pieces`` (each ``{'segments', 'value'}``, and a column
+    piece's first column ``'col'``) of a leaf ``stored_width`` wide
+    (None: as wide as a piece), its padding its own."""
+    value, segments, rows, col, width = _leaf(template)
     if stored_rows != rows and not (self._grow and stored_rows < rows):
       raise ValueError(f'{path}: stored {stored_rows} rows do not fit '
                        f'{rows}')
     out = value.clone()
+    for piece in pieces:
+      src = piece['value']
+      if (src.shape[2:] != out.shape[2:]
+          or (stored_width or _width(src)) != width):
+        raise ValueError(f'{path}: stored rows of {tuple(src.shape[1:])} '
+                         f'(of {stored_width or _width(src)} columns) do '
+                         f'not fit {tuple(out.shape[1:])} (of {width})')
     for t_row, t_logical, t_count in segments:
       lo, hi = t_logical, min(t_logical + t_count, stored_rows)
       for piece in pieces:
-        src = piece['value']
-        if src.shape[1:] != out.shape[1:]:
-          raise ValueError(f'{path}: stored rows of {tuple(src.shape[1:])} '
-                           f'do not fit {tuple(out.shape[1:])}')
+        src, p_col = piece['value'], piece.get('col', 0)
+        c0 = max(col, p_col)
+        c1 = min(col + _width(out), p_col + _width(src))
+        if c1 <= c0:
+          continue
         for p_row, p_logical, p_count in piece['segments']:
           a, b = max(lo, p_logical), min(hi, p_logical + p_count)
           if b > a:
-            out[t_row + a - t_logical:t_row + b - t_logical] = src[
-                p_row + a - p_logical:p_row + b - p_logical].to(
-                    device=out.device, dtype=out.dtype)
+            rows_in = src[p_row + a - p_logical:p_row + b - p_logical]
+            rows_out = out[t_row + a - t_logical:t_row + b - t_logical]
+            if out.dim() > 1:
+              rows_in = rows_in[:, c0 - p_col:c1 - p_col]
+              rows_out = rows_out[:, c0 - col:c1 - col]
+            rows_out.copy_(rows_in.to(device=out.device, dtype=out.dtype))
     return out
 
 
@@ -295,8 +325,10 @@ def _split(state: Any, path: str, pieces: Dict[str, Any]) -> Any:
                        for i, v in enumerate(state))
   if isinstance(state, Shard):
     pieces[path] = {'segments': [list(s) for s in state.segments],
-                    'value': state.value}
-    return {_SHARD_KEY: state.rows}
+                    'value': state.value, 'col': state.col}
+    if state.width is None:
+      return {_SHARD_KEY: state.rows}
+    return {_SHARD_KEY: state.rows, _WIDTH_KEY: state.width}
   return state
 
 

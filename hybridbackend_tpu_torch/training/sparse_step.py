@@ -33,12 +33,19 @@ the rank's rows, as JAX's wire path does: a loss summed over the batch
 gets gradients ``W`` times too small. The reported loss is the mean over the ranks.
 The towers start equal: ``SparseTrainState.create`` broadcasts rank 0's.
 Every table optimizer, both model hooks and both table dtypes run there
-as at a world of one. In raw mode each rank hands ``raw_model_loss`` its
-own rows of every member, unpacked from its own raw block; per-example
-aux outputs stay the rank's own. ``gradient_wire_dtype`` casts the
-tower's all-reduce (the sum of ``g.astype(wire)``, then divided by the
-world, JAX ``:128-149``) and the routed gradient buckets;
-``wire_dtype`` the alltoall lookup's returning rows.
+as at a world of one. A stack row-sharded over the ranks is looked up by
+``lookup_strategy`` (``'allgather'``, ``'alltoall'``, ``'hierarchical'``
+over the node layout, or ``'gspmd'``) and its gradients routed to the
+owners by ``update_exchange`` over all ranks, as in JAX
+(``sparse_update.py:514``); a column-sharded stack (``partition=
+'column'``) takes its one exchange both ways, each rank updating its dim
+slice with the whole batch's list. In raw mode each rank hands
+``raw_model_loss`` its own rows of every member, unpacked from its own
+raw block; per-example aux outputs stay the rank's own.
+``gradient_wire_dtype`` casts the tower's all-reduce (the sum of
+``g.astype(wire)``, then divided by the world, JAX ``:128-149``) and the
+routed gradient buckets; ``wire_dtype`` the alltoall and hierarchical
+lookups' returning rows.
 """
 
 from __future__ import annotations

@@ -14,9 +14,10 @@ In a world of more than one rank (``ctx``) the step is data-parallel, as
 the JAX step is over the mesh: each rank runs it on its rows of the
 global batch, with its loss a mean over those rows. Every gradient of a
 replicated parameter is summed over the ranks in one flat all-reduce and
-divided by the world. A row-sharded table's parameter (marked by
-``init_tables(..., ctx=ctx)``, ``embedding/table.py``'s ``TableShard``)
-gets its gradient from the sharded lookup's backward: the sum of every
+divided by the world. A sharded table's parameter, its rows or (with
+``partition='column'``) its columns (marked by ``init_tables(...,
+ctx=ctx)``, ``embedding/table.py``'s ``TableShard``) gets its gradient
+from the sharded lookup's backward, whichever its exchange: the sum of every
 rank's gradients of its rows, which the step divides by the world once,
 so that it carries the global batch's ``1/B`` as in JAX; it is never
 all-reduced (``train.py:102-104``). ``TrainState.create`` makes every

@@ -537,6 +537,35 @@ def test_add_kernel_takes_a_row_too_wide_to_stage(dev):
   torch.testing.assert_close(got.cpu(), want, **TOL)
 
 
+# A column-sharded table's slice, ``[V, d/W]`` of a ``[V, 16]`` table (4 or
+# 8 wide at W = 4 or 2; the 4-wide one on the kernels' scalar lanes), with
+# the whole batch's sorted list every rank updates it with.
+@pytest.mark.parametrize('width', [4, 8])
+@pytest.mark.parametrize('kernel', [*UPDATE_KERNELS, 'gsum'])
+def test_kernels_on_a_column_slice(dev, kernel, width):
+  table, _, rows, g16 = _case(dev, 5000, 16, 24576, 3000, seed=width)
+  cols = slice(16 - width, 16)
+  piece = table[:, cols].contiguous()
+  g = g16[:, cols].contiguous()
+  if kernel == 'gsum':
+    got = hbt.gsum_dense_sorted(rows, g, piece.shape[0])
+    want = hbt.gsum_dense_sorted_reference(rows.cpu(), g.cpu(),
+                                           piece.shape[0])
+    assert torch.equal(got.cpu(), want)
+    return
+  state = update_state(kernel, None, piece) if kernel != 'adam' else [
+      piece, torch.rand_like(piece) * 0.01, torch.rand_like(piece) * 0.01]
+  plain = [t.cpu() for t in state]
+  name = {'add': 'scatter_add_sorted', 'adam': 'adam_update_sorted'}.get(
+      kernel, 'adagrad_update_sorted')
+  before = getattr(hbt, name).launches
+  run_update(kernel, state, rows, g)
+  assert getattr(hbt, name).launches == before + 1
+  run_update(kernel, plain, rows.cpu(), g.cpu())
+  for got, want in zip(state, plain):
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
 # Kernel 4 and the dense-split update. Bitwise: the kernel sums each run
 # in list order from 0, as ``index_add_`` does on the CPU.
 @pytest.mark.parametrize('v,d,n,distinct', CASES + [(700, 128, 3000, 200),

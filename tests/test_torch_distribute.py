@@ -12,8 +12,10 @@ functions on a sub-mesh of N of the suite's 8 virtual CPU devices
 
 The updates and steps that ROADMAP item 15b (1) and (4) ported build or
 run at a world of two (one launch), and the dense step's gradient wire
-(15b (5)) runs at a world of one as a no-op; what is still out of scope
-raises, naming its part of item 15b.
+(15b (5)) runs at a world of one as a no-op; the hierarchical and gspmd
+lookups, a column-partitioned table and a node topology (15b (3)) give
+JAX's values at a world of one (``test_torch_exchanges.py`` runs them at
+N); what is still out of scope raises, naming its part of item 15b.
 
 Held bit for bit: the collectives (``all_to_all_v`` against JAX's
 ``alltoallv``), every lookup (both strategies, a forced bucket overflow
@@ -42,6 +44,7 @@ from hybridbackend_tpu.distribute import partition as jpartition
 from hybridbackend_tpu.embedding import sparse_update as jsparse
 from hybridbackend_tpu.embedding.lookup import lookup as jlookup
 from hybridbackend_tpu.embedding.table import TableConfig as JTableConfig
+from hybridbackend_tpu.embedding.table import create_table as jcreate_table
 from hybridbackend_tpu.embedding.unique import unique as junique
 from hybridbackend_tpu.framework.context import (
     Context as JContext, build_mesh, context_scope)
@@ -240,42 +243,55 @@ def test_shard_policy_matches_jax(world, min_rows):
 
 
 # ---------------------------------------------------------------------------
-# Out-of-scope branches raise, naming their part of ROADMAP item 15b; the
-# branches that item 15b (1), (2), (4) and (9) ported run.
+# The branches that ROADMAP item 15b (1), (2), (3), (4) and (9) ported run;
+# what is still out of scope raises, naming its part of item 15b.
 # ---------------------------------------------------------------------------
 
 def _two():
   return hbt.Context('cpu', rank=0, world_size=2)
 
 
-def _sharded_inputs():
-  cfg = hbt.TableConfig('t', 100, 4)
-  table = torch.zeros(50, 4)
-  return cfg, table, torch.zeros(6, dtype=torch.int32), torch.zeros(6, 4)
+def _at_one(case):
+  """``(port, JAX)`` of a call that raised ROADMAP item 15b (3) at a
+  world of two before it was ported, made at a world of one, where every
+  table is whole: the hierarchical and gspmd lookups and a
+  column-partitioned table's (a JAX table, lane-packed on one device,
+  is the port's through ``reshape(-1, dim)``), and an all-reduce over
+  one node."""
+  jc = jctx(1)
+  one = hbt.Context('cpu')
+  partition = 'column' if case == 'column_table' else 'row'
+  ids = np.random.RandomState(5).randint(-3, 110, (6, 2)).astype(np.int32)
+  if case == 'topology':
+    x = np.arange(5, dtype=np.float32)
+    with context_scope(jc):
+      want = jcollective.allreduce(
+          jnp.asarray(x), topology=jcollective.Topology.INTRA_NODE, ctx=jc)
+    return hbt.distribute.allreduce(
+        torch.from_numpy(x), ctx=one,
+        topology=hbt.distribute.Topology.INTRA_NODE), want
+  strategy = {'lookup_hierarchical': 'hierarchical',
+              'lookup_gspmd': 'gspmd'}.get(case, 'allgather')
+  with context_scope(jc):
+    jcfg = JTableConfig('t', 100, 4, partition=partition)
+    table = jcreate_table(jcfg, jax.random.PRNGKey(3), jc)
+    want = jlookup(table, jnp.asarray(ids), jcfg, ctx=jc, strategy=strategy)
+  cfg = hbt.TableConfig('t', 100, 4, partition=partition)
+  made = hbt.create_table(cfg, torch.Generator().manual_seed(0),
+                          torch.device('cpu'), one)
+  assert made.shape == (cfg.padded_vocab(one), 4) == (100, 4)
+  got = hbt.lookup(torch.from_numpy(np.asarray(table).reshape(-1, 4).copy()),
+                   torch.from_numpy(ids), cfg, ctx=one, strategy=strategy)
+  return got, want
 
 
-RAISES = {
-    'lookup_hierarchical': lambda: hbt.lookup(
-        *_sharded_inputs()[1:3], _sharded_inputs()[0], ctx=_two(),
-        strategy='hierarchical'),
-    'lookup_gspmd': lambda: hbt.lookup(
-        *_sharded_inputs()[1:3], _sharded_inputs()[0], ctx=_two(),
-        strategy='gspmd'),
-    'column_table': lambda: hbt.create_table(
-        hbt.TableConfig('c', 100, 4, partition='column'),
-        torch.Generator(), torch.device('cpu'), _two()),
-    'topology': lambda: hbt.distribute.allreduce(
-        torch.ones(2), ctx=_two(), topology=hbt.distribute.Topology.INTRA_NODE),
-}
-ITEMS = {'lookup_hierarchical': '15b (3)', 'lookup_gspmd': '15b (3)',
-         'column_table': '15b (3)', 'topology': '15b (3)'}
+AT_ONE = ('column_table', 'lookup_gspmd', 'lookup_hierarchical', 'topology')
 
 
-@pytest.mark.parametrize('case', sorted(RAISES))
-def test_out_of_scope_raises_with_its_item(case):
-  with pytest.raises(NotImplementedError, match=ITEMS[case].replace(
-      '(', r'\(').replace(')', r'\)')):
-    RAISES[case]()
+@pytest.mark.parametrize('case', AT_ONE)
+def test_ported_branches_match_jax_at_a_world_of_one(case):
+  got, want = _at_one(case)
+  _same(got, want)
 
 
 def _fx(world, **kw):

@@ -7,8 +7,10 @@ deadline, a collective whose peer never comes, and whole lines relayed
 from every rank; then the train harness as a world of two (also with
 per-occurrence Adagrad on bf16 tables and a bf16 gradient wire), the
 DIN harness's raw-mode sparse step as one, and both harnesses' dense
-modes as worlds of two, against their world of one. Every launch
-has a ``subprocess`` deadline, so that a hang fails one test.
+modes as worlds of two, against their world of one; ``--nodes``: the
+environment each child gets, node counts that do not divide the ranks,
+and the card a rank joins on. Every launch has a ``subprocess``
+deadline, so that a hang fails one test.
 """
 
 import json
@@ -207,3 +209,70 @@ def test_dense_harness_as_a_world_of_two(harness):
   assert one['world'] == 1
   assert abs(got['final_loss'] - one['final_loss']) <= 1e-5 * one[
       'final_loss']
+
+
+NODES = """
+import os
+keys = ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'LOCAL_WORLD_SIZE', 'GROUP_RANK',
+        'HB_TORCH_RUN_CARD')
+print('CHILD', ' '.join(os.environ[k] for k in keys), flush=True)
+"""
+
+
+@pytest.mark.timeout(120)
+def test_nodes_lay_the_ranks_out_as_torchrun(tmp_path):
+  """``--nodes 2`` of 4 ranks: nodes of 2 consecutive ranks, each child
+  with torchrun's local rank, node size and node, and its own card."""
+  out, _ = _launch(tmp_path, NODES, '--simulate', '4', '--nodes', '2',
+                   '--device', 'cpu', '--timeout', '80')
+  assert out.returncode == 0, out.stderr[-1000:]
+  assert sorted(l for l in out.stdout.splitlines()
+                if l.startswith('CHILD')) == [
+                    'CHILD 0 4 0 2 0 0', 'CHILD 1 4 1 2 0 1',
+                    'CHILD 2 4 0 2 1 2', 'CHILD 3 4 1 2 1 3']
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize('nodes', ['2', '0'])
+def test_nodes_that_do_not_divide_the_ranks_are_refused(tmp_path, nodes):
+  out, _ = _launch(tmp_path, 'print("CHILD", flush=True)\n', '--simulate',
+                   '3', '--nodes', nodes, '--device', 'cpu')
+  assert out.returncode != 0
+  assert f'--nodes {nodes} does not divide 3 ranks' in out.stderr
+  assert 'CHILD' not in out.stdout
+
+
+def _child_card(rank, nranks, nodes, backend, shared):
+  """The card ``Context.join`` picks for a child of the launcher."""
+  import torch
+  from hybridbackend_tpu_torch import run
+  from hybridbackend_tpu_torch.framework.context import card_of
+  env = run.child_env(rank, nranks, nodes, backend, shared, 'store', 60.0)
+  return card_of(torch.device('cuda'), backend, rank, env)
+
+
+@pytest.mark.parametrize('rank', range(4))
+def test_a_rank_of_a_simulated_node_keeps_its_own_card(rank):
+  """The device rule: ``--nproc 4 --nodes 2`` gives ranks 1 and 3 one
+  local rank, and each its own card, ``cuda:<rank>``; ``--simulate 4
+  --nodes 2 --device cuda`` puts every rank on the shared card."""
+  import torch
+  assert _child_card(rank, 4, 2, 'nccl', None) == torch.device('cuda', rank)
+  assert _child_card(rank, 4, 2, 'gloo', 'cuda:0') == torch.device('cuda', 0)
+
+
+def test_the_card_rule_outside_the_launcher():
+  """Without the launcher's card, a rank takes ``LOCAL_RANK`` (torchrun's,
+  one machine a node), else its rank; a named card and the CPU are the
+  caller's; NCCL refuses a shared card."""
+  import torch
+  from hybridbackend_tpu_torch.framework.context import card_of
+  cuda = torch.device('cuda')
+  assert card_of(cuda, 'nccl', 5, {'LOCAL_RANK': '1'}) == torch.device(
+      'cuda', 1)
+  assert card_of(cuda, 'nccl', 5, {}) == torch.device('cuda', 5)
+  assert card_of(torch.device('cuda', 2), 'nccl', 5, {}) == torch.device(
+      'cuda', 2)
+  assert card_of(torch.device('cpu'), 'gloo', 5, {}) == torch.device('cpu')
+  with pytest.raises(ValueError, match='NCCL refuses two ranks'):
+    card_of(cuda, 'nccl', 0, {'HB_TORCH_RUN_SHARED_DEVICE': 'cuda:0'})
