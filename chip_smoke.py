@@ -209,8 +209,9 @@ Phases; any failure raises and the script exits nonzero:
      JSON line printed. Its world-of-N cases run in phase 33's launches.
  33. every sparse step at a world of N: one launch a world
      (``python -m hybridbackend_tpu_torch.run ... chip_smoke.py --rank-of
-     DIR``), NCCL at a world of one (``--nproc 1``), then N = 2 and 4 gloo
-     ranks sharing the card (``--simulate N --device cuda``). Every rank
+     DIR``) of N = 2 and 4 gloo ranks sharing the card (``--simulate N
+     --device cuda``; its NCCL world of one runs in phase 35), both
+     launches at once, each world held while the other's ranks run. Every rank
      first probes ``all_reduce``, ``all_to_all_single``,
      ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` in bf16 and
      fp16 on its backend, and holds each of the port's cast collectives
@@ -226,8 +227,7 @@ Phases; any failure raises and the script exits nonzero:
      back every step), the split-dense update (kernel 4 on each owner's
      shard), bf16 tables with Adagrad and with DLRM + LazyAdam, and
      DCNv2 + Adagrad with ``wire_dtype`` and ``gradient_wire_dtype``
-     bfloat16 (at NCCL's world of one only this case, which casts nothing
-     there); 3 rounds of ``sparse_sgd_apply`` on the flagship list
+     bfloat16; 3 rounds of ``sparse_sgd_apply`` on the flagship list
      (kernel 2 on every owner); and 3 raw-mode DIN steps at the DIN
      harness's defaults with 4 sessions (kernel 1 on every owner). Each
      is held against the world of one on the card, each step from one
@@ -238,7 +238,7 @@ Phases; any failure raises and the script exits nonzero:
      held step's update kernel (the last SGD round's) runs again on a
      copy of the list it received, ``-1`` lanes and all, and of the shard
      before it, against its plain version on the CPU at phase 1's
-     tolerances. Then 10 timed steps of each step case (gloo ranks
+     tolerances. Then 5 timed steps of each step case (gloo ranks
      sharing one card: not a multi-GPU number).
  34. the trainers at a world of 2 gloo ranks sharing the card (one launch,
      ``chip_smoke.py --rank-of DIR`` with ``{"phase": 34}``): the flagship
@@ -262,7 +262,8 @@ Phases; any failure raises and the script exits nonzero:
      Meanwhile this process runs the ``SparseTrainer`` in a joined NCCL
      world of one (2 steps, checkpoints, an evaluation) against the same
      trainer in no world, bit for bit.
- 35. node groups and the last three exchanges: one launch of 4 gloo ranks
+ 35. node groups, the last three exchanges, the interleaved step and
+     sharded serving: one launch of 4 gloo ranks
      in 2 nodes of 2 sharing the card (``--simulate 4 --nodes 2``,
      ``chip_smoke.py --rank-of DIR`` with ``{"phase": 35}``), from the
      seed's state on the ranks' rows of the global batch of 8192, 3 steps
@@ -272,18 +273,35 @@ Phases; any failure raises and the script exits nonzero:
      exchange, and under ``gspmd``; with every table column-sharded
      (each rank every row of a 4-wide slice of the [2600000, 16] stack,
      kernel 1 on the whole batch's list); DLRM + LazyAdam on column
-     tables (kernel 3); then the dense ``Trainer`` through the
+     tables (kernel 3); the interleaved step, DCNv2 + Adagrad under
+     ``alltoall`` in 2 micro-batches of each rank's 2048 rows and DLRM +
+     LazyAdam under ``hierarchical`` in 4 of 512 (kernel 1 or 3 once a
+     step on each rank); then the dense ``Trainer`` through the
      hierarchical lookup, 3 steps. Each is held against the world of one
-     on the card, each step from one tower, by phase 33's rules (the
+     on the card (``interleave`` against its plain step,
+     ``interleave_adam`` against its interleaved step in the world's 16
+     micro-batches of 512 rows, and against its plain step with the
+     elements past the flip rule on the rows of the examples whose ReLU
+     gates differ between the whole batch and those micro-batches), each
+     step from one tower, by phase 33's rules (the
      loss to 1e-5, the gathered state, the tower by phase 18's rule,
      LazyAdam by its flip rule), the dense Trainer's loss, tables and
      accumulators to 1e-5; every rank's last update kernel runs again on
      a copy of its list against its plain version on the CPU; then 5
      timed steps a case (gloo ranks sharing one card: a check's cost).
-     Meanwhile this process joins a NCCL world of one (one node): each
-     topology's collectives on its subgroups, then 2 steps each of the
-     hierarchical and column cases against the same steps in no world,
-     bit for bit.
+     After the hierarchical case's steps each rank serves its shard: it
+     quantizes it (bit for bit its rows of the quantized whole table) and
+     predicts its rows of the next batch through the sharded int8 stack
+     (kernel 5 on rows and scales) and the tower, the embeddings bit for
+     bit the world of one's ``lookup_quantized`` and the predictions
+     within 1e-6; and it serves the float shard (``serving=True``, kernel
+     5 at the owners) under ``allgather`` and ``alltoall``, bit for bit
+     the training lookup. Meanwhile the launcher starts a NCCL world of
+     one on the card (``--nproc 1 --nodes 1``, ``{"phase": "35-nccl"}``):
+     phase 33's wire probe, each topology's collectives on its
+     subgroups, then 2 steps each of the hierarchical, column,
+     interleaved (k = 2) and wire cases, held against the same steps in
+     no world in this process, bit for bit.
 With ``--profile`` it then traces 10 steps of each timed variant and of
 the DIN harness's ``--sparse`` step with and without sessions with
 ``torch.profiler`` and prints device time per step by kernel class; in
@@ -299,7 +317,8 @@ second-to-last line is a JSON object describing each kernel (its times,
 launches on its path, in the trainers' runs, in the runs from Parquet
 files, in the served predicts, in the DIN phases, in the host-table
 phases, in the pipelining phases, in phase 33's ranks (phase 32's
-cases, then the others), in phase 34's worlds and in phase 35's,
+cases, then the others), in phase 34's worlds and in phase 35's
+(the exchanges' cases, then the interleaved cases and sharded serving),
 and its bound: the
 larger of its bytes over 3.35 TB/s and its operations over the card's
 peak rate); the last line is
@@ -4176,9 +4195,11 @@ def _launched_harness(smi):
   return lines[0]
 
 
-PHASE33_WORLDS = (1, 2, 4)  # 1: one NCCL rank on the card; 2, 4: gloo ranks
+# Gloo ranks sharing the card; the NCCL world of one's wire probe and
+# wire case run in phase 35's NCCL world of one.
+PHASE33_WORLDS = (2, 4)
 PHASE33_STEPS = 3           # each case's steps held against the world of one
-PHASE33_TIMED = 10          # and the steps timed after them
+PHASE33_TIMED = 5           # and the steps timed after them
 PHASE33_LAUNCH_S = 600      # a world's launch, seconds at most
 PHASE33_BATCH_SEED = tb.SEED + 33
 PHASE33_WIRES = ('bfloat16', 'float16')
@@ -4228,10 +4249,9 @@ PHASE33_SGD_ROUNDS = 3
 PHASE33_RUN = (*PHASE33_CASES, 'sgd', 'din')
 
 
-def _phase33_steps(world, run):
-  """The step cases a world runs: at NCCL's world of one only the wire
-  case, which casts nothing there."""
-  return [c for c in run if c != 'sgd' and (world > 1 or c == 'wire')]
+def _phase33_steps(run):
+  """The step cases of ``run`` (not the SGD rounds)."""
+  return [c for c in run if c != 'sgd']
 
 
 def _phase33_args(case, flags):
@@ -4490,7 +4510,7 @@ def phase33_rank(out: str, device: str, spec) -> int:
     dev = ctx.device
     torch.save(_wire_probe(ctx), os.path.join(out, f'probe.{ctx.rank}.pt'))
     with _ListCapture() as capture:
-      for case in _phase33_steps(ctx.world_size, spec['run']):
+      for case in _phase33_steps(spec['run']):
         if case == 'din':
           continue
         _, optimizer, split, exchange, _, _ = PHASE33_CASES[case]
@@ -4508,7 +4528,7 @@ def phase33_rank(out: str, device: str, spec) -> int:
         record['lists'] = _hold_lists(capture.take())
         torch.save(record, os.path.join(out, f'{case}.{ctx.rank}.pt'))
         del state, step, record
-      if ctx.world_size > 1 and 'sgd' in spec['run']:
+      if 'sgd' in spec['run']:
         cfg = flagship(*flags)
         fx, tables, _, _ = tb.sparse_parts(cfg, dev, ctx)
         (name,) = tables
@@ -4530,7 +4550,7 @@ def phase33_rank(out: str, device: str, spec) -> int:
         record['lists'] = _hold_lists(capture.take())
         torch.save(record, os.path.join(out, f'sgd.{ctx.rank}.pt'))
         del fx, tables
-      if ctx.world_size > 1 and 'din' in spec['run']:
+      if 'din' in spec['run']:
         args = din.parse_args([*spec['din'], '--device', device])
         state, step = din.build(args, dev, ctx)
         batch = functools.partial(din.shifted, args, *din.make_batch(
@@ -4554,7 +4574,7 @@ ADAM_FLIP_SHARE = 1e-5
 
 
 def _state_close(label, key, got, want, optimizer, bf16, wire, m_moved,
-                 report, total=None, largest=None):
+                 report, total=None, largest=None, flips=None):
   """The gathered ``key`` (table or slot) one step from one state (or,
   without ``_every_state``, after the last) at a world of N against the
   world of one, elementwise by the case's rule: f32 Adagrad phase 2's
@@ -4569,7 +4589,11 @@ def _state_close(label, key, got, want, optimizer, bf16, wire, m_moved,
   difference (f32) or the elements that differ (bf16), and the elements
   let past, to ``report``. Where ``got`` and ``want`` are some rows of
   their tensors, ``total`` is the tensor's elements, which the shares
-  are of, and ``largest`` its largest value."""
+  are of, and ``largest`` its largest value. With ``flips`` (a mask of
+  ``got``'s rows that the examples whose ReLU gates flipped read, and
+  how many elements those examples' terms reach: ``_gate_flips``) the
+  LazyAdam elements past the rule must lie on those rows, be at most that
+  many and within the loose bound, in place of ``ADAM_FLIP_SHARE``."""
   d = (got.float() - want.float()).abs()
   one = want.float().abs()
   total = total or d.numel()
@@ -4594,8 +4618,19 @@ def _state_close(label, key, got, want, optimizer, bf16, wire, m_moved,
     bad = d > 1e-3
   else:
     bad = d > 1e-3 * one + 1e-4 * largest
-  if adam and 0 < int(bad.sum()) <= ADAM_FLIP_SHARE * total:
-    loose = 2.2 * tb.TABLE_LR if key == 'table' else 2**-5 * largest
+  loose = 2.2 * tb.TABLE_LR if key == 'table' else 2**-5 * largest
+  if adam and flips is not None:
+    on_rows, reach = flips
+    off, past = bad & ~on_rows[:, None], int(bad.sum())
+    if bool(off.any()) or past > reach:
+      raise AssertionError(f'{label}: the gathered {key} differs past its '
+                           f'rule in {past} elements, {int(off.sum())} of '
+                           'them on rows no example whose gates flipped '
+                           f'reads (those examples reach {reach}), by up '
+                           f'to {float(d.max())}')
+    report[f'{key}_past_rule'] = report.get(f'{key}_past_rule', 0) + past
+    bad &= d > loose
+  elif adam and 0 < int(bad.sum()) <= ADAM_FLIP_SHARE * total:
     report[f'{key}_past_rule'] = (report.get(f'{key}_past_rule', 0)
                                   + int(bad.sum()))
     bad &= d > loose
@@ -4641,7 +4676,52 @@ def _hold_wire_tower(label, net, one_net, opt, one_opt, before, lr, report):
                            f'{float(diff.max())}')
 
 
-def _hold_world33(label, case, dev, ranks, flags, spec=None):
+def _gate_flips(args, state, b, k):
+  """The examples of batch ``b`` whose ReLU gates differ between the
+  tower (``state.dense``, on ``state.tables``' embeddings) run on the
+  whole batch, as the world of one's plain step runs it, and on its
+  ``k`` contiguous micro-batches, as a world's interleaved step runs it:
+  the GEMMs of other shapes round apart, and a gate near zero may take
+  the other side, which moves that example's gradient terms. Returns the
+  stacked table's rows those examples read, the elements of the table
+  that those reads reach (rows times the width), and their count."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.models.layers import Dense
+  from hybridbackend_tpu_torch.pipeline import _microbatches
+  (table,) = state.tables.values()
+  fx = hbt.StackedFeatureExtractor(
+      tb._specs(args),
+      dense_columns=[f'i{d}' for d in range(args.dense_features)],
+      ctx=hbt.Context(table.device))
+  _, preds = tb._tower(args, torch.device('cpu'), torch.Generator())
+  gates = []
+  hooks = [m.register_forward_hook(
+      lambda mod, inp, out: gates.append(out.reshape(out.shape[0], -1) > 0))
+           for m in state.dense.modules()
+           if isinstance(m, Dense) and m.activation is torch.relu]
+
+  def run(part):
+    raw, _, layouts = fx.lookup_raw(state.tables, part)
+    preds(state.dense, *fx.combine_from_raw(raw, layouts, part))
+    out = torch.cat(gates, 1)
+    gates.clear()
+    return out
+
+  try:
+    with torch.no_grad():
+      whole = run(b)
+      parts = torch.cat([run(part) for part in _microbatches(b, k)])
+  finally:
+    for h in hooks:
+      h.remove()
+  flipped = (whole != parts).any(1)
+  rows = torch.cat([b[f'c{t}'][flipped].long() + t * args.vocab
+                    for t in range(args.tables)])
+  return rows, int(rows.numel()) * args.dim, int(flipped.sum())
+
+
+def _hold_world33(label, case, dev, ranks, flags, spec=None,
+                  one_interleave=0, witness=0):
   """One case's records at a world of N against the world of one on the
   card (the same seed, the whole table), each step from one tower: before
   step ``i`` the world of one takes rank 0's tower and Adam moments after
@@ -4660,7 +4740,14 @@ def _hold_world33(label, case, dev, ranks, flags, spec=None):
   2**-5: a world's ranks run their rows through other GEMM shapes than
   the world of one, a ReLU gate that flips moves one example's term, and
   LazyAdam's tables move a near-zero total by up to 2·lr, which the next
-  step's embeddings carry into the tower."""
+  step's embeddings carry into the tower. The world of one runs the
+  plain step, or with ``one_interleave`` the interleaved step in that
+  many micro-batches. With ``witness`` (the world's micro-batches in the
+  global batch) the plain step's LazyAdam state is held by the gate
+  flips it shows: before each step ``_gate_flips`` finds the examples
+  whose ReLU gates differ between the tower on the whole batch and on
+  those micro-batches, and the elements past the rule must lie on their
+  rows (``_state_close``); their count a step is ``gate_flips``."""
   from hybridbackend_tpu_torch.training.optimizer import init_state
   if case == 'din':
     args = din.parse_args([*PHASE33_DIN_FLAGS, '--device', str(dev)])
@@ -4674,7 +4761,8 @@ def _hold_world33(label, case, dev, ranks, flags, spec=None):
     spec = spec or PHASE33_CASES[case]
     optimizer, split = spec[1], spec[2]
     args = flagship(*flags, *spec[0])
-    state, step = tb.build(args, dev, optimizer, split)
+    state, step = tb.build(argparse.Namespace(**{
+        **vars(args), 'interleave': one_interleave}), dev, optimizer, split)
     batch = functools.partial(tb.shifted, *tb.make_batch(
         args, dev, PHASE33_BATCH_SEED), args.vocab)
     bf16, wire = args.table_dtype == 'bfloat16', case == 'wire'
@@ -4717,6 +4805,10 @@ def _hold_world33(label, case, dev, ranks, flags, spec=None):
                                   for t in range(args.tables)]))
     pre = ([x.clone() for x in live] if 'delta' in ranks[0]['trace'][i]
            else None)
+    flips = None
+    if witness:
+      *flips, flipped = _gate_flips(args, state, b, witness)
+      report.setdefault('gate_flips', []).append(flipped)
     state, metrics = step(state, b)
     losses = {r['trace'][i]['loss'] for r in ranks}
     if len(losses) != 1:
@@ -4755,10 +4847,10 @@ def _hold_world33(label, case, dev, ranks, flags, spec=None):
     prev = g_vals
     if pre is not None:
       _hold_delta33(step_label, ranks, i, live, pre, keys, optimizer, bf16,
-                    wire, report, column)
+                    wire, report, column, flips)
     if 'state' in ranks[0]['trace'][i]:
       _hold_state33(step_label, ranks, i, live, keys, optimizer, bf16, wire,
-                    step_rows, report, column)
+                    step_rows, report, column, flips)
   if touched is not None:
     keep = torch.ones(initial.shape[0], dtype=torch.bool)
     keep[touched] = False
@@ -4771,14 +4863,15 @@ def _hold_world33(label, case, dev, ranks, flags, spec=None):
 
 
 def _hold_delta33(label, ranks, i, live, pre, keys, optimizer, bf16, wire,
-                  report, column=False):
+                  report, column=False, flips=None):
   """Step ``i`` of an ``_every_state`` case, from one state (``pre``, the
   world of one's state before it, is the world's): on the rows that
   either side changed, the world's table and slots (its changed rows
   from the ranks' records, the others as they were; of a column-sharded
   case each rank's columns) against the world of one's (``live``) by
   ``_state_close``, and then the world of one takes the world's values
-  there, so that the next step starts from one state again."""
+  there, so that the next step starts from one state again. ``flips``:
+  ``_gate_flips``' rows and reach, or None."""
   dev = live[0].device
   world_n, width = len(ranks), live[0].shape[1]
   rows_w = torch.cat([r['trace'][i]['delta'][0] for r in ranks]).to(dev)
@@ -4796,22 +4889,30 @@ def _hold_delta33(label, ranks, i, live, pre, keys, optimizer, bf16, wire,
       w[at, cols] = v.to(dev)
   ones = [x[rows] for x in live]
   m_moved = (world[1] != ones[1]) if optimizer == 'adam' else None
+  at = None if flips is None else (torch.isin(rows, flips[0]), flips[1])
   for key, w, one, x in zip(keys, world, ones, live):
     _state_close(label, key, w, one, optimizer, bf16, wire,
                  m_moved if key == 'table' else None, report,
-                 total=x.numel(), largest=float(x.float().abs().max()))
+                 total=x.numel(), largest=float(x.float().abs().max()),
+                 flips=at)
   for x, w in zip(live, world):
     x[rows] = w
 
 
 def _hold_state33(label, ranks, i, live, keys, optimizer, bf16, wire,
-                  step_rows, report, column=False):
+                  step_rows, report, column=False, flips=None):
   """The world's gathered table and slots (a column-sharded case's joined
   along the dim) after step ``i`` against the world of one's (``live``),
   on the card, by ``_state_close``; a failure names its largest
   difference's row, every state's values there on both sides, and the
-  steps whose batch held that row."""
+  steps whose batch held that row. ``flips``: ``_gate_flips``' rows and
+  reach, or None."""
   dev = live[0].device
+  at = None
+  if flips is not None:
+    at = torch.zeros(live[0].shape[0], dtype=torch.bool, device=dev)
+    at[flips[0]] = True
+    at = (at, flips[1])
   gots = [torch.cat([r['trace'][i]['state'][k] for r in ranks],
                     dim=int(column)).to(dev) for k in range(len(live))]
   ones = live
@@ -4822,7 +4923,7 @@ def _hold_state33(label, ranks, i, live, keys, optimizer, bf16, wire,
                            f'{tuple(got.shape)}, not {tuple(one.shape)}')
     try:
       _state_close(label, key, got, one, optimizer, bf16, wire,
-                   m_moved if key == 'table' else None, report)
+                   m_moved if key == 'table' else None, report, flips=at)
     except AssertionError as e:
       d = (got.float() - one.float()).abs()
       k = int(d.argmax())
@@ -4901,104 +5002,132 @@ def _print_lists(label, ranks):
                     for r, rec in enumerate(ranks)))
 
 
+def _launch_world33(world, out):
+  """Starts phase 33's launch of ``world`` gloo ranks writing to ``out``;
+  its output goes to files there, so that a launch left to run is never
+  blocked on a full pipe."""
+  cmd = [sys.executable, '-m', 'hybridbackend_tpu_torch.run',
+         '--simulate', str(world),
+         '--device', SHARDED_DEVICE, '--timeout', str(PHASE33_LAUNCH_S),
+         os.path.join(HERE, 'chip_smoke.py'), '--rank-of', out,
+         '--rank-device', SHARDED_DEVICE,
+         '--rank-flags', json.dumps(dict(
+             flags=list(SHARDED_FLAGS), din=list(PHASE33_DIN_FLAGS),
+             timed=PHASE33_TIMED, run=list(PHASE33_RUN)))]
+  with open(os.path.join(out, 'stdout'), 'w') as so, open(
+      os.path.join(out, 'stderr'), 'w') as se:
+    return subprocess.Popen(cmd, cwd=HERE, stdout=so, stderr=se)
+
+
 def phase33_every_step(dev, smi):
   """Phase 33: every sparse step at a world of N, one launch a world of
-  ``PHASE33_WORLDS`` (see the module docstring). Returns the kernel
-  launches of the ranks' held steps and rounds, summed over the ranks:
-  those of ``PHASE32_CASES``, then the others'."""
+  ``PHASE33_WORLDS`` (see the module docstring), the launches at once: a
+  world is held against the world of one while the next one's ranks
+  still run. Returns the kernel launches of the ranks' held steps and
+  rounds, summed over the ranks: those of ``PHASE32_CASES``, then the
+  others'."""
   t_phase = time.perf_counter()
   sharded, launches = collections.Counter(), collections.Counter()
   refused, failures = {}, []
-  for world in PHASE33_WORLDS:
-    with tempfile.TemporaryDirectory() as out:
-      t0 = time.perf_counter()
-      ranks_flag = (['--simulate', str(world)]
-                    if world > 1 or SHARDED_DEVICE == 'cpu'
-                    else ['--nproc', '1'])
-      cmd = [sys.executable, '-m', 'hybridbackend_tpu_torch.run', *ranks_flag,
-             '--device', SHARDED_DEVICE, '--timeout', str(PHASE33_LAUNCH_S),
-             os.path.join(HERE, 'chip_smoke.py'), '--rank-of', out,
-             '--rank-device', SHARDED_DEVICE,
-             '--rank-flags', json.dumps(dict(
-                 flags=list(SHARDED_FLAGS), din=list(PHASE33_DIN_FLAGS),
-                 timed=PHASE33_TIMED, run=list(PHASE33_RUN)))]
-      res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                           timeout=PHASE33_LAUNCH_S + 60)
-      if res.returncode != 0:
-        raise RuntimeError(f'phase 33: {world} ranks exited '
-                           f'{res.returncode}:\n{res.stderr[-4000:]}')
-      launch_s = time.perf_counter() - t0
-      t0 = time.perf_counter()
-      load = lambda case: [torch.load(os.path.join(out, f'{case}.{r}.pt'))
-                           for r in range(world)]
-      refused.update(_print_probe(world, load('probe')))
-      times = []
-      for case in _phase33_steps(world, PHASE33_RUN):
-        label = f'phase 33, {world} ranks, {case}'
-        ranks = load(case)
-        try:
-          kernel, per_step = (('adagrad_update_sorted', (0, 0))
-                              if case == 'din' else PHASE33_CASES[case][4:])
-          want_fallbacks = tuple(PHASE33_STEPS * f if world > 1 else 0
-                                 for f in per_step)
-          for r, rec in enumerate(ranks):
-            _expect(f'{label}, rank {r}', rec['counts'],
-                    **{kernel: PHASE33_STEPS})
-            (sharded if case in PHASE32_CASES else launches).update(
-                rec['counts'])
-            if tuple(rec['fallbacks']) != want_fallbacks:
-              raise AssertionError(f'{label}, rank {r}: (lookup, update) '
-                                   f'fallbacks {rec["fallbacks"]}, expected '
-                                   f'{want_fallbacks}')
-            if not rec['tower_equal']:
-              raise AssertionError(f'{label}: rank {r}\'s tower is not rank '
-                                   '0\'s')
-          report, apart_in = _hold_world33(label, case, dev, ranks,
-                                           SHARDED_FLAGS)
-          times.append(f'{case} {ranks[0]["ms_per_step"]:.4f}')
-          print(f'{label} ({ranks[0]["backend"]} on {ranks[0]["device"]}): '
-                f'{PHASE33_STEPS} steps against a world of one on the card, '
-                'each from one tower: '
-                + ', '.join(f'{k} {v:.3e}' if isinstance(v, float)
-                            else f'{k} {v}' for k, v in report.items())
-                + f' (in {", ".join(sorted(apart_in)) or "none"}); {kernel} '
-                f'{PHASE33_STEPS} times on each rank; (lookup, update) '
-                f'fallbacks {[tuple(r["fallbacks"]) for r in ranks]} by rank')
-          _print_lists(label, ranks)
-        except AssertionError as e:
-          # Every case runs; the phase fails at its end.
-          failures.append(str(e))
-          print(f'{label}: FAILED: {e}')
-        del ranks
-      if world > 1 and 'sgd' in PHASE33_RUN:
-        ranks = load('sgd')
-        for r, rec in enumerate(ranks):
-          _expect(f'phase 33, {world} ranks, sgd, rank {r}', rec['counts'],
-                  scatter_add_sorted=PHASE33_SGD_ROUNDS)
-          launches.update(rec['counts'])
-          if rec['fallbacks']:
-            raise AssertionError(f'phase 33, sgd, rank {r}: fallbacks '
-                                 f'{rec["fallbacks"]}')
-        err = _hold_sgd33(f'phase 33, {world} ranks, sgd', dev, ranks,
-                          SHARDED_FLAGS)
-        _print_lists(f'phase 33, {world} ranks, sgd', ranks)
-        print(f'phase 33, {world} ranks, sgd: {PHASE33_SGD_ROUNDS} rounds of '
-              'sparse_sgd_apply on the flagship list against the world of '
-              f'one: table max abs err {err:.3e}; scatter_add_sorted '
-              f'{PHASE33_SGD_ROUNDS} times on each rank')
-        del ranks
-    print(f'phase 33, {world} rank(s) on {smi}: ms/step of rank 0 over '
-          f'{PHASE33_TIMED} steps (CUDA events): {", ".join(times)} -- '
-          + ('gloo ranks sharing one card, through the host: not NCCL, not '
-             'NVLink, not a multi-GPU number' if world > 1 else
-             'one NCCL rank') + f'; launch {launch_s:.1f} s, held against '
-          f'the world of one in {time.perf_counter() - t0:.1f} s')
+  with tempfile.TemporaryDirectory() as tmp:
+    procs = {}
+    for world in PHASE33_WORLDS:
+      os.makedirs(os.path.join(tmp, str(world)))
+      procs[world] = _launch_world33(world, os.path.join(tmp, str(world)))
+    try:
+      for world in PHASE33_WORLDS:
+        _phase33_world(dev, smi, world, procs[world], t_phase,
+                       os.path.join(tmp, str(world)), sharded, launches,
+                       refused, failures)
+    finally:
+      for proc in procs.values():
+        if proc.poll() is None:
+          proc.kill()
+          proc.wait()
   print(f'phase 33: backend refusals {refused or "none"}; '
         f'{time.perf_counter() - t_phase:.1f} s')
   if failures:
     raise AssertionError(f'phase 33: {len(failures)} cases failed: '
                          + ' | '.join(failures))
   return sharded, launches
+
+
+def _phase33_world(dev, smi, world, proc, started, out, sharded, launches,
+                   refused, failures):
+  """Waits for phase 33's launch of ``world`` ranks (``proc``, started
+  with the phase at ``started``), then holds its records in ``out``
+  against the world of one, adding to the launch counters, the backend
+  refusals and the failures."""
+  proc.wait(timeout=PHASE33_LAUNCH_S + 60)
+  launch_s = time.perf_counter() - started
+  if proc.returncode != 0:
+    with open(os.path.join(out, 'stderr')) as f:
+      raise RuntimeError(f'phase 33: {world} ranks exited '
+                         f'{proc.returncode}:\n{f.read()[-4000:]}')
+  t0 = time.perf_counter()
+  load = lambda case: [torch.load(os.path.join(out, f'{case}.{r}.pt'))
+                       for r in range(world)]
+  refused.update(_print_probe(world, load('probe')))
+  times = []
+  for case in _phase33_steps(PHASE33_RUN):
+    label = f'phase 33, {world} ranks, {case}'
+    ranks = load(case)
+    try:
+      kernel, per_step = (('adagrad_update_sorted', (0, 0))
+                          if case == 'din' else PHASE33_CASES[case][4:])
+      want_fallbacks = tuple(PHASE33_STEPS * f for f in per_step)
+      for r, rec in enumerate(ranks):
+        _expect(f'{label}, rank {r}', rec['counts'],
+                **{kernel: PHASE33_STEPS})
+        (sharded if case in PHASE32_CASES else launches).update(
+            rec['counts'])
+        if tuple(rec['fallbacks']) != want_fallbacks:
+          raise AssertionError(f'{label}, rank {r}: (lookup, update) '
+                               f'fallbacks {rec["fallbacks"]}, expected '
+                               f'{want_fallbacks}')
+        if not rec['tower_equal']:
+          raise AssertionError(f'{label}: rank {r}\'s tower is not rank '
+                               '0\'s')
+      report, apart_in = _hold_world33(label, case, dev, ranks,
+                                       SHARDED_FLAGS)
+      times.append(f'{case} {ranks[0]["ms_per_step"]:.4f}')
+      print(f'{label} ({ranks[0]["backend"]} on {ranks[0]["device"]}): '
+            f'{PHASE33_STEPS} steps against a world of one on the card, '
+            'each from one tower: '
+            + ', '.join(f'{k} {v:.3e}' if isinstance(v, float)
+                        else f'{k} {v}' for k, v in report.items())
+            + f' (in {", ".join(sorted(apart_in)) or "none"}); {kernel} '
+            f'{PHASE33_STEPS} times on each rank; (lookup, update) '
+            f'fallbacks {[tuple(r["fallbacks"]) for r in ranks]} by rank')
+      _print_lists(label, ranks)
+    except AssertionError as e:
+      # Every case runs; the phase fails at its end.
+      failures.append(str(e))
+      print(f'{label}: FAILED: {e}')
+    del ranks
+  if 'sgd' in PHASE33_RUN:
+    ranks = load('sgd')
+    for r, rec in enumerate(ranks):
+      _expect(f'phase 33, {world} ranks, sgd, rank {r}', rec['counts'],
+              scatter_add_sorted=PHASE33_SGD_ROUNDS)
+      launches.update(rec['counts'])
+      if rec['fallbacks']:
+        raise AssertionError(f'phase 33, sgd, rank {r}: fallbacks '
+                             f'{rec["fallbacks"]}')
+    err = _hold_sgd33(f'phase 33, {world} ranks, sgd', dev, ranks,
+                      SHARDED_FLAGS)
+    _print_lists(f'phase 33, {world} ranks, sgd', ranks)
+    print(f'phase 33, {world} ranks, sgd: {PHASE33_SGD_ROUNDS} rounds of '
+          'sparse_sgd_apply on the flagship list against the world of '
+          f'one: table max abs err {err:.3e}; scatter_add_sorted '
+          f'{PHASE33_SGD_ROUNDS} times on each rank')
+    del ranks
+  print(f'phase 33, {world} ranks on {smi}: ms/step of rank 0 over '
+        f'{PHASE33_TIMED} steps (CUDA events): {", ".join(times)} -- '
+        'gloo ranks sharing one card, through the host, beside the other '
+        'worlds\' launches: not NCCL, not NVLink, not a multi-GPU number; '
+        f'launched {launch_s:.1f} s after the phase began, held against '
+        f'the world of one in {time.perf_counter() - t0:.1f} s')
 
 
 PHASE34_WORLD = 2           # the gloo ranks sharing the card
@@ -5497,15 +5626,44 @@ PHASE35_CASES = {
                        (0, 0), 'column'),
     'column_adam': (('--model', 'dlrm'), 'adam', False, {},
                     'adam_update_sorted', (0, 0), 'column'),
+    # The interleaved step: each rank's 2048 rows in k micro-batches whose
+    # lookups run on the side stream, one table update a step.
+    'interleave': (('--lookup', 'alltoall', '--interleave', '2'), 'adagrad',
+                   False, {}, 'adagrad_update_sorted', (0, 0), 'row'),
+    'interleave_adam': (('--model', 'dlrm', '--lookup', 'hierarchical',
+                         '--interleave', '4'), 'adam', False, {},
+                        'adam_update_sorted', (0, 0), 'row'),
 }
-PHASE35_NCCL = ('hierarchical', 'column_adagrad')
+# The cases whose launches fill the kernels line's
+# serving_interleave_launches column; the others fill exchanges_launches.
+PHASE35_INTERLEAVE = ('interleave', 'interleave_adam')
+# The world of one's step for a case: the plain one, or for a case named
+# here the interleaved one in this many micro-batches. interleave_adam's
+# 16 cut the global batch into the world's micro-batches (each rank's
+# 2048 rows in 4 of 512), so that the tower runs the same 512-row GEMMs
+# on both sides. Against the plain step's 8192-row GEMMs ReLU gates
+# flip, and each flipped example moves its 26 rows' LazyAdam moments
+# (416 elements) past the flip rule's share of one example's: the case
+# is held against the plain step too, with the elements past the rule
+# on the flipped examples' rows (``_gate_flips``).
+PHASE35_ONE_INTERLEAVE = {'interleave_adam': 4 * PHASE35_WORLD}
+# The NCCL world of one's cases, each against the same steps in no world:
+# two of PHASE35_CASES, the interleaved step and phase 33's wire case
+# (which casts nothing at a world of one).
+PHASE35_NCCL = ('hierarchical', 'column_adagrad', 'interleave', 'wire')
+PHASE35_SERVED = ('allgather', 'alltoall')   # float_serving's exchanges
+PHASE35_SERVED_TOL = 1e-6   # phase 34's served
 
 
 def _phase35_build(case, dev, ctx=None, flags=None):
-  """A phase 35 case's harness flags, state, step and batch (the rank's
-  rows of the global batch in the world ``ctx``), on ``SHARDED_FLAGS``
-  unless ``flags`` says otherwise."""
-  own, optimizer, split, exchange, _, _, partition = PHASE35_CASES[case]
+  """A phase 35 case's (or phase 33's) harness flags, state, step and
+  batch (the rank's rows of the global batch in the world ``ctx``), on
+  ``SHARDED_FLAGS`` unless ``flags`` says otherwise."""
+  if case in PHASE35_CASES:
+    own, optimizer, split, exchange, _, _, partition = PHASE35_CASES[case]
+  else:
+    (own, optimizer, split, exchange, _, _), partition = (
+        PHASE33_CASES[case], 'row')
   args = flagship(*(SHARDED_FLAGS if flags is None else flags), *own)
   state, step = tb.build(args, dev, optimizer, split, ctx=ctx,
                          partition=partition, **exchange)
@@ -5515,12 +5673,59 @@ def _phase35_build(case, dev, ctx=None, flags=None):
   return args, state, step, batch
 
 
+def _phase35_serving(ctx, args, state, batch):
+  """Sharded serving on a rank after the ``hierarchical`` case's steps,
+  from the global batch's next rows: ``int8_serving``, its shard
+  quantized (``quantize_table``) and its rows predicted through the
+  sharded int8 stack (``lookup_raw(serving=True)``, kernel 5 on rows and
+  scales) and the tower; ``float_serving``, ``lookup_raw(serving=True)``
+  on the float shard under each of ``PHASE35_SERVED`` against the
+  training lookup, bit for bit. Returns the shard, its int8 form, the
+  embeddings and predictions, rank 0's tower, the comparisons and the
+  kernel launches of each."""
+  import hybridbackend_tpu_torch as hbt
+  fx = hbt.StackedFeatureExtractor(
+      tb._specs(args),
+      dense_columns=[f'i{d}' for d in range(args.dense_features)], ctx=ctx)
+  _, preds = tb._tower(args, torch.device('cpu'), torch.Generator())
+  (name,) = state.tables
+  b = batch(PHASE35_STEPS + PHASE35_TIMED)
+  t0 = time.perf_counter()
+  _reset_counts()
+  with torch.no_grad():
+    q = hbt.quantize_table(state.tables[name])
+    raw, _, layouts = fx.lookup_raw({name: q}, b, serving=True)
+    p = preds(state.dense, *fx.combine_from_raw(raw, layouts, b))
+    if ctx.device.type == 'cuda':
+      torch.cuda.synchronize(ctx.device)
+    rec = {'int8_counts': _counts(), 'shard': state.tables[name].cpu(),
+           'q': q.q.cpu(), 'scale': q.scale.cpu(), 'emb': raw[name].cpu(),
+           'preds': p.cpu()}
+    if ctx.rank == 0:
+      rec['tower'] = {k: v.cpu() for k, v in state.dense.state_dict().items()}
+    _reset_counts()
+    rec['float_equal'] = {}
+    for strategy in PHASE35_SERVED:
+      served = fx.lookup_raw(state.tables, b, strategy, serving=True)[0]
+      trained = fx.lookup_raw(state.tables, b, strategy)[0]
+      rec['float_equal'][strategy] = bool(torch.equal(served[name],
+                                                      trained[name]))
+    if ctx.device.type == 'cuda':
+      torch.cuda.synchronize(ctx.device)
+  rec['float_counts'] = _counts()
+  rec['seconds'] = time.perf_counter() - t0
+  return rec
+
+
 def phase35_rank(out, device, spec):
   """One rank of phase 35 (``chip_smoke.py --rank-of DIR`` with
   ``{"phase": 35}``), of ``PHASE35_NODES`` nodes: each case of
   ``PHASE35_CASES`` from the seed's state on its rows of the global
   batch, recorded by ``_run_record`` with its last held step's update
-  calls held by ``_hold_lists``, to ``DIR/<case>.<rank>.pt``; then the
+  calls held by ``_hold_lists`` and its seconds, to
+  ``DIR/<case>.<rank>.pt``, and after the ``hierarchical`` case's steps
+  the sharded serving (``_phase35_serving``) to
+  ``DIR/serving.<rank>.pt``; then the
   dense ``Trainer`` through the hierarchical lookup, 3 steps, its losses
   and rank 0's tower after each, and the gathered tables and
   accumulators, to ``DIR/dense.<rank>.pt``. ``spec['flags']``: the
@@ -5533,6 +5738,7 @@ def phase35_rank(out, device, spec):
     dev, flags = ctx.device, spec['flags']
     with _ListCapture() as capture:
       for case in PHASE35_CASES:
+        t0 = time.perf_counter()
         args, state, step, batch = _phase35_build(case, dev, ctx, flags)
         optimizer, column = PHASE35_CASES[case][1], (
             PHASE35_CASES[case][6] == 'column')
@@ -5544,7 +5750,11 @@ def phase35_rank(out, device, spec):
         record['lists'] = _hold_lists(capture.take())
         (name,) = state.tables
         record['shard'] = tuple(state.tables[name].shape)
+        record['seconds'] = time.perf_counter() - t0
         torch.save(record, os.path.join(out, f'{case}.{ctx.rank}.pt'))
+        if case == 'hierarchical':
+          torch.save(_phase35_serving(ctx, args, state, batch),
+                     os.path.join(out, f'serving.{ctx.rank}.pt'))
         del state, step, record
     args = flagship(*flags, '--lookup', 'hierarchical')
     loss_fn, module, optimizer = tb.dense_parts(args, dev, ctx)
@@ -5572,54 +5782,105 @@ def phase35_rank(out, device, spec):
   return 0
 
 
-def _phase35_nccl(dev):
-  """A joined world of one on NCCL (on the CPU rehearsal, gloo), with
-  ``--nodes 1``'s layout: each topology's all-reduce and ``all_to_all_v``
-  on its subgroups (bitwise their input at a world of one), then
-  ``PHASE35_NCCL_STEPS`` steps of each ``PHASE35_NCCL`` case against the
-  same steps in no world, bit for bit. Returns the backend, the kernel
-  launches of the joined steps and their losses."""
+def phase35_nccl_rank(out, device, spec):
+  """Phase 35's world of one under the launcher (``python -m
+  hybridbackend_tpu_torch.run --nproc 1 --nodes 1 chip_smoke.py
+  --rank-of DIR`` with ``{"phase": "35-nccl"}``; on the CPU rehearsal
+  ``--simulate 1``, gloo): it joins the world the launcher describes (its
+  backend, the card ``HB_TORCH_RUN_CARD`` names, its rendezvous), runs
+  phase 33's wire probe (the backend's calls in bf16 and fp16, the cast
+  collectives), each topology's all-reduce and ``all_to_all_v`` on its
+  subgroups (bitwise their input at a world of one), then
+  ``PHASE35_NCCL_STEPS`` steps of each ``PHASE35_NCCL`` case, and writes
+  the backend, the device, the launcher's variables, the probe and each
+  case's losses and kernel launches to ``DIR/nccl.0.pt``."""
   import hybridbackend_tpu_torch as hbt
   from hybridbackend_tpu_torch.distribute import collective
-  backend = 'nccl' if dev.type == 'cuda' else 'gloo'
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  ctx = hbt.Context.join(device)
+  try:
+    rec = {'backend': torch.distributed.get_backend(),
+           'device': str(ctx.device), 'world': ctx.world_size,
+           'env': {k: os.environ.get(k) for k in (
+               'RANK', 'WORLD_SIZE', 'LOCAL_WORLD_SIZE', 'HB_TORCH_RUN_CARD')},
+           'probe': _wire_probe(ctx), 'losses': {}, 'counts': {}}
+    x = torch.arange(12.0, device=ctx.device)
+    for topology in collective.Topology:
+      got = collective.allreduce(x, ctx=ctx, topology=topology)
+      recv, _ = collective.all_to_all_v(
+          x.reshape(1, 12), torch.full((1,), 5, dtype=torch.int32,
+                                       device=ctx.device),
+          ctx=ctx, topology=topology)
+      if not (torch.equal(got, x) and torch.equal(recv.reshape(-1), x)):
+        raise AssertionError(f'phase 35, {rec["backend"]} world of one: '
+                             f'{topology!r} changed its input')
+    for case in PHASE35_NCCL:
+      _, state, step, batch = _phase35_build(case, ctx.device, ctx,
+                                             spec['flags'])
+      _reset_counts()
+      rec['losses'][case] = [float(step(state, batch(i))[1]['loss'])
+                             for i in range(PHASE35_NCCL_STEPS)]
+      if ctx.device.type == 'cuda':
+        torch.cuda.synchronize(ctx.device)
+      rec['counts'][case] = _counts()
+      del state, step
+    torch.save(rec, os.path.join(out, f'nccl.{ctx.rank}.pt'))
+  finally:
+    ctx.leave()
+  return 0
+
+
+def _launch_nccl35(out):
+  """Starts phase 35's world of one: one NCCL rank on the card through
+  the launcher's ``--nproc 1 --nodes 1`` (on the CPU rehearsal one gloo
+  rank, ``--simulate 1``), writing to ``out``."""
+  ranks = (['--simulate', '1'] if SHARDED_DEVICE == 'cpu'
+           else ['--nproc', '1'])
+  cmd = [sys.executable, '-m', 'hybridbackend_tpu_torch.run', *ranks,
+         '--nodes', '1', '--device', SHARDED_DEVICE, '--timeout',
+         str(PHASE35_LAUNCH_S), os.path.join(HERE, 'chip_smoke.py'),
+         '--rank-of', out, '--rank-device', SHARDED_DEVICE,
+         '--rank-flags', json.dumps({'phase': '35-nccl',
+                                     'flags': list(SHARDED_FLAGS)})]
+  with open(os.path.join(out, 'nccl.stdout'), 'w') as so, open(
+      os.path.join(out, 'nccl.stderr'), 'w') as se:
+    return subprocess.Popen(cmd, cwd=HERE, stdout=so, stderr=se)
+
+
+def _no_world35(dev):
+  """The losses of ``PHASE35_NCCL_STEPS`` steps of each ``PHASE35_NCCL``
+  case in no world on ``dev``."""
   want = {}
   for case in PHASE35_NCCL:
     _, state, step, batch = _phase35_build(case, dev)
     want[case] = [float(step(state, batch(i))[1]['loss'])
                   for i in range(PHASE35_NCCL_STEPS)]
     del state, step
-  with tempfile.TemporaryDirectory() as tmp:
-    ctx = hbt.Context.join(str(dev), backend, rank=0, world_size=1,
-                           init_method=f'file://{tmp}/store', timeout_s=120)
-    try:
-      x = torch.arange(12.0, device=ctx.device)
-      for topology in collective.Topology:
-        got = collective.allreduce(x, ctx=ctx, topology=topology)
-        recv, _ = collective.all_to_all_v(
-            x.reshape(1, 12), torch.full((1,), 5, dtype=torch.int32,
-                                         device=ctx.device),
-            ctx=ctx, topology=topology)
-        if not (torch.equal(got, x) and torch.equal(recv.reshape(-1), x)):
-          raise AssertionError(f'phase 35, {backend} world of one: '
-                               f'{topology!r} changed its input')
-      _reset_counts()
-      got = {}
-      for case in PHASE35_NCCL:
-        _, state, step, batch = _phase35_build(case, ctx.device, ctx)
-        got[case] = [float(step(state, batch(i))[1]['loss'])
-                     for i in range(PHASE35_NCCL_STEPS)]
-        del state, step
-      if dev.type == 'cuda':
-        torch.cuda.synchronize(dev)
-      counts = _counts()
-    finally:
-      ctx.leave()
-  _expect(f'phase 35, the {backend} world of one', counts,
-          adagrad_update_sorted=PHASE35_NCCL_STEPS * len(PHASE35_NCCL))
-  if got != want:
+  return want
+
+
+def _hold_nccl35(dev, rec, want):
+  """The launched world of one's record (``phase35_nccl_rank``) against
+  ``want``, the same steps in no world on ``dev``, bit for bit: on the
+  card the backend NCCL on ``cuda:0``, the launcher's one rank; kernel 1
+  twice a case. Returns the backend, the probe, each case's launches and
+  losses."""
+  backend = 'nccl' if dev.type == 'cuda' else 'gloo'
+  want_env = {'RANK': '0', 'WORLD_SIZE': '1', 'LOCAL_WORLD_SIZE': '1',
+              'HB_TORCH_RUN_CARD': '0'}
+  if (rec['backend'], rec['world'], rec['env']) != (backend, 1, want_env) or (
+      dev.type == 'cuda' and rec['device'] != 'cuda:0'):
+    raise AssertionError(f'phase 35, the launched world of one: backend '
+                         f'{rec["backend"]} on {rec["device"]}, world '
+                         f'{rec["world"]}, launcher variables {rec["env"]}')
+  for case, c in rec['counts'].items():
+    _expect(f'phase 35, the {backend} world of one, {case}', c,
+            adagrad_update_sorted=PHASE35_NCCL_STEPS)
+  if rec['losses'] != want:
     raise AssertionError(f'phase 35, the {backend} world of one: losses '
-                         f'{got}, no world {want}')
-  return backend, counts, got
+                         f'{rec["losses"]}, no world {want}')
+  return backend, rec['probe'], rec['counts'], rec['losses']
 
 
 def _hold_dense35(dev, rec0, report):
@@ -5648,36 +5909,132 @@ def _hold_dense35(dev, rec0, report):
                report, f'dense_{key}_err')
 
 
-def phase35_exchanges(dev, smi):
-  """Phase 35: node groups and the last three exchanges at a world of
-  ``PHASE35_WORLD`` gloo ranks in ``PHASE35_NODES`` nodes sharing the card
-  (see the module docstring). Returns the kernel launches of the world's
-  held steps summed over its ranks and of the NCCL world of one's
-  steps."""
-  t_phase = time.perf_counter()
+def _hold_serving35(dev, ranks):
+  """Phase 35's sharded serving (``_phase35_serving``) against the world
+  of one on the card: each rank's quantized shard bit for bit its rows of
+  the quantized whole table (the ranks' shards joined); the ranks'
+  int8 embeddings bit for bit ``lookup_quantized`` of the quantized whole
+  on the global batch's packed ids (the world's stack layout), their
+  predictions within ``PHASE35_SERVED_TOL`` of rank 0's tower on those
+  embeddings; every float exchange served bit for bit as trained; kernel
+  5 twice a rank for the int8 stack, once a rank an exchange served.
+  Returns those launches, summed over the ranks."""
+  import hybridbackend_tpu_torch as hbt
+  label = f'phase 35, {PHASE35_WORLD} ranks, sharded serving'
+  args = flagship(*SHARDED_FLAGS, *PHASE35_CASES['hierarchical'][0])
   launches = collections.Counter()
-  failures, times, lists = [], [], []
-  with tempfile.TemporaryDirectory() as out:
-    cmd = [sys.executable, '-m', 'hybridbackend_tpu_torch.run', '--simulate',
-           str(PHASE35_WORLD), '--nodes', str(PHASE35_NODES), '--device',
-           SHARDED_DEVICE, '--timeout', str(PHASE35_LAUNCH_S),
-           os.path.join(HERE, 'chip_smoke.py'), '--rank-of', out,
-           '--rank-device', SHARDED_DEVICE,
-           '--rank-flags', json.dumps(dict(phase=35,
-                                           flags=list(SHARDED_FLAGS)))]
-    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
-    t0 = time.perf_counter()
-    # The NCCL world of one meanwhile, in this process.
-    try:
-      backend, counts, nccl_losses = _phase35_nccl(dev)
-    finally:
-      stdout, stderr = proc.communicate(timeout=PHASE35_LAUNCH_S + 60)
+  for r, rec in enumerate(ranks):
+    _expect(f'{label}, int8, rank {r}', rec['int8_counts'], gather_rows=2)
+    _expect(f'{label}, float, rank {r}', rec['float_counts'],
+            gather_rows=len(PHASE35_SERVED))
+    launches.update(rec['int8_counts'])
+    launches.update(rec['float_counts'])
+    if not all(rec['float_equal'].values()):
+      raise AssertionError(f'{label}, rank {r}: served float rows differ '
+                           f'from the training lookup: {rec["float_equal"]}')
+  whole = hbt.quantize_table(torch.cat([r['shard'] for r in ranks]).to(dev))
+  per = whole.vocab // len(ranks)
+  for r, rec in enumerate(ranks):
+    rows = slice(r * per, (r + 1) * per)
+    if not (torch.equal(rec['q'], whole.q[rows].cpu())
+            and torch.equal(rec['scale'], whole.scale[rows].cpu())):
+      raise AssertionError(f'{label}, rank {r}: quantize_table of the shard '
+                           'is not its rows of the quantized whole table')
+  fx = hbt.StackedFeatureExtractor(
+      tb._specs(args),
+      dense_columns=[f'i{d}' for d in range(args.dense_features)],
+      ctx=hbt.Context(dev, rank=0, world_size=PHASE35_WORLD,
+                      local_world_size=PHASE35_WORLD // PHASE35_NODES))
+  (stack,) = fx.stacks
+  name = stack.stacked.name
+  b = tb.shifted(*tb.make_batch(args, dev, PHASE33_BATCH_SEED), args.vocab,
+                 PHASE35_STEPS + PHASE35_TIMED)
+  ids, layout = hbt.pack_ids(stack, fx.member_ids(b)[name])
+  with torch.no_grad():
+    one = hbt.lookup_quantized(whole, ids, stack.stacked)
+    if not torch.equal(torch.cat([r['emb'] for r in ranks]).to(dev), one):
+      raise AssertionError(f'{label}: the int8 embeddings are not the world '
+                           'of one\'s lookup_quantized, bit for bit')
+    tower, preds = tb._tower(args, dev, torch.Generator())
+    tower.load_state_dict(ranks[0]['tower'])
+    want = preds(tower, *fx.combine_from_raw({name: one}, {name: layout}, b))
+  err = float((torch.cat([r['preds'] for r in ranks]).to(dev) - want).abs()
+              .max())
+  if err > PHASE35_SERVED_TOL:
+    raise AssertionError(f'{label}: predictions {err:.3e} from the world of '
+                         'one\'s')
+  print(f'{label}: each rank\'s quantize_table(shard) bitwise its rows of '
+        f'the quantized whole [{whole.vocab}, {whole.dim}] table; '
+        f'{one.numel()} int8 embeddings of the global batch bitwise the '
+        f'world of one\'s lookup_quantized, predictions {err:.3e} apart; '
+        f'float shards served under {", ".join(PHASE35_SERVED)} bitwise the '
+        'training lookup; kernel 5 2 + '
+        f'{len(PHASE35_SERVED)} times on each rank')
+  return launches
+
+
+def start_phase35():
+  """Starts phase 35's two launches, the world of ``PHASE35_WORLD`` gloo
+  ranks and the NCCL world of one (``_launch_nccl35``), whose ranks may
+  run while an earlier phase does; returns their directory, their
+  processes and the time they started. ``stop_phase35`` ends them."""
+  out = tempfile.mkdtemp(prefix='chip_smoke35_')
+  cmd = [sys.executable, '-m', 'hybridbackend_tpu_torch.run', '--simulate',
+         str(PHASE35_WORLD), '--nodes', str(PHASE35_NODES), '--device',
+         SHARDED_DEVICE, '--timeout', str(PHASE35_LAUNCH_S),
+         os.path.join(HERE, 'chip_smoke.py'), '--rank-of', out,
+         '--rank-device', SHARDED_DEVICE,
+         '--rank-flags', json.dumps(dict(phase=35,
+                                         flags=list(SHARDED_FLAGS)))]
+  with open(os.path.join(out, 'world.stdout'), 'w') as so, open(
+      os.path.join(out, 'world.stderr'), 'w') as se:
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=so, stderr=se)
+  return out, proc, _launch_nccl35(out), time.perf_counter()
+
+
+def stop_phase35(started):
+  """Ends ``start_phase35``'s launches where they still run and removes
+  their directory."""
+  out, *procs, _ = started
+  for p in procs:
+    if p.poll() is None:
+      p.kill()
+      p.wait()
+  shutil.rmtree(out, ignore_errors=True)
+
+
+def phase35_exchanges(dev, smi, started=None):
+  """Phase 35: node groups, every exchange, the interleaved step and
+  sharded serving at a world of ``PHASE35_WORLD`` gloo ranks in
+  ``PHASE35_NODES`` nodes sharing the card (see the module docstring),
+  from ``start_phase35``'s launches (started here unless ``started``
+  gives them). Returns the kernel launches of the world's held steps
+  summed over its ranks and of the NCCL world of one's steps: those of
+  the exchanges' cases, then those of the interleaved cases and of
+  sharded serving."""
+  t_phase = time.perf_counter()
+  launches, new_launches = collections.Counter(), collections.Counter()
+  failures, times, lists, seconds = [], [], [], {}
+  started = started or start_phase35()
+  out, proc, nccl, t0 = started
+  try:
+    # In this process the NCCL world of one's steps in no world, while
+    # the launches run.
+    want = _no_world35(dev)
+    nccl.wait(timeout=PHASE35_LAUNCH_S + 60)
+    proc.wait(timeout=PHASE35_LAUNCH_S + 60)
     launch_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-      raise RuntimeError(f'phase 35: the world of {PHASE35_WORLD} exited '
-                         f'{proc.returncode}:\n{stderr[-4000:]}')
-    launches.update(counts)
+    for p, name, what in ((nccl, 'nccl', 'the launched world of one'), (
+        proc, 'world', f'the world of {PHASE35_WORLD}')):
+      if p.returncode != 0:
+        with open(os.path.join(out, f'{name}.stderr')) as f:
+          raise RuntimeError(f'phase 35: {what} exited {p.returncode}:\n'
+                             f'{f.read()[-4000:]}')
+    backend, probe, counts, nccl_losses = _hold_nccl35(
+        dev, torch.load(os.path.join(out, 'nccl.0.pt')), want)
+    refused = _print_probe(1, [probe])
+    for case, c in counts.items():
+      (new_launches if case in PHASE35_INTERLEAVE else launches).update(c)
     t0 = time.perf_counter()
     load = lambda case: [torch.load(os.path.join(out, f'{case}.{r}.pt'))
                          for r in range(PHASE35_WORLD)]
@@ -5685,13 +6042,15 @@ def phase35_exchanges(dev, smi):
       label = (f'phase 35, {PHASE35_WORLD} ranks in {PHASE35_NODES} nodes, '
                f'{case}')
       ranks = load(case)
+      t_case = time.perf_counter()
       try:
         kernel, per_step = spec[4], spec[5]
         want_fallbacks = tuple(PHASE35_STEPS * f for f in per_step)
         for r, rec in enumerate(ranks):
           _expect(f'{label}, rank {r}', rec['counts'],
                   **{kernel: PHASE35_STEPS})
-          launches.update(rec['counts'])
+          (new_launches if case in PHASE35_INTERLEAVE else launches).update(
+              rec['counts'])
           if tuple(rec['fallbacks']) != want_fallbacks:
             raise AssertionError(f'{label}, rank {r}: (lookup, update) '
                                  f'fallbacks {rec["fallbacks"]}, expected '
@@ -5699,8 +6058,9 @@ def phase35_exchanges(dev, smi):
           if not rec['tower_equal']:
             raise AssertionError(f'{label}: rank {r}\'s tower is not rank '
                                  '0\'s')
-        report, apart_in = _hold_world33(label, case, dev, ranks,
-                                         SHARDED_FLAGS, spec)
+        report, apart_in = _hold_world33(
+            label, case, dev, ranks, SHARDED_FLAGS, spec,
+            PHASE35_ONE_INTERLEAVE.get(case, 0))
         times.append(f'{case} {ranks[0]["ms_per_step"]:.4f}')
         print(f'{label} ({ranks[0]["backend"]} on {ranks[0]["device"]}, '
               f'shard {ranks[0]["shard"]}): {PHASE35_STEPS} steps against a '
@@ -5713,11 +6073,34 @@ def phase35_exchanges(dev, smi):
         _print_lists(label, ranks)
         lists += [(case, c['kernel'], c['entries'], c['err'])
                   for rec in ranks for c in rec['lists']]
+        if case in PHASE35_ONE_INTERLEAVE:
+          report, _ = _hold_world33(
+              label, case, dev, ranks, SHARDED_FLAGS, spec,
+              witness=PHASE35_ONE_INTERLEAVE[case])
+          print(f'{label}: against the world of one\'s plain step, each '
+                'step from one state, the elements past the flip rule on '
+                'the rows of the examples whose ReLU gates differ between '
+                f'the whole batch and its {PHASE35_ONE_INTERLEAVE[case]} '
+                'micro-batches: ' + ', '.join(
+                    f'{k} {v:.3e}' if isinstance(v, float) else f'{k} {v}'
+                    for k, v in report.items()))
       except AssertionError as e:
         # Every case runs; the phase fails at its end.
         failures.append(str(e))
         print(f'{label}: FAILED: {e}')
+      seconds[case] = (max(r['seconds'] for r in ranks),
+                       time.perf_counter() - t_case)
       del ranks
+    t_case = time.perf_counter()
+    served = load('serving')
+    try:
+      new_launches.update(_hold_serving35(dev, served))
+    except AssertionError as e:
+      failures.append(str(e))
+      print(f'phase 35, sharded serving: FAILED: {e}')
+    seconds['serving'] = (max(r['seconds'] for r in served),
+                          time.perf_counter() - t_case)
+    del served
     dense = load('dense')
     report = {'dense_loss_rel_err': 0.0}
     if any(r['loss'] != dense[0]['loss'] for r in dense) or not all(
@@ -5726,22 +6109,34 @@ def phase35_exchanges(dev, smi):
                            'losses or the replicated parameters')
     _hold_dense35(dev, dense[0], report)
     check_s = time.perf_counter() - t0
+  finally:
+    stop_phase35(started)
   print(f'phase 35, the dense Trainer through the hierarchical lookup, '
         f'{PHASE35_STEPS} steps against the world of one, each from rank '
         '0\'s tower: ' + ', '.join(f'{k} {v:.3e}' for k, v in report.items())
-        + f'; the {backend} world of one (--nodes 1): each topology\'s '
-        'all-reduce and all_to_all_v on its subgroups bitwise, '
-        f'{PHASE35_NCCL_STEPS} steps of {", ".join(PHASE35_NCCL)}: losses '
-        f'{nccl_losses}, bit for bit those of no world')
+        + f'; the {backend} world of one (python -m hybridbackend_tpu_torch'
+        f'.run {"--simulate" if SHARDED_DEVICE == "cpu" else "--nproc"} 1 '
+        '--nodes 1): backend refusals '
+        f'{refused or "none"}, each topology\'s all-reduce and all_to_all_v '
+        f'on its subgroups bitwise, {PHASE35_NCCL_STEPS} steps of '
+        f'{", ".join(PHASE35_NCCL)}: losses {nccl_losses}, bit for bit '
+        'those of no world')
+  new = [c for c in seconds if c in PHASE35_INTERLEAVE or c == 'serving']
+  print('phase 35: seconds a case (the slowest rank\'s build, steps and '
+        'held lists; this process\'s checks): ' + ', '.join(
+            f'{c} {a:.1f} + {b:.1f}' for c, (a, b) in seconds.items())
+        + f'; the interleaved and serving cases ({", ".join(new)}) '
+        f'{sum(sum(seconds[c]) for c in new):.1f} s')
   print(f'phase 35 on {smi}: ms/step of rank 0 over {PHASE35_TIMED} steps '
         f'(CUDA events): {", ".join(times)} -- gloo ranks sharing one card, '
         'through the host: a check\'s cost, not NCCL, not NVLink, not a '
-        f'multi-GPU number; launch {launch_s:.1f} s, checks {check_s:.1f} s, '
-        f'phase {time.perf_counter() - t_phase:.1f} s')
+        f'multi-GPU number; the launches ended {launch_s:.1f} s after they '
+        f'started, checks {check_s:.1f} s, phase '
+        f'{time.perf_counter() - t_phase:.1f} s')
   if failures:
     raise AssertionError(f'phase 35: {len(failures)} cases failed: '
                          + ' | '.join(failures))
-  return launches
+  return launches, new_launches
 
 
 _LAST_MARK = [time.perf_counter()]
@@ -5774,8 +6169,9 @@ def main() -> int:
   args = parser.parse_args()
   if args.rank_of:
     spec = json.loads(args.rank_flags)
-    rank = {34: phase34_rank, 35: phase35_rank}.get(spec.get('phase'),
-                                                    phase33_rank)
+    rank = {34: phase34_rank, 35: phase35_rank,
+            '35-nccl': phase35_nccl_rank}.get(spec.get('phase'),
+                                              phase33_rank)
     return rank(args.rank_of, args.rank_device, spec)
   t_start = time.perf_counter()
   _LAST_MARK[0] = t_start
@@ -5894,9 +6290,16 @@ def main() -> int:
   phase32_sharded(dev, smi)
   sharded_launches, every_step_launches = phase33_every_step(dev, smi)
   _mark('phases 32-33')
-  trainers_n_launches = phase34_trainers(dev, smi)
+  # Phase 35's ranks start now and run beside phase 34's.
+  phase35 = start_phase35()
+  try:
+    trainers_n_launches = phase34_trainers(dev, smi)
+  except BaseException:
+    stop_phase35(phase35)
+    raise
   _mark('phase 34')
-  exchanges_launches = phase35_exchanges(dev, smi)
+  exchanges_launches, serving_interleave_launches = phase35_exchanges(
+      dev, smi, phase35)
   _mark('phase 35')
   if args.profile:
     batch = functools.partial(tb.shifted, *tb.make_batch(cfg, dev),
@@ -5969,12 +6372,21 @@ def main() -> int:
                  # steps not counted).
                  'trainers_n_launches': (trainers_n_launches[name]
                                          if name in tb.COUNTED else None),
-                 # Launches in phase 35: the held steps of every case
-                 # summed over the world's ranks, and the NCCL world of
-                 # one's steps (the timed steps and the checks on the
+                 # Launches in phase 35's exchange cases: the held steps of
+                 # every case summed over the world's ranks, and the NCCL
+                 # world of one's steps of the hierarchical, column and
+                 # wire cases (the timed steps and the checks on the
                  # received lists not counted).
                  'exchanges_launches': (exchanges_launches[name]
-                                        if name in tb.COUNTED else None)})
+                                        if name in tb.COUNTED else None),
+                 # Launches in phase 35's interleaved cases and sharded
+                 # serving: the interleaved steps' held steps summed over
+                 # the world's ranks and the NCCL world of one's, and the
+                 # ranks' served int8 and float lookups (the timed steps
+                 # and the checks on the received lists not counted).
+                 'serving_interleave_launches': (
+                     serving_interleave_launches[name]
+                     if name in tb.COUNTED else None)})
   print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s wall, every '
         'phase')
   print(json.dumps({'kernels': rows}))

@@ -59,7 +59,10 @@ tested against. It imports ``torch`` and never ``jax``, and nothing from
   replica-synchronized stopping and padding (``SyncReplicasIterator``),
   exact eval metrics across the ranks, checkpoints that each rank writes
   its rows of and any world restores, and the export of an unsharded
-  bundle.
+  bundle; the interleaved step, its micro-batches' lookups through the
+  sharded exchanges on the side stream; and sharded serving, a rank's
+  f32 or int8 shard (``shard_quantized``) served through the row
+  gather's kernel.
 
 Kernels and the native libraries are built at first use, never at
 import.
@@ -83,7 +86,8 @@ from hybridbackend_tpu_torch.embedding.dynamic import (
 from hybridbackend_tpu_torch.embedding.lookup import (
     lookup, lookup_sparse, world_slice)
 from hybridbackend_tpu_torch.embedding.quant import (
-    QuantizedTable, dequantize_table, lookup_quantized, quantize_table)
+    QuantizedTable, dequantize_table, lookup_quantized, quantize_table,
+    shard_quantized)
 from hybridbackend_tpu_torch.embedding.service import (
     CachePlan, CacheRunner, EmbeddingCache, InMemoryStorage, Storage)
 from hybridbackend_tpu_torch.embedding.sparse_update import (

@@ -49,8 +49,14 @@ cards.
 
 With ``--sparse --interleave K`` the step is the PICASSO interleaved one
 (``pipeline.make_interleaved_train_step``, as the JAX harness builds it
-at ``:121-127``): the batch in K micro-batches whose lookups run on a
-side stream beside the tower, one table update a step.
+at ``:121-127``, at any world): the batch (a rank's rows, under the
+launcher) in K micro-batches whose lookups run on a side stream beside
+the tower, through the ``--lookup`` exchange with ``--wire-dtype`` and
+``--gradient-wire-dtype``, one table update a step:
+
+  python -m hybridbackend_tpu_torch.run --simulate 2 -m \
+      hybridbackend_tpu_torch.benchmarks.train_benchmark --sparse \
+      --interleave 2 --lookup alltoall --json
 
 Timing: 3 untimed steps, then ``--repeats`` windows (3) of
 ``--inner-steps`` steps (20, the JAX harness's window) enqueued back to
@@ -71,8 +77,7 @@ the port's ranks are processes, started by the launcher);
 to the sparse step only; ``--no-dedup`` with ``--interleave``, as the
 JAX harness refuses it; ``--wire-dtype`` without ``--sparse`` (the
 dense mode's lookups take the allgather exchange, whose rows travel at
-the table's precision); in a world of more than one rank,
-``--interleave`` (ROADMAP item 15b (7)).
+the table's precision).
 """
 
 from __future__ import annotations
@@ -165,10 +170,6 @@ def unsupported(args: argparse.Namespace) -> Optional[str]:
             'ported; start N ranks with python -m hybridbackend_tpu_torch.run '
             '--simulate N -m hybridbackend_tpu_torch.benchmarks.'
             'train_benchmark')
-  if (launched() and int(os.environ['WORLD_SIZE']) > 1
-      and args.interleave > 0):
-    return ('--interleave in a world of more than one rank is ROADMAP '
-            'item 15b (7)')
   if torch.device(args.device).type == 'cuda' and (
       not torch.cuda.is_available()):
     return 'no CUDA device; pass --device cpu to run on the CPU'
@@ -314,7 +315,9 @@ def build(args: argparse.Namespace, device: torch.device,
       raise ValueError('the interleaved step has no split-dense update')
     return state, hbt.make_interleaved_train_step(
         fx, model_loss, args.interleave, table_lr=TABLE_LR,
-        table_optimizer=table_optimizer)
+        table_optimizer=table_optimizer, lookup_strategy=args.lookup,
+        wire_dtype=args.wire_dtype,
+        gradient_wire_dtype=args.gradient_wire_dtype, **exchange)
   step = hbt.make_sparse_train_step(
       fx, model_loss, table_lr=TABLE_LR, table_dedup=not args.no_dedup,
       table_optimizer=table_optimizer, table_split_dense=split_dense,

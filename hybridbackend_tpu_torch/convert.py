@@ -22,7 +22,7 @@ Either may be taken at a later step: the step count, optax Adam's
 the tables (into the port's ``Adagrad``) come across with it. A JAX
 int8 serving table (``QuantizedTable``, ``q`` lane-packed to ``[V/p,
 p*d]``) becomes the port's ``[V, d]`` one by the same reshape
-(:func:`quantized_from_jax`).
+(:func:`quantized_from_jax`), or a rank's shard of a sharded one.
 
 Host-backed tables need nothing here beyond the tower's weights
 (:func:`load_dcn_v2` and its kin): an ``EmbeddingCache``'s host tables
@@ -39,7 +39,8 @@ import torch
 from torch import nn
 
 from hybridbackend_tpu_torch.distribute.collective import allgather
-from hybridbackend_tpu_torch.embedding.quant import QuantizedTable
+from hybridbackend_tpu_torch.embedding.quant import (
+    QuantizedTable, shard_quantized)
 from hybridbackend_tpu_torch.embedding.sparse_update import SparseOptState
 from hybridbackend_tpu_torch.embedding.table import TableConfig
 from hybridbackend_tpu_torch.framework.context import Context
@@ -314,15 +315,25 @@ def from_jax_dense(module: nn.Module, specs: Sequence[EmbeddingSpec],
 
 
 def quantized_from_jax(q: np.ndarray, scale: np.ndarray, dim: int,
-                       device: torch.device) -> QuantizedTable:
+                       device: torch.device,
+                       config: Optional[TableConfig] = None,
+                       ctx: Optional[Context] = None) -> QuantizedTable:
   """The port's ``QuantizedTable`` from a JAX one's ``q`` (packed
   ``[V/p, p*dim]`` or ``[V, dim]`` int8) and ``scale`` (``[V]``): a
   row-major reshape of ``q`` to ``[V, dim]``, as JAX's
-  ``dequantize_table`` does (``quant.py:90-94``)."""
+  ``dequantize_table`` does (``quant.py:90-94``).
+
+  With ``config`` sharded over ``ctx``, the arrays are the global ones of
+  a JAX ``shard_quantized`` table (its padding rows ``q = 0``, ``scale =
+  1``), and the result is this rank's shard by the port's bounds
+  (``quant.shard_quantized``): JAX pads the packed rows to the world,
+  so its global arrays hold at least the port's padded vocab."""
   scale = np.asarray(scale, np.float32)
   q = np.asarray(q, np.int8).reshape(scale.shape[0], dim)
-  return QuantizedTable(q=torch.tensor(q, device=device),
-                        scale=torch.tensor(scale, device=device))
+  qt = QuantizedTable(q=torch.tensor(q), scale=torch.tensor(scale))
+  if config is not None and config.should_shard(ctx):
+    qt = shard_quantized(qt, config, ctx)
+  return QuantizedTable(q=qt.q.to(device), scale=qt.scale.to(device))
 
 
 __all__ = ['from_jax', 'from_jax_dense', 'gather_slots', 'gather_tables',

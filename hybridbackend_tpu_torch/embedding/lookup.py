@@ -12,7 +12,8 @@ through. The serving function, which needs no backward, passes
 ``serving=True``: the gather goes through kernel 5 (``ops/gather.py``,
 which clips the ids itself), with the same bits. A
 :class:`~hybridbackend_tpu_torch.embedding.quant.QuantizedTable` is
-looked up by ``lookup_quantized``, as in the JAX package (``:66-70``).
+looked up by ``lookup_quantized``, as in the JAX package (``:66-70``),
+a rank's shard of one over the allgather exchange whatever the strategy.
 
 A table sharded over a world of ranks (``TableConfig.should_shard``) is
 looked up by each rank for its own ids, with one of the JAX package's
@@ -86,10 +87,15 @@ divides once (``training/train.py``). A shard that needs no gradient
 (the sparse step, which routes the embeddings' gradient itself through
 ``sparse_update.py``) is looked up under ``torch.no_grad()``.
 
-A sharded table is looked up as a shard only when it holds fewer rows
-(a column table: fewer columns) than the table has at a world of one: a
-whole table (a shard gathered back, as the exported dense bundle holds
-it) is looked up locally, with no collective.
+A shard served with ``serving=True`` (no backward) runs the same
+exchange under ``torch.no_grad()`` with the owner's local gather through
+kernel 5 in place of ``index_select``: the same rows, bit for bit.
+
+A sharded table, float or int8, is looked up as a shard only when it
+holds fewer rows (a column table: fewer columns) than the table has at a
+world of one (``table.is_shard``): a whole table (a shard gathered back,
+as the exported dense bundle holds it) is looked up locally, with no
+collective.
 """
 
 from __future__ import annotations
@@ -105,7 +111,7 @@ from hybridbackend_tpu_torch.distribute.partition import (
     Partitioned, partition_by_fn, unpartition)
 from hybridbackend_tpu_torch.embedding.quant import (
     QuantizedTable, lookup_quantized)
-from hybridbackend_tpu_torch.embedding.table import TableConfig
+from hybridbackend_tpu_torch.embedding.table import TableConfig, is_shard
 from hybridbackend_tpu_torch.embedding.unique import unique
 from hybridbackend_tpu_torch.framework.context import Context
 from hybridbackend_tpu_torch.ops.gather import gather_rows
@@ -123,7 +129,8 @@ def lookup(table: Table, ids: torch.Tensor, config: TableConfig,
   """Look up ``ids`` (any shape) in ``table``; returns
   ``ids.shape + (dim,)`` in the table's dtype (float32 for a
   ``QuantizedTable``). Invalid ids give zero rows. ``serving=True``
-  gathers through kernel 5, which has no backward.
+  gathers through kernel 5, which has no backward (a shard's owners
+  gather through it, under ``torch.no_grad()``).
 
   When ``config`` is sharded over ``ctx``, ``table`` is this rank's
   shard and ``ids`` this rank's ids; ``strategy``, ``bucket_ratio``
@@ -137,17 +144,12 @@ def lookup(table: Table, ids: torch.Tensor, config: TableConfig,
   returning rows (``None`` or ``'float32'``: the table's). Elsewhere
   they are not used."""
   if isinstance(table, QuantizedTable):
-    if config.should_shard(ctx):
-      raise NotImplementedError('sharded int8 tables are ROADMAP item '
-                                '15b (6)')
-    return lookup_quantized(table, ids, config)
-  if config.should_shard(ctx) and _is_shard(table, config):
-    if serving:
-      raise NotImplementedError('a sharded table is not served; serving '
-                                'sharded tables is ROADMAP item 15b (6)')
+    return lookup_quantized(table, ids, config, ctx)
+  if config.should_shard(ctx) and is_shard(config, table.shape):
     args = (table, ids, config, ctx, strategy, bucket_ratio,
-            overflow_fallback, unique_ratio, wire_dtype)
-    if table.requires_grad and torch.is_grad_enabled():
+            overflow_fallback, unique_ratio, wire_dtype,
+            gather_rows if serving else _index_select)
+    if table.requires_grad and torch.is_grad_enabled() and not serving:
       return _sharded(*args)
     with torch.no_grad():
       return _sharded(*args)
@@ -165,12 +167,11 @@ def lookup(table: Table, ids: torch.Tensor, config: TableConfig,
 lookup.overflow_fallbacks = 0     # exact exchanges taken after an overflow
 
 
-def _is_shard(table: torch.Tensor, config: TableConfig) -> bool:
-  """Whether ``table`` is a rank's part of ``config``'s table and not the
-  whole table."""
-  if config.by_column:
-    return table.shape[1] < config.dim
-  return table.shape[0] < config.padded_vocab()
+def _index_select(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+  """The training lookup's local gather, which the dense path
+  differentiates through; ``gather_rows`` (kernel 5) is the serving
+  one's. Both return ``rows.shape + (d,)``, the same bits."""
+  return table.index_select(0, rows)
 
 
 def world_slice(flat_ids: torch.Tensor, ctx: Context) -> torch.Tensor:
@@ -193,7 +194,7 @@ def _global_any(flag: torch.Tensor, ctx: Context) -> bool:
 
 
 def _sharded(shard, ids, config, ctx, strategy, bucket_ratio, fallback,
-             unique_ratio, wire_dtype):
+             unique_ratio, wire_dtype, gather):
   if strategy not in STRATEGIES:
     raise ValueError(f'Unknown lookup strategy: {strategy!r}')
   flat = ids.reshape(-1)
@@ -206,7 +207,7 @@ def _sharded(shard, ids, config, ctx, strategy, bucket_ratio, fallback,
     u = unique(flat, capacity=cap, fill_value=-1)
     if not _global_any(u.overflowed, ctx):
       emb_u = _sharded(shard, u.values, config, ctx, strategy,
-                       bucket_ratio, fallback, 1.0, wire_dtype)
+                       bucket_ratio, fallback, 1.0, wire_dtype, gather)
       return emb_u.index_select(0, u.index.long()).reshape(
           *ids.shape, config.dim)
     lookup.overflow_fallbacks += 1
@@ -217,16 +218,16 @@ def _sharded(shard, ids, config, ctx, strategy, bucket_ratio, fallback,
   rows_per_shard = config.padded_vocab(ctx) // ctx.world_size
   if config.by_column:
     run = functools.partial(_lookup_column, ctx=ctx,
-                            vocab=config.padded_vocab(ctx))
+                            vocab=config.padded_vocab(ctx), gather=gather)
   elif strategy in ('allgather', 'gspmd'):
     run = functools.partial(_lookup_allgather, ctx=ctx,
                             rows_per_shard=rows_per_shard,
-                            gspmd=strategy == 'gspmd')
+                            gspmd=strategy == 'gspmd', gather=gather)
   else:
     run = functools.partial(
         _lookup_alltoall if strategy == 'alltoall' else _lookup_hierarchical,
         ctx=ctx, rows_per_shard=rows_per_shard, bucket_ratio=bucket_ratio,
-        fallback=fallback, wire_dtype=wire_dtype)
+        fallback=fallback, wire_dtype=wire_dtype, gather=gather)
   return _Exchange.apply(shard, rows, run).reshape(*ids.shape, config.dim)
 
 
@@ -245,7 +246,7 @@ class _Exchange(torch.autograd.Function):
     return fctx.transpose(grad.contiguous()), None, None
 
 
-def _lookup_allgather(shard, rows, ctx, rows_per_shard, gspmd=False):
+def _lookup_allgather(shard, rows, ctx, rows_per_shard, gspmd, gather):
   """All ranks' ids, a masked local gather, then a reduce-scatter, or
   with ``gspmd`` an all-reduce of which each rank keeps its rows (the
   same bits: one rank holds each row, the others add zeros); transposed,
@@ -255,8 +256,7 @@ def _lookup_allgather(shard, rows, ctx, rows_per_shard, gspmd=False):
   local = (all_ids - owner * rows_per_shard).clamp(
       0, shard.shape[0] - 1).reshape(-1).long()
   mine = (owner == ctx.rank).reshape(-1, 1)
-  contrib = shard.index_select(0, local).reshape(
-      *all_ids.shape, shard.shape[1])
+  contrib = gather(shard, local).reshape(*all_ids.shape, shard.shape[1])
   contrib = torch.where(mine.reshape(*all_ids.shape, 1), contrib, 0)
 
   def transpose(grad):
@@ -269,7 +269,7 @@ def _lookup_allgather(shard, rows, ctx, rows_per_shard, gspmd=False):
   return collective.reduce_scatter(contrib, ctx=ctx), transpose
 
 
-def _lookup_column(shard, rows, ctx, vocab):
+def _lookup_column(shard, rows, ctx, vocab, gather):
   """All ranks' ids, this rank's slice of each row, and a tiled
   all-to-all that splits the rows and joins the columns (JAX
   ``all_to_all(split_axis=0, concat_axis=1, tiled=True)``); transposed,
@@ -279,7 +279,7 @@ def _lookup_column(shard, rows, ctx, vocab):
   all_ids = collective.allgather(rows, ctx=ctx)
   valid = ((all_ids >= 0) & (all_ids < vocab)).unsqueeze(-1)
   local = all_ids.clamp(0, shard.shape[0] - 1).long()
-  emb = torch.where(valid, shard.index_select(0, local), 0)
+  emb = torch.where(valid, gather(shard, local), 0)
   got = collective.alltoall(emb, ctx=ctx)           # [W·b, c], by rank
   out = got.reshape(world, b, c).permute(1, 0, 2).reshape(b, world * c)
 
@@ -294,7 +294,7 @@ def _lookup_column(shard, rows, ctx, vocab):
 
 
 def _a2a_round_trip(shard, part: Partitioned, ctx, rows_per_shard,
-                    wire_dtype):
+                    wire_dtype, gather):
   """The ids to their owners, the owners' gather, the rows back in
   ``wire_dtype``, unbucketed (``lookup.py:294-303``); and its transpose:
   each id's gradient into its bucket lane, to its owner, scatter-added
@@ -304,7 +304,7 @@ def _a2a_round_trip(shard, part: Partitioned, ctx, rows_per_shard,
   local = (recv - ctx.rank * rows_per_shard).clamp(
       0, rows_per_shard - 1).reshape(-1).long()
   d = shard.shape[1]
-  emb = shard.index_select(0, local).reshape(*recv.shape, d)
+  emb = gather(shard, local).reshape(*recv.shape, d)
   back, _ = collective.all_to_all_v(emb, recv_sizes, ctx=ctx,
                                     wire_dtype=wire_dtype)
   lanes = back.shape[0] * back.shape[1]
@@ -339,7 +339,7 @@ def _owner_of(rows_per_shard: int, world: int):
 
 
 def _lookup_alltoall(shard, rows, ctx, rows_per_shard, bucket_ratio,
-                     fallback, wire_dtype):
+                     fallback, wire_dtype, gather):
   """Bucketed by owner, exchanged, read, exchanged back
   (``lookup.py:306-346``)."""
   world = ctx.world_size
@@ -361,13 +361,13 @@ def _lookup_alltoall(shard, rows, ctx, rows_per_shard, bucket_ratio,
       lookup.overflow_fallbacks += 1
       p = part(None)
   out, transpose = _a2a_round_trip(shard, p, ctx, rows_per_shard,
-                                   wire_dtype)
+                                   wire_dtype, gather)
   return torch.where(valid, out, 0), (
       lambda grad: transpose(torch.where(valid, grad, 0)))
 
 
 def _lookup_hierarchical(shard, rows, ctx, rows_per_shard, bucket_ratio,
-                         fallback, wire_dtype):
+                         fallback, wire_dtype, gather):
   """Two hops to the owner, over this rank's node and then over its
   local rank's ranks of every node, and back (``_hier_pipeline`` and
   ``_lookup_hierarchical``, ``lookup.py:349-420``). Both hops' ids are
@@ -404,7 +404,7 @@ def _lookup_hierarchical(shard, rows, ctx, rows_per_shard, bucket_ratio,
                                    topology=inter)
   at = (r1 - ctx.rank * rows_per_shard).clamp(
       0, rows_per_shard - 1).reshape(-1).long()
-  emb1 = shard.index_select(0, at).reshape(*r1.shape, d)
+  emb1 = gather(shard, at).reshape(*r1.shape, d)
   b1, _ = collective.all_to_all_v(emb1, s1, ctx=ctx, topology=inter,
                                   wire_dtype=wire_dtype)
   lanes1 = b1.shape[0] * b1.shape[1]

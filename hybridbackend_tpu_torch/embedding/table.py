@@ -158,6 +158,17 @@ def shard_of(config: TableConfig,
   return TableShard(config.shard_rows(ctx).start, config.padded_vocab())
 
 
+def is_shard(config: TableConfig, shape: Tuple[int, ...]) -> bool:
+  """Whether a ``[rows, cols]`` array of ``shape`` is a rank's part of
+  ``config``'s table and not the whole table: fewer rows than the table
+  has at a world of one (a column shard: fewer columns than its dim). A
+  whole table in a world (a shard gathered back, as an exported bundle
+  holds it) is looked up locally, with no collective."""
+  if config.by_column:
+    return shape[1] < config.dim
+  return shape[0] < config.padded_vocab()
+
+
 def mark_shard(t: torch.Tensor, shard: Optional[TableShard]) -> torch.Tensor:
   """``t`` marked as ``shard`` (nothing for None); returns ``t``."""
   if shard is not None:
@@ -198,4 +209,4 @@ def create_table(config: TableConfig, generator: torch.Generator,
 
 
 __all__ = ['TableConfig', 'TableShard', 'create_table', 'default_initializer',
-           'mark_shard', 'shard_of', 'table_shard']
+           'is_shard', 'mark_shard', 'shard_of', 'table_shard']

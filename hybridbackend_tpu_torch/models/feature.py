@@ -85,7 +85,11 @@ def extract_features(tables: Mapping[str, Table], batch: Batch,
   ``exchange`` names (``strategy``, ``'allgather'`` by default, and
   ``lookup``'s other exchange options): the dense ``Trainer``'s loss
   function chooses its strategy here, as the JAX one does through the
-  ``emb_lookup_strategy`` option."""
+  ``emb_lookup_strategy`` option. There a served shard (``serving=True``)
+  runs the same exchange with its owners' gathers through kernel 5, and
+  an int8 shard (``quant.shard_quantized``, or ``quantize_table`` of a
+  float shard) the allgather exchange, so that each rank predicts its
+  own rows through the sharded int8 tables."""
   emb_features = []
   for spec in specs:
     ids = batch[spec.key]
@@ -151,9 +155,9 @@ class StackedFeatureExtractor:
         out[stack.stacked.name] = ids_by_name
     return out
 
-  def lookup_raw(self, tables: Dict[str, torch.Tensor], batch: Batch,
+  def lookup_raw(self, tables: Mapping[str, Table], batch: Batch,
                  strategy: Union[str, Mapping[str, str]] = 'allgather',
-                 **exchange):
+                 serving: bool = False, **exchange):
     """One lookup per stack; returns the uncombined embeddings and the
     packed ids (the sparse update needs both).
 
@@ -164,7 +168,11 @@ class StackedFeatureExtractor:
     stack it leaves out takes ``'allgather'``); a column-sharded stack
     has one exchange whatever it names. ``exchange`` holds ``lookup``'s
     other options (``bucket_ratio``, ``overflow_fallback``,
-    ``unique_ratio``, ``wire_dtype``).
+    ``unique_ratio``, ``wire_dtype``). ``serving=True`` gathers through
+    kernel 5, with no backward (``lookup``); a stack may be a
+    ``QuantizedTable``, a rank's shard of a sharded one (``quantize_table``
+    of the float shard) looked up over the allgather exchange, so that
+    each rank predicts its own rows through the sharded int8 stacks.
 
     Returns ``(raw_by_stack {stack: [B, K, D]}, ids_by_stack {stack:
     [B, K]}, layouts {stack: layout})``."""
@@ -177,8 +185,8 @@ class StackedFeatureExtractor:
       all_ids, layout = pack_ids(stack, member_ids[name])
       strat = (strategy if isinstance(strategy, str)
                else strategy.get(name, 'allgather'))
-      raw[name] = lookup(tables[name], all_ids, stack.stacked, ctx=self.ctx,
-                         strategy=strat, **exchange)
+      raw[name] = lookup(tables[name], all_ids, stack.stacked, serving,
+                         ctx=self.ctx, strategy=strat, **exchange)
       ids_out[name] = all_ids
       layouts[name] = layout
     return raw, ids_out, layouts

@@ -126,6 +126,66 @@ def _mean_tower_grads(tower: nn.Module, ctx: Context,
     pos += g.numel()
 
 
+def _exchange_options(ctx: Context, *, lookup_bucket_ratio: float,
+                      update_exchange: str, update_bucket_ratio: float,
+                      overflow_fallback: bool, unique_ratio: float,
+                      wire_dtype: collective.WireDtype,
+                      gradient_wire_dtype: collective.WireDtype
+                      ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+  """The keywords of the lookups (``fx.lookup_raw``, beside the
+  strategy) and of the sparse updates (``sparse_*_apply``) in the world
+  ``ctx``, from the steps' exchange options; the wire dtypes checked
+  here, so that a bad name fails at build and not mid-step."""
+  collective.wire_dtype_of(wire_dtype)
+  collective.wire_dtype_of(gradient_wire_dtype)
+  lookup = dict(bucket_ratio=lookup_bucket_ratio,
+                overflow_fallback=overflow_fallback,
+                unique_ratio=unique_ratio, wire_dtype=wire_dtype)
+  update = dict(ctx=ctx, exchange=update_exchange,
+                bucket_ratio=update_bucket_ratio,
+                overflow_fallback=overflow_fallback,
+                gradient_wire_dtype=gradient_wire_dtype)
+  return lookup, update
+
+
+def _table_grad(grad: torch.Tensor, world: int) -> torch.Tensor:
+  """An embedding gradient, a mean over the rank's rows, scaled by
+  ``1/W`` in a world of ``W > 1`` ranks, so that it carries the global
+  batch's ``1/B`` as in JAX (``sparse_step.py:149``)."""
+  return grad / world if world > 1 else grad
+
+
+def _update_tables(state: SparseTrainState, grads: Dict[str, torch.Tensor],
+                   ids_by_stack: Dict[str, torch.Tensor], stacks_by_name,
+                   table_lr: float, table_optimizer: str,
+                   update: Dict[str, Any], **adagrad) -> None:
+  """One row-sparse update a stack, in place: LazyAdam at the step
+  ``state.step + 1``, or Adagrad with ``adagrad``'s options (``dedup``,
+  ``split_dense``); ``update`` the exchange's keywords."""
+  for name, grad in grads.items():
+    args = (state.tables[name], state.table_opt[name], ids_by_stack[name],
+            grad, stacks_by_name[name].stacked, table_lr)
+    if table_optimizer == 'adam':
+      sparse_adam_apply(*args, step=state.step + 1, **update)
+    else:
+      sparse_adagrad_apply(*args, **adagrad, **update)
+
+
+def _detached_metrics(aux: Dict[str, Any], loss: torch.Tensor,
+                      ctx: Context) -> Dict[str, Any]:
+  """``aux`` detached with ``loss`` under ``'loss'``; in a world of more
+  than one rank the scalars become means over the ranks, as JAX's
+  ``pmean``, and the per-example values stay the rank's own."""
+  metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+             for k, v in aux.items()}
+  metrics['loss'] = loss.detach()
+  if ctx.world_size > 1:
+    metrics = {k: (collective.allreduce(v, 'mean', ctx=ctx)
+                   if isinstance(v, torch.Tensor) and v.dim() == 0 else v)
+               for k, v in metrics.items()}
+  return metrics
+
+
 def loss_from_raw(fx: StackedFeatureExtractor,
                   model_loss: Optional[ModelLoss],
                   raw_model_loss: Optional[RawModelLoss] = None):
@@ -215,18 +275,14 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
                      "'adagrad' and table_dedup=True")
   ctx = fx.ctx
   world = ctx.world_size
-  # Checked here, so that a bad name fails at build and not mid-step.
-  collective.wire_dtype_of(wire_dtype)
-  collective.wire_dtype_of(gradient_wire_dtype)
   stacks_by_name = {s.stacked.name: s for s in fx.stacks}
   loss_of = loss_from_raw(fx, model_loss, raw_model_loss)
-  exchange = dict(bucket_ratio=lookup_bucket_ratio,
-                  overflow_fallback=overflow_fallback,
-                  unique_ratio=unique_ratio, wire_dtype=wire_dtype)
-  update = dict(ctx=ctx, exchange=update_exchange,
-                bucket_ratio=update_bucket_ratio,
-                overflow_fallback=overflow_fallback,
-                gradient_wire_dtype=gradient_wire_dtype)
+  exchange, update = _exchange_options(
+      ctx, lookup_bucket_ratio=lookup_bucket_ratio,
+      update_exchange=update_exchange,
+      update_bucket_ratio=update_bucket_ratio,
+      overflow_fallback=overflow_fallback, unique_ratio=unique_ratio,
+      wire_dtype=wire_dtype, gradient_wire_dtype=gradient_wire_dtype)
 
   def step(state: SparseTrainState, batch: Batch):
     # 1. Fused lookups; the tables are not differentiated.
@@ -244,31 +300,17 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
       _mean_tower_grads(state.dense, ctx, gradient_wire_dtype)
     state.dense_opt.step()
 
-    # 4. Row-sparse optimizer per stacked table, in place.
-    for name, emb in raw.items():
-      # A stack the loss did not read has a zero gradient, as in JAX.
-      grad = emb.grad if emb.grad is not None else torch.zeros_like(emb)
-      if world > 1:
-        grad = grad / world
-      args = (state.tables[name], state.table_opt[name], ids_by_stack[name],
-              grad, stacks_by_name[name].stacked, table_lr)
-      if table_optimizer == 'adam':
-        sparse_adam_apply(*args, step=state.step + 1, **update)
-      else:
-        sparse_adagrad_apply(*args, dedup=table_dedup,
-                             split_dense=table_split_dense, **update)
+    # 4. Row-sparse optimizer per stacked table, in place. A stack the
+    # loss did not read has a zero gradient, as in JAX.
+    grads = {name: _table_grad(emb.grad if emb.grad is not None
+                               else torch.zeros_like(emb), world)
+             for name, emb in raw.items()}
+    _update_tables(state, grads, ids_by_stack, stacks_by_name, table_lr,
+                   table_optimizer, update, dedup=table_dedup,
+                   split_dense=table_split_dense)
 
     state.step += 1
-    metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
-               for k, v in aux.items()}
-    metrics['loss'] = loss.detach()
-    if world > 1:
-      # The scalars are means over the ranks, as JAX's ``pmean``; the
-      # per-example values stay the rank's own.
-      metrics = {k: (collective.allreduce(v, 'mean', ctx=ctx)
-                     if isinstance(v, torch.Tensor) and v.dim() == 0 else v)
-                 for k, v in metrics.items()}
-    return state, metrics
+    return state, _detached_metrics(aux, loss, ctx)
 
   return step
 

@@ -934,6 +934,27 @@ def test_serving_lookups_match_the_cpu(dev, dtype):
   assert torch.equal(got.cpu(), lookup(table, ids))
 
 
+# Kernel 5 as the owner's gather of a sharded int8 table: its [V, 16] int8
+# rows and [V, 1] scales at every rank's ids, shifted to the shard, most
+# of them outside it (below 0 or past its end), which the kernel clips.
+@pytest.mark.parametrize('rank', [0, 3])
+def test_gather_kernel_on_an_int8_shard(dev, rank):
+  gen = torch.Generator().manual_seed(18 + rank)
+  cfg = hbt.TableConfig('t', 40000, 16)
+  whole = hbt.quantize_table(torch.randn(40000, 16, generator=gen) * 3)
+  shard = hbt.shard_quantized(whole, cfg,
+                              hbt.Context('cpu', rank=rank, world_size=4))
+  ids = torch.randint(-1, 40000, (4 * 8192,), generator=gen,
+                      dtype=torch.int32)
+  local = ids - rank * shard.vocab
+  assert bool((local < 0).any() or (local >= shard.vocab).any())
+  before = hbt.gather_rows.launches
+  for table in (shard.q, shard.scale.view(-1, 1)):
+    got = hbt.gather_rows(table.to(dev), local.to(dev))
+    assert torch.equal(got.cpu(), hbt.gather_rows_reference(table, local))
+  assert hbt.gather_rows.launches == before + 2
+
+
 def test_a_bundle_serves_on_the_card_as_on_the_cpu(dev, tmp_path):
   """One poly-batch bundle, exported on the CPU, served on the card and on
   the CPU: kernel 5 once per member lookup (twice in int8), and the

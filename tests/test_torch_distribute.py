@@ -10,8 +10,8 @@ fixture per world, N = 2, 3 and 4). The JAX package computes the same
 functions on a sub-mesh of N of the suite's 8 virtual CPU devices
 (``Context(build_mesh(jax.devices()[:N]))``) from the same numpy inputs.
 
-The updates and steps that ROADMAP item 15b (1) and (4) ported build or
-run at a world of two (one launch), and the dense step's gradient wire
+The updates and steps that ROADMAP item 15b (1), (4) and (7) ported build
+or run at a world of two (one launch), and the dense step's gradient wire
 (15b (5)) runs at a world of one as a no-op; the hierarchical and gspmd
 lookups, a column-partitioned table and a node topology (15b (3)) give
 JAX's values at a world of one (``test_torch_exchanges.py`` runs them at
@@ -68,18 +68,19 @@ def launch(world, cases, tmp, worker=WORKER):
   return launched(start_launch(world, cases, tmp, worker), world, tmp)
 
 
-def start_launch(world, cases, tmp, worker=WORKER):
-  """Starts :func:`launch`'s ranks and returns the launcher's process
-  (for :func:`launched`), so that this process works meanwhile."""
+def start_launch(world, cases, tmp, worker=WORKER, nodes=1):
+  """Starts :func:`launch`'s ranks, laid out in ``nodes`` nodes, and
+  returns the launcher's process (for :func:`launched`), so that this
+  process works meanwhile."""
   with open(tmp / 'cases.pkl', 'wb') as f:
     pickle.dump(cases, f)
   env = dict(os.environ, OMP_NUM_THREADS='1')
   return subprocess.Popen(
       [sys.executable, '-m', 'hybridbackend_tpu_torch.run', '--simulate',
-       str(world), '--device', 'cpu', '--timeout', str(LAUNCH_S - 10),
-       '--collective-timeout', '60', worker, str(tmp / 'cases.pkl'),
-       str(tmp)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-      stderr=subprocess.PIPE, text=True)
+       str(world), '--nodes', str(nodes), '--device', 'cpu', '--timeout',
+       str(LAUNCH_S - 10), '--collective-timeout', '60', worker,
+       str(tmp / 'cases.pkl'), str(tmp)], cwd=ROOT, env=env,
+      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
 def launched(proc, world, tmp):
@@ -323,22 +324,33 @@ def test_dense_step_wire_is_a_no_op_at_a_world_of_one():
       states[0], torch.arange(4.0).reshape(1, 4) / 10)
 
 
-@pytest.mark.parametrize('case,item', [
-    ('trainer', '15b (10)'), ('interleave', '15b (7)')])
+@pytest.mark.parametrize('case,item', [('trainer', '15b (10)')])
 def test_world_steps_out_of_scope_raise(case, item):
-  """What a world of two still refuses: the interleaved step, and a
-  ``SparseTrainer`` with host-backed tables (the trainer itself runs
-  there, ``test_torch_sharded_trainer.py``)."""
+  """What a world of two still refuses: a ``SparseTrainer`` with
+  host-backed tables (the trainer itself runs there,
+  ``test_torch_sharded_trainer.py``)."""
   fx = _fx(2)
   loss = lambda *a: (torch.zeros(()), {})
   build = {
       'trainer': lambda: hbt.SparseTrainer(fx, loss, torch.nn.Linear(4, 1),
                                            tables={}, caches={'t': None}),
-      'interleave': lambda: hbt.make_interleaved_train_step(fx, loss, 2),
   }[case]
   with pytest.raises(NotImplementedError, match=item.replace(
       '(', r'\(').replace(')', r'\)')):
     build()
+
+
+@pytest.mark.parametrize('kw', [
+    {}, dict(table_optimizer='adam', lookup_strategy='hierarchical',
+             gradient_wire_dtype='bfloat16')], ids=['adagrad', 'adam'])
+def test_interleaved_step_builds_at_a_world_of_two(kw):
+  """The interleaved step, which raised ROADMAP item 15b (7) at a world
+  of two, builds there now (``test_torch_sharded_interleave.py`` runs it
+  against JAX); a wire dtype it cannot cast to fails at build."""
+  loss = lambda *a: (torch.zeros(()), {})
+  assert callable(hbt.make_interleaved_train_step(_fx(2), loss, 2, **kw))
+  with pytest.raises(ValueError):
+    hbt.make_interleaved_train_step(_fx(2), loss, 2, wire_dtype='int8')
 
 
 @pytest.mark.parametrize('case,kw', [

@@ -5,9 +5,10 @@ Counterpart of ``tests/test_launcher.py``: gloo CPU ranks
 boundary, a failing rank that takes its peers down, a world past its
 deadline, a collective whose peer never comes, and whole lines relayed
 from every rank; then the train harness as a world of two (also with
-per-occurrence Adagrad on bf16 tables and a bf16 gradient wire), the
-DIN harness's raw-mode sparse step as one, and both harnesses' dense
-modes as worlds of two, against their world of one; ``--nodes``: the
+per-occurrence Adagrad on bf16 tables and a bf16 gradient wire, and
+its interleaved step against its world of one), the DIN harness's
+raw-mode sparse step as one, and both harnesses' dense modes as worlds
+of two, against their world of one; ``--nodes``: the
 environment each child gets, node counts that do not divide the ranks,
 and the card a rank joins on. Every launch has a ``subprocess``
 deadline, so that a hang fails one test.
@@ -207,6 +208,27 @@ def test_dense_harness_as_a_world_of_two(harness):
   one = mod.run(mod.parse_args(['--device', 'cpu', '--repeats', '1',
                                 '--inner-steps', '2', *flags]))
   assert one['world'] == 1
+  assert abs(got['final_loss'] - one['final_loss']) <= 1e-5 * one[
+      'final_loss']
+
+
+@pytest.mark.timeout(150)
+def test_interleaved_harness_as_a_world_of_two():
+  """``--sparse --interleave 2`` as a world of two: each rank's rows in 2
+  micro-batches looked up through the alltoall exchange, one table update
+  a step; the final loss is the world of one's interleaved step's, to the
+  order of the sums over the ranks and the micro-batches."""
+  from hybridbackend_tpu_torch.benchmarks import train_benchmark as tb
+  flags = ('--tables', '2', '--vocab', '1000', '--batch', '64',
+           '--dense-features', '3', '--interleave', '2', '--lookup',
+           'alltoall')
+  got = _launched('hybridbackend_tpu_torch.benchmarks.train_benchmark',
+                  *flags)
+  assert (got['world'], got['backend'], got['interleave'], got['lookup']) \
+      == (2, 'gloo', 2, 'alltoall')
+  one = tb.run(tb.parse_args(['--sparse', '--device', 'cpu', '--repeats',
+                              '1', '--inner-steps', '2', *flags]))
+  assert (one['world'], one['interleave']) == (1, 2)
   assert abs(got['final_loss'] - one['final_loss']) <= 1e-5 * one[
       'final_loss']
 

@@ -80,13 +80,13 @@ def test_harness_refuses_what_is_not_ported(capsys, flags, why):
 
 @pytest.mark.parametrize('flags,why', [
     (['--device', 'cpu'], None),
-    (['--sparse', '--device', 'cpu', '--interleave', '2'], '15b (7)'),
+    (['--sparse', '--device', 'cpu', '--interleave', '2'], None),
 ])
 def test_harness_refuses_in_a_world_what_is_not_ported(monkeypatch, flags,
                                                        why):
-  """Under the launcher (``WORLD_SIZE`` set) the interleaved step still
-  names its part of ROADMAP item 15b; the dense mode runs there
-  (``test_torch_launcher.py``)."""
+  """Under the launcher (``WORLD_SIZE`` set) the dense mode and the
+  interleaved step run (``test_torch_launcher.py``): nothing of these
+  flags is refused there."""
   monkeypatch.setenv('WORLD_SIZE', '2')
   got = tb.unsupported(tb.parse_args(flags))
   assert got is None if why is None else why in got

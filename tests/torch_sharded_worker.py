@@ -229,7 +229,8 @@ def _tower_optimizer(spec):
 
 def _tower_and_loss(spec):
   """The step's tower and its BCE loss, a mean over the rank's rows
-  times ``spec['scale']``."""
+  times ``spec['scale']``, with the predictions as its aux ``preds`` when
+  ``spec['preds']`` says so."""
   scale = spec.get('scale', 1.0)
   if spec.get('model', 'dcnv2') == 'dlrm':
     tower = hbt.DLRM(len(spec['dense']), len(spec['tables']),
@@ -243,7 +244,8 @@ def _tower_and_loss(spec):
     p = torch.clamp(preds(t, emb_f, dense_f), 1e-6, 1 - 1e-6)
     y = batch['label']
     pel = -(y * torch.log(p) + (1 - y) * torch.log(1 - p))
-    return torch.mean(pel) * scale, {}
+    return torch.mean(pel) * scale, ({'preds': p} if spec.get('preds')
+                                     else {})
 
   return tower, model_loss
 
@@ -346,9 +348,146 @@ def din_steps(ctx, spec):
   return _run_steps(ctx, fx, state, step, spec['batches'])
 
 
+def interleave(ctx, spec):
+  """The interleaved step (``spec['k']`` micro-batches of the rank's rows,
+  ``spec['options']`` passed to it) and the plain step, each from the JAX
+  initial state, on the rank's rows of each global batch
+  (``_run_steps``); and with ``spec['refuse_k']`` what the interleaved
+  step at that ``k`` raises on the first batch."""
+  specs = [hbt.EmbeddingSpec(hbt.TableConfig(*t)) for t in spec['tables']]
+  fx = hbt.StackedFeatureExtractor(specs, dense_columns=spec['dense'],
+                                   ctx=ctx)
+  init = spec['init']
+  out = {}
+  for kind in ('interleaved', 'plain'):
+    tower, model_loss = _tower_and_loss(spec)
+    state = hbt.from_jax(fx, init['tables'], init['acc'], tower,
+                         init['dense'], _tower_optimizer(spec))
+    kw = dict(table_lr=0.05, table_optimizer=spec['optimizer'],
+              **spec['options'])
+    step = (hbt.make_interleaved_train_step(fx, model_loss, spec['k'], **kw)
+            if kind == 'interleaved' else
+            hbt.make_sparse_train_step(fx, model_loss, **kw))
+    out[kind] = _run_steps(ctx, fx, state, step, spec['batches'])
+  if spec.get('refuse_k'):
+    step = hbt.make_interleaved_train_step(fx, model_loss, spec['refuse_k'],
+                                           **kw)
+    batch = spec['batches'][0]
+    rows = ctx.rows(batch['label'].shape[0])
+    try:
+      step(state, {k: torch.from_numpy(v[rows]) for k, v in batch.items()})
+      out['refused'] = None
+    except ValueError as e:
+      out['refused'] = str(e)
+  return out
+
+
+_GATHERS = [0]
+
+
+def _count_gathers():
+  """Counts kernel 5's calls where the sharded lookups make them (the
+  served float exchanges and the int8 lookups): on the CPU its wrapper
+  runs the plain version and counts no launch."""
+  from hybridbackend_tpu_torch.embedding import quant
+  for module in (lookup_mod, quant):
+    def counted(*a, _fn=module.gather_rows):
+      _GATHERS[0] += 1
+      return _fn(*a)
+    module.gather_rows = counted
+
+
+def _gathered(run):
+  """``run()`` and kernel 5's calls in it."""
+  before = _GATHERS[0]
+  got = run()
+  return got, _GATHERS[0] - before
+
+
+def _ids_of(ctx, ids):
+  """The rank's part of a global id array: of a flat list, as
+  ``world_slice`` cuts it (padded with -1); else its rows."""
+  ids = torch.from_numpy(ids)
+  return (hbt.world_slice(ids, ctx) if ids.dim() == 1
+          else ids[ctx.rows(ids.shape[0])])
+
+
+def serving(ctx, spec):
+  """Sharded serving on the rank: for each int8 table, its shard by
+  ``shard_quantized`` of the quantized whole table, ``quantize_table`` of
+  the float shard and ``quantized_from_jax`` of JAX's global arrays, and
+  the lookups of the rank's ids (by ``lookup_quantized``, by ``lookup``
+  under the alltoall strategy, and of the whole quantized table); for
+  each float case, the served and the training lookup of the shard; the
+  features of ``extract_features`` over the members' int8 shards; the
+  raw embeddings of ``lookup_raw`` over a quantized stack shard; and
+  kernel 5's calls of each."""
+  _count_gathers()
+  cpu = torch.device('cpu')
+  out = {'int8': {}, 'float': {}}
+  for name, t in spec['int8'].items():
+    cfg = hbt.TableConfig(name, t['vocab'], t['dim'], **t['kw'])
+    whole = torch.from_numpy(t['whole'])
+    qs = hbt.shard_quantized(hbt.quantize_table(whole), cfg, ctx)
+    qf = hbt.quantize_table(whole[cfg.shard_rows(ctx)])
+    res = {'q': _np(qs.q), 'scale': _np(qs.scale),
+           'quantized_shard_equal': bool(torch.equal(qs.q, qf.q)
+                                         and torch.equal(qs.scale, qf.scale))}
+    if t.get('jax') is not None:
+      qj = hbt.quantized_from_jax(*t['jax'], t['dim'], cpu, cfg, ctx)
+      res['from_jax_equal'] = bool(torch.equal(qs.q, qj.q)
+                                   and torch.equal(qs.scale, qj.scale))
+    for ids_name, ids in spec['ids'].items():
+      local = _ids_of(ctx, ids)
+      emb, calls = _gathered(lambda: hbt.lookup_quantized(qs, local, cfg, ctx))
+      res[ids_name] = {
+          'emb': _np(emb), 'gathers': calls,
+          'by_lookup': _np(hbt.lookup(qs, local, cfg, ctx=ctx,
+                                      strategy='alltoall')),
+          'whole': _np(hbt.lookup(hbt.quantize_table(whole), local, cfg,
+                                  ctx=ctx))}
+    out['int8'][name] = res
+  table = spec['float']
+  for case, (kw, opts) in spec['float_cases'].items():
+    cfg = hbt.TableConfig('f', table.shape[0], table.shape[1], **kw)
+    shard = torch.from_numpy(
+        table[cfg.shard_rows(ctx), cfg.shard_cols(ctx)].copy()
+    ).requires_grad_()
+    res = {}
+    for ids_name, ids in spec['ids'].items():
+      local = _ids_of(ctx, ids)
+      served, calls = _gathered(lambda: hbt.lookup(
+          shard, local, cfg, True, ctx=ctx, **opts))
+      trained, train_calls = _gathered(lambda: hbt.lookup(
+          shard, local, cfg, ctx=ctx, **opts))
+      res[ids_name] = {'served': _np(served), 'trained': _np(trained),
+                       'gathers': (calls, train_calls),
+                       'grad': (served.requires_grad, trained.requires_grad)}
+    out['float'][case] = res
+  fs = spec['features']
+  specs = [hbt.EmbeddingSpec(hbt.TableConfig(*t)) for t in fs['tables']]
+  rows = ctx.rows(fs['batch']['d0'].shape[0])
+  batch = {k: torch.from_numpy(v[rows]) for k, v in fs['batch'].items()}
+  members = {s.name: hbt.quantize_table(torch.from_numpy(
+      fs['arrays'][s.name][s.config.shard_rows(ctx)].copy())) for s in specs}
+  (emb, dense), calls = _gathered(lambda: hbt.extract_features(
+      members, batch, specs, ['d0'], ctx=ctx))
+  out['features'] = {'emb': [_np(e) for e in emb],
+                     'dense': [_np(d) for d in dense], 'gathers': calls}
+  fx = hbt.StackedFeatureExtractor(specs, dense_columns=['d0'], ctx=ctx)
+  (stack,) = fx.stacks
+  whole = torch.from_numpy(fs['stack'])
+  q = hbt.quantize_table(whole[stack.stacked.shard_rows(ctx)])
+  (raw, _, _), calls = _gathered(lambda: fx.lookup_raw(
+      {stack.stacked.name: q}, batch, serving=True))
+  out['stack'] = {'raw': _np(raw[stack.stacked.name]), 'gathers': calls}
+  return out
+
+
 KINDS = {'collectives': collectives, 'wire': wire, 'lookups': lookups,
          'updates': updates, 'applies': applies, 'steps': steps,
-         'gathers': gathers, 'din_steps': din_steps}
+         'gathers': gathers, 'din_steps': din_steps,
+         'interleave': interleave, 'serving': serving}
 
 
 def main(cases_path, out_dir):
