@@ -197,8 +197,10 @@ Phases; any failure raises and the script exits nonzero:
      turns; then the harness, ``--sparse`` and ``--sparse --interleave
      1|2|4``, in turn in one process of its own, JSON lines printed;
  31. the single-device harnesses at their defaults, in turn in one
-     process of their own, JSON lines printed: ``auc_parity.py`` (exit 0,
-     ``parity_ok.fast`` true; kernel 1 once a ``fast`` step),
+     process of their own, JSON lines printed: ``auc_parity.py
+     --skip-overflow`` (exit 0, ``parity_ok.fast`` true, kernel 1 once a
+     ``fast`` step; ``fast_overflow`` changes nothing at a world of one,
+     and the CPU tests run it at two),
      ``data_benchmark.py`` in its four modes (parquet, csv, dedup, the
      host-to-device transfer from pageable and pinned memory) and
      ``e2e_benchmark.py --profile`` (the stages' medians).
@@ -238,20 +240,20 @@ Phases; any failure raises and the script exits nonzero:
      held step's update kernel (the last SGD round's) runs again on a
      copy of the list it received, ``-1`` lanes and all, and of the shard
      before it, against its plain version on the CPU at phase 1's
-     tolerances. Then 5 timed steps of each step case (gloo ranks
+     tolerances. Then 3 timed steps of each step case (gloo ranks
      sharing one card: not a multi-GPU number).
  34. the trainers at a world of 2 gloo ranks sharing the card (one launch,
      ``chip_smoke.py --rank-of DIR`` with ``{"phase": 34}``): the flagship
-     DCNv2 + Adagrad ``SparseTrainer`` on its row-sharded stack, 8 steps of
+     DCNv2 + Adagrad ``SparseTrainer`` on its row-sharded stack, 6 steps of
      the harness's seeded batches (with a group column) through
-     ``DeviceIterator``, a checkpoint at step 4; ``evaluate`` over 3 eval
+     ``DeviceIterator``, a checkpoint at step 3; ``evaluate`` over 3 eval
      batches, the last 1000 rows on rank 0 alone (rank 1 has run out); an
      export; then the dense ``Trainer`` with its 26 tables row-sharded, 3
      steps. Against the world of one on the card, each step from rank 0's
      tower: each loss to 1e-6 relative, the tower by phase 18's rule, the
-     gathered table and accumulators to 1e-7 at steps 4 and 8 (the dense
-     tables and accumulators after 3 steps); the world's step-4 checkpoint
-     restored at a world of one bit for bit, and steps 5-8 on from it;
+     gathered table and accumulators to 1e-7 at steps 3 and 6 (the dense
+     tables and accumulators after 3 steps); the world's step-3 checkpoint
+     restored at a world of one bit for bit, and steps 4-6 on from it;
      the evaluation by ``metrics.auc_limit`` and ``_gauc_limit`` (the
      same state, predictions apart by the GEMMs' row blocks) and its loss
      to 1e-5; the world's bundle served cold in this process within 1e-6
@@ -261,7 +263,27 @@ Phases; any failure raises and the script exits nonzero:
      again on each rank's last received list against its plain version.
      Meanwhile this process runs the ``SparseTrainer`` in a joined NCCL
      world of one (2 steps, checkpoints, an evaluation) against the same
-     trainer in no world, bit for bit.
+     trainer in no world, bit for bit. In the same launch each rank then
+     trains the flagship with members ``c0`` and ``c13`` in host DRAM
+     behind caches of 16384 and 20480 slots (``cached``; ``c0``'s slots
+     in rank 0's rows of the stack, ``c13``'s straddling the ranks'
+     split): 8 steps of its rows of the global batches, the ids of the
+     world's batch planned together on every rank, evictions from step 3
+     on, a checkpoint at step 4, then the flush and an export. Against
+     the cached world of one on the card, each step from rank 0's tower:
+     each rank's slot metadata after each step bit for bit the other
+     ranks' and the world of one's, each loss to 1e-6 relative, every
+     rank's flushed host tables and accumulators bit for bit rank 0's
+     and within 1e-7 of the world of one's, the world's bundle served
+     within 1e-6 of the world of one's bundle; kernel 1 once a step on
+     each rank and again on its last received list against its plain
+     version, and each launch of kernel 5 on the owners' evicted and
+     flushed rows against ``index_select``, on every rank. Beside the
+     launch, ``benchmarks/embedding_benchmark.py`` (its forward
+     checks) and ``collective_benchmark.py`` run under the launcher on 2
+     gloo ranks sharing the card and on a NCCL world of one, 3 steps,
+     1 and 4 MB: their times are a check's cost, gloo's through the
+     host.
  35. node groups, the last three exchanges, the interleaved step and
      sharded serving: one launch of 4 gloo ranks
      in 2 nodes of 2 sharing the card (``--simulate 4 --nodes 2``,
@@ -287,7 +309,7 @@ Phases; any failure raises and the script exits nonzero:
      loss to 1e-5, the gathered state, the tower by phase 18's rule,
      LazyAdam by its flip rule), the dense Trainer's loss, tables and
      accumulators to 1e-5; every rank's last update kernel runs again on
-     a copy of its list against its plain version on the CPU; then 5
+     a copy of its list against its plain version on the CPU; then 3
      timed steps a case (gloo ranks sharing one card: a check's cost).
      After the hierarchical case's steps each rank serves its shard: it
      quantizes it (bit for bit its rows of the quantized whole table) and
@@ -317,8 +339,9 @@ second-to-last line is a JSON object describing each kernel (its times,
 launches on its path, in the trainers' runs, in the runs from Parquet
 files, in the served predicts, in the DIN phases, in the host-table
 phases, in the pipelining phases, in phase 33's ranks (phase 32's
-cases, then the others), in phase 34's worlds and in phase 35's
-(the exchanges' cases, then the interleaved cases and sharded serving),
+cases, then the others), in phase 34's worlds, in its cached case and
+in phase 35's (the exchanges' cases, then the interleaved cases and
+sharded serving),
 and its bound: the
 larger of its bytes over 3.35 TB/s and its operations over the card's
 peak rate); the last line is
@@ -4028,9 +4051,12 @@ def phase30_interleaved(cfg, dev, smi, profile_steps):
 
 def phase31_harnesses(smi):
   """Phase 31: the single-device harnesses at their defaults, in turn in
-  one process of their own, their JSON lines printed: ``auc_parity.py`` (exit 0,
-  ``parity_ok.fast`` true, kernel 1 once a ``fast`` step and no counted
-  kernel in ``exact``), ``data_benchmark.py`` in each mode and
+  one process of their own, their JSON lines printed: ``auc_parity.py
+  --skip-overflow`` (exit 0, ``parity_ok.fast`` true, kernel 1 once a
+  ``fast`` step and no counted kernel in ``exact``; ``fast_overflow``
+  would train ``fast`` again at a world of one, where there are no
+  buckets, and the CPU tests run it at a world of two),
+  ``data_benchmark.py`` in each mode and
   ``e2e_benchmark.py --profile`` (kernel 1 once a profiled batch). A
   harness that exits nonzero fails the phase. Returns the kernel
   launches."""
@@ -4039,7 +4065,8 @@ def phase31_harnesses(smi):
   with tempfile.TemporaryDirectory() as tmp:
     os.environ['HB_BENCH_CACHE'] = tmp
     runs = _modules_json(
-        [('auc_parity', []), *(('data_benchmark', ['--mode', mode])
+        [('auc_parity', ['--skip-overflow']),
+         *(('data_benchmark', ['--mode', mode])
                                for mode in DATA_MODES),
          ('e2e_benchmark', ['--profile'])], timeout=AUC_TIMEOUT + 600)
     line, r, auc_s = runs[0]
@@ -4199,7 +4226,7 @@ def _launched_harness(smi):
 # wire case run in phase 35's NCCL world of one.
 PHASE33_WORLDS = (2, 4)
 PHASE33_STEPS = 3           # each case's steps held against the world of one
-PHASE33_TIMED = 5           # and the steps timed after them
+PHASE33_TIMED = 3           # and the steps timed after them
 PHASE33_LAUNCH_S = 600      # a world's launch, seconds at most
 PHASE33_BATCH_SEED = tb.SEED + 33
 PHASE33_WIRES = ('bfloat16', 'float16')
@@ -5131,8 +5158,11 @@ def _phase33_world(dev, smi, world, proc, started, out, sharded, launches,
 
 
 PHASE34_WORLD = 2           # the gloo ranks sharing the card
-PHASE34_STEPS = 8           # SparseTrainer's steps, a checkpoint at
-PHASE34_SAVE = 4            # this step (and at the end)
+PHASE34_STEPS = 6           # SparseTrainer's steps, a checkpoint at
+PHASE34_SAVE = 3            # this step (and at the end)
+PHASE34_CACHED_STEPS = 8    # the cached trainer's steps, a checkpoint at
+PHASE34_CACHED_SAVE = 4     # this step (and at the end)
+PHASE34_CACHE_SEED = 42     # the host table's draws (the Criteo example's)
 PHASE34_DENSE_STEPS = 3     # the dense Trainer's steps
 PHASE34_SHORT = 1000        # rows of the last eval batch, rank 0's alone
                             # (at most half a rank's rows)
@@ -5239,16 +5269,165 @@ def _dense_state(module, optimizer, ctx):
   return out
 
 
+def _phase34_cached_slots(cfg):
+  """The cached members and their slots, evictions from step 3 on (at the
+  flagship's batch about 7250 new ids a step): ``c0``'s 2 slots a row of
+  the global batch (16384) lie in rank 0's rows of the stack; the middle
+  member's 2.5 (``c13``'s 20480), more than ``c0``'s, straddle the split
+  of an even number of tables (at 1218432 of the flagship's 2436864
+  rows, 2048 slots into ``c13``'s), so that both ranks own evicted and
+  flushed rows."""
+  return {'c0': 2 * cfg.batch, f'c{cfg.tables // 2}': 5 * cfg.batch // 2}
+
+
+def _phase34_cached(cfg, dev, ctx=None, model_dir=None):
+  """The flagship DCNv2 + Adagrad ``SparseTrainer`` of the harness's
+  weights with the members of ``_phase34_cached_slots`` in host DRAM (values
+  ``0.01 * randn`` from ``RandomState(42)`` and the accumulator, as the
+  Criteo example draws them, in that order) behind caches of their
+  slots; in the world ``ctx``, every rank the same host tables and
+  caches. Returns ``(trainer, caches, host tables)``, the last two by
+  member."""
+  import hybridbackend_tpu_torch as hbt
+  ctx = ctx or hbt.Context(dev)
+  rng = np.random.RandomState(PHASE34_CACHE_SEED)
+  hosts, caches = {}, {}
+  for col, slots in _phase34_cached_slots(cfg).items():
+    hosts[col] = {
+        'value': (rng.randn(cfg.vocab, cfg.dim) * 0.01).astype(np.float32),
+        'slot0': np.full((cfg.vocab, cfg.dim), tb.ADAGRAD_INIT, np.float32)}
+    caches[col] = hbt.EmbeddingCache(
+        hbt.TableConfig(col, cfg.vocab, cfg.dim), slots,
+        host_tables=hosts[col], ctx=ctx)
+  specs = [hbt.EmbeddingSpec(caches[s.key].slot_config(), column=s.key)
+           if s.key in caches else s for s in tb._specs(cfg)]
+  fx = hbt.StackedFeatureExtractor(
+      specs, dense_columns=[f'i{d}' for d in range(cfg.dense_features)],
+      ctx=ctx)
+  gen = torch.Generator().manual_seed(tb.SEED)
+  tables = fx.init(gen)
+  tower, preds = tb._tower(cfg, ctx.device, gen)
+  tr = hbt.SparseTrainer(
+      fx, lambda t, e, d, b: tb.bce(preds(t, e, d), b['label']), tower,
+      tables=tables,
+      dense_optimizer=functools.partial(torch.optim.Adam, lr=tb.TOWER_LR),
+      table_lr=tb.TABLE_LR, adagrad_init=tb.ADAGRAD_INIT,
+      model_dir=model_dir, caches=caches)
+  return tr, caches, hosts
+
+
+def _cache_meta(caches):
+  """The caches' slot metadata, copied into tensors: each slot's id, its
+  last use, the free list, of each cache in turn."""
+  return tuple(torch.from_numpy(a.copy()) for cache in caches.values()
+               for a in (cache._slot_to_id, cache._last_used,
+                         cache._free[:cache._n_free]))
+
+
+def _host_tensors(hosts):
+  """The host tables of ``_phase34_cached`` as tensors, keyed
+  ``<member>/<array>``."""
+  return {f'{col}/{k}': torch.from_numpy(v)
+          for col, host in hosts.items() for k, v in sorted(host.items())}
+
+
+def _phase34_cached_train(cfg, rows=slice(None)):
+  return [_phase34_batch(cfg, PHASE34_SEED, rows, i)
+          for i in range(PHASE34_CACHED_STEPS)]
+
+
+class _GatherHold:
+  """While installed, runs every kernel 5 call that ``embedding/
+  service.py`` makes (the owners' evicted and flushed rows) and holds its
+  rows against ``index_select`` of the same table, bit for bit."""
+
+  def __init__(self):
+    from hybridbackend_tpu_torch.embedding import service
+    self.module, self.kernel = service, service.gather_rows
+    self.calls, self.rows, self.differ = 0, 0, 0
+
+  def __enter__(self):
+    self.module.gather_rows = self._call
+    return self
+
+  def __exit__(self, *exc):
+    self.module.gather_rows = self.kernel
+
+  def _call(self, table, ids):
+    got = self.kernel(table, ids)
+    want = table.index_select(0, ids.long().clamp(0, table.shape[0] - 1))
+    self.calls += 1
+    self.rows += ids.numel()
+    self.differ += int((got != want).any(dim=-1).sum())
+    return got
+
+
+def _phase34_cached_rank(ctx, cfg, out):
+  """Phase 34's cached case on a rank: the cached trainer's 8 steps of
+  the rank's rows (a checkpoint at step 4 into ``DIR/cached_ckpt``),
+  each step's loss, metadata and rank 0's tower; the last step's update
+  calls held on the rank's received list, every kernel 5 call on the
+  owners' rows held (``_GatherHold``); each cached member's slots that
+  the rank's shard holds; whether every rank's storage is rank 0's; the
+  export into ``DIR/cached_bundle``. Rank 0 writes its host tables to
+  ``DIR/cached_host.pt``."""
+  import hybridbackend_tpu_torch as hbt
+  dev = ctx.device
+  tr, caches, hosts = _phase34_cached(cfg, dev, ctx,
+                                      os.path.join(out, 'cached_ckpt'))
+  rec = {'loss': [], 'tower': [], 'meta': [], 'owned': {}}
+  for col, slots in _phase34_cached_slots(cfg).items():
+    _, off, shard = tr._cache_runner._loc[col]
+    rows = ctx.rows(shard.rows)   # the rank's rows of the stack
+    rec['owned'][col] = max(0, min(rows.stop, off + slots)
+                            - max(rows.start, off))
+
+  class _Record(hbt.Hook):
+    def before_step(self, step):
+      capture.armed = step == PHASE34_CACHED_STEPS - 1
+
+    def after_step(self, step, metrics):
+      capture.armed = False
+      rec['loss'].append(float(metrics['loss']))
+      rec['meta'].append(_cache_meta(caches))
+      if ctx.rank == 0:
+        rec['tower'].append(_tower_values(tr.state))
+
+  with _ListCapture() as capture, _GatherHold() as gathers:
+    _reset_counts()
+    tr.train(_phase34_cached_train(cfg, ctx.rows(cfg.batch)),
+             hooks=[_Record()], save_checkpoint_steps=PHASE34_CACHED_SAVE)
+    if dev.type == 'cuda':
+      torch.cuda.synchronize(dev)
+    rec['counts'] = _counts()
+    rec['lists'] = _hold_lists(capture.take())
+  rec['gathers'] = dict(calls=gathers.calls, rows=gathers.rows,
+                        differ=gathers.differ)
+  rec['stats'] = {col: {k: v for k, v in cache.stats.items()
+                        if not k.endswith('_s')}
+                  for col, cache in caches.items()}
+  host = _host_tensors(hosts)
+  rec['storage_equal'] = _ranks_agree(
+      ctx, [v.to(dev) for v in host.values()])
+  if ctx.rank == 0:
+    torch.save(host, os.path.join(out, 'cached_host.pt'))
+  evals = _phase34_evals(cfg, ctx.world_size)[ctx.rank]
+  tr.export_saved_model(os.path.join(out, 'cached_bundle'), {
+      k: v[:8] for k, v in evals[0].items()}, poly_batch=True)
+  return rec
+
+
 def phase34_rank(out, device, spec):
   """One rank of phase 34 (``chip_smoke.py --rank-of DIR`` with
-  ``{"phase": 34}``): the flagship ``SparseTrainer`` on its shards, 8
-  steps through ``DeviceIterator`` with a checkpoint at step 4 into
+  ``{"phase": 34}``): the flagship ``SparseTrainer`` on its shards, 6
+  steps through ``DeviceIterator`` with a checkpoint at step 3 into
   ``DIR/ckpt``, each step's loss, rank 0's tower after each, the last
   step's update calls held on the rank's received lists; ``evaluate``
   and ``predict`` on its eval batches; the export into ``DIR/bundle``;
-  then the dense ``Trainer`` with row-sharded tables, 3 steps. Rank 0
-  writes the gathered states at steps 4 and 8 and after the dense steps,
-  and every rank its record, to ``DIR/34.<rank>.pt``."""
+  then the dense ``Trainer`` with row-sharded tables, 3 steps; then the
+  cached case (``_phase34_cached_rank``). Rank 0 writes the gathered
+  states at steps 3 and 6 and after the dense steps, and every rank its
+  record, to ``DIR/34.<rank>.pt``."""
   import hybridbackend_tpu_torch as hbt
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
@@ -5308,6 +5487,8 @@ def phase34_rank(out, device, spec):
     state = _dense_state(module, optimizer, ctx)
     if ctx.rank == 0:
       torch.save(state, os.path.join(out, 'dense_state.pt'))
+    del dtr, module, optimizer
+    rec['cached'] = _phase34_cached_rank(ctx, cfg, out)
     rec['device'] = str(dev)
     rec['backend'] = torch.distributed.get_backend()
     torch.save(rec, os.path.join(out, f'34.{ctx.rank}.pt'))
@@ -5408,13 +5589,15 @@ def _phase34_nccl(cfg, dev, tmp):
 
 def phase34_trainers(dev, smi):
   """Phase 34: the trainers at a world of N (see the module docstring).
-  Returns the kernel launches of the world's runs: the ranks' training
-  steps, the NCCL world of one's, and the served bundle's predicts."""
+  Returns the kernel launches of the world's runs (the ranks' training
+  steps, the NCCL world of one's, and the served bundle's predicts), and
+  those of the ranks' cached case (kernel 1's steps and kernel 5's
+  evicted and flushed rows, summed over the ranks)."""
   import hybridbackend_tpu_torch as hbt
   from hybridbackend_tpu_torch import metrics as hbm
   t_phase = time.perf_counter()
   cfg = flagship(*SHARDED_FLAGS)
-  launches = collections.Counter()
+  launches, cached_launches = collections.Counter(), collections.Counter()
   report = {'loss_rel_err': 0.0, **_tower_report()}
   apart_in = set()
   with tempfile.TemporaryDirectory() as out:
@@ -5461,8 +5644,8 @@ def phase34_trainers(dev, smi):
                              'dense tables are row-sharded')
     rec0 = ranks[0]
     train = _phase34_train(cfg)
-    # Steps 1-4: the world of one from the seed, each step from rank 0's
-    # tower; its state at step 4 against the world's.
+    # Steps 1 to PHASE34_SAVE: the world of one from the seed, each step
+    # from rank 0's tower; its state then against the world's.
     init = _phase34_trainer(cfg, dev)[1]
     initial = _tower_values(init.state)
     for i in range(PHASE34_SAVE):
@@ -5471,14 +5654,15 @@ def phase34_trainers(dev, smi):
                    rec0['tower'][i], rec0['loss'][i], report, apart_in)
     state4 = torch.load(os.path.join(out, f'state{PHASE34_SAVE}.pt'))
     (name,) = init.state.tables
-    _close34('phase 34, step 4, table', init.state.tables[name].cpu(),
-             state4['table'], PHASE34_TOL['state'], report, 'table_err')
-    _close34('phase 34, step 4, accumulator',
+    _close34(f'phase 34, step {PHASE34_SAVE}, table',
+             init.state.tables[name].cpu(), state4['table'],
+             PHASE34_TOL['state'], report, 'table_err')
+    _close34(f'phase 34, step {PHASE34_SAVE}, accumulator',
              init.state.table_opt[name].acc[0].cpu(), state4['acc'],
              PHASE34_TOL['state'], report, 'acc_err')
     del init
-    # The world's checkpoint of step 4 restored at a world of one, bit for
-    # bit; steps 5-8 from it against the world's.
+    # The world's checkpoint of step PHASE34_SAVE restored at a world of
+    # one, bit for bit; the steps after it from it against the world's.
     ckpt = os.path.join(out, 'one')
     os.makedirs(ckpt)
     shutil.copytree(os.path.join(out, 'ckpt', f'checkpoint-{PHASE34_SAVE}'),
@@ -5494,17 +5678,19 @@ def phase34_trainers(dev, smi):
                            else a == b for a, b in zip(v, state4['tower'][n]))
                        for n, v in restored['tower'].items()))
     if not bitwise:
-      raise AssertionError('phase 34: the checkpoint of step 4 restored at a '
-                           'world of one is not the world\'s state')
+      raise AssertionError(f'phase 34: the checkpoint of step {PHASE34_SAVE} '
+                           'restored at a world of one is not the world\'s '
+                           'state')
     tr._ckpt = None          # the copy is the world's, not this run's
     for i in range(PHASE34_SAVE, PHASE34_STEPS):
       _hold_step34(f'phase 34, step {i + 1}', tr, train[i],
                    rec0['tower'][i - 1], rec0['tower'][i], rec0['loss'][i],
                    report, apart_in)
     state8 = torch.load(os.path.join(out, f'state{PHASE34_STEPS}.pt'))
-    _close34('phase 34, step 8, table', tr.state.tables[name].cpu(),
-             state8['table'], PHASE34_TOL['state'], report, 'table_err')
-    _close34('phase 34, step 8, accumulator',
+    _close34(f'phase 34, step {PHASE34_STEPS}, table',
+             tr.state.tables[name].cpu(), state8['table'],
+             PHASE34_TOL['state'], report, 'table_err')
+    _close34(f'phase 34, step {PHASE34_STEPS}, accumulator',
              tr.state.table_opt[name].acc[0].cpu(), state8['acc'],
              PHASE34_TOL['state'], report, 'acc_err')
     # Evaluation: the world of one from rank 0's last tower, on the global
@@ -5567,6 +5753,8 @@ def phase34_trainers(dev, smi):
         _close34(f'phase 34, dense {key} {n}', t, dense[key][n],
                  PHASE34_TOL['state'], dense_report, f'{key}_err')
     del dtr, module, optimizer
+    cached_report, cached_apart, cached = _hold_cached34(
+        cfg, dev, out, ranks, cached_launches)
     check_s = time.perf_counter() - t0
   lists = [(h['kernel'], h['entries'], h['pad'], h['err'])
            for rec in ranks for h in rec['lists']]
@@ -5600,12 +5788,113 @@ def phase34_trainers(dev, smi):
         f'those of no world; launch {launch_s:.1f} s, checks '
         f'{check_s:.1f} s, phase {time.perf_counter() - t_phase:.1f} s '
         f'on {smi}')
-  return launches
+  lists = [(h['kernel'], h['entries'], h['pad'], h['err'])
+           for rec in ranks for h in rec['cached']['lists']]
+  print(f'phase 34, cached ({", ".join(_phase34_cached_slots(cfg))} '
+        f'[{cfg.vocab}, {cfg.dim}] in host DRAM behind '
+        f'{_phase34_cached_slots(cfg)} slots, the slots '
+        f'each rank\'s shard holds {cached["owned"]}, '
+        f'{PHASE34_CACHED_STEPS} steps, a checkpoint at step '
+        f'{PHASE34_CACHED_SAVE}, against the cached world '
+        'of one on the card, each step from rank 0\'s tower): ' + ', '.join(
+            f'{k} {v:.3e}' if isinstance(v, float) else f'{k} {v}'
+            for k, v in cached_report.items())
+        + f' (in {", ".join(sorted(cached_apart)) or "none"}); each rank\'s '
+        'slot metadata bit for bit the other ranks\' and the world of '
+        f'one\'s after each step; cache {cached["stats"]}; every rank\'s '
+        'storage bit for bit rank 0\'s; kernel 5 on the owners\' evicted '
+        f'and flushed rows (calls, rows, rows apart from index_select) by '
+        f'rank {cached["gathers"]}; kernel 1 {PHASE34_CACHED_STEPS} times on '
+        f'each rank, on the last step\'s received lists (kernel, entries, '
+        f'-1 lanes, max abs err) {lists}; launches {dict(cached_launches)}')
+  return launches, cached_launches
+
+
+def _hold_cached34(cfg, dev, out, ranks, launches):
+  """Phase 34's cached case (``_phase34_cached_rank``) against the cached
+  world of one on the card, each step from rank 0's tower: the ranks'
+  launches, held lists, kernel 5's holds, losses and metadata against
+  each other; each step's loss (to 1e-6) and metadata (bit for bit)
+  against the world of one's; the flushed host tables to 1e-7; the
+  world's bundle against the world of one's, served on the card, to
+  1e-6. The middle cached member's slots must straddle the ranks' shards
+  (``c13``'s), and every rank
+  must have read its evicted or flushed rows through kernel 5. Adds the
+  ranks' launches to ``launches``; returns the report, the tower's
+  names past 1e-4, and the caches' stats, the slots each rank owns and
+  kernel 5's holds."""
+  import hybridbackend_tpu_torch as hbt
+  recs = [r['cached'] for r in ranks]
+  straddles = list(_phase34_cached_slots(cfg))[-1]
+  for r, rec in enumerate(recs):
+    _expect(f'phase 34, cached, rank {r}', rec['counts'],
+            adagrad_update_sorted=PHASE34_CACHED_STEPS,
+            gather_rows=rec['gathers']['calls'])
+    launches.update(rec['counts'])
+    for held in rec['lists']:
+      _expect(f'phase 34, cached, rank {r}, its received list',
+              held['counts'], **{held['kernel']: 1})
+      if held['problem']:
+        raise AssertionError(f'phase 34, cached, rank {r}: {held}')
+    if rec['gathers']['differ'] or not rec['storage_equal']:
+      raise AssertionError(f'phase 34, cached, rank {r}: kernel 5 '
+                           f'{rec["gathers"]}, storage equal '
+                           f'{rec["storage_equal"]}')
+    if rec['loss'] != recs[0]['loss'] or rec['stats'] != recs[0]['stats']:
+      raise AssertionError(f'phase 34, cached: the ranks report '
+                           f'{rec["loss"]} and {recs[0]["loss"]}')
+    for i, (got, want) in enumerate(zip(rec['meta'], recs[0]['meta'])):
+      if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f'phase 34, cached: rank {r}\'s slot metadata '
+                             f'after step {i + 1} is not rank 0\'s')
+  if not (all(st['evict_calls'] for st in recs[0]['stats'].values())
+          and all(rec['gathers']['calls'] for rec in recs)
+          and all(rec['owned'][straddles] for rec in recs)):
+    raise AssertionError(
+        f'phase 34, cached: a cache without an eviction, a rank without '
+        f'kernel 5, or '
+        f'{straddles} not straddling the shards: '
+        f'{recs[0]["stats"]}, kernel 5 '
+        f'{[rec["gathers"] for rec in recs]}, slots owned '
+        f'{[rec["owned"] for rec in recs]}')
+  report = {'loss_rel_err': 0.0, **_tower_report()}
+  apart_in = set()
+  tr, caches, hosts = _phase34_cached(cfg, dev)
+  train = _phase34_cached_train(cfg)
+  initial = _tower_values(tr.state)
+  for i in range(PHASE34_CACHED_STEPS):
+    rec0 = recs[0]
+    _hold_step34(f'phase 34, cached, step {i + 1}', tr, train[i],
+                 initial if i == 0 else rec0['tower'][i - 1],
+                 rec0['tower'][i], rec0['loss'][i], report, apart_in)
+    if not all(torch.equal(a, b)
+               for a, b in zip(_cache_meta(caches), rec0['meta'][i])):
+      raise AssertionError(f'phase 34, cached: the slot metadata after step '
+                           f'{i + 1} is not the world of one\'s')
+  tr._cache_runner.flush(tr.state)
+  world_host = torch.load(os.path.join(out, 'cached_host.pt'))
+  for name, table in _host_tensors(hosts).items():
+    _close34(f'phase 34, cached, host {name}', table, world_host[name],
+             PHASE34_TOL['state'], report,
+             f'host_{name.replace("/", "_")}_err')
+  batch = _phase34_global_evals(_phase34_evals(cfg, PHASE34_WORLD))[0]
+  one = os.path.join(out, 'cached_one')
+  tr.export_saved_model(one, {k: v[:8] for k, v in batch.items()},
+                        poly_batch=True)
+  host_batch = {k: v.numpy() for k, v in batch.items()}
+  served = [torch.from_numpy(np.asarray(hbt.Served(path, dev).predict(
+      host_batch))).reshape(-1)
+      for path in (os.path.join(out, 'cached_bundle'), one)]
+  _close34('phase 34, cached, served', served[0], served[1],
+           PHASE34_TOL['served'], report, 'served_err')
+  return report, apart_in, {'stats': recs[0]['stats'],
+                            'owned': [rec['owned'] for rec in recs],
+                            'gathers': [rec['gathers'] for rec in recs]}
 
 
 PHASE35_WORLD, PHASE35_NODES = 4, 2   # gloo ranks sharing the card
 PHASE35_STEPS = 3           # each case's steps held against the world of one
-PHASE35_TIMED = 5           # and the steps timed after them
+PHASE35_TIMED = 3           # and the steps timed after them
 PHASE35_LAUNCH_S = 400
 PHASE35_NCCL_STEPS = 2
 # case -> phase 33's fields (harness flags, table optimizer, split-dense,
@@ -6003,6 +6292,99 @@ def stop_phase35(started):
   shutil.rmtree(out, ignore_errors=True)
 
 
+WORLD_HARNESSES = {        # launched beside phase 34, each at both worlds
+    'embedding_benchmark': ('--steps', '3'),
+    'collective_benchmark': ('--steps', '3', '--sizes-mb', '1', '4'),
+}
+WORLD_HARNESS_S = 300      # each launch's deadline
+
+
+def start_world_harnesses():
+  """Starts ``WORLD_HARNESSES`` under the launcher, one launch after
+  another on a thread of this process: each on 2 gloo ranks sharing the
+  card (``--simulate 2``), then on a NCCL world of one (``--nproc 1
+  --nodes 1``; on the CPU rehearsal a gloo rank, ``--simulate 1``).
+  Returns what ``world_harnesses`` reads and ``stop_world_harnesses``
+  ends."""
+  results, procs, stop = {}, [], threading.Event()
+  one = (['--simulate', '1'] if SHARDED_DEVICE == 'cpu'
+         else ['--nproc', '1', '--nodes', '1'])
+
+  def run():
+    for name, flags in WORLD_HARNESSES.items():
+      for world, ranks in (('gloo', ['--simulate', '2']), ('one', one)):
+        if stop.is_set():
+          return
+        cmd = [sys.executable, '-m', 'hybridbackend_tpu_torch.run', *ranks,
+               '--device', SHARDED_DEVICE, '--timeout',
+               str(WORLD_HARNESS_S), '-m',
+               f'hybridbackend_tpu_torch.benchmarks.{name}', '--device',
+               SHARDED_DEVICE, *flags, '--json']
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        procs.append(proc)
+        try:
+          stdout, stderr = proc.communicate(timeout=WORLD_HARNESS_S + 60)
+        except subprocess.TimeoutExpired:
+          proc.kill()
+          stdout, stderr = proc.communicate()
+        results[name, world] = (proc.returncode, stdout, stderr,
+                                time.perf_counter() - t0)
+
+  thread = threading.Thread(target=run, daemon=True)
+  thread.start()
+  return thread, results, procs, stop
+
+
+def stop_world_harnesses(started):
+  """Ends ``start_world_harnesses``'s launches where they still run."""
+  thread, _, procs, stop = started
+  stop.set()
+  for p in procs:
+    if p.poll() is None:
+      p.kill()
+      p.wait()
+  thread.join(timeout=30)
+
+
+def world_harnesses(started, smi):
+  """Waits for ``start_world_harnesses``'s launches and checks them:
+  each exits 0 and prints its JSON line on rank 0; the embedding
+  harness's forward checks hold for every strategy. Prints their
+  numbers: on gloo ranks sharing one card, host copies (a check's
+  cost), not NCCL's."""
+  thread, results, _, _ = started
+  thread.join(timeout=4 * (WORLD_HARNESS_S + 90))
+  for name in WORLD_HARNESSES:
+    for world in ('gloo', 'one'):
+      if (name, world) not in results:
+        raise RuntimeError(f'the launched {name} ({world}) did not finish')
+      rc, stdout, stderr, secs = results[name, world]
+      if rc != 0:
+        raise RuntimeError(f'the launched {name} ({world}) exited {rc}:\n'
+                           f'{stderr[-3000:]}')
+      got = json.loads(stdout.strip().splitlines()[-1])
+      if name == 'embedding_benchmark':
+        want = (['allgather', 'alltoall', 'gspmd'] if world == 'gloo'
+                else ['local'])
+        if list(got['checked']) != want or not all(got['checked'].values()):
+          raise AssertionError(f'{name} ({world}): forward checks '
+                               f'{got["checked"]}')
+        numbers = ', '.join(f'{r["strategy"]} {r["mode"]} {r["ms"]:.3f} ms '
+                            f'{r["gb_s"]:.2f} GB/s' for r in got['rows'])
+        numbers += (f'; partition {got["partition"]["ms"]:.3f} ms '
+                    f'{got["partition"]["mids_s"]:.1f} Mids/s')
+      else:
+        numbers = ', '.join(f'{r["collective"]} {r["size_mb"]} MB '
+                            f'{r["ms"]:.3f} ms {r["gb_s_algo"]:.2f} GB/s '
+                            f'wire {r["wire_mb"]:.3f} MB'
+                            for r in got['rows'])
+      print(f'phase 34, beside it: {name} on a world of {got["world"]} '
+            f'({got["backend"]}, {got["timing"]}; a check\'s cost, not a '
+            f'multi-GPU number), {secs:.1f} s launched: {numbers} on {smi}')
+
+
 def phase35_exchanges(dev, smi, started=None):
   """Phase 35: node groups, every exchange, the interleaved step and
   sharded serving at a world of ``PHASE35_WORLD`` gloo ranks in
@@ -6290,16 +6672,20 @@ def main() -> int:
   phase32_sharded(dev, smi)
   sharded_launches, every_step_launches = phase33_every_step(dev, smi)
   _mark('phases 32-33')
-  # Phase 35's ranks start now and run beside phase 34's.
+  # Phase 35's ranks and the launched harnesses start now and run beside
+  # phase 34's.
   phase35 = start_phase35()
+  beside = start_world_harnesses()
   try:
-    trainers_n_launches = phase34_trainers(dev, smi)
+    trainers_n_launches, cache_world_launches = phase34_trainers(dev, smi)
+    _mark('phase 34')
+    exchanges_launches, serving_interleave_launches = phase35_exchanges(
+        dev, smi, phase35)
+    world_harnesses(beside, smi)
   except BaseException:
     stop_phase35(phase35)
+    stop_world_harnesses(beside)
     raise
-  _mark('phase 34')
-  exchanges_launches, serving_interleave_launches = phase35_exchanges(
-      dev, smi, phase35)
   _mark('phase 35')
   if args.profile:
     batch = functools.partial(tb.shifted, *tb.make_batch(cfg, dev),
@@ -6372,6 +6758,12 @@ def main() -> int:
                  # steps not counted).
                  'trainers_n_launches': (trainers_n_launches[name]
                                          if name in tb.COUNTED else None),
+                 # Launches in phase 34's cached case: its ranks' steps
+                 # and kernel 5 on the owners' evicted and flushed rows,
+                 # summed over the ranks (the checks on the received
+                 # lists and the world of one not counted).
+                 'cache_world_launches': (cache_world_launches[name]
+                                          if name in tb.COUNTED else None),
                  # Launches in phase 35's exchange cases: the held steps of
                  # every case summed over the world's ranks, and the NCCL
                  # world of one's steps of the hierarchical, column and

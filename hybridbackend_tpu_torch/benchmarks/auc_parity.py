@@ -26,16 +26,38 @@ of 1.5 times the exact seeds' spread and 0.006, ``parity_ok.fast`` says
 whether the fast AUC lies within the band of the exact mean, and the
 exit code is 1 when it does not.
 
-Not here, each with its reason: the JAX ``FAST_OPTIONS`` (a bf16 wire
-for the exchanges and bf16 one-hot update contractions) are multi-device
-and TPU knobs with no counterpart on one card; ``fast_overflow`` shrinks
-the multi-device bucket capacities so their fallbacks fire, which
-belongs to the multi-device work (ROADMAP item 15): the JSON names it
-under ``not_ported`` and ``--skip-overflow`` is accepted; ``--cpu N``
-(a host mesh) is refused.
+* ``fast`` takes the JAX ``FAST_OPTIONS``' wires: ``wire_dtype`` and
+  ``gradient_wire_dtype`` ``'bfloat16'`` (the alltoall lookup's returning
+  rows, the tower's all-reduce and the routed table gradients), which a
+  world of one does not use, as in JAX. Their third option, bf16 one-hot
+  update contractions (``emb_update_matmul_precision``), is a TPU knob:
+  the port's update kernels contract nothing one-hot, and the JSON says
+  so under ``not_ported``;
+* ``fast_overflow`` (unless ``--skip-overflow``): ``fast`` with JAX's
+  ``OVERFLOW_OPTIONS``, lookup and update bucket ratios of 0.25 and
+  ``unique_ratio`` 0.05, capacities far below what a batch needs, so
+  that the exact fallbacks carry the steps. The fallbacks are counted
+  where they run (``lookup.overflow_fallbacks`` and
+  ``sparse_adagrad_apply.overflow_fallbacks``, the host predicates of
+  ``embedding/lookup.py`` and ``embedding/sparse_update.py``, summed over
+  the ranks), and in a world the verdict needs them to have fired. A
+  world of one has no buckets and nothing to fall back from, so there
+  the variant runs as JAX runs it on one device: the options change
+  nothing, and the JSON reports, as JAX does, whether the first batch
+  would overflow its buckets in a world (``overflow_must_fire``, the JAX
+  harness's ``_overflow_expected``).
+
+Under the port's launcher every variant runs at a world of N, the tables
+row-sharded: each rank reads its part of each file (its row groups
+``i ≡ rank (mod N)``) in batches of its ``--batch / N`` rows of the
+global batch, and rank 0 alone prints. ``--cpu N`` (a mesh of N host
+devices in one process) is refused: start N ranks with ``python -m
+hybridbackend_tpu_torch.run --simulate N``.
 
   python -m hybridbackend_tpu_torch.benchmarks.auc_parity [--rows 1048576]
       [--json] [--device cuda|cpu]
+  python -m hybridbackend_tpu_torch.run --simulate 2 --device cpu -m \\
+      hybridbackend_tpu_torch.benchmarks.auc_parity --device cpu ...
 
 The files are cached under ``--cache`` (default ``HB_BENCH_CACHE``, else
 the temporary directory), named by shape. ``--device cpu`` runs small
@@ -50,6 +72,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import math
 import os
 import sys
 import tempfile
@@ -66,10 +89,15 @@ _VOCAB_SEED = 1234567
 DENSE_COLUMNS = ('i0', 'i1')
 MLP = (256, 64, 1)
 NOT_PORTED = {
-    'fast_overflow': 'shrinks the multi-device lookup and update bucket '
-                     'capacities so their fallbacks fire; one card has no '
-                     'buckets (ROADMAP item 15)',
+    'emb_update_matmul_precision': 'a TPU knob of FAST_OPTIONS (bf16 '
+                                   'one-hot update contractions): the '
+                                   'port\'s update kernels contract nothing '
+                                   'one-hot',
 }
+FAST_OPTIONS = {'wire_dtype': 'bfloat16', 'gradient_wire_dtype': 'bfloat16'}
+OVERFLOW_OPTIONS = {**FAST_OPTIONS, 'lookup_bucket_ratio': 0.25,
+                    'update_bucket_ratio': 0.25, 'unique_ratio': 0.05}
+VARIANT_OPTIONS = {'fast': FAST_OPTIONS, 'fast_overflow': OVERFLOW_OPTIONS}
 
 
 def _latent_bits(vocab: int, col: int) -> np.ndarray:
@@ -79,11 +107,18 @@ def _latent_bits(vocab: int, col: int) -> np.ndarray:
   return rng.rand(vocab) < 0.5
 
 
+def row_group(rows: int, world: int = 1) -> int:
+  """The rows of a row group of a file of ``rows`` rows: the JAX
+  harness's, fewer when that leaves a rank of the world none."""
+  return tb.row_group_for(rows, max(8192, rows // 64), world)
+
+
 def synthesize(path: str, rows: int, tables: int, vocab: int,
-               seed: int) -> None:
+               seed: int, world: int = 1) -> None:
   """The JAX harness's Parquet CTR sample: zipf(1.3) ids, exponential
   dense columns, the label from XOR(b0, b1) + b2 + tanh(i0 - 1), drawn in
-  its order; written under a temporary name and renamed into place."""
+  its order, in row groups of :func:`row_group` rows; written under a
+  temporary name and renamed into place."""
   import pandas as pd
   rng = np.random.RandomState(seed)
   cols, bits = {}, {}
@@ -104,11 +139,40 @@ def synthesize(path: str, rows: int, tables: int, vocab: int,
                              dir=os.path.dirname(path))
   os.close(fd)
   try:
-    pd.DataFrame(cols).to_parquet(tmp, row_group_size=max(8192, rows // 64))
+    pd.DataFrame(cols).to_parquet(tmp, row_group_size=row_group(rows, world))
     os.replace(tmp, path)
   finally:
     if os.path.exists(tmp):
       os.unlink(tmp)
+
+
+def overflow_expected(train_path: str, tables: int, batch: int, world: int,
+                      lookup_ratio: float, update_ratio: float):
+  """The JAX harness's ``_overflow_expected``: from the first batch, in
+  numpy, whether any device's bucket of its unique ids (owner ``id %
+  world``) would hold more than the lookup capacity; and the
+  capacities."""
+  import pandas as pd
+  df = pd.read_parquet(train_path).iloc[:batch]
+  lookup_cap = max(1, math.ceil(lookup_ratio * (batch / world) / world))
+  update_cap = max(1, math.ceil(update_ratio *
+                                math.ceil((batch * tables / world) / world)))
+  fired = False
+  for c in range(tables):
+    ids = df[f'c{c}'].to_numpy()
+    for dev in range(world):
+      local = np.unique(ids[dev * (batch // world):
+                            (dev + 1) * (batch // world)])
+      if np.bincount(local % world, minlength=world).max() > lookup_cap:
+        fired = True
+  return fired, {'lookup_cap': lookup_cap, 'update_cap': update_cap}
+
+
+def _fallbacks() -> int:
+  """The exact fallbacks of the lookups and the Adagrad updates so far."""
+  from hybridbackend_tpu_torch.embedding import lookup, sparse_update
+  return (lookup.lookup.overflow_fallbacks
+          + sparse_update.sparse_adagrad_apply.overflow_fallbacks)
 
 
 def _bce(preds: torch.Tensor, y: torch.Tensor):
@@ -120,11 +184,14 @@ def _bce(preds: torch.Tensor, y: torch.Tensor):
 def run_variant(name: str, train_path: str, eval_path: str, *, tables: int,
                 vocab: int, dim: int, batch: int, epochs: int,
                 steps: Optional[int], seed: int, table_lr: float,
-                dense_lr: float, device: torch.device):
-  """Trains one variant (``'exact'`` or ``'fast'``) to the end; returns
-  ``(final_auc, curve)``, the curve a dict an epoch."""
+                dense_lr: float, device: torch.device, ctx=None):
+  """Trains one variant (``'exact'``, ``'fast'`` or ``'fast_overflow'``)
+  to the end, in the world ``ctx`` (a world of one on ``device`` when
+  None); returns ``(final_auc, curve)``, the curve a dict an epoch."""
   import hybridbackend_tpu_torch as hbt
-  ctx = hbt.Context(device)
+  from hybridbackend_tpu_torch.embedding.table import mark_shard, shard_of
+  ctx = ctx or hbt.Context(device)
+  device = ctx.device
   specs = [hbt.EmbeddingSpec(hbt.TableConfig(f'c{c}', vocab, dim))
            for c in range(tables)]
   fx = hbt.StackedFeatureExtractor(specs, dense_columns=list(DENSE_COLUMNS),
@@ -136,12 +203,16 @@ def run_variant(name: str, train_path: str, eval_path: str, *, tables: int,
 
   def batches(path, shuffle, bseed):
     return iter(hbt.Dataset.from_parquet(
-        path, batch_size=batch, drop_remainder=True, shuffle=shuffle,
-        seed=bseed))
+        path, batch_size=batch // ctx.world_size, drop_remainder=True,
+        shuffle=shuffle, seed=bseed, partition_index=ctx.rank,
+        partition_count=ctx.world_size))
 
   if name == 'exact':
+    # A stack's shard is a parameter of the data-parallel step: marked,
+    # so that its gradient comes from the lookup's backward alone.
+    shards = {st.stacked.name: shard_of(st.stacked, ctx) for st in fx.stacks}
     module = nn.ModuleDict({
-        'tables': nn.ParameterDict({n: nn.Parameter(t)
+        'tables': nn.ParameterDict({n: mark_shard(nn.Parameter(t), shards[n])
                                     for n, t in stacked.items()}),
         'net': net})
 
@@ -160,7 +231,7 @@ def run_variant(name: str, train_path: str, eval_path: str, *, tables: int,
     trainer = hbt.SparseTrainer(
         fx, model_loss, net, tables=stacked,
         dense_optimizer=functools.partial(torch.optim.Adam, lr=dense_lr),
-        table_lr=table_lr)
+        table_lr=table_lr, step_options=VARIANT_OPTIONS[name])
   curve = []
   for epoch in range(epochs):
     m = trainer.train(batches(train_path, True, seed * 100 + epoch),
@@ -192,7 +263,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
   p.add_argument('--cpu', type=int, default=0,
                  help='devices of a host mesh (not ported)')
   p.add_argument('--skip-overflow', action='store_true',
-                 help='accepted: the fast_overflow variant is not ported')
+                 help='do not run the fast_overflow variant')
   p.add_argument('--device', default='cuda',
                  help="'cuda' (default) or 'cpu'")
   p.add_argument('--json', action='store_true')
@@ -202,8 +273,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def unsupported(args: argparse.Namespace) -> Optional[str]:
   """Why these flags cannot run, or None."""
   if args.cpu:
-    return ('--cpu N (a multi-device host mesh) is not ported; this '
-            'harness drives one device')
+    return tb.cpu_refused('hybridbackend_tpu_torch.benchmarks.auc_parity')
   if not args.exact_seeds:
     return '--exact-seeds needs at least one seed'
   if torch.device(args.device).type == 'cuda' and (
@@ -212,24 +282,37 @@ def unsupported(args: argparse.Namespace) -> Optional[str]:
   return None
 
 
-def run(args: argparse.Namespace) -> Dict:
+def run(args: argparse.Namespace, ctx=None) -> Dict:
   """Writes the files if they are missing, trains every variant and
-  returns the report."""
+  returns the report; in the world ``ctx``, this rank's."""
   import hybridbackend_tpu_torch as hbt
-  device = torch.device(args.device)
+  from hybridbackend_tpu_torch.distribute import collective
+  device = ctx.device if ctx is not None else torch.device(args.device)
   on_card = device.type == 'cuda'
+  world = ctx.world_size if ctx is not None else 1
   cache = args.cache or os.environ.get('HB_BENCH_CACHE') or os.path.join(
       tempfile.gettempdir(), 'hbtpu_torch_bench')
   os.makedirs(cache, exist_ok=True)
-  sig = f'{args.rows}x{args.tables}v{args.vocab}'
-  train_path = os.path.join(cache, f'auc_train_{sig}.parquet')
-  eval_path = os.path.join(cache, f'auc_eval_{args.eval_rows}x'
-                           f'{args.tables}v{args.vocab}.parquet')
+  def name(kind, rows):
+    # A world that needs smaller row groups names them.
+    groups = row_group(rows, world)
+    suffix = '' if groups == row_group(rows) else f'_rg{groups}'
+    return os.path.join(cache, f'auc_{kind}_{rows}x{args.tables}'
+                        f'v{args.vocab}{suffix}.parquet')
+
+  train_path, eval_path = name('train', args.rows), name('eval',
+                                                         args.eval_rows)
   t0 = time.perf_counter()
-  if not os.path.exists(train_path):
-    synthesize(train_path, args.rows, args.tables, args.vocab, seed=11)
-  if not os.path.exists(eval_path):
-    synthesize(eval_path, args.eval_rows, args.tables, args.vocab, seed=999)
+  if ctx is None or ctx.is_chief:
+    if not os.path.exists(train_path):
+      synthesize(train_path, args.rows, args.tables, args.vocab, seed=11,
+                 world=world)
+    if not os.path.exists(eval_path):
+      synthesize(eval_path, args.eval_rows, args.tables, args.vocab,
+                 seed=999, world=world)
+  if ctx is not None:
+    # The other ranks wait for the files.
+    collective.allreduce(torch.zeros(1, device=device), ctx=ctx)
   synth_s = time.perf_counter() - t0
 
   kw = dict(tables=args.tables, vocab=args.vocab, dim=args.dim,
@@ -238,36 +321,62 @@ def run(args: argparse.Namespace) -> Dict:
   results, exact_aucs = {}, []
   variants = [('exact', s) for s in args.exact_seeds]
   variants.append(('fast', args.exact_seeds[0]))
+  if not args.skip_overflow:
+    variants.append(('fast_overflow', args.exact_seeds[0]))
+  say = (lambda *a: None) if ctx is not None and not ctx.is_chief else (
+      lambda line: print(line, file=sys.stderr, flush=True))
   for name, seed in variants:
     for kernel in tb.COUNTED:
       getattr(hbt, kernel).launches = 0
+    before = _fallbacks()
     t0 = time.perf_counter()
     auc, curve = run_variant(name, train_path, eval_path, seed=seed,
-                             device=device, **kw)
+                             device=device, ctx=ctx, **kw)
     key = f'exact_seed{seed}' if name == 'exact' else name
     results[key] = {'auc': auc, 'curve': curve,
                     'secs': time.perf_counter() - t0,
                     'kernel_launches': {k: getattr(hbt, k).launches
                                         for k in tb.COUNTED}}
+    if name == 'fast_overflow':
+      fired = _fallbacks() - before
+      if ctx is not None:
+        fired = int(collective.allreduce(torch.tensor(
+            [float(fired)], device=device), ctx=ctx).item())
+      expected, caps = overflow_expected(
+          train_path, args.tables, args.batch, max(world, 1),
+          OVERFLOW_OPTIONS['lookup_bucket_ratio'],
+          OVERFLOW_OPTIONS['update_bucket_ratio'])
+      results[key].update(options=OVERFLOW_OPTIONS, fallbacks=fired,
+                          overflow_must_fire=bool(expected), caps=caps)
+    elif name == 'fast':
+      results[key]['options'] = FAST_OPTIONS
     if name == 'exact':
       exact_aucs.append(auc)
-    print(f'{key}: auc={auc:.4f}', file=sys.stderr, flush=True)
+    say(f'{key}: auc={auc:.4f}')
 
   spread = max(exact_aucs) - min(exact_aucs)
   band = max(spread * 1.5, 0.006)
   mean_exact = sum(exact_aucs) / len(exact_aucs)
+  verdicts = {key: abs(results[key]['auc'] - mean_exact) <= band
+              for key in ('fast', 'fast_overflow') if key in results}
+  if 'fast_overflow' in results and world > 1:
+    # In a world the variant exists to carry its steps on the fallbacks.
+    verdicts['fast_overflow'] &= results['fast_overflow']['fallbacks'] > 0
   return {
       'config': {**kw, 'rows': args.rows, 'eval_rows': args.eval_rows},
       'results': results,
       'exact_mean_auc': mean_exact, 'exact_spread': spread,
       'parity_band': band,
-      'parity_ok': {'fast': abs(results['fast']['auc'] - mean_exact)
-                             <= band},
+      'parity_ok': verdicts,
       'not_ported': NOT_PORTED,
       'synthesize_s': synth_s,
+      'world': world,
+      'backend': (torch.distributed.get_backend(ctx.group)
+                  if ctx is not None else None),
       'device': str(device),
       'device_name': torch.cuda.get_device_name(device) if on_card else 'cpu',
-      'card': tb.card() if on_card else None,
+      'card': tb.card() if on_card and (ctx is None or ctx.is_chief)
+              else None,
   }
 
 
@@ -277,7 +386,9 @@ def main(argv: Optional[List[str]] = None) -> int:
   if why:
     print(f'auc_parity: {why}', file=sys.stderr)
     return 1
-  out = run(args)
+  out, chief = tb.in_world(args.device, lambda ctx: run(args, ctx))
+  if not chief:
+    return 0 if all(out['parity_ok'].values()) else 1
   print(json.dumps(out if args.json else
                    {k: out[k] for k in ('exact_mean_auc', 'exact_spread',
                                         'parity_band', 'parity_ok')}))

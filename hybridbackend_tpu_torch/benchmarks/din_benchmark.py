@@ -341,16 +341,8 @@ def main(argv: Optional[List[str]] = None) -> int:
   if why:
     print(f'din_benchmark: {why}', file=sys.stderr)
     return 1
-  ctx = None
-  if tb.launched():
-    import hybridbackend_tpu_torch as hbt
-    ctx = hbt.Context.join(args.device)
-  try:
-    result = run(args, ctx)
-  finally:
-    if ctx is not None:
-      ctx.leave()
-  if ctx is not None and ctx.rank != 0:
+  result, chief = tb.in_world(args.device, lambda ctx: run(args, ctx))
+  if not chief:
     return 0
   if args.json:
     print(json.dumps(result))

@@ -59,6 +59,20 @@ The file is cached under ``HB_BENCH_CACHE``, else the temporary directory
 version of ``ensure_file``'s draws, and it is written under a temporary
 name and renamed into place. The shape flags (``--tables --vocab --dim
 --dense-features``) default to the flagship and exist for small CPU runs.
+
+Under the port's launcher the harness runs one rank of a world of N, as
+``train_benchmark.py`` does: the tables row-sharded over the ranks and
+looked up through ``--lookup``, the sharded sparse step fed by the rank's
+part of the file (its row groups ``i ≡ rank (mod N)``, in batches of its
+``--batch / N`` rows of the global batch; the file then has at least one
+row group a rank, and its name says how many rows a group holds). Rank 0
+writes the file and alone prints the report, with the world, the
+strategy and the backend; its numbers are its own rank's. ``--profile``
+times one process's stages: it runs at a world of one.
+
+  python -m hybridbackend_tpu_torch.run --simulate 2 -m \\
+      hybridbackend_tpu_torch.benchmarks.e2e_benchmark --lookup alltoall \\
+      --json
 """
 
 from __future__ import annotations
@@ -107,6 +121,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                  help='synchronous per-stage timing (decode / pack / put / '
                       'step) instead of the pipelined benchmark')
   p.add_argument('--json', action='store_true')
+  p.add_argument('--lookup', default='allgather',
+                 choices=['allgather', 'alltoall', 'hierarchical', 'gspmd'],
+                 help='the sharded tables\' exchange, under the launcher')
   p.add_argument('--tables', type=int, default=26)
   p.add_argument('--vocab', type=int, default=100_000)
   p.add_argument('--dim', type=int, default=16)
@@ -119,6 +136,9 @@ def unsupported(args: argparse.Namespace) -> Optional[str]:
   if args.steps < MIN_FETCHES:
     return (f'--steps {args.steps}: the e2e window needs at least '
             f'{MIN_FETCHES} fetches')
+  if args.profile and tb.launched():
+    return ('--profile times one process\'s stages; run it at a world of '
+            'one, without the launcher')
   if torch.device(args.device).type == 'cuda' and (
       not torch.cuda.is_available()):
     return 'no CUDA device; pass --device cpu to run on the CPU'
@@ -132,20 +152,23 @@ def _skewed_ids(rng: np.random.RandomState, n: int, vocab: int):
 
 
 def ensure_file(rows: int, tables: int = 26, dense_features: int = 13,
-                vocab: int = 100_000, seed: int = 0) -> str:
+                vocab: int = 100_000, seed: int = 0,
+                row_group: int = ROW_GROUP) -> str:
   """The Criteo-shaped Parquet file of ``rows`` rows, written once and
   cached: ``c0..`` int32 log-uniform ids, ``i0..`` float32 uniform, an
   int64 label; ``RandomState(seed)`` draws slab by slab in the JAX
   harness's order (at its defaults, its file's values); snappy, the
   dictionary only on the dense columns and the label, row groups of
-  32768."""
+  ``row_group`` rows (32768, the JAX harness's; another size is in the
+  file's name)."""
   import pyarrow as pa
   import pyarrow.parquet as pq
   cache = os.environ.get('HB_BENCH_CACHE') or os.path.join(
       tempfile.gettempdir(), 'hbtpu_torch_bench')
+  groups = '' if row_group == ROW_GROUP else f'_rg{row_group}'
   path = os.path.join(cache, f'e2e_criteo_{rows}_{tables}c_'
                       f'{dense_features}i_{vocab}_seed{seed}_'
-                      f'draws{DRAWS}.parquet')
+                      f'draws{DRAWS}{groups}.parquet')
   if os.path.exists(path):
     return path
   os.makedirs(cache, exist_ok=True)
@@ -167,7 +190,7 @@ def ensure_file(rows: int, tables: int = 26, dense_features: int = 13,
       if writer is None:
         writer = pq.ParquetWriter(tmp, table.schema, compression='snappy',
                                   use_dictionary=dense + ['label'])
-      writer.write_table(table, row_group_size=ROW_GROUP)
+      writer.write_table(table, row_group_size=row_group)
       done += n
     writer.close()
     os.replace(tmp, path)
@@ -177,20 +200,25 @@ def ensure_file(rows: int, tables: int = 26, dense_features: int = 13,
   return path
 
 
-def dataset(path: str, args: argparse.Namespace):
-  """The harness's dataset: unshuffled batches of ``--batch`` rows."""
+def dataset(path: str, args: argparse.Namespace, ctx=None):
+  """The harness's dataset: unshuffled batches of ``--batch`` rows; in
+  the world ``ctx``, of the rank's row groups and its rows of each
+  global batch."""
   from hybridbackend_tpu_torch.data import ParquetDataset
-  return ParquetDataset(path, batch_size=args.batch, drop_remainder=True,
-                        num_parallel_reads=args.threads,
-                        native=False if args.python_reader else None)
+  world = 1 if ctx is None else ctx.world_size
+  part = {} if ctx is None else dict(partition_index=ctx.rank,
+                                     partition_count=world)
+  return ParquetDataset(path, batch_size=args.batch // world,
+                        drop_remainder=True, num_parallel_reads=args.threads,
+                        native=False if args.python_reader else None, **part)
 
 
 def host_pipeline(path: str, args: argparse.Namespace,
-                  stop: threading.Event, readers: List) -> Iterator:
+                  stop: threading.Event, readers: List, ctx=None) -> Iterator:
   """Endless host batches, a new epoch of the file after each; the
   iterator of each epoch is appended to ``readers``."""
   while not stop.is_set():
-    it = iter(dataset(path, args))
+    it = iter(dataset(path, args, ctx))
     readers.append(it)
     try:
       for batch in it:
@@ -202,13 +230,13 @@ def host_pipeline(path: str, args: argparse.Namespace,
 
 
 def reader_rows_per_s(path: str, args: argparse.Namespace,
-                      epochs: int = 3) -> List[float]:
-  """Rows/s of each of ``epochs`` epochs of the file through the reader
-  alone, each from a new iterator."""
+                      epochs: int = 3, ctx=None) -> List[float]:
+  """Rows/s of each of ``epochs`` epochs of the file (of the rank's part
+  of it) through the reader alone, each from a new iterator."""
   rates = []
   for _ in range(epochs):
     t0 = time.perf_counter()
-    rows = sum(len(batch['label']) for batch in dataset(path, args))
+    rows = sum(len(batch['label']) for batch in dataset(path, args, ctx))
     rates.append(rows / (time.perf_counter() - t0))
   return rates
 
@@ -218,7 +246,8 @@ def _config(args: argparse.Namespace) -> argparse.Namespace:
   return tb.parse_args([
       '--sparse', '--batch', str(args.batch), '--tables', str(args.tables),
       '--vocab', str(args.vocab), '--dim', str(args.dim),
-      '--dense-features', str(args.dense_features), '--device', args.device])
+      '--dense-features', str(args.dense_features), '--device', args.device,
+      '--lookup', args.lookup])
 
 
 def profile(args: argparse.Namespace) -> Dict:
@@ -284,19 +313,30 @@ def profile(args: argparse.Namespace) -> Dict:
   }
 
 
-def run(args: argparse.Namespace) -> Dict:
-  """Builds the config, times it and returns the report."""
+def run(args: argparse.Namespace, ctx=None) -> Dict:
+  """Builds the config, times it and returns the report; in the world
+  ``ctx``, this rank's."""
   import hybridbackend_tpu_torch as hbt
-  device = torch.device(args.device)
+  from hybridbackend_tpu_torch.distribute import collective
+  device = ctx.device if ctx is not None else torch.device(args.device)
   on_card = device.type == 'cuda'
-  state, step = tb.build(_config(args), device)
-  path = ensure_file(FILE_BATCHES * args.batch, args.tables,
-                     args.dense_features, args.vocab)
-  rates = reader_rows_per_s(path, args)
+  world = ctx.world_size if ctx is not None else 1
+  state, step = tb.build(_config(args), device, ctx=ctx)
+  rows = FILE_BATCHES * args.batch
+  shape = (rows, args.tables, args.dense_features, args.vocab)
+  row_group = tb.row_group_for(rows, ROW_GROUP, world)
+  if ctx is None or ctx.is_chief:
+    path = ensure_file(*shape, row_group=row_group)
+  if ctx is not None:
+    # The other ranks wait for the file.
+    collective.allreduce(torch.zeros(1, device=device), ctx=ctx)
+    path = ensure_file(*shape, row_group=row_group)
+  rates = reader_rows_per_s(path, args, ctx=ctx)
 
   # The steps alone, on the file's batches placed beforehand.
   placed = [hbt.put_batch(b, device)
-            for b in dataset(path, args).take(min(FILE_BATCHES, args.steps))]
+            for b in dataset(path, args, ctx).take(
+                min(FILE_BATCHES, args.steps))]
   cycle = lambda i: placed[i % len(placed)]
   state = tb.time_steps(state, step, cycle, 0, tb.WARMUP, device).state
   alone = tb.time_steps(state, step, cycle, 0, args.steps, device)
@@ -305,7 +345,7 @@ def run(args: argparse.Namespace) -> Dict:
 
   # End to end: file -> reader -> input path -> step.
   stop, readers = threading.Event(), []
-  source = host_pipeline(path, args, stop, readers)
+  source = host_pipeline(path, args, stop, readers, ctx)
   it = None
   try:
     if args.no_prefetch:
@@ -354,7 +394,10 @@ def run(args: argparse.Namespace) -> Dict:
       'reader_threads': args.threads,
       'epochs_started': len(readers),
       'file': os.path.basename(path), 'file_rows': FILE_BATCHES * args.batch,
-      'file_batches': FILE_BATCHES,
+      'file_batches': FILE_BATCHES, 'row_group': row_group,
+      'world': world, 'lookup': args.lookup,
+      'backend': (torch.distributed.get_backend(ctx.group)
+                  if ctx is not None else None),
       'kernel_launches': launches,
       'adagrad_launches_per_step': launches['adagrad_update_sorted']
                                    / args.steps,
@@ -375,7 +418,10 @@ def main(argv: Optional[List[str]] = None) -> int:
   if why:
     print(f'e2e_benchmark: {why}', file=sys.stderr)
     return 1
-  result = profile(args) if args.profile else run(args)
+  result, chief = tb.in_world(args.device, lambda ctx: (
+      profile(args) if args.profile else run(args, ctx)))
+  if not chief:
+    return 0
   if args.json:
     print(json.dumps(result))
   else:

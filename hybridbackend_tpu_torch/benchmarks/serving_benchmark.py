@@ -42,6 +42,26 @@ CUDA device:
 
 ``--device cpu`` runs at a small shape for the tests (the ``din`` case
 keeps its widths).
+
+Under the port's launcher it runs one rank of a world of N: the flagship
+trainer's tables row-sharded over the ranks (``--lookup`` their
+exchange), trained on the rank's rows of each batch, and exported by
+every rank (rank 0 writes the bundle, as a world of one's). Each rank
+then predicts its rows of each size of ``--sizes`` (the global batch)
+through the sharded serving lookups of its shards, kernel 5 at the
+owners: ``lookup(serving=True)`` on the f32 shards and the sharded
+``lookup_quantized`` on the int8 ones (``quantize_table`` of each shard,
+a whole row's scale as in the bundle). Reported for each case and size:
+``sharded_ms``, the best of ``--repeats`` windows of ``--inner`` calls
+(the exchanges block each call, so the windows time whole calls), and
+``max_abs_vs_bundle``, the world's predictions against rank 0's
+``Served`` bundle of the global batch. The ``din`` case (a dense
+``Trainer``'s bundle served in one process) runs at a world of one.
+Rank 0 alone prints, with the world, the strategy and the backend.
+
+  python -m hybridbackend_tpu_torch.run --simulate 2 -m \\
+      hybridbackend_tpu_torch.benchmarks.serving_benchmark --cases f32 int8 \\
+      --json
 """
 
 from __future__ import annotations
@@ -85,6 +105,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                  choices=['f32', 'int8', 'din'])
   p.add_argument('--device', default='cuda',
                  help="'cuda' (default) or 'cpu'")
+  p.add_argument('--lookup', default='allgather',
+                 choices=['allgather', 'alltoall', 'hierarchical', 'gspmd'],
+                 help='the sharded tables\' exchange, under the launcher')
   p.add_argument('--json', action='store_true')
   return p.parse_args(argv)
 
@@ -101,7 +124,7 @@ def _config(args: argparse.Namespace) -> argparse.Namespace:
   return tb.parse_args(['--sparse', '--tables', str(args.tables), '--vocab',
                         str(args.vocab), '--dim', str(args.dim),
                         '--dense-features', str(args.dense_features),
-                        '--device', args.device])
+                        '--device', args.device, '--lookup', args.lookup])
 
 
 def batches(args: argparse.Namespace, rows: int, count: int,
@@ -202,6 +225,107 @@ def bench_bundle(args: argparse.Namespace, path: str, device: torch.device,
   return report
 
 
+def sharded_predict(trainer, tables, batch, strategy: str) -> torch.Tensor:
+  """The rank's predictions of its rows ``batch`` (device tensors)
+  through the serving lookups of the stacks' shards ``tables`` (f32, or
+  ``QuantizedTable`` shards): a collective of the trainer's world."""
+  fx = trainer._fx
+  with torch.no_grad():
+    raw, _, layouts = fx.lookup_raw(tables, batch, strategy, serving=True)
+    emb, dense = fx.combine_from_raw(raw, layouts, batch)
+    return trainer._model_loss(trainer.state.dense, emb, dense,
+                               batch)[1]['preds']
+
+
+def bench_sharded(args: argparse.Namespace, trainer, case: str, path: str,
+                  ctx) -> dict:
+  """Each rank's sharded predictions at the sizes of ``--sizes`` (the
+  rank's rows of each global batch): the best window's ms a call, kernel
+  5's launches a call, and on rank 0 the largest difference of the
+  world's predictions from the bundle's."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.distribute import collective
+  device = ctx.device
+  tables = dict(trainer.state.tables)
+  if CASES[case] == 'int8':
+    tables = {k: hbt.quantize_table(t) for k, t in tables.items()}
+  served = hbt.Served(path, device) if ctx.is_chief else None
+  report = {}
+  for size in args.sizes:
+    whole = batches(args, size, 1, tb.SEED + size)[0]
+    mine = hbt.put_batch({k: v[ctx.rows(size)] for k, v in whole.items()},
+                         device)
+    call = lambda: sharded_predict(trainer, tables, mine, args.lookup)
+    preds = call()
+    every = collective.allgather(preds.reshape(-1), ctx=ctx).cpu().numpy()
+    before = hbt.gather_rows.launches
+    windows = []
+    for _ in range(args.repeats):
+      _sync(device)
+      t0 = time.perf_counter()
+      for _ in range(args.inner):
+        out = call()
+      float(out[0])
+      windows.append((time.perf_counter() - t0) * 1e3 / args.inner)
+    entry = {'sharded_ms': min(windows), 'windows_ms': windows,
+             'gather_launches_per_predict': (hbt.gather_rows.launches - before)
+                                            / (args.repeats * args.inner)}
+    if served is not None:
+      want = served.predict(whole)
+      entry['max_abs_vs_bundle'] = float(np.abs(every - want).max())
+    report[str(size)] = entry
+  return report
+
+
+def run_world(args: argparse.Namespace, ctx) -> dict:
+  """The world's flagship cases (see the module docstring); returns this
+  rank's report."""
+  from hybridbackend_tpu_torch.distribute import collective
+  device = ctx.device
+  on_card = device.type == 'cuda'
+  result = {
+      'metric': 'served_sharded_ms', 'world': ctx.world_size,
+      'lookup': args.lookup,
+      'backend': torch.distributed.get_backend(ctx.group),
+      'tables': args.tables, 'vocab': args.vocab, 'dim': args.dim,
+      'dense_features': args.dense_features,
+      'train_steps': args.train_steps, 'inner': args.inner,
+      'repeats': args.repeats, 'sizes': args.sizes, 'device': str(device),
+      'device_name': torch.cuda.get_device_name(device) if on_card else 'cpu',
+      'card': tb.card() if on_card and ctx.is_chief else None,
+      'timing': 'host clock around whole calls'}
+  if 'din' in args.cases:
+    result['din_ragged'] = ('not run: a dense Trainer\'s bundle, served in '
+                            'one process (a world of one)')
+  tmp = tempfile.mkdtemp(prefix='hbtpu_torch_serve_') if ctx.is_chief else ''
+  # Every rank writes to rank 0's directory name; only rank 0 writes.
+  holder = [tmp]
+  torch.distributed.broadcast_object_list(holder, src=0, group=ctx.group)
+  tmp = holder[0]
+  try:
+    trainer = tb.sparse_trainer(_config(args), device, ctx=ctx)
+    rows = ctx.rows(TRAIN_BATCH)
+    trainer.train(iter([{k: v[rows] for k, v in b.items()} for b in batches(
+        args, TRAIN_BATCH, args.train_steps, seed=tb.SEED)]))
+    example = batches(args, TRAIN_BATCH, 1, seed=tb.SEED + 1)[0]
+    for case in [c for c in args.cases if c in CASES]:
+      path = os.path.join(tmp, case)
+      t0 = time.perf_counter()
+      trainer.export_saved_model(path, example, table_dtype=CASES[case],
+                                 poly_batch=True)
+      collective.allreduce(torch.zeros(1, device=device), ctx=ctx)
+      report = {'export_s': time.perf_counter() - t0,
+                'batches': bench_sharded(args, trainer, case, path, ctx)}
+      if ctx.is_chief:
+        report['bundle_mb'] = _bundle_mb(path)
+      result[f'flagship_{case}'] = report
+  finally:
+    collective.allreduce(torch.zeros(1, device=device), ctx=ctx)
+    if ctx.is_chief:
+      shutil.rmtree(tmp, ignore_errors=True)
+  return result
+
+
 def _bundle_mb(path: str) -> float:
   return sum(os.path.getsize(os.path.join(d, f))
              for d, _, files in os.walk(path) for f in files) / 1e6
@@ -264,7 +388,10 @@ def main(argv: Optional[List[str]] = None) -> int:
   if why:
     print(f'serving_benchmark: {why}', file=sys.stderr)
     return 1
-  result = run(args)
+  result, chief = tb.in_world(args.device, lambda ctx: (
+      run(args) if ctx is None else run_world(args, ctx)))
+  if not chief:
+    return 0
   if args.json:
     print(json.dumps(result))
   else:

@@ -90,11 +90,14 @@ import statistics
 import subprocess
 import sys
 import time
-from typing import Any, Callable, Dict, List, NamedTuple, Optional
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Tuple,
+                    TypeVar)
 
 import numpy as np
 import torch
 from torch import nn
+
+T = TypeVar('T')
 
 # The wrappers that count their kernel launches.
 COUNTED = ('adagrad_update_sorted', 'scatter_add_sorted', 'adam_update_sorted',
@@ -166,10 +169,7 @@ def unsupported(args: argparse.Namespace) -> Optional[str]:
     return ('--wire-dtype applies to the sparse step\'s alltoall lookup '
             'only; pass --sparse --lookup alltoall')
   if args.cpu:
-    return ('--cpu N (a mesh of N host devices in one process) is not '
-            'ported; start N ranks with python -m hybridbackend_tpu_torch.run '
-            '--simulate N -m hybridbackend_tpu_torch.benchmarks.'
-            'train_benchmark')
+    return cpu_refused('hybridbackend_tpu_torch.benchmarks.train_benchmark')
   if torch.device(args.device).type == 'cuda' and (
       not torch.cuda.is_available()):
     return 'no CUDA device; pass --device cpu to run on the CPU'
@@ -180,6 +180,39 @@ def launched() -> bool:
   """Whether this process is a rank started by the port's launcher (or
   another that sets ``WORLD_SIZE``)."""
   return 'WORLD_SIZE' in os.environ
+
+
+def cpu_refused(module: str) -> str:
+  """Why the entry point ``module`` refuses ``--cpu N``."""
+  return ('--cpu N (a mesh of N host devices in one process) is not '
+          'ported: the port\'s ranks are processes; start N of them with '
+          f'python -m hybridbackend_tpu_torch.run --simulate N -m {module}')
+
+
+def in_world(device: str, fn: Callable[[Any], T]) -> Tuple[T, bool]:
+  """``fn(ctx)`` in the world this process was launched into, on
+  ``device`` (``ctx`` is None when it was not launched), leaving the world
+  after it, also on an error. Returns ``fn``'s result and whether this
+  rank is the chief, which alone prints."""
+  ctx = None
+  if launched():
+    import hybridbackend_tpu_torch as hbt
+    ctx = hbt.Context.join(device)
+  try:
+    result = fn(ctx)
+  finally:
+    if ctx is not None:
+      ctx.leave()
+  return result, ctx is None or ctx.is_chief
+
+
+def row_group_for(rows: int, default: int, world: int) -> int:
+  """The rows of a row group of a file of ``rows`` rows that ``world``
+  ranks read, each its own row groups: ``default``, fewer when that
+  leaves fewer groups than ranks."""
+  if -(-rows // default) >= world:
+    return default
+  return max(1, rows // world)
 
 
 def card() -> Optional[str]:
@@ -245,18 +278,20 @@ def sparse_parts(args: argparse.Namespace, device: torch.device,
 
 def sparse_trainer(args: argparse.Namespace, device: torch.device,
                    model_dir: Optional[str] = None,
-                   table_optimizer: str = 'adagrad'):
+                   table_optimizer: str = 'adagrad', ctx=None):
   """The sparse config ``args`` as a ``SparseTrainer`` on ``device`` (the
   weights of :func:`sparse_parts`, the harness's table lr, accumulator
   and tower Adam) with row-sparse ``table_optimizer``, checkpointing
-  into ``model_dir``."""
+  into ``model_dir``; in the world ``ctx``, on the rank's shards, looked
+  up through ``--lookup``."""
   import hybridbackend_tpu_torch as hbt
-  fx, tables, tower, model_loss = sparse_parts(args, device)
+  fx, tables, tower, model_loss = sparse_parts(args, device, ctx)
   return hbt.SparseTrainer(
       fx, model_loss, tower, tables=tables,
       dense_optimizer=functools.partial(torch.optim.Adam, lr=TOWER_LR),
       table_lr=TABLE_LR, adagrad_init=ADAGRAD_INIT,
-      table_optimizer=table_optimizer, model_dir=model_dir)
+      table_optimizer=table_optimizer, model_dir=model_dir,
+      lookup_strategy=args.lookup)
 
 
 def dense_parts(args: argparse.Namespace, device: torch.device, ctx=None,
@@ -456,16 +491,8 @@ def main(argv: Optional[List[str]] = None) -> int:
   if why:
     print(f'train_benchmark: {why}', file=sys.stderr)
     return 1
-  ctx = None
-  if launched():
-    import hybridbackend_tpu_torch as hbt
-    ctx = hbt.Context.join(args.device)
-  try:
-    result = run(args, ctx)
-  finally:
-    if ctx is not None:
-      ctx.leave()
-  if ctx is not None and ctx.rank != 0:
+  result, chief = in_world(args.device, lambda ctx: run(args, ctx))
+  if not chief:
     return 0
   if args.json:
     print(json.dumps(result))

@@ -72,6 +72,21 @@ class SyncCancelled(Exception):
   """The iterator was closed while its exchange was in flight."""
 
 
+def wait_for_key(store, key: str, deadline: float, cancel: threading.Event,
+                 error: str) -> None:
+  """Poll ``store`` until it holds ``key``: :class:`SyncCancelled` once
+  ``cancel`` is set, a ``RuntimeError`` with the message ``error`` past
+  ``deadline`` (``time.monotonic()``)."""
+  pause = 0.0
+  while not store.check([key]):
+    if cancel.is_set():
+      raise SyncCancelled()
+    if time.monotonic() > deadline:
+      raise RuntimeError(error)
+    time.sleep(pause)
+    pause = min(_LAST_POLL_S, 2 * pause + 1e-4)
+
+
 def _rows(col: Any) -> int:
   if isinstance(col, Value):
     return col.batch_size
@@ -196,19 +211,6 @@ class SyncReplicasIterator:
   def _key(self, step: int, rank: int) -> str:
     return f'{self._sid}/{step}/{rank}'
 
-  def _wait_for(self, key: str, what: str, deadline: float) -> None:
-    pause = 0.0
-    while not self._store.check([key]):
-      if self._cancel.is_set():
-        raise SyncCancelled()
-      if time.monotonic() > deadline:
-        raise RuntimeError(
-            f'SyncReplicasIterator: {what} within '
-            f'{self._timeout_s * 1e3:.0f} ms (this is rank {self._rank}; '
-            f'key {key}). The peer is dead or stalled.')
-      time.sleep(pause)
-      pause = min(_LAST_POLL_S, 2 * pause + 1e-4)
-
   def _exchange(self, step: int, has_data: bool,
                 rows: int) -> List[Tuple[bool, int]]:
     """Every rank's ``(has_data, rows)`` at ``step``, in rank order."""
@@ -220,8 +222,11 @@ class SyncReplicasIterator:
     out = []
     for r in range(self._world):
       key = self._key(step, r)
-      self._wait_for(key, f'rank {r} did not reach sync step {step}',
-                     deadline)
+      wait_for_key(self._store, key, deadline, self._cancel,
+                   f'SyncReplicasIterator: rank {r} did not reach sync step '
+                   f'{step} within {self._timeout_s * 1e3:.0f} ms (this is '
+                   f'rank {self._rank}; key {key}). The peer is dead or '
+                   'stalled.')
       h, n = store.get(key).decode().split(',')
       out.append((bool(int(h)), int(n)))
     if step >= 2:
@@ -315,4 +320,4 @@ class SyncReplicasIterator:
 
 
 __all__ = ['DEFAULT_TIMEOUT_MS', 'SYNC_VALID_KEY', 'SyncCancelled',
-           'SyncReplicasIterator', 'check_columns']
+           'SyncReplicasIterator', 'check_columns', 'wait_for_key']

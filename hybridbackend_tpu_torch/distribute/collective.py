@@ -222,7 +222,8 @@ def alltoall(x: torch.Tensor, *, ctx: Context,
 
 
 def reduce_scatter(x: torch.Tensor, *, ctx: Context,
-                   topology: Topology = Topology.ALL) -> torch.Tensor:
+                   topology: Topology = Topology.ALL,
+                   wire_dtype: WireDtype = None) -> torch.Tensor:
   """The sum over the ranks of block ``r`` of ``x`` (``[W, ...]``), on
   rank ``r`` (JAX ``psum_scatter`` with ``tiled=False``)."""
   sp = span(ctx, topology)
@@ -231,13 +232,17 @@ def reduce_scatter(x: torch.Tensor, *, ctx: Context,
                      f'{sp.size} ranks')
   if not sp.distributed:
     return x[0].clone()
-  import torch.distributed as dist
-  out = x.new_empty(tuple(x.shape[1:]))
-  scatter = getattr(dist, 'reduce_scatter_single', None) or (
-      dist.reduce_scatter_tensor)
-  # Flat, as gloo splits the input's leading dimension by the world.
-  scatter(out.view(-1), x.contiguous().view(-1), group=sp.group)
-  return out
+
+  def call(v):
+    import torch.distributed as dist
+    out = v.new_empty(tuple(v.shape[1:]))
+    scatter = getattr(dist, 'reduce_scatter_single', None) or (
+        dist.reduce_scatter_tensor)
+    # Flat, as gloo splits the input's leading dimension by the world.
+    scatter(out.view(-1), v.contiguous().view(-1), group=sp.group)
+    return out
+
+  return _on_wire(x, wire_dtype, 'reduce_scatter', call)
 
 
 def all_to_all_v(buckets: torch.Tensor, sizes: torch.Tensor, *,

@@ -36,12 +36,45 @@ step (plan order is step order, so an evicted row is read after the
 last step that updated it), and ``checkpoint_flush`` / ``flush`` write
 the resident rows back (the reference's ``before_apply_gradients`` and
 ``before_save_checkpoints`` hooks, ``service.py:253-324``).
+
+**A world of N ranks.** JAX plans in one process over the global batch,
+and its slot table is row-sharded over the mesh (``:133-144``). The
+port's ranks are processes, each with its own rows, so they agree on
+one slot map instead of keeping one each (an id would otherwise sit in
+different slots on different ranks):
+
+* ``CacheRunner.transform`` exchanges each cached column's ids through
+  the key-value store the ranks met through (``Context.store``, never
+  the process group: it runs on ``DeviceIterator``'s producer thread
+  while the step issues its collectives on the main thread), under
+  ``data/sync.py``'s rules: a peer's liveness deadline, each rank
+  deleting its key of step ``s - 2`` at step ``s``, cancellation. Every
+  rank plans the global batch, the ranks' ids in rank order, and keeps
+  its own rows' slots. Slot allocation is deterministic (a stable
+  argsort of the last uses), so every rank's metadata stays equal, and
+  equal to JAX's; the capacity must hold the global batch's distinct ids.
+* The array effects address row ``slot + offset`` of the stacked table.
+  On a row-sharded stack each rank writes only its shard's rows (a
+  cached member's slots may straddle shard boundaries); on a replicated
+  one every rank writes all of them.
+* The evicted (and flushed) rows are read by their owners through kernel
+  5 and all-gathered on the process group (``apply_next``, ``flush`` and
+  ``checkpoint_flush`` run on the main thread, which every rank calls in
+  the same order), so that every rank's :class:`Storage` receives every
+  row; an upload pulls each owner's missed rows from its own storage.
+  The slot map is one LRU over the world: an id evicted from a slot that
+  rank 1 owns may come back into a slot of rank 2, whose storage must
+  hold its latest row. So every rank holds the whole host table, W
+  copies of it over the world; a cache per id owner would plan other
+  slots than JAX's.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
+import pickle
 import threading
 import time
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -49,7 +82,10 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from hybridbackend_tpu_torch.embedding.table import TableConfig
+from hybridbackend_tpu_torch.data.sync import DEFAULT_TIMEOUT_MS, wait_for_key
+from hybridbackend_tpu_torch.distribute import collective
+from hybridbackend_tpu_torch.embedding.table import (
+    TableConfig, TableShard, shard_of)
 from hybridbackend_tpu_torch.framework.context import Context
 from hybridbackend_tpu_torch.native import idmap
 from hybridbackend_tpu_torch.ops.gather import gather_rows
@@ -125,7 +161,11 @@ class EmbeddingCache:
       them; or ``storage`` with ``table_shapes`` (``{name: row shape}``)
       and optionally ``table_dtypes`` (float32 by default).
     ctx: the device of the cache's own arrays (:attr:`device`), the card
-      unless the caller asks for the CPU.
+      unless the caller asks for the CPU, and the world: in a world of
+      more than one rank every rank makes the same cache (the same host
+      tables), and :attr:`device` is this rank's shard of the slot rows
+      when the slot table is sharded and the world divides the capacity
+      (JAX ``:133-144``), else every slot row.
     native: the slot map in the native hash; ``False`` takes a dict over
       the unique ids (the same plans).
 
@@ -171,8 +211,13 @@ class EmbeddingCache:
     self.host: Dict[str, np.ndarray] = host_tables or {}
     # The cache's own arrays (standalone use); under SparseTrainer the
     # live arrays are the stacked training table and its slots.
+    self._device_shard = (
+        shard_of(self.slot_config(), self._ctx)
+        if self.capacity % self._ctx.world_size == 0 else None)
+    rows = (self.slot_config().shard_rows(self._ctx)
+            if self._device_shard is not None else slice(0, self.capacity))
     self.device: Dict[str, torch.Tensor] = {
-        name: torch.zeros((self.capacity,) + tuple(shape),
+        name: torch.zeros((rows.stop - rows.start,) + tuple(shape),
                           dtype=_torch_dtype(table_dtypes[name]),
                           device=self._ctx.device)
         for name, shape in table_shapes.items()}
@@ -245,7 +290,7 @@ class EmbeddingCache:
     inverse = inverse.reshape(-1)
     if len(uniq) > self.capacity:
       raise ValueError(
-          f'batch touches {len(uniq)} unique ids > capacity '
+          f'{self._batch_name()} touches {len(uniq)} unique ids > capacity '
           f'{self.capacity}; raise the cache capacity')
     self._step += 1
     slots_u = self._lookup_slots(uniq)
@@ -284,11 +329,17 @@ class EmbeddingCache:
     prot[protect_slots] = True
     cand = order[(self._slot_to_id[order] >= 0) & ~prot[order]]
     if len(cand) < need:
-      raise ValueError('cache thrash: cannot evict enough rows')
+      raise ValueError(f'cache thrash: cannot evict enough rows for the '
+                       f'{self._batch_name()}')
     evict = cand[:need]
     evict_ids = self._slot_to_id[evict].copy()
     self._slot_to_id[evict] = -1
     return np.concatenate([slots, evict]), evict, evict_ids
+
+  def _batch_name(self) -> str:
+    world = self._ctx.world_size
+    return ('batch' if world == 1 else
+            f'global batch of the world of {world} ranks')
 
   def _gather_to_host(self, arr: torch.Tensor, slots: np.ndarray
                       ) -> np.ndarray:
@@ -298,27 +349,86 @@ class EmbeddingCache:
         arr.device)
     return gather_rows(arr, idx).cpu().numpy()
 
+  def rows_to_host(self, arrays: Dict[str, torch.Tensor], rows: np.ndarray,
+                   shard: Optional[TableShard] = None
+                   ) -> Dict[str, np.ndarray]:
+    """Rows ``rows`` (of the whole table) of each array, on the host.
+
+    Whole arrays (``shard`` None) are read here through kernel 5. Of a
+    row shard, each owner reads its rows through kernel 5 at their local
+    index, and one all-gather of the owners' rows (every array's bytes
+    side by side, padded to the most rows a rank owns) gives every rank
+    all of them: a collective, which every rank calls with the same
+    ``rows``."""
+    if shard is None:
+      return {name: self._gather_to_host(arr, rows)
+              for name, arr in arrays.items()}
+    ctx = self._ctx
+    local = next(iter(arrays.values())).shape[0]
+    owner = rows // local
+    counts = np.bincount(owner, minlength=ctx.world_size)
+    width = int(counts.max())
+    mine = torch.from_numpy(
+        np.ascontiguousarray(rows[owner == ctx.rank] - shard.start, np.int64))
+    parts = []
+    for arr in arrays.values():
+      got = (gather_rows(arr, mine.to(arr.device)) if mine.numel()
+             else arr.new_empty((0, *arr.shape[1:])))
+      parts.append(got.reshape(got.shape[0], arr[0].numel()).view(torch.uint8))
+    mine_bytes = torch.cat(parts, dim=1)
+    pad = mine_bytes.new_zeros((width - mine_bytes.shape[0],
+                                mine_bytes.shape[1]))
+    every = collective.allgather(torch.cat([mine_bytes, pad]), ctx=ctx).cpu()
+    # Row i of ``rows`` is row k of its owner's block when it is the k-th
+    # row that owner holds.
+    src = np.empty(len(rows), np.int64)
+    for r in range(ctx.world_size):
+      at = np.nonzero(owner == r)[0]
+      src[at] = r * width + np.arange(len(at))
+    got = every[torch.from_numpy(src)]
+    out, col = {}, 0
+    for (name, arr), part in zip(arrays.items(), parts):
+      n = part.shape[1]
+      out[name] = got[:, col:col + n].contiguous().view(arr.dtype).reshape(
+          len(rows), *arr.shape[1:]).numpy()
+      col += n
+    return out
+
   def apply_plan(self, arrays: Dict[str, torch.Tensor], plan: CachePlan,
-                 row_offset: int = 0) -> Dict[str, torch.Tensor]:
+                 row_offset: int = 0, shard: Optional[TableShard] = None
+                 ) -> Dict[str, torch.Tensor]:
     """Execute a plan's array effects in place on ``arrays`` (keyed as
     the cache's tables; ``row_offset`` shifts the slots, for a cached
     table that is a member of a stacked one): write the evicted rows back
-    to storage, then upload the missed rows. Returns ``arrays``."""
+    to storage, then upload the missed rows. Returns ``arrays``.
+
+    ``shard`` is the arrays' row shard when they are this rank's rows of
+    a row-sharded table (``shard_of``): each rank then uploads only the
+    rows it holds, and the evicted rows reach every rank's storage
+    through :meth:`rows_to_host`'s all-gather, so every rank calls this
+    with the same plan."""
     if plan.evict_slots.size:
       t0 = time.perf_counter()
-      for name, arr in arrays.items():
-        self.storage.push(name, plan.evict_ids, self._gather_to_host(
-            arr, plan.evict_slots + row_offset))
+      rows = self.rows_to_host(arrays, plan.evict_slots + row_offset, shard)
+      for name, values in rows.items():
+        self.storage.push(name, plan.evict_ids, values)
       self.stats['evicted'] += plan.evict_slots.size
       self.stats['evict_calls'] += 1
       self.stats['evict_s'] += time.perf_counter() - t0
     if plan.miss_slots.size:
       t0 = time.perf_counter()
-      with torch.no_grad():
-        for name, arr in arrays.items():
-          idx = _staged(plan.miss_slots + row_offset, arr.device)
-          rows = _staged(self.storage.pull(name, plan.miss_ids), arr.device)
-          arr.index_copy_(0, idx, rows.to(arr.dtype))
+      rows, ids = plan.miss_slots + row_offset, plan.miss_ids
+      if shard is not None:
+        lo = shard.start
+        hi = lo + next(iter(arrays.values())).shape[0]
+        keep = (rows >= lo) & (rows < hi)
+        rows, ids = rows[keep] - lo, ids[keep]
+      if rows.size:
+        with torch.no_grad():
+          for name, arr in arrays.items():
+            idx = _staged(rows, arr.device)
+            values = _staged(self.storage.pull(name, ids), arr.device)
+            arr.index_copy_(0, idx, values.to(arr.dtype))
       self.stats['uploaded'] += plan.miss_slots.size
       self.stats['upload_s'] += time.perf_counter() - t0
     return arrays
@@ -327,24 +437,30 @@ class EmbeddingCache:
 
   def prepare(self, ids: np.ndarray) -> np.ndarray:
     """Plan and apply against the cache's own arrays; returns the slots.
-    Call once per step, before the step."""
+    Call once per step, before the step; in a world, every rank with the
+    same ids (the global batch, as JAX's one process plans it)."""
     plan = self.prepare_plan(ids)
-    self.apply_plan(self.device, plan)
+    self.apply_plan(self.device, plan, shard=self._device_shard)
     return plan.slots
 
   def flush(self, arrays: Optional[Dict[str, torch.Tensor]] = None,
-            row_offset: int = 0) -> None:
+            row_offset: int = 0, shard: Optional[TableShard] = None
+            ) -> None:
     """Write every resident row back to storage (the reference's
-    ``before_save_checkpoints``, ``service.py:306-324``)."""
-    arrays = self.device if arrays is None else arrays
+    ``before_save_checkpoints``, ``service.py:306-324``); of a row shard
+    (``shard``, or the cache's own sharded arrays) a collective that
+    every rank calls, after which every rank's storage holds every
+    row."""
+    if arrays is None:
+      arrays, shard = self.device, self._device_shard
     with self._meta_lock:
       resident = np.nonzero(self._slot_to_id >= 0)[0]
       if not resident.size:
         return
       owners = self._slot_to_id[resident].copy()
-    for name, arr in arrays.items():
-      self.storage.push(name, owners,
-                        self._gather_to_host(arr, resident + row_offset))
+    for name, values in self.rows_to_host(arrays, resident + row_offset,
+                                          shard).items():
+      self.storage.push(name, owners, values)
 
   def lookup_slots(self, ids: np.ndarray) -> np.ndarray:
     """Read-only id-to-slot probe (evaluation: a miss is -1, which looks
@@ -357,10 +473,21 @@ class EmbeddingCache:
     return slots[inverse.reshape(-1)].astype(np.int32).reshape(shape)
 
   def lookup_embeddings(self, slots: np.ndarray) -> torch.Tensor:
-    """The cached value rows of prepared slots (kernel 5)."""
+    """The cached value rows of prepared slots (kernel 5); of sharded
+    arrays, this rank's slots through the sharded serving lookup (a
+    collective)."""
     table = self.device['value']
-    return gather_rows(table, torch.as_tensor(np.asarray(slots),
-                                              device=table.device))
+    slots = torch.as_tensor(np.asarray(slots), device=table.device)
+    if self._device_shard is not None:
+      from hybridbackend_tpu_torch.embedding.lookup import lookup
+      return lookup(table, slots, self.slot_config(), serving=True,
+                    ctx=self._ctx)
+    return gather_rows(table, slots)
+
+
+# One id per runner, counted per rank; the ranks agree on it as long as
+# each makes its runners (its cached trainers) in the same order.
+_RUNNER_IDS = collections.defaultdict(itertools.count)
 
 
 class CacheRunner:
@@ -371,39 +498,122 @@ class CacheRunner:
   slots; the trainer calls :meth:`apply_next` before each step to execute
   the oldest plan against the live state, :meth:`checkpoint_flush` at
   mid-train checkpoints, and :meth:`drain` then :meth:`flush` at the
-  end. ``fx`` locates each cached table: its stack and row offset.
+  end. ``fx`` locates each cached table: its stack, row offset and
+  shard.
+
+  In a world of more than one rank (``fx.ctx``, which each cache's
+  context must match) every rank plans every batch of the world: see the
+  module docstring. Every rank transforms the same batches in the same
+  order (the trainer's ``SyncReplicasIterator`` sees to that), and calls
+  :meth:`apply_next`, :meth:`drain`, :meth:`flush` and
+  :meth:`checkpoint_flush` at the same steps. A peer that posts no ids
+  within ``timeout_ms`` raises an error that names it; :meth:`cancel`
+  ends a pending wait (the transform raises ``SyncCancelled``) until
+  :meth:`open`.
   """
 
-  def __init__(self, caches: Dict[str, EmbeddingCache], fx):
+  def __init__(self, caches: Dict[str, EmbeddingCache], fx,
+               timeout_ms: int = DEFAULT_TIMEOUT_MS):
     self._caches = dict(caches)
     self._plans: collections.deque = collections.deque()
     # Spans a plan's creation and its queueing, so that checkpoint_flush
     # takes one consistent snapshot of (pending plans, slot metadata)
     # while the producer keeps planning.
     self._runner_lock = threading.Lock()
-    self._loc: Dict[str, Tuple[str, int]] = {}
+    self._ctx = ctx = fx.ctx
+    self._loc: Dict[str, Tuple[str, int, Optional[TableShard]]] = {}
     for col, cache in self._caches.items():
+      if (cache._ctx.world_size, cache._ctx.rank) != (ctx.world_size,
+                                                     ctx.rank):
+        raise ValueError(
+            f'cache for column {col!r} was made in a world of '
+            f'{cache._ctx.world_size} ranks (rank {cache._ctx.rank}), the '
+            f'feature extractor in one of {ctx.world_size} (rank '
+            f'{ctx.rank}); give both the same context')
       name = cache.config.name
       stack = fx.stack_of(name)
       _, off = stack.member(name)
-      self._loc[col] = (stack.stacked.name, off)
+      shard = shard_of(stack.stacked, ctx)
+      if shard is not None and shard.by_column:
+        raise ValueError(
+            f'cached table {name!r} is column-partitioned; a cache in a '
+            'world keeps its slots row-sharded (partition="row")')
+      self._loc[col] = (stack.stacked.name, off, shard)
+    self._store = None
+    if ctx.world_size > 1:
+      if ctx.store is None:
+        raise ValueError('host-backed tables in a world of '
+                         f'{ctx.world_size} ranks need the store of a '
+                         'joined context (Context.join)')
+      import torch.distributed as dist
+      self._store = dist.PrefixStore('hb_cache', ctx.store)
+    self._rid = next(_RUNNER_IDS[ctx.rank])
+    self._xstep = 0
+    self._timeout_s = timeout_ms / 1e3
+    self._cancel = threading.Event()
+
+  def cancel(self) -> None:
+    """End a pending exchange of ids: the transform raises
+    ``SyncCancelled``, now and until :meth:`open`."""
+    self._cancel.set()
+
+  def open(self) -> None:
+    """Let transforms exchange again after :meth:`cancel`."""
+    self._cancel.clear()
+
+  def _key(self, step: int, rank: int) -> str:
+    return f'{self._rid}/{step}/{rank}'
+
+  def _global_ids(self, ids: Dict[str, np.ndarray]
+                  ) -> Tuple[Dict[str, np.ndarray], slice]:
+    """The world's ids of each cached column, the ranks' in rank order,
+    and this rank's rows among them: one exchange through the store."""
+    ctx, store = self._ctx, self._store
+    step = self._xstep
+    self._xstep += 1
+    store.set(self._key(step, ctx.rank), pickle.dumps(ids))
+    deadline = time.monotonic() + self._timeout_s
+    parts = []
+    for r in range(ctx.world_size):
+      key = self._key(step, r)
+      wait_for_key(store, key, deadline, self._cancel,
+                   f'CacheRunner: rank {r} posted no ids for step {step} '
+                   f'within {self._timeout_s * 1e3:.0f} ms (this is rank '
+                   f'{ctx.rank}; key {key}). The peer is dead or stalled.')
+      parts.append(pickle.loads(store.get(key)))
+    if step >= 2:
+      # Every peer has posted step - 1, so has read step - 2.
+      try:
+        store.delete_key(self._key(step - 2, ctx.rank))
+      except Exception:  # noqa: BLE001 — clean-up is best-effort
+        pass
+    counts = [len(next(iter(p.values()))) for p in parts]
+    lo = sum(counts[:ctx.rank])
+    return ({col: np.concatenate([p[col] for p in parts]) for col in ids},
+            slice(lo, lo + counts[ctx.rank]))
 
   def transform(self, batch):
     """Producer side: map the cached columns' ids to slots, queue the
-    plan."""
+    plan. In a world, the plan is of the world's batch, and the slots
+    returned are this rank's rows'."""
     batch = dict(batch)
+    ids = {col: np.asarray(batch[col]) for col in self._caches}
+    rows = slice(None)
+    if self._store is not None:
+      ids, rows = self._global_ids(ids)
     with self._runner_lock:
       plans = {}
       for col, cache in self._caches.items():
-        plan = cache.prepare_plan(np.asarray(batch[col]))
-        batch[col] = plan.slots
+        plan = cache.prepare_plan(ids[col])
+        batch[col] = plan.slots[rows]
         plans[col] = plan
       self._plans.append(plans)
     return batch
 
   def eval_transform(self, batch):
     """Read-only slot mapping for evaluation and prediction: a miss is
-    -1 (zeros).
+    -1 (zeros). In a world each rank maps its own rows, with no exchange:
+    the ranks' metadata, rewound past their pending plans, is the same.
 
     Mid-train, the live map already holds the queued plans, whose
     uploads have not reached the arrays: resolving against it would read
@@ -473,9 +683,9 @@ class CacheRunner:
       return state
     plans = self._plans.popleft()
     for col, plan in plans.items():
-      sname, off = self._loc[col]
+      sname, off, shard = self._loc[col]
       self._caches[col].apply_plan(self._arrays_of(state, sname), plan,
-                                   row_offset=off)
+                                   row_offset=off, shard=shard)
     return state
 
   def drain(self, state):
@@ -492,8 +702,9 @@ class CacheRunner:
     loop's end, after :meth:`drain`); mid-train use
     :meth:`checkpoint_flush`."""
     for col, cache in self._caches.items():
-      sname, off = self._loc[col]
-      cache.flush(self._arrays_of(state, sname), row_offset=off)
+      sname, off, shard = self._loc[col]
+      cache.flush(self._arrays_of(state, sname), row_offset=off,
+                  shard=shard)
 
   def checkpoint_flush(self, state) -> None:
     """A flush consistent with the arrays while the producer keeps
@@ -521,10 +732,10 @@ class CacheRunner:
       if not resident.size:
         continue
       owners = s2id[resident]
-      sname, off = self._loc[col]
-      for name, arr in self._arrays_of(state, sname).items():
-        cache.storage.push(name, owners,
-                           cache._gather_to_host(arr, resident + off))
+      sname, off, shard = self._loc[col]
+      for name, values in cache.rows_to_host(
+          self._arrays_of(state, sname), resident + off, shard).items():
+        cache.storage.push(name, owners, values)
 
 
 __all__ = ['CachePlan', 'CacheRunner', 'EmbeddingCache', 'InMemoryStorage',

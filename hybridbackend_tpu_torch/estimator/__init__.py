@@ -63,10 +63,13 @@ trains on its own batches, its rows of the global batch:
   (a column shard's along the dim) and rank 0 alone writes the bundle,
   the unsharded one ``Served`` loads (JAX ``:362-375,513-533``).
 * Rank 0 alone logs, and its hooks alone report (``training/hooks.py``).
-
-Host-backed tables (``caches``) keep a slot map per host, which a world
-would have to agree on: ``SparseTrainer(caches=...)`` in a world of more
-than one rank raises (ROADMAP item 15b (10)).
+* Host-backed tables (``SparseTrainer(caches=...)``) keep one slot map
+  over the world, the same on every rank: each batch's cached ids are
+  exchanged and planned as the world's batch, the cache's rows live on
+  their owners' shards, and every rank's storage receives every evicted
+  and flushed row (``embedding/service.py``). A checkpoint flushes on
+  every rank before it saves the shards; the export writes the bundle
+  from rank 0's storage, which holds every row.
 """
 
 from __future__ import annotations
@@ -74,6 +77,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import itertools
 import logging
 from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Sequence
 
@@ -361,14 +365,23 @@ class Trainer:
     with ``eval_batches_fn`` runs a full :meth:`evaluate` every N steps.
     In a world, ``batches`` are this rank's, and every rank stops when
     any runs out (``sync=False`` leaves that, and equal row counts, to
-    the caller).
+    the caller; with host-backed tables also that every rank maps the
+    same batches). A trainer in a world reads no batch past
+    ``max_steps``: the ranks then end together, through the sync
+    iterator's final exchange, and not by a break after a batch whose
+    exchange a peer may still be reading (nor with a producer thread's
+    read-ahead planning other batches on one rank than on another).
     """
     it: Iterator = iter(batches)
+    if self._world > 1 and max_steps is not None:
+      it = itertools.islice(it, max_steps)
+    runner = self._cache_runner
+    if runner is not None:
+      runner.open()
     sync_it = None
     if sync:
       it = sync_it = SyncReplicasIterator(it, ctx=self._ctx)
     it = self._device_batches(it, prefetch, self._host_transform)
-    runner = self._cache_runner
     hooks = list(hooks)
     if isinstance(it, DeviceIterator):
       for h in hooks:
@@ -405,6 +418,8 @@ class Trainer:
           self._log('eval @ step %d: %s', step_no,
                     self.evaluate(eval_batches_fn()))
     finally:
+      if runner is not None:
+        runner.cancel()      # a producer waiting for a peer's ids
       if isinstance(it, DeviceIterator):
         it.close()           # closes the sync iterator it wraps
       elif sync_it is not None:
@@ -606,8 +621,15 @@ class SparseTrainer(Trainer):
       reference's EmbeddingService hooks, ``service.py:253-324``). The
       resident rows are written back to storage at every checkpoint; with
       no ``model_dir``, call ``_cache_runner.flush(state)`` after
-      training, as with the JAX trainer. Not in a world of more than one
-      rank: ROADMAP item 15b (10).
+      training, as with the JAX trainer. In a world, every rank declares
+      the same caches over the same host tables, with the world's
+      context; each cache must hold the distinct ids of the world's
+      batch (see ``embedding/service.py``).
+    step_options: more keywords of ``make_sparse_train_step`` (the
+      exchange options and wire dtypes of a world, such as
+      ``wire_dtype``, ``gradient_wire_dtype``, ``lookup_bucket_ratio``,
+      ``update_bucket_ratio``, ``unique_ratio``), the JAX options the
+      JAX trainer reads.
   The other arguments are :class:`Trainer`'s.
   """
 
@@ -624,13 +646,9 @@ class SparseTrainer(Trainer):
                keep_checkpoint_max: int = 5, grow_vocab: bool = False,
                prefetch_capacity: int = 2,
                caches: Optional[Dict[str, EmbeddingCache]] = None,
-               lookup_strategy: str = 'allgather'):
+               lookup_strategy: str = 'allgather',
+               step_options: Optional[Dict[str, Any]] = None):
     ctx = fx.ctx
-    if caches and ctx.world_size > 1:
-      raise NotImplementedError(
-          'SparseTrainer(caches=...) in a world of more than one rank is '
-          'ROADMAP item 15b (10): a cache\'s slot map is per host, and the '
-          'ranks would have to agree on it')
     self._caches = dict(caches) if caches else {}
     if self._caches:
       nslots = 2 if table_optimizer == 'adam' else 1
@@ -659,7 +677,8 @@ class SparseTrainer(Trainer):
     self._raw_model_loss = raw_model_loss
     self._step_fn = make_sparse_train_step(
         fx, model_loss, table_lr, table_optimizer=table_optimizer,
-        raw_model_loss=raw_model_loss, lookup_strategy=lookup_strategy)
+        raw_model_loss=raw_model_loss, lookup_strategy=lookup_strategy,
+        **(step_options or {}))
     loss_of = loss_from_raw(fx, model_loss, raw_model_loss)
 
     def eval_fn(params, batch):

@@ -29,9 +29,33 @@ script runs anywhere:
   python -m hybridbackend_tpu_torch.examples.criteo.train --synthesize \\
       --sparse --steps 200
 
-Not ported, each exits at once with its reason: ``--lookup`` and
-``--cpu`` (multi-device lookup strategies and host meshes, ROADMAP queue
-1 item 15).
+Under the port's launcher it runs one rank of a world of N, as the JAX
+example runs one process of a mesh: each rank joins the world
+(``Context.join``), reads the file's row groups ``i ≡ rank (mod N)``
+(``ParquetDataset``'s ``partition_index`` and ``partition_count``) in
+batches of ``--batch-size`` rows (its rows of a global batch of N times
+that), and trains the sharded tables through the ``--lookup`` exchange
+(``allgather``, ``alltoall``, ``gspmd`` or ``hierarchical``, the JAX
+default ``allgather``; at a world of one there is no exchange). A file
+with fewer row groups than ranks is refused with both counts; the
+sample it synthesizes has at least one row group a rank. Rank 0 alone
+prints and writes the sample; ``--export`` is called by every rank and
+rank 0 writes the bundle. With ``--cached`` every rank builds the same
+host table from the same seed and declares the same cache, whose slot
+map the ranks plan together (``embedding/service.py``); its capacity
+must hold the distinct ids of the world's batch. For example, on two CPU
+ranks:
+
+  python -m hybridbackend_tpu_torch.run --simulate 2 --device cpu \
+      -m hybridbackend_tpu_torch.examples.criteo.train --device cpu \
+      --synthesize --sparse --cached 256 --lookup alltoall --vocab 1000 \
+      --batch-size 64 --steps 8
+
+``--no-shuffle`` trains in file order (with row groups of one rank's
+batch, a world of N then trains the batches of a world of one of N
+times ``--batch-size``). ``--cpu N`` is refused: it is a mesh of N host
+devices in one process, and the port's ranks are processes; start them
+with ``python -m hybridbackend_tpu_torch.run --simulate N``.
 """
 
 from __future__ import annotations
@@ -48,18 +72,21 @@ import numpy as np
 import torch
 from torch import nn
 
+from hybridbackend_tpu_torch.benchmarks.train_benchmark import (
+    cpu_refused, in_world, row_group_for)
+from hybridbackend_tpu_torch.examples import FileTooSmall, check_row_groups
+
 NUM_DENSE = 13
 NUM_CAT = 26
 SEED = 0
 ROW_GROUP = 8192
-# Flags of the JAX example the port does not take yet, and the ROADMAP
-# (queue 1) item that brings each.
-NOT_PORTED = {'lookup': ('--lookup', 15), 'cpu': ('--cpu', 15)}
 CACHE_SEED = 42
+STRATEGIES = ('allgather', 'alltoall', 'gspmd', 'hierarchical')
 
 
 def synthesize(path: str, rows: int, vocabs: List[int],
-               dense_features: int = NUM_DENSE) -> None:
+               dense_features: int = NUM_DENSE,
+               row_group: int = ROW_GROUP) -> None:
   """A Criteo-shaped Parquet sample with a planted signal, the JAX
   example's draws from ``RandomState(0)``: for each categorical column
   zipf(1.5) ids modulo its vocab (int64), an id that 5 divides in one of
@@ -85,7 +112,7 @@ def synthesize(path: str, rows: int, vocabs: List[int],
   p = 1.0 / (1.0 + np.exp(-(signal - signal.mean())))
   cols['label'] = (rng.rand(rows) < p).astype(np.float32)
   os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-  pq.write_table(pa.table(cols), path, row_group_size=ROW_GROUP)
+  pq.write_table(pa.table(cols), path, row_group_size=row_group)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -119,16 +146,20 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
   p.add_argument('--cached', type=int, default=0, metavar='CAP',
                  help='keep the largest table in host DRAM behind a CAP-row '
                       'device cache (implies --sparse)')
-  p.add_argument('--lookup', default=None, help='not ported (item 15)')
-  p.add_argument('--cpu', type=int, default=0, help='not ported (item 15)')
+  p.add_argument('--lookup', default='allgather', choices=STRATEGIES,
+                 help='the sharded tables\' exchange, under the launcher')
+  p.add_argument('--no-shuffle', action='store_true',
+                 help='train in file order')
+  p.add_argument('--cpu', type=int, default=0,
+                 help='devices of a host mesh (not ported: start ranks '
+                      'with python -m hybridbackend_tpu_torch.run)')
   return p.parse_args(argv)
 
 
 def unsupported(args: argparse.Namespace) -> Optional[str]:
   """Why these flags cannot run, or None."""
-  for key, (flag, item) in NOT_PORTED.items():
-    if getattr(args, key):
-      return (f'{flag} is not ported yet (ROADMAP queue 1 item {item})')
+  if args.cpu:
+    return cpu_refused('hybridbackend_tpu_torch.examples.criteo.train')
   if (args.export_poly or args.export_int8) and not args.export:
     return '--export-poly and --export-int8 shape the bundle of --export DIR'
   if args.export and not (args.sparse or args.cached):
@@ -164,10 +195,11 @@ def _tower(args: argparse.Namespace, device: torch.device,
   return tower, lambda t, emb_f, dense_f: t(dense_f, emb_f)
 
 
-def host_cache(args: argparse.Namespace, device: torch.device):
+def host_cache(args: argparse.Namespace, device: torch.device, ctx=None):
   """``(column, EmbeddingCache)`` of ``--cached``: the largest table in
   host DRAM, its values and Adagrad accumulator drawn as the JAX example
-  draws them, behind ``--cached`` device rows."""
+  draws them, behind ``--cached`` device rows; in the world ``ctx``, the
+  same on every rank."""
   import hybridbackend_tpu_torch as hbt
   vocab = vocabs(args)
   big = int(np.argmax(vocab))
@@ -177,29 +209,32 @@ def host_cache(args: argparse.Namespace, device: torch.device):
           'slot0': np.full((vocab[big], args.dim), 0.1, np.float32)}
   return f'c{big}', hbt.EmbeddingCache(
       hbt.TableConfig(f'c{big}', vocab[big], args.dim), args.cached,
-      host_tables=host, ctx=hbt.Context(device))
+      host_tables=host, ctx=ctx or hbt.Context(device))
 
 
-def sparse_trainer(args: argparse.Namespace, device: torch.device):
+def sparse_trainer(args: argparse.Namespace, device: torch.device,
+                   ctx=None):
   """The ``--sparse`` trainer: stacked tables under row-sparse Adagrad
   (accumulator 0.1) at ``--lr-tables``, the tower under Adam at
   ``--lr-dense``, checkpoints in ``--model-dir``; with ``--cached``, the
-  largest table behind its host cache (``host_cache``)."""
+  largest table behind its host cache (``host_cache``); in the world
+  ``ctx`` (a world of one on ``device`` when None), the rank's shards,
+  looked up through ``--lookup``."""
   import hybridbackend_tpu_torch as hbt
   from hybridbackend_tpu_torch.benchmarks.train_benchmark import bce
+  ctx = ctx or hbt.Context(device)
   specs = _specs(args)
   caches = None
   if args.cached:
-    col, cache = host_cache(args, device)
+    col, cache = host_cache(args, device, ctx)
     caches = {col: cache}
     specs = [hbt.EmbeddingSpec(cache.slot_config(), column=col)
              if s.key == col else s for s in specs]
   fx = hbt.StackedFeatureExtractor(
-      specs, dense_columns=[f'i{d}' for d in range(NUM_DENSE)],
-      ctx=hbt.Context(device))
+      specs, dense_columns=[f'i{d}' for d in range(NUM_DENSE)], ctx=ctx)
   gen = torch.Generator().manual_seed(SEED)
   tables = fx.init(gen)
-  tower, preds = _tower(args, device, gen)
+  tower, preds = _tower(args, ctx.device, gen)
 
   def model_loss(t, emb_f, dense_f, batch):
     return bce(preds(t, emb_f, dense_f), batch['label'])
@@ -208,42 +243,49 @@ def sparse_trainer(args: argparse.Namespace, device: torch.device):
       fx, model_loss, tower, tables=tables,
       dense_optimizer=functools.partial(torch.optim.Adam, lr=args.lr_dense),
       table_lr=args.lr_tables, model_dir=args.model_dir or None,
-      caches=caches)
+      caches=caches, lookup_strategy=args.lookup)
 
 
-def dense_trainer(args: argparse.Namespace, device: torch.device):
+def dense_trainer(args: argparse.Namespace, device: torch.device, ctx=None):
   """The dense-gradient trainer: one table per column under
-  ``multi_optimizer(Adagrad(--lr-tables), Adam(--lr-dense))``."""
+  ``multi_optimizer(Adagrad(--lr-tables), Adam(--lr-dense))``; in the
+  world ``ctx``, data-parallel with the rank's shards of the tables,
+  looked up through ``--lookup``."""
   import hybridbackend_tpu_torch as hbt
   from hybridbackend_tpu_torch.benchmarks.train_benchmark import bce
+  ctx = ctx or hbt.Context(device)
   specs = _specs(args)
   dense_names = [f'i{d}' for d in range(NUM_DENSE)]
   gen = torch.Generator().manual_seed(SEED)
-  tables = hbt.init_tables(specs, gen, device)
-  tower, preds = _tower(args, device, gen)
+  tables = hbt.init_tables(specs, gen, ctx.device, ctx)
+  tower, preds = _tower(args, ctx.device, gen)
   module = nn.ModuleDict({'tables': tables, 'net': tower})
 
   def loss_fn(m, batch):
     emb_f, dense_f = hbt.extract_features(m['tables'], batch, specs,
-                                          dense_names)
+                                          dense_names, ctx=ctx,
+                                          strategy=args.lookup)
     return bce(preds(m['net'], emb_f, dense_f), batch['label'])
 
   optimizer = hbt.multi_optimizer(
       functools.partial(hbt.Adagrad, lr=args.lr_tables),
       functools.partial(torch.optim.Adam, lr=args.lr_dense))(module)
   return hbt.Trainer(loss_fn, module, optimizer,
-                     model_dir=args.model_dir or None,
-                     ctx=hbt.Context(device))
+                     model_dir=args.model_dir or None, ctx=ctx)
 
 
-def batches(args: argparse.Namespace, shuffle: bool):
+def batches(args: argparse.Namespace, shuffle: bool, ctx=None):
   """An iterator over the file's batches of ``--batch-size`` rows: shuffled
-  for training, in file order for evaluation. Its ``reader`` says which
-  reader serves it."""
+  for training (unless ``--no-shuffle``), in file order for evaluation;
+  in the world ``ctx``, of the rank's row groups. Its ``reader`` says
+  which reader serves it."""
   import hybridbackend_tpu_torch as hbt
+  part = {} if ctx is None else dict(partition_index=ctx.rank,
+                                     partition_count=ctx.world_size)
   return iter(hbt.data.Dataset.from_parquet(
       args.data, batch_size=args.batch_size, drop_remainder=True,
-      shuffle=shuffle, native=False if args.python_reader else None))
+      shuffle=shuffle and not args.no_shuffle,
+      native=False if args.python_reader else None, **part))
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -252,57 +294,71 @@ def main(argv: Optional[List[str]] = None) -> int:
   if why:
     print(f'criteo/train.py: {why}', file=sys.stderr)
     return 1
-  run(args)
+  try:
+    in_world(args.device, lambda ctx: run(args, ctx))
+  except FileTooSmall as e:
+    print(f'criteo/train.py: {e}', file=sys.stderr)
+    return 1
   return 0
 
 
-def run(args: argparse.Namespace):
-  """Trains (and exports) as the flags say; returns the trainer."""
+def run(args: argparse.Namespace, ctx=None):
+  """Trains (and exports) as the flags say; returns the trainer. In the
+  world ``ctx`` (a joined context), this rank's trainer."""
   import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.distribute import collective
+  world = ctx.world_size if ctx is not None else 1
+  chief = ctx is None or ctx.is_chief
+  say = print if chief else (lambda *a, **k: None)
   if args.cached:
     args.sparse = True
   if not args.data:
     args.data = os.path.join(tempfile.gettempdir(), 'criteo_sample.parquet')
     args.synthesize = not os.path.exists(args.data)
-  if args.synthesize:
-    print(f'synthesizing {args.rows} rows → {args.data}')
-    synthesize(args.data, args.rows, vocabs(args))
-  device = torch.device(args.device)
+  if args.synthesize and chief:
+    say(f'synthesizing {args.rows} rows → {args.data}')
+    synthesize(args.data, args.rows, vocabs(args),
+               row_group=row_group_for(args.rows, ROW_GROUP, world))
+  if world > 1:
+    # The other ranks wait for the sample.
+    collective.allreduce(torch.zeros(1, device=ctx.device), ctx=ctx)
+    check_row_groups(args.data, world)
+  device = ctx.device if ctx is not None else torch.device(args.device)
 
   if args.sparse:
-    trainer = sparse_trainer(args, device)
+    trainer = sparse_trainer(args, device, ctx)
     for epoch in range(args.epochs):
-      train_it = batches(args, True)
-      print(f'epoch {epoch}: reading {args.data} through the '
-            f'{train_it.reader} reader'
-            + (f' ({train_it.fallback_reason})'
-               if train_it.fallback_reason else ''))
+      train_it = batches(args, True, ctx)
+      say(f'epoch {epoch}: reading {args.data} through the '
+          f'{train_it.reader} reader'
+          + (f' ({train_it.fallback_reason})'
+             if train_it.fallback_reason else ''))
       t0 = time.time()
       m = trainer.train(train_it, max_steps=args.steps or None)
       if device.type == 'cuda':
         torch.cuda.synchronize(device)
       dt = time.time() - t0
-      res = trainer.evaluate(batches(args, False))
-      print(f'epoch {epoch}: loss={m["loss"]:.4f}, auc={res["auc"]:.4f}, '
-            f'{dt:.1f}s, step {trainer.global_step}')
+      res = trainer.evaluate(batches(args, False, ctx))
+      say(f'epoch {epoch}: loss={m["loss"]:.4f}, auc={res["auc"]:.4f}, '
+          f'{dt:.1f}s, step {trainer.global_step}')
     if args.export:
-      example = next(batches(args, False))
+      example = next(batches(args, False, ctx))
       path = trainer.export_saved_model(
           args.export, example,
           table_dtype='int8' if args.export_int8 else 'float32',
           poly_batch=args.export_poly)
-      print(f'exported serving bundle → {path}'
-            + (' (int8 tables)' if args.export_int8 else ''))
+      say(f'exported serving bundle → {path}'
+          + (' (int8 tables)' if args.export_int8 else ''))
     return trainer
 
-  trainer = dense_trainer(args, device)
+  trainer = dense_trainer(args, device, ctx)
   hooks = [hbt.StepStatHook(batch_size=args.batch_size, every_n_steps=50,
                             log=print),
            hbt.LoggingHook(every_n_steps=50, log=print)]
   for epoch in range(args.epochs):
-    trainer.train(batches(args, True), max_steps=args.steps, hooks=hooks)
-    results = trainer.evaluate(batches(args, False))
-    print(f'epoch {epoch}: {results}')
+    trainer.train(batches(args, True, ctx), max_steps=args.steps, hooks=hooks)
+    results = trainer.evaluate(batches(args, False, ctx))
+    say(f'epoch {epoch}: {results}')
   return trainer
 
 

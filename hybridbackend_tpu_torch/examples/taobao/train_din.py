@@ -25,6 +25,18 @@ Taobao-shaped Parquet sample, the JAX example's draws:
 
   python -m hybridbackend_tpu_torch.examples.taobao.train_din --synthesize \\
       --sparse [--sessions] --steps 200
+
+Under the port's launcher it runs one rank of a world of N, as the JAX
+example runs one process of a mesh: each rank joins the world, reads the
+file's row groups ``i ≡ rank (mod N)`` in batches of ``--batch-size``
+rows, and looks the sharded tables up through ``--lookup`` (with
+``--sparse``, the raw-mode sharded step and ``SparseTrainer`` at N; the
+dense trainer is data-parallel over the rank's shards). Rank 0 alone
+prints and writes the sample, which has at least one row group a rank; a
+file with fewer is refused with both counts. ``--no-shuffle`` trains in
+file order. ``--cpu N`` (a mesh of N host devices in one process) is
+refused: start N ranks with ``python -m hybridbackend_tpu_torch.run
+--simulate N``.
 """
 
 from __future__ import annotations
@@ -40,6 +52,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from hybridbackend_tpu_torch.benchmarks.train_benchmark import (
+    cpu_refused, in_world, row_group_for)
+from hybridbackend_tpu_torch.examples import FileTooSmall, check_row_groups
+
 ITEM_VOCAB = 50_000
 USER_VOCAB = 20_000
 CATE_VOCAB = 1_000
@@ -47,7 +63,8 @@ SEED = 0
 ROW_GROUP = 4096
 
 
-def synthesize(path: str, rows: int, sessions: bool = False) -> None:
+def synthesize(path: str, rows: int, sessions: bool = False,
+               row_group: int = ROW_GROUP) -> None:
   """The JAX example's sample, drawn from ``RandomState(0)`` in its order:
   users with a preferred category, half the candidates from it, click
   histories of 1-19 items of that category (split into 1-4 sessions of
@@ -55,7 +72,7 @@ def synthesize(path: str, rows: int, sessions: bool = False) -> None:
   0.9 for an in-category candidate and 0.1 for another. Columns ``user``
   and ``item`` (int64), ``hist`` (``list<int64>``, or
   ``list<list<int64>>``) and ``label`` (float32), in row groups of
-  4096."""
+  ``row_group`` rows (4096)."""
   import pyarrow as pa
   import pyarrow.parquet as pq
   rng = np.random.RandomState(0)
@@ -88,7 +105,7 @@ def synthesize(path: str, rows: int, sessions: bool = False) -> None:
       'user': pa.array(user.astype(np.int64)),
       'item': pa.array(item.astype(np.int64)),
       'hist': pa.array(hists, type=hist_type),
-      'label': pa.array(label)}), path, row_group_size=ROW_GROUP)
+      'label': pa.array(label)}), path, row_group_size=row_group)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -111,11 +128,21 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
   p.add_argument('--max-sessions', type=int, default=4)
   p.add_argument('--device', default='cuda',
                  help="'cuda' (default) or 'cpu'")
+  p.add_argument('--lookup', default='allgather',
+                 choices=['allgather', 'alltoall', 'gspmd', 'hierarchical'],
+                 help='the sharded tables\' exchange, under the launcher')
+  p.add_argument('--no-shuffle', action='store_true',
+                 help='train in file order')
+  p.add_argument('--cpu', type=int, default=0,
+                 help='devices of a host mesh (not ported: start ranks '
+                      'with python -m hybridbackend_tpu_torch.run)')
   return p.parse_args(argv)
 
 
 def unsupported(args: argparse.Namespace) -> Optional[str]:
   """Why these flags cannot run, or None."""
+  if args.cpu:
+    return cpu_refused('hybridbackend_tpu_torch.examples.taobao.train_din')
   if torch.device(args.device).type == 'cuda' and (
       not torch.cuda.is_available()):
     return 'no CUDA device; pass --device cpu to run on the CPU'
@@ -143,20 +170,23 @@ def _loss(tower, query, keys, profile, batch):
              batch['label'])
 
 
-def sparse_trainer(args: argparse.Namespace, device: torch.device):
+def sparse_trainer(args: argparse.Namespace, device: torch.device,
+                   ctx=None):
   """``--sparse``: the item and user tables in one stack under row-sparse
   Adagrad 0.1 (accumulator 0.1), the tower under Adam 1e-3, GAUC by
   ``user``, in raw mode: the model reads ``cand_hist``'s uncombined
   ``[B, 1 + L, D]`` embeddings (the sessions restored from the mask's
-  shape)."""
+  shape). In the world ``ctx`` (a world of one on ``device`` when None),
+  the rank's shard of the stack, looked up through ``--lookup``."""
   import hybridbackend_tpu_torch as hbt
+  ctx = ctx or hbt.Context(device)
   item, user = _configs(args)
   fx = hbt.StackedFeatureExtractor(
       [hbt.EmbeddingSpec(item, column='cand_hist'), hbt.EmbeddingSpec(user)],
-      ctx=hbt.Context(device))
+      ctx=ctx)
   gen = torch.Generator().manual_seed(SEED)
   tables = fx.init(gen)
-  tower = _tower(args, device, gen)
+  tower = _tower(args, ctx.device, gen)
 
   def raw_loss(t, members, batch):
     emb, mask = members['item'], batch['hist_mask']
@@ -166,32 +196,38 @@ def sparse_trainer(args: argparse.Namespace, device: torch.device):
   return hbt.SparseTrainer(fx, None, tower, tables=tables,
                            raw_model_loss=raw_loss, table_lr=0.1,
                            model_dir=args.model_dir or None,
-                           group_key='user')
+                           group_key='user', lookup_strategy=args.lookup)
 
 
-def dense_trainer(args: argparse.Namespace, device: torch.device):
+def dense_trainer(args: argparse.Namespace, device: torch.device, ctx=None):
   """Without ``--sparse``: one table per column under
-  ``multi_optimizer(Adagrad 0.1, Adam 1e-3)``, GAUC by ``user``."""
+  ``multi_optimizer(Adagrad 0.1, Adam 1e-3)``, GAUC by ``user``; in the
+  world ``ctx``, data-parallel over the rank's shards of the tables,
+  looked up through ``--lookup``."""
   import hybridbackend_tpu_torch as hbt
+  ctx = ctx or hbt.Context(device)
   item, user = _configs(args)
   gen = torch.Generator().manual_seed(SEED)
   module = nn.ModuleDict({
       'tables': hbt.init_tables([hbt.EmbeddingSpec(item),
-                                 hbt.EmbeddingSpec(user)], gen, device),
-      'net': _tower(args, device, gen)})
+                                 hbt.EmbeddingSpec(user)], gen, ctx.device,
+                                ctx),
+      'net': _tower(args, ctx.device, gen)})
 
   def loss_fn(m, batch):
     t = m['tables']
-    return _loss(m['net'], hbt.lookup(t['item'], batch['item'], item),
-                 hbt.lookup(t['item'], batch['hist'], item),
-                 hbt.lookup(t['user'], batch['user'], user), batch)
+    look = lambda name, col, cfg: hbt.lookup(t[name], batch[col], cfg,
+                                             ctx=ctx, strategy=args.lookup)
+    return _loss(m['net'], look('item', 'item', item),
+                 look('item', 'hist', item), look('user', 'user', user),
+                 batch)
 
   optimizer = hbt.multi_optimizer(
       functools.partial(hbt.Adagrad, lr=0.1),
       functools.partial(torch.optim.Adam, lr=1e-3))(module)
   return hbt.Trainer(loss_fn, module, optimizer,
-                     model_dir=args.model_dir or None,
-                     ctx=hbt.Context(device), group_key='user')
+                     model_dir=args.model_dir or None, ctx=ctx,
+                     group_key='user')
 
 
 def fields(args: argparse.Namespace):
@@ -219,12 +255,17 @@ def add_cand_hist(args: argparse.Namespace,
   return b
 
 
-def batches(args: argparse.Namespace, shuffle: bool):
+def batches(args: argparse.Namespace, shuffle: bool, ctx=None):
   """The file's parsed batches of ``--batch-size`` rows: shuffled for
-  training, in file order for evaluation."""
+  training (unless ``--no-shuffle``), in file order for evaluation; in
+  the world ``ctx``, of the rank's row groups."""
   import hybridbackend_tpu_torch as hbt
+  part = {} if ctx is None else dict(partition_index=ctx.rank,
+                                     partition_count=ctx.world_size)
   ds = hbt.data.Dataset.from_parquet(args.data, batch_size=args.batch_size,
-                                     drop_remainder=True, shuffle=shuffle)
+                                     drop_remainder=True,
+                                     shuffle=shuffle and not args.no_shuffle,
+                                     **part)
   f = fields(args)
   return (add_cand_hist(args, hbt.data.parse(b, f)) for b in ds)
 
@@ -235,21 +276,43 @@ def main(argv: Optional[List[str]] = None) -> int:
   if why:
     print(f'taobao/train_din.py: {why}', file=sys.stderr)
     return 1
+  try:
+    in_world(args.device, lambda ctx: run(args, ctx))
+  except FileTooSmall as e:
+    print(f'taobao/train_din.py: {e}', file=sys.stderr)
+    return 1
+  return 0
+
+
+def run(args: argparse.Namespace, ctx=None):
+  """Trains and evaluates as the flags say; returns the trainer. In the
+  world ``ctx`` (a joined context), this rank's trainer."""
   import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.distribute import collective
+  world = ctx.world_size if ctx is not None else 1
+  chief = ctx is None or ctx.is_chief
+  say = print if chief else (lambda *a, **k: None)
   if not args.data:
     name = 'taobao_sessions.parquet' if args.sessions else (
         'taobao_sample.parquet')
     args.data = os.path.join(tempfile.gettempdir(), name)
-  if args.synthesize or not os.path.exists(args.data):
-    print(f'synthesizing {args.rows} rows → {args.data}')
-    synthesize(args.data, args.rows, sessions=args.sessions)
-  device = torch.device(args.device)
-  trainer = (sparse_trainer if args.sparse else dense_trainer)(args, device)
+  if (args.synthesize or not os.path.exists(args.data)) and chief:
+    say(f'synthesizing {args.rows} rows → {args.data}')
+    synthesize(args.data, args.rows, sessions=args.sessions,
+               row_group=row_group_for(args.rows, ROW_GROUP, world))
+  if world > 1:
+    # The other ranks wait for the sample.
+    collective.allreduce(torch.zeros(1, device=ctx.device), ctx=ctx)
+    check_row_groups(args.data, world)
+  device = ctx.device if ctx is not None else torch.device(args.device)
+  trainer = (sparse_trainer if args.sparse else dense_trainer)(
+      args, device, ctx)
   hooks = [hbt.LoggingHook(every_n_steps=25, log=print)]
   for epoch in range(args.epochs):
-    trainer.train(batches(args, True), max_steps=args.steps, hooks=hooks)
-    print(f'epoch {epoch}:', trainer.evaluate(batches(args, False)))
-  return 0
+    trainer.train(batches(args, True, ctx), max_steps=args.steps,
+                  hooks=hooks)
+    say(f'epoch {epoch}:', trainer.evaluate(batches(args, False, ctx)))
+  return trainer
 
 
 if __name__ == '__main__':

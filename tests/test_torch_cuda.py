@@ -955,6 +955,27 @@ def test_gather_kernel_on_an_int8_shard(dev, rank):
   assert hbt.gather_rows.launches == before + 2
 
 
+# Kernel 5 as an owner's read of a cache's evicted rows at a world of N
+# (``EmbeddingCache.rows_to_host``): 100 evicted slots of a 160-slot
+# member at offset 128 of a 288-row stack, whose two shards meet at row
+# 144, read by each owner at their local index ``row - lo`` (from 0 on
+# rank 1's shard), from the value table and the accumulator.
+@pytest.mark.parametrize('rank', [0, 1])
+def test_gather_kernel_on_a_cache_shard(dev, rank):
+  gen = torch.Generator().manual_seed(19 + rank)
+  rows_per_shard, offset, capacity = 144, 128, 160
+  lo = rank * rows_per_shard
+  rows = torch.randperm(capacity, generator=gen)[:100] + offset
+  local = rows[(rows >= lo) & (rows < lo + rows_per_shard)] - lo
+  assert local.numel() > 0
+  value = torch.randn(rows_per_shard, 16, generator=gen)
+  before = hbt.gather_rows.launches
+  for table in (value, value.abs() + 0.1):
+    got = hbt.gather_rows(table.to(dev), local.to(dev))
+    assert torch.equal(got.cpu(), table.index_select(0, local))
+  assert hbt.gather_rows.launches == before + 2
+
+
 def test_a_bundle_serves_on_the_card_as_on_the_cpu(dev, tmp_path):
   """One poly-batch bundle, exported on the CPU, served on the card and on
   the CPU: kernel 5 once per member lookup (twice in int8), and the

@@ -324,20 +324,59 @@ def test_dense_step_wire_is_a_no_op_at_a_world_of_one():
       states[0], torch.arange(4.0).reshape(1, 4) / 10)
 
 
-@pytest.mark.parametrize('case,item', [('trainer', '15b (10)')])
-def test_world_steps_out_of_scope_raise(case, item):
-  """What a world of two still refuses: a ``SparseTrainer`` with
-  host-backed tables (the trainer itself runs there,
-  ``test_torch_sharded_trainer.py``)."""
-  fx = _fx(2)
-  loss = lambda *a: (torch.zeros(()), {})
-  build = {
-      'trainer': lambda: hbt.SparseTrainer(fx, loss, torch.nn.Linear(4, 1),
-                                           tables={}, caches={'t': None}),
-  }[case]
-  with pytest.raises(NotImplementedError, match=item.replace(
-      '(', r'\(').replace(')', r'\)')):
-    build()
+def _cache_ranks(world, store, vocab=500, cap=64):
+  """Each rank's ``(cache, runner)`` of one host table over ``store``,
+  their runner ids counted from 0 (as in fresh processes)."""
+  from hybridbackend_tpu_torch.embedding import service
+  service._RUNNER_IDS.clear()
+  out = []
+  for r in range(world):
+    ctx = hbt.Context('cpu', rank=r, world_size=world, store=store)
+    host = {'value': np.arange(vocab * 4, dtype=np.float32).reshape(-1, 4)}
+    cache = hbt.EmbeddingCache(hbt.TableConfig('t', vocab, 4), cap,
+                               host_tables=host, ctx=ctx)
+    fx = hbt.StackedFeatureExtractor(
+        [hbt.EmbeddingSpec(cache.slot_config(), column='t')], ctx=ctx)
+    out.append((cache, hbt.embedding.service.CacheRunner({'t': cache}, fx,
+                                                         timeout_ms=5000)))
+  return out
+
+
+def test_cache_runners_of_a_world_plan_its_batch():
+  """Host-backed tables in a world (once refused as ROADMAP item 15b
+  (10)): two ranks' runners, threads over one store, exchange their
+  rows' ids and plan the world's batch, each getting its rows' slots;
+  their slot maps are a world of one's over the global batches, bit for
+  bit, and each rank deletes its key of step ``s - 2`` at step ``s``."""
+  import threading
+  store = torch.distributed.HashStore()
+  ranks = _cache_ranks(2, store)
+  rng = np.random.RandomState(0)
+  steps = [rng.randint(0, 500, 48).astype(np.int64) for _ in range(6)]
+  one = hbt.EmbeddingCache(hbt.TableConfig('t', 500, 4), 64, host_tables={
+      'value': np.zeros((500, 4), np.float32)}, ctx=hbt.Context('cpu'))
+  got = [[], []]
+
+  def run(r):
+    _, runner = ranks[r]
+    for ids in steps:
+      got[r].append(runner.transform({'t': ids[r * 24:(r + 1) * 24]})['t'])
+
+  threads = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+  for t in threads:
+    t.start()
+  for t in threads:
+    t.join(30)
+  for k, ids in enumerate(steps):
+    want = one.prepare_plan(ids).slots
+    np.testing.assert_array_equal(np.concatenate([got[0][k], got[1][k]]),
+                                  want)
+  for cache, _ in ranks:
+    np.testing.assert_array_equal(cache._slot_to_id, one._slot_to_id)
+    np.testing.assert_array_equal(cache._last_used, one._last_used)
+  keys = lambda s: [f'hb_cache/0/{s}/{r}' for r in range(2)]
+  assert not any(store.check([k]) for s in range(4) for k in keys(s))
+  assert all(store.check([k]) for s in (4, 5) for k in keys(s))
 
 
 @pytest.mark.parametrize('kw', [

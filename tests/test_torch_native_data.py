@@ -292,11 +292,27 @@ def test_criteo_entry_point_reads_through_the_python_reader_on_request(
   assert m and int(m[4]) == 2 and 0 < float(m[2]) <= 1
 
 
-@pytest.mark.parametrize('flag,item', [
-    (['--lookup', 'alltoall'], 15), (['--cpu', '4'], 15)])
-def test_criteo_refuses_what_is_not_ported(capsys, flag, item):
+@pytest.mark.parametrize('flag,why', [
+    (['--cpu', '4'], 'python -m hybridbackend_tpu_torch.run --simulate N')])
+def test_criteo_refuses_what_is_not_ported(capsys, flag, why):
   assert criteo.main(['--device', 'cpu', *flag]) == 1
-  assert f'item {item}' in capsys.readouterr().err
+  err = capsys.readouterr().err
+  assert 'not ported' in err and why in err
+
+
+def test_criteo_takes_a_lookup_strategy_at_a_world_of_one(tmp_path):
+  """``--lookup`` (refused until the entry point ran in a world,
+  ``test_torch_world_harnesses.py``) is accepted at a world of one,
+  where no table is sharded and it changes nothing."""
+  data = str(tmp_path / 'criteo.parquet')
+  flags = ['--device', 'cpu', '--data', data, '--batch-size', '64',
+           '--vocab', '1000', '--dim', '8', '--steps', '2', '--sparse',
+           '--rows', '256', '--python-reader']
+  rc, printed = _criteo([*flags, '--synthesize', '--lookup', 'alltoall'])
+  assert rc == 0, printed
+  rc, plain = _criteo(flags)
+  line = lambda out: re.search(r'epoch 0: loss=\S+, auc=\S+,', out)[0]
+  assert line(printed) == line(plain)
 
 
 def test_criteo_synthesis_draws_the_jax_example(tmp_path):

@@ -714,12 +714,42 @@ def test_sync_needs_a_store_in_a_world():
         'cpu', rank=0, world_size=2))
 
 
-def test_caches_in_a_world_raise_naming_their_item():
-  """``SparseTrainer(caches=...)`` at a world of two: ROADMAP item 15b
-  (10), before anything else is built."""
+def test_caches_in_a_world_keep_the_sync_liveness_rules():
+  """Host-backed tables in a world (once refused as ROADMAP item 15b
+  (10)) exchange each batch's ids as the sync iterator exchanges its
+  counts: a peer that posts nothing raises within the deadline, naming
+  it; ``cancel`` ends a pending wait (``SyncCancelled``) until ``open``;
+  a cache made in another world than its runner's is refused."""
+  from test_torch_distribute import _cache_ranks
+  store = torch.distributed.HashStore()
+  (cache, runner), _ = _cache_ranks(2, store)
+  runner._timeout_s = 0.5
+  ids = {'t': np.arange(8, dtype=np.int64)}
+  t0 = time.monotonic()
+  with pytest.raises(RuntimeError, match='rank 1 posted no ids for step 0'):
+    runner.transform(ids)
+  assert 0.5 <= time.monotonic() - t0 < 5.0
+  runner._timeout_s = 60.0
+  got = []
+  t = threading.Thread(target=lambda: got.append(
+      _raised(lambda: runner.transform(ids))))
+  t.start()
+  time.sleep(0.2)
+  runner.cancel()
+  t.join(5)
+  assert got and isinstance(got[0], psync.SyncCancelled)
+  assert not runner._plans and cache.resident == 0
+  runner.open()
+  assert not runner._cancel.is_set()
   fx = hbt.StackedFeatureExtractor(
-      [hbt.EmbeddingSpec(hbt.TableConfig('t', 100, 4))],
-      ctx=hbt.Context('cpu', rank=0, world_size=2))
-  with pytest.raises(NotImplementedError, match=r'15b \(10\)'):
-    hbt.SparseTrainer(fx, lambda *a: (torch.zeros(()), {}),
-                      nn.Linear(4, 1), tables={}, caches={'t': object()})
+      [hbt.EmbeddingSpec(cache.slot_config(), column='t')],
+      ctx=hbt.Context('cpu'))
+  with pytest.raises(ValueError, match='give both the same context'):
+    hbt.embedding.service.CacheRunner({'t': cache}, fx)
+
+
+def _raised(fn):
+  try:
+    return fn()
+  except BaseException as e:  # noqa: BLE001 — the result
+    return e
