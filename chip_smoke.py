@@ -30,7 +30,9 @@ Phases; any failure raises and the script exits nonzero:
   0. the card (nvidia-smi), torch/CUDA/nvcc versions, whether pyarrow's
      headers, ``libarrow`` and ``libparquet`` are present (with its
      version), the native reader's build (``g++``, beside the kernel
-     builds) and its time, the kernel builds
+     builds) and its time, the native helpers' build
+     (``native/idmap.py``: the id hash and the dataframe's row takes,
+     which the readers' shuffled batches go through), the kernel builds
      with ptxas's registers and spills, and the resident blocks per SM of
      the Adagrad and LazyAdam kernels at the flagship row width;
   1. each kernel against its plain PyTorch version on the card, at the
@@ -201,8 +203,9 @@ Phases; any failure raises and the script exits nonzero:
      --skip-overflow`` (exit 0, ``parity_ok.fast`` true, kernel 1 once a
      ``fast`` step; ``fast_overflow`` changes nothing at a world of one,
      and the CPU tests run it at two),
-     ``data_benchmark.py`` in its four modes (parquet, csv, dedup, the
-     host-to-device transfer from pageable and pinned memory) and
+     ``data_benchmark.py`` in its four modes (parquet, csv, dedup at 40
+     steps of the harness's 100, the host-to-device transfer from
+     pageable and pinned memory) and
      ``e2e_benchmark.py --profile`` (the stages' medians).
  32. a world of N ranks: the collectives of ``distribute/collective.py``
      on NCCL at a world of one on the card, and kernel 1 on an owner list
@@ -324,6 +327,24 @@ Phases; any failure raises and the script exits nonzero:
      subgroups, then 2 steps each of the hierarchical, column,
      interleaved (k = 2) and wire cases, held against the same steps in
      no world in this process, bit for bit.
+ 36. the module adapter (``module_support.py``) at the width of the JAX
+     flax example, through the port's entry point
+     (``examples/criteo/train_module.py``, its ``run``): 26 tables of the
+     JAX example's vocabularies at dim 16 in one [1279569, 16] stack,
+     batch 4096, ``Linear`` 512-256-64-1 over ``'concat'``, Adagrad 0.1
+     on everything, 8 steps from the file it synthesizes, an evaluation
+     of 20 batches and an export; the summaries read back (``train/loss``
+     at steps 4 and 8, the evaluation's scalars); ``save_weights`` and
+     ``load_weights`` into a fresh adapter bit for bit; the module's
+     inputs through kernel 5 on the member tables bitwise those through
+     ``index_select`` on the stack; each bundle (``'concat'``, and
+     ``'features'`` and ``'raw'`` on copies of the same weights, one step
+     each) served on the card, kernel 5 once a column a predict, within
+     1e-6 of ``predict``; one step on the card against the CPU from the
+     card's state (phase 18's rule); then ``profile_trace`` around 2
+     flagship sparse steps (each named range twice, CUDA kernel events)
+     and the flagship step timed with the named ranges on and off, in
+     turns.
 With ``--profile`` it then traces 10 steps of each timed variant and of
 the DIN harness's ``--sparse`` step with and without sessions with
 ``torch.profiler`` and prints device time per step by kernel class; in
@@ -339,9 +360,9 @@ second-to-last line is a JSON object describing each kernel (its times,
 launches on its path, in the trainers' runs, in the runs from Parquet
 files, in the served predicts, in the DIN phases, in the host-table
 phases, in the pipelining phases, in phase 33's ranks (phase 32's
-cases, then the others), in phase 34's worlds, in its cached case and
-in phase 35's (the exchanges' cases, then the interleaved cases and
-sharded serving),
+cases, then the others), in phase 34's worlds, in its cached case, in
+phase 35's (the exchanges' cases, then the interleaved cases and
+sharded serving) and in phase 36,
 and its bound: the
 larger of its bytes over 3.35 TB/s and its operations over the card's
 peak rate); the last line is
@@ -574,9 +595,24 @@ def phase0_environment():
     except tabular.NativeUnavailable as e:
       native['error'] = e
   native_build = threading.Thread(target=build_native)
+  # The host library of the id hash and the dataframe's row operations
+  # (``native/idmap.py``) builds beside them too: the readers' shuffled
+  # batches take their rows through it.
+  from hybridbackend_tpu_torch.native import idmap
+  helpers = {}
+
+  def build_helpers():
+    t = time.perf_counter()
+    try:
+      idmap.load()
+      helpers['s'] = time.perf_counter() - t
+    except tabular.NativeUnavailable as e:
+      helpers['error'] = e
+  helpers_build = threading.Thread(target=build_helpers)
   t0 = time.perf_counter()
   if flags:
     native_build.start()
+  helpers_build.start()
   libs = build.load_all()
   print(f'kernel builds: {time.perf_counter() - t0:.3f} s wall for '
         f'{len(libs)} libraries, built concurrently; each is built from and '
@@ -589,6 +625,12 @@ def phase0_environment():
     print(f'native reader build: {lib.build_seconds:.3f} s g++ '
           f'({lib.path.name}), {time.perf_counter() - t0:.3f} s wall with the '
           'kernel builds')
+  helpers_build.join()
+  if 'error' in helpers:
+    raise RuntimeError(f'the native helpers did not build: '
+                       f'{helpers["error"]}')
+  print(f'native helpers ({idmap.library_path().name}): {helpers["s"]:.3f} s '
+        'to build or load')
   for name, lib in libs.items():
     print(f'  {name}: {lib.build_seconds:.3f} s nvcc ({lib.path.name})')
     for line in lib.compiler_log.splitlines():
@@ -3719,6 +3761,10 @@ PIPE_ROUNDS, PIPE_WINDOW = 2, 10   # timed rounds of a window of steps each
 GATE_FLIP = 1e-3
 AUC_TIMEOUT = 1200         # phase 31's AUC-parity harness, seconds at most
 DATA_MODES = ('parquet', 'csv', 'dedup', 'transfer')
+# Phase 31's data_benchmark file modes run 40 steps of 20000 rows, not the
+# harness's 100: its file, and the CSV copy of it, 2.5 times smaller, to
+# keep the whole script inside its time limit.
+DATA_STEPS = 40
 
 
 def _timed_rounds(label, variants, batch, dev, kernel=None):
@@ -4066,8 +4112,9 @@ def phase31_harnesses(smi):
     os.environ['HB_BENCH_CACHE'] = tmp
     runs = _modules_json(
         [('auc_parity', ['--skip-overflow']),
-         *(('data_benchmark', ['--mode', mode])
-                               for mode in DATA_MODES),
+         *(('data_benchmark', ['--mode', mode] + (
+             [] if mode == 'transfer' else ['--steps', str(DATA_STEPS)]))
+           for mode in DATA_MODES),
          ('e2e_benchmark', ['--profile'])], timeout=AUC_TIMEOUT + 600)
     line, r, auc_s = runs[0]
     fast = r['results']['fast']
@@ -4088,19 +4135,20 @@ def phase31_harnesses(smi):
           + ', '.join(f'{k} {v["secs"]:.1f}' for k, v in r['results'].items())
           + f'; synthesize {r["synthesize_s"]:.1f}')
     print(f'  {line}')
-    for mode, (line, r, _) in zip(DATA_MODES, runs[1:]):
+    for mode, (line, r, secs) in zip(DATA_MODES, runs[1:]):
       if mode == 'transfer' and r['card'] != smi:
         raise AssertionError(f'phase 31: the transfer ran on {r["card"]}')
       print(f'phase 31 (python -m hybridbackend_tpu_torch.benchmarks.'
-            f'data_benchmark --mode {mode} --json): {line}')
-    line, r, _ = runs[-1]
+            f'data_benchmark --mode {mode} --json, {secs:.1f} s): {line}')
+    line, r, secs = runs[-1]
     want = {name: 0 for name in tb.COUNTED}
     want['adagrad_update_sorted'] = e2e.PROFILE_ROUNDS
     if r['kernel_launches'] != want or r['card'] != smi:
       raise AssertionError(f'phase 31: e2e_benchmark --profile gave {line}')
     launches.update(r['kernel_launches'])
     print('phase 31 (python -m hybridbackend_tpu_torch.benchmarks.'
-          'e2e_benchmark --profile --json): stage medians, ms: '
+          f'e2e_benchmark --profile --json, {secs:.1f} s): stage medians, '
+          'ms: '
           + ', '.join(f'{k} {v:.4f}' for k, v in r['profile_ms'].items()))
     print(f'  {line}')
   return launches
@@ -6521,6 +6569,304 @@ def phase35_exchanges(dev, smi, started=None):
   return launches, new_launches
 
 
+MODULE_STEPS = 8           # phase 36's fit of the module entry point
+MODULE_SUMMARY = 4         # its summary_steps
+MODULE_BATCHES = 20        # its file's batches (it evaluates 20, as in JAX)
+SCOPE_ROUNDS = 4           # the flagship step timed with the ranges on and
+SCOPE_STEPS = 20           # off, in turns, windows of this many steps
+SCOPES = ('hb/lookup', 'hb/tower', 'hb/update')
+
+
+class _Joined(torch.nn.Module):
+  """Phase 36's concat tower over the ``'features'`` or ``'raw'`` inputs:
+  the same features joined in the same order (embeddings in spec order,
+  then the dense columns as ``[B, 1]`` float32), into the same ``net``."""
+
+  def __init__(self, net, inputs, names, dense):
+    super().__init__()
+    self.net, self.inputs = net, inputs
+    self.names, self.dense = list(names), list(dense)
+
+  def forward(self, first, second):
+    emb = [first[n] for n in self.names]
+    if self.inputs == 'features':
+      dense = [second[c] for c in self.dense]
+    else:
+      dense = [second[c].reshape(-1, 1).to(torch.float32)
+               for c in self.dense]
+    return self.net(torch.cat([e.to(torch.float32) for e in emb] + dense,
+                              -1))
+
+
+def _module_slots(wrapped):
+  """Every parameter of a module adapter and its Adagrad slot, cloned, by
+  name, with the step."""
+  tr = wrapped.trainer
+  out = {'step': tr.global_step}
+  for name, p in tr.state.params.named_parameters():
+    out[name] = p.detach().clone()
+    out[f'{name}:acc'] = tr.state.optimizer.state[p]['sum_of_squares'].clone()
+  return out
+
+
+def _served(label, wrapped, path, batch, dev):
+  """``wrapped``'s bundle at ``path`` served on the card, one predict of
+  ``batch`` between a reset and a read of the counts: kernel 5 once a
+  column, no other counted kernel; the predictions within 1e-6 of the
+  adapter's ``predict`` (phase 22's rule). Returns the predictions and the
+  gap."""
+  import hybridbackend_tpu_torch as hbt
+  served = hbt.Served(path, dev)
+  columns = len(wrapped.extractor.specs)
+  _reset_counts()
+  got = served.predict(batch)
+  torch.cuda.synchronize(dev)
+  _expect(f'{label}, a served predict', _counts(), gather_rows=columns)
+  live = next(wrapped.predict(iter([batch]))).cpu().numpy()
+  gap = float(np.abs(got - live).max())
+  if not (got.shape == live.shape and np.isfinite(got).all()
+          and gap <= 1e-6):
+    raise AssertionError(f'{label}: the bundle served {got.shape}, '
+                         f'{gap:.3e} from predict')
+  return got, gap
+
+
+def _scoped_steps(cfg, dev, smi, tmp):
+  """Phase 36's flagship part: ``profile_trace`` around 2 steps of the
+  flagship sparse step, whose trace must hold each named range twice and
+  CUDA kernel events; then the step timed with the ranges on and off in
+  turns. Returns kernel 1's launches."""
+  import hybridbackend_tpu_torch as hbt
+  steps = {on: tb.build(cfg, dev, named_scopes=on) for on in (True, False)}
+  batch = functools.partial(tb.shifted, *tb.make_batch(cfg, dev), cfg.vocab)
+  launches = collections.Counter()
+  _reset_counts()
+  state, step = steps[True]
+  for i in range(2):                       # warm-up, outside the trace
+    state, _ = step(state, batch(i))
+  torch.cuda.synchronize(dev)
+  logdir = os.path.join(tmp, 'trace')
+  with hbt.profile_trace(logdir):
+    for i in range(2, 4):
+      state, _ = step(state, batch(i))
+    torch.cuda.synchronize(dev)
+  traces = [f for f in os.listdir(logdir) if f.endswith('.pt.trace.json')]
+  if len(traces) != 1:
+    raise AssertionError(f'phase 36: profile_trace wrote {traces}')
+  with open(os.path.join(logdir, traces[0])) as f:
+    events = json.load(f)['traceEvents']
+  # A range is a host event and, on the card, a device one besides.
+  names = collections.Counter((e.get('cat'), e.get('name')) for e in events)
+  ranges = {s: (names['user_annotation', s], names['gpu_user_annotation', s])
+            for s in SCOPES}
+  kernels = [e for e in events if e.get('cat') == 'kernel']
+  if any(host != 2 for host, _ in ranges.values()) or not kernels:
+    raise AssertionError(f'phase 36: the trace holds ranges {ranges} (on '
+                         f'the host, on the device) and {len(kernels)} '
+                         'kernel events')
+  adagrad = sum(1 for e in kernels if 'adagrad' in e.get('name', ''))
+  torch.cuda.synchronize(dev)
+  counts = _counts()
+  _expect('phase 36, 4 flagship steps', counts, adagrad_update_sorted=4)
+  launches.update(counts)
+  states = {True: state, False: steps[False][0]}
+  ms = {True: [], False: []}
+  _reset_counts()
+  for r in range(SCOPE_ROUNDS):
+    for on in ((True, False) if r % 2 == 0 else (False, True)):
+      w = tb.time_steps(states[on], steps[on][1], batch,
+                        4 + r * SCOPE_STEPS, SCOPE_STEPS, dev)
+      states[on] = w.state
+      ms[on].append(w.ms / SCOPE_STEPS)
+  torch.cuda.synchronize(dev)
+  counts = _counts()
+  _expect('phase 36, the timed steps', counts,
+          adagrad_update_sorted=2 * SCOPE_ROUNDS * SCOPE_STEPS)
+  launches.update(counts)
+  on, off = statistics.median(ms[True]), statistics.median(ms[False])
+  print(f'  profile_trace of 2 flagship steps: {traces[0]}, '
+        f'{len(events)} events, ranges (host, device) '
+        + ', '.join(f'{s} {ranges[s]}' for s in SCOPES)
+        + f', {len(kernels)} CUDA kernel events ({adagrad} of kernel 1)')
+  print(f'  the flagship DCNv2 + Adagrad step on {smi}, the named ranges on '
+        f'{on:.4f} ms/step, off {off:.4f} ms/step (median of '
+        f'{SCOPE_ROUNDS} windows of {SCOPE_STEPS} each, in turns; on: '
+        + ', '.join(f'{x:.4f}' for x in ms[True]) + '; off: '
+        + ', '.join(f'{x:.4f}' for x in ms[False])
+        + f'), on/off {on / off:.4f}')
+  return launches
+
+
+def phase36_module(cfg, dev, smi):
+  """Phase 36: the module adapter at the width of the flax example. The
+  port's Criteo module entry point (``examples/criteo/train_module.py``,
+  its ``run``) fits 8 steps from the file it synthesizes (26 tables of
+  the JAX example's vocabularies at dim 16, batch 4096, Linear
+  512-256-64-1 over ``'concat'``, Adagrad 0.1 on everything), evaluates
+  20 batches and exports its bundle; then: the summaries read back (the
+  train loss at steps 4 and 8, the evaluation's scalars); ``save_weights``
+  and ``load_weights`` into a fresh adapter, every parameter, slot and
+  the step bit for bit; the module's inputs through kernel 5 on the
+  member tables bitwise those through ``index_select`` on the stack (one
+  launch a column); the bundle served on the card, kernel 5 once a
+  column, within 1e-6 of ``predict``; the ``'features'`` and ``'raw'``
+  conventions on copies of the same tables and tower, their predictions
+  the concat model's, one step and one served predict each; then one
+  step on the card against the same step on the CPU from the card's
+  state: the loss to 1e-4 relative, every table, tower weight and
+  Adagrad slot to ``rtol = atol = 1e-5`` (phase 18's rule for the
+  tables; the tower's Adagrad at lr 0.1 moves a weight by about 0.3
+  times its gradient's rounding difference, as it moves a table row);
+  and the flagship's named ranges (``_scoped_steps``). Returns the
+  counted launches."""
+  import copy
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.examples.criteo import train_module as tm
+  from hybridbackend_tpu_torch.utils.summary import read_event_scalars
+  cpu = torch.device('cpu')
+  launches = collections.Counter()
+  with tempfile.TemporaryDirectory() as tmp:
+    args = tm.parse_args([
+        '--synthesize', '--data', os.path.join(tmp, 'criteo.parquet'),
+        '--rows', str(MODULE_BATCHES * 4096), '--steps', str(MODULE_STEPS),
+        '--model-dir', os.path.join(tmp, 'm'), '--summary-steps',
+        str(MODULE_SUMMARY), '--export', os.path.join(tmp, 'concat')])
+    t0 = time.perf_counter()
+    _reset_counts()
+    wrapped, metrics, results = tm.run(args)
+    torch.cuda.synchronize(dev)
+    _expect('phase 36, the entry point', _counts())
+    run_s = time.perf_counter() - t0
+    if not (np.isfinite(metrics['loss']) and 0 <= results['auc'] <= 1
+            and np.isfinite(results['loss'])
+            and results['batches'] == MODULE_BATCHES):
+      raise AssertionError(f'phase 36: fit gave {metrics}, evaluate '
+                           f'{results}')
+    (events,) = [f for f in os.listdir(args.model_dir)
+                 if f.startswith('events.out.tfevents.')]
+    scalars = read_event_scalars(os.path.join(args.model_dir, events))
+    train_steps = [s for s, t, _ in scalars if t == 'train/loss']
+    evals = {t: v for s, t, v in scalars
+             if t.startswith('eval/') and s == MODULE_STEPS}
+    if (train_steps != list(range(MODULE_SUMMARY, MODULE_STEPS + 1,
+                                  MODULE_SUMMARY))
+        or evals.keys() != {'eval/auc', 'eval/loss'}
+        or abs(evals['eval/auc'] - results['auc']) > 1e-6):
+      raise AssertionError(f'phase 36: the summaries hold {scalars}')
+
+    # save_weights, then load_weights into a fresh adapter.
+    ds = tm.dataset(args)
+    batches = list(ds.take(3))
+    wrapped.save_weights(os.path.join(tmp, 'w'))
+    fresh = tm.wrapped_model(args, dev)
+    params = fresh.init(torch.Generator().manual_seed(1), batches[0])
+    fresh.compile(params, hbt.Adagrad(params.parameters(), lr=0.1))
+    fresh.load_weights(os.path.join(tmp, 'w'))
+    want, got = _module_slots(wrapped), _module_slots(fresh)
+    if sorted(want) != sorted(got) or not all(
+        (want[k] == got[k]) if k == 'step' else torch.equal(want[k], got[k])
+        for k in want):
+      raise AssertionError('phase 36: load_weights did not give back the '
+                           'saved weights bit for bit')
+    del fresh, params
+
+    # Kernel 5 on the member tables against index_select on the stack.
+    placed = hbt.put_batch(batches[0], dev)
+    members, specs = wrapped.served_tables()
+    _reset_counts()
+    with torch.no_grad():
+      (served_x,) = wrapped._served_inputs(members, placed, specs)
+      torch.cuda.synchronize(dev)
+      counts = _counts()
+      _expect('phase 36, the served inputs', counts,
+              gather_rows=len(specs))
+      launches.update(counts)
+      (trained_x,) = wrapped._module_inputs(wrapped.params['tables'], placed)
+    if not torch.equal(served_x, trained_x):
+      raise AssertionError('phase 36: the inputs through kernel 5 differ '
+                           'from those through index_select')
+    del members, placed
+
+    preds, gaps = {}, {}
+    preds['concat'], gaps['concat'] = _served(
+        'phase 36, concat', wrapped, args.export, batches[1], dev)
+    _reset_counts()
+    other = {}
+    for inputs in ('features', 'raw'):
+      model = hbt.wraps_module(
+          _Joined(copy.deepcopy(wrapped.params['net']), inputs,
+                  [s.name for s in specs], wrapped.extractor.dense_columns),
+          wrapped.extractor.specs,
+          dense_columns=wrapped.extractor.dense_columns, inputs=inputs,
+          ctx=hbt.Context(dev))
+      params = torch.nn.ModuleDict({
+          'tables': copy.deepcopy(wrapped.params['tables']),
+          'net': model.module})
+      model.compile(params, hbt.Adagrad(params.parameters(), lr=0.1))
+      with torch.no_grad():
+        same = float((model.apply(params, hbt.put_batch(batches[1], dev))
+                      - wrapped.apply(wrapped.params, hbt.put_batch(
+                          batches[1], dev))).abs().max())
+      if same > 1e-6:
+        raise AssertionError(f'phase 36: {inputs} predicts {same:.3e} from '
+                             'the concat model on the same weights')
+      step = model.fit(iter(batches[2:3]), sync=False)
+      path = model.export_saved_model(os.path.join(tmp, inputs), batches[0])
+      preds[inputs], gaps[inputs] = _served(f'phase 36, {inputs}', model,
+                                            path, batches[1], dev)
+      other[inputs] = (same, step['loss'])
+      launches['gather_rows'] += len(specs)
+      del model, params
+    launches['gather_rows'] += len(specs)     # the concat bundle's predict
+
+    # One step on the card against the same step on the CPU.
+    c_model = tm.wrapped_model(args, cpu)
+    params = c_model.init(torch.Generator().manual_seed(2), batches[0])
+    c_model.compile(params, hbt.Adagrad(params.parameters(), lr=0.1))
+    c_model.trainer._load_checkpoint_state(
+        wrapped.trainer._checkpoint_state())
+    g_loss = wrapped.fit(iter(batches[2:3]), sync=False)['loss']
+    c_loss = c_model.fit(iter(batches[2:3]), sync=False)['loss']
+    report = {'loss_rel_err': abs(g_loss - c_loss) / abs(c_loss)}
+    g_state, c_state = _module_slots(wrapped), _module_slots(c_model)
+    for k in c_state:
+      if k == 'step':
+        continue
+      kind = ('table' if k.startswith('tables.') else 'tower') + (
+          '_acc' if k.endswith(':acc') else '')
+      g, c = g_state[k].cpu(), c_state[k]
+      err = float((g - c).abs().max())
+      report[f'{kind}_max_abs_err'] = max(
+          report.get(f'{kind}_max_abs_err', 0.0), err)
+      if not torch.allclose(g, c, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f'phase 36: {k} on the card is {err:.3e} from '
+                             'the CPU after one step')
+    if report['loss_rel_err'] > 1e-4:
+      raise AssertionError(f'phase 36: loss {g_loss} on the card, {c_loss} '
+                           'on the CPU')
+    del c_model, params
+    table = wrapped.params['tables'][wrapped.extractor.stacks[0].stacked.name]
+    print(f'phase 36 (the module adapter, examples/criteo/train_module.py: '
+          f'{len(specs)} tables stacked into [{table.shape[0]}, '
+          f'{table.shape[1]}], batch {args.batch_size}, Linear 512-256-64-1 '
+          f'over concat, Adagrad 0.1; on {smi}): fit {MODULE_STEPS} steps, '
+          f'evaluate {MODULE_BATCHES} batches and export in {run_s:.1f} s; '
+          f'train loss {metrics["loss"]:.6f}, eval auc {results["auc"]:.6f} '
+          f'loss {results["loss"]:.6f}; summaries: train/loss at steps '
+          f'{train_steps}, {sorted(evals)} at step {MODULE_STEPS}')
+    print('  save_weights and load_weights bit for bit; kernel 5 once a '
+          'column, the module\'s inputs bitwise index_select\'s; served '
+          'predictions from predict: '
+          + ', '.join(f'{k} {v:.3e}' for k, v in gaps.items())
+          + ' (limit 1e-6); features and raw on the same weights from '
+          'concat: ' + ', '.join(f'{k} {v[0]:.3e} (a step: loss {v[1]:.6f})'
+                                 for k, v in other.items()))
+    print('  one step GPU vs CPU: ' + ', '.join(
+        f'{k} {v:.3e}' for k, v in report.items()))
+    launches.update(_scoped_steps(cfg, dev, smi, tmp))
+  return launches
+
+
 _LAST_MARK = [time.perf_counter()]
 
 
@@ -6687,6 +7033,8 @@ def main() -> int:
     stop_world_harnesses(beside)
     raise
   _mark('phase 35')
+  module_launches = phase36_module(cfg, dev, smi)
+  _mark('phase 36')
   if args.profile:
     batch = functools.partial(tb.shifted, *tb.make_batch(cfg, dev),
                               cfg.vocab)
@@ -6778,7 +7126,13 @@ def main() -> int:
                  # and the checks on the received lists not counted).
                  'serving_interleave_launches': (
                      serving_interleave_launches[name]
-                     if name in tb.COUNTED else None)})
+                     if name in tb.COUNTED else None),
+                 # Launches in phase 36: kernel 5 in the module adapter's
+                 # served inputs and its bundles' predicts, kernel 1 in the
+                 # flagship steps traced and timed with and without the
+                 # named ranges.
+                 'module_launches': (module_launches[name]
+                                     if name in tb.COUNTED else None)})
   print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s wall, every '
         'phase')
   print(json.dumps({'kernels': rows}))

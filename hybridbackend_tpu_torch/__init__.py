@@ -62,7 +62,14 @@ tested against. It imports ``torch`` and never ``jax``, and nothing from
   bundle; the interleaved step, its micro-batches' lookups through the
   sharded exchanges on the side stream; and sharded serving, a rank's
   f32 or int8 shard (``shard_quantized``) served through the row
-  gather's kernel.
+  gather's kernel;
+* the tail of the JAX package: a stock ``nn.Module`` tower wrapped over
+  the port's tables (``wraps_module``, the flax adapter's counterpart,
+  whose exported bundle serves every column through the row gather's
+  kernel), TensorBoard summaries from the trainers (``SummaryHook``,
+  ``utils.summary``), ``torch.profiler`` traces and NVTX ranges
+  (``utils.profiler``), and the cost-model sharding planner
+  (``plan_sharding``, ``plan_options``).
 
 Kernels and the native libraries are built at first use, never at
 import.
@@ -70,10 +77,11 @@ import.
 
 __version__ = '0.1.0'
 
-from hybridbackend_tpu_torch import data, distribute, metrics, pipeline
+from hybridbackend_tpu_torch import data, distribute, metrics, pipeline, utils
 from hybridbackend_tpu_torch.convert import (
-    from_jax, from_jax_dense, gather_slots, gather_tables, load_adam_state,
-    load_dcn_v2, load_dice, load_din, load_dlrm, quantized_from_jax)
+    from_jax, from_jax_dense, from_jax_module, gather_slots, gather_tables,
+    load_adam_state, load_dcn_v2, load_dice, load_din, load_dlrm,
+    quantized_from_jax)
 from hybridbackend_tpu_torch.data import (
     DataFrame, Dataset, Field, ParquetDataset, RebatchBuffer, Value,
     deduplicate, infer_fields, parse, populate_defaults, rebatch,
@@ -85,6 +93,8 @@ from hybridbackend_tpu_torch.embedding.dynamic import (
     DynamicEmbedding, IdMapper)
 from hybridbackend_tpu_torch.embedding.lookup import (
     lookup, lookup_sparse, world_slice)
+from hybridbackend_tpu_torch.embedding.planner import (
+    TablePlan, plan_options, plan_sharding)
 from hybridbackend_tpu_torch.embedding.quant import (
     QuantizedTable, dequantize_table, lookup_quantized, quantize_table,
     shard_quantized)
@@ -102,6 +112,8 @@ from hybridbackend_tpu_torch.estimator import SparseTrainer, Trainer
 from hybridbackend_tpu_torch.framework.context import Context
 from hybridbackend_tpu_torch.models.feature import (
     EmbeddingSpec, StackedFeatureExtractor, extract_features, init_tables)
+from hybridbackend_tpu_torch.module_support import (
+    WrappedModel, binary_cross_entropy, wraps_module)
 from hybridbackend_tpu_torch.models.layers import (
     MLP, Dense, Dice, LocalActivationUnit, attention_sequence_pooling)
 from hybridbackend_tpu_torch.models.ranking import (
@@ -122,7 +134,7 @@ from hybridbackend_tpu_torch.pipeline import (
 from hybridbackend_tpu_torch.training.checkpoint import (
     CheckpointManager, Shard)
 from hybridbackend_tpu_torch.training.hooks import (
-    Hook, LoggingHook, Policy, StepStatHook)
+    Hook, LoggingHook, Policy, StepStatHook, SummaryHook)
 from hybridbackend_tpu_torch.training.optimizer import (
     Adagrad, MultiOptimizer, is_embedding_path,
     lr_with_linear_warmup_and_polynomial_decay, multi_optimizer, split_trees)
@@ -131,3 +143,17 @@ from hybridbackend_tpu_torch.training.sparse_step import (
     SparseTrainState, make_sparse_train_step)
 from hybridbackend_tpu_torch.training.train import (
     TrainState, make_eval_step, make_train_step)
+from hybridbackend_tpu_torch.utils import (
+    SummaryWriter, named_scope, profile_trace, read_event_scalars)
+
+
+def wraps(obj):
+  """Route ``obj`` to its adapter (JAX ``hybridbackend_tpu.wraps``): an
+  ``nn.Module`` instance becomes ``wraps_module`` bound to it (call the
+  result with the specs and the adapter's keywords); anything else is
+  returned as it is."""
+  import functools
+  from torch import nn
+  if isinstance(obj, nn.Module):
+    return functools.partial(wraps_module, obj)
+  return obj

@@ -16,6 +16,10 @@ without importing ``ml_dtypes``.
 Two states are carried: the sparse path's ``SparseTrainState``
 (:func:`from_jax`) and the dense path's ``TrainState``
 (:func:`from_jax_dense`: unstacked tables and the tower in one module).
+The parameters of the JAX flax adapter (``flax_support.py``: stacked
+tables and a flax tower) come into those of the port's module adapter
+(``module_support.py``) through :func:`from_jax_module`, the flax
+``Dense`` layers into ``nn.Linear`` ones.
 Either may be taken at a later step: the step count, optax Adam's
 ``(mu, nu, count)`` of the tower (into torch Adam's ``exp_avg``,
 ``exp_avg_sq`` and ``step``) and optax Adagrad's ``sum_of_squares`` of
@@ -32,6 +36,7 @@ with the same keys, so the same arrays are handed to either one.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -314,6 +319,69 @@ def from_jax_dense(module: nn.Module, specs: Sequence[EmbeddingSpec],
   return state
 
 
+def _flax_dense(variables: Mapping[str, Any],
+                layers: Optional[Mapping[str, str]], net: nn.Module
+                ) -> List[Tuple[nn.Linear, Mapping[str, Any]]]:
+  """``(nn.Linear, flax Dense params {kernel, bias})`` pairs: by the name
+  map ``layers`` (a flax path, ``'/'``-joined, to a submodule of ``net``),
+  or the flax module's ``Dense_<i>`` in the order of ``i`` against
+  ``net``'s ``nn.Linear`` modules in ``net.modules()`` order."""
+  flax = variables.get('params', variables)
+  if layers is not None:
+    modules = dict(net.named_modules())
+    out = []
+    for path, name in layers.items():
+      node = flax
+      for key in path.split('/'):
+        node = node[key]
+      out.append((modules[name], node))
+    return out
+  dense = sorted(((int(m[1]), v) for k, v in flax.items()
+                  for m in [re.fullmatch(r'Dense_(\d+)', k)] if m),
+                 key=lambda kv: kv[0])
+  linears = [m for m in net.modules() if isinstance(m, nn.Linear)]
+  if len(dense) != len(flax) or len(dense) != len(linears):
+    raise ValueError(f'the flax module has {sorted(flax)}, the tower '
+                     f'{len(linears)} nn.Linear modules: pass layers=')
+  return list(zip(linears, (v for _, v in dense)))
+
+
+def from_jax_module(params: nn.Module, fx: StackedFeatureExtractor,
+                    jax_params: Mapping[str, Any], *,
+                    layers: Optional[Mapping[str, str]] = None,
+                    ctx: Optional[Context] = None) -> None:
+  """Load the JAX flax adapter's parameters, given as numpy, into the
+  port's module adapter's (``WrappedModel.init``'s module), in place.
+
+  Args:
+    params: the port's ``{'tables': ParameterDict, 'net': tower}``.
+    fx: the port's extractor (``WrappedModel.extractor``), laid out as
+      the JAX one.
+    jax_params: ``WrappedFlaxModel.init``'s ``{'tables': {stack name:
+      array}, 'net': flax variables}``; a lane-packed stack comes across
+      in its logical layout (:func:`from_jax`'s reshape).
+    layers: ``{flax path: port submodule name}``, for example
+      ``{'Dense_0': '0', 'Dense_1': '2'}`` for an ``nn.Sequential``
+      tower; by default the flax module's ``Dense_0``, ``Dense_1``, ...
+      (its top level only) in order against the tower's ``nn.Linear``
+      modules in ``modules()`` order. A flax kernel ``[in, out]`` becomes
+      the weight ``[out, in]``.
+    ctx: the world, by default the extractor's: each rank passes the
+      global arrays and keeps its rows of a sharded stack.
+  """
+  ctx = ctx or fx.ctx
+  with torch.no_grad():
+    for name, t in _logical(fx, jax_params['tables'], ctx).items():
+      params['tables'][name].copy_(t)
+    for linear, p in _flax_dense(jax_params['net'], layers, params['net']):
+      for target, value in ((linear.weight, np.asarray(p['kernel']).T),
+                            (linear.bias, np.asarray(p['bias']))):
+        if tuple(value.shape) != tuple(target.shape):
+          raise ValueError(f'a flax array of {tuple(value.shape)} does not '
+                           f'fit {tuple(target.shape)}')
+        target.copy_(torch.tensor(value, dtype=target.dtype))
+
+
 def quantized_from_jax(q: np.ndarray, scale: np.ndarray, dim: int,
                        device: torch.device,
                        config: Optional[TableConfig] = None,
@@ -336,6 +404,6 @@ def quantized_from_jax(q: np.ndarray, scale: np.ndarray, dim: int,
   return QuantizedTable(q=qt.q.to(device), scale=qt.scale.to(device))
 
 
-__all__ = ['from_jax', 'from_jax_dense', 'gather_slots', 'gather_tables',
-           'load_adam_state', 'load_dcn_v2', 'load_dice', 'load_din',
-           'load_dlrm', 'quantized_from_jax']
+__all__ = ['from_jax', 'from_jax_dense', 'from_jax_module', 'gather_slots',
+           'gather_tables', 'load_adam_state', 'load_dcn_v2', 'load_dice',
+           'load_din', 'load_dlrm', 'quantized_from_jax']

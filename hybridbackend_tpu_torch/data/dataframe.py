@@ -8,12 +8,21 @@ flat values plus nested row splits. A ragged column reaches the device as
 padded-dense values and a mask (``to_padded``, through ``parse``); COO
 export (``to_coo``) is for host-side interop and tests.
 
-Every row operation here is numpy. The JAX package sends the rank-1
-padding, ragged row takes and dense row takes to its native helpers
-(``hybridbackend_tpu/native/hbtpu_native.cc``) when they build; their
-results are the numpy paths' bit for bit, and the port's copy of that
-library comes with the host-backed tables that also need its id hash
-(ROADMAP queue 1 item 16).
+The rank-1 padding (``Value.to_padded``) and the row takes of a rank-1
+ragged column and of a dense one (``take_rows``) go through the port's
+native helpers (``native/idmap.py``: ``ragged_to_padded``,
+``ragged_take_rows``, ``take_rows_dense``, its copy of the JAX package's
+``hbtpu_native.cc``), where the JAX package sends them to its own
+(``hybridbackend_tpu/data/dataframe.py:179,326,337``), for the values
+those helpers take: C-contiguous ``float32``, ``int64`` or ``int32``
+values for the padding, C-contiguous values of any fixed-size dtype for
+the takes (a rank-1 ragged column's flat values). Other values, and
+deeper ragged ranks, take the numpy paths, as in JAX. The library is
+built at first use; where it cannot be built, the helpers raise
+``NativeUnavailable`` with the reason, and nothing falls back to numpy
+unasked. ``native=False`` takes the numpy paths: the plain versions that
+the helpers are held against, bit for bit
+(``tests/test_torch_dataframe.py``).
 """
 
 from __future__ import annotations
@@ -128,8 +137,8 @@ class Value:
     return [int(np.diff(s).max()) if len(s) > 1 else 0
             for s in self.row_splits]
 
-  def to_padded(self, max_len=None,
-                pad_value=0) -> Tuple[np.ndarray, np.ndarray]:
+  def to_padded(self, max_len=None, pad_value=0,
+                native: bool = True) -> Tuple[np.ndarray, np.ndarray]:
     """Pad a ragged value to the static device layout.
 
     rank 1 → ``[batch, L] (+inner shape)``; rank 2 → ``[batch, S, L]``
@@ -139,7 +148,9 @@ class Value:
     ragged level. Returns ``(padded, mask)`` with ``mask`` bool of the
     padded shape (a rank-2 outer mask is ``mask.any(-1)``). This is the
     canonical device layout (static shapes; the reference's nested
-    SparseTensor path, ``dataframe.py:282-396``, maps here).
+    SparseTensor path, ``dataframe.py:282-396``, maps here). A rank-1
+    value pads through the native helper where it takes the values;
+    ``native=False`` pads in numpy.
     """
     if self.ragged_rank == 0:
       raise ValueError('to_padded requires a ragged value')
@@ -177,6 +188,9 @@ class Value:
     if max_len is None:
       m = int(lengths.max()) if n else 1
       max_len = 1 << max(0, (m - 1)).bit_length()  # pow2 bucket
+    if native and _pads_natively(self.values):
+      from hybridbackend_tpu_torch.native import idmap
+      return idmap.ragged_to_padded(self.values, splits, max_len, pad_value)
     inner = self.values.shape[1:]
     padded = np.full((n, max_len) + inner, pad_value, self.values.dtype)
     mask = np.zeros((n, max_len), np.bool_)
@@ -314,18 +328,41 @@ def _gather_segments(splits: np.ndarray, seg_idx: np.ndarray
   return src, new_splits
 
 
-def take_rows(col: Column, indices: np.ndarray) -> Column:
+def _pads_natively(values: np.ndarray) -> bool:
+  """Whether ``native/idmap.py:ragged_to_padded`` takes ``values``."""
+  return (values.dtype.name in ('float32', 'int64', 'int32')
+          and values.flags.c_contiguous)
+
+
+def _takes_natively(values: np.ndarray) -> bool:
+  """Whether the native row takes take ``values``."""
+  return values.flags.c_contiguous and values.dtype != object
+
+
+def take_rows(col: Column, indices: np.ndarray,
+              native: bool = True) -> Column:
   """Row-permute a column (used by shuffled rebatch). Works at any
   ragged rank: each split level gathers the segments its parent level
-  selected."""
+  selected. A rank-1 ragged column and a dense one go through the native
+  row takes where they take the values; ``native=False`` takes the rows
+  in numpy."""
+  from hybridbackend_tpu_torch.native import idmap
   if isinstance(col, Value):
+    if (native and col.ragged_rank == 1 and col.values.ndim == 1
+        and _takes_natively(col.values)):
+      values, splits = idmap.ragged_take_rows(col.values, col.row_splits[0],
+                                              np.asarray(indices))
+      return Value(values, [splits])
     seg = np.asarray(indices)
     out_splits = []
     for level in col.row_splits:
       seg, new_splits = _gather_segments(np.asarray(level), seg)
       out_splits.append(new_splits)
     return Value(col.values[seg], out_splits)
-  return np.asarray(col)[indices]
+  arr = np.asarray(col)
+  if native and _takes_natively(arr):
+    return idmap.take_rows_dense(arr, np.asarray(indices))
+  return arr[indices]
 
 
 def parse(batch: Batch, fields: Sequence[Field]) -> Dict[str, Any]:

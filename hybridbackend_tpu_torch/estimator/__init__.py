@@ -31,8 +31,15 @@ read-only (``embedding/service.py``).
 ``export_saved_model`` writes a serving bundle
 (``training/saved_model.py``) that a cold process loads as ``Served``,
 with bundled ``id_mappers`` for dynamic tables and cache-backed columns
-served from their full host tables. Not in this slice (ROADMAP queue
-1): summaries (item 17).
+served from their full host tables.
+
+With a ``model_dir`` a trainer writes TensorBoard summaries there (JAX
+``:77,119-128,200-205,324-328``), through the port's event writer
+(``utils/summary.py``, opened at first use): ``train`` adds a
+``SummaryHook`` that writes the train metrics under ``train/`` every
+``summary_steps`` steps (100 by default, the JAX option's; 0 writes
+none), and ``evaluate`` writes its results under ``eval/`` at the global
+step.
 
 In a world of N ranks (the trainer's context: ``ctx`` of ``Trainer``,
 ``fx.ctx`` of ``SparseTrainer``, joined by ``Context.join`` in each
@@ -62,7 +69,8 @@ trains on its own batches, its rows of the global batch:
 * ``export_saved_model`` is called by every rank: the shards are gathered
   (a column shard's along the dim) and rank 0 alone writes the bundle,
   the unsharded one ``Served`` loads (JAX ``:362-375,513-533``).
-* Rank 0 alone logs, and its hooks alone report (``training/hooks.py``).
+* Rank 0 alone logs, its hooks alone report (``training/hooks.py``), and
+  it alone writes the summaries.
 * Host-backed tables (``SparseTrainer(caches=...)``) keep one slot map
   over the world, the same on every rank: each batch's cached ids are
   exchanged and planned as the world's batch, the cache's rows live on
@@ -102,7 +110,8 @@ from hybridbackend_tpu_torch.models.feature import (
     EmbeddingSpec, StackedFeatureExtractor, extract_features)
 from hybridbackend_tpu_torch.training.checkpoint import (
     CheckpointManager, Shard)
-from hybridbackend_tpu_torch.training.hooks import Hook, StepStatHook
+from hybridbackend_tpu_torch.training.hooks import (
+    Hook, StepStatHook, SummaryHook, _host_float)
 from hybridbackend_tpu_torch.training.optimizer import (
     Adagrad, OptimizerFactory, init_state, load_slots_by_name, slots_by_name)
 from hybridbackend_tpu_torch.training.saved_model import export
@@ -199,12 +208,6 @@ def _call_with(module: nn.Module, leaves: Dict[str, torch.Tensor],
       args)
 
 
-def _host_mean(v) -> float:
-  if isinstance(v, torch.Tensor):
-    return float(v.detach().to(torch.float32).mean())
-  return float(v)
-
-
 class Trainer:
   """Owns the training lifecycle of one model on the dense-gradient path.
 
@@ -228,8 +231,9 @@ class Trainer:
     optimizer: built on ``params``, for example
       ``multi_optimizer(partial(Adagrad, lr=0.05), partial(torch.optim.
       Adam, lr=1e-3))(params)``; by default ``Adagrad(lr=0.1)`` on all.
-    model_dir: checkpoint directory; its latest checkpoint is restored
-      now. ``None`` keeps no checkpoints.
+    model_dir: checkpoint and summary directory; its latest checkpoint is
+      restored now. ``None`` keeps no checkpoints and writes no
+      summaries.
     ctx: the device everything runs on, and the world: in a world of
       more than one rank (a joined context) the trainer is data-parallel,
       each rank feeding its own rows of the global batch (see the module
@@ -243,18 +247,24 @@ class Trainer:
       ``prefetch=True``).
     gradient_wire_dtype: the dtype of the gradients' all-reduce in a
       world (``make_train_step``).
+    summary_steps: with a ``model_dir``, ``train`` writes the train
+      metrics as summaries every this many steps (0: never; JAX's
+      ``summary_steps`` option). ``evaluate`` writes its results whatever
+      it is.
   """
 
   _host_transform: Optional[Callable] = None
   _eval_host_transform: Optional[Callable] = None
   _cache_runner = None
+  _summary = None
 
   def __init__(self, loss_fn: Callable, params: nn.Module,
                optimizer=None, model_dir: Optional[str] = None, *,
                ctx: Context, label_key: str = 'label',
                group_key: Optional[str] = None,
                keep_checkpoint_max: int = 5, grow_vocab: bool = False,
-               prefetch_capacity: int = 2, gradient_wire_dtype=None):
+               prefetch_capacity: int = 2, gradient_wire_dtype=None,
+               summary_steps: int = 100):
     for name, p in params.named_parameters():
       if p.device != ctx.device:
         raise ValueError(f'parameter {name} is on {p.device}, the context '
@@ -266,11 +276,13 @@ class Trainer:
     self._step_fn = make_train_step(loss_fn, gradient_wire_dtype, ctx)
     self._eval_fn = make_eval_step(loss_fn)
     self._setup(ctx, label_key, group_key, prefetch_capacity, model_dir,
-                keep_checkpoint_max, grow_vocab)
+                keep_checkpoint_max, grow_vocab, summary_steps)
 
   def _setup(self, ctx, label_key, group_key, prefetch_capacity, model_dir,
-             keep_checkpoint_max, grow_vocab) -> None:
+             keep_checkpoint_max, grow_vocab, summary_steps) -> None:
     self._ctx = ctx
+    self._model_dir = model_dir
+    self._summary_steps = summary_steps
     self._label_key = label_key
     self._group_key = group_key
     self._capacity = prefetch_capacity
@@ -292,6 +304,16 @@ class Trainer:
   def _log(self, *args) -> None:
     if self._ctx.is_chief:
       LOG.info(*args)
+
+  def _summary_writer(self):
+    """The event writer into ``model_dir``, opened at first use; None
+    without a ``model_dir`` and on every rank but rank 0."""
+    if not self._model_dir or not self._ctx.is_chief:
+      return None
+    if self._summary is None:
+      from hybridbackend_tpu_torch.utils.summary import SummaryWriter
+      self._summary = SummaryWriter(self._model_dir)
+    return self._summary
 
   # -- state -----------------------------------------------------------------
 
@@ -387,6 +409,9 @@ class Trainer:
       for h in hooks:
         if isinstance(h, StepStatHook):
           h.set_input_iterator(it)
+    writer = self._summary_writer() if self._summary_steps else None
+    if writer is not None:
+      hooks.append(SummaryHook(writer, every_n_steps=self._summary_steps))
     for h in hooks:
       h.begin()
     step_metrics: Dict[str, Any] = {}
@@ -434,7 +459,7 @@ class Trainer:
         if runner is not None:
           runner.flush(self.state)
         self._save(self.global_step)
-    return {k: _host_mean(v) for k, v in step_metrics.items()}
+    return {k: _host_float(v) for k, v in step_metrics.items()}
 
   # -- evaluation ------------------------------------------------------------
 
@@ -499,6 +524,11 @@ class Trainer:
       out['loss_exact'] = 0.0
     if self._group_key is not None:
       out['gauc'] = float(hbm.gauc_result(gauc_s))
+    writer = self._summary_writer()
+    if writer is not None:
+      writer.scalars(self.global_step, {'eval/' + k: v for k, v in out.items()
+                                        if k != 'batches'})
+      writer.flush()
     return out
 
   def train_and_evaluate(self, train_batches_fn: Callable[[], Iterable],
@@ -647,7 +677,8 @@ class SparseTrainer(Trainer):
                prefetch_capacity: int = 2,
                caches: Optional[Dict[str, EmbeddingCache]] = None,
                lookup_strategy: str = 'allgather',
-               step_options: Optional[Dict[str, Any]] = None):
+               step_options: Optional[Dict[str, Any]] = None,
+               summary_steps: int = 100):
     ctx = fx.ctx
     self._caches = dict(caches) if caches else {}
     if self._caches:
@@ -688,7 +719,7 @@ class SparseTrainer(Trainer):
 
     self._eval_fn = make_eval_step(eval_fn)
     self._setup(ctx, label_key, group_key, prefetch_capacity, model_dir,
-                keep_checkpoint_max, grow_vocab)
+                keep_checkpoint_max, grow_vocab, summary_steps)
 
   def _checkpoint_state(self) -> Dict[str, Any]:
     """The state to save: a sharded stack's table and slots as

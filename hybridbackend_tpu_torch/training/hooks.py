@@ -1,9 +1,11 @@
 """Training hooks: step statistics and step- or time-driven callbacks.
 
-Counterpart of ``hybridbackend_tpu/training/hooks.py:21-180`` (``Hook``,
-``StepStatHook``, ``Policy``, ``LoggingHook``). Hooks are plain objects
-that the ``Trainer`` loop calls around each step. ``SummaryHook`` comes
-with ``utils/summary.py`` (ROADMAP).
+Counterpart of ``hybridbackend_tpu/training/hooks.py:21-207`` (``Hook``,
+``StepStatHook``, ``Policy``, ``LoggingHook``, ``SummaryHook``). Hooks are
+plain objects that the ``Trainer`` loop calls around each step.
+``SummaryHook`` writes the train metrics as TensorBoard scalars through
+the port's own event writer (``utils/summary.py``); the trainers add one
+themselves when they have a ``model_dir`` (``summary_steps``).
 
 One change from the reference: ``StepStatHook``'s input-stall part of
 each report counts the gets, stalls and waits since the previous report,
@@ -11,7 +13,8 @@ not since the start, so a report describes its own window.
 
 In a world of more than one rank (a joined process group) every rank
 runs its hooks, and rank 0 alone writes their reports and logs, as the
-JAX package's chief does; a ``Policy``'s callback runs on every rank.
+JAX package's chief does; a ``Policy``'s callback runs on every rank,
+and ``SummaryHook`` writes on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -24,6 +27,14 @@ import numpy as np
 import torch
 
 LOG = logging.getLogger('hybridbackend_tpu_torch')
+
+
+def _host_float(v) -> float:
+  """A metric's mean as a host float (a read of the device for a device
+  tensor); raises ``TypeError`` or ``ValueError`` for a non-number."""
+  if isinstance(v, torch.Tensor):
+    return float(v.detach().to(torch.float32).mean())
+  return float(np.asarray(v).mean())
 
 
 def _chief() -> bool:
@@ -198,9 +209,7 @@ class LoggingHook(Policy):
       parts = []
       for k, v in sorted(metrics.items()):
         try:
-          value = (float(v.detach().to(torch.float32).mean())
-                   if isinstance(v, torch.Tensor)
-                   else float(np.asarray(v).mean()))
+          value = _host_float(v)
         except (TypeError, ValueError):
           continue
         parts.append(f'{k}={value:.5f}')
@@ -208,4 +217,36 @@ class LoggingHook(Policy):
     super().__init__(_cb, every_n_steps=every_n_steps)
 
 
-__all__ = ['Hook', 'StepStatHook', 'Policy', 'LoggingHook']
+class SummaryHook(Policy):
+  """Write the train metrics as TensorBoard scalars every N steps, each
+  under ``prefix`` (``train/loss``), and flush at the end (JAX
+  ``hooks.py:182-207``). ``writer`` is a ``utils.summary.SummaryWriter``
+  or a log directory, where a writer is opened. In a world of more than
+  one rank, rank 0 alone opens a writer and writes: the step's scalar
+  metrics are already the ranks' means there."""
+
+  def __init__(self, writer, every_n_steps: int = 100,
+               prefix: str = 'train/'):
+    from hybridbackend_tpu_torch.utils.summary import SummaryWriter
+    if isinstance(writer, str):
+      writer = SummaryWriter(writer) if _chief() else None
+    self.writer = writer
+
+    def _cb(step, metrics):
+      if self.writer is None or not _chief():
+        return
+      values = {}
+      for k, v in sorted(metrics.items()):
+        try:
+          values[prefix + k] = _host_float(v)
+        except (TypeError, ValueError):
+          continue
+      self.writer.scalars(step, values)
+    super().__init__(_cb, every_n_steps=every_n_steps)
+
+  def end(self, step: int) -> None:
+    if self.writer is not None:
+      self.writer.flush()
+
+
+__all__ = ['Hook', 'StepStatHook', 'Policy', 'LoggingHook', 'SummaryHook']

@@ -46,11 +46,18 @@ raw block; per-example aux outputs stay the rank's own.
 ``g.astype(wire)``, then divided by the world, JAX ``:128-149``) and the
 routed gradient buckets; ``wire_dtype`` the alltoall and hierarchical
 lookups' returning rows.
+
+The step's three phases run inside named ranges (``utils/profiler.py``:
+``hb/lookup``, ``hb/tower``, ``hb/update``), one of each a step, which a
+``torch.profiler`` trace shows and, on the card, Nsight Systems as NVTX
+ranges; ``named_scopes=False`` leaves them out.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
@@ -63,6 +70,7 @@ from hybridbackend_tpu_torch.embedding.sparse_update import (
 from hybridbackend_tpu_torch.framework.context import Context
 from hybridbackend_tpu_torch.models.feature import (
     Batch, StackedFeatureExtractor)
+from hybridbackend_tpu_torch.utils.profiler import named_scope
 
 OptimizerFactory = Callable[[Iterable[nn.Parameter]], torch.optim.Optimizer]
 ModelLoss = Callable[[nn.Module, List[torch.Tensor], List[torch.Tensor],
@@ -218,7 +226,8 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
                            overflow_fallback: bool = True,
                            unique_ratio: float = 1.0,
                            wire_dtype: collective.WireDtype = None,
-                           gradient_wire_dtype: collective.WireDtype = None
+                           gradient_wire_dtype: collective.WireDtype = None,
+                           named_scopes: bool = True
                            ) -> Callable[[SparseTrainState, Batch],
                                          Tuple[SparseTrainState, Dict]]:
   """Build ``step(state, batch) -> (state, metrics)``.
@@ -261,6 +270,8 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
       routed table gradients): ``None`` or ``'float32'``, ``'bfloat16'``
       or ``'float16'``. Used in a world of more than one rank only, as in
       JAX.
+    named_scopes: open the ranges ``hb/lookup``, ``hb/tower`` and
+      ``hb/update`` around the step's phases (``utils/profiler.py``).
 
   The tower's optimizer is part of the state (a torch optimizer owns its
   slots), so unlike the JAX function this one takes no dense optimizer.
@@ -284,30 +295,37 @@ def make_sparse_train_step(fx: StackedFeatureExtractor,
       overflow_fallback=overflow_fallback, unique_ratio=unique_ratio,
       wire_dtype=wire_dtype, gradient_wire_dtype=gradient_wire_dtype)
 
+  scope = (functools.partial(named_scope, device=ctx.device) if named_scopes
+           else lambda name: contextlib.nullcontext())
+
   def step(state: SparseTrainState, batch: Batch):
     # 1. Fused lookups; the tables are not differentiated.
-    raw, ids_by_stack, layouts = fx.lookup_raw(state.tables, batch,
-                                               lookup_strategy, **exchange)
-    raw = {name: emb.detach().requires_grad_() for name, emb in raw.items()}
+    with scope('hb/lookup'):
+      raw, ids_by_stack, layouts = fx.lookup_raw(state.tables, batch,
+                                                 lookup_strategy, **exchange)
+      raw = {name: emb.detach().requires_grad_()
+             for name, emb in raw.items()}
 
-    # 2. Gradients for the tower params and the raw embeddings.
-    loss, aux = loss_of(state.dense, raw, layouts, batch)
-    state.dense_opt.zero_grad(set_to_none=True)
-    loss.backward()
+    with scope('hb/tower'):
+      # 2. Gradients for the tower params and the raw embeddings.
+      loss, aux = loss_of(state.dense, raw, layouts, batch)
+      state.dense_opt.zero_grad(set_to_none=True)
+      loss.backward()
 
-    # 3. Tower update, from the mean of the ranks' gradients.
-    if world > 1:
-      _mean_tower_grads(state.dense, ctx, gradient_wire_dtype)
-    state.dense_opt.step()
+      # 3. Tower update, from the mean of the ranks' gradients.
+      if world > 1:
+        _mean_tower_grads(state.dense, ctx, gradient_wire_dtype)
+      state.dense_opt.step()
 
     # 4. Row-sparse optimizer per stacked table, in place. A stack the
     # loss did not read has a zero gradient, as in JAX.
-    grads = {name: _table_grad(emb.grad if emb.grad is not None
-                               else torch.zeros_like(emb), world)
-             for name, emb in raw.items()}
-    _update_tables(state, grads, ids_by_stack, stacks_by_name, table_lr,
-                   table_optimizer, update, dedup=table_dedup,
-                   split_dense=table_split_dense)
+    with scope('hb/update'):
+      grads = {name: _table_grad(emb.grad if emb.grad is not None
+                                 else torch.zeros_like(emb), world)
+               for name, emb in raw.items()}
+      _update_tables(state, grads, ids_by_stack, stacks_by_name, table_lr,
+                     table_optimizer, update, dedup=table_dedup,
+                     split_dense=table_split_dense)
 
     state.step += 1
     return state, _detached_metrics(aux, loss, ctx)

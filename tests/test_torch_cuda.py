@@ -1000,6 +1000,65 @@ def test_a_bundle_serves_on_the_card_as_on_the_cpu(dev, tmp_path):
       np.testing.assert_allclose(got, on_cpu.predict(b), **TOL)
 
 
+# The module adapter's served path (``module_support.py``): its bundle looks
+# every column up through kernel 5 on the member tables split out of the
+# stacks, where training and ``predict`` read the stacked tables through
+# ``index_select``. The module's inputs both ways are bitwise equal on the
+# card; the served bundle launches kernel 5 once a column a predict and
+# predicts the trainer's ``predict`` to 1e-6.
+@pytest.mark.parametrize('inputs', ['concat', 'features', 'raw'])
+def test_module_adapter_serves_through_kernel_5(dev, tmp_path, inputs):
+  from torch import nn
+  specs = [hbt.EmbeddingSpec(hbt.TableConfig(f'c{c}', 300 + 50 * c, 8))
+           for c in range(3)]
+  tower = (nn.Sequential(nn.LazyLinear(16), nn.ReLU(), nn.Linear(16, 1),
+                         nn.Sigmoid(), nn.Flatten(0))
+           if inputs == 'concat' else _AnyInputs())
+  wrapped = hbt.wraps_module(tower, specs, dense_columns=['d0'],
+                             inputs=inputs, ctx=hbt.Context(dev))
+  rng = np.random.RandomState(0)
+  batch = {**{f'c{c}': rng.randint(-2, 420, 256).astype(np.int32)
+              for c in range(3)},
+           'd0': rng.rand(256).astype(np.float32),
+           'label': rng.randint(0, 2, 256).astype(np.float32)}
+  wrapped.compile(wrapped.init(torch.Generator().manual_seed(0), batch))
+  placed = hbt.put_batch(batch, dev)
+  members, served_specs = wrapped.served_tables()
+  before = hbt.gather_rows.launches
+  with torch.no_grad():
+    served = wrapped._served_inputs(members, placed, served_specs)
+    assert hbt.gather_rows.launches == before + 3
+    trained = wrapped._module_inputs(wrapped.params['tables'], placed)
+  assert hbt.gather_rows.launches == before + 3
+  flat = lambda x: [t for t in (x.values() if isinstance(x, dict) else [x])
+                    if isinstance(t, torch.Tensor)]
+  for s, t in zip(served, trained):
+    for a, b in zip(flat(s), flat(t)):
+      assert torch.equal(a, b)
+  path = wrapped.export_saved_model(str(tmp_path / 'b'), batch)
+  bundle = hbt.Served(path, dev)
+  before = hbt.gather_rows.launches
+  got = bundle.predict(batch)
+  assert hbt.gather_rows.launches == before + 3
+  live = next(wrapped.predict(iter([batch]))).cpu().numpy()
+  assert np.abs(got - live).max() <= 1e-6
+
+
+class _AnyInputs(torch.nn.Module):
+  """A tower over the 'features' or 'raw' inputs: the mean of every
+  embedding and dense input, through one Linear."""
+
+  def __init__(self):
+    super().__init__()
+    self.out = torch.nn.Linear(8, 1)
+
+  def forward(self, first, second):
+    parts = [v for v in first.values()] + [
+        v.float() for k, v in second.items() if k == 'd0']
+    x = sum(p.float().mean(-1, keepdim=True) for p in parts)
+    return torch.sigmoid(self.out(x.expand(-1, 8)))[..., 0]
+
+
 @pytest.mark.parametrize('sessions', [0, 4])
 def test_adagrad_kernel_at_the_din_update_list(dev, sessions):
   """Kernel 1 at the DIN step's update list (the DIN harness at its

@@ -232,7 +232,11 @@ def test_criteo_entry_point_trains_from_its_file(tmp_path, files):
   m = re.search(r'epoch 0: loss=(\S+), auc=(\S+), (\S+)s, step (\d+)',
                 printed)
   assert m and int(m[4]) == 4 and 0 < float(m[2]) <= 1
-  assert os.listdir(tmp_path / 'm') == ['checkpoint-4.pt']
+  # The checkpoint, and the summaries of the evaluation (``summary_steps``
+  # is 100, past the 4 steps).
+  saved = sorted(os.listdir(tmp_path / 'm'))
+  assert saved[0] == 'checkpoint-4.pt' and len(saved) == 2, saved
+  assert saved[1].startswith('events.out.tfevents.'), saved
   # The file: the JAX example's columns, dtypes and row groups.
   import pyarrow.parquet as pq
   meta = pq.ParquetFile(data)

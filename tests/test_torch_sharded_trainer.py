@@ -488,13 +488,17 @@ def test_dense_wire_matches_jax_wire_path(worlds, world):
 @pytest.mark.parametrize('case', ['adagrad', 'dense'])
 def test_checkpoint_restores_at_one_and_four(worlds, case):
   """N = 2's checkpoints: each rank wrote its rows under the step, rank 0
-  the replicated leaves and the manifest; the latest restores at N = 4
+  the replicated leaves, the manifest and the summaries; the latest
+  restores at N = 4
   (that launch) and at N = 1 (here) to the state N = 2 ended with, bit
   for bit."""
   two = worlds[2]
   want = two['ranks'][0][case]['trace'][-1]
   steps = os.path.join(str(two['tmp']), 'ckpt', case)
-  assert sorted(os.listdir(steps)) == ['checkpoint-2', 'checkpoint-4']
+  # The checkpoints, and the summaries of rank 0 alone (one file).
+  saved = sorted(os.listdir(steps))
+  assert [n for n in saved if not n.startswith('events.out.tfevents.')] == [
+      'checkpoint-2', 'checkpoint-4'] and len(saved) == 3, saved
   for step in ('checkpoint-2', 'checkpoint-4'):
     assert sorted(os.listdir(os.path.join(steps, step))) == [
         'manifest.json', 'rank-0.pt', 'rank-1.pt', 'replicated.pt']
