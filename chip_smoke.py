@@ -97,7 +97,8 @@ Phases; any failure raises and the script exits nonzero:
      the card against the same 3 on the CPU (tables, accumulators, tower
      gradients and second moments across the devices; each device's
      tower weights against Adam's step from its own moments), then 33
-     timed steps and one evaluation; no counted kernel runs;
+     timed steps and one evaluation; every table's gradient through kernel
+     4 (``dense_row_totals``), once a table a step;
  19. the harness in its dense mode (no ``--sparse``), its JSON line
      printed;
  20. the port's e2e harness (``python -m
@@ -187,7 +188,7 @@ Phases; any failure raises and the script exits nonzero:
      ``make_pipelined_train_step`` (4 micro-batches) on the card against
      the CPU, each from the initial weights, at phase 18's tolerances;
      ms/step at 1, 2 and 4 micro-batches against ``make_train_step``, in
-     turns; no counted kernel;
+     turns; kernel 4 once a table a micro-batch's backward;
  30. the PICASSO interleaved sparse step (``make_interleaved_train_step``,
      the lookups on a side stream) at the flagship, DCNv2 + Adagrad and
      DLRM + LazyAdam: 3 steps of 4 micro-batches on the card against the
@@ -341,10 +342,23 @@ Phases; any failure raises and the script exits nonzero:
      ``'features'`` and ``'raw'`` on copies of the same weights, one step
      each) served on the card, kernel 5 once a column a predict, within
      1e-6 of ``predict``; one step on the card against the CPU from the
-     card's state (phase 18's rule); then ``profile_trace`` around 2
+     card's state (phase 18's rule); the table gradients of the adapter
+     and of the flagship dense ``Trainer``'s model from one state, 3 times
+     each, bit for bit, kernel 4 once a stack (table) a backward; the
+     adapter's captured gradients of the embeddings through
+     ``dense_row_totals`` on the card bitwise the CPU plain version, and
+     kernel 4 at that list timed beside its bound, the stable sort, the
+     plain version and ``zeros`` + ``index_add_`` (the old backward,
+     repeated as the witness of atomics); then ``profile_trace`` around 2
      flagship sparse steps (each named range twice, CUDA kernel events)
      and the flagship step timed with the named ranges on and off, in
      turns.
+Every dense backward through a table lookup (phases 18, 19, 24's dense
+mode, 29, 31's ``exact``, the dense ``Trainer`` cases of 34 and 35, 36)
+and every GAUC evaluation (phases 25 and 34) launches kernel 4, and every
+row-sharded update that combines a rank's duplicate rows before the
+alltoall route (phases 33-35) launches it once a step; the launch counts
+are held to that.
 With ``--profile`` it then traces 10 steps of each timed variant and of
 the DIN harness's ``--sparse`` step with and without sessions with
 ``torch.profiler`` and prints device time per step by kernel class; in
@@ -362,7 +376,7 @@ files, in the served predicts, in the DIN phases, in the host-table
 phases, in the pipelining phases, in phase 33's ranks (phase 32's
 cases, then the others), in phase 34's worlds, in its cached case, in
 phase 35's (the exchanges' cases, then the interleaved cases and
-sharded serving) and in phase 36,
+sharded serving), in phase 36 and in the dense backwards,
 and its bound: the
 larger of its bytes over 3.35 TB/s and its operations over the card's
 peak rate); the last line is
@@ -427,6 +441,10 @@ KERNELS = {
     # Kernel 1 at the DIN step's update list (phase 23).
     'adagrad_update_sorted[din]': (f'{CSRC}/adagrad_update.cu',
                                    f'{PALLAS}/scatter.py:534'),
+    # Kernel 4 as the backward of a table lookup (dense_row_totals), at
+    # phase 36's list.
+    'gsum_dense_sorted[lookup backward]': (f'{CSRC}/gsum_dense.cu',
+                                           f'{PALLAS}/scatter.py:677'),
 }
 # The rows of the kernels that hold state rows in registers.
 STATE_KERNELS = ('adagrad_update_sorted',
@@ -466,6 +484,16 @@ def _expect(label, counts, **want):
   if counts != want:
     raise AssertionError(f'{label}: kernel launches {counts}, expected '
                          f'{want}')
+
+
+# Kernel 4's launches in the dense backwards of every phase (each table
+# lookup's backward through ``dense_row_totals``), for the kernels line.
+DENSE_BACKWARD = collections.Counter()
+
+
+def _dense_backward(counts):
+  """Adds a dense run's kernel-4 launches to ``DENSE_BACKWARD``."""
+  DENSE_BACKWARD['gsum_dense_sorted'] += counts['gsum_dense_sorted']
 
 
 def _bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
@@ -2149,8 +2177,8 @@ def phase18_dense_trainer(cfg, dev, smi, batches, evals):
   tower, as the JAX harness sets it up): 3 steps on the card, each held
   against the same step on the CPU from the same state (the CPU trainer
   takes the card's state before each), then 33 timed steps and one
-  evaluation. No counted kernel runs on this path. Returns the kernel
-  launches of its runs."""
+  evaluation. Kernel 4 runs once a table a step, each table's gradient
+  (``dense_row_totals``). Returns the kernel launches of its runs."""
   import hybridbackend_tpu_torch as hbt
   cpu = torch.device('cpu')
   args = argparse.Namespace(**{**vars(cfg), 'sparse': False})
@@ -2163,8 +2191,10 @@ def phase18_dense_trainer(cfg, dev, smi, batches, evals):
                                        batches[:DENSE_STEPS])
   torch.cuda.synchronize(dev)
   counts = _counts()
-  _expect(f'phase 18, Trainer.train of {DENSE_STEPS} steps', counts)
+  _expect(f'phase 18, Trainer.train of {DENSE_STEPS} steps', counts,
+          gsum_dense_sorted=DENSE_STEPS * cfg.tables)
   launches.update(counts)
+  _dense_backward(counts)
   del c_trainer
   # Timed steps, then one evaluation.
   reports = []
@@ -2175,8 +2205,10 @@ def phase18_dense_trainer(cfg, dev, smi, batches, evals):
                   hooks=[hook], prefetch=True)
   torch.cuda.synchronize(dev)
   counts = _counts()
-  _expect(f'phase 18, {DENSE_TIMED} timed steps', counts)
+  _expect(f'phase 18, {DENSE_TIMED} timed steps', counts,
+          gsum_dense_sorted=DENSE_TIMED * cfg.tables)
   launches.update(counts)
+  _dense_backward(counts)
   synced = [s * 1e3 for s in hook.synced_secs_per_step]
   res = g_trainer.evaluate(iter(evals))
   if not (np.isfinite(res['auc']) and np.isfinite(res['loss'])
@@ -2578,11 +2610,15 @@ def phase21_criteo(cfg, dev, smi, arrow, tmp):
 def harness_dense(smi):
   """Phase 19: the port's harness in its dense mode (no ``--sparse``) at
   its defaults, in a process of its own; its JSON line is printed. It
-  launches no counted kernel."""
+  launches kernel 4 once a table a timed step (each table's gradient)
+  and no other counted kernel."""
   ((line, report, _),) = _modules_json([('train_benchmark', [])])
-  if (any(report['kernel_launches'].values()) or report['sparse']
+  want = {name: 0 for name in tb.COUNTED}
+  want['gsum_dense_sorted'] = report['timed_steps'] * report['tables']
+  if (report['kernel_launches'] != want or report['sparse']
       or report['card'] != smi):
     raise AssertionError(f'the dense harness reported {report}')
+  _dense_backward(report['kernel_launches'])
   print('phase 19 (python -m hybridbackend_tpu_torch.benchmarks.'
         f'train_benchmark --json, the dense mode): {line}')
 
@@ -3017,7 +3053,8 @@ def phase24_din_harness(smi: str):
   """Phase 24: the DIN harness at its defaults, as a user runs it, in one
   process of its own: dense, ``--sparse`` and ``--sparse --sessions 4``;
   each JSON line printed. Kernel 1 once a timed step in the sparse
-  modes, no counted kernel in the dense one. Returns their launches."""
+  modes; in the dense one kernel 4 twice a timed step (the gradients of
+  the item and the user table). Returns their launches."""
   launches = collections.Counter()
   flag_sets = ([], ['--sparse'], ['--sparse', '--sessions',
                                    str(DIN_SESSIONS)])
@@ -3026,6 +3063,9 @@ def phase24_din_harness(smi: str):
     want = {name: 0 for name in tb.COUNTED}
     if '--sparse' in flags:
       want['adagrad_update_sorted'] = report['timed_steps']
+    else:
+      want['gsum_dense_sorted'] = 2 * report['timed_steps']
+      _dense_backward(report['kernel_launches'])
     if (report['kernel_launches'] != want or report['card'] != smi
         or not np.isfinite(report['final_loss'])):
       raise AssertionError(f'phase 24: the DIN harness reported {report}; '
@@ -3112,9 +3152,6 @@ def phase25_taobao(dev: torch.device, smi: str, tmp: str):
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     counts = _counts()
-    _expect(f'{label}, the Taobao entry point', counts,
-            adagrad_update_sorted=TAOBAO_STEPS)
-    launches.update(counts)
     printed = printed.getvalue()
     res_main = [ast.literal_eval(line[len('epoch 0: '):])
                 for line in printed.splitlines()
@@ -3122,6 +3159,12 @@ def phase25_taobao(dev: torch.device, smi: str, tmp: str):
     if rc != 0 or len(res_main) != 1:
       raise AssertionError(f'{label}: the entry point returned {rc} and '
                            f'printed:\n{printed}')
+    # Its evaluation's GAUC sums each batch's groups through kernel 4
+    # (the batch count is held against the file's below).
+    _expect(f'{label}, the Taobao entry point', counts,
+            adagrad_update_sorted=TAOBAO_STEPS,
+            gsum_dense_sorted=int(res_main[0]['batches']))
+    launches.update(counts)
     print(f'{label} (python -m hybridbackend_tpu_torch.examples.taobao.'
           f'train_din {" ".join(argv)}), on {smi}: {wall:.3f} s with the '
           f'file\'s synthesis and the evaluation; kernel 1 launches '
@@ -3145,7 +3188,8 @@ def phase25_taobao(dev: torch.device, smi: str, tmp: str):
       preds[where] = torch.cat(list(tr.predict(iter(evals)))).cpu()
       del tr
     torch.cuda.synchronize(dev)
-    _expect(f'{label}, evaluate and predict', _counts())
+    _expect(f'{label}, evaluate and predict', _counts(),
+            gsum_dense_sorted=len(evals))
     limit, near, gap = hbm.auc_limit(preds['card'], preds['cpu'], labels)
     glimit, _ = _gauc_limit(preds['card'], preds['cpu'], labels, users,
                             args.batch_size)
@@ -3767,21 +3811,26 @@ DATA_MODES = ('parquet', 'csv', 'dedup', 'transfer')
 DATA_STEPS = 40
 
 
-def _timed_rounds(label, variants, batch, dev, kernel=None):
+def _timed_rounds(label, variants, batch, dev, per_step):
   """The ``variants`` (``{name: (state, step)}``, each warmed up here)
   timed in turn: ``PIPE_ROUNDS`` rounds of a window of ``PIPE_WINDOW``
   steps each, the order reversed every other round, CUDA events between
-  steps. ``kernel`` must have been launched once a step, in the warmup
-  and in every window, and no other counted kernel. Returns ``({name:
-  [gap ms]}, the kernel launches)``."""
+  steps. Each variant's step must have launched the kernels of
+  ``per_step[name]`` (``{kernel: launches a step}``), in the warmup and
+  in every window, and no other counted kernel. Returns ``({name: [gap
+  ms]}, the kernel launches)``."""
   states = {}
   launches = collections.Counter()
+
+  def want(name, steps):
+    return {k: n * steps for k, n in per_step[name].items()}
+
   for name, (state, step) in variants.items():
     _reset_counts()
     states[name] = tb.time_steps(state, step, batch, 0, tb.WARMUP, dev).state
     counts = _counts()
     _expect(f'{label}, {name}, {tb.WARMUP} warmup steps', counts,
-            **({kernel: tb.WARMUP} if kernel else {}))
+            **want(name, tb.WARMUP))
     launches.update(counts)
   gaps = {name: [] for name in variants}
   first = tb.WARMUP
@@ -3792,7 +3841,7 @@ def _timed_rounds(label, variants, batch, dev, kernel=None):
                         PIPE_WINDOW, dev)
       counts = _counts()
       _expect(f'{label}, {name}, {PIPE_WINDOW} steps', counts,
-              **({kernel: PIPE_WINDOW} if kernel else {}))
+              **want(name, PIPE_WINDOW))
       launches.update(counts)
       losses = torch.stack(w.losses)
       if not bool(torch.isfinite(losses).all()):
@@ -3813,8 +3862,9 @@ def phase29_pipelined(cfg, dev, smi):
   the card against the same 3 on the CPU, each from the initial weights
   (``PIPE_STEPS``), at phase 18's tolerances; then ms/step of the
   pipelined step at 1, 2 and 4
-  micro-batches against ``make_train_step`` in alternating rounds. No
-  counted kernel runs on this path. Returns the kernel launches."""
+  micro-batches against ``make_train_step`` in alternating rounds.
+  Kernel 4 runs once a table a backward (a micro-batch's, or the whole
+  batch's): each table's gradient. Returns the kernel launches."""
   import hybridbackend_tpu_torch as hbt
   cpu = torch.device('cpu')
   args = argparse.Namespace(**{**vars(cfg), 'sparse': False})
@@ -3839,7 +3889,7 @@ def phase29_pipelined(cfg, dev, smi):
   for n, g in grads.items():
     excess = float(((g - full[n]).abs()
                     / (1e-6 + 1e-4 * full[n].abs())).max())
-    worst = max(worst, (excess, n))
+    worst = max(worst, (excess, n), key=lambda w: w[0])
   if worst[0] > 1:
     raise AssertionError(f'phase 29: the gradient of {worst[1]} is '
                          f'{worst[0]:.3g} times its tolerance from the whole '
@@ -3863,22 +3913,28 @@ def phase29_pipelined(cfg, dev, smi):
   del g_trainer, c_trainer
   torch.cuda.synchronize(dev)
   counts = _counts()
-  _expect('phase 29, accumulated gradients and pipelined steps', counts)
+  # The whole batch's backward, PIPE_K micro-batches', and PIPE_K a
+  # pipelined step on the card.
+  _expect('phase 29, accumulated gradients and pipelined steps', counts,
+          gsum_dense_sorted=(1 + PIPE_K + PIPE_STEPS * PIPE_K) * cfg.tables)
   launches.update(counts)
+  _dense_backward(counts)
 
   # ms/step: make_train_step against the pipelined step at each k.
-  variants = {}
+  variants, per_step = {}, {}
   for k in (0, *PIPE_KS):
     loss_fn, module, optimizer = tb.dense_parts(args, dev)
     step = (hbt.make_pipelined_train_step(loss_fn, k) if k
             else hbt.make_train_step(loss_fn))
-    variants[f'pipelined k={k}' if k else 'make_train_step'] = (
-        hbt.TrainState.create(module, optimizer), step)
+    name = f'pipelined k={k}' if k else 'make_train_step'
+    variants[name] = (hbt.TrainState.create(module, optimizer), step)
+    per_step[name] = {'gsum_dense_sorted': max(k, 1) * cfg.tables}
   batch = functools.partial(tb.shifted, *tb.make_batch(args, dev),
                             args.vocab)
-  gaps, counts = _timed_rounds('phase 29', variants, batch, dev)
+  gaps, counts = _timed_rounds('phase 29', variants, batch, dev, per_step)
   del variants
   launches.update(counts)
+  _dense_backward(counts)
   print(f'phase 29 (dense Trainer flagship, micro-batch accumulation): '
         f'accumulate_gradients over {PIPE_K} micro-batches against the '
         f'whole batch on the card: {grad_report}; {PIPE_STEPS} pipelined '
@@ -4057,7 +4113,8 @@ def phase30_interleaved(cfg, dev, smi, profile_steps):
     batch = functools.partial(tb.shifted, *tb.make_batch(args, dev),
                               args.vocab)
     if case == 'DCNv2 + Adagrad':
-      gaps, counts = _timed_rounds(label, variants, batch, dev, kernel)
+      gaps, counts = _timed_rounds(label, variants, batch, dev,
+                                   {name: {kernel: 1} for name in variants})
       launches.update(counts)
       print(f'  on {smi}: ms/step, median of {PIPE_ROUNDS} rounds of '
             f'{PIPE_WINDOW} steps taken in turn (CUDA events): '
@@ -4099,7 +4156,8 @@ def phase31_harnesses(smi):
   """Phase 31: the single-device harnesses at their defaults, in turn in
   one process of their own, their JSON lines printed: ``auc_parity.py
   --skip-overflow`` (exit 0, ``parity_ok.fast`` true, kernel 1 once a
-  ``fast`` step and no counted kernel in ``exact``; ``fast_overflow``
+  ``fast`` step, and in ``exact`` kernel 4 once a step, the stack's
+  gradient, and no other counted kernel; ``fast_overflow``
   would train ``fast`` again at a world of one, where there are no
   buckets, and the CPU tests run it at a world of two),
   ``data_benchmark.py`` in each mode and
@@ -4120,11 +4178,17 @@ def phase31_harnesses(smi):
     fast = r['results']['fast']
     steps = r['config']['rows'] // r['config']['batch'] * r['config'][
         'epochs']
+    # The exact variants' 26 tables of one dim are one stack.
+    exact = {name: 0 for name in tb.COUNTED}
+    exact['gsum_dense_sorted'] = steps
     if (r['parity_ok'] != {'fast': True} or r['card'] != smi
         or fast['kernel_launches']['adagrad_update_sorted'] != steps
-        or any(any(v['kernel_launches'].values())
+        or any(v['kernel_launches'] != exact
                for key, v in r['results'].items() if key != 'fast')):
       raise AssertionError(f'phase 31: auc_parity gave {line}')
+    for key, v in r['results'].items():
+      if key != 'fast':
+        _dense_backward(v['kernel_launches'])
     for v in r['results'].values():
       launches.update(v['kernel_launches'])
     print(f'phase 31 (python -m hybridbackend_tpu_torch.benchmarks.'
@@ -4322,6 +4386,31 @@ PHASE33_DIN_FLAGS = ('--sparse', '--sessions', '4', '--lookup', 'alltoall')
 PHASE33_SGD_ROUNDS = 3
 # What the ranks run: the step cases, then the SGD rounds and the DIN steps.
 PHASE33_RUN = (*PHASE33_CASES, 'sgd', 'din')
+
+
+def _combine_launches(flags, optimizer, exchange, partition='row'):
+  """Kernel 4's launches a step of a phase 33 or 35 case on a rank: one
+  where the row-sharded stack's update takes the alltoall route (the
+  default ``update_exchange``) and sums the rank's duplicate rows first
+  (``sparse_update._local_combine``): not per-occurrence Adagrad
+  (``--no-dedup``), not a column-sharded stack."""
+  alltoall = exchange.get('update_exchange', 'alltoall') == 'alltoall'
+  per_occurrence = optimizer == 'adagrad' and '--no-dedup' in flags
+  return int(partition == 'row' and alltoall and not per_occurrence)
+
+
+def _phase33_want(case):
+  """A phase 33 case's launches on a rank over its held steps: its
+  update's kernel once a step, and kernel 4 once a step where the update
+  combines (``_combine_launches``; the DIN step's alltoall update does)."""
+  if case == 'din':
+    kernel, combine = 'adagrad_update_sorted', 1
+  else:
+    flags, optimizer, _, exchange, kernel, _ = PHASE33_CASES[case]
+    combine = _combine_launches(flags, optimizer, exchange)
+  want = collections.Counter({kernel: PHASE33_STEPS})
+  want['gsum_dense_sorted'] += combine * PHASE33_STEPS
+  return dict(want)
 
 
 def _phase33_steps(run):
@@ -5152,8 +5241,7 @@ def _phase33_world(dev, smi, world, proc, started, out, sharded, launches,
                           if case == 'din' else PHASE33_CASES[case][4:])
       want_fallbacks = tuple(PHASE33_STEPS * f for f in per_step)
       for r, rec in enumerate(ranks):
-        _expect(f'{label}, rank {r}', rec['counts'],
-                **{kernel: PHASE33_STEPS})
+        _expect(f'{label}, rank {r}', rec['counts'], **_phase33_want(case))
         (sharded if case in PHASE32_CASES else launches).update(
             rec['counts'])
         if tuple(rec['fallbacks']) != want_fallbacks:
@@ -5171,8 +5259,8 @@ def _phase33_world(dev, smi, world, proc, started, out, sharded, launches,
             'each from one tower: '
             + ', '.join(f'{k} {v:.3e}' if isinstance(v, float)
                         else f'{k} {v}' for k, v in report.items())
-            + f' (in {", ".join(sorted(apart_in)) or "none"}); {kernel} '
-            f'{PHASE33_STEPS} times on each rank; (lookup, update) '
+            + f' (in {", ".join(sorted(apart_in)) or "none"}); launches '
+            f'{_phase33_want(case)} on each rank; (lookup, update) '
             f'fallbacks {[tuple(r["fallbacks"]) for r in ranks]} by rank')
       _print_lists(label, ranks)
     except AssertionError as e:
@@ -5182,9 +5270,11 @@ def _phase33_world(dev, smi, world, proc, started, out, sharded, launches,
     del ranks
   if 'sgd' in PHASE33_RUN:
     ranks = load('sgd')
+    # Each round's alltoall route sums the rank's duplicates (kernel 4).
     for r, rec in enumerate(ranks):
       _expect(f'phase 33, {world} ranks, sgd, rank {r}', rec['counts'],
-              scatter_add_sorted=PHASE33_SGD_ROUNDS)
+              scatter_add_sorted=PHASE33_SGD_ROUNDS,
+              gsum_dense_sorted=PHASE33_SGD_ROUNDS)
       launches.update(rec['counts'])
       if rec['fallbacks']:
         raise AssertionError(f'phase 33, sgd, rank {r}: fallbacks '
@@ -5526,8 +5616,12 @@ def phase34_rank(out, device, spec):
         if ctx.rank == 0:
           rec['dense_tower'].append(_net_values(module['net'], optimizer))
 
+    _reset_counts()
     dtr.train(_phase34_train(cfg, ctx.rows(cfg.batch))[:PHASE34_DENSE_STEPS],
               hooks=[_DenseRecord()])
+    if dev.type == 'cuda':
+      torch.cuda.synchronize(dev)
+    rec['dense_counts'] = _counts()
     rec['dense_sharded'] = sum(hbt.table_shard(t) is not None
                                for t in module['tables'].values())
     rec['dense_tower_equal'] = _ranks_agree(
@@ -5672,9 +5766,17 @@ def phase34_trainers(dev, smi):
              for r in range(PHASE34_WORLD)]
     t0 = time.perf_counter()
     for r, rec in enumerate(ranks):
+      # The alltoall update sums the rank's duplicates (kernel 4) before
+      # kernel 1; each dense step's 26 sharded tables take their
+      # gradients through kernel 4 (the exchange's transpose).
       _expect(f'phase 34, rank {r}', rec['counts'],
-              adagrad_update_sorted=PHASE34_STEPS)
+              adagrad_update_sorted=PHASE34_STEPS,
+              gsum_dense_sorted=PHASE34_STEPS)
+      _expect(f'phase 34, rank {r}, the dense Trainer', rec['dense_counts'],
+              gsum_dense_sorted=PHASE34_DENSE_STEPS * cfg.tables)
       launches.update(rec['counts'])
+      launches.update(rec['dense_counts'])
+      _dense_backward(rec['dense_counts'])
       for held in rec['lists']:
         _expect(f'phase 34, rank {r}, its received list', held['counts'],
                 **{held['kernel']: 1})
@@ -5877,6 +5979,7 @@ def _hold_cached34(cfg, dev, out, ranks, launches):
   for r, rec in enumerate(recs):
     _expect(f'phase 34, cached, rank {r}', rec['counts'],
             adagrad_update_sorted=PHASE34_CACHED_STEPS,
+            gsum_dense_sorted=PHASE34_CACHED_STEPS,
             gather_rows=rec['gathers']['calls'])
     launches.update(rec['counts'])
     for held in rec['lists']:
@@ -6106,8 +6209,12 @@ def phase35_rank(out, device, spec):
 
     base, ids = tb.make_batch(args, torch.device('cpu'), PHASE33_BATCH_SEED,
                               rows=ctx.rows(args.batch))
+    _reset_counts()
     dtr.train([tb.shifted(base, ids, args.vocab, i)
                for i in range(PHASE35_STEPS)], hooks=[_Record()])
+    if dev.type == 'cuda':
+      torch.cuda.synchronize(dev)
+    rec['counts'] = _counts()
     rec['tower_equal'] = _ranks_agree(
         ctx, [p for p in module.parameters() if hbt.table_shard(p) is None])
     state = _dense_state(module, optimizer, ctx)
@@ -6476,9 +6583,11 @@ def phase35_exchanges(dev, smi, started=None):
       try:
         kernel, per_step = spec[4], spec[5]
         want_fallbacks = tuple(PHASE35_STEPS * f for f in per_step)
+        want = collections.Counter({kernel: PHASE35_STEPS})
+        want['gsum_dense_sorted'] += PHASE35_STEPS * _combine_launches(
+            spec[0], spec[1], spec[3], spec[6])
         for r, rec in enumerate(ranks):
-          _expect(f'{label}, rank {r}', rec['counts'],
-                  **{kernel: PHASE35_STEPS})
+          _expect(f'{label}, rank {r}', rec['counts'], **want)
           (new_launches if case in PHASE35_INTERLEAVE else launches).update(
               rec['counts'])
           if tuple(rec['fallbacks']) != want_fallbacks:
@@ -6497,8 +6606,8 @@ def phase35_exchanges(dev, smi, started=None):
               'world of one on the card, each from one tower: '
               + ', '.join(f'{k} {v:.3e}' if isinstance(v, float)
                           else f'{k} {v}' for k, v in report.items())
-              + f' (in {", ".join(sorted(apart_in)) or "none"}); {kernel} '
-              f'{PHASE35_STEPS} times on each rank; (lookup, update) '
+              + f' (in {", ".join(sorted(apart_in)) or "none"}); launches '
+              f'{dict(want)} on each rank; (lookup, update) '
               f'fallbacks {[tuple(r["fallbacks"]) for r in ranks]} by rank')
         _print_lists(label, ranks)
         lists += [(case, c['kernel'], c['entries'], c['err'])
@@ -6537,6 +6646,14 @@ def phase35_exchanges(dev, smi, started=None):
         r['tower_equal'] for r in dense):
       raise AssertionError('phase 35, dense: the ranks disagree on the '
                            'losses or the replicated parameters')
+    # Each sharded table's gradient, the hierarchical transpose, through
+    # kernel 4 once a step on every rank.
+    for r, rec in enumerate(dense):
+      _expect(f'phase 35, dense, rank {r}', rec['counts'],
+              gsum_dense_sorted=PHASE35_STEPS * flagship(
+                  *SHARDED_FLAGS).tables)
+      launches.update(rec['counts'])
+      _dense_backward(rec['counts'])
     _hold_dense35(dev, dense[0], report)
     check_s = time.perf_counter() - t0
   finally:
@@ -6631,6 +6748,120 @@ def _served(label, wrapped, path, batch, dev):
   return got, gap
 
 
+def _bits_equal(a, b):
+  """Whether two float32 tensors hold the same bits (``-0.0`` is not
+  ``0.0``)."""
+  return a.shape == b.shape and torch.equal(
+      a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def _dense_backward36(cfg, wrapped, batch, dev, smi):
+  """Phase 36's table gradients through kernel 4: the adapter's stacked
+  tables and the flagship dense ``Trainer``'s 26 tables (its model,
+  ``train_benchmark.dense_parts``), each from one state 3 times, bit for
+  bit, kernel 4 once a table a backward; the adapter's captured list (the
+  rows and the gradients of the embeddings that reached
+  ``dense_row_totals``) summed on the card bitwise the CPU plain version;
+  at that list kernel 4 timed beside its bound, the stable sort with its
+  permutation, the whole ``dense_row_totals``, the plain version and
+  ``zeros`` + ``index_add_`` (one PyTorch call, the backward the lookup
+  had before), which is repeated as the witness of atomics. Returns the
+  counted launches and kernel 4's record at that list."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.embedding import lookup as lookup_mod
+  t0 = time.perf_counter()
+  launches = collections.Counter()
+  seen = []
+  real = lookup_mod.dense_row_totals
+
+  def spy(rows, grad, vocab):
+    seen.append((rows.clone(), grad.clone(), vocab))
+    return real(rows, grad, vocab)
+
+  def repeated(label, loss_of, tables):
+    got = []
+    for _ in range(3):
+      _reset_counts()
+      got.append(torch.autograd.grad(loss_of(), tables))
+      torch.cuda.synchronize(dev)
+      counts = _counts()
+      _expect(label, counts, gsum_dense_sorted=len(tables))
+      launches.update(counts)
+      _dense_backward(counts)
+    if not all(_bits_equal(g, w) for again in got[1:]
+               for g, w in zip(again, got[0])):
+      raise AssertionError(f'{label}: the table gradients differ between '
+                           'repeats')
+    return got[0]
+
+  params = wrapped.params
+  placed = hbt.put_batch(batch, dev)
+  lookup_mod.dense_row_totals = spy
+  try:
+    (adapter,) = repeated("phase 36, the adapter's backward",
+                          lambda: wrapped.loss_fn(params, placed)[0],
+                          list(params['tables'].values()))
+  finally:
+    lookup_mod.dense_row_totals = real
+  rows, grad, vocab = seen[0]
+  want = hbt.dense_row_totals(rows.cpu(), grad.cpu(), vocab)
+  err = float((adapter.cpu() - want).abs().max())
+  if not _bits_equal(adapter.cpu(), want):
+    raise AssertionError(f'phase 36: the adapter\'s table gradient on the '
+                         f'card is {err:.3e} from the CPU plain version')
+  args = argparse.Namespace(**{**vars(cfg), 'sparse': False})
+  loss_fn, module, _ = tb.dense_parts(args, dev)
+  dense_batch = tb.shifted(*tb.make_batch(args, dev, tb.SEED + 36),
+                           args.vocab, 0)
+  repeated("phase 36, the dense Trainer's backward",
+           lambda: loss_fn(module, dense_batch)[0],
+           list(module['tables'].values()))
+  del module
+
+  # Kernel 4 at the adapter's list.
+  n, d = grad.shape
+  r32 = torch.where((rows >= 0) & (rows < vocab), rows, -1).to(torch.int32)
+  srows, order = torch.sort(r32, stable=True)
+  sg = grad.index_select(0, order)
+  ms = _median_ms(lambda: hbt.gsum_dense_sorted(srows, sg, vocab))
+  sort_ms = _median_ms(
+      lambda: grad.index_select(0, torch.sort(r32, stable=True)[1]))
+  function_ms = _median_ms(lambda: hbt.dense_row_totals(rows, grad, vocab))
+  plain_ms = _median_ms(
+      lambda: hbt.gsum_dense_sorted_reference(srows, sg, vocab),
+      queued=False)
+  valid = srows >= 0
+  valid_rows, valid_g = srows[valid].long(), sg[valid]
+  library_ms = _median_ms(lambda: torch.zeros(vocab, d, device=dev)
+                          .index_add_(0, valid_rows, valid_g))
+  bound = _bound(n * (d + 1) * 4 + vocab * d * 4, n * d)
+  # The witness: the lookup's backward before, index_select's, repeated.
+  table = torch.zeros(vocab, d, device=dev, requires_grad=True)
+  ok = (rows >= 0).unsqueeze(-1)
+  old = [torch.autograd.grad(
+      table.index_select(0, rows.clamp(min=0)), table,
+      torch.where(ok, grad, 0))[0] for _ in range(3)]
+  differ = sum(not _bits_equal(o, old[0]) for o in old[1:])
+  old_err = float((old[0] - adapter).abs().max())
+  print(f'  table gradients through kernel 4 on {smi}: the adapter\'s '
+        f'[{vocab}, {d}] stack and the dense Trainer\'s {args.tables} '
+        f'tables of [{args.vocab}, {args.dim}], 3 backwards each from one '
+        'state, '
+        'bit for bit; the adapter\'s captured list summed on the card '
+        f'bitwise the CPU plain version ({n} ids, max abs err {err:.3e}); '
+        f'kernel 4 {ms:.4f} ms (bound {bound["bound_ms"]:.4f} ms, '
+        f'{bound["bytes"] / 1e6:.2f} MB), the stable sort and permutation '
+        f'{sort_ms:.4f} ms, dense_row_totals {function_ms:.4f} ms, plain '
+        f'{plain_ms:.4f} ms, zeros + index_add_ {library_ms:.4f} ms; '
+        f'index_select\'s backward repeated: {differ} of 2 repeats differ '
+        f'from the first, {old_err:.3e} from kernel 4\'s totals at most; '
+        f'{time.perf_counter() - t0:.1f} s')
+  return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        library_ms=library_ms, sort_ms=sort_ms,
+                        function_ms=function_ms, witness_repeats_differ=differ,
+                        **bound)
+
+
 def _scoped_steps(cfg, dev, smi, tmp):
   """Phase 36's flagship part: ``profile_trace`` around 2 steps of the
   flagship sparse step, whose trace must hold each named range twice and
@@ -6717,8 +6948,10 @@ def phase36_module(cfg, dev, smi):
   Adagrad slot to ``rtol = atol = 1e-5`` (phase 18's rule for the
   tables; the tower's Adagrad at lr 0.1 moves a weight by about 0.3
   times its gradient's rounding difference, as it moves a table row);
-  and the flagship's named ranges (``_scoped_steps``). Returns the
-  counted launches."""
+  the table gradients through kernel 4 (``_dense_backward36``); and the
+  flagship's named ranges (``_scoped_steps``). The fit launches kernel 4
+  once a step, the stack's gradient. Returns the counted launches and
+  kernel 4's record at the adapter's list (its launches: the fit's)."""
   import copy
   import hybridbackend_tpu_torch as hbt
   from hybridbackend_tpu_torch.examples.criteo import train_module as tm
@@ -6735,7 +6968,12 @@ def phase36_module(cfg, dev, smi):
     _reset_counts()
     wrapped, metrics, results = tm.run(args)
     torch.cuda.synchronize(dev)
-    _expect('phase 36, the entry point', _counts())
+    counts = _counts()
+    # Each fit step's table gradient through kernel 4, once a stack.
+    _expect('phase 36, the entry point', counts,
+            gsum_dense_sorted=MODULE_STEPS * len(wrapped.extractor.stacks))
+    launches.update(counts)
+    _dense_backward(counts)
     run_s = time.perf_counter() - t0
     if not (np.isfinite(metrics['loss']) and 0 <= results['auc'] <= 1
             and np.isfinite(results['loss'])
@@ -6863,8 +7101,11 @@ def phase36_module(cfg, dev, smi):
                                  for k, v in other.items()))
     print('  one step GPU vs CPU: ' + ', '.join(
         f'{k} {v:.3e}' for k, v in report.items()))
+    counts, record = _dense_backward36(cfg, wrapped, batches[0], dev, smi)
+    launches.update(counts)
+    record['launches'] = MODULE_STEPS * len(wrapped.extractor.stacks)
     launches.update(_scoped_steps(cfg, dev, smi, tmp))
-  return launches
+  return launches, record
 
 
 _LAST_MARK = [time.perf_counter()]
@@ -7033,7 +7274,8 @@ def main() -> int:
     stop_world_harnesses(beside)
     raise
   _mark('phase 35')
-  module_launches = phase36_module(cfg, dev, smi)
+  module_launches, k['gsum_dense_sorted[lookup backward]'] = phase36_module(
+      cfg, dev, smi)
   _mark('phase 36')
   if args.profile:
     batch = functools.partial(tb.shifted, *tb.make_batch(cfg, dev),
@@ -7058,6 +7300,10 @@ def main() -> int:
                  'plain_ms': m['plain_ms'], 'bound_ms': m['bound_ms'],
                  'bound_by': m['bound_by'], 'bytes': m['bytes'],
                  'library_ms': m['library_ms'],
+                 # Kernel 4 as a lookup's backward: the stable sort with
+                 # its permutation, and the whole dense_row_totals.
+                 'sort_ms': m.get('sort_ms'),
+                 'dense_row_totals_ms': m.get('function_ms'),
                  # Launches in the trainers' runs (phases 17 and 18), by
                  # the kernel's own counter; null for a storage or dedup
                  # mode, whose counter it shares with its kernel's row.
@@ -7127,12 +7373,17 @@ def main() -> int:
                  'serving_interleave_launches': (
                      serving_interleave_launches[name]
                      if name in tb.COUNTED else None),
-                 # Launches in phase 36: kernel 5 in the module adapter's
-                 # served inputs and its bundles' predicts, kernel 1 in the
-                 # flagship steps traced and timed with and without the
-                 # named ranges.
+                 # Launches in phase 36: kernel 4 in the entry point's
+                 # fit and the repeated table gradients, kernel 5 in the
+                 # module adapter's served inputs and its bundles'
+                 # predicts, kernel 1 in the flagship steps traced and
+                 # timed with and without the named ranges.
                  'module_launches': (module_launches[name]
-                                     if name in tb.COUNTED else None)})
+                                     if name in tb.COUNTED else None),
+                 # Kernel 4's launches in every dense backward through a
+                 # table lookup: phases 18, 19, 24, 29, 31, 34-36.
+                 'dense_backward_launches': (
+                     DENSE_BACKWARD[name] if name in tb.COUNTED else None)})
   print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s wall, every '
         'phase')
   print(json.dumps({'kernels': rows}))

@@ -125,8 +125,8 @@ from hybridbackend_tpu_torch.ops.gather import (
     gather_rows, gather_rows_reference)
 from hybridbackend_tpu_torch.ops.scatter import (
     adagrad_update_sorted, adagrad_update_sorted_reference,
-    adam_update_sorted, adam_update_sorted_reference, gsum_dense_sorted,
-    gsum_dense_sorted_reference, scatter_add_sorted,
+    adam_update_sorted, adam_update_sorted_reference, dense_row_totals,
+    gsum_dense_sorted, gsum_dense_sorted_reference, scatter_add_sorted,
     scatter_add_sorted_reference)
 from hybridbackend_tpu_torch.pipeline import (
     accumulate_gradients, make_interleaved_train_step,

@@ -7,8 +7,16 @@ with ``mode='fill'`` gives that for free; torch's index ops raise on such
 ids, so the lookup clamps them to row 0, gathers, then masks.
 
 A replicated table (every table in a world of one) is gathered with
-``index_select``, whose backward the dense-gradient path differentiates
-through. The serving function, which needs no backward, passes
+``index_select`` (``_RowGather``), whose backward the dense-gradient path
+differentiates through: ``ops.scatter.dense_row_totals``, a stable sort
+of the rows and kernel 4 (``gsum_dense_sorted``), which sums each row's
+gradients from 0.0 in list order, as the JAX package's scatter-add (the
+transpose of ``jnp.take``) sums them on the CPU, and skips the invalid
+ids, as ``mode='fill'`` drops them. So a table's gradient is JAX's bits
+for an f32 table, and the same bits on every call on a card, where the
+backward of ``index_select`` (an ``index_add_``) adds with atomics in no
+fixed order. A bf16 table's totals are f32 sums rounded once to bf16.
+The serving function, which needs no backward, passes
 ``serving=True``: the gather goes through kernel 5 (``ops/gather.py``,
 which clips the ids itself), with the same bits. A
 :class:`~hybridbackend_tpu_torch.embedding.quant.QuantizedTable` is
@@ -75,14 +83,23 @@ exchange): its backward gives the owner's shard, for each of its rows,
 the sum of every rank's gradients of the embeddings read from it, the
 transpose of the exchange. For ``'allgather'`` and ``'gspmd'`` that is
 JAX's transpose of the all_gather and masked take: every rank's
-gradients gathered, masked to the owner's rows and scatter-added into
-the shard. For ``'alltoall'`` and ``'hierarchical'`` the gradients go
+gradients gathered, masked to the owner's rows and summed into the
+shard. For ``'alltoall'`` and ``'hierarchical'`` the gradients go
 back to the owners through the same buckets, hop by hop (cast to
 ``wire_dtype`` on the wire, as the transpose of the rows' cast), and are
-scatter-added there. For a column table the inverse all-to-all hands
-each rank every rank's gradients of its slice, scatter-added at every
-id. Nothing is scaled: a loss that is each rank's mean over its rows
-gives gradients ``W`` times the global mean's, which the dense step
+summed there. For a column table the inverse all-to-all hands
+each rank every rank's gradients of its slice, summed at every
+id. Each of these sums is ``dense_row_totals`` (kernel 4 on a card), in
+the order the owner holds its list: rank by rank, each rank's ids in
+its order, which is the global batch's order, so without ``wire_dtype``
+and dedup a shard's gradient is the world of one's rows bit for bit. A
+bucket lane of the alltoall and hierarchical transposes is a plain
+``index_add_``: it takes one id's gradient, and exact zeros from the
+invalid ids, so its order does not matter (an id that a full bucket
+leaves out, with ``overflow_fallback=False``, reads the last lane as
+the forward's clamped gather does, and adds into it). Nothing is
+scaled: a loss that is each rank's mean over its rows gives gradients
+``W`` times the global mean's, which the dense step
 divides once (``training/train.py``). A shard that needs no gradient
 (the sparse step, which routes the embeddings' gradient itself through
 ``sparse_update.py``) is looked up under ``torch.no_grad()``.
@@ -115,6 +132,7 @@ from hybridbackend_tpu_torch.embedding.table import TableConfig, is_shard
 from hybridbackend_tpu_torch.embedding.unique import unique
 from hybridbackend_tpu_torch.framework.context import Context
 from hybridbackend_tpu_torch.ops.gather import gather_rows
+from hybridbackend_tpu_torch.ops.scatter import dense_row_totals
 
 Table = Union[torch.Tensor, QuantizedTable]
 STRATEGIES = ('allgather', 'alltoall', 'hierarchical', 'gspmd')
@@ -156,20 +174,39 @@ def lookup(table: Table, ids: torch.Tensor, config: TableConfig,
   valid = (ids >= 0) & (ids < config.vocab_size)
   rows = config.row_index(ids, ctx)
   if serving:
-    out = gather_rows(table, rows)
-  else:
-    rows = torch.where(valid, rows, 0)
-    out = table.index_select(0, rows.reshape(-1).to(torch.int64))
-    out = out.reshape(*ids.shape, table.shape[1])
-  return torch.where(valid.unsqueeze(-1), out, 0)
+    return torch.where(valid.unsqueeze(-1), gather_rows(table, rows), 0)
+  return _RowGather.apply(table, rows.reshape(-1), valid.reshape(-1)).reshape(
+      *ids.shape, table.shape[1])
 
 
 lookup.overflow_fallbacks = 0     # exact exchanges taken after an overflow
 
 
+class _RowGather(torch.autograd.Function):
+  """``table[rows]`` for ``[N]`` integer rows, zeros where ``valid`` is
+  false; its backward sums each valid row's gradients in list order
+  (``dense_row_totals``, kernel 4 on a card), rounded once to the
+  table's dtype. The dense step is host-bound, one lookup a table, so
+  each pass takes as few ops as the old ``index_select`` did, and the
+  backward three more (a mask, the sort and its permutation)."""
+
+  @staticmethod
+  def forward(fctx, table, rows, valid):
+    fctx.save_for_backward(rows, valid)
+    fctx.vocab, fctx.dtype = table.shape[0], table.dtype
+    out = table.index_select(0, torch.where(valid, rows, 0))
+    return torch.where(valid.unsqueeze(-1), out, 0)
+
+  @staticmethod
+  def backward(fctx, grad):
+    rows, valid = fctx.saved_tensors
+    totals = dense_row_totals(torch.where(valid, rows, -1), grad, fctx.vocab)
+    return totals.to(fctx.dtype), None, None
+
+
 def _index_select(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-  """The training lookup's local gather, which the dense path
-  differentiates through; ``gather_rows`` (kernel 5) is the serving
+  """The training lookup's gather of a shard's rows, whose gradient is
+  the exchange's transpose; ``gather_rows`` (kernel 5) is the serving
   one's. Both return ``rows.shape + (d,)``, the same bits."""
   return table.index_select(0, rows)
 
@@ -208,7 +245,7 @@ def _sharded(shard, ids, config, ctx, strategy, bucket_ratio, fallback,
     if not _global_any(u.overflowed, ctx):
       emb_u = _sharded(shard, u.values, config, ctx, strategy,
                        bucket_ratio, fallback, 1.0, wire_dtype, gather)
-      return emb_u.index_select(0, u.index.long()).reshape(
+      return _RowGather.apply(emb_u, u.index, u.index >= 0).reshape(
           *ids.shape, config.dim)
     lookup.overflow_fallbacks += 1
   valid = (flat >= 0) & (flat < config.vocab_size)
@@ -246,11 +283,20 @@ class _Exchange(torch.autograd.Function):
     return fctx.transpose(grad.contiguous()), None, None
 
 
+def _totals(local: torch.Tensor, grad: torch.Tensor,
+            shard: torch.Tensor) -> torch.Tensor:
+  """A transpose's last step: the shard's gradient, each of its rows the
+  sum of the received gradients at that row in the order received
+  (``dense_row_totals``; a ``-1`` lane is not this rank's), in the
+  shard's dtype."""
+  return dense_row_totals(local, grad, shard.shape[0]).to(shard.dtype)
+
+
 def _lookup_allgather(shard, rows, ctx, rows_per_shard, gspmd, gather):
   """All ranks' ids, a masked local gather, then a reduce-scatter, or
   with ``gspmd`` an all-reduce of which each rank keeps its rows (the
   same bits: one rank holds each row, the others add zeros); transposed,
-  all ranks' gradients, masked to this rank's rows, scatter-added."""
+  all ranks' gradients, masked to this rank's rows, summed."""
   all_ids = collective.allgather(rows, ctx=ctx).reshape(ctx.world_size, -1)
   owner = torch.div(all_ids, rows_per_shard, rounding_mode='floor')
   local = (all_ids - owner * rows_per_shard).clamp(
@@ -261,8 +307,7 @@ def _lookup_allgather(shard, rows, ctx, rows_per_shard, gspmd, gather):
 
   def transpose(grad):
     every = collective.allgather(grad, ctx=ctx)
-    every = torch.where(mine, every, 0)
-    return torch.zeros_like(shard).index_add_(0, local, every)
+    return _totals(torch.where(mine.reshape(-1), local, -1), every, shard)
 
   if gspmd:
     return collective.allreduce(contrib, ctx=ctx)[ctx.rank], transpose
@@ -273,8 +318,8 @@ def _lookup_column(shard, rows, ctx, vocab, gather):
   """All ranks' ids, this rank's slice of each row, and a tiled
   all-to-all that splits the rows and joins the columns (JAX
   ``all_to_all(split_axis=0, concat_axis=1, tiled=True)``); transposed,
-  the inverse all-to-all, every rank's gradients of this slice,
-  scatter-added at every id."""
+  the inverse all-to-all, every rank's gradients of this slice, summed
+  at every id."""
   world, b, c = ctx.world_size, rows.shape[0], shard.shape[1]
   all_ids = collective.allgather(rows, ctx=ctx)
   valid = ((all_ids >= 0) & (all_ids < vocab)).unsqueeze(-1)
@@ -287,8 +332,7 @@ def _lookup_column(shard, rows, ctx, vocab, gather):
     back = collective.alltoall(
         grad.reshape(b, world, c).permute(1, 0, 2).reshape(world * b, c),
         ctx=ctx)
-    return torch.zeros_like(shard).index_add_(
-        0, local, torch.where(valid, back, 0))
+    return _totals(torch.where(valid.squeeze(-1), local, -1), back, shard)
 
   return out, transpose
 
@@ -297,8 +341,8 @@ def _a2a_round_trip(shard, part: Partitioned, ctx, rows_per_shard,
                     wire_dtype, gather):
   """The ids to their owners, the owners' gather, the rows back in
   ``wire_dtype``, unbucketed (``lookup.py:294-303``); and its transpose:
-  each id's gradient into its bucket lane, to its owner, scatter-added
-  at the row it read."""
+  each id's gradient into its bucket lane, to its owner, summed at the
+  row it read."""
   recv, recv_sizes = collective.all_to_all_v(part.buckets, part.sizes,
                                              ctx=ctx)
   local = (recv - ctx.rank * rows_per_shard).clamp(
@@ -316,8 +360,8 @@ def _a2a_round_trip(shard, part: Partitioned, ctx, rows_per_shard,
         0, part.restore.clamp(max=lanes - 1).long(), grad)
     got, _ = collective.all_to_all_v(flat.reshape(back.shape), part.sizes,
                                      ctx=ctx, wire_dtype=wire_dtype)
-    got = torch.where((recv >= 0).reshape(-1, 1), got.reshape(lanes, d), 0)
-    return torch.zeros_like(shard).index_add_(0, local, got)
+    return _totals(torch.where(recv.reshape(-1) >= 0, local, -1),
+                   got.reshape(lanes, d), shard)
 
   return out, transpose
 
@@ -425,8 +469,8 @@ def _lookup_hierarchical(shard, rows, ctx, rows_per_shard, bucket_ratio,
         0, p1.restore.clamp(max=lanes1 - 1).long(), g0.reshape(-1, d))
     g1, _ = collective.all_to_all_v(g1.reshape(b1.shape), p1.sizes, ctx=ctx,
                                     topology=inter, wire_dtype=wire_dtype)
-    g1 = torch.where((r1 >= 0).reshape(-1, 1), g1.reshape(lanes1, d), 0)
-    return torch.zeros_like(shard).index_add_(0, at, g1)
+    return _totals(torch.where(r1.reshape(-1) >= 0, at, -1),
+                   g1.reshape(lanes1, d), shard)
 
   return torch.where(valid, out, 0), transpose
 

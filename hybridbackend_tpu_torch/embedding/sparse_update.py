@@ -70,6 +70,7 @@ from hybridbackend_tpu_torch.distribute import collective
 from hybridbackend_tpu_torch.distribute.partition import bucket_counts
 from hybridbackend_tpu_torch.embedding.table import TableConfig
 from hybridbackend_tpu_torch.framework.context import Context
+from hybridbackend_tpu_torch.ops import scatter as kernels
 from hybridbackend_tpu_torch.ops.scatter import (
     Lr, Step, _device_scalar, adagrad_update_sorted, adam_update_sorted,
     gsum_dense_sorted, scatter_add_sorted)
@@ -133,12 +134,16 @@ def _local_combine(rows: torch.Tensor, g: torch.Tensor
   """Each distinct row's gradient total (``:391-408``): ``(urows [n],
   gsum [n, d])``, the distinct rows ascending in a prefix and ``-1`` in
   the lanes after it. Rows ``< 0`` collapse into one ``-1`` lane, which
-  the owners drop."""
+  the owners drop. The totals are kernel 4's over the sorted list (the
+  slots are ascending): f32 sums in list order, rounded once to ``g``'s
+  dtype, the same bits on every call. It is named through its module,
+  so that this module's kernel names stay the owners' updates."""
   srows, sg = _sort(rows, g)
   is_first = torch.ones_like(srows, dtype=torch.bool)
   is_first[1:] = srows[1:] != srows[:-1]
   slot = torch.cumsum(is_first, 0) - 1
-  gsum = torch.zeros_like(g).index_add_(0, slot, sg)
+  gsum = kernels.gsum_dense_sorted(slot.to(torch.int32), sg,
+                                   rows.shape[0]).to(g.dtype)
   urows = torch.full_like(rows, -1)
   urows[slot] = srows
   return urows, gsum

@@ -90,7 +90,9 @@ def create_stacked_tables(stacks: Sequence[TableStack],
                           ) -> Dict[str, torch.Tensor]:
   """One physical table per stack, each member initialized with its own
   initializer over its row range (drawn in member order); of a stack
-  sharded over ``ctx``, this rank's rows of it."""
+  sharded over ``ctx``, this rank's rows of it. A member draws the rows
+  it has at a world of one and a world's padding of its range is zeros
+  (``create_table``), so every world draws the same values."""
   out = {}
   for stack in stacks:
     vocab = stack.stacked.padded_vocab(ctx)
@@ -100,7 +102,10 @@ def create_stacked_tables(stacks: Sequence[TableStack],
       parts = []
       for cfg, lo, hi in zip(_stack.configs, _stack.offsets, _bounds):
         init_fn = cfg.initializer or default_initializer
-        parts.append(init_fn(gen, (hi - lo, cfg.dim), cfg.dtype))
+        drawn = init_fn(gen, (min(hi - lo, cfg.padded_vocab()), cfg.dim),
+                        cfg.dtype)
+        parts.append(torch.cat([drawn, drawn.new_zeros(
+            (hi - lo - drawn.shape[0], cfg.dim))]))
       return torch.cat(parts).to(dtype)
 
     cfg = dataclasses.replace(stack.stacked, initializer=init)

@@ -197,12 +197,17 @@ def create_table(config: TableConfig, generator: torch.Generator,
   it is sharded over ``ctx``, this rank's rows (or columns) of it.
 
   The values are drawn on the generator's device and then moved, so one
-  seeded CPU generator gives the same table on every device; a shard is
-  cut from the whole table drawn the same way, so every world holds the
-  same logical table."""
+  seeded CPU generator gives the same table on every device. The rows of
+  a world of one are drawn, ``padded_vocab()`` of them, and the rows a
+  world pads the table with are zeros, appended before a shard is cut:
+  every world holds the same logical table and leaves the generator in
+  the same state, so what is drawn after the table is the same too."""
   init = config.initializer or default_initializer
   cols = config.shard_cols(ctx)
-  out = init(generator, (config.padded_vocab(ctx), config.dim), config.dtype)
+  out = init(generator, (config.padded_vocab(), config.dim), config.dtype)
+  pad = config.padded_vocab(ctx) - out.shape[0]
+  if pad > 0:
+    out = torch.cat([out, out.new_zeros((pad, out.shape[1]))])
   if ctx is not None:
     out = out[config.shard_rows(ctx), cols]
   return out.to(device=device, dtype=config.dtype).contiguous()

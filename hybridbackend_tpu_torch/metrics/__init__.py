@@ -17,6 +17,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from hybridbackend_tpu_torch.ops.scatter import dense_row_totals
+
 _EPS = 1e-7
 
 
@@ -140,8 +142,17 @@ accuracy_result = mean_result
 
 def _segment_sum(values: torch.Tensor, segments: torch.Tensor,
                  n: int) -> torch.Tensor:
+  """Each segment's count of 0/1 ``values``: exact in any order."""
   return torch.zeros(n, dtype=values.dtype,
                      device=values.device).index_add_(0, segments, values)
+
+
+def _segment_total(values: torch.Tensor, segments: torch.Tensor,
+                   n: int) -> torch.Tensor:
+  """The f32 sum of each segment's ``values`` in list order, the same
+  bits on every call (kernel 4 on a card; an ``index_add_`` of floats
+  there adds with atomics in no fixed order)."""
+  return dense_row_totals(segments, values.reshape(-1, 1), n).reshape(n)
 
 
 def gauc_batch(labels: torch.Tensor, predictions: torch.Tensor,
@@ -195,7 +206,7 @@ def gauc_batch(labels: torch.Tensor, predictions: torch.Tensor,
   tp2 = ctp - seg_start_ctp[g]
   contrib = nonclick * (2.0 * tp2 - click)       # (fp2-fp1)(tp2+tp1)
 
-  auc_acc = _segment_sum(contrib, g, n)
+  auc_acc = _segment_total(contrib, g, n)
   tp_g = _segment_sum(click, g, n)
   fp_g = _segment_sum(nonclick, g, n)
   size_g = _segment_sum(torch.ones_like(click), g, n)

@@ -35,9 +35,11 @@ Three input conventions (``inputs=``), as in JAX (``:73-96``):
     wrapped.export_saved_model('/tmp/bundle', example_batch)
 
 Training and ``predict`` look the stacked tables up with ``index_select``
-(the sharded lookup's exchange in a world), whose backward gives the
-dense ``Trainer`` its table gradients: no Hopper kernel runs there. The
-exported bundle serves every column through kernel 5 instead (``lookup(...,
+(the sharded lookup's exchange in a world); the lookup's backward gives
+the dense ``Trainer`` its table gradients through kernel 4
+(``dense_row_totals``, once a stack a step: each row's gradients summed
+in list order, the same bits on every call). The exported bundle
+serves every column through kernel 5 instead (``lookup(...,
 serving=True)``, ``ops/gather.py``), on the member tables split out of
 the stacks, as ``SparseTrainer.export_saved_model`` serves them.
 

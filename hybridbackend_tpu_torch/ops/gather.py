@@ -6,7 +6,8 @@ row 0 and an id at or above ``V`` reads row ``V - 1``. That differs from
 the embedding lookup (``embedding/lookup.py``), where invalid ids read
 zeros: the serving lookup (``lookup(..., serving=True)`` and
 ``lookup_quantized``) gathers through this kernel and then masks them.
-The training lookup keeps ``index_select``, whose backward the dense
+The training lookup keeps ``index_select`` in its forward, under a
+backward of its own (``dense_row_totals``, kernel 4), which the dense
 path needs; this kernel has none.
 
 The kernel is the torch custom op ``hbtpu::gather_rows``, so that

@@ -10,7 +10,10 @@ tensor it runs the plain PyTorch version beside it (``*_reference``),
 which the tests hold against the JAX package. The three updates work in
 place and return their tensors; rows ``< 0`` or ``>= V`` are skipped,
 and rows not in the list are neither read nor written.
-``gsum_dense_sorted`` returns a new dense tensor of per-row totals.
+``gsum_dense_sorted`` returns a new dense tensor of per-row totals;
+``dense_row_totals`` gives the same totals of an unsorted list, through a
+stable sort and kernel 4: the backward of every differentiable table
+lookup (``embedding/lookup.py``), in list order on every device.
 
 The three updates take float32 or bfloat16 tables, with slots of the
 table's dtype, as the JAX kernels do. The gradients are rounded to that
@@ -393,7 +396,38 @@ def gsum_dense_sorted(rows: torch.Tensor, updates: torch.Tensor,
 gsum_dense_sorted.launches = 0
 
 
+def dense_row_totals(rows: torch.Tensor, updates: torch.Tensor,
+                     vocab: int) -> torch.Tensor:
+  """Dense per-row totals of an update list in any order: a new float32
+  ``[vocab, d]`` tensor whose row ``r`` is the f32 sum, from 0.0 in list
+  order, of ``updates[i]`` over every ``rows[i] == r``, and whose other
+  rows are exactly 0.0. That is the JAX package's scatter-add (the
+  transpose of ``jnp.take``) on the CPU, bit for bit, and the same bits
+  on every call on a card, where an ``index_add_`` adds with atomics in
+  no fixed order.
+
+  ``rows`` (any integer dtype, ``[N]``) are sorted stably, so each run
+  keeps its list order, ``updates`` (``[N, d]``) are permuted alike, and
+  the sorted list goes to :func:`gsum_dense_sorted` (kernel 4; its
+  launches are counted there). Entries ``< 0`` or ``>= vocab`` are
+  skipped. On a CPU tensor the plain version runs on the sorted list."""
+  if rows.dim() != 1 or updates.dim() != 2 or (
+      updates.shape[0] != rows.shape[0]):
+    raise ValueError(f'rows {tuple(rows.shape)} and updates '
+                     f'{tuple(updates.shape)} must be [N] and [N, d]')
+  if rows.dtype != torch.int32:
+    # Clamped before the cast, so that no entry wraps into the table; the
+    # kernel skips -1 and vocab.
+    rows = rows.clamp(-1, vocab).to(torch.int32)
+  rows, order = torch.sort(rows, stable=True)
+  updates = updates.index_select(0, order)
+  if updates.device.type == 'cpu':
+    return gsum_dense_sorted_reference(rows, updates, vocab)
+  return gsum_dense_sorted(rows, updates, vocab)
+
+
 __all__ = ['adagrad_update_sorted', 'adagrad_update_sorted_reference',
            'adam_update_sorted', 'adam_update_sorted_reference',
-           'gsum_dense_sorted', 'gsum_dense_sorted_reference',
+           'dense_row_totals', 'gsum_dense_sorted',
+           'gsum_dense_sorted_reference',
            'scatter_add_sorted', 'scatter_add_sorted_reference']

@@ -4,8 +4,10 @@ Counterpart of ``hybridbackend_tpu/training/train.py:36-51,72-219,
 259-269`` (``TrainState``, ``make_wire_grad_fn``, ``make_train_step``,
 ``make_eval_step``). The parameters are one ``nn.Module`` that holds the
 tables and the tower; the loss is differentiated with respect to all of
-them, so each table gets a dense ``[V, d]`` gradient (the backward of the
-lookup's ``index_select`` is an ``index_add_``), and one optimizer,
+them, so each table gets a dense ``[V, d]`` gradient (the lookup's
+backward, ``ops.scatter.dense_row_totals``: each row's gradients summed
+in list order by kernel 4, JAX's bits for an f32 table and the same bits
+on every call on a card), and one optimizer,
 typically ``multi_optimizer(Adagrad, Adam)``, updates everything in
 place. The JAX step returns a new state; this one updates the state it is
 given and returns it.

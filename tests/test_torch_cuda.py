@@ -85,6 +85,39 @@ def _hard_list_specs():
 HARD_LISTS = _hard_list_specs()
 HARD_LIST_IDS = [spec[0] for spec in HARD_LISTS]
 
+# Unsorted update lists for ``dense_row_totals`` (the lookups' backward):
+# (name, vocab, d, n, kind). 'zipf': zipf(1.2) rows spread over the vocab
+# by a permutation, about 5% -1 and 5% >= vocab, 2% of the updates -0.0;
+# 'one': every entry one row; 'invalid': only -1 and >= vocab.
+ROW_TOTAL_LISTS = [('empty', 100, 16, 0, 'zipf'),
+                   ('one-row', 100, 16, 3000, 'one'),
+                   ('invalid', 100, 16, 500, 'invalid'),
+                   ('zipf', 1000, 16, 20000, 'zipf'),
+                   ('zipf-d5', 300, 5, 4000, 'zipf'),
+                   ('zipf-d128', 500, 128, 3000, 'zipf')]
+ROW_TOTAL_IDS = [spec[0] for spec in ROW_TOTAL_LISTS]
+# Phase 36's list: 4096 examples of 26 columns on the stack of the 26
+# Criteo tables of the module entry point.
+PHASE36_ROW_TOTALS = ('phase36', 1279569, 16, 4096 * 26, 'zipf')
+
+
+def row_total_list(spec):
+  """``(vocab, d, rows, updates)`` of a ``ROW_TOTAL_LISTS`` spec: numpy
+  int64 ``[n]`` rows in no order and float32 ``[n, d]`` updates."""
+  name, v, d, n, kind = spec
+  rng = np.random.RandomState(sum(map(ord, name)))
+  if kind == 'one':
+    rows = np.full(n, v // 2, dtype=np.int64)
+  elif kind == 'invalid':
+    rows = np.where(rng.rand(n) < 0.5, -1, v + rng.randint(0, 9, n))
+  else:
+    rows = rng.permutation(v)[(rng.zipf(1.2, n) - 1) % v]
+    rows[rng.rand(n) < 0.05] = -1
+    rows[rng.rand(n) < 0.05] = v + 3
+  updates = rng.randn(n, d).astype(np.float32)
+  updates[rng.rand(n) < 0.02] = -0.0
+  return v, d, rows.astype(np.int64), updates
+
 
 def hard_list(spec, device='cpu', dtype=torch.float32):
   """``(v, d, n, rows, updates, table)`` of one spec, as tensors on
@@ -613,6 +646,113 @@ def test_gsum_kernel_of_an_all_invalid_list_is_zero(dev):
   _, rows, g = _all_invalid(dev, 300, 16)
   got = hbt.gsum_dense_sorted(rows, g, 300)
   assert torch.equal(got, torch.zeros((300, 16), device=dev))
+
+
+def _same_bits(a, b):
+  """Equal float32 bits (``-0.0`` is not ``0.0``)."""
+  return torch.equal(a.contiguous().view(torch.int32),
+                     b.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize('spec', [*ROW_TOTAL_LISTS, PHASE36_ROW_TOTALS],
+                         ids=[*ROW_TOTAL_IDS, 'phase36'])
+def test_dense_row_totals_repeat_the_plain_versions_bits(dev, spec):
+  """The lookups' backward: an unsorted list sorted stably and summed by
+  kernel 4, 5 times, each bit for bit the CPU plain version (list-order
+  sums); one launch a call."""
+  v, _, rows, updates = row_total_list(spec)
+  rows, updates = torch.from_numpy(rows), torch.from_numpy(updates)
+  want = hbt.dense_row_totals(rows, updates, v)
+  before = hbt.gsum_dense_sorted.launches
+  got = [hbt.dense_row_totals(rows.to(dev), updates.to(dev), v)
+         for _ in range(5)]
+  assert hbt.gsum_dense_sorted.launches == before + 5
+  for g in got:
+    assert _same_bits(g.cpu(), want)
+
+
+def shuffled_hard_list(spec, device='cpu'):
+  """``(v, rows, updates)`` of a ``HARD_LISTS`` spec in a seeded order of
+  its own (the hard lists are sorted; the lookups' backward takes any
+  order)."""
+  v, _, n, rows, g, _ = hard_list(spec)
+  perm = torch.from_numpy(np.random.RandomState(n).permutation(n))
+  return v, rows[perm].to(device), g[perm].to(device)
+
+
+@pytest.mark.parametrize('spec', HARD_LISTS, ids=HARD_LIST_IDS)
+def test_dense_row_totals_on_the_hard_lists(dev, spec):
+  """Each hard list shuffled: 5 calls bitwise the CPU plain version."""
+  v, rows, g = shuffled_hard_list(spec)
+  want = hbt.dense_row_totals(rows, g, v)
+  for _ in range(5):
+    assert _same_bits(hbt.dense_row_totals(rows.to(dev), g.to(dev), v).cpu(),
+                      want)
+
+
+def _stacked_grads(device, passes=1):
+  """Through a feature extractor of two stacks (dims 16 and 8) on
+  ``device``: zipf ids with invalid ones, seeded gradients of the
+  embeddings, ``passes`` backwards. Returns each pass's table gradients
+  and the stacks."""
+  rng = np.random.RandomState(9)
+  specs = [hbt.EmbeddingSpec(hbt.TableConfig(f'a{i}', 5000, 16))
+           for i in range(3)] + [
+               hbt.EmbeddingSpec(hbt.TableConfig('b', 3000, 8))]
+  fx = hbt.StackedFeatureExtractor(specs, ctx=hbt.Context(device))
+  tables = {k: t.requires_grad_()
+            for k, t in fx.init(torch.Generator().manual_seed(0)).items()}
+  batch = {}
+  for s in specs:
+    ids = (rng.zipf(1.2, 4096) - 1) % s.config.vocab_size
+    ids[rng.rand(4096) < 0.05] = -1
+    batch[s.name] = torch.from_numpy(ids.astype(np.int32)).to(device)
+  raw, _, _ = fx.lookup_raw(tables, batch)
+  grads = [torch.from_numpy(rng.randn(*r.shape).astype(np.float32)).to(
+      device) for r in raw.values()]
+  out = []
+  for i in range(passes):
+    got = torch.autograd.grad(list(raw.values()), list(tables.values()),
+                              grads, retain_graph=i + 1 < passes)
+    out.append(dict(zip(tables, got)))
+  return out, fx.stacks
+
+
+def test_lookup_backward_launches_kernel_4_once_a_stack(dev):
+  """Backwards through the stacked lookups: one kernel-4 launch a stack
+  and a backward, each table's gradient the CPU's bits, the same bits on
+  every backward."""
+  before = hbt.gsum_dense_sorted.launches
+  got, stacks = _stacked_grads(dev, passes=3)
+  assert len(stacks) == 2
+  assert hbt.gsum_dense_sorted.launches == before + 3 * len(stacks)
+  (want,), _ = _stacked_grads(torch.device('cpu'))
+  for grads in got:
+    for k, g in grads.items():
+      assert _same_bits(g.cpu(), want[k]), k
+
+
+def test_index_select_backward_witness(dev):
+  """The witness that a repeat check can see atomics: the backward of
+  ``index_select`` (an ``index_add_``) on phase 36's list, 5 times, whose
+  repeats may differ (printed; equal repeats are no failure), beside the
+  kernel-4 backward's, which may not."""
+  v, d, rows, updates = row_total_list(PHASE36_ROW_TOTALS)
+  ok = (rows >= 0) & (rows < v)
+  rows_d = torch.from_numpy(np.where(ok, rows, 0)).to(dev)
+  updates_d = torch.from_numpy(updates * ok[:, None]).to(dev)
+  table = torch.zeros(v, d, device=dev, requires_grad=True)
+  old = []
+  for _ in range(5):
+    (g,) = torch.autograd.grad(table.index_select(0, rows_d), table,
+                               updates_d)
+    old.append(g)
+  differ = sum(not _same_bits(g, old[0]) for g in old[1:])
+  new = [hbt.dense_row_totals(rows_d, updates_d, v) for _ in range(5)]
+  print(f'index_select backward: {differ} of 4 repeats differ from the '
+        'first; dense_row_totals: '
+        f'{sum(not _same_bits(g, new[0]) for g in new[1:])} of 4')
+  assert all(_same_bits(g, new[0]) for g in new[1:])
 
 
 SPLIT_LISTS = [spec for spec in HARD_LISTS if spec[2] in (3, 16, 33)]

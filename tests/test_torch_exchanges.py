@@ -24,6 +24,11 @@ form), LazyAdam and SGD updates (SGD: JAX routes the rows to row owners,
 the port updates the slices); the sparse steps and both trainers over 3 steps,
 losses to ``rtol = 1e-5`` and predictions to ``PRED_TOL``. A column
 trainer's bundle, exported by 2 ranks, serves JAX's predictions.
+
+Held bit for bit against the port's world of one (``row_totals``, in
+the same launches): each exchange's embeddings and shard gradient on a
+table of 1001 rows, which 2 and 4 ranks pad, with NaN in the padding
+rows (see ``test_shard_gradients_are_the_world_of_ones``).
 """
 
 import os
@@ -102,6 +107,22 @@ LOOKUP_CASES = {
     'gspmd': ('row', dict(strategy='gspmd'),
               dict(emb_lookup_strategy='gspmd')),
     'column': ('column', {}, {}),
+}
+# The shard gradients against the world of one's rows: tables of a vocab
+# that 2 and 4 ranks do not divide, NaN in the rows a world pads them
+# with. case -> (table, the port's options).
+ROW_TOTAL_TABLES = {'row': ('od', 1001, D, {}),
+                    'column': ('oc', 1001, D, {'partition': 'column'})}
+ROW_TOTAL_CASES = {
+    'allgather': ('row', {}),
+    'gspmd': ('row', dict(strategy='gspmd')),
+    'alltoall': ('row', dict(strategy='alltoall')),
+    'alltoall_overflow': ('row', dict(strategy='alltoall',
+                                      bucket_ratio=0.01)),
+    'hierarchical': ('row', dict(strategy='hierarchical')),
+    'hierarchical_overflow': ('row', dict(strategy='hierarchical',
+                                          bucket_ratio=0.01)),
+    'column': ('column', {}),
 }
 # case -> (optimizer, the port's options, JAX's keywords, the kernel the
 # port calls). The split form against JAX's column Adagrad: JAX never
@@ -209,6 +230,22 @@ def _lookup_inputs(layout, rng):
               w={'block': rng.randn(B, K, D).astype(np.float32)},
               cases={c: (t, 'block', o) for c, (t, o, _) in
                      LOOKUP_CASES.items()})
+
+
+def _row_total_inputs():
+  """The same ids (zipf, with -1 and ids from the vocab up, the first row
+  a world pads with among them) and gradients of the embeddings for
+  every layout, from a generator of their own."""
+  rng = np.random.RandomState(21)
+  ids = rng.permutation(1001)[(rng.zipf(1.3, (B, K)) - 1) % 1001]
+  ids[rng.rand(B, K) < 0.05] = -1
+  ids[rng.rand(B, K) < 0.05] = 1001 + rng.randint(0, 3)
+  return dict(tables=ROW_TOTAL_TABLES,
+              arrays={k: rng.randn(t[1], D).astype(np.float32)
+                      for k, t in ROW_TOTAL_TABLES.items()},
+              ids=ids.astype(np.int32),
+              w=rng.randn(B, K, D).astype(np.float32),
+              cases=ROW_TOTAL_CASES)
 
 
 def _update_inputs(rng):
@@ -453,7 +490,8 @@ def runs(tmp_path_factory):
     jc = jmesh(layout)
     inputs = dict(collectives=_collective_inputs(layout, rng),
                   lookups=_lookup_inputs(layout, rng),
-                  updates=_update_inputs(rng))
+                  updates=_update_inputs(rng),
+                  row_totals=_row_total_inputs())
     cases = [('layout', 'layout', {}),
              *((k, k, v) for k, v in inputs.items())]
     step_init = {c: _step_init(jc, p) for c, (p, _, _) in STEP_CASES.items()}
@@ -543,6 +581,52 @@ def test_lookups_match_jax(runs, layout, case):
         g['grad'], want['grad'][cfg.shard_rows(ctx), cfg.shard_cols(ctx)],
         err_msg=f'{case} rank {r}', **STATE_TOL)
     assert g['fallbacks'] == int(case == 'hierarchical_overflow'), g
+
+
+@pytest.mark.timeout(3 * LAUNCH_S + 200)
+@pytest.mark.parametrize('layout', sorted(LAYOUTS))
+@pytest.mark.parametrize('case', sorted(ROW_TOTAL_CASES))
+def test_shard_gradients_are_the_world_of_ones(runs, layout, case):
+  """Given one gradient of the embeddings, each exchange's shard gradient
+  is the world of one's rows bit for bit, the rows the world pads the
+  table with get a zero gradient, and the embeddings are the world of
+  one's, so no padding row (NaN here) is read.
+
+  Bitwise for every exchange: each owner sums its rows' gradients
+  (``dense_row_totals``) in the order it holds them, rank by rank and
+  each rank's ids in their order, which is the global batch's order, the
+  world of one's. ``allgather`` and ``gspmd`` gather every rank's
+  gradients in rank order; ``column`` returns them by the inverse
+  all-to-all in rank order; ``alltoall`` buckets each rank's ids by owner
+  in their order and the owner receives the buckets in rank order;
+  ``hierarchical`` sends them over the node and then across the nodes,
+  which at ``M`` nodes of ``L`` ranks is again rank order (rank ``r`` is
+  local rank ``r % L`` of node ``r // L``). A bucket lane carries one id's
+  gradient. The overflow cases fall back to the exact exchange, so they
+  hold too. (Dedup before the exchange, or a bf16 wire, would not: a
+  rank's duplicates are summed first, or the gradients rounded.)"""
+  run = runs[layout]
+  world = LAYOUTS[layout][0]
+  spec = run['inputs']['row_totals']
+  table = ROW_TOTAL_CASES[case][0]
+  cfg = hbt.TableConfig(*ROW_TOTAL_TABLES[table][:3],
+                        **ROW_TOTAL_TABLES[table][3])
+  whole = torch.from_numpy(spec['arrays'][table]).requires_grad_()
+  emb = hbt.lookup(whole, torch.from_numpy(spec['ids']), cfg)
+  (want,) = torch.autograd.grad((emb * torch.from_numpy(spec['w'])).sum(),
+                                whole)
+  ranks = [r['row_totals'][case] for r in run['ranks']]
+  _same(np.concatenate([g['emb'] for g in ranks]), emb.detach().numpy(),
+        case)
+  padded = np.concatenate([want.numpy(), np.zeros(
+      (cfg.padded_vocab(hbt.Context('cpu', rank=0, world_size=world))
+       - cfg.vocab_size, D), np.float32)])
+  for r, g in enumerate(ranks):
+    ctx = hbt.Context('cpu', rank=r, world_size=world)
+    got = g['grad']
+    part = padded[cfg.shard_rows(ctx), cfg.shard_cols(ctx)]
+    np.testing.assert_array_equal(got.view(np.int32), part.view(np.int32),
+                                  err_msg=f'{case} rank {r}')
 
 
 @pytest.mark.timeout(3 * LAUNCH_S + 200)

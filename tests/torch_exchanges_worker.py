@@ -19,6 +19,7 @@ import os
 import pickle
 import sys
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -105,6 +106,27 @@ def lookups(ctx, spec):
     grad, = torch.autograd.grad((emb * w).sum(), shard)
     out[case] = {'emb': _np(emb), 'grad': _np(grad),
                  'fallbacks': lookup_mod.lookup.overflow_fallbacks - before}
+  return out
+
+
+def row_totals(ctx, spec):
+  """For each case ``(table, options)``: the rank's embeddings of its rows
+  of the ids and the gradient of ``sum(emb * w)`` with respect to its
+  shard, cut from the world of one's table with NaN in every row the
+  world pads it with."""
+  out = {}
+  for case, (table, opts) in spec['cases'].items():
+    cfg = _config(spec['tables'][table])
+    whole = spec['arrays'][table]
+    pad = np.full((cfg.padded_vocab(ctx) - whole.shape[0], whole.shape[1]),
+                  np.nan, np.float32)
+    shard = _part(ctx, cfg, np.concatenate([whole, pad])).requires_grad_()
+    rows = ctx.rows(spec['ids'].shape[0])
+    emb = hbt.lookup(shard, torch.from_numpy(spec['ids'][rows]), cfg,
+                     ctx=ctx, **opts)
+    w = torch.from_numpy(spec['w'][rows])
+    grad, = torch.autograd.grad((emb * w).sum(), shard)
+    out[case] = {'emb': _np(emb), 'grad': _np(grad)}
   return out
 
 
@@ -269,8 +291,8 @@ def restore(ctx, spec):
 
 
 KINDS = {'layout': layout, 'collectives': collectives, 'lookups': lookups,
-         'updates': updates, 'steps': steps, 'trainer': trainer,
-         'restore': restore}
+         'row_totals': row_totals, 'updates': updates, 'steps': steps,
+         'trainer': trainer, 'restore': restore}
 
 
 def main(cases_path, out_dir):
