@@ -3,7 +3,7 @@
 
 Run from the root of the repository, with no arguments:
 
-    python3 chip_smoke.py [--profile] [--tune]
+    python3 chip_smoke.py [--profile] [--tune] [--long-runs]
 
 It builds the port's CUDA kernels from ``hybridbackend_tpu_torch/ops/csrc``
 (one nvcc per source, all at once) and its native Parquet reader from
@@ -54,6 +54,13 @@ Phases; any failure raises and the script exits nonzero:
      bf16 split-dense update bitwise against the fused one, and the bf16
      modes on edge lists (d = 16 aligned, gradients and then table and
      slots one bf16 into their storage; d = 5; rows too wide to stage);
+     then the lists with long runs: kernel 1 in its four modes at the
+     Criteo entry point's update list (``criteo_list``, runs of up to
+     about 1600 entries), at the flagship list and at phase 36's, bit
+     for bit its plain version's totals with a correctly rounded apply
+     (``scatter.adagrad_update_sorted_exact``), kernels 4 and 2 there
+     bitwise their plain versions and kernel 3 within 1e-5, each timed
+     there;
   2. one full-width DCNv2 + Adagrad step on the GPU against the CPU;
   3. that step timed on the card; the Adagrad kernel must have been
      launched once per step;
@@ -368,7 +375,14 @@ kernel time on each CUDA stream and the time two streams ran at once. With
 dense-totals kernel over block and chunk sizes, and the Adagrad (both
 modes) and LazyAdam kernels over tile sizes and state batches (the rows
 of how many run heads a thread loads before it waits for its tile's
-gradients); each sweep forth and back.
+gradients); each sweep forth and back, and the dense-totals kernel's
+sweep at phase 36's and a dense ``Trainer`` table's list too.
+``--long-runs`` runs nothing else but ``long_runs_probe``: kernels 1-4
+timed at the flagship, the Criteo, phase 36's, the DIN and a dense
+``Trainer`` table's list (with ``--tune``, lists of equal runs and kernel
+4's sweeps too); a copy of this file put into an older checkout times
+that checkout's kernels the same way, so that two trees compare in one
+call.
 The run's wall time is printed before the last two lines. The
 second-to-last line is a JSON object describing each kernel (its times,
 launches on its path, in the trainers' runs, in the runs from Parquet
@@ -441,6 +455,10 @@ KERNELS = {
     # Kernel 1 at the DIN step's update list (phase 23).
     'adagrad_update_sorted[din]': (f'{CSRC}/adagrad_update.cu',
                                    f'{PALLAS}/scatter.py:534'),
+    # Kernel 1 at the Criteo entry point's update list (criteo_list), whose
+    # runs are up to about 1600 entries long.
+    'adagrad_update_sorted[criteo]': (f'{CSRC}/adagrad_update.cu',
+                                      f'{PALLAS}/scatter.py:534'),
     # Kernel 4 as the backward of a table lookup (dense_row_totals), at
     # phase 36's list.
     'gsum_dense_sorted[lookup backward]': (f'{CSRC}/gsum_dense.cu',
@@ -858,6 +876,7 @@ def phase1_kernels(cfg: argparse.Namespace, dev: torch.device,
                 m0=m0, v0=v0, raw_ids=raw_ids, raw_g=raw_g, stacked=stacked,
                 lr=lr, step=step)
   out.update(phase1_gsum(cfg, dev, inputs, out['adagrad_update_sorted']))
+  out['adagrad_update_sorted[criteo]'] = phase1_long_runs(cfg, dev, inputs)
   out.update(phase1_gather(cfg, dev, inputs))
   out.update(phase1_round(cfg, dev, inputs))
   phase1_edges(cfg, dev, inputs)
@@ -1221,34 +1240,24 @@ def phase1_edges_bf16(cfg: argparse.Namespace, dev: torch.device, inp):
 def phase1_tune(cfg: argparse.Namespace, dev: torch.device, inp):
   """Kernel 2 over tile sizes, kernel 4 over block and chunk sizes, and
   kernels 1 (both modes) and 3 over tile sizes and state batches, at the
-  flagship list; each sweep forth and back."""
+  flagship list, and kernel 4's sweep at phase 36's list too; each sweep
+  forth and back."""
   import hybridbackend_tpu_torch as hbt
   from hybridbackend_tpu_torch.ops import scatter
   rows, g = inp['rows'], inp['g']
   v, d = inp['table0'].shape
   table = inp['table0'].clone()
-  sms = torch.cuda.get_device_properties(dev).multi_processor_count
-  saved = (scatter.TILE_ENTRIES, scatter.TILE_BYTES,
-           scatter.GSUM_BLOCK_BYTES, scatter.GSUM_CHUNK_ENTRIES)
+  saved = scatter.TILE_ENTRIES, scatter.TILE_BYTES
   tiles = (64, 128, 256, 512, 1024)
   for tile in tiles + tiles[::-1]:
     scatter.TILE_ENTRIES, scatter.TILE_BYTES = tile, tile * 4 * d
     ms = _median_ms(lambda: hbt.scatter_add_sorted(table, rows, g))
     print(f'  tune scatter_add_sorted: tile {scatter.tile_entries(d)} '
           f'entries: {ms:.4f} ms')
-  scatter.TILE_BYTES = saved[1]
-  blocks = (512, 1024, 2048, 4096, 8192)
-  for chunk in (512, 256, 256, 512):
-    for block in blocks if chunk == 512 else blocks[::-1]:
-      scatter.GSUM_BLOCK_BYTES, scatter.GSUM_CHUNK_ENTRIES = (block * 4 * d,
-                                                              chunk)
-      block_rows, chunk_entries = scatter.gsum_blocking(v, d, sms)
-      ms = _median_ms(lambda: hbt.gsum_dense_sorted(rows, g, v))
-      print(f'  tune gsum_dense_sorted: about {block} rows a block: '
-            f'{-(-v // block_rows)} blocks of {block_rows} rows on {sms} '
-            f'SMs, chunks of {chunk_entries} entries: {ms:.4f} ms')
-  (scatter.TILE_ENTRIES, scatter.TILE_BYTES, scatter.GSUM_BLOCK_BYTES,
-   scatter.GSUM_CHUNK_ENTRIES) = saved
+  scatter.TILE_ENTRIES, scatter.TILE_BYTES = saved
+  _tune_gsum('the flagship list', rows, g, v, dev)
+  _tune_gsum("phase 36's list", *phase36_list(dev), dev)
+  _tune_gsum("a dense Trainer table's list", *dense_table_list(dev), dev)
   lr, step = inp['lr'], inp['step']
   acc, m, vv = inp['acc0'].clone(), inp['m0'].clone(), inp['v0'].clone()
   calls = {
@@ -1342,6 +1351,363 @@ def phase1_gsum(cfg: argparse.Namespace, dev: torch.device, inp, fused):
       max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
       split_path_ms=split_ms, split_bitwise=bitwise, split_max_diff=split_err,
       **bound)}
+
+
+# Update lists with long runs: a run is hundreds to thousands of entries
+# where a column of a few rows takes a zipf(1.5) column's hot ids.
+
+
+def _sorted_list(raw_ids, d, dev, seed=tb.SEED):
+  """``(rows, g)``: int32 ``raw_ids`` sorted stably on ``dev``, and
+  N(0, 0.01) gradients drawn from ``seed`` in list order, permuted alike
+  (as the sparse update sorts its list)."""
+  rows, order = torch.sort(raw_ids.reshape(-1).to(dev), stable=True)
+  gen = torch.Generator().manual_seed(seed)
+  g = (torch.randn(rows.numel(), d, generator=gen) * 0.01).to(dev)
+  return rows, g.index_select(0, order)
+
+
+def _packed(specs, ids, dev):
+  """``ids`` (column name -> int64 numpy ``[B]``) packed onto the one stack
+  that ``specs`` make, by the stack's ``pack_ids`` (an id past its column's
+  vocabulary becomes -1); returns the int32 ids and the stack's rows."""
+  import hybridbackend_tpu_torch as hbt
+  (stack,) = hbt.StackedFeatureExtractor(specs, ctx=hbt.Context(dev)).stacks
+  packed, _ = hbt.pack_ids(stack, {k: torch.from_numpy(v).to(dev)
+                                   for k, v in ids.items()})
+  return packed, stack.stacked.vocab_size
+
+
+def criteo_list(dev):
+  """Kernel 1's update list in the Criteo entry point
+  (``examples/criteo/train.py --sparse`` at its defaults): one batch of
+  ``benchmarks/synthetic.py:criteo_batches(4096, 1, 100000)`` packed onto
+  the entry point's [1068750, 16] stack of 26 tables, sorted stably, with
+  N(0, 0.01) gradients. A column's first id takes about 1570 of its 4096
+  entries. Returns ``(rows, g, vocab)``."""
+  from hybridbackend_tpu_torch.examples.criteo import train as criteo
+  args = criteo.parse_args(['--sparse'])
+  (batch,) = synthetic.criteo_batches(args.batch_size, 1, args.vocab)
+  ids, v = _packed(criteo._specs(args),
+                   {f'c{c}': batch[f'c{c}'] for c in range(26)}, dev)
+  return (*_sorted_list(ids, args.dim, dev), v)
+
+
+def phase36_list(dev):
+  """Phase 36's list, the table gradient's in the module entry point's
+  backward: the first batch of the file it synthesizes (4096 rows of the
+  26 zipf(1.5) columns of ``examples/criteo/train.py:synthesize``, drawn
+  from ``RandomState(0)`` for ``MODULE_BATCHES`` batches) packed onto its
+  [1279569, 16] stack and sorted stably, with N(0, 0.01) gradients. Each
+  column's five hottest ids take about 1590, 530, 300, 190 and 150
+  entries, in neighbouring rows. Returns ``(rows, g, vocab)``."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.examples.criteo import train_module as tm
+  args = tm.parse_args([])
+  vocabs = tm.vocabs(args)
+  rng = np.random.RandomState(0)
+  file_rows = MODULE_BATCHES * args.batch_size
+  ids = {f'c{c}': (rng.zipf(1.5, file_rows) % v)[:args.batch_size]
+         for c, v in enumerate(vocabs)}
+  specs = [hbt.EmbeddingSpec(hbt.TableConfig(f'c{c}', v, args.dim))
+           for c, v in enumerate(vocabs)]
+  packed, v = _packed(specs, ids, dev)
+  return (*_sorted_list(packed, args.dim, dev), v)
+
+
+def din_list(dev):
+  """Phase 23's DIN update list: the DIN harness's ``--sparse`` batch at
+  its defaults packed onto its [1100000, 32] stack, sorted stably, with
+  N(0, 0.01) gradients. Returns ``(rows, g, vocab)``."""
+  import hybridbackend_tpu_torch as hbt
+  args = din.parse_args(['--sparse'])
+  (stack,) = din.extractor(args, dev).stacks
+  base, ids, _ = din.make_batch(args, dev)
+  raw_ids, _ = hbt.pack_ids(stack, {'item': ids, 'user': base['user']})
+  return (*_sorted_list(raw_ids, args.dim, dev), stack.stacked.vocab_size)
+
+
+def flagship_list(cfg, dev):
+  """Phase 1's flagship update list: ``(rows, g, vocab)``."""
+  ids, grads = _update_list(cfg, 3, np.random.RandomState(tb.SEED))
+  rows, order = torch.sort(torch.from_numpy(ids).to(dev), stable=True)
+  return (rows, torch.from_numpy(grads).to(dev).index_select(0, order),
+          cfg.tables * cfg.vocab)
+
+
+def _update_state(v, d, dev, dtype=torch.float32):
+  """A table of ``default_initializer`` draws and Adagrad's accumulator
+  (0.1), LazyAdam's moments as after some steps, in ``dtype``."""
+  import hybridbackend_tpu_torch as hbt
+  gen = torch.Generator().manual_seed(tb.SEED)
+  table = hbt.default_initializer(gen, (v, d))
+  m = torch.randn(v, d, generator=gen) * 1e-3
+  w = torch.rand(v, d, generator=gen) * 1e-4
+  return {k: t.to(dev, dtype) for k, t in (
+      ('table', table), ('acc', torch.full_like(table, tb.ADAGRAD_INIT)),
+      ('m', m), ('v', w))}
+
+
+def dense_table_list(dev):
+  """One table's list in the dense ``Trainer``'s backward (phases 18 and
+  19): the 8192 ids of the harness's column 0 (``tb.make_batch`` at its
+  defaults, uniform on [0, 100000)) on its [100000, 16] table, sorted
+  stably, with N(0, 0.01) gradients. Returns ``(rows, g, vocab)``."""
+  args = tb.parse_args([])
+  _, ids = tb.make_batch(args, torch.device('cpu'))
+  return (*_sorted_list(ids[:, 0].contiguous(), args.dim, dev), args.vocab)
+
+
+def long_run_lists(cfg, dev, runs=False):
+  """The lists that kernels 1-4 are timed at: the flagship, the Criteo,
+  phase 36's, the DIN and a dense ``Trainer`` table's list; with
+  ``runs``, lists of equal runs on [n, 16] (one block's rows where the
+  run is long: what one block's walk costs an entry) and phase 36's shape
+  with no valid entry (kernel 4 writes zeros only) and with uniform
+  ids."""
+  lists = {'flagship': flagship_list(cfg, dev), 'criteo': criteo_list(dev),
+           'phase36': phase36_list(dev), 'din': din_list(dev),
+           'dense_table': dense_table_list(dev)}
+  if not runs:
+    return lists
+  for n, run in ((4096, 4096), (65536, 65536), (65536, 256), (65536, 1)):
+    raw = torch.arange(n, dtype=torch.int32) // run
+    lists[f'runs-{run}-of-{n}'] = (*_sorted_list(raw, 16, dev), n)
+  v36 = lists['phase36'][2]
+  gen = torch.Generator().manual_seed(tb.SEED)
+  for label, raw in (
+      ('runs-0-of-phase36', torch.full((106496,), -1, dtype=torch.int32)),
+      ('runs-uniform-of-phase36',
+       torch.randint(0, v36, (106496,), generator=gen, dtype=torch.int32))):
+    lists[label] = (*_sorted_list(raw, 16, dev), v36)
+  return lists
+
+
+def _adagrad_modes(rows, g, lr):
+  """Kernel 1's four modes on ``(rows, g)``: name -> ``(call, dedup,
+  dtype)``; ``call(table, acc)`` updates in place."""
+  import hybridbackend_tpu_torch as hbt
+  out = {}
+  for suffix, dtype in (('', torch.float32), ('bf16', torch.bfloat16)):
+    for dedup in (True, False):
+      mode = ','.join(x for x in (suffix, '' if dedup else 'dedup=False')
+                      if x)
+      name = 'adagrad_update_sorted' + (f'[{mode}]' if mode else '')
+      out[name] = (functools.partial(hbt.adagrad_update_sorted, rows=rows,
+                                     updates=g.to(dtype), lr=lr, dedup=dedup),
+                   dedup, dtype)
+  return out
+
+
+def time_lists(lists, dev):
+  """Each list's kernel times, as phase 1 times them: kernel 1 in its four
+  modes (at the DIN list f32 only) and kernel 4; kernels 2 and 3 where
+  runs are long (the Criteo list, the equal runs); ``zeros`` +
+  ``index_add_`` and kernel 4's plain version beside it at phase 36's
+  and the dense table's list. Returns ``(shape, ms)`` by list. It calls only the wrappers, so
+  that a copy of this file put into an older checkout times that
+  checkout's kernels (``--long-runs``)."""
+  import hybridbackend_tpu_torch as hbt
+  lr = torch.full((), tb.TABLE_LR, device=dev)
+  step = torch.full((), 3.0, device=dev)
+  shape, times = {}, {}
+  for label, (rows, g, v) in lists.items():
+    d = g.shape[1]
+    state = _update_state(v, d, dev)
+    valid = (rows >= 0) & (rows < v)
+    runs = torch.unique_consecutive(rows[valid], return_counts=True)[1]
+    shape[label] = dict(n=rows.numel(), vocab=v, d=d, distinct=runs.numel(),
+                        longest=int(runs.max()) if runs.numel() else 0,
+                        over_128=int((runs > 128).sum()))
+    t = times[label] = {}
+    for name, (call, _, dtype) in _adagrad_modes(rows, g, lr).items():
+      if label == 'din' and name != 'adagrad_update_sorted':
+        continue
+      s = [state['table'].to(dtype), state['acc'].to(dtype)]
+      t[name] = _median_ms(lambda: call(*s))
+    t['gsum_dense_sorted'] = _median_ms(
+        lambda: hbt.gsum_dense_sorted(rows, g, v))
+    if label in ('phase36', 'dense_table'):
+      valid_rows, valid_g = rows[valid].long(), g[valid]
+      t['zeros+index_add_'] = _median_ms(
+          lambda: torch.zeros(v, d, device=dev).index_add_(0, valid_rows,
+                                                           valid_g))
+      t['gsum_dense_sorted_reference'] = _median_ms(
+          lambda: hbt.gsum_dense_sorted_reference(rows, g, v), queued=False)
+    if label == 'criteo' or label.startswith('runs-'):
+      tk, m, w = (state[k].clone() for k in ('table', 'm', 'v'))
+      t['scatter_add_sorted'] = _median_ms(
+          lambda: hbt.scatter_add_sorted(tk, rows, g))
+      t['adam_update_sorted'] = _median_ms(
+          lambda: hbt.adam_update_sorted(tk, m, w, rows, g, lr, step))
+  return shape, times
+
+
+def _hold_bits(label, rows, g, state, call, plain):
+  """``call`` on copies of ``state`` on the card against ``plain`` on the
+  CPU copies, bit for bit; raises on a difference. Returns the results on
+  the card."""
+  got = [t.clone() for t in state]
+  want = [t.to('cpu', copy=True) for t in state]
+  call(*got)
+  plain(*want, rows.cpu(), g.cpu().to(state[0].dtype))
+  torch.cuda.synchronize()
+  for i, (a, w) in enumerate(zip(got, want)):
+    if not _bits_equal(a.cpu(), w):
+      raise AssertionError(
+          f'{label}: operand {i} differs from its CPU version in '
+          f'{int((a.cpu() != w).sum())} elements, by '
+          f'{float((a.cpu().float() - w.float()).abs().max()):.3e} at most')
+  return got
+
+
+def phase1_long_runs(cfg, dev, inp):
+  """Kernels 1 and 4 on update lists with long runs, and at the flagship
+  list, bit for bit on the CPU copy: kernel 1 in its four modes (f32 and
+  bf16 tables; dedup and per occurrence) at the Criteo list
+  (``criteo_list``), at the flagship list and at phase 36's against
+  ``scatter.adagrad_update_sorted_exact`` (the plain version's totals, a
+  correctly rounded apply), kernels 4 and 2 at the Criteo list against
+  their plain versions, and kernel 3 within phase 1's 1e-5 of its own
+  (CUDA's ``powf`` against the CPU's ``pow``). Then at the Criteo list
+  kernel 1 (f32, dedup) against its plain version on the CPU (the max abs
+  err), timed beside its bound and its plain version, and its other modes
+  and kernels 2-4 timed (``time_lists``). Returns kernel 1's record at
+  the Criteo list."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.ops import scatter
+  t0 = time.perf_counter()
+  lr = inp['lr']
+  rows, g, v = criteo_list(dev)
+  d = g.shape[1]
+  state = _update_state(v, d, dev)
+  flagship = (inp['rows'], inp['g'], {'table': inp['table0'],
+                                      'acc': inp['acc0']})
+  r36, g36, v36 = phase36_list(dev)
+  for label, (r, x, st) in (('the Criteo list', (rows, g, state)),
+                            ('the flagship list', flagship),
+                            ("phase 36's list",
+                             (r36, g36, _update_state(v36, d, dev)))):
+    for name, (call, dedup, dtype) in _adagrad_modes(r, x, lr).items():
+      exact = functools.partial(scatter.adagrad_update_sorted_exact,
+                                lr=float(lr), dedup=dedup)
+      got = _hold_bits(f'{name} at {label}', r, x,
+                       [st['table'].to(dtype), st['acc'].to(dtype)], call,
+                       exact)
+      if name == 'adagrad_update_sorted' and r is rows:
+        want = hbt.adagrad_update_sorted_reference(
+            *(state[k].to('cpu', copy=True) for k in ('table', 'acc')),
+            rows.cpu(), g.cpu(), lr.cpu())
+        err = max(float((a.cpu() - w).abs().max())
+                  for a, w in zip(got, want))
+  got = hbt.gsum_dense_sorted(rows, g, v)
+  if not _bits_equal(got.cpu(), hbt.gsum_dense_sorted_reference(
+      rows.cpu(), g.cpu(), v)):
+    raise AssertionError('gsum_dense_sorted at the Criteo list differs from '
+                         'the plain version')
+  _hold_bits('scatter_add_sorted at the Criteo list', rows, g,
+             [state['table']],
+             lambda t: hbt.scatter_add_sorted(t, rows, g),
+             hbt.scatter_add_sorted_reference)
+  step = inp['step']
+  adam = functools.partial(hbt.adam_update_sorted, rows=rows, updates=g,
+                           lr=lr, step=step)
+  _hold('adam_update_sorted at the Criteo list',
+        (state['table'], state['m'], state['v']), rows, adam,
+        functools.partial(hbt.adam_update_sorted_reference, rows=rows,
+                          updates=g, lr=lr, step=step))
+
+  shape, times = time_lists({'criteo': (rows, g, v)}, dev)
+  shape, times = shape['criteo'], times['criteo']
+  tk, ak = state['table'].clone(), state['acc'].clone()
+  plain_ms = _median_ms(lambda: hbt.adagrad_update_sorted_reference(
+      tk, ak, rows, g, lr), queued=False)
+  n, u = shape['n'], shape['distinct']
+  # Phase 1's count: the list read once, each distinct row of the table
+  # and the accumulator read and written once; the list's sums, then 7
+  # operations per distinct element.
+  row = dict(max_abs_err=err, ms=times['adagrad_update_sorted'],
+             plain_ms=plain_ms, library_ms=None, other_ms=times,
+             **_bound(n * (d + 1) * 4 + 4 * u * d * 4, n * d + 7 * u * d))
+  print(f'phase 1, long runs: the Criteo list ({n} rows, {u} distinct, the '
+        f'longest run {shape["longest"]}, {shape["over_128"]} runs longer '
+        f'than 128, on [{v}, {d}]): kernel 1 in its four modes bit for bit '
+        'its totals with a correctly rounded apply there, at the flagship '
+        "list and at phase 36's (max abs err "
+        f'{err:.3e} from its plain version), kernels 4 and 2 bitwise their '
+        'plain versions, kernel 3 within 1e-5; '
+        f'kernel 1 {row["ms"]:.4f} ms, plain {plain_ms:.4f} ms; '
+        + _against_bound(row) + '; ' + ', '.join(
+            f'{k} {ms:.4f} ms' for k, ms in times.items())
+        + f'; {time.perf_counter() - t0:.1f} s')
+  return row
+
+
+def _tune_gsum(label, rows, g, v, dev):
+  """Kernel 4 at ``(rows, g)`` over block and chunk sizes, forth and
+  back."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.ops import scatter
+  d = g.shape[1]
+  sms = torch.cuda.get_device_properties(dev).multi_processor_count
+  saved = (scatter.GSUM_BLOCK_BYTES, scatter.GSUM_CHUNK_ENTRIES,
+           scatter.TILE_BYTES)
+  blocks = (512, 1024, 2048, 4096, 8192)
+  try:
+    for i, chunk in enumerate((1024, 512, 256, 256, 512, 1024)):
+      for block in blocks if i % 2 == 0 else blocks[::-1]:
+        scatter.GSUM_BLOCK_BYTES = block * 4 * d
+        scatter.GSUM_CHUNK_ENTRIES = chunk
+        scatter.TILE_BYTES = chunk * 4 * d
+        block_rows, chunk_entries = scatter.gsum_blocking(v, d, sms)
+        ms = _median_ms(lambda: hbt.gsum_dense_sorted(rows, g, v))
+        print(f'  tune gsum_dense_sorted at {label}: about {block} rows a '
+              f'block: {-(-v // block_rows)} blocks of {block_rows} rows on '
+              f'{sms} SMs, chunks of {chunk_entries} entries: {ms:.4f} ms')
+  finally:
+    (scatter.GSUM_BLOCK_BYTES, scatter.GSUM_CHUNK_ENTRIES,
+     scatter.TILE_BYTES) = saved
+
+
+def long_runs_probe(tune: bool) -> int:
+  """``--long-runs``: ``time_lists`` at ``long_run_lists``, one JSON line.
+  Phase 1 holds the kernels' bits at these lists; this runs nothing else,
+  so that a copy of this file put into an older checkout times that
+  checkout's kernels in the same call. ``--tune`` adds the lists of equal
+  runs, kernel 4's sweep over block and chunk sizes at the flagship,
+  phase 36's and the dense table's list, and its ring (twice a chunk) at
+  one block's long run over chunk sizes."""
+  import hybridbackend_tpu_torch as hbt
+  from hybridbackend_tpu_torch.ops import build, scatter
+  if not torch.cuda.is_available():
+    print('chip_smoke: no CUDA device', file=sys.stderr)
+    return 1
+  torch.backends.cuda.matmul.allow_tf32 = False
+  dev = torch.device('cuda', 0)
+  smi = _run(['nvidia-smi', '--query-gpu=name,power.limit',
+              '--format=csv,noheader']).splitlines()[0]
+  t0 = time.perf_counter()
+  build.load_all()
+  built = time.perf_counter() - t0
+  lists = long_run_lists(flagship(), dev, runs=tune)
+  shape, times = time_lists(lists, dev)
+  if tune:
+    for label in ('flagship', 'phase36', 'dense_table'):
+      _tune_gsum(f'the {label} list', *lists[label], dev)
+    saved = scatter.GSUM_CHUNK_ENTRIES, scatter.TILE_BYTES
+    try:
+      for chunk in (64, 256, 1024, 2048):
+        scatter.GSUM_CHUNK_ENTRIES, scatter.TILE_BYTES = chunk, chunk * 64
+        for label in ('runs-4096-of-4096', 'runs-65536-of-65536'):
+          rows, g, v = lists[label]
+          ms = _median_ms(lambda: hbt.gsum_dense_sorted(rows, g, v))
+          print(f'  tune gsum_dense_sorted at {label}: chunks of {chunk} '
+                f'entries: {ms:.4f} ms')
+    finally:
+      scatter.GSUM_CHUNK_ENTRIES, scatter.TILE_BYTES = saved
+  print(json.dumps({'long_runs': dict(
+      card=smi, checkout=HERE, build_s=built, lists=shape, ms=times)}))
+  return 0
 
 
 def phase1_gather(cfg: argparse.Namespace, dev: torch.device, inp):
@@ -2231,6 +2597,10 @@ def phase18_dense_trainer(cfg, dev, smi, batches, evals):
 
 
 CRITEO_STEPS = 64          # phase 21's run of the Criteo entry point
+# Kernel 1's launches in phase 21's runs of the Criteo entry point, whose
+# update lists criteo_list stands for (the kernels line's launches of
+# adagrad_update_sorted[criteo]).
+CRITEO_ENTRY = collections.Counter()
 CRITEO_CHECKED = 2         # its file's steps held GPU against CPU
 FILE_ROUNDS, FILE_STEPS = 4, 32   # the trainer's rounds from the file
 FILE_ADAM_STEPS = 8        # the LazyAdam trainer's steps from the file
@@ -2483,6 +2853,7 @@ def phase21_criteo(cfg, dev, smi, arrow, tmp):
   printed = printed.getvalue()
   _expect('phase 21, the Criteo entry point', counts,
           adagrad_update_sorted=CRITEO_STEPS)
+  CRITEO_ENTRY.update(counts)
   launches = collections.Counter(counts)
   m = re.search(r'epoch 0: loss=(\S+), auc=(\S+), (\S+)s, step (\d+)',
                 printed)
@@ -2516,6 +2887,7 @@ def phase21_criteo(cfg, dev, smi, arrow, tmp):
   printed = printed.getvalue()
   _expect('phase 21, the Criteo entry point through the Python reader',
           counts, adagrad_update_sorted=CRITEO_STEPS)
+  CRITEO_ENTRY.update(counts)
   launches.update(counts)
   m_py = re.search(r'epoch 0: loss=(\S+), auc=(\S+), (\S+)s, step (\d+)',
                    printed)
@@ -6749,10 +7121,11 @@ def _served(label, wrapped, path, batch, dev):
 
 
 def _bits_equal(a, b):
-  """Whether two float32 tensors hold the same bits (``-0.0`` is not
-  ``0.0``)."""
-  return a.shape == b.shape and torch.equal(
-      a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+  """Whether two float32 or two bfloat16 tensors hold the same bits
+  (``-0.0`` is not ``0.0``)."""
+  bits = {4: torch.int32, 2: torch.int16}[a.element_size()]
+  return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+      a.contiguous().view(bits), b.contiguous().view(bits))
 
 
 def _dense_backward36(cfg, wrapped, batch, dev, smi):
@@ -7127,6 +7500,11 @@ def main() -> int:
                       help='time kernels 2 and 4 over tile and block '
                       'sizes, and kernels 1 and 3 over tile sizes and state '
                       'batches')
+  parser.add_argument('--long-runs', action='store_true',
+                      help='only time kernels 1-4 at the flagship list and '
+                      'at the lists with long runs (long_runs_probe); with '
+                      '--tune, at lists of equal runs and kernel 4 over '
+                      'block and chunk sizes too')
   parser.add_argument('--rank-of', metavar='DIR',
                       help='run as one rank of phase 33 (34, 35) under the '
                       'port\'s launcher, writing to DIR')
@@ -7142,6 +7520,8 @@ def main() -> int:
             '35-nccl': phase35_nccl_rank}.get(spec.get('phase'),
                                               phase33_rank)
     return rank(args.rank_of, args.rank_device, spec)
+  if args.long_runs:
+    return long_runs_probe(args.tune)
   t_start = time.perf_counter()
   _LAST_MARK[0] = t_start
   if not torch.cuda.is_available():
@@ -7231,6 +7611,8 @@ def main() -> int:
     os.environ['HB_BENCH_CACHE'] = tmp
     e2e_launches = phase20_e2e(smi, arrow)
     e2e_launches.update(phase21_criteo(cfg, dev, smi, arrow, tmp))
+  k['adagrad_update_sorted[criteo]']['launches'] = CRITEO_ENTRY[
+      'adagrad_update_sorted']
   _mark('phases 20-21')
   serving_launches = phase22_serving(cfg, dev, smi, trained)
   _mark('phase 22')

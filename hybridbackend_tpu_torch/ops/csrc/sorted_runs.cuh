@@ -19,10 +19,26 @@
 //     an mbarrier (bulk_load). Tens of KB are in flight per block for one
 //     instruction and no registers. A contiguous span needs no tensor map.
 //   * Run heads are found in shared memory (is_head), and a run is summed
-//     from shared memory (run_total; run_sums also sums the squares of its
-//     entries, in the same walk); an owner whose run leaves the tile
+//     from shared memory (run_total); an owner whose run leaves the tile
 //     finishes it from global memory, and a tile that starts inside a run
-//     leaves those entries to the earlier tile's owner.
+//     leaves those entries to the earlier tile's owner (scatter_add.cu,
+//     adam_update.cu).
+//   * Long runs (gsum_dense.cu, adagrad_update.cu): a run that leaves the
+//     tile is the tile's last, its *tail*. run_total walks a tail one
+//     dependent global load an entry (rows[i] decides whether entry i is
+//     added), about 0.34 us an entry on this card: a column of a few rows
+//     that takes a zipf column's hot ids gives runs of thousands, and a
+//     millisecond of walk. Here the block instead finds the tail's end
+//     with a warp's search (run_end: one read of 32 rows, then 33-way
+//     steps) and adds the tail as a known span in scalar lanes, one chain
+//     of adds a lane: streamed through a ring of 2 to 4 shared-memory
+//     stages by one thread's bulk copies against mbarriers (stream_run),
+//     or, a tail of a few entries or of rows that cannot be staged, read
+//     from global memory in a counted loop (add_span, which keeps a block
+//     of loads in flight ahead of the adds). kernel 4 also finds a run's
+//     extent in its chunk from bits of change points (stage_rows_runs,
+//     next_change). The adds keep their order and rounding, so the bits
+//     are run_total's.
 //   * An entry is served by a *group* of min(32, width) threads (Groups),
 //     not by a warp: at d = 16 a row is 4 lanes of 4 elements, so one warp
 //     instruction serves 8 entries. Lane<float4> is the 4-element math
@@ -173,15 +189,16 @@ __device__ __forceinline__ uint32_t shared_address(const void* p) {
 }
 
 // The dynamic shared memory of a launch of a tile kernel whose block
-// holds 32 bytes of mbarrier and scalars, then the tile's staged updates
-// of `elem` bytes an element (when `staged`), then its tile + 1 rows
-// (adagrad_update.cu, adam_update.cu); raises `kernel`'s limit where that
-// is above 48 KB.
+// holds `header` bytes of mbarriers and scalars, then the tile's staged
+// updates of `elem` bytes an element (when `staged`), then its tile +
+// `extra_rows` rows (adagrad_update.cu: 64 and 2, adam_update.cu: 32 and
+// 1); raises `kernel`'s limit where that is above 48 KB.
 template <typename Kernel>
 cudaError_t tile_shared_memory(Kernel kernel, int d, int tile, bool staged,
-                               size_t elem, size_t* bytes) {
-  *bytes = 32 + (staged ? static_cast<size_t>(tile) * d * elem : 0) +
-           (static_cast<size_t>(tile) + 1) * 4;
+                               size_t elem, size_t* bytes, size_t header = 32,
+                               int extra_rows = 1) {
+  *bytes = header + (staged ? static_cast<size_t>(tile) * d * elem : 0) +
+           (static_cast<size_t>(tile) + extra_rows) * 4;
   if (*bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -277,35 +294,6 @@ __device__ __forceinline__ V run_total(
   return s;
 }
 
-// The run's total `s`, as run_total forms it, and the sum `q` of its
-// entries' squares, each square rounded and added from 0.f in list order:
-// one walk over the run for both (the per-occurrence Adagrad mode).
-template <typename V, typename S = float>
-__device__ __forceinline__ void run_sums(
-    const int32_t* rows_s, int j, int cnt, int32_t r,
-    const typename Store<S, V>::Raw* tile_src, int64_t stride, int c,
-    const int32_t* __restrict__ rows,
-    const typename Store<S, V>::Raw* __restrict__ updates, int64_t tile_end,
-    int64_t limit, V& s, V& q) {
-  using St = Store<S, V>;
-  s = Lane<V>::zero();
-  q = Lane<V>::zero();
-  int k = j;
-  do {
-    const V g = St::load(tile_src[k * stride + c]);
-    s = Lane<V>::add(s, g);
-    q = Lane<V>::add_square(q, g);
-    ++k;
-  } while (k < cnt && rows_s[k + 1] == r);
-  if (k == cnt) {
-    for (int64_t i = tile_end; i < limit && rows[i] == r; ++i) {
-      const V g = St::load(updates[i * stride + c]);
-      s = Lane<V>::add(s, g);
-      q = Lane<V>::add_square(q, g);
-    }
-  }
-}
-
 // One whole warp: the first index i in [0, n) with rows[i] >= key (n if
 // none), for ascending rows. Each step reads 32 probes that cut the span
 // into 33 parts.
@@ -325,6 +313,227 @@ __device__ __forceinline__ int64_t lower_bound_warp(
     if (k < 32) hi = first_at;
   }
   return lo;
+}
+
+// ---------------------------------------------------------------------
+// Long runs (gsum_dense.cu, adagrad_update.cu). A run that leaves its tile
+// is always the tile's last run. Instead of walking its tail one
+// dependent global load an entry (run_total), the block finds the tail's
+// end with a search (run_end) and then adds the tail as one known span:
+// streamed through shared memory by bulk copies (stream_run), or, where
+// the rows cannot be staged or the tail is short, read from global
+// memory in a counted loop with several loads in flight (add_span).
+
+// A tail of at most this many entries is read from global memory: one
+// round of loads, where a bulk copy would cost a round of its own.
+constexpr int64_t kShortTail = 8;
+// Stages of kernel 4's ring (and mbarriers a kernel holds for one).
+constexpr int kRingStages = 4;
+
+// All threads: stage_rows for a tile of `cnt` entries, and one more row:
+// rows_s[cnt + 1] = rows[t0 + cnt], or -1 where t0 + cnt is `limit`
+// (whether the tile's last run goes on past it). The block syncs before
+// it reads rows_s.
+__device__ __forceinline__ void stage_rows_ahead(
+    int32_t* rows_s, const int32_t* __restrict__ rows, int64_t t0, int cnt,
+    int64_t limit) {
+  for (int i = threadIdx.x; i <= cnt + 1; i += kThreads) {
+    const int64_t at = t0 - 1 + i;
+    rows_s[i] = at >= 0 && at < limit ? rows[at] : -1;
+  }
+}
+
+// stage_rows_ahead, and the tile's change points, a bit an entry: bit j
+// of change_s (entry j of the tile, j in [0, cnt]) is set where
+// rows_s[j + 1] != rows_s[j], so that a run's extent is a search for the
+// next set bit (next_change), not a walk through shared memory, where each
+// step waits for the last load. Each warp ballots its 32 entries.
+__device__ __forceinline__ void stage_rows_runs(
+    int32_t* rows_s, uint32_t* change_s, const int32_t* __restrict__ rows,
+    int64_t t0, int cnt, int64_t limit) {
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base <= cnt + 1; base += kThreads) {
+    const int i = base + static_cast<int>(threadIdx.x);
+    const int64_t at = t0 - 1 + i;
+    int32_t v = -1;
+    if (i <= cnt + 1) {
+      v = at >= 0 && at < limit ? rows[at] : -1;
+      rows_s[i] = v;
+    }
+    int32_t next = __shfl_down_sync(0xffffffffu, v, 1);
+    if (lane == 31)
+      next = i + 1 <= cnt + 1 && at + 1 < limit ? rows[at + 1] : -1;
+    const unsigned word = __ballot_sync(0xffffffffu, i <= cnt && next != v);
+    if (lane == 0 && i <= cnt) change_s[i >> 5] = word;
+  }
+}
+
+// The run of row r that tile entry j heads, as far as the tile holds it,
+// added to s (and q) in list order: run_total's walk without its global
+// part, for a run that ends in the tile.
+template <typename V, typename S, bool kSquares>
+__device__ __forceinline__ void tile_run(
+    const int32_t* rows_s, int j, int cnt, int32_t r,
+    const typename Store<S, V>::Raw* tile_src, int64_t stride, int c, V& s,
+    V& q) {
+  using St = Store<S, V>;
+  int k = j;
+  do {
+    const V x = St::load(tile_src[k * stride + c]);
+    s = Lane<V>::add(s, x);
+    if constexpr (kSquares) q = Lane<V>::add_square(q, x);
+    ++k;
+  } while (k < cnt && rows_s[k + 1] == r);
+}
+
+// The first k in (j, cnt] whose bit is set in change_s (entry k starts a
+// new stretch of rows), or cnt + 1 if none: the run at entry j covers
+// entries [j, k) of the tile, and goes on past it where k is cnt + 1.
+__device__ __forceinline__ int next_change(const uint32_t* change_s, int j,
+                                           int cnt) {
+  for (int k = j + 1; k <= cnt; k = (k | 31) + 1) {
+    const uint32_t w = change_s[k >> 5] >> (k & 31);
+    if (w) {
+      const int at = k + __ffs(static_cast<int>(w)) - 1;
+      return at <= cnt ? at : cnt + 1;
+    }
+  }
+  return cnt + 1;
+}
+
+// Whether the last run of a tile of `cnt` entries (staged by
+// stage_rows_runs) starts in the tile and goes on past it: its tail.
+__device__ __forceinline__ bool tail_leaves(const int32_t* rows_s, int cnt,
+                                            int64_t vocab) {
+  const int32_t r = rows_s[cnt];
+  return r >= 0 && r < vocab && rows_s[cnt + 1] == r && rows_s[0] != r;
+}
+
+// s (and, with kSquares, q: each entry's square rounded and added) over
+// entries [0, m) of a span, entry k's lane at src[k * stride], in order,
+// from the values s and q hold. The loads of the next kAhead entries are
+// in flight while the adds of the last kAhead wait on each other, two
+// register blocks taking turns (a copy from one to the other would wait
+// for the loads): the adds take the time, not the loads.
+// kStride, where nonzero, is `stride` known at compile time: each load is
+// then one instruction at a fixed offset from the span's pointer.
+template <typename V, typename S, bool kSquares, int kAhead = 4,
+          int kStride = 0>
+__device__ __forceinline__ void add_span(
+    const typename Store<S, V>::Raw* src, int64_t m, int64_t runtime_stride,
+    V& s, V& q) {
+  using St = Store<S, V>;
+  using Raw = typename St::Raw;
+  const int64_t stride = kStride ? kStride : runtime_stride;
+  const auto add = [&](Raw raw) {
+    const V x = St::load(raw);
+    s = Lane<V>::add(s, x);
+    if constexpr (kSquares) q = Lane<V>::add_square(q, x);
+  };
+  Raw a[kAhead], b[kAhead];
+  const auto fetch = [&](Raw* to, int64_t k) {
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) to[u] = src[(k + u) * stride];
+  };
+  const auto add_all = [&](const Raw* from) {
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) add(from[u]);
+  };
+  int64_t k = 0;
+  if (m >= kAhead) {
+    fetch(a, 0);
+#pragma unroll 1
+    while (true) {  // a holds entries [k, k + kAhead)
+      if (k + 2 * kAhead > m) {
+        add_all(a);
+        k += kAhead;
+        break;
+      }
+      fetch(b, k + kAhead);
+      add_all(a);
+      k += kAhead;
+      if (k + 2 * kAhead > m) {
+        add_all(b);
+        k += kAhead;
+        break;
+      }
+      fetch(a, k + kAhead);
+      add_all(b);
+      k += kAhead;
+    }
+  }
+#pragma unroll 1
+  for (; k < m; ++k) add(src[k * stride]);
+}
+
+// One whole warp: the first index in [t, limit) whose row is not r (limit
+// if none), for ascending rows where rows[t - 1] == r. The first step
+// reads the 32 rows from t, which ends a short tail in one read; a longer
+// one takes lower_bound_warp of r + 1 over the rest, a few reads for
+// thousands of entries. On rows out of order it returns some index in
+// [t, limit], after at most about log33 of the span's steps.
+__device__ __forceinline__ int64_t run_end(const int32_t* __restrict__ rows,
+                                           int64_t t, int64_t limit,
+                                           int32_t r) {
+  const int64_t i = t + (threadIdx.x & 31);
+  const unsigned ended =
+      __ballot_sync(0xffffffffu, i >= limit || rows[i] != r);
+  if (ended) return t + __ffs(static_cast<int>(ended)) - 1;
+  return t + 32 + lower_bound_warp(rows + t + 32, limit - t - 32,
+                                   static_cast<int64_t>(r) + 1);
+}
+
+// A ring of `stages` stages of `stage` entries (rows of `width` lanes
+// stored as Raw) in shared memory at `buf`, stage b reporting to bars[b]
+// (initialised, one arrival). Bit b of `phase` is the parity bars[b]
+// completes next; every thread of the block keeps the same bits.
+template <typename Raw>
+struct Ring {
+  Raw* buf;
+  uint64_t* bars;
+  int stages, stage;
+};
+
+// All threads of the block: adds lane c of entries [begin, end) of `src`
+// (global memory, entry i's lane at src[i * width + c]) to s (and q) in
+// list order, in the threads with `active` (thread 0 among them). Thread
+// 0 copies the span through the ring, ring.stages bulk copies in flight:
+// a stage is refilled once the block has synced after reading it. Entries
+// must be a whole number of 16 bytes at a 16-byte-aligned `src`. Ends
+// synced, so the ring may be reused.
+template <typename V, typename S, bool kSquares, int kAhead = 4,
+          int kStride = 0>
+__device__ __forceinline__ void stream_run(
+    const Ring<typename Store<S, V>::Raw>& ring, uint32_t& phase,
+    const typename Store<S, V>::Raw* __restrict__ src, int64_t begin,
+    int64_t end, int width, int c, bool active, V& s, V& q) {
+  using Raw = typename Store<S, V>::Raw;
+  const int64_t total = end - begin;
+  const int64_t chunks = (total + ring.stage - 1) / ring.stage;
+  const auto copy = [&](int64_t k) {
+    const int b = static_cast<int>(k % ring.stages);
+    const int64_t e0 = begin + k * ring.stage;
+    const int64_t m = end - e0 < ring.stage ? end - e0 : ring.stage;
+    bulk_load(ring.buf + static_cast<int64_t>(b) * ring.stage * width,
+              src + e0 * width,
+              static_cast<uint32_t>(m * width * sizeof(Raw)), &ring.bars[b]);
+  };
+  if (threadIdx.x == 0)
+    for (int64_t k = 0; k < chunks && k < ring.stages; ++k) copy(k);
+#pragma unroll 1
+  for (int64_t k = 0; k < chunks; ++k) {
+    const int b = static_cast<int>(k % ring.stages);
+    if (active) {
+      const int64_t e0 = k * ring.stage;
+      mbarrier_wait(&ring.bars[b], (phase >> b) & 1u);
+      add_span<V, S, kSquares, kAhead, kStride>(
+          ring.buf + static_cast<int64_t>(b) * ring.stage * width + c,
+          total - e0 < ring.stage ? total - e0 : ring.stage, width, s, q);
+    }
+    phase ^= 1u << b;
+    __syncthreads();
+    if (threadIdx.x == 0 && k + ring.stages < chunks) copy(k + ring.stages);
+  }
 }
 
 }  // namespace sorted_runs

@@ -27,6 +27,7 @@ from __future__ import annotations
 import ctypes
 from typing import Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from hybridbackend_tpu_torch.ops import build
@@ -48,9 +49,10 @@ TILE_BYTES = 32 * 1024
 STATE_BATCH = 2
 # ``gsum_dense_sorted``: a block owns about this many bytes of output rows
 # and walks its slice of the list in chunks of at most this many entries
-# (fewer for a wide row: a chunk's updates are at most TILE_BYTES too).
-GSUM_BLOCK_BYTES = 256 * 1024
-GSUM_CHUNK_ENTRIES = 256
+# (fewer for a wide row: a chunk's updates are at most TILE_BYTES too);
+# twice a chunk's buffer is the ring that streams a long run's tail.
+GSUM_BLOCK_BYTES = 512 * 1024
+GSUM_CHUNK_ENTRIES = 512
 _GSUM_MAX_BLOCK_ROWS = 8192      # one flag byte a row in shared memory
 
 
@@ -66,14 +68,15 @@ def gsum_blocking(vocab: int, d: int, sms: int) -> Tuple[int, int]:
   output on a card of ``sms`` SMs. A block owns ``block_rows`` whole rows,
   about GSUM_BLOCK_BYTES of them, a multiple of 4 (so every block's range
   starts on a 16-byte boundary), and fewer where that brings the number of
-  blocks to whole rounds of the SMs: all blocks are resident at once, so
-  the kernel takes as long as the SM with the most blocks."""
+  blocks to whole rounds of the SMs, at least one: all blocks are resident
+  at once, so the kernel takes as long as the SM with the most blocks, and
+  a table smaller than a round of blocks (a dense ``Trainer``'s [100000,
+  16]) is spread over every SM."""
   d = max(d, 1)
   rows = max(4, min(_GSUM_MAX_BLOCK_ROWS, GSUM_BLOCK_BYTES // (4 * d)))
   blocks = -(-vocab // rows)
-  if blocks > sms:
-    blocks = -(-blocks // sms) * sms
-    rows = -(-vocab // blocks)
+  blocks = -(-blocks // sms) * sms
+  rows = -(-vocab // blocks)
   chunk = max(16, min(GSUM_CHUNK_ENTRIES, TILE_BYTES // (4 * d)))
   return max(4, -(-rows // 4) * 4), chunk
 
@@ -172,6 +175,31 @@ def adagrad_update_sorted_reference(table: torch.Tensor, acc: torch.Tensor,
   acc[urows] = a.to(acc.dtype)
   table[urows] = (table[urows].float() - lr * gsum / (torch.sqrt(a) + eps)
                   ).to(table.dtype)
+  return table, acc
+
+
+def adagrad_update_sorted_exact(table: torch.Tensor, acc: torch.Tensor,
+                                rows: torch.Tensor, updates: torch.Tensor,
+                                lr: float, eps: float = 1e-7,
+                                dedup: bool = True
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """The CUDA kernel's arithmetic on CPU tensors, in place: the plain
+  version's per-row totals (``index_add_`` in list order), then the apply
+  in f32 with numpy's correctly rounded square root and quotient, each
+  result rounded once to the storage dtype. The kernel's ``sqrtf`` and
+  ``__fdiv_rn`` round correctly, and torch's CPU ``sqrt`` need not: torch
+  2.13 on an AVX-512 host gave a root one ulp below the correctly rounded
+  one at a few elements (against a 60-digit decimal root), so the plain
+  version may differ from the kernel in the last bit of a few table
+  elements, and this version agrees with it bit for bit. Returns
+  ``(table, acc)``."""
+  urows, s, q = _run_totals(table, rows, updates, square=not dedup)
+  s = s.numpy()
+  a = acc[urows].float().numpy() + (s * s if dedup else q.numpy())
+  t = table[urows].float().numpy() - np.float32(lr) * s / (
+      np.sqrt(a) + np.float32(eps))
+  acc[urows] = torch.from_numpy(a).to(acc.dtype)
+  table[urows] = torch.from_numpy(t).to(table.dtype)
   return table, acc
 
 

@@ -9,6 +9,13 @@ The plain version runs on the CPU copy of the inputs, where
 ``index_add_`` sums a row's duplicate gradients in list order, as the
 kernel does; on the card it adds with atomics in no fixed order, which
 rows repeated thousands of times turn into 1e-3 relative differences.
+The hard lists include lists with long runs (``LONG_RUNS``: runs of
+hundreds to 4096 entries, across tiles and chunks, ending on their
+boundaries and at the list's end, beside invalid rows, in the unstaged
+layouts). Kernel 1 is held there bit for bit against
+``scatter.adagrad_update_sorted_exact``, the plain version's totals with
+a correctly rounded apply (torch's CPU ``sqrt`` may differ from it in the
+last bit), and kernels 2 and 4 bit for bit against their plain versions.
 Tolerance ``rtol = atol = 1e-5``: both sides then round the same f32
 operations in the same order (LazyAdam's ``b ** step`` comes from CUDA's
 ``powf`` on one side and the CPU's ``pow`` on the other, a few ulp). The
@@ -82,19 +89,91 @@ def _hard_list_specs():
   return specs
 
 
-HARD_LISTS = _hard_list_specs()
+# Update lists with long runs: kind 'runs', rows laid out by their
+# segments, in ascending rows from row 8 on: ('fill', m) is m entries of
+# runs of 1, 2, 3, 1, 2, 3, ... entries on fresh rows, ('run', L) one run of
+# L entries on the next fresh row (so consecutive runs lie in neighbouring
+# rows, one block's), ('neg', m) m entries of -1, ('over', m) m entries of
+# vocab + 3. name -> (vocab, d, segments, view, longest run, runs).
+# Tiles are 128 entries at d = 3, 8 and 16, kernel 4's chunks 256 at d = 16
+# (48 with small blocks).
+LONG_RUNS = {
+    'run-4096': (3000, 16, (('fill', 300), ('run', 4096), ('fill', 300)),
+                 None, 4096, 401),
+    'one-run': (100, 16, (('run', 3000),), None, 3000, 1),
+    # Three neighbouring rows taking thousands of entries, as a column of
+    # a few rows takes a zipf column's hot ids.
+    'three-rows': (3000, 16, (('fill', 200), ('run', 2000), ('run', 1500),
+                              ('run', 1000), ('fill', 200)),
+                   None, 2000, 204),
+    # A run from entry 5 that ends exactly on a tile boundary (768 = 6
+    # tiles), and one of a whole tile pair and chunk from entry 0.
+    'run-ends-on-tile': (2000, 16, (('fill', 5), ('run', 763), ('fill', 300)),
+                         None, 763, 205),
+    'run-fills-chunk': (2000, 16, (('run', 256), ('fill', 300)), None, 256,
+                        201),
+    'run-at-end': (2000, 16, (('fill', 300), ('run', 2000)), None, 2000, 201),
+    'run-then-over': (2000, 16, (('fill', 100), ('run', 1500), ('over', 200)),
+                      None, 1500, 68),
+    'neg-then-run': (2000, 16, (('neg', 300), ('run', 1500), ('fill', 100)),
+                     None, 1500, 68),
+    # Rows that cannot be staged: d = 3 (scalar lanes), its 12-byte entry
+    # view, and a float view at d = 16; and bf16's 16-byte rows at d = 8.
+    'run-d3': (2000, 3, (('fill', 100), ('run', 1500), ('fill', 100)), None,
+               1500, 135),
+    'run-d3-entry-view': (2000, 3, (('fill', 100), ('run', 1500),
+                                    ('fill', 100)), 'entry', 1500, 135),
+    'run-float-view-d16': (2000, 16, (('fill', 100), ('run', 1500),
+                                      ('fill', 100)), 'float', 1500, 135),
+    'run-d8': (2000, 8, (('fill', 100), ('run', 2000), ('fill', 100)), None,
+               2000, 135),
+}
+
+
+def long_run_rows(name):
+  """The ascending int32 rows of a ``LONG_RUNS`` list."""
+  v, _, segments, _, _, _ = LONG_RUNS[name]
+  out, row = [], 8
+  for kind, m in segments:
+    if kind == 'neg':
+      out += [-1] * m
+    elif kind == 'over':
+      out += [v + 3] * m
+    elif kind == 'run':
+      out += [row] * m
+      row += 1
+    else:
+      k = 0
+      while k < m:
+        take = min(1 + len(out) % 3, m - k)
+        out += [row] * take
+        row, k = row + 1, k + take
+  rows = np.asarray(out, np.int32)
+  assert (np.diff(rows) >= 0).all() and rows[rows >= 0].max() <= v + 3
+  return rows
+
+
+HARD_LISTS = _hard_list_specs() + [
+    (name, v, d, len(long_run_rows(name)), 'runs', view)
+    for name, (v, d, _, view, _, _) in LONG_RUNS.items()]
 HARD_LIST_IDS = [spec[0] for spec in HARD_LISTS]
+LONG_LISTS = [spec for spec in HARD_LISTS if spec[4] == 'runs']
+LONG_LIST_IDS = [spec[0] for spec in LONG_LISTS]
 
 # Unsorted update lists for ``dense_row_totals`` (the lookups' backward):
 # (name, vocab, d, n, kind). 'zipf': zipf(1.2) rows spread over the vocab
 # by a permutation, about 5% -1 and 5% >= vocab, 2% of the updates -0.0;
-# 'one': every entry one row; 'invalid': only -1 and >= vocab.
+# 'one': every entry one row; 'invalid': only -1 and >= vocab; 'columns':
+# n/4 examples of 4 columns of 2000 rows each, zipf(1.5) ids, about 5% -1,
+# so that each column's first rows take runs of hundreds to about 1600
+# entries once sorted, as in phase 36's list.
 ROW_TOTAL_LISTS = [('empty', 100, 16, 0, 'zipf'),
                    ('one-row', 100, 16, 3000, 'one'),
                    ('invalid', 100, 16, 500, 'invalid'),
                    ('zipf', 1000, 16, 20000, 'zipf'),
                    ('zipf-d5', 300, 5, 4000, 'zipf'),
-                   ('zipf-d128', 500, 128, 3000, 'zipf')]
+                   ('zipf-d128', 500, 128, 3000, 'zipf'),
+                   ('columns', 8000, 16, 4 * 4096, 'columns')]
 ROW_TOTAL_IDS = [spec[0] for spec in ROW_TOTAL_LISTS]
 # Phase 36's list: 4096 examples of 26 columns on the stack of the 26
 # Criteo tables of the module entry point.
@@ -110,6 +189,10 @@ def row_total_list(spec):
     rows = np.full(n, v // 2, dtype=np.int64)
   elif kind == 'invalid':
     rows = np.where(rng.rand(n) < 0.5, -1, v + rng.randint(0, 9, n))
+  elif kind == 'columns':
+    rows = ((rng.zipf(1.5, (n // 4, 4)) % 2000) + 2000 * np.arange(4))
+    rows = rows.reshape(-1)
+    rows[rng.rand(n) < 0.05] = -1
   else:
     rows = rng.permutation(v)[(rng.zipf(1.2, n) - 1) % v]
     rows[rng.rand(n) < 0.05] = -1
@@ -130,6 +213,8 @@ def hard_list(spec, device='cpu', dtype=torch.float32):
   tile = scatter.tile_entries(d)
   if kind == 'invalid':
     rows = np.sort(np.where(np.arange(n) < n // 2, -1, v + np.arange(n) % 9))
+  elif kind == 'runs':
+    rows = long_run_rows(name)
   else:
     hot = rng.choice(v, max(1, min(v, n // 3)), replace=False)
     rows = hot[rng.randint(0, len(hot), n)]
@@ -506,6 +591,66 @@ def test_adam_kernel_on_the_hard_lists(dev, spec):
     assert not torch.equal(tk[r], table[r]) and not torch.equal(mk[r], m[r])
 
 
+@pytest.mark.parametrize('name', LONG_RUNS)
+def test_long_run_lists_have_their_named_runs(name):
+  """On the CPU: each long-run list holds the longest run and the number
+  of runs of valid rows that its spec names, in ascending rows, and
+  ``hard_list`` lays it out as ``long_run_rows`` does."""
+  v, d, _, view, longest, runs = LONG_RUNS[name]
+  rows = long_run_rows(name)
+  valid = rows[(rows >= 0) & (rows < v)]
+  _, counts = np.unique(valid, return_counts=True)
+  assert (int(counts.max()), counts.size) == (longest, runs)
+  spec = LONG_LISTS[LONG_LIST_IDS.index(name)]
+  got = hard_list(spec)
+  assert got[:3] == (v, d, rows.size) and np.array_equal(got[3].numpy(), rows)
+
+
+def test_columns_row_totals_list_has_long_runs():
+  """On the CPU: the unsorted ``'columns'`` list, sorted, holds each
+  column's first row as a run of more than 1400 entries."""
+  v, _, rows, _ = row_total_list(ROW_TOTAL_LISTS[ROW_TOTAL_IDS.index(
+      'columns')])
+  rows = np.sort(rows[(rows >= 0) & (rows < v)])
+  _, counts = np.unique(rows, return_counts=True)
+  assert (np.sort(counts)[-4:] > 1400).all()
+
+
+@pytest.mark.parametrize('small', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dedup', [True, False])
+@pytest.mark.parametrize('spec', HARD_LISTS, ids=HARD_LIST_IDS)
+def test_adagrad_kernel_bits_on_the_hard_lists(dev, spec, dedup, dtype, small,
+                                               monkeypatch):
+  """Kernel 1 in each mode bit for bit
+  ``scatter.adagrad_update_sorted_exact`` (the plain version's totals and
+  a correctly rounded apply); ``small``: tiles of 16
+  entries, so that runs leave many tiles and a long run's tail streams
+  through a ring of four 4-entry stages."""
+  if small:
+    monkeypatch.setattr(scatter, 'TILE_ENTRIES', 16)
+  v, d, n, rows, g, table = hard_list(spec, dev, dtype)
+  acc = torch.full_like(table, 0.1)
+  tk, ak = table.clone(), acc.clone()
+  hbt.adagrad_update_sorted(tk, ak, rows, g, 0.05, dedup=dedup)
+  tr, ar = scatter.adagrad_update_sorted_exact(
+      table.cpu(), acc.cpu(), rows.cpu(), g.cpu(), 0.05, dedup=dedup)
+  assert _same_bits(ak.cpu(), ar) and _same_bits(tk.cpu(), tr)
+
+
+@pytest.mark.parametrize('small', [False, True])
+@pytest.mark.parametrize('spec', LONG_LISTS, ids=LONG_LIST_IDS)
+def test_add_kernel_bits_on_the_long_lists(dev, spec, small, monkeypatch):
+  """Kernel 2 (still the walk of ``run_total``) bit for bit its plain
+  version on the long-run lists."""
+  if small:
+    monkeypatch.setattr(scatter, 'TILE_ENTRIES', 16)
+  v, d, n, rows, g, table = hard_list(spec, dev)
+  got = hbt.scatter_add_sorted(table.clone(), rows, g)
+  assert _same_bits(got.cpu(), hbt.scatter_add_sorted_reference(
+      table.cpu(), rows.cpu(), g.cpu()))
+
+
 @pytest.mark.parametrize('kernel', ['adagrad', 'nodedup', 'adam'])
 @pytest.mark.parametrize('name', ['random-d4', 'boundary-d16', 'long-d16'])
 def test_update_kernels_take_state_one_float_into_its_storage(
@@ -649,9 +794,11 @@ def test_gsum_kernel_of_an_all_invalid_list_is_zero(dev):
 
 
 def _same_bits(a, b):
-  """Equal float32 bits (``-0.0`` is not ``0.0``)."""
-  return torch.equal(a.contiguous().view(torch.int32),
-                     b.contiguous().view(torch.int32))
+  """Equal bits of two float32 or two bfloat16 tensors (``-0.0`` is not
+  ``0.0``)."""
+  bits = {4: torch.int32, 2: torch.int16}[a.element_size()]
+  return a.dtype == b.dtype and torch.equal(a.contiguous().view(bits),
+                                            b.contiguous().view(bits))
 
 
 @pytest.mark.parametrize('spec', [*ROW_TOTAL_LISTS, PHASE36_ROW_TOTALS],

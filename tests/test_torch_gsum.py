@@ -171,6 +171,24 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     hbt.gsum_dense_sorted(rows, g, 8)
 
 
+@pytest.mark.parametrize('vocab,d,blocks,chunk', [
+    (100000, 16, 132, 512),     # a dense Trainer's table: every SM
+    (65536, 16, 132, 512),
+    (1279569, 16, 264, 512),    # phase 36's stack
+    (2600000, 16, 396, 512),    # the flagship stack
+    (1100000, 32, 396, 256),    # DIN's stack
+    (10, 16, 3, 512),           # rows of 4: fewer blocks than SMs
+])
+def test_gsum_blocking_fills_whole_rounds_of_the_card(vocab, d, blocks,
+                                                      chunk):
+  """Kernel 4's blocks come to whole rounds of 132 SMs, at least one,
+  each a multiple of 4 rows; together they cover the table."""
+  from hybridbackend_tpu_torch.ops import scatter
+  rows, got_chunk = scatter.gsum_blocking(vocab, d, 132)
+  assert rows % 4 == 0 and (rows - 4) * blocks < vocab <= rows * blocks
+  assert -(-vocab // rows) == blocks and got_chunk == chunk
+
+
 def _spy(monkeypatch):
   calls = []
   real = jscatter.gsum_dense_sorted

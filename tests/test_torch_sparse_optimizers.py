@@ -11,8 +11,8 @@ functions in a one-device context. On the hard update lists of
 ``test_torch_cuda.py`` (the lists the card's kernels are checked on) the
 plain versions of the per-occurrence Adagrad and LazyAdam updates are
 held against numpy (float32 totals added in list order, the apply in
-float32, per-occurrence squares in float64), and on some of them against
-``_adagrad_rows_nodedup`` and the LazyAdam Pallas kernel.
+float32, per-occurrence squares in float32 in list order), and on some
+of them against ``_adagrad_rows_nodedup`` and the LazyAdam Pallas kernel.
 
 Tolerances, all from f32 rounding:
   * add and Adagrad: ``rtol = atol = 1e-5``; the paths sum a row's
@@ -43,6 +43,7 @@ from hybridbackend_tpu.ops.pallas.scatter import (
     scatter_add_sorted as jax_scatter_add_sorted)
 
 import hybridbackend_tpu_torch as hbt
+from hybridbackend_tpu_torch.ops import scatter
 from test_torch_cuda import (HARD_LISTS, HARD_LIST_IDS, cancel_row,
                              hard_list, hard_slots)
 from test_torch_scatter import PALLAS_ORACLE, list_totals
@@ -196,8 +197,10 @@ def test_nodedup_reference_on_the_hard_lists(spec):
                                    dedup=False)
   r, gg = rows.numpy(), g.numpy()
   ok, u, s = list_totals(v, d, r, gg)
-  q = np.zeros((v, d))
-  np.add.at(q, r[ok], gg[ok].astype(np.float64) ** 2)
+  # Each square rounded and added in f32 in list order, the contract's
+  # sum (a float64 sum drifts past rtol 1e-6 over runs of thousands).
+  q = np.zeros((v, d), np.float32)
+  np.add.at(q, r[ok], gg[ok] * gg[ok])
   want_a = acc.numpy() + q
   np.testing.assert_allclose(a.numpy(), want_a, rtol=1e-6)
   want_t = table.numpy().copy()
@@ -213,6 +216,38 @@ def test_nodedup_reference_on_the_hard_lists(spec):
         jnp.asarray(gg), LR, 1e-7, oob_row=v)
     np.testing.assert_allclose(a.numpy(), np.asarray(xa), **TOL)
     np.testing.assert_allclose(t.numpy(), np.asarray(xt), **TOL)
+
+
+@pytest.mark.parametrize('dedup', [True, False])
+@pytest.mark.parametrize('spec', HARD_LISTS, ids=HARD_LIST_IDS)
+def test_exact_adagrad_rounds_each_operation_once(spec, dedup):
+  """``scatter.adagrad_update_sorted_exact`` (what the card's kernel 1 is
+  held to bit for bit) on f32 and bf16 tables: bit for bit an apply
+  worked in float64 and rounded to f32 after every operation (exact for
+  +, -, *, / and sqrt, whose float64 result rounds to the correctly
+  rounded f32), then once to the storage dtype."""
+  def f32(x):
+    return x.astype(np.float32).astype(np.float64)
+
+  for dtype in (torch.float32, torch.bfloat16):
+    v, d, n, rows, g, table = hard_list(spec, dtype=dtype)
+    acc = torch.full_like(table, 0.1)
+    t, a = scatter.adagrad_update_sorted_exact(
+        table.clone(), acc.clone(), rows, g, LR, dedup=dedup)
+    urows, s, q = scatter._run_totals(table, rows, g, square=not dedup)
+    s = s.numpy().astype(np.float64)
+    want_a = f32(acc[urows].float().numpy().astype(np.float64)
+                 + (f32(s * s) if dedup else q.numpy()))
+    den = f32(f32(np.sqrt(want_a)) + f32(np.float64(1e-7)))
+    want_t = f32(table[urows].float().numpy().astype(np.float64)
+                 - f32(f32(f32(np.float64(LR)) * s) / den))
+    for got, want, before in ((a, want_a, acc), (t, want_t, table)):
+      expect = before.clone()
+      expect[urows] = torch.from_numpy(want.astype(np.float32)).to(dtype)
+      assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32),
+                         expect.view(torch.int16 if dtype == torch.bfloat16
+                                     else torch.int32)), (spec[0], dtype)
 
 
 @pytest.mark.parametrize('spec', HARD_LISTS, ids=HARD_LIST_IDS)
