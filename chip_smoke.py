@@ -876,11 +876,14 @@ def phase1_kernels(cfg: argparse.Namespace, dev: torch.device,
                 m0=m0, v0=v0, raw_ids=raw_ids, raw_g=raw_g, stacked=stacked,
                 lr=lr, step=step)
   out.update(phase1_gsum(cfg, dev, inputs, out['adagrad_update_sorted']))
-  out['adagrad_update_sorted[criteo]'] = phase1_long_runs(cfg, dev, inputs)
+  out['adagrad_update_sorted[criteo]'], criteo = phase1_long_runs(
+      cfg, dev, inputs)
   out.update(phase1_gather(cfg, dev, inputs))
   out.update(phase1_round(cfg, dev, inputs))
   phase1_edges(cfg, dev, inputs)
   out.update(phase1_bf16(cfg, dev, inputs))
+  for name, record in criteo.items():
+    out[name]['criteo'] = record
   phase1_edges_bf16(cfg, dev, inputs)
   if tune:
     phase1_tune(cfg, dev, inputs)
@@ -1090,8 +1093,15 @@ def phase1_bf16(cfg: argparse.Namespace, dev: torch.device, inp):
     ms = _median_ms(lambda: kernel(*got, rows, x))
     ref = [bf[k].clone() for k in keys]
     plain_ms = _median_ms(lambda: plain(*ref, rows, x), queued=False)
+    library_ms = None
+    if path is None:
+      # index_add_ of the valid entries on the bf16 table, which rounds
+      # every add to bf16.
+      valid_rows, valid_x = rows[valid].long(), x[valid]
+      library_ms = _median_ms(
+          lambda: ref[0].index_add_(0, valid_rows, valid_x))
     row = dict(max_abs_err=err, elements_differ=differ, ms=ms,
-               plain_ms=plain_ms, library_ms=None,
+               plain_ms=plain_ms, library_ms=library_ms,
                **_bound(list_bytes + 2 * len(keys) * u * d * 2, ops))
     extra = ''
     if path is not None:
@@ -1110,7 +1120,8 @@ def phase1_bf16(cfg: argparse.Namespace, dev: torch.device, inp):
       _within_an_ulp('sparse_sgd_apply on a bf16 table', ts,
                      hbt.scatter_add_sorted_reference(
                          cpu['table0'].clone(), rows_c, x.cpu()))
-      extra = '; sparse_sgd_apply 1 launch a call'
+      extra = (f'; index_add_ {library_ms:.4f} ms; sparse_sgd_apply 1 '
+               'launch a call')
     out[name] = row
     print(f'  {name}: {differ} elements differ from the plain version (max '
           f'abs {err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms'
@@ -1501,12 +1512,13 @@ def _adagrad_modes(rows, g, lr):
 
 def time_lists(lists, dev):
   """Each list's kernel times, as phase 1 times them: kernel 1 in its four
-  modes (at the DIN list f32 only) and kernel 4; kernels 2 and 3 where
-  runs are long (the Criteo list, the equal runs); ``zeros`` +
-  ``index_add_`` and kernel 4's plain version beside it at phase 36's
-  and the dense table's list. Returns ``(shape, ms)`` by list. It calls only the wrappers, so
-  that a copy of this file put into an older checkout times that
-  checkout's kernels (``--long-runs``)."""
+  modes (at the DIN list f32 only), kernels 2 and 3 on f32 and bf16
+  tables with ``index_add_`` of the list's valid entries beside kernel 2
+  (on the bf16 table it rounds every add) and, at the Criteo list, their
+  plain versions, and kernel 4; ``zeros`` + ``index_add_`` and kernel 4's
+  plain version beside it at phase 36's and the dense table's list. Returns ``(shape, ms)`` by list. It calls only
+  the wrappers, so that a copy of this file put into an older checkout
+  times that checkout's kernels (``--long-runs``)."""
   import hybridbackend_tpu_torch as hbt
   lr = torch.full((), tb.TABLE_LR, device=dev)
   step = torch.full((), 3.0, device=dev)
@@ -1534,12 +1546,24 @@ def time_lists(lists, dev):
                                                            valid_g))
       t['gsum_dense_sorted_reference'] = _median_ms(
           lambda: hbt.gsum_dense_sorted_reference(rows, g, v), queued=False)
-    if label == 'criteo' or label.startswith('runs-'):
-      tk, m, w = (state[k].clone() for k in ('table', 'm', 'v'))
-      t['scatter_add_sorted'] = _median_ms(
-          lambda: hbt.scatter_add_sorted(tk, rows, g))
-      t['adam_update_sorted'] = _median_ms(
-          lambda: hbt.adam_update_sorted(tk, m, w, rows, g, lr, step))
+    valid_rows = rows[valid].long()
+    for suffix, dtype in (('', torch.float32), ('[bf16]', torch.bfloat16)):
+      tk, m, w = (state[k].to(dtype, copy=True) for k in ('table', 'm', 'v'))
+      x = g.to(dtype)
+      valid_x = x[valid]
+      t[f'scatter_add_sorted{suffix}'] = _median_ms(
+          lambda: hbt.scatter_add_sorted(tk, rows, x))
+      t[f'index_add_{suffix}'] = _median_ms(
+          lambda: tk.index_add_(0, valid_rows, valid_x))
+      t[f'adam_update_sorted{suffix}'] = _median_ms(
+          lambda: hbt.adam_update_sorted(tk, m, w, rows, x, lr, step))
+      if label == 'criteo':
+        t[f'scatter_add_sorted_reference{suffix}'] = _median_ms(
+            lambda: hbt.scatter_add_sorted_reference(tk, rows, x),
+            queued=False)
+        t[f'adam_update_sorted_reference{suffix}'] = _median_ms(
+            lambda: hbt.adam_update_sorted_reference(tk, m, w, rows, x, lr,
+                                                     step), queued=False)
   return shape, times
 
 
@@ -1561,29 +1585,62 @@ def _hold_bits(label, rows, g, state, call, plain):
   return got
 
 
+def _hold_adam(label, rows, g, state, lr, step):
+  """Kernel 3 on copies of ``state`` (table, m, v) on the card against its
+  plain version on the CPU copies: m and v bit for bit (no ``powf`` in
+  them), the table within phase 1's 1e-5 in f32 and within one bf16 ulp
+  in bf16 (``_within_an_ulp``), where CUDA's ``powf`` and the CPU's
+  ``pow`` may differ in ``b ** step``; raises on a difference. Returns
+  the table's max abs err."""
+  import hybridbackend_tpu_torch as hbt
+  got = [t.clone() for t in state]
+  want = [t.to('cpu', copy=True) for t in state]
+  hbt.adam_update_sorted(*got, rows, g, lr, step)
+  hbt.adam_update_sorted_reference(*want, rows.cpu(),
+                                   g.cpu().to(state[0].dtype), lr.cpu(),
+                                   step.cpu())
+  torch.cuda.synchronize()
+  for key, a, w in zip(('m', 'v'), got[1:], want[1:]):
+    if not _bits_equal(a.cpu(), w):
+      raise AssertionError(
+          f'{label}: {key} differs from its CPU version in '
+          f'{int((a.cpu() != w).sum())} elements')
+  t, w = got[0].cpu(), want[0]
+  if t.dtype == torch.bfloat16:
+    return _within_an_ulp(f'{label}: table', t, w)[1]
+  if not torch.allclose(t, w, rtol=1e-5, atol=1e-5):
+    raise AssertionError(f'{label}: the table differs from its CPU version '
+                         f'by {float((t - w).abs().max()):.3e}')
+  return float((t - w).abs().max())
+
+
 def phase1_long_runs(cfg, dev, inp):
-  """Kernels 1 and 4 on update lists with long runs, and at the flagship
-  list, bit for bit on the CPU copy: kernel 1 in its four modes (f32 and
-  bf16 tables; dedup and per occurrence) at the Criteo list
-  (``criteo_list``), at the flagship list and at phase 36's against
-  ``scatter.adagrad_update_sorted_exact`` (the plain version's totals, a
-  correctly rounded apply), kernels 4 and 2 at the Criteo list against
-  their plain versions, and kernel 3 within phase 1's 1e-5 of its own
-  (CUDA's ``powf`` against the CPU's ``pow``). Then at the Criteo list
-  kernel 1 (f32, dedup) against its plain version on the CPU (the max abs
-  err), timed beside its bound and its plain version, and its other modes
-  and kernels 2-4 timed (``time_lists``). Returns kernel 1's record at
-  the Criteo list."""
+  """Kernels 1-4 on update lists with long runs, and at the flagship
+  list, against their plain versions on the CPU copy. At the Criteo list
+  (``criteo_list``), at the flagship list and at phase 36's: kernel 1 in
+  its four modes (f32 and bf16 tables; dedup and per occurrence) bit for
+  bit ``scatter.adagrad_update_sorted_exact`` (the plain version's
+  totals, a correctly rounded apply); kernel 2 on f32 and bf16 tables bit
+  for bit; kernel 3 on f32 and bf16 state with m and v bit for bit and
+  the table within 1e-5 (``_hold_adam``). Kernel 4 at the Criteo list bit
+  for bit. Then at the Criteo list kernel 1 (f32, dedup) against its
+  plain version on the CPU (the max abs err), timed beside its bound and
+  its plain version, and its other modes and kernels 2-4 timed
+  (``time_lists``). Returns kernel 1's record at the Criteo list, and
+  kernels 2 and 3's there (ms, plain version, bound, kernel 2's
+  ``index_add_``) by the name of their flagship rows."""
   import hybridbackend_tpu_torch as hbt
   from hybridbackend_tpu_torch.ops import scatter
   t0 = time.perf_counter()
-  lr = inp['lr']
+  lr, step = inp['lr'], inp['step']
   rows, g, v = criteo_list(dev)
   d = g.shape[1]
   state = _update_state(v, d, dev)
   flagship = (inp['rows'], inp['g'], {'table': inp['table0'],
-                                      'acc': inp['acc0']})
+                                      'acc': inp['acc0'], 'm': inp['m0'],
+                                      'v': inp['v0']})
   r36, g36, v36 = phase36_list(dev)
+  adam_err = 0.0
   for label, (r, x, st) in (('the Criteo list', (rows, g, state)),
                             ('the flagship list', flagship),
                             ("phase 36's list",
@@ -1600,22 +1657,20 @@ def phase1_long_runs(cfg, dev, inp):
             rows.cpu(), g.cpu(), lr.cpu())
         err = max(float((a.cpu() - w).abs().max())
                   for a, w in zip(got, want))
+    for suffix, dtype in (('', torch.float32), ('[bf16]', torch.bfloat16)):
+      xd = x.to(dtype)
+      _hold_bits(f'scatter_add_sorted{suffix} at {label}', r, xd,
+                 [st['table'].to(dtype)],
+                 lambda t: hbt.scatter_add_sorted(t, r, xd),
+                 hbt.scatter_add_sorted_reference)
+      adam_err = max(adam_err, _hold_adam(
+          f'adam_update_sorted{suffix} at {label}', r, xd,
+          [st[k].to(dtype) for k in ('table', 'm', 'v')], lr, step))
   got = hbt.gsum_dense_sorted(rows, g, v)
   if not _bits_equal(got.cpu(), hbt.gsum_dense_sorted_reference(
       rows.cpu(), g.cpu(), v)):
     raise AssertionError('gsum_dense_sorted at the Criteo list differs from '
                          'the plain version')
-  _hold_bits('scatter_add_sorted at the Criteo list', rows, g,
-             [state['table']],
-             lambda t: hbt.scatter_add_sorted(t, rows, g),
-             hbt.scatter_add_sorted_reference)
-  step = inp['step']
-  adam = functools.partial(hbt.adam_update_sorted, rows=rows, updates=g,
-                           lr=lr, step=step)
-  _hold('adam_update_sorted at the Criteo list',
-        (state['table'], state['m'], state['v']), rows, adam,
-        functools.partial(hbt.adam_update_sorted_reference, rows=rows,
-                          updates=g, lr=lr, step=step))
 
   shape, times = time_lists({'criteo': (rows, g, v)}, dev)
   shape, times = shape['criteo'], times['criteo']
@@ -1629,18 +1684,37 @@ def phase1_long_runs(cfg, dev, inp):
   row = dict(max_abs_err=err, ms=times['adagrad_update_sorted'],
              plain_ms=plain_ms, library_ms=None, other_ms=times,
              **_bound(n * (d + 1) * 4 + 4 * u * d * 4, n * d + 7 * u * d))
+  # Kernels 2 and 3 there, counted as phase 1 counts them at the flagship
+  # list: the list (rows, then gradients of the storage type) read once,
+  # each distinct row of the table and of each slot read and written once.
+  criteo = {}
+  for suffix, size in (('', 4), ('[bf16]', 2)):
+    list_bytes = n * 4 + n * d * size
+    criteo[f'scatter_add_sorted{suffix}'] = dict(
+        ms=times[f'scatter_add_sorted{suffix}'],
+        plain_ms=times[f'scatter_add_sorted_reference{suffix}'],
+        library_ms=times[f'index_add_{suffix}'],
+        **_bound(list_bytes + 2 * u * d * size, n * d + u * d))
+    criteo[f'adam_update_sorted{suffix}'] = dict(
+        ms=times[f'adam_update_sorted{suffix}'],
+        plain_ms=times[f'adam_update_sorted_reference{suffix}'],
+        library_ms=None,
+        **_bound(list_bytes + 6 * u * d * size, n * d + 15 * u * d))
   print(f'phase 1, long runs: the Criteo list ({n} rows, {u} distinct, the '
         f'longest run {shape["longest"]}, {shape["over_128"]} runs longer '
         f'than 128, on [{v}, {d}]): kernel 1 in its four modes bit for bit '
         'its totals with a correctly rounded apply there, at the flagship '
         "list and at phase 36's (max abs err "
-        f'{err:.3e} from its plain version), kernels 4 and 2 bitwise their '
-        'plain versions, kernel 3 within 1e-5; '
+        f'{err:.3e} from its plain version), kernel 2 (f32, bf16) bitwise '
+        'its plain version there, kernel 3 (f32, bf16) with m and v '
+        f'bitwise and the table within 1e-5 (max abs err {adam_err:.3e}), '
+        'kernel 4 bitwise at the Criteo list; '
         f'kernel 1 {row["ms"]:.4f} ms, plain {plain_ms:.4f} ms; '
-        + _against_bound(row) + '; ' + ', '.join(
-            f'{k} {ms:.4f} ms' for k, ms in times.items())
+        + _against_bound(row) + '; ' + '; '.join(
+            f'{name} {_against_bound(m)}' for name, m in criteo.items())
+        + '; ' + ', '.join(f'{k} {ms:.4f} ms' for k, ms in times.items())
         + f'; {time.perf_counter() - t0:.1f} s')
-  return row
+  return row, criteo
 
 
 def _tune_gsum(label, rows, g, v, dev):
@@ -7686,6 +7760,11 @@ def main() -> int:
                  # its permutation, and the whole dense_row_totals.
                  'sort_ms': m.get('sort_ms'),
                  'dense_row_totals_ms': m.get('function_ms'),
+                 # Kernels 2 and 3 at the Criteo entry point's list
+                 # (criteo_list, runs up to about 1600 entries): ms, plain
+                 # version, bound and kernel 2's index_add_
+                 # (phase1_long_runs).
+                 'criteo': m.get('criteo'),
                  # Launches in the trainers' runs (phases 17 and 18), by
                  # the kernel's own counter; null for a storage or dedup
                  # mode, whose counter it shares with its kernel's row.

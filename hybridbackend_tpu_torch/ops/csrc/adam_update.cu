@@ -24,10 +24,10 @@
 // Moments of rows not in the list do not decay. `omb1` and `omb2` are
 // 1 - b1 and 1 - b2 as the caller rounds them. s is summed in f32 from
 // 0.f in list order with explicitly rounded adds (sorted_runs.cuh:
-// run_total). The bf16 mode (hb_adam_update_sorted_bf16, the TPU kernel's
-// bf16 table and moments) reads table, m and v as f32, does the same f32
-// math and stores each of the three rounded to nearest once; the table's
-// step uses the unrounded m[r] and v[r].
+// tile_run, add_span). The bf16 mode (hb_adam_update_sorted_bf16, the TPU
+// kernel's bf16 table and moments) reads table, m and v as f32, does the
+// same f32 math and stores each of the three rounded to nearest once; the
+// table's step uses the unrounded m[r] and v[r].
 //
 // What bounds it: bytes. It reads n*(d+1)*4 bytes of list and reads and
 // writes 6*u*d*4 bytes of the u distinct rows of table, m and v, with a
@@ -43,29 +43,19 @@
 // 64 to 512 entries with batches of 1 to 4 (2 to 6 resident blocks per SM)
 // all take 0.0486-0.0566 ms.
 //
-// Design: adagrad_update.cu's, on sorted_runs.cuh, with three state
-// arrays. A block takes a tile of `tile` consecutive entries; one thread
-// starts a single bulk copy of the tile's gradients into shared memory and
-// computes lr, bc1 and bc2 once for the block (powf of the same inputs
-// gives the same bits in every block), while all threads load the tile's
-// rows; heads are found in shared memory. Each entry is served by a group
-// of min(32, d/4) lanes of 16 bytes. A group first issues the loads of the
-// table, m and v rows of up to `batch` heads it owns (held in registers:
-// 3 * batch * 4 floats a thread), only then waits for the copy, sums each
-// run from shared memory, applies and stores. These batched register loads
-// were taken over asynchronous copies of the state rows into shared memory
-// because they are the simpler of the two and reach the goal of twice the
-// bound: at tiles of 128 entries of d = 16 a thread serves two entries, so
-// a batch of 2 holds both heads' rows, 96 bytes, some 24 KB a block with 4
-// blocks resident per SM (a batch of 8 leaves one block and is slower). A
-// d that 4 does not divide, or a grads, table, m or v address that 16 does
-// not divide, takes the scalar lanes (and, for grads, plain loads from
-// global memory) in the same kernel, as does a tile too large to stage.
-// The bf16 mode is the same kernel on Store<bf16, V> lanes (8 bytes for 4
-// elements of each state row and of the staged gradients); its gradients
-// are staged only where a row is a whole number of 16 bytes (d a
-// multiple of 8) at a 16-byte-aligned address, and are plain loads
-// otherwise.
+// Design: sorted_runs.cuh's update_tile with AdamRows: adagrad_update.cu's
+// with three state arrays (3 * batch * 4 floats a thread in registers; at
+// tiles of 128 entries of d = 16 a batch of 2 holds a thread's two heads,
+// 96 bytes, with 4 blocks resident per SM, kMinBlocks; a batch of 8 leaves
+// one block and is slower). Thread 0 computes lr, bc1 and bc2 once for the
+// block while the tile's rows are staged.
+//
+// Long runs: as in scatter_add.cu (its paragraph), the tail's row present
+// whatever its total. At the Criteo list 0.0219-0.0221 ms (bf16
+// 0.0224-0.0225) against the walk's 0.41 (bf16 0.37); at the flagship
+// list 0.0492-0.0493 against 0.0496-0.0497 before (bf16 0.0428-0.0430
+// against 0.0423-0.0424), chip_smoke.py --long-runs, NVIDIA H100 80GB
+// HBM3, 700 W.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,11 +87,58 @@ __device__ __forceinline__ void adam_apply(float& t, float& m, float& v,
   t = __fsub_rn(t, upd);
 }
 
-// Shared memory: the mbarrier and the block's scalars (32 bytes), the
-// staged gradients (tile * d * sizeof(S) bytes, when `staged`), then
-// tile + 1 rows.
+// A run's row (update_tile's Rows): its table, m and v lanes, and the
+// update of its total s (zero or not: the row is present). Thread 0
+// computes lr, bc1 and bc2 once for the block (powf of the same inputs
+// gives the same bits in every block).
+template <typename S>
+struct AdamRows {
+  static constexpr bool kSquares = false;
+  S* table;
+  S* m;
+  S* v;
+  const float* lr_ptr;
+  const float* step_ptr;
+  AdamParams p;
+  AdamScalars k;
+  template <typename V>
+  struct State {
+    V t, m, v;
+  };
+  __device__ void setup(float* sc) const {
+    const float step = *step_ptr;
+    sc[0] = *lr_ptr;
+    sc[1] = __fsub_rn(1.f, powf(p.b1, step));
+    sc[2] = __fsub_rn(1.f, powf(p.b2, step));
+  }
+  __device__ void read(const float* sc) {
+    k = AdamScalars{sc[0], sc[1], sc[2]};
+  }
+  template <typename V>
+  __device__ State<V> load(int64_t at) const {
+    return {load_lane<V>(table, at), load_lane<V>(m, at),
+            load_lane<V>(v, at)};
+  }
+  template <typename V>
+  __device__ void store(int64_t at, State<V> st, V s, V) const {
+#pragma unroll
+    for (int e = 0; e < Lane<V>::kFloats; ++e)
+      adam_apply(Lane<V>::at(st.t, e), Lane<V>::at(st.m, e),
+                 Lane<V>::at(st.v, e), Lane<V>::at(s, e), k, p);
+    store_lane<V>(m, at, st.m);
+    store_lane<V>(v, at, st.v);
+    store_lane<V>(table, at, st.t);
+  }
+};
+
+// The blocks of the flagship's batch (2) that one SM must hold, as before
+// the long-run path was added (2 without the floor); the tuning batches
+// (4, 8) are left to the compiler.
+template <int kBatch>
+constexpr int kMinBlocks = kBatch > 2 ? 1 : 4;
+
 template <typename S, typename V, int kBatch>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<kBatch>)
 adam_update_sorted_kernel(S* __restrict__ table, S* __restrict__ m,
                           S* __restrict__ v,
                           const int32_t* __restrict__ rows,
@@ -110,81 +147,8 @@ adam_update_sorted_kernel(S* __restrict__ table, S* __restrict__ m,
                           const float* __restrict__ step_ptr, AdamParams p,
                           int64_t n, int64_t vocab, int d, int tile,
                           int staged) {
-  using St = Store<S, V>;
-  using Raw = typename St::Raw;
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  AdamScalars* scalars_s = reinterpret_cast<AdamScalars*>(smem + 16);
-  Raw* grad_s = reinterpret_cast<Raw*>(smem + 32);
-  int32_t* rows_s = reinterpret_cast<int32_t*>(
-      smem + 32 + (staged ? static_cast<size_t>(tile) * d * sizeof(S) : 0));
-
-  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * tile;
-  const int cnt = static_cast<int>(n - t0 < tile ? n - t0 : tile);
-  const int width = d / Lane<V>::kFloats;
-  const Raw* gsrc = reinterpret_cast<const Raw*>(grads);
-  Raw* trows = reinterpret_cast<Raw*>(table);
-  Raw* mrows = reinterpret_cast<Raw*>(m);
-  Raw* vrows = reinterpret_cast<Raw*>(v);
-
-  if (threadIdx.x == 0) {
-    if (staged) {
-      mbarrier_init(bar);
-      bulk_load(grad_s, grads + t0 * d,
-                static_cast<uint32_t>(cnt) * d * sizeof(S), bar);
-    }
-    const float step = *step_ptr;
-    *scalars_s = AdamScalars{*lr_ptr, __fsub_rn(1.f, powf(p.b1, step)),
-                             __fsub_rn(1.f, powf(p.b2, step))};
-  }
-  stage_rows(rows_s, rows, t0, cnt);
-  __syncthreads();
-
-  const AdamScalars k = *scalars_s;
-  const Raw* tile_src = staged ? grad_s : gsrc + t0 * width;
-  const Groups g(width);
-  bool landed = !staged;
-  if (g.active()) {
-    for (int c = g.lane; c < width; c += g.lanes) {
-      for (int j0 = g.group; j0 < cnt; j0 += g.count * kBatch) {
-        int32_t r[kBatch];
-        V ht[kBatch], hm[kBatch], hv[kBatch];
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          const int j = j0 + b * g.count;
-          r[b] = j < cnt && is_head(rows_s, j, vocab) ? rows_s[j + 1] : -1;
-          ht[b] = hm[b] = hv[b] = Lane<V>::zero();
-          if (r[b] >= 0) {
-            const int64_t at = static_cast<int64_t>(r[b]) * width + c;
-            ht[b] = St::load(trows[at]);
-            hm[b] = St::load(mrows[at]);
-            hv[b] = St::load(vrows[at]);
-          }
-        }
-        if (!landed) {
-          mbarrier_wait(bar, 0);
-          landed = true;
-        }
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          if (r[b] < 0) continue;
-          V s = run_total<V, S>(rows_s, j0 + b * g.count, cnt, r[b],
-                                tile_src, width, c, rows, gsrc, t0 + cnt, n);
-#pragma unroll
-          for (int e = 0; e < Lane<V>::kFloats; ++e) {
-            adam_apply(Lane<V>::at(ht[b], e), Lane<V>::at(hm[b], e),
-                       Lane<V>::at(hv[b], e), Lane<V>::at(s, e), k, p);
-          }
-          const int64_t at = static_cast<int64_t>(r[b]) * width + c;
-          mrows[at] = St::store(hm[b]);
-          vrows[at] = St::store(hv[b]);
-          trows[at] = St::store(ht[b]);
-        }
-      }
-    }
-  }
-  // No block leaves while its copy is in flight.
-  if (!landed) mbarrier_wait(bar, 0);
+  update_tile<S, V, kBatch>(AdamRows<S>{table, m, v, lr_ptr, step_ptr, p, {}},
+                            rows, grads, n, vocab, d, tile, staged != 0);
 }
 
 template <typename S>
@@ -219,30 +183,13 @@ int launch_for(void* table, void* m, void* v, const void* rows,
               lane_aligned<S>(m) && lane_aligned<S>(v)
           ? kernel_for<S, float4>(batch)
           : kernel_for<S, float>(batch);
-  size_t smem;
-  const cudaError_t err =
-      tile_shared_memory(kernel, d, tile, staged, sizeof(S), &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t blocks = (n + tile - 1) / tile;
-  kernel<<<static_cast<unsigned int>(blocks), kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<S*>(table), static_cast<S*>(m), static_cast<S*>(v),
-      static_cast<const int32_t*>(rows), static_cast<const S*>(grads),
-      static_cast<const float*>(lr), static_cast<const float*>(step), p, n,
-      vocab, d, tile, staged ? 1 : 0);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename S>
-int blocks_per_sm(int d, int tile, int batch, int* blocks) {
-  const Kernel<S> kernel = kernel_for<S, float4>(batch);
-  if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
-  size_t smem;
-  const cudaError_t err =
-      tile_shared_memory(kernel, d, tile, true, sizeof(S), &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, reinterpret_cast<const void*>(kernel), kThreads, smem));
+  return launch_tiles(kernel, n, d, tile, staged, sizeof(S), stream,
+                      static_cast<S*>(table), static_cast<S*>(m),
+                      static_cast<S*>(v), static_cast<const int32_t*>(rows),
+                      static_cast<const S*>(grads),
+                      static_cast<const float*>(lr),
+                      static_cast<const float*>(step), p, n, vocab, d, tile,
+                      staged ? 1 : 0);
 }
 
 }  // namespace
@@ -282,6 +229,8 @@ extern "C" int hb_adam_update_sorted_bf16(void* table, void* m, void* v,
 extern "C" int hb_adam_update_sorted_blocks_per_sm(int d, int tile,
                                                    int batch, int bf16,
                                                    int* blocks) {
-  return bf16 ? blocks_per_sm<__nv_bfloat16>(d, tile, batch, blocks)
-              : blocks_per_sm<float>(d, tile, batch, blocks);
+  return bf16 ? tile_blocks_per_sm(kernel_for<__nv_bfloat16, float4>(batch),
+                                   d, tile, sizeof(__nv_bfloat16), blocks)
+              : tile_blocks_per_sm(kernel_for<float, float4>(batch), d, tile,
+                                   sizeof(float), blocks);
 }

@@ -23,30 +23,33 @@
 // rows[i-1], rows[end], the update and the table row one after the other
 // kept 64 bytes per warp in flight and reached a quarter of the bound.
 //
-// Design (sorted_runs.cuh holds the pieces). A block takes a tile of
-// `tile` consecutive entries. One thread starts a single bulk copy of the
-// tile's updates into shared memory while all threads load the tile's
-// rows; run heads are then found in shared memory. Each entry is served by
-// a group of min(32, d/4) lanes of 16 bytes (4 lanes at d = 16, 8 entries
-// per warp instruction). A group first issues the loads of the table rows
-// of up to kBatch heads it owns, only then waits for the bulk copy, sums
-// each run from shared memory and stores: the table's latency overlaps the
-// copy's, and a thread has kBatch 16-byte loads in flight, not one of 4
-// bytes. One tile per block and no ring: at 128 entries of d = 16 a block
-// holds 9 KB of shared memory and 256 threads, so eight blocks are resident
-// on an SM, and while one waits for its copy the others update (1664 tiles
-// at the flagship list, 1056 resident at once). Tiles of 64 to 512 entries
-// measure within 5% of each other there; 128 is the fastest. A ring of two
-// stages in a persistent block would buy nothing over that and cost a
-// second barrier. A d that 4 does not divide, or an `updates` or `table`
-// address that a 4-element lane (16 bytes in f32, 8 in bf16) does not
-// divide, takes the scalar lanes. `updates` are staged by the bulk copy
-// only where a row is a whole number of 16 bytes (every d that 4 divides
-// in f32, 8 in bf16) at a 16-byte-aligned address; otherwise, and for a
-// tile too large to stage (d > 2560 at the smallest tile in f32), they are
-// plain loads from global memory in the same kernel. The bf16 kernel is
-// the f32 one with Store<bf16, V> lanes: a row of 16 is 4 lanes of 8
-// bytes, so a thread's loads are 8 bytes wide.
+// Design: sorted_runs.cuh's update_tile with AddRows. A block takes a
+// tile of `tile` consecutive entries, one bulk copy of its updates and one
+// load of its rows; a group of min(32, d/4) lanes (4 at d = 16, 8 entries
+// a warp instruction) serves an entry, issues the loads of the table rows
+// of up to kBatch heads it owns, only then waits for the copy, sums each
+// run from shared memory and stores once. Tiles of 64 to 512 entries
+// measure within 5% of each other at the flagship list; 128 is the
+// fastest, 256 no faster at the Criteo list. A d that 4 does not divide,
+// or an `updates` or `table` address that a 4-element lane does not
+// divide, takes the scalar lanes; updates that cannot be staged (a row not
+// a whole number of 16 bytes, an unaligned address, a tile too large)
+// are plain loads from global memory in the same kernel. The bf16 kernel
+// is the f32 one with Store<bf16, V> lanes (8 bytes for 4 elements).
+//
+// Long runs: a column's first id in the Criteo entry point's batch takes
+// about 1570 of 4096 entries. A run's owner used to walk its rest past the
+// tile one dependent global load an entry (0.41 ms at the Criteo list,
+// 21x the flagship list's time). Now a run that ends within 8 entries
+// past its tile stays its group's (those entries are staged with the
+// tile), and a longer one is the block's: its end found by a search while
+// the groups work, its rest streamed through a ring of two 16-KB stages in
+// shared memory and added in scalar lanes. At the Criteo list
+// 0.0197-0.0198 ms (bf16 0.0200-0.0202) against the walk's 0.41 and
+// `index_add_`'s 0.0254-0.0259; at the flagship list 0.0182-0.0183
+// against the walk's 0.0192-0.0193 (bf16 0.0159-0.0160 against 0.0159),
+// chip_smoke.py --long-runs, NVIDIA H100 80GB HBM3, 700 W. The totals
+// keep their bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,92 +60,46 @@ namespace {
 
 using namespace sorted_runs;
 
-constexpr int kBatch = 4;  // table rows a thread loads before it adds
+// Table rows a thread loads before it waits for its tile: at d = 16 a
+// group serves 2 entries of a 128-entry tile; bf16 ran faster with 4.
+template <typename S>
+constexpr int kBatch = sizeof(S) == 2 ? 4 : 2;
 
-// Shared memory: the mbarrier (16 bytes), the staged updates
-// (tile * d * sizeof(S) bytes, when `staged`), then tile + 1 rows.
+// A run's row (update_tile's Rows): its table lane, and the total added
+// and stored once.
+template <typename S>
+struct AddRows {
+  static constexpr bool kSquares = false;
+  S* table;
+  template <typename V>
+  struct State {
+    V t;
+  };
+  __device__ void setup(float*) const {}
+  __device__ void read(const float*) {}
+  template <typename V>
+  __device__ State<V> load(int64_t at) const {
+    return {load_lane<V>(table, at)};
+  }
+  template <typename V>
+  __device__ void store(int64_t at, State<V> st, V s, V) const {
+    store_lane<V>(table, at, Lane<V>::add(st.t, s));
+  }
+};
+
+// The blocks that one SM must hold, as in 4-element lanes before the
+// long-run path was added (its loops would otherwise take registers that
+// lower them to 4).
+constexpr int kMinBlocks = 5;
+
 template <typename S, typename V>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 scatter_add_sorted_kernel(S* __restrict__ table,
                           const int32_t* __restrict__ rows,
                           const S* __restrict__ updates, int64_t n,
                           int64_t vocab, int d, int tile, int staged) {
-  using St = Store<S, V>;
-  using Raw = typename St::Raw;
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  Raw* upd_s = reinterpret_cast<Raw*>(smem + 16);
-  int32_t* rows_s = reinterpret_cast<int32_t*>(
-      smem + 16 + (staged ? static_cast<size_t>(tile) * d * sizeof(S) : 0));
-
-  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * tile;
-  const int cnt = static_cast<int>(n - t0 < tile ? n - t0 : tile);
-  const int width = d / Lane<V>::kFloats;
-  const Raw* gsrc = reinterpret_cast<const Raw*>(updates);
-  Raw* trows = reinterpret_cast<Raw*>(table);
-
-  if (staged && threadIdx.x == 0) {
-    mbarrier_init(bar);
-    bulk_load(upd_s, updates + t0 * d,
-              static_cast<uint32_t>(cnt) * d * sizeof(S), bar);
-  }
-  stage_rows(rows_s, rows, t0, cnt);
-  __syncthreads();
-
-  const Raw* tile_src = staged ? upd_s : gsrc + t0 * width;
-  const Groups g(width);
-  bool landed = !staged;
-  if (g.active()) {
-    for (int c = g.lane; c < width; c += g.lanes) {
-      for (int j0 = g.group; j0 < cnt; j0 += g.count * kBatch) {
-        int32_t r[kBatch];
-        V held[kBatch];
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          const int j = j0 + b * g.count;
-          r[b] = j < cnt && is_head(rows_s, j, vocab) ? rows_s[j + 1] : -1;
-          held[b] = Lane<V>::zero();
-          if (r[b] >= 0)
-            held[b] =
-                St::load(trows[static_cast<int64_t>(r[b]) * width + c]);
-        }
-        if (!landed) {
-          mbarrier_wait(bar, 0);
-          landed = true;
-        }
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          if (r[b] < 0) continue;
-          const V s = run_total<V, S>(rows_s, j0 + b * g.count, cnt, r[b],
-                                      tile_src, width, c, rows, gsrc,
-                                      t0 + cnt, n);
-          trows[static_cast<int64_t>(r[b]) * width + c] =
-              St::store(Lane<V>::add(held[b], s));
-        }
-      }
-    }
-  }
-  // No block leaves while its copy is in flight.
-  if (!landed) mbarrier_wait(bar, 0);
-}
-
-template <typename S, typename V>
-int launch(S* table, const int32_t* rows, const S* updates, int64_t n,
-           int64_t vocab, int d, int tile, bool staged, cudaStream_t stream) {
-  const size_t smem =
-      16 + (staged ? static_cast<size_t>(tile) * d * sizeof(S) : 0) +
-      (static_cast<size_t>(tile) + 1) * 4;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        scatter_add_sorted_kernel<S, V>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int64_t blocks = (n + tile - 1) / tile;
-  scatter_add_sorted_kernel<S, V>
-      <<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(
-          table, rows, updates, n, vocab, d, tile, staged ? 1 : 0);
-  return static_cast<int>(cudaGetLastError());
+  update_tile<S, V, kBatch<S>>(AddRows<S>{table}, rows, updates, n, vocab, d,
+                            tile, staged != 0);
 }
 
 // The launch for a table of S: 4-element lanes where d and every address
@@ -154,13 +111,15 @@ int launch_for(void* table, const void* rows, const void* updates, int64_t n,
   if (n <= 0 || vocab <= 0 || d <= 0)
     return static_cast<int>(cudaGetLastError());
   const bool staged = stageable<S>(updates, d, tile);
-  S* t = static_cast<S*>(table);
-  const int32_t* r = static_cast<const int32_t*>(rows);
-  const S* u = static_cast<const S*>(updates);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % 4 == 0 && lane_aligned<S>(updates) && lane_aligned<S>(table))
-    return launch<S, float4>(t, r, u, n, vocab, d, tile, staged, s);
-  return launch<S, float>(t, r, u, n, vocab, d, tile, staged, s);
+  const auto kernel =
+      d % 4 == 0 && lane_aligned<S>(updates) && lane_aligned<S>(table)
+          ? scatter_add_sorted_kernel<S, float4>
+          : scatter_add_sorted_kernel<S, float>;
+  return launch_tiles(kernel, n, d, tile, staged, sizeof(S), stream,
+                      static_cast<S*>(table),
+                      static_cast<const int32_t*>(rows),
+                      static_cast<const S*>(updates), n, vocab, d, tile,
+                      staged ? 1 : 0);
 }
 
 }  // namespace

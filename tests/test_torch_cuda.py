@@ -15,7 +15,11 @@ boundaries and at the list's end, beside invalid rows, in the unstaged
 layouts). Kernel 1 is held there bit for bit against
 ``scatter.adagrad_update_sorted_exact``, the plain version's totals with
 a correctly rounded apply (torch's CPU ``sqrt`` may differ from it in the
-last bit), and kernels 2 and 4 bit for bit against their plain versions.
+last bit), kernels 2 and 4 bit for bit against their plain versions, and
+kernel 3's moments bit for bit, its table to the tolerance below; kernels
+1-3 also at tiles of 1, 2 and 16 entries, where nearly every run leaves
+its tile: a short tail (at most 8 entries past it) staged with the tile,
+a long one streamed through the tail's ring of 16-KB stages.
 Tolerance ``rtol = atol = 1e-5``: both sides then round the same f32
 operations in the same order (LazyAdam's ``b ** step`` comes from CUDA's
 ``powf`` on one side and the CPU's ``pow`` on the other, a few ulp). The
@@ -625,8 +629,7 @@ def test_adagrad_kernel_bits_on_the_hard_lists(dev, spec, dedup, dtype, small,
   """Kernel 1 in each mode bit for bit
   ``scatter.adagrad_update_sorted_exact`` (the plain version's totals and
   a correctly rounded apply); ``small``: tiles of 16
-  entries, so that runs leave many tiles and a long run's tail streams
-  through a ring of four 4-entry stages."""
+  entries, so that runs leave many tiles."""
   if small:
     monkeypatch.setattr(scatter, 'TILE_ENTRIES', 16)
   v, d, n, rows, g, table = hard_list(spec, dev, dtype)
@@ -639,16 +642,107 @@ def test_adagrad_kernel_bits_on_the_hard_lists(dev, spec, dedup, dtype, small,
 
 
 @pytest.mark.parametrize('small', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('spec', LONG_LISTS, ids=LONG_LIST_IDS)
-def test_add_kernel_bits_on_the_long_lists(dev, spec, small, monkeypatch):
-  """Kernel 2 (still the walk of ``run_total``) bit for bit its plain
-  version on the long-run lists."""
+def test_add_kernel_bits_on_the_long_lists(dev, spec, dtype, small,
+                                           monkeypatch):
+  """Kernel 2 bit for bit its plain version on the long-run lists, in f32
+  and bf16 (the same f32 totals, each row rounded once); ``small``: tiles
+  of 16 entries."""
   if small:
     monkeypatch.setattr(scatter, 'TILE_ENTRIES', 16)
-  v, d, n, rows, g, table = hard_list(spec, dev)
+  v, d, n, rows, g, table = hard_list(spec, dev, dtype)
   got = hbt.scatter_add_sorted(table.clone(), rows, g)
   assert _same_bits(got.cpu(), hbt.scatter_add_sorted_reference(
       table.cpu(), rows.cpu(), g.cpu()))
+
+
+def assert_adam_bits(got, want, dtype):
+  """Kernel 3's ``(table, m, v)`` against its plain version's: the moments
+  bit for bit (no ``powf`` in them); the table within ``TOL`` in f32, or
+  by the bf16 rule of ``assert_within_an_ulp`` (``b ** step`` from CUDA's
+  ``powf`` against the CPU's ``pow``)."""
+  (tk, mk, vk), (tr, mr, vr) = [[x.cpu() for x in xs] for xs in (got, want)]
+  assert _same_bits(mk, mr) and _same_bits(vk, vr)
+  if dtype == torch.float32:
+    torch.testing.assert_close(tk, tr, **TOL)
+  else:
+    assert_within_an_ulp(tk, tr, share=0.01)
+
+
+@pytest.mark.parametrize('small', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('spec', LONG_LISTS, ids=LONG_LIST_IDS)
+def test_adam_kernel_bits_on_the_long_lists(dev, spec, dtype, small,
+                                            monkeypatch):
+  """Kernel 3 on the long-run lists (``assert_adam_bits``); ``small``:
+  tiles of 16 entries."""
+  if small:
+    monkeypatch.setattr(scatter, 'TILE_ENTRIES', 16)
+  v, d, n, rows, g, table = hard_list(spec, dev, dtype)
+  state = update_state('adam', spec, table)
+  got = [t.clone() for t in state]
+  hbt.adam_update_sorted(*got, rows, g, 0.05, 3)
+  want = hbt.adam_update_sorted_reference(
+      *(t.cpu() for t in state), rows.cpu(), g.cpu(), 0.05, 3)
+  assert_adam_bits(got, want, dtype)
+  _assert_untouched(rows, v, list(zip(got, state)))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_adam_kernel_moves_a_tail_whose_total_is_zero(dev, dtype):
+  """The run of 4096 of ``run-4096`` leaves its tiles, and its gradients
+  cancel in pairs, so that its total is exactly 0 after every pair: the
+  tail's row is present all the same, so its moments decay and its table
+  row moves, as in the plain version."""
+  spec = LONG_LISTS[LONG_LIST_IDS.index('run-4096')]
+  v, d, n, rows, g, table = hard_list(spec, 'cpu', dtype)
+  r = int(rows[400])
+  lo, hi = (int(np.searchsorted(rows.numpy(), r, side))
+            for side in ('left', 'right'))
+  assert hi - lo == 4096
+  g[lo + 1:hi:2] = -g[lo:hi - 1:2]
+  state = update_state('adam', spec, table)
+  got = [t.to(dev, copy=True) for t in state]
+  hbt.adam_update_sorted(*got, rows.to(dev), g.to(dev), 0.05, 3)
+  want = hbt.adam_update_sorted_reference(
+      *(t.clone() for t in state), rows, g, 0.05, 3)
+  assert_adam_bits(got, want, dtype)
+  tk, mk = got[0].cpu(), got[1].cpu()
+  assert not torch.equal(tk[r], table[r]) and not torch.equal(mk[r],
+                                                              state[1][r])
+
+
+@pytest.mark.parametrize('tile', [1, 2])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('kernel', ['add', 'adam', 'adagrad', 'nodedup'])
+@pytest.mark.parametrize('spec', LONG_LISTS, ids=LONG_LIST_IDS)
+def test_update_kernels_at_a_tile_of_one_and_two(dev, spec, kernel, dtype,
+                                                 tile, monkeypatch):
+  """Kernels 1-3 with tiles of 1 and 2 entries: every run of two or more
+  (three or more) leaves its tile, as a short tail of at most 8 entries
+  past it, staged with the tile, or a long one, which the block streams
+  through its ring from the next entry on. Bits as on the long lists:
+  kernel 2 and kernel 1 (against ``adagrad_update_sorted_exact``)
+  bitwise, kernel 3 by ``assert_adam_bits``."""
+  monkeypatch.setattr(scatter, 'tile_entries', lambda d: tile)
+  v, d, n, rows, g, table = hard_list(spec, dev, dtype)
+  state = update_state(kernel, spec, table)
+  got = [t.clone() for t in state]
+  run_update(kernel, got, rows, g)
+  plain = [t.cpu() for t in state]
+  if kernel == 'adam':
+    want = hbt.adam_update_sorted_reference(*plain, rows.cpu(), g.cpu(),
+                                            0.05, 3)
+    assert_adam_bits(got, want, dtype)
+    return
+  if kernel == 'add':
+    want = [hbt.scatter_add_sorted_reference(*plain, rows.cpu(), g.cpu())]
+  else:
+    want = scatter.adagrad_update_sorted_exact(
+        *plain, rows.cpu(), g.cpu(), 0.05, dedup=kernel == 'adagrad')
+  for x, w in zip(got, want):
+    assert _same_bits(x.cpu(), w)
 
 
 @pytest.mark.parametrize('kernel', ['adagrad', 'nodedup', 'adam'])
